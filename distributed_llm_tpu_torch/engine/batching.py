@@ -1,0 +1,933 @@
+"""Continuous batching: many concurrent requests share one decode loop.
+
+Counterpart of the main path of ``distributed_llm_tpu/engine/batching.py``.
+A scheduler thread runs in front of the paged KV pool
+(engine/paged_kv.py):
+
+- a request **admits** into one of ``decode_batch`` slots when a slot
+  and enough KV blocks are free.  A prompt that fits one prefill chunk
+  prefills at once (the flash causal kernel, then its K/V is paged into
+  the slot's blocks); a LONGER one becomes the tick's single in-flight
+  **chunked prefill**, written chunk by chunk straight into its blocks
+  (the paged chunk kernel) between decode ticks;
+- a prompt that extends a parked one (multi-turn chat) maps the parked
+  blocks read-only into its table, copies the mid-block boundary block
+  (copy-on-write) and prefills only the suffix;
+- every tick runs ``decode_steps_per_tick`` batched ragged decode steps
+  (the ragged decode kernel over every slot's full table row at its true
+  position) and then pulls the tick's [T, B] tokens to the host in ONE
+  sync (``_fetch_tick``); blocks grow lazily as sequences grow;
+- ``generate()`` blocks on a per-request event while its tokens stream
+  out of the shared loop; ``generate_stream()`` yields text deltas.
+
+Not ported yet (ROADMAP.md): speculation, host KV spill, preemption and
+replay, tenant quotas, crash capture/adopt, tensor parallelism, int8,
+the dense windowed tick and the observability hooks.  Without
+preemption, a slot whose next block cannot be allocated even after
+evicting every parked prefix and cancelling the in-flight prefill is
+finished early with what it has generated (the JAX engine's rule for a
+sole occupant); a full-residency pool, the only kind ported, does not
+reach that state in practice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..config import TierConfig
+from ..device import DeviceLike, resolve_device
+from ..models import transformer
+from ..models.transformer import Transformer
+from ..serving.errors import error_dict
+from .inference import GenerationResult, prepare_prompt, trim_at_eos
+from .paged_kv import (BlockAllocator, PagedConfig, TRASH_BLOCK,
+                       chunk_prefill_paged, copy_block, decode_step_paged,
+                       init_pool, write_prefill_blocks)
+from .prefix_cache import PrefixCache, select_reuse
+from .tokenizer import StreamDecoder, get_tokenizer
+
+History = Union[str, Sequence[Dict[str, Any]]]
+
+logger = logging.getLogger(__name__)
+
+
+class EngineStoppedError(RuntimeError):
+    """A request failed by ``stop()`` while queued or in flight; carries
+    the reference error-dict shape in ``.shape``."""
+
+    def __init__(self, shape: Dict[str, Any]):
+        super().__init__(str(shape.get("error", "engine stopped")))
+        self.shape = dict(shape)
+
+
+def _sample_batched(logits: torch.Tensor, temps: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-slot temperature: greedy where temp <= 0, else a categorical
+    draw by the Gumbel-max rule (what ``jax.random.categorical`` does).
+    ``generator=None`` means every slot is greedy and draws nothing."""
+    greedy = logits.argmax(dim=-1)
+    if generator is None:
+        return greedy
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+    scaled = logits.float() / temps.clamp(min=1e-6)[:, None]
+    sampled = (scaled + gumbel).argmax(dim=-1)
+    return torch.where(temps > 0, sampled, greedy)
+
+
+def _fetch_tick(x: torch.Tensor) -> np.ndarray:
+    """THE tick's one device -> host sync: all of a tick's [T, B] tokens
+    become observable in one pull."""
+    return x.cpu().numpy()
+
+
+@dataclasses.dataclass
+class _Request:
+    history: History
+    max_new_tokens: Optional[int]
+    temperature: Optional[float]
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    result: Optional[GenerationResult] = None
+    error: Optional[BaseException] = None
+    t_submit: float = dataclasses.field(default_factory=time.perf_counter)
+    # Streaming: every emitted token id is pushed here; None ends it.
+    token_queue: Optional["queue.Queue"] = None
+    # Set when admission deferred because the single chunked-prefill
+    # lane was busy: the scheduler stops re-popping (and re-tokenizing)
+    # the head request until the lane frees.
+    needs_chunk: bool = False
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: _Request
+    blocks: List[int]
+    prompt_len: int
+    budget: int
+    temperature: float
+    ttft_ms: float
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    prompt_ids: tuple = ()
+    # Growth cap in pool blocks (prompt bucket + decode budget).
+    max_blocks: int = 0
+    # Shared-prefix hit: the PrefixEntry this slot pinned.
+    pinned_entry: Optional[Any] = None
+
+
+@dataclasses.dataclass
+class _Prefill:
+    """The tick's single in-flight chunked prefill: a request whose prompt
+    is written into its reserved slot's blocks one chunk per grant,
+    interleaved with decode ticks."""
+
+    request: _Request
+    slot_ix: int                  # reserved slot (no _Slot until done)
+    seq: List[int]
+    prompt_len: int
+    prompt_ids: tuple
+    total: int
+    budget: int
+    temperature: float
+    max_blocks: int
+    blocks: List[int] = dataclasses.field(default_factory=list)
+    consumed: int = 0
+    chunks_done: int = 0
+    t_start: float = dataclasses.field(default_factory=time.perf_counter)
+
+
+class ContinuousBatchingEngine:
+    """The batched engine behind a tier: ``generate()``/``generate_stream()``
+    for concurrent callers, one shared decode loop.  Runs on the card
+    unless ``device="cpu"`` is asked for (the plain PyTorch path)."""
+
+    def __init__(self, tier: TierConfig, seed: int = 0,
+                 params: Optional[Transformer] = None,
+                 device: DeviceLike = None):
+        tier.check_ported()
+        if tier.decode_batch <= 1:
+            raise NotImplementedError(
+                f"tier {tier.name}: decode_batch={tier.decode_batch} selects "
+                "the sequential engine, which is not ported yet")
+        self.tier = tier
+        self.device = resolve_device(device)
+        self.cfg = tier.model()
+        bad = [b for b in tier.prefill_buckets if b % tier.kv_block_size]
+        if bad:
+            raise ValueError(
+                f"prefill buckets {bad} not multiples of kv_block_size="
+                f"{tier.kv_block_size}: prefilled K/V must page evenly")
+        self.tokenizer = get_tokenizer(self.cfg)
+        self.paged = PagedConfig(block_size=tier.kv_block_size,
+                                 max_slots=tier.decode_batch,
+                                 max_seq_len=self.cfg.max_seq_len)
+        self.steps_per_tick = max(1, tier.decode_steps_per_tick)
+        self.chunk_tokens = int(tier.prefill_chunk_tokens or 0)
+        if self.chunk_tokens < 0 or (self.chunk_tokens
+                                     and self.chunk_tokens
+                                     % tier.kv_block_size):
+            raise ValueError(
+                f"prefill_chunk_tokens={tier.prefill_chunk_tokens} must be"
+                f" a positive multiple of kv_block_size="
+                f"{tier.kv_block_size}, or 0/None to disable chunking")
+        self.chunk_budget = max(self.chunk_tokens,
+                                int(tier.prefill_chunk_budget or 0))
+
+        if self.device.type == "cuda":
+            # All three kernels compile together, before the first request.
+            from ..ops import _build
+            _build.build_all()
+        if params is None:
+            params = transformer.init_params(self.cfg, seed=seed,
+                                             device=self.device)
+        self.model = params.to(self.device)
+        self.pool = init_pool(self.cfg, self.paged, device=self.device)
+        self.allocator = BlockAllocator(self.paged.num_blocks)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed ^ 0xBA7C4)
+
+        b, mb = self.paged.max_slots, self.paged.blocks_per_slot
+        self._tables = np.full((b, mb), TRASH_BLOCK, np.int32)
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._pos = np.zeros(b, np.int32)
+        self._cur = np.zeros(b, np.int64)
+        self._temps = np.zeros(b, np.float32)
+        self._slots: List[Optional[_Slot]] = [None] * b
+        self._buckets = sorted(set(
+            bb for bb in tier.prefill_buckets if bb <= self.cfg.max_seq_len))
+        # Suffix-chunk attention windows: a coarse block-aligned rung set
+        # (the JAX engine's, which bounded its compiled programs; here it
+        # bounds how far a chunk's attention reads).
+        span = mb * self.paged.block_size
+        bs = self.paged.block_size
+        self._chunk_windows = sorted(
+            {min(span, -(-c // bs) * bs) for c in (256, 1024) if c < span}
+            | {span})
+        # Suffix buckets a prefix hit may prefill; a longer new turn goes
+        # through the cold path.
+        self._reuse_buckets = self._buckets[:3]
+        self._prefill: Optional[_Prefill] = None
+        self.prefill_cancelled_total = 0
+        self.prefix_cache = (
+            PrefixCache(capacity=tier.prefix_cache_entries,
+                        on_evict=self._prefix_evicted,
+                        block_refcounts=self.allocator.refcounts)
+            if tier.enable_prefix_cache and tier.prefix_cache_entries > 0
+            else None)
+        self.share_prefix = bool(tier.share_prefix_kv
+                                 and self.prefix_cache is not None)
+
+        # Recent decode-tick wall times in ms (tick_stats reads it).
+        self.tick_ms: "deque[float]" = deque(maxlen=512)
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        # Scheduler-head lane: KV-pressure deferrals and cancelled
+        # prefills re-admit before newer arrivals.  Scheduler thread only.
+        self._head: "deque[_Request]" = deque()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lifecycle = threading.Lock()
+        # Watchdog heartbeat: monotonic time of the last completed unit of
+        # scheduler progress (admission, tick, prefill chunk, idle pass).
+        self._progress_t = time.monotonic()
+
+    # -- device work -------------------------------------------------------
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(arr)).to(self.device, non_blocking=True)
+
+    def _temp_tensor(self, temp: float) -> torch.Tensor:
+        return torch.tensor([temp], dtype=torch.float32, device=self.device)
+
+    def _sampler(self, temps: Sequence[float]) -> Optional[torch.Generator]:
+        return self._gen if any(t > 0 for t in temps) else None
+
+    def _prefill_first(self, tokens: np.ndarray, n: int, temp: float):
+        """Cold prefill of one bucket: returns (first token tensor,
+        k_all, v_all [L, S, N_kv, D])."""
+        tok = self._to_device(tokens.astype(np.int64))
+        positions = torch.arange(tok.shape[1], device=self.device)[None]
+        hidden, (k_all, v_all) = transformer.prefill(self.cfg, self.model,
+                                                     tok, positions)
+        logits = transformer.logits_from_hidden(self.model, hidden[:, n - 1])
+        first = _sample_batched(logits, self._temp_tensor(temp),
+                                self._sampler([temp]))[0]
+        return first, k_all[:, 0], v_all[:, 0]
+
+    def _chunk_first(self, tokens: np.ndarray, start: int, true_len: int,
+                     row: np.ndarray, window: int, temp: float):
+        """Chunk-prefill into the pool (in place) and sample from the row
+        of position ``true_len - 1`` (meaningful for the final chunk)."""
+        hidden = chunk_prefill_paged(
+            self.cfg, self.model, self._to_device(tokens.astype(np.int64)),
+            self._to_device(np.array([start], np.int32)),
+            self._to_device(np.array([true_len], np.int32)), self.pool,
+            self._to_device(row), window)
+        last = min(max(true_len - start - 1, 0), tokens.shape[1] - 1)
+        logits = transformer.logits_from_hidden(self.model,
+                                                hidden[:, last])
+        return _sample_batched(logits, self._temp_tensor(temp),
+                               self._sampler([temp]))[0]
+
+    @torch.no_grad()
+    def _decode_tick(self) -> np.ndarray:
+        """One tick: ``decode_steps_per_tick`` batched decode steps, each
+        feeding its sampled tokens to the next on the device, then one
+        pull of the [T, B] tokens.  Positions clamp at max_seq_len - 1 so
+        an overshooting slot keeps writing its own last cell."""
+        if self._tables_dev is None:
+            self._tables_dev = self._to_device(self._tables)
+        tables = self._tables_dev
+        pos = self._to_device(self._pos)
+        cur = self._to_device(self._cur)
+        temps = self._to_device(self._temps)
+        gen = self._sampler(self._temps.tolist())
+        max_pos = self.cfg.max_seq_len - 1
+        toks = []
+        for _ in range(self.steps_per_tick):
+            logits = decode_step_paged(self.cfg, self.model, cur, pos,
+                                       self.pool, tables)
+            cur = _sample_batched(logits, temps, gen)
+            toks.append(cur)
+            pos = torch.clamp(pos + 1, max=max_pos)
+        return _fetch_tick(torch.stack(toks))
+
+    # -- block bookkeeping -------------------------------------------------
+
+    def _prefix_evicted(self, entry) -> None:
+        """on_evict sink: return the entry's blocks (a refcounted decref)."""
+        blocks = entry.cache.get("blocks") if isinstance(entry.cache, dict) else None
+        if blocks:
+            self.allocator.free(blocks)
+
+    def _table_row(self, blocks: List[int]) -> np.ndarray:
+        row = np.full(self.paged.blocks_per_slot, TRASH_BLOCK, np.int32)
+        row[:len(blocks)] = blocks
+        return row
+
+    def _set_table_row(self, ix: int, row) -> None:
+        """Every table change funnels here, so the cached device copy is
+        re-uploaded once per change, not once per tick."""
+        self._tables[ix] = row
+        self._tables_dev = None
+
+    def _alloc_evicting(self, n_blocks: int) -> Optional[List[int]]:
+        """Allocate, evicting parked prefixes (LRU) under pressure: live
+        admissions outrank parked caches."""
+        blocks = self.allocator.alloc(n_blocks)
+        while (blocks is None and self.prefix_cache is not None
+               and self.prefix_cache.pop_oldest() is not None):
+            blocks = self.allocator.alloc(n_blocks)
+        return blocks
+
+    # -- admission ---------------------------------------------------------
+
+    def _slot_go_live(self, req: _Request, slot_ix: int, blocks: List[int],
+                      *, prompt_len: int, prompt_ids: tuple, budget: int,
+                      temp: float, max_blocks: int, pos: int, first: int,
+                      ttft_ms: float, pinned_entry: Optional[Any] = None
+                      ) -> None:
+        """The go-live tail shared by every admission path: publish the
+        slot, its table row and decode state, emit the prefill's token
+        and apply the termination checks."""
+        slot = _Slot(request=req, blocks=blocks, prompt_len=prompt_len,
+                     budget=budget, temperature=temp, ttft_ms=ttft_ms,
+                     tokens=[first], prompt_ids=prompt_ids,
+                     max_blocks=max_blocks, pinned_entry=pinned_entry)
+        if req.token_queue is not None:
+            req.token_queue.put(first)
+        self._slots[slot_ix] = slot
+        self._set_table_row(slot_ix, self._table_row(blocks))
+        self._pos[slot_ix] = pos
+        self._cur[slot_ix] = first
+        self._temps[slot_ix] = temp
+        if first == self.tokenizer.eos_id or budget <= 1:
+            self._finish(slot_ix)
+
+    def _chunk_gate(self, bucket: int) -> bool:
+        """Chunked prefill only for prompts whose bucket exceeds a chunk."""
+        return bool(self.chunk_tokens) and bucket > self.chunk_tokens
+
+    def _admit(self, req: _Request, slot_ix: int) -> bool:
+        """Admit ``req`` into free slot ``slot_ix``.  False = stay queued
+        (KV pressure, or the chunked-prefill lane is busy)."""
+        ids, bucket = prepare_prompt(self.tokenizer, req.history,
+                                     self.tier.prefill_buckets,
+                                     self.cfg.max_seq_len,
+                                     self.tier.max_new_tokens)
+        n = len(ids)
+        budget = self.tier.max_new_tokens
+        if req.max_new_tokens and req.max_new_tokens > 0:
+            budget = min(budget, req.max_new_tokens)
+        bs = self.paged.block_size
+        max_seq = self.cfg.max_seq_len
+
+        reused = select_reuse(self.prefix_cache, ids, self._reuse_buckets,
+                              max_seq, share=self.share_prefix)
+        if reused is None and self._chunk_gate(bucket):
+            # Long cold prompt: chunked prefill interleaved with decode
+            # ticks; one in flight at a time, so a second one waits at
+            # the scheduler head (needs_chunk stops the re-tokenizing).
+            if self._prefill is not None:
+                req.needs_chunk = True
+                return False
+            self._start_prefill(req, slot_ix, ids, n, bucket, budget)
+            return True
+
+        temp = (self.tier.temperature if req.temperature is None
+                else req.temperature)
+        pinned_entry = None
+        if reused is not None:
+            entry, m, suffix, sb = reused
+            cover = max(m + sb, min(n + budget, max_seq))
+            need = -(-cover // bs)
+            boundary_src = None
+            if self.share_prefix:
+                # Shared hit: the entry's FULL blocks map read-only into
+                # this slot's leading rows; the partially filled boundary
+                # block is copied into the first private block, which the
+                # suffix then writes.
+                n_full = m // bs
+                shared = list(entry.cache["blocks"][:n_full])
+                if m % bs:
+                    boundary_src = entry.cache["blocks"][n_full]
+                self.allocator.share(shared)
+                try:
+                    priv = self._alloc_evicting(need - n_full)
+                except BaseException:
+                    self.allocator.free(shared)
+                    self.prefix_cache.unshare(entry, m)
+                    raise
+                if priv is None:
+                    self.allocator.free(shared)
+                    self.prefix_cache.unshare(entry, m)
+                    return False             # KV pressure: stay queued
+                owned = shared + priv
+                pinned_entry = entry
+            else:
+                # Exclusive take: the slot owns the entry's blocks and may
+                # write the boundary block directly.
+                owned = list(entry.cache["blocks"])
+                if len(owned) < need:
+                    extra = self._alloc_evicting(need - len(owned))
+                    if extra is None:
+                        self.prefix_cache.untake(entry, m)
+                        return False
+                    owned += extra
+                elif len(owned) > need:
+                    self.allocator.free(owned[need:])
+                    owned = owned[:need]
+            try:
+                if boundary_src is not None:
+                    # The copy must land before the suffix writes.
+                    copy_block(self.pool, boundary_src, priv[0])
+                tokens = np.full((1, sb), self.tokenizer.pad_id, np.int64)
+                tokens[0, :len(suffix)] = suffix
+                window = next(w for w in self._chunk_windows if w >= m + sb)
+                first = int(self._chunk_first(tokens, m, n,
+                                              self._table_row(owned), window,
+                                              temp))
+            except BaseException:
+                self.allocator.free(owned)
+                if pinned_entry is not None:
+                    self.prefix_cache.unpin(pinned_entry)
+                raise
+            blocks = owned
+            max_blocks = len(owned)          # fully materialized: no growth
+        else:
+            max_blocks = -(-min(bucket + budget, max_seq) // bs)
+            # Lazy growth: the prefill bucket plus one tick now; the
+            # pre-tick growth pass allocates the rest as the sequence grows.
+            need = min(max_blocks,
+                       max(bucket // bs,
+                           -(-min(n + self.steps_per_tick, max_seq) // bs)))
+            blocks = self._alloc_evicting(need)
+            if blocks is None:
+                return False                 # KV pressure: stay queued
+            try:
+                tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
+                tokens[0, :n] = ids
+                first, k_all, v_all = self._prefill_first(tokens, n, temp)
+                nb_prefill = bucket // bs
+                write_prefill_blocks(
+                    self.pool,
+                    self._to_device(np.array(blocks[:nb_prefill], np.int64)),
+                    k_all, v_all)
+                # The first token must reach the host now (it seeds the
+                # slot): one sync per admission, never per tick.
+                first = int(first)
+            except BaseException:
+                self.allocator.free(blocks)
+                raise
+        ttft_ms = (time.perf_counter() - req.t_submit) * 1000.0
+        self._slot_go_live(req, slot_ix, blocks, prompt_len=n,
+                           prompt_ids=tuple(ids), budget=budget, temp=temp,
+                           max_blocks=max_blocks, pos=n, first=first,
+                           ttft_ms=ttft_ms, pinned_entry=pinned_entry)
+        return True
+
+    def _start_prefill(self, req: _Request, slot_ix: int, ids: List[int],
+                       n: int, bucket: int, budget: int) -> None:
+        """Reserve ``slot_ix`` and register the in-flight chunked prefill;
+        blocks are allocated per chunk as it advances."""
+        bs = self.paged.block_size
+        temp = (self.tier.temperature if req.temperature is None
+                else req.temperature)
+        self._prefill = _Prefill(
+            request=req, slot_ix=slot_ix, seq=list(ids), prompt_len=n,
+            prompt_ids=tuple(ids), total=len(ids), budget=budget,
+            temperature=temp,
+            max_blocks=-(-min(bucket + budget, self.cfg.max_seq_len) // bs))
+
+    def _advance_prefill(self) -> bool:
+        """Spend up to ``chunk_budget`` tokens on the in-flight prefill
+        (decode slots were served first, so active streams stall by at
+        most one grant).  Returns whether a chunk landed (False = the
+        pool is dry; retry next tick)."""
+        pf = self._prefill
+        if pf is None:
+            return True
+        progressed = False
+        req = pf.request
+        c = self.chunk_tokens
+        bs = self.paged.block_size
+        span = self.paged.blocks_per_slot * bs
+        budget_left = self.chunk_budget
+        try:
+            while pf.consumed < pf.total and budget_left >= c:
+                start = pf.consumed
+                if start + c > span:
+                    # Final sliver at the table's end: slide the chunk back
+                    # so every position stays inside the table (the overlap
+                    # recomputes identical K/V).
+                    start = span - c
+                end = start + c
+                need = min(pf.max_blocks, -(-min(end, pf.total) // bs))
+                if len(pf.blocks) < need:
+                    extra = self._alloc_evicting(need - len(pf.blocks))
+                    if extra is None:
+                        return progressed
+                    pf.blocks.extend(extra)
+                window = next(w for w in self._chunk_windows if w >= end)
+                k = min(end, pf.total) - start
+                tokens = np.full((1, c), self.tokenizer.pad_id, np.int64)
+                tokens[0, :k] = pf.seq[start:start + k]
+                # The chunk is the budgeted stall unit; its token (used
+                # from the final chunk) reaches the host here.
+                first = int(self._chunk_first(tokens, start, pf.total,
+                                              self._table_row(pf.blocks),
+                                              window, pf.temperature))
+                pf.consumed = min(end, pf.total)
+                pf.chunks_done += 1
+                progressed = True
+                budget_left -= c
+                self._progress_t = time.monotonic()
+                if pf.consumed >= pf.total:
+                    self._finish_prefill(pf, first)
+                    return True
+        except BaseException as exc:       # surface to the caller
+            self._prefill = None
+            slot = self._slots[pf.slot_ix]
+            if slot is not None and slot.request is req:
+                self._fail_slot(pf.slot_ix, exc)
+                return True
+            self.allocator.free(pf.blocks)
+            self._fail_request(req, exc)
+            return True
+        return progressed
+
+    def _finish_prefill(self, pf: _Prefill, first: int) -> None:
+        """Last chunk landed: the reserved slot goes live."""
+        self._prefill = None
+        ttft_ms = (time.perf_counter() - pf.request.t_submit) * 1000.0
+        self._slot_go_live(pf.request, pf.slot_ix, pf.blocks,
+                           prompt_len=pf.prompt_len, prompt_ids=pf.prompt_ids,
+                           budget=pf.budget, temp=pf.temperature,
+                           max_blocks=pf.max_blocks, pos=pf.total, first=first,
+                           ttft_ms=ttft_ms)
+
+    def _cancel_prefill(self) -> None:
+        """Cancel the in-flight prefill and requeue it at the head: it has
+        emitted nothing, so restarting from chunk 0 is free."""
+        pf = self._prefill
+        if pf is None:
+            return
+        self._prefill = None
+        self.allocator.free(pf.blocks)
+        self.prefill_cancelled_total += 1
+        pf.request.needs_chunk = True
+        self._head.appendleft(pf.request)
+
+    def _ensure_growth(self, active: List[int]) -> None:
+        """Pre-tick lazy KV growth: every active slot's table must cover
+        the positions this tick writes.  A dry pool (after evicting parked
+        prefixes) first cancels the in-flight prefill; failing that, the
+        slot finishes with what it has (no preemption in the port yet)."""
+        bs = self.paged.block_size
+        for ix in active:
+            slot = self._slots[ix]
+            if slot is None:
+                continue
+            end = min(int(self._pos[ix]) + self.steps_per_tick,
+                      slot.prompt_len + slot.budget, self.cfg.max_seq_len)
+            need = min(slot.max_blocks, -(-end // bs))
+            while len(slot.blocks) < need:
+                extra = self._alloc_evicting(need - len(slot.blocks))
+                if extra is not None:
+                    slot.blocks.extend(extra)
+                    self._set_table_row(ix, self._table_row(slot.blocks))
+                    break
+                if self._prefill is not None:
+                    self._cancel_prefill()
+                    continue
+                logger.warning("tier %s: KV pool dry, slot %d finishes "
+                               "after %d tokens", self.tier.name, ix,
+                               len(slot.tokens))
+                self._finish(ix)
+                break
+
+    def _next_request(self) -> Optional[_Request]:
+        """Head lane first, then the submission queue (FIFO)."""
+        if self._head:
+            return self._head.popleft()
+        try:
+            return self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    # -- completion ----------------------------------------------------------
+
+    def _finish(self, slot_ix: int) -> None:
+        slot = self._slots[slot_ix]
+        gen_ids = trim_at_eos(slot.tokens, self.tokenizer.eos_id,
+                              self.tokenizer.pad_id)
+        req = slot.request
+        req.result = GenerationResult(
+            text=self.tokenizer.decode(gen_ids), token_ids=gen_ids,
+            prompt_tokens=slot.prompt_len, gen_tokens=len(gen_ids),
+            ttft_ms=slot.ttft_ms,
+            total_ms=(time.perf_counter() - req.t_submit) * 1000.0)
+        self._release(slot_ix, park=True)
+        if req.token_queue is not None:
+            req.token_queue.put(None)        # end-of-stream sentinel
+        req.done.set()
+
+    def _release(self, slot_ix: int, park: bool = False) -> None:
+        """Free a slot; with ``park`` its prompt blocks move to the prefix
+        cache (generation-only trailing blocks go back to the pool)."""
+        slot = self._slots[slot_ix]
+        if slot.pinned_entry is not None and self.prefix_cache is not None:
+            self.prefix_cache.unpin(slot.pinned_entry)
+        parked = False
+        if park and self.prefix_cache is not None and slot.prompt_ids:
+            keep = -(-slot.prompt_len // self.paged.block_size)
+            if 0 < keep <= len(slot.blocks):
+                parked = self.prefix_cache.put(slot.prompt_ids,
+                                               {"blocks": slot.blocks[:keep]})
+                if parked:
+                    self.allocator.free(slot.blocks[keep:])
+        if not parked:
+            self.allocator.free(slot.blocks)
+        self._slots[slot_ix] = None
+        self._set_table_row(slot_ix, TRASH_BLOCK)
+        self._pos[slot_ix] = 0
+        self._cur[slot_ix] = 0
+
+    def _fail_request(self, req: _Request, exc: BaseException) -> None:
+        req.error = exc
+        if req.token_queue is not None:
+            req.token_queue.put(None)
+        req.done.set()
+
+    def _fail_slot(self, slot_ix: int, exc: BaseException) -> None:
+        slot = self._slots[slot_ix]
+        if slot is None:
+            return
+        self._release(slot_ix)
+        self._fail_request(slot.request, exc)
+
+    # -- scheduler -----------------------------------------------------------
+
+    def _loop(self) -> None:
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            with torch.no_grad():
+                self._run_scheduler()
+        finally:
+            # A still-in-flight prefill requeues, so stop()'s drain fails
+            # it with the engine-stopped shape.
+            self._cancel_prefill()
+
+    def _admit_pass(self) -> bool:
+        """Admit queued requests into free slots; True if any admitted."""
+        admitted_any = False
+        if self._prefill is not None and self._head and self._head[0].needs_chunk:
+            return False                 # FIFO: wait for the prefill lane
+        for ix in range(self.paged.max_slots):
+            if self._slots[ix] is not None:
+                continue
+            if self._prefill is not None and self._prefill.slot_ix == ix:
+                continue                 # reserved by the in-flight prefill
+            req = self._next_request()
+            if req is None:
+                break
+            try:
+                if not self._admit(req, ix):
+                    self._head.appendleft(req)
+                    break
+                admitted_any = True
+                self._progress_t = time.monotonic()
+            except BaseException as exc:     # surface to the caller
+                self._fail_request(req, exc)
+        return admitted_any
+
+    def _emit(self, active: List[int], toks: np.ndarray) -> None:
+        """Apply a tick's [T, B] tokens slot by slot: append, stream, and
+        finish on the decode cap, EOS/PAD or the context edge (a slot that
+        finishes at step t discards its later steps)."""
+        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+        for t in range(toks.shape[0]):
+            for ix in active:
+                slot = self._slots[ix]
+                if slot is None:
+                    continue             # finished at an earlier step
+                tok = int(toks[t, ix])
+                slot.tokens.append(tok)
+                if slot.request.token_queue is not None:
+                    slot.request.token_queue.put(tok)
+                self._pos[ix] += 1
+                self._cur[ix] = tok
+                if (len(slot.tokens) >= slot.budget or tok in (eos, pad)
+                        or self._pos[ix] >= self.cfg.max_seq_len - 1):
+                    self._finish(ix)
+
+    def _run_scheduler(self) -> None:
+        while not self._stop.is_set():
+            admitted_any = self._admit_pass()
+            active = [ix for ix, s in enumerate(self._slots) if s is not None]
+            if active:
+                self._ensure_growth(active)
+                active = [ix for ix, s in enumerate(self._slots)
+                          if s is not None]
+            if not active:
+                if self._prefill is not None:
+                    # No decoding slots: the whole pass is prefill.  A dry
+                    # pool backs off instead of spinning.
+                    if not self._advance_prefill():
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
+                    self._progress_t = time.monotonic()
+                elif not admitted_any:
+                    self._progress_t = time.monotonic()
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                continue
+            try:
+                t_tick = time.perf_counter()
+                toks = self._decode_tick()
+                self.tick_ms.append((time.perf_counter() - t_tick) * 1000.0)
+            except BaseException as exc:
+                # A dead tick must not kill the scheduler: fail the
+                # in-flight requests and keep serving new ones.
+                logger.exception("tier %s: decode tick failed", self.tier.name)
+                for ix in active:
+                    self._fail_slot(ix, exc)
+                continue
+            self._emit(active, toks)
+            if self._prefill is not None:
+                self._advance_prefill()
+            self._progress_t = time.monotonic()
+
+    # -- public surface --------------------------------------------------------
+
+    def start(self) -> None:
+        with self._lifecycle:
+            if self._thread is not None:
+                return
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name=f"batcher-{self.tier.name}")
+            self._thread.start()
+
+    def stop(self) -> None:
+        """Join the loop, then fail everything still queued or in flight
+        with the engine-stopped error shape and return every block."""
+        with self._lifecycle:
+            if self._thread is not None:
+                self._stop.set()
+                self._wake.set()
+                self._thread.join(timeout=5)
+                self._thread = None
+            shutdown = EngineStoppedError(error_dict(
+                f"Request failed: tier {self.tier.name} engine stopped "
+                f"mid-flight"))
+            self._cancel_prefill()
+            if self.prefix_cache is not None:
+                self.prefix_cache.clear()    # parked blocks -> free list
+            for ix, slot in enumerate(self._slots):
+                if slot is not None:
+                    self._fail_slot(ix, shutdown)
+            while True:
+                req = self._next_request()
+                if req is None:
+                    break
+                self._fail_request(req, shutdown)
+
+    def submit(self, history: History, max_new_tokens: Optional[int] = None,
+               temperature: Optional[float] = None,
+               token_queue: Optional["queue.Queue"] = None) -> _Request:
+        self.start()
+        req = _Request(history=history, max_new_tokens=max_new_tokens,
+                       temperature=temperature, token_queue=token_queue)
+        self._queue.put(req)
+        self._wake.set()
+        return req
+
+    def generate(self, history: History, max_new_tokens: Optional[int] = None,
+                 temperature: Optional[float] = None) -> GenerationResult:
+        req = self.submit(history, max_new_tokens, temperature)
+        req.done.wait()
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def generate_stream(self, history: History,
+                        max_new_tokens: Optional[int] = None,
+                        temperature: Optional[float] = None) -> "StreamHandle":
+        """Text deltas as tokens come off the shared decode loop; the final
+        GenerationResult is ``.result`` once the stream is exhausted."""
+        req = self.submit(history, max_new_tokens, temperature,
+                          token_queue=queue.Queue())
+        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+
+        def deltas():
+            decoder = StreamDecoder(self.tokenizer)
+            while True:
+                tok = req.token_queue.get()
+                if tok is None:
+                    break
+                if tok in (eos, pad):
+                    continue
+                text = decoder.feed(tok)
+                if text:
+                    yield text
+            tail = decoder.flush()
+            if tail:
+                yield tail
+            if req.error is not None:
+                raise req.error
+
+        return StreamHandle(deltas(), req)
+
+    def queue_depth(self) -> int:
+        """Submitted but not yet decoding (the in-flight chunked prefill
+        included)."""
+        return (self._queue.qsize() + len(self._head)
+                + (1 if self._prefill is not None else 0))
+
+    def pending_work(self) -> int:
+        """Queued + active requests (the drain loop's completion signal)."""
+        return (self.queue_depth()
+                + sum(1 for s in self._slots if s is not None))
+
+    def kv_stats(self) -> Dict[str, Any]:
+        """Block-pool snapshot: free and reclaimable blocks, geometry, the
+        in-flight prefill's remaining demand and the sharing picture."""
+        reclaimable = (self.prefix_cache.reclaimable_blocks()
+                       if self.prefix_cache is not None else 0)
+        pf = self._prefill
+        pending = backlog = 0
+        if pf is not None:
+            backlog = pf.total - min(pf.consumed, pf.total)
+            pending = max(0, min(pf.max_blocks,
+                                 -(-pf.total // self.paged.block_size))
+                          - len(pf.blocks))
+        rs = self.allocator.ref_stats()
+        pinned = (self.prefix_cache.stats()["pinned_entries"]
+                  if self.prefix_cache is not None else 0)
+        return {
+            "free_blocks": self.allocator.available,
+            "reclaimable_blocks": reclaimable,
+            "block_size": self.paged.block_size,
+            "total_blocks": self.paged.num_blocks - 1,   # minus trash
+            "prefill_pending_blocks": pending,
+            "prefill_backlog_tokens": backlog,
+            "shared_blocks": rs["shared_blocks"],
+            "dedup_ratio": (round(rs["total_refs"] / rs["allocated_blocks"], 4)
+                            if rs["allocated_blocks"] else 1.0),
+            "pinned_entries": pinned,
+        }
+
+    def progress_stall_s(self) -> float:
+        """Seconds since the scheduler last progressed WHILE work is
+        pending (the decode watchdog's signal); 0.0 when idle."""
+        if self._thread is None:
+            return 0.0
+        if self.queue_depth() == 0 and all(s is None for s in self._slots):
+            return 0.0
+        return max(0.0, time.monotonic() - self._progress_t)
+
+    def tick_stats(self) -> Dict[str, Any]:
+        """Decode-tick wall-time quantiles over the recent-tick ring
+        (nearest rank, round(q * (n - 1)))."""
+        ticks: List[float] = []
+        for _ in range(3):
+            try:
+                ticks = sorted(self.tick_ms)
+                break
+            except RuntimeError:         # ring appended mid-copy
+                continue
+        if not ticks:
+            return {"n": 0, "p50_ms": None, "p95_ms": None}
+
+        def pct(q: float) -> float:
+            return round(ticks[min(len(ticks) - 1,
+                                   int(q * (len(ticks) - 1) + 0.5))], 3)
+
+        return {"n": len(ticks), "p50_ms": pct(0.5), "p95_ms": pct(0.95)}
+
+    def slot_stats(self) -> Dict[str, Any]:
+        """Occupancy snapshot for health(): advisory lock-free reads."""
+        active = sum(1 for s in self._slots if s is not None)
+        total = self.paged.max_slots
+        pf = self._prefill
+        return {
+            "queue_depth": self.queue_depth(),
+            "active_slots": active,
+            "max_slots": total,
+            "slot_occupancy": round(active / max(1, total), 3),
+            "prefill_inflight": 0 if pf is None else 1,
+            "prefill_backlog_tokens": (0 if pf is None else
+                                       max(0, pf.total - min(pf.consumed,
+                                                             pf.total))),
+        }
+
+    def warmup(self) -> None:
+        """One short request through the whole path (prefill, paging, a
+        decode tick) before traffic."""
+        self.generate("warmup", max_new_tokens=2)
+
+
+class StreamHandle:
+    """Iterable of text deltas; ``.result`` is the final GenerationResult
+    once the stream is exhausted."""
+
+    def __init__(self, gen, request: _Request):
+        self._gen = gen
+        self.request = request
+
+    def __iter__(self):
+        return self._gen
+
+    @property
+    def result(self) -> Optional[GenerationResult]:
+        return self.request.result

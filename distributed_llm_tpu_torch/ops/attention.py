@@ -1,0 +1,161 @@
+"""Attention for prefill, chunked prefill and batched paged decode.
+
+Counterpart of ``distributed_llm_tpu/ops/attention.py``.  The functions
+here are the plain PyTorch versions (einsum + softmax, the JAX package's
+XLA path, rounding at the same points) and the three dispatchers the
+model calls.  A dispatcher sends a CUDA tensor to its hand-written
+kernel and a CPU tensor to the plain version; there is no switch and no
+fallback from a kernel to its plain version.
+
+Shapes follow the JAX package: sequences [B, S, N_kv, D], queries
+[B, S, N_q, D] with N_q a multiple of N_kv (GQA, query head h reads kv
+head h // (N_q / N_kv)), and paged pools [N_kv, NB, bs, D] per layer.
+
+Each plain attention function counts its calls in ``.calls``, so a run
+can show that a CUDA main path never reached them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal attention for prefill: q [B, S, Nq, D], k/v [B, S, Nkv, D]."""
+    if q.is_cuda:
+        from .flash_attention import flash_causal_attention
+        return flash_causal_attention(q, k, v)
+    return causal_attention(q, k, v)
+
+
+def ragged_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, tables: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Ragged batched decode over a paged pool: q [B, Nq, D], pools
+    [Nkv, NB, bs, D], tables [B, MB] (each slot's FULL row), pos [B]
+    (each slot's TRUE position) -> [B, Nq, D]."""
+    if q.is_cuda:
+        from .ragged_attention import ragged_paged_decode_attention
+        return ragged_paged_decode_attention(q, k_pool, v_pool, tables, pos)
+    return _gather_decode_paged(q, k_pool, v_pool, tables, pos)
+
+
+def paged_chunk(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                table: torch.Tensor, start: torch.Tensor, q_pos: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """Suffix-chunk attention over a paged pool: q [1, S_c, Nq, D], pools
+    [Nkv, NB, bs, D], table [MB], start [1], q_pos [1, S_c] clamped
+    absolute positions, ``window`` a multiple of bs.  The kernel rebuilds
+    positions from ``start`` (row r sees cols <= start + r); the plain
+    version masks by ``q_pos``.  The two differ only on rows past the
+    true length, which no caller reads."""
+    if q.is_cuda:
+        from .flash_attention import paged_chunk_attention
+        return paged_chunk_attention(q, k_pool, v_pool, table, start, window)
+    return _gather_chunk_paged(q, k_pool, v_pool, table, q_pos, window)
+
+
+def _gather_pool_seq(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     tables: torch.Tensor):
+    """Pools [Nkv, NB, bs, D] + tables [B, MB] -> contiguous
+    [B, MB*bs, Nkv, D] views of every slot's table."""
+    b, mb = tables.shape
+    nkv, bs, d = k_pool.shape[0], k_pool.shape[2], k_pool.shape[3]
+    t = tables.long()
+    # [Nkv, B, MB, bs, D] -> [B, S, Nkv, D]
+    k_seq = k_pool[:, t].reshape(nkv, b, mb * bs, d).permute(1, 2, 0, 3)
+    v_seq = v_pool[:, t].reshape(nkv, b, mb * bs, d).permute(1, 2, 0, 3)
+    return k_seq, v_seq
+
+
+def _gather_decode_paged(q, k_pool, v_pool, tables, pos):
+    """Plain version of the ragged decode kernel: gather every slot's
+    table into a contiguous view and run ``decode_attention`` masked by
+    ``pos``."""
+    k_seq, v_seq = _gather_pool_seq(k_pool, v_pool, tables)
+    return decode_attention(q, k_seq, v_seq, pos)
+
+
+def _gather_chunk_paged(q, k_pool, v_pool, table, q_pos, window: int):
+    """Plain version of the paged chunk kernel: gather the first
+    ``window // bs`` table blocks and run ``chunk_attention``."""
+    nkv, bs, d = k_pool.shape[0], k_pool.shape[2], k_pool.shape[3]
+    wb = window // bs
+    t = table[:wb].long()
+    k_seq = k_pool[:, t].reshape(nkv, window, d).transpose(0, 1)[None]
+    v_seq = v_pool[:, t].reshape(nkv, window, d).transpose(0, 1)[None]
+    return chunk_attention(q, k_seq, v_seq, q_pos)
+
+
+def _expand_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, S, N_kv, D] -> [B, S, N_kv*groups, D], each kv head repeated
+    for its group of query heads."""
+    if groups == 1:
+        return x
+    return x.repeat_interleave(groups, dim=2)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal attention (prefill).
+
+    q [B, S, N_q, D], k/v [B, S, N_kv, D] -> [B, S, N_q, D].  Logits are
+    taken in the input dtype, then scaled and softmaxed in float32; the
+    probabilities are cast to ``v.dtype`` before the PV product."""
+    causal_attention.calls += 1
+    groups = q.shape[2] // k.shape[2]
+    k = _expand_kv(k, groups)
+    v = _expand_kv(v, groups)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqnd,bknd->bnqk", q, k).float() * scale
+    s = q.shape[1]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor,
+                    q_positions: torch.Tensor) -> torch.Tensor:
+    """A chunk of queries against a cache: q [B, S_c, N_q, D] (RoPE
+    applied at absolute positions), caches [B, S_max, N_kv, D] already
+    holding the chunk's own K/V, q_positions [B, S_c]; cache index > a
+    query's position is masked.  Returns [B, S_c, N_q, D]."""
+    chunk_attention.calls += 1
+    groups = q.shape[2] // k_cache.shape[2]
+    k = _expand_kv(k_cache, groups)
+    v = _expand_kv(v_cache, groups)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqnd,bknd->bnqk", q, k).float() * scale
+    s_max = k.shape[1]
+    cols = torch.arange(s_max, device=q.device)
+    valid = cols[None, None, :] <= q_positions[:, :, None]      # [B, S_c, S]
+    logits = logits.masked_fill(~valid[:, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One-token decode: q [B, N_q, D], caches [B, S_max, N_kv, D], pos [B]
+    the query's position; keys past ``pos`` are masked.  -> [B, N_q, D]."""
+    decode_attention.calls += 1
+    groups = q.shape[1] // k_cache.shape[2]
+    k = _expand_kv(k_cache, groups)
+    v = _expand_kv(v_cache, groups)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bnd,bknd->bnk", q, k).float() * scale
+    s_max = k.shape[1]
+    cols = torch.arange(s_max, device=q.device)
+    valid = cols[None, :] <= pos[:, None]                        # [B, S_max]
+    logits = logits.masked_fill(~valid[:, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnk,bknd->bnd", probs, v)
+
+
+causal_attention.calls = 0
+chunk_attention.calls = 0
+decode_attention.calls = 0

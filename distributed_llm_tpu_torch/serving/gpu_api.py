@@ -1,0 +1,193 @@
+"""Per-tier device-server HTTP surface on the GPU.
+
+Counterpart of ``distributed_llm_tpu/serving/tpu_api.py``, with the
+same JSON contract and error codes:
+
+  GET  /              liveness text
+  GET  /health        {"ok": true} ({"ok": false, "wedged": true, ...}
+                      once the decode watchdog fires)
+  POST /query         {"query": list[{role, content}] | str,
+                       "num_predict": int (optional, -1 = tier cap),
+                       "temperature": float (optional),
+                       "stats": bool (optional)} -> {"response": text}
+                      errors: 400 bad input, 500 engine failure,
+                      504 past the tier's request_timeout_s
+  POST /query/stream  the same body -> SSE `data: {"delta"}` events, then
+                      `data: {"done", "tokens", "ttft_ms", "total_ms"}`
+
+Run one tier's server on the card:
+
+    python -m distributed_llm_tpu_torch.serving.gpu_api --tier nano
+
+Admission control waits for the port of ``serving/tiers.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from typing import Any, Dict, Optional
+
+from ..config import ClusterConfig
+from ..device import DeviceLike
+from ..engine.manager import EngineManager
+from ..utils.http_compat import (Flask, StreamingResponse, jsonify, request,
+                                 sse_done_event, sse_event)
+from .turns import ClippedStream, clip_turn
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_NUM_PREDICT = -1
+DEFAULT_TEMPERATURE = 0.0
+
+TIER_PORTS = {"nano": 5001}
+
+
+def _validate_history(query) -> Optional[str]:
+    """None = well-formed; else the 400 message."""
+    if isinstance(query, str):
+        return None
+    for m in query:
+        if not isinstance(m, dict):
+            return ("Invalid history entry: expected "
+                    "{role, content} objects")
+        if not isinstance(m.get("role", ""), str) \
+                or not isinstance(m.get("content", ""), str):
+            return "Invalid history entry: role/content must be strings"
+    return None
+
+
+def _parse_sampling(data: Dict[str, Any]):
+    """(max_new_tokens or None, temperature); raises ValueError/TypeError."""
+    num_predict = int(data.get("num_predict") or DEFAULT_NUM_PREDICT)
+    temperature = float(data.get("temperature") or DEFAULT_TEMPERATURE)
+    return (num_predict if num_predict > 0 else None), temperature
+
+
+def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
+                    manager: Optional[EngineManager] = None,
+                    device: DeviceLike = None) -> Flask:
+    """The tier's app.  Without ``manager`` one is built (lazily started)
+    from ``cluster`` (default: the nano tier of ``ClusterConfig()``) on
+    ``device`` (default: the card)."""
+    app = Flask(f"dllm_gpu_{tier_name}")
+    if manager is None:
+        cluster = cluster or ClusterConfig()
+        tiers = {t.name: t for t in cluster.tiers()}
+        if tier_name not in tiers:
+            raise ValueError(f"unknown tier {tier_name!r}")
+        manager = EngineManager(tiers[tier_name], seed=cluster.seed,
+                                warmup_on_start=False, device=device)
+    app.extensions["dllm_manager"] = manager
+    timeout_s = manager.tier.request_timeout_s
+
+    @app.route("/")
+    def home():
+        return "Server is running!\n", 200
+
+    @app.route("/health", methods=["GET"])
+    def health():
+        """Lock-free: a lazily not-yet-started engine is healthy; a wedged
+        decode loop (no progress past the watchdog deadline) is not."""
+        engine = manager._engine
+        deadline = manager.tier.watchdog_stall_s
+        if engine is not None and deadline is not None:
+            stall_s = engine.progress_stall_s()
+            if stall_s > deadline:
+                return jsonify({
+                    "ok": False, "wedged": True,
+                    "error": (f"decode watchdog: no step progress for "
+                              f"{stall_s:.1f}s (deadline {deadline:.0f}s)")}), 200
+        return jsonify({"ok": True}), 200
+
+    @app.route("/query", methods=["POST"])
+    def process_query():
+        data: Dict[str, Any] = request.get_json(silent=True) or {}
+        query = data.get("query")
+        if not query:
+            return jsonify({"error": "No query provided"}), 400
+        if not isinstance(query, (list, str)):
+            return jsonify({"error": "Invalid query format. "
+                                     "Expect list[role/content] or string."}), 400
+        bad = _validate_history(query)
+        if bad is not None:
+            return jsonify({"error": bad}), 400
+        try:
+            max_new, temperature = _parse_sampling(data)
+        except (TypeError, ValueError):
+            return jsonify({"error": "num_predict/temperature must be numeric"}), 400
+        try:
+            req = manager.engine().submit(query, max_new_tokens=max_new,
+                                          temperature=temperature)
+            if not req.done.wait(timeout=timeout_s):
+                # The engine finishes the abandoned request on its own.
+                return jsonify({"error": "Inference timed out"}), 504
+            if req.error is not None:
+                raise req.error
+            result = req.result
+            payload: Dict[str, Any] = {"response": clip_turn(result.text)}
+            if data.get("stats"):
+                payload["stats"] = {
+                    "prompt_tokens": result.prompt_tokens,
+                    "gen_tokens": result.gen_tokens,
+                    "ttft_ms": round(result.ttft_ms, 3),
+                    "total_ms": round(result.total_ms, 3),
+                }
+            return jsonify(payload)
+        except Exception as exc:
+            logger.exception("inference failed")
+            return jsonify({"error": f"Inference failed: {exc}"}), 500
+
+    @app.route("/query/stream", methods=["POST"])
+    def process_query_stream():
+        data: Dict[str, Any] = request.get_json(silent=True) or {}
+        query = data.get("query")
+        if not query or not isinstance(query, (list, str)):
+            return jsonify({"error": "No/invalid query provided"}), 400
+        bad = _validate_history(query)
+        if bad is not None:
+            return jsonify({"error": bad}), 400
+        try:
+            max_new, temperature = _parse_sampling(data)
+        except (TypeError, ValueError):
+            return jsonify({"error": "num_predict/temperature must be "
+                                     "numeric"}), 400
+        try:
+            handle = ClippedStream(manager.engine().generate_stream(
+                query, max_new_tokens=max_new, temperature=temperature))
+        except Exception as exc:
+            logger.exception("stream setup failed")
+            return jsonify({"error": f"Inference failed: {exc}"}), 500
+
+        def events():
+            try:
+                for delta in handle:
+                    yield sse_event({"delta": delta})
+                yield sse_done_event(handle.result)
+            except Exception as exc:
+                yield sse_event({"error": str(exc)})
+
+        return StreamingResponse(events())
+
+    return app
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(
+        description="Serve one tier's /query API on the GPU.")
+    parser.add_argument("--tier", choices=sorted(TIER_PORTS), default="nano")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=None)
+    args = parser.parse_args()
+    logging.basicConfig(level=logging.INFO)
+    app = create_tier_app(args.tier)
+    t0 = time.perf_counter()
+    app.extensions["dllm_manager"].start_server()
+    logger.info("tier %s ready in %.1fs", args.tier, time.perf_counter() - t0)
+    port = args.port if args.port is not None else TIER_PORTS[args.tier]
+    app.run(host=args.host, port=port, threaded=True)
+
+
+if __name__ == "__main__":
+    main()
