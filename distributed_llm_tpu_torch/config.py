@@ -3,9 +3,10 @@
 Counterpart of ``distributed_llm_tpu/config.py``, kept as the port's own
 copy (the port never imports the JAX package).  It carries every model
 preset, the tier fields the batched engine and the ``/query`` server
-read, and the nano tier of the default cluster.  Fields whose feature is
-not ported yet are still declared with their JAX defaults, and a tier
-that asks for a non-default value of one raises ``NotImplementedError``
+read (batched speculation and the int8 KV pool included), and the nano
+and orin tiers of the default cluster.  Fields whose feature is not
+ported yet are still declared with their JAX defaults, and a tier that
+asks for a non-default value of one raises ``NotImplementedError``
 (``TierConfig.check_ported``) instead of being silently served without it.
 """
 
@@ -99,9 +100,7 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 _UNPORTED_DEFAULTS = {
     "tp": 1,
     "replicas": 1,
-    "kv_quantize": "none",
     "quantize": "none",
-    "draft_preset": None,
     "host_kv_bytes": None,
     "kv_pool_blocks": None,
     "checkpoint_path": None,
@@ -143,6 +142,24 @@ class TierConfig:
     enable_prefix_cache: bool = True
     prefix_cache_entries: int = 2
     share_prefix_kv: bool = True
+    # Speculative decoding: the model preset that drafts (greedy-exact;
+    # the tier's own model_preset is the zero-extra-weights self-draft).
+    # With decode_batch > 1, each scheduler tick drafts up to γ tokens
+    # per slot with the draft (its own paged pool behind the SAME block
+    # tables), verifies every slot's γ+1 chunk in one fused ragged verify
+    # call and keeps each slot's agreeing prefix.  spec_decode is
+    # tri-state: None = armed by EngineManager when draft_preset is set
+    # on a greedy tier, True = force on, False = serve plain decode.
+    # Slots start at spec_gamma_max and an acceptance EWMA scales each
+    # one down (to γ=0, plain decode, for low acceptance).
+    # speculative_gamma is the sequential engine's γ (not ported yet).
+    draft_preset: Optional[str] = None
+    speculative_gamma: int = 4
+    spec_decode: Optional[bool] = None
+    spec_gamma_max: int = 4
+    # KV-pool quantization ("none" | "int8"): symmetric per-row int8 with
+    # float32 scales; writes quantize, attention reads dequantize.
+    kv_quantize: str = "none"
     # Per-request wall-clock cap at the serving edge (504 past it).
     request_timeout_s: Optional[float] = 180.0
     # Decode watchdog: pending work with no scheduler progress for this
@@ -151,9 +168,7 @@ class TierConfig:
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
     replicas: int = 1
-    kv_quantize: str = "none"
     quantize: str = "none"
-    draft_preset: Optional[str] = None
     host_kv_bytes: Optional[int] = None
     kv_pool_blocks: Optional[int] = None
     checkpoint_path: Optional[str] = None
@@ -161,10 +176,16 @@ class TierConfig:
     def model(self) -> ModelConfig:
         return MODEL_PRESETS[self.model_preset]
 
+    def draft_model(self) -> ModelConfig:
+        """The speculative draft's architecture (``draft_preset``); raises
+        KeyError when none is configured, like ``model()`` on a bad
+        preset."""
+        return MODEL_PRESETS[self.draft_preset]
+
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, replicas, int8 weights or KV,
-        speculation, host KV spill, a constrained pool, checkpoints)."""
+        tier turns on (tensor parallelism, replicas, int8 weights, host KV
+        spill, a constrained pool, checkpoints, MoE)."""
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]
@@ -172,31 +193,44 @@ class TierConfig:
             raise NotImplementedError(
                 f"tier {self.name}: {', '.join(on)} is not ported to the "
                 "PyTorch/CUDA package yet (see ROADMAP.md)")
-        if self.model().num_experts > 1:
-            raise NotImplementedError(
-                f"tier {self.name}: MoE preset {self.model_preset!r} is not "
-                "ported to the PyTorch/CUDA package yet (see ROADMAP.md)")
+        for preset in filter(None, (self.model_preset, self.draft_preset)):
+            if MODEL_PRESETS[preset].num_experts > 1:
+                raise NotImplementedError(
+                    f"tier {self.name}: MoE preset {preset!r} is not ported "
+                    "to the PyTorch/CUDA package yet (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
-    """The deployment's tiers.  The port serves the nano tier; the orin
-    tier and the two-tier router come with a later slice."""
+    """The deployment's two tiers, each served by its own ``/query``
+    server (the two-tier router comes with a later slice).
+
+    The JAX default gives orin ``tp=4`` and shrinks a tier to the devices
+    at hand; the port has one card, so orin is ``tp=1`` until the
+    multi-GPU slice."""
 
     nano: TierConfig = dataclasses.field(
         default_factory=lambda: TierConfig(name="nano", model_preset="nano_1b",
                                            decode_batch=8))
+    orin: TierConfig = dataclasses.field(
+        default_factory=lambda: TierConfig(name="orin", model_preset="orin_8b",
+                                           tp=1, decode_batch=4))
     seed: int = 0
 
-    def tiers(self) -> Tuple[TierConfig, ...]:
-        return (self.nano,)
+    def tiers(self) -> Tuple[TierConfig, TierConfig]:
+        return (self.nano, self.orin)
 
 
-def tiny_batched_cluster(nano_slots: int = 4) -> ClusterConfig:
-    """The JAX package's tiny test tier with the continuous-batching
-    engine: ``nano_test``, buckets (16, 32, 64), 16-token blocks and a
-    24-token decode cap."""
+def tiny_batched_cluster(nano_slots: int = 4,
+                         orin_slots: int = 2) -> ClusterConfig:
+    """The JAX package's tiny test tiers with the continuous-batching
+    engine: ``nano_test`` and ``orin_test``, buckets (16, 32, 64),
+    16-token blocks and a 24-token decode cap.  The JAX tiny orin asks
+    for ``tp=4`` on its 8-device CPU mesh; here it is ``tp=1``."""
+    common = dict(max_new_tokens=24, prefill_buckets=(16, 32, 64),
+                  kv_block_size=16)
     return ClusterConfig(
         nano=TierConfig(name="nano", model_preset="nano_test",
-                        max_new_tokens=24, prefill_buckets=(16, 32, 64),
-                        kv_block_size=16, decode_batch=nano_slots))
+                        decode_batch=nano_slots, **common),
+        orin=TierConfig(name="orin", model_preset="orin_test",
+                        decode_batch=orin_slots, **common))

@@ -1,4 +1,4 @@
-// Shared pieces of the three attention kernels (ragged_decode.cu,
+// Shared pieces of the attention kernels (ragged_paged.cuh,
 // flash_causal.cu, paged_chunk.cu): bf16 tile loads into padded shared
 // memory and the per-query-row online-softmax (flash) update.
 //

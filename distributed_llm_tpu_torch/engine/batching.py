@@ -17,17 +17,29 @@ A scheduler thread runs in front of the paged KV pool
   (the ragged decode kernel over every slot's full table row at its true
   position) and then pulls the tick's [T, B] tokens to the host in ONE
   sync (``_fetch_tick``); blocks grow lazily as sequences grow;
+- with a ``draft_preset`` and ``spec_decode`` armed, a tick is instead
+  one **speculative round**: the draft model (its own paged pool behind
+  the SAME block tables) drafts up to γ tokens per slot in γ+1 batched
+  ragged decode steps, ONE ``verify_step_paged`` call (the ragged verify
+  kernel) scores every slot's γ+1 chunk on the target, greedy acceptance
+  keeps each slot's agreeing prefix plus the target's own pick, and the
+  round's tokens reach the host in one sync.  Each slot's γ adapts to
+  its acceptance (an EWMA; γ=0 is plain decode) and blocks grown for
+  rejected drafts are rewound.  Greedy output is identical to plain
+  decode whatever the draft proposes;
+- ``kv_quantize="int8"`` keeps both pools as int8 with per-row scales;
 - ``generate()`` blocks on a per-request event while its tokens stream
   out of the shared loop; ``generate_stream()`` yields text deltas.
 
-Not ported yet (ROADMAP.md): speculation, host KV spill, preemption and
-replay, tenant quotas, crash capture/adopt, tensor parallelism, int8,
-the dense windowed tick and the observability hooks.  Without
-preemption, a slot whose next block cannot be allocated even after
-evicting every parked prefix and cancelling the in-flight prefill is
-finished early with what it has generated (the JAX engine's rule for a
-sole occupant); a full-residency pool, the only kind ported, does not
-reach that state in practice.
+Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
+tenant quotas (and their γ caps), crash capture/adopt, tensor
+parallelism, int8 weights, the dense windowed tick and the
+observability hooks.  Without preemption, a slot whose next block (or
+copy-on-write block before a speculative round) cannot be allocated
+even after evicting every parked prefix and cancelling the in-flight
+prefill is finished early with what it has generated (the JAX engine's
+rule for a sole occupant); a full-residency pool, the only kind ported,
+does not reach that state in practice.
 """
 
 from __future__ import annotations
@@ -51,13 +63,19 @@ from ..serving.errors import error_dict
 from .inference import GenerationResult, prepare_prompt, trim_at_eos
 from .paged_kv import (BlockAllocator, PagedConfig, TRASH_BLOCK,
                        chunk_prefill_paged, copy_block, decode_step_paged,
-                       init_pool, write_prefill_blocks)
+                       init_pool, verify_step_paged, write_prefill_blocks)
 from .prefix_cache import PrefixCache, select_reuse
 from .tokenizer import StreamDecoder, get_tokenizer
 
 History = Union[str, Sequence[Dict[str, Any]]]
 
 logger = logging.getLogger(__name__)
+
+# Per-slot adaptive γ: EWMA weight of a round's observed acceptance, and
+# the floor under which a slot stops speculating (γ=0, sticky for the
+# slot's life: it rides the verify's first row only, i.e. plain decode).
+SPEC_EWMA_ALPHA = 0.3
+SPEC_EWMA_FLOOR = 0.125
 
 
 class EngineStoppedError(RuntimeError):
@@ -85,8 +103,9 @@ def _sample_batched(logits: torch.Tensor, temps: torch.Tensor,
 
 
 def _fetch_tick(x: torch.Tensor) -> np.ndarray:
-    """THE tick's one device -> host sync: all of a tick's [T, B] tokens
-    become observable in one pull."""
+    """THE tick's one device -> host sync: all of a tick's tokens (the
+    plain tick's [T, B], a speculative round's [B, γ+2] tokens and
+    accept counts) become observable in one pull."""
     return x.cpu().numpy()
 
 
@@ -121,6 +140,14 @@ class _Slot:
     max_blocks: int = 0
     # Shared-prefix hit: the PrefixEntry this slot pinned.
     pinned_entry: Optional[Any] = None
+    # Speculation: whether the admission seeded this slot's draft KV (and
+    # the slot is greedy), its adaptive γ (0 = plain decode, sticky), the
+    # acceptance EWMA driving γ, and lifetime draft/accept counts.
+    spec: bool = False
+    gamma: int = 0
+    accept_ewma: float = 1.0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 @dataclasses.dataclass
@@ -147,11 +174,14 @@ class _Prefill:
 class ContinuousBatchingEngine:
     """The batched engine behind a tier: ``generate()``/``generate_stream()``
     for concurrent callers, one shared decode loop.  Runs on the card
-    unless ``device="cpu"`` is asked for (the plain PyTorch path)."""
+    unless ``device="cpu"`` is asked for (the plain PyTorch path).
+    ``params``/``draft_params`` replace the seeded random target/draft
+    weights."""
 
     def __init__(self, tier: TierConfig, seed: int = 0,
                  params: Optional[Transformer] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 draft_params: Optional[Transformer] = None):
         tier.check_ported()
         if tier.decode_batch <= 1:
             raise NotImplementedError(
@@ -182,15 +212,52 @@ class ContinuousBatchingEngine:
                                 int(tier.prefill_chunk_budget or 0))
 
         if self.device.type == "cuda":
-            # All three kernels compile together, before the first request.
+            # Every kernel compiles (in parallel) before the first request.
             from ..ops import _build
             _build.build_all()
         if params is None:
             params = transformer.init_params(self.cfg, seed=seed,
                                              device=self.device)
         self.model = params.to(self.device)
-        self.pool = init_pool(self.cfg, self.paged, device=self.device)
+        self.pool = init_pool(self.cfg, self.paged, tier.kv_quantize,
+                              device=self.device)
         self.allocator = BlockAllocator(self.paged.num_blocks)
+
+        # Batched speculative decoding: the draft model rides the SAME
+        # block tables as the target, with its own pool of the target's
+        # geometry indexed by the same block ids, so slot and block
+        # lifecycle (admission, growth, parking, copy-on-write) is kept
+        # once.  Draft KV quality only moves the acceptance rate: the
+        # verify rule keeps greedy output identical to plain decode.
+        self.spec = False
+        self.cfg_d = None
+        self.model_d: Optional[Transformer] = None
+        self.pool_d = None
+        self.spec_gamma_max = max(1, int(tier.spec_gamma_max))
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        # Per-slot-index lifetime [drafted, accepted] (bounded by slots).
+        self._spec_slot_acc: Dict[int, List[int]] = {}
+        if tier.spec_decode and self._resolve_spec():
+            self.spec = True
+            self.cfg_d = tier.draft_model()
+            if draft_params is not None:
+                self.model_d = draft_params.to(self.device)
+            elif tier.draft_preset == tier.model_preset:
+                # Self-draft: the draft IS the target (shared weights).
+                self.model_d = self.model
+            else:
+                self.model_d = transformer.init_params(
+                    self.cfg_d, seed=seed + 1, device=self.device)
+            self.pool_d = init_pool(self.cfg_d, self.paged, tier.kv_quantize,
+                                    device=self.device)
+        # γ buckets: powers of two up to spec_gamma_max, plus the max.  A
+        # round runs at the bucket covering its slots' largest γ; each
+        # slot's own γ caps its acceptance inside the round.
+        gmax = self.spec_gamma_max
+        self._gamma_buckets = tuple(sorted(
+            {1 << i for i in range(gmax.bit_length()) if (1 << i) <= gmax}
+            | {gmax}))
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed ^ 0xBA7C4)
 
@@ -250,10 +317,9 @@ class ContinuousBatchingEngine:
     def _sampler(self, temps: Sequence[float]) -> Optional[torch.Generator]:
         return self._gen if any(t > 0 for t in temps) else None
 
-    def _prefill_first(self, tokens: np.ndarray, n: int, temp: float):
-        """Cold prefill of one bucket: returns (first token tensor,
-        k_all, v_all [L, S, N_kv, D])."""
-        tok = self._to_device(tokens.astype(np.int64))
+    def _prefill_first(self, tok: torch.Tensor, n: int, temp: float):
+        """Cold prefill of one bucket (``tok`` [1, S] on the device):
+        returns (first token tensor, k_all, v_all [L, S, N_kv, D])."""
         positions = torch.arange(tok.shape[1], device=self.device)[None]
         hidden, (k_all, v_all) = transformer.prefill(self.cfg, self.model,
                                                      tok, positions)
@@ -262,15 +328,30 @@ class ContinuousBatchingEngine:
                                 self._sampler([temp]))[0]
         return first, k_all[:, 0], v_all[:, 0]
 
+    def _draft_prefill(self, tok: torch.Tensor, blocks: torch.Tensor) -> None:
+        """Seed the draft pool with a cold prompt's K/V: the draft's own
+        prefill of the same bucket, paged into the same blocks."""
+        positions = torch.arange(tok.shape[1], device=self.device)[None]
+        _, (k_all, v_all) = transformer.prefill(self.cfg_d, self.model_d,
+                                                tok, positions)
+        write_prefill_blocks(self.pool_d, blocks, k_all[:, 0], v_all[:, 0])
+
     def _chunk_first(self, tokens: np.ndarray, start: int, true_len: int,
-                     row: np.ndarray, window: int, temp: float):
+                     row: np.ndarray, window: int, temp: float,
+                     draft: bool = False):
         """Chunk-prefill into the pool (in place) and sample from the row
-        of position ``true_len - 1`` (meaningful for the final chunk)."""
-        hidden = chunk_prefill_paged(
-            self.cfg, self.model, self._to_device(tokens.astype(np.int64)),
-            self._to_device(np.array([start], np.int32)),
-            self._to_device(np.array([true_len], np.int32)), self.pool,
-            self._to_device(row), window)
+        of position ``true_len - 1`` (meaningful for the final chunk).
+        ``draft`` also writes the chunk's draft K/V into the draft pool
+        (a prefix hit's suffix, so the slot can speculate)."""
+        args = (self._to_device(tokens.astype(np.int64)),
+                self._to_device(np.array([start], np.int32)),
+                self._to_device(np.array([true_len], np.int32)))
+        table = self._to_device(row)
+        hidden = chunk_prefill_paged(self.cfg, self.model, *args, self.pool,
+                                     table, window)
+        if draft:
+            chunk_prefill_paged(self.cfg_d, self.model_d, *args, self.pool_d,
+                                table, window)
         last = min(max(true_len - start - 1, 0), tokens.shape[1] - 1)
         logits = transformer.logits_from_hidden(self.model,
                                                 hidden[:, last])
@@ -299,6 +380,96 @@ class ContinuousBatchingEngine:
             toks.append(cur)
             pos = torch.clamp(pos + 1, max=max_pos)
         return _fetch_tick(torch.stack(toks))
+
+    @torch.no_grad()
+    def _spec_tick(self, gb: int, gammas: np.ndarray):
+        """One speculative round at γ bucket ``gb``; ``gammas`` [B] caps
+        each slot's acceptance (0 for a slot that does not speculate).
+        The draft runs gb + 1 batched ragged decode steps on its pool (the
+        last one writes the last draft's K/V, so a fully accepted round
+        leaves no hole); ONE verify forward scores every slot's gb + 1
+        chunk; acceptance and the emitted tokens are tensor ops on the
+        device, and the round ends in one pull.  Returns (out [B, gb + 1],
+        n_acc [B]): a slot emits out[:n_acc + 1]."""
+        if self._tables_dev is None:
+            self._tables_dev = self._to_device(self._tables)
+        tables = self._tables_dev
+        pos = self._to_device(self._pos)
+        cur = self._to_device(self._cur)
+        caps = self._to_device(gammas.astype(np.int64))
+        temps = self._to_device(self._temps)
+        gen = self._sampler(self._temps.tolist())
+        max_pos = self.cfg.max_seq_len - 1
+        tok, p, drafts = cur, pos, []
+        for _ in range(gb + 1):
+            logits = decode_step_paged(self.cfg_d, self.model_d, tok, p,
+                                       self.pool_d, tables)
+            tok = logits.argmax(dim=-1)
+            drafts.append(tok)
+            p = torch.clamp(p + 1, max=max_pos)
+        drafted = torch.stack(drafts[:gb], dim=1)                # [B, gb]
+        logits = verify_step_paged(self.cfg, self.model,
+                                   torch.cat([cur[:, None], drafted], dim=1),
+                                   pos, self.pool, tables)      # [B, gb+1, V]
+        picks = logits.argmax(dim=-1)
+        # The first row is temperature-aware: a sampled slot rides γ=0 and
+        # draws its one token per round as the plain tick would.
+        picks[:, 0] = _sample_batched(logits[:, 0], temps, gen)
+        agree = (drafted == picks[:, :gb]).long()
+        n_acc = torch.minimum(agree.cumprod(dim=1).sum(dim=1), caps)
+        idx = torch.arange(gb + 1, device=self.device)[None]
+        out = torch.where(
+            idx < n_acc[:, None],
+            torch.nn.functional.pad(drafted, (0, 1)),
+            picks.gather(1, torch.minimum(idx, n_acc[:, None])))
+        host = _fetch_tick(torch.cat([out, n_acc[:, None]], dim=1))
+        return host[:, :-1], host[:, -1]
+
+    # -- speculation policy ------------------------------------------------
+
+    def _resolve_spec(self) -> bool:
+        """Whether ``spec_decode`` can arm speculation here; each blocker
+        is logged and the engine serves plain decode: no ``draft_preset``,
+        a sampled tier default (every slot would ride γ=0), a draft whose
+        vocabulary differs or whose context is shorter than the target's
+        (drafts run at the target's positions)."""
+        tier = self.tier
+        if not tier.draft_preset:
+            logger.warning("tier %s: spec_decode=True ignored: no "
+                           "draft_preset configured", tier.name)
+            return False
+        if (tier.temperature or 0) > 0:
+            logger.warning("tier %s: spec_decode=True ignored: the tier "
+                           "default temperature=%s would degrade every slot "
+                           "to γ=0", tier.name, tier.temperature)
+            return False
+        dcfg = tier.draft_model()
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            logger.warning("tier %s: spec_decode=True ignored: draft_preset=%s "
+                           "vocab %d != target vocab %d", tier.name,
+                           tier.draft_preset, dcfg.vocab_size,
+                           self.cfg.vocab_size)
+            return False
+        if dcfg.max_seq_len < self.cfg.max_seq_len:
+            logger.warning("tier %s: spec_decode=True ignored: draft_preset=%s "
+                           "max_seq_len %d < target %d", tier.name,
+                           tier.draft_preset, dcfg.max_seq_len,
+                           self.cfg.max_seq_len)
+            return False
+        return True
+
+    def _gamma_bucket(self, g: int) -> int:
+        """Smallest γ bucket covering ``g``."""
+        return next(b for b in self._gamma_buckets if b >= g)
+
+    def _adapt_gamma(self, ewma: float) -> int:
+        """Acceptance EWMA -> the slot's next γ: proportional, with a
+        floor at 0 (plain decode) once acceptance stops paying for the
+        drafts."""
+        gmax = self.spec_gamma_max
+        if gmax <= 0 or ewma < SPEC_EWMA_FLOOR:
+            return 0
+        return max(1, min(gmax, int(ewma * gmax + 0.5)))
 
     # -- block bookkeeping -------------------------------------------------
 
@@ -333,15 +504,19 @@ class ContinuousBatchingEngine:
     def _slot_go_live(self, req: _Request, slot_ix: int, blocks: List[int],
                       *, prompt_len: int, prompt_ids: tuple, budget: int,
                       temp: float, max_blocks: int, pos: int, first: int,
-                      ttft_ms: float, pinned_entry: Optional[Any] = None
-                      ) -> None:
+                      ttft_ms: float, pinned_entry: Optional[Any] = None,
+                      spec_ok: bool = False) -> None:
         """The go-live tail shared by every admission path: publish the
         slot, its table row and decode state, emit the prefill's token
-        and apply the termination checks."""
+        and apply the termination checks.  Speculation eligibility is
+        fixed here for the slot's life: the admission must have seeded
+        the draft pool (``spec_ok``) and the slot must be greedy."""
+        spec = bool(self.spec and spec_ok and temp <= 0)
         slot = _Slot(request=req, blocks=blocks, prompt_len=prompt_len,
                      budget=budget, temperature=temp, ttft_ms=ttft_ms,
                      tokens=[first], prompt_ids=prompt_ids,
-                     max_blocks=max_blocks, pinned_entry=pinned_entry)
+                     max_blocks=max_blocks, pinned_entry=pinned_entry,
+                     spec=spec, gamma=self.spec_gamma_max if spec else 0)
         if req.token_queue is not None:
             req.token_queue.put(first)
         self._slots[slot_ix] = slot
@@ -353,7 +528,9 @@ class ContinuousBatchingEngine:
             self._finish(slot_ix)
 
     def _chunk_gate(self, bucket: int) -> bool:
-        """Chunked prefill only for prompts whose bucket exceeds a chunk."""
+        """Chunked prefill only for prompts whose bucket exceeds a chunk
+        (chunked admissions skip draft seeding: their slots never
+        speculate)."""
         return bool(self.chunk_tokens) and bucket > self.chunk_tokens
 
     def _admit(self, req: _Request, slot_ix: int) -> bool:
@@ -427,14 +604,20 @@ class ContinuousBatchingEngine:
                     owned = owned[:need]
             try:
                 if boundary_src is not None:
-                    # The copy must land before the suffix writes.
+                    # The copy must land before the suffix writes, in both
+                    # pools: the draft attends the same tables.
                     copy_block(self.pool, boundary_src, priv[0])
+                    if self.spec:
+                        copy_block(self.pool_d, boundary_src, priv[0])
                 tokens = np.full((1, sb), self.tokenizer.pad_id, np.int64)
                 tokens[0, :len(suffix)] = suffix
                 window = next(w for w in self._chunk_windows if w >= m + sb)
+                # The draft writes its suffix K/V too; the parked prefix
+                # blocks keep whatever draft K/V their writers left (stale
+                # draft K/V only lowers acceptance).
                 first = int(self._chunk_first(tokens, m, n,
                                               self._table_row(owned), window,
-                                              temp))
+                                              temp, draft=self.spec))
             except BaseException:
                 self.allocator.free(owned)
                 if pinned_entry is not None:
@@ -455,12 +638,14 @@ class ContinuousBatchingEngine:
             try:
                 tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
                 tokens[0, :n] = ids
-                first, k_all, v_all = self._prefill_first(tokens, n, temp)
+                tok = self._to_device(tokens)
+                first, k_all, v_all = self._prefill_first(tok, n, temp)
                 nb_prefill = bucket // bs
-                write_prefill_blocks(
-                    self.pool,
-                    self._to_device(np.array(blocks[:nb_prefill], np.int64)),
-                    k_all, v_all)
+                blk_dev = self._to_device(np.array(blocks[:nb_prefill],
+                                                   np.int64))
+                write_prefill_blocks(self.pool, blk_dev, k_all, v_all)
+                if self.spec:
+                    self._draft_prefill(tok, blk_dev)
                 # The first token must reach the host now (it seeds the
                 # slot): one sync per admission, never per tick.
                 first = int(first)
@@ -471,7 +656,8 @@ class ContinuousBatchingEngine:
         self._slot_go_live(req, slot_ix, blocks, prompt_len=n,
                            prompt_ids=tuple(ids), budget=budget, temp=temp,
                            max_blocks=max_blocks, pos=n, first=first,
-                           ttft_ms=ttft_ms, pinned_entry=pinned_entry)
+                           ttft_ms=ttft_ms, pinned_entry=pinned_entry,
+                           spec_ok=True)
         return True
 
     def _start_prefill(self, req: _Request, slot_ix: int, ids: List[int],
@@ -566,17 +752,104 @@ class ContinuousBatchingEngine:
         pf.request.needs_chunk = True
         self._head.appendleft(pf.request)
 
-    def _ensure_growth(self, active: List[int]) -> None:
-        """Pre-tick lazy KV growth: every active slot's table must cover
-        the positions this tick writes.  A dry pool (after evicting parked
-        prefixes) first cancels the in-flight prefill; failing that, the
-        slot finishes with what it has (no preemption in the port yet)."""
+    def _spec_plan(self, active: List[int]) -> Optional[int]:
+        """The γ bucket of this tick's speculative round, or None for a
+        plain decode tick (speculation off, or no active slot both
+        eligible and above γ=0: an all-degraded batch pays nothing)."""
+        if not self.spec:
+            return None
+        gmax = 0
+        for ix in active:
+            slot = self._slots[ix]
+            if slot is not None and slot.spec and slot.gamma > 0:
+                gmax = max(gmax, slot.gamma)
+        return self._gamma_bucket(gmax) if gmax else None
+
+    def _ensure_spec_private(self, active: List[int], gb: int) -> None:
+        """Before a speculative round: every block covering positions
+        [pos, pos + gb] of an active slot (what the round writes and a
+        rejection abandons) must be slot-private.  A shared block there is
+        copied first, in BOTH pools, and the slot's reference to the
+        shared one dropped.  The admission paths never map a shared block
+        at the write frontier, so this is a backstop.  A pool too dry to
+        copy finishes the slot early (no preemption in the port yet)."""
         bs = self.paged.block_size
         for ix in active:
             slot = self._slots[ix]
             if slot is None:
                 continue
-            end = min(int(self._pos[ix]) + self.steps_per_tick,
+            lo = int(self._pos[ix]) // bs
+            hi = min((int(self._pos[ix]) + gb) // bs, len(slot.blocks) - 1)
+            if hi < lo:
+                continue
+            idxs = list(range(lo, hi + 1))
+            refs = self.allocator.refcounts([slot.blocks[i] for i in idxs])
+            for i, r in zip(idxs, refs):
+                if r <= 1:
+                    continue
+                fresh = self._alloc_evicting(1)
+                if fresh is None:
+                    logger.warning("tier %s: KV pool dry, slot %d finishes "
+                                   "after %d tokens", self.tier.name, ix,
+                                   len(slot.tokens))
+                    self._finish(ix)
+                    break
+                try:
+                    copy_block(self.pool, slot.blocks[i], fresh[0])
+                    copy_block(self.pool_d, slot.blocks[i], fresh[0])
+                except BaseException:
+                    self.allocator.free(fresh)
+                    raise
+                shared = slot.blocks[i]
+                slot.blocks[i] = fresh[0]
+                self.allocator.free([shared])    # decref: sharers keep it
+                self._set_table_row(ix, self._table_row(slot.blocks))
+
+    def _spec_steps(self, slot: _Slot, gb: Optional[int] = None) -> int:
+        """Positions past ``pos`` a speculative round must land in real
+        blocks for this slot: its own γ+1 chunk rows (capped by the
+        round's bucket when given).  Deeper rows of the fused verify fall
+        off the table row into the trash block and are never accepted."""
+        g = slot.gamma if slot.spec else 0
+        if gb is not None:
+            g = min(g, gb)
+        return g + 1
+
+    def _rewind_frontier(self, ix: int) -> None:
+        """After a round, free every block past what the slot's NEXT round
+        can write (its accepted frontier plus its own γ+1 runway).  The
+        freed tail is the youngest, slot-private end of the block list,
+        never a leading shared-prefix block; freeing is a refcounted
+        decref through the one allocator that serves both pools."""
+        slot = self._slots[ix]
+        if slot is None:
+            return
+        bs = self.paged.block_size
+        end = int(self._pos[ix]) + self._spec_steps(slot)
+        need = max(1, min(slot.max_blocks, -(-end // bs)))
+        if len(slot.blocks) <= need:
+            return
+        tail = slot.blocks[need:]
+        del slot.blocks[need:]
+        self.allocator.free(tail)
+        self._set_table_row(ix, self._table_row(slot.blocks))
+
+    def _ensure_growth(self, active: List[int],
+                       spec_gb: Optional[int] = None) -> None:
+        """Pre-tick lazy KV growth: every active slot's table must cover
+        the positions this tick writes: ``decode_steps_per_tick`` for a
+        plain tick, the slot's own γ+1 chunk for a speculative round at
+        bucket ``spec_gb``.  A dry pool (after evicting parked prefixes)
+        first cancels the in-flight prefill; failing that, the slot
+        finishes with what it has (no preemption in the port yet)."""
+        bs = self.paged.block_size
+        for ix in active:
+            slot = self._slots[ix]
+            if slot is None:
+                continue
+            steps = (self.steps_per_tick if spec_gb is None
+                     else self._spec_steps(slot, spec_gb))
+            end = min(int(self._pos[ix]) + steps,
                       slot.prompt_len + slot.budget, self.cfg.max_seq_len)
             need = min(slot.max_blocks, -(-end // bs))
             while len(slot.blocks) < need:
@@ -690,34 +963,93 @@ class ContinuousBatchingEngine:
                 self._fail_request(req, exc)
         return admitted_any
 
+    def _push_token(self, ix: int, slot: _Slot, tok: int) -> bool:
+        """Append and stream one token; finish the slot (and return True)
+        on the decode cap, EOS/PAD or the context edge."""
+        slot.tokens.append(tok)
+        if slot.request.token_queue is not None:
+            slot.request.token_queue.put(tok)
+        self._pos[ix] += 1
+        self._cur[ix] = tok
+        if (len(slot.tokens) >= slot.budget
+                or tok in (self.tokenizer.eos_id, self.tokenizer.pad_id)
+                or self._pos[ix] >= self.cfg.max_seq_len - 1):
+            self._finish(ix)
+            return True
+        return False
+
     def _emit(self, active: List[int], toks: np.ndarray) -> None:
-        """Apply a tick's [T, B] tokens slot by slot: append, stream, and
-        finish on the decode cap, EOS/PAD or the context edge (a slot that
-        finishes at step t discards its later steps)."""
-        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+        """Apply a tick's [T, B] tokens slot by slot (a slot that finishes
+        at step t discards its later steps)."""
         for t in range(toks.shape[0]):
             for ix in active:
                 slot = self._slots[ix]
-                if slot is None:
-                    continue             # finished at an earlier step
-                tok = int(toks[t, ix])
-                slot.tokens.append(tok)
-                if slot.request.token_queue is not None:
-                    slot.request.token_queue.put(tok)
-                self._pos[ix] += 1
-                self._cur[ix] = tok
-                if (len(slot.tokens) >= slot.budget or tok in (eos, pad)
-                        or self._pos[ix] >= self.cfg.max_seq_len - 1):
-                    self._finish(ix)
+                if slot is not None:     # else finished at an earlier step
+                    self._push_token(ix, slot, int(toks[t, ix]))
+
+    def _emit_spec(self, active: List[int], out: np.ndarray,
+                   n_acc: np.ndarray, gammas: np.ndarray) -> None:
+        """Apply one speculative round: per slot, fold the observed
+        acceptance into its EWMA (next γ), emit the accepted drafts plus
+        the target's pick (n_acc + 1 tokens; a slot that finishes
+        mid-round discards the rest) and rewind the rejected tail."""
+        drafted = accepted = 0
+        for ix in active:
+            slot = self._slots[ix]
+            if slot is None:
+                continue
+            k, g_i = int(n_acc[ix]), int(gammas[ix])
+            if slot.spec and g_i > 0:
+                slot.accept_ewma = ((1.0 - SPEC_EWMA_ALPHA) * slot.accept_ewma
+                                    + SPEC_EWMA_ALPHA * k / g_i)
+                slot.gamma = self._adapt_gamma(slot.accept_ewma)
+                slot.spec_drafted += g_i
+                slot.spec_accepted += k
+                drafted += g_i
+                accepted += k
+                acc = self._spec_slot_acc.setdefault(ix, [0, 0])
+                acc[0] += g_i
+                acc[1] += k
+            if not any(self._push_token(ix, slot, int(out[ix, t]))
+                       for t in range(k + 1)):
+                self._rewind_frontier(ix)
+        self.spec_drafted_total += drafted
+        self.spec_accepted_total += accepted
+
+    def _active(self) -> List[int]:
+        return [ix for ix, s in enumerate(self._slots) if s is not None]
+
+    def _plan_tick(self, active: List[int]):
+        """Grow (and, before a speculative round, make private) every
+        active slot's blocks; returns (surviving active slots, the
+        round's γ bucket or None for a plain tick).  The plan is redone
+        after each step: a slot finished for lack of blocks may be the
+        one that set the bucket."""
+        spec_gb = self._spec_plan(active)
+        self._ensure_growth(active, spec_gb)
+        active = self._active()
+        if spec_gb is None:
+            return active, None
+        spec_gb = self._spec_plan(active)
+        if spec_gb is not None:
+            self._ensure_spec_private(active, spec_gb)
+            active = self._active()
+            spec_gb = self._spec_plan(active)
+        if spec_gb is None and active:
+            # The speculating slots are gone: the survivors were grown for
+            # their own chunk rows only, so grow them for the plain tick
+            # (an under-grown table would send real K/V to the trash).
+            self._ensure_growth(active)
+            active = self._active()
+        return active, spec_gb
 
     def _run_scheduler(self) -> None:
         while not self._stop.is_set():
             admitted_any = self._admit_pass()
-            active = [ix for ix, s in enumerate(self._slots) if s is not None]
+            active = self._active()
+            spec_gb = None
             if active:
-                self._ensure_growth(active)
-                active = [ix for ix, s in enumerate(self._slots)
-                          if s is not None]
+                active, spec_gb = self._plan_tick(active)
             if not active:
                 if self._prefill is not None:
                     # No decoding slots: the whole pass is prefill.  A dry
@@ -733,7 +1065,14 @@ class ContinuousBatchingEngine:
                 continue
             try:
                 t_tick = time.perf_counter()
-                toks = self._decode_tick()
+                if spec_gb is None:
+                    toks = self._decode_tick()
+                else:
+                    gammas = np.zeros(self.paged.max_slots, np.int32)
+                    for ix in active:
+                        if self._slots[ix].spec:
+                            gammas[ix] = min(self._slots[ix].gamma, spec_gb)
+                    out, n_acc = self._spec_tick(spec_gb, gammas)
                 self.tick_ms.append((time.perf_counter() - t_tick) * 1000.0)
             except BaseException as exc:
                 # A dead tick must not kill the scheduler: fail the
@@ -742,7 +1081,10 @@ class ContinuousBatchingEngine:
                 for ix in active:
                     self._fail_slot(ix, exc)
                 continue
-            self._emit(active, toks)
+            if spec_gb is None:
+                self._emit(active, toks)
+            else:
+                self._emit_spec(active, out, n_acc, gammas)
             if self._prefill is not None:
                 self._advance_prefill()
             self._progress_t = time.monotonic()
@@ -896,10 +1238,17 @@ class ContinuousBatchingEngine:
         return {"n": len(ticks), "p50_ms": pct(0.5), "p95_ms": pct(0.95)}
 
     def slot_stats(self) -> Dict[str, Any]:
-        """Occupancy snapshot for health(): advisory lock-free reads."""
+        """Occupancy snapshot for health(): advisory lock-free reads.
+        ``spec_gammas`` maps each active slot to its γ (0 = plain decode
+        or spec-ineligible); empty when speculation is off."""
         active = sum(1 for s in self._slots if s is not None)
         total = self.paged.max_slots
         pf = self._prefill
+        gammas: Dict[str, int] = {}
+        if self.spec:
+            for ix, s in enumerate(self._slots):
+                if s is not None:
+                    gammas[str(ix)] = s.gamma if s.spec else 0
         return {
             "queue_depth": self.queue_depth(),
             "active_slots": active,
@@ -909,12 +1258,40 @@ class ContinuousBatchingEngine:
             "prefill_backlog_tokens": (0 if pf is None else
                                        max(0, pf.total - min(pf.consumed,
                                                              pf.total))),
+            "spec_gammas": gammas,
+        }
+
+    def spec_stats(self) -> Dict[str, Any]:
+        """Speculation snapshot: lifetime draft/accept totals, the
+        acceptance ratio, the live per-slot γ map and per-slot-index
+        lifetime counts (advisory lock-free reads)."""
+        drafted = self.spec_drafted_total
+        accepted = self.spec_accepted_total
+        return {
+            "enabled": self.spec,
+            "gamma_max": self.spec_gamma_max,
+            "gamma_buckets": list(self._gamma_buckets),
+            "drafted_total": drafted,
+            "accepted_total": accepted,
+            "accept_ratio": (round(accepted / drafted, 4)
+                             if drafted else None),
+            "slot_gammas": self.slot_stats()["spec_gammas"],
+            "per_slot": {
+                str(ix): {"drafted": d, "accepted": a,
+                          "ratio": round(a / d, 4) if d else None}
+                for ix, (d, a) in sorted(self._spec_slot_acc.items())},
         }
 
     def warmup(self) -> None:
         """One short request through the whole path (prefill, paging, a
-        decode tick) before traffic."""
+        decode tick or a speculative round at the top γ bucket) before
+        traffic; then, with speculation on, one round at every γ bucket
+        against the all-trash tables (every slot is free, so the writes
+        land in the trash block)."""
         self.generate("warmup", max_new_tokens=2)
+        if self.spec:
+            for gb in self._gamma_buckets:
+                self._spec_tick(gb, np.zeros(self.paged.max_slots, np.int32))
 
 
 class StreamHandle:

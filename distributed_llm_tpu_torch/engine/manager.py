@@ -4,11 +4,13 @@ Counterpart of ``distributed_llm_tpu/engine/manager.py``'s
 ``EngineManager`` with the same surface (``start_server``, ``engine()``,
 ``stop_server``, ``drain``, ``health``, ``is_server_running``).  The JAX
 package's device-mesh plumbing and HBM budget are not part of this
-slice; the engine is the continuous-batching one on one device.
+slice; the engine is the continuous-batching one on one device, with
+batched speculation armed for a tier that configures a draft.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -46,7 +48,18 @@ class EngineManager:
                 return
             self._draining = False
             t0 = time.perf_counter()
-            engine = ContinuousBatchingEngine(self.tier, seed=self.seed,
+            tier = self.tier
+            if tier.draft_preset and tier.temperature > 0:
+                logger.warning("tier %s: draft_preset=%s ignored (speculative "
+                               "decoding is greedy-only; temperature=%s)",
+                               tier.name, tier.draft_preset, tier.temperature)
+            elif tier.draft_preset and tier.spec_decode is None:
+                # AUTO (the tri-state default): a configured draft arms
+                # batched speculation on the engine's view of the tier; an
+                # explicit spec_decode=False is the operator's switch and
+                # passes through.
+                tier = dataclasses.replace(tier, spec_decode=True)
+            engine = ContinuousBatchingEngine(tier, seed=self.seed,
                                               device=self.device)
             if self.warmup_on_start:
                 engine.warmup()

@@ -4,7 +4,10 @@ Counterpart of ``distributed_llm_tpu/engine/paged_kv.py``, same layout:
 
 - one pool per tier, ``{"k", "v": [L, N_kv, num_blocks, block_size, D]}``,
   head-major so each (head, block) is a contiguous ``[block_size, D]``
-  tile, the tile the attention kernels stage;
+  tile, the tile the attention kernels stage; an int8 pool
+  (``kv_quantize="int8"``) adds float32 per-row scales
+  ``{"ks", "vs": [L, N_kv, num_blocks, block_size]}`` and every write
+  quantizes (``ops/quant.quantize_kv_rows``);
 - a host-side refcounted ``BlockAllocator``; block 0 is the trash block
   that idle batch slots write into;
 - each slot's block-table row maps logical position ``p`` to
@@ -31,6 +34,7 @@ from ..models.transformer import Transformer
 from ..ops import attention, quant
 
 KVPool = Dict[str, torch.Tensor]    # {"k","v": [L, N_kv, NB, bs, D]}
+                                    # (+ "ks","vs": [L, N_kv, NB, bs])
 
 TRASH_BLOCK = 0
 
@@ -51,12 +55,51 @@ class PagedConfig:
         return self.max_slots * self.blocks_per_slot + 1
 
 
-def init_pool(cfg: ModelConfig, pcfg: PagedConfig, device=None) -> KVPool:
+def init_pool(cfg: ModelConfig, pcfg: PagedConfig, kv_quantize: str = "none",
+              device=None) -> KVPool:
+    """Zeroed pool; ``kv_quantize="int8"`` stores K/V as int8 with
+    float32 per-row scales initialised to ones."""
     shape = (cfg.num_layers, cfg.num_kv_heads, pcfg.num_blocks,
              pcfg.block_size, cfg.head_dim)
+    if kv_quantize == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                "vs": torch.ones(shape[:-1], dtype=torch.float32, device=device)}
+    if kv_quantize != "none":
+        raise ValueError(f"kv_quantize={kv_quantize!r}: expected 'none' or "
+                         "'int8'")
     dtype = transformer.torch_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def pool_block_bytes(cfg: ModelConfig, block_size: int,
+                     kv_quantize: str = "none") -> int:
+    """Bytes one pool block holds across layers and kv heads: K and V
+    tiles, plus the float32 scales of an int8 pool."""
+    d = cfg.head_dim
+    per_row = cfg.num_layers * cfg.num_kv_heads * block_size
+    if kv_quantize == "int8":
+        return per_row * (d * 2 + 4 * 2)
+    itemsize = torch.empty((), dtype=transformer.torch_dtype(cfg)).element_size()
+    return per_row * d * itemsize * 2
+
+
+def _put_rows(pool: KVPool, layer: Optional[int], index, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write K/V rows at ``pool[name][layer][index]`` (every layer when
+    ``layer`` is None), quantizing them first for an int8 pool."""
+    def at(name):
+        return pool[name] if layer is None else pool[name][layer]
+
+    if "ks" in pool:
+        k, k_sc = quant.quantize_kv_rows(k)
+        v, v_sc = quant.quantize_kv_rows(v)
+        at("ks")[index] = k_sc
+        at("vs")[index] = v_sc
+    at("k")[index] = k
+    at("v")[index] = v
 
 
 class BlockAllocator:
@@ -140,26 +183,35 @@ class BlockAllocator:
 def write_prefill_blocks(pool: KVPool, blocks: torch.Tensor,
                          k_all: torch.Tensor, v_all: torch.Tensor) -> KVPool:
     """Scatter a prefilled prompt's K/V ([L, S, N_kv, D], S == nb * bs)
-    into its blocks ([nb] ids), in place."""
+    into its blocks ([nb] ids), in place (quantized for an int8 pool)."""
     l, s, nkv, d = k_all.shape
     nb = blocks.shape[0]
     bs = s // nb
-    ix = blocks.long()
+    ix = (slice(None), slice(None), blocks.long())
     # [L, S, N_kv, D] -> [L, N_kv, nb, bs, D] (head-major pool tiles).
-    pool["k"][:, :, ix] = k_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4)
-    pool["v"][:, :, ix] = v_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4)
+    _put_rows(pool, None, ix,
+              k_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4),
+              v_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4))
     return pool
 
 
 def copy_block(pool: KVPool, src: int, dst: int) -> KVPool:
-    """Copy block ``src``'s K/V to ``dst`` in place: the copy-on-write
-    step of a shared-prefix hit whose matched length ends mid-block."""
-    pool["k"][:, :, dst] = pool["k"][:, :, src]
-    pool["v"][:, :, dst] = pool["v"][:, :, src]
+    """Copy block ``src``'s K/V (and int8 scales) to ``dst`` in place:
+    the copy-on-write step of a shared-prefix hit whose matched length
+    ends mid-block, and of a speculative round's shared frontier block."""
+    for name in pool:
+        pool[name][:, :, dst] = pool[name][:, :, src]
     return pool
 
 
 DecodeAttn = Callable[..., torch.Tensor]
+
+
+def _layer_scales(pool: KVPool, i: int):
+    """(k_scale, v_scale) of layer ``i`` for an int8 pool, else (None, None)."""
+    if "ks" in pool:
+        return pool["ks"][i], pool["vs"][i]
+    return None, None
 
 
 @torch.no_grad()
@@ -186,17 +238,17 @@ def chunk_prefill_paged(cfg: ModelConfig, model: Transformer,
     blk = table.long()[flat_pos // bs]
     off = flat_pos % bs
     for i, lp in enumerate(model.layers):
-        k_pool, v_pool = pool["k"][i], pool["v"][i]
         h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
         q = quant.matmul(h_in, lp.wq).reshape(b, s_c, cfg.num_heads, d)
         k = quant.matmul(h_in, lp.wk).reshape(b, s_c, cfg.num_kv_heads, d)
         v = quant.matmul(h_in, lp.wv).reshape(b, s_c, cfg.num_kv_heads, d)
         q = transformer.apply_rope(q, sin, cos)
         k = transformer.apply_rope(k, sin, cos)
-        k_pool[:, blk, off] = k[0].transpose(0, 1)               # [nkv, S_c, d]
-        v_pool[:, blk, off] = v[0].transpose(0, 1)
-        attn = attention.paged_chunk(q, k_pool, v_pool, table, start, q_pos,
-                                     window)
+        _put_rows(pool, i, (slice(None), blk, off),
+                  k[0].transpose(0, 1), v[0].transpose(0, 1))  # [nkv, S_c, d]
+        attn = attention.paged_chunk(q, pool["k"][i], pool["v"][i], table,
+                                     start, q_pos, window,
+                                     *_layer_scales(pool, i))
         x = x + quant.matmul(attn.reshape(b, s_c, cfg.num_heads * d), lp.wo)
         x = x + transformer._swiglu(
             transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
@@ -216,7 +268,8 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
     call).  Writes this step's K/V in place and returns logits [B, V]
     float32.  Idle slots point their whole row at the trash block; their
     writes land there and their logits are ignored.  ``attn`` replaces
-    the attention op ``(q, k_pool, v_pool, tables, pos) -> [B, Nq, D]``."""
+    the attention op ``(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
+    -> [B, Nq, D]`` (scales None for a bf16 pool)."""
     b = token.shape[0]
     d = cfg.head_dim
     bs = pool["k"].shape[3]
@@ -227,17 +280,69 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
     blk = tables.long().gather(1, (pos_l // bs)[:, None])[:, 0]
     off = pos_l % bs
     for i, lp in enumerate(model.layers):
-        k_pool, v_pool = pool["k"][i], pool["v"][i]
         h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
         q = quant.matmul(h_in, lp.wq).reshape(b, cfg.num_heads, d)
         k = quant.matmul(h_in, lp.wk).reshape(b, cfg.num_kv_heads, d)
         v = quant.matmul(h_in, lp.wv).reshape(b, cfg.num_kv_heads, d)
         q = transformer.apply_rope(q, sin, cos)
         k = transformer.apply_rope(k, sin, cos)
-        k_pool[:, blk, off] = k.transpose(0, 1)                  # [nkv, B, d]
-        v_pool[:, blk, off] = v.transpose(0, 1)
-        out = attn(q, k_pool, v_pool, tables, pos)
+        _put_rows(pool, i, (slice(None), blk, off),
+                  k.transpose(0, 1), v.transpose(0, 1))          # [nkv, B, d]
+        out = attn(q, pool["k"][i], pool["v"][i], tables, pos,
+                   *_layer_scales(pool, i))
         x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
+        x = x + transformer._swiglu(
+            transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
+            lp.w_gate, lp.w_up, lp.w_down)
+    hidden = transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
+    return transformer.logits_from_hidden(model, hidden)
+
+
+@torch.no_grad()
+def verify_step_paged(cfg: ModelConfig, model: Transformer,
+                      tokens: torch.Tensor,        # [B, G] cur + drafts
+                      pos: torch.Tensor,           # [B] int32 first position
+                      pool: KVPool,
+                      tables: torch.Tensor,        # [B, MB] int32 FULL rows
+                      attn: Optional[DecodeAttn] = None) -> torch.Tensor:
+    """One batched speculative-verify forward over the paged pool: the
+    G = γ+1 twin of ``decode_step_paged``.  Each slot's chunk (its last
+    token and its drafts) sits at positions ``pos + g``; all G rows'
+    K/V are written first (write-before-attend, in place), then ONE
+    ``attention.ragged_verify`` call per layer attends every slot's chunk
+    against its own prefix with per-query causal masks.  Returns logits
+    [B, G, V] float32: row g's argmax is the target's pick for position
+    ``pos + g + 1``.  Rows past ``max_seq_len`` (a slot finishing at the
+    context edge mid-chunk) write into the trash block instead of
+    clamping onto live KV; rejected rows' K/V stay past the accepted
+    frontier, masked until a later write overwrites them.  ``attn``
+    replaces the attention op ``(q, k_pool, v_pool, tables, pos,
+    k_scale, v_scale) -> [B, G, Nq, D]``."""
+    b, g = tokens.shape
+    d = cfg.head_dim
+    bs = pool["k"].shape[3]
+    max_pos = cfg.max_seq_len - 1
+    attn = attn or attention.ragged_verify
+    x = quant.embed_rows(model.embed, tokens)                     # [B, G, H]
+    positions = pos.long()[:, None] + torch.arange(g, device=tokens.device)[None]
+    wpos = torch.clamp(positions, max=max_pos)
+    sin, cos = transformer.rope_sincos(wpos, d, cfg.rope_theta)
+    blk = torch.where(positions <= max_pos,
+                      tables.long().gather(1, wpos // bs),
+                      torch.full_like(positions, TRASH_BLOCK))     # [B, G]
+    off = wpos % bs
+    for i, lp in enumerate(model.layers):
+        h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
+        q = quant.matmul(h_in, lp.wq).reshape(b, g, cfg.num_heads, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, g, cfg.num_kv_heads, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, g, cfg.num_kv_heads, d)
+        q = transformer.apply_rope(q, sin, cos)
+        k = transformer.apply_rope(k, sin, cos)
+        _put_rows(pool, i, (slice(None), blk, off),
+                  k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3))  # [nkv, B, G, d]
+        out = attn(q, pool["k"][i], pool["v"][i], tables, pos,
+                   *_layer_scales(pool, i))
+        x = x + quant.matmul(out.reshape(b, g, cfg.num_heads * d), lp.wo)
         x = x + transformer._swiglu(
             transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
             lp.w_gate, lp.w_up, lp.w_down)

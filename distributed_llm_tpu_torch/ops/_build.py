@@ -41,6 +41,18 @@ SIGNATURES: Dict[str, tuple] = {
     # scale; stream
     "ragged_decode": ("ragged_decode_attention",
                       [_P] * 6 + [_I] * 7 + [_F, _P]),
+    # q, k_pool, v_pool, tables, pos, out; B, G, Nq, Nkv, NB, bs, D, MB;
+    # scale; stream
+    "ragged_verify": ("ragged_verify_attention",
+                      [_P] * 6 + [_I] * 8 + [_F, _P]),
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, Nq, Nkv,
+    # NB, bs, D, MB; scale; stream
+    "ragged_decode_q8": ("ragged_decode_attention_q8",
+                         [_P] * 8 + [_I] * 7 + [_F, _P]),
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, G, Nq,
+    # Nkv, NB, bs, D, MB; scale; stream
+    "ragged_verify_q8": ("ragged_verify_attention_q8",
+                         [_P] * 8 + [_I] * 8 + [_F, _P]),
     # q, k, v, out; B, S, Nq, Nkv, D; scale; stream
     "flash_causal": ("flash_causal_attention",
                      [_P] * 4 + [_I] * 5 + [_F, _P]),
@@ -49,7 +61,7 @@ SIGNATURES: Dict[str, tuple] = {
     "paged_chunk": ("paged_chunk_attention",
                     [_P] * 6 + [_I] * 7 + [_F, _P]),
 }
-_COMMON = ("attn_common.cuh",)
+_COMMON = ("attn_common.cuh", "ragged_paged.cuh")
 
 _lock = threading.Lock()
 _entries: Dict[str, object] = {}

@@ -1,14 +1,35 @@
-"""Weight products for plain (unquantized) weights.
+"""Weight products for plain (unquantized) weights, and the int8 KV rows.
 
-Counterpart of the plain-weight paths of ``distributed_llm_tpu/ops/
-quant.py`` (``matmul``, ``embed_rows``, ``tied_head``).  The projections
-and the LM head stay ``x @ w`` on ``torch.matmul``, as the JAX package
-leaves them to XLA.  int8 weights come with a later slice.
+Counterpart of ``distributed_llm_tpu/ops/quant.py``'s plain-weight paths
+(``matmul``, ``embed_rows``, ``tied_head``) and its KV-row quantizer
+(``quantize_kv_rows``, ``dequantize_kv_rows``).  The projections and the
+LM head stay ``x @ w`` on ``torch.matmul``, as the JAX package leaves
+them to XLA.  int8 weights come with a later slice.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 over the trailing D axis: returns (int8
+    values, float32 scales with the D axis dropped).  ``scale`` is
+    amax / 127 where amax > 0, else 1; values round half to even and clip
+    to +-127 (bit-identical to the JAX package's)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def dequantize_kv_rows(q: torch.Tensor, scale: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """``int8 * scale`` in float32, cast to ``dtype``."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

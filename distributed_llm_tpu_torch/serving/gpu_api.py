@@ -18,6 +18,7 @@ same JSON contract and error codes:
 Run one tier's server on the card:
 
     python -m distributed_llm_tpu_torch.serving.gpu_api --tier nano
+    python -m distributed_llm_tpu_torch.serving.gpu_api --tier orin
 
 Admission control waits for the port of ``serving/tiers.py``.
 """
@@ -41,7 +42,7 @@ logger = logging.getLogger(__name__)
 DEFAULT_NUM_PREDICT = -1
 DEFAULT_TEMPERATURE = 0.0
 
-TIER_PORTS = {"nano": 5001}
+TIER_PORTS = {"nano": 5001, "orin": 5000}
 
 
 def _validate_history(query) -> Optional[str]:
@@ -69,7 +70,7 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
                     manager: Optional[EngineManager] = None,
                     device: DeviceLike = None) -> Flask:
     """The tier's app.  Without ``manager`` one is built (lazily started)
-    from ``cluster`` (default: the nano tier of ``ClusterConfig()``) on
+    from ``cluster``'s tier ``tier_name`` (default ``ClusterConfig()``) on
     ``device`` (default: the card)."""
     app = Flask(f"dllm_gpu_{tier_name}")
     if manager is None:

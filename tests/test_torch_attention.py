@@ -150,9 +150,9 @@ def test_decode_and_chunk_attention_match_jax(dtype):
 def test_plain_versions_count_their_calls():
     rng = np.random.default_rng(4)
     q, kp, vp, tables, pos = _ragged_case(rng)
-    before = TA.decode_attention.calls
+    before = TA._gather_decode_paged.calls
     TA.ragged_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tables, pos)))
-    assert TA.decode_attention.calls == before + 1
+    assert TA._gather_decode_paged.calls == before + 1
 
 
 def test_cpu_tensors_never_launch_kernels():

@@ -98,7 +98,30 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 def test_unknown_tier_raises():
     with pytest.raises(ValueError):
-        create_tier_app("orin", cluster=tiny_batched_cluster(), device="cpu")
+        create_tier_app("galaxy", cluster=tiny_batched_cluster(), device="cpu")
+
+
+def test_orin_tier_serves_query():
+    """The orin tier of the tiny cluster (orin_test, 2 slots) behind its
+    own /query server; the default cluster's orin is orin_8b on port
+    5000, one card."""
+    from distributed_llm_tpu_torch.config import ClusterConfig
+    from distributed_llm_tpu_torch.serving.gpu_api import TIER_PORTS
+    assert TIER_PORTS["orin"] == 5000
+    orin = ClusterConfig().orin
+    assert (orin.model_preset, orin.decode_batch, orin.tp) == ("orin_8b", 4, 1)
+    app = create_tier_app("orin", cluster=tiny_batched_cluster(), device="cpu")
+    try:
+        client = app.test_client()
+        r = client.post("/query", json={"query": "why is the sky blue?",
+                                        "num_predict": 5, "stats": True})
+        body = r.get_json()
+        assert r.status_code == 200 and isinstance(body["response"], str)
+        assert 0 < body["stats"]["gen_tokens"] <= 5
+        engine = app.extensions["dllm_manager"].engine()
+        assert engine.cfg.name == "orin_test" and engine.paged.max_slots == 2
+    finally:
+        app.extensions["dllm_manager"].stop_server()
 
 
 def test_clip_turn_and_clipped_stream():
