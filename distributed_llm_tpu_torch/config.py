@@ -2,12 +2,13 @@
 
 Counterpart of ``distributed_llm_tpu/config.py``, kept as the port's own
 copy (the port never imports the JAX package).  It carries every model
-preset, the tier fields the batched engine and the ``/query`` server
-read (batched speculation and the int8 KV pool included), and the nano
-and orin tiers of the default cluster.  Fields whose feature is not
-ported yet are still declared with their JAX defaults, and a tier that
-asks for a non-default value of one raises ``NotImplementedError``
-(``TierConfig.check_ported``) instead of being silently served without it.
+preset, the tier fields the engines and the ``/query`` server read
+(batched and sequential speculation, the int8 KV cache and pool
+included), the nano and orin tiers of the default cluster and the tiny
+test clusters.  Fields whose feature is not ported yet are still
+declared with their JAX defaults, and a tier that asks for a non-default
+value of one raises ``NotImplementedError`` (``TierConfig.check_ported``)
+instead of being silently served without it.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ _UNPORTED_DEFAULTS = {
 
 @dataclasses.dataclass(frozen=True)
 class TierConfig:
-    """One serving tier: a model preset and the batched engine's knobs.
+    """One serving tier: a model preset and its engine's knobs.
 
     The fields and defaults are the JAX package's.  Only the ones the
     ported main path reads are here; the unported features keep their
@@ -121,10 +122,12 @@ class TierConfig:
     max_new_tokens: int = 256       # decode cap
     temperature: float = 0.0        # greedy by default
     prefill_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
-    # decode_batch > 1 selects the continuous-batching engine (the only
-    # engine the port has so far); kv_block_size is the paged pool's
-    # block; decode_steps_per_tick decode steps run per scheduler tick
-    # between two host syncs.
+    # decode_batch > 1 selects the continuous-batching engine; 1 (the
+    # dataclass default, the documented opt-out) the sequential
+    # InferenceEngine over a contiguous KV cache, or SpeculativeEngine
+    # with a draft_preset on a greedy tier.  kv_block_size is the paged
+    # pool's block; decode_steps_per_tick decode steps run per scheduler
+    # tick between two host syncs.
     decode_batch: int = 1
     kv_block_size: int = 64
     decode_steps_per_tick: int = 4
@@ -152,12 +155,14 @@ class TierConfig:
     # on a greedy tier, True = force on, False = serve plain decode.
     # Slots start at spec_gamma_max and an acceptance EWMA scales each
     # one down (to γ=0, plain decode, for low acceptance).
-    # speculative_gamma is the sequential engine's γ (not ported yet).
+    # speculative_gamma is the sequential SpeculativeEngine's γ (draft
+    # tokens per round; decode_batch=1 tiers).
     draft_preset: Optional[str] = None
     speculative_gamma: int = 4
     spec_decode: Optional[bool] = None
     spec_gamma_max: int = 4
-    # KV-pool quantization ("none" | "int8"): symmetric per-row int8 with
+    # KV quantization ("none" | "int8") of the paged pool and of the
+    # sequential engine's contiguous cache: symmetric per-row int8 with
     # float32 scales; writes quantize, attention reads dequantize.
     kv_quantize: str = "none"
     # Per-request wall-clock cap at the serving edge (504 past it).
@@ -234,3 +239,15 @@ def tiny_batched_cluster(nano_slots: int = 4,
                         decode_batch=nano_slots, **common),
         orin=TierConfig(name="orin", model_preset="orin_test",
                         decode_batch=orin_slots, **common))
+
+
+def tiny_cluster() -> ClusterConfig:
+    """The JAX package's tiny sequential test tiers (``decode_batch=1``):
+    ``nano_test`` and ``orin_test``, buckets (16, 32, 64), 16-token blocks
+    and an 8-token decode cap.  The JAX tiny orin asks for ``tp=4`` on
+    its 8-device CPU mesh; here it is ``tp=1``."""
+    common = dict(max_new_tokens=8, prefill_buckets=(16, 32, 64),
+                  kv_block_size=16)
+    return ClusterConfig(
+        nano=TierConfig(name="nano", model_preset="nano_test", **common),
+        orin=TierConfig(name="orin", model_preset="orin_test", **common))

@@ -59,6 +59,7 @@ from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import Transformer
+from ..ops.sampling import sample_batched
 from ..serving.errors import error_dict
 from .inference import GenerationResult, prepare_prompt, trim_at_eos
 from .paged_kv import (BlockAllocator, PagedConfig, TRASH_BLOCK,
@@ -85,21 +86,6 @@ class EngineStoppedError(RuntimeError):
     def __init__(self, shape: Dict[str, Any]):
         super().__init__(str(shape.get("error", "engine stopped")))
         self.shape = dict(shape)
-
-
-def _sample_batched(logits: torch.Tensor, temps: torch.Tensor,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Per-slot temperature: greedy where temp <= 0, else a categorical
-    draw by the Gumbel-max rule (what ``jax.random.categorical`` does).
-    ``generator=None`` means every slot is greedy and draws nothing."""
-    greedy = logits.argmax(dim=-1)
-    if generator is None:
-        return greedy
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
-    scaled = logits.float() / temps.clamp(min=1e-6)[:, None]
-    sampled = (scaled + gumbel).argmax(dim=-1)
-    return torch.where(temps > 0, sampled, greedy)
 
 
 def _fetch_tick(x: torch.Tensor) -> np.ndarray:
@@ -186,7 +172,8 @@ class ContinuousBatchingEngine:
         if tier.decode_batch <= 1:
             raise NotImplementedError(
                 f"tier {tier.name}: decode_batch={tier.decode_batch} selects "
-                "the sequential engine, which is not ported yet")
+                "the sequential InferenceEngine (EngineManager builds it); "
+                "the batched engine needs decode_batch > 1")
         self.tier = tier
         self.device = resolve_device(device)
         self.cfg = tier.model()
@@ -324,8 +311,8 @@ class ContinuousBatchingEngine:
         hidden, (k_all, v_all) = transformer.prefill(self.cfg, self.model,
                                                      tok, positions)
         logits = transformer.logits_from_hidden(self.model, hidden[:, n - 1])
-        first = _sample_batched(logits, self._temp_tensor(temp),
-                                self._sampler([temp]))[0]
+        first = sample_batched(logits, self._temp_tensor(temp),
+                               self._sampler([temp]))[0]
         return first, k_all[:, 0], v_all[:, 0]
 
     def _draft_prefill(self, tok: torch.Tensor, blocks: torch.Tensor) -> None:
@@ -355,8 +342,8 @@ class ContinuousBatchingEngine:
         last = min(max(true_len - start - 1, 0), tokens.shape[1] - 1)
         logits = transformer.logits_from_hidden(self.model,
                                                 hidden[:, last])
-        return _sample_batched(logits, self._temp_tensor(temp),
-                               self._sampler([temp]))[0]
+        return sample_batched(logits, self._temp_tensor(temp),
+                              self._sampler([temp]))[0]
 
     @torch.no_grad()
     def _decode_tick(self) -> np.ndarray:
@@ -376,7 +363,7 @@ class ContinuousBatchingEngine:
         for _ in range(self.steps_per_tick):
             logits = decode_step_paged(self.cfg, self.model, cur, pos,
                                        self.pool, tables)
-            cur = _sample_batched(logits, temps, gen)
+            cur = sample_batched(logits, temps, gen)
             toks.append(cur)
             pos = torch.clamp(pos + 1, max=max_pos)
         return _fetch_tick(torch.stack(toks))
@@ -414,7 +401,7 @@ class ContinuousBatchingEngine:
         picks = logits.argmax(dim=-1)
         # The first row is temperature-aware: a sampled slot rides γ=0 and
         # draws its one token per round as the plain tick would.
-        picks[:, 0] = _sample_batched(logits[:, 0], temps, gen)
+        picks[:, 0] = sample_batched(logits[:, 0], temps, gen)
         agree = (drafted == picks[:, :gb]).long()
         n_acc = torch.minimum(agree.cumprod(dim=1).sum(dim=1), caps)
         idx = torch.arange(gb + 1, device=self.device)[None]

@@ -2,10 +2,19 @@
 
 Counterpart of ``distributed_llm_tpu/engine/manager.py``'s
 ``EngineManager`` with the same surface (``start_server``, ``engine()``,
-``stop_server``, ``drain``, ``health``, ``is_server_running``).  The JAX
-package's device-mesh plumbing and HBM budget are not part of this
-slice; the engine is the continuous-batching one on one device, with
-batched speculation armed for a tier that configures a draft.
+``stop_server``, ``drain``, ``health``, ``is_server_running``) and the
+same engine selection, on one device:
+
+- ``decode_batch > 1``: the continuous-batching engine, with batched
+  speculation armed for a greedy tier that configures a draft;
+- ``decode_batch <= 1`` with a ``draft_preset`` on a greedy tier: the
+  sequential ``SpeculativeEngine`` (a draft on a sampling tier is
+  ignored, with a warning);
+- anything else: the sequential ``InferenceEngine``.
+
+The sequential engines have no scheduler: the probes read its load and
+watchdog surface only where the engine has one.  The JAX package's
+device-mesh plumbing and HBM budget are not ported.
 """
 
 from __future__ import annotations
@@ -14,13 +23,17 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from .batching import ContinuousBatchingEngine
+from .inference import InferenceEngine
+from .speculative import SpeculativeEngine
 
 logger = logging.getLogger(__name__)
+
+Engine = Union[ContinuousBatchingEngine, InferenceEngine, SpeculativeEngine]
 
 
 class EngineManager:
@@ -31,7 +44,7 @@ class EngineManager:
         self.seed = seed
         self.warmup_on_start = warmup_on_start
         self.device = resolve_device(device)
-        self._engine: Optional[ContinuousBatchingEngine] = None
+        self._engine: Optional[Engine] = None
         self._lock = threading.RLock()
         self._started_at: Optional[float] = None
         # True from drain() until the next start_server: intentional
@@ -48,19 +61,7 @@ class EngineManager:
                 return
             self._draining = False
             t0 = time.perf_counter()
-            tier = self.tier
-            if tier.draft_preset and tier.temperature > 0:
-                logger.warning("tier %s: draft_preset=%s ignored (speculative "
-                               "decoding is greedy-only; temperature=%s)",
-                               tier.name, tier.draft_preset, tier.temperature)
-            elif tier.draft_preset and tier.spec_decode is None:
-                # AUTO (the tri-state default): a configured draft arms
-                # batched speculation on the engine's view of the tier; an
-                # explicit spec_decode=False is the operator's switch and
-                # passes through.
-                tier = dataclasses.replace(tier, spec_decode=True)
-            engine = ContinuousBatchingEngine(tier, seed=self.seed,
-                                              device=self.device)
+            engine = self._build(self.tier)
             if self.warmup_on_start:
                 engine.warmup()
             self._started_at = time.time()
@@ -69,11 +70,42 @@ class EngineManager:
                         self.tier.name, time.perf_counter() - t0,
                         self.tier.model_preset, self.device)
 
+    def _build(self, tier: TierConfig) -> Engine:
+        """The JAX manager's engine selection (see the module note)."""
+        draft = tier.draft_preset
+        if draft and tier.temperature > 0:
+            logger.warning("tier %s: draft_preset=%s ignored (speculative "
+                           "decoding is greedy-only; temperature=%s)",
+                           tier.name, draft, tier.temperature)
+            draft = None
+        if tier.decode_batch > 1:
+            if draft and tier.spec_decode is None:
+                # AUTO (the tri-state default): a configured draft arms
+                # batched speculation on the engine's view of the tier;
+                # an explicit spec_decode=False is the operator's switch
+                # and passes through.
+                tier = dataclasses.replace(tier, spec_decode=True)
+            return ContinuousBatchingEngine(tier, seed=self.seed,
+                                            device=self.device)
+        if draft:
+            logger.info("tier %s: decode_batch=1, sequential "
+                        "SpeculativeEngine (gamma=%d)", tier.name,
+                        tier.speculative_gamma)
+            # The draft is a fresh model with no checkpoint of its own.
+            draft_tier = dataclasses.replace(
+                tier, name=f"{tier.name}-draft", model_preset=draft,
+                draft_preset=None, checkpoint_path=None)
+            return SpeculativeEngine(tier, draft_tier,
+                                     gamma=tier.speculative_gamma,
+                                     seed=self.seed, device=self.device)
+        return InferenceEngine(tier, seed=self.seed, device=self.device)
+
     def stop_server(self) -> None:
-        """Stop and drop the engine; its weights and pool are freed."""
+        """Stop and drop the engine; its weights and caches are freed."""
         with self._lock:
-            if self._engine is not None:
-                self._engine.stop()
+            stop = getattr(self._engine, "stop", None)
+            if callable(stop):
+                stop()                  # the batched engine: join its loop
             self._engine = None
             self._started_at = None
 
@@ -87,8 +119,8 @@ class EngineManager:
         deadline = t0 + max(0.0, float(timeout_s))
 
         def in_flight() -> int:
-            engine = self._engine
-            return engine.pending_work() if engine is not None else 0
+            pending = getattr(self._engine, "pending_work", None)
+            return pending() if callable(pending) else 0
 
         started = in_flight()
         while time.monotonic() < deadline and in_flight() > 0:
@@ -111,7 +143,7 @@ class EngineManager:
         """Lock-free: one attribute read."""
         return self._engine is not None
 
-    def engine(self) -> ContinuousBatchingEngine:
+    def engine(self) -> Engine:
         """Lazy-start accessor: lock-free when the engine is up; a cold
         start holds the lifecycle lock across check, start and read."""
         engine = self._engine
@@ -141,8 +173,13 @@ class EngineManager:
         if engine is None:
             entry["queue_depth"] = 0
             return entry
-        entry.update(engine.slot_stats())
-        stall_s = engine.progress_stall_s()
+        slots = getattr(engine, "slot_stats", None)
+        if callable(slots):
+            entry.update(slots())
+        stall = getattr(engine, "progress_stall_s", None)
+        if not callable(stall):
+            return entry
+        stall_s = stall()
         entry["decode_stall_s"] = round(stall_s, 3)
         deadline = self.tier.watchdog_stall_s
         if deadline is not None and stall_s > deadline:

@@ -7,7 +7,7 @@ Counterpart of ``distributed_llm_tpu/engine/paged_kv.py``, same layout:
   tile, the tile the attention kernels stage; an int8 pool
   (``kv_quantize="int8"``) adds float32 per-row scales
   ``{"ks", "vs": [L, N_kv, num_blocks, block_size]}`` and every write
-  quantizes (``ops/quant.quantize_kv_rows``);
+  quantizes (``ops/quant.put_kv_rows``);
 - a host-side refcounted ``BlockAllocator``; block 0 is the trash block
   that idle batch slots write into;
 - each slot's block-table row maps logical position ``p`` to
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -84,22 +84,6 @@ def pool_block_bytes(cfg: ModelConfig, block_size: int,
         return per_row * (d * 2 + 4 * 2)
     itemsize = torch.empty((), dtype=transformer.torch_dtype(cfg)).element_size()
     return per_row * d * itemsize * 2
-
-
-def _put_rows(pool: KVPool, layer: Optional[int], index, k: torch.Tensor,
-              v: torch.Tensor) -> None:
-    """Write K/V rows at ``pool[name][layer][index]`` (every layer when
-    ``layer`` is None), quantizing them first for an int8 pool."""
-    def at(name):
-        return pool[name] if layer is None else pool[name][layer]
-
-    if "ks" in pool:
-        k, k_sc = quant.quantize_kv_rows(k)
-        v, v_sc = quant.quantize_kv_rows(v)
-        at("ks")[index] = k_sc
-        at("vs")[index] = v_sc
-    at("k")[index] = k
-    at("v")[index] = v
 
 
 class BlockAllocator:
@@ -189,9 +173,9 @@ def write_prefill_blocks(pool: KVPool, blocks: torch.Tensor,
     bs = s // nb
     ix = (slice(None), slice(None), blocks.long())
     # [L, S, N_kv, D] -> [L, N_kv, nb, bs, D] (head-major pool tiles).
-    _put_rows(pool, None, ix,
-              k_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4),
-              v_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4))
+    quant.put_kv_rows(pool, None, ix,
+                      k_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4),
+                      v_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4))
     return pool
 
 
@@ -202,16 +186,6 @@ def copy_block(pool: KVPool, src: int, dst: int) -> KVPool:
     for name in pool:
         pool[name][:, :, dst] = pool[name][:, :, src]
     return pool
-
-
-DecodeAttn = Callable[..., torch.Tensor]
-
-
-def _layer_scales(pool: KVPool, i: int):
-    """(k_scale, v_scale) of layer ``i`` for an int8 pool, else (None, None)."""
-    if "ks" in pool:
-        return pool["ks"][i], pool["vs"][i]
-    return None, None
 
 
 @torch.no_grad()
@@ -244,11 +218,12 @@ def chunk_prefill_paged(cfg: ModelConfig, model: Transformer,
         v = quant.matmul(h_in, lp.wv).reshape(b, s_c, cfg.num_kv_heads, d)
         q = transformer.apply_rope(q, sin, cos)
         k = transformer.apply_rope(k, sin, cos)
-        _put_rows(pool, i, (slice(None), blk, off),
-                  k[0].transpose(0, 1), v[0].transpose(0, 1))  # [nkv, S_c, d]
+        quant.put_kv_rows(pool, i, (slice(None), blk, off),
+                          k[0].transpose(0, 1),
+                          v[0].transpose(0, 1))                # [nkv, S_c, d]
         attn = attention.paged_chunk(q, pool["k"][i], pool["v"][i], table,
                                      start, q_pos, window,
-                                     *_layer_scales(pool, i))
+                                     *transformer.layer_scales(pool, i))
         x = x + quant.matmul(attn.reshape(b, s_c, cfg.num_heads * d), lp.wo)
         x = x + transformer._swiglu(
             transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
@@ -261,19 +236,16 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
                       token: torch.Tensor,         # [B] current input token
                       pos: torch.Tensor,           # [B] int32 its position
                       pool: KVPool,
-                      tables: torch.Tensor,        # [B, MB] int32 FULL rows
-                      attn: Optional[DecodeAttn] = None) -> torch.Tensor:
+                      tables: torch.Tensor         # [B, MB] int32 FULL rows
+                      ) -> torch.Tensor:
     """One batched decode step over the paged pool (the ragged contract:
     every slot's FULL table row and TRUE position go to one attention
     call).  Writes this step's K/V in place and returns logits [B, V]
     float32.  Idle slots point their whole row at the trash block; their
-    writes land there and their logits are ignored.  ``attn`` replaces
-    the attention op ``(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
-    -> [B, Nq, D]`` (scales None for a bf16 pool)."""
+    writes land there and their logits are ignored."""
     b = token.shape[0]
     d = cfg.head_dim
     bs = pool["k"].shape[3]
-    attn = attn or attention.ragged_decode
     x = quant.embed_rows(model.embed, token)                      # [B, H]
     sin, cos = transformer.rope_sincos(pos, d, cfg.rope_theta)
     pos_l = pos.long()
@@ -286,10 +258,10 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
         v = quant.matmul(h_in, lp.wv).reshape(b, cfg.num_kv_heads, d)
         q = transformer.apply_rope(q, sin, cos)
         k = transformer.apply_rope(k, sin, cos)
-        _put_rows(pool, i, (slice(None), blk, off),
-                  k.transpose(0, 1), v.transpose(0, 1))          # [nkv, B, d]
-        out = attn(q, pool["k"][i], pool["v"][i], tables, pos,
-                   *_layer_scales(pool, i))
+        quant.put_kv_rows(pool, i, (slice(None), blk, off),
+                          k.transpose(0, 1), v.transpose(0, 1))  # [nkv, B, d]
+        out = attention.ragged_decode(q, pool["k"][i], pool["v"][i], tables,
+                                      pos, *transformer.layer_scales(pool, i))
         x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
         x = x + transformer._swiglu(
             transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
@@ -303,8 +275,8 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
                       tokens: torch.Tensor,        # [B, G] cur + drafts
                       pos: torch.Tensor,           # [B] int32 first position
                       pool: KVPool,
-                      tables: torch.Tensor,        # [B, MB] int32 FULL rows
-                      attn: Optional[DecodeAttn] = None) -> torch.Tensor:
+                      tables: torch.Tensor         # [B, MB] int32 FULL rows
+                      ) -> torch.Tensor:
     """One batched speculative-verify forward over the paged pool: the
     G = γ+1 twin of ``decode_step_paged``.  Each slot's chunk (its last
     token and its drafts) sits at positions ``pos + g``; all G rows'
@@ -315,14 +287,11 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
     ``pos + g + 1``.  Rows past ``max_seq_len`` (a slot finishing at the
     context edge mid-chunk) write into the trash block instead of
     clamping onto live KV; rejected rows' K/V stay past the accepted
-    frontier, masked until a later write overwrites them.  ``attn``
-    replaces the attention op ``(q, k_pool, v_pool, tables, pos,
-    k_scale, v_scale) -> [B, G, Nq, D]``."""
+    frontier, masked until a later write overwrites them."""
     b, g = tokens.shape
     d = cfg.head_dim
     bs = pool["k"].shape[3]
     max_pos = cfg.max_seq_len - 1
-    attn = attn or attention.ragged_verify
     x = quant.embed_rows(model.embed, tokens)                     # [B, G, H]
     positions = pos.long()[:, None] + torch.arange(g, device=tokens.device)[None]
     wpos = torch.clamp(positions, max=max_pos)
@@ -338,10 +307,11 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
         v = quant.matmul(h_in, lp.wv).reshape(b, g, cfg.num_kv_heads, d)
         q = transformer.apply_rope(q, sin, cos)
         k = transformer.apply_rope(k, sin, cos)
-        _put_rows(pool, i, (slice(None), blk, off),
-                  k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3))  # [nkv, B, G, d]
-        out = attn(q, pool["k"][i], pool["v"][i], tables, pos,
-                   *_layer_scales(pool, i))
+        quant.put_kv_rows(pool, i, (slice(None), blk, off),
+                          k.permute(2, 0, 1, 3),
+                          v.permute(2, 0, 1, 3))               # [nkv, B, G, d]
+        out = attention.ragged_verify(q, pool["k"][i], pool["v"][i], tables,
+                                      pos, *transformer.layer_scales(pool, i))
         x = x + quant.matmul(out.reshape(b, g, cfg.num_heads * d), lp.wo)
         x = x + transformer._swiglu(
             transformer.rms_norm(x, lp.ln2, cfg.norm_eps),

@@ -2,9 +2,10 @@
 
 The port's own copy of ``distributed_llm_tpu/engine/prefix_cache.py``.
 After a generation the engine parks the request's prompt token ids and
-the pool blocks holding their KV here; the next prompt that extends a
-parked prompt (a multi-turn chat: old prompt + reply + new turn)
-reclaims them and prefills only the suffix.
+the KV holding them here (the batched engine's pool blocks, the
+sequential engine's whole contiguous cache); the next prompt that
+extends a parked prompt (a multi-turn chat: old prompt + reply + new
+turn) reclaims them and prefills only the suffix.
 
 Two reuse modes:
 
@@ -30,16 +31,20 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 @dataclasses.dataclass
 class PrefixEntry:
     ids: Tuple[int, ...]     # prompt token ids whose KV the entry holds
-    cache: Any               # {"blocks": [pool block ids]}
+    cache: Any               # {"blocks": [pool block ids]} or a KV cache
     pins: int = 0            # live sharers mapping the blocks
 
 
 def select_reuse(store: "Optional[PrefixCache]", ids: Sequence[int],
-                 buckets: Sequence[int], max_seq: int, share: bool = False):
+                 buckets: Sequence[int], max_seq: int,
+                 allow_long_suffix: bool = False, share: bool = False):
     """(entry, matched_len, suffix_ids, suffix_bucket) when a parked
     prefix can be extended by a suffix that fits one of ``buckets``
     within ``max_seq``; else None, with any taken or pinned entry given
-    back."""
+    back.  ``allow_long_suffix``: a suffix no bucket holds still reuses
+    the entry, with suffix_bucket None, when its largest-bucket stride
+    from the matched position fits ``max_seq`` (the sequential engine
+    chunk-prefills it from there)."""
     if store is None or not buckets:
         return None
     if share:
@@ -52,6 +57,9 @@ def select_reuse(store: "Optional[PrefixCache]", ids: Sequence[int],
     sb = next((b for b in buckets
                if len(suffix) <= b and m + b <= max_seq), None)
     if sb is None:
+        cb = buckets[-1]
+        if allow_long_suffix and m + -(-len(suffix) // cb) * cb <= max_seq:
+            return entry, m, suffix, None
         if share:
             store.unshare(entry, m)
         else:

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # source stem -> (C entry point, argtypes).  Pointers and the stream are
@@ -60,8 +61,16 @@ SIGNATURES: Dict[str, tuple] = {
     # window_blocks; scale; stream
     "paged_chunk": ("paged_chunk_attention",
                     [_P] * 6 + [_I] * 7 + [_F, _P]),
+    # The contiguous-cache kernels share one signature: q, k, v, k_scale,
+    # v_scale, q_pos, out; B, S_q, Nq, Nkv, D, W; kv and scale batch
+    # strides; scale; stream (bf16 caches pass null scales, decode S_q=1).
+    **{name: (entry, [_P] * 7 + [_I] * 6 + [_L, _L, _F, _P])
+       for name, entry in (("flash_decode", "flash_decode_attention"),
+                           ("flash_decode_q8", "flash_decode_attention_q8"),
+                           ("flash_chunk", "flash_chunk_attention"),
+                           ("flash_chunk_q8", "flash_chunk_attention_q8"))},
 }
-_COMMON = ("attn_common.cuh", "ragged_paged.cuh")
+_COMMON = ("attn_common.cuh", "ragged_paged.cuh", "contiguous.cuh")
 
 _lock = threading.Lock()
 _entries: Dict[str, object] = {}

@@ -1,5 +1,5 @@
-"""Attention for prefill, chunked prefill, batched paged decode and
-speculative verify.
+"""Attention for prefill, chunked prefill, batched paged decode,
+speculative verify and the sequential engines' contiguous cache.
 
 Counterpart of ``distributed_llm_tpu/ops/attention.py``.  The functions
 here are the plain PyTorch versions (einsum + softmax, the JAX package's
@@ -12,8 +12,9 @@ Shapes follow the JAX package: sequences [B, S, N_kv, D], queries
 [B, S, N_q, D] with N_q a multiple of N_kv (GQA, query head h reads kv
 head h // (N_q / N_kv)), and paged pools [N_kv, NB, bs, D] per layer.
 An int8 pool comes with float32 per-row scales [N_kv, NB, bs]
-(``k_scale``/``v_scale``); the plain versions dequantize what they
-gather to the query's dtype, the int8 kernels dequantize in the kernel.
+(``k_scale``/``v_scale``), an int8 contiguous cache with [B, S, N_kv];
+the plain versions dequantize what they read to the query's dtype, the
+int8 kernels dequantize in the kernel.
 
 Each kernel's plain version counts its calls in ``.calls``, so a run can
 show that a CUDA main path never reached them.  The int8 suffix chunk
@@ -99,6 +100,81 @@ def paged_chunk(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         from .flash_attention import paged_chunk_attention
         return paged_chunk_attention(q, k_pool, v_pool, table, start, window)
     return _gather_chunk_paged(q, k_pool, v_pool, table, q_pos, window)
+
+
+def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           pos: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token decode over a contiguous cache: q [B, Nq, D], caches
+    [B, S, Nkv, D], pos [B] int32 the query's position -> [B, Nq, D].
+    ``k_scale``/``v_scale`` ([B, S, Nkv]) mark an int8 cache."""
+    if q.is_cuda:
+        from . import flash_attention as FA
+        if k_scale is None:
+            return FA.flash_decode_attention(q, k_cache, v_cache, pos)
+        return FA.flash_decode_attention_q8(q, k_cache, v_cache, k_scale,
+                                            v_scale, pos)
+    if k_scale is None:
+        return _decode_contiguous(q, k_cache, v_cache, pos)
+    return _decode_contiguous_q8(q, k_cache, v_cache, k_scale, v_scale, pos)
+
+
+def chunk(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+          q_positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+          v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A chunk of queries over a contiguous cache window: q
+    [B, S_c, Nq, D], caches [B, W, Nkv, D] already holding the chunk's
+    own K/V, q_positions [B, S_c] int32 -> [B, S_c, Nq, D]; a query sees
+    cache positions <= its own.  ``k_scale``/``v_scale`` ([B, W, Nkv])
+    mark an int8 cache.  Every chunk length goes to the kernel on the
+    card: the JAX package keeps lengths not divisible by 8 (the
+    speculative verify's γ+1) on XLA for the TPU compiler's sake, a limit
+    the card does not have; the numerics are the same."""
+    if q.is_cuda:
+        from . import flash_attention as FA
+        if k_scale is None:
+            return FA.flash_chunk_attention(q, k_cache, v_cache, q_positions)
+        return FA.flash_chunk_attention_q8(q, k_cache, v_cache, k_scale,
+                                           v_scale, q_positions)
+    if k_scale is None:
+        return _chunk_contiguous(q, k_cache, v_cache, q_positions)
+    return _chunk_contiguous_q8(q, k_cache, v_cache, k_scale, v_scale,
+                                q_positions)
+
+
+def _dequant_cache(k_cache, v_cache, k_scale, v_scale, dtype):
+    """An int8 contiguous cache ([.., S, Nkv, D] + [.., S, Nkv] scales)
+    dequantized to ``dtype`` for the plain attention."""
+    return (dequantize_kv_rows(k_cache, k_scale, dtype),
+            dequantize_kv_rows(v_cache, v_scale, dtype))
+
+
+def _decode_contiguous(q, k_cache, v_cache, pos):
+    """Plain version of the contiguous decode kernel."""
+    _decode_contiguous.calls += 1
+    return decode_attention(q, k_cache, v_cache, pos)
+
+
+def _decode_contiguous_q8(q, k_cache, v_cache, k_scale, v_scale, pos):
+    """Plain version of the int8 contiguous decode kernel: the cache
+    dequantized to the query's dtype, then ``decode_attention``."""
+    _decode_contiguous_q8.calls += 1
+    k, v = _dequant_cache(k_cache, v_cache, k_scale, v_scale, q.dtype)
+    return decode_attention(q, k, v, pos)
+
+
+def _chunk_contiguous(q, k_cache, v_cache, q_positions):
+    """Plain version of the contiguous chunk kernel."""
+    _chunk_contiguous.calls += 1
+    return chunk_attention(q, k_cache, v_cache, q_positions)
+
+
+def _chunk_contiguous_q8(q, k_cache, v_cache, k_scale, v_scale, q_positions):
+    """Plain version of the int8 contiguous chunk kernel: the window
+    dequantized to the query's dtype, then ``chunk_attention``."""
+    _chunk_contiguous_q8.calls += 1
+    k, v = _dequant_cache(k_cache, v_cache, k_scale, v_scale, q.dtype)
+    return chunk_attention(q, k, v, q_positions)
 
 
 def _gather_pool_seq(k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -256,3 +332,7 @@ _gather_decode_paged.calls = 0
 _gather_verify_paged.calls = 0
 _gather_chunk_paged.calls = 0
 _dequant_chunk_paged.calls = 0
+_decode_contiguous.calls = 0
+_decode_contiguous_q8.calls = 0
+_chunk_contiguous.calls = 0
+_chunk_contiguous_q8.calls = 0

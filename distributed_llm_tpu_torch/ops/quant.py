@@ -2,7 +2,8 @@
 
 Counterpart of ``distributed_llm_tpu/ops/quant.py``'s plain-weight paths
 (``matmul``, ``embed_rows``, ``tied_head``) and its KV-row quantizer
-(``quantize_kv_rows``, ``dequantize_kv_rows``).  The projections and the
+(``quantize_kv_rows``, ``dequantize_kv_rows``), and the in-place KV row
+write both caches share (``put_kv_rows``).  The projections and the
 LM head stay ``x @ w`` on ``torch.matmul``, as the JAX package leaves
 them to XLA.  int8 weights come with a later slice.
 """
@@ -30,6 +31,24 @@ def dequantize_kv_rows(q: torch.Tensor, scale: torch.Tensor,
                        dtype: torch.dtype) -> torch.Tensor:
     """``int8 * scale`` in float32, cast to ``dtype``."""
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def put_kv_rows(cache, layer, index, k: torch.Tensor,
+                v: torch.Tensor) -> None:
+    """Write K/V rows in place at ``cache[name][layer][index]`` (every
+    layer when ``layer`` is None), quantizing them first when the cache
+    (a paged pool or a contiguous cache) is int8, i.e. holds the
+    ``"ks"``/``"vs"`` scale planes."""
+    def at(name):
+        return cache[name] if layer is None else cache[name][layer]
+
+    if "ks" in cache:
+        k, k_sc = quantize_kv_rows(k)
+        v, v_sc = quantize_kv_rows(v)
+        at("ks")[index] = k_sc
+        at("vs")[index] = v_sc
+    at("k")[index] = k
+    at("v")[index] = v
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,16 @@ same JSON contract and error codes:
                       errors: 400 bad input, 500 engine failure,
                       504 past the tier's request_timeout_s
   POST /query/stream  the same body -> SSE `data: {"delta"}` events, then
-                      `data: {"done", "tokens", "ttft_ms", "total_ms"}`
+                      `data: {"done", "tokens", "ttft_ms", "total_ms"}`;
+                      501 when the engine refuses the request's sampling
+                      (the speculative engine is greedy-only)
+
+A batched tier's engine takes concurrent requests itself.  The
+sequential engines (``decode_batch=1``) assume serialized callers, so
+the app runs their calls one at a time under one lock (the JAX
+package's ``TierClient`` engine lock): a ``/query`` waits for it within
+the tier's ``request_timeout_s`` (504 past it), and a stream holds it
+from its first read to its end.
 
 Run one tier's server on the card:
 
@@ -27,11 +36,13 @@ from __future__ import annotations
 
 import argparse
 import logging
+import threading
 import time
 from typing import Any, Dict, Optional
 
 from ..config import ClusterConfig
 from ..device import DeviceLike
+from ..engine.batching import StreamHandle, _Request
 from ..engine.manager import EngineManager
 from ..utils.http_compat import (Flask, StreamingResponse, jsonify, request,
                                  sse_done_event, sse_event)
@@ -82,6 +93,52 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
                                 warmup_on_start=False, device=device)
     app.extensions["dllm_manager"] = manager
     timeout_s = manager.tier.request_timeout_s
+    # Serializes calls into a sequential engine (see the module note).
+    engine_lock = threading.Lock()
+
+    def submit(engine, query, max_new, temperature) -> _Request:
+        """The batched engine's own submit, or the sequential engine's
+        generate on a worker thread under the engine lock: either way a
+        request whose ``done`` the caller waits on.  A timed-out wait
+        leaves the worker to finish and release the lock."""
+        if hasattr(engine, "submit"):
+            return engine.submit(query, max_new_tokens=max_new,
+                                 temperature=temperature)
+        req = _Request(history=query, max_new_tokens=max_new,
+                       temperature=temperature)
+
+        def work():
+            try:
+                with engine_lock:
+                    req.result = engine.generate(
+                        query, max_new_tokens=max_new, temperature=temperature)
+            except Exception as exc:        # reported by the waiting handler
+                req.error = exc
+            finally:
+                req.done.set()
+
+        threading.Thread(target=work, daemon=True,
+                         name=f"query-{manager.tier.name}").start()
+        return req
+
+    def serialized(engine, handle: StreamHandle) -> StreamHandle:
+        """A sequential engine's stream, read under the engine lock from
+        its first read to its end (released on exhaustion, error or
+        close)."""
+        if hasattr(engine, "submit"):
+            return handle
+
+        def locked():
+            if not engine_lock.acquire(timeout=-1 if timeout_s is None
+                                       else timeout_s):
+                raise TimeoutError("Inference timed out waiting for the "
+                                   "engine")
+            try:
+                yield from handle
+            finally:
+                engine_lock.release()
+
+        return StreamHandle(locked(), handle.request)
 
     @app.route("/")
     def home():
@@ -91,10 +148,10 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
     def health():
         """Lock-free: a lazily not-yet-started engine is healthy; a wedged
         decode loop (no progress past the watchdog deadline) is not."""
-        engine = manager._engine
+        stall = getattr(manager._engine, "progress_stall_s", None)
         deadline = manager.tier.watchdog_stall_s
-        if engine is not None and deadline is not None:
-            stall_s = engine.progress_stall_s()
+        if callable(stall) and deadline is not None:
+            stall_s = stall()
             if stall_s > deadline:
                 return jsonify({
                     "ok": False, "wedged": True,
@@ -119,8 +176,7 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
         except (TypeError, ValueError):
             return jsonify({"error": "num_predict/temperature must be numeric"}), 400
         try:
-            req = manager.engine().submit(query, max_new_tokens=max_new,
-                                          temperature=temperature)
+            req = submit(manager.engine(), query, max_new, temperature)
             if not req.done.wait(timeout=timeout_s):
                 # The engine finishes the abandoned request on its own.
                 return jsonify({"error": "Inference timed out"}), 504
@@ -155,8 +211,11 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
             return jsonify({"error": "num_predict/temperature must be "
                                      "numeric"}), 400
         try:
-            handle = ClippedStream(manager.engine().generate_stream(
-                query, max_new_tokens=max_new, temperature=temperature))
+            engine = manager.engine()
+            handle = ClippedStream(serialized(engine, engine.generate_stream(
+                query, max_new_tokens=max_new, temperature=temperature)))
+        except NotImplementedError as exc:
+            return jsonify({"error": str(exc)}), 501
         except Exception as exc:
             logger.exception("stream setup failed")
             return jsonify({"error": f"Inference failed: {exc}"}), 500

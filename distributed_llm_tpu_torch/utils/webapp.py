@@ -206,4 +206,5 @@ class TestClient:
 
 _STATUS = {200: "OK", 400: "Bad Request",
            404: "Not Found", 405: "Method Not Allowed",
-           500: "Internal Server Error", 504: "Gateway Timeout"}
+           500: "Internal Server Error", 501: "Not Implemented",
+           504: "Gateway Timeout"}

@@ -52,13 +52,18 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch\n"
         "import distributed_llm_tpu_torch.serving.gpu_api\n"
         "import distributed_llm_tpu_torch.engine.batching\n"
+        "import distributed_llm_tpu_torch.engine.inference\n"
         "import distributed_llm_tpu_torch.engine.manager\n"
         "import distributed_llm_tpu_torch.engine.paged_kv\n"
+        "import distributed_llm_tpu_torch.engine.prefix_cache\n"
+        "import distributed_llm_tpu_torch.engine.speculative\n"
         "import distributed_llm_tpu_torch.models.convert\n"
+        "import distributed_llm_tpu_torch.models.transformer\n"
         "import distributed_llm_tpu_torch.ops.attention\n"
         "import distributed_llm_tpu_torch.ops.flash_attention\n"
         "import distributed_llm_tpu_torch.ops.quant\n"
         "import distributed_llm_tpu_torch.ops.ragged_attention\n"
+        "import distributed_llm_tpu_torch.ops.sampling\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'distributed_llm_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
