@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
 (any failure exits non-zero before the last line):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. build: the ten attention kernels (``csrc/*.cu``) compile with nvcc for
-   sm_90a, in parallel;
+2. build: the twelve attention kernels (``csrc/*.cu``) compile with nvcc
+   for sm_90a, in parallel;
 3. kernels: each kernel, at its main-path shapes (the nano tier's for the
    ragged decode, causal prefill and paged chunk kernels; the orin tier's
    for the ragged verify and the int8 ragged decode and verify kernels),
@@ -18,9 +18,11 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    same function (SDPA on the gathered, dequantized K/V, timed here only)
    and the card's bound (bytes at 3.35 TB/s, operations at the bf16 rate
    of 989 TFLOP/s); each is also checked at its other instantiations
-   (head dim, block, group, verify width); the contiguous-cache decode
-   and chunk kernels of the sequential engines (bf16 and int8) likewise,
-   at their serving shapes;
+   (head dim, block, group, verify width); the dense windowed tick's
+   paged decode kernels (bf16 at the nano tier's shape, int8 at the orin
+   tier's, each through a column slice of the full table) and the
+   contiguous-cache decode and chunk kernels of the sequential engines
+   (bf16 and int8) likewise, at their serving shapes;
 4. serve nano: the default nano tier (nano_1b at full width, seeded
    random weights) under EngineManager behind the /query server on
    127.0.0.1; cold, chunked, prefix-hit, concurrent and streaming
@@ -34,20 +36,27 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    at full width and depth: a short prompt, one past the 2048 bucket, a
    multi-turn follow-up, 3 concurrent (serialized) requests, a stream
    and a sampled request (which the speculative tier refuses with the
-   JAX package's 500 / 501).
+   JAX package's 500 / 501);
+10. the two-tier ``/chat`` service: ``create_app`` over a production-mode
+   Router (``BASE_CONFIG``) of nano_1b (8 slots, bf16 pool) and orin_8b
+   (4 slots, int8 pool), both on the dense windowed tick, over HTTP;
+   every routing strategy in turn sends a concurrent burst, a repeated
+   query (a response-cache hit), follow-up turns and streams.
 
 Each serve phase sets every kernel's launch count and every plain
 version's call count to 0 before its requests and reads them after: the
 phase's kernels must have launched and no plain attention version may
-have run.  Then, on the live pool or cache, the decode step's logits
+have run (the /chat phase: no ragged decode kernel either, and both tiers
+must have served).  Then, on the live pool or cache, the decode step's logits
 with the kernel and with the plain attention (in bf16 and in float32)
 must agree (speculating tiers: the verify's rows against as many
 sequential decode steps, and the verify with the kernel against the
 verify with the plain attention), and one decode step is timed eager and
 as a replayed CUDA graph.
 
-It prints the serving numbers as one JSON line, the card's name and power
-limit, the kernel table as one JSON line, and as its last line
+It prints the serving numbers as one JSON line, the /chat phase's numbers
+per strategy as another, the card's name and power limit, the kernel
+table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
 """
@@ -797,6 +806,173 @@ def contiguous_variant_checks(torch, gen) -> dict:
     return errs
 
 
+# -- phase 3, continued: the dense windowed tick's paged decode kernels ------
+
+def paged_decode_cases(nano, orin):
+    """K7 and K8 at the dense tick's shapes, (kernel, cfg, slots,
+    positions, window blocks of 64): K7 at the nano tier's 8 slots in a
+    2048 window (timed) and at K1's timed shape, the full 8192 table (for
+    a direct comparison with K1); K8 at the orin tier's 4 slots in a 2048
+    window.  Slot 0 is idle (its whole row on the trash block)."""
+    return {
+        "paged_decode": [
+            (nano, 8, [0, 40, 200, 700, 1500, 1900, 1100, 2047], 32),
+            (nano, 8, [0, 40, 200, 700, 1500, 3000, 5000, 8191], 128)],
+        "paged_decode_q8": [(orin, 4, [0, 100, 700, 1900], 32)],
+    }
+
+
+def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
+    """K7 (bf16 pool) and K8 (int8 pool) at ``paged_decode_cases``, each
+    window a column slice of a full [B, 128] table (the kernel reads it
+    through its row stride, as the engine passes it): every output row
+    within KERNEL_REL_TOL of the plain version in float32, the plain
+    version with every frontier one 64-position tile short outside it,
+    then timed beside the plain version, one SDPA call on the gathered
+    (dequantized), GQA-expanded window with the per-slot mask (timed here
+    only) and the byte bound at 3.35 TB/s.  Then both kernels at their
+    other instantiations (``paged_decode_variant_checks``)."""
+    import torch.nn.functional as F
+
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bf = torch.bfloat16
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    wrappers = kernel_wrappers()
+
+    def flush():
+        flush_buf.zero_()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(bf)
+
+    rows = []
+    for name, cases in paged_decode_cases(nano, orin).items():
+        q8 = name.endswith("_q8")
+        timings, agree = [], NO_ERR
+        for cfg, b, pos_h, wb in cases:
+            nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            mb = -(-cfg.max_seq_len // bs)
+            nb = b * mb + 1
+            k_pool, v_pool = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+            if q8:
+                kq, ks = quant.quantize_kv_rows(k_pool)
+                vq, vs = quant.quantize_kv_rows(v_pool)
+                pool = (kq, vq, ks, vs)
+            else:
+                pool = (k_pool, v_pool)
+            full = (torch.randperm(nb - 1, generator=gen, device=dev)[:b * mb]
+                    + 1).reshape(b, mb).to(torch.int32)
+            full[0] = 0
+            window = full[:, :wb]
+            pos = torch.tensor(pos_h, dtype=torch.int32, device=dev)
+            q = randn(b, nq, d)
+            args = (q, *pool, window, pos)
+            out = wrappers[name](*args)
+            torch.cuda.synchronize()
+            plain_args = (q, pool[0], pool[1], window, pos, *pool[2:])
+            res = compare(out, TA._gather_decode_windowed, plain_args)
+            agree = worst(agree, res)
+            short = (q, pool[0], pool[1], window, pos - KV_TILE, *pool[2:])
+            res["one_tile_short_rel_err"] = row_rel_err(
+                TA._gather_decode_windowed(*widen(short)),
+                TA._gather_decode_windowed(*widen(plain_args)))
+            require(res["one_tile_short_rel_err"] > KERNEL_REL_TOL,
+                    f"{name}: a missed tile would pass at this shape: {res}")
+            k_seq, v_seq = TA._gather_pool_seq(pool[0], pool[1], window,
+                                               *pool[2:], dtype=bf)
+            grp = nq // nkv
+            k_l = k_seq.permute(0, 2, 1, 3).repeat_interleave(grp, 1).contiguous()
+            v_l = v_seq.permute(0, 2, 1, 3).repeat_interleave(grp, 1).contiguous()
+            mask = (torch.arange(wb * bs, device=dev)[None, :]
+                    <= pos[:, None])[:, None, None, :]
+            q_l = q[:, :, None, :]
+            kv_bytes = 2 * (d + 4) if q8 else 2 * d * 2
+            blocks = sum(p // bs + 1 for p in pos_h)
+            b_ms, b_by = bound(blocks * nkv * bs * kv_bytes + 2 * q.numel() * 2
+                               + window.numel() * 4 + pos.numel() * 4,
+                               sum(4 * nq * d * (p + 1) for p in pos_h))
+            timings.append({
+                "shape": f"{cfg.name} B={b} Nq={nq} Nkv={nkv} D={d} bs={bs} "
+                         f"window={wb * bs} (table stride {mb}) NB={nb} "
+                         f"pos={pos_h}",
+                **res,
+                "ms": time_ms(torch, lambda: wrappers[name](*args),
+                              flush=flush),
+                "plain_ms": time_ms(torch, lambda: TA._gather_decode_windowed(
+                    *plain_args), flush=flush),
+                "library_ms": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q_l, k_l, v_l, attn_mask=mask), flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by})
+            del k_pool, v_pool, pool, args, plain_args, short, k_seq, v_seq, \
+                k_l, v_l
+        agrees(name, agree)
+        first = timings[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_llm_tpu_torch/csrc/{name}.cu",
+            "replaces": ("distributed_llm_tpu/ops/pallas_attention.py:"
+                         + ("776" if q8 else "673")),
+            "shape": first["shape"] + f" (checked at {len(timings)} shapes)",
+            **agree, "tol": TOL,
+            **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")},
+            "timings": timings})
+    del flush_buf
+    note_variants(rows, paged_decode_variant_checks(torch, gen))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paged_decode_variant_checks(torch, gen) -> dict:
+    """K7 and K8 at every instantiation they take (head dim 64/128, block
+    32/64/128, GQA group 1/4/8) on small windows (1-3 of 12 table columns,
+    read through the row stride): an idle slot, position 0, mid-block and
+    the window's last position; returns the worst ``compare`` per
+    kernel."""
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    wrappers = kernel_wrappers()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    errs = {n: NO_ERR for n in ("paged_decode", "paged_decode_q8")}
+    for d in (64, 128):
+        for bs in (32, 64, 128):
+            for nq, nkv in ((32, 8), (16, 2), (8, 8)):
+                b, mb = 4, 12
+                nb = b * mb + 1
+                kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+                kq, ks = quant.quantize_kv_rows(kp)
+                vq, vs = quant.quantize_kv_rows(vp)
+                full = (torch.randperm(nb - 1, generator=gen, device=dev)
+                        + 1)[:b * mb].reshape(b, mb).to(torch.int32)
+                full[0] = 0
+                q = randn(b, nq, d)
+                for wb in (1, 2, 3):
+                    window = full[:, :wb]
+                    pos = torch.tensor([0, 0, (wb - 1) * bs + bs // 2,
+                                        wb * bs - 1], dtype=torch.int32,
+                                       device=dev)
+                    for name, pool in (("paged_decode", (kp, vp)),
+                                       ("paged_decode_q8", (kq, vq, ks, vs))):
+                        out = wrappers[name](q, *pool, window, pos)
+                        errs[name] = worst(errs[name], compare(
+                            out, TA._gather_decode_windowed,
+                            (q, pool[0], pool[1], window, pos, *pool[2:])))
+    return errs
+
+
 # -- phases 4-6: serve ------------------------------------------------------------
 
 def post(url: str, body: dict, timeout: float = 300.0):
@@ -832,6 +1008,8 @@ def kernel_wrappers():
     return {"ragged_decode": TR.ragged_paged_decode_attention,
             "flash_causal": TF.flash_causal_attention,
             "paged_chunk": TF.paged_chunk_attention,
+            "paged_decode": TF.paged_decode_attention,
+            "paged_decode_q8": TF.paged_decode_attention_q8,
             "ragged_verify": TR.ragged_paged_verify_attention,
             "ragged_decode_q8": TR.ragged_paged_decode_attention_q8,
             "ragged_verify_q8": TR.ragged_paged_verify_attention_q8,
@@ -845,32 +1023,19 @@ def plain_versions():
     """The plain version of every kernel (none may run on a main path)."""
     from distributed_llm_tpu_torch.ops import attention as TA
     return (TA.causal_attention, TA._gather_decode_paged,
+            TA._gather_decode_windowed,
             TA._gather_verify_paged, TA._gather_chunk_paged,
             TA._decode_contiguous, TA._decode_contiguous_q8,
             TA._chunk_contiguous, TA._chunk_contiguous_q8)
 
 
 @contextlib.contextmanager
-def served(torch, tier, device: str = "cuda"):
-    """``tier`` built and warmed under EngineManager (startup timed) behind
-    its /query app on 127.0.0.1: yields (engine, base URL, startup
-    seconds), then stops the server and the engine.  The previous phase's
-    engine is collected first, so the peak-memory count is this tier's."""
+def http_served(app):
+    """``app`` behind a threaded WSGI server on 127.0.0.1: yields its base
+    URL, then shuts the server down."""
     from wsgiref.simple_server import WSGIRequestHandler, make_server
 
-    from distributed_llm_tpu_torch.engine.manager import EngineManager
-    from distributed_llm_tpu_torch.serving.gpu_api import create_tier_app
     from distributed_llm_tpu_torch.utils.webapp import _ThreadingWSGIServer
-
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    manager = EngineManager(tier, seed=0, device=device)
-    manager.start_server()                   # build + warm (one request)
-    startup_s = time.perf_counter() - t0
-    app = create_tier_app(tier.name, manager=manager)
 
     class QuietHandler(WSGIRequestHandler):
         def log_message(self, *args):       # no per-request access log
@@ -881,12 +1046,39 @@ def served(torch, tier, device: str = "cuda"):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        yield (manager.engine(), f"http://127.0.0.1:{server.server_address[1]}",
-               startup_s)
+        yield f"http://127.0.0.1:{server.server_address[1]}"
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+
+
+def fresh_peak(torch, on_card: bool) -> None:
+    """Collect the previous phase's engines, so the peak-memory count that
+    follows is this phase's."""
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def served(torch, tier, device: str = "cuda"):
+    """``tier`` built and warmed under EngineManager (startup timed) behind
+    its /query app on 127.0.0.1: yields (engine, base URL, startup
+    seconds), then stops the server and the engine."""
+    from distributed_llm_tpu_torch.engine.manager import EngineManager
+    from distributed_llm_tpu_torch.serving.gpu_api import create_tier_app
+
+    fresh_peak(torch, device == "cuda")
+    t0 = time.perf_counter()
+    manager = EngineManager(tier, seed=0, device=device)
+    manager.start_server()                   # build + warm (one request)
+    startup_s = time.perf_counter() - t0
+    try:
+        with http_served(create_tier_app(tier.name, manager=manager)) as base:
+            yield manager.engine(), base, startup_s
+    finally:
         manager.stop_server()
 
 
@@ -1166,11 +1358,15 @@ def plain_attention(float32: bool = False):
     def ragged_decode(q, k, v, tables, pos, ks=None, vs=None):
         return run(TA._gather_decode_paged, q, k, v, tables, pos, ks, vs)
 
+    def paged_decode(q, k, v, tables, pos, ks=None, vs=None):
+        return run(TA._gather_decode_windowed, q, k, v, tables, pos, ks, vs)
+
     def ragged_verify(q, k, v, tables, pos, ks=None, vs=None):
         return run(TA._gather_verify_paged, q, k, v, tables, pos, ks, vs)
 
     swapped = {"decode": decode, "chunk": chunk,
-               "ragged_decode": ragged_decode, "ragged_verify": ragged_verify}
+               "ragged_decode": ragged_decode, "paged_decode": paged_decode,
+               "ragged_verify": ragged_verify}
     saved = {name: getattr(TA, name) for name in swapped}
     for name, fn in swapped.items():
         setattr(TA, name, fn)
@@ -1376,6 +1572,271 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
         return serve, launches
 
 
+# -- phase 10: the two-tier /chat service ---------------------------------------
+
+# A few general_knowledge queries of the JAX package's bench query sets
+# (copied here: the port reads nothing of that package), and two long or
+# code prompts.
+CHAT_QUERIES = [
+    "What is the capital of Japan?",
+    "How many continents are there?",
+    "Name the largest ocean on Earth.",
+    "What year did the first person walk on the moon?",
+    "What is photosynthesis?",
+    "Define the word 'ephemeral'.",
+    "Explain in detail how plate tectonics drives earthquakes, volcanic "
+    "arcs, and mountain building, and compare the mechanisms at divergent, "
+    "convergent, and transform boundaries with concrete examples of each.",
+    "Implement a thread-safe LRU cache in Python with O(1) get and put:\n"
+    "```python\nclass LRUCache:\n    def __init__(self, capacity: int):\n"
+    "        ...\n```\nthen analyze its time and space complexity and "
+    "debug the race condition in this version:\nif key in self.map: "
+    "self.map[key] = value; self.order.remove(key)",
+]
+STRATEGIES = ("token", "semantic", "heuristic", "hybrid", "perf")
+CHAT_KEYS = {"reply", "device", "reasoning", "method", "confidence",
+             "cache_hit", "tokens"}
+
+
+CHAT_MAX_NEW = 64
+
+
+def chat_cluster(nano, orin):
+    """The /chat phase's tiers: nano at its default 8 slots and orin at 4
+    (``tp=1``, int8 KV), both on the dense windowed tick, with a decode
+    cap of CHAT_MAX_NEW tokens (random weights rarely stop at EOS; a
+    follow-up's suffix, the reply plus the new turn, then fits the
+    prefix-reuse buckets)."""
+    from distributed_llm_tpu_torch.config import ClusterConfig
+    return ClusterConfig(
+        nano=dataclasses.replace(nano, attention_ragged=False,
+                                 max_new_tokens=CHAT_MAX_NEW),
+        orin=dataclasses.replace(orin, tp=1, attention_ragged=False,
+                                 kv_quantize="int8",
+                                 max_new_tokens=CHAT_MAX_NEW))
+
+
+def chat_post(base: str, path: str, body: dict) -> dict:
+    status, text = post(base + path, body)
+    require(status == 200, f"{path} returned {status}: {text[:300]}")
+    return json.loads(text)
+
+
+def chat_stream(base: str, body: dict) -> dict:
+    """One /chat/stream request read as it arrives: the meta event, the
+    client-side time to the first delta, and the done event."""
+    req = urllib.request.Request(base + "/chat/stream",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    meta, ttft_ms, text, done = None, None, "", None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        require(resp.status == 200, f"/chat/stream returned {resp.status}")
+        for raw in resp:
+            line = raw.decode("utf-8").strip()
+            if not line.startswith("data: "):
+                continue
+            event = json.loads(line[6:])
+            require("error" not in event, f"/chat/stream failed: {event}")
+            if event.get("meta"):
+                meta = event
+            elif "delta" in event:
+                if ttft_ms is None:
+                    ttft_ms = (time.perf_counter() - t0) * 1e3
+                text += event["delta"]
+            elif event.get("done"):
+                done = event
+    require(meta is not None and done is not None and done["tokens"] > 0
+            and text.strip(), f"/chat/stream incomplete: {meta} {done}")
+    return {"meta": meta, "ttft_ms": ttft_ms, "done": done}
+
+
+def drive_chat(base: str, strategy: str, burst: int, streams: int) -> dict:
+    """One strategy's traffic: ``burst`` concurrent /chat requests (each
+    its own session), a repeated query (a response-cache hit), two
+    follow-up turns (a nano one and a code one, each first turn made
+    unique so the response cache cannot answer it: prefix hits on both
+    tiers) and ``streams`` /chat/stream requests."""
+    results = [None] * burst
+
+    def worker(i):
+        results[i] = chat_post(base, "/chat", {
+            "message": CHAT_QUERIES[i % len(CHAT_QUERIES)],
+            "strategy": strategy, "session_id": f"{strategy}-burst-{i}"})
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(burst)]
+    t_burst = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    burst_s = time.perf_counter() - t_burst
+    require(all(r is not None for r in results),
+            "a concurrent /chat request did not complete")
+    replies = list(results)
+    again = chat_post(base, "/chat", {"message": CHAT_QUERIES[0],
+                                      "strategy": strategy,
+                                      "session_id": f"{strategy}-again"})
+    require(again["cache_hit"] is True,
+            f"the repeated query missed the response cache: {again}")
+    replies.append(again)
+    for k, (first, follow) in enumerate((
+            (CHAT_QUERIES[1], "And how many oceans?"),
+            (CHAT_QUERIES[-1], "Now write unit tests for it and analyze "
+                               "the time complexity of each test."))):
+        session = f"{strategy}-follow-{k}"
+        for message in (f"{first} ({strategy})", follow):
+            replies.append(chat_post(base, "/chat", {
+                "message": message, "strategy": strategy,
+                "session_id": session}))
+    for r in replies:
+        require(set(r) == CHAT_KEYS and r["device"] in ("nano", "orin"),
+                f"/chat broke the contract: {r}")
+    streamed = [chat_stream(base, {
+        "message": CHAT_QUERIES[(i * 6) % len(CHAT_QUERIES)],
+        "strategy": strategy, "session_id": f"{strategy}-stream-{i}"})
+        for i in range(streams)]
+    devices = [r["device"] for r in replies] + [s["meta"]["device"]
+                                                for s in streamed]
+    ttfts = [s["ttft_ms"] for s in streamed]
+    return {"requests": len(replies) + streams,
+            "burst_requests": burst, "burst_s": burst_s,
+            "burst_req_per_s": burst / burst_s,
+            "p50_stream_ttft_ms": statistics.median(ttfts),
+            "stream_ttft_ms": ttfts,
+            "nano": devices.count("nano"), "orin": devices.count("orin"),
+            "p50_routing_overhead_ms": statistics.median(
+                s["meta"]["routing_overhead_ms"] for s in streamed),
+            "methods": sorted({r["method"] for r in replies}),
+            "cache_hits": sum(1 for r in replies if r["cache_hit"])}
+
+
+def routing_device_check(device: str) -> dict:
+    """The routing layer's device path in the production config's hybrid
+    space (the trained encoder with the hashed n-grams): embeddings of
+    the chat queries on ``device`` against the same on the CPU (max abs
+    within 1e-4: another float32 summation order), and every strategy's
+    decision on ``device`` equal to the CPU's."""
+    import numpy as np
+
+    from distributed_llm_tpu_torch.config import PRODUCTION_CFG
+    from distributed_llm_tpu_torch.routing.embedder import get_embedder
+    from distributed_llm_tpu_torch.routing.strategies import (
+        AVAILABLE_STRATEGIES)
+
+    name = PRODUCTION_CFG["embedding_model"]
+    err = float(np.abs(get_embedder(name, device).encode(CHAT_QUERIES)
+                       - get_embedder(name, "cpu").encode(CHAT_QUERIES)).max())
+    require(err <= 1e-4, f"the {name} embedding on {device} is off by {err}")
+    decisions = {}
+    for strategy, cls in AVAILABLE_STRATEGIES.items():
+        embeds = strategy in ("semantic", "hybrid")
+        got = [cls(dict(PRODUCTION_CFG), **({"device": device} if embeds
+                                            else {})).route(q)
+               for q in CHAT_QUERIES]
+        want = [cls(dict(PRODUCTION_CFG), **({"device": "cpu"} if embeds
+                                             else {})).route(q)
+                for q in CHAT_QUERIES]
+        require([(d.device, d.method) for d in got]
+                == [(d.device, d.method) for d in want],
+                f"{strategy} decides otherwise on {device}")
+        decisions[strategy] = [d.device for d in got]
+    return {"embedding_model": name, "max_abs_err_vs_cpu": err,
+            "decisions": decisions}
+
+
+def dense_logits_check(torch, engine) -> dict:
+    """The dense tick's decode-step logits on the live pool, every slot
+    continuing the longest parked conversation through the window its
+    tick would take, ``three_ways``."""
+    from distributed_llm_tpu_torch.engine.paged_kv import decode_step_paged
+
+    tables, pos, cur, n = _live_decode_state(torch, engine)
+    wb = engine._suffix_window(n + engine.steps_per_tick) \
+        // engine.paged.block_size
+    kernel, plain, ref = three_ways(lambda pool: decode_step_paged(
+        engine.cfg, engine.model, cur, pos, pool, tables[:, :wb],
+        ragged=False)[0], engine.pool)
+    return check_three({"position": n - 1, "window": wb *
+                        engine.paged.block_size}, kernel, plain, ref)
+
+
+def chat_phase(torch, cluster, *, burst: int = len(CHAT_QUERIES),
+               streams: int = 2,
+               expect=(), device: str = "cuda"):
+    """Serve ``create_app`` over a production-mode Router (``BASE_CONFIG``)
+    of ``cluster`` over HTTP, and drive every routing strategy
+    (``drive_chat``, the strategy selected per request; the routing cache
+    is cleared before each strategy, so each one's split of traffic is its
+    own decisions, not the previous strategy's cached ones).  Both tiers must
+    serve, the kernels in ``expect`` launch, the ragged decode kernels
+    and every plain version stay at 0 and, with the orin tier on an int8
+    pool, the int8 suffix chunk run.  Then the dense tick's logits on both
+    live pools.  Returns (numbers, launches by kernel)."""
+    from distributed_llm_tpu_torch.serving.app import BASE_CONFIG, create_app
+    from distributed_llm_tpu_torch.serving.router import Router
+
+    on_card = device == "cuda"
+    fresh_peak(torch, on_card)
+    t0 = time.perf_counter()
+    router = Router(strategy="hybrid", config=dict(BASE_CONFIG),
+                    cluster=cluster, device=device)
+    for tier in router.tiers.values():
+        tier.server_manager.start_server()      # build + warm
+    startup_s = time.perf_counter() - t0
+    try:
+        with http_served(create_app(router=router)) as base:
+            return chat_traffic(torch, router, cluster, base, burst, streams,
+                                expect, on_card, startup_s)
+    finally:
+        router.drain(timeout_s=30)
+
+
+def chat_traffic(torch, router, cluster, base: str, burst: int,
+                 streams: int, expect, on_card: bool, startup_s: float):
+    """``chat_phase``'s main path and checks against the served app."""
+    from distributed_llm_tpu_torch.ops import attention as TA
+
+    with urllib.request.urlopen(base + "/health", timeout=30) as resp:
+        require(resp.status == 200, "/health not ok")
+    reset_counts()
+    t_main = time.perf_counter()
+    by_strategy = {}
+    for st in STRATEGIES:
+        router.query_router.clear_cache()
+        by_strategy[st] = drive_chat(base, st, burst, streams)
+    main_s = time.perf_counter() - t_main
+    launches, plain_calls = read_counts(expect, on_card)
+    int8_chunk_calls = TA._dequant_chunk_paged.calls
+    require(launches["ragged_decode"] == 0
+            and launches["ragged_decode_q8"] == 0,
+            f"a ragged decode kernel ran on the dense tick: {launches}")
+    nano_n = sum(v["nano"] for v in by_strategy.values())
+    orin_n = sum(v["orin"] for v in by_strategy.values())
+    require(nano_n > 0 and orin_n > 0,
+            f"a tier served no traffic (nano {nano_n}, orin {orin_n})")
+    if cluster.orin.kv_quantize == "int8":
+        require(int8_chunk_calls > 0, "the int8 suffix chunk did not run")
+    engines = {n: t.server_manager.engine() for n, t in
+               router.tiers.items()}
+    numbers = {
+        "startup_s": startup_s, "main_path_s": main_s,
+        "tiers": {n: {"model": e.tier.model_preset, "slots":
+                      e.paged.max_slots, "kv_quantize": e.tier.kv_quantize,
+                      "ragged": e.ragged, "tick_stats": e.tick_stats()}
+                  for n, e in engines.items()},
+        "by_strategy": by_strategy, "launches": launches,
+        "plain_calls": plain_calls, "int8_chunk_calls": int8_chunk_calls,
+        "cache": router.query_router.get_cache_stats()["hit_rate"],
+        "dense_logits_check": {n: dense_logits_check(torch, e)
+                               for n, e in engines.items()},
+        "routing_device_check": routing_device_check(
+            "cuda" if on_card else "cpu"),
+        "peak_memory_gb": peak_memory_gb(torch, on_card)}
+    return numbers, launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1422,6 +1883,7 @@ def main() -> None:
         orin.decode_batch)
     rows[0]["draft_shape"] = draft_shape
     rows += spec_rows
+    rows += paged_decode_kernel_phase(torch, nano.model(), orin.model())
     rows += contiguous_kernel_phase(torch, nano.model(), orin.model())
     log(f"kernels checked in {time.perf_counter() - t_all:.1f}s")
 
@@ -1465,10 +1927,19 @@ def main() -> None:
         torch, dataclasses.replace(nano, decode_batch=1, kv_quantize="int8"),
         expect=("flash_causal", "flash_decode_q8", "flash_chunk_q8"))
     log(f"nano sequential int8 served in {time.perf_counter() - t_all:.1f}s")
+
+    # 10. The two-tier /chat service on the dense windowed tick: nano_1b
+    # (bf16 pool) and orin_8b (int8 pool) behind the Router, every
+    # routing strategy.
+    chat, chat_launches = chat_phase(
+        torch, chat_cluster(nano, orin),
+        expect=("flash_causal", "paged_chunk", "paged_decode",
+                "paged_decode_q8"))
+    log(f"/chat served in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
                 "orin_spec_int8": int8_launches, "orin_seq_bf16": seq_launches,
                 "orin_seq_spec": seq_spec_launches,
-                "nano_seq_int8": seq_int8_launches}
+                "nano_seq_int8": seq_int8_launches, "chat": chat_launches}
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}
@@ -1479,7 +1950,7 @@ def main() -> None:
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "ptxas": ptxas, "kernels": rows, "serve": phases,
+              "ptxas": ptxas, "kernels": rows, "serve": phases, "chat": chat,
               "total_s": time.perf_counter() - t_all}
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -1502,6 +1973,16 @@ def main() -> None:
                                                 "tokens_per_s", "p50_ttft_ms")}
     log(json.dumps({"card": card, "serve": summary,
                     "total_s": report["total_s"]}))
+    log(json.dumps({"chat": {
+        "startup_s": chat["startup_s"], "main_path_s": chat["main_path_s"],
+        "by_strategy": {st: {k: v[k] for k in (
+            "requests", "burst_req_per_s", "p50_stream_ttft_ms", "nano",
+            "orin", "p50_routing_overhead_ms")}
+            for st, v in chat["by_strategy"].items()},
+        "int8_chunk_calls": chat["int8_chunk_calls"],
+        "dense_logits_check": chat["dense_logits_check"],
+        "routing_device_check": chat["routing_device_check"],
+        "peak_memory_gb": chat["peak_memory_gb"]}}))
     log(f"{card}")
     log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

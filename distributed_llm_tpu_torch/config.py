@@ -1,11 +1,14 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 Counterpart of ``distributed_llm_tpu/config.py``, kept as the port's own
-copy (the port never imports the JAX package).  It carries every model
-preset, the tier fields the engines and the ``/query`` server read
-(batched and sequential speculation, the int8 KV cache and pool
-included), the nano and orin tiers of the default cluster and the tiny
-test clusters.  Fields whose feature is not ported yet are still
+copy (the port never imports the JAX package).  It carries the router's
+canonical configs (``BENCHMARK_CFG``, ``PRODUCTION_CFG``,
+``resolve_config``), every model preset, the tier fields the engines,
+the tier clients and the router read (batched and sequential
+speculation, the int8 KV cache and pool, the dense windowed tick,
+admission, the context-overflow policy, drain), the cluster's breaker
+and retry fields, the nano and orin tiers of the default cluster and the
+tiny test clusters.  Fields whose feature is not ported yet are still
 declared with their JAX defaults, and a tier that asks for a non-default
 value of one raises ``NotImplementedError`` (``TierConfig.check_ported``)
 instead of being silently served without it.
@@ -14,7 +17,60 @@ instead of being silently served without it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+# -- router-level canonical configs (the JAX package's, key for key) ---------
+
+# Semantic-cache similarity thresholds, calibrated per embedder: hashed
+# n-grams alone, and the hybrid trained-encoder + hashed space.
+DEFAULT_CACHE_SIMILARITY = 0.40
+HYBRID_CACHE_SIMILARITY = 0.17
+
+# Benchmark mode: routing cache off, so each query is routed afresh.
+BENCHMARK_CFG: Dict[str, Any] = {
+    "token_threshold": 1000,
+    "model": "tpu-native-bpe-4k",
+    "embedding_model": "hybrid-lexsem-v1",
+    "semantic_label_path": "",       # the port's routing/semantic_labels.json
+    "semantic_margin_threshold": 0.03,
+    "semantic_min_similarity": -0.05,
+    "heuristic_long_chars": 800,
+    "heuristic_multi_qmarks": 2,
+    "heuristic_code_markers_needed": 2,
+    "heuristic_context_chars": 3200,
+    "weights": {"token": 0.25, "semantic": 0.45, "heuristic": 0.30},
+    "cache_enabled": False,
+    "perf_window": 30,
+    "perf_fail_penalty": 3000.0,
+}
+
+# Production: predictive routing cache and response cache on, prefix
+# affinity, perf exploration and queue-aware perf scoring.
+PRODUCTION_CFG: Dict[str, Any] = {
+    **BENCHMARK_CFG,
+    "cache_enabled": True,
+    "cache_ttl_seconds": 3600,
+    "cache_max_size": 500,
+    "cache_similarity_threshold": HYBRID_CACHE_SIMILARITY,
+    "use_semantic_cache": True,
+    "prediction_confidence_threshold": 0.70,
+    "enable_response_cache": True,
+    "enable_prefix_affinity": True,
+    "prefix_affinity_min_confidence": 0.75,
+    "prefix_affinity_min_tokens": 32,
+    "perf_explore": True,
+    "perf_explore_interval": 16,
+    "perf_queue_aware": True,
+    "perf_queue_penalty_ms": 50.0,
+}
+
+
+def resolve_config(config: Optional[Dict[str, Any]],
+                   benchmark_mode: bool) -> Dict[str, Any]:
+    """An explicit config wins; otherwise the canonical dict of the mode."""
+    if config is not None:
+        return config
+    return dict(BENCHMARK_CFG) if benchmark_mode else dict(PRODUCTION_CFG)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +161,10 @@ _UNPORTED_DEFAULTS = {
     "host_kv_bytes": None,
     "kv_pool_blocks": None,
     "checkpoint_path": None,
+    "endpoint": None,
+    "spawn_cmd": None,
+    "tenant_quotas": None,
+    "autoscale": False,
 }
 
 
@@ -131,6 +191,13 @@ class TierConfig:
     decode_batch: int = 1
     kv_block_size: int = 64
     decode_steps_per_tick: int = 4
+    # The batched engine's decode tick: True = one ragged decode call over
+    # every slot's FULL table row at its true position; False = the dense
+    # windowed tick, which slices the tables to the smallest prefill
+    # bucket covering every active position plus the tick's steps (the
+    # full span past the top bucket) and decodes through the paged decode
+    # kernel.  Batched speculation needs the ragged tick.
+    attention_ragged: bool = True
     # A cold prompt whose bucket exceeds this many tokens prefills in
     # chunks of this size, interleaved with decode ticks (a multiple of
     # kv_block_size; 0/None disables chunking).
@@ -165,6 +232,23 @@ class TierConfig:
     # sequential engine's contiguous cache: symmetric per-row int8 with
     # float32 scales; writes quantize, attention reads dequantize.
     kv_quantize: str = "none"
+    # Admission control (serving/tiers.py AdmissionController): requests
+    # allowed to WAIT beyond the decode_batch slots; past it, or when the
+    # queue times the EWMA service time predicts a wait past
+    # request_timeout_s, a request fails fast with the reference error
+    # shape.  None disables the control.
+    admission_max_queue: Optional[int] = 16
+    # KV-pressure-aware admission: reject a request whose projected block
+    # demand exceeds the pool's free plus reclaimable blocks (the probe
+    # finds no demand estimate on the port's full-residency pools).
+    kv_admission: bool = True
+    # Context overflow at the router: "reject" fails fast, "truncate_left"
+    # drops the oldest turns until the prompt fits max_seq_len -
+    # max_new_tokens.
+    overflow_policy: str = "truncate_left"
+    # Graceful drain (EngineManager.drain): in-flight requests get this
+    # long to finish before the engine stops.
+    drain_timeout_s: float = 30.0
     # Per-request wall-clock cap at the serving edge (504 past it).
     request_timeout_s: Optional[float] = 180.0
     # Decode watchdog: pending work with no scheduler progress for this
@@ -177,6 +261,10 @@ class TierConfig:
     host_kv_bytes: Optional[int] = None
     kv_pool_blocks: Optional[int] = None
     checkpoint_path: Optional[str] = None
+    endpoint: Optional[str] = None
+    spawn_cmd: Optional[Tuple[str, ...]] = None
+    tenant_quotas: Optional[Dict[str, Any]] = None
+    autoscale: bool = False
 
     def model(self) -> ModelConfig:
         return MODEL_PRESETS[self.model_preset]
@@ -190,7 +278,8 @@ class TierConfig:
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
         tier turns on (tensor parallelism, replicas, int8 weights, host KV
-        spill, a constrained pool, checkpoints, MoE)."""
+        spill, a constrained pool, checkpoints, remote tiers, tenant
+        quotas, the autoscaler, MoE)."""
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]
@@ -207,8 +296,8 @@ class TierConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
-    """The deployment's two tiers, each served by its own ``/query``
-    server (the two-tier router comes with a later slice).
+    """The deployment's two tiers, behind the router's ``/chat`` service
+    or each behind its own ``/query`` server.
 
     The JAX default gives orin ``tp=4`` and shrinks a tier to the devices
     at hand; the port has one card, so orin is ``tp=1`` until the
@@ -221,6 +310,15 @@ class ClusterConfig:
         default_factory=lambda: TierConfig(name="orin", model_preset="orin_8b",
                                            tp=1, decode_batch=4))
     seed: int = 0
+    # Per-tier circuit breaker (serving/breaker.py): OPEN after this many
+    # consecutive error-shaped results, shedding the tier for the
+    # cooldown; 0 disables it.
+    breaker_failures: int = 5
+    breaker_cooldown_s: float = 30.0
+    # Bounded same-tier retry of transient error shapes, jittered
+    # exponential backoff from retry_backoff_s.
+    retry_attempts: int = 1
+    retry_backoff_s: float = 0.05
 
     def tiers(self) -> Tuple[TierConfig, TierConfig]:
         return (self.nano, self.orin)

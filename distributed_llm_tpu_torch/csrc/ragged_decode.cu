@@ -41,6 +41,7 @@ extern "C" int ragged_decode_attention(const void* q, const void* k_pool,
                            bs,
                            D,
                            MB,
+                           MB,
                            scale};
   return dllm::ragged_paged_attention<false, 2>(a, stream);
 }

@@ -42,6 +42,7 @@ extern "C" int ragged_decode_attention_q8(const void* q, const void* k_pool,
                            bs,
                            D,
                            MB,
+                           MB,
                            scale};
   return dllm::ragged_paged_attention<true, 2>(a, stream);
 }

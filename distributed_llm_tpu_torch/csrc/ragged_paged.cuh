@@ -7,7 +7,11 @@
 // layer's pool [Nkv, NB, bs, D], bf16 or int8, and for int8 the float32
 // per-row scales [Nkv, NB, bs]; tables [B, MB] int32 hold each slot's
 // FULL block row and pos [B] int32 the FIRST query's position, both read
-// on the device.  Query g of slot b sits at position pos[b] + g and
+// on the device.  The dense windowed decode (paged_decode.cu,
+// paged_decode_q8.cu) passes a window [B, wb] of the table instead, MB =
+// wb, with every position below wb * bs; such a window may be a column
+// slice of the full table, so rows are read through their own stride TS
+// (TS = MB for a contiguous table).  Query g of slot b sits at position pos[b] + g and
 // attends positions 0 .. pos[b] + g, position p living at
 // (tables[b, p / bs], p % bs).  Its K/V are already written
 // (write-before-attend); idle slots point their whole row at the trash
@@ -54,6 +58,7 @@ struct RaggedArgs {
   const int* pos;
   void* o;
   int B, G, Nq, Nkv, NB, bs, D, MB;
+  long TS;  // elements between two table rows (>= MB)
   float scale;
 };
 
@@ -160,7 +165,7 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
                     const void* __restrict__ v_pool, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const int* __restrict__ tables,
                     const int* __restrict__ pos, __nv_bfloat16* __restrict__ o, int G,
-                    int Nq, int Nkv, int NB, int MB, float scale) {
+                    int Nq, int Nkv, int NB, int MB, long table_stride, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kRows = kWarps * R;
   constexpr int kTileWords = Q8 ? Tile8<D>::kWords : Tile<D>::kWords;
@@ -177,7 +182,7 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int p0 = pos[b];
-  const int* row_table = tables + (long)b * MB;
+  const int* row_table = tables + (long)b * table_stride;
 
   // Query head of row r: hk * group + r / G, at position p0 + r % G.
   RowState<D> st[R];
@@ -246,7 +251,7 @@ cudaError_t ragged_launch(const RaggedArgs& a, cudaStream_t stream) {
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), a.k_pool, a.v_pool, a.k_scale, a.v_scale,
       a.tables, a.pos, static_cast<__nv_bfloat16*>(a.o), a.G, a.Nq, a.Nkv, a.NB, a.MB,
-      a.scale);
+      a.TS, a.scale);
   return cudaGetLastError();
 }
 
@@ -282,7 +287,7 @@ cudaError_t ragged_dispatch_bs(const RaggedArgs& a, cudaStream_t stream) {
 // 4 * MaxR.
 template <bool Q8, int MaxR>
 int ragged_paged_attention(const RaggedArgs& a, void* stream) {
-  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.B < 1) {
+  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.B < 1 || a.TS < a.MB) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

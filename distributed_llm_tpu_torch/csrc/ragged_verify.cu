@@ -42,6 +42,7 @@ extern "C" int ragged_verify_attention(const void* q, const void* k_pool,
                            bs,
                            D,
                            MB,
+                           MB,
                            scale};
   return dllm::ragged_paged_attention<false, 10>(a, stream);
 }

@@ -37,6 +37,7 @@ extern "C" int ragged_verify_attention_q8(const void* q, const void* k_pool,
                            bs,
                            D,
                            MB,
+                           MB,
                            scale};
   return dllm::ragged_paged_attention<true, 10>(a, stream);
 }

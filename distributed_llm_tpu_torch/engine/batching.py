@@ -13,10 +13,14 @@ A scheduler thread runs in front of the paged KV pool
 - a prompt that extends a parked one (multi-turn chat) maps the parked
   blocks read-only into its table, copies the mid-block boundary block
   (copy-on-write) and prefills only the suffix;
-- every tick runs ``decode_steps_per_tick`` batched ragged decode steps
-  (the ragged decode kernel over every slot's full table row at its true
-  position) and then pulls the tick's [T, B] tokens to the host in ONE
-  sync (``_fetch_tick``); blocks grow lazily as sequences grow;
+- every tick runs ``decode_steps_per_tick`` batched decode steps and then
+  pulls the tick's [T, B] tokens to the host in ONE sync
+  (``_fetch_tick``); blocks grow lazily as sequences grow.  The ragged
+  tick (the default) runs the ragged decode kernel over every slot's full
+  table row at its true position; a tier with ``attention_ragged=False``
+  runs the **dense windowed tick**, which slices the tables to a bucketed
+  high-water window (``_suffix_window``) and decodes through the paged
+  decode kernel (its int8 twin over an int8 pool);
 - with a ``draft_preset`` and ``spec_decode`` armed, a tick is instead
   one **speculative round**: the draft model (its own paged pool behind
   the SAME block tables) drafts up to γ tokens per slot in γ+1 batched
@@ -33,13 +37,13 @@ A scheduler thread runs in front of the paged KV pool
 
 Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
 tenant quotas (and their γ caps), crash capture/adopt, tensor
-parallelism, int8 weights, the dense windowed tick and the
-observability hooks.  Without preemption, a slot whose next block (or
-copy-on-write block before a speculative round) cannot be allocated
-even after evicting every parked prefix and cancelling the in-flight
-prefill is finished early with what it has generated (the JAX engine's
-rule for a sole occupant); a full-residency pool, the only kind ported,
-does not reach that state in practice.
+parallelism, int8 weights and the observability hooks.  Without
+preemption, a slot whose next block (or copy-on-write block before a
+speculative round) cannot be allocated even after evicting every parked
+prefix and cancelling the in-flight prefill is finished early with what
+it has generated (the JAX engine's rule for a sole occupant); a
+full-residency pool, the only kind ported, does not reach that state in
+practice.
 """
 
 from __future__ import annotations
@@ -164,6 +168,10 @@ class ContinuousBatchingEngine:
     ``params``/``draft_params`` replace the seeded random target/draft
     weights."""
 
+    # Concurrent callers share the scheduler: the tier client does not
+    # serialize them.
+    concurrent_safe = True
+
     def __init__(self, tier: TierConfig, seed: int = 0,
                  params: Optional[Transformer] = None,
                  device: DeviceLike = None,
@@ -209,6 +217,7 @@ class ContinuousBatchingEngine:
         self.pool = init_pool(self.cfg, self.paged, tier.kv_quantize,
                               device=self.device)
         self.allocator = BlockAllocator(self.paged.num_blocks)
+        self.ragged = self._resolve_ragged()
 
         # Batched speculative decoding: the draft model rides the SAME
         # block tables as the target, with its own pool of the target's
@@ -251,6 +260,9 @@ class ContinuousBatchingEngine:
         b, mb = self.paged.max_slots, self.paged.blocks_per_slot
         self._tables = np.full((b, mb), TRASH_BLOCK, np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
+        # Dense windowed tick: one [B, wb] column view of the cached device
+        # table per window rung, dropped with it on any row change.
+        self._tables_dev_w: Dict[int, torch.Tensor] = {}
         self._pos = np.zeros(b, np.int32)
         self._cur = np.zeros(b, np.int64)
         self._temps = np.zeros(b, np.float32)
@@ -345,15 +357,30 @@ class ContinuousBatchingEngine:
         return sample_batched(logits, self._temp_tensor(temp),
                               self._sampler([temp]))[0]
 
+    def _tick_tables(self) -> torch.Tensor:
+        """The tick's device tables.  Ragged: the full [B, MB] table,
+        uploaded once per table change.  Dense: its first wb columns, wb
+        the window covering every active position plus the tick's steps
+        (idle slots sit at position 0), a cached column view of the same
+        upload per rung."""
+        if self._tables_dev is None:
+            self._tables_dev = self._to_device(self._tables)
+        if self.ragged:
+            return self._tables_dev
+        w_need = int(self._pos.max()) + self.steps_per_tick
+        wb = self._suffix_window(w_need) // self.paged.block_size
+        tables = self._tables_dev_w.get(wb)
+        if tables is None:
+            tables = self._tables_dev_w[wb] = self._tables_dev[:, :wb]
+        return tables
+
     @torch.no_grad()
     def _decode_tick(self) -> np.ndarray:
         """One tick: ``decode_steps_per_tick`` batched decode steps, each
         feeding its sampled tokens to the next on the device, then one
         pull of the [T, B] tokens.  Positions clamp at max_seq_len - 1 so
         an overshooting slot keeps writing its own last cell."""
-        if self._tables_dev is None:
-            self._tables_dev = self._to_device(self._tables)
-        tables = self._tables_dev
+        tables = self._tick_tables()
         pos = self._to_device(self._pos)
         cur = self._to_device(self._cur)
         temps = self._to_device(self._temps)
@@ -362,7 +389,7 @@ class ContinuousBatchingEngine:
         toks = []
         for _ in range(self.steps_per_tick):
             logits = decode_step_paged(self.cfg, self.model, cur, pos,
-                                       self.pool, tables)
+                                       self.pool, tables, ragged=self.ragged)
             cur = sample_batched(logits, temps, gen)
             toks.append(cur)
             pos = torch.clamp(pos + 1, max=max_pos)
@@ -412,18 +439,38 @@ class ContinuousBatchingEngine:
         host = _fetch_tick(torch.cat([out, n_acc[:, None]], dim=1))
         return host[:, :-1], host[:, -1]
 
-    # -- speculation policy ------------------------------------------------
+    # -- tick and speculation policy ---------------------------------------
+
+    def _resolve_ragged(self) -> bool:
+        """Whether the decode tick runs the ragged path: the tier's
+        ``attention_ragged`` (the JAX engine's mesh rule and its env
+        override have no counterpart here: one card, no env knobs)."""
+        return bool(self.tier.attention_ragged)
+
+    def _suffix_window(self, needed: int) -> int:
+        """Smallest prefill bucket covering ``needed`` positions, else the
+        table's full span (blocks_per_slot * bs: max_seq_len itself may not
+        divide evenly).  Buckets are validated multiples of the block
+        size."""
+        return next((bb for bb in self._buckets if bb >= needed),
+                    self.paged.blocks_per_slot * self.paged.block_size)
 
     def _resolve_spec(self) -> bool:
         """Whether ``spec_decode`` can arm speculation here; each blocker
         is logged and the engine serves plain decode: no ``draft_preset``,
-        a sampled tier default (every slot would ride γ=0), a draft whose
-        vocabulary differs or whose context is shorter than the target's
-        (drafts run at the target's positions)."""
+        the dense windowed tick (the verify is the ragged kernel's γ+1
+        face), a sampled tier default (every slot would ride γ=0), a draft
+        whose vocabulary differs or whose context is shorter than the
+        target's (drafts run at the target's positions)."""
         tier = self.tier
         if not tier.draft_preset:
             logger.warning("tier %s: spec_decode=True ignored: no "
                            "draft_preset configured", tier.name)
+            return False
+        if not self.ragged:
+            logger.warning("tier %s: spec_decode=True ignored: batched "
+                           "speculation needs the ragged tick "
+                           "(attention_ragged=False)", tier.name)
             return False
         if (tier.temperature or 0) > 0:
             logger.warning("tier %s: spec_decode=True ignored: the tier "
@@ -472,10 +519,12 @@ class ContinuousBatchingEngine:
         return row
 
     def _set_table_row(self, ix: int, row) -> None:
-        """Every table change funnels here, so the cached device copy is
-        re-uploaded once per change, not once per tick."""
+        """Every table change funnels here, so the cached device copy (and
+        the dense tick's per-rung views of it) is re-uploaded once per
+        change, not once per tick."""
         self._tables[ix] = row
         self._tables_dev = None
+        self._tables_dev_w.clear()
 
     def _alloc_evicting(self, n_blocks: int) -> Optional[List[int]]:
         """Allocate, evicting parked prefixes (LRU) under pressure: live
@@ -1268,6 +1317,26 @@ class ContinuousBatchingEngine:
                           "ratio": round(a / d, 4) if d else None}
                 for ix, (d, a) in sorted(self._spec_slot_acc.items())},
         }
+
+    def prefix_affinity(self, history) -> int:
+        """Longest parked-prefix token match in the paged pool for
+        ``history`` (tokenized as admission would): the router's
+        non-destructive prefix-affinity probe."""
+        if self.prefix_cache is None or not self._reuse_buckets:
+            return 0
+        ids, _ = prepare_prompt(self.tokenizer, history,
+                                self.tier.prefill_buckets,
+                                self.cfg.max_seq_len,
+                                self.tier.max_new_tokens)
+        return self.prefix_affinity_tokens(ids)
+
+    def prefix_affinity_tokens(self, ids: Sequence[int]) -> int:
+        """Longest parked-prefix match for tokenized ``ids``, capped as
+        select_reuse's take() is (a peek: nothing moves)."""
+        if self.prefix_cache is None or not self._reuse_buckets:
+            return 0
+        return self.prefix_cache.peek(
+            ids, max_len=self.cfg.max_seq_len - self._reuse_buckets[0])
 
     def warmup(self) -> None:
         """One short request through the whole path (prefill, paging, a

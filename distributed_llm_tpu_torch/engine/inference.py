@@ -407,6 +407,26 @@ class InferenceEngine:
 
         return StreamHandle(deltas(), req)
 
+    def prefix_affinity(self, history) -> int:
+        """Longest parked-prefix token match this engine could reuse for
+        ``history`` (tokenized as admission would): the router's
+        non-destructive prefix-affinity probe (0 when reuse is off or
+        nothing matches)."""
+        if self.prefix_cache is None or not self._reuse_buckets:
+            return 0
+        ids, _ = prepare_prompt(self.tokenizer, history, self._buckets,
+                                self._max_seq, self.tier.max_new_tokens,
+                                allow_long=True)
+        return self.prefix_affinity_tokens(ids)
+
+    def prefix_affinity_tokens(self, ids) -> int:
+        """Longest parked-prefix match for tokenized ``ids``, capped as
+        select_reuse's take() is (a peek: nothing moves)."""
+        if self.prefix_cache is None or not self._reuse_buckets:
+            return 0
+        return self.prefix_cache.peek(
+            ids, max_len=self._max_seq - self._reuse_buckets[0])
+
     def warmup(self) -> None:
         """One short request through prefill and decode before traffic
         (PyTorch compiles nothing ahead; the kernels were built in the

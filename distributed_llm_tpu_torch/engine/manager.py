@@ -13,8 +13,11 @@ same engine selection, on one device:
 - anything else: the sequential ``InferenceEngine``.
 
 The sequential engines have no scheduler: the probes read its load and
-watchdog surface only where the engine has one.  The JAX package's
-device-mesh plumbing and HBM budget are not ported.
+watchdog surface only where the engine has one.  A tier client
+(serving/tiers.py) registers its ``AdmissionController`` as
+``admission``: drain then rejects new requests and waits out the
+admitted ones, and ``health()`` reports the queue depth.  The JAX
+package's device-mesh plumbing and HBM budget are not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ class EngineManager:
         # True from drain() until the next start_server: intentional
         # shedding, which probes must not read as failure.
         self._draining = False
+        # The tier client's AdmissionController, when one serves this tier.
+        self.admission = None
 
     def start_server(self) -> None:
         """Idempotent: build the engine (kernels compile here on the card)
@@ -60,6 +65,8 @@ class EngineManager:
             if self._engine is not None:
                 return
             self._draining = False
+            if self.admission is not None:
+                self.admission.end_drain()   # a restart re-opens the tier
             t0 = time.perf_counter()
             engine = self._build(self.tier)
             if self.warmup_on_start:
@@ -109,18 +116,26 @@ class EngineManager:
             self._engine = None
             self._started_at = None
 
-    def drain(self, timeout_s: float = 30.0) -> Dict[str, Any]:
-        """Graceful shutdown: report ``draining``, give in-flight requests
-        up to ``timeout_s`` to finish, then stop the engine (stragglers
-        fail with the engine-stopped shape).  Never call it under the
-        lifecycle lock: it blocks, then takes that lock."""
+    def drain(self, timeout_s: Optional[float] = None) -> Dict[str, Any]:
+        """Graceful shutdown: report ``draining`` (the admission gate
+        rejects new requests with ``retry_after_s``), give in-flight
+        requests up to ``timeout_s`` (default ``tier.drain_timeout_s``) to
+        finish, then stop the engine (stragglers fail with the
+        engine-stopped shape).  Never call it under the lifecycle lock: it
+        blocks, then takes that lock."""
+        timeout_s = (self.tier.drain_timeout_s if timeout_s is None
+                     else timeout_s)
         self._draining = True
+        if self.admission is not None:
+            self.admission.start_drain(retry_after_s=timeout_s)
         t0 = time.monotonic()
         deadline = t0 + max(0.0, float(timeout_s))
 
         def in_flight() -> int:
+            n = (self.admission.snapshot()["inflight"]
+                 if self.admission is not None else 0)
             pending = getattr(self._engine, "pending_work", None)
-            return pending() if callable(pending) else 0
+            return max(n, pending() if callable(pending) else 0)
 
         started = in_flight()
         while time.monotonic() < deadline and in_flight() > 0:
@@ -170,21 +185,31 @@ class EngineManager:
             "uptime_s": ((time.time() - started_at)
                          if running and started_at is not None else 0.0),
         }
-        if engine is None:
-            entry["queue_depth"] = 0
-            return entry
         slots = getattr(engine, "slot_stats", None)
         if callable(slots):
             entry.update(slots())
         stall = getattr(engine, "progress_stall_s", None)
-        if not callable(stall):
-            return entry
-        stall_s = stall()
-        entry["decode_stall_s"] = round(stall_s, 3)
-        deadline = self.tier.watchdog_stall_s
-        if deadline is not None and stall_s > deadline:
-            entry["ok"] = False
-            entry["wedged"] = True
-            entry["error"] = (f"decode watchdog: no step progress for "
-                              f"{stall_s:.1f}s (deadline {deadline:.0f}s)")
+        if callable(stall):
+            stall_s = stall()
+            entry["decode_stall_s"] = round(stall_s, 3)
+            deadline = self.tier.watchdog_stall_s
+            if deadline is not None and stall_s > deadline:
+                entry["ok"] = False
+                entry["wedged"] = True
+                entry["error"] = (f"decode watchdog: no step progress for "
+                                  f"{stall_s:.1f}s (deadline "
+                                  f"{deadline:.0f}s)")
+        if self.admission is not None:
+            adm = self.admission.snapshot()
+            entry["admission"] = adm
+            # Requests waiting beyond the engine's slots; an engine with no
+            # slot_stats gets its occupancy from admission in-flight.
+            entry.setdefault("queue_depth", adm["queue_depth"])
+            if "max_slots" not in entry:
+                slots_n = adm["slots"]
+                active = min(adm["inflight"], slots_n)
+                entry["active_slots"] = active
+                entry["max_slots"] = slots_n
+                entry["slot_occupancy"] = round(active / slots_n, 3)
+        entry.setdefault("queue_depth", 0)
         return entry

@@ -236,13 +236,20 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
                       token: torch.Tensor,         # [B] current input token
                       pos: torch.Tensor,           # [B] int32 its position
                       pool: KVPool,
-                      tables: torch.Tensor         # [B, MB] int32 FULL rows
-                      ) -> torch.Tensor:
-    """One batched decode step over the paged pool (the ragged contract:
-    every slot's FULL table row and TRUE position go to one attention
-    call).  Writes this step's K/V in place and returns logits [B, V]
-    float32.  Idle slots point their whole row at the trash block; their
-    writes land there and their logits are ignored."""
+                      tables: torch.Tensor,        # [B, MB] or [B, wb] int32
+                      ragged: bool = True) -> torch.Tensor:
+    """One batched decode step over the paged pool.  Writes this step's
+    K/V in place and returns logits [B, V] float32.  Idle slots point
+    their whole row at the trash block; their writes land there and their
+    logits are ignored.
+
+    Two attention contracts.  ``ragged=True`` (the default of the port's
+    callers): every slot's FULL table row and TRUE position go to one
+    ``attention.ragged_decode`` call.  ``ragged=False``, the dense windowed
+    tick: the caller passes a TRUNCATED table [B, wb] covering every
+    position this step writes (the scheduler slices to a bucketed
+    high-water mark) and ``attention.paged_decode`` reads only that
+    window."""
     b = token.shape[0]
     d = cfg.head_dim
     bs = pool["k"].shape[3]
@@ -251,6 +258,7 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
     pos_l = pos.long()
     blk = tables.long().gather(1, (pos_l // bs)[:, None])[:, 0]
     off = pos_l % bs
+    attn_op = attention.ragged_decode if ragged else attention.paged_decode
     for i, lp in enumerate(model.layers):
         h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
         q = quant.matmul(h_in, lp.wq).reshape(b, cfg.num_heads, d)
@@ -260,8 +268,8 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
         k = transformer.apply_rope(k, sin, cos)
         quant.put_kv_rows(pool, i, (slice(None), blk, off),
                           k.transpose(0, 1), v.transpose(0, 1))  # [nkv, B, d]
-        out = attention.ragged_decode(q, pool["k"][i], pool["v"][i], tables,
-                                      pos, *transformer.layer_scales(pool, i))
+        out = attn_op(q, pool["k"][i], pool["v"][i], tables, pos,
+                      *transformer.layer_scales(pool, i))
         x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
         x = x + transformer._swiglu(
             transformer.rms_norm(x, lp.ln2, cfg.norm_eps),

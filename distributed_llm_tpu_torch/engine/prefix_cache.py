@@ -156,6 +156,15 @@ class PrefixCache:
             self.tokens_saved_shared += best_len
             return entry, best_len
 
+    def peek(self, ids: Sequence[int], max_len: Optional[int] = None) -> int:
+        """Longest reusable common-prefix length a take() would find, with
+        no removal, no LRU touch and no hit/miss accounting: the router's
+        prefix-affinity probe must not perturb the cache.  ``max_len``
+        mirrors take()'s cap."""
+        with self._lock:
+            _, best = self._best_match(ids, max_len)
+        return best
+
     def unpin(self, entry: PrefixEntry) -> None:
         """Drop one sharer's pin (its slot released)."""
         with self._lock:

@@ -54,6 +54,14 @@ SIGNATURES: Dict[str, tuple] = {
     # Nkv, NB, bs, D, MB; scale; stream
     "ragged_verify_q8": ("ragged_verify_attention_q8",
                          [_P] * 8 + [_I] * 8 + [_F, _P]),
+    # q, k_pool, v_pool, tables, pos, out; B, Nq, Nkv, NB, bs, D, wb;
+    # table row stride; scale; stream
+    "paged_decode": ("paged_decode_attention",
+                     [_P] * 6 + [_I] * 7 + [_L, _F, _P]),
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, Nq, Nkv,
+    # NB, bs, D, wb; table row stride; scale; stream
+    "paged_decode_q8": ("paged_decode_attention_q8",
+                        [_P] * 8 + [_I] * 7 + [_L, _F, _P]),
     # q, k, v, out; B, S, Nq, Nkv, D; scale; stream
     "flash_causal": ("flash_causal_attention",
                      [_P] * 4 + [_I] * 5 + [_F, _P]),

@@ -61,6 +61,24 @@ def ragged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                                 k_scale, v_scale)
 
 
+def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 tables: torch.Tensor, pos: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense windowed batched decode over a paged pool: q [B, Nq, D],
+    pools [Nkv, NB, bs, D], tables [B, wb] (a window of each slot's row
+    bounding the gather: every position < wb * bs), pos [B] -> [B, Nq, D].
+    ``k_scale``/``v_scale`` ([Nkv, NB, bs]) mark an int8 pool."""
+    if q.is_cuda:
+        from . import flash_attention as FA
+        if k_scale is None:
+            return FA.paged_decode_attention(q, k_pool, v_pool, tables, pos)
+        return FA.paged_decode_attention_q8(q, k_pool, v_pool, k_scale,
+                                            v_scale, tables, pos)
+    return _gather_decode_windowed(q, k_pool, v_pool, tables, pos,
+                                   k_scale, v_scale)
+
+
 def ragged_verify(q: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, tables: torch.Tensor,
                   pos: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
@@ -206,6 +224,22 @@ def _gather_decode_paged(q, k_pool, v_pool, tables, pos, k_scale=None,
     every slot's table into a contiguous view and run
     ``decode_attention`` masked by ``pos``."""
     _gather_decode_paged.calls += 1
+    return _decode_tables(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
+
+
+def _gather_decode_windowed(q, k_pool, v_pool, tables, pos, k_scale=None,
+                            v_scale=None):
+    """Plain version of the paged (dense windowed) decode kernels, bf16
+    and int8: the ragged version's gather over the window's columns, with
+    its own call counter so the two paths are told apart."""
+    _gather_decode_windowed.calls += 1
+    return _decode_tables(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
+
+
+def _decode_tables(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
+    """The body both decode plain versions share: gather every slot's
+    table (full row or window) into a contiguous view and run
+    ``decode_attention`` masked by ``pos``."""
     k_seq, v_seq = _gather_pool_seq(k_pool, v_pool, tables, k_scale, v_scale,
                                     q.dtype)
     return decode_attention(q, k_seq, v_seq, pos)
@@ -329,6 +363,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 causal_attention.calls = 0
 _gather_decode_paged.calls = 0
+_gather_decode_windowed.calls = 0
 _gather_verify_paged.calls = 0
 _gather_chunk_paged.calls = 0
 _dequant_chunk_paged.calls = 0

@@ -9,6 +9,10 @@ Wrappers of hand-written CUDA kernels:
   Pallas ``_flash_kernel`` (forward only; training comes later);
 - ``paged_chunk_attention`` (``csrc/paged_chunk.cu``) replaces the
   Pallas ``_paged_chunk_kernel``;
+- ``paged_decode_attention`` / ``paged_decode_attention_q8``
+  (``csrc/paged_decode.cu``, ``paged_decode_q8.cu``) replace
+  ``_paged_decode_kernel`` / ``_paged_decode_kernel_q8``: the dense
+  windowed tick's decode through a window-truncated block table;
 - ``flash_decode_attention`` / ``flash_decode_attention_q8``
   (``csrc/flash_decode.cu``, ``flash_decode_q8.cu``) replace
   ``_decode_kernel`` / ``_decode_kernel_q8``;
@@ -23,11 +27,13 @@ on the CUDA cores in float32 and skip KV tiles past each query tile's
 causal frontier (see each source for the design and its bound).
 
 A CPU tensor takes the plain version beside it (``causal_attention``,
-``_gather_chunk_paged`` and the contiguous plain versions in
+``_gather_chunk_paged``, ``_gather_decode_windowed`` and the contiguous
+plain versions in
 ``attention.py``, the JAX package's XLA paths); a CUDA tensor launches
 the kernel or raises.  The contiguous kernels read a cache window in
 place through its batch stride and raise on any other layout instead of
-copying it.
+copying it; so do the paged decode kernels, which read a column slice
+of the block table through its row stride.
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ import torch
 from . import _build
 from .attention import (_chunk_contiguous, _chunk_contiguous_q8,
                         _decode_contiguous, _decode_contiguous_q8,
-                        _gather_chunk_paged, causal_attention)
+                        _gather_chunk_paged, _gather_decode_windowed,
+                        causal_attention)
+from .ragged_attention import _check as _check_paged
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_BS = (32, 64, 128)
@@ -124,6 +132,57 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _build.check(err, "paged_chunk")
     paged_chunk_attention.launches += 1
     return out
+
+
+def _paged_decode(wrapper, name: str, q: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
+                  v_scale: Optional[torch.Tensor], tables: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Check a paged decode kernel's inputs (the table may be a column
+    slice: read through its row stride), launch kernel ``name`` and count
+    the launch on ``wrapper``."""
+    _check_paged(wrapper.__name__, q, k_pool, v_pool, tables, pos, k_scale,
+                 v_scale, 1, strided_tables=True)
+    b, nq, d = q.shape
+    nkv, nb, bs, _ = k_pool.shape
+    scales = (() if k_scale is None
+              else (k_scale.data_ptr(), v_scale.data_ptr()))
+    out = torch.empty_like(q)
+    err = _build.entry(name)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nq, nkv, nb, bs,
+        d, tables.shape[1], tables.stride(0), d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    wrapper.launches += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """q [B, Nq, D], one layer's pools [Nkv, NB, bs, D] bf16, tables
+    [B, wb] int32 (a window of each slot's row; a column slice of the
+    full table is read in place), pos [B] int32 with every pos < wb * bs
+    -> [B, Nq, D]; slot b attends positions 0 .. pos[b]."""
+    if not q.is_cuda:
+        return _gather_decode_windowed(q, k_pool, v_pool, tables, pos)
+    return _paged_decode(paged_decode_attention, "paged_decode", q, k_pool,
+                         v_pool, None, None, tables, pos)
+
+
+def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, tables: torch.Tensor,
+                              pos: torch.Tensor) -> torch.Tensor:
+    """``paged_decode_attention`` over an int8 pool: pools
+    [Nkv, NB, bs, D] int8, scales [Nkv, NB, bs] float32, dequantized in the
+    kernel."""
+    if not q.is_cuda:
+        return _gather_decode_windowed(q, k_pool, v_pool, tables, pos,
+                                       k_scale, v_scale)
+    return _paged_decode(paged_decode_attention_q8, "paged_decode_q8", q,
+                         k_pool, v_pool, k_scale, v_scale, tables, pos)
 
 
 def _check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -258,6 +317,8 @@ def flash_chunk_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
 
 flash_causal_attention.launches = 0
 paged_chunk_attention.launches = 0
+paged_decode_attention.launches = 0
+paged_decode_attention_q8.launches = 0
 flash_decode_attention.launches = 0
 flash_decode_attention_q8.launches = 0
 flash_chunk_attention.launches = 0

@@ -47,8 +47,11 @@ _MAX_ROWS = 40
 def _check(fn: str, q: torch.Tensor, k_pool: torch.Tensor,
            v_pool: torch.Tensor, tables: torch.Tensor, pos: torch.Tensor,
            k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
-           g: int) -> None:
-    """Raise ``ValueError`` on any input the kernel does not take."""
+           g: int, strided_tables: bool = False) -> None:
+    """Raise ``ValueError`` on any input the kernel does not take.
+    ``strided_tables`` admits a table whose rows are a column slice of a
+    wider table (dense rows, any row stride): the kernel reads it in
+    place through that stride, nothing is copied."""
 
     def require(cond: bool, msg: str) -> None:
         if not cond:
@@ -62,7 +65,12 @@ def _check(fn: str, q: torch.Tensor, k_pool: torch.Tensor,
         named += [("k_scale", k_scale), ("v_scale", v_scale)]
     for name, t in named:
         require(t.device == q.device, f"{name} on {t.device}, q on {q.device}")
-        require(t.is_contiguous(), f"{name} must be contiguous")
+        if name == "tables" and strided_tables:
+            require(t.dim() == 2 and t.stride(1) == 1
+                    and t.stride(0) >= t.shape[1],
+                    "tables rows must be dense (only the row stride is free)")
+        else:
+            require(t.is_contiguous(), f"{name} must be contiguous")
     require(q.dtype == torch.bfloat16, "q must be bf16")
     if k_scale is None:
         require(k_pool.dtype == v_pool.dtype == torch.bfloat16,

@@ -19,3 +19,8 @@ def error_dict(message: str,
     if retry_after_s is not None:
         out["retry_after_s"] = round(float(retry_after_s), 2)
     return out
+
+
+def is_error_shape(raw: Any) -> bool:
+    """The router's error predicate: any dict carrying the error key."""
+    return isinstance(raw, dict) and ERROR_KEY in raw

@@ -1,0 +1,809 @@
+"""Router: the two-tier serving pipeline behind ``/chat``.
+
+Counterpart of ``distributed_llm_tpu/serving/router.py`` with the same
+``route_query(history) -> (response_dict, tokens, device)`` contract and
+response-dict keys, over in-process tier clients (serving/tiers.py) on
+one device.  The stages:
+
+0. response cache (production mode; key = strategy + query text,
+   deliberately context-independent);
+1. the routing decision (``QueryRouter``), with the context-size
+   threshold fallback if it raises; prefix affinity may steer a
+   low-confidence decision UP to the tier holding the conversation's
+   parked KV; the circuit breaker vetoes an open tier (both open: the
+   degraded response); the dispatching tier's context-overflow policy;
+2. inference with a bounded retry of transient error shapes and a
+   one-shot failover to the other tier on an error-shaped response;
+3. text normalization and token count; 4. perf feedback; 5. the
+   response-cache store.
+
+``route_query_stream`` is the streaming twin: the same decision stage,
+veto and overflow policy, failover at stream setup and mid-stream (the
+already-delivered prefix replayed silently on the survivor), perf and
+breaker feedback when the stream completes.
+
+Not ported (ROADMAP.md): the observability layer (spans, metrics, the
+state sampler, the SLO monitor, the flight recorder, the cost ledger),
+tenants, fault injection, the HealthMonitor, the autoscaler, replicated
+and remote tiers.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import random
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..config import ClusterConfig, resolve_config
+from ..device import DeviceLike
+from ..routing.engine import QueryRouter
+from ..routing.token_counter import TokenCounter
+from .errors import is_error_shape
+from .tiers import TierClient, build_tiers
+
+logger = logging.getLogger(__name__)
+
+# Error-shape substrings the bounded retry treats as TRANSIENT (a fresh
+# attempt on the same tier plausibly succeeds at once): connection-level
+# races and an engine that shut down mid-flight.  Not timeouts (the call
+# already spent its whole budget) and not admission rejections (failover
+# is the productive move).
+_TRANSIENT_MARKERS = (
+    "connection refused",
+    "connection reset",
+    "reset by peer",
+    "temporarily unavailable",
+    "engine returned no result",
+    "(transient)",
+)
+
+
+class Router:
+    def __init__(
+        self,
+        strategy: str = "hybrid",
+        config: Optional[Dict[str, Any]] = None,
+        threshold_fallback: int = 100,
+        benchmark_mode: bool = False,
+        cluster: Optional[ClusterConfig] = None,
+        device: DeviceLike = None,
+    ):
+        """strategy: "token" | "semantic" | "heuristic" | "hybrid" | "perf";
+        benchmark_mode: True -> BENCHMARK_CFG (caches off), False ->
+        PRODUCTION_CFG, unless ``config`` overrides.  ``device`` runs both
+        tiers and the router's embedder (default: the card)."""
+        self.token_counter = TokenCounter()
+        self.threshold_fallback = threshold_fallback
+        self.benchmark_mode = benchmark_mode
+        self.config = resolve_config(config, benchmark_mode)
+
+        self.cluster = cluster or ClusterConfig()
+        self.tiers: Dict[str, TierClient] = build_tiers(self.cluster,
+                                                        device=device)
+        self.nano = self.tiers["nano"]
+        self.orin = self.tiers["orin"]
+
+        self.query_router = QueryRouter(strategy=strategy, config=self.config,
+                                        device=device)
+
+        # Per-tier circuit breaker, consulted before dispatch so an OPEN
+        # tier sheds traffic at once instead of each request finding the
+        # outage by a timeout; breaker_failures=0 disables it.
+        self.breaker = None
+        if self.cluster.breaker_failures:
+            from .breaker import CircuitBreaker
+            self.breaker = CircuitBreaker(
+                [t.name for t in self.cluster.tiers()],
+                failure_threshold=self.cluster.breaker_failures,
+                cooldown_s=self.cluster.breaker_cooldown_s)
+        # Bounded retry of transient error shapes, budgeted against the
+        # dispatching tier's request_timeout_s.
+        self.retry_attempts = max(0, int(self.cluster.retry_attempts))
+        self.retry_backoff_s = float(self.cluster.retry_backoff_s)
+        self.degraded_served = 0       # both-tiers-open responses served
+        # Graceful drain: once True the serving edge answers 503 and no
+        # new request enters the pipeline.
+        self.draining = False
+
+        self.enable_response_cache = (
+            not benchmark_mode
+            and bool(self.config.get("enable_response_cache", False)))
+        self.cache_last_k = int(self.config.get("cache_last_k", 6))
+        self.enable_failover = bool(self.config.get("enable_failover", True))
+        # Prefix-affinity routing (production only): a low-confidence
+        # decision is steered to the tier already holding this
+        # conversation's parked KV prefix.
+        self.enable_prefix_affinity = (
+            not benchmark_mode
+            and bool(self.config.get("enable_prefix_affinity", False)))
+        self.prefix_affinity_min_confidence = float(
+            self.config.get("prefix_affinity_min_confidence", 0.75))
+        self.prefix_affinity_min_tokens = int(
+            self.config.get("prefix_affinity_min_tokens", 32))
+        self.prefix_affinity_overrides = 0
+        self._response_store: Dict[str, Dict[str, Any]] = {}
+
+    # -- graceful drain ----------------------------------------------------
+
+    def drain_retry_after_s(self) -> float:
+        """Client retry hint while draining: the longest tier drain
+        deadline."""
+        vals = [float(t.tier.drain_timeout_s) for t in self.tiers.values()
+                if t.tier.drain_timeout_s]
+        return round(max(vals), 2) if vals else 30.0
+
+    def drain(self, timeout_s: Optional[float] = None) -> Dict[str, Any]:
+        """Graceful shutdown: flip the serving edge to 503, then drain
+        every tier concurrently (each stops admitting, lets its in-flight
+        requests finish under ``drain_timeout_s`` and stops).  Idempotent;
+        returns the per-tier drain summaries."""
+        self.draining = True
+        results: Dict[str, Any] = {}
+        cap = (timeout_s if timeout_s is not None
+               else self.drain_retry_after_s()) + 30.0
+        threads = []
+        for name, tier in self.tiers.items():
+
+            def _drain(name=name, mgr=tier.server_manager):
+                try:
+                    results[name] = mgr.drain(timeout_s)
+                except Exception as exc:
+                    results[name] = {"error": f"Request failed: {exc}"}
+
+            t = threading.Thread(target=_drain, daemon=True,
+                                 name=f"drain-{name}")
+            threads.append(t)
+            t.start()
+        deadline = time.monotonic() + cap
+        for t in threads:
+            # Bounded even against a wedged stop: the process is exiting.
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        logger.info("router drain complete: %s", results)
+        return results
+
+    # -- helpers -----------------------------------------------------------
+
+    def _apply_prefix_affinity(self, device: str, confidence: float,
+                               method: str, reasoning: str, history
+                               ) -> Tuple[str, str, str]:
+        """Steer a LOW-confidence decision to a STRONGER tier (later in
+        the cluster's order) that already holds this conversation's parked
+        KV prefix, when its match beats the chosen tier's by at least
+        ``prefix_affinity_min_tokens``.  The probes are non-destructive
+        (``PrefixCache.peek``) and touch only running engines."""
+        if (not self.enable_prefix_affinity
+                or confidence >= self.prefix_affinity_min_confidence):
+            return device, method, reasoning
+        order = [t.name for t in self.cluster.tiers()]
+        scores: Dict[str, int] = {}
+        for name, tier in self.tiers.items():
+            if (name not in order or device not in order
+                    or order.index(name) <= order.index(device)):
+                continue                 # upgrade-only: skip weaker tiers
+            probe = self._tier_affinity_probe(tier)
+            if callable(probe):
+                try:
+                    scores[name] = int(probe(history))
+                except Exception:
+                    scores[name] = 0
+        if not scores:
+            return device, method, reasoning
+        own_probe = self._tier_affinity_probe(self.tiers[device])
+        own = 0
+        if callable(own_probe):
+            try:
+                own = int(own_probe(history))
+            except Exception:
+                own = 0
+        best = max(scores, key=scores.get)
+        if (best != device
+                and scores[best] >= own + self.prefix_affinity_min_tokens):
+            reasoning = (f"prefix affinity: {best} holds a "
+                         f"{scores[best]}-token parked prefix of this "
+                         f"conversation (decision was {device} at "
+                         f"confidence {confidence:.2f}); {reasoning}")
+            self.prefix_affinity_overrides += 1
+            return best, f"{method}+prefix_affinity", reasoning
+        return device, method, reasoning
+
+    @staticmethod
+    def _tier_affinity_probe(tier):
+        """The running engine's prefix-affinity probe (never starts one)."""
+        engine = getattr(tier.server_manager, "_engine", None)
+        return getattr(engine, "prefix_affinity", None)
+
+    @staticmethod
+    def _extract_text(response: Any) -> Optional[str]:
+        """Normalize any tier response shape to a plain string."""
+        if response is None:
+            return None
+        if isinstance(response, str):
+            return response.strip() or None
+        if isinstance(response, dict):
+            for key in ("response", "content", "message"):
+                val = response.get(key)
+                if isinstance(val, str) and val.strip():
+                    return val.strip()
+                if isinstance(val, dict):
+                    inner = val.get("content")
+                    if isinstance(inner, str) and inner.strip():
+                        return inner.strip()
+            if "error" in response:
+                parts = [str(response.get(k, "")).strip()
+                         for k in ("error", "detail", "body")]
+                combined = " ".join(p for p in parts if p)
+                return combined[:300] if combined else None
+        return None
+
+    def _history_to_query_and_context(
+        self, history: List[Dict[str, Any]]
+    ) -> Tuple[str, Optional[str], str]:
+        """Split history into (last user query, prior-turn context string,
+        sha256[:16] hash of the last-k turns)."""
+        if not history:
+            return "", None, "nohist"
+
+        last_user = None
+        for i in range(len(history) - 1, -1, -1):
+            m = history[i]
+            if isinstance(m, dict) and m.get("role") == "user":
+                last_user = i
+                break
+
+        if last_user is None:
+            query, ctx_msgs = "", history
+        else:
+            query = (history[last_user].get("content") or "").strip()
+            ctx_msgs = history[:last_user]
+
+        lines = [
+            f"{(m.get('role') or '').strip()}: {(m.get('content') or '').strip()}"
+            for m in ctx_msgs
+            if isinstance(m, dict) and (m.get("content") or "").strip()
+        ]
+        context = "\n".join(lines) if lines else None
+
+        compact = "\n".join(
+            f"{m.get('role', '')}:{(m.get('content') or '').strip()}"
+            for m in ctx_msgs[-self.cache_last_k:]
+            if isinstance(m, dict))
+        ctx_hash = hashlib.sha256(compact.encode("utf-8")).hexdigest()[:16]
+        return query, context, ctx_hash
+
+    @staticmethod
+    def _is_error(raw: Any) -> bool:
+        return is_error_shape(raw)
+
+    @staticmethod
+    def _is_transient_error(raw: Any) -> bool:
+        """Error shapes worth one quick same-tier retry (_TRANSIENT_MARKERS)."""
+        if not (isinstance(raw, dict) and "error" in raw):
+            return False
+        msg = str(raw.get("error", "")).lower()
+        return any(m in msg for m in _TRANSIENT_MARKERS)
+
+    @staticmethod
+    def _other(device: str) -> str:
+        return "orin" if device == "nano" else "nano"
+
+    def _tier_timeout_s(self, device: str) -> Optional[float]:
+        """The tier's per-request wall budget; None = unbounded."""
+        tier = self.tiers.get(device)
+        cfg = getattr(tier, "tier", None)
+        if cfg is not None and cfg.request_timeout_s:
+            return float(cfg.request_timeout_s)
+        return None
+
+    @staticmethod
+    def _is_admission_rejection(raw: Any) -> bool:
+        return (isinstance(raw, dict)
+                and "admission rejected" in str(raw.get("error", "")))
+
+    # -- context-overflow policy -------------------------------------------
+
+    def _apply_overflow_policy(self, device: str,
+                               history: List[Dict[str, Any]]
+                               ) -> Tuple[List[Dict[str, Any]],
+                                          Optional[Dict[str, Any]], int]:
+        """The dispatching tier's policy for prompts over ``max_seq_len -
+        max_new_tokens`` (estimated with the router's token counter):
+        ``reject`` fails fast with the reference error shape naming the
+        policy; ``truncate_left`` drops the oldest turns until the
+        estimate fits (the newest message always survives).  Returns
+        (history, error_raw | None, dropped_messages)."""
+        tier = self.tiers.get(device)
+        cfg = getattr(tier, "tier", None)
+        if cfg is None or not isinstance(history, list):
+            return history, None, 0
+        limit = max(1, cfg.model().max_seq_len - cfg.max_new_tokens)
+        est = self.token_counter.get_context_size(history)
+        if est <= limit:
+            return history, None, 0
+        if cfg.overflow_policy == "reject":
+            logger.warning("%s: prompt ~%d tokens over the %d-token "
+                           "context budget: overflow_policy=reject",
+                           device, est, limit)
+            return history, {"error": (
+                f"Request failed: prompt of ~{est} tokens exceeds "
+                f"{device}'s context budget of {limit} tokens "
+                f"(max_seq_len - decode budget; "
+                f"overflow_policy=reject)")}, 0
+        trimmed = list(history)
+        dropped = 0
+        while len(trimmed) > 1 and est > limit:
+            dropped += 1
+            est -= self.token_counter.count_tokens(trimmed.pop(0))
+        logger.info("%s: dropped %d oldest turn(s) to fit the %d-token "
+                    "context budget (overflow_policy=truncate_left)",
+                    device, dropped, limit)
+        return trimmed, None, dropped
+
+    def _breaker_record(self, device: str, ok: bool,
+                        raw: Any = None) -> None:
+        """Feed a dispatch outcome to the breaker.  Admission rejections
+        are neither success nor failure (healthy backpressure); they only
+        repay a half-open canary permit."""
+        if self.breaker is None:
+            return
+        if not ok and self._is_admission_rejection(raw):
+            self.breaker.release_probe(device)
+            return
+        self.breaker.record(device, ok)
+
+    def _breaker_record_stream_setup(self, device: str, handle: Any) -> None:
+        """Stream SETUP feedback: only failures count here; every success
+        verdict comes from stream completion (a tier that wedges
+        mid-decode passes setup every time)."""
+        if self.breaker is not None and self._is_error(handle):
+            self._breaker_record(device, False, handle)
+
+    def _run_device(self, device: str,
+                    history: List[Dict[str, Any]]) -> Tuple[Any, str, float]:
+        tier = self.tiers.get(device, self.nano)
+        logger.info("Processing query on %s", tier.name)
+        t0 = time.perf_counter()
+        raw = tier.process(history)
+        return raw, tier.name, (time.perf_counter() - t0) * 1000.0
+
+    def _run_device_retrying(self, device: str, history: List[Dict[str, Any]],
+                             deadline: Optional[float] = None
+                             ) -> Tuple[Any, str, float]:
+        """``_run_device`` plus a bounded retry with jittered exponential
+        backoff for TRANSIENT error shapes; no retry starts past
+        ``deadline`` (monotonic)."""
+        raw, which, lat_ms = self._run_device(device, history)
+        for attempt in range(self.retry_attempts):
+            if not self._is_transient_error(raw):
+                break
+            backoff = (self.retry_backoff_s * (2 ** attempt)
+                       * (0.5 + random.random()))
+            if (deadline is not None
+                    and time.monotonic() + backoff >= deadline):
+                logger.warning("%s transient error but no retry budget "
+                               "left: giving up the retry", which)
+                break
+            logger.warning("%s transient error (%.80s): retry %d/%d after "
+                           "%.0fms", which, raw.get("error", ""),
+                           attempt + 1, self.retry_attempts, backoff * 1000)
+            time.sleep(backoff)
+            raw, _, lat2 = self._run_device(device, history)
+            lat_ms += lat2
+        return raw, which, lat_ms
+
+    # -- response cache ------------------------------------------------------
+
+    def _response_cache_key(self, ctx_hash: str, query: str) -> str:
+        # Deliberately context-independent (the reference's intent).
+        return f"{self.query_router.strategy}|{query.lower().strip()}"
+
+    def _degraded_response(self, query: str, ctx_hash: str, method: str,
+                           confidence: float, overhead_ms: float,
+                           device: str) -> Tuple[Dict[str, Any], int, str]:
+        """Both circuits open: a response-cache hit if one exists (stale
+        beats dead; cached errors skipped), else fail FAST with the
+        reference error shape plus a retry-after hint."""
+        cached = self._response_store.get(
+            self._response_cache_key(ctx_hash, query))
+        if cached is not None and self._is_error(cached.get("raw")):
+            cached = None
+        if cached is not None:
+            text = cached.get("text", "")
+            which = cached.get("device", device)
+            tokens = self.token_counter.count_tokens(
+                {"role": "assistant", "content": text})
+            self.degraded_served += 1
+            return {
+                "response": text,
+                "raw": cached.get("raw"),
+                "cache_hit": True,
+                "degraded": True,
+                "routing_method": "response_cache_degraded",
+                "routing_confidence": 1.0,
+                "routing_reasoning": ("all tiers' circuits open -> stale "
+                                      f"response-cache hit ({which})"),
+                "routing_overhead_ms": round(overhead_ms, 2),
+                "ok": True,
+            }, tokens, which
+        retry_after = (self.breaker.retry_after_s()
+                       if self.breaker is not None else 0.0)
+        raw = {"error": ("Request failed: all tiers unavailable (circuit "
+                         f"open); retry in {retry_after:.1f}s")}
+        text = self._extract_text(raw) or "No response available"
+        tokens = self.token_counter.count_tokens(
+            {"role": "assistant", "content": text})
+        self.degraded_served += 1
+        logger.warning("degraded fail-fast: all circuits open "
+                       "(retry_after=%.1fs)", retry_after)
+        return {
+            "response": text,
+            "raw": raw,
+            "cache_hit": False,
+            "degraded": True,
+            "retry_after_s": round(retry_after, 2),
+            "benchmark_mode": self.benchmark_mode,
+            "routing_method": f"{method}+breaker_degraded",
+            "routing_confidence": round(confidence, 4),
+            "routing_reasoning": ("all tiers' circuits open; shedding "
+                                  "without dispatch"),
+            "routing_overhead_ms": round(overhead_ms, 2),
+            "ok": False,
+        }, tokens, device
+
+    # -- main pipeline -----------------------------------------------------
+
+    def _feed_perf_load(self) -> None:
+        """Breaker states and each tier's live load (admission queue depth
+        and slot occupancy) into the active strategy before it decides,
+        only where the strategy consumes them (perf)."""
+        if (self.breaker is not None
+                and hasattr(getattr(self.query_router, "router", None),
+                            "update_breaker")):
+            for name, st in self.breaker.snapshot().items():
+                self.query_router.update_breaker(name,
+                                                 st["state"] == "open")
+        if not self.query_router.wants_load:
+            return
+        for name, tier in self.tiers.items():
+            self.query_router.update_load(name, **tier.load_snapshot())
+
+    def _decide(self, query: str, context: str, ctx_hash: str,
+                history: List[Dict[str, Any]]):
+        """The decision stage shared by both pipelines: the QueryRouter
+        decision with the context-size fallback when it raises.  Returns
+        (device, method, confidence, reasoning, cache_hit, overhead_ms)."""
+        t0 = time.perf_counter()
+        self._feed_perf_load()
+        cache_hit = False
+        try:
+            decision = self.query_router.route_query(
+                query=query, context=context, context_key=ctx_hash)
+            device = decision.device
+            method = decision.method
+            confidence = float(decision.confidence)
+            reasoning = decision.reasoning
+            cache_hit = bool(decision.cache_hit)
+            logger.info("[%s] routing: %s | method=%s conf=%.3f",
+                        "BENCH" if self.benchmark_mode else "PROD",
+                        device.upper(), method, confidence)
+        except Exception as exc:
+            ctx_size = self.token_counter.get_context_size(history)
+            device = "orin" if ctx_size > self.threshold_fallback else "nano"
+            method = "fallback_ctx_size"
+            confidence = 0.2
+            reasoning = (f"router failed: {exc}; ctx_size={ctx_size}, "
+                         f"threshold_fallback={self.threshold_fallback}")
+            logger.warning("routing failed (%s); ctx fallback -> %s",
+                           exc, device)
+        overhead_ms = (time.perf_counter() - t0) * 1000.0
+        return device, method, confidence, reasoning, cache_hit, overhead_ms
+
+    def route_query(self, history: List[Dict[str, Any]]
+                    ) -> Tuple[Dict[str, Any], int, str]:
+        query, context, ctx_hash = self._history_to_query_and_context(history)
+
+        # 0) response cache
+        if self.enable_response_cache:
+            cached = self._response_store.get(
+                self._response_cache_key(ctx_hash, query))
+            if cached is not None:
+                text = cached.get("text", "")
+                which = cached.get("device", "nano")
+                tokens = self.token_counter.count_tokens(
+                    {"role": "assistant", "content": text})
+                return {
+                    "response": text,
+                    "raw": cached.get("raw"),
+                    "cache_hit": True,
+                    "routing_method": "response_cache",
+                    "routing_confidence": 1.0,
+                    "routing_reasoning": f"response cache hit -> {which}",
+                    "routing_overhead_ms": 0.0,
+                    "ok": True,
+                }, tokens, which
+
+        # 1) routing decision, prefix affinity, breaker veto
+        (device, method, confidence, reasoning,
+         cache_hit, overhead_ms) = self._decide(query, context, ctx_hash,
+                                                history)
+        device, method, reasoning = self._apply_prefix_affinity(
+            device, confidence, method, reasoning, history)
+        if self.breaker is not None and not self.breaker.allow(device):
+            other = self._other(device)
+            if device in self.tiers and self.breaker.allow(other):
+                reasoning = (f"circuit open on {device} -> rerouted to "
+                             f"{other}; {reasoning}")
+                method = f"{method}+breaker"
+                device = other
+            else:
+                return self._degraded_response(query, ctx_hash, method,
+                                               confidence, overhead_ms,
+                                               device)
+
+        # 1.8) the dispatching tier's context-overflow policy
+        history, overflow_err, overflow_dropped = \
+            self._apply_overflow_policy(device, history)
+        if overflow_err is not None:
+            text = self._extract_text(overflow_err) or "No response available"
+            tokens = self.token_counter.count_tokens(
+                {"role": "assistant", "content": text})
+            return {
+                "response": text,
+                "raw": overflow_err,
+                "cache_hit": False,
+                "benchmark_mode": self.benchmark_mode,
+                "routing_overhead_ms": round(overhead_ms, 2),
+                "routing_method": f"{method}+overflow_reject",
+                "routing_confidence": round(confidence, 4),
+                "routing_reasoning": (f"prompt exceeds {device}'s context "
+                                      f"budget (overflow_policy=reject); "
+                                      f"{reasoning}"),
+                "ok": False,
+            }, tokens, device
+
+        # 2) inference + bounded transient retry + one-shot failover; the
+        # retry layer is budgeted against the primary's request_timeout_s.
+        timeout_s = self._tier_timeout_s(device)
+        deadline = (time.monotonic() + timeout_s
+                    if timeout_s is not None else None)
+        raw, which, lat_ms = self._run_device_retrying(device, history,
+                                                       deadline)
+        self._breaker_record(which, not self._is_error(raw), raw)
+        if self.enable_failover and self._is_error(raw):
+            other = self._other(which)
+            # The primary's failure reaches the perf strategy before the
+            # switch (its fail penalty exists to steer off flaky tiers).
+            self.query_router.update_perf(which, lat_ms, 0, ok=False)
+            # One-shot failover, even after a full timeout; only an open
+            # circuit on the survivor suppresses it.
+            if self.breaker is None or self.breaker.allow(other):
+                logger.warning("%s failed: failing over to %s", which, other)
+                raw2, which2, lat2 = self._run_device_retrying(
+                    other, history, deadline)
+                self._breaker_record(which2, not self._is_error(raw2), raw2)
+                if not self._is_error(raw2):
+                    raw, which, lat_ms = raw2, which2, lat2
+            else:
+                logger.warning("%s failed and %s's circuit is open: "
+                               "no failover target", which, other)
+
+        # 3) normalize + count
+        text = self._extract_text(raw) or "No response available"
+        tokens = self.token_counter.count_tokens(
+            {"role": "assistant", "content": text})
+        ok = not self._is_error(raw)
+
+        # 4) perf feedback
+        self.query_router.update_perf(which, lat_ms, tokens, ok=ok)
+
+        # 5) response-cache store
+        if self.enable_response_cache:
+            self._response_store[self._response_cache_key(ctx_hash, query)] = {
+                "text": text,
+                "raw": raw,
+                "device": which,
+                "routing_confidence": round(confidence, 4),
+            }
+
+        out = {
+            "response": text,
+            "raw": raw,
+            "cache_hit": False,
+            "benchmark_mode": self.benchmark_mode,
+            "routing_overhead_ms": round(overhead_ms, 2),
+            "routing_method": method,
+            "routing_confidence": round(confidence, 4),
+            "routing_reasoning": reasoning,
+            "ok": ok,
+        }
+        if overflow_dropped:
+            out["overflow_truncated"] = True
+            out["overflow_dropped_messages"] = overflow_dropped
+        return out, tokens, which
+
+    def route_query_stream(self, history: List[Dict[str, Any]]
+                           ) -> "RoutedStream":
+        """Streaming twin of ``route_query`` (see the module note).  The
+        response cache does not take part.  Raises RuntimeError if no
+        tier can start a stream (with a retry-after hint when every
+        circuit is open)."""
+        query, context, ctx_hash = self._history_to_query_and_context(history)
+        (device, method, confidence, reasoning,
+         cache_hit, overhead_ms) = self._decide(query, context, ctx_hash,
+                                                history)
+        device, method, reasoning = self._apply_prefix_affinity(
+            device, confidence, method, reasoning, history)
+        if self.breaker is not None and not self.breaker.allow(device):
+            other = self._other(device)
+            if self.breaker.allow(other):
+                reasoning = (f"circuit open on {device} -> rerouted to "
+                             f"{other}; {reasoning}")
+                method = f"{method}+breaker"
+                device = other
+            else:
+                self.degraded_served += 1
+                raise RuntimeError(
+                    "Request failed: all tiers unavailable (circuit "
+                    f"open); retry in {self.breaker.retry_after_s():.1f}s")
+
+        history, overflow_err, overflow_dropped = \
+            self._apply_overflow_policy(device, history)
+        if overflow_err is not None:
+            raise RuntimeError(overflow_err["error"])
+
+        t0 = time.perf_counter()
+        tier = self.tiers.get(device, self.nano)
+        handle = tier.process_stream(history)   # primes the first token
+        which = tier.name
+        self._breaker_record_stream_setup(which, handle)
+        if self._is_error(handle) and self.enable_failover:
+            other = self._other(which)
+            logger.warning("%s stream setup failed: failing over to %s",
+                           which, other)
+            self.query_router.update_perf(
+                which, (time.perf_counter() - t0) * 1000.0, 0, ok=False)
+            if self.breaker is None or self.breaker.allow(other):
+                alt = self.tiers[other].process_stream(history)
+                self._breaker_record_stream_setup(other, alt)
+                if not self._is_error(alt):
+                    handle, which = alt, other
+        if self._is_error(handle):
+            raise RuntimeError(handle.get("error", "stream setup failed"))
+
+        # The live (handle, device): mid-stream failover swaps both, and
+        # completion is credited to the tier that finished the stream.
+        state: Dict[str, Any] = {"handle": handle, "device": which}
+
+        def on_done(ok: bool) -> None:
+            # Completion is the breaker's verdict for the serving tier.
+            self._breaker_record(state["device"], ok)
+            result = getattr(state["handle"], "result", None)
+            # Engine-true generation time, not wall time to exhaustion (a
+            # slow consumer must not poison the perf window).
+            if result is not None and result.total_ms > 0:
+                lat_ms = result.total_ms
+            else:
+                lat_ms = (time.perf_counter() - t0) * 1000.0
+            tokens = result.gen_tokens if result else 0
+            self.query_router.update_perf(state["device"], lat_ms, tokens,
+                                          ok=ok)
+
+        def resume_mid_stream(emitted_chars: int, exc: BaseException):
+            """The live stream died after ``emitted_chars`` chars: re-issue
+            the request on the other tier and return an iterator that
+            skips the delivered prefix, or None when no tier can take
+            over (the caller surfaces the original failure and on_done
+            records it against the dying tier)."""
+            if not self.enable_failover:
+                return None
+            dying = state["device"]
+            other = self._other(dying)
+            logger.warning("%s stream died mid-decode after %d chars (%s): "
+                           "re-issuing on %s", dying, emitted_chars, exc,
+                           other)
+            if self.breaker is not None and not self.breaker.allow(other):
+                return None
+            alt = self.tiers[other].process_stream(history)
+            self._breaker_record_stream_setup(other, alt)
+            if self._is_error(alt):
+                logger.warning("mid-stream failover target %s also failed "
+                               "(%s)", other, alt.get("error"))
+                return None
+            self._breaker_record(dying, False)
+            self.query_router.update_perf(
+                dying, (time.perf_counter() - t0) * 1000.0, 0, ok=False)
+            state["handle"], state["device"] = alt, other
+
+            def replayed():
+                skip = emitted_chars
+                for delta in alt:
+                    if skip > 0:
+                        if len(delta) <= skip:
+                            skip -= len(delta)
+                            continue
+                        delta = delta[skip:]
+                        skip = 0
+                    yield delta
+
+            return replayed()
+
+        meta = {
+            "device": which,
+            "method": method,
+            "confidence": round(confidence, 4),
+            "reasoning": reasoning,
+            # Streams never serve from the response cache; the routing
+            # cache hit is its own field.
+            "cache_hit": False,
+            "routing_cache_hit": cache_hit,
+            "routing_overhead_ms": round(overhead_ms, 2),
+        }
+        if overflow_dropped:
+            meta["overflow_truncated"] = True
+            meta["overflow_dropped_messages"] = overflow_dropped
+        return RoutedStream(state, meta, on_done, resume=resume_mid_stream)
+
+
+class RoutedStream:
+    """A routed token stream: iterate for text deltas; ``.result`` holds
+    the GenerationResult once exhausted.  Fires the router's completion
+    callback exactly once, whether the stream completes, errors or is
+    abandoned mid-iteration (client disconnect).  ``resume`` is the
+    mid-stream failover hook, called once when the live stream raises
+    between deltas."""
+
+    def __init__(self, state: Dict[str, Any], meta: Dict[str, Any],
+                 on_done, resume=None):
+        self._state = state
+        self.meta = meta
+        self._on_done = on_done
+        self._resume = resume
+        self._resumed = False
+        self._fired = False
+
+    @property
+    def device(self) -> str:
+        """The tier currently (or finally) serving this stream."""
+        return self._state["device"]
+
+    def _fire(self, ok: bool) -> None:
+        if not self._fired:
+            self._fired = True
+            self._on_done(ok)
+
+    def __iter__(self):
+        emitted_chars = 0
+        it = iter(self._state["handle"])
+        while True:
+            try:
+                delta = next(it)
+            except StopIteration:
+                break
+            except BaseException as exc:   # producer (engine/stream) death
+                if self._resume is not None and not self._resumed:
+                    self._resumed = True   # one-shot, like setup failover
+                    alt = None
+                    try:
+                        alt = self._resume(emitted_chars, exc)
+                    except Exception:
+                        logger.exception("mid-stream failover hook failed")
+                    if alt is not None:
+                        it = alt
+                        continue
+                self._fire(False)
+                raise
+            try:
+                yield delta
+            except GeneratorExit:
+                # The consumer left (client disconnect): the tier was
+                # healthy as far as it was consumed.
+                self._fire(True)
+                raise
+            emitted_chars += len(delta)
+        self._fire(True)
+
+    @property
+    def result(self):
+        return self._state["handle"].result

@@ -54,10 +54,18 @@ class ClippedStream:
     Holds back the last ``HOLDBACK`` characters so a marker split across
     deltas is still caught.  After a marker the rest of the stream is
     drained silently (not closed), so the engine still finishes the
-    request, fills ``result`` and parks its prefix."""
+    request, fills ``result`` and parks its prefix.
 
-    def __init__(self, handle):
+    A stream clipped from its first token emits nothing until the whole
+    generation is drained, so a caller that primes the first delta would
+    wait for all of it.  ``prime_drain_chars`` bounds that: once a fully
+    clipped stream has drained that many characters, ONE empty delta is
+    yielded (the tier client's primer swallows it) and the rest drains
+    as the consumer iterates.  None never yields it."""
+
+    def __init__(self, handle, prime_drain_chars: Optional[int] = None):
         self._handle = handle
+        self._prime_drain_chars = prime_drain_chars
         self._emitted_any = False
 
     def __iter__(self) -> Iterator[str]:
@@ -65,8 +73,16 @@ class ClippedStream:
         buf_line_start = True
         label_checked = False
         clipped = False
+        drained = 0
+        prime_released = False
         for delta in self._handle:
             if clipped:
+                drained += len(delta)
+                if (self._prime_drain_chars is not None
+                        and not self._emitted_any and not prime_released
+                        and drained >= self._prime_drain_chars):
+                    prime_released = True
+                    yield ""
                 continue
             buf += delta
             if not label_checked:

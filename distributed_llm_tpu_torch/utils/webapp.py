@@ -3,8 +3,9 @@
 The port's own copy of ``distributed_llm_tpu/utils/webapp.py``: the
 machine with the card has no Flask, so the port serves through this
 subset (``Flask``, ``@app.route``, ``jsonify``, the ``request`` proxy's
-``get_json``, tuple ``(response, status)`` returns, ``app.test_client()``
-and a threaded ``app.run()`` on wsgiref).
+``get_json`` and ``args``, tuple ``(response, status)`` returns, CORS
+preflight answers, ``app.test_client()`` and a threaded ``app.run()`` on
+wsgiref).
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ from __future__ import annotations
 import json
 import threading
 from socketserver import ThreadingMixIn
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
-from urllib.parse import urlsplit
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 from wsgiref.simple_server import WSGIServer, make_server
 
 _local = threading.local()
@@ -21,9 +22,10 @@ _local = threading.local()
 
 class Request:
     def __init__(self, method: str, path: str, body: bytes,
-                 content_type: str = "application/json"):
+                 content_type: str = "application/json", query: str = ""):
         self.method = method
         self.path = path
+        self.args = _Args(parse_qs(query))
         self._body = body
         self.content_type = content_type
 
@@ -34,6 +36,15 @@ class Request:
             if silent:
                 return None
             raise
+
+
+class _Args:
+    def __init__(self, parsed: Dict[str, List[str]]):
+        self._parsed = parsed
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        vals = self._parsed.get(key)
+        return vals[0] if vals else default
 
 
 class _RequestProxy:
@@ -129,6 +140,11 @@ class Flask:
         fn = self._routes.get((req.method, req.path))
         if fn is None:
             methods = sorted({m for (m, p) in self._routes if p == req.path})
+            if req.method == "OPTIONS" and methods:
+                # CORS preflight of a browser frontend on another origin.
+                resp = Response(b"", 204)
+                resp.allow_methods = ", ".join(methods + ["OPTIONS"])
+                return resp
             if methods:
                 return Response(b'{"error": "method not allowed"}', 405)
             return Response(b'{"error": "not found"}', 404)
@@ -154,12 +170,16 @@ class Flask:
             path=environ.get("PATH_INFO", "/"),
             body=body,
             content_type=environ.get("CONTENT_TYPE", ""),
+            query=environ.get("QUERY_STRING", ""),
         )
         resp = self._dispatch(req)
         streaming = isinstance(resp, StreamingResponse)
         headers = [("Content-Type", resp.content_type),
                    ("Access-Control-Allow-Origin", "*"),
                    ("Access-Control-Allow-Headers", "Content-Type")]
+        allow = getattr(resp, "allow_methods", None)
+        if allow:
+            headers.append(("Access-Control-Allow-Methods", allow))
         if not streaming:
             headers.append(("Content-Length", str(len(resp.body))))
         start_response(
@@ -193,8 +213,9 @@ class TestClient:
              json_body: Any = None) -> Response:
         body = (json.dumps(json_body).encode("utf-8")
                 if json_body is not None else b"")
-        req = Request(method=method.upper(), path=urlsplit(path).path,
-                      body=body)
+        split = urlsplit(path)
+        req = Request(method=method.upper(), path=split.path, body=body,
+                      query=split.query)
         return self.app._dispatch(req)
 
     def get(self, path: str, **kw) -> Response:
@@ -203,8 +224,11 @@ class TestClient:
     def post(self, path: str, **kw) -> Response:
         return self.open(path, "POST", kw.get("json"))
 
+    def delete(self, path: str, **kw) -> Response:
+        return self.open(path, "DELETE", kw.get("json"))
 
-_STATUS = {200: "OK", 400: "Bad Request",
+
+_STATUS = {200: "OK", 204: "No Content", 400: "Bad Request",
            404: "Not Found", 405: "Method Not Allowed",
            500: "Internal Server Error", 501: "Not Implemented",
-           504: "Gateway Timeout"}
+           503: "Service Unavailable", 504: "Gateway Timeout"}

@@ -1,14 +1,20 @@
-"""The port stands alone: it imports neither JAX nor the JAX package.
+"""The port stands alone: it imports neither JAX nor the JAX package,
+and reads no file of it.
 
 A subprocess with ``jax`` and ``distributed_llm_tpu`` blocked in
-``sys.modules`` imports the port's entry points and ``chip_smoke``; an
-AST scan of every port module and of chip_smoke.py finds no import of
-either."""
+``sys.modules`` imports the port's entry points (the ``/query`` and
+``/chat`` servers, the router, the tier clients and the routing layer)
+and ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
+finds no import of either, and no string literal that points into
+``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
+citations of the TPU kernels): the routing weights and labels are the
+port's own copies."""
 
 from __future__ import annotations
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -44,6 +50,46 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+_JAX_PATH = re.compile(r"\bdistributed_llm_tpu\b")
+
+
+def _exempt_nodes(tree) -> set:
+    """Docstrings, and every node under a ``"replaces"`` dict value."""
+    ids = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)):
+                ids.add(id(first.value))
+        if isinstance(node, ast.Dict):
+            for key, value in zip(node.keys, node.values):
+                if isinstance(key, ast.Constant) and key.value == "replaces":
+                    ids.update(id(n) for n in ast.walk(value))
+    return ids
+
+
+def test_no_string_literal_points_into_the_jax_package():
+    bad = []
+    for path in _sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), path)
+        exempt = _exempt_nodes(tree)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in exempt
+                    and _JAX_PATH.search(node.value)):
+                bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno}: "
+                           f"{node.value[:60]!r}")
+    assert not bad, bad
+
+
+def test_the_routing_data_files_are_the_ports_own():
+    for name in ("encoder_weights.npz", "semantic_labels.json"):
+        path = os.path.join(PORT, "routing", name)
+        assert os.path.isfile(path) and not os.path.islink(path), path
+
+
 def test_entry_points_import_with_jax_blocked():
     code = (
         "import sys\n"
@@ -51,6 +97,14 @@ def test_entry_points_import_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import distributed_llm_tpu_torch\n"
         "import distributed_llm_tpu_torch.serving.gpu_api\n"
+        "import distributed_llm_tpu_torch.serving.app\n"
+        "import distributed_llm_tpu_torch.serving.router\n"
+        "import distributed_llm_tpu_torch.serving.tiers\n"
+        "import distributed_llm_tpu_torch.serving.breaker\n"
+        "import distributed_llm_tpu_torch.routing\n"
+        "from distributed_llm_tpu_torch.routing import embedder, encoder\n"
+        "encoder.TrainedEncoder(device='cpu')\n"
+        "embedder.get_embedder('hybrid-lexsem-v1', 'cpu').encode(['hi'])\n"
         "import distributed_llm_tpu_torch.engine.batching\n"
         "import distributed_llm_tpu_torch.engine.inference\n"
         "import distributed_llm_tpu_torch.engine.manager\n"
