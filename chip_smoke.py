@@ -18,7 +18,9 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    same function (SDPA on the gathered, dequantized K/V, timed here only)
    and the card's bound (bytes at 3.35 TB/s, operations at the bf16 rate
    of 989 TFLOP/s); each is also checked at its other instantiations
-   (head dim, block, group, verify width); the dense windowed tick's
+   (head dim, block, group, verify width; the verify kernels also on
+   tables spanning several of their splits, and timed at a short shape
+   too); the dense windowed tick's
    paged decode kernels (bf16 at the nano tier's shape, int8 at the orin
    tier's, each through a column slice of the full table) and the
    contiguous-cache decode and chunk kernels of the sequential engines
@@ -51,8 +53,8 @@ must have served).  Then, on the live pool or cache, the decode step's logits
 with the kernel and with the plain attention (in bf16 and in float32)
 must agree (speculating tiers: the verify's rows against as many
 sequential decode steps, and the verify with the kernel against the
-verify with the plain attention), and one decode step is timed eager and
-as a replayed CUDA graph.
+verify with the plain attention), and one decode step (and, speculating,
+one verify step) is timed eager and as a replayed CUDA graph.
 
 It prints the serving numbers as one JSON line, the /chat phase's numbers
 per strategy as another, the card's name and power limit, the kernel
@@ -146,6 +148,26 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
+    """Device time of ``fn`` in ms: ``fn`` captured once as a CUDA graph
+    (after a warm-up on a side stream) and the graph replayed under
+    ``time_ms``, so the host's time to enqueue ``fn`` (a wrapper's
+    Python, which outlasts a kernel of tens of microseconds) is not
+    counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(torch, graph.replay, iters, flush)
+    del graph
+    return ms
 
 
 def widen(args):
@@ -419,7 +441,9 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
     verify kernels at the orin tier's shapes: 4 slots at positions 0
     (idle, trash row), 100, 3000 and the context's end, the pool of a
     4-slot orin engine ([8, 513, 64, 128]), verify widths G = 2, 3, 5 (the
-    γ buckets 1, 2, 4) checked and G = 5 timed; the int8 decode at D=128
+    γ buckets 1, 2, 4) checked and G = 5 timed, with the plain version
+    one tile short outside the bound, and timed again at a short shape
+    (4 live slots at 100-400, the row's ``short``); the int8 decode at D=128
     (self-draft, γ=0 ticks) timed and at D=64 (the nano draft's pool)
     checked.  The bf16 ragged decode is also checked at the nano draft's
     shape (B=4, D=64, 513 blocks).  Returns the three rows and the bf16
@@ -447,10 +471,11 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(bf)
 
-    def slot_tables(n_blocks):
+    def slot_tables(n_blocks, idle=True):
         perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
         t = perm[:n_slots * mb].reshape(n_slots, mb).to(torch.int32)
-        t[0] = 0                                    # idle slot: trash row
+        if idle:
+            t[0] = 0                                # idle slot: trash row
         return t.contiguous()
 
     def positions(g):
@@ -478,7 +503,12 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
         mask = (cols[None, None, :] <= rowpos[:, :, None])[:, None]
         return q.permute(0, 2, 1, 3).contiguous(), k_l, v_l, mask
 
-    # K4 / K6: ragged verify over the bf16 and the int8 pool.
+    # K4 / K6: ragged verify over the bf16 and the int8 pool, timed at the
+    # skewed shape and at a short one (4 live slots at 100-400, one split
+    # each: the split and merge overhead where splitting buys nothing).
+    short_tables = slot_tables(nb, idle=False)
+    short_pos = torch.tensor([100, 200, 300, 400], dtype=torch.int32,
+                             device=dev)
     for name, src, replaces, pool, kv_bytes in (
             ("ragged_verify", "ragged_verify.cu", "ragged_attention.py:170",
              (k_pool, v_pool, None, None), 2 * d * 2),
@@ -499,25 +529,45 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
                 out, TA._gather_verify_paged,
                 (q, pool[0], pool[1], tables, pos, pool[2], pool[3])))
         agrees(name, agree)
-        pos_h = pos.tolist()
-        lib = sdpa_inputs(q, pool, tables, pos)
-        b_ms, b_by = verify_bound(cfg, pos_h, g, bs, kv_bytes, q.numel() * 2,
-                                  table_bytes)
+        # The bound's resolution: every frontier one tile short, over the
+        # slots whose frontier is at least one tile.
+        plain_args = (q, pool[0], pool[1], tables, pos, pool[2], pool[3])
+        long_slots = pos >= bs
+        short_by_tile = (*plain_args[:4], pos - bs, *plain_args[5:])
+        agree["one_tile_short_rel_err"] = row_rel_err(
+            TA._gather_verify_paged(*widen(short_by_tile))[long_slots],
+            TA._gather_verify_paged(*widen(plain_args))[long_slots])
+        require(agree["one_tile_short_rel_err"] > KERNEL_REL_TOL,
+                f"{name}: a missed tile would pass at this shape: {agree}")
+        timed = {}
+        for label, tbl, tpos in (("", tables, pos),
+                                 ("short", short_tables, short_pos)):
+            targs = (q, *pool, tbl, tpos) if q8 else (q, pool[0], pool[1],
+                                                      tbl, tpos)
+            lib = sdpa_inputs(q, pool, tbl, tpos)
+            b_ms, b_by = verify_bound(cfg, tpos.tolist(), g, bs, kv_bytes,
+                                      q.numel() * 2, table_bytes)
+            calls = {"ms": lambda: kern(*targs),
+                     "plain_ms": lambda: TA._gather_verify_paged(
+                         q, pool[0], pool[1], tbl, tpos, pool[2], pool[3]),
+                     "library_ms": lambda: F.scaled_dot_product_attention(
+                         lib[0], lib[1], lib[2], attn_mask=lib[3])}
+            timed[label] = {
+                "shape": f"B={n_slots} G={g} Nq={nq} Nkv={nkv} D={d} bs={bs} "
+                         f"MB={mb} NB={nb} pos={tpos.tolist()}",
+                **{k: graph_ms(torch, fn, flush=flush)
+                   for k, fn in calls.items()},
+                "eager": {k: time_ms(torch, fn, flush=flush)
+                          for k, fn in calls.items()},
+                "bound_ms": b_ms, "bound_by": b_by}
+            del lib, calls
+        main = timed.pop("")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"distributed_llm_tpu_torch/csrc/{src}",
             "replaces": f"distributed_llm_tpu/ops/{replaces}",
-            "shape": f"B={n_slots} G={g} Nq={nq} Nkv={nkv} D={d} bs={bs} "
-                     f"MB={mb} NB={nb} pos={pos_h} (checked at G=2,3,5)",
-            **agree, "tol": TOL,
-            "ms": time_ms(torch, lambda: kern(*kargs), flush=flush),
-            "plain_ms": time_ms(torch, lambda: TA._gather_verify_paged(
-                q, pool[0], pool[1], tables, pos, pool[2], pool[3]),
-                flush=flush),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                lib[0], lib[1], lib[2], attn_mask=lib[3]), flush=flush),
-            "bound_ms": b_ms, "bound_by": b_by})
-        del lib
+            **main, "shape": main["shape"] + " (checked at G=2,3,5)",
+            **agree, "tol": TOL, "short": timed["short"]})
 
     # K5: int8 ragged decode, timed at the orin pool (D=128), checked at the
     # nano draft's pool (D=64) too.
@@ -573,9 +623,14 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
 def spec_variant_checks(torch, gen) -> dict:
     """The verify kernels (bf16, int8) at every instantiation they accept
     (head dim 64/128, block 32/64/128, GQA group 1/4/8, G 1..5) and the
-    int8 decode kernel (G=1) on small ragged shapes with an idle slot and
-    a chunk ending at the table's end; returns the worst ``compare`` per
-    kernel."""
+    int8 decode kernel (G=1) on small ragged shapes that span several
+    splits of the verify kernels' plan (``split_plan``: 8 tiles a split
+    at these 20-block tables): a chunk ending at the table's end (three
+    splits, the last of four tiles), an idle slot, a frontier ending
+    exactly on a split boundary, one ending one tile past it (a last
+    split of a single tile) and a chunk whose G rows straddle a boundary
+    (rows before it leave an empty partial in the live split after it);
+    returns the worst ``compare`` per kernel."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import quant
     from distributed_llm_tpu_torch.ops import ragged_attention as TR
@@ -595,8 +650,12 @@ def spec_variant_checks(torch, gen) -> dict:
     for d in (64, 128):
         for bs in (32, 64, 128):
             for nq, nkv in ((32, 8), (16, 2), (8, 8)):
-                b, mb = 4, 12
+                b, mb = 5, 20
                 nb = b * mb + 1
+                tiles, splits = TR.split_plan(mb, b, nkv)
+                require(splits >= 3, f"the variant tables span {splits} "
+                        f"splits of {tiles} tiles, not 3")
+                edge = tiles * bs               # first key of split 1
                 kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
                 kq, ks = quant.quantize_kv_rows(kp)
                 vq, vs = quant.quantize_kv_rows(vp)
@@ -604,7 +663,8 @@ def spec_variant_checks(torch, gen) -> dict:
                           + 1)[:b * mb].reshape(b, mb).to(torch.int32)
                 tables[1] = 0
                 for g in range(1, 6):
-                    pos = torch.tensor([mb * bs - g, 0, 5, 100],
+                    pos = torch.tensor([mb * bs - g, 0, edge - g,
+                                        edge + bs // 2 - g + 1, 2 * edge - 2],
                                        dtype=torch.int32, device=dev)
                     q = randn(b, g, nq, d)
                     note("ragged_verify",
@@ -1236,6 +1296,8 @@ def serve_phase(torch, tier, *, lengths, expect, repeat=False, sampled=False,
             "decode_logits_check": logits_check(torch, engine),
             "verify_check": verify_check(torch, engine) if engine.spec else None,
             "decode_step": paged_step_breakdown(torch, engine) if on_card else None,
+            "verify_step": (verify_step_breakdown(torch, engine)
+                            if on_card and engine.spec else None),
             "peak_memory_gb": peak_memory_gb(torch, on_card)})
         return serve, launches
 
@@ -1263,27 +1325,17 @@ def step_breakdown(torch, step, attn, layers: int) -> dict:
     host launch gaps (their ratio is the device's idle share in eager
     mode); and the attention kernel's part, ``attn()`` (one layer's
     launch) times ``layers``."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            step()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
     iters = 10
+    step_graph_ms = graph_ms(torch, step, iters=iters)
     t0 = time.perf_counter()
     for _ in range(iters):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step()
-    graph_ms = time_ms(torch, graph.replay, iters=iters)
-    attn_ms = layers * time_ms(torch, attn)
-    del graph
-    return {"wall_ms": wall_ms, "graph_ms": graph_ms, "attention_ms": attn_ms,
-            "device_idle_share": max(0.0, 1.0 - graph_ms / wall_ms)}
+    attn_ms = layers * graph_ms(torch, attn)
+    return {"wall_ms": wall_ms, "graph_ms": step_graph_ms,
+            "attention_ms": attn_ms,
+            "device_idle_share": max(0.0, 1.0 - step_graph_ms / wall_ms)}
 
 
 def paged_step_breakdown(torch, engine) -> dict:
@@ -1306,6 +1358,39 @@ def paged_step_breakdown(torch, engine) -> dict:
                                  *layer_scales(pool, 0)), cfg.num_layers)
     del pool
     return {"slots": engine.paged.max_slots, "position": n - 1, **res}
+
+
+def verify_step_breakdown(torch, engine) -> dict:
+    """``step_breakdown`` of one batched verify step at the top γ bucket
+    (G rows a slot) on a copy of the live pool, every slot at the longest
+    parked conversation's end (two spare blocks after the parked ones
+    take the new rows); the attention is the ragged verify kernel."""
+    from distributed_llm_tpu_torch.engine.paged_kv import verify_step_paged
+    from distributed_llm_tpu_torch.models.transformer import layer_scales
+    from distributed_llm_tpu_torch.ops import attention as TA
+
+    g = engine.spec_gamma_max + 1
+    spare = engine.allocator.alloc(2)
+    require(spare is not None, "no spare blocks for the verify step")
+    try:
+        tables, pos, cur, n = _live_decode_state(torch, engine, spare)
+        pool = {k: v.clone() for k, v in engine.pool.items()}
+        cfg = engine.cfg
+        chunk = cur[:, None].expand(-1, g).contiguous()
+        q = torch.randn((engine.paged.max_slots, g, cfg.num_heads,
+                         cfg.head_dim), device=engine.device
+                        ).to(engine.model.embed.dtype)
+        res = step_breakdown(
+            torch, lambda: verify_step_paged(cfg, engine.model, chunk, pos,
+                                             pool, tables),
+            lambda: TA.ragged_verify(q, pool["k"][0], pool["v"][0], tables,
+                                     pos, *layer_scales(pool, 0)),
+            cfg.num_layers)
+        del pool
+    finally:
+        engine.allocator.free(spare)
+    return {"slots": engine.paged.max_slots, "rows": g, "position": n - 1,
+            **res}
 
 
 def seq_step_breakdown(torch, engine) -> dict:
@@ -1966,6 +2051,7 @@ def main() -> None:
             "model", "engine", "draft", "kv_quantize", "requests",
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
             "chunked_ttft_ms", "tick_stats", "spec", "decode_step",
+            "verify_step",
             "decode_logits_check", "verify_check", "peak_memory_gb")
             if k in serve}
         summary[name]["concurrent"] = {
@@ -1984,7 +2070,10 @@ def main() -> None:
         "routing_device_check": chat["routing_device_check"],
         "peak_memory_gb": chat["peak_memory_gb"]}}))
     log(f"{card}")
-    log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
+                                 **{k: row[k] for k in (
+                                     "one_tile_short_rel_err", "short")
+                                    if k in row}} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -46,5 +46,5 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
                            wb,
                            (long)table_stride,
                            scale};
-  return dllm::ragged_paged_attention<false, 2>(a, stream);
+  return dllm::ragged_paged_attention<false>(a, stream);
 }

@@ -42,5 +42,5 @@ extern "C" int paged_decode_attention_q8(const void* q, const void* k_pool, cons
                            wb,
                            (long)table_stride,
                            scale};
-  return dllm::ragged_paged_attention<true, 2>(a, stream);
+  return dllm::ragged_paged_attention<true>(a, stream);
 }

@@ -43,5 +43,5 @@ extern "C" int ragged_decode_attention(const void* q, const void* k_pool,
                            MB,
                            MB,
                            scale};
-  return dllm::ragged_paged_attention<false, 2>(a, stream);
+  return dllm::ragged_paged_attention<false>(a, stream);
 }

@@ -44,5 +44,5 @@ extern "C" int ragged_decode_attention_q8(const void* q, const void* k_pool,
                            MB,
                            MB,
                            scale};
-  return dllm::ragged_paged_attention<true, 2>(a, stream);
+  return dllm::ragged_paged_attention<true>(a, stream);
 }

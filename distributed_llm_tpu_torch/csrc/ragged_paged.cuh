@@ -1,7 +1,8 @@
-// Ragged paged attention for Hopper over a bf16 or an int8 pool, for
-// decode (G = 1 query per slot) and speculative verify (G = gamma + 1
-// queries per slot): the kernel behind ragged_decode.cu,
-// ragged_verify.cu, ragged_decode_q8.cu and ragged_verify_q8.cu.
+// Ragged paged decode attention for Hopper over a bf16 or an int8 pool
+// (G = 1 query per slot): the kernel behind ragged_decode.cu,
+// ragged_decode_q8.cu, paged_decode.cu and paged_decode_q8.cu.  The
+// speculative verify (G = gamma + 1) has its own split-K kernel,
+// ragged_verify.cuh.
 //
 // Layout: q [B, G, Nq, D] bf16 (decode: G = 1, i.e. [B, Nq, D]); one
 // layer's pool [Nkv, NB, bs, D], bf16 or int8, and for int8 the float32
@@ -20,8 +21,8 @@
 //
 // Work split: one block of 4 warps per (kv head, slot).  The block's
 // query rows are the group's Nq / Nkv heads times the G positions, row
-// r = head_in_group * G + g; warp w owns rows w, w + 4, ..., w + 4 (R - 1)
-// (R = 2, 5 or 10: up to 8, 20 or 40 rows).  The block walks
+// r = head_in_group * G + g; warp w owns rows w and w + 4 (R = 2: up to
+// 8 rows).  The block walks
 // min(MB, (pos + G - 1) / bs + 1) tiles, the frontier of its last query:
 // each [bs, D] K/V tile is staged in shared memory once and read there
 // by every row, and a row skips the tiles that start past its own
@@ -255,37 +256,30 @@ cudaError_t ragged_launch(const RaggedArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Rows per warp for (group x G) rows; MaxR bounds the instantiations a
-// source carries (decode: group <= 8 rows, R = 2 only).
-template <bool Q8, int MaxR, int D, int BS>
+// Two rows per warp: (group x G) rows, at most 8.
+template <bool Q8, int D, int BS>
 cudaError_t ragged_dispatch_rows(const RaggedArgs& a, cudaStream_t stream) {
-  const int rows = (a.Nq / a.Nkv) * a.G;
-  if (rows <= kWarps * 2) return ragged_launch<D, BS, 2, Q8>(a, stream);
-  if constexpr (MaxR >= 10) {
-    if (rows <= kWarps * 5) return ragged_launch<D, BS, 5, Q8>(a, stream);
-    if (rows <= kWarps * 10) return ragged_launch<D, BS, 10, Q8>(a, stream);
-  }
+  if ((a.Nq / a.Nkv) * a.G <= kWarps * 2) return ragged_launch<D, BS, 2, Q8>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <bool Q8, int MaxR, int D>
+template <bool Q8, int D>
 cudaError_t ragged_dispatch_bs(const RaggedArgs& a, cudaStream_t stream) {
   switch (a.bs) {
     case 32:
-      return ragged_dispatch_rows<Q8, MaxR, D, 32>(a, stream);
+      return ragged_dispatch_rows<Q8, D, 32>(a, stream);
     case 64:
-      return ragged_dispatch_rows<Q8, MaxR, D, 64>(a, stream);
+      return ragged_dispatch_rows<Q8, D, 64>(a, stream);
     case 128:
-      return ragged_dispatch_rows<Q8, MaxR, D, 128>(a, stream);
+      return ragged_dispatch_rows<Q8, D, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // Returns the launch's cudaError_t (0 = launched).  D must be 64 or 128,
-// bs 32, 64 or 128, Nq a multiple of Nkv, and (Nq / Nkv) * G at most
-// 4 * MaxR.
-template <bool Q8, int MaxR>
+// bs 32, 64 or 128, Nq a multiple of Nkv, and (Nq / Nkv) * G at most 8.
+template <bool Q8>
 int ragged_paged_attention(const RaggedArgs& a, void* stream) {
   if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.B < 1 || a.TS < a.MB) {
     return (int)cudaErrorInvalidValue;
@@ -293,9 +287,9 @@ int ragged_paged_attention(const RaggedArgs& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.D) {
     case 64:
-      return (int)ragged_dispatch_bs<Q8, MaxR, 64>(a, s);
+      return (int)ragged_dispatch_bs<Q8, 64>(a, s);
     case 128:
-      return (int)ragged_dispatch_bs<Q8, MaxR, 128>(a, s);
+      return (int)ragged_dispatch_bs<Q8, 128>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

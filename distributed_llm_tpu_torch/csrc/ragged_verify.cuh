@@ -1,0 +1,578 @@
+// Split-K ragged paged speculative-verify attention for Hopper, over a
+// bf16 or an int8 pool: the kernels behind ragged_verify.cu and
+// ragged_verify_q8.cu.
+//
+// Contract (the Pallas `_ragged_verify_kernel` / `_ragged_verify_kernel_q8`):
+// q [B, G, Nq, D] bf16; one layer's pool [Nkv, NB, bs, D], bf16 or int8,
+// and for int8 the float32 row scales [Nkv, NB, bs]; tables [B, MB] int32
+// hold each slot's FULL block row and pos [B] int32 the FIRST query's
+// position, both read on the device.  Query g of slot b attends positions
+// 0 .. pos[b] + g, position p living at (tables[b, p / bs], p % bs); idle
+// slots point their row at the trash block 0 with pos 0.  Output
+// [B, G, Nq, D] bf16.
+//
+// Bound: bytes.  A verify reads each slot's n_tiles = min(MB, (pos + G -
+// 1) / bs + 1) blocks of K and V once and does about group * G
+// multiply-adds per element read (20 at orin's 4 x 5 rows: about 20
+// operations per bf16 byte, 40 per int8 byte, against the card's ~295),
+// so the design is about keeping enough bytes in flight on every SM.
+//
+// 1. Split-K (flash-decoding).  Grid (Nkv, B, S); block (hk, b, s) walks
+//    the slot's tiles [s * T, min((s + 1) * T, n_tiles)).  T and S come
+//    from the wrapper, chosen from shapes alone (no host sync; see
+//    ops/ragged_attention.py `split_plan`): at orin's MB = 128, T = 8
+//    tiles, so the timed verify's long slot alone is 16 splits and the
+//    batch 192 live blocks on 132 SMs, where one block per (kv head,
+//    slot) was 32.  A block whose first tile lies past its slot's
+//    frontier marks its partial empty and exits.  Each live block writes
+//    a float32 partial (m, l, acc[D]) per query row; `split_merge_kernel`
+//    combines a row's partials over the splits its slot's frontier
+//    reaches (worked out from pos on the device): M = max m_s, L = sum
+//    l_s 2^(m_s - M), O = sum acc_s 2^(m_s - M) / max(L, 1e-30).  A row
+//    whose own frontier pos + g ends before a live split's first tile
+//    leaves l = 0 and m at the -1e30 sentinel there, and weighs 0.  m is
+//    kept in units of log2 (scores times log2 e), so every exponential is
+//    one exp2.
+// 2. Tensor cores.  The block's rows are the group's heads x G positions,
+//    row r = head_in_group * G + g (20 at orin, at most 40), padded to MT
+//    tiles of 16.  QK and PV are mma.sync m16n8k16 bf16 -> f32, fragments
+//    loaded by ldmatrix from padded shared tiles (rows of D + 8 bf16: the
+//    8 rows of an 8x8 matrix start 4 banks apart).  Q is used unscaled in
+//    bf16 (exact); the softmax scale multiplies the float32 scores.  P is
+//    rounded to bf16 for PV, as the Pallas bf16 kernel casts it (l sums it
+//    unrounded).  Warp w owns row tile w / KW and the 16-key chunks
+//    kw, kw + KW, ... of every tile (kw = w % KW), with its own flash
+//    state; the KW warps of a row tile merge in shared memory at the end.
+//    QK sums its even and odd k-steps in separate accumulators, which
+//    halves its dependent chain of products.
+//    mma.sync and not wgmma: at 20 rows the products are far below the
+//    byte bound, and wgmma's 64-row minimum would pad 20 rows to 64.
+// 3. Asynchronous loads.  A ring of kStages (2-4, sized per D, bs and
+//    pool type to keep two blocks on an SM at the timed shape) K/V stages
+//    filled by cp.async.cg, 16 bytes a thread, one commit group per tile:
+//    the copy of tile j + kStages - 1 (its table entry read then) is in
+//    flight while the products of tile j run.
+// 4. int8.  The ring stages int8 tiles (rows of D + 16 bytes) and both
+//    row-scale vectors through the same cp.async path; each tile is then
+//    widened into one bf16 K/V tile pair in shared memory (integers in
+//    -127..127 are exact in bf16) that the bf16 path's ldmatrix reads.  The
+//    K row scale multiplies the float32 scores with the softmax scale; the
+//    V row scale is folded into P before P is rounded to bf16.  This rounds
+//    P where the Pallas q8 kernel keeps it float32; chip_smoke holds every
+//    output row to the same 1e-2 of the float32 plain version as the bf16
+//    kernel.  The dequantized window never reaches device memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dllm {
+namespace verify {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+// Shared memory the ring (plus the int8 widening tile) may take: about
+// half an SM's, so two blocks fit on one at the timed shape.
+constexpr int kRingBudget = 102 * 1024;
+
+struct Args {
+  const __nv_bfloat16* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;  // int8 pools only
+  const float* v_scale;
+  const int* tables;
+  const int* pos;
+  __nv_bfloat16* o;
+  float* part_acc;  // [B, Nkv, S, R, D]
+  float* part_ml;   // [B, Nkv, S, R, 2]: (m in log2 units, l)
+  int B, G, Nq, Nkv, NB, bs, D, MB, T, S;
+  float scale;
+};
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int D, int BS, int MT, bool Q8>
+struct Cfg {
+  static constexpr int kKW = cmin(MT == 1 ? 4 : 2, BS / 16);  // key warps
+  static constexpr int kWarps = MT * kKW;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kLd = D + 8;     // bf16 elements per shared row
+  static constexpr int kLd8 = D + 16;   // bytes per int8 ring row
+  static constexpr int kQBytes = 16 * MT * kLd * 2;
+  static constexpr int kTileBytes = BS * kLd * 2;  // one bf16 K or V tile
+  static constexpr int kStageBytes =
+      Q8 ? 2 * BS * kLd8 + 2 * BS * 4 : 2 * kTileBytes;
+  static constexpr int kWideBytes = Q8 ? 2 * kTileBytes : 0;
+  static constexpr int kStages =
+      cmin(4, cmax(2, (kRingBudget - kWideBytes) / kStageBytes));
+  static constexpr int kRingBytes = kStages * kStageBytes + kWideBytes;
+  static constexpr int kEpiBytes = kWarps * 16 * (D + 2) * 4;
+  static constexpr int kSmem = kQBytes + cmax(kRingBytes, kEpiBytes);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Start the cp.async copies of one pool block (K and V rows row0 ..
+// row0 + BS - 1 of this kv head, plus their scales for int8) into a ring
+// stage.  Every thread of the block takes part.
+template <int D, int BS, int MT, bool Q8>
+__device__ __forceinline__ void load_stage(unsigned char* stage, const Args& a, long row0) {
+  using C = Cfg<D, BS, MT, Q8>;
+  if constexpr (Q8) {
+    constexpr int kChunks = D / 16;
+    const int8_t* src[2] = {static_cast<const int8_t*>(a.k_pool) + row0 * D,
+                            static_cast<const int8_t*>(a.v_pool) + row0 * D};
+    for (int c = threadIdx.x; c < 2 * BS * kChunks; c += C::kThreads) {
+      const int which = c / (BS * kChunks);
+      const int r = (c / kChunks) % BS;
+      const int cc = c % kChunks;
+      cp_async16(stage + (which * BS + r) * C::kLd8 + cc * 16, src[which] + r * D + cc * 16);
+    }
+    float* sc = reinterpret_cast<float*>(stage + 2 * BS * C::kLd8);
+    for (int c = threadIdx.x; c < BS / 2; c += C::kThreads) {
+      const int which = c / (BS / 4);
+      const int i = c % (BS / 4);
+      cp_async16(sc + which * BS + 4 * i, (which ? a.v_scale : a.k_scale) + row0 + 4 * i);
+    }
+  } else {
+    constexpr int kChunks = D / 8;
+    const __nv_bfloat16* src[2] = {static_cast<const __nv_bfloat16*>(a.k_pool) + row0 * D,
+                                   static_cast<const __nv_bfloat16*>(a.v_pool) + row0 * D};
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(stage);
+    for (int c = threadIdx.x; c < 2 * BS * kChunks; c += C::kThreads) {
+      const int which = c / (BS * kChunks);
+      const int r = (c / kChunks) % BS;
+      const int cc = c % kChunks;
+      cp_async16(dst + (which * BS + r) * C::kLd + cc * 8, src[which] + r * D + cc * 8);
+    }
+  }
+}
+
+// Widen a staged int8 K/V tile pair into the bf16 tile pair `wide`.  No
+// int-to-float or float-to-bf16 conversion (both quarter-rate): byte x + 128
+// is placed under the float exponent of 2^23, 2^23 + 128 subtracted (exact),
+// and the float's upper half is x in bf16 (an integer of at most 8
+// significant bits leaves the lower half zero).
+template <int D, int BS, int MT>
+__device__ __forceinline__ void widen_stage(__nv_bfloat16* wide, const unsigned char* stage) {
+  using C = Cfg<D, BS, MT, true>;
+  constexpr int kChunks = D / 16;
+  for (int c = threadIdx.x; c < 2 * BS * kChunks; c += C::kThreads) {
+    const int row = c / kChunks;  // K rows then V rows
+    const int cc = c % kChunks;
+    const uint4 raw = *reinterpret_cast<const uint4*>(stage + row * C::kLd8 + cc * 16);
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t w[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = words[i] ^ 0x80808080u;  // bytes x + 128
+      float f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) - 8388736.f;
+      }
+      w[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+      w[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(wide + row * C::kLd + cc * 16);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+template <int D, int BS, int MT, bool Q8>
+__global__ void __launch_bounds__(Cfg<D, BS, MT, Q8>::kThreads)
+split_verify_kernel(const Args a) {
+  using C = Cfg<D, BS, MT, Q8>;
+  constexpr int KW = C::kKW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring = smem + C::kQBytes;
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int s = blockIdx.z;
+  const int G = a.G;
+  const int group = a.Nq / a.Nkv;
+  const int R = group * G;
+  const int p0 = a.pos[b];
+  const int n_tiles = min(a.MB, (p0 + G - 1) / BS + 1);
+  const int j0 = s * a.T;
+  const int j1 = min(j0 + a.T, n_tiles);
+  const long part = ((long)b * a.Nkv + hk) * a.S + s;
+  float* ml_out = a.part_ml + part * R * 2;
+  float* acc_out = a.part_acc + part * R * D;
+  if (j0 >= j1) {  // past the slot's frontier: an empty partial
+    for (int r = threadIdx.x; r < R; r += C::kThreads) {
+      ml_out[2 * r] = kNegInf;
+      ml_out[2 * r + 1] = 0.f;
+    }
+    return;
+  }
+
+  const int* row_table = a.tables + (long)b * a.MB;
+  const long head_row0 = (long)hk * a.NB * BS;  // first pool row of this kv head
+  // Prologue: the first kStages - 1 tiles in flight (one group each,
+  // empty groups past the range keep the count uniform).
+#pragma unroll
+  for (int i = 0; i < C::kStages - 1; ++i) {
+    if (j0 + i < j1) {
+      load_stage<D, BS, MT, Q8>(ring + i * C::kStageBytes, a,
+                                head_row0 + (long)row_table[j0 + i] * BS);
+    }
+    cp_async_commit();
+  }
+
+  // Q rows (unscaled bf16), padded rows zero.
+  for (int c = threadIdx.x; c < 16 * MT * (D / 8); c += C::kThreads) {
+    const int r = c / (D / 8);
+    const int cc = c % (D / 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R) {
+      const long q_row = ((long)b * G + r % G) * a.Nq + (long)hk * group + r / G;
+      val = *reinterpret_cast<const uint4*>(a.q + q_row * D + cc * 8);
+    }
+    *reinterpret_cast<uint4*>(q_s + r * C::kLd + cc * 8) = val;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rt = warp / KW;  // row tile
+  const int kw = warp % KW;  // key chunks kw, kw + KW, ...
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    ldmatrix_x4(qf[ks], q_s + (rt * 16 + (lane & 15)) * C::kLd + ks * 16 + (lane >> 4) * 8);
+  }
+
+  // This thread's two rows: rt * 16 + lane / 4 and that + 8.
+  int front[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rt * 16 + (lane >> 2) + 8 * h;
+    front[h] = r < R ? p0 + r % G : -1;  // padded rows see nothing
+  }
+  const int last = p0 + G - 1;
+  const float qk_scale = a.scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  for (int it = 0; j0 + it < j1; ++it) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    {
+      const int jn = j0 + it + C::kStages - 1;
+      if (jn < j1) {
+        load_stage<D, BS, MT, Q8>(ring + ((it + C::kStages - 1) % C::kStages) * C::kStageBytes,
+                                  a, head_row0 + (long)row_table[jn] * BS);
+      }
+      cp_async_commit();
+    }
+    const unsigned char* stage = ring + (it % C::kStages) * C::kStageBytes;
+    const __nv_bfloat16* k_t;
+    const float* ks_s = nullptr;
+    const float* vs_s = nullptr;
+    if constexpr (Q8) {
+      __nv_bfloat16* wide =
+          reinterpret_cast<__nv_bfloat16*>(ring + C::kStages * C::kStageBytes);
+      widen_stage<D, BS, MT>(wide, stage);
+      ks_s = reinterpret_cast<const float*>(stage + 2 * BS * C::kLd8);
+      vs_s = ks_s + BS;
+      k_t = wide;
+      __syncthreads();
+    } else {
+      k_t = reinterpret_cast<const __nv_bfloat16*>(stage);
+    }
+    const __nv_bfloat16* v_t = k_t + BS * C::kLd;
+    const int col0 = (j0 + it) * BS;
+
+    for (int c = kw; c < BS / 16; c += KW) {
+      if (col0 + c * 16 > last) break;  // warp-uniform: past every row's frontier
+      // S = Q K^T for 16 rows x 16 keys (two n8 tiles), the even and odd
+      // k-steps in separate accumulators.
+      float part[2][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, k_t + (c * 16 + (lane >> 4) * 8 + (lane & 7)) * C::kLd + ks * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(part[ks & 1][0], qf[ks], kb[0], kb[1]);
+        mma_bf16(part[ks & 1][1], qf[ks], kb[2], kb[3]);
+      }
+      // Scale, mask, online softmax.  Element [nt][e] is row h = e / 2,
+      // key c * 16 + nt * 8 + 2 * (lane % 4) + e % 2.
+      float sc[2][4];
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = c * 16 + nt * 8 + 2 * (lane & 3) + (e & 1);
+          float x = (part[0][nt][e] + part[1][nt][e]) * qk_scale;
+          if constexpr (Q8) x *= ks_s[key];
+          sc[nt][e] = (col0 + key <= front[e >> 1]) ? x : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+      float p[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = c * 16 + nt * 8 + 2 * (lane & 3) + (e & 1);
+          const bool valid = col0 + key <= front[e >> 1];
+          p[nt][e] = valid ? exp2f(sc[nt][e] - m[e >> 1]) : 0.f;
+          l[e >> 1] += p[nt][e];
+          if constexpr (Q8) p[nt][e] *= vs_s[key];  // V's row scale, folded into P
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        acc[dn][0] *= alpha[0];
+        acc[dn][1] *= alpha[0];
+        acc[dn][2] *= alpha[1];
+        acc[dn][3] *= alpha[1];
+      }
+      // P (bf16) as the A operand of PV: the S accumulator layout is the
+      // A fragment's.
+      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, v_t + (c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * C::kLd +
+                                  dn * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dn], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the warps' merge
+
+  float* e_acc = reinterpret_cast<float*>(ring);  // [warps][16][D]
+  float* e_m = e_acc + C::kWarps * 16 * D;        // [warps][16]
+  float* e_l = e_m + C::kWarps * 16;              // [warps][16]
+  {
+    const int r0 = warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int d = dn * 8 + 2 * (lane & 3);
+      e_acc[r0 * D + d] = acc[dn][0];
+      e_acc[r0 * D + d + 1] = acc[dn][1];
+      e_acc[(r0 + 8) * D + d] = acc[dn][2];
+      e_acc[(r0 + 8) * D + d + 1] = acc[dn][3];
+    }
+    const float l0 = quad_sum(l[0]);
+    const float l1 = quad_sum(l[1]);
+    if ((lane & 3) == 0) {
+      e_m[r0] = m[0];
+      e_m[r0 + 8] = m[1];
+      e_l[r0] = l0;
+      e_l[r0 + 8] = l1;
+    }
+  }
+  __syncthreads();
+  // Row r's state lives in warps r / 16 * KW + k, at row r % 16 of each:
+  // its weights 2^(m_k - M) once per row (in place of m), then the sums.
+  for (int r = threadIdx.x; r < R; r += C::kThreads) {
+    const int at = r / 16 * KW * 16 + r % 16;
+    float mm = kNegInf;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) mm = fmaxf(mm, e_m[at + 16 * k]);
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) {
+      e_m[at + 16 * k] = exp2f(e_m[at + 16 * k] - mm);
+      sum += e_l[at + 16 * k] * e_m[at + 16 * k];
+    }
+    ml_out[2 * r] = mm;
+    ml_out[2 * r + 1] = sum;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * D; i += C::kThreads) {
+    const int at = i / D / 16 * KW * 16 + i / D % 16;
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) sum += e_acc[(at + 16 * k) * D + i % D] * e_m[at + 16 * k];
+    acc_out[i] = sum;
+  }
+}
+
+// One warp per output row (b, kv head, row): combine the partials of the
+// splits the slot's frontier reaches and write the row as bf16.
+constexpr int kMergeWarps = 4;
+
+template <int D>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+split_merge_kernel(const Args a) {
+  constexpr int kDims = D / 32;  // output dims per lane
+  const int group = a.Nq / a.Nkv;
+  const int R = group * a.G;
+  const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= a.B * a.Nkv * R) return;
+  const int r = row % R;
+  const int hk = (row / R) % a.Nkv;
+  const int b = row / (R * a.Nkv);
+  const int n_tiles = min(a.MB, (a.pos[b] + a.G - 1) / a.bs + 1);
+  const int n_splits = (n_tiles + a.T - 1) / a.T;
+  const long first = ((long)b * a.Nkv + hk) * a.S * R + r;  // partial of split 0
+
+  float mm = kNegInf;
+  for (int s = 0; s < n_splits; ++s) mm = fmaxf(mm, a.part_ml[2 * (first + (long)s * R)]);
+  float out[kDims];
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) out[e] = 0.f;
+  float sum = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const long idx = first + (long)s * R;
+    const float l_s = a.part_ml[2 * idx + 1];
+    const float w = l_s > 0.f ? exp2f(a.part_ml[2 * idx] - mm) : 0.f;  // empty: weight 0
+    sum += l_s * w;
+    const float* src = a.part_acc + idx * D + lane * kDims;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) out[e] += w * src[e];
+  }
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  const long o_row = ((long)b * a.G + r % a.G) * a.Nq + (long)hk * group + r / a.G;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(a.o + o_row * D + lane * kDims);
+#pragma unroll
+  for (int e = 0; e < kDims; e += 2) dst[e / 2] = __floats2bfloat162_rn(out[e] * inv, out[e + 1] * inv);
+}
+
+template <int D, int BS, int MT, bool Q8>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using C = Cfg<D, BS, MT, Q8>;
+  auto kernel = split_verify_kernel<D, BS, MT, Q8>;
+  if (C::kSmem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(a.Nkv, a.B, a.S), C::kThreads, C::kSmem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = a.B * a.Nkv * (a.Nq / a.Nkv) * a.G;
+  split_merge_kernel<D><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool Q8, int D, int BS>
+cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
+  switch ((a.Nq / a.Nkv * a.G + 15) / 16) {
+    case 1:
+      return launch<D, BS, 1, Q8>(a, stream);
+    case 2:
+      return launch<D, BS, 2, Q8>(a, stream);
+    case 3:
+      return launch<D, BS, 3, Q8>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool Q8, int D>
+cudaError_t dispatch_bs(const Args& a, cudaStream_t stream) {
+  switch (a.bs) {
+    case 32:
+      return dispatch_rows<Q8, D, 32>(a, stream);
+    case 64:
+      return dispatch_rows<Q8, D, 64>(a, stream);
+    case 128:
+      return dispatch_rows<Q8, D, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Returns the first failing launch's cudaError_t (0 = both launched).
+// D must be 64 or 128, bs 32, 64 or 128, Nq a multiple of Nkv,
+// (Nq / Nkv) * G at most 48, and S * T at least MB.
+template <bool Q8>
+int split_verify_attention(const Args& a, void* stream) {
+  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.B < 1 || a.T < 1 || a.S < 1 ||
+      (long)a.S * a.T < a.MB) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.D) {
+    case 64:
+      return (int)dispatch_bs<Q8, 64>(a, s);
+    case 128:
+      return (int)dispatch_bs<Q8, 128>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace verify
+}  // namespace dllm

@@ -42,18 +42,19 @@ SIGNATURES: Dict[str, tuple] = {
     # scale; stream
     "ragged_decode": ("ragged_decode_attention",
                       [_P] * 6 + [_I] * 7 + [_F, _P]),
-    # q, k_pool, v_pool, tables, pos, out; B, G, Nq, Nkv, NB, bs, D, MB;
-    # scale; stream
+    # q, k_pool, v_pool, tables, pos, out, partial acc, partial (m, l);
+    # B, G, Nq, Nkv, NB, bs, D, MB, tiles per split, splits; scale; stream
     "ragged_verify": ("ragged_verify_attention",
-                      [_P] * 6 + [_I] * 8 + [_F, _P]),
+                      [_P] * 8 + [_I] * 10 + [_F, _P]),
     # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, Nq, Nkv,
     # NB, bs, D, MB; scale; stream
     "ragged_decode_q8": ("ragged_decode_attention_q8",
                          [_P] * 8 + [_I] * 7 + [_F, _P]),
-    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, G, Nq,
-    # Nkv, NB, bs, D, MB; scale; stream
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, partial acc,
+    # partial (m, l); B, G, Nq, Nkv, NB, bs, D, MB, tiles per split,
+    # splits; scale; stream
     "ragged_verify_q8": ("ragged_verify_attention_q8",
-                         [_P] * 8 + [_I] * 8 + [_F, _P]),
+                         [_P] * 10 + [_I] * 10 + [_F, _P]),
     # q, k_pool, v_pool, tables, pos, out; B, Nq, Nkv, NB, bs, D, wb;
     # table row stride; scale; stream
     "paged_decode": ("paged_decode_attention",
@@ -78,7 +79,8 @@ SIGNATURES: Dict[str, tuple] = {
                            ("flash_chunk", "flash_chunk_attention"),
                            ("flash_chunk_q8", "flash_chunk_attention_q8"))},
 }
-_COMMON = ("attn_common.cuh", "ragged_paged.cuh", "contiguous.cuh")
+_COMMON = ("attn_common.cuh", "ragged_paged.cuh", "ragged_verify.cuh",
+           "contiguous.cuh")
 
 _lock = threading.Lock()
 _entries: Dict[str, object] = {}

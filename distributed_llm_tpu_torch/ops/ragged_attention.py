@@ -19,29 +19,58 @@ ceil((pos + G) / bs) pool blocks once, and each staged K/V tile is read
 by every query row of its kv head (the group's heads times the G verify
 positions) from shared memory.  The int8 kernels stage half the bytes
 plus one float32 scale per row and dequantize in the kernel; the
-dequantized window never reaches device memory (see each source for the
-design and its known limits).
+dequantized window never reaches device memory.  The decode kernels run
+one block per (kv head, slot) (``csrc/ragged_paged.cuh``); the verify
+kernels split each slot's tiles over many blocks and merge the float32
+partials in a second pass, with their products on the tensor cores
+(``csrc/ragged_verify.cuh``; the plan is ``split_plan``, a function of
+shapes only, so the wrapper reads nothing from the device).
 
 A CPU tensor takes the plain version (``_gather_decode_paged`` /
 ``_gather_verify_paged``, the JAX package's XLA paths); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  ``split_verify_mirror`` repeats the
+verify kernels' split-and-merge algorithm in plain PyTorch for the tests;
+no serving path calls it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .attention import _gather_decode_paged, _gather_verify_paged
+from .attention import (NEG_INF, _gather_decode_paged, _gather_pool_seq,
+                        _gather_verify_paged)
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_BS = (32, 64, 128)
 _MAX_GROUP = 8
-# Query rows one block serves (kv-head group x verify positions): the
-# verify kernels hold at most 10 rows in each of their 4 warps.
+# Query rows one block serves (kv-head group x verify positions); the
+# verify kernels pad them to at most three 16-row tensor-core tiles.
 _MAX_ROWS = 40
+
+# The verify kernels' split-K plan.  A split is at least SPLIT_MIN_TILES
+# tiles, so that its float32 partials (written once, read once by the
+# merge) stay a small share of the K/V bytes it reads: at D = 128, bs = 64
+# and 20 rows, 8 tiles read 256 KB of bf16 K/V (135 KB int8) against
+# 21 KB of partials written and read, 8% (15%).  Above that the split is as fine as
+# SPLIT_TARGET_BLOCKS blocks over a batch of full slots asks: four per SM
+# of the H100's 132, so that a skewed batch, whose short slots take one
+# split each, still has more live blocks than SMs (192 at orin's timed
+# verify: MB = 128, 8 tiles a split).
+SPLIT_MIN_TILES = 8
+SPLIT_TARGET_BLOCKS = 4 * 132
+
+
+def split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
+    """(tiles per split, splits) of the verify kernels for a table of
+    ``mb`` blocks per slot, ``b`` slots and ``nkv`` kv heads: shapes in,
+    ints out, nothing read from the device.  Splits past a slot's
+    frontier exit at once on the card."""
+    per_slot = -(-SPLIT_TARGET_BLOCKS // (nkv * b))
+    tiles = max(SPLIT_MIN_TILES, -(-mb // per_slot))
+    return tiles, -(-mb // tiles)
 
 
 def _check(fn: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -130,17 +159,35 @@ def ragged_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     query's position -> [B, G, Nq, D]; row g attends 0 .. pos[b] + g."""
     if not q.is_cuda:
         return _gather_verify_paged(q, k_pool, v_pool, tables, pos)
-    fn = "ragged_paged_verify_attention"
-    _check(fn, q, k_pool, v_pool, tables, pos, None, None, q.shape[1])
+    _check("ragged_paged_verify_attention", q, k_pool, v_pool, tables, pos,
+           None, None, q.shape[1])
+    out = _launch_verify("ragged_verify", q, k_pool, v_pool, (), tables, pos)
+    ragged_paged_verify_attention.launches += 1
+    return out
+
+
+def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
+                   v_pool: torch.Tensor, scales: tuple, tables: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """Launch verify kernel ``name`` (its split and merge passes) on
+    checked inputs; ``scales`` is () for a bf16 pool, (k_scale, v_scale)
+    for an int8 one.  The float32 partials are scratch of this call."""
     b, g, nq, d = q.shape
     nkv, nb, bs, _ = k_pool.shape
+    mb = tables.shape[1]
+    tiles, splits = split_plan(mb, b, nkv)
+    rows = nq // nkv * g
     out = torch.empty_like(q)
-    err = _build.entry("ragged_verify")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, g, nq, nkv, nb, bs, d,
-        tables.shape[1], d ** -0.5, _stream(q))
-    _build.check(err, "ragged_verify")
-    ragged_paged_verify_attention.launches += 1
+    part_acc = torch.empty((b, nkv, splits, rows, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, nkv, splits, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    err = _build.entry(name)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        *(t.data_ptr() for t in scales), tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, g, nq,
+        nkv, nb, bs, d, mb, tiles, splits, d ** -0.5, _stream(q))
+    _build.check(err, name)
     return out
 
 
@@ -180,18 +227,85 @@ def ragged_paged_verify_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
     if not q.is_cuda:
         return _gather_verify_paged(q, k_pool, v_pool, tables, pos,
                                     k_scale, v_scale)
-    fn = "ragged_paged_verify_attention_q8"
-    _check(fn, q, k_pool, v_pool, tables, pos, k_scale, v_scale, q.shape[1])
-    b, g, nq, d = q.shape
-    nkv, nb, bs, _ = k_pool.shape
-    out = torch.empty_like(q)
-    err = _build.entry("ragged_verify_q8")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, g, nq, nkv, nb, bs, d, tables.shape[1], d ** -0.5, _stream(q))
-    _build.check(err, "ragged_verify_q8")
+    _check("ragged_paged_verify_attention_q8", q, k_pool, v_pool, tables,
+           pos, k_scale, v_scale, q.shape[1])
+    out = _launch_verify("ragged_verify_q8", q, k_pool, v_pool,
+                         (k_scale, v_scale), tables, pos)
     ragged_paged_verify_attention_q8.launches += 1
     return out
+
+
+# -- the verify kernels' algorithm in plain PyTorch (tests only) -------------
+
+def split_verify_partials(q, k_pool, v_pool, tables, pos, tiles: int,
+                          k_scale=None, v_scale=None):
+    """The verify kernels' split pass, in float32: for every (slot, kv
+    head, split of ``tiles`` tiles, row) the partial (m, l, acc) of the
+    row's scores over the split's keys, rows r = head_in_group * G + g.
+    Returns m, l [B, Nkv, S, R] and acc [B, Nkv, S, R, D].  A row that
+    sees no key of a split (its frontier ends before the split, or the
+    split lies past the slot's frontier) has m = NEG_INF, l = 0, acc = 0.
+    m is in natural-log units (the kernel keeps log2 units) and P stays
+    float32 (the kernel rounds it to bf16 for PV)."""
+    b, g, nq, d = q.shape
+    nkv, bs = k_pool.shape[0], k_pool.shape[2]
+    mb = tables.shape[1]
+    splits = -(-mb // tiles)
+    grp = nq // nkv
+    rows = grp * g
+    k_seq, v_seq = _gather_pool_seq(k_pool, v_pool, tables, k_scale, v_scale,
+                                    torch.float32)
+    k_seq, v_seq = k_seq.float(), v_seq.float()         # [B, MB*bs, Nkv, D]
+    pad = splits * tiles * bs - mb * bs
+    k_seq = torch.nn.functional.pad(k_seq, (0, 0, 0, 0, 0, pad))
+    v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad))
+    qr = q.float().reshape(b, g, nkv, grp, d).permute(0, 2, 3, 1, 4).reshape(
+        b, nkv, rows, d)
+    s = torch.einsum("bhrd,bkhd->bhrk", qr, k_seq) * d ** -0.5
+    frontier = pos.long()[:, None] + torch.arange(rows, device=q.device) % g
+    cols = torch.arange(s.shape[-1], device=q.device)
+    valid = (cols[None, None] <= frontier[:, :, None])[:, None].expand(s.shape)
+    shape = (b, nkv, rows, splits, tiles * bs)
+    s = s.masked_fill(~valid, NEG_INF).reshape(shape)
+    valid = valid.reshape(shape)
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bhrsk,bskhd->bhrsd", p,
+                       v_seq.reshape(b, splits, tiles * bs, nkv, d))
+    return (m.transpose(2, 3), p.sum(-1).transpose(2, 3),
+            acc.transpose(2, 3))
+
+
+def merge_split_partials(m, l, acc, pos, g: int, bs: int, mb: int,
+                         tiles: int):
+    """The verify kernels' merge pass: each row's partials over the splits
+    its slot's frontier reaches (worked out from ``pos``), M = max m_s,
+    L = sum l_s e^(m_s - M), O = sum acc_s e^(m_s - M) / max(L, 1e-30);
+    an empty partial (l = 0) weighs 0.  Returns [B, G, Nq, D] float32."""
+    b, nkv, splits, rows, d = acc.shape
+    n_tiles = torch.clamp((pos.long() + g - 1) // bs + 1, max=mb)
+    live = (torch.arange(splits, device=acc.device)[None]
+            < (-(-n_tiles // tiles))[:, None])[:, None, :, None]
+    m = torch.where(live, m, NEG_INF)                  # dead splits: unread
+    l = torch.where(live, l, 0.0)
+    acc = torch.where(live[..., None], acc, 0.0)
+    w = torch.where(l > 0, torch.exp(m - m.amax(2, keepdim=True)), 0.0)
+    out = ((acc * w[..., None]).sum(2)
+           / (l * w).sum(2).clamp_min(1e-30)[..., None])   # [B, Nkv, R, D]
+    grp = rows // g
+    return out.reshape(b, nkv, grp, g, d).permute(0, 3, 1, 2, 4).reshape(
+        b, g, nkv * grp, d)
+
+
+def split_verify_mirror(q, k_pool, v_pool, tables, pos, tiles: int,
+                        k_scale=None, v_scale=None):
+    """The verify kernels' whole algorithm in plain float32 PyTorch, with
+    ``tiles`` tiles per split: ``split_verify_partials`` then
+    ``merge_split_partials`` -> [B, G, Nq, D] float32."""
+    m, l, acc = split_verify_partials(q, k_pool, v_pool, tables, pos, tiles,
+                                      k_scale, v_scale)
+    return merge_split_partials(m, l, acc, pos, q.shape[1], k_pool.shape[2],
+                                tables.shape[1], tiles)
 
 
 ragged_paged_decode_attention.launches = 0
