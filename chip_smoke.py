@@ -17,10 +17,12 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    timed beside the plain version, one PyTorch library call computing the
    same function (SDPA on the gathered, dequantized K/V, timed here only)
    and the card's bound (bytes at 3.35 TB/s, operations at the bf16 rate
-   of 989 TFLOP/s); each is also checked at its other instantiations
-   (head dim, block, group, verify width; the verify kernels also on
-   tables spanning several of their splits, and timed at a short shape
-   too); the dense windowed tick's
+   of 989 TFLOP/s); all three as replayed CUDA graphs (device time), with
+   the eager single call beside them; each is also checked at its other
+   instantiations (head dim, block, group, verify width; the split-K
+   verify and contiguous decode kernels also on tables and windows
+   spanning several of their splits; the verify kernels timed at a short
+   shape too); the dense windowed tick's
    paged decode kernels (bf16 at the nano tier's shape, int8 at the orin
    tier's, each through a column slice of the full table) and the
    contiguous-cache decode and chunk kernels of the sequential engines
@@ -152,10 +154,13 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
 
 def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
     """Device time of ``fn`` in ms: ``fn`` captured once as a CUDA graph
-    (after a warm-up on a side stream) and the graph replayed under
-    ``time_ms``, so the host's time to enqueue ``fn`` (a wrapper's
-    Python, which outlasts a kernel of tens of microseconds) is not
-    counted."""
+    (after a warm-up on a side stream), then ``iters`` replays, each after
+    ``flush`` and between two CUDA events, all enqueued before one
+    synchronize.  Replaying a graph takes the host a few microseconds,
+    less than the device's flush, so the host stays ahead of the device
+    and no host time falls between a replay's events: neither the
+    wrapper's Python (which outlasts a kernel of tens of microseconds)
+    nor the host's own jitter, which a synchronize per replay lets in."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -165,9 +170,30 @@ def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    ms = time_ms(torch, graph.replay, iters, flush)
+    graph.replay()                           # the first replay uploads it
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        if flush is not None:
+            flush()
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
     del graph
-    return ms
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def timed(torch, calls: dict, flush) -> dict:
+    """Each of ``calls`` (key -> fn: the kernel's wrapper, its plain
+    version, the library call) timed as a replayed CUDA graph
+    (``graph_ms``: device time, what the row reports) and as an eager
+    single call (``time_ms``: the wrapper's host time included where it
+    outlasts the kernel), kept beside it under ``eager``."""
+    return {**{k: graph_ms(torch, fn, flush=flush) for k, fn in calls.items()},
+            "eager": {k: time_ms(torch, fn, flush=flush)
+                      for k, fn in calls.items()}}
 
 
 def widen(args):
@@ -276,12 +302,13 @@ def kernel_phase(torch, cfg, bs: int):
         "shape": f"B={n_slots} Nq={nq} Nkv={nkv} D={d} bs={bs} MB={mb} "
                  f"NB={nb} pos={pos_h}",
         **a1, "tol": TOL,
-        "ms": time_ms(torch, lambda: TR.ragged_paged_decode_attention(
-            q, k_pool, v_pool, tables, pos), flush=flush),
-        "plain_ms": time_ms(torch, lambda: TA._gather_decode_paged(
-            q, k_pool, v_pool, tables, pos), flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q_l, k_l, v_l, attn_mask=mask), flush=flush),
+        **timed(torch, {
+            "ms": lambda: TR.ragged_paged_decode_attention(
+                q, k_pool, v_pool, tables, pos),
+            "plain_ms": lambda: TA._gather_decode_paged(
+                q, k_pool, v_pool, tables, pos),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                q_l, k_l, v_l, attn_mask=mask)}, flush),
         "bound_ms": b1, "bound_by": by1})
 
     # K2: causal prefill; checked at every cold bucket up to a chunk,
@@ -304,12 +331,11 @@ def kernel_phase(torch, cfg, bs: int):
         "replaces": "distributed_llm_tpu/ops/pallas_attention.py:57",
         "shape": f"B=1 S={s} Nq={nq} Nkv={nkv} D={d} (checked at S=64,128,256)",
         **a2, "tol": TOL,
-        "ms": time_ms(torch, lambda: TF.flash_causal_attention(qc, kc, vc),
-                      flush=flush),
-        "plain_ms": time_ms(torch, lambda: TA.causal_attention(qc, kc, vc),
-                            flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), flush=flush),
+        **timed(torch, {
+            "ms": lambda: TF.flash_causal_attention(qc, kc, vc),
+            "plain_ms": lambda: TA.causal_attention(qc, kc, vc),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True)}, flush),
         "bound_ms": b2, "bound_by": by2})
 
     # K3: paged chunk.  Checked at a prefix hit (64 rows at start 37,
@@ -348,12 +374,13 @@ def kernel_phase(torch, cfg, bs: int):
         "shape": f"S_c={s_c} start={start} window={window} Nq={nq} Nkv={nkv} "
                  f"D={d} bs={bs} (checked at S_c=64 start=37 window=256 too)",
         **a3, "tol": TOL,
-        "ms": time_ms(torch, lambda: TF.paged_chunk_attention(
-            qc, k_pool, v_pool, table, st, window), flush=flush),
-        "plain_ms": time_ms(torch, lambda: TA._gather_chunk_paged(
-            qc, k_pool, v_pool, table, q_pos, window), flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kw, vw, attn_mask=wmask[None, None]), flush=flush),
+        **timed(torch, {
+            "ms": lambda: TF.paged_chunk_attention(
+                qc, k_pool, v_pool, table, st, window),
+            "plain_ms": lambda: TA._gather_chunk_paged(
+                qc, k_pool, v_pool, table, q_pos, window),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                qs, kw, vw, attn_mask=wmask[None, None])}, flush),
         "bound_ms": b3, "bound_by": by3})
     del flush_buf, k_pool, v_pool
     note_variants(rows, variant_checks(torch, gen))
@@ -539,7 +566,7 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
             TA._gather_verify_paged(*widen(plain_args))[long_slots])
         require(agree["one_tile_short_rel_err"] > KERNEL_REL_TOL,
                 f"{name}: a missed tile would pass at this shape: {agree}")
-        timed = {}
+        by_shape = {}
         for label, tbl, tpos in (("", tables, pos),
                                  ("short", short_tables, short_pos)):
             targs = (q, *pool, tbl, tpos) if q8 else (q, pool[0], pool[1],
@@ -552,22 +579,19 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
                          q, pool[0], pool[1], tbl, tpos, pool[2], pool[3]),
                      "library_ms": lambda: F.scaled_dot_product_attention(
                          lib[0], lib[1], lib[2], attn_mask=lib[3])}
-            timed[label] = {
+            by_shape[label] = {
                 "shape": f"B={n_slots} G={g} Nq={nq} Nkv={nkv} D={d} bs={bs} "
                          f"MB={mb} NB={nb} pos={tpos.tolist()}",
-                **{k: graph_ms(torch, fn, flush=flush)
-                   for k, fn in calls.items()},
-                "eager": {k: time_ms(torch, fn, flush=flush)
-                          for k, fn in calls.items()},
+                **timed(torch, calls, flush),
                 "bound_ms": b_ms, "bound_by": b_by}
             del lib, calls
-        main = timed.pop("")
+        main = by_shape.pop("")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"distributed_llm_tpu_torch/csrc/{src}",
             "replaces": f"distributed_llm_tpu/ops/{replaces}",
             **main, "shape": main["shape"] + " (checked at G=2,3,5)",
-            **agree, "tol": TOL, "short": timed["short"]})
+            **agree, "tol": TOL, "short": by_shape["short"]})
 
     # K5: int8 ragged decode, timed at the orin pool (D=128), checked at the
     # nano draft's pool (D=64) too.
@@ -607,12 +631,12 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
                  f"NB={nb} pos={pos_h} (checked at the nano draft's "
                  f"Nq={dnq} D={dd} too)",
         **a5, "tol": TOL,
-        "ms": time_ms(torch, lambda: TR.ragged_paged_decode_attention_q8(*args),
-                      flush=flush),
-        "plain_ms": time_ms(torch, lambda: TA._gather_decode_paged(
-            q, kq, vq, tables, pos, ks, vs), flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            lib[0], lib[1], lib[2], attn_mask=lib[3]), flush=flush),
+        **timed(torch, {
+            "ms": lambda: TR.ragged_paged_decode_attention_q8(*args),
+            "plain_ms": lambda: TA._gather_decode_paged(
+                q, kq, vq, tables, pos, ks, vs),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                lib[0], lib[1], lib[2], attn_mask=lib[3])}, flush),
         "bound_ms": b_ms, "bound_by": b_by})
     del lib, flush_buf, k_pool, v_pool, kq, vq, dk, dv, dkq, dvq
     note_variants(rows, spec_variant_checks(torch, gen))
@@ -690,15 +714,17 @@ def spec_variant_checks(torch, gen) -> dict:
 
 def contiguous_cases(nano, orin):
     """K9-K12 at the sequential engines' shapes, (kernel, q8, cfg, cache
-    length, window, start, rows): decode at the end of the 8192 cache and
-    at 700 in a 1024 cache (D=128 orin, D=64 nano); chunks as the 5-row
+    length, window, start, rows): decode at the end of the 8192 cache, at
+    the served long prompt's position 2255 in it and at 700 in a 1024
+    cache (D=128 orin, D=64 nano); chunks as the 5-row
     verify at 3000 in an 8192 cache (D=128), a 256-row prefix-hit suffix
     at 768 in a 1024 cache and a long prompt's 2048-row chunk at 2048
     against a 4096 window of an 8192 cache.  The first case of each
     kernel is its row's timed shape (int8 chunks are the nano int8
     tier's, D=64)."""
-    dec = [(orin, 8192, 8192, 8191, 1), (orin, 1024, 1024, 700, 1),
-           (nano, 8192, 8192, 8191, 1), (nano, 1024, 1024, 700, 1)]
+    dec = [(orin, 8192, 8192, 8191, 1), (orin, 8192, 8192, 2255, 1),
+           (orin, 1024, 1024, 700, 1), (nano, 8192, 8192, 8191, 1),
+           (nano, 1024, 1024, 700, 1)]
     verify = (orin, 8192, 8192, 3000, 5)
     return {
         "flash_decode": (False, dec),
@@ -788,13 +814,11 @@ def contiguous_kernel_phase(torch, nano, orin):
                 "shape": f"{cfg.name} Nq={nq} Nkv={nkv} D={d} S={s_max} "
                          f"W={w} rows={s_c} start={start}",
                 **res,
-                "ms": time_ms(torch, lambda: wrappers[name](*args),
-                              flush=flush),
-                "plain_ms": time_ms(torch, lambda: plain[name](*args),
-                                    flush=flush),
-                "library_ms": time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        q_l, k_l, v_l, attn_mask=mask), flush=flush),
+                **timed(torch, {
+                    "ms": lambda: wrappers[name](*args),
+                    "plain_ms": lambda: plain[name](*args),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        q_l, k_l, v_l, attn_mask=mask)}, flush),
                 "bound_ms": b_ms, "bound_by": b_by})
             del k, v, cache, kc, vc, ks, vs, window, args, kd, vd, k_l, v_l
         agrees(name, agree)
@@ -805,7 +829,7 @@ def contiguous_kernel_phase(torch, nano, orin):
             "replaces": f"distributed_llm_tpu/ops/{replaces[name]}",
             "shape": first["shape"] + f" (checked at {len(timings)} shapes)",
             **agree, "tol": TOL,
-            **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+            **{k: first[k] for k in ("ms", "plain_ms", "library_ms", "eager",
                                      "bound_ms", "bound_by")},
             "timings": timings})
     del flush_buf
@@ -816,12 +840,17 @@ def contiguous_kernel_phase(torch, nano, orin):
 
 def contiguous_variant_checks(torch, gen) -> dict:
     """K9-K12 at every instantiation they accept (head dim 64/128, GQA
-    group 1/4/8, B 1-4, chunk rows 1-5 and 64) over a window of a longer
-    cache (W=200 of S=300: a batch stride that is not W's, a partial last
-    tile), decode positions up to W-1 and chunk rows clamped to a true
-    length; returns the worst ``compare`` per kernel."""
+    group 1/4/8, B 1-4) over windows of a longer cache (a batch stride
+    that is not W's, a partial last tile); returns the worst ``compare``
+    per kernel.  The decode kernels (K9, K10) on W=2200 of S=2300, which
+    spans at least three splits of their plan (``decode_split_plan``: 1,
+    2 or 3 tiles a split at these shapes), with frontiers on the first
+    split boundary (its last key), one tile past it, at 0 (an idle row)
+    and at W-1; the chunk kernels (K11, K12) on W=200 of S=300, chunk rows
+    1-5 and 64 clamped to a true length."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import quant
+    from distributed_llm_tpu_torch.ops import ragged_attention as TR
 
     dev = torch.device("cuda")
     wrappers = kernel_wrappers()
@@ -837,21 +866,29 @@ def contiguous_variant_checks(torch, gen) -> dict:
         errs[name] = worst(errs[name],
                            compare(wrappers[name](*args), plain, args))
 
-    s_max, w = 300, 200
+    def windows(b, nkv, d, s_max, w):
+        k, v = randn(b, s_max, nkv, d), randn(b, s_max, nkv, d)
+        kq, ks = quant.quantize_kv_rows(k)
+        vq, vs = quant.quantize_kv_rows(v)
+        return ((k[:, :w], v[:, :w]),
+                (kq[:, :w], vq[:, :w], ks[:, :w], vs[:, :w]))
+
     for d in (64, 128):
         for nq, nkv in ((32, 8), (16, 2), (8, 8)):
             for b in (1, 2, 3, 4):
-                k, v = randn(b, s_max, nkv, d), randn(b, s_max, nkv, d)
-                kq, ks = quant.quantize_kv_rows(k)
-                vq, vs = quant.quantize_kv_rows(v)
-                bf_win = (k[:, :w], v[:, :w])
-                q8_win = (kq[:, :w], vq[:, :w], ks[:, :w], vs[:, :w])
-                pos = torch.tensor([w - 1, 0, 63, 64][:b], dtype=torch.int32,
-                                   device=dev)
+                s_max, w = 2300, 2200
+                tiles, splits = TR.decode_split_plan(w, b, nkv)
+                require(splits >= 3, f"the decode variant window spans "
+                        f"{splits} splits of {tiles} tiles, not 3")
+                edge = tiles * KV_TILE             # first key of split 1
+                pos = torch.tensor([edge - 1, 0, edge + KV_TILE, w - 1][:b],
+                                   dtype=torch.int32, device=dev)
+                bf_win, q8_win = windows(b, nkv, d, s_max, w)
                 q = randn(b, nq, d)
                 note("flash_decode", TA._decode_contiguous, q, *bf_win, pos)
                 note("flash_decode_q8", TA._decode_contiguous_q8, q, *q8_win,
                      pos)
+                bf_win, q8_win = windows(b, nkv, d, 300, 200)
                 for s_c in (1, 2, 3, 4, 5, 64):
                     starts = torch.tensor([0, 37, 130, 136][:b],
                                           device=dev)[:, None]
@@ -962,13 +999,12 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
                          f"window={wb * bs} (table stride {mb}) NB={nb} "
                          f"pos={pos_h}",
                 **res,
-                "ms": time_ms(torch, lambda: wrappers[name](*args),
-                              flush=flush),
-                "plain_ms": time_ms(torch, lambda: TA._gather_decode_windowed(
-                    *plain_args), flush=flush),
-                "library_ms": time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        q_l, k_l, v_l, attn_mask=mask), flush=flush),
+                **timed(torch, {
+                    "ms": lambda: wrappers[name](*args),
+                    "plain_ms": lambda: TA._gather_decode_windowed(
+                        *plain_args),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        q_l, k_l, v_l, attn_mask=mask)}, flush),
                 "bound_ms": b_ms, "bound_by": b_by})
             del k_pool, v_pool, pool, args, plain_args, short, k_seq, v_seq, \
                 k_l, v_l
@@ -981,7 +1017,7 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
                          + ("776" if q8 else "673")),
             "shape": first["shape"] + f" (checked at {len(timings)} shapes)",
             **agree, "tol": TOL,
-            **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+            **{k: first[k] for k in ("ms", "plain_ms", "library_ms", "eager",
                                      "bound_ms", "bound_by")},
             "timings": timings})
     del flush_buf
@@ -1324,7 +1360,9 @@ def step_breakdown(torch, step, attn, layers: int) -> dict:
     once as a CUDA graph and replayed, which is its device time with no
     host launch gaps (their ratio is the device's idle share in eager
     mode); and the attention kernel's part, ``attn()`` (one layer's
-    launch) times ``layers``."""
+    launch, graph-replayed, L2 flushed before each as the step finds each
+    layer's cache cold) times ``layers``, and its share of the
+    graph-replayed step."""
     iters = 10
     step_graph_ms = graph_ms(torch, step, iters=iters)
     t0 = time.perf_counter()
@@ -1332,9 +1370,12 @@ def step_breakdown(torch, step, attn, layers: int) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    attn_ms = layers * graph_ms(torch, attn)
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    attn_ms = layers * graph_ms(torch, attn, flush=flush_buf.zero_)
+    del flush_buf
     return {"wall_ms": wall_ms, "graph_ms": step_graph_ms,
             "attention_ms": attn_ms,
+            "attention_share": attn_ms / step_graph_ms,
             "device_idle_share": max(0.0, 1.0 - step_graph_ms / wall_ms)}
 
 
@@ -1395,8 +1436,9 @@ def verify_step_breakdown(torch, engine) -> dict:
 
 def seq_step_breakdown(torch, engine) -> dict:
     """``step_breakdown`` of one B=1 decode step on a copy of the live
-    cache of the longest parked conversation (the long prompt's); the
-    attention is the contiguous decode kernel."""
+    cache of the longest parked conversation (the long prompt's, at
+    about position 2255 in an 8192 cache for orin); the attention is the
+    contiguous decode kernel (K9 bf16, K10 int8) at that position."""
     from distributed_llm_tpu_torch.models import transformer as TT
     from distributed_llm_tpu_torch.ops import attention as TA
 
@@ -1959,7 +2001,15 @@ def main() -> None:
                            or "spill" in ln]
     log(f"built {sorted(paths)} in {build_s:.1f}s")
 
-    # 3. Kernels.
+    # 3. Kernels.  First the floor of a graph-replayed time: a graph of one
+    # and of two kernels that touch 4 bytes, timed as the rows are.
+    tiny = torch.zeros(1, device="cuda")
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    graph_floor_ms = {n: graph_ms(torch, lambda n=n: [tiny.add_(1)
+                                                      for _ in range(n)],
+                                  flush=flush_buf.zero_) for n in (1, 2)}
+    del tiny, flush_buf
+    log(f"graph-replay floor (1, 2 kernels): {graph_floor_ms} ms")
     cluster = ClusterConfig()
     nano, orin = cluster.nano, cluster.orin
     rows = kernel_phase(torch, nano.model(), nano.kv_block_size)
@@ -2035,7 +2085,8 @@ def main() -> None:
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "ptxas": ptxas, "kernels": rows, "serve": phases, "chat": chat,
+              "ptxas": ptxas, "graph_floor_ms": graph_floor_ms,
+              "kernels": rows, "serve": phases, "chat": chat,
               "total_s": time.perf_counter() - t_all}
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -2043,7 +2094,7 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "rel_err", "plain_rel_err", "tol", "ms", "kernel_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape",
+            "bound_ms", "bound_by", "library_ms", "eager", "shape",
             "variants_max_abs_err", "variants_rel_err")
     summary = {}
     for name, serve in phases.items():
@@ -2058,6 +2109,7 @@ def main() -> None:
             k: serve["concurrent"][k] for k in ("requests", "gen_tokens",
                                                 "tokens_per_s", "p50_ttft_ms")}
     log(json.dumps({"card": card, "serve": summary,
+                    "graph_floor_ms": graph_floor_ms,
                     "total_s": report["total_s"]}))
     log(json.dumps({"chat": {
         "startup_s": chat["startup_s"], "main_path_s": chat["main_path_s"],

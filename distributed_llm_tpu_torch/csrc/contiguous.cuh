@@ -1,28 +1,33 @@
-// Flash attention over the sequential engines' contiguous KV cache, for
-// Hopper, bf16 or int8: the kernel behind flash_decode.cu,
-// flash_decode_q8.cu, flash_chunk.cu and flash_chunk_q8.cu.
+// Flash attention of a chunk of queries over the sequential engines'
+// contiguous KV cache, for Hopper, bf16 or int8: the kernel behind
+// flash_chunk.cu and flash_chunk_q8.cu, which replace the Pallas TPU
+// kernels `_chunk_kernel_native` / `_chunk_kernel` and their q8 twins
+// (distributed_llm_tpu/ops/pallas_attention.py).  It has no split plan:
+// one block per (query tile, kv head, sequence), below.  (The one-token
+// decode over the same cache, flash_decode.cu and flash_decode_q8.cu, is
+// ragged_verify.cuh's split-K kernel reading contiguous tiles.)
 //
-// Layout: q [B, S_q, Nq, D] bf16 (decode: S_q = 1, i.e. [B, Nq, D]);
-// one layer's cache window of W positions, element (b, t, h, d) at
-// b * kv_bstride + (t * Nkv + h) * D + d, bf16 or int8, and for int8 the
-// float32 per-row scales, (b, t, h) at b * sc_bstride + t * Nkv + h.  The
-// batch stride is the caller's: a window [:, :W] of a longer cache is
-// read in place, never copied.  q_pos [B, S_q] int32 holds each query's
-// absolute position (decode: pos [B]); query i of sequence b attends
-// cache positions 0 .. min(q_pos[b, i], W - 1).  Each row's position is
-// read from q_pos by the block itself (the Pallas chunk kernels rebuild
-// it as start + r from a scalar, TPU SMEM allowing only scalar loads),
-// so padded chunk rows match the plain version too.
+// Layout: q [B, S_q, Nq, D] bf16; one layer's cache window of W positions,
+// element (b, t, h, d) at b * kv_bstride + (t * Nkv + h) * D + d, bf16 or
+// int8, and for int8 the float32 per-row scales, (b, t, h) at
+// b * sc_bstride + t * Nkv + h.  The batch stride is the caller's: a window
+// [:, :W] of a longer cache is read in place, never copied.  q_pos
+// [B, S_q] int32 holds each query's absolute position; query i of
+// sequence b attends cache positions 0 .. min(q_pos[b, i], W - 1).  Each
+// row's position is read from q_pos by the block itself (the Pallas chunk
+// kernels rebuild it as start + r from a scalar, TPU SMEM allowing only
+// scalar loads), so padded chunk rows match the plain version too.
 //
 // Work split: one block of 4 warps per (query tile, kv head, sequence).
 // The block's rows are the group's Nq / Nkv heads times the tile's
 // query positions, row r = position (r / group) and head
 // hk * group + r % group; warp w owns rows w, w + 4, ..., w + 4 (R - 1)
-// (R = 1, 2 or 16: 4, 8 or 64 rows).  The block walks the cache in
-// 64-position tiles up to its furthest row's frontier: each [64, D] K/V
-// tile is staged in shared memory once and read there by every row, and
-// a row skips the tiles that start past its own frontier (an all-masked
-// tile leaves the flash state as it is).
+// (R = 2 or 16: 8 or 64 rows).  The block walks the cache in 64-position
+// tiles up to its furthest row's frontier: each [64, D] K/V tile is staged
+// in shared memory once and read there by every row, and a row skips the
+// tiles that start past its own frontier (an all-masked tile leaves the
+// flash state as it is).  What bounds it and what that costs is in
+// flash_chunk.cu.
 //
 // Numerics follow the Pallas kernels (attn_common.cuh, ragged_paged.cuh):
 // q scaled in float32 before QK, float32 max/sum/accumulator, output over
@@ -191,27 +196,23 @@ cudaError_t contiguous_launch(const ContigArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Rows per warp: the fewest that hold the decode group (Chunk = false:
-// one query position per sequence), or the 64-row tile of a chunk (a
-// chunk of at most 8 rows in all takes the 8-row tile).
-template <bool Q8, bool Chunk, int D>
+// Rows per warp: the 8-row tile for a chunk of at most 8 rows in all
+// (positions times the group), else the 64-row tile.
+template <bool Q8, int D>
 cudaError_t contiguous_dispatch_rows(const ContigArgs& a, cudaStream_t stream) {
   const int group = a.Nq / a.Nkv;
   const int rows = group * a.S_q;
-  if (!Chunk && rows <= kWarps) return contiguous_launch<D, 1, Q8>(a, stream);
   if (rows <= kWarps * 2) return contiguous_launch<D, 2, Q8>(a, stream);
-  if constexpr (Chunk) {
-    if (group <= kWarps * 16) return contiguous_launch<D, 16, Q8>(a, stream);
-  }
+  if (group <= kWarps * 16) return contiguous_launch<D, 16, Q8>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-// The C entry of the four kernels (flash_decode.cu, ..., one signature):
-// returns the launch's cudaError_t (0 = launched).  D must be 64 or 128,
-// Nq a multiple of Nkv, W >= 1; decode (Chunk = false) takes S_q = 1 and
-// a group of at most 8 heads, a chunk any S_q >= 1 and a group of at
-// most 64.  The scale pointers are read only when Q8.
-template <bool Q8, bool Chunk>
+// The C entry of the two chunk kernels (flash_chunk.cu and
+// flash_chunk_q8.cu, one signature): returns the launch's cudaError_t
+// (0 = launched).  D must be 64 or 128, Nq a multiple of Nkv with a group
+// of at most 64, S_q >= 1 and W >= 1.  The scale pointers are read only
+// when Q8.
+template <bool Q8>
 int contiguous_entry(const void* q, const void* k, const void* v, const void* k_scale,
                      const void* v_scale, const void* q_pos, void* o, int B, int S_q, int Nq,
                      int Nkv, int D, int W, long long kv_bstride, long long sc_bstride,
@@ -232,16 +233,15 @@ int contiguous_entry(const void* q, const void* k, const void* v, const void* k_
                      kv_bstride,
                      sc_bstride,
                      scale};
-  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.S_q < 1 || a.B < 1 || a.W < 1 ||
-      (!Chunk && a.S_q != 1)) {
+  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.S_q < 1 || a.B < 1 || a.W < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.D) {
     case 64:
-      return (int)contiguous_dispatch_rows<Q8, Chunk, 64>(a, s);
+      return (int)contiguous_dispatch_rows<Q8, 64>(a, s);
     case 128:
-      return (int)contiguous_dispatch_rows<Q8, Chunk, 128>(a, s);
+      return (int)contiguous_dispatch_rows<Q8, 128>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

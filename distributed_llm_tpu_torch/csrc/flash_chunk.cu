@@ -32,6 +32,6 @@ extern "C" int flash_chunk_attention(const void* q, const void* k, const void* v
                                      void* o, int B, int S_q, int Nq, int Nkv, int D, int W,
                                      long long kv_bstride, long long sc_bstride, float scale,
                                      void* stream) {
-  return dllm::contiguous_entry<false, true>(q, k, v, k_scale, v_scale, q_pos, o, B, S_q, Nq,
-                                             Nkv, D, W, kv_bstride, sc_bstride, scale, stream);
+  return dllm::contiguous_entry<false>(q, k, v, k_scale, v_scale, q_pos, o, B, S_q, Nq,
+                                       Nkv, D, W, kv_bstride, sc_bstride, scale, stream);
 }

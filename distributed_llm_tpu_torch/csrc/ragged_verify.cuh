@@ -1,66 +1,103 @@
-// Split-K ragged paged speculative-verify attention for Hopper, over a
-// bf16 or an int8 pool: the kernels behind ragged_verify.cu and
-// ragged_verify_q8.cu.
+// Split-K attention for Hopper over a bf16 or an int8 cache: the kernels
+// behind ragged_verify.cu and ragged_verify_q8.cu (speculative verify over
+// the paged pool) and behind flash_decode.cu and flash_decode_q8.cu
+// (one-token decode over the sequential engines' contiguous cache).  One
+// split kernel serves both; a tile-source policy (`Contig`) says where a
+// tile's rows come from.
 //
-// Contract (the Pallas `_ragged_verify_kernel` / `_ragged_verify_kernel_q8`):
-// q [B, G, Nq, D] bf16; one layer's pool [Nkv, NB, bs, D], bf16 or int8,
-// and for int8 the float32 row scales [Nkv, NB, bs]; tables [B, MB] int32
-// hold each slot's FULL block row and pos [B] int32 the FIRST query's
-// position, both read on the device.  Query g of slot b attends positions
-// 0 .. pos[b] + g, position p living at (tables[b, p / bs], p % bs); idle
-// slots point their row at the trash block 0 with pos 0.  Output
-// [B, G, Nq, D] bf16.
+// Contract of the verify (the Pallas `_ragged_verify_kernel` /
+// `_ragged_verify_kernel_q8`): q [B, G, Nq, D] bf16; one layer's pool
+// [Nkv, NB, bs, D], bf16 or int8, and for int8 the float32 row scales
+// [Nkv, NB, bs]; tables [B, MB] int32 hold each slot's FULL block row and
+// pos [B] int32 the FIRST query's position, both read on the device.
+// Query g of slot b attends positions 0 .. pos[b] + g, position p living at
+// (tables[b, p / bs], p % bs); idle slots point their row at the trash
+// block 0 with pos 0.  Output [B, G, Nq, D] bf16.
+//
+// Contract of the decode (the Pallas `_decode_kernel` /
+// `_decode_kernel_q8`): q [B, Nq, D] bf16 (G = 1); one layer's cache
+// window of W positions, element (b, t, h, d) at b * kv_bstride +
+// (t * Nkv + h) * D + d, bf16 or int8, and for int8 the float32 row scales,
+// (b, t, h) at b * sc_bstride + t * Nkv + h.  The batch strides are the
+// caller's, so a window [:, :W] of a longer cache is read in place.  pos
+// [B] int32 is read on the device; query head h attends kv head
+// h / (Nq / Nkv) at positions 0 .. min(pos[b], W - 1).  The window is cut
+// into tiles of kDecodeTile = 64 positions (MB = ceil(W / 64) tiles, the
+// last one partial), read through the row stride Nkv * D.
 //
 // Bound: bytes.  A verify reads each slot's n_tiles = min(MB, (pos + G -
 // 1) / bs + 1) blocks of K and V once and does about group * G
 // multiply-adds per element read (20 at orin's 4 x 5 rows: about 20
-// operations per bf16 byte, 40 per int8 byte, against the card's ~295),
-// so the design is about keeping enough bytes in flight on every SM.
+// operations per bf16 byte, 40 per int8 byte, against the card's ~295); a
+// decode does group = 4 per element.  So the design is about keeping
+// enough bytes in flight on every SM.
 //
 // 1. Split-K (flash-decoding).  Grid (Nkv, B, S); block (hk, b, s) walks
-//    the slot's tiles [s * T, min((s + 1) * T, n_tiles)).  T and S come
-//    from the wrapper, chosen from shapes alone (no host sync; see
-//    ops/ragged_attention.py `split_plan`): at orin's MB = 128, T = 8
-//    tiles, so the timed verify's long slot alone is 16 splits and the
-//    batch 192 live blocks on 132 SMs, where one block per (kv head,
-//    slot) was 32.  A block whose first tile lies past its slot's
-//    frontier marks its partial empty and exits.  Each live block writes
-//    a float32 partial (m, l, acc[D]) per query row; `split_merge_kernel`
-//    combines a row's partials over the splits its slot's frontier
-//    reaches (worked out from pos on the device): M = max m_s, L = sum
-//    l_s 2^(m_s - M), O = sum acc_s 2^(m_s - M) / max(L, 1e-30).  A row
-//    whose own frontier pos + g ends before a live split's first tile
-//    leaves l = 0 and m at the -1e30 sentinel there, and weighs 0.  m is
-//    kept in units of log2 (scores times log2 e), so every exponential is
-//    one exp2.
+//    the sequence's tiles [s * T, min((s + 1) * T, n_tiles)).  T and S come
+//    from the wrapper, chosen from shapes alone (no host sync):
+//    - verify (ops/ragged_attention.py `split_plan`): at orin's MB = 128,
+//      T = 8 tiles, so the timed verify's long slot alone is 16 splits and
+//      the batch 192 live blocks on 132 SMs, where one block per (kv head,
+//      slot) was 32;
+//    - decode (`decode_split_plan`): a decode block holds only the group's
+//      4 rows, whose partials (4 x D floats, 2 KB at D = 128) are small
+//      beside one 32 KB bf16 K/V tile pair, so splits are as short as 528
+//      blocks over the whole window ask: T = ceil(B * Nkv * MB / 528).  At
+//      orin's B = 1, Nkv = 8, W = 8192 that is T = 2 tiles (128 positions)
+//      and S = 64 splits; at the served position 2255 the 36 live tiles are
+//      18 splits, 144 live blocks on 132 SMs (one block per kv head and
+//      sequence was 8).
+//    A block whose first tile lies past its sequence's frontier marks its
+//    partial empty and exits.  Each live block writes a float32 partial
+//    (m, l, acc[D]) per query row; a merge kernel combines a row's
+//    partials over the splits its sequence's frontier reaches (worked out
+//    from pos on the device): M = max m_s, L = sum l_s 2^(m_s - M),
+//    O = sum acc_s 2^(m_s - M) / max(L, 1e-30).  A row whose own frontier
+//    pos + g ends before a live split's first tile leaves l = 0 and m at
+//    the -1e30 sentinel there, and weighs 0.  m is kept in units of log2
+//    (scores times log2 e), so every exponential is one exp2.  The verify
+//    merges a row in one warp (`split_merge_kernel`, at most 16 splits a
+//    row at orin); the decode, with up to 64, in one block whose warps sum
+//    a share of the splits each (`split_merge_row_kernel`).
 // 2. Tensor cores.  The block's rows are the group's heads x G positions,
-//    row r = head_in_group * G + g (20 at orin, at most 40), padded to MT
-//    tiles of 16.  QK and PV are mma.sync m16n8k16 bf16 -> f32, fragments
-//    loaded by ldmatrix from padded shared tiles (rows of D + 8 bf16: the
-//    8 rows of an 8x8 matrix start 4 banks apart).  Q is used unscaled in
-//    bf16 (exact); the softmax scale multiplies the float32 scores.  P is
-//    rounded to bf16 for PV, as the Pallas bf16 kernel casts it (l sums it
-//    unrounded).  Warp w owns row tile w / KW and the 16-key chunks
-//    kw, kw + KW, ... of every tile (kw = w % KW), with its own flash
-//    state; the KW warps of a row tile merge in shared memory at the end.
-//    QK sums its even and odd k-steps in separate accumulators, which
-//    halves its dependent chain of products.
-//    mma.sync and not wgmma: at 20 rows the products are far below the
-//    byte bound, and wgmma's 64-row minimum would pad 20 rows to 64.
-// 3. Asynchronous loads.  A ring of kStages (2-4, sized per D, bs and
-//    pool type to keep two blocks on an SM at the timed shape) K/V stages
-//    filled by cp.async.cg, 16 bytes a thread, one commit group per tile:
-//    the copy of tile j + kStages - 1 (its table entry read then) is in
-//    flight while the products of tile j run.
+//    row r = head_in_group * G + g (20 at orin's verify, 4 at its decode, at
+//    most 48), padded to MT tiles of 16.  QK and PV are mma.sync m16n8k16
+//    bf16 -> f32, fragments loaded by ldmatrix from padded shared tiles
+//    (rows of D + 8 bf16: the 8 rows of an 8x8 matrix start 4 banks apart).
+//    Q is used unscaled in bf16 (exact); the softmax scale multiplies the
+//    float32 scores.  P is rounded to bf16 for PV, as the Pallas bf16
+//    kernels cast it (l sums it unrounded).  Warp w owns row tile w / KW
+//    and the 16-key chunks kw, kw + KW, ... of every tile (kw = w % KW),
+//    with its own flash state; the KW warps of a row tile merge in shared
+//    memory at the end.  QK sums its even and odd k-steps in separate
+//    accumulators, which halves its dependent chain of products.
+//    mma.sync and not wgmma: at 4-20 rows the products are far below the
+//    byte bound, and wgmma's 64-row minimum would pad them to 64.  The
+//    decode pads its 4 rows to 16 and wastes 3/4 of the products, which
+//    costs nothing the bytes do not already: what keeps bytes in flight is
+//    the ring below and the count of live blocks, not the scoring, and the
+//    tensor cores score a 64-key tile in 32 instructions a warp where a
+//    D-deep fmaf chain per key took thousands.
+// 3. Asynchronous loads.  A ring of kStages (2-4, sized per D, tile and
+//    cache type to keep two blocks on an SM) K/V stages filled by
+//    cp.async.cg, 16 bytes a thread, one commit group per tile: the copy of
+//    tile j + kStages - 1 is in flight while the products of tile j run (at
+//    orin's decode, 3 stages: both tiles of a split are issued before the
+//    first is scored).  The verify reads a tile's table entry when it
+//    issues the copy.  The decode's rows are strided by Nkv * D elements
+//    and its int8 row scales by Nkv floats, so its scales go by 4-byte
+//    cp.async.ca, one a thread; rows past the block's frontier (the
+//    window's ragged end included) are zero-filled by the copy (src-size
+//    0), never read.
 // 4. int8.  The ring stages int8 tiles (rows of D + 16 bytes) and both
 //    row-scale vectors through the same cp.async path; each tile is then
 //    widened into one bf16 K/V tile pair in shared memory (integers in
 //    -127..127 are exact in bf16) that the bf16 path's ldmatrix reads.  The
 //    K row scale multiplies the float32 scores with the softmax scale; the
 //    V row scale is folded into P before P is rounded to bf16.  This rounds
-//    P where the Pallas q8 kernel keeps it float32; chip_smoke holds every
+//    P where the Pallas q8 kernels keep it float32; chip_smoke holds every
 //    output row to the same 1e-2 of the float32 plain version as the bf16
-//    kernel.  The dequantized window never reaches device memory.
+//    kernels.  The dequantized window never reaches device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +112,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Shared memory the ring (plus the int8 widening tile) may take: about
 // half an SM's, so two blocks fit on one at the timed shape.
 constexpr int kRingBudget = 102 * 1024;
+constexpr int kDecodeTile = 64;  // positions per tile of a contiguous window
 
 struct Args {
   const __nv_bfloat16* q;
@@ -89,6 +127,11 @@ struct Args {
   float* part_ml;   // [B, Nkv, S, R, 2]: (m in log2 units, l)
   int B, G, Nq, Nkv, NB, bs, D, MB, T, S;
   float scale;
+  // Contiguous windows only (the decode): W positions, batch strides in
+  // elements of the cache and of the scales.
+  int W = 0;
+  long long kv_bstride = 0;
+  long long sc_bstride = 0;
 };
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -124,6 +167,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The same copies with zero fill: when `full` is false nothing is read and
+// the destination is zeroed (src-size 0).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0));
 }
 
 template <int N>
@@ -204,6 +259,54 @@ __device__ __forceinline__ void load_stage(unsigned char* stage, const Args& a, 
   }
 }
 
+// Start the cp.async copies of one tile of a contiguous window (K and V
+// positions t0 .. t0 + BS - 1 of sequence b and kv head hk, plus their
+// scales for int8) into a ring stage, in the layout `load_stage` gives a
+// pool block.  Rows past `last` (the block's frontier, at most W - 1) are
+// zero-filled, not read.  Every thread of the block takes part.
+template <int D, int BS, int MT, bool Q8>
+__device__ __forceinline__ void load_stage_contig(unsigned char* stage, const Args& a, int b,
+                                                  int hk, int t0, int last) {
+  using C = Cfg<D, BS, MT, Q8>;
+  const long row_stride = (long)a.Nkv * D;  // elements from one position to the next
+  const long base = (long)b * a.kv_bstride + (long)t0 * row_stride + (long)hk * D;
+  const int valid = last - t0 + 1;
+  if constexpr (Q8) {
+    constexpr int kChunks = D / 16;
+    const int8_t* src[2] = {static_cast<const int8_t*>(a.k_pool) + base,
+                            static_cast<const int8_t*>(a.v_pool) + base};
+    for (int c = threadIdx.x; c < 2 * BS * kChunks; c += C::kThreads) {
+      const int which = c / (BS * kChunks);
+      const int r = (c / kChunks) % BS;
+      const int cc = c % kChunks;
+      const bool full = r < valid;
+      cp_async16_zfill(stage + (which * BS + r) * C::kLd8 + cc * 16,
+                       src[which] + (full ? r * row_stride + cc * 16 : 0), full);
+    }
+    float* sc = reinterpret_cast<float*>(stage + 2 * BS * C::kLd8);
+    const long sbase = (long)b * a.sc_bstride + (long)t0 * a.Nkv + hk;
+    for (int c = threadIdx.x; c < 2 * BS; c += C::kThreads) {
+      const int r = c % BS;
+      const bool full = r < valid;
+      cp_async4_zfill(sc + c, (c < BS ? a.k_scale : a.v_scale) + sbase + (full ? r * a.Nkv : 0),
+                      full);
+    }
+  } else {
+    constexpr int kChunks = D / 8;
+    const __nv_bfloat16* src[2] = {static_cast<const __nv_bfloat16*>(a.k_pool) + base,
+                                   static_cast<const __nv_bfloat16*>(a.v_pool) + base};
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(stage);
+    for (int c = threadIdx.x; c < 2 * BS * kChunks; c += C::kThreads) {
+      const int which = c / (BS * kChunks);
+      const int r = (c / kChunks) % BS;
+      const int cc = c % kChunks;
+      const bool full = r < valid;
+      cp_async16_zfill(dst + (which * BS + r) * C::kLd + cc * 8,
+                       src[which] + (full ? r * row_stride + cc * 8 : 0), full);
+    }
+  }
+}
+
 // Widen a staged int8 K/V tile pair into the bf16 tile pair `wide`.  No
 // int-to-float or float-to-bf16 conversion (both quarter-rate): byte x + 128
 // is placed under the float exponent of 2^23, 2^23 + 128 subtracted (exact),
@@ -236,7 +339,10 @@ __device__ __forceinline__ void widen_stage(__nv_bfloat16* wide, const unsigned 
   }
 }
 
-template <int D, int BS, int MT, bool Q8>
+// Contig selects the tile source: false reads a slot's pool blocks
+// through its table row (the verify), true a sequence's contiguous window
+// through its strides (the decode, G = 1, its frontier clamped to W - 1).
+template <int D, int BS, int MT, bool Q8, bool Contig>
 __global__ void __launch_bounds__(Cfg<D, BS, MT, Q8>::kThreads)
 split_verify_kernel(const Args a) {
   using C = Cfg<D, BS, MT, Q8>;
@@ -251,7 +357,7 @@ split_verify_kernel(const Args a) {
   const int G = a.G;
   const int group = a.Nq / a.Nkv;
   const int R = group * G;
-  const int p0 = a.pos[b];
+  const int p0 = Contig ? min(a.pos[b], a.W - 1) : a.pos[b];
   const int n_tiles = min(a.MB, (p0 + G - 1) / BS + 1);
   const int j0 = s * a.T;
   const int j1 = min(j0 + a.T, n_tiles);
@@ -266,16 +372,21 @@ split_verify_kernel(const Args a) {
     return;
   }
 
-  const int* row_table = a.tables + (long)b * a.MB;
-  const long head_row0 = (long)hk * a.NB * BS;  // first pool row of this kv head
+  // Start the copy of tile j into ring stage i.
+  const auto issue = [&](int i, int j) {
+    unsigned char* stage = ring + i * C::kStageBytes;
+    if constexpr (Contig) {
+      load_stage_contig<D, BS, MT, Q8>(stage, a, b, hk, j * BS, p0);
+    } else {
+      const long head_row0 = (long)hk * a.NB * BS;  // first pool row of this kv head
+      load_stage<D, BS, MT, Q8>(stage, a, head_row0 + (long)a.tables[(long)b * a.MB + j] * BS);
+    }
+  };
   // Prologue: the first kStages - 1 tiles in flight (one group each,
   // empty groups past the range keep the count uniform).
 #pragma unroll
   for (int i = 0; i < C::kStages - 1; ++i) {
-    if (j0 + i < j1) {
-      load_stage<D, BS, MT, Q8>(ring + i * C::kStageBytes, a,
-                                head_row0 + (long)row_table[j0 + i] * BS);
-    }
+    if (j0 + i < j1) issue(i, j0 + i);
     cp_async_commit();
   }
 
@@ -322,10 +433,7 @@ split_verify_kernel(const Args a) {
     __syncthreads();  // tile it landed; every warp is done with tile it - 1
     {
       const int jn = j0 + it + C::kStages - 1;
-      if (jn < j1) {
-        load_stage<D, BS, MT, Q8>(ring + ((it + C::kStages - 1) % C::kStages) * C::kStageBytes,
-                                  a, head_row0 + (long)row_table[jn] * BS);
-      }
+      if (jn < j1) issue((it + C::kStages - 1) % C::kStages, jn);
       cp_async_commit();
     }
     const unsigned char* stage = ring + (it % C::kStages) * C::kStageBytes;
@@ -509,10 +617,83 @@ split_merge_kernel(const Args a) {
   for (int e = 0; e < kDims; e += 2) dst[e / 2] = __floats2bfloat162_rn(out[e] * inv, out[e + 1] * inv);
 }
 
-template <int D, int BS, int MT, bool Q8>
+// One block per output row (b, kv head, row), for rows with many splits
+// (the decode: 64 at orin's 8192 window): warp w sums the partials of
+// splits w, w + kRowMergeWarps, ... (four loads in flight a lane), the
+// warps' sums meet in shared memory, and warp 0 writes the row as bf16.
+// The same arithmetic as `split_merge_kernel`, summed in another order.
+constexpr int kRowMergeWarps = 4;
+
+template <int D>
+__global__ void __launch_bounds__(kRowMergeWarps * 32)
+split_merge_row_kernel(const Args a) {
+  constexpr int kDims = D / 32;  // output dims per lane
+  __shared__ float red_acc[kRowMergeWarps][D];
+  __shared__ float red_m[kRowMergeWarps];
+  __shared__ float red_l[kRowMergeWarps];
+  const int group = a.Nq / a.Nkv;
+  const int R = group * a.G;
+  const int row = blockIdx.x;
+  const int r = row % R;
+  const int hk = (row / R) % a.Nkv;
+  const int b = row / (R * a.Nkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n_tiles = min(a.MB, (a.pos[b] + a.G - 1) / a.bs + 1);
+  const int n_splits = (n_tiles + a.T - 1) / a.T;
+  const long first = ((long)b * a.Nkv + hk) * a.S * R + r;  // partial of split 0
+  const float2* ml = reinterpret_cast<const float2*>(a.part_ml);
+
+  float mm = kNegInf;
+  for (int s = threadIdx.x; s < n_splits; s += kRowMergeWarps * 32) {
+    mm = fmaxf(mm, ml[first + (long)s * R].x);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, o));
+  if (lane == 0) red_m[warp] = mm;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kRowMergeWarps; ++k) mm = fmaxf(mm, red_m[k]);
+
+  float out[kDims];
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) out[e] = 0.f;
+  float sum = 0.f;
+#pragma unroll 4
+  for (int s = warp; s < n_splits; s += kRowMergeWarps) {
+    const long idx = first + (long)s * R;
+    const float2 p = ml[idx];
+    const float w = p.y > 0.f ? exp2f(p.x - mm) : 0.f;  // empty: weight 0
+    sum += p.y * w;
+    const float* src = a.part_acc + idx * D + lane * kDims;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) out[e] += w * src[e];
+  }
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) red_acc[warp][lane * kDims + e] = out[e];
+  if (lane == 0) red_l[warp] = sum;
+  __syncthreads();
+  if (warp != 0) return;
+  sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kRowMergeWarps; ++k) sum += red_l[k];
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) {
+    out[e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRowMergeWarps; ++k) out[e] += red_acc[k][lane * kDims + e];
+  }
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  const long o_row = ((long)b * a.G + r % a.G) * a.Nq + (long)hk * group + r / a.G;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(a.o + o_row * D + lane * kDims);
+#pragma unroll
+  for (int e = 0; e < kDims; e += 2) dst[e / 2] = __floats2bfloat162_rn(out[e] * inv, out[e + 1] * inv);
+}
+
+template <int D, int BS, int MT, bool Q8, bool Contig>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using C = Cfg<D, BS, MT, Q8>;
-  auto kernel = split_verify_kernel<D, BS, MT, Q8>;
+  auto kernel = split_verify_kernel<D, BS, MT, Q8, Contig>;
   if (C::kSmem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
@@ -522,19 +703,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = a.B * a.Nkv * (a.Nq / a.Nkv) * a.G;
-  split_merge_kernel<D><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(a);
+  if constexpr (Contig) {
+    split_merge_row_kernel<D><<<rows, kRowMergeWarps * 32, 0, stream>>>(a);
+  } else {
+    split_merge_kernel<D><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
-template <bool Q8, int D, int BS>
+template <bool Q8, bool Contig, int D, int BS>
 cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
   switch ((a.Nq / a.Nkv * a.G + 15) / 16) {
     case 1:
-      return launch<D, BS, 1, Q8>(a, stream);
+      return launch<D, BS, 1, Q8, Contig>(a, stream);
     case 2:
-      return launch<D, BS, 2, Q8>(a, stream);
+      return launch<D, BS, 2, Q8, Contig>(a, stream);
     case 3:
-      return launch<D, BS, 3, Q8>(a, stream);
+      return launch<D, BS, 3, Q8, Contig>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -544,11 +729,11 @@ template <bool Q8, int D>
 cudaError_t dispatch_bs(const Args& a, cudaStream_t stream) {
   switch (a.bs) {
     case 32:
-      return dispatch_rows<Q8, D, 32>(a, stream);
+      return dispatch_rows<Q8, false, D, 32>(a, stream);
     case 64:
-      return dispatch_rows<Q8, D, 64>(a, stream);
+      return dispatch_rows<Q8, false, D, 64>(a, stream);
     case 128:
-      return dispatch_rows<Q8, D, 128>(a, stream);
+      return dispatch_rows<Q8, false, D, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -569,6 +754,55 @@ int split_verify_attention(const Args& a, void* stream) {
       return (int)dispatch_bs<Q8, 64>(a, s);
     case 128:
       return (int)dispatch_bs<Q8, 128>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The C entry of the contiguous decode kernels (flash_decode.cu and
+// flash_decode_q8.cu, one signature): returns the first failing launch's
+// cudaError_t (0 = both launched).  D must be 64 or 128, Nq a multiple of
+// Nkv with at most 48 query heads per kv head, S_q = 1, W >= 1 and S * T
+// at least ceil(W / 64).  The scale pointers are read only when Q8.
+template <bool Q8>
+int split_decode_attention(const void* q, const void* k, const void* v, const void* k_scale,
+                           const void* v_scale, const void* pos, void* o, void* part_acc,
+                           void* part_ml, int B, int S_q, int Nq, int Nkv, int D, int W, int T,
+                           int S, long long kv_bstride, long long sc_bstride, float scale,
+                           void* stream) {
+  Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k_pool = k;
+  a.v_pool = v;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.pos = static_cast<const int*>(pos);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.B = B;
+  a.G = 1;
+  a.Nq = Nq;
+  a.Nkv = Nkv;
+  a.bs = kDecodeTile;
+  a.D = D;
+  a.MB = (W + kDecodeTile - 1) / kDecodeTile;
+  a.T = T;
+  a.S = S;
+  a.scale = scale;
+  a.W = W;
+  a.kv_bstride = kv_bstride;
+  a.sc_bstride = sc_bstride;
+  if (S_q != 1 || Nkv <= 0 || Nq % Nkv != 0 || Nq / Nkv > 48 || B < 1 || W < 1 || T < 1 ||
+      S < 1 || (long)S * T < a.MB) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return (int)dispatch_rows<Q8, true, 64, kDecodeTile>(a, s);
+    case 128:
+      return (int)dispatch_rows<Q8, true, 128, kDecodeTile>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

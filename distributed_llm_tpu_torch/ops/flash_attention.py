@@ -21,10 +21,20 @@ Wrappers of hand-written CUDA kernels:
   ``_chunk_kernel_native`` + ``_chunk_kernel`` and their q8 twins.
 
 At the serving shapes the prefill and chunk kernels sit near the
-balance of bytes and bf16 operations (bytes below about 700 rows), the
-decode kernels are bound by bytes; the first designs run their products
-on the CUDA cores in float32 and skip KV tiles past each query tile's
-causal frontier (see each source for the design and its bound).
+balance of bytes and bf16 operations (bytes below about 700 rows); their
+first designs run the products on the CUDA cores in float32 and skip KV
+tiles past each query tile's causal frontier.  The decode kernels are
+bound by bytes: one query position per sequence does Nq / Nkv
+multiply-adds per element of K/V read.  At B = 1, as the sequential
+engines run, one block per (kv head, sequence) left 8 blocks on the
+H100's 132 SMs; so the contiguous decode kernels are
+``csrc/ragged_verify.cuh``'s split-K kernel reading the window's
+64-position tiles through its strides: the window is split over many
+blocks (``ragged_attention.decode_split_plan``, from shapes only: 2 tiles
+a split at orin's B = 1 over an 8192 window, 144 live blocks at position
+2255), each keeping its tiles' copies in flight by ``cp.async`` and
+scoring on the tensor cores, and a merge pass combines each row's float32
+partials.  See each source for the design and its bound.
 
 A CPU tensor takes the plain version beside it (``causal_attention``,
 ``_gather_chunk_paged``, ``_gather_decode_windowed`` and the contiguous
@@ -48,6 +58,7 @@ from .attention import (_chunk_contiguous, _chunk_contiguous_q8,
                         _gather_chunk_paged, _gather_decode_windowed,
                         causal_attention)
 from .ragged_attention import _check as _check_paged
+from .ragged_attention import decode_split_plan
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_BS = (32, 64, 128)
@@ -203,7 +214,9 @@ def _check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              "free)")
     for name, t in (("k", k), ("v", v)):
         _require(t.device == q.device, fn, f"{name} on {t.device}, q on {q.device}")
-        _require(t.data_ptr() % 16 == 0, fn, f"{name} must be 16-byte aligned")
+        _require(t.data_ptr() % 16 == 0
+                 and t.stride(0) * t.element_size() % 16 == 0, fn,
+                 f"{name} must be 16-byte aligned, rows and batch stride")
     return w, nkv, k.stride(0)
 
 
@@ -241,7 +254,9 @@ def _contiguous(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
                 v_scale: Optional[torch.Tensor],
                 positions: torch.Tensor) -> torch.Tensor:
     """Check a contiguous-cache kernel's inputs, launch kernel ``name``
-    and count the launch on ``wrapper``."""
+    and count the launch on ``wrapper``.  A decode kernel launches its
+    split pass and its merge, planned by ``decode_split_plan`` from shapes
+    alone, with float32 partials that are scratch of this call."""
     fn = wrapper.__name__
     decode = name.startswith("flash_decode")
     _require(q.dim() == (3 if decode else 4), fn,
@@ -250,13 +265,22 @@ def _contiguous(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
     w, nkv, kv_bstride = _check_cache(fn, q, k, v, q8)
     sc_bstride = _check_scales(fn, k, k_scale, v_scale) if q8 else 0
     _check_query(fn, q, nkv, positions, max_group=8 if decode else 64)
-    s_q = 1 if decode else q.shape[1]
+    b, s_q = q.shape[0], 1 if decode else q.shape[1]
     nq, d = q.shape[-2], q.shape[-1]
     out = torch.empty_like(q)
+    scratch, ints = (), (b, s_q, nq, nkv, d, w)
+    if decode:
+        tiles, splits = decode_split_plan(w, b, nkv)
+        part_acc = torch.empty((b, nkv, splits, nq // nkv, d),
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b, nkv, splits, nq // nkv, 2),
+                              dtype=torch.float32, device=q.device)
+        scratch = (part_acc.data_ptr(), part_ml.data_ptr())
+        ints += (tiles, splits)
     err = _build.entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if q8 else None, v_scale.data_ptr() if q8 else None,
-        positions.data_ptr(), out.data_ptr(), q.shape[0], s_q, nq, nkv, d, w,
+        positions.data_ptr(), out.data_ptr(), *scratch, *ints,
         kv_bstride, sc_bstride, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)

@@ -29,8 +29,10 @@ shapes only, so the wrapper reads nothing from the device).
 A CPU tensor takes the plain version (``_gather_decode_paged`` /
 ``_gather_verify_paged``, the JAX package's XLA paths); a CUDA tensor
 launches the kernel or raises.  ``split_verify_mirror`` repeats the
-verify kernels' split-and-merge algorithm in plain PyTorch for the tests;
-no serving path calls it.
+verify kernels' split-and-merge algorithm in plain PyTorch for the tests,
+and ``split_decode_mirror`` the same algorithm as the contiguous decode
+kernels run it (``flash_attention.py``, planned by ``decode_split_plan``);
+no serving path calls either.
 """
 
 from __future__ import annotations
@@ -71,6 +73,28 @@ def split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
     per_slot = -(-SPLIT_TARGET_BLOCKS // (nkv * b))
     tiles = max(SPLIT_MIN_TILES, -(-mb // per_slot))
     return tiles, -(-mb // tiles)
+
+
+# The contiguous decode kernels (``flash_attention.flash_decode_attention``
+# and its int8 twin) run the verify kernels' split pass at G = 1 over
+# DECODE_TILE-position tiles of the cache window.  A decode block holds only
+# the group's Nq / Nkv rows, so its partials (4 x D floats at orin, 2 KB)
+# are small beside even one tile of K and V (32 KB bf16 at D = 128): a split
+# may be a single tile, with no SPLIT_MIN_TILES floor.  Splits are as fine
+# as SPLIT_TARGET_BLOCKS blocks over the whole window ask, so that a
+# sequence a quarter of the way into its window still has more live blocks
+# than the card has SMs: orin at B = 1 and W = 8192 gets 2 tiles a split and
+# 64 splits, 144 live blocks at the served position 2255.
+DECODE_TILE = 64
+
+
+def decode_split_plan(w: int, b: int, nkv: int) -> Tuple[int, int]:
+    """(tiles per split, splits) of the contiguous decode kernels for a
+    window of ``w`` positions, ``b`` sequences and ``nkv`` kv heads:
+    shapes in, ints out, nothing read from the device."""
+    n_tiles = -(-w // DECODE_TILE)
+    tiles = -(-(b * nkv * n_tiles) // SPLIT_TARGET_BLOCKS)
+    return tiles, -(-n_tiles // tiles)
 
 
 def _check(fn: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -306,6 +330,42 @@ def split_verify_mirror(q, k_pool, v_pool, tables, pos, tiles: int,
                                       k_scale, v_scale)
     return merge_split_partials(m, l, acc, pos, q.shape[1], k_pool.shape[2],
                                 tables.shape[1], tiles)
+
+
+def window_as_pool(k_cache, v_cache, k_scale=None, v_scale=None):
+    """A contiguous cache window [B, W, Nkv, D] (+ scales [B, W, Nkv]) as
+    the decode kernels tile it: a pool [Nkv, B * MB, DECODE_TILE, D] of
+    each sequence's MB = ceil(W / DECODE_TILE) tiles in order (the ragged
+    end zero-filled, as the kernels' copies fill it), scales
+    [Nkv, B * MB, DECODE_TILE] and tables [B, MB] naming them.  Returns
+    k_pool, v_pool, k_scale, v_scale (None for bf16) and tables."""
+    b, w, nkv, d = k_cache.shape
+    mb = -(-w // DECODE_TILE)
+    pad = mb * DECODE_TILE - w
+
+    def tiles(x):
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+        x = x.reshape(b * mb, DECODE_TILE, *x.shape[2:])
+        return x.movedim(2, 0).contiguous()
+
+    scales = ((None, None) if k_scale is None
+              else (tiles(k_scale), tiles(v_scale)))
+    tables = torch.arange(b * mb, dtype=torch.int32,
+                          device=k_cache.device).reshape(b, mb)
+    return tiles(k_cache), tiles(v_cache), *scales, tables
+
+
+def split_decode_mirror(q, k_cache, v_cache, pos, tiles: int, k_scale=None,
+                        v_scale=None):
+    """The contiguous decode kernels' whole algorithm in plain float32
+    PyTorch, with ``tiles`` tiles per split: the window tiled as a pool
+    (``window_as_pool``), each frontier clamped to W - 1, and the verify
+    kernels' split and merge passes at G = 1 -> [B, Nq, D] float32."""
+    k_pool, v_pool, ks, vs, tables = window_as_pool(k_cache, v_cache,
+                                                    k_scale, v_scale)
+    front = torch.clamp(pos, max=k_cache.shape[1] - 1)
+    return split_verify_mirror(q[:, None], k_pool, v_pool, tables, front,
+                               tiles, ks, vs)[:, 0]
 
 
 ragged_paged_decode_attention.launches = 0
