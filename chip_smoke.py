@@ -22,7 +22,11 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    instantiations (head dim, block, group, verify width; the split-K
    verify and contiguous decode kernels also on tables and windows
    spanning several of their splits; the verify kernels timed at a short
-   shape too); the dense windowed tick's
+   shape too; the causal prefill also at the orin tier's width and at
+   2048 rows, and against the paged chunk kernel, which is the same
+   kernel with another tile source: a prompt's rows must get the same
+   bits from the cold prefill and from a prefix hit's suffix); the dense
+   windowed tick's
    paged decode kernels (bf16 at the nano tier's shape, int8 at the orin
    tier's, each through a column slice of the full table) and the
    contiguous-cache decode and chunk kernels of the sequential engines
@@ -89,15 +93,16 @@ REPORT_DIR = os.path.join(REPO, "chiprun_out")
 # query head's D values) of the kernel is held against the same row of
 # the plain version run in float32 on the same inputs (bf16 widened
 # exactly, int8 dequantized in float32): ||kernel - plain32|| / ||plain32||
-# <= KERNEL_REL_TOL.  The kernels round P (the bf16 ones) and their output
-# to bf16: their worst rows read 0.0019-0.0034 on an H100, the plain
+# <= KERNEL_REL_TOL.  The kernels round P (all but the int8 paged decode
+# kernels K5 and K8) and their output to bf16: their worst rows read
+# 0.0019-0.0044 on an H100, the plain
 # versions in bf16 0.005-0.019 (they round the logits and, for int8, the
 # dequantized K/V to bf16).  A row's output shrinks as its
 # frontier N grows (it averages N random values, about sqrt(e / N)), so
 # the bound is relative to each row: a row that misses one 64-position
 # tile moves by about sqrt(64 / N) of itself, 9% at N = 8192, and the
-# contiguous-cache checks assert that the plain version one tile short
-# lands outside the bound at every timed shape.  The plain version in
+# causal prefill and contiguous-cache checks assert that the plain version
+# one tile short lands outside the bound at every timed shape.  The plain version in
 # bf16 against float32 (``plain_rel_err``) is reported beside it.
 KERNEL_REL_TOL = 1e-2
 TOL = f"per-row ||kernel - plain32|| / ||plain32|| <= {KERNEL_REL_TOL:g}"
@@ -245,7 +250,7 @@ def bound(bytes_moved: float, flops: float):
 
 # -- phase 3: kernels ----------------------------------------------------------
 
-def kernel_phase(torch, cfg, bs: int):
+def kernel_phase(torch, cfg, orin_cfg, bs: int):
     import torch.nn.functional as F
 
     from distributed_llm_tpu_torch.ops import attention as TA
@@ -311,32 +316,60 @@ def kernel_phase(torch, cfg, bs: int):
                 q_l, k_l, v_l, attn_mask=mask)}, flush),
         "bound_ms": b1, "bound_by": by1})
 
-    # K2: causal prefill; checked at every cold bucket up to a chunk,
-    # timed at 256 (the largest monolithic prefill of the default tier).
-    a2 = NO_ERR
-    for s in (64, 128, 256):
-        qc, kc, vc = randn(1, s, nq, d), randn(1, s, nkv, d), randn(1, s, nkv, d)
-        out = TF.flash_causal_attention(qc, kc, vc)
-        torch.cuda.synchronize()
-        a2 = worst(a2, compare(out, TA.causal_attention, (qc, kc, vc)))
+    # K2: causal prefill; checked at every cold bucket up to a chunk and at
+    # a length that is no multiple of a tile, at the nano tier's width and
+    # the orin tier's (D=128), timed at nano's 256 (the largest monolithic
+    # prefill of the default tier) and, under ``timings``, at nano's 2048
+    # and orin's 256 and 2048.
+    a2, k2_timings = NO_ERR, []
+    for pcfg in (cfg, orin_cfg):
+        pnq, pnkv, pd = pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim
+        for s in (256, 2048, 64, 128, 200):
+            qc, kc, vc = (randn(1, s, pnq, pd), randn(1, s, pnkv, pd),
+                          randn(1, s, pnkv, pd))
+            out = TF.flash_causal_attention(qc, kc, vc)
+            torch.cuda.synchronize()
+            res = compare(out, TA.causal_attention, (qc, kc, vc))
+            a2 = worst(a2, res)
+            if s not in (256, 2048):
+                continue
+            # The bound's resolution: every row from position 64 on one
+            # tile short (the plain chunk attention at positions - 64).
+            short = torch.arange(s, device=dev, dtype=torch.int32)[None] - KV_TILE
+            args32 = widen((qc, kc, vc))
+            res["one_tile_short_rel_err"] = row_rel_err(
+                TA.chunk_attention(*args32, short)[:, KV_TILE:],
+                TA.causal_attention(*args32)[:, KV_TILE:])
+            require(res["one_tile_short_rel_err"] > KERNEL_REL_TOL,
+                    f"flash_causal: a missed tile would pass at S={s}: {res}")
+            qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qc, kc, vc))
+            pg = pnq // pnkv
+            ks, vs = ks.repeat_interleave(pg, 1), vs.repeat_interleave(pg, 1)
+            b2, by2 = bound(2 * (2 * qc.numel() + kc.numel() + vc.numel()),
+                            4 * pnq * pd * s * (s + 1) // 2)
+            k2_timings.append({
+                "shape": f"{pcfg.name} B=1 S={s} Nq={pnq} Nkv={pnkv} D={pd}",
+                **res,
+                **timed(torch, {
+                    "ms": lambda: TF.flash_causal_attention(qc, kc, vc),
+                    "plain_ms": lambda: TA.causal_attention(qc, kc, vc),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=True)}, flush),
+                "bound_ms": b2, "bound_by": by2})
+            del qs, ks, vs
     agrees("flash_causal", a2)
-    s = 256
-    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qc, kc, vc))
-    ks, vs = ks.repeat_interleave(g, 1), vs.repeat_interleave(g, 1)
-    b2, by2 = bound(2 * (qc.numel() + kc.numel() + vc.numel() + qc.numel()),
-                    4 * nq * d * s * (s + 1) // 2)
+    first = k2_timings[0]
     rows.append({
         "name": "flash_causal", "route": "cuda",
         "source": "distributed_llm_tpu_torch/csrc/flash_causal.cu",
         "replaces": "distributed_llm_tpu/ops/pallas_attention.py:57",
-        "shape": f"B=1 S={s} Nq={nq} Nkv={nkv} D={d} (checked at S=64,128,256)",
+        "shape": first["shape"] + " (checked at S=64,128,200,256,2048, "
+                 "D=64 and 128)",
         **a2, "tol": TOL,
-        **timed(torch, {
-            "ms": lambda: TF.flash_causal_attention(qc, kc, vc),
-            "plain_ms": lambda: TA.causal_attention(qc, kc, vc),
-            "library_ms": lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True)}, flush),
-        "bound_ms": b2, "bound_by": by2})
+        **{k: first[k] for k in ("ms", "plain_ms", "library_ms", "eager",
+                                 "bound_ms", "bound_by",
+                                 "one_tile_short_rel_err")},
+        "timings": k2_timings})
 
     # K3: paged chunk.  Checked at a prefix hit (64 rows at start 37,
     # window 256) and timed at the long prompt's second chunk (256 rows at
@@ -382,6 +415,26 @@ def kernel_phase(torch, cfg, bs: int):
             "library_ms": lambda: F.scaled_dot_product_attention(
                 qs, kw, vw, attn_mask=wmask[None, None])}, flush),
         "bound_ms": b3, "bound_by": by3})
+    # K2 and K3 are one kernel with two tile sources, so a row gets the
+    # same bits from both: a 256-position prompt prefilled cold (K2 over
+    # its fresh K/V) against its suffix from position 100 on a prefix hit
+    # (K3 over the same K/V in scattered pool blocks).  The served path
+    # relies on it: a repeated greedy prompt takes the prefix hit.
+    s, m = 256, 100
+    qc, kc, vc = randn(1, s, nq, d), randn(1, s, nkv, d), randn(1, s, nkv, d)
+    hit_table = (torch.randperm(nb - 1, generator=gen, device=dev)[:s // bs]
+                 + 1).to(torch.int32)
+    for pool, x in ((k_pool, kc), (v_pool, vc)):
+        pool[:, hit_table.long()] = x[0].reshape(s // bs, bs, nkv, d).permute(
+            2, 0, 1, 3)
+    cold = TF.flash_causal_attention(qc, kc, vc)
+    hit = TF.paged_chunk_attention(
+        qc[:, m:].contiguous(), k_pool, v_pool, hit_table,
+        torch.tensor([m], dtype=torch.int32, device=dev), s)
+    torch.cuda.synchronize()
+    require(torch.equal(hit, cold[:, m:]),
+            "paged_chunk and flash_causal give a row different bits")
+    rows[-1]["same_bits_as_flash_causal"] = True
     del flush_buf, k_pool, v_pool
     note_variants(rows, variant_checks(torch, gen))
     torch.cuda.empty_cache()
@@ -400,8 +453,9 @@ def note_variants(rows, errs: dict) -> None:
 def variant_checks(torch, gen) -> dict:
     """Each kernel against its plain version at the other instantiations
     it accepts (head dim 64/128, block 32/64/128, GQA group 1/4/8) on
-    small ragged shapes: idle slot, partial tiles, padded chunk rows.
-    Returns the worst ``compare`` per kernel."""
+    small ragged shapes: idle slot, partial tiles, padded chunk rows; the
+    causal prefill also on a grid past the card's SM count.  Returns the
+    worst ``compare`` per kernel."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import ragged_attention as TR
@@ -432,10 +486,13 @@ def variant_checks(torch, gen) -> dict:
                 note("ragged_decode",
                      TR.ragged_paged_decode_attention(q, kp, vp, tables, pos),
                      TA._gather_decode_paged, q, kp, vp, tables, pos)
-                qc, kc, vc = randn(2, 100, nq, d), randn(2, 100, nkv, d), \
-                    randn(2, 100, nkv, d)
-                note("flash_causal", TF.flash_causal_attention(qc, kc, vc),
-                     TA.causal_attention, qc, kc, vc)
+                # K2 at S=100 runs on at most 132 blocks (two warps a
+                # slab), at S=1100 on more (one warp a slab).
+                for s in (100, 1100) if bs == 64 else (100,):
+                    qc, kc, vc = randn(2, s, nq, d), randn(2, s, nkv, d), \
+                        randn(2, s, nkv, d)
+                    note("flash_causal", TF.flash_causal_attention(qc, kc, vc),
+                         TA.causal_attention, qc, kc, vc)
                 start, s_c, true_len = 20, 70, 80
                 table = tables[0].contiguous()
                 qq = randn(1, s_c, nq, d)
@@ -847,7 +904,10 @@ def contiguous_variant_checks(torch, gen) -> dict:
     2 or 3 tiles a split at these shapes), with frontiers on the first
     split boundary (its last key), one tile past it, at 0 (an idle row)
     and at W-1; the chunk kernels (K11, K12) on W=200 of S=300, chunk rows
-    1-5 and 64 clamped to a true length."""
+    1-5, 20, 37 and 64 clamped to a true length, K12 also with its last
+    row's frontier on and one key past a 64- and a 128-key tile boundary,
+    and 600 rows over W=1000 of S=1100 at B=4 (a grid past the card's SM
+    count)."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import quant
     from distributed_llm_tpu_torch.ops import ragged_attention as TR
@@ -889,7 +949,7 @@ def contiguous_variant_checks(torch, gen) -> dict:
                 note("flash_decode_q8", TA._decode_contiguous_q8, q, *q8_win,
                      pos)
                 bf_win, q8_win = windows(b, nkv, d, 300, 200)
-                for s_c in (1, 2, 3, 4, 5, 64):
+                for s_c in (1, 2, 3, 4, 5, 20, 37, 64):
                     starts = torch.tensor([0, 37, 130, 136][:b],
                                           device=dev)[:, None]
                     rows = torch.arange(s_c, device=dev)[None]
@@ -900,6 +960,22 @@ def contiguous_variant_checks(torch, gen) -> dict:
                          q_pos)
                     note("flash_chunk_q8", TA._chunk_contiguous_q8, qc,
                          *q8_win, q_pos)
+                    # The int8 chunk with its last row's frontier on a tile
+                    # boundary (63 | 64 and 127 | 128: the ends of a 64-
+                    # and a 128-key tile) and one key past it.
+                    ends = torch.tensor([63, 64, 127, 128][:b], device=dev)
+                    q_pos = (ends[:, None] - s_c + 1 + rows).clamp_min(0).to(
+                        torch.int32)
+                    note("flash_chunk_q8", TA._chunk_contiguous_q8, qc,
+                         *q8_win, q_pos)
+            # The int8 chunk on a grid past the card's SM count (one warp a
+            # slab): 600 rows at 300-399 over W=1000 of S=1100.
+            b = 4
+            _, q8_win = windows(b, nkv, d, 1100, 1000)
+            q_pos = (torch.tensor([300, 333, 366, 399], device=dev)[:, None]
+                     + torch.arange(600, device=dev)[None]).to(torch.int32)
+            qc = randn(b, 600, nq, d)
+            note("flash_chunk_q8", TA._chunk_contiguous_q8, qc, *q8_win, q_pos)
     return errs
 
 
@@ -2012,7 +2088,7 @@ def main() -> None:
     log(f"graph-replay floor (1, 2 kernels): {graph_floor_ms} ms")
     cluster = ClusterConfig()
     nano, orin = cluster.nano, cluster.orin
-    rows = kernel_phase(torch, nano.model(), nano.kv_block_size)
+    rows = kernel_phase(torch, nano.model(), orin.model(), nano.kv_block_size)
     spec_rows, draft_shape = spec_kernel_phase(
         torch, orin.model(), nano.model(), orin.kv_block_size,
         orin.decode_batch)

@@ -1,6 +1,6 @@
-// Shared pieces of the attention kernels (ragged_paged.cuh,
-// flash_causal.cu, paged_chunk.cu): bf16 tile loads into padded shared
-// memory and the per-query-row online-softmax (flash) update.
+// Shared pieces of the CUDA-core attention kernels (ragged_paged.cuh,
+// contiguous.cuh): bf16 tile loads into padded shared memory and the
+// per-query-row online-softmax (flash) update.
 //
 // Work split: a block of kThreads = 4 warps owns a set of query rows
 // that read one kv head.  Each warp owns whole rows.  For every key
@@ -182,14 +182,6 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ dst,
   for (int e = 0; e < kDims; e += 2) {
     out[e / 2] = __floats2bfloat162_rn(st.acc[e] / denom, st.acc[e + 1] / denom);
   }
-}
-
-// Bytes of dynamic shared memory for `rows` float query rows plus one
-// padded K tile and one padded V tile.
-template <int D, int BK>
-constexpr size_t smem_bytes(int rows) {
-  return (size_t)rows * D * sizeof(float) +
-         2 * (size_t)BK * Tile<D>::kWords * sizeof(uint32_t);
 }
 
 }  // namespace dllm

@@ -1,17 +1,17 @@
 // Flash attention of a chunk of queries over the sequential engines'
-// contiguous KV cache, for Hopper, bf16 or int8: the kernel behind
-// flash_chunk.cu and flash_chunk_q8.cu, which replace the Pallas TPU
-// kernels `_chunk_kernel_native` / `_chunk_kernel` and their q8 twins
-// (distributed_llm_tpu/ops/pallas_attention.py).  It has no split plan:
-// one block per (query tile, kv head, sequence), below.  (The one-token
-// decode over the same cache, flash_decode.cu and flash_decode_q8.cu, is
-// ragged_verify.cuh's split-K kernel reading contiguous tiles.)
+// contiguous bf16 KV cache, for Hopper: the kernel behind flash_chunk.cu,
+// which replaces the Pallas TPU kernels `_chunk_kernel_native` /
+// `_chunk_kernel` (distributed_llm_tpu/ops/pallas_attention.py).  It has
+// no split plan: one block per (query tile, kv head, sequence), below.
+// (The one-token decode over the same cache, flash_decode.cu and
+// flash_decode_q8.cu, is ragged_verify.cuh's split-K kernel reading
+// contiguous tiles; the int8 chunk, flash_chunk_q8.cu, is flash_tc.cuh's
+// tensor-core kernel.)
 //
 // Layout: q [B, S_q, Nq, D] bf16; one layer's cache window of W positions,
-// element (b, t, h, d) at b * kv_bstride + (t * Nkv + h) * D + d, bf16 or
-// int8, and for int8 the float32 per-row scales, (b, t, h) at
-// b * sc_bstride + t * Nkv + h.  The batch stride is the caller's: a window
-// [:, :W] of a longer cache is read in place, never copied.  q_pos
+// element (b, t, h, d) at b * kv_bstride + (t * Nkv + h) * D + d.  The
+// batch stride is the caller's: a window [:, :W] of a longer cache is read
+// in place, never copied.  q_pos
 // [B, S_q] int32 holds each query's absolute position; query i of
 // sequence b attends cache positions 0 .. min(q_pos[b, i], W - 1).  Each
 // row's position is read from q_pos by the block itself (the Pallas chunk
@@ -29,11 +29,9 @@
 // flash state as it is).  What bounds it and what that costs is in
 // flash_chunk.cu.
 //
-// Numerics follow the Pallas kernels (attn_common.cuh, ragged_paged.cuh):
-// q scaled in float32 before QK, float32 max/sum/accumulator, output over
-// max(l, 1e-30); bf16 probabilities rounded to bf16 before PV; int8 K/V
-// dequantized as float(int8) * scale while read from shared memory, with
-// the probabilities kept in float32 for PV.
+// Numerics follow the Pallas kernels (attn_common.cuh): q scaled in
+// float32 before QK, float32 max/sum/accumulator, output over
+// max(l, 1e-30); probabilities rounded to bf16 before PV.
 #pragma once
 
 #include "ragged_paged.cuh"
@@ -42,65 +40,36 @@ namespace dllm {
 
 constexpr int kContigTile = 64;  // cache positions per staged tile
 
-// Stage BS rows of D int8 values (row r at src + r * row_stride bytes)
-// into a padded tile; rows at or past valid_rows are zero-filled.
-// 16-byte global loads: src and row_stride keep every row 16-byte aligned.
-template <int D, int BS>
-__device__ __forceinline__ void load_tile_q8_rows(uint32_t* __restrict__ tile,
-                                                  const int8_t* __restrict__ src,
-                                                  long row_stride, int valid_rows) {
-  constexpr int kChunks = D / 16;  // uint4 per row
-  for (int c = threadIdx.x; c < BS * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int cc = c % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long)r * row_stride + cc * 16);
-    }
-    uint32_t* dst = tile + r * Tile8<D>::kWords + cc * 4;
-    dst[0] = val.x;
-    dst[1] = val.y;
-    dst[2] = val.z;
-    dst[3] = val.w;
-  }
-}
-
 struct ContigArgs {
   const void* q;
   const void* k;
   const void* v;
-  const float* k_scale;  // int8 caches only
-  const float* v_scale;
   const int* q_pos;
   void* o;
   int B, S_q, Nq, Nkv, D, W;
   long long kv_bstride;
-  long long sc_bstride;
   float scale;
 };
 
-template <int D, int R, bool Q8>
+template <int D, int R>
 constexpr size_t contig_smem_bytes() {
-  return ragged_smem_bytes<D, kContigTile, Q8>(kWarps * R) + kWarps * R * sizeof(int);
+  return ragged_smem_bytes<D, kContigTile, false>(kWarps * R) + kWarps * R * sizeof(int);
 }
 
-template <int D, int R, bool Q8>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
-contiguous_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
-                  const void* __restrict__ v, const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, const int* __restrict__ q_pos,
+contiguous_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
                   __nv_bfloat16* __restrict__ o, int S_q, int Nq, int Nkv, int W,
-                  long long kv_bstride, long long sc_bstride, float scale) {
+                  long long kv_bstride, float scale) {
   constexpr int BK = kContigTile;
   constexpr int kRows = kWarps * R;
-  constexpr int kTileWords = Q8 ? Tile8<D>::kWords : Tile<D>::kWords;
+  constexpr int kTileWords = Tile<D>::kWords;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);
   uint32_t* k_s = reinterpret_cast<uint32_t*>(q_s + kRows * D);
   uint32_t* v_s = k_s + BK * kTileWords;
-  float* ks_s = reinterpret_cast<float*>(v_s + BK * kTileWords);  // int8 only
-  float* vs_s = ks_s + (Q8 ? BK : 0);
-  int* f_s = reinterpret_cast<int*>(vs_s + (Q8 ? BK : 0));  // row frontiers
+  int* f_s = reinterpret_cast<int*>(v_s + BK * kTileWords);  // row frontiers
 
   const int group = Nq / Nkv;
   const int per_block = kRows / group;  // query positions per block
@@ -137,22 +106,8 @@ contiguous_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ 
     const int t0 = j * BK;
     const int valid = min(BK, W - t0);
     __syncthreads();
-    if constexpr (Q8) {
-      load_tile_q8_rows<D, BK>(k_s, static_cast<const int8_t*>(k) + base + t0 * row_stride,
-                               row_stride, valid);
-      load_tile_q8_rows<D, BK>(v_s, static_cast<const int8_t*>(v) + base + t0 * row_stride,
-                               row_stride, valid);
-      for (int t = threadIdx.x; t < BK; t += kThreads) {
-        const long si = (long)b * sc_bstride + (long)(t0 + t) * Nkv + hk;
-        ks_s[t] = t < valid ? k_scale[si] : 0.f;
-        vs_s[t] = t < valid ? v_scale[si] : 0.f;
-      }
-    } else {
-      load_tile<D, BK>(k_s, static_cast<const __nv_bfloat16*>(k) + base + t0 * row_stride,
-                       row_stride, valid);
-      load_tile<D, BK>(v_s, static_cast<const __nv_bfloat16*>(v) + base + t0 * row_stride,
-                       row_stride, valid);
-    }
+    load_tile<D, BK>(k_s, k + base + t0 * row_stride, row_stride, valid);
+    load_tile<D, BK>(v_s, v + base + t0 * row_stride, row_stride, valid);
     __syncthreads();
 #pragma unroll
     for (int ri = 0; ri < R; ++ri) {
@@ -160,11 +115,7 @@ contiguous_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ 
       if (r >= rows) continue;
       const int frontier = f_s[r];
       if (t0 > frontier) continue;
-      if constexpr (Q8) {
-        attend_tile_q8<D, BK>(q_s + r * D, k_s, v_s, ks_s, vs_s, t0, frontier, lane, st[ri]);
-      } else {
-        attend_tile<D, BK>(q_s + r * D, k_s, v_s, t0, frontier, lane, st[ri]);
-      }
+      attend_tile<D, BK>(q_s + r * D, k_s, v_s, t0, frontier, lane, st[ri]);
     }
   }
 
@@ -178,10 +129,10 @@ contiguous_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ 
   }
 }
 
-template <int D, int R, bool Q8>
+template <int D, int R>
 cudaError_t contiguous_launch(const ContigArgs& a, cudaStream_t stream) {
-  auto kernel = contiguous_kernel<D, R, Q8>;
-  constexpr size_t smem = contig_smem_bytes<D, R, Q8>();
+  auto kernel = contiguous_kernel<D, R>;
+  constexpr size_t smem = contig_smem_bytes<D, R>();
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -190,58 +141,40 @@ cudaError_t contiguous_launch(const ContigArgs& a, cudaStream_t stream) {
   const int per_block = kWarps * R / (a.Nq / a.Nkv);
   dim3 grid((a.S_q + per_block - 1) / per_block, a.Nkv, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), a.k, a.v, a.k_scale, a.v_scale, a.q_pos,
-      static_cast<__nv_bfloat16*>(a.o), a.S_q, a.Nq, a.Nkv, a.W, a.kv_bstride,
-      a.sc_bstride, a.scale);
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.q_pos, static_cast<__nv_bfloat16*>(a.o), a.S_q,
+      a.Nq, a.Nkv, a.W, a.kv_bstride, a.scale);
   return cudaGetLastError();
 }
 
 // Rows per warp: the 8-row tile for a chunk of at most 8 rows in all
 // (positions times the group), else the 64-row tile.
-template <bool Q8, int D>
+template <int D>
 cudaError_t contiguous_dispatch_rows(const ContigArgs& a, cudaStream_t stream) {
   const int group = a.Nq / a.Nkv;
   const int rows = group * a.S_q;
-  if (rows <= kWarps * 2) return contiguous_launch<D, 2, Q8>(a, stream);
-  if (group <= kWarps * 16) return contiguous_launch<D, 16, Q8>(a, stream);
+  if (rows <= kWarps * 2) return contiguous_launch<D, 2>(a, stream);
+  if (group <= kWarps * 16) return contiguous_launch<D, 16>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-// The C entry of the two chunk kernels (flash_chunk.cu and
-// flash_chunk_q8.cu, one signature): returns the launch's cudaError_t
-// (0 = launched).  D must be 64 or 128, Nq a multiple of Nkv with a group
-// of at most 64, S_q >= 1 and W >= 1.  The scale pointers are read only
-// when Q8.
-template <bool Q8>
-int contiguous_entry(const void* q, const void* k, const void* v, const void* k_scale,
-                     const void* v_scale, const void* q_pos, void* o, int B, int S_q, int Nq,
-                     int Nkv, int D, int W, long long kv_bstride, long long sc_bstride,
-                     float scale, void* stream) {
-  const ContigArgs a{q,
-                     k,
-                     v,
-                     static_cast<const float*>(k_scale),
-                     static_cast<const float*>(v_scale),
-                     static_cast<const int*>(q_pos),
-                     o,
-                     B,
-                     S_q,
-                     Nq,
-                     Nkv,
-                     D,
-                     W,
-                     kv_bstride,
-                     sc_bstride,
-                     scale};
+// The C entry of the bf16 chunk kernel (flash_chunk.cu): returns the
+// launch's cudaError_t (0 = launched).  D must be 64 or 128, Nq a multiple
+// of Nkv with a group of at most 64, S_q >= 1 and W >= 1.
+inline int contiguous_entry(const void* q, const void* k, const void* v, const void* q_pos,
+                            void* o, int B, int S_q, int Nq, int Nkv, int D, int W,
+                            long long kv_bstride, float scale, void* stream) {
+  const ContigArgs a{q, k, v, static_cast<const int*>(q_pos), o, B, S_q, Nq, Nkv, D, W,
+                     kv_bstride, scale};
   if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.S_q < 1 || a.B < 1 || a.W < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.D) {
     case 64:
-      return (int)contiguous_dispatch_rows<Q8, 64>(a, s);
+      return (int)contiguous_dispatch_rows<64>(a, s);
     case 128:
-      return (int)contiguous_dispatch_rows<Q8, 128>(a, s);
+      return (int)contiguous_dispatch_rows<128>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

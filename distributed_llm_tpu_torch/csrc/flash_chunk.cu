@@ -32,6 +32,8 @@ extern "C" int flash_chunk_attention(const void* q, const void* k, const void* v
                                      void* o, int B, int S_q, int Nq, int Nkv, int D, int W,
                                      long long kv_bstride, long long sc_bstride, float scale,
                                      void* stream) {
-  return dllm::contiguous_entry<false>(q, k, v, k_scale, v_scale, q_pos, o, B, S_q, Nq,
-                                       Nkv, D, W, kv_bstride, sc_bstride, scale, stream);
+  // The scale pointers and their batch stride are the int8 kernel's (one
+  // signature for both chunk kernels): a bf16 cache has none.
+  return dllm::contiguous_entry(q, k, v, q_pos, o, B, S_q, Nq, Nkv, D, W, kv_bstride, scale,
+                                stream);
 }

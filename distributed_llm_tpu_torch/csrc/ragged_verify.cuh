@@ -307,19 +307,19 @@ __device__ __forceinline__ void load_stage_contig(unsigned char* stage, const Ar
   }
 }
 
-// Widen a staged int8 K/V tile pair into the bf16 tile pair `wide`.  No
-// int-to-float or float-to-bf16 conversion (both quarter-rate): byte x + 128
-// is placed under the float exponent of 2^23, 2^23 + 128 subtracted (exact),
-// and the float's upper half is x in bf16 (an integer of at most 8
-// significant bits leaves the lower half zero).
-template <int D, int BS, int MT>
-__device__ __forceinline__ void widen_stage(__nv_bfloat16* wide, const unsigned char* stage) {
-  using C = Cfg<D, BS, MT, true>;
+// Widen Rows staged int8 rows (Ld8 bytes apart) into bf16 rows (Ld
+// elements apart) of `wide`, Threads threads taking part.  No int-to-float
+// or float-to-bf16 conversion (both quarter-rate): byte x + 128 is placed
+// under the float exponent of 2^23, 2^23 + 128 subtracted (exact), and the
+// float's upper half is x in bf16 (an integer of at most 8 significant
+// bits leaves the lower half zero).
+template <int D, int Rows, int Threads, int Ld, int Ld8>
+__device__ __forceinline__ void widen_rows(__nv_bfloat16* wide, const unsigned char* src) {
   constexpr int kChunks = D / 16;
-  for (int c = threadIdx.x; c < 2 * BS * kChunks; c += C::kThreads) {
-    const int row = c / kChunks;  // K rows then V rows
+  for (int c = threadIdx.x; c < Rows * kChunks; c += Threads) {
+    const int row = c / kChunks;
     const int cc = c % kChunks;
-    const uint4 raw = *reinterpret_cast<const uint4*>(stage + row * C::kLd8 + cc * 16);
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + row * Ld8 + cc * 16);
     const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
     uint32_t w[8];
 #pragma unroll
@@ -333,10 +333,18 @@ __device__ __forceinline__ void widen_stage(__nv_bfloat16* wide, const unsigned 
       w[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
       w[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
     }
-    uint4* dst = reinterpret_cast<uint4*>(wide + row * C::kLd + cc * 16);
+    uint4* dst = reinterpret_cast<uint4*>(wide + row * Ld + cc * 16);
     dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
     dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
   }
+}
+
+// Widen a staged int8 K/V tile pair (K rows then V rows) into the bf16
+// tile pair `wide`.
+template <int D, int BS, int MT>
+__device__ __forceinline__ void widen_stage(__nv_bfloat16* wide, const unsigned char* stage) {
+  using C = Cfg<D, BS, MT, true>;
+  widen_rows<D, 2 * BS, C::kThreads, C::kLd, C::kLd8>(wide, stage);
 }
 
 // Contig selects the tile source: false reads a slot's pool blocks

@@ -85,7 +85,7 @@ SIGNATURES: Dict[str, tuple] = {
                            ("flash_decode_q8", "flash_decode_attention_q8"))},
 }
 _COMMON = ("attn_common.cuh", "ragged_paged.cuh", "ragged_verify.cuh",
-           "contiguous.cuh")
+           "contiguous.cuh", "flash_tc.cuh")
 
 _lock = threading.Lock()
 _entries: Dict[str, object] = {}

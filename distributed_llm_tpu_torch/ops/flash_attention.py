@@ -5,10 +5,11 @@ and chunk over the contiguous KV cache.
 Counterpart of ``distributed_llm_tpu/ops/pallas_attention.py``.
 Wrappers of hand-written CUDA kernels:
 
-- ``flash_causal_attention`` (``csrc/flash_causal.cu``) replaces the
-  Pallas ``_flash_kernel`` (forward only; training comes later);
-- ``paged_chunk_attention`` (``csrc/paged_chunk.cu``) replaces the
-  Pallas ``_paged_chunk_kernel``;
+- ``flash_causal_attention`` (``csrc/flash_causal.cu`` over
+  ``csrc/flash_tc.cuh``) replaces the Pallas ``_flash_kernel`` (forward
+  only; training comes later);
+- ``paged_chunk_attention`` (``csrc/paged_chunk.cu`` over
+  ``csrc/flash_tc.cuh``) replaces the Pallas ``_paged_chunk_kernel``;
 - ``paged_decode_attention`` / ``paged_decode_attention_q8``
   (``csrc/paged_decode.cu``, ``paged_decode_q8.cu``) replace
   ``_paged_decode_kernel`` / ``_paged_decode_kernel_q8``: the dense
@@ -17,13 +18,24 @@ Wrappers of hand-written CUDA kernels:
   (``csrc/flash_decode.cu``, ``flash_decode_q8.cu``) replace
   ``_decode_kernel`` / ``_decode_kernel_q8``;
 - ``flash_chunk_attention`` / ``flash_chunk_attention_q8``
-  (``csrc/flash_chunk.cu``, ``flash_chunk_q8.cu``) replace
-  ``_chunk_kernel_native`` + ``_chunk_kernel`` and their q8 twins.
+  (``csrc/flash_chunk.cu``; ``flash_chunk_q8.cu`` over ``flash_tc.cuh``)
+  replace ``_chunk_kernel_native`` + ``_chunk_kernel`` and their q8
+  twins.
 
 At the serving shapes the prefill and chunk kernels sit near the
-balance of bytes and bf16 operations (bytes below about 700 rows); their
-first designs run the products on the CUDA cores in float32 and skip KV
-tiles past each query tile's causal frontier.  The decode kernels are
+balance of bytes and bf16 operations (bytes below about 700 rows).  The
+causal prefill, the paged suffix chunk and the int8 contiguous chunk are
+one tensor-core flash kernel (``csrc/flash_tc.cuh``) with three tile
+sources: a block of 64 rows packs a kv head's GQA group (16 positions
+times nano's 4 heads), stages each 128-key tile once for them through a
+``cp.async`` ring, scores it with ``mma.sync`` on two warps a 16-row
+slab keeping P in registers, masks only the tiles that straddle a row's
+frontier and stops at the block's furthest one.  A row gets the same
+bits from the prefill and from a prefix hit's suffix chunk.
+``flash_tc_mirror`` below repeats that algorithm in plain PyTorch for
+the tests.  The bf16 contiguous chunk kernel's first design runs its
+products on the CUDA cores in float32 and skips tiles past each query
+tile's causal frontier.  The decode kernels are
 bound by bytes: one query position per sequence does Nq / Nkv
 multiply-adds per element of K/V read.  At B = 1, as the sequential
 engines run, one block per (kv head, sequence) left 8 blocks on the
@@ -53,7 +65,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import (_chunk_contiguous, _chunk_contiguous_q8,
+from .attention import (NEG_INF, _chunk_contiguous, _chunk_contiguous_q8,
                         _decode_contiguous, _decode_contiguous_q8,
                         _gather_chunk_paged, _gather_decode_windowed,
                         causal_attention)
@@ -62,6 +74,11 @@ from .ragged_attention import decode_split_plan
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_BS = (32, 64, 128)
+TC_ROWS = 64        # query rows per block of the tensor-core flash kernel
+TC_WARPS = 2        # warps a 16-row slab, each with its own flash state
+TC_TILE = 128       # keys per staged tile, every other 16-key chunk a warp
+TC_MAX_GROUP = TC_ROWS
+_LOG2E = 1.4426950408889634
 
 
 def _require(cond: bool, fn: str, msg: str) -> None:
@@ -76,13 +93,11 @@ def _check_common(fn: str, q: torch.Tensor, named) -> None:
     _require(q.is_contiguous(), fn, "q must be contiguous")
 
 
-def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor) -> torch.Tensor:
-    """q [B, S, Nq, D], k/v [B, S, Nkv, D] -> [B, S, Nq, D]; row r attends
-    keys 0 .. r, query head h reads kv head h // (Nq / Nkv)."""
-    if not q.is_cuda:
-        return causal_attention(q, k, v)
+def _check_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Refuse what the causal prefill kernel does not take."""
     fn = "flash_causal_attention"
+    _require(q.dim() == 4 and k.dim() == 4, fn,
+             "q must be [B, S, Nq, D] and k/v [B, S, Nkv, D]")
     b, s, nq, d = q.shape
     nkv = k.shape[2]
     _check_common(fn, q, (("k", k), ("v", v)))
@@ -91,7 +106,22 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
     _require(k.shape == v.shape == (b, s, nkv, d), fn,
              f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
     _require(d in _SUPPORTED_D, fn, f"head dim {d} (need 64 or 128)")
-    _require(nq % nkv == 0, fn, f"Nq={nq} not a multiple of Nkv={nkv}")
+    _require(nq % nkv == 0 and nq // nkv <= TC_MAX_GROUP, fn,
+             f"Nq={nq} must be a multiple of Nkv={nkv}, at most "
+             f"{TC_MAX_GROUP} query heads per kv head")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.data_ptr() % 16 == 0, fn, f"{name} must be 16-byte aligned")
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """q [B, S, Nq, D], k/v [B, S, Nkv, D] -> [B, S, Nq, D]; row r attends
+    keys 0 .. r, query head h reads kv head h // (Nq / Nkv)."""
+    if not q.is_cuda:
+        return causal_attention(q, k, v)
+    _check_causal(q, k, v)
+    b, s, nq, d = q.shape
+    nkv = k.shape[2]
     out = torch.empty_like(q)
     err = _build.entry("flash_causal")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -100,6 +130,32 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check(err, "flash_causal")
     flash_causal_attention.launches += 1
     return out
+
+
+def _check_paged_chunk(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, table: torch.Tensor,
+                       start: torch.Tensor, window: int) -> None:
+    """Refuse what the paged chunk kernel does not take."""
+    fn = "paged_chunk_attention"
+    nq, d = q.shape[2:]
+    nkv, _, bs, dk = k_pool.shape
+    _check_common(fn, q, (("k_pool", k_pool), ("v_pool", v_pool),
+                          ("table", table), ("start", start)))
+    _require(q.shape[0] == 1, fn, "one slot per call (q batch must be 1)")
+    _require(q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16, fn,
+             "q and pools must be bf16")
+    _require(table.dtype == torch.int32 and start.dtype == torch.int32, fn,
+             "table and start must be int32")
+    _require(v_pool.shape == k_pool.shape, fn, "k_pool/v_pool shapes differ")
+    _require(dk == d and d in _SUPPORTED_D, fn, f"head dim {d} (need 64 or 128)")
+    _require(bs in _SUPPORTED_BS, fn, f"block size {bs} (need 32, 64 or 128)")
+    _require(nq % nkv == 0 and nq // nkv <= TC_MAX_GROUP, fn,
+             f"Nq={nq} must be a multiple of Nkv={nkv}, at most "
+             f"{TC_MAX_GROUP} query heads per kv head")
+    _require(q.data_ptr() % 16 == 0, fn, "q must be 16-byte aligned")
+    _require(window % bs == 0 and 0 < window // bs <= table.shape[0], fn,
+             f"window {window} must be a multiple of bs={bs} within the table")
+    _require(start.numel() == 1, fn, "start must hold one position")
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -117,23 +173,9 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError("paged_chunk_attention: the plain version needs "
                              "q_pos")
         return _gather_chunk_paged(q, k_pool, v_pool, table, q_pos, window)
-    fn = "paged_chunk_attention"
+    _check_paged_chunk(q, k_pool, v_pool, table, start, window)
     _, s_c, nq, d = q.shape
-    nkv, nb, bs, dk = k_pool.shape
-    _check_common(fn, q, (("k_pool", k_pool), ("v_pool", v_pool),
-                          ("table", table), ("start", start)))
-    _require(q.shape[0] == 1, fn, "one slot per call (q batch must be 1)")
-    _require(q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16, fn,
-             "q and pools must be bf16")
-    _require(table.dtype == torch.int32 and start.dtype == torch.int32, fn,
-             "table and start must be int32")
-    _require(v_pool.shape == k_pool.shape, fn, "k_pool/v_pool shapes differ")
-    _require(dk == d and d in _SUPPORTED_D, fn, f"head dim {d} (need 64 or 128)")
-    _require(bs in _SUPPORTED_BS, fn, f"block size {bs} (need 32, 64 or 128)")
-    _require(nq % nkv == 0, fn, f"Nq={nq} not a multiple of Nkv={nkv}")
-    _require(window % bs == 0 and 0 < window // bs <= table.shape[0], fn,
-             f"window {window} must be a multiple of bs={bs} within the table")
-    _require(start.numel() == 1, fn, "start must hold one position")
+    nkv, nb, bs, _ = k_pool.shape
     out = torch.empty_like(q)
     err = _build.entry("paged_chunk")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
@@ -238,8 +280,9 @@ def _check_scales(fn: str, k: torch.Tensor, k_scale: torch.Tensor,
 def _check_query(fn: str, q: torch.Tensor, nkv: int, positions: torch.Tensor,
                  max_group: int) -> None:
     nq = q.shape[-2]
-    _require(q.dtype == torch.bfloat16 and q.is_contiguous(), fn,
-             "q must be contiguous bf16")
+    _require(q.dtype == torch.bfloat16 and q.is_contiguous()
+             and q.data_ptr() % 16 == 0, fn,
+             "q must be contiguous bf16, 16-byte aligned")
     _require(nq % nkv == 0 and nq // nkv <= max_group, fn,
              f"Nq={nq} must be a multiple of Nkv={nkv}, at most {max_group} "
              "query heads per kv head")
@@ -264,7 +307,8 @@ def _contiguous(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
     q8 = k_scale is not None
     w, nkv, kv_bstride = _check_cache(fn, q, k, v, q8)
     sc_bstride = _check_scales(fn, k, k_scale, v_scale) if q8 else 0
-    _check_query(fn, q, nkv, positions, max_group=8 if decode else 64)
+    _check_query(fn, q, nkv, positions,
+                 max_group=8 if decode else TC_MAX_GROUP)
     b, s_q = q.shape[0], 1 if decode else q.shape[1]
     nq, d = q.shape[-2], q.shape[-1]
     out = torch.empty_like(q)
@@ -337,6 +381,123 @@ def flash_chunk_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
                                     q_positions)
     return _contiguous(flash_chunk_attention_q8, "flash_chunk_q8", q, k_cache,
                        v_cache, k_scale, v_scale, q_positions)
+
+
+# -- the tensor-core flash kernel's algorithm in plain PyTorch (tests only) --
+
+def flash_tc_grid(s_q: int, nq: int, nkv: int, b: int):
+    """The tensor-core flash kernel's grid for ``s_q`` query positions,
+    ``nq`` query heads over ``nkv`` kv heads and ``b`` sequences: (query
+    tiles, kv heads, sequences), a query tile being TC_ROWS // group
+    positions times the group's heads."""
+    per_block = TC_ROWS // (nq // nkv)
+    return -(-s_q // per_block), nkv, b
+
+
+def flash_tc_mirror(q, k, v, q_positions=None, k_scale=None, v_scale=None,
+                    p_dtype=torch.bfloat16, stats=None):
+    """The tensor-core flash kernel (``csrc/flash_tc.cuh``: the causal
+    prefill K2, the int8 chunk K12 and the paged chunk K3) in plain
+    float32 PyTorch, block by block as the card runs it.
+
+    q [B, S_q, Nq, D]; k/v [B, W, Nkv, D], bf16 or float32, or int8 with
+    float32 row scales [B, W, Nkv]; ``q_positions`` [B, S_q] (each row's
+    frontier min(position, W - 1)), or None for the prefill's implicit
+    positions (row i at i, W = S_q).  (K3's table-gathered window is the
+    first W positions of its slot, rows at start + r.)  A block owns one
+    kv head and TC_ROWS rows, the group's heads at TC_ROWS // group
+    positions, in four 16-row slabs of TC_WARPS warps.  It walks TC_TILE-key
+    tiles up to its furthest frontier (keys past it zero-filled, never
+    read); warp j of a slab scores the tile's 16-key chunks j, j + 2, ...
+    with its own flash state, and a slab's two states merge at the end.  Per slab a tile past every row's frontier is skipped,
+    one at or below every real row's frontier runs unmasked, and only a
+    tile that straddles one is masked.  Scores are in log2 units (scale
+    times log2 e, and the int8 K row scale); the int8 V row scale is folded
+    into P, and P is rounded to ``p_dtype`` before PV (bf16 on the card;
+    float32 gives the plain versions' arithmetic).  ``stats``, a dict,
+    counts tiles loaded and slab-tiles run masked, unmasked and skipped.
+    Returns [B, S_q, Nq, D] float32."""
+    b, s_q, nq, d = q.shape
+    w, nkv = k.shape[1], k.shape[2]
+    group = nq // nkv
+    per_block = TC_ROWS // group
+    tile, kw = TC_TILE, TC_WARPS
+    if q_positions is None:
+        q_positions = torch.arange(s_q).expand(b, s_q)
+    front = torch.clamp(q_positions.long(), max=w - 1)
+    kf, vf = k.float(), v.float()                 # int8 widened exactly
+    q8 = k_scale is not None
+    qk_scale = d ** -0.5 * _LOG2E
+    # owner[j, c]: key c of a tile belongs to warp j of its slab.
+    owner = (torch.arange(tile) // 16 % kw)[None] == torch.arange(kw)[:, None]
+    out = torch.zeros((b, s_q, nq, d), dtype=torch.float32)
+    stats = {} if stats is None else stats
+    for key in ("tiles", "masked", "unmasked", "skipped"):
+        stats.setdefault(key, 0)
+    n_qt, _, _ = flash_tc_grid(s_q, nq, nkv, b)
+    for bi in range(b):
+        for hk in range(nkv):
+            heads = slice(hk * group, (hk + 1) * group)
+            for qt in range(n_qt):
+                i0 = qt * per_block
+                n_pos = min(per_block, s_q - i0)
+                rows = n_pos * group
+                qb = torch.zeros((TC_ROWS, d))
+                qb[:rows] = q[bi, i0:i0 + n_pos, heads].reshape(rows, d).float()
+                f = torch.full((TC_ROWS,), -1, dtype=torch.long)
+                f[:rows] = front[bi, i0:i0 + n_pos].repeat_interleave(group)
+                real = torch.arange(TC_ROWS) < rows
+                last = int(f[:rows].max())
+                # Per 16-row slab: padded rows mask nothing.
+                slab_f = torch.where(real, f, 1 << 30).view(4, 1, 16)
+                slab_min = slab_f.amin(-1)[:, 0]
+                slab_max = torch.where(real, f, -1).view(4, 16).amax(1)
+                qs = qb.view(4, 1, 16, d)
+                m = torch.full((4, kw, 16), NEG_INF)
+                l = torch.zeros((4, kw, 16))
+                acc = torch.zeros((4, kw, 16, d))
+                for t0 in range(0, last + 1, tile):
+                    stats["tiles"] += 1
+                    keys = torch.arange(t0, t0 + tile)
+                    read = keys <= last
+                    kt, vt = torch.zeros((tile, d)), torch.zeros((tile, d))
+                    kt[read] = kf[bi, keys[read], hk]
+                    vt[read] = vf[bi, keys[read], hk]
+                    x = torch.einsum("sjrd,kd->sjrk", qs, kt) * qk_scale
+                    if q8:
+                        kst, vst = torch.zeros(tile), torch.zeros(tile)
+                        kst[read] = k_scale[bi, keys[read], hk].float()
+                        vst[read] = v_scale[bi, keys[read], hk].float()
+                        x = x * kst
+                    live = t0 <= slab_max
+                    straddle = live & (t0 + tile - 1 > slab_min)
+                    below = keys <= slab_f[..., None]          # [4, 1, 16, T]
+                    assert below[live & ~straddle].all()   # unmasked: all valid
+                    stats["masked"] += int(straddle.sum())
+                    stats["unmasked"] += int((live & ~straddle).sum())
+                    stats["skipped"] += int((~live).sum())
+                    valid = (live[:, None, None, None]
+                             & (~straddle[:, None, None, None] | below)
+                             & owner[None, :, None, :])    # [4, kw, 16, T]
+                    x = torch.where(valid, x, NEG_INF)
+                    m_new = torch.maximum(m, x.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.where(valid, torch.exp2(x - m_new[..., None]),
+                                    0.0)
+                    l = l * alpha + p.sum(-1)
+                    if q8:
+                        p = p * vst
+                    p = p.to(p_dtype).float()
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "sjrk,kd->sjrd", p, vt)
+                    m = m_new
+                # Merge the slab's warps: M = max m_j, weights 2^(m_j - M).
+                wgt = torch.exp2(m - m.amax(1, keepdim=True))
+                l = (l * wgt).sum(1)
+                acc = (acc * wgt[..., None]).sum(1)
+                o = (acc / l.clamp_min(1e-30)[..., None]).view(TC_ROWS, d)
+                out[bi, i0:i0 + n_pos, heads] = o[:rows].view(n_pos, group, d)
+    return out
 
 
 flash_causal_attention.launches = 0
