@@ -20,14 +20,16 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    of 989 TFLOP/s); all three as replayed CUDA graphs (device time), with
    the eager single call beside them; each is also checked at its other
    instantiations (head dim, block, group, verify width; the split-K
-   verify and contiguous decode kernels also on tables and windows
-   spanning several of their splits; the verify kernels timed at a short
-   shape too; the causal prefill also at the orin tier's width and at
-   2048 rows, and against the paged chunk kernel, which is the same
-   kernel with another tile source: a prompt's rows must get the same
-   bits from the cold prefill and from a prefix hit's suffix); the dense
-   windowed tick's
-   paged decode kernels (bf16 at the nano tier's shape, int8 at the orin
+   verify, int8 ragged decode and contiguous decode kernels also on tables
+   and windows spanning several of their splits; the verify kernels timed
+   at a short shape too; the bf16 contiguous chunk kernel on both of its
+   routes, the split kernel for a few rows and the tensor-core kernel for
+   wide chunks, at each side of the boundary between them; the causal
+   prefill also at the orin tier's width and at 2048 rows, and against
+   the paged chunk kernel, which is the same kernel with another tile
+   source: a prompt's rows must get the same bits from the cold prefill
+   and from a prefix hit's suffix); the dense windowed tick's paged
+   decode kernels (bf16 at the nano tier's shape, int8 at the orin
    tier's, each through a column slice of the full table) and the
    contiguous-cache decode and chunk kernels of the sequential engines
    (bf16 and int8) likewise, at their serving shapes;
@@ -94,8 +96,8 @@ REPORT_DIR = os.path.join(REPO, "chiprun_out")
 # the plain version run in float32 on the same inputs (bf16 widened
 # exactly, int8 dequantized in float32): ||kernel - plain32|| / ||plain32||
 # <= KERNEL_REL_TOL.  The kernels round P (all but the int8 paged decode
-# kernels K5 and K8) and their output to bf16: their worst rows read
-# 0.0019-0.0044 on an H100, the plain
+# kernel K8) and their output to bf16: their worst rows read
+# 0.0019-0.0046 on an H100, the plain
 # versions in bf16 0.005-0.019 (they round the logits and, for int8, the
 # dequantized K/V to bf16).  A row's output shrinks as its
 # frontier N grows (it averages N random values, about sqrt(e / N)), so
@@ -671,6 +673,16 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
     a5 = worst(a5, compare(out, TA._gather_decode_paged,
                            (dq, dkq, dvq, tables, pos, dks, dvs)))
     agrees("ragged_decode_q8", a5)
+    # The bound's resolution: every frontier one tile short, over the
+    # slots whose frontier is at least one tile.
+    long_slots = pos >= bs
+    plain_args = (q, kq, vq, tables, pos, ks, vs)
+    a5["one_tile_short_rel_err"] = row_rel_err(
+        TA._gather_decode_paged(*widen((q, kq, vq, tables, pos - bs, ks,
+                                        vs)))[long_slots],
+        TA._gather_decode_paged(*widen(plain_args))[long_slots])
+    require(a5["one_tile_short_rel_err"] > KERNEL_REL_TOL,
+            f"ragged_decode_q8: a missed tile would pass at this shape: {a5}")
     # K1 at the nano draft's shape (bf16 pool of a 4-slot engine).
     out = TR.ragged_paged_decode_attention(dq, dk, dv, tables, pos)
     torch.cuda.synchronize()
@@ -710,8 +722,11 @@ def spec_variant_checks(torch, gen) -> dict:
     splits, the last of four tiles), an idle slot, a frontier ending
     exactly on a split boundary, one ending one tile past it (a last
     split of a single tile) and a chunk whose G rows straddle a boundary
-    (rows before it leave an empty partial in the live split after it);
-    returns the worst ``compare`` per kernel."""
+    (rows before it leave an empty partial in the live split after it).
+    The int8 decode kernel is also held at the boundaries of its own plan
+    (``ragged_decode_split_plan``: 1 or 2 blocks a split here): a
+    frontier on a split's last key, on the next split's first key and one
+    block past it.  Returns the worst ``compare`` per kernel."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import quant
     from distributed_llm_tpu_torch.ops import ragged_attention as TR
@@ -759,11 +774,15 @@ def spec_variant_checks(torch, gen) -> dict:
                          vs)
                     if g == 1:
                         q1 = q[:, 0].contiguous()
-                        note("ragged_decode_q8",
-                             TR.ragged_paged_decode_attention_q8(
-                                 q1, kq, vq, ks, vs, tables, pos),
-                             TA._gather_decode_paged, q1, kq, vq, tables, pos,
-                             ks, vs)
+                        dedge = TR.ragged_decode_split_plan(mb, b, nkv)[0] * bs
+                        for dpos in (pos, torch.tensor(
+                                [dedge - 1, 0, dedge, dedge + bs, mb * bs - 1],
+                                dtype=torch.int32, device=dev)):
+                            note("ragged_decode_q8",
+                                 TR.ragged_paged_decode_attention_q8(
+                                     q1, kq, vq, ks, vs, tables, dpos),
+                                 TA._gather_decode_paged, q1, kq, vq, tables,
+                                 dpos, ks, vs)
     return errs
 
 
@@ -799,11 +818,15 @@ def contiguous_kernel_phase(torch, nano, orin):
     GQA-expanded window with the per-row causal mask (timed here only)
     and the card's bound: bytes at 3.35 TB/s (each sequence's own
     frontier+1 cache rows of K and V once, scales included, plus q and
-    out) or operations at 989 TFLOP/s.  Then every kernel at its other
-    instantiations (``contiguous_variant_checks``)."""
+    out) or operations at 989 TFLOP/s.  K11 at each shape takes its
+    route (``chunk_route``); where that is the split route (the 5-row
+    verify), the tensor-core route is also held and timed there
+    (``tc_route``).  Then every kernel at its other instantiations
+    (``contiguous_variant_checks``)."""
     import torch.nn.functional as F
 
     from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
@@ -854,6 +877,19 @@ def contiguous_kernel_phase(torch, nano, orin):
                 plain[name](*widen(args)))
             require(res["one_tile_short_rel_err"] > KERNEL_REL_TOL,
                     f"{name}: a missed tile would pass at this shape: {res}")
+            if name == "flash_chunk":
+                res["route"] = TF.chunk_route(s_c, nq, nkv)
+            if res.get("route") == "split":
+                # The other route on the same inputs (wide chunks take
+                # only the tensor-core one).
+                def tc_call():
+                    return TF._tc_chunk(TF.flash_chunk_attention,
+                                        "flash_chunk", q, kc, vc, None, None,
+                                        pos)
+                res_tc = compare(tc_call(), plain[name], args)
+                agree = worst(agree, res_tc)
+                res["tc_route"] = {**res_tc, "ms": graph_ms(torch, tc_call,
+                                                            flush=flush)}
             kd, vd = ((TA._dequant_cache(kc, vc, ks, vs, bf)) if q8
                       else (kc, vc))
             grp = nq // nkv
@@ -907,8 +943,13 @@ def contiguous_variant_checks(torch, gen) -> dict:
     1-5, 20, 37 and 64 clamped to a true length, K12 also with its last
     row's frontier on and one key past a 64- and a 128-key tile boundary,
     and 600 rows over W=1000 of S=1100 at B=4 (a grid past the card's SM
-    count)."""
+    count).  K11 takes its route by shape (``chunk_route``) and every
+    chunk that fits the split route is also held on the tensor-core
+    route; it is held too at each side of the boundary between them
+    (48 / group rows and one more), its first sequence's rows passing
+    W - 1 and each sequence's last row clamped onto the one before."""
     from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import quant
     from distributed_llm_tpu_torch.ops import ragged_attention as TR
 
@@ -925,6 +966,18 @@ def contiguous_variant_checks(torch, gen) -> dict:
     def note(name, plain, *args):
         errs[name] = worst(errs[name],
                            compare(wrappers[name](*args), plain, args))
+
+    def note_chunk(qc, k, v, q_pos):
+        """K11 through its wrapper (the route its shape takes) and, where
+        that is the split route, on the tensor-core route too."""
+        args = (qc, k, v, q_pos)
+        note("flash_chunk", TA._chunk_contiguous, *args)
+        nq, nkv = qc.shape[2], k.shape[2]
+        if TF.chunk_route(qc.shape[1], nq, nkv) == "split":
+            out = TF._tc_chunk(TF.flash_chunk_attention, "flash_chunk", qc, k,
+                               v, None, None, q_pos)
+            errs["flash_chunk"] = worst(errs["flash_chunk"], compare(
+                out, TA._chunk_contiguous, args))
 
     def windows(b, nkv, d, s_max, w):
         k, v = randn(b, s_max, nkv, d), randn(b, s_max, nkv, d)
@@ -956,8 +1009,7 @@ def contiguous_variant_checks(torch, gen) -> dict:
                     q_pos = torch.minimum(starts + rows, starts + max(1, s_c - 2)
                                           ).to(torch.int32)
                     qc = randn(b, s_c, nq, d)
-                    note("flash_chunk", TA._chunk_contiguous, qc, *bf_win,
-                         q_pos)
+                    note_chunk(qc, *bf_win, q_pos)
                     note("flash_chunk_q8", TA._chunk_contiguous_q8, qc,
                          *q8_win, q_pos)
                     # The int8 chunk with its last row's frontier on a tile
@@ -968,6 +1020,17 @@ def contiguous_variant_checks(torch, gen) -> dict:
                         torch.int32)
                     note("flash_chunk_q8", TA._chunk_contiguous_q8, qc,
                          *q8_win, q_pos)
+                # K11 at each side of its route boundary: the first
+                # sequence's rows at 196 on pass W - 1 = 199, and every
+                # sequence's last row is clamped onto the one before it.
+                fit = TF.SPLIT_MAX_ROWS // (nq // nkv)
+                for s_c in (fit, fit + 1):
+                    starts = torch.tensor([196, 0, 37, 130][:b],
+                                          device=dev)[:, None]
+                    q_pos = (starts + torch.arange(s_c, device=dev)[None]).to(
+                        torch.int32)
+                    q_pos[:, -1] = q_pos[:, -2]
+                    note_chunk(randn(b, s_c, nq, d), *bf_win, q_pos)
             # The int8 chunk on a grid past the card's SM count (one warp a
             # slab): 600 rows at 300-399 over W=1000 of S=1100.
             b = 4
@@ -1255,11 +1318,14 @@ def served(torch, tier, device: str = "cuda"):
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and every plain version's call count
-    (the int8 suffix chunk's too) set to 0, just before a main path."""
+    """Every kernel's launch count (the bf16 chunk kernel's by route too)
+    and every plain version's call count (the int8 suffix chunk's too) set
+    to 0, just before a main path."""
     from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    TF.flash_chunk_attention.route_launches = {"split": 0, "tc": 0}
     for fn in plain_versions() + (TA._dequant_chunk_paged,):
         fn.calls = 0
 
@@ -1734,6 +1800,7 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
     card, the decode step's breakdown.  Returns (serve numbers, launches
     by kernel)."""
     from distributed_llm_tpu_torch.engine.speculative import SpeculativeEngine
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
 
     on_card = device == "cuda"
     with served(torch, tier, device) as (engine, base, startup_s):
@@ -1762,6 +1829,7 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
         serve = serve_numbers(tier, engine, startup_s, main_s, drove, launches,
                               plain_calls)
         serve.update({
+            "flash_chunk_routes": dict(TF.flash_chunk_attention.route_launches),
             "draft": tier.draft_preset if spec else None,
             "spec": ({"rounds": len(engine.accept_history),
                       "acceptance_rate": engine.acceptance_rate}
@@ -2158,6 +2226,16 @@ def main() -> None:
         row["kernel_ms"] = row["ms"]
     require(all(row["launches"] > 0 for row in rows),
             "a kernel never launched on a main path")
+    # K11's two routes are one kernel; each must have run on a main path
+    # (the sequential speculative verify takes the split route, the long
+    # prompt's 2048-row chunks the tensor-core route).
+    chunk_routes = {p: phases[p]["flash_chunk_routes"]
+                    for p in ("orin_seq_bf16", "orin_seq_spec")}
+    require(all(sum(r[k] for r in chunk_routes.values()) > 0
+                for k in ("split", "tc")),
+            f"a route of flash_chunk never ran on a main path: {chunk_routes}")
+    next(row for row in rows
+         if row["name"] == "flash_chunk")["launches_by_route"] = chunk_routes
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -2177,7 +2255,8 @@ def main() -> None:
         summary[name] = {k: serve[k] for k in (
             "model", "engine", "draft", "kv_quantize", "requests",
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
-            "chunked_ttft_ms", "tick_stats", "spec", "decode_step",
+            "chunked_ttft_ms", "flash_chunk_routes", "tick_stats", "spec",
+            "decode_step",
             "verify_step",
             "decode_logits_check", "verify_check", "peak_memory_gb")
             if k in serve}
@@ -2200,7 +2279,8 @@ def main() -> None:
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (
-                                     "one_tile_short_rel_err", "short")
+                                     "one_tile_short_rel_err", "short",
+                                     "launches_by_route")
                                     if k in row}} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-// Shared pieces of the CUDA-core attention kernels (ragged_paged.cuh,
-// contiguous.cuh): bf16 tile loads into padded shared memory and the
-// per-query-row online-softmax (flash) update.
+// Shared pieces of the CUDA-core attention kernel (ragged_paged.cuh): bf16
+// tile loads into padded shared memory and the per-query-row
+// online-softmax (flash) update.
 //
 // Work split: a block of kThreads = 4 warps owns a set of query rows
 // that read one kv head.  Each warp owns whole rows.  For every key

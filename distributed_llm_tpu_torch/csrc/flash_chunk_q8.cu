@@ -23,12 +23,17 @@
 #include "flash_tc.cuh"
 
 // Returns the launch's cudaError_t (0 = launched).  D must be 64 or 128,
-// Nq a multiple of Nkv with a group of at most 64, B, S_q and W >= 1.
+// Nq a multiple of Nkv with a group of at most 64, B, S_q and W >= 1.  The
+// signature is the contiguous-cache kernels' one; this kernel has only the
+// tensor-core route, so T must be 0 and the scratch pointers and S are not
+// read.
 extern "C" int flash_chunk_attention_q8(const void* q, const void* k, const void* v,
                                         const void* k_scale, const void* v_scale, const void* q_pos,
-                                        void* o, int B, int S_q, int Nq, int Nkv, int D, int W,
+                                        void* o, void* part_acc, void* part_ml, int B, int S_q,
+                                        int Nq, int Nkv, int D, int W, int T, int S,
                                         long long kv_bstride, long long sc_bstride, float scale,
                                         void* stream) {
+  if (T != 0) return (int)cudaErrorInvalidValue;
   dllm::tc::Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = k;

@@ -34,7 +34,7 @@ extern "C" int flash_decode_attention(const void* q, const void* k, const void* 
                                       int Nq, int Nkv, int D, int W, int T, int S,
                                       long long kv_bstride, long long sc_bstride, float scale,
                                       void* stream) {
-  return dllm::verify::split_decode_attention<false>(q, k, v, k_scale, v_scale, q_pos, o,
+  return dllm::verify::split_window_attention<false>(q, k, v, k_scale, v_scale, q_pos, o,
                                                      part_acc, part_ml, B, S_q, Nq, Nkv, D, W,
                                                      T, S, kv_bstride, sc_bstride, scale, stream);
 }

@@ -30,7 +30,7 @@ extern "C" int flash_decode_attention_q8(const void* q, const void* k, const voi
                                          void* part_ml, int B, int S_q, int Nq, int Nkv, int D,
                                          int W, int T, int S, long long kv_bstride,
                                          long long sc_bstride, float scale, void* stream) {
-  return dllm::verify::split_decode_attention<true>(q, k, v, k_scale, v_scale, q_pos, o,
+  return dllm::verify::split_window_attention<true>(q, k, v, k_scale, v_scale, q_pos, o,
                                                     part_acc, part_ml, B, S_q, Nq, Nkv, D, W,
                                                     T, S, kv_bstride, sc_bstride, scale, stream);
 }

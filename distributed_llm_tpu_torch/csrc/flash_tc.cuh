@@ -1,22 +1,24 @@
 // Tensor-core flash attention of many query rows against K/V, for Hopper:
 // the kernel behind flash_causal.cu (the cold causal prefill, K2),
 // flash_chunk_q8.cu (a chunk over the sequential engines' int8 cache,
-// K12) and paged_chunk.cu (a suffix chunk over the paged pool, K3).  They
+// K12), flash_chunk.cu's wide chunks (the same over their bf16 cache,
+// K11) and paged_chunk.cu (a suffix chunk over the paged pool, K3).  They
 // replace the Pallas TPU kernels `_flash_kernel`, `_chunk_kernel_native_q8`
-// / `_chunk_kernel_q8` and `_paged_chunk_kernel`
-// (distributed_llm_tpu/ops/pallas_attention.py).  All three compute "a
-// chunk of query rows at known positions against K/V, row i attending keys
-// 0 .. pos_i"; a template flag (`Source`) says where the tiles and the
-// positions come from.  One arithmetic serves all three, so a row scored
+// / `_chunk_kernel_q8`, `_chunk_kernel_native` / `_chunk_kernel` and
+// `_paged_chunk_kernel` (distributed_llm_tpu/ops/pallas_attention.py).  All
+// of them compute "a chunk of query rows at known positions against K/V,
+// row i attending keys 0 .. pos_i"; a template flag (`Source`) says where
+// the tiles and the positions come from.  One arithmetic serves all three, so a row scored
 // by the prefill and the same row scored on a prefix hit's suffix (K3 over
 // the K/V the prefill wrote) give the same bits.
 //
 // Layout: q [B, S_q, Nq, D] bf16, o the same; query head h reads kv head
 // h / (Nq / Nkv); keys t < W.
 // - kFresh (K2): k/v the fresh [B, S, Nkv, D] bf16, W = S, row i at i.
-// - kWindow (K12): K/V element (b, t, h, d) at b * kv_bstride +
-//   (t * Nkv + h) * D + d, int8, with float32 row scales (b, t, h) at
-//   b * sc_bstride + t * Nkv + h: a window of a longer cache read in place.
+// - kWindow (K12 int8, K11 bf16): K/V element (b, t, h, d) at
+//   b * kv_bstride + (t * Nkv + h) * D + d, and for int8 float32 row scales
+//   (b, t, h) at b * sc_bstride + t * Nkv + h: a window of a longer cache
+//   read in place.
 //   q_pos [B, S_q] int32 is read row by row on the device, frontier
 //   min(q_pos, W - 1); reading each row's position (not start + r) keeps
 //   padded chunk rows equal to the plain version's.
@@ -121,7 +123,7 @@ constexpr int kKW = 2;            // warps a slab
 // Where the tiles and the positions come from.
 enum Source : int {
   kFresh = 0,   // K2: k/v [B, S, Nkv, D], row i at position i
-  kWindow = 1,  // K12: a cache window through its batch stride, q_pos [B, S_q]
+  kWindow = 1,  // K12, K11: a cache window through its batch stride, q_pos [B, S_q]
   kPaged = 2,   // K3: a slot's pool blocks through its table, row i at start + i
 };
 

@@ -1,8 +1,8 @@
 // Ragged paged decode attention for Hopper over a bf16 or an int8 pool
-// (G = 1 query per slot): the kernel behind ragged_decode.cu,
-// ragged_decode_q8.cu, paged_decode.cu and paged_decode_q8.cu.  The
-// speculative verify (G = gamma + 1) has its own split-K kernel,
-// ragged_verify.cuh.
+// (G = 1 query per slot): the kernel behind ragged_decode.cu (K1),
+// paged_decode.cu (K7) and paged_decode_q8.cu (K8).  The speculative
+// verify (G = gamma + 1) and the int8 ragged decode (ragged_decode_q8.cu)
+// run ragged_verify.cuh's split-K kernel.
 //
 // Layout: q [B, G, Nq, D] bf16 (decode: G = 1, i.e. [B, Nq, D]); one
 // layer's pool [Nkv, NB, bs, D], bf16 or int8, and for int8 the float32

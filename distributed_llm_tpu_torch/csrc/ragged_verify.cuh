@@ -1,29 +1,38 @@
 // Split-K attention for Hopper over a bf16 or an int8 cache: the kernels
 // behind ragged_verify.cu and ragged_verify_q8.cu (speculative verify over
-// the paged pool) and behind flash_decode.cu and flash_decode_q8.cu
-// (one-token decode over the sequential engines' contiguous cache).  One
-// split kernel serves both; a tile-source policy (`Contig`) says where a
-// tile's rows come from.
+// the paged pool), ragged_decode_q8.cu (one-token decode over the int8
+// pool, G = 1), flash_decode.cu and flash_decode_q8.cu (one-token decode
+// over the sequential engines' contiguous cache) and flash_chunk.cu's
+// split route (a chunk of a few rows over the same cache: the sequential
+// speculative verify).  One split kernel serves them all; a tile-source
+// policy (`Contig`) says where a tile's rows, and each row's frontier,
+// come from.
 //
-// Contract of the verify (the Pallas `_ragged_verify_kernel` /
-// `_ragged_verify_kernel_q8`): q [B, G, Nq, D] bf16; one layer's pool
-// [Nkv, NB, bs, D], bf16 or int8, and for int8 the float32 row scales
-// [Nkv, NB, bs]; tables [B, MB] int32 hold each slot's FULL block row and
-// pos [B] int32 the FIRST query's position, both read on the device.
-// Query g of slot b attends positions 0 .. pos[b] + g, position p living at
-// (tables[b, p / bs], p % bs); idle slots point their row at the trash
-// block 0 with pos 0.  Output [B, G, Nq, D] bf16.
+// Contract over the pool (the Pallas `_ragged_verify_kernel` /
+// `_ragged_verify_kernel_q8`, and `_ragged_decode_kernel_q8` at G = 1):
+// q [B, G, Nq, D] bf16; one layer's pool [Nkv, NB, bs, D], bf16 or int8,
+// and for int8 the float32 row scales [Nkv, NB, bs]; tables [B, MB] int32
+// hold each slot's FULL block row and pos [B] int32 the FIRST query's
+// position, both read on the device.  Query g of slot b attends positions
+// 0 .. pos[b] + g, position p living at (tables[b, p / bs], p % bs); idle
+// slots point their row at the trash block 0 with pos 0.  Output
+// [B, G, Nq, D] bf16.
 //
-// Contract of the decode (the Pallas `_decode_kernel` /
-// `_decode_kernel_q8`): q [B, Nq, D] bf16 (G = 1); one layer's cache
-// window of W positions, element (b, t, h, d) at b * kv_bstride +
-// (t * Nkv + h) * D + d, bf16 or int8, and for int8 the float32 row scales,
-// (b, t, h) at b * sc_bstride + t * Nkv + h.  The batch strides are the
-// caller's, so a window [:, :W] of a longer cache is read in place.  pos
-// [B] int32 is read on the device; query head h attends kv head
-// h / (Nq / Nkv) at positions 0 .. min(pos[b], W - 1).  The window is cut
-// into tiles of kDecodeTile = 64 positions (MB = ceil(W / 64) tiles, the
-// last one partial), read through the row stride Nkv * D.
+// Contract over a contiguous window (the Pallas `_decode_kernel` /
+// `_decode_kernel_q8` at G = 1, `_chunk_kernel_native` / `_chunk_kernel`
+// at G = S_c): q [B, G, Nq, D] bf16 (the decode's [B, Nq, D] is G = 1);
+// one layer's cache window of W positions, element (b, t, h, d) at
+// b * kv_bstride + (t * Nkv + h) * D + d, bf16 or int8, and for int8 the
+// float32 row scales, (b, t, h) at b * sc_bstride + t * Nkv + h.  The
+// batch strides are the caller's, so a window [:, :W] of a longer cache
+// is read in place.  pos [B, G] int32 holds each query's own position,
+// read on the device row by row (not rebuilt as a first position + g, so
+// a chunk's padded rows, clamped to its true length, match the plain
+// version); query (g, h) attends kv head h / (Nq / Nkv) at positions
+// 0 .. min(pos[b, g], W - 1).  The window is cut into tiles of
+// kDecodeTile = 64 positions (MB = ceil(W / 64) tiles, the last one
+// partial), read through the row stride Nkv * D; no key at or past W is
+// read or scored (a zero-filled key would score 0, not -inf).
 //
 // Bound: bytes.  A verify reads each slot's n_tiles = min(MB, (pos + G -
 // 1) / bs + 1) blocks of K and V once and does about group * G
@@ -34,34 +43,43 @@
 //
 // 1. Split-K (flash-decoding).  Grid (Nkv, B, S); block (hk, b, s) walks
 //    the sequence's tiles [s * T, min((s + 1) * T, n_tiles)).  T and S come
-//    from the wrapper, chosen from shapes alone (no host sync):
-//    - verify (ops/ragged_attention.py `split_plan`): at orin's MB = 128,
-//      T = 8 tiles, so the timed verify's long slot alone is 16 splits and
-//      the batch 192 live blocks on 132 SMs, where one block per (kv head,
-//      slot) was 32;
-//    - decode (`decode_split_plan`): a decode block holds only the group's
-//      4 rows, whose partials (4 x D floats, 2 KB at D = 128) are small
-//      beside one 32 KB bf16 K/V tile pair, so splits are as short as 528
-//      blocks over the whole window ask: T = ceil(B * Nkv * MB / 528).  At
-//      orin's B = 1, Nkv = 8, W = 8192 that is T = 2 tiles (128 positions)
-//      and S = 64 splits; at the served position 2255 the 36 live tiles are
-//      18 splits, 144 live blocks on 132 SMs (one block per kv head and
-//      sequence was 8).
+//    from the wrapper, chosen from shapes alone (no host sync; the plans
+//    are in ops/ragged_attention.py):
+//    - verify (`split_plan`): at orin's MB = 128, T = 8 tiles, so the timed
+//      verify's long slot alone is 16 splits and the batch 192 live blocks
+//      on 132 SMs, where one block per (kv head, slot) was 32;
+//    - decode, over the pool (`ragged_decode_split_plan`) or a window
+//      (`decode_split_plan`): a decode block holds only the group's 4 rows,
+//      whose partials (4 x D floats, 2 KB at D = 128) are small beside one
+//      tile pair (32 KB bf16, 17 KB int8 with its scales), so splits are as
+//      short as 528 blocks over the whole table or window ask:
+//      T = ceil(B * Nkv * MB / 528).  At orin's int8 pool (B = 4, Nkv = 8,
+//      MB = 128) that is T = 8 and S = 16, up to 128 live blocks a slot; at
+//      its sequential decode (B = 1, W = 8192) T = 2 tiles (128 positions)
+//      and S = 64, and at the served position 2255 the 36 live tiles are 18
+//      splits, 144 live blocks on 132 SMs (one block per kv head and
+//      sequence was 8);
+//    - a chunk of a few rows over a window (`chunk_split_plan`): the decode
+//      plan, but never so short that a split's partials (written once, read
+//      once: 2 x rows x (D + 2) floats) outweigh the K/V it reads.  At
+//      orin's 5-row verify (20 rows, D = 128, W = 8192) that is T = 2, the
+//      partials a third of a split's 64 KB of K/V; at position 3000 the 47
+//      live tiles are 24 splits, 192 live blocks, two an SM in one wave.
 //    A block whose first tile lies past its sequence's frontier marks its
 //    partial empty and exits.  Each live block writes a float32 partial
 //    (m, l, acc[D]) per query row; a merge kernel combines a row's
-//    partials over the splits its sequence's frontier reaches (worked out
-//    from pos on the device): M = max m_s, L = sum l_s 2^(m_s - M),
-//    O = sum acc_s 2^(m_s - M) / max(L, 1e-30).  A row whose own frontier
-//    pos + g ends before a live split's first tile leaves l = 0 and m at
-//    the -1e30 sentinel there, and weighs 0.  m is kept in units of log2
-//    (scores times log2 e), so every exponential is one exp2.  The verify
-//    merges a row in one warp (`split_merge_kernel`, at most 16 splits a
-//    row at orin); the decode, with up to 64, in one block whose warps sum
-//    a share of the splits each (`split_merge_row_kernel`).
+//    partials over the splits its sequence's furthest frontier reaches
+//    (worked out from pos on the device): M = max m_s, L = sum l_s
+//    2^(m_s - M), O = sum acc_s 2^(m_s - M) / max(L, 1e-30).  A row whose
+//    own frontier ends before a live split's first tile leaves l = 0 and m
+//    at the -1e30 sentinel there, and weighs 0.  m is kept in units of log2
+//    (scores times log2 e), so every exponential is one exp2.  Over the
+//    pool a row merges in one warp (`split_merge_kernel`, at most 16
+//    splits a row at orin); over a window, with up to 64, in one block
+//    whose warps sum a share of the splits each (`split_merge_row_kernel`).
 // 2. Tensor cores.  The block's rows are the group's heads x G positions,
 //    row r = head_in_group * G + g (20 at orin's verify, 4 at its decode, at
-//    most 48), padded to MT tiles of 16.  QK and PV are mma.sync m16n8k16
+//    most 48: kMaxRows), padded to MT tiles of 16.  QK and PV are mma.sync m16n8k16
 //    bf16 -> f32, fragments loaded by ldmatrix from padded shared tiles
 //    (rows of D + 8 bf16: the 8 rows of an 8x8 matrix start 4 banks apart).
 //    Q is used unscaled in bf16 (exact); the softmax scale multiplies the
@@ -83,12 +101,12 @@
 //    cp.async.cg, 16 bytes a thread, one commit group per tile: the copy of
 //    tile j + kStages - 1 is in flight while the products of tile j run (at
 //    orin's decode, 3 stages: both tiles of a split are issued before the
-//    first is scored).  The verify reads a tile's table entry when it
-//    issues the copy.  The decode's rows are strided by Nkv * D elements
-//    and its int8 row scales by Nkv floats, so its scales go by 4-byte
-//    cp.async.ca, one a thread; rows past the block's frontier (the
-//    window's ragged end included) are zero-filled by the copy (src-size
-//    0), never read.
+//    first is scored).  Over the pool a tile's table entry is read when its
+//    copy is issued.  A window's rows are strided by Nkv * D elements and
+//    its int8 row scales by Nkv floats, so its scales go by 4-byte
+//    cp.async.ca, one a thread; rows past the block's furthest frontier
+//    (the window's ragged end included) are zero-filled by the copy
+//    (src-size 0), never read.
 // 4. int8.  The ring stages int8 tiles (rows of D + 16 bytes) and both
 //    row-scale vectors through the same cp.async path; each tile is then
 //    widened into one bf16 K/V tile pair in shared memory (integers in
@@ -113,6 +131,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // half an SM's, so two blocks fit on one at the timed shape.
 constexpr int kRingBudget = 102 * 1024;
 constexpr int kDecodeTile = 64;  // positions per tile of a contiguous window
+constexpr int kMaxRows = 48;     // rows a block takes: three 16-row tiles
 
 struct Args {
   const __nv_bfloat16* q;
@@ -121,14 +140,14 @@ struct Args {
   const float* k_scale;  // int8 pools only
   const float* v_scale;
   const int* tables;
-  const int* pos;
+  const int* pos;  // pool: [B], the first query's; window: [B, G], each query's
   __nv_bfloat16* o;
   float* part_acc;  // [B, Nkv, S, R, D]
   float* part_ml;   // [B, Nkv, S, R, 2]: (m in log2 units, l)
   int B, G, Nq, Nkv, NB, bs, D, MB, T, S;
   float scale;
-  // Contiguous windows only (the decode): W positions, batch strides in
-  // elements of the cache and of the scales.
+  // Contiguous windows only: W positions, batch strides in elements of the
+  // cache and of the scales.
   int W = 0;
   long long kv_bstride = 0;
   long long sc_bstride = 0;
@@ -221,6 +240,25 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The furthest position any query of sequence b attends: pos[b] + G - 1
+// over the pool; over a window the largest min(pos[b, g], W - 1).
+template <bool Contig>
+__device__ __forceinline__ int last_position(const Args& a, int b) {
+  if constexpr (Contig) {
+    int last = -1;
+    for (int g = 0; g < a.G; ++g) last = max(last, min(a.pos[(long)b * a.G + g], a.W - 1));
+    return last;
+  } else {
+    return a.pos[b] + a.G - 1;
+  }
+}
+
+// The tiles that reach sequence b's furthest frontier.
+template <bool Contig>
+__device__ __forceinline__ int frontier_tiles(const Args& a, int b) {
+  return min(a.MB, last_position<Contig>(a, b) / a.bs + 1);
 }
 
 // Start the cp.async copies of one pool block (K and V rows row0 ..
@@ -348,8 +386,9 @@ __device__ __forceinline__ void widen_stage(__nv_bfloat16* wide, const unsigned 
 }
 
 // Contig selects the tile source: false reads a slot's pool blocks
-// through its table row (the verify), true a sequence's contiguous window
-// through its strides (the decode, G = 1, its frontier clamped to W - 1).
+// through its table row (row g's frontier pos[b] + g), true a sequence's
+// contiguous window through its strides (row g's frontier
+// min(pos[b, g], W - 1)).
 template <int D, int BS, int MT, bool Q8, bool Contig>
 __global__ void __launch_bounds__(Cfg<D, BS, MT, Q8>::kThreads)
 split_verify_kernel(const Args a) {
@@ -365,8 +404,8 @@ split_verify_kernel(const Args a) {
   const int G = a.G;
   const int group = a.Nq / a.Nkv;
   const int R = group * G;
-  const int p0 = Contig ? min(a.pos[b], a.W - 1) : a.pos[b];
-  const int n_tiles = min(a.MB, (p0 + G - 1) / BS + 1);
+  const int last = last_position<Contig>(a, b);  // the furthest frontier
+  const int n_tiles = min(a.MB, last / BS + 1);
   const int j0 = s * a.T;
   const int j1 = min(j0 + a.T, n_tiles);
   const long part = ((long)b * a.Nkv + hk) * a.S + s;
@@ -384,7 +423,7 @@ split_verify_kernel(const Args a) {
   const auto issue = [&](int i, int j) {
     unsigned char* stage = ring + i * C::kStageBytes;
     if constexpr (Contig) {
-      load_stage_contig<D, BS, MT, Q8>(stage, a, b, hk, j * BS, p0);
+      load_stage_contig<D, BS, MT, Q8>(stage, a, b, hk, j * BS, last);
     } else {
       const long head_row0 = (long)hk * a.NB * BS;  // first pool row of this kv head
       load_stage<D, BS, MT, Q8>(stage, a, head_row0 + (long)a.tables[(long)b * a.MB + j] * BS);
@@ -426,9 +465,14 @@ split_verify_kernel(const Args a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = rt * 16 + (lane >> 2) + 8 * h;
-    front[h] = r < R ? p0 + r % G : -1;  // padded rows see nothing
+    if (r >= R) {
+      front[h] = -1;  // padded rows see nothing
+    } else if constexpr (Contig) {
+      front[h] = min(a.pos[(long)b * G + r % G], a.W - 1);
+    } else {
+      front[h] = a.pos[b] + r % G;
+    }
   }
-  const int last = p0 + G - 1;
   const float qk_scale = a.scale * kLog2e;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -587,7 +631,7 @@ split_verify_kernel(const Args a) {
 // splits the slot's frontier reaches and write the row as bf16.
 constexpr int kMergeWarps = 4;
 
-template <int D>
+template <int D, bool Contig>
 __global__ void __launch_bounds__(kMergeWarps * 32)
 split_merge_kernel(const Args a) {
   constexpr int kDims = D / 32;  // output dims per lane
@@ -599,8 +643,7 @@ split_merge_kernel(const Args a) {
   const int r = row % R;
   const int hk = (row / R) % a.Nkv;
   const int b = row / (R * a.Nkv);
-  const int n_tiles = min(a.MB, (a.pos[b] + a.G - 1) / a.bs + 1);
-  const int n_splits = (n_tiles + a.T - 1) / a.T;
+  const int n_splits = (frontier_tiles<Contig>(a, b) + a.T - 1) / a.T;
   const long first = ((long)b * a.Nkv + hk) * a.S * R + r;  // partial of split 0
 
   float mm = kNegInf;
@@ -626,13 +669,13 @@ split_merge_kernel(const Args a) {
 }
 
 // One block per output row (b, kv head, row), for rows with many splits
-// (the decode: 64 at orin's 8192 window): warp w sums the partials of
+// (a window: 64 at orin's 8192 positions): warp w sums the partials of
 // splits w, w + kRowMergeWarps, ... (four loads in flight a lane), the
 // warps' sums meet in shared memory, and warp 0 writes the row as bf16.
 // The same arithmetic as `split_merge_kernel`, summed in another order.
 constexpr int kRowMergeWarps = 4;
 
-template <int D>
+template <int D, bool Contig>
 __global__ void __launch_bounds__(kRowMergeWarps * 32)
 split_merge_row_kernel(const Args a) {
   constexpr int kDims = D / 32;  // output dims per lane
@@ -647,8 +690,7 @@ split_merge_row_kernel(const Args a) {
   const int b = row / (R * a.Nkv);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int n_tiles = min(a.MB, (a.pos[b] + a.G - 1) / a.bs + 1);
-  const int n_splits = (n_tiles + a.T - 1) / a.T;
+  const int n_splits = (frontier_tiles<Contig>(a, b) + a.T - 1) / a.T;
   const long first = ((long)b * a.Nkv + hk) * a.S * R + r;  // partial of split 0
   const float2* ml = reinterpret_cast<const float2*>(a.part_ml);
 
@@ -712,9 +754,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int rows = a.B * a.Nkv * (a.Nq / a.Nkv) * a.G;
   if constexpr (Contig) {
-    split_merge_row_kernel<D><<<rows, kRowMergeWarps * 32, 0, stream>>>(a);
+    split_merge_row_kernel<D, true><<<rows, kRowMergeWarps * 32, 0, stream>>>(a);
   } else {
-    split_merge_kernel<D><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(a);
+    split_merge_kernel<D, false><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -749,11 +791,11 @@ cudaError_t dispatch_bs(const Args& a, cudaStream_t stream) {
 
 // Returns the first failing launch's cudaError_t (0 = both launched).
 // D must be 64 or 128, bs 32, 64 or 128, Nq a multiple of Nkv,
-// (Nq / Nkv) * G at most 48, and S * T at least MB.
+// (Nq / Nkv) * G at most kMaxRows, and S * T at least MB.
 template <bool Q8>
 int split_verify_attention(const Args& a, void* stream) {
-  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.B < 1 || a.T < 1 || a.S < 1 ||
-      (long)a.S * a.T < a.MB) {
+  if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.Nq / a.Nkv * a.G > kMaxRows || a.B < 1 ||
+      a.T < 1 || a.S < 1 || (long)a.S * a.T < a.MB) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -767,14 +809,15 @@ int split_verify_attention(const Args& a, void* stream) {
   }
 }
 
-// The C entry of the contiguous decode kernels (flash_decode.cu and
-// flash_decode_q8.cu, one signature): returns the first failing launch's
-// cudaError_t (0 = both launched).  D must be 64 or 128, Nq a multiple of
-// Nkv with at most 48 query heads per kv head, S_q = 1, W >= 1 and S * T
-// at least ceil(W / 64).  The scale pointers are read only when Q8.
+// The split route over a contiguous window (flash_decode.cu and
+// flash_decode_q8.cu at S_q = 1, flash_chunk.cu's few-row chunks at
+// S_q = G): returns the first failing launch's cudaError_t (0 = both
+// launched).  q [B, S_q, Nq, D], q_pos [B, S_q].  D must be 64 or 128, Nq
+// a multiple of Nkv with (Nq / Nkv) * S_q at most kMaxRows, W >= 1 and
+// S * T at least ceil(W / 64).  The scale pointers are read only when Q8.
 template <bool Q8>
-int split_decode_attention(const void* q, const void* k, const void* v, const void* k_scale,
-                           const void* v_scale, const void* pos, void* o, void* part_acc,
+int split_window_attention(const void* q, const void* k, const void* v, const void* k_scale,
+                           const void* v_scale, const void* q_pos, void* o, void* part_acc,
                            void* part_ml, int B, int S_q, int Nq, int Nkv, int D, int W, int T,
                            int S, long long kv_bstride, long long sc_bstride, float scale,
                            void* stream) {
@@ -784,12 +827,12 @@ int split_decode_attention(const void* q, const void* k, const void* v, const vo
   a.v_pool = v;
   a.k_scale = static_cast<const float*>(k_scale);
   a.v_scale = static_cast<const float*>(v_scale);
-  a.pos = static_cast<const int*>(pos);
+  a.pos = static_cast<const int*>(q_pos);
   a.o = static_cast<__nv_bfloat16*>(o);
   a.part_acc = static_cast<float*>(part_acc);
   a.part_ml = static_cast<float*>(part_ml);
   a.B = B;
-  a.G = 1;
+  a.G = S_q;
   a.Nq = Nq;
   a.Nkv = Nkv;
   a.bs = kDecodeTile;
@@ -801,8 +844,8 @@ int split_decode_attention(const void* q, const void* k, const void* v, const vo
   a.W = W;
   a.kv_bstride = kv_bstride;
   a.sc_bstride = sc_bstride;
-  if (S_q != 1 || Nkv <= 0 || Nq % Nkv != 0 || Nq / Nkv > 48 || B < 1 || W < 1 || T < 1 ||
-      S < 1 || (long)S * T < a.MB) {
+  if (S_q < 1 || Nkv <= 0 || Nq % Nkv != 0 || Nq / Nkv * S_q > kMaxRows || B < 1 || W < 1 ||
+      T < 1 || S < 1 || (long)S * T < a.MB) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -46,10 +46,11 @@ SIGNATURES: Dict[str, tuple] = {
     # B, G, Nq, Nkv, NB, bs, D, MB, tiles per split, splits; scale; stream
     "ragged_verify": ("ragged_verify_attention",
                       [_P] * 8 + [_I] * 10 + [_F, _P]),
-    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, Nq, Nkv,
-    # NB, bs, D, MB; scale; stream
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, partial acc,
+    # partial (m, l); B, Nq, Nkv, NB, bs, D, MB, tiles per split, splits;
+    # scale; stream
     "ragged_decode_q8": ("ragged_decode_attention_q8",
-                         [_P] * 8 + [_I] * 7 + [_F, _P]),
+                         [_P] * 10 + [_I] * 9 + [_F, _P]),
     # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, partial acc,
     # partial (m, l); B, G, Nq, Nkv, NB, bs, D, MB, tiles per split,
     # splits; scale; stream
@@ -70,22 +71,19 @@ SIGNATURES: Dict[str, tuple] = {
     # window_blocks; scale; stream
     "paged_chunk": ("paged_chunk_attention",
                     [_P] * 6 + [_I] * 7 + [_F, _P]),
-    # The contiguous-cache chunk kernels share one signature: q, k, v,
-    # k_scale, v_scale, q_pos, out; B, S_q, Nq, Nkv, D, W; kv and scale
-    # batch strides; scale; stream (bf16 caches pass null scales).
-    **{name: (entry, [_P] * 7 + [_I] * 6 + [_L, _L, _F, _P])
-       for name, entry in (("flash_chunk", "flash_chunk_attention"),
-                           ("flash_chunk_q8", "flash_chunk_attention_q8"))},
-    # The contiguous decode kernels take the chunk signature plus the split
-    # pass's scratch and plan: q, k, v, k_scale, v_scale, pos, out,
-    # partial acc, partial (m, l); B, S_q (= 1), Nq, Nkv, D, W, tiles per
-    # split, splits; kv and scale batch strides; scale; stream.
+    # The contiguous-cache kernels share one signature: q, k, v, k_scale,
+    # v_scale, q_pos, out, partial acc, partial (m, l); B, S_q, Nq, Nkv, D,
+    # W, tiles per split, splits; kv and scale batch strides; scale;
+    # stream.  bf16 caches pass null scales; the split route takes tiles
+    # per split >= 1 and the partials, the tensor-core route 0 and nulls.
     **{name: (entry, [_P] * 9 + [_I] * 8 + [_L, _L, _F, _P])
        for name, entry in (("flash_decode", "flash_decode_attention"),
-                           ("flash_decode_q8", "flash_decode_attention_q8"))},
+                           ("flash_decode_q8", "flash_decode_attention_q8"),
+                           ("flash_chunk", "flash_chunk_attention"),
+                           ("flash_chunk_q8", "flash_chunk_attention_q8"))},
 }
 _COMMON = ("attn_common.cuh", "ragged_paged.cuh", "ragged_verify.cuh",
-           "contiguous.cuh", "flash_tc.cuh")
+           "flash_tc.cuh")
 
 _lock = threading.Lock()
 _entries: Dict[str, object] = {}

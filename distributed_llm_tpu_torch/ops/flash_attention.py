@@ -18,24 +18,23 @@ Wrappers of hand-written CUDA kernels:
   (``csrc/flash_decode.cu``, ``flash_decode_q8.cu``) replace
   ``_decode_kernel`` / ``_decode_kernel_q8``;
 - ``flash_chunk_attention`` / ``flash_chunk_attention_q8``
-  (``csrc/flash_chunk.cu``; ``flash_chunk_q8.cu`` over ``flash_tc.cuh``)
+  (``csrc/flash_chunk.cu`` over ``flash_tc.cuh`` and
+  ``ragged_verify.cuh``; ``flash_chunk_q8.cu`` over ``flash_tc.cuh``)
   replace ``_chunk_kernel_native`` + ``_chunk_kernel`` and their q8
   twins.
 
 At the serving shapes the prefill and chunk kernels sit near the
 balance of bytes and bf16 operations (bytes below about 700 rows).  The
-causal prefill, the paged suffix chunk and the int8 contiguous chunk are
-one tensor-core flash kernel (``csrc/flash_tc.cuh``) with three tile
-sources: a block of 64 rows packs a kv head's GQA group (16 positions
-times nano's 4 heads), stages each 128-key tile once for them through a
-``cp.async`` ring, scores it with ``mma.sync`` on two warps a 16-row
-slab keeping P in registers, masks only the tiles that straddle a row's
-frontier and stops at the block's furthest one.  A row gets the same
-bits from the prefill and from a prefix hit's suffix chunk.
-``flash_tc_mirror`` below repeats that algorithm in plain PyTorch for
-the tests.  The bf16 contiguous chunk kernel's first design runs its
-products on the CUDA cores in float32 and skips tiles past each query
-tile's causal frontier.  The decode kernels are
+causal prefill, the paged suffix chunk and the contiguous chunks (the
+int8 one, and the bf16 one's wide chunks) are one tensor-core flash
+kernel (``csrc/flash_tc.cuh``) with three tile sources: a block of 64
+rows packs a kv head's GQA group (16 positions times nano's 4 heads),
+stages each 128-key tile once for them through a ``cp.async`` ring,
+scores it with ``mma.sync`` on two warps a 16-row slab keeping P in
+registers, masks only the tiles that straddle a row's frontier and stops
+at the block's furthest one.  A row gets the same bits from the prefill
+and from a prefix hit's suffix chunk.  ``flash_tc_mirror`` below repeats
+that algorithm in plain PyTorch for the tests.  The decode kernels are
 bound by bytes: one query position per sequence does Nq / Nkv
 multiply-adds per element of K/V read.  At B = 1, as the sequential
 engines run, one block per (kv head, sequence) left 8 blocks on the
@@ -46,7 +45,10 @@ blocks (``ragged_attention.decode_split_plan``, from shapes only: 2 tiles
 a split at orin's B = 1 over an 8192 window, 144 live blocks at position
 2255), each keeping its tiles' copies in flight by ``cp.async`` and
 scoring on the tensor cores, and a merge pass combines each row's float32
-partials.  See each source for the design and its bound.
+partials.  The bf16 chunk kernel sends chunks of a few rows (the
+sequential speculative verify) down the same split route at G = S_c
+(``chunk_route``, from shapes only), each row's frontier read from its
+position.  See each source for the design and its bound.
 
 A CPU tensor takes the plain version beside it (``causal_attention``,
 ``_gather_chunk_paged``, ``_gather_decode_windowed`` and the contiguous
@@ -69,8 +71,9 @@ from .attention import (NEG_INF, _chunk_contiguous, _chunk_contiguous_q8,
                         _decode_contiguous, _decode_contiguous_q8,
                         _gather_chunk_paged, _gather_decode_windowed,
                         causal_attention)
+from .ragged_attention import _MAX_GROUP
 from .ragged_attention import _check as _check_paged
-from .ragged_attention import decode_split_plan
+from .ragged_attention import chunk_split_plan, decode_split_plan
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_BS = (32, 64, 128)
@@ -292,44 +295,117 @@ def _check_query(fn: str, q: torch.Tensor, nkv: int, positions: torch.Tensor,
              f"positions must be contiguous int32 {tuple(q.shape[:-2])}")
 
 
-def _contiguous(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor, k_scale: Optional[torch.Tensor],
-                v_scale: Optional[torch.Tensor],
-                positions: torch.Tensor) -> torch.Tensor:
-    """Check a contiguous-cache kernel's inputs, launch kernel ``name``
-    and count the launch on ``wrapper``.  A decode kernel launches its
-    split pass and its merge, planned by ``decode_split_plan`` from shapes
-    alone, with float32 partials that are scratch of this call."""
-    fn = wrapper.__name__
-    decode = name.startswith("flash_decode")
-    _require(q.dim() == (3 if decode else 4), fn,
-             "q must be [B, Nq, D]" if decode else "q must be [B, S_c, Nq, D]")
+def _check_window(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  k_scale: Optional[torch.Tensor],
+                  v_scale: Optional[torch.Tensor], positions: torch.Tensor,
+                  q_dims: int, max_group: int):
+    """Refuse what a contiguous-cache kernel does not take: q of
+    ``q_dims`` dims, the window (and an int8 window's scales), the
+    positions.  Returns (W, Nkv, kv batch stride, scale batch stride)."""
+    _require(q.dim() == q_dims, fn,
+             "q must be [B, Nq, D]" if q_dims == 3 else
+             "q must be [B, S_c, Nq, D]")
     q8 = k_scale is not None
     w, nkv, kv_bstride = _check_cache(fn, q, k, v, q8)
     sc_bstride = _check_scales(fn, k, k_scale, v_scale) if q8 else 0
-    _check_query(fn, q, nkv, positions,
-                 max_group=8 if decode else TC_MAX_GROUP)
-    b, s_q = q.shape[0], 1 if decode else q.shape[1]
+    _check_query(fn, q, nkv, positions, max_group)
+    return w, nkv, kv_bstride, sc_bstride
+
+
+def _launch_window(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, k_scale: Optional[torch.Tensor],
+                   v_scale: Optional[torch.Tensor], positions: torch.Tensor,
+                   window: tuple, plan: Optional[tuple]) -> torch.Tensor:
+    """Launch contiguous-cache kernel ``name`` on inputs ``_check_window``
+    passed (``window`` is what it returned) and count the launch on
+    ``wrapper``.  ``plan`` (tiles per split, splits) takes the split route,
+    with float32 partials that are scratch of this call; None the
+    tensor-core route (the entry reads no scratch at 0 tiles a split)."""
+    w, nkv, kv_bstride, sc_bstride = window
+    b, s_q = q.shape[0], q.shape[1] if q.dim() == 4 else 1
     nq, d = q.shape[-2], q.shape[-1]
     out = torch.empty_like(q)
-    scratch, ints = (), (b, s_q, nq, nkv, d, w)
-    if decode:
-        tiles, splits = decode_split_plan(w, b, nkv)
-        part_acc = torch.empty((b, nkv, splits, nq // nkv, d),
-                               dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b, nkv, splits, nq // nkv, 2),
-                              dtype=torch.float32, device=q.device)
+    scratch, tiles, splits = (None, None), 0, 0
+    if plan is not None:
+        tiles, splits = plan
+        shape = (b, nkv, splits, nq // nkv * s_q)
+        part_acc = torch.empty(shape + (d,), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(shape + (2,), dtype=torch.float32,
+                              device=q.device)
         scratch = (part_acc.data_ptr(), part_ml.data_ptr())
-        ints += (tiles, splits)
+    q8 = k_scale is not None
     err = _build.entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if q8 else None, v_scale.data_ptr() if q8 else None,
-        positions.data_ptr(), out.data_ptr(), *scratch, *ints,
-        kv_bstride, sc_bstride, d ** -0.5,
+        positions.data_ptr(), out.data_ptr(), *scratch, b, s_q, nq, nkv, d, w,
+        tiles, splits, kv_bstride, sc_bstride, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)
     wrapper.launches += 1
     return out
+
+
+def _decode_window(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, k_scale: Optional[torch.Tensor],
+                   v_scale: Optional[torch.Tensor],
+                   pos: torch.Tensor) -> torch.Tensor:
+    """A contiguous decode kernel (K9, K10): the split route at G = 1,
+    planned by ``decode_split_plan`` from shapes alone."""
+    window = _check_window(wrapper.__name__, q, k, v, k_scale, v_scale, pos,
+                           q_dims=3, max_group=_MAX_GROUP)
+    w, nkv = window[:2]
+    return _launch_window(wrapper, name, q, k, v, k_scale, v_scale, pos,
+                          window, decode_split_plan(w, q.shape[0], nkv))
+
+
+# The bf16 contiguous chunk kernel (K11) takes one of two routes, chosen
+# from shapes alone by ``chunk_route``.  A chunk whose block rows (the
+# group's heads x its S_c positions) fit one split-kernel block, at most
+# SPLIT_MAX_ROWS (three 16-row tensor-core tiles), is the split-K kernel
+# over the window at G = S_c, each row's frontier read from q_positions:
+# the sequential speculative verify's 4 x 5 = 20 rows at orin, whose one
+# block per kv head would leave 8 blocks on the card.  A wider chunk is the
+# tensor-core flash kernel, the int8 chunk kernel's bf16 instance.  Both
+# count as one kernel on ``flash_chunk_attention.launches``, and by route
+# on its ``route_launches``.
+SPLIT_MAX_ROWS = 48
+
+
+def chunk_route(s_c: int, nq: int, nkv: int) -> str:
+    """The bf16 chunk kernel's route for ``s_c`` positions of ``nq`` query
+    heads over ``nkv`` kv heads: "split" or "tc" (shapes in, nothing read
+    from the device)."""
+    return "split" if nq // nkv * s_c <= SPLIT_MAX_ROWS else "tc"
+
+
+def _split_chunk(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, q_positions: torch.Tensor) -> torch.Tensor:
+    """The bf16 chunk kernel's split route: at most SPLIT_MAX_ROWS block
+    rows, planned by ``chunk_split_plan`` from shapes alone."""
+    fn = wrapper.__name__
+    window = _check_window(fn, q, k, v, None, None, q_positions, q_dims=4,
+                           max_group=SPLIT_MAX_ROWS)
+    w, nkv = window[:2]
+    b, s_c, nq, d = q.shape
+    rows = nq // nkv * s_c
+    _require(rows <= SPLIT_MAX_ROWS, fn,
+             f"{rows} block rows (group x S_c) on the split route, at most "
+             f"{SPLIT_MAX_ROWS}")
+    return _launch_window(wrapper, name, q, k, v, None, None, q_positions,
+                          window, chunk_split_plan(w, b, nkv, rows, d))
+
+
+def _tc_chunk(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, k_scale: Optional[torch.Tensor],
+              v_scale: Optional[torch.Tensor],
+              q_positions: torch.Tensor) -> torch.Tensor:
+    """A chunk on the tensor-core flash kernel (K12, K11's wide chunks):
+    a group of at most TC_MAX_GROUP, no plan."""
+    window = _check_window(wrapper.__name__, q, k, v, k_scale, v_scale,
+                           q_positions, q_dims=4, max_group=TC_MAX_GROUP)
+    return _launch_window(wrapper, name, q, k, v, k_scale, v_scale,
+                          q_positions, window, None)
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -340,8 +416,8 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     0 .. pos[b]."""
     if not q.is_cuda:
         return _decode_contiguous(q, k_cache, v_cache, pos)
-    return _contiguous(flash_decode_attention, "flash_decode", q, k_cache,
-                       v_cache, None, None, pos)
+    return _decode_window(flash_decode_attention, "flash_decode", q, k_cache,
+                          v_cache, None, None, pos)
 
 
 def flash_decode_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
@@ -353,8 +429,8 @@ def flash_decode_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return _decode_contiguous_q8(q, k_cache, v_cache, k_scale, v_scale,
                                      pos)
-    return _contiguous(flash_decode_attention_q8, "flash_decode_q8", q,
-                       k_cache, v_cache, k_scale, v_scale, pos)
+    return _decode_window(flash_decode_attention_q8, "flash_decode_q8", q,
+                          k_cache, v_cache, k_scale, v_scale, pos)
 
 
 def flash_chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -366,8 +442,17 @@ def flash_chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
     positions 0 .. min(its position, W - 1)."""
     if not q.is_cuda:
         return _chunk_contiguous(q, k_cache, v_cache, q_positions)
-    return _contiguous(flash_chunk_attention, "flash_chunk", q, k_cache,
-                       v_cache, None, None, q_positions)
+    _require(q.dim() == 4, "flash_chunk_attention",
+             "q must be [B, S_c, Nq, D]")
+    route = chunk_route(q.shape[1], q.shape[2], k_cache.shape[-2])
+    if route == "split":
+        out = _split_chunk(flash_chunk_attention, "flash_chunk", q, k_cache,
+                           v_cache, q_positions)
+    else:
+        out = _tc_chunk(flash_chunk_attention, "flash_chunk", q, k_cache,
+                        v_cache, None, None, q_positions)
+    flash_chunk_attention.route_launches[route] += 1
+    return out
 
 
 def flash_chunk_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
@@ -379,8 +464,8 @@ def flash_chunk_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return _chunk_contiguous_q8(q, k_cache, v_cache, k_scale, v_scale,
                                     q_positions)
-    return _contiguous(flash_chunk_attention_q8, "flash_chunk_q8", q, k_cache,
-                       v_cache, k_scale, v_scale, q_positions)
+    return _tc_chunk(flash_chunk_attention_q8, "flash_chunk_q8", q, k_cache,
+                     v_cache, k_scale, v_scale, q_positions)
 
 
 # -- the tensor-core flash kernel's algorithm in plain PyTorch (tests only) --
@@ -507,4 +592,5 @@ paged_decode_attention_q8.launches = 0
 flash_decode_attention.launches = 0
 flash_decode_attention_q8.launches = 0
 flash_chunk_attention.launches = 0
+flash_chunk_attention.route_launches = {"split": 0, "tc": 0}
 flash_chunk_attention_q8.launches = 0

@@ -19,20 +19,25 @@ ceil((pos + G) / bs) pool blocks once, and each staged K/V tile is read
 by every query row of its kv head (the group's heads times the G verify
 positions) from shared memory.  The int8 kernels stage half the bytes
 plus one float32 scale per row and dequantize in the kernel; the
-dequantized window never reaches device memory.  The decode kernels run
-one block per (kv head, slot) (``csrc/ragged_paged.cuh``); the verify
-kernels split each slot's tiles over many blocks and merge the float32
-partials in a second pass, with their products on the tensor cores
-(``csrc/ragged_verify.cuh``; the plan is ``split_plan``, a function of
-shapes only, so the wrapper reads nothing from the device).
+dequantized window never reaches device memory.  The bf16 decode kernel
+runs one block per (kv head, slot) (``csrc/ragged_paged.cuh``); the
+verify kernels and the int8 decode kernel (the int8 verify at G = 1)
+split each slot's tiles over many blocks and merge the float32 partials
+in a second pass, with their products on the tensor cores
+(``csrc/ragged_verify.cuh``; the plans ``split_plan`` and
+``ragged_decode_split_plan`` are functions of shapes only, so the
+wrappers read nothing from the device).
 
 A CPU tensor takes the plain version (``_gather_decode_paged`` /
 ``_gather_verify_paged``, the JAX package's XLA paths); a CUDA tensor
 launches the kernel or raises.  ``split_verify_mirror`` repeats the
-verify kernels' split-and-merge algorithm in plain PyTorch for the tests,
-and ``split_decode_mirror`` the same algorithm as the contiguous decode
-kernels run it (``flash_attention.py``, planned by ``decode_split_plan``);
-no serving path calls either.
+split kernel's split-and-merge algorithm over the pool in plain PyTorch
+for the tests (the verify kernels, and the int8 decode kernel at G = 1),
+and ``split_window_mirror`` the same algorithm over a contiguous cache
+window, as the contiguous decode kernels and the bf16 chunk kernel's
+split route run it (``flash_attention.py``, planned by
+``decode_split_plan`` / ``chunk_split_plan``); no serving path calls
+either.
 """
 
 from __future__ import annotations
@@ -75,25 +80,67 @@ def split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
     return tiles, -(-mb // tiles)
 
 
-# The contiguous decode kernels (``flash_attention.flash_decode_attention``
-# and its int8 twin) run the verify kernels' split pass at G = 1 over
+# The decode kernels on the split kernel run its split pass at G = 1: the
+# int8 ragged decode (``ragged_paged_decode_attention_q8``) over each slot's
+# pool blocks, the contiguous decode kernels
+# (``flash_attention.flash_decode_attention`` and its int8 twin) over
 # DECODE_TILE-position tiles of the cache window.  A decode block holds only
 # the group's Nq / Nkv rows, so its partials (4 x D floats at orin, 2 KB)
-# are small beside even one tile of K and V (32 KB bf16 at D = 128): a split
-# may be a single tile, with no SPLIT_MIN_TILES floor.  Splits are as fine
-# as SPLIT_TARGET_BLOCKS blocks over the whole window ask, so that a
-# sequence a quarter of the way into its window still has more live blocks
-# than the card has SMs: orin at B = 1 and W = 8192 gets 2 tiles a split and
-# 64 splits, 144 live blocks at the served position 2255.
+# are small beside even one tile of K and V (32 KB bf16 at D = 128, 17 KB
+# int8 with its scales): a split may be a single tile, with no
+# SPLIT_MIN_TILES floor.  Splits are as fine as SPLIT_TARGET_BLOCKS blocks
+# over the whole table or window ask, so that a slot a quarter of the way
+# into its context still has more live blocks than the card has SMs: orin
+# at B = 1 and W = 8192 gets 2 tiles a split and 64 splits, 144 live blocks
+# at the served position 2255; orin's int8 pool at B = 4 and MB = 128 gets
+# 8 blocks a split and 16 splits, 128 live blocks for a slot at its end.
 DECODE_TILE = 64
+
+
+def _fine_split(n_tiles: int, b: int, nkv: int) -> Tuple[int, int]:
+    """(tiles per split, splits) as fine as SPLIT_TARGET_BLOCKS blocks over
+    ``b`` sequences of ``n_tiles`` tiles and ``nkv`` kv heads ask."""
+    tiles = -(-(b * nkv * n_tiles) // SPLIT_TARGET_BLOCKS)
+    return tiles, -(-n_tiles // tiles)
 
 
 def decode_split_plan(w: int, b: int, nkv: int) -> Tuple[int, int]:
     """(tiles per split, splits) of the contiguous decode kernels for a
     window of ``w`` positions, ``b`` sequences and ``nkv`` kv heads:
     shapes in, ints out, nothing read from the device."""
+    return _fine_split(-(-w // DECODE_TILE), b, nkv)
+
+
+def ragged_decode_split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
+    """(blocks per split, splits) of the int8 ragged decode kernel for a
+    table of ``mb`` blocks per slot, ``b`` slots and ``nkv`` kv heads:
+    shapes in, ints out, nothing read from the device."""
+    return _fine_split(mb, b, nkv)
+
+
+# The bf16 chunk kernel's split route (``flash_attention.chunk_route``:
+# the sequential speculative verify's few rows) runs the split pass at
+# G = S_c over the window's tiles.  Its block holds group x S_c rows (20 at
+# orin's 5-row verify), so its partials are larger than a decode block's;
+# the plan is the decode plan, but a split never reads fewer bytes of K/V
+# than its partials move (2 x rows x (D + 2) floats, written once and read
+# once).  At orin's verify (20 rows, D = 128, W = 8192) that floor is one
+# tile, so T = 2: the partials, 21 KB, are a third of the split's 64 KB of
+# K/V, and at position 3000 the 47 live tiles are 24 splits, 192 live
+# blocks, two an SM in one wave.  T = 4 would halve that share but leave
+# 96 blocks on 132 SMs and double each block's walk; at B = 1 the walk's
+# latency, not the bytes, sets the time (the bound is 0.004 ms).
+def chunk_split_plan(w: int, b: int, nkv: int, rows: int,
+                     d: int) -> Tuple[int, int]:
+    """(tiles per split, splits) of the bf16 chunk kernel's split route for
+    a window of ``w`` positions, ``b`` sequences, ``nkv`` kv heads and
+    ``rows`` rows a block (group x S_c) at head dim ``d``: shapes in, ints
+    out, nothing read from the device."""
     n_tiles = -(-w // DECODE_TILE)
-    tiles = -(-(b * nkv * n_tiles) // SPLIT_TARGET_BLOCKS)
+    tiles, _ = _fine_split(n_tiles, b, nkv)
+    partial_bytes = 2 * rows * (d + 2) * 4
+    tile_bytes = 2 * DECODE_TILE * d * 2            # one bf16 K/V tile pair
+    tiles = max(tiles, -(-partial_bytes // tile_bytes))
     return tiles, -(-n_tiles // tiles)
 
 
@@ -193,13 +240,18 @@ def ragged_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
 def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                    v_pool: torch.Tensor, scales: tuple, tables: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
-    """Launch verify kernel ``name`` (its split and merge passes) on
-    checked inputs; ``scales`` is () for a bf16 pool, (k_scale, v_scale)
-    for an int8 one.  The float32 partials are scratch of this call."""
+    """Launch split kernel ``name`` (its split and merge passes) on
+    checked inputs, q [B, G, Nq, D]; ``scales`` is () for a bf16 pool,
+    (k_scale, v_scale) for an int8 one.  The verify kernels are planned by
+    ``split_plan``; the int8 decode kernel (G = 1, its entry takes no G)
+    by ``ragged_decode_split_plan``.  The float32 partials are scratch of
+    this call."""
     b, g, nq, d = q.shape
     nkv, nb, bs, _ = k_pool.shape
     mb = tables.shape[1]
-    tiles, splits = split_plan(mb, b, nkv)
+    decode = name == "ragged_decode_q8"
+    plan = ragged_decode_split_plan if decode else split_plan
+    tiles, splits = plan(mb, b, nkv)
     rows = nq // nkv * g
     out = torch.empty_like(q)
     part_acc = torch.empty((b, nkv, splits, rows, d), dtype=torch.float32,
@@ -209,8 +261,9 @@ def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
     err = _build.entry(name)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *(t.data_ptr() for t in scales), tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, g, nq,
-        nkv, nb, bs, d, mb, tiles, splits, d ** -0.5, _stream(q))
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b,
+        *(() if decode else (g,)), nq, nkv, nb, bs, d, mb, tiles, splits,
+        d ** -0.5, _stream(q))
     _build.check(err, name)
     return out
 
@@ -226,18 +279,12 @@ def ragged_paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
     if not q.is_cuda:
         return _gather_decode_paged(q, k_pool, v_pool, tables, pos,
                                     k_scale, v_scale)
-    fn = "ragged_paged_decode_attention_q8"
-    _check(fn, q, k_pool, v_pool, tables, pos, k_scale, v_scale, 1)
-    b, nq, d = q.shape
-    nkv, nb, bs, _ = k_pool.shape
-    out = torch.empty_like(q)
-    err = _build.entry("ragged_decode_q8")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, nq, nkv, nb, bs, d, tables.shape[1], d ** -0.5, _stream(q))
-    _build.check(err, "ragged_decode_q8")
+    _check("ragged_paged_decode_attention_q8", q, k_pool, v_pool, tables, pos,
+           k_scale, v_scale, 1)
+    out = _launch_verify("ragged_decode_q8", q[:, None], k_pool, v_pool,
+                         (k_scale, v_scale), tables, pos)
     ragged_paged_decode_attention_q8.launches += 1
-    return out
+    return out[:, 0]
 
 
 def ragged_paged_verify_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
@@ -259,13 +306,24 @@ def ragged_paged_verify_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-# -- the verify kernels' algorithm in plain PyTorch (tests only) -------------
+# -- the split kernel's algorithm in plain PyTorch (tests only) --------------
+
+def _row_frontiers(pos, g: int):
+    """[B, G] frontiers of a split kernel's queries: ``pos`` [B] is the
+    first query's position over the pool (query g at pos + g), ``pos``
+    [B, G] each query's own frontier (a window's, already clamped to
+    W - 1)."""
+    if pos.dim() == 2:
+        return pos.long()
+    return pos.long()[:, None] + torch.arange(g, device=pos.device)
+
 
 def split_verify_partials(q, k_pool, v_pool, tables, pos, tiles: int,
                           k_scale=None, v_scale=None):
-    """The verify kernels' split pass, in float32: for every (slot, kv
+    """The split kernel's split pass, in float32: for every (slot, kv
     head, split of ``tiles`` tiles, row) the partial (m, l, acc) of the
-    row's scores over the split's keys, rows r = head_in_group * G + g.
+    row's scores over the split's keys, rows r = head_in_group * G + g,
+    row r's frontier ``_row_frontiers(pos, G)[:, g]``.
     Returns m, l [B, Nkv, S, R] and acc [B, Nkv, S, R, D].  A row that
     sees no key of a split (its frontier ends before the split, or the
     split lies past the slot's frontier) has m = NEG_INF, l = 0, acc = 0.
@@ -286,7 +344,8 @@ def split_verify_partials(q, k_pool, v_pool, tables, pos, tiles: int,
     qr = q.float().reshape(b, g, nkv, grp, d).permute(0, 2, 3, 1, 4).reshape(
         b, nkv, rows, d)
     s = torch.einsum("bhrd,bkhd->bhrk", qr, k_seq) * d ** -0.5
-    frontier = pos.long()[:, None] + torch.arange(rows, device=q.device) % g
+    row_g = torch.arange(rows, device=q.device) % g
+    frontier = _row_frontiers(pos, g)[:, row_g]              # [B, R]
     cols = torch.arange(s.shape[-1], device=q.device)
     valid = (cols[None, None] <= frontier[:, :, None])[:, None].expand(s.shape)
     shape = (b, nkv, rows, splits, tiles * bs)
@@ -302,12 +361,14 @@ def split_verify_partials(q, k_pool, v_pool, tables, pos, tiles: int,
 
 def merge_split_partials(m, l, acc, pos, g: int, bs: int, mb: int,
                          tiles: int):
-    """The verify kernels' merge pass: each row's partials over the splits
-    its slot's frontier reaches (worked out from ``pos``), M = max m_s,
-    L = sum l_s e^(m_s - M), O = sum acc_s e^(m_s - M) / max(L, 1e-30);
-    an empty partial (l = 0) weighs 0.  Returns [B, G, Nq, D] float32."""
+    """The split kernel's merge pass: each row's partials over the splits
+    its slot's furthest frontier reaches (worked out from ``pos``, as in
+    ``split_verify_partials``), M = max m_s, L = sum l_s e^(m_s - M),
+    O = sum acc_s e^(m_s - M) / max(L, 1e-30); an empty partial (l = 0)
+    weighs 0.  Returns [B, G, Nq, D] float32."""
     b, nkv, splits, rows, d = acc.shape
-    n_tiles = torch.clamp((pos.long() + g - 1) // bs + 1, max=mb)
+    last = _row_frontiers(pos, g).amax(1)
+    n_tiles = torch.clamp(last // bs + 1, max=mb)
     live = (torch.arange(splits, device=acc.device)[None]
             < (-(-n_tiles // tiles))[:, None])[:, None, :, None]
     m = torch.where(live, m, NEG_INF)                  # dead splits: unread
@@ -323,9 +384,10 @@ def merge_split_partials(m, l, acc, pos, g: int, bs: int, mb: int,
 
 def split_verify_mirror(q, k_pool, v_pool, tables, pos, tiles: int,
                         k_scale=None, v_scale=None):
-    """The verify kernels' whole algorithm in plain float32 PyTorch, with
-    ``tiles`` tiles per split: ``split_verify_partials`` then
-    ``merge_split_partials`` -> [B, G, Nq, D] float32."""
+    """The split kernel's whole algorithm over the pool in plain float32
+    PyTorch, with ``tiles`` tiles per split: ``split_verify_partials`` then
+    ``merge_split_partials`` -> [B, G, Nq, D] float32.  The verify kernels
+    at q [B, G, Nq, D]; the int8 decode kernel at G = 1."""
     m, l, acc = split_verify_partials(q, k_pool, v_pool, tables, pos, tiles,
                                       k_scale, v_scale)
     return merge_split_partials(m, l, acc, pos, q.shape[1], k_pool.shape[2],
@@ -355,17 +417,27 @@ def window_as_pool(k_cache, v_cache, k_scale=None, v_scale=None):
     return tiles(k_cache), tiles(v_cache), *scales, tables
 
 
-def split_decode_mirror(q, k_cache, v_cache, pos, tiles: int, k_scale=None,
-                        v_scale=None):
-    """The contiguous decode kernels' whole algorithm in plain float32
-    PyTorch, with ``tiles`` tiles per split: the window tiled as a pool
-    (``window_as_pool``), each frontier clamped to W - 1, and the verify
-    kernels' split and merge passes at G = 1 -> [B, Nq, D] float32."""
+def split_window_mirror(q, k_cache, v_cache, q_pos, tiles: int,
+                        k_scale=None, v_scale=None):
+    """The split kernel's whole algorithm over a contiguous cache window
+    in plain float32 PyTorch, with ``tiles`` tiles per split: q
+    [B, G, Nq, D], q_pos [B, G]; the window tiled as a pool
+    (``window_as_pool``), each query's frontier its own position clamped to
+    W - 1, and the split and merge passes -> [B, G, Nq, D] float32.  The
+    bf16 chunk kernel's split route at G = S_c."""
     k_pool, v_pool, ks, vs, tables = window_as_pool(k_cache, v_cache,
                                                     k_scale, v_scale)
-    front = torch.clamp(pos, max=k_cache.shape[1] - 1)
-    return split_verify_mirror(q[:, None], k_pool, v_pool, tables, front,
-                               tiles, ks, vs)[:, 0]
+    front = torch.clamp(q_pos, max=k_cache.shape[1] - 1)
+    return split_verify_mirror(q, k_pool, v_pool, tables, front, tiles, ks,
+                               vs)
+
+
+def split_decode_mirror(q, k_cache, v_cache, pos, tiles: int, k_scale=None,
+                        v_scale=None):
+    """The contiguous decode kernels' whole algorithm: ``split_window_mirror``
+    at G = 1, q [B, Nq, D] and pos [B] -> [B, Nq, D] float32."""
+    return split_window_mirror(q[:, None], k_cache, v_cache, pos[:, None],
+                               tiles, k_scale, v_scale)[:, 0]
 
 
 ragged_paged_decode_attention.launches = 0

@@ -294,7 +294,8 @@ def test_wrappers_read_no_device_value():
     ``.item()``, ``.tolist()``, ``.cpu()`` or ``.numpy()`` in them, their
     launch helper or its checks."""
     for fn in (TF.flash_causal_attention, TF._check_causal,
-               TF.flash_chunk_attention_q8, TF._contiguous, TF._check_cache,
+               TF.flash_chunk_attention_q8, TF._tc_chunk, TF._launch_window,
+               TF._check_window, TF._check_cache,
                TF._check_scales, TF._check_query, TF._check_common,
                TF.paged_chunk_attention, TF._check_paged_chunk):
         tree = ast.parse(inspect.getsource(fn).lstrip())
@@ -350,8 +351,8 @@ def test_chunk_q8_launch_refuses_what_the_kernel_does_not_take(bad):
     pos = torch.zeros((b, s_c), dtype=torch.int64 if bad == "pos_dtype"
                       else torch.int32)
     with pytest.raises(ValueError):
-        TF._contiguous(TF.flash_chunk_attention_q8, "flash_chunk_q8", q, cache,
-                       cache, scales, scales, pos)
+        TF._tc_chunk(TF.flash_chunk_attention_q8, "flash_chunk_q8", q, cache,
+                     cache, scales, scales, pos)
 
 
 @pytest.mark.parametrize("bad", ["group", "misaligned"])

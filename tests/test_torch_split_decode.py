@@ -196,8 +196,9 @@ def test_decode_wrappers_read_no_device_value():
     ``.item()``, ``.tolist()``, ``.cpu()`` or ``.numpy()`` anywhere in
     them, their launch helper, its checks or the plan."""
     for fn in (TF.flash_decode_attention, TF.flash_decode_attention_q8,
-               TF._contiguous, TF._check_cache, TF._check_scales,
-               TF._check_query, TR.decode_split_plan):
+               TF._decode_window, TF._launch_window, TF._check_window,
+               TF._check_cache, TF._check_scales, TF._check_query,
+               TR.decode_split_plan):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         reads = [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
                  and n.attr in ("item", "tolist", "cpu", "numpy")]
@@ -227,5 +228,5 @@ def test_decode_launch_refuses_what_the_kernels_do_not_take(bad):
     pos = torch.zeros(b, dtype=torch.int64 if bad == "pos_dtype"
                       else torch.int32)
     with pytest.raises(ValueError):
-        TF._contiguous(TF.flash_decode_attention, "flash_decode", q, window,
-                       window, None, None, pos)
+        TF._decode_window(TF.flash_decode_attention, "flash_decode", q,
+                          window, window, None, None, pos)
