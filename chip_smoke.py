@@ -20,8 +20,11 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    of 989 TFLOP/s); all three as replayed CUDA graphs (device time), with
    the eager single call beside them; each is also checked at its other
    instantiations (head dim, block, group, verify width; the split-K
-   verify, int8 ragged decode and contiguous decode kernels also on tables
-   and windows spanning several of their splits; the verify kernels timed
+   verify, ragged decode (bf16 and int8), int8 paged decode and contiguous
+   decode kernels also on tables and windows spanning several of their
+   splits, with frontiers on and one key past a split boundary; the int8
+   paged decode also at windows of one block and of the whole table; the
+   verify kernels timed
    at a short shape too; the bf16 contiguous chunk kernel on both of its
    routes, the split kernel for a few rows and the tensor-core kernel for
    wide chunks, at each side of the boundary between them; the causal
@@ -95,16 +98,15 @@ REPORT_DIR = os.path.join(REPO, "chiprun_out")
 # query head's D values) of the kernel is held against the same row of
 # the plain version run in float32 on the same inputs (bf16 widened
 # exactly, int8 dequantized in float32): ||kernel - plain32|| / ||plain32||
-# <= KERNEL_REL_TOL.  The kernels round P (all but the int8 paged decode
-# kernel K8) and their output to bf16: their worst rows read
-# 0.0019-0.0046 on an H100, the plain
+# <= KERNEL_REL_TOL.  The kernels round P and their output to bf16: their
+# worst rows read 0.0019-0.0046 on an H100, the plain
 # versions in bf16 0.005-0.019 (they round the logits and, for int8, the
 # dequantized K/V to bf16).  A row's output shrinks as its
 # frontier N grows (it averages N random values, about sqrt(e / N)), so
 # the bound is relative to each row: a row that misses one 64-position
-# tile moves by about sqrt(64 / N) of itself, 9% at N = 8192, and the
-# causal prefill and contiguous-cache checks assert that the plain version
-# one tile short lands outside the bound at every timed shape.  The plain version in
+# tile moves by about sqrt(64 / N) of itself, 9% at N = 8192, and every
+# kernel row asserts that the plain version one tile short lands outside
+# the bound at its timed shapes.  The plain version in
 # bf16 against float32 (``plain_rel_err``) is reported beside it.
 KERNEL_REL_TOL = 1e-2
 TOL = f"per-row ||kernel - plain32|| / ||plain32|| <= {KERNEL_REL_TOL:g}"
@@ -120,6 +122,15 @@ KV_TILE = 64                     # positions per staged K/V tile (K9-K12)
 # position or scale plane) moves the logits by their whole scale.
 LOGITS_RTOL = 0.05
 SERVE_MAX_NEW = 32               # random weights rarely stop at EOS
+# Graph-replayed times of redesigned kernels' previous design (one
+# CUDA-core block per (kv head, slot), ``ragged_paged.cuh``) at the same
+# timed shapes, on an NVIDIA H100 80GB HBM3 at 700.00 W: kept in the
+# report beside this run's time, never printed on the kernels line.
+PREVIOUS_DESIGN_MS = {
+    "ragged_decode": {"design": "ragged_paged.cuh", "ms": 0.556,
+                      "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
+    "paged_decode_q8": {"design": "ragged_paged.cuh", "ms": 0.213,
+                        "card": "NVIDIA H100 80GB HBM3, 700.00 W"}}
 
 
 def log(msg: str) -> None:
@@ -244,6 +255,25 @@ def agrees(name: str, res: dict, where: str = "") -> None:
             f"{name} disagrees with its plain version{where}: {res}")
 
 
+def one_tile_short(name: str, plain, args, at: int, tile: int = KV_TILE):
+    """The bound's resolution: ``plain`` in float32 on ``args`` against the
+    same with every frontier (``args[at]``, positions [B]) one ``tile``
+    short, over the slots whose frontier is at least one tile.  Fails if
+    that lands within KERNEL_REL_TOL; returns the worst row's error, or
+    None where no slot's frontier reaches a whole tile."""
+    pos = args[at]
+    long_slots = pos >= tile
+    if not bool(long_slots.any()):
+        return None
+    args32 = widen(args)
+    short = list(args32)
+    short[at] = pos - tile
+    err = row_rel_err(plain(*short)[long_slots], plain(*args32)[long_slots])
+    require(err > KERNEL_REL_TOL,
+            f"{name}: a missed tile would pass at this shape ({err})")
+    return err
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -291,6 +321,9 @@ def kernel_phase(torch, cfg, orin_cfg, bs: int):
     torch.cuda.synchronize()
     a1 = compare(out, TA._gather_decode_paged, (q, k_pool, v_pool, tables, pos))
     agrees("ragged_decode", a1)
+    a1["one_tile_short_rel_err"] = one_tile_short(
+        "ragged_decode", TA._gather_decode_paged,
+        (q, k_pool, v_pool, tables, pos), 4)
     k_seq, v_seq = TA._gather_pool_seq(k_pool, v_pool, tables)
     k_l = k_seq.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
     v_l = v_seq.permute(0, 2, 1, 3).repeat_interleave(g, 1).contiguous()
@@ -316,7 +349,8 @@ def kernel_phase(torch, cfg, orin_cfg, bs: int):
                 q, k_pool, v_pool, tables, pos),
             "library_ms": lambda: F.scaled_dot_product_attention(
                 q_l, k_l, v_l, attn_mask=mask)}, flush),
-        "bound_ms": b1, "bound_by": by1})
+        "bound_ms": b1, "bound_by": by1,
+        "previous_design": PREVIOUS_DESIGN_MS["ragged_decode"]})
 
     # K2: causal prefill; checked at every cold bucket up to a chunk and at
     # a length that is no multiple of a tile, at the nano tier's width and
@@ -456,8 +490,12 @@ def variant_checks(torch, gen) -> dict:
     """Each kernel against its plain version at the other instantiations
     it accepts (head dim 64/128, block 32/64/128, GQA group 1/4/8) on
     small ragged shapes: idle slot, partial tiles, padded chunk rows; the
-    causal prefill also on a grid past the card's SM count.  Returns the
-    worst ``compare`` per kernel."""
+    ragged decode also at the boundaries of its own split plan
+    (``ragged_decode_split_plan``: 1 or 2 blocks a split on 5 x 20
+    tables), a frontier on split 0's last key, on split 1's first key,
+    one block past it and at the table's end; the causal prefill also on a
+    grid past the card's SM count.  Returns the worst ``compare`` per
+    kernel."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import ragged_attention as TR
@@ -488,6 +526,21 @@ def variant_checks(torch, gen) -> dict:
                 note("ragged_decode",
                      TR.ragged_paged_decode_attention(q, kp, vp, tables, pos),
                      TA._gather_decode_paged, q, kp, vp, tables, pos)
+                sb, smb = 5, 20
+                snb = sb * smb + 1
+                skp, svp = randn(nkv, snb, bs, d), randn(nkv, snb, bs, d)
+                stables = (torch.randperm(snb - 1, generator=gen, device=dev)
+                           + 1).reshape(sb, smb).to(torch.int32)
+                stables[1] = 0
+                edge = TR.ragged_decode_split_plan(smb, sb, nkv)[0] * bs
+                spos = torch.tensor([edge - 1, 0, edge, edge + bs,
+                                     smb * bs - 1], dtype=torch.int32,
+                                    device=dev)
+                sq = randn(sb, nq, d)
+                note("ragged_decode",
+                     TR.ragged_paged_decode_attention(sq, skp, svp, stables,
+                                                      spos),
+                     TA._gather_decode_paged, sq, skp, svp, stables, spos)
                 # K2 at S=100 runs on at most 132 blocks (two warps a
                 # slab), at S=1100 on more (one warp a slab).
                 for s in (100, 1100) if bs == 64 else (100,):
@@ -615,16 +668,9 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
                 out, TA._gather_verify_paged,
                 (q, pool[0], pool[1], tables, pos, pool[2], pool[3])))
         agrees(name, agree)
-        # The bound's resolution: every frontier one tile short, over the
-        # slots whose frontier is at least one tile.
-        plain_args = (q, pool[0], pool[1], tables, pos, pool[2], pool[3])
-        long_slots = pos >= bs
-        short_by_tile = (*plain_args[:4], pos - bs, *plain_args[5:])
-        agree["one_tile_short_rel_err"] = row_rel_err(
-            TA._gather_verify_paged(*widen(short_by_tile))[long_slots],
-            TA._gather_verify_paged(*widen(plain_args))[long_slots])
-        require(agree["one_tile_short_rel_err"] > KERNEL_REL_TOL,
-                f"{name}: a missed tile would pass at this shape: {agree}")
+        agree["one_tile_short_rel_err"] = one_tile_short(
+            name, TA._gather_verify_paged,
+            (q, pool[0], pool[1], tables, pos, pool[2], pool[3]), 4, bs)
         by_shape = {}
         for label, tbl, tpos in (("", tables, pos),
                                  ("short", short_tables, short_pos)):
@@ -673,16 +719,9 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
     a5 = worst(a5, compare(out, TA._gather_decode_paged,
                            (dq, dkq, dvq, tables, pos, dks, dvs)))
     agrees("ragged_decode_q8", a5)
-    # The bound's resolution: every frontier one tile short, over the
-    # slots whose frontier is at least one tile.
-    long_slots = pos >= bs
-    plain_args = (q, kq, vq, tables, pos, ks, vs)
-    a5["one_tile_short_rel_err"] = row_rel_err(
-        TA._gather_decode_paged(*widen((q, kq, vq, tables, pos - bs, ks,
-                                        vs)))[long_slots],
-        TA._gather_decode_paged(*widen(plain_args))[long_slots])
-    require(a5["one_tile_short_rel_err"] > KERNEL_REL_TOL,
-            f"ragged_decode_q8: a missed tile would pass at this shape: {a5}")
+    a5["one_tile_short_rel_err"] = one_tile_short(
+        "ragged_decode_q8", TA._gather_decode_paged,
+        (q, kq, vq, tables, pos, ks, vs), 4, bs)
     # K1 at the nano draft's shape (bf16 pool of a 4-slot engine).
     out = TR.ragged_paged_decode_attention(dq, dk, dv, tables, pos)
     torch.cuda.synchronize()
@@ -1049,12 +1088,18 @@ def paged_decode_cases(nano, orin):
     positions, window blocks of 64): K7 at the nano tier's 8 slots in a
     2048 window (timed) and at K1's timed shape, the full 8192 table (for
     a direct comparison with K1); K8 at the orin tier's 4 slots in a 2048
-    window.  Slot 0 is idle (its whole row on the trash block)."""
+    window (timed: 2 blocks a split), there with frontiers on split 0's
+    last key, one key past it and at the window's end, in a window of one
+    block and in the whole 8192 table (wb = MB).  Slot 0 is idle (its
+    whole row on the trash block)."""
     return {
         "paged_decode": [
             (nano, 8, [0, 40, 200, 700, 1500, 1900, 1100, 2047], 32),
             (nano, 8, [0, 40, 200, 700, 1500, 3000, 5000, 8191], 128)],
-        "paged_decode_q8": [(orin, 4, [0, 100, 700, 1900], 32)],
+        "paged_decode_q8": [(orin, 4, [0, 100, 700, 1900], 32),
+                            (orin, 4, [0, 127, 128, 2047], 32),
+                            (orin, 4, [0, 5, 40, 63], 1),
+                            (orin, 4, [0, 100, 4000, 8191], 128)],
     }
 
 
@@ -1114,12 +1159,8 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
             plain_args = (q, pool[0], pool[1], window, pos, *pool[2:])
             res = compare(out, TA._gather_decode_windowed, plain_args)
             agree = worst(agree, res)
-            short = (q, pool[0], pool[1], window, pos - KV_TILE, *pool[2:])
-            res["one_tile_short_rel_err"] = row_rel_err(
-                TA._gather_decode_windowed(*widen(short)),
-                TA._gather_decode_windowed(*widen(plain_args)))
-            require(res["one_tile_short_rel_err"] > KERNEL_REL_TOL,
-                    f"{name}: a missed tile would pass at this shape: {res}")
+            res["one_tile_short_rel_err"] = one_tile_short(
+                name, TA._gather_decode_windowed, plain_args, 4)
             k_seq, v_seq = TA._gather_pool_seq(pool[0], pool[1], window,
                                                *pool[2:], dtype=bf)
             grp = nq // nkv
@@ -1145,8 +1186,7 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
                     "library_ms": lambda: F.scaled_dot_product_attention(
                         q_l, k_l, v_l, attn_mask=mask)}, flush),
                 "bound_ms": b_ms, "bound_by": b_by})
-            del k_pool, v_pool, pool, args, plain_args, short, k_seq, v_seq, \
-                k_l, v_l
+            del k_pool, v_pool, pool, args, plain_args, k_seq, v_seq, k_l, v_l
         agrees(name, agree)
         first = timings[0]
         rows.append({
@@ -1157,8 +1197,11 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
             "shape": first["shape"] + f" (checked at {len(timings)} shapes)",
             **agree, "tol": TOL,
             **{k: first[k] for k in ("ms", "plain_ms", "library_ms", "eager",
-                                     "bound_ms", "bound_by")},
-            "timings": timings})
+                                     "bound_ms", "bound_by",
+                                     "one_tile_short_rel_err")},
+            "timings": timings,
+            **({"previous_design": PREVIOUS_DESIGN_MS[name]}
+               if name in PREVIOUS_DESIGN_MS else {})})
     del flush_buf
     note_variants(rows, paged_decode_variant_checks(torch, gen))
     torch.cuda.empty_cache()
@@ -1167,12 +1210,15 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
 
 def paged_decode_variant_checks(torch, gen) -> dict:
     """K7 and K8 at every instantiation they take (head dim 64/128, block
-    32/64/128, GQA group 1/4/8) on small windows (1-3 of 12 table columns,
-    read through the row stride): an idle slot, position 0, mid-block and
-    the window's last position; returns the worst ``compare`` per
-    kernel."""
+    32/64/128, GQA group 1/4/8) on small windows (1-3 of 24 table columns,
+    read through the row stride, and all 24): an idle slot, position 0,
+    mid-block and the window's last position; then frontiers on the last
+    key of K8's first split (``ragged_decode_split_plan`` over the window:
+    1 or 2 blocks a split here) and on the first key past it.  Returns the
+    worst ``compare`` per kernel."""
     from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import quant
+    from distributed_llm_tpu_torch.ops import ragged_attention as TR
 
     dev = torch.device("cuda")
     wrappers = kernel_wrappers()
@@ -1185,7 +1231,7 @@ def paged_decode_variant_checks(torch, gen) -> dict:
     for d in (64, 128):
         for bs in (32, 64, 128):
             for nq, nkv in ((32, 8), (16, 2), (8, 8)):
-                b, mb = 4, 12
+                b, mb = 4, 24
                 nb = b * mb + 1
                 kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
                 kq, ks = quant.quantize_kv_rows(kp)
@@ -1194,17 +1240,23 @@ def paged_decode_variant_checks(torch, gen) -> dict:
                         + 1)[:b * mb].reshape(b, mb).to(torch.int32)
                 full[0] = 0
                 q = randn(b, nq, d)
-                for wb in (1, 2, 3):
+                for wb in (1, 2, 3, mb):
                     window = full[:, :wb]
-                    pos = torch.tensor([0, 0, (wb - 1) * bs + bs // 2,
-                                        wb * bs - 1], dtype=torch.int32,
-                                       device=dev)
-                    for name, pool in (("paged_decode", (kp, vp)),
-                                       ("paged_decode_q8", (kq, vq, ks, vs))):
-                        out = wrappers[name](q, *pool, window, pos)
-                        errs[name] = worst(errs[name], compare(
-                            out, TA._gather_decode_windowed,
-                            (q, pool[0], pool[1], window, pos, *pool[2:])))
+                    edge = TR.ragged_decode_split_plan(wb, b, nkv)[0] * bs
+                    last = wb * bs - 1
+                    for pos_h in ([0, 0, (wb - 1) * bs + bs // 2, last],
+                                  [0, min(edge - 1, last), min(edge, last),
+                                   last]):
+                        pos = torch.tensor(pos_h, dtype=torch.int32,
+                                           device=dev)
+                        for name, pool in (("paged_decode", (kp, vp)),
+                                           ("paged_decode_q8",
+                                            (kq, vq, ks, vs))):
+                            out = wrappers[name](q, *pool, window, pos)
+                            errs[name] = worst(errs[name], compare(
+                                out, TA._gather_decode_windowed,
+                                (q, pool[0], pool[1], window, pos,
+                                 *pool[2:])))
     return errs
 
 

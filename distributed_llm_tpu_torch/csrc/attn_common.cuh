@@ -1,5 +1,5 @@
-// Shared pieces of the CUDA-core attention kernel (ragged_paged.cuh): bf16
-// tile loads into padded shared memory and the per-query-row
+// Shared pieces of the CUDA-core paged decode kernel (ragged_paged.cuh,
+// K7): bf16 tile loads into padded shared memory and the per-query-row
 // online-softmax (flash) update.
 //
 // Work split: a block of kThreads = 4 warps owns a set of query rows

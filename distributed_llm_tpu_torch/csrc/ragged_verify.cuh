@@ -1,22 +1,27 @@
 // Split-K attention for Hopper over a bf16 or an int8 cache: the kernels
 // behind ragged_verify.cu and ragged_verify_q8.cu (speculative verify over
-// the paged pool), ragged_decode_q8.cu (one-token decode over the int8
-// pool, G = 1), flash_decode.cu and flash_decode_q8.cu (one-token decode
-// over the sequential engines' contiguous cache) and flash_chunk.cu's
-// split route (a chunk of a few rows over the same cache: the sequential
-// speculative verify).  One split kernel serves them all; a tile-source
-// policy (`Contig`) says where a tile's rows, and each row's frontier,
-// come from.
+// the paged pool), ragged_decode.cu and ragged_decode_q8.cu (one-token
+// decode over the bf16 and the int8 pool, G = 1), paged_decode_q8.cu (the
+// dense windowed tick's int8 decode over a window of the table, G = 1),
+// flash_decode.cu and flash_decode_q8.cu (one-token decode over the
+// sequential engines' contiguous cache) and flash_chunk.cu's split route
+// (a chunk of a few rows over the same cache: the sequential speculative
+// verify).  One split kernel serves them all; a tile-source policy
+// (`Contig`) says where a tile's rows, and each row's frontier, come from.
 //
 // Contract over the pool (the Pallas `_ragged_verify_kernel` /
-// `_ragged_verify_kernel_q8`, and `_ragged_decode_kernel_q8` at G = 1):
-// q [B, G, Nq, D] bf16; one layer's pool [Nkv, NB, bs, D], bf16 or int8,
-// and for int8 the float32 row scales [Nkv, NB, bs]; tables [B, MB] int32
-// hold each slot's FULL block row and pos [B] int32 the FIRST query's
-// position, both read on the device.  Query g of slot b attends positions
-// 0 .. pos[b] + g, position p living at (tables[b, p / bs], p % bs); idle
-// slots point their row at the trash block 0 with pos 0.  Output
-// [B, G, Nq, D] bf16.
+// `_ragged_verify_kernel_q8`, and at G = 1 `_ragged_decode_kernel` /
+// `_ragged_decode_kernel_q8` and `_paged_decode_kernel_q8`): q
+// [B, G, Nq, D] bf16; one layer's pool [Nkv, NB, bs, D], bf16 or int8, and
+// for int8 the float32 row scales [Nkv, NB, bs]; tables [B, MB] int32 and
+// pos [B] int32 the FIRST query's position, both read on the device.  Row b
+// of the table starts b * TS elements in (TS >= MB): the ragged kernels
+// pass each slot's FULL row, TS = MB; the dense tick passes a window
+// [B, wb] of its full [B, MB_full] table, a column slice read in place,
+// so MB = wb and TS = MB_full, with every pos < wb * bs.  Query g of slot b
+// attends positions 0 .. pos[b] + g, position p living at
+// (tables[b, p / bs], p % bs); idle slots point their row at the trash
+// block 0 with pos 0.  Output [B, G, Nq, D] bf16.
 //
 // Contract over a contiguous window (the Pallas `_decode_kernel` /
 // `_decode_kernel_q8` at G = 1, `_chunk_kernel_native` / `_chunk_kernel`
@@ -39,7 +44,10 @@
 // multiply-adds per element read (20 at orin's 4 x 5 rows: about 20
 // operations per bf16 byte, 40 per int8 byte, against the card's ~295); a
 // decode does group = 4 per element.  So the design is about keeping
-// enough bytes in flight on every SM.
+// enough bytes in flight on every SM.  With MB = wb the frontier clamp
+// min(MB, pos / bs + 1) is the Pallas windowed index map's
+// min(j, pos // bs): the dense tick's window never reads past column
+// wb - 1.
 //
 // 1. Split-K (flash-decoding).  Grid (Nkv, B, S); block (hk, b, s) walks
 //    the sequence's tiles [s * T, min((s + 1) * T, n_tiles)).  T and S come
@@ -48,17 +56,22 @@
 //    - verify (`split_plan`): at orin's MB = 128, T = 8 tiles, so the timed
 //      verify's long slot alone is 16 splits and the batch 192 live blocks
 //      on 132 SMs, where one block per (kv head, slot) was 32;
-//    - decode, over the pool (`ragged_decode_split_plan`) or a window
+//    - decode, over the pool or a window of the table
+//      (`ragged_decode_split_plan`) or a contiguous window
 //      (`decode_split_plan`): a decode block holds only the group's 4 rows,
 //      whose partials (4 x D floats, 2 KB at D = 128) are small beside one
 //      tile pair (32 KB bf16, 17 KB int8 with its scales), so splits are as
 //      short as 528 blocks over the whole table or window ask:
-//      T = ceil(B * Nkv * MB / 528).  At orin's int8 pool (B = 4, Nkv = 8,
-//      MB = 128) that is T = 8 and S = 16, up to 128 live blocks a slot; at
-//      its sequential decode (B = 1, W = 8192) T = 2 tiles (128 positions)
-//      and S = 64, and at the served position 2255 the 36 live tiles are 18
-//      splits, 144 live blocks on 132 SMs (one block per kv head and
-//      sequence was 8);
+//      T = ceil(B * Nkv * MB / 528).  At nano's bf16 pool (B = 8, Nkv = 8,
+//      MB = 128) T = 16 and S = 8: the timed batch's 22 live splits are 176
+//      live blocks, where one block per (kv head, slot) was 64; the nano
+//      draft's 4 slots get T = 8, S = 16, as orin's int8 pool (B = 4); the
+//      dense tick's int8 window at orin (B = 4, wb = 32) T = 2, S = 16, 23
+//      live splits at the timed positions, 184 live blocks where there
+//      were 32.  Orin's sequential decode (B = 1, W = 8192) gets T = 2
+//      tiles (128 positions) and S = 64, and at the served position 2255
+//      the 36 live tiles are 18 splits, 144 live blocks on 132 SMs (one
+//      block per kv head and sequence was 8);
 //    - a chunk of a few rows over a window (`chunk_split_plan`): the decode
 //      plan, but never so short that a split's partials (written once, read
 //      once: 2 x rows x (D + 2) floats) outweigh the K/V it reads.  At
@@ -74,8 +87,9 @@
 //    own frontier ends before a live split's first tile leaves l = 0 and m
 //    at the -1e30 sentinel there, and weighs 0.  m is kept in units of log2
 //    (scores times log2 e), so every exponential is one exp2.  Over the
-//    pool a row merges in one warp (`split_merge_kernel`, at most 16
-//    splits a row at orin); over a window, with up to 64, in one block
+//    pool a row merges in one warp (`split_merge_kernel`: at most 16
+//    splits a row at the timed shapes and at every window rung of orin's
+//    dense tick); over a contiguous window, with up to 64, in one block
 //    whose warps sum a share of the splits each (`split_merge_row_kernel`).
 // 2. Tensor cores.  The block's rows are the group's heads x G positions,
 //    row r = head_in_group * G + g (20 at orin's verify, 4 at its decode, at
@@ -101,12 +115,12 @@
 //    cp.async.cg, 16 bytes a thread, one commit group per tile: the copy of
 //    tile j + kStages - 1 is in flight while the products of tile j run (at
 //    orin's decode, 3 stages: both tiles of a split are issued before the
-//    first is scored).  Over the pool a tile's table entry is read when its
-//    copy is issued.  A window's rows are strided by Nkv * D elements and
-//    its int8 row scales by Nkv floats, so its scales go by 4-byte
-//    cp.async.ca, one a thread; rows past the block's furthest frontier
-//    (the window's ragged end included) are zero-filled by the copy
-//    (src-size 0), never read.
+//    first is scored).  Over the pool a tile's table entry, at
+//    tables[b * TS + j], is read when its copy is issued.  A window's rows
+//    are strided by Nkv * D elements and its int8 row scales by Nkv
+//    floats, so its scales go by 4-byte cp.async.ca, one a thread; rows
+//    past the block's furthest frontier (the window's ragged end included)
+//    are zero-filled by the copy (src-size 0), never read.
 // 4. int8.  The ring stages int8 tiles (rows of D + 16 bytes) and both
 //    row-scale vectors through the same cp.async path; each tile is then
 //    widened into one bf16 K/V tile pair in shared memory (integers in
@@ -146,6 +160,9 @@ struct Args {
   float* part_ml;   // [B, Nkv, S, R, 2]: (m in log2 units, l)
   int B, G, Nq, Nkv, NB, bs, D, MB, T, S;
   float scale;
+  // Pool only: elements between two table rows, at least MB (a window of a
+  // wider table keeps that table's row stride).
+  long long TS = 0;
   // Contiguous windows only: W positions, batch strides in elements of the
   // cache and of the scales.
   int W = 0;
@@ -426,7 +443,7 @@ split_verify_kernel(const Args a) {
       load_stage_contig<D, BS, MT, Q8>(stage, a, b, hk, j * BS, last);
     } else {
       const long head_row0 = (long)hk * a.NB * BS;  // first pool row of this kv head
-      load_stage<D, BS, MT, Q8>(stage, a, head_row0 + (long)a.tables[(long)b * a.MB + j] * BS);
+      load_stage<D, BS, MT, Q8>(stage, a, head_row0 + (long)a.tables[b * a.TS + j] * BS);
     }
   };
   // Prologue: the first kStages - 1 tiles in flight (one group each,
@@ -789,13 +806,14 @@ cudaError_t dispatch_bs(const Args& a, cudaStream_t stream) {
   }
 }
 
-// Returns the first failing launch's cudaError_t (0 = both launched).
-// D must be 64 or 128, bs 32, 64 or 128, Nq a multiple of Nkv,
-// (Nq / Nkv) * G at most kMaxRows, and S * T at least MB.
+// The split route over the pool: returns the first failing launch's
+// cudaError_t (0 = both launched).  D must be 64 or 128, bs 32, 64 or 128,
+// Nq a multiple of Nkv, (Nq / Nkv) * G at most kMaxRows, S * T at least
+// MB, and the table's row stride TS at least MB.
 template <bool Q8>
 int split_verify_attention(const Args& a, void* stream) {
   if (a.Nkv <= 0 || a.Nq % a.Nkv != 0 || a.G < 1 || a.Nq / a.Nkv * a.G > kMaxRows || a.B < 1 ||
-      a.T < 1 || a.S < 1 || (long)a.S * a.T < a.MB) {
+      a.TS < a.MB || a.T < 1 || a.S < 1 || (long)a.S * a.T < a.MB) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -47,6 +47,7 @@ extern "C" int ragged_verify_attention_q8(const void* q, const void* k_pool,
                              MB,
                              T,
                              S,
-                             scale};
+                             scale,
+                             MB};  // a full row per slot: the row stride is MB
   return dllm::verify::split_verify_attention<true>(a, stream);
 }

@@ -38,10 +38,10 @@ _F = ctypes.c_float
 # c_void_p (a bare int would be cut to 32 bits); every entry returns the
 # launch's cudaError_t.
 SIGNATURES: Dict[str, tuple] = {
-    # q, k_pool, v_pool, tables, pos, out; B, Nq, Nkv, NB, bs, D, MB;
-    # scale; stream
+    # q, k_pool, v_pool, tables, pos, out, partial acc, partial (m, l);
+    # B, Nq, Nkv, NB, bs, D, MB, tiles per split, splits; scale; stream
     "ragged_decode": ("ragged_decode_attention",
-                      [_P] * 6 + [_I] * 7 + [_F, _P]),
+                      [_P] * 8 + [_I] * 9 + [_F, _P]),
     # q, k_pool, v_pool, tables, pos, out, partial acc, partial (m, l);
     # B, G, Nq, Nkv, NB, bs, D, MB, tiles per split, splits; scale; stream
     "ragged_verify": ("ragged_verify_attention",
@@ -60,10 +60,11 @@ SIGNATURES: Dict[str, tuple] = {
     # table row stride; scale; stream
     "paged_decode": ("paged_decode_attention",
                      [_P] * 6 + [_I] * 7 + [_L, _F, _P]),
-    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out; B, Nq, Nkv,
-    # NB, bs, D, wb; table row stride; scale; stream
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, partial acc,
+    # partial (m, l); B, Nq, Nkv, NB, bs, D, wb, tiles per split, splits;
+    # table row stride; scale; stream
     "paged_decode_q8": ("paged_decode_attention_q8",
-                        [_P] * 8 + [_I] * 7 + [_L, _F, _P]),
+                        [_P] * 10 + [_I] * 9 + [_L, _F, _P]),
     # q, k, v, out; B, S, Nq, Nkv, D; scale; stream
     "flash_causal": ("flash_causal_attention",
                      [_P] * 4 + [_I] * 5 + [_F, _P]),

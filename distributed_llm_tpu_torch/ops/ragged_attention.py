@@ -19,20 +19,26 @@ ceil((pos + G) / bs) pool blocks once, and each staged K/V tile is read
 by every query row of its kv head (the group's heads times the G verify
 positions) from shared memory.  The int8 kernels stage half the bytes
 plus one float32 scale per row and dequantize in the kernel; the
-dequantized window never reaches device memory.  The bf16 decode kernel
-runs one block per (kv head, slot) (``csrc/ragged_paged.cuh``); the
-verify kernels and the int8 decode kernel (the int8 verify at G = 1)
-split each slot's tiles over many blocks and merge the float32 partials
-in a second pass, with their products on the tensor cores
-(``csrc/ragged_verify.cuh``; the plans ``split_plan`` and
-``ragged_decode_split_plan`` are functions of shapes only, so the
-wrappers read nothing from the device).
+dequantized window never reaches device memory.  All four are one
+split-K kernel (``csrc/ragged_verify.cuh``), the decode kernels at
+G = 1: each slot's blocks are split over many blocks and the float32
+partials merged in a second pass, with the products on the tensor cores.
+The plans are functions of shapes only, so the wrappers read nothing
+from the device: ``split_plan`` for the verify kernels (8 blocks a split
+at orin's 4-slot pool, 192 live blocks at its timed verify),
+``ragged_decode_split_plan`` for the decode kernels (16 blocks a split
+at nano's 8-slot pool, 176 live blocks at its timed batch; 8 at the
+nano draft's and orin's 4 slots).  The kernel reads a slot's table row
+through the table's row stride, so the dense windowed tick's int8 decode
+(``flash_attention.paged_decode_attention_q8``) runs it too, over a
+column slice ``tables[:, :wb]`` of the full table (2 blocks a split at
+orin's 2048 window).
 
 A CPU tensor takes the plain version (``_gather_decode_paged`` /
 ``_gather_verify_paged``, the JAX package's XLA paths); a CUDA tensor
 launches the kernel or raises.  ``split_verify_mirror`` repeats the
 split kernel's split-and-merge algorithm over the pool in plain PyTorch
-for the tests (the verify kernels, and the int8 decode kernel at G = 1),
+for the tests (the verify kernels, and the decode kernels at G = 1),
 and ``split_window_mirror`` the same algorithm over a contiguous cache
 window, as the contiguous decode kernels and the bf16 chunk kernel's
 split route run it (``flash_attention.py``, planned by
@@ -81,19 +87,23 @@ def split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
 
 
 # The decode kernels on the split kernel run its split pass at G = 1: the
-# int8 ragged decode (``ragged_paged_decode_attention_q8``) over each slot's
-# pool blocks, the contiguous decode kernels
-# (``flash_attention.flash_decode_attention`` and its int8 twin) over
-# DECODE_TILE-position tiles of the cache window.  A decode block holds only
-# the group's Nq / Nkv rows, so its partials (4 x D floats at orin, 2 KB)
-# are small beside even one tile of K and V (32 KB bf16 at D = 128, 17 KB
-# int8 with its scales): a split may be a single tile, with no
-# SPLIT_MIN_TILES floor.  Splits are as fine as SPLIT_TARGET_BLOCKS blocks
-# over the whole table or window ask, so that a slot a quarter of the way
-# into its context still has more live blocks than the card has SMs: orin
-# at B = 1 and W = 8192 gets 2 tiles a split and 64 splits, 144 live blocks
-# at the served position 2255; orin's int8 pool at B = 4 and MB = 128 gets
-# 8 blocks a split and 16 splits, 128 live blocks for a slot at its end.
+# ragged decode kernels (``ragged_paged_decode_attention`` and its int8
+# twin) over each slot's pool blocks, the dense tick's int8 decode
+# (``flash_attention.paged_decode_attention_q8``) over a window of them,
+# the contiguous decode kernels (``flash_attention.flash_decode_attention``
+# and its int8 twin) over DECODE_TILE-position tiles of the cache window.
+# A decode block holds only the group's Nq / Nkv rows, so its partials
+# (4 x D floats at orin, 2 KB) are small beside even one tile of K and V
+# (32 KB bf16 at D = 128, 17 KB int8 with its scales): a split may be a
+# single tile, with no SPLIT_MIN_TILES floor.  Splits are as fine as
+# SPLIT_TARGET_BLOCKS blocks over the whole table or window ask, so that a
+# slot a quarter of the way into its context still has more live blocks
+# than the card has SMs: orin at B = 1 and W = 8192 gets 2 tiles a split
+# and 64 splits, 144 live blocks at the served position 2255; orin's int8
+# pool at B = 4 and MB = 128 gets 8 blocks a split and 16 splits, 128 live
+# blocks for a slot at its end; nano's bf16 pool at B = 8 gets 16 blocks a
+# split and 8 splits; orin's dense tick at B = 4 in a 2048 window
+# (wb = 32) 2 blocks a split and 16 splits.
 DECODE_TILE = 64
 
 
@@ -112,9 +122,10 @@ def decode_split_plan(w: int, b: int, nkv: int) -> Tuple[int, int]:
 
 
 def ragged_decode_split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
-    """(blocks per split, splits) of the int8 ragged decode kernel for a
-    table of ``mb`` blocks per slot, ``b`` slots and ``nkv`` kv heads:
-    shapes in, ints out, nothing read from the device."""
+    """(blocks per split, splits) of the decode kernels over the pool (the
+    ragged decode, bf16 and int8, and the dense tick's int8 decode) for a
+    table or window of ``mb`` blocks per slot, ``b`` slots and ``nkv`` kv
+    heads: shapes in, ints out, nothing read from the device."""
     return _fine_split(mb, b, nkv)
 
 
@@ -207,18 +218,12 @@ def ragged_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     -> [B, Nq, D]; slot b attends positions 0 .. pos[b]."""
     if not q.is_cuda:
         return _gather_decode_paged(q, k_pool, v_pool, tables, pos)
-    fn = "ragged_paged_decode_attention"
-    _check(fn, q, k_pool, v_pool, tables, pos, None, None, 1)
-    b, nq, d = q.shape
-    nkv, nb, bs, _ = k_pool.shape
-    out = torch.empty_like(q)
-    err = _build.entry("ragged_decode")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, nq, nkv, nb, bs, d,
-        tables.shape[1], d ** -0.5, _stream(q))
-    _build.check(err, "ragged_decode")
+    _check("ragged_paged_decode_attention", q, k_pool, v_pool, tables, pos,
+           None, None, 1)
+    out = _launch_verify("ragged_decode", q[:, None], k_pool, v_pool, (),
+                         tables, pos)
     ragged_paged_decode_attention.launches += 1
-    return out
+    return out[:, 0]
 
 
 def ragged_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -237,19 +242,25 @@ def ragged_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+# Entries of the split kernel at G = 1 (they take no G), planned by
+# ``ragged_decode_split_plan``; the dense tick's ``paged_decode_q8`` also
+# takes the table's row stride (its window is a column slice).
+_DECODE_ENTRIES = ("ragged_decode", "ragged_decode_q8", "paged_decode_q8")
+
+
 def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                    v_pool: torch.Tensor, scales: tuple, tables: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
     """Launch split kernel ``name`` (its split and merge passes) on
     checked inputs, q [B, G, Nq, D]; ``scales`` is () for a bf16 pool,
     (k_scale, v_scale) for an int8 one.  The verify kernels are planned by
-    ``split_plan``; the int8 decode kernel (G = 1, its entry takes no G)
-    by ``ragged_decode_split_plan``.  The float32 partials are scratch of
+    ``split_plan``, the decode kernels (``_DECODE_ENTRIES``, G = 1) by
+    ``ragged_decode_split_plan``.  The float32 partials are scratch of
     this call."""
     b, g, nq, d = q.shape
     nkv, nb, bs, _ = k_pool.shape
     mb = tables.shape[1]
-    decode = name == "ragged_decode_q8"
+    decode = name in _DECODE_ENTRIES
     plan = ragged_decode_split_plan if decode else split_plan
     tiles, splits = plan(mb, b, nkv)
     rows = nq // nkv * g
@@ -258,12 +269,13 @@ def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                            device=q.device)
     part_ml = torch.empty((b, nkv, splits, rows, 2), dtype=torch.float32,
                           device=q.device)
+    stride = (tables.stride(0),) if name == "paged_decode_q8" else ()
     err = _build.entry(name)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *(t.data_ptr() for t in scales), tables.data_ptr(), pos.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b,
         *(() if decode else (g,)), nq, nkv, nb, bs, d, mb, tiles, splits,
-        d ** -0.5, _stream(q))
+        *stride, d ** -0.5, _stream(q))
     _build.check(err, name)
     return out
 
@@ -387,7 +399,8 @@ def split_verify_mirror(q, k_pool, v_pool, tables, pos, tiles: int,
     """The split kernel's whole algorithm over the pool in plain float32
     PyTorch, with ``tiles`` tiles per split: ``split_verify_partials`` then
     ``merge_split_partials`` -> [B, G, Nq, D] float32.  The verify kernels
-    at q [B, G, Nq, D]; the int8 decode kernel at G = 1."""
+    at q [B, G, Nq, D]; the decode kernels over the pool at G = 1 (the
+    dense tick's int8 decode with its window as ``tables``)."""
     m, l, acc = split_verify_partials(q, k_pool, v_pool, tables, pos, tiles,
                                       k_scale, v_scale)
     return merge_split_partials(m, l, acc, pos, q.shape[1], k_pool.shape[2],
