@@ -20,11 +20,11 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    of 989 TFLOP/s); all three as replayed CUDA graphs (device time), with
    the eager single call beside them; each is also checked at its other
    instantiations (head dim, block, group, verify width; the split-K
-   verify, ragged decode (bf16 and int8), int8 paged decode and contiguous
-   decode kernels also on tables and windows spanning several of their
-   splits, with frontiers on and one key past a split boundary; the int8
-   paged decode also at windows of one block and of the whole table; the
-   verify kernels timed
+   verify, ragged decode (bf16 and int8), paged decode (bf16 and int8)
+   and contiguous decode kernels also on tables and windows spanning
+   several of their splits, with frontiers on and one key past a split
+   boundary; the paged decode kernels also at windows of one block and of
+   the whole table; the verify kernels timed
    at a short shape too; the bf16 contiguous chunk kernel on both of its
    routes, the split kernel for a few rows and the tensor-core kernel for
    wide chunks, at each side of the boundary between them; the causal
@@ -56,6 +56,11 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    every routing strategy in turn sends a concurrent burst, a repeated
    query (a response-cache hit), follow-up turns and streams.
 
+The batched engines (phases 4-6 and 10) run every tick as a CUDA graph
+captured once per program (the ragged tick, each dense window rung, each
+γ bucket's speculative round) and replayed; the kernels' launch counts
+count replays.
+
 Each serve phase sets every kernel's launch count and every plain
 version's call count to 0 before its requests and reads them after: the
 phase's kernels must have launched and no plain attention version may
@@ -65,7 +70,11 @@ with the kernel and with the plain attention (in bf16 and in float32)
 must agree (speculating tiers: the verify's rows against as many
 sequential decode steps, and the verify with the kernel against the
 verify with the plain attention), and one decode step (and, speculating,
-one verify step) is timed eager and as a replayed CUDA graph.
+one verify step) is timed eager and as a replayed CUDA graph.  On each
+batched engine one tick runs through the program the engine replays and
+through the program's body eagerly, from the same live state: their
+tokens must be ``torch.equal``; the replayed tick is timed beside the
+engine's program keys and served tick quantiles.
 
 It prints the serving numbers as one JSON line, the /chat phase's numbers
 per strategy as another, the card's name and power limit, the kernel
@@ -123,12 +132,15 @@ KV_TILE = 64                     # positions per staged K/V tile (K9-K12)
 LOGITS_RTOL = 0.05
 SERVE_MAX_NEW = 32               # random weights rarely stop at EOS
 # Graph-replayed times of redesigned kernels' previous design (one
-# CUDA-core block per (kv head, slot), ``ragged_paged.cuh``) at the same
-# timed shapes, on an NVIDIA H100 80GB HBM3 at 700.00 W: kept in the
-# report beside this run's time, never printed on the kernels line.
+# CUDA-core block per (kv head, slot), the retired ``ragged_paged.cuh``)
+# at the same timed shapes, on an NVIDIA H100 80GB HBM3 at 700.00 W: kept
+# in the report beside this run's time, never printed on the kernels line.
 PREVIOUS_DESIGN_MS = {
     "ragged_decode": {"design": "ragged_paged.cuh", "ms": 0.556,
                       "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
+    "paged_decode": {"design": "ragged_paged.cuh", "ms": 0.1439,
+                     "eager_ms": 0.1840,
+                     "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
     "paged_decode_q8": {"design": "ragged_paged.cuh", "ms": 0.213,
                         "card": "NVIDIA H100 80GB HBM3, 700.00 W"}}
 
@@ -1086,16 +1098,18 @@ def contiguous_variant_checks(torch, gen) -> dict:
 def paged_decode_cases(nano, orin):
     """K7 and K8 at the dense tick's shapes, (kernel, cfg, slots,
     positions, window blocks of 64): K7 at the nano tier's 8 slots in a
-    2048 window (timed) and at K1's timed shape, the full 8192 table (for
-    a direct comparison with K1); K8 at the orin tier's 4 slots in a 2048
-    window (timed: 2 blocks a split), there with frontiers on split 0's
-    last key, one key past it and at the window's end, in a window of one
-    block and in the whole 8192 table (wb = MB).  Slot 0 is idle (its
-    whole row on the trash block)."""
+    2048 window (timed: 4 blocks a split) and at K1's timed shape, the
+    full 8192 table (wb = MB, for a direct comparison with K1); K8 at the
+    orin tier's 4 slots in a 2048 window (timed: 2 blocks a split).  Each
+    also with frontiers on the last key of a split and one key past it,
+    and in a window of one block; K8 in the whole table too.  Slot 0 is
+    idle (its whole row on the trash block)."""
     return {
         "paged_decode": [
             (nano, 8, [0, 40, 200, 700, 1500, 1900, 1100, 2047], 32),
-            (nano, 8, [0, 40, 200, 700, 1500, 3000, 5000, 8191], 128)],
+            (nano, 8, [0, 40, 200, 700, 1500, 3000, 5000, 8191], 128),
+            (nano, 8, [0, 255, 256, 511, 512, 1023, 1024, 2047], 32),
+            (nano, 8, [0, 5, 40, 63, 1, 17, 32, 62], 1)],
         "paged_decode_q8": [(orin, 4, [0, 100, 700, 1900], 32),
                             (orin, 4, [0, 127, 128, 2047], 32),
                             (orin, 4, [0, 5, 40, 63], 1),
@@ -1290,20 +1304,8 @@ def words(n: int, offset: int = 0) -> str:
 
 def kernel_wrappers():
     """Every kernel's wrapper, by the kernel's name (its source's stem)."""
-    from distributed_llm_tpu_torch.ops import flash_attention as TF
-    from distributed_llm_tpu_torch.ops import ragged_attention as TR
-    return {"ragged_decode": TR.ragged_paged_decode_attention,
-            "flash_causal": TF.flash_causal_attention,
-            "paged_chunk": TF.paged_chunk_attention,
-            "paged_decode": TF.paged_decode_attention,
-            "paged_decode_q8": TF.paged_decode_attention_q8,
-            "ragged_verify": TR.ragged_paged_verify_attention,
-            "ragged_decode_q8": TR.ragged_paged_decode_attention_q8,
-            "ragged_verify_q8": TR.ragged_paged_verify_attention_q8,
-            "flash_decode": TF.flash_decode_attention,
-            "flash_decode_q8": TF.flash_decode_attention_q8,
-            "flash_chunk": TF.flash_chunk_attention,
-            "flash_chunk_q8": TF.flash_chunk_attention_q8}
+    from distributed_llm_tpu_torch.ops import launches
+    return launches.wrappers()
 
 
 def plain_versions():
@@ -1526,6 +1528,7 @@ def serve_phase(torch, tier, *, lengths, expect, repeat=False, sampled=False,
             "decode_logits_check": logits_check(torch, engine),
             "verify_check": verify_check(torch, engine) if engine.spec else None,
             "decode_step": paged_step_breakdown(torch, engine) if on_card else None,
+            "tick_graph_check": tick_graph_check(torch, engine),
             "verify_step": (verify_step_breakdown(torch, engine)
                             if on_card and engine.spec else None),
             "peak_memory_gb": peak_memory_gb(torch, on_card)})
@@ -1546,6 +1549,81 @@ def _live_decode_state(torch, engine, spare=()):
     cur = torch.full((b,), entry.ids[-1], dtype=torch.long)
     return (tables.to(engine.device), pos.to(engine.device),
             cur.to(engine.device), n)
+
+
+def tick_graph_check(torch, engine) -> dict:
+    """One tick of ``engine`` (its speculative round at the top γ bucket
+    on a speculating engine) through the tick program the engine replays
+    and through the program's body run eagerly, from the same state and
+    the same static inputs: every slot greedy, continuing the longest
+    parked conversation, two spare blocks after the parked ones taking
+    the new positions.  Each run starts from the live pools (the target's
+    and the draft's), restored after; the tokens must be ``torch.equal``.
+    On the card the replayed tick is then timed (10 replays between two
+    CUDA events, and on the host's clock) beside the engine's program
+    keys; ``step_replay_ms`` is a tick's device time over its steps."""
+    progs = engine.tick_stats()["compiled"]
+    spare = engine.allocator.alloc(2)
+    require(spare is not None, "no spare blocks for the tick check")
+    pools = [engine.pool] + ([engine.pool_d] if engine.spec else [])
+    live = [{k: v.clone() for k, v in p.items()} for p in pools]
+    host = [a.copy() for a in (engine._tables, engine._pos, engine._cur,
+                               engine._temps, engine._caps)]
+
+    def restore_pools():
+        for pool, saved in zip(pools, live):
+            for k in pool:
+                pool[k].copy_(saved[k])
+
+    try:
+        tables, pos, cur, n = _live_decode_state(torch, engine, spare)
+        for ix, row in enumerate(tables.cpu().numpy()):
+            engine._set_table_row(ix, row)
+        engine._pos[:] = n - 1
+        engine._cur[:] = int(cur[0])
+        engine._temps[:] = 0.0
+        if engine.spec:
+            stage, key = "spec", engine._gamma_buckets[-1]
+            engine._caps[:] = key
+            steps = key + 1
+        else:
+            stage, key = "decode", engine._tick_rung()
+            steps = engine.steps_per_tick
+        prog = engine._program(stage, key)
+        replayed = prog.run().clone()
+        restore_pools()
+        eager = prog.body().clone()
+        restore_pools()
+        require(torch.equal(replayed, eager),
+                f"{engine.tier.name}: the replayed {stage} program "
+                f"{key} gave other tokens than its body run eagerly")
+        res = {"stage": stage, "key": key, "position": n - 1,
+               "graph": prog.graph is not None,
+               "tokens_equal": True, "programs": progs}
+        if engine.device.type == "cuda":
+            iters = 10
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(iters):
+                prog.run()
+            end.record()
+            end.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+            res.update({"tick_replay_ms": start.elapsed_time(end) / iters,
+                        "tick_replay_wall_ms": wall_ms, "steps": steps})
+            res["step_replay_ms"] = res["tick_replay_ms"] / steps
+            restore_pools()
+    finally:
+        for arr, saved in zip((engine._tables, engine._pos, engine._cur,
+                               engine._temps, engine._caps), host):
+            arr[:] = saved
+        engine._tables_dirty = True
+        engine.allocator.free(spare)
+        del live
+    return res
 
 
 def step_breakdown(torch, step, attn, layers: int) -> dict:
@@ -2154,6 +2232,8 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
         "cache": router.query_router.get_cache_stats()["hit_rate"],
         "dense_logits_check": {n: dense_logits_check(torch, e)
                                for n, e in engines.items()},
+        "tick_graph_check": {n: tick_graph_check(torch, e)
+                             for n, e in engines.items()},
         "routing_device_check": routing_device_check(
             "cuda" if on_card else "cpu"),
         "peak_memory_gb": peak_memory_gb(torch, on_card)}
@@ -2308,7 +2388,7 @@ def main() -> None:
             "model", "engine", "draft", "kv_quantize", "requests",
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
             "chunked_ttft_ms", "flash_chunk_routes", "tick_stats", "spec",
-            "decode_step",
+            "decode_step", "tick_graph_check",
             "verify_step",
             "decode_logits_check", "verify_check", "peak_memory_gb")
             if k in serve}
@@ -2325,6 +2405,8 @@ def main() -> None:
             "orin", "p50_routing_overhead_ms")}
             for st, v in chat["by_strategy"].items()},
         "int8_chunk_calls": chat["int8_chunk_calls"],
+        "tiers": chat["tiers"],
+        "tick_graph_check": chat["tick_graph_check"],
         "dense_logits_check": chat["dense_logits_check"],
         "routing_device_check": chat["routing_device_check"],
         "peak_memory_gb": chat["peak_memory_gb"]}}))

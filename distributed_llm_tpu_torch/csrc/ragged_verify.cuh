@@ -1,8 +1,9 @@
 // Split-K attention for Hopper over a bf16 or an int8 cache: the kernels
 // behind ragged_verify.cu and ragged_verify_q8.cu (speculative verify over
 // the paged pool), ragged_decode.cu and ragged_decode_q8.cu (one-token
-// decode over the bf16 and the int8 pool, G = 1), paged_decode_q8.cu (the
-// dense windowed tick's int8 decode over a window of the table, G = 1),
+// decode over the bf16 and the int8 pool, G = 1), paged_decode.cu and
+// paged_decode_q8.cu (the dense windowed tick's decode over a window of the
+// table, bf16 and int8, G = 1),
 // flash_decode.cu and flash_decode_q8.cu (one-token decode over the
 // sequential engines' contiguous cache) and flash_chunk.cu's split route
 // (a chunk of a few rows over the same cache: the sequential speculative
@@ -11,7 +12,8 @@
 //
 // Contract over the pool (the Pallas `_ragged_verify_kernel` /
 // `_ragged_verify_kernel_q8`, and at G = 1 `_ragged_decode_kernel` /
-// `_ragged_decode_kernel_q8` and `_paged_decode_kernel_q8`): q
+// `_ragged_decode_kernel_q8` and `_paged_decode_kernel` /
+// `_paged_decode_kernel_q8`): q
 // [B, G, Nq, D] bf16; one layer's pool [Nkv, NB, bs, D], bf16 or int8, and
 // for int8 the float32 row scales [Nkv, NB, bs]; tables [B, MB] int32 and
 // pos [B] int32 the FIRST query's position, both read on the device.  Row b
@@ -66,9 +68,10 @@
 //      MB = 128) T = 16 and S = 8: the timed batch's 22 live splits are 176
 //      live blocks, where one block per (kv head, slot) was 64; the nano
 //      draft's 4 slots get T = 8, S = 16, as orin's int8 pool (B = 4); the
-//      dense tick's int8 window at orin (B = 4, wb = 32) T = 2, S = 16, 23
-//      live splits at the timed positions, 184 live blocks where there
-//      were 32.  Orin's sequential decode (B = 1, W = 8192) gets T = 2
+//      dense tick's bf16 window at nano (B = 8, wb = 32) T = 4, S = 8, 33
+//      live splits at the timed positions, 264 live blocks where there
+//      were 64; its int8 window at orin (B = 4, wb = 32) T = 2, S = 16, 23
+//      live splits, 184 live blocks where there were 32.  Orin's sequential decode (B = 1, W = 8192) gets T = 2
 //      tiles (128 positions) and S = 64, and at the served position 2255
 //      the 36 live tiles are 18 splits, 144 live blocks on 132 SMs (one
 //      block per kv head and sequence was 8);

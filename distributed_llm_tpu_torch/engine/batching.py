@@ -35,6 +35,30 @@ A scheduler thread runs in front of the paged KV pool
 - ``generate()`` blocks on a per-request event while its tokens stream
   out of the shared loop; ``generate_stream()`` yields text deltas.
 
+A tick's device work is one **tick program** (``TickProgram``), as the
+JAX engine compiles one: the ragged tick is one program, the dense tick
+one per window rung ``wb`` (JAX's ``("decode", (wb, tp))``), the
+speculative round one per γ bucket (draft steps, verify, acceptance and
+the emitted tokens; JAX's draft and verify pair).  On the card each is
+captured once as a CUDA graph and replayed every tick; on the CPU, which
+has no graphs, the same body runs directly, so the CPU tests run exactly
+the code that is captured.  There is no eager tick on the card: a
+capture or replay that fails fails the tick's slots, as a failed launch
+does.  The programs read static inputs: device buffers allocated once
+for the engine's life (positions, tokens, temperatures, γ caps and the
+[B, MB] block table, each dense rung a column view of it), filled by
+``copy_`` from host arrays (pinned on the card) before every tick; the
+table is copied only after a row changed, in place.  Each new program
+is recorded by ``_note_compile(stage, key)`` (a log line and the
+per-stage key sets in ``tick_stats()["compiled"]``).  ``warmup`` captures
+what the JAX engine's compiles: the warm request's program, the dense
+tick's second rung and every γ bucket; deeper rungs are captured on
+first use.  A program always draws its sampling noise, greedy slots
+included (``sample_batched`` keeps their argmax), as JAX's single
+compiled tick does: one program per rung, not one per (rung, sampled),
+and greedy tokens are the same either way.  Kernel launch counts count
+replays (``TickProgram``).
+
 Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
 tenant quotas (and their γ caps), crash capture/adopt, tensor
 parallelism, int8 weights and the observability hooks.  Without
@@ -48,13 +72,14 @@ practice.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -63,6 +88,7 @@ from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import Transformer
+from ..ops import launches
 from ..ops.sampling import sample_batched
 from ..serving.errors import error_dict
 from .inference import GenerationResult, prepare_prompt, trim_at_eos
@@ -75,6 +101,10 @@ from .tokenizer import StreamDecoder, get_tokenizer
 History = Union[str, Sequence[Dict[str, Any]]]
 
 logger = logging.getLogger(__name__)
+
+# Captures are serialized across the process's engines: a capture takes
+# the default CUDA generator's state for its own while it runs.
+_CAPTURE_LOCK = threading.Lock()
 
 # Per-slot adaptive γ: EWMA weight of a round's observed acceptance, and
 # the floor under which a slot stops speculating (γ=0, sticky for the
@@ -97,6 +127,51 @@ def _fetch_tick(x: torch.Tensor) -> np.ndarray:
     plain tick's [T, B], a speculative round's [B, γ+2] tokens and
     accept counts) become observable in one pull."""
     return x.cpu().numpy()
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool, stream):
+    """Capture into ``graph`` on ``stream`` from the engine's memory
+    ``pool``, thread-local: ``torch.cuda.graph`` without its
+    device-wide synchronize, garbage collection and allocator cache
+    flush, which would stall the other engine on the card, and leave the
+    next eager prefill to allocate its memory afresh."""
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            yield
+        finally:
+            graph.capture_end()
+
+
+class TickProgram:
+    """One tick's device work, ``body()`` -> its output tensor.  Without
+    a ``graph`` (the CPU) ``run()`` calls the body.  With one, the body is
+    captured once inside ``capture(graph)`` (a context manager) and
+    ``run()`` replays it and returns the static output the capture
+    allocated.  The kernel launches the capture counted are taken back (a
+    capture runs nothing) and added again at every replay, so the
+    wrappers' counts count launches on the card."""
+
+    def __init__(self, body: Callable[[], torch.Tensor], graph=None,
+                 capture: Optional[Callable] = None):
+        self.body = body
+        self.graph = graph
+        self.out: Optional[torch.Tensor] = None
+        self.launch_deltas: Dict[str, int] = {}
+        if graph is not None:
+            before = launches.counts()
+            with capture(graph):
+                self.out = body()
+            self.launch_deltas = launches.since(before)
+            launches.add(self.launch_deltas, -1)
+
+    def run(self) -> torch.Tensor:
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        launches.add(self.launch_deltas)
+        return self.out
 
 
 @dataclasses.dataclass
@@ -257,15 +332,32 @@ class ContinuousBatchingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed ^ 0xBA7C4)
 
+        # The tick programs' static inputs: host arrays the scheduler edits
+        # in place (views of pinned tensors on the card) and their device
+        # buffers, both allocated once for the engine's life.
         b, mb = self.paged.max_slots, self.paged.blocks_per_slot
-        self._tables = np.full((b, mb), TRASH_BLOCK, np.int32)
-        self._tables_dev: Optional[torch.Tensor] = None
-        # Dense windowed tick: one [B, wb] column view of the cached device
-        # table per window rung, dropped with it on any row change.
+        self._tables_host, self._tables_dev = self._static(
+            (b, mb), torch.int32, TRASH_BLOCK)
+        self._tables = self._tables_host.numpy()
+        self._tables_dirty = False
+        # Dense windowed tick: one [B, wb] column view of the device table
+        # per window rung.
         self._tables_dev_w: Dict[int, torch.Tensor] = {}
-        self._pos = np.zeros(b, np.int32)
-        self._cur = np.zeros(b, np.int64)
-        self._temps = np.zeros(b, np.float32)
+        # Positions, current tokens, temperatures and γ caps: each [B],
+        # copied in before every tick.
+        self._staged = [self._static((b,), dtype) for dtype in
+                        (torch.int32, torch.int64, torch.float32, torch.int64)]
+        ((self._pos, self._pos_dev), (self._cur, self._cur_dev),
+         (self._temps, self._temps_dev), (self._caps, self._caps_dev)) = (
+            (host.numpy(), dev) for host, dev in self._staged)
+        # Tick programs by (stage, key), and the keys _note_compile saw.
+        self._programs: Dict[tuple, TickProgram] = {}
+        self._compiled: Dict[str, set] = {}
+        if self.device.type == "cuda":
+            # The engine's graphs share one memory pool: they never run
+            # at once.
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
         self._slots: List[Optional[_Slot]] = [None] * b
         self._buckets = sorted(set(
             bb for bb in tier.prefill_buckets if bb <= self.cfg.max_seq_len))
@@ -306,6 +398,24 @@ class ContinuousBatchingEngine:
         self._progress_t = time.monotonic()
 
     # -- device work -------------------------------------------------------
+
+    def _static(self, shape: tuple, dtype: torch.dtype, fill: int = 0):
+        """A tick input for the engine's life: (host tensor, pinned on the
+        card, and its device buffer), both filled with ``fill``."""
+        host = torch.full(shape, fill, dtype=dtype,
+                          pin_memory=self.device.type == "cuda")
+        return host, torch.full(shape, fill, dtype=dtype, device=self.device)
+
+    def _stage_inputs(self) -> None:
+        """Copy the tick's host inputs into the programs' device buffers,
+        in place (the table only after a row changed).  The copies are
+        ordered before the tick's replay on the stream, and the host
+        arrays change only after the tick's sync."""
+        if self._tables_dirty:
+            self._tables_dev.copy_(self._tables_host, non_blocking=True)
+            self._tables_dirty = False
+        for host, dev in self._staged:
+            dev.copy_(host, non_blocking=True)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(arr)).to(self.device, non_blocking=True)
@@ -357,86 +467,146 @@ class ContinuousBatchingEngine:
         return sample_batched(logits, self._temp_tensor(temp),
                               self._sampler([temp]))[0]
 
-    def _tick_tables(self) -> torch.Tensor:
-        """The tick's device tables.  Ragged: the full [B, MB] table,
-        uploaded once per table change.  Dense: its first wb columns, wb
-        the window covering every active position plus the tick's steps
-        (idle slots sit at position 0), a cached column view of the same
-        upload per rung."""
-        if self._tables_dev is None:
-            self._tables_dev = self._to_device(self._tables)
+    def _tick_rung(self) -> int:
+        """The plain tick's table width in blocks.  Ragged: the full row.
+        Dense: the window covering every active position plus the tick's
+        steps (idle slots sit at position 0)."""
         if self.ragged:
-            return self._tables_dev
+            return self.paged.blocks_per_slot
         w_need = int(self._pos.max()) + self.steps_per_tick
-        wb = self._suffix_window(w_need) // self.paged.block_size
+        return self._suffix_window(w_need) // self.paged.block_size
+
+    def _window(self, wb: int) -> torch.Tensor:
+        """The device table's first ``wb`` columns (the whole table at
+        MB): a column view of it per rung, valid for the engine's life."""
+        if wb == self.paged.blocks_per_slot:
+            return self._tables_dev
         tables = self._tables_dev_w.get(wb)
         if tables is None:
             tables = self._tables_dev_w[wb] = self._tables_dev[:, :wb]
         return tables
 
-    @torch.no_grad()
-    def _decode_tick(self) -> np.ndarray:
-        """One tick: ``decode_steps_per_tick`` batched decode steps, each
-        feeding its sampled tokens to the next on the device, then one
-        pull of the [T, B] tokens.  Positions clamp at max_seq_len - 1 so
-        an overshooting slot keeps writing its own last cell."""
-        tables = self._tick_tables()
-        pos = self._to_device(self._pos)
-        cur = self._to_device(self._cur)
-        temps = self._to_device(self._temps)
-        gen = self._sampler(self._temps.tolist())
+    def _decode_body(self, wb: int) -> Callable[[], torch.Tensor]:
+        """The plain tick's program body at table width ``wb``:
+        ``decode_steps_per_tick`` batched decode steps on the static
+        inputs, each feeding its sampled tokens to the next, -> [T, B]
+        tokens.  Positions clamp at max_seq_len - 1 so an overshooting
+        slot keeps writing its own last cell."""
+        tables = self._window(wb)
         max_pos = self.cfg.max_seq_len - 1
-        toks = []
-        for _ in range(self.steps_per_tick):
-            logits = decode_step_paged(self.cfg, self.model, cur, pos,
-                                       self.pool, tables, ragged=self.ragged)
-            cur = sample_batched(logits, temps, gen)
-            toks.append(cur)
-            pos = torch.clamp(pos + 1, max=max_pos)
-        return _fetch_tick(torch.stack(toks))
+
+        def body() -> torch.Tensor:
+            pos, cur, toks = self._pos_dev, self._cur_dev, []
+            for _ in range(self.steps_per_tick):
+                logits = decode_step_paged(self.cfg, self.model, cur, pos,
+                                           self.pool, tables,
+                                           ragged=self.ragged)
+                cur = sample_batched(logits, self._temps_dev, self._gen)
+                toks.append(cur)
+                pos = torch.clamp(pos + 1, max=max_pos)
+            return torch.stack(toks)
+
+        return body
+
+    def _spec_body(self, gb: int) -> Callable[[], torch.Tensor]:
+        """The speculative round's program body at γ bucket ``gb``, on the
+        static inputs (``_caps_dev`` [B] caps each slot's acceptance).
+        The draft runs gb + 1 batched ragged decode steps on its pool (the
+        last one writes the last draft's K/V, so a fully accepted round
+        leaves no hole); ONE verify forward scores every slot's gb + 1
+        chunk; acceptance and the emitted tokens are tensor ops on the
+        device.  -> [B, gb + 2]: out [B, gb + 1] then n_acc."""
+        max_pos = self.cfg.max_seq_len - 1
+        tables = self._tables_dev
+
+        def body() -> torch.Tensor:
+            pos, cur = self._pos_dev, self._cur_dev
+            tok, p, drafts = cur, pos, []
+            for _ in range(gb + 1):
+                logits = decode_step_paged(self.cfg_d, self.model_d, tok, p,
+                                           self.pool_d, tables)
+                tok = logits.argmax(dim=-1)
+                drafts.append(tok)
+                p = torch.clamp(p + 1, max=max_pos)
+            drafted = torch.stack(drafts[:gb], dim=1)            # [B, gb]
+            logits = verify_step_paged(
+                self.cfg, self.model, torch.cat([cur[:, None], drafted], dim=1),
+                pos, self.pool, tables)                          # [B, gb+1, V]
+            picks = logits.argmax(dim=-1)
+            # The first row is temperature-aware: a sampled slot rides γ=0
+            # and draws its one token per round as the plain tick would.
+            picks[:, 0] = sample_batched(logits[:, 0], self._temps_dev,
+                                         self._gen)
+            agree = (drafted == picks[:, :gb]).long()
+            n_acc = torch.minimum(agree.cumprod(dim=1).sum(dim=1),
+                                  self._caps_dev)
+            idx = torch.arange(gb + 1, device=pos.device)[None]
+            out = torch.where(
+                idx < n_acc[:, None],
+                torch.nn.functional.pad(drafted, (0, 1)),
+                picks.gather(1, torch.minimum(idx, n_acc[:, None])))
+            return torch.cat([out, n_acc[:, None]], dim=1)
+
+        return body
+
+    def _note_compile(self, stage: str, key: int) -> None:
+        """Record a NEW tick program for ``stage`` (``"decode"``: the table
+        width wb, the ragged tick's being MB; ``"spec"``: the γ bucket)
+        and log it: warmup's captures must be visible, and one mid-serve
+        stalls every active slot."""
+        seen = self._compiled.setdefault(stage, set())
+        seen.add(key)
+        logger.info("tier %s: capturing %s program %r (%d %s programs so "
+                    "far)", self.tier.name, stage, key, len(seen), stage)
+
+    def _program(self, stage: str, key: int) -> TickProgram:
+        """The tick program for (``stage``, ``key``) with its inputs staged:
+        built (captured, on the card) at first use."""
+        self._stage_inputs()
+        prog = self._programs.get((stage, key))
+        if prog is None:
+            self._note_compile(stage, key)
+            body = (self._decode_body if stage == "decode"
+                    else self._spec_body)(key)
+            prog = (self._capture(body) if self.device.type == "cuda"
+                    else TickProgram(body))
+            self._programs[(stage, key)] = prog
+        return prog
+
+    def _capture(self, body: Callable[[], torch.Tensor]) -> TickProgram:
+        """``body`` as a CUDA graph on the engine's capture stream, after
+        one run of it there (each kernel's module loads at its first
+        launch, which a capture may not do).  That run writes what the
+        first replay rewrites from the same inputs.  The engine's
+        generator is registered, so each replay draws new numbers; and the
+        capture is thread-local (``_capturing``), since another engine's
+        scheduler (and the router) may use the card meanwhile."""
+        with _CAPTURE_LOCK:
+            stream = self._capture_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                body()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self._gen)
+            return TickProgram(body, graph, lambda g: _capturing(
+                g, self._graph_pool, stream))
+
+    @torch.no_grad()
+    def _decode_tick(self, wb: Optional[int] = None) -> np.ndarray:
+        """One plain tick at table width ``wb`` (by default the one the
+        active positions need), then one pull of its [T, B] tokens."""
+        wb = self._tick_rung() if wb is None else wb
+        return _fetch_tick(self._program("decode", wb).run())
 
     @torch.no_grad()
     def _spec_tick(self, gb: int, gammas: np.ndarray):
         """One speculative round at γ bucket ``gb``; ``gammas`` [B] caps
         each slot's acceptance (0 for a slot that does not speculate).
-        The draft runs gb + 1 batched ragged decode steps on its pool (the
-        last one writes the last draft's K/V, so a fully accepted round
-        leaves no hole); ONE verify forward scores every slot's gb + 1
-        chunk; acceptance and the emitted tokens are tensor ops on the
-        device, and the round ends in one pull.  Returns (out [B, gb + 1],
-        n_acc [B]): a slot emits out[:n_acc + 1]."""
-        if self._tables_dev is None:
-            self._tables_dev = self._to_device(self._tables)
-        tables = self._tables_dev
-        pos = self._to_device(self._pos)
-        cur = self._to_device(self._cur)
-        caps = self._to_device(gammas.astype(np.int64))
-        temps = self._to_device(self._temps)
-        gen = self._sampler(self._temps.tolist())
-        max_pos = self.cfg.max_seq_len - 1
-        tok, p, drafts = cur, pos, []
-        for _ in range(gb + 1):
-            logits = decode_step_paged(self.cfg_d, self.model_d, tok, p,
-                                       self.pool_d, tables)
-            tok = logits.argmax(dim=-1)
-            drafts.append(tok)
-            p = torch.clamp(p + 1, max=max_pos)
-        drafted = torch.stack(drafts[:gb], dim=1)                # [B, gb]
-        logits = verify_step_paged(self.cfg, self.model,
-                                   torch.cat([cur[:, None], drafted], dim=1),
-                                   pos, self.pool, tables)      # [B, gb+1, V]
-        picks = logits.argmax(dim=-1)
-        # The first row is temperature-aware: a sampled slot rides γ=0 and
-        # draws its one token per round as the plain tick would.
-        picks[:, 0] = sample_batched(logits[:, 0], temps, gen)
-        agree = (drafted == picks[:, :gb]).long()
-        n_acc = torch.minimum(agree.cumprod(dim=1).sum(dim=1), caps)
-        idx = torch.arange(gb + 1, device=self.device)[None]
-        out = torch.where(
-            idx < n_acc[:, None],
-            torch.nn.functional.pad(drafted, (0, 1)),
-            picks.gather(1, torch.minimum(idx, n_acc[:, None])))
-        host = _fetch_tick(torch.cat([out, n_acc[:, None]], dim=1))
+        The round ends in one pull.  Returns (out [B, gb + 1], n_acc [B]):
+        a slot emits out[:n_acc + 1]."""
+        self._caps[:] = gammas
+        host = _fetch_tick(self._program("spec", gb).run())
         return host[:, :-1], host[:, -1]
 
     # -- tick and speculation policy ---------------------------------------
@@ -519,12 +689,11 @@ class ContinuousBatchingEngine:
         return row
 
     def _set_table_row(self, ix: int, row) -> None:
-        """Every table change funnels here, so the cached device copy (and
-        the dense tick's per-rung views of it) is re-uploaded once per
-        change, not once per tick."""
+        """Every table change funnels here, so the device table is copied
+        in once per change, not once per tick, and in place: the tick
+        programs (and the dense rungs' views) keep reading it."""
         self._tables[ix] = row
-        self._tables_dev = None
-        self._tables_dev_w.clear()
+        self._tables_dirty = True
 
     def _alloc_evicting(self, n_blocks: int) -> Optional[List[int]]:
         """Allocate, evicting parked prefixes (LRU) under pressure: live
@@ -1256,7 +1425,10 @@ class ContinuousBatchingEngine:
 
     def tick_stats(self) -> Dict[str, Any]:
         """Decode-tick wall-time quantiles over the recent-tick ring
-        (nearest rank, round(q * (n - 1)))."""
+        (nearest rank, round(q * (n - 1))) and the tick programs' keys by
+        stage (``compiled``)."""
+        compiled = {stage: sorted(keys)
+                    for stage, keys in list(self._compiled.items())}
         ticks: List[float] = []
         for _ in range(3):
             try:
@@ -1265,13 +1437,15 @@ class ContinuousBatchingEngine:
             except RuntimeError:         # ring appended mid-copy
                 continue
         if not ticks:
-            return {"n": 0, "p50_ms": None, "p95_ms": None}
+            return {"n": 0, "p50_ms": None, "p95_ms": None,
+                    "compiled": compiled}
 
         def pct(q: float) -> float:
             return round(ticks[min(len(ticks) - 1,
                                    int(q * (len(ticks) - 1) + 0.5))], 3)
 
-        return {"n": len(ticks), "p50_ms": pct(0.5), "p95_ms": pct(0.95)}
+        return {"n": len(ticks), "p50_ms": pct(0.5), "p95_ms": pct(0.95),
+                "compiled": compiled}
 
     def slot_stats(self) -> Dict[str, Any]:
         """Occupancy snapshot for health(): advisory lock-free reads.
@@ -1339,12 +1513,16 @@ class ContinuousBatchingEngine:
             ids, max_len=self.cfg.max_seq_len - self._reuse_buckets[0])
 
     def warmup(self) -> None:
-        """One short request through the whole path (prefill, paging, a
-        decode tick or a speculative round at the top γ bucket) before
-        traffic; then, with speculation on, one round at every γ bucket
-        against the all-trash tables (every slot is free, so the writes
-        land in the trash block)."""
+        """Build the tick programs before traffic, as the JAX engine
+        compiles them: one short request through the whole path (prefill,
+        paging, and the first tick's program: the ragged tick, the dense
+        tick's first rung or the top γ bucket's round); the dense tick's
+        second rung; with speculation on, every γ bucket.  Every slot is
+        free then, so the extra ticks write only the trash block."""
         self.generate("warmup", max_new_tokens=2)
+        for w in ([] if self.ragged else self._buckets[1:2]):
+            self._decode_tick(min(w // self.paged.block_size,
+                                  self.paged.blocks_per_slot))
         if self.spec:
             for gb in self._gamma_buckets:
                 self._spec_tick(gb, np.zeros(self.paged.max_slots, np.int32))

@@ -56,10 +56,11 @@ SIGNATURES: Dict[str, tuple] = {
     # splits; scale; stream
     "ragged_verify_q8": ("ragged_verify_attention_q8",
                          [_P] * 10 + [_I] * 10 + [_F, _P]),
-    # q, k_pool, v_pool, tables, pos, out; B, Nq, Nkv, NB, bs, D, wb;
-    # table row stride; scale; stream
+    # q, k_pool, v_pool, tables, pos, out, partial acc, partial (m, l);
+    # B, Nq, Nkv, NB, bs, D, wb, tiles per split, splits; table row
+    # stride; scale; stream
     "paged_decode": ("paged_decode_attention",
-                     [_P] * 6 + [_I] * 7 + [_L, _F, _P]),
+                     [_P] * 8 + [_I] * 9 + [_L, _F, _P]),
     # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, partial acc,
     # partial (m, l); B, Nq, Nkv, NB, bs, D, wb, tiles per split, splits;
     # table row stride; scale; stream
@@ -83,8 +84,7 @@ SIGNATURES: Dict[str, tuple] = {
                            ("flash_chunk", "flash_chunk_attention"),
                            ("flash_chunk_q8", "flash_chunk_attention_q8"))},
 }
-_COMMON = ("attn_common.cuh", "ragged_paged.cuh", "ragged_verify.cuh",
-           "flash_tc.cuh")
+_COMMON = ("ragged_verify.cuh", "flash_tc.cuh")
 
 _lock = threading.Lock()
 _entries: Dict[str, object] = {}

@@ -11,8 +11,8 @@ Wrappers of hand-written CUDA kernels:
 - ``paged_chunk_attention`` (``csrc/paged_chunk.cu`` over
   ``csrc/flash_tc.cuh``) replaces the Pallas ``_paged_chunk_kernel``;
 - ``paged_decode_attention`` / ``paged_decode_attention_q8``
-  (``csrc/paged_decode.cu`` over ``ragged_paged.cuh``;
-  ``paged_decode_q8.cu`` over ``ragged_verify.cuh``) replace
+  (``csrc/paged_decode.cu``, ``paged_decode_q8.cu``, both over
+  ``ragged_verify.cuh``) replace
   ``_paged_decode_kernel`` / ``_paged_decode_kernel_q8``: the dense
   windowed tick's decode through a window-truncated block table;
 - ``flash_decode_attention`` / ``flash_decode_attention_q8``
@@ -49,16 +49,15 @@ scoring on the tensor cores, and a merge pass combines each row's float32
 partials.  The bf16 chunk kernel sends chunks of a few rows (the
 sequential speculative verify) down the same split route at G = S_c
 (``chunk_route``, from shapes only), each row's frontier read from its
-position.  The dense tick's int8 decode is the same split kernel over
-the pool at G = 1, as the ragged decode kernels run it
+position.  The dense tick's decode, bf16 and int8, is the same split
+kernel over the pool at G = 1, as the ragged decode kernels run it
 (``ragged_attention.ragged_decode_split_plan`` over the window's wb
-blocks: at orin's 4 slots in a 2048 window, 2 blocks a split and 16
-splits, 184 live blocks at the timed positions where one block per (kv
-head, slot) was 32); its window ``tables[:, :wb]`` is a column slice of
-the full table, read in place through the table's row stride.  The bf16
-dense tick's decode still runs the first design, one CUDA-core block per
-(kv head, slot) (``csrc/ragged_paged.cuh``).  See each source for the
-design and its bound.
+blocks: at nano's 8 slots in a 2048 window, 4 blocks a split and 8
+splits, 264 live blocks at the timed positions where one block per (kv
+head, slot) was 64; at orin's 4 slots, 2 blocks a split and 16 splits,
+184 live blocks where there were 32); its window ``tables[:, :wb]`` is a
+column slice of the full table, read in place through the table's row
+stride.  See each source for the design and its bound.
 
 A CPU tensor takes the plain version beside it (``causal_attention``,
 ``_gather_chunk_paged``, ``_gather_decode_windowed`` and the contiguous
@@ -207,22 +206,16 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, Nq, D], one layer's pools [Nkv, NB, bs, D] bf16, tables
     [B, wb] int32 (a window of each slot's row; a column slice of the
     full table is read in place), pos [B] int32 with every pos < wb * bs
-    -> [B, Nq, D]; slot b attends positions 0 .. pos[b]."""
+    -> [B, Nq, D]; slot b attends positions 0 .. pos[b] (the split kernel
+    at G = 1, planned over the window's wb blocks)."""
     if not q.is_cuda:
         return _gather_decode_windowed(q, k_pool, v_pool, tables, pos)
     _check_paged("paged_decode_attention", q, k_pool, v_pool, tables, pos,
                  None, None, 1, strided_tables=True)
-    b, nq, d = q.shape
-    nkv, nb, bs, _ = k_pool.shape
-    out = torch.empty_like(q)
-    err = _build.entry("paged_decode")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, nq, nkv, nb, bs, d,
-        tables.shape[1], tables.stride(0), d ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode")
+    out = _launch_verify("paged_decode", q[:, None], k_pool, v_pool, (),
+                         tables, pos)
     paged_decode_attention.launches += 1
-    return out
+    return out[:, 0]
 
 
 def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
@@ -231,8 +224,7 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
                               pos: torch.Tensor) -> torch.Tensor:
     """``paged_decode_attention`` over an int8 pool: pools
     [Nkv, NB, bs, D] int8, scales [Nkv, NB, bs] float32, dequantized in the
-    kernel (the split kernel at G = 1, planned over the window's wb
-    blocks)."""
+    kernel."""
     if not q.is_cuda:
         return _gather_decode_windowed(q, k_pool, v_pool, tables, pos,
                                        k_scale, v_scale)

@@ -29,10 +29,10 @@ at orin's 4-slot pool, 192 live blocks at its timed verify),
 ``ragged_decode_split_plan`` for the decode kernels (16 blocks a split
 at nano's 8-slot pool, 176 live blocks at its timed batch; 8 at the
 nano draft's and orin's 4 slots).  The kernel reads a slot's table row
-through the table's row stride, so the dense windowed tick's int8 decode
-(``flash_attention.paged_decode_attention_q8``) runs it too, over a
-column slice ``tables[:, :wb]`` of the full table (2 blocks a split at
-orin's 2048 window).
+through the table's row stride, so the dense windowed tick's decode
+(``flash_attention.paged_decode_attention`` and its int8 twin) runs it
+too, over a column slice ``tables[:, :wb]`` of the full table (4 blocks a
+split at nano's 2048 window, 2 at orin's).
 
 A CPU tensor takes the plain version (``_gather_decode_paged`` /
 ``_gather_verify_paged``, the JAX package's XLA paths); a CUDA tensor
@@ -88,10 +88,11 @@ def split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
 
 # The decode kernels on the split kernel run its split pass at G = 1: the
 # ragged decode kernels (``ragged_paged_decode_attention`` and its int8
-# twin) over each slot's pool blocks, the dense tick's int8 decode
-# (``flash_attention.paged_decode_attention_q8``) over a window of them,
-# the contiguous decode kernels (``flash_attention.flash_decode_attention``
-# and its int8 twin) over DECODE_TILE-position tiles of the cache window.
+# twin) over each slot's pool blocks, the dense tick's decode
+# (``flash_attention.paged_decode_attention`` and its int8 twin) over a
+# window of them, the contiguous decode kernels
+# (``flash_attention.flash_decode_attention`` and its int8 twin) over
+# DECODE_TILE-position tiles of the cache window.
 # A decode block holds only the group's Nq / Nkv rows, so its partials
 # (4 x D floats at orin, 2 KB) are small beside even one tile of K and V
 # (32 KB bf16 at D = 128, 17 KB int8 with its scales): a split may be a
@@ -102,8 +103,8 @@ def split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
 # and 64 splits, 144 live blocks at the served position 2255; orin's int8
 # pool at B = 4 and MB = 128 gets 8 blocks a split and 16 splits, 128 live
 # blocks for a slot at its end; nano's bf16 pool at B = 8 gets 16 blocks a
-# split and 8 splits; orin's dense tick at B = 4 in a 2048 window
-# (wb = 32) 2 blocks a split and 16 splits.
+# split and 8 splits; the dense tick in a 2048 window (wb = 32) 4 blocks
+# a split and 8 splits at nano's B = 8, 2 and 16 at orin's B = 4.
 DECODE_TILE = 64
 
 
@@ -123,7 +124,7 @@ def decode_split_plan(w: int, b: int, nkv: int) -> Tuple[int, int]:
 
 def ragged_decode_split_plan(mb: int, b: int, nkv: int) -> Tuple[int, int]:
     """(blocks per split, splits) of the decode kernels over the pool (the
-    ragged decode, bf16 and int8, and the dense tick's int8 decode) for a
+    ragged decode and the dense tick's decode, bf16 and int8) for a
     table or window of ``mb`` blocks per slot, ``b`` slots and ``nkv`` kv
     heads: shapes in, ints out, nothing read from the device."""
     return _fine_split(mb, b, nkv)
@@ -243,9 +244,12 @@ def ragged_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 # Entries of the split kernel at G = 1 (they take no G), planned by
-# ``ragged_decode_split_plan``; the dense tick's ``paged_decode_q8`` also
-# takes the table's row stride (its window is a column slice).
-_DECODE_ENTRIES = ("ragged_decode", "ragged_decode_q8", "paged_decode_q8")
+# ``ragged_decode_split_plan``; the dense tick's ``paged_decode`` and
+# ``paged_decode_q8`` also take the table's row stride (their window is a
+# column slice).
+_DECODE_ENTRIES = ("ragged_decode", "ragged_decode_q8", "paged_decode",
+                   "paged_decode_q8")
+_STRIDED_ENTRIES = ("paged_decode", "paged_decode_q8")
 
 
 def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -269,7 +273,7 @@ def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                            device=q.device)
     part_ml = torch.empty((b, nkv, splits, rows, 2), dtype=torch.float32,
                           device=q.device)
-    stride = (tables.stride(0),) if name == "paged_decode_q8" else ()
+    stride = (tables.stride(0),) if name in _STRIDED_ENTRIES else ()
     err = _build.entry(name)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *(t.data_ptr() for t in scales), tables.data_ptr(), pos.data_ptr(),
@@ -400,7 +404,7 @@ def split_verify_mirror(q, k_pool, v_pool, tables, pos, tiles: int,
     PyTorch, with ``tiles`` tiles per split: ``split_verify_partials`` then
     ``merge_split_partials`` -> [B, G, Nq, D] float32.  The verify kernels
     at q [B, G, Nq, D]; the decode kernels over the pool at G = 1 (the
-    dense tick's int8 decode with its window as ``tables``)."""
+    dense tick's decode with its window as ``tables``)."""
     m, l, acc = split_verify_partials(q, k_pool, v_pool, tables, pos, tiles,
                                       k_scale, v_scale)
     return merge_split_partials(m, l, acc, pos, q.shape[1], k_pool.shape[2],

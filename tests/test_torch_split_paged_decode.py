@@ -1,13 +1,14 @@
 """The split-K algorithm of the bf16 ragged decode kernel (K1) and the
-int8 dense-tick decode kernel (K8).
+dense-tick decode kernels, bf16 (K7) and int8 (K8).
 
-On the card both are the split kernel's split pass and merge over the
-pool at G = 1 (``csrc/ragged_verify.cuh``, entered by
-``csrc/ragged_decode.cu`` and ``csrc/paged_decode_q8.cu``), planned by
-``ragged_decode_split_plan`` (shapes in, ints out).  K1 walks each slot's
-full table row over a bf16 pool; K8 walks a window ``full[:, :wb]`` of
-the table over an int8 pool, a column slice the kernel reads through the
-full table's row stride.  ``ops/ragged_attention.py`` repeats the
+On the card all three are the split kernel's split pass and merge over
+the pool at G = 1 (``csrc/ragged_verify.cuh``, entered by
+``csrc/ragged_decode.cu``, ``csrc/paged_decode.cu`` and
+``csrc/paged_decode_q8.cu``), planned by ``ragged_decode_split_plan``
+(shapes in, ints out).  K1 walks each slot's full table row over a bf16
+pool; K7 and K8 walk a window ``full[:, :wb]`` of the table over a bf16
+and an int8 pool, a column slice the kernel reads through the full
+table's row stride.  ``ops/ragged_attention.py`` repeats the
 algorithm in plain PyTorch (``split_verify_mirror`` at G = 1).  Here, on
 the CPU, with inputs from a numpy seed:
 
@@ -20,15 +21,19 @@ the CPU, with inputs from a numpy seed:
   float32 (atol 1e-5: the same arithmetic in another summation order) and
   the JAX Pallas kernel ``ragged_paged_decode_attention`` in interpret
   mode (atol 2e-5, float32);
-- K8: the same mirror over an int8 pool (the JAX quantizer's values and
-  scales) through a window ``full[:, :wb]`` of a wider table, at wb = 1,
-  a middle wb and wb = MB, the frontiers clipped to the window, against
+- K7: the same mirror over a bf16 pool through a window ``full[:, :wb]``
+  of a wider table, at wb = 1, a middle wb and wb = MB, the frontiers
+  clipped to the window, head dim 64 and 128, against
   ``_gather_decode_windowed`` and the JAX Pallas kernel
-  ``paged_decode_attention_q8`` in interpret mode, at the same
-  tolerances;
+  ``paged_decode_attention`` in interpret mode, at the same tolerances;
+- K8: the same mirror over an int8 pool (the JAX quantizer's values and
+  scales) through such a window, against ``_gather_decode_windowed`` and
+  the JAX Pallas kernel ``paged_decode_attention_q8`` in interpret mode,
+  at the same tolerances;
 - the plan is ints from shapes and gives the live-block counts of the
-  timed shapes: 176 at nano's 8 slots, 184 at orin's dense tick in a
-  2048 window, at most 16 splits a row at every window rung;
+  timed shapes: 176 at nano's 8 slots, 264 at nano's dense tick and 184
+  at orin's in a 2048 window, at most 16 splits a row at every window
+  rung;
 - the CUDA wrappers read no device value and refuse what the kernel does
   not take, including a table whose columns are not dense.
 """
@@ -98,6 +103,15 @@ def _k8_case(d: int, group: int, wb: int):
     return q, k, v, ks, vs, full, _positions(wb * BS)
 
 
+def _k7_case(d: int, group: int, wb: int):
+    """K7's inputs as numpy: q, k, v (bf16 values held in float32), the
+    full table [B, MB] (the window is its first ``wb`` columns) and pos,
+    every position below wb * BS."""
+    rng = np.random.default_rng(1000 + 100 * d + 10 * group + wb)
+    q, k, v, _, _, full = _pools(rng, d, group, q8=False)
+    return q, k, v, full, _positions(wb * BS)
+
+
 _JAX = {}
 
 
@@ -123,6 +137,19 @@ def _jax_k8(d: int, group: int, wb: int) -> np.ndarray:
                                          pos))
         _JAX[key] = np.asarray(JP.paged_decode_attention_q8(*args),
                                np.float32)
+    return _JAX[key]
+
+
+def _jax_k7(d: int, group: int, wb: int) -> np.ndarray:
+    """The JAX Pallas bf16 paged decode kernel (interpret mode on the CPU)
+    on the case's window in float32, computed once per case."""
+    key = ("k7", d, group, wb)
+    if key not in _JAX:
+        q, k, v, full, pos = _k7_case(d, group, wb)
+        args = (jnp.asarray(a) for a in (q, k, v,
+                                         np.ascontiguousarray(full[:, :wb]),
+                                         pos))
+        _JAX[key] = np.asarray(JP.paged_decode_attention(*args), np.float32)
     return _JAX[key]
 
 
@@ -163,6 +190,27 @@ def test_k8_split_mirror_through_a_window_matches_plain_and_jax(d, group, wb,
     plain = TA._gather_decode_windowed(q, k, v, window, pos, ks, vs)
     np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(out.numpy(), _jax_k8(d, group, wb), atol=2e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, "plan"])
+@pytest.mark.parametrize("wb", [1, 7, MB])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k7_split_mirror_through_a_window_matches_plain_and_jax(d, group, wb,
+                                                                tiles):
+    """K7 over a bf16 pool through ``full[:, :wb]``: frontiers on the last
+    key of a 2- and a 3-block split and one key past each (clipped to the
+    window), an idle slot and the window's last position."""
+    tiles = _tiles(tiles, wb)
+    q, k, v, full, pos = (torch.from_numpy(a) for a in _k7_case(d, group, wb))
+    window = full[:, :wb]                   # read in place, row stride MB
+    assert window.stride() == (MB, 1)
+    out = TR.split_verify_mirror(q[:, None], k, v, window, pos, tiles)[:, 0]
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    plain = TA._gather_decode_windowed(q, k, v, window, pos)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), _jax_k7(d, group, wb), atol=2e-5,
                                rtol=0)
 
 
@@ -218,6 +266,19 @@ def test_plan_at_k1s_timed_shape():
     assert TR.ragged_decode_split_plan(128, 4, 8) == (8, 16)
 
 
+def test_plan_at_k7s_timed_shapes():
+    """nano_1b's dense tick as chip_smoke times K7 (8 slots, 8 kv heads, a
+    2048 window: wb = 32 of the 128-column table, positions 0 to 2047): 4
+    blocks a split, 8 splits, 33 live splits and 264 live blocks where
+    one block per (kv head, slot) was 64; a live block reads at most 4
+    tiles of 16 KB.  In the whole table (wb = MB = 128, K1's shape) the
+    plan is K1's own."""
+    assert TR.ragged_decode_split_plan(32, 8, 8) == (4, 8)
+    pos = (0, 40, 200, 700, 1500, 1900, 1100, 2047)
+    assert _live_blocks(pos, 4, 8) == 264 == 8 * 33
+    assert TR.ragged_decode_split_plan(128, 8, 8) == (16, 8)
+
+
 def test_plan_at_k8s_timed_shape_and_every_rung():
     """orin_8b's dense tick as chip_smoke times K8 (4 slots, 8 kv heads, a
     2048 window: wb = 32 of the 128-column table, positions 0, 100, 700,
@@ -236,9 +297,10 @@ def test_plan_at_k8s_timed_shape_and_every_rung():
 
 def test_wrappers_read_no_device_value():
     """The CUDA paths plan from shapes only: no ``.item()``,
-    ``.tolist()``, ``.cpu()`` or ``.numpy()`` in K1's and K8's wrappers,
-    the launch helper, the checks or the plan."""
-    for fn in (TR.ragged_paged_decode_attention, TF.paged_decode_attention_q8,
+    ``.tolist()``, ``.cpu()`` or ``.numpy()`` in K1's, K7's and K8's
+    wrappers, the launch helper, the checks or the plan."""
+    for fn in (TR.ragged_paged_decode_attention, TF.paged_decode_attention,
+               TF.paged_decode_attention_q8,
                TR._launch_verify, TR._check, TR.ragged_decode_split_plan,
                TR._fine_split):
         tree = ast.parse(inspect.getsource(fn).lstrip())
@@ -248,19 +310,23 @@ def test_wrappers_read_no_device_value():
 
 
 def test_both_are_decode_entries_of_the_split_kernel():
-    """K1 and K8 launch the split kernel's decode entries (no G, planned
-    by ``ragged_decode_split_plan``); K8's entry alone takes the table's
-    row stride, a long long after the plan."""
+    """K1, K7 and K8 launch the split kernel's decode entries (no G,
+    planned by ``ragged_decode_split_plan``); the dense tick's K7 and K8
+    alone take the table's row stride, a long long after the plan."""
     from distributed_llm_tpu_torch.ops import _build
-    assert {"ragged_decode", "paged_decode_q8"} <= set(TR._DECODE_ENTRIES)
-    for name, n_ptr in (("ragged_decode", 8), ("paged_decode_q8", 10)):
+    dense = {"paged_decode", "paged_decode_q8"}
+    assert {"ragged_decode"} | dense <= set(TR._DECODE_ENTRIES)
+    assert set(TR._STRIDED_ENTRIES) == dense
+    for name, n_ptr in (("ragged_decode", 8), ("paged_decode", 8),
+                        ("paged_decode_q8", 10)):
         _, argtypes = _build.SIGNATURES[name]
         assert argtypes[:n_ptr] == [_build._P] * n_ptr
         assert argtypes[n_ptr:n_ptr + 9] == [_build._I] * 9
     assert _build.SIGNATURES["ragged_decode"][1][-2:] == [_build._F,
                                                           _build._P]
-    assert _build.SIGNATURES["paged_decode_q8"][1][-3:] == [
-        _build._L, _build._F, _build._P]
+    for name in dense:
+        assert _build.SIGNATURES[name][1][-3:] == [_build._L, _build._F,
+                                                   _build._P]
 
 
 _BAD = ["group", "head_dim", "pool_dtype", "pos_dtype", "block",
@@ -320,3 +386,24 @@ def test_k8_checks_take_a_column_slice():
     assert not tables.is_contiguous()
     TR._check("paged_decode_attention_q8", q, pool, pool, tables, pos,
               scales, scales, 1, strided_tables=True)
+
+
+@pytest.mark.parametrize("bad", _BAD)
+def test_k7_checks_refuse_what_the_kernel_does_not_take(bad):
+    """K7 takes a window whose rows are dense at any row stride of at
+    least wb over a bf16 pool: a table with a column stride, rows that
+    overlap or an int8 pool are refused, as every other input the kernel
+    does not take."""
+    q, pool, _, tables, pos = _bad_inputs(bad, q8=False)
+    with pytest.raises(ValueError):
+        TR._check("paged_decode_attention", q, pool, pool, tables, pos,
+                  None, None, 1, strided_tables=True)
+
+
+def test_k7_checks_take_a_column_slice():
+    """K7's window ``tables[:, :wb]`` passes the checks as it is."""
+    q, pool, _, tables, pos = _bad_inputs("none", q8=True)
+    assert not tables.is_contiguous()
+    TR._check("paged_decode_attention", q, pool.to(torch.bfloat16),
+              pool.to(torch.bfloat16), tables, pos, None, None, 1,
+              strided_tables=True)
