@@ -17,14 +17,22 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    timed beside the plain version, one PyTorch library call computing the
    same function (SDPA on the gathered, dequantized K/V, timed here only)
    and the card's bound (bytes at 3.35 TB/s, operations at the bf16 rate
-   of 989 TFLOP/s); all three as replayed CUDA graphs (device time), with
+   of 989 TFLOP/s: the card's peaks from
+   ``utils.roofline.chip_peaks``); all three as replayed CUDA graphs (device time), with
    the eager single call beside them; each is also checked at its other
    instantiations (head dim, block, group, verify width; the split-K
    verify, ragged decode (bf16 and int8), paged decode (bf16 and int8)
    and contiguous decode kernels also on tables and windows spanning
    several of their splits, with frontiers on and one key past a split
-   boundary; the paged decode kernels also at windows of one block and of
-   the whole table; the verify kernels timed
+   boundary; the ragged decode also at the bench's orin tier (orin_8b's
+   width, 4 slots over the whole context, frontiers on and one key past
+   its own plan's split boundaries, a tile short outside the bound); the
+   paged decode kernels also at windows of one block and of
+   the whole table; the pool kernels, the causal prefill and the paged
+   chunk also at head dim 16 and block 16, the tiny test presets'
+   instances, the ragged decode, causal prefill and paged chunk at those
+   presets' own shapes with a tile short outside the bound; the verify
+   kernels timed
    at a short shape too; the bf16 contiguous chunk kernel on both of its
    routes, the split kernel for a few rows and the tensor-core kernel for
    wide chunks, at each side of the boundary between them; the causal
@@ -54,7 +62,21 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    Router (``BASE_CONFIG``) of nano_1b (8 slots, bf16 pool) and orin_8b
    (4 slots, int8 pool), both on the dense windowed tick, over HTTP;
    every routing strategy in turn sends a concurrent burst, a repeated
-   query (a response-cache hit), follow-up turns and streams.
+   query (a response-cache hit), follow-up turns and streams;
+11. the bench: ``bench.headline.run`` in process over the bench cluster
+   (nano_1b with 8 slots and orin_8b with 4, bf16 weights, the ragged
+   tick: one repeat of the five-strategy sweep with 4 closed-loop
+   clients, the trend leg on the tiny tiers, the long-context and orin
+   prefix probes, the batched nano engine with bf16 and int8 KV), then
+   the canonical tester once (heuristic, cache off, general_knowledge).
+   Every strategy must serve with no concurrent error, no section hold
+   an error, every MFU and device-memory utilization lie in (0, 1.05],
+   the trend leg run on the card, each batched tier time one decode
+   phase per tick, the ragged decode (bf16 and int8), causal prefill and
+   paged chunk kernels launch, no plain attention version run, and the
+   tester's CSVs carry the JAX package's headers with one row per query
+   and each serving tier's mean power draw (its energy columns
+   integrate the card's draw) reads 10-1000 W.
 
 The batched engines (phases 4-6 and 10) run every tick as a CUDA graph
 captured once per program (the ragged tick, each dense window rung, each
@@ -77,7 +99,9 @@ tokens must be ``torch.equal``; the replayed tick is timed beside the
 engine's program keys and served tick quantiles.
 
 It prints the serving numbers as one JSON line, the /chat phase's numbers
-per strategy as another, the card's name and power limit, the kernel
+per strategy as another, the bench's per-strategy req/s and p50 TTFT,
+utilization and wall time as another, the card's name and power limit,
+the kernel
 table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -98,8 +122,9 @@ import time
 import urllib.error
 import urllib.request
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+# The card's peaks (device-memory bytes/s, dense bf16 FLOP/s), from the
+# port's table (``utils.roofline.chip_peaks``), set in main().
+PEAKS: dict = {}
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPORT_DIR = os.path.join(REPO, "chiprun_out")
 
@@ -287,8 +312,8 @@ def one_tile_short(name: str, plain, args, at: int, tile: int = KV_TILE):
 
 
 def bound(bytes_moved: float, flops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = bytes_moved / PEAKS["peak_hbm_bytes_per_s"] * 1e3
+    t_ops = flops / PEAKS["peak_flops"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -363,6 +388,7 @@ def kernel_phase(torch, cfg, orin_cfg, bs: int):
                 q_l, k_l, v_l, attn_mask=mask)}, flush),
         "bound_ms": b1, "bound_by": by1,
         "previous_design": PREVIOUS_DESIGN_MS["ragged_decode"]})
+    rows[-1].update(bench_decode_check(torch, gen))
 
     # K2: causal prefill; checked at every cold bucket up to a chunk and at
     # a length that is no multiple of a tile, at the nano tier's width and
@@ -485,22 +511,180 @@ def kernel_phase(torch, cfg, orin_cfg, bs: int):
     rows[-1]["same_bits_as_flash_causal"] = True
     del flush_buf, k_pool, v_pool
     note_variants(rows, variant_checks(torch, gen))
+    small = variant_checks(torch, gen, SMALL_SHAPES)
+    tiny, short = tiny_preset_checks(torch, gen)
+    note_variants(rows, {n: worst(small[n], tiny[n]) for n in small},
+                  prefix="d16_", short=short)
     torch.cuda.empty_cache()
     return rows
 
 
-def note_variants(rows, errs: dict) -> None:
-    """Each row's kernel must have agreed at its other instantiations."""
+def bench_decode_check(torch, gen) -> dict:
+    """The ragged decode at the bench's orin tier (``bench_cluster``: a
+    bf16 pool of its 4 slots over orin_8b's whole context, as phase 11
+    serves it): slot 0 idle, the others' frontiers on and one key past the
+    boundaries of the kernel's own split plan (``ragged_decode_split_plan``
+    over the 4 x MB table), near the long-context probe's 2100 and at
+    the context's end.  Each set held to KERNEL_REL_TOL, with the plain
+    version one tile short outside it.  Returns the report keys."""
+    from distributed_llm_tpu_torch.config import bench_cluster
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import ragged_attention as TR
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    tier = bench_cluster().orin
+    cfg, bs, b = tier.model(), tier.kv_block_size, tier.decode_batch
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mb = -(-cfg.max_seq_len // bs)
+    nb = b * mb + 1
+    kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+    tables = (torch.randperm(nb - 1, generator=gen, device=dev)
+              + 1).reshape(b, mb).to(torch.int32)
+    tables[0] = 0
+    blocks, splits = TR.ragged_decode_split_plan(mb, b, nkv)
+    edge = blocks * bs                      # positions a split covers
+    sets = ((edge - 1, edge, cfg.max_seq_len - 1),
+            (4 * edge - 1, 4 * edge, 2100),
+            ((splits - 1) * edge - 1, (splits - 1) * edge, 2 * edge + 37))
+    res, short = NO_ERR, float("inf")
+    for live in sets:
+        pos = torch.tensor((0,) + live, dtype=torch.int32, device=dev)
+        require(len(pos) == b, "bench_decode_check: one position a slot")
+        q = randn(b, nq, d)
+        args = (q, kp, vp, tables, pos)
+        out = TR.ragged_paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        res = worst(res, compare(out, TA._gather_decode_paged, args))
+        short = min(short, one_tile_short(
+            "ragged_decode", TA._gather_decode_paged, args, 4, tile=bs))
+    agrees("ragged_decode", res, " at the bench's orin shape")
+    return {"bench_orin_shape": f"B={b} Nq={nq} Nkv={nkv} D={d} bs={bs} "
+                                f"MB={mb} plan=({blocks}, {splits}) "
+                                f"pos={[(0,) + x for x in sets]}",
+            "bench_orin_max_abs_err": res["max_abs_err"],
+            "bench_orin_rel_err": res["rel_err"],
+            "bench_orin_one_tile_short_rel_err": short}
+
+
+def note_variants(rows, errs: dict, prefix: str = "variants_",
+                  short=None) -> None:
+    """Each row's kernel must have agreed at its other instantiations
+    (under ``variants_``), or at the head-dim-16 / block-16 ones (under
+    ``d16_``, with the one-tile-short error at the tiny presets' shapes
+    from ``short``)."""
     for row in rows:
-        res = errs[row["name"]]
-        row["variants_max_abs_err"] = res["max_abs_err"]
-        row["variants_rel_err"] = res["rel_err"]
+        res = errs.get(row["name"])
+        if res is None:
+            continue
+        row[prefix + "max_abs_err"] = res["max_abs_err"]
+        row[prefix + "rel_err"] = res["rel_err"]
+        if short is not None and row["name"] in short:
+            row[prefix + "one_tile_short_rel_err"] = short[row["name"]]
         agrees(row["name"], res, " at another instantiation")
 
 
-def variant_checks(torch, gen) -> dict:
+# The instantiations the kernels gained for the tiny test presets
+# (``nano_test``, ``orin_test``: head dim 16, 16-token blocks), as
+# (head dim, block size): head dim 16 at every block, block 16 at the
+# other head dims.  The serving instantiations are the product of
+# (64, 128) and (32, 64, 128).
+SMALL_SHAPES = ((16, 16), (16, 32), (16, 64), (16, 128), (64, 16), (128, 16))
+SERVING_SHAPES = tuple((d, bs) for d in (64, 128) for bs in (32, 64, 128))
+
+
+def tiny_preset_checks(torch, gen):
+    """The ragged decode, the causal prefill and the paged chunk at the
+    tiny presets' shapes (nano_test: Nq 4, Nkv 2; orin_test: Nq 8, Nkv 4;
+    head dim 16, 16-token blocks, 256 positions), as the trend leg serves
+    them: K1 on 4 slots (one idle) up to the last position, K2 at 16-256
+    rows, K3 at a prefix hit's 64 rows from position 100; each held to
+    KERNEL_REL_TOL, with the plain version one 64-position tile short
+    outside it, and K2 against K3 bit for bit.  Returns (worst
+    ``compare`` per kernel, the worst one-tile-short error per kernel)."""
+    from distributed_llm_tpu_torch.config import MODEL_PRESETS
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
+    from distributed_llm_tpu_torch.ops import ragged_attention as TR
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    errs = {n: NO_ERR for n in ("ragged_decode", "flash_causal", "paged_chunk")}
+    short = {n: float("inf") for n in errs}
+    bs = 16
+    for preset in ("nano_test", "orin_test"):
+        cfg = MODEL_PRESETS[preset]
+        nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        span = cfg.max_seq_len
+        b, mb = 4, span // bs
+        nb = b * mb + 1
+        kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+        tables = (torch.randperm(nb - 1, generator=gen, device=dev)
+                  + 1)[:b * mb].reshape(b, mb).to(torch.int32)
+        tables[0] = 0
+        pos = torch.tensor([0, 40, 130, span - 1], dtype=torch.int32,
+                           device=dev)
+        q = randn(b, nq, d)
+        args = (q, kp, vp, tables, pos)
+        res = compare(TR.ragged_paged_decode_attention(*args),
+                      TA._gather_decode_paged, args)
+        errs["ragged_decode"] = worst(errs["ragged_decode"], res)
+        short["ragged_decode"] = min(short["ragged_decode"], one_tile_short(
+            "ragged_decode", TA._gather_decode_paged, args, 4))
+        for s in (16, 64, 256):
+            qc, kc, vc = randn(1, s, nq, d), randn(1, s, nkv, d), \
+                randn(1, s, nkv, d)
+            res = compare(TF.flash_causal_attention(qc, kc, vc),
+                          TA.causal_attention, (qc, kc, vc))
+            errs["flash_causal"] = worst(errs["flash_causal"], res)
+        rows = torch.arange(s, device=dev, dtype=torch.int32)[None]
+        args32 = widen((qc, kc, vc))
+        err = row_rel_err(TA.chunk_attention(*args32, rows - KV_TILE)[:, KV_TILE:],
+                          TA.causal_attention(*args32)[:, KV_TILE:])
+        require(err > KERNEL_REL_TOL,
+                f"flash_causal: a missed tile would pass at {preset}: {err}")
+        short["flash_causal"] = min(short["flash_causal"], err)
+        # K3: the last prompt's suffix from position 100 on a prefix hit,
+        # its K/V in scattered pool blocks; rows must match K2's bits.
+        m = 100
+        hit = (torch.randperm(nb - 1, generator=gen, device=dev)[:s // bs]
+               + 1).to(torch.int32)
+        for pool, x in ((kp, kc), (vp, vc)):
+            pool[:, hit.long()] = x[0].reshape(s // bs, bs, nkv, d).permute(
+                2, 0, 1, 3)
+        st = torch.tensor([m], dtype=torch.int32, device=dev)
+        qs = qc[:, m:].contiguous()
+        out = TF.paged_chunk_attention(qs, kp, vp, hit, st, s)
+        q_pos = (m + torch.arange(s - m, device=dev))[None]
+        res = compare(out, TA._gather_chunk_paged,
+                      (qs, kp, vp, hit, q_pos, s))
+        errs["paged_chunk"] = worst(errs["paged_chunk"], res)
+        args32 = widen((qs, kp, vp, hit, q_pos, s))
+        err = row_rel_err(TA._gather_chunk_paged(*args32[:4], q_pos - KV_TILE,
+                                                 s),
+                          TA._gather_chunk_paged(*args32))
+        require(err > KERNEL_REL_TOL,
+                f"paged_chunk: a missed tile would pass at {preset}: {err}")
+        short["paged_chunk"] = min(short["paged_chunk"], err)
+        cold = TF.flash_causal_attention(qc, kc, vc)
+        torch.cuda.synchronize()
+        require(torch.equal(out, cold[:, m:]),
+                f"paged_chunk and flash_causal give a row different bits "
+                f"at {preset}")
+    return errs, short
+
+
+def variant_checks(torch, gen, shapes=SERVING_SHAPES) -> dict:
     """Each kernel against its plain version at the other instantiations
-    it accepts (head dim 64/128, block 32/64/128, GQA group 1/4/8) on
+    it accepts (``shapes``: head dim and block pairs; GQA group 1/4/8) on
     small ragged shapes: idle slot, partial tiles, padded chunk rows; the
     ragged decode also at the boundaries of its own split plan
     (``ragged_decode_split_plan``: 1 or 2 blocks a split on 5 x 20
@@ -523,53 +707,53 @@ def variant_checks(torch, gen) -> dict:
     def note(name, out, plain, *args, rows=None):
         errs[name] = worst(errs[name], compare(out, plain, args, rows))
 
-    for d in (64, 128):
-        for bs in (32, 64, 128):
-            for nq, nkv in ((32, 8), (16, 2), (8, 8)):
-                b, mb = 4, 12
-                nb = b * mb + 1
-                kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
-                tables = (torch.randperm(nb - 1, generator=gen, device=dev)
-                          + 1)[:b * mb].reshape(b, mb).to(torch.int32)
-                tables[1] = 0
-                pos = torch.tensor([mb * bs - 1, 0, 5, 100], dtype=torch.int32,
-                                   device=dev)
-                q = randn(b, nq, d)
-                note("ragged_decode",
-                     TR.ragged_paged_decode_attention(q, kp, vp, tables, pos),
-                     TA._gather_decode_paged, q, kp, vp, tables, pos)
-                sb, smb = 5, 20
-                snb = sb * smb + 1
-                skp, svp = randn(nkv, snb, bs, d), randn(nkv, snb, bs, d)
-                stables = (torch.randperm(snb - 1, generator=gen, device=dev)
-                           + 1).reshape(sb, smb).to(torch.int32)
-                stables[1] = 0
-                edge = TR.ragged_decode_split_plan(smb, sb, nkv)[0] * bs
-                spos = torch.tensor([edge - 1, 0, edge, edge + bs,
-                                     smb * bs - 1], dtype=torch.int32,
-                                    device=dev)
-                sq = randn(sb, nq, d)
-                note("ragged_decode",
-                     TR.ragged_paged_decode_attention(sq, skp, svp, stables,
-                                                      spos),
-                     TA._gather_decode_paged, sq, skp, svp, stables, spos)
-                # K2 at S=100 runs on at most 132 blocks (two warps a
-                # slab), at S=1100 on more (one warp a slab).
-                for s in (100, 1100) if bs == 64 else (100,):
-                    qc, kc, vc = randn(2, s, nq, d), randn(2, s, nkv, d), \
-                        randn(2, s, nkv, d)
-                    note("flash_causal", TF.flash_causal_attention(qc, kc, vc),
-                         TA.causal_attention, qc, kc, vc)
-                start, s_c, true_len = 20, 70, 80
-                table = tables[0].contiguous()
-                qq = randn(1, s_c, nq, d)
-                st = torch.tensor([start], dtype=torch.int32, device=dev)
-                q_pos = torch.clamp(start + torch.arange(s_c, device=dev),
-                                    max=true_len - 1)[None]
-                note("paged_chunk",
-                     TF.paged_chunk_attention(qq, kp, vp, table, st, 4 * bs),
-                     TA._gather_chunk_paged, qq, kp, vp, table, q_pos, 4 * bs,
-                     rows=true_len - start)
+    for d, bs in shapes:
+        for nq, nkv in ((32, 8), (16, 2), (8, 8)):
+            b, mb = 4, 12
+            nb = b * mb + 1
+            kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+            tables = (torch.randperm(nb - 1, generator=gen, device=dev)
+                      + 1)[:b * mb].reshape(b, mb).to(torch.int32)
+            tables[1] = 0
+            pos = torch.tensor([mb * bs - 1, 0, 5, 100], dtype=torch.int32,
+                               device=dev)
+            q = randn(b, nq, d)
+            note("ragged_decode",
+                 TR.ragged_paged_decode_attention(q, kp, vp, tables, pos),
+                 TA._gather_decode_paged, q, kp, vp, tables, pos)
+            sb, smb = 5, 20
+            snb = sb * smb + 1
+            skp, svp = randn(nkv, snb, bs, d), randn(nkv, snb, bs, d)
+            stables = (torch.randperm(snb - 1, generator=gen, device=dev)
+                       + 1).reshape(sb, smb).to(torch.int32)
+            stables[1] = 0
+            edge = TR.ragged_decode_split_plan(smb, sb, nkv)[0] * bs
+            spos = torch.tensor([edge - 1, 0, edge, edge + bs,
+                                 smb * bs - 1], dtype=torch.int32,
+                                device=dev)
+            sq = randn(sb, nq, d)
+            note("ragged_decode",
+                 TR.ragged_paged_decode_attention(sq, skp, svp, stables,
+                                                  spos),
+                 TA._gather_decode_paged, sq, skp, svp, stables, spos)
+            # K2 at S=100 runs on at most 132 blocks (two warps a
+            # slab), at S=1100 on more (one warp a slab).
+            for s in (100, 1100) if bs == 64 else (100,):
+                qc, kc, vc = randn(2, s, nq, d), randn(2, s, nkv, d), \
+                    randn(2, s, nkv, d)
+                note("flash_causal", TF.flash_causal_attention(qc, kc, vc),
+                     TA.causal_attention, qc, kc, vc)
+            start, s_c, true_len = 20, 70, 80
+            table = tables[0].contiguous()
+            qq = randn(1, s_c, nq, d)
+            st = torch.tensor([start], dtype=torch.int32, device=dev)
+            q_pos = torch.clamp(start + torch.arange(s_c, device=dev),
+                                max=true_len - 1)[None]
+            window = max(4 * bs, 128)         # the chunk's rows inside it
+            note("paged_chunk",
+                 TF.paged_chunk_attention(qq, kp, vp, table, st, window),
+                 TA._gather_chunk_paged, qq, kp, vp, table, q_pos, window,
+                 rows=true_len - start)
     return errs
 
 
@@ -760,13 +944,15 @@ def spec_kernel_phase(torch, cfg, draft_cfg, bs: int, n_slots: int):
         "bound_ms": b_ms, "bound_by": b_by})
     del lib, flush_buf, k_pool, v_pool, kq, vq, dk, dv, dkq, dvq
     note_variants(rows, spec_variant_checks(torch, gen))
+    note_variants(rows, spec_variant_checks(torch, gen, SMALL_SHAPES),
+                  prefix="d16_")
     torch.cuda.empty_cache()
     return rows, a1
 
 
-def spec_variant_checks(torch, gen) -> dict:
+def spec_variant_checks(torch, gen, shapes=SERVING_SHAPES) -> dict:
     """The verify kernels (bf16, int8) at every instantiation they accept
-    (head dim 64/128, block 32/64/128, GQA group 1/4/8, G 1..5) and the
+    (``shapes``: head dim and block pairs; GQA group 1/4/8, G 1..5) and the
     int8 decode kernel (G=1) on small ragged shapes that span several
     splits of the verify kernels' plan (``split_plan``: 8 tiles a split
     at these 20-block tables): a chunk ending at the table's end (three
@@ -794,46 +980,45 @@ def spec_variant_checks(torch, gen) -> dict:
     def note(name, out, plain, *args):
         errs[name] = worst(errs[name], compare(out, plain, args))
 
-    for d in (64, 128):
-        for bs in (32, 64, 128):
-            for nq, nkv in ((32, 8), (16, 2), (8, 8)):
-                b, mb = 5, 20
-                nb = b * mb + 1
-                tiles, splits = TR.split_plan(mb, b, nkv)
-                require(splits >= 3, f"the variant tables span {splits} "
-                        f"splits of {tiles} tiles, not 3")
-                edge = tiles * bs               # first key of split 1
-                kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
-                kq, ks = quant.quantize_kv_rows(kp)
-                vq, vs = quant.quantize_kv_rows(vp)
-                tables = (torch.randperm(nb - 1, generator=gen, device=dev)
-                          + 1)[:b * mb].reshape(b, mb).to(torch.int32)
-                tables[1] = 0
-                for g in range(1, 6):
-                    pos = torch.tensor([mb * bs - g, 0, edge - g,
-                                        edge + bs // 2 - g + 1, 2 * edge - 2],
-                                       dtype=torch.int32, device=dev)
-                    q = randn(b, g, nq, d)
-                    note("ragged_verify",
-                         TR.ragged_paged_verify_attention(q, kp, vp, tables,
-                                                          pos),
-                         TA._gather_verify_paged, q, kp, vp, tables, pos)
-                    note("ragged_verify_q8",
-                         TR.ragged_paged_verify_attention_q8(
-                             q, kq, vq, ks, vs, tables, pos),
-                         TA._gather_verify_paged, q, kq, vq, tables, pos, ks,
-                         vs)
-                    if g == 1:
-                        q1 = q[:, 0].contiguous()
-                        dedge = TR.ragged_decode_split_plan(mb, b, nkv)[0] * bs
-                        for dpos in (pos, torch.tensor(
-                                [dedge - 1, 0, dedge, dedge + bs, mb * bs - 1],
-                                dtype=torch.int32, device=dev)):
-                            note("ragged_decode_q8",
-                                 TR.ragged_paged_decode_attention_q8(
-                                     q1, kq, vq, ks, vs, tables, dpos),
-                                 TA._gather_decode_paged, q1, kq, vq, tables,
-                                 dpos, ks, vs)
+    for d, bs in shapes:
+        for nq, nkv in ((32, 8), (16, 2), (8, 8)):
+            b, mb = 5, 20
+            nb = b * mb + 1
+            tiles, splits = TR.split_plan(mb, b, nkv)
+            require(splits >= 3, f"the variant tables span {splits} "
+                    f"splits of {tiles} tiles, not 3")
+            edge = tiles * bs               # first key of split 1
+            kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+            kq, ks = quant.quantize_kv_rows(kp)
+            vq, vs = quant.quantize_kv_rows(vp)
+            tables = (torch.randperm(nb - 1, generator=gen, device=dev)
+                      + 1)[:b * mb].reshape(b, mb).to(torch.int32)
+            tables[1] = 0
+            for g in range(1, 6):
+                pos = torch.tensor([mb * bs - g, 0, edge - g,
+                                    edge + bs // 2 - g + 1, 2 * edge - 2],
+                                   dtype=torch.int32, device=dev)
+                q = randn(b, g, nq, d)
+                note("ragged_verify",
+                     TR.ragged_paged_verify_attention(q, kp, vp, tables,
+                                                      pos),
+                     TA._gather_verify_paged, q, kp, vp, tables, pos)
+                note("ragged_verify_q8",
+                     TR.ragged_paged_verify_attention_q8(
+                         q, kq, vq, ks, vs, tables, pos),
+                     TA._gather_verify_paged, q, kq, vq, tables, pos, ks,
+                     vs)
+                if g == 1:
+                    q1 = q[:, 0].contiguous()
+                    dedge = TR.ragged_decode_split_plan(mb, b, nkv)[0] * bs
+                    for dpos in (pos, torch.tensor(
+                            [dedge - 1, 0, dedge, dedge + bs, mb * bs - 1],
+                            dtype=torch.int32, device=dev)):
+                        note("ragged_decode_q8",
+                             TR.ragged_paged_decode_attention_q8(
+                                 q1, kq, vq, ks, vs, tables, dpos),
+                             TA._gather_decode_paged, q1, kq, vq, tables,
+                             dpos, ks, vs)
     return errs
 
 
@@ -1218,13 +1403,15 @@ def paged_decode_kernel_phase(torch, nano, orin, bs: int = 64):
                if name in PREVIOUS_DESIGN_MS else {})})
     del flush_buf
     note_variants(rows, paged_decode_variant_checks(torch, gen))
+    note_variants(rows, paged_decode_variant_checks(torch, gen, SMALL_SHAPES),
+                  prefix="d16_")
     torch.cuda.empty_cache()
     return rows
 
 
-def paged_decode_variant_checks(torch, gen) -> dict:
-    """K7 and K8 at every instantiation they take (head dim 64/128, block
-    32/64/128, GQA group 1/4/8) on small windows (1-3 of 24 table columns,
+def paged_decode_variant_checks(torch, gen, shapes=SERVING_SHAPES) -> dict:
+    """K7 and K8 at every instantiation they take (``shapes``: head dim and
+    block pairs; GQA group 1/4/8) on small windows (1-3 of 24 table columns,
     read through the row stride, and all 24): an idle slot, position 0,
     mid-block and the window's last position; then frontiers on the last
     key of K8's first split (``ragged_decode_split_plan`` over the window:
@@ -1242,35 +1429,34 @@ def paged_decode_variant_checks(torch, gen) -> dict:
                            dtype=torch.float32).to(torch.bfloat16)
 
     errs = {n: NO_ERR for n in ("paged_decode", "paged_decode_q8")}
-    for d in (64, 128):
-        for bs in (32, 64, 128):
-            for nq, nkv in ((32, 8), (16, 2), (8, 8)):
-                b, mb = 4, 24
-                nb = b * mb + 1
-                kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
-                kq, ks = quant.quantize_kv_rows(kp)
-                vq, vs = quant.quantize_kv_rows(vp)
-                full = (torch.randperm(nb - 1, generator=gen, device=dev)
-                        + 1)[:b * mb].reshape(b, mb).to(torch.int32)
-                full[0] = 0
-                q = randn(b, nq, d)
-                for wb in (1, 2, 3, mb):
-                    window = full[:, :wb]
-                    edge = TR.ragged_decode_split_plan(wb, b, nkv)[0] * bs
-                    last = wb * bs - 1
-                    for pos_h in ([0, 0, (wb - 1) * bs + bs // 2, last],
-                                  [0, min(edge - 1, last), min(edge, last),
-                                   last]):
-                        pos = torch.tensor(pos_h, dtype=torch.int32,
-                                           device=dev)
-                        for name, pool in (("paged_decode", (kp, vp)),
-                                           ("paged_decode_q8",
-                                            (kq, vq, ks, vs))):
-                            out = wrappers[name](q, *pool, window, pos)
-                            errs[name] = worst(errs[name], compare(
-                                out, TA._gather_decode_windowed,
-                                (q, pool[0], pool[1], window, pos,
-                                 *pool[2:])))
+    for d, bs in shapes:
+        for nq, nkv in ((32, 8), (16, 2), (8, 8)):
+            b, mb = 4, 24
+            nb = b * mb + 1
+            kp, vp = randn(nkv, nb, bs, d), randn(nkv, nb, bs, d)
+            kq, ks = quant.quantize_kv_rows(kp)
+            vq, vs = quant.quantize_kv_rows(vp)
+            full = (torch.randperm(nb - 1, generator=gen, device=dev)
+                    + 1)[:b * mb].reshape(b, mb).to(torch.int32)
+            full[0] = 0
+            q = randn(b, nq, d)
+            for wb in (1, 2, 3, mb):
+                window = full[:, :wb]
+                edge = TR.ragged_decode_split_plan(wb, b, nkv)[0] * bs
+                last = wb * bs - 1
+                for pos_h in ([0, 0, (wb - 1) * bs + bs // 2, last],
+                              [0, min(edge - 1, last), min(edge, last),
+                               last]):
+                    pos = torch.tensor(pos_h, dtype=torch.int32,
+                                       device=dev)
+                    for name, pool in (("paged_decode", (kp, vp)),
+                                       ("paged_decode_q8",
+                                        (kq, vq, ks, vs))):
+                        out = wrappers[name](q, *pool, window, pos)
+                        errs[name] = worst(errs[name], compare(
+                            out, TA._gather_decode_windowed,
+                            (q, pool[0], pool[1], window, pos,
+                             *pool[2:])))
     return errs
 
 
@@ -2240,6 +2426,133 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
     return numbers, launches
 
 
+# -- phase 11: the bench --------------------------------------------------------
+
+# What phase 11 gives the headline: its wall-clock budget (the sweep gets
+# 45%, so a repeat of the five strategies fits), one repeat, 4 clients.
+BENCH_BUDGET_S = 600.0
+BENCH_KERNELS = ("ragged_decode", "flash_causal", "paged_chunk",
+                 "ragged_decode_q8")
+TESTER_ROWS = 12                  # the general_knowledge set, one config
+
+
+def check_utilization(util: dict) -> None:
+    """Every MFU and device-memory utilization in (0, 1.05]: past 1.05 a
+    byte count or a phase time is wrong."""
+    for ph in ("prefill", "decode"):
+        for key in ("mfu", "hbm_util"):
+            val = (util.get(ph) or {}).get(key)
+            require(val is not None and 0.0 < val <= 1.05,
+                    f"bench utilization {ph}.{key} = {val} is outside "
+                    f"(0, 1.05]: {util}")
+
+
+def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
+                budget_s: float = BENCH_BUDGET_S, expect=BENCH_KERNELS):
+    """The port's bench on ``device``: ``bench.headline.run`` on the bench
+    cluster (one repeat, 4 clients; its JSON lines go to
+    ``bench_stdout.txt`` under ``out_dir``), then the canonical tester
+    once (heuristic, cache off, general_knowledge; CSVs under
+    ``out_dir``).  Every strategy must serve with no concurrent error, no
+    section may hold an error, the utilizations lie in (0, 1.05], the
+    trend leg ran on ``device``, each batched tier timed one decode phase
+    per tick, the kernels in ``expect`` launched and no plain attention
+    version ran; the tester's CSVs carry the JAX package's headers and
+    one row per query, each with a TTFT, and on the card each serving
+    tier's mean power draw reads 10-1000 W.  Returns (numbers, launches by
+    kernel)."""
+    import csv
+
+    from distributed_llm_tpu_torch.bench import headline, tester
+
+    on_card = device == "cuda"
+    fresh_peak(torch, on_card)
+    os.makedirs(out_dir, exist_ok=True)
+    summary_csv = os.path.join(out_dir, "bench_tester_summary.csv")
+    per_query_csv = os.path.join(out_dir, "bench_tester_per_query.csv")
+    reset_counts()
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "bench_stdout.txt"), "w") as out, \
+            contextlib.redirect_stdout(out):
+        result = headline.run(
+            device, repeats=1, clients=4,
+            progress=headline.Progress(os.path.join(out_dir,
+                                                    "bench_partial.json")),
+            budget=headline.Budget(budget_s))
+        headline_s = time.perf_counter() - t0
+        tester.main(["--query-set", "general_knowledge", "--strategies",
+                     "heuristic", "--cache-modes", "off", "--device", device,
+                     "--output-csv", summary_csv,
+                     "--output-per-query-csv", per_query_csv])
+    wall_s = time.perf_counter() - t0
+    launches, _ = read_counts(expect, on_card)
+
+    per = result["per_strategy"]
+    require(set(per) == set(headline.STRATEGIES),
+            f"bench strategies {sorted(per)}")
+    for name, entry in per.items():
+        require(entry["req_per_s"] > 0 and entry["p50_ttft_ms"] is not None
+                and not entry.get("concurrent_errors"),
+                f"bench strategy {name}: {entry}")
+    require(result["concurrent_errors"] == 0,
+            f"bench concurrent errors: {result['concurrent_errors']}")
+    errors = headline.section_errors(result)
+    require(not errors, f"bench sections with an error: {errors}")
+    if on_card:
+        check_utilization(result["utilization"])
+    trend = result["trend"]
+    require(str(trend.get("device", "")).startswith(device),
+            f"the trend leg did not run on {device}: {trend}")
+    for name, entry in result["tiers"].items():
+        require(entry["phases"]["decode"]["count"] == entry["tick"]["ticks"],
+                f"bench tier {name}: decode phases "
+                f"{entry['phases']['decode']} against ticks {entry['tick']}")
+
+    with open(summary_csv, newline="") as f:
+        summary_rows = list(csv.reader(f))
+    with open(per_query_csv, newline="") as f:
+        query_rows = list(csv.reader(f))
+    require(summary_rows[0] == tester.SUMMARY_HEADERS
+            and query_rows[0] == tester.PER_QUERY_HEADERS,
+            "the tester's CSV headers are not the JAX package's")
+    ttft = tester.PER_QUERY_HEADERS.index("ttft_ms")
+    require(len(summary_rows) == 2 and len(query_rows) == TESTER_ROWS + 1
+            and all(float(r[ttft] or 0) > 0 for r in query_rows[1:]),
+            f"the tester wrote {len(summary_rows) - 1} summary and "
+            f"{len(query_rows) - 1} per-query rows")
+    summary = dict(zip(summary_rows[0], summary_rows[1]))
+    if on_card:
+        # The energy columns integrate the card's power draw (mW x s):
+        # each serving tier's mean draw must read as a card's, 10-1000 W.
+        for tier in ("nano", "orin"):
+            if float(summary[f"{tier}_total_latency_ms"] or 0) > 0:
+                mw = float(summary[f"{tier}_avg_power_mW"] or 0)
+                require(1e4 <= mw <= 1e6,
+                        f"the tester's {tier}_avg_power_mW = {mw} is no "
+                        f"card's draw: {summary}")
+    return {
+        "wall_s": wall_s, "headline_s": headline_s,
+        "value": result["value"],
+        "per_strategy": {name: {k: entry.get(k) for k in (
+            "req_per_s", "p50_ttft_ms", "concurrent_p50_ttft_ms",
+            "sequential_req_per_s", "routing_accuracy", "orin_queries")}
+            for name, entry in per.items()},
+        "p50_ttft_ms": result["p50_ttft_ms"],
+        "concurrent_p50_ttft_ms": result["concurrent_p50_ttft_ms"],
+        "utilization": result["utilization"],
+        "tiers": {name: {"phases": entry["phases"], "work": entry["work"],
+                         "utilization": entry.get("utilization"),
+                         "tick": entry["tick"]}
+                  for name, entry in result["tiers"].items()},
+        "budget": result["budget"],
+        "trend": result["trend"],
+        "long_context": result["long_context"],
+        "orin_prefix": result["orin_prefix"],
+        "continuous_batching": result["continuous_batching"],
+        "tester_summary": summary,
+    }, launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2261,6 +2574,11 @@ def main() -> None:
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
     log(f"card: {card}")
+    from distributed_llm_tpu_torch.utils import roofline
+    peaks = roofline.chip_peaks("cuda")
+    require(peaks is not None, f"no published peaks for {card} in "
+            "distributed_llm_tpu_torch/utils/roofline.py's CARD_PEAKS")
+    PEAKS.update(peaks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2347,10 +2665,16 @@ def main() -> None:
         expect=("flash_causal", "paged_chunk", "paged_decode",
                 "paged_decode_q8"))
     log(f"/chat served in {time.perf_counter() - t_all:.1f}s")
+
+    # 11. The bench: the headline over the bench cluster (nano_1b and
+    # orin_8b on the ragged tick), then the canonical tester.
+    bench, bench_launches = bench_phase(torch)
+    log(f"bench run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
                 "orin_spec_int8": int8_launches, "orin_seq_bf16": seq_launches,
                 "orin_seq_spec": seq_spec_launches,
-                "nano_seq_int8": seq_int8_launches, "chat": chat_launches}
+                "nano_seq_int8": seq_int8_launches, "chat": chat_launches,
+                "bench": bench_launches}
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}
@@ -2373,6 +2697,7 @@ def main() -> None:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "graph_floor_ms": graph_floor_ms,
               "kernels": rows, "serve": phases, "chat": chat,
+              "bench": bench,
               "total_s": time.perf_counter() - t_all}
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -2410,6 +2735,13 @@ def main() -> None:
         "dense_logits_check": chat["dense_logits_check"],
         "routing_device_check": chat["routing_device_check"],
         "peak_memory_gb": chat["peak_memory_gb"]}}))
+    log(json.dumps({"bench": {
+        "wall_s": bench["wall_s"], "value": bench["value"],
+        "by_strategy": {st: {k: v[k] for k in ("req_per_s", "p50_ttft_ms",
+                                               "concurrent_p50_ttft_ms")}
+                        for st, v in bench["per_strategy"].items()},
+        "utilization": bench["utilization"],
+        "trend_req_per_s": bench["trend"]["trend_req_per_s"]}}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

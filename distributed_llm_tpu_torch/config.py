@@ -3,7 +3,8 @@
 Counterpart of ``distributed_llm_tpu/config.py``, kept as the port's own
 copy (the port never imports the JAX package).  It carries the router's
 canonical configs (``BENCHMARK_CFG``, ``PRODUCTION_CFG``,
-``resolve_config``), every model preset, the tier fields the engines,
+``resolve_config``), every model preset, the bench's cluster, the tier
+fields the engines,
 the tier clients and the router read (batched and sequential
 speculation, the int8 KV cache and pool, the dense windowed tick,
 admission, the context-overflow policy, drain), the cluster's breaker
@@ -322,6 +323,27 @@ class ClusterConfig:
 
     def tiers(self) -> Tuple[TierConfig, TierConfig]:
         return (self.nano, self.orin)
+
+
+def bench_cluster() -> ClusterConfig:
+    """The cluster the bench serves on the card: the north star's pair,
+    nano_1b with 8 slots and a 64-token decode cap, orin_8b with 4 slots
+    and a 128-token cap, both ``tp=1`` with bf16 weights on the ragged
+    tick.
+
+    The JAX package's ``bench_cluster`` serves nano_bench and orin_bench
+    with int8 weights, sized for a 16 GB TPU v5e; the port keeps its
+    decode caps and slot counts and serves the models its own main path
+    serves (the ``/chat`` service's pair) on the 80 GB card.  int8
+    weights wait for their port (ROADMAP.md A5).  The JAX package's
+    measured tuning table overlays a cluster only when its backend
+    matches the running one; its table is the CPU's, so it never applies
+    on a card, and the port has none."""
+    return ClusterConfig(
+        nano=TierConfig(name="nano", model_preset="nano_1b",
+                        max_new_tokens=64, decode_batch=8),
+        orin=TierConfig(name="orin", model_preset="orin_8b",
+                        max_new_tokens=128, decode_batch=4))
 
 
 def tiny_batched_cluster(nano_slots: int = 4,

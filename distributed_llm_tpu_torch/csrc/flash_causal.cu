@@ -22,8 +22,8 @@
 // a block's last row are never loaded.
 #include "flash_tc.cuh"
 
-// Returns the launch's cudaError_t (0 = launched).  D must be 64 or 128,
-// Nq a multiple of Nkv with at most 64 query heads per kv head.
+// Returns the launch's cudaError_t (0 = launched).  D must be 16, 64 or
+// 128, Nq a multiple of Nkv with at most 64 query heads per kv head.
 extern "C" int flash_causal_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int Nq, int Nkv, int D, float scale,
                                       void* stream) {

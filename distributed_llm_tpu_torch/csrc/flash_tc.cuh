@@ -543,6 +543,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 // Returns the launch's cudaError_t (0 = launched).  D must be 64 or 128,
+// or 16 (the tiny test presets) for the cold prefill and the paged chunk;
 // Nq a multiple of Nkv with a group of at most 64, B, S_q and W >= 1.  The
 // scale pointers are read only when Q8, q_pos only for kWindow, table and
 // start only for kPaged.
@@ -554,6 +555,11 @@ int flash_tc_attention(const Args& a, int B, int D, void* stream) {
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      // At D = 16 QK is one k-step and PV two n8 tiles; a row is two
+      // 16-byte copies.  The contiguous caches (kWindow) keep 64 and 128.
+      if constexpr (Src == kWindow) return (int)cudaErrorInvalidValue;
+      else return (int)launch<16, Q8, Src>(a, B, s);
     case 64:
       return (int)launch<64, Q8, Src>(a, B, s);
     case 128:

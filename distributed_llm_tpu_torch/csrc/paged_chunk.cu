@@ -11,9 +11,10 @@
 // written).  start [1] int32 is read on the device.
 //
 // The kernel is flash_tc.cuh's, instantiated for bf16 tiles gathered
-// through the table (each 64-key tile's rows read from their pool blocks,
-// bs = 32, 64 or 128) with positions start + r.  It is the causal
-// prefill's kernel (flash_causal.cu) with another tile source, so a row
+// through the table (each 128-key tile's rows read from their pool blocks,
+// bs = 16, 32, 64 or 128: at 16 a tile spans eight blocks) with positions
+// start + r.  It is the causal prefill's kernel (flash_causal.cu) with
+// another tile source, so a row
 // scores the same keys with the same arithmetic on both: a prompt served
 // cold and the same prompt's suffix served on a prefix hit give the same
 // bits.  Layout, work split and numerics are described there.
@@ -28,8 +29,9 @@
 // walking the whole window.
 #include "flash_tc.cuh"
 
-// Returns the launch's cudaError_t (0 = launched).  D must be 64 or 128,
-// bs 32, 64 or 128, Nq a multiple of Nkv with a group of at most 64.
+// Returns the launch's cudaError_t (0 = launched).  D must be 16, 64 or
+// 128, bs 16, 32, 64 or 128, Nq a multiple of Nkv with a group of at most
+// 64.
 extern "C" int paged_chunk_attention(const void* q, const void* k_pool, const void* v_pool,
                                      const void* table, const void* start, void* o, int S_c,
                                      int Nq, int Nkv, int NB, int bs, int D, int window_blocks,
@@ -47,6 +49,9 @@ extern "C" int paged_chunk_attention(const void* q, const void* k_pool, const vo
   a.W = window_blocks * bs;
   a.NB = NB;
   switch (bs) {
+    case 16:
+      a.bs_shift = 4;
+      break;
     case 32:
       a.bs_shift = 5;
       break;

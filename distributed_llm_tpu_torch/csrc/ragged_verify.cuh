@@ -654,7 +654,11 @@ constexpr int kMergeWarps = 4;
 template <int D, bool Contig>
 __global__ void __launch_bounds__(kMergeWarps * 32)
 split_merge_kernel(const Args a) {
-  constexpr int kDims = D / 32;  // output dims per lane
+  // Output dims per lane, at least a bf16 pair: at D = 16 eight lanes
+  // hold the row and the rest of the warp only finds the split weights.
+  constexpr int kDims = D / 32 > 2 ? D / 32 : 2;
+  constexpr int kLanes = D / kDims;
+  const bool holds = (threadIdx.x % 32) < kLanes;
   const int group = a.Nq / a.Nkv;
   const int R = group * a.G;
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
@@ -677,10 +681,13 @@ split_merge_kernel(const Args a) {
     const float l_s = a.part_ml[2 * idx + 1];
     const float w = l_s > 0.f ? exp2f(a.part_ml[2 * idx] - mm) : 0.f;  // empty: weight 0
     sum += l_s * w;
-    const float* src = a.part_acc + idx * D + lane * kDims;
+    if (holds) {
+      const float* src = a.part_acc + idx * D + lane * kDims;
 #pragma unroll
-    for (int e = 0; e < kDims; ++e) out[e] += w * src[e];
+      for (int e = 0; e < kDims; ++e) out[e] += w * src[e];
+    }
   }
+  if (!holds) return;
   const float inv = 1.f / fmaxf(sum, 1e-30f);
   const long o_row = ((long)b * a.G + r % a.G) * a.Nq + (long)hk * group + r / a.G;
   __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(a.o + o_row * D + lane * kDims);
@@ -798,6 +805,8 @@ cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
 template <bool Q8, int D>
 cudaError_t dispatch_bs(const Args& a, cudaStream_t stream) {
   switch (a.bs) {
+    case 16:
+      return dispatch_rows<Q8, false, D, 16>(a, stream);
     case 32:
       return dispatch_rows<Q8, false, D, 32>(a, stream);
     case 64:
@@ -810,7 +819,8 @@ cudaError_t dispatch_bs(const Args& a, cudaStream_t stream) {
 }
 
 // The split route over the pool: returns the first failing launch's
-// cudaError_t (0 = both launched).  D must be 64 or 128, bs 32, 64 or 128,
+// cudaError_t (0 = both launched).  D must be 16, 64 or 128 (16: the tiny
+// test presets), bs 16, 32, 64 or 128,
 // Nq a multiple of Nkv, (Nq / Nkv) * G at most kMaxRows, S * T at least
 // MB, and the table's row stride TS at least MB.
 template <bool Q8>
@@ -821,6 +831,8 @@ int split_verify_attention(const Args& a, void* stream) {
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.D) {
+    case 16:
+      return (int)dispatch_bs<Q8, 16>(a, s);
     case 64:
       return (int)dispatch_bs<Q8, 64>(a, s);
     case 128:

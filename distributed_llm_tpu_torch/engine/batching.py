@@ -59,6 +59,17 @@ compiled tick does: one program per rung, not one per (rung, sampled),
 and greedy tokens are the same either way.  Kernel launch counts count
 replays (``TickProgram``).
 
+Each prefill (cold, prefix hit, chunk) and each scheduler tick is timed
+as a "prefill" or "decode" phase of ``self.phases``
+(``utils/telemetry.PhaseTimer``) with the roofline work the JAX engine
+accounts for it (``utils/roofline.py``; the decode span is the active
+kernel's, ``ops.attention.decode_kv_span``).  A phase closes after the
+host sync the engine already makes there (the first token's read, the
+tick's ``_fetch_tick``), so on the card its wall time covers the device
+work it launched; a tick's phase wraps the replay, never a capture.  A
+speculative round is one "decode" phase where the JAX engine times its
+draft and its verify apart.
+
 Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
 tenant quotas (and their γ caps), crash capture/adopt, tensor
 parallelism, int8 weights and the observability hooks.  Without
@@ -89,8 +100,11 @@ from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import Transformer
 from ..ops import launches
+from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
 from ..serving.errors import error_dict
+from ..utils import roofline
+from ..utils.telemetry import PhaseTimer
 from .inference import GenerationResult, prepare_prompt, trim_at_eos
 from .paged_kv import (BlockAllocator, PagedConfig, TRASH_BLOCK,
                        chunk_prefill_paged, copy_block, decode_step_paged,
@@ -322,6 +336,7 @@ class ContinuousBatchingEngine:
                     self.cfg_d, seed=seed + 1, device=self.device)
             self.pool_d = init_pool(self.cfg_d, self.paged, tier.kv_quantize,
                                     device=self.device)
+            self._wbytes_d = roofline.weight_bytes(self.cfg_d, tier.quantize)
         # γ buckets: powers of two up to spec_gamma_max, plus the max.  A
         # round runs at the bucket covering its slots' largest γ; each
         # slot's own γ caps its acceptance inside the round.
@@ -383,8 +398,18 @@ class ContinuousBatchingEngine:
         self.share_prefix = bool(tier.share_prefix_kv
                                  and self.prefix_cache is not None)
 
-        # Recent decode-tick wall times in ms (tick_stats reads it).
+        # Recent decode-tick wall times in ms (tick_stats reads it), and
+        # every tick the scheduler ran.
         self.tick_ms: "deque[float]" = deque(maxlen=512)
+        self.ticks_total = 0
+        self._tick_wb = self.paged.blocks_per_slot   # the last tick's width
+        # Per-phase wall time and roofline work (GET /stats, the bench's
+        # MFU and HBM accounting): "prefill" and "decode", each closed
+        # after the host sync the engine makes there (a prefill's first
+        # token, a tick's ``_fetch_tick``).  Only the scheduler thread
+        # writes.
+        self.phases = PhaseTimer()
+        self._wbytes = roofline.weight_bytes(self.cfg, tier.quantize)
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         # Scheduler-head lane: KV-pressure deferrals and cancelled
         # prefills re-admit before newer arrivals.  Scheduler thread only.
@@ -573,6 +598,14 @@ class ContinuousBatchingEngine:
             self._programs[(stage, key)] = prog
         return prog
 
+    def _tick_phase(self):
+        """The "decode" phase of a tick: its replay and its pull, on the
+        scheduler thread (the serving ticks; warmup's direct ticks are
+        not timed)."""
+        if threading.current_thread() is self._thread:
+            return self.phases.phase("decode")
+        return contextlib.nullcontext()
+
     def _capture(self, body: Callable[[], torch.Tensor]) -> TickProgram:
         """``body`` as a CUDA graph on the engine's capture stream, after
         one run of it there (each kernel's module loads at its first
@@ -597,7 +630,10 @@ class ContinuousBatchingEngine:
         """One plain tick at table width ``wb`` (by default the one the
         active positions need), then one pull of its [T, B] tokens."""
         wb = self._tick_rung() if wb is None else wb
-        return _fetch_tick(self._program("decode", wb).run())
+        prog = self._program("decode", wb)      # a capture: before the phase
+        self._tick_wb = wb
+        with self._tick_phase():
+            return _fetch_tick(prog.run())
 
     @torch.no_grad()
     def _spec_tick(self, gb: int, gammas: np.ndarray):
@@ -606,7 +642,10 @@ class ContinuousBatchingEngine:
         The round ends in one pull.  Returns (out [B, gb + 1], n_acc [B]):
         a slot emits out[:n_acc + 1]."""
         self._caps[:] = gammas
-        host = _fetch_tick(self._program("spec", gb).run())
+        prog = self._program("spec", gb)        # a capture: before the phase
+        self._tick_wb = self.paged.blocks_per_slot
+        with self._tick_phase():
+            host = _fetch_tick(prog.run())
         return host[:, :-1], host[:, -1]
 
     # -- tick and speculation policy ---------------------------------------
@@ -820,9 +859,14 @@ class ContinuousBatchingEngine:
                 # The draft writes its suffix K/V too; the parked prefix
                 # blocks keep whatever draft K/V their writers left (stale
                 # draft K/V only lowers acceptance).
-                first = int(self._chunk_first(tokens, m, n,
-                                              self._table_row(owned), window,
-                                              temp, draft=self.spec))
+                with self.phases.phase("prefill"):
+                    first = int(self._chunk_first(tokens, m, n,
+                                                  self._table_row(owned),
+                                                  window, temp,
+                                                  draft=self.spec))
+                # sb suffix rows, their attention over the chunk window.
+                self.phases.add_work("prefill", **roofline.prefill_work(
+                    self.cfg, window, window - sb, wbytes=self._wbytes))
             except BaseException:
                 self.allocator.free(owned)
                 if pinned_entry is not None:
@@ -843,17 +887,20 @@ class ContinuousBatchingEngine:
             try:
                 tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
                 tokens[0, :n] = ids
-                tok = self._to_device(tokens)
-                first, k_all, v_all = self._prefill_first(tok, n, temp)
-                nb_prefill = bucket // bs
-                blk_dev = self._to_device(np.array(blocks[:nb_prefill],
-                                                   np.int64))
-                write_prefill_blocks(self.pool, blk_dev, k_all, v_all)
-                if self.spec:
-                    self._draft_prefill(tok, blk_dev)
-                # The first token must reach the host now (it seeds the
-                # slot): one sync per admission, never per tick.
-                first = int(first)
+                with self.phases.phase("prefill"):
+                    tok = self._to_device(tokens)
+                    first, k_all, v_all = self._prefill_first(tok, n, temp)
+                    nb_prefill = bucket // bs
+                    blk_dev = self._to_device(np.array(blocks[:nb_prefill],
+                                                       np.int64))
+                    write_prefill_blocks(self.pool, blk_dev, k_all, v_all)
+                    if self.spec:
+                        self._draft_prefill(tok, blk_dev)
+                    # The first token must reach the host now (it seeds
+                    # the slot): one sync per admission, never per tick.
+                    first = int(first)
+                self.phases.add_work("prefill", **roofline.prefill_work(
+                    self.cfg, bucket, 0, wbytes=self._wbytes))
             except BaseException:
                 self.allocator.free(blocks)
                 raise
@@ -913,9 +960,12 @@ class ContinuousBatchingEngine:
                 tokens[0, :k] = pf.seq[start:start + k]
                 # The chunk is the budgeted stall unit; its token (used
                 # from the final chunk) reaches the host here.
-                first = int(self._chunk_first(tokens, start, pf.total,
-                                              self._table_row(pf.blocks),
-                                              window, pf.temperature))
+                with self.phases.phase("prefill"):
+                    first = int(self._chunk_first(tokens, start, pf.total,
+                                                  self._table_row(pf.blocks),
+                                                  window, pf.temperature))
+                self.phases.add_work("prefill", **roofline.prefill_work(
+                    self.cfg, end, start, wbytes=self._wbytes))
                 pf.consumed = min(end, pf.total)
                 pf.chunks_done += 1
                 progressed = True
@@ -1248,6 +1298,33 @@ class ContinuousBatchingEngine:
             active = self._active()
         return active, spec_gb
 
+    def _add_decode_work(self, active: List[int], wb: int,
+                         spec_gb: Optional[int]) -> None:
+        """The roofline work of the tick just run over table width ``wb``,
+        at the active rows' positions before it (the JAX engine's
+        accounting).  A speculative round: the draft's gb + 1 steps, and
+        one target verify whose gb + 1 rows share a slot's K/V read.  A
+        plain tick: ``decode_steps_per_tick`` steps at the mid-tick
+        positions.  The K/V span is the active kernel's
+        (``decode_kv_span``)."""
+        window = wb * self.paged.block_size
+        mid = (spec_gb if spec_gb is not None else self.steps_per_tick) // 2
+        kv_ctx = decode_kv_span(window,
+                                [int(self._pos[ix]) + mid for ix in active],
+                                self.device, block=self.paged.block_size)
+        common = dict(kv_quantize=self.tier.kv_quantize, kv_ctx=kv_ctx)
+        if spec_gb is not None:
+            self.phases.add_work("decode", **roofline.decode_work(
+                self.cfg_d, spec_gb + 1, window, batch=len(active),
+                wbytes=self._wbytes_d, **common))
+            self.phases.add_work("decode", **roofline.decode_work(
+                self.cfg, 1, window, batch=(spec_gb + 1) * len(active),
+                wbytes=self._wbytes, kv_batch=len(active), **common))
+        else:
+            self.phases.add_work("decode", **roofline.decode_work(
+                self.cfg, self.steps_per_tick, window, batch=len(active),
+                wbytes=self._wbytes, **common))
+
     def _run_scheduler(self) -> None:
         while not self._stop.is_set():
             admitted_any = self._admit_pass()
@@ -1279,6 +1356,7 @@ class ContinuousBatchingEngine:
                             gammas[ix] = min(self._slots[ix].gamma, spec_gb)
                     out, n_acc = self._spec_tick(spec_gb, gammas)
                 self.tick_ms.append((time.perf_counter() - t_tick) * 1000.0)
+                self.ticks_total += 1
             except BaseException as exc:
                 # A dead tick must not kill the scheduler: fail the
                 # in-flight requests and keep serving new ones.
@@ -1286,6 +1364,13 @@ class ContinuousBatchingEngine:
                 for ix in active:
                     self._fail_slot(ix, exc)
                 continue
+            try:
+                self._add_decode_work(active, self._tick_wb, spec_gb)
+            except Exception:
+                # Bookkeeping of a tick that ran: its fault fails neither
+                # the tick's requests nor the scheduler.
+                logger.exception("tier %s: roofline accounting failed",
+                                 self.tier.name)
             if spec_gb is None:
                 self._emit(active, toks)
             else:
@@ -1425,8 +1510,9 @@ class ContinuousBatchingEngine:
 
     def tick_stats(self) -> Dict[str, Any]:
         """Decode-tick wall-time quantiles over the recent-tick ring
-        (nearest rank, round(q * (n - 1))) and the tick programs' keys by
-        stage (``compiled``)."""
+        (nearest rank, round(q * (n - 1))), the count of every tick the
+        scheduler ran (``ticks``; each is one "decode" phase) and the tick
+        programs' keys by stage (``compiled``)."""
         compiled = {stage: sorted(keys)
                     for stage, keys in list(self._compiled.items())}
         ticks: List[float] = []
@@ -1438,14 +1524,14 @@ class ContinuousBatchingEngine:
                 continue
         if not ticks:
             return {"n": 0, "p50_ms": None, "p95_ms": None,
-                    "compiled": compiled}
+                    "ticks": self.ticks_total, "compiled": compiled}
 
         def pct(q: float) -> float:
             return round(ticks[min(len(ticks) - 1,
                                    int(q * (len(ticks) - 1) + 0.5))], 3)
 
         return {"n": len(ticks), "p50_ms": pct(0.5), "p95_ms": pct(0.95),
-                "compiled": compiled}
+                "ticks": self.ticks_total, "compiled": compiled}
 
     def slot_stats(self) -> Dict[str, Any]:
         """Occupancy snapshot for health(): advisory lock-free reads.

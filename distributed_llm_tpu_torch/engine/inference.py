@@ -20,9 +20,16 @@ prompt helpers (``GenerationResult``, ``pick_bucket``, ``prepare_prompt``,
   tokens after an EOS are replaced by PAD exactly as the JAX loop does,
   so the output is the JAX engine's at up to 7 wasted steps.
 
-The JAX engine's mesh, sequence- and tensor-parallel hooks, its phase
-timer and roofline accounting and the router's prefix-affinity probe
-are not ported.  Calls are not thread-safe: callers serialize them (the
+Each request is timed by phase in ``self.phases``
+(``utils/telemetry.PhaseTimer``: "tokenize", "prefill", each decode
+segment's "decode", "detokenize") with the roofline work the JAX engine
+accounts (``utils/roofline.py``).  The prefill phase closes after the
+first token's host read and a decode segment's after its tokens' read,
+so on the card each covers the device work it launched.  A segment may
+run up to 7 steps past an EOS, and its work counts the steps it ran.
+
+The JAX engine's mesh, sequence- and tensor-parallel hooks are not
+ported.  Calls are not thread-safe: callers serialize them (the
 ``/query`` server holds one lock per engine).
 """
 
@@ -39,7 +46,10 @@ from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import KVCache, Transformer
+from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_token_dynamic
+from ..utils import roofline
+from ..utils.telemetry import PhaseTimer
 from .tokenizer import StreamDecoder, get_tokenizer
 
 History = Union[str, Sequence[Dict[str, Any]]]
@@ -57,6 +67,13 @@ class GenerationResult:
     gen_tokens: int
     ttft_ms: float
     total_ms: float
+
+    @property
+    def tokens_per_s(self) -> float:
+        """Generated tokens over the request's whole time."""
+        if self.total_ms <= 0 or self.gen_tokens == 0:
+            return 0.0
+        return 1000.0 * self.gen_tokens / self.total_ms
 
 
 def pick_bucket(buckets: Sequence[int], n: int, max_seq: int) -> int:
@@ -158,6 +175,8 @@ class InferenceEngine:
         self._cache_lens = sorted(
             {c for c in (256, 1024) if c < self._max_seq} | {self._max_seq})
         self._kv_quantize = tier.kv_quantize
+        self.phases = PhaseTimer()
+        self._wbytes = roofline.weight_bytes(self.cfg, tier.quantize)
         from .prefix_cache import PrefixCache
         self.prefix_cache = (
             PrefixCache(capacity=tier.prefix_cache_entries)
@@ -254,13 +273,22 @@ class InferenceEngine:
         pos = to_device([len(pre.ids)], self.device)   # position of ``cur``
         while made < pre.budget:
             steps = []
-            for _ in range(min(segment, pre.budget - made)):
-                logits = transformer.decode_step(self.cfg, self.model, cur,
-                                                 pos, pre.cache)
-                cur = sample_token_dynamic(logits, self._gen, pre.temperature)
-                steps.append(cur)
-                pos = pos + 1
-            toks = torch.cat(steps).tolist()     # the segment's one sync
+            with self.phases.phase("decode"):
+                for _ in range(min(segment, pre.budget - made)):
+                    logits = transformer.decode_step(self.cfg, self.model,
+                                                     cur, pos, pre.cache)
+                    cur = sample_token_dynamic(logits, self._gen,
+                                               pre.temperature)
+                    steps.append(cur)
+                    pos = pos + 1
+                toks = torch.cat(steps).tolist()     # the segment's one sync
+            start = len(pre.ids) + made - 1          # its first query
+            self.phases.add_work("decode", **roofline.decode_work(
+                self.cfg, len(toks), pre.cache_len, wbytes=self._wbytes,
+                kv_quantize=self._kv_quantize,
+                kv_ctx=decode_kv_span(pre.cache_len,
+                                      range(start, start + len(toks)),
+                                      self.device)))
             made += len(toks)
             stop = next((i for i, t in enumerate(toks) if t in stops), None)
             if stop is not None:
@@ -278,9 +306,11 @@ class InferenceEngine:
         """Tokenize, size the cache, and run the reuse-aware, chunked or
         bucketed prefill; ends in the first token's host read (TTFT)."""
         t0 = time.perf_counter()
-        ids, bucket = prepare_prompt(self.tokenizer, history, self._buckets,
-                                     self._max_seq, self.tier.max_new_tokens,
-                                     allow_long=True)
+        with self.phases.phase("tokenize"):
+            ids, bucket = prepare_prompt(self.tokenizer, history,
+                                         self._buckets, self._max_seq,
+                                         self.tier.max_new_tokens,
+                                         allow_long=True)
         n = len(ids)
         # The chunk stride must fit max_seq: otherwise keep the longest
         # tail it can serve.
@@ -316,26 +346,42 @@ class InferenceEngine:
                 needed = max(needed, m + sb)
         cache_len = self._pick_cache_len(needed)
 
-        if sel is not None:
-            entry, m, suffix, sb = sel
-            cache = entry.cache
-            parked_len = cache["k"].shape[2]
-            if parked_len < cache_len:
-                cache = self._grow(cache, cache_len)
+        # The work each path computes (the JAX engine's accounting): the
+        # bucket, the chunk strides, or the suffix over the allocated span.
+        with self.phases.phase("prefill"):
+            if sel is not None:
+                entry, m, suffix, sb = sel
+                cache = entry.cache
+                parked_len = cache["k"].shape[2]
+                if parked_len < cache_len:
+                    cache = self._grow(cache, cache_len)
+                else:
+                    cache_len = parked_len    # a longer parked cache: keep it
+                if sb is None:
+                    first, cache = self._long_prefill(ids, cache_len, temp,
+                                                      cache=cache, start0=m)
+                    chunks = -(-(n - m) // cb)
+                    pwork = roofline.prefill_work(
+                        self.cfg, m + chunks * cb, m,
+                        wbytes=chunks * self._wbytes)
+                else:
+                    # The suffix attends the whole allocated span.
+                    first = self._suffix_prefill(cache, suffix, sb, m, n,
+                                                 cache_len, temp)
+                    pwork = roofline.prefill_work(self.cfg, cache_len,
+                                                  cache_len - sb,
+                                                  wbytes=self._wbytes)
+            elif is_long:
+                first, cache = self._long_prefill(ids, cache_len, temp)
+                chunks = -(-n // cb)
+                pwork = roofline.prefill_work(self.cfg, chunks * cb, 0,
+                                              wbytes=chunks * self._wbytes)
             else:
-                cache_len = parked_len    # a longer parked cache: keep it
-            if sb is None:
-                first, cache = self._long_prefill(ids, cache_len, temp,
-                                                  cache=cache, start0=m)
-            else:
-                # The suffix attends the whole allocated span.
-                first = self._suffix_prefill(cache, suffix, sb, m, n,
-                                             cache_len, temp)
-        elif is_long:
-            first, cache = self._long_prefill(ids, cache_len, temp)
-        else:
-            first, cache = self._prefill(ids, bucket, cache_len, temp)
-        first = int(first[0])
+                first, cache = self._prefill(ids, bucket, cache_len, temp)
+                pwork = roofline.prefill_work(self.cfg, bucket, 0,
+                                              wbytes=self._wbytes)
+            first = int(first[0])
+        self.phases.add_work("prefill", **pwork)
         ttft_ms = (time.perf_counter() - t0) * 1000.0
         # The decode cap must fit the sized cache.
         budget = min(budget, cache_len - n)
@@ -348,10 +394,12 @@ class InferenceEngine:
         suffix overwrites) and build the result."""
         if self.prefix_cache is not None:
             self.prefix_cache.put(pre.ids, pre.cache)
-        gen_ids = trim_at_eos(gen[:pre.budget], self.tokenizer.eos_id,
-                              self.tokenizer.pad_id)
+        with self.phases.phase("detokenize"):
+            gen_ids = trim_at_eos(gen[:pre.budget], self.tokenizer.eos_id,
+                                  self.tokenizer.pad_id)
+            text = self.tokenizer.decode(gen_ids)
         return GenerationResult(
-            text=self.tokenizer.decode(gen_ids), token_ids=gen_ids,
+            text=text, token_ids=gen_ids,
             prompt_tokens=len(pre.ids), gen_tokens=len(gen_ids),
             ttft_ms=pre.ttft_ms,
             total_ms=(time.perf_counter() - pre.t0) * 1000.0)
@@ -430,5 +478,7 @@ class InferenceEngine:
     def warmup(self) -> None:
         """One short request through prefill and decode before traffic
         (PyTorch compiles nothing ahead; the kernels were built in the
-        constructor)."""
+        constructor).  The phases restart after it, as the JAX engine's
+        do: they describe serving, not warmup."""
         self.generate("warmup", max_new_tokens=2)
+        self.phases = PhaseTimer()

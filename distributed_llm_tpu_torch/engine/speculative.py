@@ -14,6 +14,12 @@ count once per round.  Rejected positions' K/V stay in both caches past
 the accepted frontier, masked until later write-before-attend steps
 overwrite them.
 
+The prefill and each round are timed as "prefill" and "decode" phases
+of ``self.phases`` with the JAX engine's roofline work (both models'
+prefills; per round the draft's γ+1 steps and one target step of γ+1
+rows sharing one read of its cache), each phase closed after its host
+read.
+
 Greedy only: a temperature raises ``NotImplementedError``.  Both caches
 are bf16 whatever the tier's ``kv_quantize`` (as in the JAX package),
 and the prompt is cut to the largest bucket (no chunked long prefill).
@@ -33,6 +39,8 @@ from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import KVCache, Transformer
 from ..ops import attention, quant
+from ..utils import roofline
+from ..utils.telemetry import PhaseTimer
 from .inference import (GenerationResult, padded_tokens, prepare_prompt,
                         to_device, trim_at_eos)
 from .tokenizer import StreamDecoder, get_tokenizer
@@ -118,6 +126,9 @@ class SpeculativeEngine:
         self.model_t = init(self.cfg_t, target_params, 0)
         self.model_d = init(self.cfg_d, draft_params, 1)
         self.accept_history: list = []
+        self.phases = PhaseTimer()
+        self._wbytes_t = roofline.weight_bytes(self.cfg_t, target.quantize)
+        self._wbytes_d = roofline.weight_bytes(self.cfg_d, target.quantize)
 
     @property
     def model(self) -> Transformer:
@@ -193,8 +204,13 @@ class SpeculativeEngine:
         needed = max(bucket, n + budget + self.gamma + 2)
         cache_len = next(c for c in self._cache_lens
                          if c >= min(needed, self._max_seq))
-        first, cache_t, cache_d = self._prefill(ids, bucket, cache_len)
-        first = int(first[0])
+        with self.phases.phase("prefill"):
+            first, cache_t, cache_d = self._prefill(ids, bucket, cache_len)
+            first = int(first[0])
+        self.phases.add_work("prefill", **roofline.prefill_work(
+            self.cfg_t, bucket, 0, wbytes=self._wbytes_t))
+        self.phases.add_work("prefill", **roofline.prefill_work(
+            self.cfg_d, bucket, 0, wbytes=self._wbytes_d))
         ttft_ms = (time.perf_counter() - t0) * 1000.0
         return first, cache_t, cache_d, cache_len, n, budget, ttft_ms, t0
 
@@ -207,8 +223,16 @@ class SpeculativeEngine:
         pos = to_device([n], self.device)
         p = n
         while p + self.gamma + 1 < cache_len:
-            out, n_acc, cur, pos = self._round(cache_t, cache_d, cur, pos)
-            host = torch.cat([out[0], n_acc]).tolist()   # the round's sync
+            with self.phases.phase("decode"):
+                out, n_acc, cur, pos = self._round(cache_t, cache_d, cur, pos)
+                host = torch.cat([out[0], n_acc]).tolist()   # the round's sync
+            # The draft's γ+1 steps, then the target's γ+1 rows over its
+            # allocated span in one read (kv_batch=1).
+            self.phases.add_work("decode", **roofline.decode_work(
+                self.cfg_d, self.gamma + 1, cache_len, wbytes=self._wbytes_d))
+            self.phases.add_work("decode", **roofline.decode_work(
+                self.cfg_t, 1, cache_len, batch=self.gamma + 1,
+                wbytes=self._wbytes_t, kv_batch=1))
             p += host[-1] + 1
             yield host[:-1], host[-1]
 

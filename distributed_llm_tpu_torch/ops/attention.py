@@ -160,6 +160,36 @@ def chunk(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                 q_positions)
 
 
+# Positions a tile of the contiguous decode kernels reads (K9, K10).
+CACHE_TILE = 64
+
+
+def decode_kv_span(length: int, positions, device,
+                   block: Optional[int] = None) -> float:
+    """Average per-sequence K/V span the decode (or verify) attention reads
+    per step on ``device``, for roofline accounting (``kv_ctx`` of
+    ``utils.roofline.decode_work``).
+
+    ``positions`` iterates the 0-based query positions of the accounted
+    steps (per step for one sequence, per row for a batched tick);
+    ``length`` is the allocated span (a slot's table or window, a cache
+    rung); ``block`` the paged pool's block size, None for the contiguous
+    cache.
+
+    On the card each kernel stops at its row's frontier: the pool kernels
+    (K1, K4-K8) read ceil((pos + 1) / bs) blocks, the contiguous ones (K9,
+    K10) 64-position tiles.  On the CPU the plain versions gather and
+    score the whole allocated span, as the JAX package's XLA path does.
+    The JAX package's Pallas kernels clamp to their own 256/128-position
+    tiles of the contiguous cache instead; those tiles do not exist
+    here."""
+    if torch.device(device).type != "cuda":
+        return float(length)
+    tile = CACHE_TILE if block is None else block
+    spans = [min(length, (int(p) // tile + 1) * tile) for p in positions]
+    return float(sum(spans)) / max(len(spans), 1)
+
+
 def _dequant_cache(k_cache, v_cache, k_scale, v_scale, dtype):
     """An int8 contiguous cache ([.., S, Nkv, D] + [.., S, Nkv] scales)
     dequantized to ``dtype`` for the plain attention."""

@@ -85,8 +85,13 @@ from .ragged_attention import _check as _check_paged
 from .ragged_attention import (_launch_verify, chunk_split_plan,
                                decode_split_plan)
 
-_SUPPORTED_D = (64, 128)
-_SUPPORTED_BS = (32, 64, 128)
+# Head dims of the cold prefill and the paged chunk (16: the tiny test
+# presets), block sizes of the paged chunk, and head dims of the
+# contiguous-cache kernels, which the tiny presets do not reach on the
+# card (their sequential tiers are served on the CPU).
+_SUPPORTED_D = (16, 64, 128)
+_SUPPORTED_BS = (16, 32, 64, 128)
+_CACHE_D = (64, 128)
 TC_ROWS = 64        # query rows per block of the tensor-core flash kernel
 TC_WARPS = 2        # warps a 16-row slab, each with its own flash state
 TC_TILE = 128       # keys per staged tile, every other 16-key chunk a warp
@@ -118,7 +123,7 @@ def _check_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
              "q/k/v must be bf16")
     _require(k.shape == v.shape == (b, s, nkv, d), fn,
              f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    _require(d in _SUPPORTED_D, fn, f"head dim {d} (need 64 or 128)")
+    _require(d in _SUPPORTED_D, fn, f"head dim {d} (need one of {_SUPPORTED_D})")
     _require(nq % nkv == 0 and nq // nkv <= TC_MAX_GROUP, fn,
              f"Nq={nq} must be a multiple of Nkv={nkv}, at most "
              f"{TC_MAX_GROUP} query heads per kv head")
@@ -160,8 +165,10 @@ def _check_paged_chunk(q: torch.Tensor, k_pool: torch.Tensor,
     _require(table.dtype == torch.int32 and start.dtype == torch.int32, fn,
              "table and start must be int32")
     _require(v_pool.shape == k_pool.shape, fn, "k_pool/v_pool shapes differ")
-    _require(dk == d and d in _SUPPORTED_D, fn, f"head dim {d} (need 64 or 128)")
-    _require(bs in _SUPPORTED_BS, fn, f"block size {bs} (need 32, 64 or 128)")
+    _require(dk == d and d in _SUPPORTED_D, fn,
+             f"head dim {d} (need one of {_SUPPORTED_D})")
+    _require(bs in _SUPPORTED_BS, fn,
+             f"block size {bs} (need one of {_SUPPORTED_BS})")
     _require(nq % nkv == 0 and nq // nkv <= TC_MAX_GROUP, fn,
              f"Nq={nq} must be a multiple of Nkv={nkv}, at most "
              f"{TC_MAX_GROUP} query heads per kv head")
@@ -246,7 +253,7 @@ def _check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, w, nkv, d = k.shape
     _require(b == q.shape[0] and d == q.shape[-1], fn,
              f"cache {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    _require(d in _SUPPORTED_D, fn, f"head dim {d} (need 64 or 128)")
+    _require(d in _CACHE_D, fn, f"head dim {d} (need one of {_CACHE_D})")
     want = torch.int8 if q8 else torch.bfloat16
     _require(k.dtype == v.dtype == want, fn, f"k/v must be {want}")
     _require(k.stride()[1:] == (nkv * d, d, 1) and v.stride() == k.stride(),

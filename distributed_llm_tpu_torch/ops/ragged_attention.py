@@ -56,8 +56,11 @@ from . import _build
 from .attention import (NEG_INF, _gather_decode_paged, _gather_pool_seq,
                         _gather_verify_paged)
 
-_SUPPORTED_D = (64, 128)
-_SUPPORTED_BS = (32, 64, 128)
+# Head dims and block sizes the pool kernels are instantiated for; 16 is
+# the tiny test presets' (``nano_test``, ``orin_test``: head dim 16,
+# 16-token blocks).
+_SUPPORTED_D = (16, 64, 128)
+_SUPPORTED_BS = (16, 32, 64, 128)
 _MAX_GROUP = 8
 # Query rows one block serves (kv-head group x verify positions); the
 # verify kernels pad them to at most three 16-row tensor-core tiles.
@@ -197,8 +200,9 @@ def _check(fn: str, q: torch.Tensor, k_pool: torch.Tensor,
     require(tables.dtype == torch.int32 and pos.dtype == torch.int32,
             "tables and pos must be int32")
     require(v_pool.shape == k_pool.shape, "k_pool/v_pool shapes differ")
-    require(dk == d and d in _SUPPORTED_D, f"head dim {d} (need 64 or 128)")
-    require(bs in _SUPPORTED_BS, f"block size {bs} (need 32, 64 or 128)")
+    require(dk == d and d in _SUPPORTED_D,
+            f"head dim {d} (need one of {_SUPPORTED_D})")
+    require(bs in _SUPPORTED_BS, f"block size {bs} (need one of {_SUPPORTED_BS})")
     require(nq % nkv == 0 and nq // nkv <= _MAX_GROUP,
             f"Nq={nq} over Nkv={nkv} (group <= {_MAX_GROUP})")
     require(g >= 1 and (nq // nkv) * g <= _MAX_ROWS,

@@ -292,8 +292,10 @@ def create_app(router: Optional[Router] = None,
 
     @app.route("/stats", methods=["GET"])
     def stats():
-        """Routing-cache health, per-tier engine state (health, KV pool,
-        decode ticks, speculation) and the breaker."""
+        """Routing-cache health, per-tier engine state (health, phase
+        timings and roofline work, prefix cache, KV pool, decode ticks,
+        speculation) and the breaker."""
+        from ..utils.telemetry import engine_stats
         with state_lock:
             router_ = state["router"]
             strategy = state["strategy"]
@@ -303,7 +305,8 @@ def create_app(router: Optional[Router] = None,
             mgr = tier.server_manager
             entry = dict(mgr.health())
             engine = getattr(mgr, "_engine", None)    # never lazy-starts
-            for key in ("kv_stats", "tick_stats", "spec_stats"):
+            entry.update(engine_stats(engine))
+            for key in ("tick_stats", "spec_stats"):
                 fn = getattr(engine, key, None)
                 if callable(fn):
                     entry[key[:-len("_stats")]] = fn()

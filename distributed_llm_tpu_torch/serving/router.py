@@ -38,7 +38,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..config import ClusterConfig, resolve_config
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..routing.engine import QueryRouter
 from ..routing.token_counter import TokenCounter
 from .errors import is_error_shape
@@ -59,6 +59,17 @@ _TRANSIENT_MARKERS = (
     "engine returned no result",
     "(transient)",
 )
+
+
+def default_cluster(device: DeviceLike = None) -> ClusterConfig:
+    """The cluster the bench serves on ``device``: ``bench_cluster()``
+    (nano_1b and orin_8b) on the card, the tiny batched test tiers
+    (``tiny_batched_cluster()``) on the CPU, as the JAX package's
+    ``default_cluster`` does on its host CPU."""
+    from ..config import bench_cluster, tiny_batched_cluster
+    if resolve_device(device).type == "cuda":
+        return bench_cluster()
+    return tiny_batched_cluster()
 
 
 class Router:

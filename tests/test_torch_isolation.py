@@ -3,8 +3,9 @@ and reads no file of it.
 
 A subprocess with ``jax`` and ``distributed_llm_tpu`` blocked in
 ``sys.modules`` imports the port's entry points (the ``/query`` and
-``/chat`` servers, the router, the tier clients and the routing layer)
-and ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
+``/chat`` servers, the router, the tier clients, the routing layer, the
+bench and the tester, the roofline and telemetry utilities) and
+``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
 citations of the TPU kernels): the routing weights and labels are the
@@ -118,6 +119,11 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.ops.quant\n"
         "import distributed_llm_tpu_torch.ops.ragged_attention\n"
         "import distributed_llm_tpu_torch.ops.sampling\n"
+        "import distributed_llm_tpu_torch.bench.headline\n"
+        "import distributed_llm_tpu_torch.bench.query_sets\n"
+        "import distributed_llm_tpu_torch.bench.tester\n"
+        "import distributed_llm_tpu_torch.utils.roofline\n"
+        "import distributed_llm_tpu_torch.utils.telemetry\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'distributed_llm_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"

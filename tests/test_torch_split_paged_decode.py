@@ -335,7 +335,7 @@ _BAD = ["group", "head_dim", "pool_dtype", "pos_dtype", "block",
 
 def _bad_inputs(bad: str, q8: bool):
     b, nkv, nb, mb, wb = 2, 2, 9, 4, 3
-    bs = 16 if bad == "block" else 64
+    bs = 8 if bad == "block" else 64
     d = 32 if bad == "head_dim" else 64
     nq = nkv * (16 if bad == "group" else 4)
     q = torch.zeros((b, nq, d), dtype=torch.bfloat16)

@@ -162,7 +162,7 @@ def test_ragged_decode_q8_checks_refuse_what_the_kernel_does_not_take(bad):
     """The wrapper's checks raise before any kernel is built or launched
     (here, on CPU tensors, a launch would need the CUDA toolkit)."""
     b, nkv, nb, mb = 2, 2, 9, 4
-    bs = 16 if bad == "block" else 64
+    bs = 8 if bad == "block" else 64
     d = 32 if bad == "head_dim" else 64
     nq = nkv * (16 if bad == "group" else 4)
     q = torch.zeros((b, nq, d), dtype=torch.bfloat16)
