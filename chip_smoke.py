@@ -62,7 +62,21 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    Router (``BASE_CONFIG``) of nano_1b (8 slots, bf16 pool) and orin_8b
    (4 slots, int8 pool), both on the dense windowed tick, over HTTP;
    every routing strategy in turn sends a concurrent burst, a repeated
-   query (a response-cache hit), follow-up turns and streams;
+   query (a response-cache hit), follow-up turns and streams.  Then the
+   obs layer over what was served: ``GET /metrics`` parses as Prometheus
+   text and counts every request sent, and one TTFT for each that made a
+   token; ``GET /debug/trace`` has one thread per tier, ticks in order;
+   each tier's stamped phase self-time covers >= 0.95 of its ticks' wall;
+   the requests' attributed device time is within 5% of each tier's
+   decode self-time; ``GET /stats?debug=1`` carries the flight recorder,
+   ``slo`` and ``cost``.  A per-kernel capture (``torch.profiler``) of
+   orin's served ticks splits a tick into its GEMMs, its attention kernel
+   and the rest, and nano's chunked prefill beside orin's ticks into its
+   own kernels, orin's kernels inside it and host; the profiler's
+   overhead is measured (tick p50 and wall per tick, on and off, back to
+   back; reported, not gated); each tier's memory budget must equal its
+   engine's weight and pool bytes, and orin's tier with half its
+   footprint as ``hbm_gb_per_chip`` must be refused;
 11. the bench: ``bench.headline.run`` in process over the bench cluster
    (nano_1b with 8 slots and orin_8b with 4, bf16 weights, the ragged
    tick: one repeat of the five-strategy sweep with 4 closed-loop
@@ -76,7 +90,10 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    paged chunk kernels launch, no plain attention version run, and the
    tester's CSVs carry the JAX package's headers with one row per query
    and each serving tier's mean power draw (its energy columns
-   integrate the card's draw) reads 10-1000 W.
+   integrate the card's draw) reads 10-1000 W.  Every strategy carries
+   the trace-derived TTFT columns, counting every request it served, and
+   the ``profile`` section (the tick profiler on the tiny cluster) holds
+   no error.
 
 The batched engines (phases 4-6 and 10) run every tick as a CUDA graph
 captured once per program (the ragged tick, each dense window rung, each
@@ -99,8 +116,12 @@ tokens must be ``torch.equal``; the replayed tick is timed beside the
 engine's program keys and served tick quantiles.
 
 It prints the serving numbers as one JSON line, the /chat phase's numbers
-per strategy as another, the bench's per-strategy req/s and p50 TTFT,
-utilization and wall time as another, the card's name and power limit,
+per strategy as another, its obs numbers (``chat_obs``: each tier's
+phase self-time table, coverage and attribution, the profiler's
+overhead, the budgets) and its per-kernel capture
+(``per_kernel_capture``) as two more, the bench's per-strategy req/s and
+p50 TTFT, trace columns, profile section, utilization and wall time as
+another, the card's name and power limit,
 the kernel
 table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1737,18 +1758,16 @@ def _live_decode_state(torch, engine, spare=()):
             cur.to(engine.device), n)
 
 
-def tick_graph_check(torch, engine) -> dict:
-    """One tick of ``engine`` (its speculative round at the top γ bucket
-    on a speculating engine) through the tick program the engine replays
-    and through the program's body run eagerly, from the same state and
-    the same static inputs: every slot greedy, continuing the longest
-    parked conversation, two spare blocks after the parked ones taking
-    the new positions.  Each run starts from the live pools (the target's
-    and the draft's), restored after; the tokens must be ``torch.equal``.
-    On the card the replayed tick is then timed (10 replays between two
-    CUDA events, and on the host's clock) beside the engine's program
-    keys; ``step_replay_ms`` is a tick's device time over its steps."""
-    progs = engine.tick_stats()["compiled"]
+@contextlib.contextmanager
+def live_tick_state(torch, engine):
+    """``engine``'s host state set for one tick continuing its longest
+    parked conversation (every slot greedy, two spare blocks after the
+    parked ones taking the new positions) and the tick's program (the
+    speculative round at the top γ bucket on a speculating engine), its
+    inputs staged: yields (program, restore_pools, stage, key, steps,
+    position), where ``restore_pools`` puts the live pools (the target's
+    and the draft's) back; the host state, the pools and the spare blocks are
+    restored after."""
     spare = engine.allocator.alloc(2)
     require(spare is not None, "no spare blocks for the tick check")
     pools = [engine.pool] + ([engine.pool_d] if engine.spec else [])
@@ -1775,7 +1794,29 @@ def tick_graph_check(torch, engine) -> dict:
         else:
             stage, key = "decode", engine._tick_rung()
             steps = engine.steps_per_tick
-        prog = engine._program(stage, key)
+        yield (engine._program(stage, key), restore_pools, stage, key, steps,
+               n - 1)
+        restore_pools()
+    finally:
+        for arr, saved in zip((engine._tables, engine._pos, engine._cur,
+                               engine._temps, engine._caps), host):
+            arr[:] = saved
+        engine._tables_dirty = True
+        engine.allocator.free(spare)
+        del live
+
+
+def tick_graph_check(torch, engine) -> dict:
+    """One tick of ``engine`` through the tick program the engine replays
+    and through the program's body run eagerly, from the same state and
+    the same static inputs (``live_tick_state``).  Each run starts from
+    the live pools, restored after; the tokens must be ``torch.equal``.
+    On the card the replayed tick is then timed (10 replays between two
+    CUDA events, and on the host's clock) beside the engine's program
+    keys; ``step_replay_ms`` is a tick's device time over its steps."""
+    progs = engine.tick_stats()["compiled"]
+    with live_tick_state(torch, engine) as (prog, restore_pools, stage, key,
+                                            steps, position):
         replayed = prog.run().clone()
         restore_pools()
         eager = prog.body().clone()
@@ -1783,7 +1824,7 @@ def tick_graph_check(torch, engine) -> dict:
         require(torch.equal(replayed, eager),
                 f"{engine.tier.name}: the replayed {stage} program "
                 f"{key} gave other tokens than its body run eagerly")
-        res = {"stage": stage, "key": key, "position": n - 1,
+        res = {"stage": stage, "key": key, "position": position,
                "graph": prog.graph is not None,
                "tokens_equal": True, "programs": progs}
         if engine.device.type == "cuda":
@@ -1801,14 +1842,6 @@ def tick_graph_check(torch, engine) -> dict:
             res.update({"tick_replay_ms": start.elapsed_time(end) / iters,
                         "tick_replay_wall_ms": wall_ms, "steps": steps})
             res["step_replay_ms"] = res["tick_replay_ms"] / steps
-            restore_pools()
-    finally:
-        for arr, saved in zip((engine._tables, engine._pos, engine._cur,
-                               engine._temps, engine._caps), host):
-            arr[:] = saved
-        engine._tables_dirty = True
-        engine.allocator.free(spare)
-        del live
     return res
 
 
@@ -2349,6 +2382,428 @@ def dense_logits_check(torch, engine) -> dict:
                         engine.paged.block_size}, kernel, plain, ref)
 
 
+# -- phase 10, continued: the obs layer --------------------------------------
+
+def http_get(base: str, path: str) -> str:
+    with urllib.request.urlopen(base + path, timeout=60) as resp:
+        require(resp.status == 200, f"GET {path} returned {resp.status}")
+        return resp.read().decode("utf-8")
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text -> {metric name: [(labels dict, value)]}; fails on a
+    line that is neither a comment nor a sample."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        require(m is not None, f"/metrics: not Prometheus text: {line!r}")
+        labels = dict(label.findall(m.group(2) or ""))
+        out.setdefault(m.group(1), []).append((labels, float(m.group(3))))
+    return out
+
+
+def obs_checks(router, base: str, by_strategy: dict) -> dict:
+    """The obs layer over what the phase's main path served: ``/metrics``
+    parses as Prometheus text, its request count equals the requests sent
+    and its TTFT histogram holds one observation per request that
+    produced a token (every request but the response-cache hits);
+    ``/debug/trace`` round-trips as JSON with one thread per tier and each
+    tier's ticks in order; each tier's stamped phase self-time covers >=
+    0.95 of its ticks' wall; the requests' attributed device time is
+    within 5% of each tier's lifetime decode self-time; ``/stats?debug=1``
+    carries the flight recorder (every request recorded: ``slow_ms`` 0),
+    ``slo`` and ``cost``.  Returns each tier's phase self-time table."""
+    sent = sum(v["requests"] for v in by_strategy.values())
+    cached = sum(v["cache_hits"] for v in by_strategy.values())
+    metrics = parse_prometheus(http_get(base, "/metrics"))
+    requests = sum(v for _, v in metrics["dllm_requests_total"])
+    ttft_n = sum(v for _, v in metrics["dllm_ttft_ms_count"])
+    require(requests == sent, f"/metrics counts {requests} requests of "
+            f"{sent} sent")
+    require(ttft_n == sent - cached, f"/metrics holds {ttft_n} TTFTs for "
+            f"{sent} requests, {cached} of them cache hits")
+
+    doc = json.loads(http_get(base, "/debug/trace"))
+    events = doc["traceEvents"]
+    threads = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    require(sorted(threads.values()) == ["tier:nano", "tier:orin"],
+            f"/debug/trace threads {threads}")
+    for tid, name in threads.items():
+        ticks = [e for e in events
+                 if e["tid"] == tid and e["ph"] == "X" and e["name"] == "tick"]
+        require(ticks and all(a["ts"] <= b["ts"]
+                              and a["args"]["seq"] < b["args"]["seq"]
+                              for a, b in zip(ticks, ticks[1:])),
+                f"/debug/trace: {name}'s ticks are not in order")
+
+    fam = router.obs.metrics.get("dllm_device_time_ms_total")
+    billed: dict = {}
+    for key, child in fam.children().items():
+        billed[key[0]] = billed.get(key[0], 0.0) + child.value
+    tiers = {}
+    for name, tier in router.tiers.items():
+        prof = tier.server_manager.engine().profiler
+        st = prof.phase_stats()
+        decode_ms = prof.total_ms("decode") + prof.total_ms("verify")
+        ratio = billed.get(name, 0.0) / decode_ms if decode_ms else None
+        require(st["coverage"] is not None and st["coverage"] >= 0.95,
+                f"{name}: stamped phases cover {st['coverage']} of the tick "
+                "wall (< 0.95)")
+        require(ratio is not None and abs(ratio - 1.0) <= 0.05,
+                f"{name}: attributed device time {billed.get(name)} ms "
+                f"against {decode_ms} ms of decode self-time")
+        tiers[name] = {"coverage": st["coverage"], "ticks": st["ticks"],
+                       "phases": st["phases"], "totals": st["totals"],
+                       "attributed_device_ms": billed.get(name, 0.0),
+                       "decode_self_ms": decode_ms,
+                       "attribution_ratio": ratio}
+
+    stats = json.loads(http_get(base, "/stats?debug=1"))
+    require(stats.get("flight_recorder") and stats.get("slo") is not None
+            and stats.get("cost"),
+            "/stats?debug=1 lacks flight_recorder, slo or cost: "
+            f"{sorted(stats)}")
+    entry = stats["flight_recorder"][0]
+    require(entry["trace"]["spans"]["children"],
+            f"a flight-recorder entry has no spans: {entry}")
+    return {"requests": requests, "ttft_n": ttft_n, "trace_events":
+            len(events), "tiers": tiers, "slo": {
+                k: stats["slo"][k] for k in ("observed_total", "good_total",
+                                             "goodput_lifetime",
+                                             "violations")},
+            "cost_rows": len(stats["cost"]),
+            "flight_recorded_total": stats["flight_recorded_total"]}
+
+
+# Kernel classes of a served tick: the attention kernel (the split-K
+# kernel and its merge, K8 on orin's int8 dense tick), the matrix products
+# (cuBLAS GEMM and GEMV kernels) and everything else.
+ATTENTION_KERNELS = ("split_verify_kernel", "split_merge")
+GEMM_KERNELS = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ATTENTION_KERNELS):
+        return "attention"
+    if any(k in low for k in GEMM_KERNELS):
+        return "gemm"
+    return "other"
+
+
+def _union_ms(intervals) -> float:
+    """Length of the union of [start, end) intervals (µs in, ms out)."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def _window_events(trace, name: str = "dllm_window"):
+    """(window start, end in µs, device events in it, correlation ->
+    (runtime call name, calling thread)) of a Chrome trace from
+    ``profiler_trace``."""
+    window = next(e for e in trace if e.get("name") == name
+                  and e.get("cat") == "user_annotation")
+    w0, w1 = window["ts"], window["ts"] + window["dur"]
+    runtime = {e["args"].get("correlation"): (e["name"], e.get("tid"))
+               for e in trace
+               if e.get("cat") == "cuda_runtime" and "args" in e}
+    device = [e for e in trace
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e["ts"] < w1 and e["ts"] + e["dur"] > w0]
+    return w0, w1, device, runtime
+
+
+def _replayed(e, runtime) -> bool:
+    """Whether a device event ran inside a replayed CUDA graph: its
+    correlation id is the graph launch's."""
+    return runtime.get(e.get("args", {}).get("correlation"), ("", None))[
+        0].startswith("cudaGraphLaunch")
+
+
+def _busiest_thread(runtime, call: str, exclude=None):
+    """The trace's thread id that made the most runtime calls named
+    ``call`` (besides ``exclude``)."""
+    counts: dict = {}
+    for name, tid in runtime.values():
+        if name.startswith(call) and tid != exclude:
+            counts[tid] = counts.get(tid, 0) + 1
+    return max(counts, key=counts.get) if counts else None
+
+
+def _launcher(e, runtime, tiers: dict):
+    """The tier whose scheduler thread launched device event ``e``
+    (through its correlation id's runtime call), or None."""
+    tid = runtime.get(e.get("args", {}).get("correlation"), (None, None))[1]
+    return tiers.get(tid)
+
+
+def _clip(events, a: float, b: float):
+    return [(max(e["ts"], a), min(e["ts"] + e["dur"], b)) for e in events
+            if e["ts"] < b and e["ts"] + e["dur"] > a]
+
+
+def kernel_table(device, w0: float, w1: float) -> dict:
+    """The ten CUDA kernels with the most device time among ``device``,
+    with their launches, and the device-busy share of [w0, w1)."""
+    by_name: dict = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            acc = by_name.setdefault(e["name"], [0, 0.0])
+            acc[0] += 1
+            acc[1] += e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    busy = _union_ms(_clip(device, w0, w1))
+    return {"top_kernels": [{"name": n[:120], "launches": c,
+                             "device_ms": ms} for n, (c, ms) in top],
+            "kernels": sum(c for c, _ in by_name.values()),
+            "window_ms": (w1 - w0) / 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / ((w1 - w0) / 1e3)}
+
+
+def tick_split(kernels, ticks: int) -> dict:
+    """Device time of ``kernels`` by class (GEMMs, the attention kernel,
+    everything else), in all and per tick, and each class's share."""
+    split = {"gemm": 0.0, "attention": 0.0, "other": 0.0}
+    for e in kernels:
+        split[kernel_class(e["name"])] += e["dur"] / 1e3
+    total = max(1e-9, sum(split.values()))
+    return {"kernels": len(kernels), "ticks": ticks, "device_ms": split,
+            "per_tick_ms": {k: v / max(1, ticks) for k, v in split.items()},
+            "share": {k: v / total for k, v in split.items()}}
+
+
+def _served_window(torch, router, asks, log_dir: str):
+    """Serve ``asks`` [(tier, prompt)] concurrently through the tier
+    clients under the profiler, inside a "dllm_window" annotation whose
+    host clock start is returned beside the trace's events."""
+    from distributed_llm_tpu_torch.utils.telemetry import profiler_trace
+
+    replies = {}
+
+    def ask(i: int, tier: str, text: str):
+        replies[i] = router.tiers[tier].process(
+            [{"role": "user", "content": text}])
+
+    threads = [threading.Thread(target=ask, args=(i, tier, text))
+               for i, (tier, text) in enumerate(asks)]
+    with profiler_trace(log_dir):
+        t_enter = time.perf_counter()
+        with torch.profiler.record_function("dllm_window"):
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+    require(len(replies) == len(asks)
+            and all("response" in r for r in replies.values()),
+            f"the capture window's requests failed: {replies}")
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        return t_enter, json.load(f)["traceEvents"]
+
+
+def per_kernel_capture(torch, router, out_dir: str) -> dict:
+    """Two windows of served ticks under ``utils.telemetry.profiler_trace``
+    (``torch.profiler``, CPU and CUDA activity).
+
+    1. orin alone: its tier client serves 4 concurrent requests.  The ten
+       CUDA kernels with the most device time and their launches, the
+       window's device-busy share, and orin's tick split into its GEMMs,
+       its attention kernel (K8: the split-K kernel and its merge) and
+       everything else, per tick, over the kernels of its replayed
+       graphs (a graph replay's kernels carry its launch's correlation
+       id).  If the replays' kernels do not appear as records, the tick
+       program's body runs eagerly from the live state under the
+       profiler instead (``view`` says which).
+    2. nano's chunked prefill beside orin's decode: nano serves a prompt
+       long enough to prefill in chunks while orin serves 4 requests.
+       Each ``chunk_prefill`` phase of nano's profiler (its host clock,
+       placed on the trace's by the window's start) is split into the
+       device time of the kernels nano's scheduler thread launched (the
+       chunk's own), of the kernels orin's thread launched (its
+       prefills and replayed ticks, queued on the same stream: the wait
+       behind the other tier) and the rest (host: the chunk's launches
+       and its waits for the interpreter lock).  Kernels are assigned
+       to a tier by the thread of the runtime call their correlation id
+       names: orin's is the thread that replayed graphs in window 1, nano's
+       the other thread launching kernels in window 2;
+       ``attributed_share`` says how many found one."""
+    orin = router.tiers["orin"].server_manager.engine()
+    nano = router.tiers["nano"].server_manager.engine()
+    slots = orin.paged.max_slots
+
+    ticks0 = orin.ticks_total
+    _, trace = _served_window(torch, router, [
+        ("orin", f"explain {words(40, i)}") for i in range(slots)],
+        os.path.join(out_dir, "orin_ticks"))
+    ticks = orin.ticks_total - ticks0
+    w0, w1, device, runtime = _window_events(trace)
+    # Orin serves alone here: the thread that replays graphs is orin's.
+    orin_tid = _busiest_thread(runtime, "cudaGraphLaunch")
+    res = {"orin_window": kernel_table(device, w0, w1), "view": "served"}
+    graph_k = [e for e in device if e["cat"] == "kernel"
+               and _replayed(e, runtime)]
+    res["orin_tick"] = tick_split(graph_k, ticks)
+    if len(graph_k) < ticks:
+        res["view"] = "eager_body"
+        res["orin_tick"] = eager_tick_split(torch, orin, os.path.join(
+            out_dir, "orin_eager"))
+
+    n0 = len(nano.profiler.records())
+    seq0 = nano.profiler.records()[-1]["seq"] if n0 else 0
+    t_enter, trace = _served_window(torch, router, [
+        ("nano", "summarize " + words(1200))] + [
+        ("orin", f"describe {words(30, i)}") for i in range(slots)],
+        os.path.join(out_dir, "nano_chunks"))
+    w0, w1, device, runtime = _window_events(trace)
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    # The other thread launching kernels one by one is nano's.
+    tiers = {orin_tid: "orin",
+             _busiest_thread(runtime, "cudaLaunchKernel",
+                             exclude=orin_tid): "nano"}
+    by_tier = {"nano": [], "orin": []}
+    for e in kernels:
+        tier = _launcher(e, runtime, tiers)
+        if tier is not None:
+            by_tier[tier].append(e)
+    own_k, other_k = by_tier["nano"], by_tier["orin"]
+    chunks = []
+    for rec in nano.profiler.records():
+        if rec["seq"] <= seq0:
+            continue
+        for name, rel_ms, dur_ms, _self in rec["spans"]:
+            if name == "chunk_prefill":
+                a = w0 + (rec["t0"] - t_enter) * 1e6 + rel_ms * 1e3
+                chunks.append((a, a + dur_ms * 1e3))
+    require(chunks, "nano's long prompt took no chunked prefill")
+    per_chunk = [((b - a) / 1e3, _union_ms(_clip(own_k, a, b)),
+                  _union_ms(_clip(other_k, a, b))) for a, b in chunks]
+    wall, own, behind = (sum(c[i] for c in per_chunk) for i in range(3))
+    res["nano_chunk"] = {"chunks": len(chunks), "wall_ms": wall,
+                         "own_device_ms": own, "behind_orin_ms": behind,
+                         "host_ms": max(0.0, wall - own - behind),
+                         "attributed_share": (len(own_k) + len(other_k))
+                         / max(1, len(kernels)),
+                         "per_chunk_wall_own_behind_ms": [
+                             [round(x, 3) for x in c] for c in per_chunk],
+                         "window": kernel_table(device, w0, w1)}
+    res["runtime_calls"] = len(runtime)
+    return res
+
+
+def eager_tick_split(torch, engine, log_dir: str) -> dict:
+    """The fallback view: ``engine``'s tick program body run eagerly three
+    times under the profiler, from the live state ``live_tick_state``
+    sets up (the pools restored after each run); every kernel in the
+    window is the tick's."""
+    from distributed_llm_tpu_torch.utils.telemetry import profiler_trace
+
+    with live_tick_state(torch, engine) as (prog, restore_pools, *_):
+        with profiler_trace(log_dir):
+            with torch.profiler.record_function("dllm_window"):
+                for _ in range(3):
+                    prog.body()
+                    torch.cuda.synchronize()
+                    restore_pools()
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        w0, w1, device, _ = _window_events(json.load(f)["traceEvents"])
+    return tick_split([e for e in device if e["cat"] == "kernel"], 3)
+
+
+def profiler_overhead(router, n: int = 3) -> dict:
+    """Tick p50 (the decode phase) and the wall per tick of the same burst
+    with each engine's profiler on and with ``NULL_PROFILER``, back to
+    back on one engine, ``n`` times each way (reported, not gated)."""
+    from distributed_llm_tpu_torch.obs.profiler import NULL_PROFILER
+
+    out = {}
+    for name, tier in router.tiers.items():
+        engine = tier.server_manager.engine()
+        live = engine.profiler
+        runs = {"on": [], "off": []}
+        for mode in ("on", "off") * n:
+            engine.profiler = live if mode == "on" else NULL_PROFILER
+            ticks0 = engine.ticks_total
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=tier.process, args=(
+                [{"role": "user", "content": f"overhead {mode} {i} "
+                  + words(30, i)}],)) for i in range(engine.paged.max_slots)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            ticks = engine.ticks_total - ticks0
+            recent = list(engine.tick_ms)[-ticks:] if ticks else []
+            runs[mode].append({"ticks": ticks,
+                               "tick_p50_ms": statistics.median(recent)
+                               if recent else None,
+                               "wall_per_tick_ms": wall * 1e3 / max(1, ticks)})
+            # The profiler is swapped only between passes: let the last
+            # pass of the burst commit its record first.
+            while engine.pending_work():
+                time.sleep(0.01)
+            time.sleep(0.1)
+        engine.profiler = live
+        out[name] = {mode: {
+            "tick_p50_ms": statistics.median(
+                r["tick_p50_ms"] for r in rs if r["tick_p50_ms"] is not None),
+            "wall_per_tick_ms": statistics.median(
+                r["wall_per_tick_ms"] for r in rs),
+            "runs": rs} for mode, rs in runs.items()}
+    return out
+
+
+def hbm_budget_check(torch, router, on_card: bool) -> dict:
+    """Each tier's budget (``utils.hbm_budget.tier_hbm_budget``, built on
+    the meta device) against its engine's own tensors: the weight bytes
+    must equal its parameters' and the KV bytes its pool's, with the
+    peak device memory beside them; and orin's tier with an
+    ``hbm_gb_per_chip`` that holds half its footprint (beside the
+    headroom) is refused by the manager before it builds."""
+    from distributed_llm_tpu_torch.engine.manager import (
+        EngineManager, TierOverCapacityError)
+    from distributed_llm_tpu_torch.utils.hbm_budget import (tensor_bytes,
+                                                            tier_hbm_budget)
+
+    out = {}
+    for name, tier in router.tiers.items():
+        engine = tier.server_manager.engine()
+        budget = tier_hbm_budget(engine.tier, hbm_per_chip_gb=80.0)
+        params = tensor_bytes(engine.model.parameters())
+        pool = tensor_bytes(engine.pool.values())
+        require(budget["params_bytes"] == params
+                and budget["kv_bytes"] == pool,
+                f"{name}: budget {budget} against the engine's {params} "
+                f"weight and {pool} pool bytes")
+        out[name] = {"budget": budget, "engine_params_bytes": params,
+                     "engine_pool_bytes": pool}
+    orin = out["orin"]["budget"]
+    small = dataclasses.replace(
+        router.tiers["orin"].tier,
+        hbm_gb_per_chip=(orin["params_bytes"] + orin["kv_bytes"]) / 2e9
+        + 0.75)
+    try:
+        EngineManager(small, device=router.device).start_server()
+    except TierOverCapacityError as exc:
+        out["refused"] = str(exc)
+    else:
+        fail("a tier over its hbm_gb_per_chip budget was built")
+    out["peak_memory_gb"] = peak_memory_gb(torch, on_card)
+    return out
+
+
 def chat_phase(torch, cluster, *, burst: int = len(CHAT_QUERIES),
                streams: int = 2,
                expect=(), device: str = "cuda"):
@@ -2359,8 +2814,15 @@ def chat_phase(torch, cluster, *, burst: int = len(CHAT_QUERIES),
     own decisions, not the previous strategy's cached ones).  Both tiers must
     serve, the kernels in ``expect`` launch, the ragged decode kernels
     and every plain version stay at 0 and, with the orin tier on an int8
-    pool, the int8 suffix chunk run.  Then the dense tick's logits on both
-    live pools.  Returns (numbers, launches by kernel)."""
+    pool, the int8 suffix chunk run.  Then the obs layer over what was
+    served (``obs_checks``: /metrics, /debug/trace, phase coverage,
+    attribution, the flight recorder; the router's own registry, its
+    recorder keeping every request), and, on the card, a per-kernel
+    capture of served ticks (``per_kernel_capture``) and the profiler's
+    overhead (``profiler_overhead``); the memory budget against the
+    engines' tensors (``hbm_budget_check``); the dense tick's logits on
+    both live pools.  Returns (numbers, launches by kernel)."""
+    from distributed_llm_tpu_torch.obs import Observability
     from distributed_llm_tpu_torch.serving.app import BASE_CONFIG, create_app
     from distributed_llm_tpu_torch.serving.router import Router
 
@@ -2368,7 +2830,8 @@ def chat_phase(torch, cluster, *, burst: int = len(CHAT_QUERIES),
     fresh_peak(torch, on_card)
     t0 = time.perf_counter()
     router = Router(strategy="hybrid", config=dict(BASE_CONFIG),
-                    cluster=cluster, device=device)
+                    cluster=cluster, device=device,
+                    observability=Observability(slow_ms=0.0))
     for tier in router.tiers.values():
         tier.server_manager.start_server()      # build + warm
     startup_s = time.perf_counter() - t0
@@ -2405,9 +2868,18 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
             f"a tier served no traffic (nano {nano_n}, orin {orin_n})")
     if cluster.orin.kv_quantize == "int8":
         require(int8_chunk_calls > 0, "the int8 suffix chunk did not run")
+    obs = obs_checks(router, base, by_strategy)
+    capture = overhead = None
+    if on_card:
+        capture = per_kernel_capture(torch, router, os.path.join(
+            REPO, "build", "traces"))
+        overhead = profiler_overhead(router)
+    budget = hbm_budget_check(torch, router, on_card)
     engines = {n: t.server_manager.engine() for n, t in
                router.tiers.items()}
     numbers = {
+        "obs": obs, "per_kernel_capture": capture,
+        "profiler_overhead": overhead, "hbm_budget": budget,
         "startup_s": startup_s, "main_path_s": main_s,
         "tiers": {n: {"model": e.tier.model_preset, "slots":
                       e.paged.max_slots, "kv_quantize": e.tier.kv_quantize,
@@ -2498,6 +2970,21 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
             f"bench concurrent errors: {result['concurrent_errors']}")
     errors = headline.section_errors(result)
     require(not errors, f"bench sections with an error: {errors}")
+    # The trace-derived columns count every request each strategy served:
+    # both legs of each repeat, perf's warm pass and, for the first
+    # strategy, the calibration request.
+    reps = result["req_per_s_stats"]["n"]
+    n_q = result["budget"]["queries_per_strategy"]
+    for name, entry in per.items():
+        served_n = (reps * n_q * (3 if name == "perf" else 2)
+                    + (name == headline.STRATEGIES[0]))
+        require(entry.get("trace_p50_ttft_ms") is not None
+                and entry.get("trace_ttft_n") == served_n,
+                f"bench strategy {name}: trace columns {entry} against "
+                f"{served_n} requests served")
+    require("error" not in result["profile"] and "coverage"
+            in result["profile"],
+            f"bench profile section: {result['profile']}")
     if on_card:
         check_utilization(result["utilization"])
     trend = result["trend"]
@@ -2535,8 +3022,11 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "value": result["value"],
         "per_strategy": {name: {k: entry.get(k) for k in (
             "req_per_s", "p50_ttft_ms", "concurrent_p50_ttft_ms",
-            "sequential_req_per_s", "routing_accuracy", "orin_queries")}
+            "sequential_req_per_s", "routing_accuracy", "orin_queries",
+            "trace_p50_ttft_ms", "trace_p95_ttft_ms", "trace_ttft_n",
+            "trace_p50_tbt_ms", "trace_p95_tbt_ms", "trace_tbt_n")}
             for name, entry in per.items()},
+        "profile": result["profile"],
         "p50_ttft_ms": result["p50_ttft_ms"],
         "concurrent_p50_ttft_ms": result["concurrent_p50_ttft_ms"],
         "utilization": result["utilization"],
@@ -2735,13 +3225,35 @@ def main() -> None:
         "dense_logits_check": chat["dense_logits_check"],
         "routing_device_check": chat["routing_device_check"],
         "peak_memory_gb": chat["peak_memory_gb"]}}))
+    log(json.dumps({"chat_obs": {
+        "metrics": {k: chat["obs"][k] for k in ("requests", "ttft_n",
+                                                "trace_events", "slo",
+                                                "cost_rows",
+                                                "flight_recorded_total")},
+        "tiers": {n: {k: t[k] for k in ("coverage", "ticks",
+                                        "attribution_ratio",
+                                        "attributed_device_ms",
+                                        "decode_self_ms", "phases")}
+                  for n, t in chat["obs"]["tiers"].items()},
+        "profiler_overhead": {n: {m: {k: v[k] for k in ("tick_p50_ms",
+                                                        "wall_per_tick_ms")}
+                                  for m, v in t.items()}
+                              for n, t in chat["profiler_overhead"].items()},
+        "hbm_budget": chat["hbm_budget"]}}))
+    log(json.dumps({"per_kernel_capture": chat["per_kernel_capture"]}))
     log(json.dumps({"bench": {
         "wall_s": bench["wall_s"], "value": bench["value"],
         "by_strategy": {st: {k: v[k] for k in ("req_per_s", "p50_ttft_ms",
                                                "concurrent_p50_ttft_ms")}
                         for st, v in bench["per_strategy"].items()},
         "utilization": bench["utilization"],
-        "trend_req_per_s": bench["trend"]["trend_req_per_s"]}}))
+        "trend_req_per_s": bench["trend"]["trend_req_per_s"],
+        "trace_columns": {st: {k: v.get(k) for k in (
+            "trace_p50_ttft_ms", "trace_p95_ttft_ms", "trace_ttft_n",
+            "trace_p50_tbt_ms")} for st, v in bench["per_strategy"].items()},
+        "profile": {k: bench["profile"].get(k) for k in (
+            "coverage", "attribution_ratio", "trace_events", "requests",
+            "trace_schema_ok")}}}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

@@ -26,10 +26,17 @@ reference's 0.0109 req/s (``vs_baseline``), its spread, both legs' p50
 TTFT, routing accuracy, ``utilization`` (prefill and decode MFU and
 device-memory utilization against the card's peaks, from the engines'
 phase timers and roofline work) and ``tiers`` (each engine's stats).
+Each strategy also carries the trace-derived columns read from the
+sweep router's own metric registry (``_trace_quantiles``:
+``trace_p50/p95_ttft_ms``, ``trace_p50/p95_tbt_ms`` and their counts).
 Then the later sections: ``trend`` (the pinned tiny cluster, heuristic,
 4 clients, median of 5), ``long_context`` and ``orin_prefix`` (prefix
 reuse on the orin tier), ``continuous_batching`` (one batched nano engine,
-concurrent against sequential, and its int8-KV leg).  A later section
+concurrent against sequential, and its int8-KV leg), ``profile`` (the
+tick-phase profiler over the tiny batched cluster: its per-phase
+self-time table, coverage, attribution conservation, the cost ledger's
+head and a Chrome-trace artifact, ``BENCH_profile_trace.json``).  A later
+section
 that raises records ``{"error": ...}`` and the headline survives, but
 the process exits 1; the sweep itself catches nothing.
 
@@ -46,16 +53,14 @@ chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
 ``pressure`` (preemption, a constrained pool), ``noisy`` (tenants),
 ``skew`` (the dense-tick A/B leg), ``spec_phase`` and ``spec_multiturn``
 (the bench's speculative legs), ``mixed`` (chunked-prefill stall
-accounting through the obs layer), ``shared`` (sharing counters of the
-obs layer), ``spill`` (host KV spill), ``profile`` (the tick profiler),
+accounting), ``shared`` (sharing counters), ``spill`` (host KV spill),
 ``replica``, ``elastic`` (replicas, the autoscaler), ``multichip``
 (tensor parallelism), ``openloop`` (the open-loop driver),
 ``tier_quality`` (trained checkpoints), ``features`` (``speculative``,
 ``quant``: int8 weights), ``flagship``, ``perf_steering`` (fault
-injection); the trace-derived per-strategy columns (the obs layer) and
-``dispatch_provenance`` / ``hw_dispatch`` (the port has no dispatch
-table).  Nor the JAX bench's accelerator probe, its fall-back to the CPU
-or its kernel dispatch A/B.
+injection) and ``dispatch_provenance`` / ``hw_dispatch`` (the port has no
+dispatch table).  Nor the JAX bench's accelerator probe, its fall-back to
+the CPU or its kernel dispatch A/B.
 """
 
 from __future__ import annotations
@@ -236,13 +241,37 @@ def compact(result: dict) -> dict:
         out["budget"] = {"budget_s": bud.get("budget_s"),
                          "repeats": bud.get("repeats"),
                          "scaled": bool(bud.get("scaled"))}
+    pf = result.get("profile")
+    if isinstance(pf, dict) and not pf.get("skipped"):
+        # One number each: the worst tier's phase coverage (>= 0.95), the
+        # attribution-conservation ratio (~1.0), the first profiled
+        # tier's decode and emit p50s and the trace's event count.
+        tiers_pf = pf.get("tiers") or {}
+        first = next(iter(tiers_pf.values()), {}) if tiers_pf else {}
+        phases = first.get("phases") or {}
+        cm = {k: v for k, v in {
+            "cov": pf.get("coverage"),
+            "attr": pf.get("attribution_ratio"),
+            "ticks": first.get("ticks"),
+            "decode_p50": (phases.get("decode") or {}).get("p50_ms"),
+            "emit_p50": (phases.get("emit") or {}).get("p50_ms"),
+            "events": pf.get("trace_events"),
+            "err": (pf.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["profile"] = cm
     strategies = result.get("per_strategy")
     if isinstance(strategies, dict):
+        # t50/t95: trace-derived p50/p95 TTFT, tbt50: trace-derived p50
+        # time between tokens (the registry's histograms).
         out["per_strategy"] = {
             name: {k: v for k, v in {
                 "req_per_s": entry.get("req_per_s"),
                 "spd": entry.get("concurrent_speedup"),
                 "acc": entry.get("routing_accuracy"),
+                "t50": entry.get("trace_p50_ttft_ms"),
+                "t95": entry.get("trace_p95_ttft_ms"),
+                "tbt50": entry.get("trace_p50_tbt_ms"),
             }.items() if v is not None}
             for name, entry in strategies.items()
             if isinstance(entry, dict)}
@@ -306,6 +335,133 @@ def start_watchdog(progress: Progress, timeout_s: float) -> threading.Thread:
     t = threading.Thread(target=watch, daemon=True, name="bench-watchdog")
     t.start()
     return t
+
+
+def _trace_quantiles(obs, strategies) -> dict:
+    """Per-strategy TTFT and TBT percentiles from the sweep router's own
+    metric registry (the histograms its requests' span trees feed): the
+    self-instrumented counterpart of the wall-clock columns, over every
+    request the router served under that strategy (calibration, both
+    legs, perf's warm pass).  Bucket-interpolated: bucket-width
+    precision."""
+    out: dict = {}
+    for metric, prefix in (("dllm_ttft_ms", "ttft"), ("dllm_tbt_ms", "tbt")):
+        fam = obs.metrics.get(metric)
+        if fam is None:
+            continue
+        children = fam.children()
+        for strategy in strategies:
+            hist = children.get((strategy,))
+            if hist is None or not hist.count:
+                continue
+            entry = out.setdefault(strategy, {})
+            entry[f"trace_p50_{prefix}_ms"] = round(hist.quantile(0.5), 2)
+            entry[f"trace_p95_{prefix}_ms"] = round(hist.quantile(0.95), 2)
+            entry[f"trace_{prefix}_n"] = hist.count
+    return out
+
+
+def profile_phase(device=None, n_requests: int = 12, beat=lambda: None,
+                  trace_path: str = "BENCH_profile_trace.json") -> dict:
+    """The tick-forensics leg: a session-keyed mix through the full
+    Router over the tiny batched cluster with the tick-phase profiler on,
+    then where the milliseconds went and who pays: each tier's per-phase
+    p50/p95 self-time table, the coverage (stamped self-time over the
+    tick wall; below 0.95 the leg sets ``error``), the attribution ratio
+    (the requests' billed ``device_time_ms`` over the profilers' decode
+    self-time; outside 5% an error), the cost ledger's head, and the
+    Chrome-trace artifact at ``trace_path``, checked by a JSON round trip
+    with each tier's ticks in order."""
+    from ..config import tiny_batched_cluster
+    from ..obs import Observability
+    from ..serving.router import Router
+
+    print("[bench] tick-forensics profile leg", file=sys.stderr, flush=True)
+    obs = Observability(slow_ms=None)
+    router = Router(strategy="heuristic", benchmark_mode=True,
+                    cluster=tiny_batched_cluster(), device=device,
+                    observability=obs)
+    out: dict = {}
+    try:
+        _start_tiers(router, beat)
+        queries = ["What is the capital of France",
+                   "Explain photosynthesis briefly",
+                   "Name a large river in Africa"]
+        errors = 0
+        t0 = time.perf_counter()
+        for i in range(n_requests):
+            hist = [{"role": "user",
+                     "content": f"{queries[i % len(queries)]} (v{i})"}]
+            resp, _, _ = router.route_query(hist, session_id=f"s{i % 3}")
+            if not resp.get("ok", True):
+                errors += 1
+            beat()
+        wall = time.perf_counter() - t0
+        out["requests"] = n_requests
+        out["errors"] = errors
+        out["req_per_s"] = round(n_requests / max(wall, 1e-9), 3)
+
+        tiers: dict = {}
+        decode_ms = 0.0
+        for name, tier in router.tiers.items():
+            prof = tier.server_manager.engine().profiler
+            st = prof.phase_stats()
+            tiers[name] = {"ticks": st["ticks"], "coverage": st["coverage"],
+                           "phases": st["phases"]}
+            decode_ms += prof.total_ms("decode")
+        out["tiers"] = tiers
+        coverages = [t["coverage"] for t in tiers.values()
+                     if t.get("coverage") is not None]
+        out["coverage"] = min(coverages) if coverages else None
+
+        fam = obs.metrics.get("dllm_device_time_ms_total")
+        attributed = sum(c.value for c in fam.children().values())
+        out["attributed_device_ms"] = round(attributed, 3)
+        out["decode_phase_ms"] = round(decode_ms, 3)
+        if decode_ms > 0:
+            out["attribution_ratio"] = round(attributed / decode_ms, 4)
+        out["cost_head"] = router.cost_snapshot()[:4]
+
+        blob = json.dumps(router.profiler_trace())
+        events = json.loads(blob).get("traceEvents", [])
+        ok_schema = all(
+            "name" in e and "ph" in e and "pid" in e and "tid" in e
+            and (e["ph"] == "M" or (e.get("ts", -1) >= 0
+                                    and e.get("dur", 0) >= 0))
+            for e in events)
+        by_tid: dict = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("name") == "tick":
+                by_tid.setdefault(e["tid"], []).append(e)
+        monotonic = all(
+            all(a["args"]["seq"] < b["args"]["seq"] and a["ts"] <= b["ts"]
+                for a, b in zip(ticks, ticks[1:]))
+            for ticks in by_tid.values())
+        out["trace_events"] = len(events)
+        out["trace_schema_ok"] = bool(ok_schema and monotonic)
+        try:
+            with open(trace_path, "w") as f:
+                f.write(blob)
+            out["trace_artifact"] = trace_path
+        except OSError as exc:
+            out["trace_artifact_error"] = str(exc)[:120]
+
+        problems = []
+        if out["coverage"] is None or out["coverage"] < 0.95:
+            problems.append(f"phase coverage {out['coverage']} < 0.95")
+        ratio = out.get("attribution_ratio")
+        if ratio is None or abs(ratio - 1.0) > 0.05:
+            problems.append(f"attribution ratio {ratio} outside 5%")
+        if not out["trace_schema_ok"]:
+            problems.append("chrome-trace schema/monotonicity check failed")
+        if errors:
+            problems.append(f"{errors} request error(s)")
+        if problems:
+            out["error"] = "; ".join(problems)[:300]
+    finally:
+        _stop_tiers(router)
+    beat()
+    return out
 
 
 def _clear_prefix_caches(router) -> None:
@@ -694,6 +850,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     import torch
 
     from ..device import resolve_device
+    from ..obs import Observability
     from ..serving.router import Router, default_cluster
     from ..utils import roofline
     from .query_sets import query_sets
@@ -707,8 +864,10 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
 
     queries = query_sets["general_knowledge"][:n_queries]
     cluster = cluster or default_cluster(dev)
+    # The sweep's own registry: the trace-derived columns read it.
+    sweep_obs = Observability(slow_ms=None)
     router = Router(strategy=STRATEGIES[0], benchmark_mode=True,
-                    cluster=cluster, device=dev)
+                    cluster=cluster, device=dev, observability=sweep_obs)
     cluster_served = {t: getattr(router.cluster, t).model_preset
                       for t in ("nano", "orin")}
     progress.section("cluster", cluster_served)
@@ -827,6 +986,10 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
                   flush=True)
             break
 
+    for strategy, extra in _trace_quantiles(sweep_obs, STRATEGIES).items():
+        per_strategy.setdefault(strategy, {}).update(extra)
+    progress.section("per_strategy", dict(per_strategy))
+
     # Phase attribution and roofline work behind the headline, taken
     # before the probes below add their own traffic.
     peaks = roofline.chip_peaks(dev)
@@ -917,6 +1080,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     progress.beat()
     batching = later("continuous_batching", lambda: concurrent_phase(
         router.cluster, dev, beat=progress.beat), 120)
+    profile = later("profile", lambda: profile_phase(
+        dev, beat=progress.beat), 60)
 
     return {
         **headline,
@@ -929,6 +1094,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "continuous_batching": batching,
         "long_context": long_context,
         "orin_prefix": orin_prefix,
+        "profile": profile,
     }
 
 

@@ -255,6 +255,17 @@ class TierConfig:
     # Decode watchdog: pending work with no scheduler progress for this
     # long reads as a wedged engine in health().  None disables it.
     watchdog_stall_s: Optional[float] = 300.0
+    # Per-tier SLO targets (obs/slo.py, fed from the router's exactly-once
+    # completion exit): a request is goodput only when it completes ok
+    # with TTFT <= slo_ttft_ms and per-request p95 time-between-tokens <=
+    # slo_tbt_ms.  None disables that criterion.
+    slo_ttft_ms: Optional[float] = 2000.0
+    slo_tbt_ms: Optional[float] = 200.0
+    # Per-device memory budget in GB (utils/hbm_budget.py): when set,
+    # EngineManager.start_server budgets weights + KV before building the
+    # engine and refuses a tier that does not fit (TierOverCapacityError).
+    # None: no budget.
+    hbm_gb_per_chip: Optional[float] = None
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
     replicas: int = 1

@@ -59,6 +59,26 @@ compiled tick does: one program per rung, not one per (rung, sampled),
 and greedy tokens are the same either way.  Kernel launch counts count
 replays (``TickProgram``).
 
+Each scheduler pass is also recorded by the engine's tick-phase profiler
+(``self.profiler``, obs/profiler.py; ``profile=False`` gives the
+zero-cost null profiler), at the JAX engine's phases: ``admit`` (an
+admission, with ``prefill`` and ``cow_copy`` nested in it),
+``table_upload`` (the tick's static inputs copied in), ``decode`` (a
+plain tick's program, its capture when it is new, and its pull),
+``verify`` (a speculative round: one replayed program where the JAX
+engine stamps a ``draft`` and a ``verify`` phase), ``emit`` (the tick's
+host work after its pull: its accounting, below, and the token fan-out;
+the JAX engine leaves the accounting unstamped) and ``chunk_prefill``.
+A capture is the port's compile: it stamps the ``compile`` event and
+lands inside the tick's phase, as a JAX compile does.  Each decode
+tick's time is split evenly over the slots it served and charged to
+their requests' traces (``spans.charge``), with the KV blocks each holds
+(a shared block at 1/refcount).  Warmup's own ticks serve no request and
+are not recorded.  The requests' span trees get the JAX engine's spans
+and events (prefill, prefill_chunk, detokenize, ...), and the
+process-global metrics its tick, program, prefix-hit, prefill-chunk and
+speculation families.
+
 Each prefill (cold, prefix hit, chunk) and each scheduler tick is timed
 as a "prefill" or "decode" phase of ``self.phases``
 (``utils/telemetry.PhaseTimer``) with the roofline work the JAX engine
@@ -72,7 +92,7 @@ draft and its verify apart.
 
 Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
 tenant quotas (and their γ caps), crash capture/adopt, tensor
-parallelism, int8 weights and the observability hooks.  Without
+parallelism and int8 weights.  Without
 preemption, a slot whose next block (or copy-on-write block before a
 speculative round) cannot be allocated even after evicting every parked
 prefix and cancelling the in-flight prefill is finished early with what
@@ -99,6 +119,9 @@ from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import Transformer
+from ..obs import get_observability
+from ..obs import spans as obs_spans
+from ..obs.profiler import DEFAULT_CAPACITY, make_profiler
 from ..ops import launches
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
@@ -203,6 +226,9 @@ class _Request:
     # lane was busy: the scheduler stops re-popping (and re-tokenizing)
     # the head request until the lane frees.
     needs_chunk: bool = False
+    # The submitting request's span tree (obs/spans.py), captured at
+    # submit (the scheduler thread has no context of its own).
+    trace: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -264,7 +290,9 @@ class ContinuousBatchingEngine:
     def __init__(self, tier: TierConfig, seed: int = 0,
                  params: Optional[Transformer] = None,
                  device: DeviceLike = None,
-                 draft_params: Optional[Transformer] = None):
+                 draft_params: Optional[Transformer] = None,
+                 profile: bool = True,
+                 profile_ticks: int = DEFAULT_CAPACITY):
         tier.check_ported()
         if tier.decode_batch <= 1:
             raise NotImplementedError(
@@ -410,6 +438,17 @@ class ContinuousBatchingEngine:
         # writes.
         self.phases = PhaseTimer()
         self._wbytes = roofline.weight_bytes(self.cfg, tier.quantize)
+        # Tick-phase profiler (obs/profiler.py): a ring of profile_ticks
+        # tick records, or the null profiler with profile=False.  Only
+        # the scheduler thread stamps it, and not while warmup runs.
+        self.profiler = make_profiler(tier.name, enabled=profile,
+                                      capacity=profile_ticks)
+        self._warming = False
+        # Per-slot KV-residency weight (sum of 1/refcount over the slot's
+        # blocks), dropped whenever the slot's table row changes: the
+        # attribution pays one lookup per slot per tick.
+        self._kv_weights: Dict[int, float] = {}
+        self._tick_ms = 0.0              # the last tick's decode phase
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         # Scheduler-head lane: KV-pressure deferrals and cancelled
         # prefills re-admit before newer arrivals.  Scheduler thread only.
@@ -578,16 +617,44 @@ class ContinuousBatchingEngine:
         """Record a NEW tick program for ``stage`` (``"decode"``: the table
         width wb, the ragged tick's being MB; ``"spec"``: the γ bucket)
         and log it: warmup's captures must be visible, and one mid-serve
-        stalls every active slot."""
+        stalls every active slot.  The profiler's timeline gets a
+        ``compile`` event and the ``dllm_compiled_programs`` gauge the
+        stage's count."""
         seen = self._compiled.setdefault(stage, set())
         seen.add(key)
+        self.profiler.event("compile", stage=stage, key=str(key))
         logger.info("tier %s: capturing %s program %r (%d %s programs so "
                     "far)", self.tier.name, stage, key, len(seen), stage)
+        get_observability().m.compiled_programs.labels(
+            self.tier.name, stage).set(len(seen))
+
+    def _stamp(self, name: str):
+        """The profiler's ``name`` phase, on the scheduler thread outside
+        warmup; elsewhere (warmup, a caller's direct tick) a null
+        context: only served passes are recorded."""
+        if self._warming or threading.current_thread() is not self._thread:
+            return contextlib.nullcontext()
+        return self.profiler.phase(name)
+
+    def _commit(self, slots: int) -> None:
+        """Close the pass's profiler record (the stamps' own gate)."""
+        if not self._warming:
+            self.profiler.commit(slots)
+
+    def _stage(self) -> None:
+        """The tick's inputs copied in (the ``table_upload`` phase)."""
+        with self._stamp("table_upload"):
+            self._stage_inputs()
 
     def _program(self, stage: str, key: int) -> TickProgram:
         """The tick program for (``stage``, ``key``) with its inputs staged:
         built (captured, on the card) at first use."""
-        self._stage_inputs()
+        self._stage()
+        return self._built(stage, key)
+
+    def _built(self, stage: str, key: int) -> TickProgram:
+        """The tick program for (``stage``, ``key``), built (captured, on
+        the card) at first use."""
         prog = self._programs.get((stage, key))
         if prog is None:
             self._note_compile(stage, key)
@@ -630,10 +697,15 @@ class ContinuousBatchingEngine:
         """One plain tick at table width ``wb`` (by default the one the
         active positions need), then one pull of its [T, B] tokens."""
         wb = self._tick_rung() if wb is None else wb
-        prog = self._program("decode", wb)      # a capture: before the phase
-        self._tick_wb = wb
-        with self._tick_phase():
-            return _fetch_tick(prog.run())
+        self._stage()
+        t0 = time.perf_counter()
+        with self._stamp("decode"):
+            prog = self._built("decode", wb)  # a capture: before the timer
+            self._tick_wb = wb
+            with self._tick_phase():
+                toks = _fetch_tick(prog.run())
+        self._tick_ms = (time.perf_counter() - t0) * 1000.0
+        return toks
 
     @torch.no_grad()
     def _spec_tick(self, gb: int, gammas: np.ndarray):
@@ -642,10 +714,15 @@ class ContinuousBatchingEngine:
         The round ends in one pull.  Returns (out [B, gb + 1], n_acc [B]):
         a slot emits out[:n_acc + 1]."""
         self._caps[:] = gammas
-        prog = self._program("spec", gb)        # a capture: before the phase
-        self._tick_wb = self.paged.blocks_per_slot
-        with self._tick_phase():
-            host = _fetch_tick(prog.run())
+        self._stage()
+        t0 = time.perf_counter()
+        # One program drafts and verifies: one "verify" phase.
+        with self._stamp("verify"):
+            prog = self._built("spec", gb)    # a capture: before the timer
+            self._tick_wb = self.paged.blocks_per_slot
+            with self._tick_phase():
+                host = _fetch_tick(prog.run())
+        self._tick_ms = (time.perf_counter() - t0) * 1000.0
         return host[:, :-1], host[:, -1]
 
     # -- tick and speculation policy ---------------------------------------
@@ -714,6 +791,13 @@ class ContinuousBatchingEngine:
             return 0
         return max(1, min(gmax, int(ewma * gmax + 0.5)))
 
+    def _note_prefix_hit(self, kind: str) -> None:
+        """One admission attempt's prefix-cache outcome (shared |
+        exclusive | miss) on ``dllm_prefix_hits_total{tier,kind}``: a
+        KV-pressure requeue looks up again on re-admission, as the cache's
+        own hit and miss counts do."""
+        get_observability().m.prefix_hits.labels(self.tier.name, kind).inc()
+
     # -- block bookkeeping -------------------------------------------------
 
     def _prefix_evicted(self, entry) -> None:
@@ -733,6 +817,7 @@ class ContinuousBatchingEngine:
         programs (and the dense rungs' views) keep reading it."""
         self._tables[ix] = row
         self._tables_dirty = True
+        self._kv_weights.pop(ix, None)
 
     def _alloc_evicting(self, n_blocks: int) -> Optional[List[int]]:
         """Allocate, evicting parked prefixes (LRU) under pressure: live
@@ -761,6 +846,7 @@ class ContinuousBatchingEngine:
                      tokens=[first], prompt_ids=prompt_ids,
                      max_blocks=max_blocks, pinned_entry=pinned_entry,
                      spec=spec, gamma=self.spec_gamma_max if spec else 0)
+        obs_spans.add_token(req.trace)       # the prefill's token
         if req.token_queue is not None:
             req.token_queue.put(first)
         self._slots[slot_ix] = slot
@@ -780,6 +866,12 @@ class ContinuousBatchingEngine:
     def _admit(self, req: _Request, slot_ix: int) -> bool:
         """Admit ``req`` into free slot ``slot_ix``.  False = stay queued
         (KV pressure, or the chunked-prefill lane is busy)."""
+        # Submit-to-prefill-start wait (queue_wait_ms, the registry's
+        # histogram) and the other half of TTFT, prefill_wait_ms, stamped
+        # when the prefill lands.
+        wait_ms = round((time.perf_counter() - req.t_submit) * 1000.0, 3)
+        obs_spans.annotate(req.trace, queue_wait_ms=wait_ms,
+                           admission_wait_ms=wait_ms)
         ids, bucket = prepare_prompt(self.tokenizer, req.history,
                                      self.tier.prefill_buckets,
                                      self.cfg.max_seq_len,
@@ -793,6 +885,8 @@ class ContinuousBatchingEngine:
 
         reused = select_reuse(self.prefix_cache, ids, self._reuse_buckets,
                               max_seq, share=self.share_prefix)
+        if self.prefix_cache is not None and reused is None:
+            self._note_prefix_hit("miss")
         if reused is None and self._chunk_gate(bucket):
             # Long cold prompt: chunked prefill interleaved with decode
             # ticks; one in flight at a time, so a second one waits at
@@ -830,9 +924,11 @@ class ContinuousBatchingEngine:
                 if priv is None:
                     self.allocator.free(shared)
                     self.prefix_cache.unshare(entry, m)
+                    self._note_prefix_hit("miss")
                     return False             # KV pressure: stay queued
                 owned = shared + priv
                 pinned_entry = entry
+                self._note_prefix_hit("shared")
             else:
                 # Exclusive take: the slot owns the entry's blocks and may
                 # write the boundary block directly.
@@ -841,29 +937,36 @@ class ContinuousBatchingEngine:
                     extra = self._alloc_evicting(need - len(owned))
                     if extra is None:
                         self.prefix_cache.untake(entry, m)
+                        self._note_prefix_hit("miss")
                         return False
                     owned += extra
                 elif len(owned) > need:
                     self.allocator.free(owned[need:])
                     owned = owned[:need]
+                self._note_prefix_hit("exclusive")
             try:
                 if boundary_src is not None:
                     # The copy must land before the suffix writes, in both
                     # pools: the draft attends the same tables.
-                    copy_block(self.pool, boundary_src, priv[0])
-                    if self.spec:
-                        copy_block(self.pool_d, boundary_src, priv[0])
+                    with self._stamp("cow_copy"):
+                        copy_block(self.pool, boundary_src, priv[0])
+                        if self.spec:
+                            copy_block(self.pool_d, boundary_src, priv[0])
                 tokens = np.full((1, sb), self.tokenizer.pad_id, np.int64)
                 tokens[0, :len(suffix)] = suffix
                 window = next(w for w in self._chunk_windows if w >= m + sb)
                 # The draft writes its suffix K/V too; the parked prefix
                 # blocks keep whatever draft K/V their writers left (stale
                 # draft K/V only lowers acceptance).
-                with self.phases.phase("prefill"):
+                with obs_spans.span(req.trace, "prefill", reused_tokens=m,
+                                    suffix_bucket=sb), \
+                        self.phases.phase("prefill"), \
+                        self._stamp("prefill"):
                     first = int(self._chunk_first(tokens, m, n,
                                                   self._table_row(owned),
                                                   window, temp,
                                                   draft=self.spec))
+                self.profiler.event("host_sync", site="prefill_first_token")
                 # sb suffix rows, their attention over the chunk window.
                 self.phases.add_work("prefill", **roofline.prefill_work(
                     self.cfg, window, window - sb, wbytes=self._wbytes))
@@ -887,7 +990,9 @@ class ContinuousBatchingEngine:
             try:
                 tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
                 tokens[0, :n] = ids
-                with self.phases.phase("prefill"):
+                with obs_spans.span(req.trace, "prefill", bucket=bucket), \
+                        self.phases.phase("prefill"), \
+                        self._stamp("prefill"):
                     tok = self._to_device(tokens)
                     first, k_all, v_all = self._prefill_first(tok, n, temp)
                     nb_prefill = bucket // bs
@@ -899,12 +1004,15 @@ class ContinuousBatchingEngine:
                     # The first token must reach the host now (it seeds
                     # the slot): one sync per admission, never per tick.
                     first = int(first)
+                self.profiler.event("host_sync", site="prefill_first_token")
                 self.phases.add_work("prefill", **roofline.prefill_work(
                     self.cfg, bucket, 0, wbytes=self._wbytes))
             except BaseException:
                 self.allocator.free(blocks)
                 raise
         ttft_ms = (time.perf_counter() - req.t_submit) * 1000.0
+        obs_spans.annotate(req.trace, prefill_wait_ms=round(
+            max(0.0, ttft_ms - wait_ms), 3))
         self._slot_go_live(req, slot_ix, blocks, prompt_len=n,
                            prompt_ids=tuple(ids), budget=budget, temp=temp,
                            max_blocks=max_blocks, pos=n, first=first,
@@ -924,6 +1032,8 @@ class ContinuousBatchingEngine:
             prompt_ids=tuple(ids), total=len(ids), budget=budget,
             temperature=temp,
             max_blocks=-(-min(bucket + budget, self.cfg.max_seq_len) // bs))
+        obs_spans.event(req.trace, "prefill_chunked", tokens=len(ids),
+                        chunk_tokens=self.chunk_tokens, replayed=False)
 
     def _advance_prefill(self) -> bool:
         """Spend up to ``chunk_budget`` tokens on the in-flight prefill
@@ -960,10 +1070,17 @@ class ContinuousBatchingEngine:
                 tokens[0, :k] = pf.seq[start:start + k]
                 # The chunk is the budgeted stall unit; its token (used
                 # from the final chunk) reaches the host here.
-                with self.phases.phase("prefill"):
+                t_chunk = time.perf_counter()
+                with obs_spans.span(req.trace, "prefill_chunk", start=start,
+                                    tokens=k, window=window), \
+                        self.phases.phase("prefill"), \
+                        self._stamp("chunk_prefill"):
                     first = int(self._chunk_first(tokens, start, pf.total,
                                                   self._table_row(pf.blocks),
                                                   window, pf.temperature))
+                get_observability().m.prefill_chunk_ms.labels(
+                    self.tier.name).observe(
+                        (time.perf_counter() - t_chunk) * 1000.0)
                 self.phases.add_work("prefill", **roofline.prefill_work(
                     self.cfg, end, start, wbytes=self._wbytes))
                 pf.consumed = min(end, pf.total)
@@ -988,6 +1105,8 @@ class ContinuousBatchingEngine:
     def _finish_prefill(self, pf: _Prefill, first: int) -> None:
         """Last chunk landed: the reserved slot goes live."""
         self._prefill = None
+        obs_spans.annotate(pf.request.trace, prefill_wait_ms=round(
+            (time.perf_counter() - pf.t_start) * 1000.0, 3))
         ttft_ms = (time.perf_counter() - pf.request.t_submit) * 1000.0
         self._slot_go_live(pf.request, pf.slot_ix, pf.blocks,
                            prompt_len=pf.prompt_len, prompt_ids=pf.prompt_ids,
@@ -995,7 +1114,7 @@ class ContinuousBatchingEngine:
                            max_blocks=pf.max_blocks, pos=pf.total, first=first,
                            ttft_ms=ttft_ms)
 
-    def _cancel_prefill(self) -> None:
+    def _cancel_prefill(self, reason: str) -> None:
         """Cancel the in-flight prefill and requeue it at the head: it has
         emitted nothing, so restarting from chunk 0 is free."""
         pf = self._prefill
@@ -1005,6 +1124,8 @@ class ContinuousBatchingEngine:
         self.allocator.free(pf.blocks)
         self.prefill_cancelled_total += 1
         pf.request.needs_chunk = True
+        obs_spans.event(pf.request.trace, "prefill_cancelled", reason=reason,
+                        consumed_tokens=min(pf.consumed, pf.total))
         self._head.appendleft(pf.request)
 
     def _spec_plan(self, active: List[int]) -> Optional[int]:
@@ -1050,8 +1171,9 @@ class ContinuousBatchingEngine:
                     self._finish(ix)
                     break
                 try:
-                    copy_block(self.pool, slot.blocks[i], fresh[0])
-                    copy_block(self.pool_d, slot.blocks[i], fresh[0])
+                    with self._stamp("cow_copy"):
+                        copy_block(self.pool, slot.blocks[i], fresh[0])
+                        copy_block(self.pool_d, slot.blocks[i], fresh[0])
                 except BaseException:
                     self.allocator.free(fresh)
                     raise
@@ -1059,6 +1181,8 @@ class ContinuousBatchingEngine:
                 slot.blocks[i] = fresh[0]
                 self.allocator.free([shared])    # decref: sharers keep it
                 self._set_table_row(ix, self._table_row(slot.blocks))
+                obs_spans.event(slot.request.trace, "spec_cow",
+                                block=shared, copy=fresh[0])
 
     def _spec_steps(self, slot: _Slot, gb: Optional[int] = None) -> int:
         """Positions past ``pos`` a speculative round must land in real
@@ -1114,11 +1238,14 @@ class ContinuousBatchingEngine:
                     self._set_table_row(ix, self._table_row(slot.blocks))
                     break
                 if self._prefill is not None:
-                    self._cancel_prefill()
+                    self._cancel_prefill("kv pressure: decoding slot "
+                                         "growth starved")
                     continue
                 logger.warning("tier %s: KV pool dry, slot %d finishes "
                                "after %d tokens", self.tier.name, ix,
                                len(slot.tokens))
+                obs_spans.event(slot.request.trace, "kv_truncated",
+                                generated=len(slot.tokens))
                 self._finish(ix)
                 break
 
@@ -1138,8 +1265,10 @@ class ContinuousBatchingEngine:
         gen_ids = trim_at_eos(slot.tokens, self.tokenizer.eos_id,
                               self.tokenizer.pad_id)
         req = slot.request
+        with obs_spans.span(req.trace, "detokenize", tokens=len(gen_ids)):
+            text = self.tokenizer.decode(gen_ids)
         req.result = GenerationResult(
-            text=self.tokenizer.decode(gen_ids), token_ids=gen_ids,
+            text=text, token_ids=gen_ids,
             prompt_tokens=slot.prompt_len, gen_tokens=len(gen_ids),
             ttft_ms=slot.ttft_ms,
             total_ms=(time.perf_counter() - req.t_submit) * 1000.0)
@@ -1193,7 +1322,7 @@ class ContinuousBatchingEngine:
         finally:
             # A still-in-flight prefill requeues, so stop()'s drain fails
             # it with the engine-stopped shape.
-            self._cancel_prefill()
+            self._cancel_prefill("engine stopping")
 
     def _admit_pass(self) -> bool:
         """Admit queued requests into free slots; True if any admitted."""
@@ -1209,7 +1338,12 @@ class ContinuousBatchingEngine:
             if req is None:
                 break
             try:
-                if not self._admit(req, ix):
+                # The admission phase covers tokenize and slot/block
+                # bookkeeping; its prefill and copy-on-write stamp their
+                # own nested phases, so self-times stay disjoint.
+                with self._stamp("admit"):
+                    admitted = self._admit(req, ix)
+                if not admitted:
                     self._head.appendleft(req)
                     break
                 admitted_any = True
@@ -1222,6 +1356,9 @@ class ContinuousBatchingEngine:
         """Append and stream one token; finish the slot (and return True)
         on the decode cap, EOS/PAD or the context edge."""
         slot.tokens.append(tok)
+        # Tick-granular timeline: a tick's tokens stamp together, when
+        # they become observable.
+        obs_spans.add_token(slot.request.trace)
         if slot.request.token_queue is not None:
             slot.request.token_queue.put(tok)
         self._pos[ix] += 1
@@ -1265,11 +1402,18 @@ class ContinuousBatchingEngine:
                 acc = self._spec_slot_acc.setdefault(ix, [0, 0])
                 acc[0] += g_i
                 acc[1] += k
+                if slot.gamma == 0:
+                    obs_spans.event(slot.request.trace, "spec_degraded",
+                                    accept_ewma=round(slot.accept_ewma, 4))
             if not any(self._push_token(ix, slot, int(out[ix, t]))
                        for t in range(k + 1)):
                 self._rewind_frontier(ix)
         self.spec_drafted_total += drafted
         self.spec_accepted_total += accepted
+        if drafted:
+            m = get_observability().m
+            m.spec_drafted.labels(self.tier.name).inc(drafted)
+            m.spec_accepted.labels(self.tier.name).inc(accepted)
 
     def _active(self) -> List[int]:
         return [ix for ix, s in enumerate(self._slots) if s is not None]
@@ -1335,18 +1479,24 @@ class ContinuousBatchingEngine:
             if not active:
                 if self._prefill is not None:
                     # No decoding slots: the whole pass is prefill.  A dry
-                    # pool backs off instead of spinning.
-                    if not self._advance_prefill():
+                    # pool backs off instead of spinning.  The record
+                    # closes before any wait: a backoff is not tick work.
+                    progressed = self._advance_prefill()
+                    self._commit(0)
+                    if not progressed:
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
                     self._progress_t = time.monotonic()
-                elif not admitted_any:
-                    self._progress_t = time.monotonic()
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
+                else:
+                    # Commit any stamped work (an admission that finished
+                    # at once, a KV-pressure deferral) before sleeping.
+                    self._commit(0)
+                    if not admitted_any:
+                        self._progress_t = time.monotonic()
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
                 continue
             try:
-                t_tick = time.perf_counter()
                 if spec_gb is None:
                     toks = self._decode_tick()
                 else:
@@ -1355,7 +1505,7 @@ class ContinuousBatchingEngine:
                         if self._slots[ix].spec:
                             gammas[ix] = min(self._slots[ix].gamma, spec_gb)
                     out, n_acc = self._spec_tick(spec_gb, gammas)
-                self.tick_ms.append((time.perf_counter() - t_tick) * 1000.0)
+                self.tick_ms.append(self._tick_ms)
                 self.ticks_total += 1
             except BaseException as exc:
                 # A dead tick must not kill the scheduler: fail the
@@ -1363,21 +1513,60 @@ class ContinuousBatchingEngine:
                 logger.exception("tier %s: decode tick failed", self.tier.name)
                 for ix in active:
                     self._fail_slot(ix, exc)
+                self._commit(len(active))
                 continue
-            try:
-                self._add_decode_work(active, self._tick_wb, spec_gb)
-            except Exception:
-                # Bookkeeping of a tick that ran: its fault fails neither
-                # the tick's requests nor the scheduler.
-                logger.exception("tier %s: roofline accounting failed",
-                                 self.tier.name)
-            if spec_gb is None:
-                self._emit(active, toks)
-            else:
-                self._emit_spec(active, out, n_acc, gammas)
+            # The "emit" phase: the tick's host work after its pull, its
+            # accounting and the token fan-out.
+            with self._stamp("emit"):
+                try:
+                    self._account_tick(active, spec_gb)
+                except Exception:
+                    # Bookkeeping of a tick that ran: its fault fails
+                    # neither the tick's requests nor the scheduler.
+                    logger.exception("tier %s: tick accounting failed",
+                                     self.tier.name)
+                if spec_gb is None:
+                    self._emit(active, toks)
+                else:
+                    self._emit_spec(active, out, n_acc, gammas)
             if self._prefill is not None:
                 self._advance_prefill()
             self._progress_t = time.monotonic()
+            self._commit(len(active))
+
+    def _account_tick(self, active: List[int],
+                      spec_gb: Optional[int]) -> None:
+        """The bookkeeping of the tick just run: its roofline work; the
+        attribution of its decode phase's time, split evenly over the
+        slots it served (one program decodes them together), with the KV
+        blocks each holds at 1/refcount a block, onto their requests'
+        traces (direct engine use, with no trace, is not billed); and the
+        tick histogram and counter.  The ``impl`` label keeps the JAX
+        names: ``pallas`` is a hand-written kernel on the card, ``xla`` the
+        plain version on the CPU."""
+        self._add_decode_work(active, self._tick_wb, spec_gb)
+        tick_ms = self._tick_ms
+        if self.profiler.enabled and not self._warming:
+            share = tick_ms / len(active)
+            for ix in active:
+                trace = self._slots[ix].request.trace
+                if trace is None:
+                    continue
+                kv_ticks = self._kv_weights.get(ix)
+                if kv_ticks is None:
+                    kv_ticks = sum(1.0 / (r if r > 0 else 1) for r in
+                                   self.allocator.refcounts(
+                                       self._slots[ix].blocks))
+                    self._kv_weights[ix] = kv_ticks
+                obs_spans.charge(trace, share, kv_ticks)
+        q8 = "_q8" if self.tier.kv_quantize == "int8" else ""
+        kind = ("ragged_verify" if spec_gb is not None
+                else "ragged_decode" if self.ragged else "paged_decode") + q8
+        m = get_observability().m
+        m.decode_tick_ms.labels(self.tier.name).observe(tick_ms)
+        m.decode_ticks.labels(
+            self.tier.name, kind,
+            "pallas" if self.device.type == "cuda" else "xla").inc()
 
     # -- public surface --------------------------------------------------------
 
@@ -1402,7 +1591,7 @@ class ContinuousBatchingEngine:
             shutdown = EngineStoppedError(error_dict(
                 f"Request failed: tier {self.tier.name} engine stopped "
                 f"mid-flight"))
-            self._cancel_prefill()
+            self._cancel_prefill("engine stopping")
             if self.prefix_cache is not None:
                 self.prefix_cache.clear()    # parked blocks -> free list
             for ix, slot in enumerate(self._slots):
@@ -1419,7 +1608,8 @@ class ContinuousBatchingEngine:
                token_queue: Optional["queue.Queue"] = None) -> _Request:
         self.start()
         req = _Request(history=history, max_new_tokens=max_new_tokens,
-                       temperature=temperature, token_queue=token_queue)
+                       temperature=temperature, token_queue=token_queue,
+                       trace=obs_spans.current_trace())
         self._queue.put(req)
         self._wake.set()
         return req
@@ -1604,14 +1794,20 @@ class ContinuousBatchingEngine:
         paging, and the first tick's program: the ragged tick, the dense
         tick's first rung or the top γ bucket's round); the dense tick's
         second rung; with speculation on, every γ bucket.  Every slot is
-        free then, so the extra ticks write only the trash block."""
-        self.generate("warmup", max_new_tokens=2)
-        for w in ([] if self.ragged else self._buckets[1:2]):
-            self._decode_tick(min(w // self.paged.block_size,
-                                  self.paged.blocks_per_slot))
-        if self.spec:
-            for gb in self._gamma_buckets:
-                self._spec_tick(gb, np.zeros(self.paged.max_slots, np.int32))
+        free then, so the extra ticks write only the trash block.  None of
+        it is recorded by the profiler."""
+        self._warming = True
+        try:
+            self.generate("warmup", max_new_tokens=2)
+            for w in ([] if self.ragged else self._buckets[1:2]):
+                self._decode_tick(min(w // self.paged.block_size,
+                                      self.paged.blocks_per_slot))
+            if self.spec:
+                for gb in self._gamma_buckets:
+                    self._spec_tick(gb, np.zeros(self.paged.max_slots,
+                                                 np.int32))
+        finally:
+            self._warming = False
 
 
 class StreamHandle:

@@ -16,8 +16,13 @@ The sequential engines have no scheduler: the probes read its load and
 watchdog surface only where the engine has one.  A tier client
 (serving/tiers.py) registers its ``AdmissionController`` as
 ``admission``: drain then rejects new requests and waits out the
-admitted ones, and ``health()`` reports the queue depth.  The JAX
-package's device-mesh plumbing and HBM budget are not ported.
+admitted ones, and ``health()`` reports the queue depth.  A tier with
+``hbm_gb_per_chip`` is budgeted before its engine is built
+(utils/hbm_budget.py) and refused with ``TierOverCapacityError`` when it
+does not fit.  The process-global metrics count the requests a drain
+completed and each rising edge of the decode watchdog; ``health()``
+carries the batched engine's profiler summary.  The JAX package's
+device-mesh plumbing is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Any, Dict, Optional, Union
 
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
+from ..obs import get_observability
 from .batching import ContinuousBatchingEngine
 from .inference import InferenceEngine
 from .speculative import SpeculativeEngine
@@ -37,6 +43,12 @@ from .speculative import SpeculativeEngine
 logger = logging.getLogger(__name__)
 
 Engine = Union[ContinuousBatchingEngine, InferenceEngine, SpeculativeEngine]
+
+
+class TierOverCapacityError(RuntimeError):
+    """A tier with ``hbm_gb_per_chip`` set does not fit its device:
+    weights + KV exceed the budget (utils/hbm_budget.tier_hbm_budget).
+    Raised by ``start_server`` before any weights materialize."""
 
 
 class EngineManager:
@@ -55,6 +67,10 @@ class EngineManager:
         self._draining = False
         # The tier client's AdmissionController, when one serves this tier.
         self.admission = None
+        # Watchdog edge detector: health() counts wedge transitions, not
+        # every probe of a wedged engine (own lock: concurrent probes).
+        self._wedged_seen = False
+        self._wedged_lock = threading.Lock()
 
     def start_server(self) -> None:
         """Idempotent: build the engine (kernels compile here on the card)
@@ -68,6 +84,8 @@ class EngineManager:
             if self.admission is not None:
                 self.admission.end_drain()   # a restart re-opens the tier
             t0 = time.perf_counter()
+            if self.tier.hbm_gb_per_chip is not None:
+                self._check_budget()
             engine = self._build(self.tier)
             if self.warmup_on_start:
                 engine.warmup()
@@ -76,6 +94,25 @@ class EngineManager:
             logger.info("tier %s up in %.1fs (model=%s, device=%s)",
                         self.tier.name, time.perf_counter() - t0,
                         self.tier.model_preset, self.device)
+
+    def _check_budget(self) -> None:
+        """Refuse the tier before building it when weights + KV do not
+        fit ``hbm_gb_per_chip`` (less the activation headroom)."""
+        from ..utils.hbm_budget import tier_hbm_budget
+        budget = tier_hbm_budget(self.tier,
+                                 hbm_per_chip_gb=self.tier.hbm_gb_per_chip)
+        if not budget["fits"]:
+            raise TierOverCapacityError(
+                f"tier {self.tier.name}: {budget['total_gb_per_chip']} "
+                f"GB/chip (params {budget['params_gb_per_chip']} + KV "
+                f"{budget['kv_gb_per_chip']}) plus the 0.75 GB activation "
+                f"headroom exceeds the hbm_gb_per_chip="
+                f"{self.tier.hbm_gb_per_chip} budget on "
+                f"{budget['chips']} chip(s)")
+        logger.info("tier %s: fits %s GB/chip budget (%s GB/chip, "
+                    "headroom %s GB)", self.tier.name,
+                    self.tier.hbm_gb_per_chip, budget["total_gb_per_chip"],
+                    budget["headroom_gb"])
 
     def _build(self, tier: TierConfig) -> Engine:
         """The JAX manager's engine selection (see the module note)."""
@@ -142,12 +179,16 @@ class EngineManager:
             time.sleep(0.02)
         leftover = in_flight()
         self.stop_server()
+        drained = max(0, started - leftover)
+        if drained:
+            get_observability().m.drained_requests.labels(
+                self.tier.name).inc(drained)
         if leftover:
             logger.warning("tier %s drain deadline (%.1fs) passed with %d "
                            "request(s) in flight; stopped", self.tier.name,
                            timeout_s, leftover)
         return {"draining_started": True, "in_flight_at_start": started,
-                "drained": max(0, started - leftover), "aborted": leftover,
+                "drained": drained, "aborted": leftover,
                 "waited_s": round(time.monotonic() - t0, 3)}
 
     @property
@@ -199,6 +240,19 @@ class EngineManager:
                 entry["error"] = (f"decode watchdog: no step progress for "
                                   f"{stall_s:.1f}s (deadline "
                                   f"{deadline:.0f}s)")
+                with self._wedged_lock:
+                    rising = not self._wedged_seen
+                    self._wedged_seen = True
+                if rising:
+                    get_observability().m.watchdog_wedged.labels(
+                        self.tier.name).inc()
+            else:
+                with self._wedged_lock:
+                    self._wedged_seen = False
+        # The profiler sideband: whether /debug/trace has anything to say.
+        prof = getattr(engine, "profiler", None)
+        if prof is not None and prof.enabled:
+            entry["profile"] = prof.summary()
         if self.admission is not None:
             adm = self.admission.snapshot()
             entry["admission"] = adm

@@ -6,7 +6,11 @@
   POST /chat/stream  the same request -> SSE meta / delta / done events
   GET  /history    ?session_id=...   -> [messages]
   DELETE /history  ?session_id=...   -> {"cleared": session_id}
-  GET  /health, GET /stats, and the frontend under /ui
+  GET  /health, GET /stats (?debug=1 adds the flight recorder,
+                   ?timeline=1 the state sampler's ring)
+  GET  /metrics      Prometheus text of the serving metrics
+  GET  /debug/trace  Chrome-trace JSON of the engines' tick phases
+  and the frontend under /ui
 
 Counterpart of ``distributed_llm_tpu/serving/app.py`` over the port's
 Router, on the card unless ``device="cpu"``.  Kept from the reference:
@@ -14,8 +18,8 @@ the UI strategy name "token-counting" maps to "token"; a strategy switch
 goes through QueryRouter.change_strategy, so cache and perf state
 survive; each session keeps its last 10 messages, behind a lock; the
 user turn is rolled back if routing raises.  While the router drains,
-/chat and /health answer 503 with a retry hint.  Not ported: GET /metrics,
-GET /debug/trace and the observability keys of /stats.
+/chat and /health answer 503 with a retry hint.  A session's id keys
+its requests' cost attribution.
 
     python -m distributed_llm_tpu_torch.serving.app      # port 8000
 """
@@ -78,7 +82,7 @@ def create_app(router: Optional[Router] = None,
 
         try:
             response_data, tokens, device = state["router"].route_query(
-                snapshot)
+                snapshot, session_id=session_id)
 
             if isinstance(response_data, dict):
                 reply = response_data.get("response", "")
@@ -210,7 +214,8 @@ def create_app(router: Optional[Router] = None,
             return err
 
         try:
-            routed = state["router"].route_query_stream(snapshot)
+            routed = state["router"].route_query_stream(
+                snapshot, session_id=session_id)
         except Exception as exc:
             logger.exception("stream routing failed")
             _rollback_user_turn(history, turn)
@@ -290,11 +295,32 @@ def create_app(router: Optional[Router] = None,
             return jsonify(payload), 503
         return jsonify(payload)
 
+    @app.route("/metrics", methods=["GET"])
+    def metrics():
+        """Prometheus text exposition of the router's metric registry
+        (obs/metrics.py)."""
+        body = state["router"].obs.metrics.render().encode("utf-8")
+        return static_response(
+            body, "text/plain; version=0.0.4; charset=utf-8")
+
+    @app.route("/debug/trace", methods=["GET"])
+    def debug_trace():
+        """Chrome-trace JSON of every live batched engine's tick-phase
+        profiler (obs/profiler.py): ticks as slices, phases as nested
+        slices with their self-times, compile and host-sync instants.
+        Load it in chrome://tracing or ui.perfetto.dev.  Empty
+        traceEvents when no profiler is live (sequential tiers,
+        profile=False)."""
+        return jsonify(state["router"].profiler_trace())
+
     @app.route("/stats", methods=["GET"])
     def stats():
         """Routing-cache health, per-tier engine state (health, phase
         timings and roofline work, prefix cache, KV pool, decode ticks,
-        speculation) and the breaker."""
+        speculation), the breaker, the SLO monitor and the cost ledger;
+        ``?timeline=1`` adds the state sampler's ring and ``?debug=1`` the
+        flight recorder's."""
+        from ..utils.telemetry import device_memory_snapshot
         from ..utils.telemetry import engine_stats
         with state_lock:
             router_ = state["router"]
@@ -311,11 +337,12 @@ def create_app(router: Optional[Router] = None,
                 if callable(fn):
                     entry[key[:-len("_stats")]] = fn()
             tiers[name] = entry
-        return jsonify({
+        payload = {
             "strategy": strategy,
             "sessions": sessions,
             "cache": router_.query_router.get_cache_stats(),
             "tiers": tiers,
+            "devices": device_memory_snapshot(router_.device),
             "prefix_affinity_overrides": router_.prefix_affinity_overrides,
             "breaker": (router_.breaker.snapshot()
                         if router_.breaker is not None else None),
@@ -323,7 +350,29 @@ def create_app(router: Optional[Router] = None,
             "draining": {
                 name: bool(t.server_manager.draining)
                 for name, t in router_.tiers.items()},
-        })
+            # Windowed goodput and incident state, and who pays for the
+            # ticks (the attributed cost ledger).
+            "slo": router_.slo.snapshot(),
+            "cost": router_.cost_snapshot(),
+        }
+        if request.args.get("timeline") == "1":
+            payload["timeline"] = router_.timeline_snapshot()
+            sampler = router_.sampler
+            if sampler is not None:
+                payload["timeline_meta"] = {
+                    "period_s": sampler.period_s,
+                    "capacity": sampler.capacity,
+                    "samples_total": sampler.samples_total,
+                    "sample_cost_ms": (round(sampler.sample_cost_ms, 4)
+                                       if sampler.sample_cost_ms is not None
+                                       else None),
+                    "running": sampler.running,
+                }
+        if request.args.get("debug") == "1":
+            payload["flight_recorder"] = router_.obs.recorder.snapshot()
+            payload["flight_recorded_total"] = \
+                router_.obs.recorder.recorded_total
+        return jsonify(payload)
 
     @app.route("/history", methods=["GET"])
     def get_history():

@@ -14,7 +14,9 @@ membership are not ported):
 
 Thresholds live in ``ClusterConfig`` (``breaker_failures`` /
 ``breaker_cooldown_s``); ``breaker_failures=0`` disables it.  All
-transitions are thread-safe.
+transitions are thread-safe.  The Router hooks ``on_transition`` to the
+``dllm_breaker_transitions_total`` counter and the ``dllm_breaker_state``
+gauge (obs/metrics.py).
 """
 
 from __future__ import annotations

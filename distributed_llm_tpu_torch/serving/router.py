@@ -22,10 +22,21 @@ veto and overflow policy, failover at stream setup and mid-stream (the
 already-delivered prefix replayed silently on the survivor), perf and
 breaker feedback when the stream completes.
 
-Not ported (ROADMAP.md): the observability layer (spans, metrics, the
-state sampler, the SLO monitor, the flight recorder, the cost ledger),
-tenants, fault injection, the HealthMonitor, the autoscaler, replicated
-and remote tiers.
+Observability (obs/): each request gets a span tree bound to its thread
+(``use_trace``) that the tiers and engines extend, and leaves through the
+single exit ``_finish_request``, which feeds the metrics, the SLO monitor
+(goodput windows and overload incidents), the flight recorder and the
+bounded per-(tier, strategy, session) cost ledger of the device time the
+batched engines attributed to it.  A state sampler thread (started at the
+first request, stopped by ``drain``) keeps a timeline of each tier's load
+and mirrors it to gauges; ``profiler_trace`` renders the engines'
+tick-phase rings as Chrome-trace JSON.  The JAX package's env knobs are
+arguments: ``sample_ms`` (0 turns the sampler off) and
+``timeline_samples``; the SLO targets are the tiers' ``slo_ttft_ms`` and
+``slo_tbt_ms``.
+
+Not ported (ROADMAP.md): tenants, fault injection, the HealthMonitor,
+the autoscaler, replicated and remote tiers.
 """
 
 from __future__ import annotations
@@ -39,6 +50,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..config import ClusterConfig, resolve_config
 from ..device import DeviceLike, resolve_device
+from ..obs import Observability, get_observability
+from ..obs import profiler as obs_profiler
+from ..obs import spans as obs_spans
+from ..obs.metrics import BoundedLabels, breaker_state_value
+from ..obs.sampler import SystemStateSampler
+from ..obs.slo import SLOMonitor
+from ..obs.spans import current_trace, use_trace
 from ..routing.engine import QueryRouter
 from ..routing.token_counter import TokenCounter
 from .errors import is_error_shape
@@ -81,19 +99,28 @@ class Router:
         benchmark_mode: bool = False,
         cluster: Optional[ClusterConfig] = None,
         device: DeviceLike = None,
+        observability: Optional[Observability] = None,
+        sample_ms: float = 250.0,
+        timeline_samples: int = 240,
     ):
         """strategy: "token" | "semantic" | "heuristic" | "hybrid" | "perf";
         benchmark_mode: True -> BENCHMARK_CFG (caches off), False ->
         PRODUCTION_CFG, unless ``config`` overrides.  ``device`` runs both
-        tiers and the router's embedder (default: the card)."""
+        tiers and the router's embedder (default: the card).
+        ``observability``: the metric/trace/recorder bundle (default: the
+        process-global one).  ``sample_ms``: the state sampler's period (0
+        = no sampler); ``timeline_samples``: its ring."""
         self.token_counter = TokenCounter()
+        self.device = resolve_device(device)
+        self.obs = (observability if observability is not None
+                    else get_observability())
         self.threshold_fallback = threshold_fallback
         self.benchmark_mode = benchmark_mode
         self.config = resolve_config(config, benchmark_mode)
 
         self.cluster = cluster or ClusterConfig()
         self.tiers: Dict[str, TierClient] = build_tiers(self.cluster,
-                                                        device=device)
+                                                        device=self.device)
         self.nano = self.tiers["nano"]
         self.orin = self.tiers["orin"]
 
@@ -109,7 +136,11 @@ class Router:
             self.breaker = CircuitBreaker(
                 [t.name for t in self.cluster.tiers()],
                 failure_threshold=self.cluster.breaker_failures,
-                cooldown_s=self.cluster.breaker_cooldown_s)
+                cooldown_s=self.cluster.breaker_cooldown_s,
+                on_transition=self._obs_breaker_transition)
+            # A healthy breaker reads 0 from the start, not "no series".
+            for t in self.cluster.tiers():
+                self.obs.m.breaker_state.labels(t.name).set(0)
         # Bounded retry of transient error shapes, budgeted against the
         # dispatching tier's request_timeout_s.
         self.retry_attempts = max(0, int(self.cluster.retry_attempts))
@@ -118,6 +149,26 @@ class Router:
         # Graceful drain: once True the serving edge answers 503 and no
         # new request enters the pipeline.
         self.draining = False
+
+        # SLO goodput monitor, fed only from _finish_request.
+        self.slo = SLOMonitor(self._slo_targets(), metrics=self.obs.m,
+                              recorder=self.obs.recorder,
+                              timeline=self._timeline_tail)
+        # The state timeline: a daemon thread started at the first
+        # request and stopped by drain().
+        self.sampler: Optional[SystemStateSampler] = None
+        if sample_ms > 0:
+            self.sampler = SystemStateSampler(
+                self._sampler_collect, metrics=self.obs.m,
+                period_s=sample_ms / 1000.0, capacity=timeline_samples)
+        # Bounded cost ledger per (tier, strategy, session): insertion-
+        # ordered, the oldest key evicted past the cap.  Session ids are
+        # client-controlled, so their metric labels are bounded too (past
+        # the cap they aggregate under "~overflow").
+        self._cost_lock = threading.Lock()
+        self._cost_ledger: Dict[Tuple[str, str, str], Dict[str, float]] = {}
+        self._cost_ledger_cap = 256
+        self._session_labels = BoundedLabels(cap=256)
 
         self.enable_response_cache = (
             not benchmark_mode
@@ -152,6 +203,9 @@ class Router:
         requests finish under ``drain_timeout_s`` and stops).  Idempotent;
         returns the per-tier drain summaries."""
         self.draining = True
+        # The state sampler dies with the router.
+        if self.sampler is not None:
+            self.sampler.stop()
         results: Dict[str, Any] = {}
         cap = (timeout_s if timeout_s is not None
                else self.drain_retry_after_s()) + 30.0
@@ -174,6 +228,212 @@ class Router:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
         logger.info("router drain complete: %s", results)
         return results
+
+    # -- observability plumbing (obs/) -------------------------------------
+
+    def _obs_breaker_transition(self, tier: str, old: str, new: str) -> None:
+        """Breaker state changes -> transition counter + state gauge."""
+        m = self.obs.m
+        m.breaker_transitions.labels(tier, new).inc()
+        m.breaker_state.labels(tier).set(breaker_state_value(new))
+
+    def _slo_targets(self) -> Dict[str, Tuple[Optional[float],
+                                              Optional[float]]]:
+        """Per-tier (slo_ttft_ms, slo_tbt_ms) goodput targets."""
+        return {t.name: (t.slo_ttft_ms, t.slo_tbt_ms)
+                for t in self.cluster.tiers()}
+
+    def _ensure_sampler(self) -> None:
+        """Start the sampler at the first request: routers that never
+        serve spawn no thread."""
+        s = self.sampler
+        if s is not None and not s.running and not self.draining:
+            s.start()
+
+    def _timeline_tail(self, n: int = 40) -> list:
+        s = self.sampler
+        return s.tail(n) if s is not None else []
+
+    def timeline_snapshot(self) -> list:
+        """The GET /stats?timeline=1 body: the whole timeline ring,
+        sampled once on demand when it is empty (an idle router still
+        answers with its current state)."""
+        s = self.sampler
+        if s is None:
+            return []
+        if not len(s):
+            s.sample_once()
+        return s.snapshot()
+
+    def _sampler_collect(self) -> Dict[str, Dict[str, Any]]:
+        """One timeline sample's per-tier state: lock-free or own-locked
+        in-memory reads only (load_snapshot, kv_stats, the tick ring, the
+        draining flag), never the lifecycle lock a starting engine holds:
+        the sampler must keep sampling through the states it explains."""
+        out: Dict[str, Dict[str, Any]] = {}
+        breaker_snap = (self.breaker.snapshot()
+                        if self.breaker is not None else {})
+        for name, tier in self.tiers.items():
+            st: Dict[str, Any] = dict(tier.load_snapshot())
+            mgr = tier.server_manager
+            st.update(self._collect_engine_state(getattr(mgr, "_engine",
+                                                         None)))
+            st["draining"] = bool(mgr.draining)
+            b = breaker_snap.get(name)
+            if b is not None:
+                st["breaker"] = b.get("state")
+            out[name] = st
+        return out
+
+    @staticmethod
+    def _collect_engine_state(engine) -> Dict[str, Any]:
+        """One engine's sampler fields: pool pressure and sharing, the
+        prefill backlog, the tick p50, the speculation accept ratio (once
+        a draft ran) and the profiler's per-phase p50 self-times and
+        coverage over its last 128 records.  Engines without a surface
+        (the sequential ones) contribute what they have."""
+        st: Dict[str, Any] = {}
+        kv_fn = getattr(engine, "kv_stats", None)
+        ks = kv_fn() if callable(kv_fn) else None
+        if ks:
+            st["kv_free_blocks"] = ks.get("free_blocks")
+            st["kv_reclaimable_blocks"] = ks.get("reclaimable_blocks")
+            st["kv_shared_blocks"] = ks.get("shared_blocks", 0)
+            st["kv_dedup_ratio"] = ks.get("dedup_ratio", 1.0)
+            st["preempted_total"] = ks.get("preempted_total", 0)
+            st["prefill_backlog_tokens"] = ks.get("prefill_backlog_tokens",
+                                                  0)
+        tick_fn = getattr(engine, "tick_stats", None)
+        if callable(tick_fn):
+            st["decode_tick_p50_ms"] = tick_fn().get("p50_ms")
+        spec_fn = getattr(engine, "spec_stats", None)
+        if callable(spec_fn):
+            ss = spec_fn()
+            if ss.get("enabled") and ss.get("accept_ratio") is not None:
+                st["spec_accept_ratio"] = ss["accept_ratio"]
+        prof = getattr(engine, "profiler", None)
+        if prof is not None and prof.enabled:
+            ps = prof.phase_stats(last=128)
+            st["tick_phases"] = {name: s.get("p50_ms")
+                                 for name, s in ps["phases"].items()}
+            st["profile_coverage"] = ps.get("coverage")
+        return st
+
+    def _note_cost(self, tier: str, strategy: str, session: str,
+                   device_ms: float, kv_ticks: float) -> None:
+        """Fold one finished request's attributed cost into the bounded
+        ledger (dict insertion order is the age order; a re-charged key
+        keeps its slot)."""
+        key = (tier, strategy, session)
+        with self._cost_lock:
+            entry = self._cost_ledger.get(key)
+            if entry is None:
+                while len(self._cost_ledger) >= self._cost_ledger_cap:
+                    self._cost_ledger.pop(next(iter(self._cost_ledger)))
+                entry = self._cost_ledger[key] = {
+                    "device_time_ms": 0.0, "kv_block_ticks": 0.0,
+                    "requests": 0}
+            entry["device_time_ms"] += device_ms
+            entry["kv_block_ticks"] += kv_ticks
+            entry["requests"] += 1
+
+    def cost_snapshot(self) -> List[Dict[str, Any]]:
+        """The GET /stats ``cost`` block: attributed device time and KV
+        block-ticks per (tier, strategy, session), most expensive
+        first."""
+        with self._cost_lock:
+            rows = [{"tier": k[0], "strategy": k[1], "session": k[2],
+                     "device_time_ms": round(v["device_time_ms"], 3),
+                     "kv_block_ticks": round(v["kv_block_ticks"], 3),
+                     "requests": int(v["requests"])}
+                    for k, v in self._cost_ledger.items()]
+        rows.sort(key=lambda r: r["device_time_ms"], reverse=True)
+        return rows
+
+    def profiler_trace(self) -> Dict[str, Any]:
+        """The GET /debug/trace body: every live engine's tick-phase ring
+        and compile/host-sync events as one Chrome-trace JSON document.
+        Tiers without a live profiler (sequential engines, profile=False)
+        contribute nothing."""
+        by_tier: Dict[str, Dict[str, Any]] = {}
+        for name, tier in self.tiers.items():
+            engine = getattr(tier.server_manager, "_engine", None)
+            prof = getattr(engine, "profiler", None)
+            if prof is not None and prof.enabled:
+                by_tier[name] = prof.snapshot()
+        return obs_profiler.chrome_trace(by_tier)
+
+    def _obs_state_snapshot(self) -> Dict[str, Any]:
+        """The serving state attached to a flight-recorder entry: per-tier
+        load, breaker states and the timeline's last samples (never
+        manager.health(): it may wait on a starting engine)."""
+        snap: Dict[str, Any] = {
+            "tiers": {name: tier.load_snapshot()
+                      for name, tier in self.tiers.items()},
+            "degraded_served": self.degraded_served,
+        }
+        if self.breaker is not None:
+            snap["breaker"] = self.breaker.snapshot()
+        timeline = self._timeline_tail(16)
+        if timeline:
+            snap["timeline"] = timeline
+        return snap
+
+    def _finish_request(self, trace, which: Optional[str], ok: bool,
+                        degraded: bool = False, raw: Any = None) -> None:
+        """Close a request trace and derive its metrics, its SLO verdict,
+        its attributed cost and, for a failed, degraded or slow request,
+        its flight-recorder entry.  Called exactly once per request, on
+        every exit path of both pipelines."""
+        trace.finish(ok=ok)
+        m = self.obs.m
+        strategy = trace.attrs.get("strategy") or "unknown"
+        outcome = "degraded" if degraded else ("ok" if ok else "error")
+        m.requests.labels(strategy, which or "none", outcome).inc()
+        dur = trace.duration_ms
+        if dur is not None:
+            m.request_ms.labels(strategy).observe(dur)
+        # Engine-true timings ride in the raw dict.  Cache hits skip the
+        # latency histograms: their raw carries the original generation's
+        # timings.
+        cache_hit = bool(trace.attrs.get("cache_hit"))
+        ttft = tbt_p95 = None
+        if not cache_hit:
+            if isinstance(raw, dict):
+                for key in ("ttft_ms", "total_ms", "gen_tokens"):
+                    val = raw.get(key)
+                    if val is not None:
+                        trace.annotate(**{key: val})
+            ttft = trace.ttft_ms()
+            if ttft is not None:
+                m.ttft_ms.labels(strategy).observe(ttft)
+            tbt = trace.tbt_ms()
+            if tbt is not None:
+                m.tbt_ms.labels(strategy).observe(tbt)
+            tbt_p95 = trace.tbt_p95_ms()
+        qw = trace.attrs.get("queue_wait_ms")
+        if qw is not None and which:
+            m.queue_wait_ms.labels(which).observe(float(qw))
+        # Degraded service is not goodput even when a stale cache hit
+        # carried ok=True.
+        self.slo.record_request(strategy, which, ok=ok and not degraded,
+                                ttft_ms=ttft, tbt_p95_ms=tbt_p95,
+                                cache_hit=cache_hit)
+        dev_ms = trace.device_time_ms
+        kv_ticks = trace.kv_block_ticks
+        if dev_ms or kv_ticks:
+            session = self._session_labels.label(trace.attrs.get("session"))
+            m.device_time.labels(which or "none", strategy,
+                                 session).inc(dev_ms)
+            m.kv_block_ticks.labels(which or "none", strategy,
+                                    session).inc(kv_ticks)
+            self._note_cost(which or "none", strategy, session, dev_ms,
+                            kv_ticks)
+        reason = self.obs.recorder.classify(ok, degraded, dur)
+        if reason is not None:
+            m.flight_records.labels(reason).inc()
+            self.obs.recorder.record(reason, trace,
+                                     self._obs_state_snapshot())
 
     # -- helpers -----------------------------------------------------------
 
@@ -217,6 +477,9 @@ class Router:
                          f"conversation (decision was {device} at "
                          f"confidence {confidence:.2f}); {reasoning}")
             self.prefix_affinity_overrides += 1
+            self.obs.m.cache_hits.labels("prefix_affinity").inc()
+            obs_spans.event(current_trace(), "prefix_affinity_override",
+                            to=best, match_tokens=scores[best])
             return best, f"{method}+prefix_affinity", reasoning
         return device, method, reasoning
 
@@ -313,6 +576,15 @@ class Router:
         return (isinstance(raw, dict)
                 and "admission rejected" in str(raw.get("error", "")))
 
+    def _note_admission_rejection(self, raw: Any, which: str) -> None:
+        """Every admission rejection counts; the KV-pressure subset also
+        on its own counter."""
+        if not self._is_admission_rejection(raw):
+            return
+        self.obs.m.admission_rejected.labels(which).inc()
+        if "KV demand" in str(raw.get("error", "")):
+            self.obs.m.kv_admission_rejected.labels(which).inc()
+
     # -- context-overflow policy -------------------------------------------
 
     def _apply_overflow_policy(self, device: str,
@@ -334,6 +606,9 @@ class Router:
         if est <= limit:
             return history, None, 0
         if cfg.overflow_policy == "reject":
+            self.obs.m.overflow.labels(device, "rejected").inc()
+            obs_spans.event(current_trace(), "overflow_rejected",
+                            tier=device, est_tokens=est, limit=limit)
             logger.warning("%s: prompt ~%d tokens over the %d-token "
                            "context budget: overflow_policy=reject",
                            device, est, limit)
@@ -347,6 +622,10 @@ class Router:
         while len(trimmed) > 1 and est > limit:
             dropped += 1
             est -= self.token_counter.count_tokens(trimmed.pop(0))
+        self.obs.m.overflow.labels(device, "truncated").inc()
+        obs_spans.event(current_trace(), "overflow_truncated",
+                        tier=device, dropped_messages=dropped,
+                        est_tokens=est, limit=limit)
         logger.info("%s: dropped %d oldest turn(s) to fit the %d-token "
                     "context budget (overflow_policy=truncate_left)",
                     device, dropped, limit)
@@ -376,7 +655,9 @@ class Router:
         tier = self.tiers.get(device, self.nano)
         logger.info("Processing query on %s", tier.name)
         t0 = time.perf_counter()
-        raw = tier.process(history)
+        with obs_spans.span(current_trace(), "dispatch", tier=tier.name):
+            raw = tier.process(history)
+        self._note_admission_rejection(raw, tier.name)
         return raw, tier.name, (time.perf_counter() - t0) * 1000.0
 
     def _run_device_retrying(self, device: str, history: List[Dict[str, Any]],
@@ -399,6 +680,9 @@ class Router:
             logger.warning("%s transient error (%.80s): retry %d/%d after "
                            "%.0fms", which, raw.get("error", ""),
                            attempt + 1, self.retry_attempts, backoff * 1000)
+            self.obs.m.retries.labels(which).inc()
+            obs_spans.event(current_trace(), "retry", tier=which,
+                            attempt=attempt + 1)
             time.sleep(backoff)
             raw, _, lat2 = self._run_device(device, history)
             lat_ms += lat2
@@ -426,6 +710,10 @@ class Router:
             tokens = self.token_counter.count_tokens(
                 {"role": "assistant", "content": text})
             self.degraded_served += 1
+            self.obs.m.degraded.inc()
+            self.obs.m.cache_hits.labels("response_degraded").inc()
+            obs_spans.annotate(current_trace(), degraded=True,
+                               cache_hit="response_degraded")
             return {
                 "response": text,
                 "raw": cached.get("raw"),
@@ -446,6 +734,10 @@ class Router:
         tokens = self.token_counter.count_tokens(
             {"role": "assistant", "content": text})
         self.degraded_served += 1
+        self.obs.m.degraded.inc()
+        obs_spans.event(current_trace(), "degraded_fail_fast",
+                        retry_after_s=round(retry_after, 2))
+        obs_spans.annotate(current_trace(), degraded=True)
         logger.warning("degraded fail-fast: all circuits open "
                        "(retry_after=%.1fs)", retry_after)
         return {
@@ -486,44 +778,78 @@ class Router:
         decision with the context-size fallback when it raises.  Returns
         (device, method, confidence, reasoning, cache_hit, overhead_ms)."""
         t0 = time.perf_counter()
-        self._feed_perf_load()
-        cache_hit = False
-        try:
-            decision = self.query_router.route_query(
-                query=query, context=context, context_key=ctx_hash)
-            device = decision.device
-            method = decision.method
-            confidence = float(decision.confidence)
-            reasoning = decision.reasoning
-            cache_hit = bool(decision.cache_hit)
-            logger.info("[%s] routing: %s | method=%s conf=%.3f",
-                        "BENCH" if self.benchmark_mode else "PROD",
-                        device.upper(), method, confidence)
-        except Exception as exc:
-            ctx_size = self.token_counter.get_context_size(history)
-            device = "orin" if ctx_size > self.threshold_fallback else "nano"
-            method = "fallback_ctx_size"
-            confidence = 0.2
-            reasoning = (f"router failed: {exc}; ctx_size={ctx_size}, "
-                         f"threshold_fallback={self.threshold_fallback}")
-            logger.warning("routing failed (%s); ctx fallback -> %s",
-                           exc, device)
+        with obs_spans.span(current_trace(), "route") as route_sp:
+            self._feed_perf_load()
+            cache_hit = False
+            try:
+                decision = self.query_router.route_query(
+                    query=query, context=context, context_key=ctx_hash)
+                device = decision.device
+                method = decision.method
+                confidence = float(decision.confidence)
+                reasoning = decision.reasoning
+                cache_hit = bool(decision.cache_hit)
+                logger.info("[%s] routing: %s | method=%s conf=%.3f",
+                            "BENCH" if self.benchmark_mode else "PROD",
+                            device.upper(), method, confidence)
+            except Exception as exc:
+                ctx_size = self.token_counter.get_context_size(history)
+                device = ("orin" if ctx_size > self.threshold_fallback
+                          else "nano")
+                method = "fallback_ctx_size"
+                confidence = 0.2
+                reasoning = (f"router failed: {exc}; ctx_size={ctx_size}, "
+                             f"threshold_fallback={self.threshold_fallback}")
+                logger.warning("routing failed (%s); ctx fallback -> %s",
+                               exc, device)
+            route_sp.annotate(device=device, method=method,
+                              confidence=round(confidence, 4))
+            if cache_hit:
+                self.obs.m.cache_hits.labels("routing").inc()
         overhead_ms = (time.perf_counter() - t0) * 1000.0
         return device, method, confidence, reasoning, cache_hit, overhead_ms
 
-    def route_query(self, history: List[Dict[str, Any]]
+    def route_query(self, history: List[Dict[str, Any]],
+                    session_id: Optional[str] = None
                     ) -> Tuple[Dict[str, Any], int, str]:
+        """The request's span tree, bound to this thread for the tiers and
+        engines, around the pipeline (``_route_query_inner``), then its
+        single exit ``_finish_request``.  ``session_id`` keys the
+        per-session cost attribution (None: '-')."""
+        self._ensure_sampler()
+        trace = self.obs.trace(strategy=self.query_router.strategy)
+        if session_id:
+            trace.annotate(session=str(session_id))
+        with use_trace(trace):
+            try:
+                response, tokens, which = self._route_query_inner(
+                    trace, history)
+            except BaseException as exc:
+                trace.annotate(error=f"{type(exc).__name__}: {exc}"[:200])
+                self._finish_request(trace, None, ok=False)
+                raise
+        self._finish_request(trace, which,
+                             ok=bool(response.get("ok", True)),
+                             degraded=bool(response.get("degraded")),
+                             raw=response.get("raw"))
+        return response, tokens, which
+
+    def _route_query_inner(self, trace, history: List[Dict[str, Any]]
+                           ) -> Tuple[Dict[str, Any], int, str]:
         query, context, ctx_hash = self._history_to_query_and_context(history)
 
         # 0) response cache
         if self.enable_response_cache:
-            cached = self._response_store.get(
-                self._response_cache_key(ctx_hash, query))
+            with trace.span("cache_lookup"):
+                cached = self._response_store.get(
+                    self._response_cache_key(ctx_hash, query))
             if cached is not None:
                 text = cached.get("text", "")
                 which = cached.get("device", "nano")
                 tokens = self.token_counter.count_tokens(
                     {"role": "assistant", "content": text})
+                self.obs.m.cache_hits.labels("response").inc()
+                trace.annotate(cache_hit="response")
                 return {
                     "response": text,
                     "raw": cached.get("raw"),
@@ -547,6 +873,7 @@ class Router:
                 reasoning = (f"circuit open on {device} -> rerouted to "
                              f"{other}; {reasoning}")
                 method = f"{method}+breaker"
+                trace.event("breaker_veto", vetoed=device, to=other)
                 device = other
             else:
                 return self._degraded_response(query, ctx_hash, method,
@@ -591,6 +918,8 @@ class Router:
             # circuit on the survivor suppresses it.
             if self.breaker is None or self.breaker.allow(other):
                 logger.warning("%s failed: failing over to %s", which, other)
+                self.obs.m.failovers.labels(which, "sync").inc()
+                trace.event("failover", failed=which, to=other)
                 raw2, which2, lat2 = self._run_device_retrying(
                     other, history, deadline)
                 self._breaker_record(which2, not self._is_error(raw2), raw2)
@@ -634,12 +963,31 @@ class Router:
             out["overflow_dropped_messages"] = overflow_dropped
         return out, tokens, which
 
-    def route_query_stream(self, history: List[Dict[str, Any]]
+    def route_query_stream(self, history: List[Dict[str, Any]],
+                           session_id: Optional[str] = None
                            ) -> "RoutedStream":
         """Streaming twin of ``route_query`` (see the module note).  The
         response cache does not take part.  Raises RuntimeError if no
         tier can start a stream (with a retry-after hint when every
-        circuit is open)."""
+        circuit is open); the stream's completion is the request's
+        single exit."""
+        self._ensure_sampler()
+        trace = self.obs.trace(strategy=self.query_router.strategy,
+                               stream=True)
+        if session_id:
+            trace.annotate(session=str(session_id))
+        with use_trace(trace):
+            try:
+                return self._route_stream_inner(trace, history)
+            except BaseException as exc:
+                trace.annotate(error=f"{type(exc).__name__}: {exc}"[:200])
+                self._finish_request(trace, None, ok=False,
+                                     degraded=bool(
+                                         trace.attrs.get("degraded")))
+                raise
+
+    def _route_stream_inner(self, trace, history: List[Dict[str, Any]]
+                            ) -> "RoutedStream":
         query, context, ctx_hash = self._history_to_query_and_context(history)
         (device, method, confidence, reasoning,
          cache_hit, overhead_ms) = self._decide(query, context, ctx_hash,
@@ -652,9 +1000,12 @@ class Router:
                 reasoning = (f"circuit open on {device} -> rerouted to "
                              f"{other}; {reasoning}")
                 method = f"{method}+breaker"
+                trace.event("breaker_veto", vetoed=device, to=other)
                 device = other
             else:
                 self.degraded_served += 1
+                self.obs.m.degraded.inc()
+                trace.annotate(degraded=True)
                 raise RuntimeError(
                     "Request failed: all tiers unavailable (circuit "
                     f"open); retry in {self.breaker.retry_after_s():.1f}s")
@@ -666,8 +1017,12 @@ class Router:
 
         t0 = time.perf_counter()
         tier = self.tiers.get(device, self.nano)
-        handle = tier.process_stream(history)   # primes the first token
+        # Setup primes the first token (prefill runs inside): this span is
+        # the stream's TTFT-critical section.
+        with trace.span("stream_setup", tier=tier.name):
+            handle = tier.process_stream(history)
         which = tier.name
+        self._note_admission_rejection(handle, which)
         self._breaker_record_stream_setup(which, handle)
         if self._is_error(handle) and self.enable_failover:
             other = self._other(which)
@@ -676,7 +1031,12 @@ class Router:
             self.query_router.update_perf(
                 which, (time.perf_counter() - t0) * 1000.0, 0, ok=False)
             if self.breaker is None or self.breaker.allow(other):
-                alt = self.tiers[other].process_stream(history)
+                self.obs.m.failovers.labels(which, "stream_setup").inc()
+                trace.event("failover", failed=which, to=other,
+                            kind="stream_setup")
+                with trace.span("stream_setup", tier=other):
+                    alt = self.tiers[other].process_stream(history)
+                self._note_admission_rejection(alt, other)
                 self._breaker_record_stream_setup(other, alt)
                 if not self._is_error(alt):
                     handle, which = alt, other
@@ -700,6 +1060,12 @@ class Router:
             tokens = result.gen_tokens if result else 0
             self.query_router.update_perf(state["device"], lat_ms, tokens,
                                           ok=ok)
+            # Engine-true timings preferred over the token timeline.
+            if result is not None:
+                trace.annotate(ttft_ms=result.ttft_ms,
+                               total_ms=result.total_ms,
+                               gen_tokens=result.gen_tokens)
+            self._finish_request(trace, state["device"], ok=ok)
 
         def resume_mid_stream(emitted_chars: int, exc: BaseException):
             """The live stream died after ``emitted_chars`` chars: re-issue
@@ -716,7 +1082,15 @@ class Router:
                            other)
             if self.breaker is not None and not self.breaker.allow(other):
                 return None
-            alt = self.tiers[other].process_stream(history)
+            # Counted at the attempt, like the other failover kinds.
+            self.obs.m.failovers.labels(dying, "mid_stream").inc()
+            trace.event("mid_stream_failover", failed=dying, to=other,
+                        replayed_chars=emitted_chars)
+            # This hook runs on the consumer's thread: re-bind the trace
+            # so the new setup's spans join the same tree.
+            with use_trace(trace), \
+                    trace.span("stream_setup", tier=other, resume=True):
+                alt = self.tiers[other].process_stream(history)
             self._breaker_record_stream_setup(other, alt)
             if self._is_error(alt):
                 logger.warning("mid-stream failover target %s also failed "

@@ -17,8 +17,14 @@ returning ``{"response": text}`` or an error dict, ``.process_stream``,
   returns, so setup-time failover catches real engine failures;
 - ``load_snapshot`` feeds queue-aware perf routing.
 
-Not ported (ROADMAP.md): device meshes, tenant quotas, fault injection,
-replicated and remote tiers, and the observability spans.
+The request's span tree (obs/spans.py) gets the JAX client's spans:
+``admission``, ``engine_start`` on a lazy start, ``engine_lock_wait``
+for a sequential stream, and the ``timeout_abandoned`` event; a worker
+thread re-binds the trace (``use_trace``) so the engine attaches its
+own spans to the same tree.
+
+Not ported (ROADMAP.md): device meshes, tenant quotas, fault injection
+and replicated and remote tiers.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from ..config import ClusterConfig, TierConfig
 from ..device import DeviceLike
 from ..engine.inference import GenerationResult
 from ..engine.manager import EngineManager
+from ..obs import spans as obs_spans
+from ..obs.spans import current_trace, use_trace
 from .errors import error_dict
 from .turns import ClippedStream, clip_turn
 
@@ -242,8 +250,8 @@ class TierClient:
         returned so Router failover and the perf failure penalty fire, and
         the abandoned worker finishes in the background (its completion
         never overwrites ``last_result``)."""
-        kv_demand, kv_supply = self._kv_admission_args(history)
-        admit_err = self.admission.try_admit(kv_demand, kv_supply)
+        trace = current_trace()
+        admit_err = self._admit(trace, history)
         if admit_err is not None:
             logger.warning("tier %s admission rejected a request: %s",
                            self.name, admit_err)
@@ -276,7 +284,10 @@ class TierClient:
             result = None
             t0 = time.perf_counter()
             try:
-                resp, result = self._process_body(history)
+                # Context variables do not cross threads: re-bind the
+                # request's trace so the engine's spans join its tree.
+                with use_trace(trace):
+                    resp, result = self._process_body(history)
             finally:
                 # Atomic with the caller's abandon decision: either done is
                 # set here first (the caller sees the result) or the caller
@@ -303,9 +314,27 @@ class TierClient:
                 logger.warning("tier %s request exceeded %.0fs: abandoning "
                                "the device call and reporting failure",
                                self.name, timeout)
+                obs_spans.event(trace, "timeout_abandoned", tier=self.name,
+                                timeout_s=timeout)
                 return {"error": f"Request failed: {self.name} timed out "
                                  f"after {timeout:.0f}s"}
         return box.get("out", {"error": "Request failed: worker died"})
+
+    def _admit(self, trace, history: History) -> Optional[str]:
+        """The admission controller's verdict (None = admitted), inside
+        the request's ``admission`` span."""
+        kv_demand, kv_supply = self._kv_admission_args(history)
+        with obs_spans.span(trace, "admission", tier=self.name) as adm_sp:
+            admit_err = self.admission.try_admit(kv_demand, kv_supply)
+            if admit_err is not None:
+                adm_sp.annotate(rejected=admit_err)
+        return admit_err
+
+    def _start_engine(self, trace) -> None:
+        """Lazy-start the tier's engine inside an ``engine_start`` span."""
+        logger.info("No running %s engine found, starting...", self.name)
+        with obs_spans.span(trace, "engine_start", tier=self.name):
+            self.server_manager.start_server()
 
     def _kv_admission_args(self, history: History):
         """(projected block demand, available block supply) for the KV
@@ -358,9 +387,7 @@ class TierClient:
         ``last_result`` update."""
         try:
             if not self.server_manager.is_server_running():
-                logger.info("No running %s engine found, starting...",
-                            self.name)
-                self.server_manager.start_server()
+                self._start_engine(current_trace())
             engine = self.server_manager.engine()
             if getattr(engine, "concurrent_safe", False):
                 result = engine.generate(history)
@@ -391,8 +418,8 @@ class TierClient:
         (exhaustion, close or GC), with the engine-true generation time
         fed to the EWMA.  A sequential engine's lock is held for the
         stream's life, its acquire bounded by ``request_timeout_s``."""
-        kv_demand, kv_supply = self._kv_admission_args(history)
-        admit_err = self.admission.try_admit(kv_demand, kv_supply)
+        trace = current_trace()
+        admit_err = self._admit(trace, history)
         if admit_err is not None:
             logger.warning("tier %s admission rejected a stream: %s",
                            self.name, admit_err)
@@ -408,9 +435,7 @@ class TierClient:
 
         try:
             if not self.server_manager.is_server_running():
-                logger.info("No running %s engine found, starting...",
-                            self.name)
-                self.server_manager.start_server()
+                self._start_engine(trace)
             engine = self.server_manager.engine()
             if not hasattr(engine, "generate_stream"):
                 self.admission.release()
@@ -422,8 +447,11 @@ class TierClient:
                 handle_box["handle"] = clipped
                 return _PrimedStream(clipped, release=finish_admission)
             timeout = self.tier.request_timeout_s
-            acquired = self._engine_lock.acquire(
-                timeout=timeout if timeout is not None else -1)
+            # A sequential engine's lock is its queue: this wait is the
+            # streaming twin of the batched engine's queue wait.
+            with obs_spans.span(trace, "engine_lock_wait", tier=self.name):
+                acquired = self._engine_lock.acquire(
+                    timeout=timeout if timeout is not None else -1)
             if not acquired:
                 self.admission.release()
                 logger.warning("tier %s stream setup could not take the "

@@ -18,15 +18,18 @@ keys, rounding and log format:
   by the trapezoid rule: mW x s = mJ, the reference's units.  Both tiers
   share one card, so every tier reads the whole card's draw (the JAX
   package, on a TPU that reports no power, samples each tier's carved
-  devices' memory in use instead).  On the CPU it reads zeros.
-
-Not here yet: the profiler capture helper (ROADMAP.md A7).
+  devices' memory in use instead).  On the CPU it reads zeros;
+- ``profiler_trace`` captures a ``torch.profiler`` trace around a block
+  (the JAX package's ``jax.profiler`` capture): per-kernel device times
+  on the card, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import subprocess
+import tempfile
 import threading
 import time
 from collections import defaultdict
@@ -55,6 +58,26 @@ def device_memory_snapshot(device=None) -> List[Dict[str, Any]]:
              "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
              "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
              "bytes_limit": total}]
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str = os.path.join(tempfile.gettempdir(),
+                                               "dllm_torch_trace")):
+    """Capture a ``torch.profiler`` trace of CPU and, where there is a
+    card, CUDA activity around a block; yields the profile (its
+    ``key_averages()`` and ``events()`` hold the kernels' device times)
+    and writes it as Chrome-trace JSON to ``log_dir/trace.json`` (readable
+    in chrome://tracing or ui.perfetto.dev) when the block ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def card_power_mw(device=None) -> float:

@@ -4,7 +4,8 @@ and reads no file of it.
 A subprocess with ``jax`` and ``distributed_llm_tpu`` blocked in
 ``sys.modules`` imports the port's entry points (the ``/query`` and
 ``/chat`` servers, the router, the tier clients, the routing layer, the
-bench and the tester, the roofline and telemetry utilities) and
+bench and the tester, the roofline, telemetry and memory budget
+utilities, the obs layer) and
 ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
@@ -124,6 +125,10 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.bench.tester\n"
         "import distributed_llm_tpu_torch.utils.roofline\n"
         "import distributed_llm_tpu_torch.utils.telemetry\n"
+        "import distributed_llm_tpu_torch.utils.hbm_budget\n"
+        "import distributed_llm_tpu_torch.obs\n"
+        "from distributed_llm_tpu_torch.obs import (metrics, profiler,\n"
+        "    recorder, sampler, slo, spans)\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'distributed_llm_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
