@@ -95,10 +95,21 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    the ``profile`` section (the tick profiler on the tiny cluster) holds
    no error.
 
-The batched engines (phases 4-6 and 10) run every tick as a CUDA graph
-captured once per program (the ragged tick, each dense window rung, each
-γ bucket's speculative round) and replayed; the kernels' launch counts
-count replays.
+The batched engines (phases 4-6, 10 and 11) run every device stage as a
+CUDA graph captured once per program (the ragged tick, each dense window
+rung, each γ bucket's speculative round; an admission's cold prefill per
+bucket and its writer, each chunk (width, window), the copy-on-write
+copies, the draft's prefill, writer and chunk) and replayed; the
+kernels' launch counts count replays.  An admission audit watches every
+batched engine those phases build: on each main path no program body
+may run outside a capture, and no chunk, prefix-hit or copy program may
+be captured after the engine's warmup (only prefill buckets and dense
+rungs are built on first use); it reports each engine's device memory
+before and after its warmup.  In each batched serve phase and in /chat
+every admission program family is captured with one prompt, replayed
+with another and held against its bodies run eagerly on the second
+(``prefill_graph_check``: first tokens equal, the written pool rows
+within one bf16 step, their max abs diff printed).
 
 Each serve phase sets every kernel's launch count and every plain
 version's call count to 0 before its requests and reads them after: the
@@ -1516,13 +1527,11 @@ def kernel_wrappers():
 
 
 def plain_versions():
-    """The plain version of every kernel (none may run on a main path)."""
-    from distributed_llm_tpu_torch.ops import attention as TA
-    return (TA.causal_attention, TA._gather_decode_paged,
-            TA._gather_decode_windowed,
-            TA._gather_verify_paged, TA._gather_chunk_paged,
-            TA._decode_contiguous, TA._decode_contiguous_q8,
-            TA._chunk_contiguous, TA._chunk_contiguous_q8)
+    """The plain version of every kernel (none may run on a main path):
+    the plain paths but the int8 suffix chunk, which has no kernel."""
+    from distributed_llm_tpu_torch.ops import launches
+    return tuple(fn for name, fn in launches.plain_paths().items()
+                 if name != "_dequant_chunk_paged")
 
 
 @contextlib.contextmanager
@@ -1578,16 +1587,129 @@ def served(torch, tier, device: str = "cuda"):
         manager.stop_server()
 
 
+# The admission stages' programs: the stages a chunk or a prefix hit runs
+# (JAX warms all of them), and every stage an admission runs.
+WARM_STAGES = ("chunk_prefill", "writer:cow_copy", "writer:cow_copy_draft",
+               "draft:chunk")
+ADMISSION_STAGES = ("prefill", "chunk_prefill", "writer", "draft")
+
+
+def _stage_name(stage: str, key) -> str:
+    """``stage``, or ``stage:kind`` for the named keys (the copies, the
+    draft's stages)."""
+    if isinstance(key, str):
+        return f"{stage}:{key}"
+    if isinstance(key, tuple) and isinstance(key[0], str):
+        return f"{stage}:{key[0]}"
+    return stage
+
+
+class AdmissionAudit:
+    """What the batched engines built inside ``admission_audit`` did: each
+    program body run eagerly outside a capture (by stage), each program
+    built (tier, stage, key, and whether its engine had warmed up), and
+    each engine's device memory before and after its warmup."""
+
+    def __init__(self):
+        self.eager: dict = {}
+        self.built: list = []
+        self.warmup: list = []
+        self.warmed: set = set()
+        self._mark = (0, {})
+
+    def mark(self) -> None:
+        """The main path starts: what follows is read by ``main_path``."""
+        self._mark = (len(self.built), dict(self.eager))
+
+    def main_path(self, on_card: bool) -> dict:
+        """Since ``mark``: the bodies run eagerly and the programs built
+        after their engine's warmup.  On the card, no body may have run
+        outside a capture (every admission stage and tick replayed a
+        graph) and no chunk, prefix-hit or copy-on-write program may
+        have been built mid-serve (warmup builds JAX's warm set)."""
+        n, eager0 = self._mark
+        eager = {k: v - eager0.get(k, 0) for k, v in self.eager.items()
+                 if v != eager0.get(k, 0)}
+        mid = [b for b in self.built[n:] if b["after_warmup"]]
+        late = [b for b in mid if b["stage"] in WARM_STAGES]
+        if on_card:
+            require(not eager, f"program bodies ran eagerly on the main "
+                    f"path: {eager}")
+            require(not late, f"warm-set programs built mid-serve: {late}")
+        return {"eager_body_runs": eager,
+                "built_mid_serve": [f"{b['tier']} {b['stage']} {b['key']}"
+                                    for b in mid]}
+
+
+@contextlib.contextmanager
+def admission_audit(torch, on_card: bool):
+    """Watch the batched engines built inside (``AdmissionAudit``)."""
+    from distributed_llm_tpu_torch.engine import batching
+
+    cls = batching.ContinuousBatchingEngine
+    real = {name: getattr(cls, name) for name in (
+        "_body", "_capture", "_note_compile", "warmup")}
+    audit = AdmissionAudit()
+    local = threading.local()
+
+    def memory():
+        if not on_card:
+            return None
+        return {"allocated": torch.cuda.memory_allocated(),
+                "reserved": torch.cuda.memory_reserved()}
+
+    def body(self, stage, key):
+        fn = real["_body"](self, stage, key)
+
+        def run():
+            if not getattr(local, "capturing", False):
+                audit.eager[stage] = audit.eager.get(stage, 0) + 1
+            return fn()
+        return run
+
+    def capture(self, fn):
+        local.capturing = True
+        try:
+            return real["_capture"](self, fn)
+        finally:
+            local.capturing = False
+
+    def note_compile(self, stage, key):
+        audit.built.append({"tier": self.tier.name,
+                            "stage": _stage_name(stage, key), "key": key,
+                            "after_warmup": id(self) in audit.warmed})
+        return real["_note_compile"](self, stage, key)
+
+    def warmup(self):
+        before = memory()
+        real["warmup"](self)
+        audit.warmed.add(id(self))
+        audit.warmup.append({"tier": self.tier.name,
+                             "model": self.tier.model_preset,
+                             "before": before, "after": memory(),
+                             "programs": len(self._programs)})
+
+    patched = {"_body": body, "_capture": capture,
+               "_note_compile": note_compile, "warmup": warmup}
+    for name, fn in patched.items():
+        setattr(cls, name, fn)
+    try:
+        yield audit
+    finally:
+        for name, fn in real.items():
+            setattr(cls, name, fn)
+
+
 def reset_counts() -> None:
     """Every kernel's launch count (the bf16 chunk kernel's by route too)
     and every plain version's call count (the int8 suffix chunk's too) set
     to 0, just before a main path."""
-    from distributed_llm_tpu_torch.ops import attention as TA
     from distributed_llm_tpu_torch.ops import flash_attention as TF
+    from distributed_llm_tpu_torch.ops import launches
     for fn in kernel_wrappers().values():
         fn.launches = 0
     TF.flash_chunk_attention.route_launches = {"split": 0, "tc": 0}
-    for fn in plain_versions() + (TA._dequant_chunk_paged,):
+    for fn in launches.plain_paths().values():
         fn.calls = 0
 
 
@@ -1701,8 +1823,10 @@ def serve_phase(torch, tier, *, lengths, expect, repeat=False, sampled=False,
     from distributed_llm_tpu_torch.ops import attention as TA
 
     on_card = device == "cuda"
-    with served(torch, tier, device) as (engine, base, startup_s):
+    with admission_audit(torch, on_card) as audit, \
+            served(torch, tier, device) as (engine, base, startup_s):
         reset_counts()
+        audit.mark()
         spec0 = engine.spec_stats()
         t_main = time.perf_counter()
         drove = drive(base, long_words=420, lengths=lengths, repeat=repeat,
@@ -1716,6 +1840,7 @@ def serve_phase(torch, tier, *, lengths, expect, repeat=False, sampled=False,
             drove["requests"] += 1
         main_s = time.perf_counter() - t_main
         launches, plain_calls = read_counts(expect, on_card)
+        admission = audit.main_path(on_card)
         int8_chunk_calls = TA._dequant_chunk_paged.calls
         spec = engine.spec_stats()
         drafted = spec["drafted_total"] - spec0["drafted_total"]
@@ -1736,6 +1861,8 @@ def serve_phase(torch, tier, *, lengths, expect, repeat=False, sampled=False,
             "verify_check": verify_check(torch, engine) if engine.spec else None,
             "decode_step": paged_step_breakdown(torch, engine) if on_card else None,
             "tick_graph_check": tick_graph_check(torch, engine),
+            "prefill_graph_check": prefill_graph_check(torch, engine),
+            "admission": dict(admission, warmup_memory=audit.warmup),
             "verify_step": (verify_step_breakdown(torch, engine)
                             if on_card and engine.spec else None),
             "peak_memory_gb": peak_memory_gb(torch, on_card)})
@@ -1843,6 +1970,114 @@ def tick_graph_check(torch, engine) -> dict:
                         "tick_replay_wall_ms": wall_ms, "steps": steps})
             res["step_replay_ms"] = res["tick_replay_ms"] / steps
     return res
+
+
+# The admission programs' pool rows, replayed against their bodies run
+# eagerly on the same inputs: the same kernels on the same bytes, so 0 is
+# expected; the bound is one bf16 rounding step of the rows' largest
+# magnitude (int8 values: one step).
+ROW_ULP = 2.0 ** -8
+
+
+def prefill_graph_check(torch, engine) -> dict:
+    """Every admission program family of ``engine`` (the cold prefill of
+    its smallest bucket with its writer, the cold chunk family's second
+    chunk, the copy-on-write copy; each with the draft's twins on a
+    speculating engine) built anew (captured, on the card) with prompt A
+    staged, replayed with prompt B staged (another length, blocks, chunk
+    frontier and copy pair), and its bodies run eagerly with B staged.
+    The first tokens must be equal and the pool rows the family wrote
+    within ROW_ULP of the eager ones (their max abs diff printed); the
+    copy must have copied B's source block.  The pools and the engine's
+    own programs are restored after each run."""
+    from distributed_llm_tpu_torch.engine.batching import TickProgram
+
+    bs = engine.paged.block_size
+    bucket = engine._buckets[0]
+    width = (engine.chunk_tokens if engine._chunk_gate(engine._buckets[-1])
+             else engine._reuse_buckets[-1])
+    start = width
+    window = next(w for w in engine._chunk_windows if w >= start + width)
+    nb = -(-(start + width) // bs)
+    spare = engine.allocator.alloc(2 * nb)
+    require(spare is not None, "no spare blocks for the prefill check")
+    pools = [engine.pool] + ([engine.pool_d] if engine.spec else [])
+    live = [{k: v.clone() for k, v in p.items()} for p in pools]
+
+    def restore():
+        for pool, saved in zip(pools, live):
+            for k in pool:
+                pool[k].copy_(saved[k])
+
+    def rows(blocks):
+        ix = torch.tensor(blocks, device=engine.device)
+        return [p[name].index_select(2, ix) for p in pools
+                for name in sorted(p)]
+
+    reqs = []
+    for i, (n_prompt, extra) in enumerate(((bucket * 5 // 8, width // 3),
+                                           (bucket - 3, width - 5))):
+        ids = engine.tokenizer.encode("explain " + words(2 * start, 5 * i))
+        require(len(ids) >= start + extra, "the check's prompt is too short")
+        reqs.append({"ids": ids, "n_prompt": n_prompt, "n": start + extra,
+                     "blocks": spare[i * nb:(i + 1) * nb]})
+    families = {
+        "prefill": (
+            lambda r: engine._prefill_first(r["ids"][:r["n_prompt"]], bucket,
+                                            0.0, r["blocks"]),
+            lambda r: r["blocks"][:bucket // bs]),
+        "chunk": (
+            lambda r: engine._chunk_first(r["ids"][start:r["n"]], width,
+                                          start, r["n"], r["blocks"],
+                                          window, 0.0, draft=engine.spec),
+            lambda r: r["blocks"][start // bs:]),
+        "cow": (
+            lambda r: engine._cow_copy(r["blocks"][0], r["blocks"][1]),
+            lambda r: [r["blocks"][1]])}
+    programs, make = engine._programs, engine._make_program
+    engine._note_compile = lambda stage, key: None
+    out = {"bucket": bucket, "chunk": [width, window, start],
+           "graph": engine.device.type == "cuda",
+           "bound": f"|replay - eager| <= {ROW_ULP:g} x max|eager| "
+                    "(int8 values: 1)"}
+    try:
+        for name, (run, written) in families.items():
+            a, b = reqs
+            engine._programs = {}
+            run(a)                       # built with A's inputs staged
+            keys = sorted(map(str, engine._programs))
+            restore()
+            got = run(b)                 # the same programs, B's inputs
+            got_rows = rows(written(b))
+            if name == "cow":
+                src = rows([b["blocks"][0]])
+                require(all(torch.equal(g, s) for g, s in zip(got_rows, src)),
+                        f"{engine.tier.name}: the copy-on-write program "
+                        "did not copy B's source block")
+            restore()
+            engine._programs, engine._make_program = {}, TickProgram
+            want = run(b)                # the bodies, run eagerly
+            want_rows = rows(written(b))
+            restore()
+            engine._make_program = make
+            require(got == want, f"{engine.tier.name}: the {name} programs "
+                    f"replayed for B gave {got}, their bodies {want}")
+            diff, ok = 0.0, True
+            for g, w in zip(got_rows, want_rows):
+                d = (g.float() - w.float()).abs().max().item()
+                lim = (1.0 if w.dtype == torch.int8
+                       else ROW_ULP * w.float().abs().max().item())
+                diff, ok = max(diff, d), ok and d <= lim
+            require(ok, f"{engine.tier.name}: the {name} programs' pool rows "
+                    f"are {diff} from their bodies'")
+            out[name] = {"programs": keys, "first": got,
+                         "max_abs_diff": diff, "rows": len(written(b)) * bs}
+    finally:
+        engine._programs, engine._make_program = programs, make
+        del engine._note_compile
+        restore()
+        engine.allocator.free(spare)
+    return out
 
 
 def step_breakdown(torch, step, attn, layers: int) -> dict:
@@ -2532,9 +2767,9 @@ def _replayed(e, runtime) -> bool:
         0].startswith("cudaGraphLaunch")
 
 
-def _busiest_thread(runtime, call: str, exclude=None):
+def _busiest_thread(runtime, call, exclude=None):
     """The trace's thread id that made the most runtime calls named
-    ``call`` (besides ``exclude``)."""
+    ``call`` (a name's start, or a tuple of them) besides ``exclude``."""
     counts: dict = {}
     for name, tid in runtime.values():
         if name.startswith(call) and tid != exclude:
@@ -2668,10 +2903,12 @@ def per_kernel_capture(torch, router, out_dir: str) -> dict:
         os.path.join(out_dir, "nano_chunks"))
     w0, w1, device, runtime = _window_events(trace)
     kernels = [e for e in device if e["cat"] == "kernel"]
-    # The other thread launching kernels one by one is nano's.
-    tiers = {orin_tid: "orin",
-             _busiest_thread(runtime, "cudaLaunchKernel",
-                             exclude=orin_tid): "nano"}
+    # The other thread launching kernels (its chunks replay graphs) is
+    # nano's.
+    nano_tid = _busiest_thread(runtime, ("cudaGraphLaunch",
+                                         "cudaLaunchKernel"),
+                               exclude=orin_tid)
+    tiers = {orin_tid: "orin", nano_tid: "nano"}
     by_tier = {"nano": [], "orin": []}
     for e in kernels:
         tier = _launcher(e, runtime, tiers)
@@ -2689,6 +2926,15 @@ def per_kernel_capture(torch, router, out_dir: str) -> dict:
     require(chunks, "nano's long prompt took no chunked prefill")
     per_chunk = [((b - a) / 1e3, _union_ms(_clip(own_k, a, b)),
                   _union_ms(_clip(other_k, a, b))) for a, b in chunks]
+    # The launches each chunk made from nano's thread: graph replays and
+    # kernels launched one by one.
+    calls = [e for e in trace if e.get("cat") == "cuda_runtime"
+             and e.get("tid") == nano_tid]
+    launches_per_chunk = [
+        {kind: sum(1 for e in calls if a <= e["ts"] < b
+                   and e["name"].startswith(kind))
+         for kind in ("cudaGraphLaunch", "cudaLaunchKernel")}
+        for a, b in chunks]
     wall, own, behind = (sum(c[i] for c in per_chunk) for i in range(3))
     res["nano_chunk"] = {"chunks": len(chunks), "wall_ms": wall,
                          "own_device_ms": own, "behind_orin_ms": behind,
@@ -2697,6 +2943,7 @@ def per_kernel_capture(torch, router, out_dir: str) -> dict:
                          / max(1, len(kernels)),
                          "per_chunk_wall_own_behind_ms": [
                              [round(x, 3) for x in c] for c in per_chunk],
+                         "launches_per_chunk": launches_per_chunk,
                          "window": kernel_table(device, w0, w1)}
     res["runtime_calls"] = len(runtime)
     return res
@@ -2828,29 +3075,33 @@ def chat_phase(torch, cluster, *, burst: int = len(CHAT_QUERIES),
 
     on_card = device == "cuda"
     fresh_peak(torch, on_card)
-    t0 = time.perf_counter()
-    router = Router(strategy="hybrid", config=dict(BASE_CONFIG),
-                    cluster=cluster, device=device,
-                    observability=Observability(slow_ms=0.0))
-    for tier in router.tiers.values():
-        tier.server_manager.start_server()      # build + warm
-    startup_s = time.perf_counter() - t0
-    try:
-        with http_served(create_app(router=router)) as base:
-            return chat_traffic(torch, router, cluster, base, burst, streams,
-                                expect, on_card, startup_s)
-    finally:
-        router.drain(timeout_s=30)
+    with admission_audit(torch, on_card) as audit:
+        t0 = time.perf_counter()
+        router = Router(strategy="hybrid", config=dict(BASE_CONFIG),
+                        cluster=cluster, device=device,
+                        observability=Observability(slow_ms=0.0))
+        for tier in router.tiers.values():
+            tier.server_manager.start_server()      # build + warm
+        startup_s = time.perf_counter() - t0
+        try:
+            with http_served(create_app(router=router)) as base:
+                return chat_traffic(torch, router, cluster, base, burst,
+                                    streams, expect, on_card, startup_s,
+                                    audit)
+        finally:
+            router.drain(timeout_s=30)
 
 
 def chat_traffic(torch, router, cluster, base: str, burst: int,
-                 streams: int, expect, on_card: bool, startup_s: float):
+                 streams: int, expect, on_card: bool, startup_s: float,
+                 audit: AdmissionAudit):
     """``chat_phase``'s main path and checks against the served app."""
     from distributed_llm_tpu_torch.ops import attention as TA
 
     with urllib.request.urlopen(base + "/health", timeout=30) as resp:
         require(resp.status == 200, "/health not ok")
     reset_counts()
+    audit.mark()
     t_main = time.perf_counter()
     by_strategy = {}
     for st in STRATEGIES:
@@ -2858,6 +3109,7 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
         by_strategy[st] = drive_chat(base, st, burst, streams)
     main_s = time.perf_counter() - t_main
     launches, plain_calls = read_counts(expect, on_card)
+    admission = audit.main_path(on_card)
     int8_chunk_calls = TA._dequant_chunk_paged.calls
     require(launches["ragged_decode"] == 0
             and launches["ragged_decode_q8"] == 0,
@@ -2892,6 +3144,9 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
                                for n, e in engines.items()},
         "tick_graph_check": {n: tick_graph_check(torch, e)
                              for n, e in engines.items()},
+        "prefill_graph_check": {n: prefill_graph_check(torch, e)
+                                for n, e in engines.items()},
+        "admission": dict(admission, warmup_memory=audit.warmup),
         "routing_device_check": routing_device_check(
             "cuda" if on_card else "cpu"),
         "peak_memory_gb": peak_memory_gb(torch, on_card)}
@@ -2944,7 +3199,8 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
     per_query_csv = os.path.join(out_dir, "bench_tester_per_query.csv")
     reset_counts()
     t0 = time.perf_counter()
-    with open(os.path.join(out_dir, "bench_stdout.txt"), "w") as out, \
+    with admission_audit(torch, on_card) as audit, \
+            open(os.path.join(out_dir, "bench_stdout.txt"), "w") as out, \
             contextlib.redirect_stdout(out):
         result = headline.run(
             device, repeats=1, clients=4,
@@ -2958,6 +3214,7 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
                      "--output-per-query-csv", per_query_csv])
     wall_s = time.perf_counter() - t0
     launches, _ = read_counts(expect, on_card)
+    admission = audit.main_path(on_card)
 
     per = result["per_strategy"]
     require(set(per) == set(headline.STRATEGIES),
@@ -3040,6 +3297,7 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "orin_prefix": result["orin_prefix"],
         "continuous_batching": result["continuous_batching"],
         "tester_summary": summary,
+        "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
 
 
@@ -3203,8 +3461,8 @@ def main() -> None:
             "model", "engine", "draft", "kv_quantize", "requests",
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
             "chunked_ttft_ms", "flash_chunk_routes", "tick_stats", "spec",
-            "decode_step", "tick_graph_check",
-            "verify_step",
+            "decode_step", "tick_graph_check", "prefill_graph_check",
+            "admission", "verify_step",
             "decode_logits_check", "verify_check", "peak_memory_gb")
             if k in serve}
         summary[name]["concurrent"] = {
@@ -3222,6 +3480,8 @@ def main() -> None:
         "int8_chunk_calls": chat["int8_chunk_calls"],
         "tiers": chat["tiers"],
         "tick_graph_check": chat["tick_graph_check"],
+        "prefill_graph_check": chat["prefill_graph_check"],
+        "admission": chat["admission"],
         "dense_logits_check": chat["dense_logits_check"],
         "routing_device_check": chat["routing_device_check"],
         "peak_memory_gb": chat["peak_memory_gb"]}}))
@@ -3253,7 +3513,8 @@ def main() -> None:
             "trace_p50_tbt_ms")} for st, v in bench["per_strategy"].items()},
         "profile": {k: bench["profile"].get(k) for k in (
             "coverage", "attribution_ratio", "trace_events", "requests",
-            "trace_schema_ok")}}}))
+            "trace_schema_ok")},
+        "admission": bench["admission"]}}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

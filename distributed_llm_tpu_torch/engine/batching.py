@@ -35,34 +35,50 @@ A scheduler thread runs in front of the paged KV pool
 - ``generate()`` blocks on a per-request event while its tokens stream
   out of the shared loop; ``generate_stream()`` yields text deltas.
 
-A tick's device work is one **tick program** (``TickProgram``), as the
-JAX engine compiles one: the ragged tick is one program, the dense tick
-one per window rung ``wb`` (JAX's ``("decode", (wb, tp))``), the
-speculative round one per γ bucket (draft steps, verify, acceptance and
-the emitted tokens; JAX's draft and verify pair).  On the card each is
-captured once as a CUDA graph and replayed every tick; on the CPU, which
-has no graphs, the same body runs directly, so the CPU tests run exactly
-the code that is captured.  There is no eager tick on the card: a
-capture or replay that fails fails the tick's slots, as a failed launch
-does.  The programs read static inputs: device buffers allocated once
-for the engine's life (positions, tokens, temperatures, γ caps and the
-[B, MB] block table, each dense rung a column view of it), filled by
-``copy_`` from host arrays (pinned on the card) before every tick; the
-table is copied only after a row changed, in place.  Each new program
-is recorded by ``_note_compile(stage, key)`` (a log line and the
-per-stage key sets in ``tick_stats()["compiled"]``).  ``warmup`` captures
-what the JAX engine's compiles: the warm request's program, the dense
-tick's second rung and every γ bucket; deeper rungs are captured on
-first use.  A program always draws its sampling noise, greedy slots
-included (``sample_batched`` keeps their argmax), as JAX's single
-compiled tick does: one program per rung, not one per (rung, sampled),
-and greedy tokens are the same either way.  Kernel launch counts count
-replays (``TickProgram``).
+Every device stage is a **program** (``TickProgram``), as the JAX engine
+compiles one, keyed as JAX keys it.  A tick: the ragged tick is one
+program, the dense tick one per window rung ``wb`` (JAX's
+``("decode", (wb, tp))``), the speculative round one per γ bucket (draft
+steps, verify, acceptance and the emitted tokens; JAX's draft and verify
+pair).  An admission: the cold prefill per bucket (``"prefill"``: the
+forward and the first token), its writer per block count
+(``"writer"``: the K/V paged into the slot's blocks), the chunk per
+(width, window) (``"chunk_prefill"``: a prefix hit's suffix and each
+chunk of a long cold prompt), the copy-on-write copies (``"writer"``'s
+``"cow_copy"`` and ``"cow_copy_draft"``) and the draft's prefill,
+writer and chunk (``"draft"``).  On the card each is captured once as a
+CUDA graph and replayed; on the CPU, which has no graphs, the same body
+runs directly, so the CPU tests run exactly the code that is captured.
+Nothing runs eagerly on the card: a capture or replay that fails fails
+the tick's slots, or the admission, as a failed launch does.  The
+programs read static inputs: device buffers allocated once for the
+engine's life, filled by ``copy_`` from host arrays (pinned on the card)
+before the program runs: a tick's positions, tokens, temperatures, γ caps
+and the [B, MB] block table (each dense rung a column view of it; the
+table copied only after a row changed, in place); an admission's padded
+tokens, start, true length, temperature, table row, block ids and
+copy-on-write pair.  Every per-request value a program reads is such a
+buffer (the first token's row is gathered on the device from the true
+length), never a Python value a capture would freeze.  A writer reads its
+prefill program's output in place.  The first token reaches the host in
+the admission's one sync.  Each new program is recorded by
+``_note_compile(stage, key)`` (a log line and the per-stage key sets in
+``tick_stats()["compiled"]``).  ``warmup`` captures what the JAX
+engine's compiles: the warm request's programs, the dense tick's second
+rung, every γ bucket, the copy-on-write copies and every chunk program a
+prefix hit or a long prompt can take; deeper rungs and the other prefill
+buckets are captured on first use.  A program always draws its sampling
+noise, greedy requests included (``sample_batched`` keeps their argmax),
+as JAX's compiled programs do: one program per rung or bucket, not one
+per (rung, sampled), and greedy tokens are the same either way.  Kernel
+launch counts count replays (``TickProgram``).
 
 Each scheduler pass is also recorded by the engine's tick-phase profiler
 (``self.profiler``, obs/profiler.py; ``profile=False`` gives the
 zero-cost null profiler), at the JAX engine's phases: ``admit`` (an
-admission, with ``prefill`` and ``cow_copy`` nested in it),
+admission, with ``prefill`` and ``cow_copy`` nested in it, each holding
+its programs' inputs copied in, their captures when new and their
+replays),
 ``table_upload`` (the tick's static inputs copied in), ``decode`` (a
 plain tick's program, its capture when it is new, and its pull),
 ``verify`` (a speculative round: one replayed program where the JAX
@@ -70,8 +86,10 @@ engine stamps a ``draft`` and a ``verify`` phase), ``emit`` (the tick's
 host work after its pull: its accounting, below, and the token fan-out;
 the JAX engine leaves the accounting unstamped) and ``chunk_prefill``.
 A capture is the port's compile: it stamps the ``compile`` event and
-lands inside the tick's phase, as a JAX compile does.  Each decode
-tick's time is split evenly over the slots it served and charged to
+lands inside the phase that paid for it (the tick's, or the admission's
+``prefill``, ``chunk_prefill`` or ``cow_copy``), as a JAX compile does.
+Each decode tick's time is split evenly over the slots it served and
+charged to
 their requests' traces (``spans.charge``), with the KV blocks each holds
 (a shared block at 1/refcount).  Warmup's own ticks serve no request and
 are not recorded.  The requests' span trees get the JAX engine's spans
@@ -86,9 +104,10 @@ accounts for it (``utils/roofline.py``; the decode span is the active
 kernel's, ``ops.attention.decode_kv_span``).  A phase closes after the
 host sync the engine already makes there (the first token's read, the
 tick's ``_fetch_tick``), so on the card its wall time covers the device
-work it launched; a tick's phase wraps the replay, never a capture.  A
-speculative round is one "decode" phase where the JAX engine times its
-draft and its verify apart.
+work it launched; a tick's phase wraps the replay, never a capture (an
+admission's holds its programs' captures when they are new, as the JAX
+engine's holds their compiles).  A speculative round is one "decode"
+phase where the JAX engine times its draft and its verify apart.
 
 Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
 tenant quotas (and their γ caps), crash capture/adopt, tensor
@@ -182,32 +201,40 @@ def _capturing(graph, pool, stream):
 
 
 class TickProgram:
-    """One tick's device work, ``body()`` -> its output tensor.  Without
-    a ``graph`` (the CPU) ``run()`` calls the body.  With one, the body is
+    """One device stage (a tick, or a stage of an admission), ``body()``
+    -> its output (a tensor, a tuple of them, or None).  Without a
+    ``graph`` (the CPU) ``run()`` calls the body.  With one, the body is
     captured once inside ``capture(graph)`` (a context manager) and
     ``run()`` replays it and returns the static output the capture
-    allocated.  The kernel launches the capture counted are taken back (a
-    capture runs nothing) and added again at every replay, so the
-    wrappers' counts count launches on the card."""
+    allocated.  Either way ``out`` holds the last run's output, which a
+    later stage may read in place.  The kernel launches (and the plain
+    paths' calls) the capture counted are taken back (a capture runs
+    nothing) and added again at every replay, so the counts count what
+    ran on the card."""
 
-    def __init__(self, body: Callable[[], torch.Tensor], graph=None,
+    def __init__(self, body: Callable[[], Any], graph=None,
                  capture: Optional[Callable] = None):
         self.body = body
         self.graph = graph
-        self.out: Optional[torch.Tensor] = None
+        self.out: Any = None
         self.launch_deltas: Dict[str, int] = {}
+        self.call_deltas: Dict[str, int] = {}
         if graph is not None:
-            before = launches.counts()
+            before, calls = launches.counts(), launches.call_counts()
             with capture(graph):
                 self.out = body()
             self.launch_deltas = launches.since(before)
+            self.call_deltas = launches.since(calls, launches.call_counts())
             launches.add(self.launch_deltas, -1)
+            launches.add_calls(self.call_deltas, -1)
 
-    def run(self) -> torch.Tensor:
+    def run(self) -> Any:
         if self.graph is None:
-            return self.body()
+            self.out = self.body()
+            return self.out
         self.graph.replay()
         launches.add(self.launch_deltas)
+        launches.add_calls(self.call_deltas)
         return self.out
 
 
@@ -393,14 +420,39 @@ class ContinuousBatchingEngine:
         ((self._pos, self._pos_dev), (self._cur, self._cur_dev),
          (self._temps, self._temps_dev), (self._caps, self._caps_dev)) = (
             (host.numpy(), dev) for host, dev in self._staged)
-        # Tick programs by (stage, key), and the keys _note_compile saw.
+        # The admission programs' static inputs, likewise: the padded
+        # tokens (each program reads a [1, width] view of one [1, W]
+        # buffer), the chunk's start, the prompt's true length and the
+        # temperature ([1] each), the slot's table row [MB], the block ids
+        # a writer pages into (an [nb] view) and the copy-on-write source
+        # and destination ([1] views of one [2]).  An admission stage
+        # copies in what it reads (``_stage_admission``).
+        width = max(min(max(tier.prefill_buckets), self.cfg.max_seq_len),
+                    self.chunk_tokens)
+        self._adm = {name: self._static(shape, dtype) for name, shape, dtype
+                     in (("tokens", (1, width), torch.int64),
+                         ("start", (1,), torch.int32),
+                         ("true_len", (1,), torch.int32),
+                         ("temp", (1,), torch.float32),
+                         ("row", (mb,), torch.int32),
+                         ("blocks", (-(-width // self.paged.block_size),),
+                          torch.int64),
+                         ("cow", (2,), torch.int64))}
+        self._adm_dev = {name: dev for name, (_, dev) in self._adm.items()}
+        # Programs by (stage, key), and the keys _note_compile saw.
         self._programs: Dict[tuple, TickProgram] = {}
         self._compiled: Dict[str, set] = {}
+        self._make_program: Callable[[Callable], TickProgram] = TickProgram
+        self._adm_copied = None
         if self.device.type == "cuda":
             # The engine's graphs share one memory pool: they never run
             # at once.
             self._capture_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
+            self._make_program = self._capture
+            # Marks when the last admission copies have read their pinned
+            # host arrays (which the next staging then may rewrite).
+            self._adm_copied = torch.cuda.Event()
         self._slots: List[Optional[_Slot]] = [None] * b
         self._buckets = sorted(set(
             bb for bb in tier.prefill_buckets if bb <= self.cfg.max_seq_len))
@@ -481,55 +533,168 @@ class ContinuousBatchingEngine:
         for host, dev in self._staged:
             dev.copy_(host, non_blocking=True)
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(arr)).to(self.device, non_blocking=True)
+    def _stage_admission(self, *, tokens: Optional[Sequence[int]] = None,
+                         width: int = 0, start: int = 0, true_len: int = 0,
+                         temp: float = 0.0,
+                         row: Optional[np.ndarray] = None,
+                         blocks: Optional[Sequence[int]] = None,
+                         cow: Optional[Sequence[int]] = None) -> None:
+        """Write an admission stage's inputs into the host arrays and copy
+        them into the programs' device buffers, in place: ``tokens``
+        right-padded to ``width`` with ``start``, ``true_len`` and
+        ``temp`` (a prefill or a chunk), the table ``row`` (a chunk), the
+        writer's ``blocks``, the copy-on-write pair ``cow``.  The host
+        arrays are rewritten only once the previous stage's copies have
+        read them."""
+        if self._adm_copied is not None:
+            self._adm_copied.synchronize()
+        host = {name: h.numpy() for name, (h, _) in self._adm.items()}
+        staged = []
+        if tokens is not None:
+            host["tokens"][0, :width] = self.tokenizer.pad_id
+            host["tokens"][0, :len(tokens)] = tokens
+            host["start"][0], host["true_len"][0] = start, true_len
+            host["temp"][0] = temp
+            staged += [("tokens", width), ("start", 1), ("true_len", 1),
+                       ("temp", 1)]
+        if row is not None:
+            host["row"][:] = row
+            staged.append(("row", len(row)))
+        if blocks is not None:
+            host["blocks"][:len(blocks)] = blocks
+            staged.append(("blocks", len(blocks)))
+        if cow is not None:
+            host["cow"][:] = cow
+            staged.append(("cow", 2))
+        for name, n in staged:
+            h, dev = self._adm[name]
+            dev[..., :n].copy_(h[..., :n], non_blocking=True)
+        if self._adm_copied is not None:
+            self._adm_copied.record()
 
-    def _temp_tensor(self, temp: float) -> torch.Tensor:
-        return torch.tensor([temp], dtype=torch.float32, device=self.device)
+    def _prefill_body(self, bucket: int,
+                      draft: bool = False) -> Callable[[], tuple]:
+        """A cold prefill of one bucket on the static tokens (JAX's
+        ``"prefill"`` program, the draft's ``("prefill", bucket)``): ->
+        (first [1], k_all, v_all [L, bucket, N_kv, D]), the first token
+        sampled from the row of position ``true_len - 1``, gathered on the
+        device (noise is drawn for a greedy prompt too: one program per
+        bucket); the draft's -> (k_all, v_all), its K/V only."""
+        cfg, model = ((self.cfg_d, self.model_d) if draft
+                      else (self.cfg, self.model))
+        tokens = self._adm_dev["tokens"][:, :bucket]
+        true_len, temp = self._adm_dev["true_len"], self._adm_dev["temp"]
+        positions = torch.arange(bucket, device=self.device)[None]
 
-    def _sampler(self, temps: Sequence[float]) -> Optional[torch.Generator]:
-        return self._gen if any(t > 0 for t in temps) else None
+        def body() -> tuple:
+            hidden, (k_all, v_all) = transformer.prefill(cfg, model, tokens,
+                                                         positions)
+            if draft:
+                return k_all[:, 0], v_all[:, 0]
+            last = hidden.index_select(1, true_len.long() - 1)[:, 0]
+            logits = transformer.logits_from_hidden(model, last)
+            return (sample_batched(logits, temp, self._gen), k_all[:, 0],
+                    v_all[:, 0])
 
-    def _prefill_first(self, tok: torch.Tensor, n: int, temp: float):
-        """Cold prefill of one bucket (``tok`` [1, S] on the device):
-        returns (first token tensor, k_all, v_all [L, S, N_kv, D])."""
-        positions = torch.arange(tok.shape[1], device=self.device)[None]
-        hidden, (k_all, v_all) = transformer.prefill(self.cfg, self.model,
-                                                     tok, positions)
-        logits = transformer.logits_from_hidden(self.model, hidden[:, n - 1])
-        first = sample_batched(logits, self._temp_tensor(temp),
-                               self._sampler([temp]))[0]
-        return first, k_all[:, 0], v_all[:, 0]
+        return body
 
-    def _draft_prefill(self, tok: torch.Tensor, blocks: torch.Tensor) -> None:
-        """Seed the draft pool with a cold prompt's K/V: the draft's own
-        prefill of the same bucket, paged into the same blocks."""
-        positions = torch.arange(tok.shape[1], device=self.device)[None]
-        _, (k_all, v_all) = transformer.prefill(self.cfg_d, self.model_d,
-                                                tok, positions)
-        write_prefill_blocks(self.pool_d, blocks, k_all[:, 0], v_all[:, 0])
+    def _writer_body(self, nb: int, draft: bool = False) -> Callable[[], None]:
+        """Page a cold prefill into its blocks (JAX's ``"writer"`` program
+        ``nb``, the draft's ``("writer", nb)``): the K/V of the prefill
+        program of bucket ``nb * bs``, read in place from its output,
+        scattered into the static block ids [nb]."""
+        bucket = nb * self.paged.block_size
+        src = self._programs[("draft", ("prefill", bucket)) if draft
+                             else ("prefill", bucket)]
+        pool = self.pool_d if draft else self.pool
+        blocks = self._adm_dev["blocks"][:nb]
 
-    def _chunk_first(self, tokens: np.ndarray, start: int, true_len: int,
-                     row: np.ndarray, window: int, temp: float,
-                     draft: bool = False):
-        """Chunk-prefill into the pool (in place) and sample from the row
-        of position ``true_len - 1`` (meaningful for the final chunk).
-        ``draft`` also writes the chunk's draft K/V into the draft pool
-        (a prefix hit's suffix, so the slot can speculate)."""
-        args = (self._to_device(tokens.astype(np.int64)),
-                self._to_device(np.array([start], np.int32)),
-                self._to_device(np.array([true_len], np.int32)))
-        table = self._to_device(row)
-        hidden = chunk_prefill_paged(self.cfg, self.model, *args, self.pool,
-                                     table, window)
+        def body() -> None:
+            k_all, v_all = src.out[-2:]
+            write_prefill_blocks(pool, blocks, k_all, v_all)
+
+        return body
+
+    def _chunk_body(self, width: int, window: int,
+                    draft: bool = False) -> Callable[[], Any]:
+        """A prompt chunk of ``width`` tokens prefilled into the pool (in
+        place) through the static table row, its attention over the
+        first ``window`` positions (JAX's ``"chunk_prefill"`` program
+        ``(width, window)``, the draft's ``("chunk", width, window)``): ->
+        first [1], sampled from the row of position ``true_len - 1``
+        (clamped into the chunk: meaningful for a final chunk), gathered
+        on the device; the draft's writes its K/V only -> None."""
+        cfg, model, pool = ((self.cfg_d, self.model_d, self.pool_d) if draft
+                            else (self.cfg, self.model, self.pool))
+        tokens = self._adm_dev["tokens"][:, :width]
+        start, true_len, temp, row = (self._adm_dev[k] for k in (
+            "start", "true_len", "temp", "row"))
+
+        def body() -> Any:
+            hidden = chunk_prefill_paged(cfg, model, tokens, start, true_len,
+                                         pool, row, window)
+            if draft:
+                return None
+            last = torch.clamp(true_len - start - 1, 0, width - 1).long()
+            logits = transformer.logits_from_hidden(
+                model, hidden.index_select(1, last)[:, 0])
+            return sample_batched(logits, temp, self._gen)
+
+        return body
+
+    def _cow_body(self, draft: bool = False) -> Callable[[], None]:
+        """The copy-on-write copy of one block (JAX's ``"writer"`` programs
+        ``"cow_copy"`` and ``"cow_copy_draft"``), its source and
+        destination read from the static pair."""
+        pool = self.pool_d if draft else self.pool
+        src, dst = self._adm_dev["cow"][:1], self._adm_dev["cow"][1:]
+
+        def body() -> None:
+            copy_block(pool, src, dst)
+
+        return body
+
+    def _prefill_first(self, ids: Sequence[int], bucket: int, temp: float,
+                       blocks: List[int]) -> int:
+        """A cold prompt's admission: the ``"prefill"`` program of its
+        bucket, the ``"writer"`` paging its K/V into ``blocks``, and with a
+        draft the draft's prefill and writer (the draft pool seeded from
+        the same tokens into the same blocks).  Returns the first token:
+        the admission's one sync."""
+        nb = bucket // self.paged.block_size
+        self._stage_admission(tokens=ids, width=bucket, true_len=len(ids),
+                              temp=temp, blocks=blocks[:nb])
+        first = self._built("prefill", bucket).run()[0]
+        self._built("writer", nb).run()
+        if self.spec:
+            self._built("draft", ("prefill", bucket)).run()
+            self._built("draft", ("writer", nb)).run()
+        return int(first)
+
+    def _chunk_first(self, tokens: Sequence[int], width: int, start: int,
+                     true_len: int, blocks: List[int], window: int,
+                     temp: float, draft: bool = False) -> int:
+        """One chunk's ``"chunk_prefill"`` program over ``blocks``' table
+        row and, with ``draft``, its draft twin (a prefix hit's suffix, so
+        the slot can speculate).  Returns the token sampled from position
+        ``true_len - 1`` (meaningful for the final chunk): the chunk's one
+        sync."""
+        self._stage_admission(tokens=tokens, width=width, start=start,
+                              true_len=true_len, temp=temp,
+                              row=self._table_row(blocks))
+        first = self._built("chunk_prefill", (width, window)).run()
         if draft:
-            chunk_prefill_paged(self.cfg_d, self.model_d, *args, self.pool_d,
-                                table, window)
-        last = min(max(true_len - start - 1, 0), tokens.shape[1] - 1)
-        logits = transformer.logits_from_hidden(self.model,
-                                                hidden[:, last])
-        return sample_batched(logits, self._temp_tensor(temp),
-                              self._sampler([temp]))[0]
+            self._built("draft", ("chunk", width, window)).run()
+        return int(first)
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy block ``src`` to ``dst`` in the pool and, with a draft, in
+        the draft's pool too (it attends the same tables): the
+        ``"cow_copy"`` program and its draft twin."""
+        self._stage_admission(cow=(src, dst))
+        self._built("writer", "cow_copy").run()
+        if self.spec:
+            self._built("writer", "cow_copy_draft").run()
 
     def _tick_rung(self) -> int:
         """The plain tick's table width in blocks.  Ragged: the full row.
@@ -613,13 +778,17 @@ class ContinuousBatchingEngine:
 
         return body
 
-    def _note_compile(self, stage: str, key: int) -> None:
-        """Record a NEW tick program for ``stage`` (``"decode"``: the table
-        width wb, the ragged tick's being MB; ``"spec"``: the γ bucket)
-        and log it: warmup's captures must be visible, and one mid-serve
-        stalls every active slot.  The profiler's timeline gets a
-        ``compile`` event and the ``dllm_compiled_programs`` gauge the
-        stage's count."""
+    def _note_compile(self, stage: str, key) -> None:
+        """Record a NEW program for ``stage``, keyed as the JAX engine keys
+        its compiled ones (``"decode"``: the table width wb, the ragged
+        tick's being MB; ``"spec"``: the γ bucket; ``"prefill"``: the
+        bucket; ``"chunk_prefill"``: (width, window); ``"writer"``: the
+        block count, ``"cow_copy"`` and ``"cow_copy_draft"``;
+        ``"draft"``: ``("prefill", bucket)``, ``("writer", nb)`` and
+        ``("chunk", width, window)``), and log it: warmup's captures must
+        be visible, and one mid-serve stalls every active slot.  The
+        profiler's timeline gets a ``compile`` event and the
+        ``dllm_compiled_programs`` gauge the stage's count."""
         seen = self._compiled.setdefault(stage, set())
         seen.add(key)
         self.profiler.event("compile", stage=stage, key=str(key))
@@ -652,16 +821,32 @@ class ContinuousBatchingEngine:
         self._stage()
         return self._built(stage, key)
 
-    def _built(self, stage: str, key: int) -> TickProgram:
-        """The tick program for (``stage``, ``key``), built (captured, on
-        the card) at first use."""
+    def _body(self, stage: str, key) -> Callable[[], Any]:
+        """The body of the program (``stage``, ``key``)."""
+        if stage == "decode":
+            return self._decode_body(key)
+        if stage == "spec":
+            return self._spec_body(key)
+        if stage == "prefill":
+            return self._prefill_body(key)
+        if stage == "chunk_prefill":
+            return self._chunk_body(*key)
+        if stage == "writer":
+            if key in ("cow_copy", "cow_copy_draft"):
+                return self._cow_body(draft=key == "cow_copy_draft")
+            return self._writer_body(key)
+        kind, *args = key                    # the draft's stages
+        return {"prefill": self._prefill_body, "writer": self._writer_body,
+                "chunk": self._chunk_body}[kind](*args, draft=True)
+
+    def _built(self, stage: str, key) -> TickProgram:
+        """The program for (``stage``, ``key``), built (captured, on the
+        card) at first use.  A capture that fails raises: the tick or
+        the admission fails with it."""
         prog = self._programs.get((stage, key))
         if prog is None:
             self._note_compile(stage, key)
-            body = (self._decode_body if stage == "decode"
-                    else self._spec_body)(key)
-            prog = (self._capture(body) if self.device.type == "cuda"
-                    else TickProgram(body))
+            prog = self._make_program(self._body(stage, key))
             self._programs[(stage, key)] = prog
         return prog
 
@@ -673,7 +858,7 @@ class ContinuousBatchingEngine:
             return self.phases.phase("decode")
         return contextlib.nullcontext()
 
-    def _capture(self, body: Callable[[], torch.Tensor]) -> TickProgram:
+    def _capture(self, body: Callable[[], Any]) -> TickProgram:
         """``body`` as a CUDA graph on the engine's capture stream, after
         one run of it there (each kernel's module loads at its first
         launch, which a capture may not do).  That run writes what the
@@ -949,11 +1134,7 @@ class ContinuousBatchingEngine:
                     # The copy must land before the suffix writes, in both
                     # pools: the draft attends the same tables.
                     with self._stamp("cow_copy"):
-                        copy_block(self.pool, boundary_src, priv[0])
-                        if self.spec:
-                            copy_block(self.pool_d, boundary_src, priv[0])
-                tokens = np.full((1, sb), self.tokenizer.pad_id, np.int64)
-                tokens[0, :len(suffix)] = suffix
+                        self._cow_copy(boundary_src, priv[0])
                 window = next(w for w in self._chunk_windows if w >= m + sb)
                 # The draft writes its suffix K/V too; the parked prefix
                 # blocks keep whatever draft K/V their writers left (stale
@@ -962,10 +1143,8 @@ class ContinuousBatchingEngine:
                                     suffix_bucket=sb), \
                         self.phases.phase("prefill"), \
                         self._stamp("prefill"):
-                    first = int(self._chunk_first(tokens, m, n,
-                                                  self._table_row(owned),
-                                                  window, temp,
-                                                  draft=self.spec))
+                    first = self._chunk_first(suffix, sb, m, n, owned,
+                                              window, temp, draft=self.spec)
                 self.profiler.event("host_sync", site="prefill_first_token")
                 # sb suffix rows, their attention over the chunk window.
                 self.phases.add_work("prefill", **roofline.prefill_work(
@@ -988,22 +1167,12 @@ class ContinuousBatchingEngine:
             if blocks is None:
                 return False                 # KV pressure: stay queued
             try:
-                tokens = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
-                tokens[0, :n] = ids
                 with obs_spans.span(req.trace, "prefill", bucket=bucket), \
                         self.phases.phase("prefill"), \
                         self._stamp("prefill"):
-                    tok = self._to_device(tokens)
-                    first, k_all, v_all = self._prefill_first(tok, n, temp)
-                    nb_prefill = bucket // bs
-                    blk_dev = self._to_device(np.array(blocks[:nb_prefill],
-                                                       np.int64))
-                    write_prefill_blocks(self.pool, blk_dev, k_all, v_all)
-                    if self.spec:
-                        self._draft_prefill(tok, blk_dev)
                     # The first token must reach the host now (it seeds
                     # the slot): one sync per admission, never per tick.
-                    first = int(first)
+                    first = self._prefill_first(ids, bucket, temp, blocks)
                 self.profiler.event("host_sync", site="prefill_first_token")
                 self.phases.add_work("prefill", **roofline.prefill_work(
                     self.cfg, bucket, 0, wbytes=self._wbytes))
@@ -1066,8 +1235,6 @@ class ContinuousBatchingEngine:
                     pf.blocks.extend(extra)
                 window = next(w for w in self._chunk_windows if w >= end)
                 k = min(end, pf.total) - start
-                tokens = np.full((1, c), self.tokenizer.pad_id, np.int64)
-                tokens[0, :k] = pf.seq[start:start + k]
                 # The chunk is the budgeted stall unit; its token (used
                 # from the final chunk) reaches the host here.
                 t_chunk = time.perf_counter()
@@ -1075,9 +1242,9 @@ class ContinuousBatchingEngine:
                                     tokens=k, window=window), \
                         self.phases.phase("prefill"), \
                         self._stamp("chunk_prefill"):
-                    first = int(self._chunk_first(tokens, start, pf.total,
-                                                  self._table_row(pf.blocks),
-                                                  window, pf.temperature))
+                    first = self._chunk_first(pf.seq[start:start + k], c,
+                                              start, pf.total, pf.blocks,
+                                              window, pf.temperature)
                 get_observability().m.prefill_chunk_ms.labels(
                     self.tier.name).observe(
                         (time.perf_counter() - t_chunk) * 1000.0)
@@ -1172,8 +1339,7 @@ class ContinuousBatchingEngine:
                     break
                 try:
                     with self._stamp("cow_copy"):
-                        copy_block(self.pool, slot.blocks[i], fresh[0])
-                        copy_block(self.pool_d, slot.blocks[i], fresh[0])
+                        self._cow_copy(slot.blocks[i], fresh[0])
                 except BaseException:
                     self.allocator.free(fresh)
                     raise
@@ -1703,7 +1869,7 @@ class ContinuousBatchingEngine:
         (nearest rank, round(q * (n - 1))), the count of every tick the
         scheduler ran (``ticks``; each is one "decode" phase) and the tick
         programs' keys by stage (``compiled``)."""
-        compiled = {stage: sorted(keys)
+        compiled = {stage: sorted(keys, key=lambda k: (type(k).__name__, k))
                     for stage, keys in list(self._compiled.items())}
         ticks: List[float] = []
         for _ in range(3):
@@ -1789,13 +1955,21 @@ class ContinuousBatchingEngine:
             ids, max_len=self.cfg.max_seq_len - self._reuse_buckets[0])
 
     def warmup(self) -> None:
-        """Build the tick programs before traffic, as the JAX engine
-        compiles them: one short request through the whole path (prefill,
-        paging, and the first tick's program: the ragged tick, the dense
-        tick's first rung or the top γ bucket's round); the dense tick's
-        second rung; with speculation on, every γ bucket.  Every slot is
-        free then, so the extra ticks write only the trash block.  None of
-        it is recorded by the profiler."""
+        """Build the programs before traffic that the JAX engine compiles
+        before traffic: one short request through the whole path (its
+        bucket's prefill and writer, the draft's twins, and the first
+        tick's program: the ragged tick, the dense tick's first rung or
+        the top γ bucket's round); the dense tick's second rung; with
+        speculation on, every γ bucket; with shared prefixes, the
+        copy-on-write copies (and the draft's), between two blocks
+        allocated for them; with a prefix cache, the chunk program of
+        every (reuse bucket, chunk window) a prefix hit can take, with the
+        draft's twin; with chunking, the cold chunk's ``(chunk_tokens,
+        window)`` for every window a chunk can reach.  Every slot is free
+        then, so the extra ticks and chunks write only the trash block
+        (the all-trash table row).  The other prefill buckets are built
+        on first use, as the JAX engine compiles them.  None of it is
+        recorded by the profiler."""
         self._warming = True
         try:
             self.generate("warmup", max_new_tokens=2)
@@ -1806,6 +1980,25 @@ class ContinuousBatchingEngine:
                 for gb in self._gamma_buckets:
                     self._spec_tick(gb, np.zeros(self.paged.max_slots,
                                                  np.int32))
+            if self.share_prefix:
+                blks = self.allocator.alloc(2)
+                if blks is not None:
+                    try:
+                        self._cow_copy(blks[0], blks[1])
+                    finally:
+                        self.allocator.free(blks)
+            if self.prefix_cache is not None and self._buckets:
+                for sb in self._reuse_buckets:
+                    for window in self._chunk_windows:
+                        if window >= sb + 1:
+                            self._chunk_first([], sb, 0, 1, [], window, 0.0,
+                                              draft=self.spec)
+            if (self.chunk_tokens and self._buckets
+                    and max(self._buckets) > self.chunk_tokens):
+                for window in self._chunk_windows:
+                    if window >= self.chunk_tokens:
+                        self._chunk_first([], self.chunk_tokens, 0, 1, [],
+                                          window, 0.0)
         finally:
             self._warming = False
 

@@ -179,10 +179,13 @@ def write_prefill_blocks(pool: KVPool, blocks: torch.Tensor,
     return pool
 
 
-def copy_block(pool: KVPool, src: int, dst: int) -> KVPool:
+def copy_block(pool: KVPool, src, dst) -> KVPool:
     """Copy block ``src``'s K/V (and int8 scales) to ``dst`` in place:
     the copy-on-write step of a shared-prefix hit whose matched length
-    ends mid-block, and of a speculative round's shared frontier block."""
+    ends mid-block, and of a speculative round's shared frontier block.
+    ``src`` and ``dst`` are block ids, or [1] index tensors on the pool's
+    device (what a captured program reads: the ids it was captured with
+    would be constants of the graph)."""
     for name in pool:
         pool[name][:, :, dst] = pool[name][:, :, src]
     return pool

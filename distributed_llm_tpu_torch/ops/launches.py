@@ -6,12 +6,14 @@ once, at capture, and the kernel at every replay; so a replayed program
 (``engine/batching.TickProgram``) records what its capture added
 (``since``), takes it back (a capture launches nothing) and adds it again
 at every replay (``add``).  The counts then keep meaning kernels run on
-the card.
+the card.  The plain attention paths count their calls (``.calls``) the
+same way (``call_counts``, ``add_calls``): on the card only the int8
+suffix chunk, which has no kernel, runs inside a program.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 
 def wrappers() -> Dict[str, Callable]:
@@ -32,15 +34,33 @@ def wrappers() -> Dict[str, Callable]:
             "flash_chunk_q8": TF.flash_chunk_attention_q8}
 
 
+def plain_paths() -> Dict[str, Callable]:
+    """Every plain attention path that counts its calls, by its name: the
+    kernels' plain versions and the int8 suffix chunk."""
+    from . import attention as TA
+    return {fn.__name__: fn for fn in (
+        TA.causal_attention, TA._gather_decode_paged,
+        TA._gather_decode_windowed, TA._gather_verify_paged,
+        TA._gather_chunk_paged, TA._dequant_chunk_paged,
+        TA._decode_contiguous, TA._decode_contiguous_q8,
+        TA._chunk_contiguous, TA._chunk_contiguous_q8)}
+
+
 def counts() -> Dict[str, int]:
     """Every kernel's launch count, by name."""
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def since(before: Dict[str, int]) -> Dict[str, int]:
-    """The launches counted after ``before`` (a ``counts()``), by name,
-    kernels that did not launch left out."""
-    now = counts()
+def call_counts() -> Dict[str, int]:
+    """Every plain attention path's call count, by name."""
+    return {name: fn.calls for name, fn in plain_paths().items()}
+
+
+def since(before: Dict[str, int],
+          now: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+    """What was counted after ``before`` (a ``counts()``, or with ``now``
+    a ``call_counts()``), by name, names that did not move left out."""
+    now = counts() if now is None else now
     return {name: now[name] - n for name, n in before.items()
             if now[name] != n}
 
@@ -50,3 +70,10 @@ def add(deltas: Dict[str, int], times: int = 1) -> None:
     fns = wrappers()
     for name, n in deltas.items():
         fns[name].launches += times * n
+
+
+def add_calls(deltas: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``deltas`` to the plain paths' call counts."""
+    fns = plain_paths()
+    for name, n in deltas.items():
+        fns[name].calls += times * n

@@ -385,12 +385,23 @@ TENANT = {row[2] for row in PM.METRIC_REGISTRY
           if row[2].startswith("dllm_tenant_")}
 
 
-def _cluster(pkg, batched: bool, **over):
+# SLO targets every generating request misses on TTFT, on both sides:
+# the verdicts (and the ``dllm_slo_violations_total`` family they feed)
+# then follow from the requests served, not from how fast a loaded host
+# served them (at the 2000 / 200 ms defaults a slow worker's port tier
+# could miss its TBT target where the JAX tier met it).
+STRICT_SLO = dict(slo_ttft_ms=0.0, slo_tbt_ms=None)
+
+
+def _cluster(pkg, batched: bool, tiers=None, **over):
     base = pkg.tiny_batched_cluster() if batched else pkg.tiny_cluster()
+    tiers = tiers or {}
     return dataclasses.replace(
         base,
-        nano=dataclasses.replace(base.nano, model_preset=F32["nano"]),
-        orin=dataclasses.replace(base.orin, model_preset=F32["orin"], tp=1),
+        nano=dataclasses.replace(base.nano, model_preset=F32["nano"],
+                                 **tiers),
+        orin=dataclasses.replace(base.orin, model_preset=F32["orin"], tp=1,
+                                 **tiers),
         **over)
 
 
@@ -423,15 +434,17 @@ def make_routers():
             mp.setattr(TM, name, with_weights(cls))
 
         def build(batched: bool, benchmark_mode: bool, strategy="hybrid",
-                  **over):
+                  tiers=None, **over):
             kw = dict(strategy=strategy, benchmark_mode=benchmark_mode,
                       config=(None if benchmark_mode else dict(
                           jax_config.PRODUCTION_CFG, **BASE_CONFIG)))
             jobs, pobs = JO.Observability(slow_ms=0.0), PO.Observability(
                 slow_ms=0.0)
-            jr = JaxRouter(cluster=_cluster(jax_config, batched, **over),
+            jr = JaxRouter(cluster=_cluster(jax_config, batched, tiers,
+                                            **over),
                            observability=jobs, **kw)
-            tr = TorchRouter(cluster=_cluster(torch_config, batched, **over),
+            tr = TorchRouter(cluster=_cluster(torch_config, batched, tiers,
+                                              **over),
                              device="cpu", observability=pobs, sample_ms=0,
                              **kw)
             built.append((jr, tr))
@@ -498,7 +511,8 @@ def _chat(router, stream: bool):
                          ids=["benchmark", "production"])
 def test_served_observability_matches_jax(make_routers, batched,
                                           benchmark_mode):
-    jr, tr, jobs, pobs = make_routers(batched, benchmark_mode)
+    jr, tr, jobs, pobs = make_routers(batched, benchmark_mode,
+                                      tiers=STRICT_SLO)
     for r in (jr, tr):
         _chat(r, stream=True)
         r.query_router.change_strategy("token")
@@ -521,6 +535,9 @@ def test_served_observability_matches_jax(make_routers, batched,
         {"s0", "s1", "s9"} if batched else set())
     assert tr.slo.snapshot()["observed_total"] == jr.slo.snapshot()[
         "observed_total"] == len(CHAT) + 1
+    violations = _value(pobs, "dllm_slo_violations_total")
+    assert violations and violations == _value(jobs,
+                                               "dllm_slo_violations_total")
     assert not _families(pobs).keys() & TENANT
 
 

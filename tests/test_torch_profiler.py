@@ -90,16 +90,30 @@ def test_records_match_jax():
         JP.DEFAULT_CAPACITY, JP.EVENT_CAPACITY)
 
 
-def test_parent_self_time_excludes_its_child():
+def test_parent_self_time_excludes_its_child(monkeypatch):
+    """The profiler's own arithmetic on a fake clock (``perf_counter`` as
+    obs/profiler.py reads it), set by hand between the stamps: admit's
+    self time is its duration less prefill's, prefill's is its whole
+    duration."""
+    now = [0.0]
+    monkeypatch.setattr(P.time, "perf_counter", lambda: now[0])
     prof = P.TickProfiler("t")
+    now[0] = 1.0
     with prof.phase("admit"):
-        time.sleep(0.002)
+        now[0] = 1.5
         with prof.phase("prefill"):
-            time.sleep(0.003)
+            now[0] = 4.5
+        now[0] = 5.0
+    now[0] = 6.0
     prof.commit(1)
-    spans = {s[0]: s for s in prof.records()[0]["spans"]}
+    rec = prof.records()[0]
+    spans = {s[0]: s for s in rec["spans"]}
+    assert rec["dur_ms"] == 5000.0
+    assert spans["admit"][1:] == (0.0, 4000.0, 1000.0)
+    assert spans["prefill"][1:] == (500.0, 3000.0, 3000.0)
+    assert spans["admit"][3] == spans["admit"][2] - spans["prefill"][2]
+    assert spans["prefill"][3] == spans["prefill"][2]
     assert spans["admit"][3] < spans["prefill"][2] < spans["admit"][2]
-    assert spans["prefill"][2] == pytest.approx(spans["prefill"][3])
 
 
 def test_null_profiler_matches_jax():
@@ -249,8 +263,17 @@ def test_warmup_is_not_recorded():
     try:
         eng.warmup()
         assert eng.profiler.records() == []
-        assert [e[2]["stage"] for e in eng.profiler.events()
-                if e[0] == "compile"] == ["decode", "decode"]
+        compiles = [(e[2]["stage"], e[2]["key"]) for e in
+                    eng.profiler.events() if e[0] == "compile"]
+        # Both dense rungs, beside the admission programs of JAX's warm
+        # set: one compile event for each program built.
+        assert [s for s, _ in compiles if s == "decode"] == ["decode",
+                                                             "decode"]
+        assert sorted(compiles) == sorted(
+            (stage, str(key)) for stage, keys in eng._compiled.items()
+            for key in keys)
+        assert {s for s, _ in compiles} == {"decode", "prefill", "writer",
+                                            "chunk_prefill"}
         tr = RequestTrace()
         with use_trace(tr):
             eng.generate("after warmup", max_new_tokens=4)
