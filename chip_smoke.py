@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
 (any failure exits non-zero before the last line):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. build: the twelve attention kernels (``csrc/*.cu``) compile with nvcc
-   for sm_90a, in parallel;
+2. build: the twelve attention kernels and W1, the int8-weight product
+   (``csrc/*.cu``), compile with nvcc for sm_90a, in parallel;
 3. kernels: each kernel, at its main-path shapes (the nano tier's for the
    ragged decode, causal prefill and paged chunk kernels; the orin tier's
    for the ragged verify and the int8 ragged decode and verify kernels),
@@ -43,18 +43,27 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    decode kernels (bf16 at the nano tier's shape, int8 at the orin
    tier's, each through a column slice of the full table) and the
    contiguous-cache decode and chunk kernels of the sequential engines
-   (bf16 and int8) likewise, at their serving shapes;
+   (bf16 and int8) likewise, at their serving shapes; W1
+   (``ops.quant.w8_matmul``) at every projection shape of nano_1b and
+   orin_8b for 1, 4, 8, 20, 40 and 64 rows, each row within
+   KERNEL_REL_TOL of the plain version in float32, each timed beside the
+   plain version (cast, ``torch.matmul``, scale), cuBLAS bf16 on the
+   unquantized weight and the bound, with one decode step's products
+   summed per model;
 4. serve nano: the default nano tier (nano_1b at full width, seeded
    random weights) under EngineManager behind the /query server on
    127.0.0.1; cold, chunked, prefix-hit, concurrent and streaming
    requests go over HTTP;
 5. serve orin, bf16 KV, with nano_1b drafting (batched speculation), and
 6. serve orin, int8 KV, drafting with itself: orin_8b at full width and
-   depth, the same requests plus a sampled one;
+   depth, the same requests plus a sampled one; 6b. ``orin_w8``: orin_8b
+   with int8 weights and the nano_1b draft (int8 weights too), so the
+   decode, verify and draft rows run through W1;
 7. serve orin sequentially (``decode_batch=1``: InferenceEngine over the
    contiguous bf16 cache), 8. the same with the nano_1b draft
-   (SpeculativeEngine), and 9. nano_1b sequentially with the int8 cache,
-   at full width and depth: a short prompt, one past the 2048 bucket, a
+   (SpeculativeEngine), 9. nano_1b sequentially with the int8 cache and
+   9b. ``nano_seq_w8``: nano_1b sequentially with int8 weights (W1 at one
+   row), at full width and depth: a short prompt, one past the 2048 bucket, a
    multi-turn follow-up, 3 concurrent (serialized) requests, a stream
    and a sampled request (which the speculative tier refuses with the
    JAX package's 500 / 501);
@@ -78,16 +87,19 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    engine's weight and pool bytes, and orin's tier with half its
    footprint as ``hbm_gb_per_chip`` must be refused;
 11. the bench: ``bench.headline.run`` in process over the bench cluster
-   (nano_1b with 8 slots and orin_8b with 4, bf16 weights, the ragged
+   (nano_1b with 8 slots and orin_8b with 4, int8 weights, the ragged
    tick: one repeat of the five-strategy sweep with 4 closed-loop
    clients, the trend leg on the tiny tiers, the long-context and orin
-   prefix probes, the batched nano engine with bf16 and int8 KV), then
-   the canonical tester once (heuristic, cache off, general_knowledge).
+   prefix probes, the batched nano engine with bf16 and int8 KV, the
+   ``speculative`` and ``quant`` legs on the sequential engines and the
+   ``flagship`` section), then the canonical tester once (heuristic,
+   cache off, general_knowledge).
    Every strategy must serve with no concurrent error, no section hold
    an error, every MFU and device-memory utilization lie in (0, 1.05],
    the trend leg run on the card, each batched tier time one decode
    phase per tick, the ragged decode (bf16 and int8), causal prefill and
-   paged chunk kernels launch, no plain attention version run, and the
+   paged chunk kernels and W1 launch, no plain attention version run,
+   the quant and speculative legs and both flagship tiers decode, and the
    tester's CSVs carry the JAX package's headers with one row per query
    and each serving tier's mean power draw (its energy columns
    integrate the card's draw) reads 10-1000 W.  Every strategy carries
@@ -1492,6 +1504,137 @@ def paged_decode_variant_checks(torch, gen, shapes=SERVING_SHAPES) -> dict:
     return errs
 
 
+# -- W1: the int8-weight product ------------------------------------------------
+
+# The decode-shaped products' row counts: one row (the sequential
+# engines), orin's 4 and nano's 8 slots, orin's verify round (4 x 5), two
+# rounds' worth and W1's 64-row cap.
+W8_ROWS = (1, 4, 8, 20, 40, 64)
+W8_TIMED = ("orin_8b", "w_gate/w_up", 4)   # the row's headline shape
+# Products of each shape in one layer of a decode step's body.
+W8_PER_LAYER = {"wq/wo": 2, "wk/wv": 2, "w_gate/w_up": 2, "w_down": 1}
+
+
+def w8_shapes(cfg) -> dict:
+    """A model's projection shapes (K, N), each named by the weights that
+    share it (nano_1b's and orin_8b's query width is their hidden width)."""
+    h, f = cfg.hidden_size, cfg.ffn_size
+    require(cfg.num_heads * cfg.head_dim == h, f"{cfg.name}: wq is not square")
+    return {"wq/wo": (h, h), "wk/wv": (h, cfg.num_kv_heads * cfg.head_dim),
+            "w_gate/w_up": (h, f), "w_down": (f, h)}
+
+
+def w8_kernel_phase(torch, nano, orin):
+    """W1 (``ops.quant.w8_matmul``, ``csrc/w8_matmul.cu``) at every
+    full-width projection shape of nano_1b and orin_8b for every row count
+    of W8_ROWS: x bf16 N(0, 1), a bf16 N(0, 0.02) weight quantized by
+    ``quant.quantize_tensor``; every output row within KERNEL_REL_TOL of
+    the plain version in float32 ((x @ q) * s in float32).  Each shape
+    and row count is timed as a replayed CUDA graph beside the plain
+    version (cast + ``torch.matmul`` + scale), cuBLAS bf16 on the
+    unquantized weight (the time to beat, ``cublas_bf16_ms``) and the
+    bound: bytes (K N + 2 N + 2 M K + 2 M N) at 3.35 TB/s or operations
+    (2 M K N) at 989 TFLOP/s.  The row's headline is orin_8b's w_gate at 4
+    rows (orin's decode), with eager times and, where this torch has it
+    on the card, one ``torch._weight_int8pack_mm`` call on the transposed
+    int8 weight as the library yardstick (timed here only).  Also the
+    products of one decode step's body summed per model at its tier's
+    slots."""
+    from distributed_llm_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    bf = torch.bfloat16
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    shapes, errs, timed_row = [], NO_ERR, None
+    for cfg in (nano, orin):
+        for name, (k, n) in w8_shapes(cfg).items():
+            w = quant.quantize_tensor(
+                (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(bf))
+            wb = quant.dequantize(w)
+            for m in W8_ROWS:
+                x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+                out = quant.w8_matmul(x, w.q, w.s)
+                torch.cuda.synchronize()
+                res = compare(out, quant._matmul_plain, (x, w.q, w.s))
+                agrees("w8_matmul", res, f" at {cfg.name} {name} M={m}")
+                errs = worst(errs, res)
+                b, by = bound(k * n + 2 * n + 2 * m * k + 2 * m * n,
+                              2 * m * k * n)
+                calls = {"ms": lambda: quant.w8_matmul(x, w.q, w.s),
+                         "plain_ms": lambda: quant._matmul_plain(x, w.q, w.s),
+                         "cublas_bf16_ms": lambda: x @ wb}
+                entry = {"model": cfg.name, "weight": name, "K": k, "N": n,
+                         "M": m, "plan": list(quant.w8_split_plan(k, n)),
+                         **{key: graph_ms(torch, fn, flush=flush)
+                            for key, fn in calls.items()},
+                         "bound_ms": b, "bound_by": by, **res}
+                shapes.append(entry)
+                if (cfg.name, name, m) == W8_TIMED:
+                    timed_row = dict(entry, res=res, eager={
+                        key: time_ms(torch, fn, flush=flush)
+                        for key, fn in calls.items()},
+                        library=w8_library(torch, x, w, flush))
+            del w, wb
+    steps = {}
+    for cfg, m in ((nano, 8), (orin, 4)):
+        at = {e["weight"]: e for e in shapes
+              if e["model"] == cfg.name and e["M"] == m}
+        steps[cfg.name] = {
+            "M": m, **{key: cfg.num_layers * sum(
+                W8_PER_LAYER[w] * at[w][key] for w in W8_PER_LAYER)
+                for key in ("ms", "plain_ms", "cublas_bf16_ms", "bound_ms")}}
+    del flush_buf
+    torch.cuda.empty_cache()
+    t = timed_row
+    lib_ms, lib_eager, lib_err = t["library"]
+    return {
+        "name": "w8_matmul", "route": "cuda",
+        "source": "distributed_llm_tpu_torch/csrc/w8_matmul.cu",
+        "replaces": "distributed_llm_tpu/ops/quant.py:77",
+        "replaces_note": "W1: the port's counterpart of XLA's fused "
+                         "convert-and-dot in quant.matmul; no Pallas kernel",
+        "shape": f"{t['model']} {t['weight']} K={t['K']} N={t['N']} M={t['M']}"
+                 f" (checked at every projection of nano_1b and orin_8b, "
+                 f"M in {list(W8_ROWS)})",
+        **t["res"], "tol": TOL,
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "cublas_bf16_ms": t["cublas_bf16_ms"], "library_ms": lib_ms,
+        "library_rel_err": lib_err,
+        "eager": dict(t["eager"], library_ms=lib_eager),
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "variants_max_abs_err": errs["max_abs_err"],
+        "variants_rel_err": errs["rel_err"],
+        "decode_step_products": steps, "shapes": shapes}
+
+
+def w8_library(torch, x, w, flush):
+    """One PyTorch call computing W1's function: ``_weight_int8pack_mm``
+    on the transposed int8 weight and the scales, where this torch has it
+    on the card.  Returns (graph ms, eager ms, worst-row error against the
+    float32 plain version) or Nones."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, None, None
+    qt, s = w.q.t().contiguous(), w.s.reshape(-1).contiguous()
+    try:
+        out = fn(x, qt, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"w8_matmul: no library yardstick ({type(exc).__name__}: "
+            f"{str(exc)[:120]})")
+        return None, None, None
+    ref = (x.float() @ w.q.float()) * w.s.float()
+    return (graph_ms(torch, lambda: fn(x, qt, s), flush=flush),
+            time_ms(torch, lambda: fn(x, qt, s), flush=flush),
+            row_rel_err(out, ref))
+
+
 # -- phases 4-6: serve ------------------------------------------------------------
 
 def post(url: str, body: dict, timeout: float = 300.0):
@@ -1789,7 +1932,8 @@ def serve_numbers(tier, engine, startup_s: float, main_s: float, drove: dict,
                   for r in results if r["stats"]["gen_tokens"] > 1]
     return {
         "tier": tier.name, "model": tier.model_preset,
-        "engine": type(engine).__name__, "kv_quantize": tier.kv_quantize,
+        "engine": type(engine).__name__, "quantize": tier.quantize,
+        "kv_quantize": tier.kv_quantize,
         "startup_s": startup_s, "main_path_s": main_s,
         "requests": n, "launches": launches, "plain_calls": plain_calls,
         "launches_per_request": {k: v / n for k, v in launches.items() if v},
@@ -2117,7 +2261,7 @@ def paged_step_breakdown(torch, engine) -> dict:
     pool = {k: v.clone() for k, v in engine.pool.items()}
     cfg = engine.cfg
     q = torch.randn((engine.paged.max_slots, cfg.num_heads, cfg.head_dim),
-                    device=engine.device).to(engine.model.embed.dtype)
+                    device=engine.device).to(engine.model.final_ln.dtype)
     res = step_breakdown(
         torch, lambda: decode_step_paged(cfg, engine.model, cur, pos, pool,
                                          tables),
@@ -2146,7 +2290,7 @@ def verify_step_breakdown(torch, engine) -> dict:
         chunk = cur[:, None].expand(-1, g).contiguous()
         q = torch.randn((engine.paged.max_slots, g, cfg.num_heads,
                          cfg.head_dim), device=engine.device
-                        ).to(engine.model.embed.dtype)
+                        ).to(engine.model.final_ln.dtype)
         res = step_breakdown(
             torch, lambda: verify_step_paged(cfg, engine.model, chunk, pos,
                                              pool, tables),
@@ -2175,7 +2319,7 @@ def seq_step_breakdown(torch, engine) -> dict:
     pos = torch.tensor([n - 1], dtype=torch.int32, device=engine.device)
     cfg = engine.cfg
     q = torch.randn((1, cfg.num_heads, cfg.head_dim), device=engine.device
-                    ).to(engine.model.embed.dtype)
+                    ).to(engine.model.final_ln.dtype)
     res = step_breakdown(
         torch, lambda: TT.decode_step(cfg, engine.model, cur, pos, cache),
         lambda: TA.decode(q, cache["k"][0], cache["v"][0], pos,
@@ -3015,20 +3159,22 @@ def profiler_overhead(router, n: int = 3) -> dict:
 def hbm_budget_check(torch, router, on_card: bool) -> dict:
     """Each tier's budget (``utils.hbm_budget.tier_hbm_budget``, built on
     the meta device) against its engine's own tensors: the weight bytes
-    must equal its parameters' and the KV bytes its pool's, with the
+    must equal its weights' (parameters and buffers) and the KV bytes its
+    pool's, with the
     peak device memory beside them; and orin's tier with an
     ``hbm_gb_per_chip`` that holds half its footprint (beside the
     headroom) is refused by the manager before it builds."""
     from distributed_llm_tpu_torch.engine.manager import (
         EngineManager, TierOverCapacityError)
-    from distributed_llm_tpu_torch.utils.hbm_budget import (tensor_bytes,
+    from distributed_llm_tpu_torch.utils.hbm_budget import (model_bytes,
+                                                            tensor_bytes,
                                                             tier_hbm_budget)
 
     out = {}
     for name, tier in router.tiers.items():
         engine = tier.server_manager.engine()
         budget = tier_hbm_budget(engine.tier, hbm_per_chip_gb=80.0)
-        params = tensor_bytes(engine.model.parameters())
+        params = model_bytes(engine.model)
         pool = tensor_bytes(engine.pool.values())
         require(budget["params_bytes"] == params
                 and budget["kv_bytes"] == pool,
@@ -3159,7 +3305,7 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
 # 45%, so a repeat of the five strategies fits), one repeat, 4 clients.
 BENCH_BUDGET_S = 600.0
 BENCH_KERNELS = ("ragged_decode", "flash_causal", "paged_chunk",
-                 "ragged_decode_q8")
+                 "ragged_decode_q8", "w8_matmul")
 TESTER_ROWS = 12                  # the general_knowledge set, one config
 
 
@@ -3251,6 +3397,18 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         require(entry["phases"]["decode"]["count"] == entry["tick"]["ticks"],
                 f"bench tier {name}: decode phases "
                 f"{entry['phases']['decode']} against ticks {entry['tick']}")
+    # The features and flagship legs: each ran (no budget skip on the
+    # card) and decoded.
+    quant_legs = result["quant"]
+    require(set(quant_legs) == {"nano", "orin"} and all(
+        leg.get("int8_decode_tok_per_s", 0) > 0 for leg in quant_legs.values()),
+        f"bench quant section: {quant_legs}")
+    require(result["speculative"].get("spec_decode_tok_per_s", 0) > 0,
+            f"bench speculative section: {result['speculative']}")
+    if on_card:
+        require(all(result["flagship"].get(label, {}).get("decode_tok_per_s")
+                    for label in ("nano_1b", "orin_8b_int8")),
+                f"bench flagship section: {result['flagship']}")
 
     with open(summary_csv, newline="") as f:
         summary_rows = list(csv.reader(f))
@@ -3296,6 +3454,8 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "long_context": result["long_context"],
         "orin_prefix": result["orin_prefix"],
         "continuous_batching": result["continuous_batching"],
+        "speculative": result["speculative"], "quant": result["quant"],
+        "flagship": result["flagship"],
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
@@ -3362,6 +3522,7 @@ def main() -> None:
     rows += spec_rows
     rows += paged_decode_kernel_phase(torch, nano.model(), orin.model())
     rows += contiguous_kernel_phase(torch, nano.model(), orin.model())
+    rows.append(w8_kernel_phase(torch, nano.model(), orin.model()))
     log(f"kernels checked in {time.perf_counter() - t_all:.1f}s")
 
     # 4-6. Serve: nano; orin with bf16 KV and the nano_1b draft; orin with
@@ -3388,6 +3549,16 @@ def main() -> None:
             "the int8 suffix chunk did not run")
     log(f"orin (int8 KV, self-draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
+    # 6b. orin_8b with int8 weights and the nano_1b draft (int8 weights
+    # too): the decode, verify and draft rows through W1.
+    phases["orin_w8"], w8_launches = serve_phase(
+        torch, dataclasses.replace(orin, quantize="int8",
+                                   draft_preset=nano.model_preset),
+        lengths=orin_lengths, sampled=True,
+        expect=("ragged_decode", "flash_causal", "paged_chunk",
+                "ragged_verify", "w8_matmul"))
+    log(f"orin (int8 weights, nano_1b draft) served in "
+        f"{time.perf_counter() - t_all:.1f}s")
 
     # 7-9. Serve the sequential engines (decode_batch=1): orin_8b with bf16
     # KV; orin_8b with the nano_1b draft; nano_1b with int8 KV.
@@ -3404,6 +3575,12 @@ def main() -> None:
         torch, dataclasses.replace(nano, decode_batch=1, kv_quantize="int8"),
         expect=("flash_causal", "flash_decode_q8", "flash_chunk_q8"))
     log(f"nano sequential int8 served in {time.perf_counter() - t_all:.1f}s")
+    # 9b. nano_1b sequentially with int8 weights: W1 at one row.
+    phases["nano_seq_w8"], seq_w8_launches = serve_sequential_phase(
+        torch, dataclasses.replace(nano, decode_batch=1, quantize="int8"),
+        expect=("flash_causal", "flash_decode", "flash_chunk", "w8_matmul"))
+    log(f"nano sequential int8 weights served in "
+        f"{time.perf_counter() - t_all:.1f}s")
 
     # 10. The two-tier /chat service on the dense windowed tick: nano_1b
     # (bf16 pool) and orin_8b (int8 pool) behind the Router, every
@@ -3415,13 +3592,16 @@ def main() -> None:
     log(f"/chat served in {time.perf_counter() - t_all:.1f}s")
 
     # 11. The bench: the headline over the bench cluster (nano_1b and
-    # orin_8b on the ragged tick), then the canonical tester.
+    # orin_8b with int8 weights on the ragged tick) with its features and
+    # flagship sections, then the canonical tester.
     bench, bench_launches = bench_phase(torch)
     log(f"bench run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
-                "orin_spec_int8": int8_launches, "orin_seq_bf16": seq_launches,
+                "orin_spec_int8": int8_launches, "orin_w8": w8_launches,
+                "orin_seq_bf16": seq_launches,
                 "orin_seq_spec": seq_spec_launches,
-                "nano_seq_int8": seq_int8_launches, "chat": chat_launches,
+                "nano_seq_int8": seq_int8_launches,
+                "nano_seq_w8": seq_w8_launches, "chat": chat_launches,
                 "bench": bench_launches}
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
@@ -3458,7 +3638,7 @@ def main() -> None:
     summary = {}
     for name, serve in phases.items():
         summary[name] = {k: serve[k] for k in (
-            "model", "engine", "draft", "kv_quantize", "requests",
+            "model", "engine", "draft", "quantize", "kv_quantize", "requests",
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
             "chunked_ttft_ms", "flash_chunk_routes", "tick_stats", "spec",
             "decode_step", "tick_graph_check", "prefill_graph_check",
@@ -3514,12 +3694,16 @@ def main() -> None:
         "profile": {k: bench["profile"].get(k) for k in (
             "coverage", "attribution_ratio", "trace_events", "requests",
             "trace_schema_ok")},
+        "speculative": bench["speculative"], "quant": bench["quant"],
+        "flagship": bench["flagship"],
         "admission": bench["admission"]}}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (
                                      "one_tile_short_rel_err", "short",
-                                     "launches_by_route")
+                                     "launches_by_route", "cublas_bf16_ms",
+                                     "library_rel_err",
+                                     "decode_step_products")
                                     if k in row}} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,8 +35,15 @@ reuse on the orin tier), ``continuous_batching`` (one batched nano engine,
 concurrent against sequential, and its int8-KV leg), ``profile`` (the
 tick-phase profiler over the tiny batched cluster: its per-phase
 self-time table, coverage, attribution conservation, the cost ledger's
-head and a Chrome-trace artifact, ``BENCH_profile_trace.json``).  A later
-section
+head and a Chrome-trace artifact, ``BENCH_profile_trace.json``), the
+features legs ``speculative`` (the orin tier speculating with the nano
+model as its draft: acceptance and decode tok/s against plain greedy)
+and ``quant`` (each tier's decode tok/s with bf16 weights, int8 weights,
+and int8 weights with int8 KV), and ``flagship`` (``flagship_cluster``:
+nano_1b and orin_8b with int8 weights on the sequential engine, each
+budgeted, with decode tok/s, p50 TTFT, prefill MFU, decode ``hbm_util``
+and nano's long-context leg; on the card only, unless ``--flagship``).
+A later section
 that raises records ``{"error": ...}`` and the headline survives, but
 the process exits 1; the sweep itself catches nothing.
 
@@ -46,7 +53,9 @@ always ``compact(result)``, reprinted after every section, and printed
 best-so-far on SIGTERM or when the watchdog sees no progress.
 
 The JAX package's environment knobs are flags here: ``--budget-s``
-(1200), ``--repeats`` (3), ``--clients`` (4), ``--watchdog-s`` (900).
+(1200), ``--repeats`` (3), ``--clients`` (4), ``--watchdog-s`` (900),
+``--flagship`` (``DLLM_BENCH_FLAGSHIP``: run the flagship section on the
+CPU too, at its full 1B and 8B sizes).
 
 Not here, each waiting for the feature it measures (ROADMAP.md A1): the
 chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
@@ -56,8 +65,7 @@ chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
 accounting), ``shared`` (sharing counters), ``spill`` (host KV spill),
 ``replica``, ``elastic`` (replicas, the autoscaler), ``multichip``
 (tensor parallelism), ``openloop`` (the open-loop driver),
-``tier_quality`` (trained checkpoints), ``features`` (``speculative``,
-``quant``: int8 weights), ``flagship``, ``perf_steering`` (fault
+``tier_quality`` (trained checkpoints), ``perf_steering`` (fault
 injection) and ``dispatch_provenance`` / ``hw_dispatch`` (the port has no
 dispatch table).  Nor the JAX bench's accelerator probe, its fall-back to
 the CPU or its kernel dispatch A/B.
@@ -287,12 +295,20 @@ def compact(result: dict) -> dict:
         "batching_speedup": bat.get("batching_speedup"),
         "kv_int8_speedup": (bat.get("kv_int8") or {}).get(
             "speedup_vs_bf16_kv"),
+        "spec_speedup": (result.get("speculative") or {}).get("speedup"),
+        "quant_speedup": {t: q.get("speedup")
+                          for t, q in (result.get("quant") or {}).items()
+                          if isinstance(q, dict) and q.get("speedup")},
         "prefix_reuse_speedup": (result.get("long_context") or {}).get(
             "prefix_reuse_speedup"),
         "orin_prefix_hits": (result.get("orin_prefix") or {}).get(
             "prefix_hits"),
         "orin_followup_ttft_speedup": (result.get("orin_prefix") or {}).get(
             "followup_ttft_speedup"),
+        "flagship_decode_tok_per_s": {
+            t: f.get("decode_tok_per_s")
+            for t, f in (result.get("flagship") or {}).items()
+            if isinstance(f, dict) and f.get("decode_tok_per_s")},
     }
     out["verdicts"] = {k: v for k, v in verdicts.items() if v}
     return out
@@ -691,6 +707,197 @@ def concurrent_phase(cluster, device=None, n_requests: int = 12,
     }
 
 
+def features_phase(cluster, device=None, n_prompts: int = 3,
+                   max_new: int = 48, beat=lambda: None) -> dict:
+    """Measured evidence for speculative decoding and int8 weight-only
+    quantization: acceptance and decode tok/s against plain greedy on the
+    same weights, and bf16 against int8 decode tok/s per tier, each the
+    median over ``n_prompts`` prompts on the sequential engine (prefix
+    reuse off, so repeats measure steady decode).  Returns
+    ``{"speculative": {...}, "quant": {tier: {...}}}``; a leg that raises
+    records ``{"error": ...}`` in its place."""
+    from ..engine.inference import InferenceEngine
+    from ..engine.speculative import SpeculativeEngine
+
+    prompts = [f"user: tell me fact number {i} about the mesh, the compiler "
+               "and the chip" for i in range(n_prompts)]
+
+    def decode_tokps(engine) -> float:
+        engine.generate(prompts[0], max_new_tokens=4)       # warm
+        beat()
+        rates = []
+        for p in prompts:
+            res = engine.generate(p, max_new_tokens=max_new)
+            beat()
+            if res.tokens_per_s:
+                rates.append(res.tokens_per_s)
+        return round(statistics.median(rates), 1) if rates else 0.0
+
+    out: dict = {}
+    # Speculative: the big tier verifies the small tier's greedy drafts.
+    try:
+        print("[bench] speculative phase", file=sys.stderr, flush=True)
+        target = dataclasses.replace(cluster.orin, temperature=0.0,
+                                     enable_prefix_cache=False,
+                                     decode_batch=1, quantize="none")
+        draft = dataclasses.replace(cluster.nano, name="draft",
+                                    temperature=0.0,
+                                    enable_prefix_cache=False,
+                                    decode_batch=1, quantize="none")
+        plain = InferenceEngine(target, seed=3, device=device)
+        plain_tokps = decode_tokps(plain)
+        spec = SpeculativeEngine(target, draft, gamma=4, seed=3,
+                                 target_params=plain.model, device=device)
+        del plain
+        spec_tokps = decode_tokps(spec)
+        out["speculative"] = {
+            "gamma": 4,
+            "acceptance_rate": round(spec.acceptance_rate, 3),
+            "plain_decode_tok_per_s": plain_tokps,
+            "spec_decode_tok_per_s": spec_tokps,
+            "speedup": round(spec_tokps / max(plain_tokps, 1e-9), 2),
+        }
+        del spec
+    except Exception as exc:                  # never lose the headline line
+        out["speculative"] = {"error": f"{type(exc).__name__}: {exc}"[:200]}
+
+    # int8 weight-only: decode reads every weight once a step, so halving
+    # the weight bytes should show in decode tok/s.
+    quant: dict = {}
+    for tier_name in ("nano", "orin"):
+        try:
+            print(f"[bench] quant phase ({tier_name})", file=sys.stderr,
+                  flush=True)
+            base = dataclasses.replace(getattr(cluster, tier_name),
+                                       temperature=0.0, decode_batch=1,
+                                       enable_prefix_cache=False)
+            rates = {}
+            for key, kw in (("bf16", dict(quantize="none")),
+                            ("int8", dict(quantize="int8")),
+                            ("int8_kv", dict(quantize="int8",
+                                             kv_quantize="int8"))):
+                engine = InferenceEngine(dataclasses.replace(base, **kw),
+                                         seed=5, device=device)
+                rates[key] = decode_tokps(engine)
+                del engine
+            quant[tier_name] = {
+                "bf16_decode_tok_per_s": rates["bf16"],
+                "int8_decode_tok_per_s": rates["int8"],
+                "int8_weights_and_kv_decode_tok_per_s": rates["int8_kv"],
+                "speedup": round(rates["int8"] / max(rates["bf16"], 1e-9), 2),
+                "kv_int8_speedup": round(rates["int8_kv"]
+                                         / max(rates["int8"], 1e-9), 2),
+            }
+        except Exception as exc:
+            quant[tier_name] = {"error": f"{type(exc).__name__}: {exc}"[:200]}
+    out["quant"] = quant
+    return out
+
+
+def flagship_phase(cluster=None, device=None, max_new: int = 48,
+                   n_prompts: int = 3, beat=lambda: None) -> dict:
+    """Serve the north star's presets (``config.flagship_cluster()``:
+    nano_1b, orin_8b with int8 weights) on the sequential engine with
+    seeded random weights: per tier (keyed ``nano_1b``, ``orin_8b_int8``)
+    the memory budget, decode tok/s, p50 TTFT of head-varied cold
+    prompts, prefill MFU and decode ``hbm_util``; nano also a
+    near-``max_seq_len`` prompt's cold TTFT and prefill MFU and two
+    prefix-reused follow-ups.  A tier over its budget reports instead of
+    building.  ``cluster`` replaces the flagship cluster (the tests pass
+    the tiny tiers)."""
+    from ..config import flagship_cluster
+    from ..device import resolve_device
+    from ..engine.inference import InferenceEngine
+    from ..utils import roofline
+    from ..utils.hbm_budget import tier_hbm_budget
+    from ..utils.telemetry import PhaseTimer
+
+    out: dict = {}
+    cluster = cluster or flagship_cluster()
+    peaks = roofline.chip_peaks(resolve_device(device))
+    for tname in ("nano", "orin"):
+        # nano keeps its prefix cache (its long-context leg reuses the
+        # prefix); orin serves with reuse off.  decode_batch=1: single-
+        # stream decode on the sequential engine, which the budget gates.
+        tier = dataclasses.replace(getattr(cluster, tname),
+                                   max_new_tokens=max_new, decode_batch=1,
+                                   enable_prefix_cache=(tname == "nano"))
+        label = tier.model_preset + ("_int8" if tier.quantize == "int8"
+                                     else "")
+        print(f"[bench] flagship {label}", file=sys.stderr, flush=True)
+        try:
+            budget = tier_hbm_budget(tier)
+            entry = {k: budget[k] for k in ("params_gb_per_chip",
+                                            "kv_gb_per_chip",
+                                            "total_gb_per_chip", "fits")}
+            if not budget["fits"]:
+                entry["skipped"] = "over HBM budget"
+                out[label] = entry
+                continue
+            # int8 tiers are quantized by the engine, one weight at a time.
+            engine = InferenceEngine(tier, seed=9, device=device)
+            beat()
+            engine.generate("user: warm the flagship up", max_new_tokens=4)
+            beat()
+            rates, ttfts = [], []
+            for i in range(n_prompts):
+                # Head-varied so no probe prefix-matches another.
+                res = engine.generate(
+                    f"{i} flagship probe: explain the chip's memory "
+                    "system in a few sentences.", max_new_tokens=max_new)
+                ttfts.append(res.ttft_ms)
+                beat()
+                if res.tokens_per_s:
+                    rates.append(res.tokens_per_s)
+            work = engine.phases.work_summary()
+            util = {ph: roofline.utilization(w, w["seconds"], peaks)
+                    for ph, w in work.items() if w.get("seconds")}
+            entry.update({
+                "decode_tok_per_s": (round(statistics.median(rates), 1)
+                                     if rates else None),
+                "p50_ttft_ms": round(statistics.median(ttfts), 2),
+                "mfu_prefill": (util.get("prefill") or {}).get("mfu"),
+                "hbm_util_decode": (util.get("decode") or {}).get("hbm_util"),
+            })
+            if tname == "nano":
+                try:
+                    tok = engine.tokenizer
+                    max_seq = engine.cfg.max_seq_len
+                    margin = max_seq // 8 + max_new
+                    filler = ("fact: the quick brown fox jumps over the "
+                              "lazy dog. " * (max_seq // 8))
+                    ids = tok.encode(filler, add_bos=False)
+                    prompt = tok.decode(ids[:max_seq - margin])
+                    hist = [{"role": "user", "content": prompt}]
+                    engine.phases = PhaseTimer()   # isolate this call
+                    cold = engine.generate(hist, max_new_tokens=8)
+                    beat()
+                    lw = engine.phases.work_summary().get("prefill", {})
+                    lutil = (roofline.utilization(lw, lw["seconds"], peaks)
+                             if lw.get("seconds") else {})
+                    hist += [{"role": "assistant", "content": cold.text},
+                             {"role": "user", "content": "and?"}]
+                    warm = engine.generate(hist, max_new_tokens=8)
+                    hist += [{"role": "assistant", "content": warm.text},
+                             {"role": "user", "content": "and more?"}]
+                    warm2 = engine.generate(hist, max_new_tokens=8)
+                    entry["long_context"] = {
+                        "prompt_tokens": cold.prompt_tokens,
+                        "cold_ttft_ms": round(cold.ttft_ms, 2),
+                        "followup_ttft_ms": [round(warm.ttft_ms, 2),
+                                             round(warm2.ttft_ms, 2)],
+                        "mfu_prefill": lutil.get("mfu"),
+                    }
+                except Exception as exc:
+                    entry["long_context"] = {
+                        "error": f"{type(exc).__name__}: {exc}"[:160]}
+            out[label] = entry
+            del engine
+        except Exception as exc:          # never lose the headline line
+            out[label] = {"error": f"{type(exc).__name__}: {exc}"[:200]}
+    return out
+
+
 def _calibrate(router, queries, n_clients: int, repeats: int,
                budget: Budget, progress: Progress):
     """One query's cost on the warm engines -> the repeats (and, under a
@@ -842,11 +1049,14 @@ def _orin_prefix(router, beat) -> dict:
 def run(device=None, *, repeats: int = 3, clients: int = 4,
         progress: Optional[Progress] = None,
         budget: Optional[Budget] = None, cluster=None,
-        n_queries: Optional[int] = None, trend_repeats: int = 5) -> dict:
+        n_queries: Optional[int] = None, trend_repeats: int = 5,
+        flagship: bool = False) -> dict:
     """The headline sweep and the later sections on ``device`` (default:
     the card; raises with none).  ``cluster`` defaults to
     ``default_cluster(device)``; ``n_queries`` keeps the first queries
-    of the set (a smoke run); ``trend_repeats`` is the trend leg's K."""
+    of the set (a smoke run); ``trend_repeats`` is the trend leg's K;
+    ``flagship`` runs the flagship section on the CPU too (it always
+    runs on the card)."""
     import torch
 
     from ..device import resolve_device
@@ -1082,6 +1292,20 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         router.cluster, dev, beat=progress.beat), 120)
     profile = later("profile", lambda: profile_phase(
         dev, beat=progress.beat), 60)
+    if budget.allows(150):
+        features = features_phase(router.cluster, dev, beat=progress.beat)
+    else:
+        features = {"speculative": {"skipped": budget.skip_stamp()},
+                    "quant": {"skipped": budget.skip_stamp()}}
+    progress.section("speculative", features["speculative"])
+    progress.section("quant", features["quant"])
+    progress.flush_compact()
+    if flagship or dev.type != "cpu":
+        flagship_out = later("flagship", lambda: flagship_phase(
+            device=dev, beat=progress.beat), 240)
+    else:
+        flagship_out = {"skipped": "cpu backend (pass --flagship)"}
+        progress.section("flagship", flagship_out)
 
     return {
         **headline,
@@ -1095,6 +1319,9 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "long_context": long_context,
         "orin_prefix": orin_prefix,
         "profile": profile,
+        "speculative": features["speculative"],
+        "quant": features["quant"],
+        "flagship": flagship_out,
     }
 
 
@@ -1115,6 +1342,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--watchdog-s", type=float, default=900.0,
                    help="exit with the partial result after this long with "
                         "no progress")
+    p.add_argument("--flagship", action="store_true",
+                   help="run the flagship section (nano_1b and orin_8b) on "
+                        "the CPU too (always on the card)")
     return p.parse_args(argv)
 
 
@@ -1140,7 +1370,8 @@ def main(argv=None) -> int:
     try:
         start_watchdog(progress, args.watchdog_s)
         result = run(args.device, repeats=args.repeats, clients=args.clients,
-                     progress=progress, budget=budget)
+                     progress=progress, budget=budget,
+                     flagship=args.flagship)
     finally:
         progress.done.set()
         signal.signal(signal.SIGTERM, prev)

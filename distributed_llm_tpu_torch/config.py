@@ -3,11 +3,11 @@
 Counterpart of ``distributed_llm_tpu/config.py``, kept as the port's own
 copy (the port never imports the JAX package).  It carries the router's
 canonical configs (``BENCHMARK_CFG``, ``PRODUCTION_CFG``,
-``resolve_config``), every model preset, the bench's cluster, the tier
-fields the engines,
-the tier clients and the router read (batched and sequential
-speculation, the int8 KV cache and pool, the dense windowed tick,
-admission, the context-overflow policy, drain), the cluster's breaker
+``resolve_config``), every model preset, the bench's and the flagship
+cluster, the tier fields the engines, the tier clients and the router
+read (batched and sequential speculation, int8 weights, the int8 KV
+cache and pool, the dense windowed tick, admission, the context-overflow
+policy, drain), the cluster's breaker
 and retry fields, the nano and orin tiers of the default cluster and the
 tiny test clusters.  Fields whose feature is not ported yet are still
 declared with their JAX defaults, and a tier that asks for a non-default
@@ -158,7 +158,6 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 _UNPORTED_DEFAULTS = {
     "tp": 1,
     "replicas": 1,
-    "quantize": "none",
     "host_kv_bytes": None,
     "kv_pool_blocks": None,
     "checkpoint_path": None,
@@ -266,10 +265,14 @@ class TierConfig:
     # engine and refuses a tier that does not fit (TierOverCapacityError).
     # None: no budget.
     hbm_gb_per_chip: Optional[float] = None
+    # Weight-only quantization ("none" | "int8"): every projection and the
+    # tied embedding as int8 with per-output-channel (embedding: per-row)
+    # scales, the norms in the model dtype (ops/quant.py); any other mode
+    # raises in ops.quant.maybe_quantize.
+    quantize: str = "none"
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
     replicas: int = 1
-    quantize: str = "none"
     host_kv_bytes: Optional[int] = None
     kv_pool_blocks: Optional[int] = None
     checkpoint_path: Optional[str] = None
@@ -289,9 +292,9 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, replicas, int8 weights, host KV
-        spill, a constrained pool, checkpoints, remote tiers, tenant
-        quotas, the autoscaler, MoE)."""
+        tier turns on (tensor parallelism, replicas, host KV spill, a
+        constrained pool, checkpoints, remote tiers, tenant quotas, the
+        autoscaler, MoE)."""
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]
@@ -339,22 +342,49 @@ class ClusterConfig:
 def bench_cluster() -> ClusterConfig:
     """The cluster the bench serves on the card: the north star's pair,
     nano_1b with 8 slots and a 64-token decode cap, orin_8b with 4 slots
-    and a 128-token cap, both ``tp=1`` with bf16 weights on the ragged
-    tick.
+    and a 128-token cap, both ``tp=1`` on the ragged tick with int8
+    weights, as the JAX package's ``bench_cluster`` serves them (int8
+    weight-only serving mirrors the reference deployment, whose Jetsons
+    run GGML-quantized models, and halves decode's weight bytes).
 
-    The JAX package's ``bench_cluster`` serves nano_bench and orin_bench
-    with int8 weights, sized for a 16 GB TPU v5e; the port keeps its
-    decode caps and slot counts and serves the models its own main path
-    serves (the ``/chat`` service's pair) on the 80 GB card.  int8
-    weights wait for their port (ROADMAP.md A5).  The JAX package's
-    measured tuning table overlays a cluster only when its backend
-    matches the running one; its table is the CPU's, so it never applies
-    on a card, and the port has none."""
+    The JAX package's ``bench_cluster`` serves nano_bench and orin_bench,
+    sized for a 16 GB TPU v5e; the port keeps its decode caps, slot counts
+    and weight format and serves the models its own main path serves (the
+    ``/chat`` service's pair) on the 80 GB card.  Its speculative A/B env
+    flag has no counterpart (the port has no env knobs), and the JAX
+    package's measured tuning table overlays a cluster only when its
+    backend matches the running one; its table is the CPU's, so it never
+    applies on a card, and the port has none."""
     return ClusterConfig(
         nano=TierConfig(name="nano", model_preset="nano_1b",
-                        max_new_tokens=64, decode_batch=8),
+                        max_new_tokens=64, quantize="int8", decode_batch=8),
         orin=TierConfig(name="orin", model_preset="orin_8b",
-                        max_new_tokens=128, decode_batch=4))
+                        max_new_tokens=128, quantize="int8", decode_batch=4))
+
+
+def flagship_cluster(n_devices: int = 1, kv_int8: bool = False
+                     ) -> ClusterConfig:
+    """The north star's presets shaped to one card, as the JAX package's
+    ``flagship_cluster`` shapes them to one chip: nano_1b (bf16, 8 slots)
+    and orin_8b with int8 weights (``tp=1``), both with the (256, 1024,
+    2048) bucket ladder.  ``kv_int8`` gives orin an int8 KV cache (the JAX
+    package's ``DLLM_FLAGSHIP_KV_INT8`` A/B flag); bf16 KV by default, as
+    there.  Five or more devices give the JAX package orin over a ``tp=4``
+    submesh; tensor parallelism is not ported, so they raise."""
+    if n_devices >= 5:
+        raise NotImplementedError(
+            f"flagship_cluster({n_devices}): orin_8b over tp=4 needs tensor "
+            "parallelism, not ported to the PyTorch/CUDA package yet (see "
+            "ROADMAP.md)")
+    buckets = (256, 1024, 2048)
+    return ClusterConfig(
+        nano=TierConfig(name="nano", model_preset="nano_1b",
+                        max_new_tokens=64, decode_batch=8,
+                        prefill_buckets=buckets),
+        orin=TierConfig(name="orin", model_preset="orin_8b",
+                        max_new_tokens=128, quantize="int8",
+                        kv_quantize="int8" if kv_int8 else "none",
+                        decode_batch=4, prefill_buckets=buckets))
 
 
 def tiny_batched_cluster(nano_slots: int = 4,

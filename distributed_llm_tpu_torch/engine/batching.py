@@ -141,7 +141,7 @@ from ..models.transformer import Transformer
 from ..obs import get_observability
 from ..obs import spans as obs_spans
 from ..obs.profiler import DEFAULT_CAPACITY, make_profiler
-from ..ops import launches
+from ..ops import launches, quant
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
 from ..serving.errors import error_dict
@@ -357,7 +357,10 @@ class ContinuousBatchingEngine:
         if params is None:
             params = transformer.init_params(self.cfg, seed=seed,
                                              device=self.device)
-        self.model = params.to(self.device)
+        # int8 weights (tier.quantize), quantized in place one weight at a
+        # time on the device.
+        self.model = quant.maybe_quantize(params.to(self.device), tier,
+                                          self.cfg)
         self.pool = init_pool(self.cfg, self.paged, tier.kv_quantize,
                               device=self.device)
         self.allocator = BlockAllocator(self.paged.num_blocks)
@@ -382,13 +385,17 @@ class ContinuousBatchingEngine:
             self.spec = True
             self.cfg_d = tier.draft_model()
             if draft_params is not None:
-                self.model_d = draft_params.to(self.device)
+                self.model_d = quant.maybe_quantize(
+                    draft_params.to(self.device), tier, self.cfg_d)
             elif tier.draft_preset == tier.model_preset:
-                # Self-draft: the draft IS the target (shared weights).
+                # Self-draft: the draft IS the target (shared weights,
+                # quantized with it).
                 self.model_d = self.model
             else:
-                self.model_d = transformer.init_params(
-                    self.cfg_d, seed=seed + 1, device=self.device)
+                # A separate draft takes the tier's quantize mode too.
+                self.model_d = quant.maybe_quantize(transformer.init_params(
+                    self.cfg_d, seed=seed + 1, device=self.device), tier,
+                    self.cfg_d)
             self.pool_d = init_pool(self.cfg_d, self.paged, tier.kv_quantize,
                                     device=self.device)
             self._wbytes_d = roofline.weight_bytes(self.cfg_d, tier.quantize)

@@ -46,6 +46,7 @@ from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
 from ..models.transformer import KVCache, Transformer
+from ..ops import quant
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_token_dynamic
 from ..utils import roofline
@@ -160,7 +161,8 @@ class InferenceEngine:
         if params is None:
             params = transformer.init_params(self.cfg, seed=seed,
                                              device=self.device)
-        self.model = params.to(self.device)
+        self.model = quant.maybe_quantize(params.to(self.device), tier,
+                                          self.cfg)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed ^ 0x5EED)
         self._max_seq = self.cfg.max_seq_len

@@ -122,7 +122,9 @@ class SpeculativeEngine:
             if params is None:
                 params = transformer.init_params(cfg, seed=seed + salt,
                                                  device=self.device)
-            return params.to(self.device)
+            # The target tier's quantize mode applies to both models (the
+            # draft gains the most: it runs gamma small steps per round).
+            return quant.maybe_quantize(params.to(self.device), target, cfg)
         self.model_t = init(self.cfg_t, target_params, 0)
         self.model_d = init(self.cfg_d, draft_params, 1)
         self.accept_history: list = []

@@ -5,9 +5,13 @@ rotary embeddings, grouped-query attention, SwiGLU MLP, tied LM head.
 Weights live in ``nn.Module``s (``Transformer`` holding one
 ``DecoderLayer`` per layer) in the JAX package's ``x @ w`` layout
 ([in, out]), so ``models/convert.params_from_jax`` copies the JAX
-pytree's stacked ``[L, ...]`` leaves over unchanged.  The forward
-functions stay plain functions of (cfg, model, tensors), like the JAX
-package's, and round to the parameter dtype at the same points.
+pytree's stacked ``[L, ...]`` leaves over unchanged.  With int8 weights
+(``ops.quant.maybe_quantize``) each projection and the embedding table
+is an ``ops.quant.QTensor`` in place of its parameter; every product
+goes through ``quant.matmul``, ``embed_rows`` or ``tied_head``, which
+take either.  The forward functions stay plain functions of (cfg, model,
+tensors), like the JAX package's, and round to the parameter dtype at
+the same points.
 
 The sequential engines keep a contiguous KV cache, ``{"k", "v":
 [L, B, S, N_kv, D]}`` plus float32 row scales ``{"ks", "vs":

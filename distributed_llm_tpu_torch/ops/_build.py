@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``): the twelve
+attention kernels and W1, the int8-weight product.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded through ``ctypes``.  Libraries
@@ -83,6 +84,9 @@ SIGNATURES: Dict[str, tuple] = {
                            ("flash_decode_q8", "flash_decode_attention_q8"),
                            ("flash_chunk", "flash_chunk_attention"),
                            ("flash_chunk_q8", "flash_chunk_attention_q8"))},
+    # W1: x, x row stride, q, s, y, partials; M, K, N, k-tiles per split,
+    # splits; stream
+    "w8_matmul": ("w8_matmul", [_P, _L] + [_P] * 4 + [_I] * 5 + [_P]),
 }
 _COMMON = ("ragged_verify.cuh", "flash_tc.cuh")
 

@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional
 def wrappers() -> Dict[str, Callable]:
     """Every kernel's wrapper, by the kernel's name (its source's stem)."""
     from . import flash_attention as TF
+    from . import quant as TQ
     from . import ragged_attention as TR
     return {"ragged_decode": TR.ragged_paged_decode_attention,
             "flash_causal": TF.flash_causal_attention,
@@ -31,7 +32,8 @@ def wrappers() -> Dict[str, Callable]:
             "flash_decode": TF.flash_decode_attention,
             "flash_decode_q8": TF.flash_decode_attention_q8,
             "flash_chunk": TF.flash_chunk_attention,
-            "flash_chunk_q8": TF.flash_chunk_attention_q8}
+            "flash_chunk_q8": TF.flash_chunk_attention_q8,
+            "w8_matmul": TQ.w8_matmul}
 
 
 def plain_paths() -> Dict[str, Callable]:

@@ -3,8 +3,10 @@
 Counterpart of ``distributed_llm_tpu/utils/hbm_budget.py``.  The JAX
 package budgets a tier with ``jax.eval_shape`` over its real code paths;
 the port builds the same objects its engines build on the ``meta``
-device (``models.transformer.Transformer``, the paged pool's
-``init_pool``, the contiguous cache's ``init_kv_cache``), so their
+device (``models.transformer.Transformer``, quantized by
+``ops.quant.maybe_quantize`` when the tier serves int8 weights, the
+paged pool's ``init_pool``, the contiguous cache's ``init_kv_cache``),
+so their
 shapes and dtypes are the engine's own and nothing is allocated: an 8B
 budget runs on the CPU.  One device per tier (``tp=1``); the sharded
 budgets wait for tensor parallelism (``TierConfig.check_ported`` refuses
@@ -14,6 +16,7 @@ headroom as the JAX budget.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Iterable
 
 import torch
@@ -31,6 +34,12 @@ def tensor_bytes(tensors: Iterable[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def model_bytes(model: torch.nn.Module) -> int:
+    """Bytes of a model's weights: its parameters and its buffers (the
+    int8 ``q`` and the scales of a quantized model)."""
+    return tensor_bytes(itertools.chain(model.parameters(), model.buffers()))
+
+
 def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
                     ) -> Dict[str, Any]:
     """Budget ``tier`` against one device of ``hbm_per_chip_gb``.
@@ -39,17 +48,19 @@ def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
     kv_gb_per_chip, total_gb_per_chip, hbm_per_chip_gb, fits,
     headroom_gb} (the JAX budget's keys), and the unrounded
     ``params_bytes`` and ``kv_bytes`` beside them: the weights as the
-    engine builds them, and the KV the tier's engine would allocate — the batched engine's paged pool, or the
+    engine builds them (int8 ``q`` plus scales under ``quantize="int8"``),
+    and the KV the tier's engine would allocate — the batched engine's paged pool, or the
     sequential engine's contiguous cache plus one parked cache per prefix
     cache entry."""
     from ..engine.paged_kv import PagedConfig, init_pool
     from ..models import transformer
+    from ..ops import quant
 
     tier.check_ported()
     cfg = tier.model()
     meta = torch.device("meta")
-    params_bytes = tensor_bytes(
-        transformer.Transformer(cfg, device=meta).parameters())
+    params_bytes = model_bytes(quant.maybe_quantize(
+        transformer.Transformer(cfg, device=meta), tier, cfg))
     if tier.decode_batch > 1:
         pcfg = PagedConfig(block_size=tier.kv_block_size,
                            max_slots=tier.decode_batch,

@@ -68,18 +68,18 @@ def active_matmul_params(cfg) -> int:
 
 
 def weight_bytes(cfg, quantize: str = "none") -> int:
-    """Resident weight bytes streamed by one decode step: bf16 weights
-    (int8 weights are not ported yet).  For MoE this is the FULL expert
-    set, as a dense dispatch reads every expert's weights."""
-    if quantize != "none":
-        raise NotImplementedError(
-            f"quantize={quantize!r}: int8 weights are not ported to the "
-            "PyTorch/CUDA package yet (see ROADMAP.md)")
+    """Resident weight bytes streamed by one decode step: the body at 2
+    bytes a parameter, 1 with int8 weights.  For MoE this is the FULL
+    expert set, as a dense dispatch reads every expert's weights.  The
+    embedding/head and the norms count at 2 bytes even under int8 (the
+    JAX package's count, kept for parity: its ``quantize_params``, like
+    the port's, quantizes the embedding too)."""
     h, f, l = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
     kv = cfg.num_kv_heads * cfg.head_dim
     attn = h * h + 2 * h * kv + h * h
     ffn = 3 * h * f * max(1, cfg.num_experts)
-    body = l * (attn + ffn) * 2
+    per_param = 1 if quantize == "int8" else 2
+    body = l * (attn + ffn) * per_param
     return body + (cfg.vocab_size * h + (2 * l + 1) * h) * 2
 
 

@@ -8,8 +8,14 @@ the JAX package's, and the phases on ``/stats``.
   ``section_errors``) behaves as JAX's.
 - A headline run on the CPU over ``tiny_batched_cluster()`` (one repeat,
   2 clients, the first 4 queries, one trend repeat) through ``main``:
-  all five strategies with the headline's keys, the later sections, exit
-  0 and a compact last line; a section that holds an error exits 1.
+  all five strategies with the headline's keys, the later sections (the
+  features legs included, the flagship skipped on the CPU), exit 0 and a
+  compact last line; a section that holds an error exits 1.
+- The ``speculative`` and ``quant`` legs (``features_phase``) give the
+  JAX package's keys on the tiny tiers, and ``flagship_phase`` with the
+  tiny tiers passed in (orin with int8 weights) gives the keys the JAX
+  ``flagship_phase`` gives over the same tiers (nano_1b and orin_8b are
+  too large for a CPU test).
 - ``/stats`` shows the phases after a ``/chat``: tokenize, prefill and
   decode on the sequential tiers (``tiny_cluster()``), prefill and decode
   with their work on the batched ones (the JAX batched engine times no
@@ -99,6 +105,10 @@ def _synthetic_result() -> dict:
                                 "kv_int8": {"speedup_vs_bf16_kv": 1.05}},
         "long_context": {"prefix_reuse_speedup": 9.5},
         "orin_prefix": {"prefix_hits": 3, "followup_ttft_speedup": 4.2},
+        "speculative": {"gamma": 4, "speedup": 1.4},
+        "quant": {"nano": {"speedup": 1.6}, "orin": {"speedup": 1.8}},
+        "flagship": {"nano_1b": {"decode_tok_per_s": 88.0},
+                     "orin_8b_int8": {"decode_tok_per_s": 30.1}},
         "tiers": {"nano": {"phases": {}}},
     }
 
@@ -133,7 +143,8 @@ HEADLINE_KEYS = {
     "p50_latency_ms", "routing_accuracy", "decode_tok_per_s", "queries",
     "mfu_prefill", "hbm_util_decode", "utilization", "per_strategy",
     "tiers", "backend", "card", "cluster", "budget", "trend",
-    "trend_req_per_s", "continuous_batching", "long_context", "orin_prefix"}
+    "trend_req_per_s", "continuous_batching", "long_context", "orin_prefix",
+    "speculative", "quant", "flagship"}
 STRATEGY_KEYS = {"req_per_s", "sequential_req_per_s", "p50_ttft_ms",
                  "concurrent_p50_ttft_ms", "routing_accuracy",
                  "orin_queries", "repeats"}
@@ -187,6 +198,10 @@ def test_headline_runs_on_the_cpu(cpu_run):
     assert result["trend"]["device"] == "cpu"
     assert result["trend"]["repeats"] == 1
     assert result["continuous_batching"]["kv_int8"]["concurrent_req_per_s"] > 0
+    assert set(result["quant"]) == {"nano", "orin"}
+    assert all(q["int8_decode_tok_per_s"] > 0 for q in result["quant"].values())
+    assert result["speculative"]["spec_decode_tok_per_s"] > 0
+    assert "skipped" in result["flagship"]
     assert headline.section_errors(result) == []
     assert json.loads(lines[-1]) == headline.compact(result)
 
@@ -277,7 +292,75 @@ def test_headline_and_tester_share_the_bench_cluster():
             bc.nano.max_new_tokens) == ("nano_1b", 8, 64)
     assert (bc.orin.model_preset, bc.orin.decode_batch,
             bc.orin.max_new_tokens) == ("orin_8b", 4, 128)
-    assert all(t.attention_ragged and t.tp == 1 and t.quantize == "none"
+    assert all(t.attention_ragged and t.tp == 1 and t.quantize == "int8"
                for t in bc.tiers())
     for tier in bc.tiers():
         tier.check_ported()
+
+
+def _keys(node):
+    """The nested key structure of a result (values dropped)."""
+    if isinstance(node, dict):
+        return {k: _keys(v) for k, v in node.items()}
+    return None
+
+
+def test_features_keys_match_jax():
+    import dataclasses
+
+    from distributed_llm_tpu import config as jax_config
+    jc = jax_config.tiny_batched_cluster()
+    jc = dataclasses.replace(jc, orin=dataclasses.replace(jc.orin, tp=1))
+    want = jax_bench.features_phase(jc, n_prompts=1, max_new=2)
+    got = headline.features_phase(torch_config.tiny_batched_cluster(), "cpu",
+                                  n_prompts=1, max_new=2)
+    assert _keys(got) == _keys(want)
+    assert headline.section_errors(got) == []
+    for leg in got["quant"].values():
+        assert leg["bf16_decode_tok_per_s"] > 0
+        assert leg["int8_decode_tok_per_s"] > 0
+
+
+def test_flagship_keys_match_jax(monkeypatch):
+    """The flagship section over the tiny tiers (orin with int8 weights)
+    in both packages: the same labels and keys, every tier fitting its
+    budget and decoding, nano's long-context leg with its follow-ups."""
+    import dataclasses
+
+    from distributed_llm_tpu import config as jax_config
+    jc = jax_config.tiny_batched_cluster()
+    jc = dataclasses.replace(jc, orin=dataclasses.replace(
+        jc.orin, tp=1, quantize="int8"))
+    monkeypatch.setattr(jax_config, "flagship_cluster",
+                        lambda n_devices=None: jc)
+    want = jax_bench.flagship_phase(max_new=2, n_prompts=1)
+    tc = torch_config.tiny_batched_cluster()
+    tc = dataclasses.replace(tc, orin=dataclasses.replace(tc.orin,
+                                                          quantize="int8"))
+    got = headline.flagship_phase(cluster=tc, device="cpu", max_new=2,
+                                  n_prompts=1)
+    assert _keys(got) == _keys(want)
+    assert set(got) == {"nano_test", "orin_test_int8"}
+    assert headline.section_errors(got) == []
+    for entry in got.values():
+        assert entry["fits"] and entry["decode_tok_per_s"] > 0
+    assert len(got["nano_test"]["long_context"]["followup_ttft_ms"]) == 2
+    assert headline.parse_args(["--flagship"]).flagship
+    assert not headline.parse_args([]).flagship
+
+
+def test_flagship_cluster_is_the_jax_packages_on_one_card():
+    import dataclasses
+
+    from distributed_llm_tpu import config as jax_config
+    got = torch_config.flagship_cluster(1)
+    want = jax_config.flagship_cluster(1)
+    for name in ("nano", "orin"):
+        t, j = getattr(got, name), getattr(want, name)
+        for field in dataclasses.fields(t):
+            assert getattr(t, field.name) == getattr(j, field.name), (
+                name, field.name)
+    assert torch_config.flagship_cluster(1, kv_int8=True).orin.kv_quantize \
+        == "int8"
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        torch_config.flagship_cluster(5)

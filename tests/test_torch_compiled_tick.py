@@ -38,7 +38,7 @@ from distributed_llm_tpu_torch.engine.batching import (
 from distributed_llm_tpu_torch.engine.paged_kv import copy_block
 from distributed_llm_tpu_torch.models.convert import params_from_jax
 from distributed_llm_tpu_torch.ops import flash_attention as TF
-from distributed_llm_tpu_torch.ops import launches
+from distributed_llm_tpu_torch.ops import _build, launches, quant
 from distributed_llm_tpu_torch.ops import ragged_attention as TR
 from test_torch_dense_tick import PROMPTS as CLIMBING
 from test_torch_spec import (PRESET, PROMPTS, build_pair, drive,  # noqa: F401
@@ -240,7 +240,10 @@ def test_cpu_programs_run_their_body_every_tick():
 
 def test_wrappers_are_every_kernel_and_count_launches():
     wrappers = launches.wrappers()
-    assert len(wrappers) == 12
+    # The twelve attention kernels and W1, the int8-weight product: every
+    # kernel the build knows.
+    assert len(wrappers) == 13 and set(wrappers) == set(_build.SIGNATURES)
+    assert wrappers["w8_matmul"] is quant.w8_matmul
     assert all(isinstance(fn.launches, int) for fn in wrappers.values())
     assert wrappers["paged_decode"] is TF.paged_decode_attention
     assert launches.counts() == {name: fn.launches

@@ -4,8 +4,9 @@
 of a batched tier, the contiguous cache and its parked copies of a
 sequential one) on the ``meta`` device; the JAX package evaluates its
 own with ``jax.eval_shape``.  For one-device tiers (``tp=1``) every key
-of the JAX budget must be equal: nano_1b and orin_8b, bf16 and int8 KV,
-``decode_batch`` 1 and 4, and the tiny presets.  On the tiny presets the
+of the JAX budget must be equal: nano_1b and orin_8b, bf16 and int8
+weights, bf16 and int8 KV, ``decode_batch`` 1 and 4, and the tiny
+presets.  On the tiny presets the
 budget's bytes must also be the bytes of the tensors the port's engines
 allocate.  A tier whose ``hbm_gb_per_chip`` is too small is refused by
 the manager before any engine is built.
@@ -42,8 +43,20 @@ JAX_KEYS = ("tier", "model", "chips", "quantize", "params_gb_per_chip",
 @pytest.mark.parametrize("preset", ["nano_1b", "orin_8b", "nano_test",
                                     "orin_test"])
 def test_budget_matches_jax(preset, kv_quantize, decode_batch):
-    kw = dict(name="t", model_preset=preset, kv_quantize=kv_quantize,
-              decode_batch=decode_batch)
+    _budgets_equal(dict(name="t", model_preset=preset,
+                        kv_quantize=kv_quantize, decode_batch=decode_batch))
+
+
+@pytest.mark.parametrize("decode_batch", [1, 4])
+@pytest.mark.parametrize("kv_quantize", ["none", "int8"])
+@pytest.mark.parametrize("preset", ["nano_1b", "orin_8b"])
+def test_budget_with_int8_weights_matches_jax(preset, kv_quantize,
+                                              decode_batch):
+    _budgets_equal(dict(name="t", model_preset=preset, quantize="int8",
+                        kv_quantize=kv_quantize, decode_batch=decode_batch))
+
+
+def _budgets_equal(kw):
     for gb in (16.0, 80.0):
         want = jax_budget(jax_config.TierConfig(tp=1, **kw),
                           hbm_per_chip_gb=gb)

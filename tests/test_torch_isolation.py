@@ -5,7 +5,8 @@ A subprocess with ``jax`` and ``distributed_llm_tpu`` blocked in
 ``sys.modules`` imports the port's entry points (the ``/query`` and
 ``/chat`` servers, the router, the tier clients, the routing layer, the
 bench and the tester, the roofline, telemetry and memory budget
-utilities, the obs layer) and
+utilities, the obs layer, int8 weights with the W1 kernel's wrapper and
+the flagship cluster) and
 ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
@@ -118,6 +119,10 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.ops.attention\n"
         "import distributed_llm_tpu_torch.ops.flash_attention\n"
         "import distributed_llm_tpu_torch.ops.quant\n"
+        "from distributed_llm_tpu_torch.ops import _build, launches\n"
+        "assert 'w8_matmul' in launches.wrappers() and 'w8_matmul' in _build.SIGNATURES\n"
+        "from distributed_llm_tpu_torch.config import flagship_cluster\n"
+        "assert flagship_cluster(1).orin.quantize == 'int8'\n"
         "import distributed_llm_tpu_torch.ops.ragged_attention\n"
         "import distributed_llm_tpu_torch.ops.sampling\n"
         "import distributed_llm_tpu_torch.bench.headline\n"

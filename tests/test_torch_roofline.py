@@ -3,7 +3,7 @@
 - ``active_matmul_params``, ``weight_bytes``, ``kv_bytes_per_pos``,
   ``prefill_work``, ``decode_work`` and ``utilization`` equal the JAX
   functions (rel 1e-12) for every model preset and both KV dtypes;
-  ``weight_bytes`` refuses int8 weights (not ported).
+  ``weight_bytes`` with int8 weights equals JAX's for every preset.
 - ``chip_peaks``: None on the CPU, as JAX's; the H100's published peaks
   by the card's name; None for a card the table lacks (no environment
   override).
@@ -64,9 +64,14 @@ def test_params_and_bytes_match_jax(name):
 
 
 def test_weight_bytes_refuses_int8_weights():
-    with pytest.raises(NotImplementedError):
-        torch_roofline.weight_bytes(torch_config.MODEL_PRESETS["nano_1b"],
-                                    "int8")
+    """Formerly the refusal of int8 weights; since their port, their
+    weight bytes (the body at 1 byte a parameter, the embedding and norms
+    at 2) equal JAX's for every preset."""
+    for name in PRESETS:
+        jcfg, tcfg = _cfgs(name)
+        got = torch_roofline.weight_bytes(tcfg, "int8")
+        assert got == jax_roofline.weight_bytes(jcfg, "int8"), name
+        assert got < torch_roofline.weight_bytes(tcfg, "none"), name
 
 
 @pytest.mark.parametrize("name", PRESETS)
