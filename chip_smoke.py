@@ -104,10 +104,38 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    and each serving tier's mean power draw (its energy columns
    integrate the card's draw) reads 10-1000 W.  Every strategy carries
    the trace-derived TTFT columns, counting every request it served, and
-   the ``profile`` section (the tick profiler on the tiny cluster) holds
-   no error.
+   the ``profile`` and ``spill`` sections (the tick profiler and the host
+   spill tier on the tiny cluster) hold no error (the spill leg's outputs
+   identical across budgets, its hit rate monotone, its race observed);
+12. the constrained pool (``pressure_phase``): nano_1b (8 slots, bf16
+   pool, ragged tick) with ``kv_pool_blocks=96`` (of 1024 at full
+   residency), then orin_8b with int8 weights, an int8 pool, 4 slots and
+   the nano_1b draft with 36 (of 512), each over HTTP: 2 short prompts,
+   then prompts of about 900 tokens at once, each with a 256-token
+   budget, overrun the pool.  At least one preemption and one cancelled chunked
+   prefill; every request answered, none truncated; each request's
+   greedy tokens equal the same requests' on a full-residency engine, or
+   first differ at a near-tie (``near_tie``: at the first differing
+   position the two picks' logit gap, from a decode step on the state the
+   engine's own chunked prefill rebuilds, within twice
+   ``logits_check``'s tolerance);
+   the phase's kernels launched and no plain attention version ran;
+   ``tick_graph_check`` passes after the preemptions; every block free
+   at the end.  Each replay's wall time is reported;
+13. the host spill tier (``spill_chip_phase``): the bench's spill leg at
+   full width, nano_1b with an 80-block pool, 16 sessions of about 1000
+   tokens revisited with the spill OFF and at budgets of 4 and 32
+   sessions: ``warm_hit_rate`` monotone, outputs identical across the
+   three, the race sub-check's fallback observed, demotions and
+   promotions at the large budget, K1-K3 launched; it prints the
+   promoted revisits' TTFT beside the cold ones, the co-tenant's TBT p95
+   ratio, the demote and promote counts and the host bytes held.
 
-The batched engines (phases 4-6, 10 and 11) run every device stage as a
+``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
+the three) builds the kernels and runs only those phases, printing each
+one's numbers, with no kernel table and no last line: a debugging run.
+
+The batched engines (phases 4-6 and 10-13) run every device stage as a
 CUDA graph captured once per program (the ragged tick, each dense window
 rung, each γ bucket's speculative round; an admission's cold prefill per
 bucket and its writer, each chunk (width, window), the copy-on-write
@@ -115,9 +143,11 @@ copies, the draft's prefill, writer and chunk) and replayed; the
 kernels' launch counts count replays.  An admission audit watches every
 batched engine those phases build: on each main path no program body
 may run outside a capture, and no chunk, prefix-hit or copy program may
-be captured after the engine's warmup (only prefill buckets and dense
-rungs are built on first use); it reports each engine's device memory
-before and after its warmup.  In each batched serve phase and in /chat
+be captured after the engine's warmup (only prefill buckets, a
+replay's among them, writers and dense rungs are built on first use);
+the host spill tier's copies run eagerly by design and are listed apart
+(no spill copy may become a program); it reports each engine's device
+memory before and after its warmup.  In each batched serve phase and in /chat
 every admission program family is captured with one prompt, replayed
 with another and held against its bodies run eagerly on the second
 (``prefill_graph_check``: first tokens equal, the written pool rows
@@ -144,9 +174,9 @@ phase self-time table, coverage and attribution, the profiler's
 overhead, the budgets) and its per-kernel capture
 (``per_kernel_capture``) as two more, the bench's per-strategy req/s and
 p50 TTFT, trace columns, profile section, utilization and wall time as
-another, the card's name and power limit,
-the kernel
-table as one JSON line, and as its last line
+another, the pressure phases' and the spill phase's numbers as two more
+(each with the card's name and power limit), the card's name and power
+limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
 """
@@ -1750,38 +1780,50 @@ def _stage_name(stage: str, key) -> str:
 class AdmissionAudit:
     """What the batched engines built inside ``admission_audit`` did: each
     program body run eagerly outside a capture (by stage), each program
-    built (tier, stage, key, and whether its engine had warmed up), and
-    each engine's device memory before and after its warmup."""
+    built (tier, stage, key, and whether its engine had warmed up), each
+    spill copy's key first seen (``_note_spill``), and each engine's
+    device memory before and after its warmup."""
 
     def __init__(self):
         self.eager: dict = {}
         self.built: list = []
+        self.spill: list = []
         self.warmup: list = []
         self.warmed: set = set()
-        self._mark = (0, {})
+        self._mark = (0, {}, 0)
 
     def mark(self) -> None:
         """The main path starts: what follows is read by ``main_path``."""
-        self._mark = (len(self.built), dict(self.eager))
+        self._mark = (len(self.built), dict(self.eager), len(self.spill))
 
     def main_path(self, on_card: bool) -> dict:
-        """Since ``mark``: the bodies run eagerly and the programs built
-        after their engine's warmup.  On the card, no body may have run
-        outside a capture (every admission stage and tick replayed a
-        graph) and no chunk, prefix-hit or copy-on-write program may
-        have been built mid-serve (warmup builds JAX's warm set)."""
-        n, eager0 = self._mark
+        """Since ``mark``: the bodies run eagerly, the programs built after
+        their engine's warmup and the spill copies' keys.  On the card, no
+        body may have run outside a capture (every admission stage and
+        tick replayed a graph) and no chunk, prefix-hit or copy-on-write
+        program may have been built mid-serve (warmup builds JAX's warm
+        set).  A prefill bucket, a writer or a dense rung built on first
+        use is allowed (a replay's bucket among them), as the JAX engine
+        compiles them.  The spill copies (demote gathers, promote writes)
+        run eagerly by design: they are no program, so none may reach
+        ``_note_compile``, and they are listed apart."""
+        n, eager0, n_spill = self._mark
         eager = {k: v - eager0.get(k, 0) for k, v in self.eager.items()
                  if v != eager0.get(k, 0)}
         mid = [b for b in self.built[n:] if b["after_warmup"]]
         late = [b for b in mid if b["stage"] in WARM_STAGES]
+        require(not [b for b in self.built if b["stage"] == "spill"],
+                "a spill copy was built as a program")
         if on_card:
             require(not eager, f"program bodies ran eagerly on the main "
                     f"path: {eager}")
             require(not late, f"warm-set programs built mid-serve: {late}")
         return {"eager_body_runs": eager,
                 "built_mid_serve": [f"{b['tier']} {b['stage']} {b['key']}"
-                                    for b in mid]}
+                                    for b in mid],
+                "spill_copies": len(self.spill) - n_spill,
+                "spill_keys": sorted({f"{s['tier']} {s['key']}"
+                                      for s in self.spill[n_spill:]})}
 
 
 @contextlib.contextmanager
@@ -1791,7 +1833,7 @@ def admission_audit(torch, on_card: bool):
 
     cls = batching.ContinuousBatchingEngine
     real = {name: getattr(cls, name) for name in (
-        "_body", "_capture", "_note_compile", "warmup")}
+        "_body", "_capture", "_note_compile", "_note_spill", "warmup")}
     audit = AdmissionAudit()
     local = threading.local()
 
@@ -1823,6 +1865,10 @@ def admission_audit(torch, on_card: bool):
                             "after_warmup": id(self) in audit.warmed})
         return real["_note_compile"](self, stage, key)
 
+    def note_spill(self, kind, n):
+        audit.spill.append({"tier": self.tier.name, "key": (kind, n)})
+        return real["_note_spill"](self, kind, n)
+
     def warmup(self):
         before = memory()
         real["warmup"](self)
@@ -1833,7 +1879,8 @@ def admission_audit(torch, on_card: bool):
                              "programs": len(self._programs)})
 
     patched = {"_body": body, "_capture": capture,
-               "_note_compile": note_compile, "warmup": warmup}
+               "_note_compile": note_compile, "_note_spill": note_spill,
+               "warmup": warmup}
     for name, fn in patched.items():
         setattr(cls, name, fn)
     try:
@@ -3303,8 +3350,338 @@ def chat_traffic(torch, router, cluster, base: str, burst: int,
 
 # What phase 11 gives the headline: its wall-clock budget (the sweep gets
 # 45%, so a repeat of the five strategies fits), one repeat, 4 clients.
+# -- phases 12-13: the constrained pool and the host spill tier --------------
+
+PRESSURE_NEW = 256               # decode budget of every pressure request
+PRESSURE_WORDS = 400             # about 900 tokens a long prompt
+
+
+def near_tie(torch, engine, ids, want, got) -> dict:
+    """Where ``got`` first differs from ``want`` (the unpreempted run's
+    tokens after prompt ``ids``), and how near a tie the two picks were
+    there.  The state: ids + want[:p] but its last token, chunk-prefilled
+    by the engine's own chunk path into scratch blocks of its pool, then
+    one decode step at the last position, run three ways (``three_ways``: the
+    kernels, the plain attention, the plain attention in float32) as
+    ``logits_check`` runs it.  Two correct paths' logits each lie within
+    ``tol`` = LOGITS_RTOL x scale + floor of the float32 ones
+    (``check_three``'s bound), so the gap between the two picks may move
+    by up to 2 tol from one path to the other: ``near_tie`` when the
+    kernel logits' gap logit[want] - logit[got] is at most that.  The
+    paths differ on the card: a replay's K/V comes from a prefill (products
+    of many rows) where the first run's came from decode ticks (1-8 rows),
+    and a slot's step may run in a plain tick or a speculative round's
+    wider verify, with other slots beside it (another split-K plan)."""
+    from distributed_llm_tpu_torch.engine.paged_kv import (
+        chunk_prefill_paged, decode_step_paged)
+
+    p = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    seq = list(ids) + list(want[:p])
+    n, c, bs = len(seq), engine.chunk_tokens, engine.paged.block_size
+    blocks = engine._alloc_evicting(-(-n // bs))   # parked prefixes go
+    require(blocks is not None, "no scratch blocks for the near-tie check")
+    dev = engine.device
+    row = torch.from_numpy(engine._table_row(blocks)).to(dev)
+    try:
+        with torch.no_grad():
+            for start in range(0, n - 1, c):
+                toks = torch.full((1, c), engine.tokenizer.pad_id,
+                                  dtype=torch.long)
+                chunk = seq[start:min(start + c, n - 1)]
+                toks[0, :len(chunk)] = torch.tensor(chunk)
+                window = next(w for w in engine._chunk_windows
+                              if w >= start + c)
+                chunk_prefill_paged(
+                    engine.cfg, engine.model, toks.to(dev),
+                    torch.tensor([start], dtype=torch.int32, device=dev),
+                    torch.tensor([n - 1], dtype=torch.int32, device=dev),
+                    engine.pool, row, window)
+            cur = torch.tensor([seq[-1]], device=dev)
+            pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+            kernel, plain, ref = three_ways(lambda pool: decode_step_paged(
+                engine.cfg, engine.model, cur, pos, pool, row[None])[0].float(),
+                engine.pool)
+    finally:
+        engine.allocator.free(blocks)
+    scale = ref.abs().max().item()
+    floor = (plain - ref).abs().max().item()
+    tol = LOGITS_RTOL * scale + floor
+    top2 = kernel.topk(2)
+    out = {"position": p, "of": len(want),
+           "want": want[p] if p < len(want) else None,
+           "got": got[p] if p < len(got) else None,
+           "top2": [int(i) for i in top2.indices],
+           "top2_gap": float(top2.values[0] - top2.values[1]),
+           "scale": scale, "floor": floor, "tol": tol,
+           "kernel_vs_float32": (kernel - ref).abs().max().item(),
+           "near_tie": False}
+    if p < min(len(want), len(got)):
+        out["pick_gap"] = float(kernel[want[p]] - kernel[got[p]])
+        out["got_rank"] = int((kernel > kernel[got[p]]).sum())
+        out["near_tie"] = abs(out["pick_gap"]) <= 2 * tol
+    return out
+
+
+def pressure_phase(torch, tier, *, pool_blocks: int, n_long: int,
+                   n_short: int, expect, device: str = "cuda"):
+    """A constrained pool under load: ``n_short`` short prompts, then, once
+    they decode, ``n_long`` prompts of about 900 tokens at once, each with
+    a 256-token budget, sent over HTTP to ``tier`` with
+    ``kv_pool_blocks=pool_blocks`` (which they overrun).  First the same requests on the same tier at
+    full residency (no preemption: the reference, not the main path).
+    There must be at least one preemption and one cancelled chunked
+    prefill; every request is answered with no error and no truncation;
+    each request's tokens equal the reference's or differ first at a
+    near-tie (``near_tie``); every kernel in ``expect`` launched and no
+    plain attention version ran; ``tick_graph_check`` passes on the
+    engine after its preemptions; and with the prefix cache cleared at
+    the end every block is back on the free list.  Reports the
+    preemptions (and those in a speculative round's growth), the
+    cancelled prefills, each replay's wall time from its first
+    re-admission try to its slot going live, and the serving numbers.
+    Returns (numbers, launches by kernel)."""
+    from distributed_llm_tpu_torch.engine.batching import (
+        ContinuousBatchingEngine)
+    from distributed_llm_tpu_torch.engine.inference import prepare_prompt
+    from distributed_llm_tpu_torch.engine.paged_kv import pool_block_bytes
+
+    on_card = device == "cuda"
+    tier = dataclasses.replace(tier, max_new_tokens=PRESSURE_NEW)
+    prompts = ([f"long {i}: " + words(PRESSURE_WORDS, 3 * i)
+                for i in range(n_long)]
+               + [f"short {i}: " + words(24, 7 * i) for i in range(n_short)])
+    fresh_peak(torch, on_card)
+    ref = ContinuousBatchingEngine(tier, seed=0, device=device)
+    try:
+        reqs = [ref.submit(p, max_new_tokens=PRESSURE_NEW) for p in prompts]
+        for r in reqs:
+            require(r.done.wait(timeout=600) and r.error is None,
+                    f"{tier.name} pressure reference failed: {r.error}")
+        want = {p: r.result.token_ids for p, r in zip(prompts, reqs)}
+        ref_preempted = ref.preempted_total
+    finally:
+        ref.stop()
+    del ref, reqs
+    require(ref_preempted == 0, "the full-residency reference preempted")
+
+    ctier = dataclasses.replace(tier, kv_pool_blocks=pool_blocks)
+    with admission_audit(torch, on_card) as audit, \
+            served(torch, ctier, device) as (engine, base, startup_s):
+        submitted, replays, spec_preempts, preempted_at = [], {}, [0], {}
+        real = {name: getattr(engine, name) for name in (
+            "submit", "_admit_replay", "_slot_go_live", "_ensure_growth",
+            "_preempt")}
+
+        def preempt(ix):
+            preempted_at.setdefault(id(engine._slots[ix].request),
+                                    len(engine._slots[ix].tokens))
+            real["_preempt"](ix)
+
+        def submit(*a, **k):
+            req = real["submit"](*a, **k)
+            submitted.append(req)
+            return req
+
+        def admit_replay(req, *a):
+            episode = replays.setdefault(id(req), [])
+            if not episode or "ms" in episode[-1]:
+                episode.append({"t0": time.perf_counter(),
+                                "generated": len(req.replay_tokens)})
+            return real["_admit_replay"](req, *a)
+
+        def go_live(req, *a, gen=None, **k):
+            if gen is not None:
+                ep = replays[id(req)][-1]
+                ep["ms"] = (time.perf_counter() - ep.pop("t0")) * 1e3
+                ep["chunked"] = engine._chunk_gate(next(
+                    bb for bb in engine._buckets
+                    if bb >= k["prompt_len"] + len(gen) - 1))
+            return real["_slot_go_live"](req, *a, gen=gen, **k)
+
+        def ensure_growth(active, spec_gb=None):
+            before = engine.preempted_total
+            real["_ensure_growth"](active, spec_gb)
+            if spec_gb is not None:
+                spec_preempts[0] += engine.preempted_total - before
+
+        engine.submit, engine._admit_replay = submit, admit_replay
+        engine._slot_go_live, engine._ensure_growth = go_live, ensure_growth
+        engine._preempt = preempt
+        preempted0 = engine.preempted_total
+        cancelled0 = engine.prefill_cancelled_total
+        reset_counts()
+        audit.mark()
+        results = [None] * len(prompts)
+
+        def worker(i, p):
+            results[i] = query(base, p, num_predict=PRESSURE_NEW)
+
+        t_main = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i, p))
+                   for i, p in enumerate(prompts)]
+        # The short requests first (they decode, and speculate on a tier
+        # with a draft), then the long ones at once: the youngest victim
+        # is then a long request, whose replay is a chunked prefill that
+        # the decoders' growth can cancel.
+        for t in threads[n_long:]:
+            t.start()
+        deadline = time.monotonic() + 30
+        while (sum(s is not None for s in engine._slots) < n_short
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        for t in threads[:n_long]:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        main_s = time.perf_counter() - t_main
+        launches, plain_calls = read_counts(expect, on_card)
+        admission = audit.main_path(on_card)
+        for name in real:
+            delattr(engine, name)
+        require(all(r is not None for r in results),
+                f"{tier.name}: a pressure request was not answered")
+        preempted = engine.preempted_total - preempted0
+        cancelled = engine.prefill_cancelled_total - cancelled0
+        seen = json.dumps({
+            "preempted": preempted, "cancelled": cancelled,
+            "requests": [(r.result.prompt_tokens, r.result.gen_tokens,
+                          r.preempt_count, round(r.result.ttft_ms, 1))
+                          for r in submitted if r.result is not None],
+            "kv": engine.kv_stats()})
+        require(preempted >= 1, f"{tier.name}: no preemption on a pool of "
+                f"{pool_blocks} blocks: {seen}")
+        require(cancelled >= 1, f"{tier.name}: no chunked prefill was "
+                f"cancelled: {seen}")
+        require(len(submitted) == len(prompts), "the requests went astray")
+        tick = tick_graph_check(torch, engine)   # on a parked conversation
+        identical, ties = 0, []
+        for req in submitted:
+            got, w = req.result.token_ids, want[req.history]
+            require(req.error is None, f"{tier.name}: {req.error}")
+            if got == w:
+                identical += 1
+                continue
+            require(len(got) >= len(w) or got != w[:len(got)],
+                    f"{tier.name}: a request was truncated at {len(got)} "
+                    f"of {len(w)} tokens")
+            ids, _ = prepare_prompt(engine.tokenizer, req.history,
+                                    ctier.prefill_buckets,
+                                    engine.cfg.max_seq_len,
+                                    ctier.max_new_tokens)
+            tie = near_tie(torch, engine, ids, w, got)
+            tie["preempted"] = req.preempt_count
+            tie["preempted_at"] = preempted_at.get(id(req))
+            ties.append(tie)
+            require(tie["near_tie"], f"{tier.name}: a request's tokens "
+                    f"left the unpreempted run's away from a near-tie: {tie}"
+                    f" {seen}")
+        engine.prefix_cache.clear()
+        require(engine.allocator.available == engine.paged.num_blocks - 1,
+                f"{tier.name}: {engine.allocator.available} of "
+                f"{engine.paged.num_blocks - 1} blocks free at the end")
+        stats = [r["stats"] for r in results]
+        replayed = [ep for eps in replays.values() for ep in eps if "ms" in ep]
+        require(replayed, f"{tier.name}: no replay went live")
+        out = {
+            "tier": tier.name, "model": tier.model_preset,
+            "draft": tier.draft_preset if engine.spec else None,
+            "quantize": tier.quantize, "kv_quantize": tier.kv_quantize,
+            "slots": tier.decode_batch, "pool_blocks": pool_blocks,
+            "pool_block_bytes": pool_block_bytes(
+                engine.cfg, ctier.kv_block_size, ctier.kv_quantize),
+            "full_residency_blocks": engine.paged.max_slots
+            * engine.paged.blocks_per_slot,
+            "requests": len(prompts), "startup_s": startup_s,
+            "main_path_s": main_s, "preempted": preempted,
+            "preempted_in_spec_growth": spec_preempts[0],
+            "prefill_cancelled": cancelled,
+            "preempt_counts": sorted(r.preempt_count for r in submitted),
+            "replays": replayed, "tokens_identical": identical,
+            "near_ties": ties,
+            "near_tie_bound": f"|logit[want] - logit[got]| <= 2 x "
+                              f"({LOGITS_RTOL:g} x max|logit| + floor)",
+            "gen_tokens": sum(s["gen_tokens"] for s in stats),
+            "tokens_per_s": sum(s["gen_tokens"] for s in stats) / main_s,
+            "p50_ttft_ms": statistics.median(s["ttft_ms"] for s in stats),
+            "launches": launches, "plain_calls": plain_calls,
+            "tick_stats": engine.tick_stats(), "tick_graph_check": tick,
+            "admission": dict(admission, warmup_memory=audit.warmup),
+            "peak_memory_gb": peak_memory_gb(torch, on_card)}
+    return out, launches
+
+
+SPILL_WORDS = 440                # about 1000 tokens a session prompt
+
+
+def spill_chip_phase(torch, nano, *, expect, device: str = "cuda"):
+    """The host spill tier at full width: the bench's spill leg
+    (``bench.headline.spill_phase``) on nano_1b with an 80-block pool
+    (about 4 parked sessions of 16 blocks), 16 sessions of about 1000
+    tokens, host budgets OFF, 4 sessions' worth and 32 sessions' worth.
+    ``warm_hit_rate`` must be monotone over the three, the outputs
+    identical across them and the race sub-check must observe its
+    fallback (the leg's own ``error`` rules); the large budget must have
+    demoted and promoted; every kernel in ``expect`` launched and no plain
+    attention version ran; no spill copy was a program.  Reports the TTFT
+    of the promoted revisits beside the cold ones, the co-tenant's TBT p95
+    ratio, the demote and promote counts and the host bytes held."""
+    from distributed_llm_tpu_torch.bench import headline
+
+    on_card = device == "cuda"
+    base = dataclasses.replace(nano, max_new_tokens=6, decode_batch=4,
+                               prefix_cache_entries=32, kv_pool_blocks=80)
+    fresh_peak(torch, on_card)
+    with admission_audit(torch, on_card) as audit:
+        reset_counts()
+        audit.mark()
+        t0 = time.perf_counter()
+        out = headline.spill_phase(device, n_sessions=16, base=base,
+                                   filler=words(SPILL_WORDS), entry_blocks=16)
+        wall_s = time.perf_counter() - t0
+        launches, plain_calls = read_counts(expect, on_card)
+        admission = audit.main_path(on_card)
+    require("error" not in out, f"spill phase: {out.get('error')}")
+    large, off = out["large"], out["off"]
+    require(large["demotions_total"] and large["promotions"] > 0,
+            f"spill phase: nothing demoted or promoted: {large}")
+    require(admission["spill_copies"] > 0,
+            f"spill phase: no spill copy was recorded: {admission}")
+    out.update({"wall_s": wall_s, "launches": launches,
+                "plain_calls": plain_calls, "admission": admission,
+                "promoted_ttft_p50_ms": large.get("promoted_ttft_p50_ms"),
+                "cold_ttft_p50_ms": off.get("cold_ttft_p50_ms"),
+                "host_bytes_large": large.get("host_bytes"),
+                "peak_memory_gb": peak_memory_gb(torch, on_card)})
+    return out, launches
+
+
+# The late phases, by name: each (torch, nano tier, orin tier) ->
+# (numbers, launches by kernel).
+LATE_PHASES = {
+    # nano_1b, 8 slots, bf16 pool, ragged tick: 8 prompts of about 900
+    # tokens (and 2 short) with a 256-token budget overrun 96 blocks of 2
+    # MiB (full residency: 1024).
+    "pressure_nano": lambda torch, nano, orin: pressure_phase(
+        torch, nano, pool_blocks=96, n_long=8, n_short=2,
+        expect=("ragged_decode", "flash_causal", "paged_chunk")),
+    # orin_8b with int8 weights and an int8 pool, 4 slots, the nano_1b
+    # draft (int8 weights too): 36 blocks of 4.1 MiB (full residency:
+    # 512).  Two long requests admit at 15 blocks each and grow to 19.
+    "pressure_orin": lambda torch, nano, orin: pressure_phase(
+        torch, dataclasses.replace(orin, quantize="int8", kv_quantize="int8",
+                                   draft_preset=nano.model_preset),
+        pool_blocks=36, n_long=4, n_short=2,
+        expect=("flash_causal", "ragged_decode_q8", "ragged_verify_q8",
+                "w8_matmul")),
+    "spill": lambda torch, nano, orin: spill_chip_phase(
+        torch, nano, expect=("ragged_decode", "flash_causal",
+                             "paged_chunk")),
+}
+
+
 BENCH_BUDGET_S = 600.0
-BENCH_KERNELS = ("ragged_decode", "flash_causal", "paged_chunk",
+BENCH_KERNELS =("ragged_decode", "flash_causal", "paged_chunk",
                  "ragged_decode_q8", "w8_matmul")
 TESTER_ROWS = 12                  # the general_knowledge set, one config
 
@@ -3388,6 +3765,10 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
     require("error" not in result["profile"] and "coverage"
             in result["profile"],
             f"bench profile section: {result['profile']}")
+    spill = result["spill"]
+    require(spill.get("outputs_identical") and spill.get("hit_rate_monotone")
+            and (spill.get("race") or {}).get("observed"),
+            f"bench spill section: {spill}")
     if on_card:
         check_utilization(result["utilization"])
     trend = result["trend"]
@@ -3455,7 +3836,7 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "orin_prefix": result["orin_prefix"],
         "continuous_batching": result["continuous_batching"],
         "speculative": result["speculative"], "quant": result["quant"],
-        "flagship": result["flagship"],
+        "flagship": result["flagship"], "spill": result["spill"],
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
@@ -3503,6 +3884,18 @@ def main() -> None:
                            or "spill" in ln]
     log(f"built {sorted(paths)} in {build_s:.1f}s")
 
+    cluster = ClusterConfig()
+    nano, orin = cluster.nano, cluster.orin
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    if only:
+        # A debugging run: only the named late phases, no kernel table and
+        # no last line.
+        for name in only[0]:
+            log(json.dumps({name: LATE_PHASES[name](torch, nano, orin)[0],
+                            "card": card}))
+        return
+
     # 3. Kernels.  First the floor of a graph-replayed time: a graph of one
     # and of two kernels that touch 4 bytes, timed as the rows are.
     tiny = torch.zeros(1, device="cuda")
@@ -3512,8 +3905,6 @@ def main() -> None:
                                   flush=flush_buf.zero_) for n in (1, 2)}
     del tiny, flush_buf
     log(f"graph-replay floor (1, 2 kernels): {graph_floor_ms} ms")
-    cluster = ClusterConfig()
-    nano, orin = cluster.nano, cluster.orin
     rows = kernel_phase(torch, nano.model(), orin.model(), nano.kv_block_size)
     spec_rows, draft_shape = spec_kernel_phase(
         torch, orin.model(), nano.model(), orin.kv_block_size,
@@ -3596,13 +3987,21 @@ def main() -> None:
     # flagship sections, then the canonical tester.
     bench, bench_launches = bench_phase(torch)
     log(f"bench run in {time.perf_counter() - t_all:.1f}s")
+
+    # 12-13. The constrained pool (nano_1b, then orin_8b int8 with the
+    # nano_1b draft) and the host spill tier (nano_1b).
+    late = {}
+    late_launches = {}
+    for name in ("pressure_nano", "pressure_orin", "spill"):
+        late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
+        log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
                 "orin_spec_int8": int8_launches, "orin_w8": w8_launches,
                 "orin_seq_bf16": seq_launches,
                 "orin_seq_spec": seq_spec_launches,
                 "nano_seq_int8": seq_int8_launches,
                 "nano_seq_w8": seq_w8_launches, "chat": chat_launches,
-                "bench": bench_launches}
+                "bench": bench_launches, **late_launches}
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
                                     for p, n in by_phase.items()}
@@ -3625,7 +4024,7 @@ def main() -> None:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "graph_floor_ms": graph_floor_ms,
               "kernels": rows, "serve": phases, "chat": chat,
-              "bench": bench,
+              "bench": bench, **late,
               "total_s": time.perf_counter() - t_all}
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -3696,7 +4095,43 @@ def main() -> None:
             "trace_schema_ok")},
         "speculative": bench["speculative"], "quant": bench["quant"],
         "flagship": bench["flagship"],
+        "spill": {k: bench["spill"].get(k) for k in (
+            "warm_hit_rate", "hit_rate_monotone", "tbt_ratio",
+            "outputs_identical", "race")}
+        | {m: {k: bench["spill"][m].get(k) for k in (
+            "warm_hit_rate", "promotions", "demotions_total",
+            "revisit_ttft_p50_ms")} for m in ("off", "small", "large")},
         "admission": bench["admission"]}}))
+    log(json.dumps({"card": card, "pressure": {
+        name: {k: late[name][k] for k in (
+            "model", "draft", "quantize", "kv_quantize", "slots",
+            "pool_blocks", "full_residency_blocks", "requests",
+            "preempted", "preempted_in_spec_growth", "prefill_cancelled",
+            "preempt_counts", "tokens_identical", "near_ties",
+            "near_tie_bound", "tokens_per_s", "p50_ttft_ms", "main_path_s")}
+        | {"replay_ms": [round(ep["ms"], 3) for ep in late[name]["replays"]],
+           "replay_chunked": [ep["chunked"] for ep in late[name]["replays"]],
+           "tick_replay_ms": late[name]["tick_graph_check"].get(
+               "tick_replay_ms")}
+        for name in ("pressure_nano", "pressure_orin")}}))
+    sp = late["spill"]
+    log(json.dumps({"card": card, "spill": {
+        "warm_hit_rate": {m: sp[m]["warm_hit_rate"]
+                          for m in ("off", "small", "large")},
+        "served": {m: sp[m]["served"] for m in ("off", "small", "large")},
+        "promoted_ttft_p50_ms": sp["promoted_ttft_p50_ms"],
+        "cold_ttft_p50_ms": sp["cold_ttft_p50_ms"],
+        "revisit_ttft_p50_ms": {m: sp[m]["revisit_ttft_p50_ms"]
+                                for m in ("off", "small", "large")},
+        "tbt_ratio": sp.get("tbt_ratio"),
+        "cotenant_tbt_p95_ms": {m: sp[m]["cotenant_tbt_p95_ms"]
+                                for m in ("off", "large")},
+        "demotions": sp["large"]["demotions_total"],
+        "promotions": sp["large"]["promotions"],
+        "host_bytes": sp["host_bytes_large"],
+        "outputs_identical": sp["outputs_identical"], "race": sp["race"],
+        "spill_copies": sp["admission"]["spill_copies"],
+        "wall_s": sp["wall_s"]}}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

@@ -35,7 +35,11 @@ reuse on the orin tier), ``continuous_batching`` (one batched nano engine,
 concurrent against sequential, and its int8-KV leg), ``profile`` (the
 tick-phase profiler over the tiny batched cluster: its per-phase
 self-time table, coverage, attribution conservation, the cost ledger's
-head and a Chrome-trace artifact, ``BENCH_profile_trace.json``), the
+head and a Chrome-trace artifact, ``BENCH_profile_trace.json``), ``spill``
+(the host KV spill tier on the tiny nano tier with a 20-block pool: 16
+sessions populated then revisited with the spill OFF and at a small and
+a large host budget; ``warm_hit_rate`` per mode, the co-tenant's
+``tbt_ratio``, identity across modes and the promotion-race sub-check), the
 features legs ``speculative`` (the orin tier speculating with the nano
 model as its draft: acceptance and decode tok/s against plain greedy)
 and ``quant`` (each tier's decode tok/s with bf16 weights, int8 weights,
@@ -55,14 +59,16 @@ best-so-far on SIGTERM or when the watchdog sees no progress.
 The JAX package's environment knobs are flags here: ``--budget-s``
 (1200), ``--repeats`` (3), ``--clients`` (4), ``--watchdog-s`` (900),
 ``--flagship`` (``DLLM_BENCH_FLAGSHIP``: run the flagship section on the
-CPU too, at its full 1B and 8B sizes).
+CPU too, at its full 1B and 8B sizes), ``--host-kv-bytes``
+(``DLLM_HOST_KV_BYTES``, for the sweep cluster's tiers).
 
 Not here, each waiting for the feature it measures (ROADMAP.md A1): the
 chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
-``pressure`` (preemption, a constrained pool), ``noisy`` (tenants),
+``pressure`` (its load half runs on the fault injector's block starver),
+``noisy`` (tenants),
 ``skew`` (the dense-tick A/B leg), ``spec_phase`` and ``spec_multiturn``
 (the bench's speculative legs), ``mixed`` (chunked-prefill stall
-accounting), ``shared`` (sharing counters), ``spill`` (host KV spill),
+accounting), ``shared`` (sharing counters),
 ``replica``, ``elastic`` (replicas, the autoscaler), ``multichip``
 (tensor parallelism), ``openloop`` (the open-loop driver),
 ``tier_quality`` (trained checkpoints), ``perf_steering`` (fault
@@ -268,6 +274,30 @@ def compact(result: dict) -> dict:
         }.items() if v is not None}
         if cm:
             out["profile"] = cm
+    sp = result.get("spill")
+    if isinstance(sp, dict) and not sp.get("skipped"):
+        # One number each: the large-budget warm-hit rate with OFF and
+        # small beside it, the monotonicity verdict, the co-tenant TBT
+        # ratio, the large budget's promotions and demotions, revisit
+        # TTFT p50 ON and OFF, the race sub-check and the identity verdict.
+        lg, sm, off = (sp.get("large") or {}, sp.get("small") or {},
+                       sp.get("off") or {})
+        cm = {k: v for k, v in {
+            "warm_hit_rate": sp.get("warm_hit_rate"),
+            "hit_off": off.get("warm_hit_rate"),
+            "hit_small": sm.get("warm_hit_rate"),
+            "monotone": sp.get("hit_rate_monotone"),
+            "tbt_ratio": sp.get("tbt_ratio"),
+            "promotions": lg.get("promotions"),
+            "demotions": lg.get("demotions_total"),
+            "ttft50_on": lg.get("revisit_ttft_p50_ms"),
+            "ttft50_off": off.get("revisit_ttft_p50_ms"),
+            "race_observed": (sp.get("race") or {}).get("observed"),
+            "ident": sp.get("outputs_identical"),
+            "err": (sp.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["spill"] = cm
     strategies = result.get("per_strategy")
     if isinstance(strategies, dict):
         # t50/t95: trace-derived p50/p95 TTFT, tbt50: trace-derived p50
@@ -478,6 +508,249 @@ def profile_phase(device=None, n_requests: int = 12, beat=lambda: None,
         _stop_tiers(router)
     beat()
     return out
+
+
+def _pct(values, q):
+    """Nearest-rank percentile of ``values`` (the obs layer's rule),
+    rounded for the artifact; None when empty."""
+    from ..obs.metrics import nearest_rank
+    v = nearest_rank(values, q)
+    return None if v is None else round(v, 3)
+
+
+def spill_phase(device=None, n_sessions: int = 16,
+                beat=lambda: None, base=None, filler: Optional[str] = None,
+                entry_blocks: int = 4) -> dict:
+    """The hierarchical-KV spill leg: a session population far larger
+    than the device pool (``n_sessions`` sessions on a 20-block pool
+    sized for about 4), spill OFF and ON at two host budgets, the same
+    seed and prompts: the regime where parked prefixes are evicted long
+    before they are re-hit.
+
+    Per mode: every session prompts once (populate: pool pressure
+    evicts, ON demotes), then every session revisits with an extended
+    prompt, newest first (recently active sessions return first: the
+    LRU-friendly half of real traffic).  ``warm_hit_rate`` = revisits
+    served warm (device prefix hits + host promotions) / N, required
+    MONOTONE over OFF <= small <= large; ``tbt_ratio`` = a live
+    co-tenant stream's inter-token-gap p95 during the revisits, ON(large)
+    / OFF (the decode stream the budget contract protects; the JAX bar is
+    1.05, reported here, not gated); outputs must be identical across
+    ALL modes (else ``error``).  A deterministic race sub-check (copier
+    paused, entry invalidated mid-promotion) must observe the
+    promotion-race fallback with cold-prefill identity.
+
+    ``base`` replaces the leg's tier (a constrained pool, chunked prefill,
+    no spill budget; chip_smoke passes nano_1b at full width), ``filler``
+    the sessions' shared prompt tail, and ``entry_blocks`` the blocks one
+    parked session holds (the host budgets' unit).  Each mode also
+    reports the revisits' TTFT p50 by how they were served: promoted
+    from the host, a device prefix hit, or cold."""
+    from ..config import tiny_batched_cluster
+    from ..engine.batching import ContinuousBatchingEngine
+    from ..engine.paged_kv import pool_block_bytes
+
+    print("[bench] hierarchical-KV spill leg", file=sys.stderr, flush=True)
+    if base is None:
+        base = dataclasses.replace(
+            tiny_batched_cluster().nano, max_new_tokens=6, decode_batch=4,
+            prefill_buckets=(16, 32, 64), prefill_chunk_tokens=16,
+            prefix_cache_entries=32,    # capacity never the bound here
+            kv_pool_blocks=20)          # about 4 sessions of parked prefix
+    if filler is None:
+        filler = ("tell me about the rivers lakes mountains oceans deltas "
+                  "and glaciers of the region in one short sentence")
+    # Session names diverge at TOKEN ZERO: a shared opener would give
+    # every revisit a trivial cross-session device hit.
+    names = ("alpha bravo charlie delta echo foxtrot golf hotel india "
+             "juliett kilo lima mike november oscar papa quebec romeo "
+             "sierra tango").split()
+    prompts = [f"{names[i % len(names)]} {i}: {filler}"
+               for i in range(n_sessions)]
+    revisits = [p + " and then say more" for p in reversed(prompts)]
+    blk = pool_block_bytes(base.model(), base.kv_block_size,
+                           base.kv_quantize)
+    entry_bytes = blk * entry_blocks    # one parked session's blocks
+    budgets = {"off": None,
+               "small": entry_bytes * 4,
+               "large": entry_bytes * n_sessions * 2}
+    out: dict = {"n_sessions": n_sessions,
+                 "kv_pool_blocks": base.kv_pool_blocks,
+                 "host_entry_bytes": entry_bytes}
+
+    token_ids: dict = {}
+    for mode, host_bytes in budgets.items():
+        tier = dataclasses.replace(base, host_kv_bytes=host_bytes,
+                                   max_new_tokens=48)
+        eng = ContinuousBatchingEngine(tier, seed=11, device=device)
+        try:
+            eng.warmup()
+            beat()
+            ids_mode = []
+            for p in prompts:           # populate: park -> evict/demote
+                ids_mode.append(tuple(
+                    eng.generate(p, max_new_tokens=6).token_ids))
+            beat()
+            cst0 = eng.prefix_cache.stats()
+            sp0 = (eng.kv_spill.stats() if eng.kv_spill is not None
+                   else {})
+            gaps: list = []
+            co_stop = threading.Event()
+
+            def co_tenant():
+                # A prompt shorter than the cache's min_prefix: the
+                # co-tenant never parks, so the warm-hit accounting is
+                # the N sessions' alone.
+                while not co_stop.is_set():
+                    last = None
+                    for _ in eng.generate_stream("sky", max_new_tokens=48):
+                        now = time.perf_counter()
+                        if last is not None:
+                            gaps.append((now - last) * 1000.0)
+                        last = now
+
+            co = threading.Thread(target=co_tenant, daemon=True)
+            co.start()
+            ttfts = []
+            served: dict = {"promoted": [], "device": [], "cold": []}
+
+            def warm_counts():
+                cs = eng.prefix_cache.stats()
+                return (cs["hits_shared"] + cs["hits_exclusive"],
+                        eng.kv_spill.stats()["promotions_total"]
+                        if eng.kv_spill is not None else 0)
+
+            for p in revisits:          # revisit: the warm-or-cold test
+                hits0, prom0 = warm_counts()
+                r = eng.generate(p, max_new_tokens=6)
+                hits1, prom1 = warm_counts()
+                ids_mode.append(tuple(r.token_ids))
+                ttfts.append(r.ttft_ms)
+                served["promoted" if prom1 > prom0 else
+                       "device" if hits1 > hits0 else "cold"].append(
+                           r.ttft_ms)
+            co_stop.set()
+            co.join(timeout=60)
+            beat()
+            cst = eng.prefix_cache.stats()
+            sp = (eng.kv_spill.stats() if eng.kv_spill is not None
+                  else {})
+            dev_hits = ((cst["hits_shared"] + cst["hits_exclusive"])
+                        - (cst0["hits_shared"] + cst0["hits_exclusive"]))
+            promotions = (sp.get("promotions_total", 0)
+                          - sp0.get("promotions_total", 0))
+            warm = min(n_sessions, dev_hits + promotions)
+            token_ids[mode] = ids_mode
+            ttfts.sort()
+            gaps.sort()
+            out[mode] = {
+                "warm_hit_rate": round(warm / n_sessions, 4),
+                "device_hits": dev_hits,
+                "promotions": promotions,
+                "demotions_total": sp.get("demotions_total"),
+                "promotion_races_total": sp.get("promotion_races_total"),
+                "host_blocks_peak": sp.get("blocks"),
+                "host_bytes": sp.get("bytes"),
+                "revisit_ttft_p50_ms": _pct(ttfts, 0.50),
+                **{f"{how}_ttft_p50_ms": _pct(v, 0.50)
+                   for how, v in served.items()},
+                "served": {how: len(v) for how, v in served.items()},
+                "cotenant_tbt_p50_ms": _pct(gaps, 0.50),
+                "cotenant_tbt_p95_ms": _pct(gaps, 0.95),
+                "decode_tick_p50_ms": eng.tick_stats()["p50_ms"],
+            }
+        finally:
+            eng.stop()
+        beat()
+
+    off = out.get("off") or {}
+    small = out.get("small") or {}
+    large = out.get("large") or {}
+    if large.get("warm_hit_rate") is not None:
+        out["warm_hit_rate"] = large["warm_hit_rate"]
+        out["hit_rate_monotone"] = (
+            off.get("warm_hit_rate", 1.0)
+            <= small.get("warm_hit_rate", 0.0)
+            <= large.get("warm_hit_rate", 0.0))
+        out["hit_rate_gain"] = round(
+            large["warm_hit_rate"] - off.get("warm_hit_rate", 0.0), 4)
+    # At p95: decode emits whole ticks of tokens at once, so the p50 gap
+    # is about 0 and only the tick-cadence tail can show a stall.
+    if large.get("cotenant_tbt_p95_ms") and off.get("cotenant_tbt_p95_ms"):
+        out["tbt_ratio"] = round(large["cotenant_tbt_p95_ms"]
+                                 / off["cotenant_tbt_p95_ms"], 3)
+    # The spill tier must not move a single token at any budget.
+    out["outputs_identical"] = (
+        len(token_ids) == 3
+        and token_ids["off"] == token_ids["small"] == token_ids["large"])
+    if not out["outputs_identical"]:
+        out["error"] = ("spill outputs diverged across host budgets: the "
+                        "promotion/race identity contract is broken")
+    if not out.get("error") and out.get("hit_rate_monotone") is False:
+        out["error"] = ("warm_hit_rate is not monotone over host budgets "
+                        "(off {} <= small {} <= large {} violated)".format(
+                            off.get("warm_hit_rate"),
+                            small.get("warm_hit_rate"),
+                            large.get("warm_hit_rate")))
+    try:
+        out["race"] = _spill_race_subcheck(base, entry_bytes, device, beat)
+        if not out.get("error") and not out["race"].get("observed"):
+            out["error"] = ("promotion-race fallback was never observed in "
+                            "the race sub-check")
+        if not out.get("error") and out["race"].get("identical") is False:
+            out["error"] = ("promotion-race fallback diverged from the cold "
+                            "prefill: the identity contract is broken")
+    except Exception as exc:
+        out["race"] = {"error": str(exc)[:200]}
+        out.setdefault("error", f"race sub-check failed: {exc}"[:200])
+    return out
+
+
+def _spill_race_subcheck(base, entry_bytes: int, device=None,
+                         beat=lambda: None) -> dict:
+    """The spill leg's deterministic promotion-race probe: park a prefix,
+    demote it with the copier PAUSED, admit a matching revisit (the
+    promotion claims the still-copying entry and waits), invalidate the
+    host store, resume: the promotion must fall back to a cold prefill
+    with identical output and count exactly one race."""
+    from ..engine.batching import ContinuousBatchingEngine
+
+    prompt = ("race probe: tell me about rivers lakes mountains oceans "
+              "deltas and glaciers")
+    turn2 = prompt + " and then say more"
+    cold_eng = ContinuousBatchingEngine(
+        dataclasses.replace(base, host_kv_bytes=None), seed=11,
+        device=device)
+    try:
+        cold_eng.generate(prompt)
+        cold = cold_eng.generate(turn2).token_ids
+    finally:
+        cold_eng.stop()
+    beat()
+    eng = ContinuousBatchingEngine(
+        dataclasses.replace(base, host_kv_bytes=entry_bytes * 8), seed=11,
+        device=device)
+    try:
+        eng.generate(prompt)
+        eng.kv_spill.pause()
+        eng.prefix_cache.pop_oldest()         # demote, held in COPYING
+        req = eng.submit(turn2)
+        deadline = time.time() + 20
+        while (eng.kv_spill.stats()["host_hits"] == 0
+               and time.time() < deadline):
+            time.sleep(0.001)
+        eng.kv_spill.clear()                  # the race: the entry dies
+        eng.kv_spill.resume()
+        ok = req.done.wait(timeout=60) and req.error is None
+        st = eng.kv_spill.stats()
+        return {
+            "observed": bool(ok and st["promotion_races_total"] >= 1),
+            "races": st["promotion_races_total"],
+            "identical": bool(ok and req.result.token_ids == cold),
+        }
+    finally:
+        eng.kv_spill.resume()
+        eng.stop()
 
 
 def _clear_prefix_caches(router) -> None:
@@ -1050,13 +1323,16 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         progress: Optional[Progress] = None,
         budget: Optional[Budget] = None, cluster=None,
         n_queries: Optional[int] = None, trend_repeats: int = 5,
-        flagship: bool = False) -> dict:
+        flagship: bool = False,
+        host_kv_bytes: Optional[int] = None) -> dict:
     """The headline sweep and the later sections on ``device`` (default:
     the card; raises with none).  ``cluster`` defaults to
     ``default_cluster(device)``; ``n_queries`` keeps the first queries
     of the set (a smoke run); ``trend_repeats`` is the trend leg's K;
     ``flagship`` runs the flagship section on the CPU too (it always
-    runs on the card)."""
+    runs on the card); ``host_kv_bytes`` gives the sweep cluster's tiers
+    a host spill tier of that budget (the JAX bench's
+    ``DLLM_HOST_KV_BYTES``; the spill leg sets its own budgets)."""
     import torch
 
     from ..device import resolve_device
@@ -1074,6 +1350,11 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
 
     queries = query_sets["general_knowledge"][:n_queries]
     cluster = cluster or default_cluster(dev)
+    if host_kv_bytes is not None:
+        cluster = dataclasses.replace(cluster, **{
+            t: dataclasses.replace(getattr(cluster, t),
+                                   host_kv_bytes=host_kv_bytes)
+            for t in ("nano", "orin")})
     # The sweep's own registry: the trace-derived columns read it.
     sweep_obs = Observability(slow_ms=None)
     router = Router(strategy=STRATEGIES[0], benchmark_mode=True,
@@ -1292,6 +1573,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         router.cluster, dev, beat=progress.beat), 120)
     profile = later("profile", lambda: profile_phase(
         dev, beat=progress.beat), 60)
+    spill = later("spill", lambda: spill_phase(dev, beat=progress.beat), 150)
     if budget.allows(150):
         features = features_phase(router.cluster, dev, beat=progress.beat)
     else:
@@ -1319,6 +1601,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "long_context": long_context,
         "orin_prefix": orin_prefix,
         "profile": profile,
+        "spill": spill,
         "speculative": features["speculative"],
         "quant": features["quant"],
         "flagship": flagship_out,
@@ -1342,6 +1625,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--watchdog-s", type=float, default=900.0,
                    help="exit with the partial result after this long with "
                         "no progress")
+    p.add_argument("--host-kv-bytes", type=int, default=None,
+                   help="host spill budget (bytes) of the sweep cluster's "
+                        "tiers (default: the cluster's own, none)")
     p.add_argument("--flagship", action="store_true",
                    help="run the flagship section (nano_1b and orin_8b) on "
                         "the CPU too (always on the card)")
@@ -1371,7 +1657,8 @@ def main(argv=None) -> int:
         start_watchdog(progress, args.watchdog_s)
         result = run(args.device, repeats=args.repeats, clients=args.clients,
                      progress=progress, budget=budget,
-                     flagship=args.flagship)
+                     flagship=args.flagship,
+                     host_kv_bytes=args.host_kv_bytes)
     finally:
         progress.done.set()
         signal.signal(signal.SIGTERM, prev)

@@ -158,8 +158,6 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 _UNPORTED_DEFAULTS = {
     "tp": 1,
     "replicas": 1,
-    "host_kv_bytes": None,
-    "kv_pool_blocks": None,
     "checkpoint_path": None,
     "endpoint": None,
     "spawn_cmd": None,
@@ -239,9 +237,43 @@ class TierConfig:
     # shape.  None disables the control.
     admission_max_queue: Optional[int] = 16
     # KV-pressure-aware admission: reject a request whose projected block
-    # demand exceeds the pool's free plus reclaimable blocks (the probe
-    # finds no demand estimate on the port's full-residency pools).
+    # demand (prompt bucket + decode budget, the batched engine's
+    # ``projected_demand_blocks``) exceeds the pool's free plus
+    # reclaimable blocks.  False disables the gate (slot/queue admission
+    # still applies); tiers on the sequential engine have no block pool
+    # and ignore it.
     kv_admission: bool = True
+    # Paged KV pool size override, in blocks (engine/paged_kv.py).  None =
+    # full residency (decode_batch x blocks-per-slot: every slot can hold
+    # max_seq_len at once, no pressure possible).  Smaller values model
+    # the fixed device pool: admission gates on projected demand and the
+    # engine preempts and replays when a running slot cannot grow.  Must
+    # cover at least the largest prefill bucket plus one decode tick for
+    # a single slot (validated at engine build).
+    kv_pool_blocks: Optional[int] = None
+    # Hierarchical KV spill tier (engine/kv_spill.py; batched engines with
+    # chunked prefill only): host-RAM byte budget for DEMOTED prefix-cache
+    # entries.  An unpinned sole-owner entry evicted from the device
+    # prefix cache is snapshot off the pool (a device gather; the
+    # device-to-host copy drains on the spill copier thread, never the
+    # tick) instead of being dropped, and a later prompt extending it is
+    # PROMOTED back by budgeted host-to-device grants riding the
+    # chunked-prefill lane.  Promotions that lose the race (entry
+    # invalidated, copier stalled, blocks starved, drain) fall back to a
+    # cold prefill with byte-identical greedy output.  0/None disables
+    # the tier.
+    host_kv_bytes: Optional[int] = None
+    # Fraction of the per-tick chunked-prefill token budget
+    # (prefill_chunk_budget) a promotion's host-to-device grants may
+    # spend per tick, charged at face value (one block = kv_block_size
+    # tokens): promotion competes with chunk grants under ONE budget, so
+    # active streams' TBT bound is unchanged.  Floored at one block per
+    # tick so a promotion always progresses.
+    host_kv_promote_share: float = 1.0
+    # Spill copier queue depth (pending demote snapshots).  A full queue
+    # makes further demotions drop (the blocks were already freed; the
+    # prefix just isn't spilled) instead of backing up the scheduler.
+    host_kv_copier_depth: int = 8
     # Context overflow at the router: "reject" fails fast, "truncate_left"
     # drops the oldest turns until the prompt fits max_seq_len -
     # max_new_tokens.
@@ -273,8 +305,6 @@ class TierConfig:
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
     replicas: int = 1
-    host_kv_bytes: Optional[int] = None
-    kv_pool_blocks: Optional[int] = None
     checkpoint_path: Optional[str] = None
     endpoint: Optional[str] = None
     spawn_cmd: Optional[Tuple[str, ...]] = None
@@ -292,9 +322,8 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, replicas, host KV spill, a
-        constrained pool, checkpoints, remote tiers, tenant quotas, the
-        autoscaler, MoE)."""
+        tier turns on (tensor parallelism, replicas, checkpoints, remote
+        tiers, tenant quotas, the autoscaler, MoE)."""
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]

@@ -109,15 +109,35 @@ admission's holds its programs' captures when they are new, as the JAX
 engine's holds their compiles).  A speculative round is one "decode"
 phase where the JAX engine times its draft and its verify apart.
 
-Not ported yet (ROADMAP.md): host KV spill, preemption and replay,
-tenant quotas (and their γ caps), crash capture/adopt, tensor
-parallelism and int8 weights.  Without
-preemption, a slot whose next block (or copy-on-write block before a
-speculative round) cannot be allocated even after evicting every parked
-prefix and cancelling the in-flight prefill is finished early with what
-it has generated (the JAX engine's rule for a sole occupant); a
-full-residency pool, the only kind ported, does not reach that state in
-practice.
+A constrained pool (``kv_pool_blocks``) binds: admission allocates
+lazily and stays queued when blocks run short (the tier client's KV gate
+reads ``projected_demand_blocks`` against ``kv_stats``), and a slot whose
+next block (or copy-on-write block before a speculative round) cannot be
+allocated after evicting every parked prefix first cancels the in-flight
+chunked prefill, then **preempts** the youngest slot (``_preempt``): its
+blocks are freed, its generated tokens park on the request, and the
+request re-admits at the scheduler head through ``_admit_replay``, which
+prefills prompt + generated prefix and resumes decoding from the last
+emitted token (nothing is re-sampled or re-emitted; greedy output equals
+the unpreempted run).  Only a sole occupant that cannot grow finishes
+early with what it has (the JAX engine's rule: preempting itself would
+replay into the same wall).  A released or preempted slot's table row
+points at the trash block before the next tick's program reads it.
+
+With ``host_kv_bytes`` a host-RAM spill tier (engine/kv_spill.py) sits
+under the prefix cache: an evicted sole-owner entry is DEMOTED (a device
+gather on the engine's stream, the blocks freed at once, the
+device-to-host copy on the spill copier's side stream), and a prompt
+extending a demoted prefix PROMOTES it back as an in-flight chunked
+prefill whose leading blocks are host-to-device copies granted under the
+chunk budget (``_advance_promotion``).  The spill copies run eagerly
+(``index_select`` / ``index_copy_`` and the copies between host and
+device, under JAX's ``"spill"`` keys in ``_compiled``); they are no
+program and never a capture.
+
+Not ported yet (ROADMAP.md A8): tenant quotas (their γ caps and victim
+policy), crash capture/adopt and the spill store's survival across a
+restart; tensor parallelism (A10).
 """
 
 from __future__ import annotations
@@ -148,9 +168,12 @@ from ..serving.errors import error_dict
 from ..utils import roofline
 from ..utils.telemetry import PhaseTimer
 from .inference import GenerationResult, prepare_prompt, trim_at_eos
+from .kv_spill import COPYING, DEAD, HostKVSpill
 from .paged_kv import (BlockAllocator, PagedConfig, TRASH_BLOCK,
                        chunk_prefill_paged, copy_block, decode_step_paged,
-                       init_pool, verify_step_paged, write_prefill_blocks)
+                       gather_blocks, init_pool, pool_block_bytes,
+                       scatter_blocks, verify_step_paged,
+                       write_prefill_blocks)
 from .prefix_cache import PrefixCache, select_reuse
 from .tokenizer import StreamDecoder, get_tokenizer
 
@@ -256,6 +279,16 @@ class _Request:
     # The submitting request's span tree (obs/spans.py), captured at
     # submit (the scheduler thread has no context of its own).
     trace: Optional[Any] = None
+    # Preemption: the slot's generated tokens (already emitted) park here
+    # and the request re-queues at the scheduler head; re-admission
+    # replays prompt + prefix (``_admit_replay``).  The original TTFT
+    # survives the round trip.
+    replay_tokens: Optional[List[int]] = None
+    replay_ttft_ms: Optional[float] = None
+    preempt_count: int = 0
+    # First-admission order: the victim policy picks the YOUNGEST slot,
+    # and a replayed request keeps its age.
+    admit_seq: int = -1
 
 
 @dataclasses.dataclass
@@ -290,7 +323,7 @@ class _Prefill:
 
     request: _Request
     slot_ix: int                  # reserved slot (no _Slot until done)
-    seq: List[int]
+    seq: List[int]                # prompt, or prompt + generated[:-1]
     prompt_len: int
     prompt_ids: tuple
     total: int
@@ -300,6 +333,23 @@ class _Prefill:
     blocks: List[int] = dataclasses.field(default_factory=list)
     consumed: int = 0
     chunks_done: int = 0
+    # A preempted request's generated tokens: the final chunk's sample is
+    # discarded and decode resumes from replay[-1].
+    replay: Optional[List[int]] = None
+    # Host spill promotion: the leading ``promote_nb`` blocks (covering
+    # ``promote_tokens`` positions) are host-to-device copies of the
+    # claimed entry, granted by ``_advance_promotion``; then ``consumed``
+    # jumps to ``promote_tokens`` and the suffix chunk-prefills.  Once
+    # every grant is issued the pin moves to ``promote_held`` (with
+    # ``promote_event`` recorded after the copies on the card) until the
+    # copies are known complete: the pin keeps the host tiles alive.
+    promote_entry: Optional[Any] = None
+    promote_tokens: int = 0
+    promote_nb: int = 0
+    promote_done: int = 0
+    promote_waits: int = 0
+    promote_held: Optional[Any] = None
+    promote_event: Optional[Any] = None
     t_start: float = dataclasses.field(default_factory=time.perf_counter)
 
 
@@ -337,7 +387,19 @@ class ContinuousBatchingEngine:
         self.tokenizer = get_tokenizer(self.cfg)
         self.paged = PagedConfig(block_size=tier.kv_block_size,
                                  max_slots=tier.decode_batch,
-                                 max_seq_len=self.cfg.max_seq_len)
+                                 max_seq_len=self.cfg.max_seq_len,
+                                 pool_blocks=tier.kv_pool_blocks)
+        if tier.kv_pool_blocks is not None:
+            # A constrained pool must still fit ONE largest-bucket prefill
+            # plus a decode tick, or no request could ever admit.
+            min_blocks = (max(bb for bb in tier.prefill_buckets
+                              if bb <= self.cfg.max_seq_len)
+                          // tier.kv_block_size + 1)
+            if tier.kv_pool_blocks < min_blocks:
+                raise ValueError(
+                    f"kv_pool_blocks={tier.kv_pool_blocks} cannot fit one "
+                    f"largest-bucket prefill plus a decode tick (needs "
+                    f">= {min_blocks} blocks of {tier.kv_block_size})")
         self.steps_per_tick = max(1, tier.decode_steps_per_tick)
         self.chunk_tokens = int(tier.prefill_chunk_tokens or 0)
         if self.chunk_tokens < 0 or (self.chunk_tokens
@@ -484,6 +546,36 @@ class ContinuousBatchingEngine:
             else None)
         self.share_prefix = bool(tier.share_prefix_kv
                                  and self.prefix_cache is not None)
+        # Host KV spill tier (engine/kv_spill.py): a host-RAM LRU under the
+        # prefix cache.  It needs the chunk machinery: promotion grants
+        # ride its per-tick budget.
+        self.kv_spill: Optional[HostKVSpill] = None
+        self._spill_block_bytes = 0
+        host_kv_bytes = int(tier.host_kv_bytes or 0)
+        if host_kv_bytes > 0 and self.prefix_cache is not None:
+            if not self.chunk_tokens:
+                logger.warning(
+                    "tier %s: host_kv_bytes=%d ignored: the KV spill tier "
+                    "needs chunked prefill (prefill_chunk_tokens) to absorb "
+                    "promotion grants", tier.name, host_kv_bytes)
+            else:
+                self._spill_block_bytes = pool_block_bytes(
+                    self.cfg, tier.kv_block_size, tier.kv_quantize)
+                self.kv_spill = HostKVSpill(
+                    budget_bytes=host_kv_bytes,
+                    block_bytes=self._spill_block_bytes,
+                    copier_depth=tier.host_kv_copier_depth,
+                    min_prefix=self.prefix_cache.min_prefix,
+                    tier=tier.name)
+        # Promotion stall bound, in scheduler passes: a claimed entry whose
+        # demote copy never lands (a wedged copier) must not park the
+        # prefill lane forever; past it the promotion loses the race and
+        # the prefill restarts cold (counted as a race).
+        self._promote_wait_cap = 2000
+        # First-admission counter (the preemption victim policy's age) and
+        # the engine-life preemption count.
+        self._admit_seq = 0
+        self.preempted_total = 0
 
         # Recent decode-tick wall times in ms (tick_stats reads it), and
         # every tick the scheduler ran.
@@ -661,13 +753,13 @@ class ContinuousBatchingEngine:
 
         return body
 
-    def _prefill_first(self, ids: Sequence[int], bucket: int, temp: float,
-                       blocks: List[int]) -> int:
-        """A cold prompt's admission: the ``"prefill"`` program of its
+    def _prefill_programs(self, ids: Sequence[int], bucket: int, temp: float,
+                          blocks: List[int]) -> torch.Tensor:
+        """A cold prefill of ``ids``: the ``"prefill"`` program of its
         bucket, the ``"writer"`` paging its K/V into ``blocks``, and with a
         draft the draft's prefill and writer (the draft pool seeded from
-        the same tokens into the same blocks).  Returns the first token:
-        the admission's one sync."""
+        the same tokens into the same blocks).  Returns the sampled token
+        [1] on the device, unread."""
         nb = bucket // self.paged.block_size
         self._stage_admission(tokens=ids, width=bucket, true_len=len(ids),
                               temp=temp, blocks=blocks[:nb])
@@ -676,7 +768,13 @@ class ContinuousBatchingEngine:
         if self.spec:
             self._built("draft", ("prefill", bucket)).run()
             self._built("draft", ("writer", nb)).run()
-        return int(first)
+        return first
+
+    def _prefill_first(self, ids: Sequence[int], bucket: int, temp: float,
+                       blocks: List[int]) -> int:
+        """A cold prompt's admission (``_prefill_programs``); returns the
+        first token: the admission's one sync."""
+        return int(self._prefill_programs(ids, bucket, temp, blocks))
 
     def _chunk_first(self, tokens: Sequence[int], width: int, start: int,
                      true_len: int, blocks: List[int], window: int,
@@ -795,7 +893,9 @@ class ContinuousBatchingEngine:
         ``("chunk", width, window)``), and log it: warmup's captures must
         be visible, and one mid-serve stalls every active slot.  The
         profiler's timeline gets a ``compile`` event and the
-        ``dllm_compiled_programs`` gauge the stage's count."""
+        ``dllm_compiled_programs`` gauge the stage's count.  The spill
+        copies' keys are recorded by ``_note_spill``: they are no
+        program."""
         seen = self._compiled.setdefault(stage, set())
         seen.add(key)
         self.profiler.event("compile", stage=stage, key=str(key))
@@ -993,10 +1093,79 @@ class ContinuousBatchingEngine:
     # -- block bookkeeping -------------------------------------------------
 
     def _prefix_evicted(self, entry) -> None:
-        """on_evict sink: return the entry's blocks (a refcounted decref)."""
+        """on_evict sink of the prefix cache: DEMOTE the entry to the host
+        spill tier when eligible, else return its blocks (a refcounted
+        decref)."""
         blocks = entry.cache.get("blocks") if isinstance(entry.cache, dict) else None
-        if blocks:
+        if blocks and not self._try_demote(entry.ids, blocks):
             self.allocator.free(blocks)
+
+    def _note_spill(self, kind: str, n: int) -> None:
+        """Record a spill copy's JAX key (``("gather", nb)``, ``("write",
+        k)``) under the ``"spill"`` stage of ``_compiled`` the first time
+        it is seen, as the JAX engine notes its jitted copies.  The
+        port's spill copies run eagerly: no capture, no ``compile``
+        event."""
+        seen = self._compiled.setdefault("spill", set())
+        if (kind, n) not in seen:
+            seen.add((kind, n))
+            get_observability().m.compiled_programs.labels(
+                self.tier.name, "spill").set(len(seen))
+
+    def _device_ids(self, blocks: Sequence[int]) -> torch.Tensor:
+        """Block ids [n] int64 on the pool's device: on the card through a
+        pinned host tensor copied without a sync (the host allocator keeps
+        it until the copy has read it)."""
+        ids = torch.tensor(list(blocks), dtype=torch.long)
+        if self.device.type != "cuda":
+            return ids
+        return ids.pin_memory().to(self.device, non_blocking=True)
+
+    def _try_demote(self, ids, blocks: List[int]) -> bool:
+        """Demote an evicted prefix entry's blocks to host RAM.  True =
+        handled here: the blocks were gathered (a snapshot that owns its
+        data, block-major for the host tier) and FREED, and the snapshot
+        queued for the spill copier with the event recorded after its
+        gather.  Only sole-owner data demotes: a block with refcount > 1
+        is still mapped by a live slot or another parked entry, so
+        freeing it is a decref and its data stays resident."""
+        spill = self.kv_spill
+        if spill is None or self._stop.is_set():
+            return False
+        if any(r != 1 for r in self.allocator.refcounts(blocks)):
+            return False
+        nbytes = self._spill_block_bytes * len(blocks)
+        if not spill.accepts(nbytes):
+            return False
+        try:
+            # Profiler stamps are the scheduler thread's (a direct
+            # pop_oldest from another thread demotes unstamped).
+            with self._stamp("demote"):
+                self._note_spill("gather", len(blocks))
+                tiles = {name: t.movedim(2, 0).contiguous()
+                         for name, t in gather_blocks(
+                             self.pool, self._device_ids(blocks)).items()}
+                ready = None
+                if self.device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record()
+        except BaseException:
+            self.allocator.free(blocks)
+            raise
+        # Later writes to these blocks run on the same stream, after the
+        # gather: the blocks go back to the free list now.
+        self.allocator.free(blocks)
+        spill.offer(ids, (tiles, ready), nbytes, nb=len(blocks))
+        return True
+
+    def _promote_copy(self, host_tiles, lo: int, blocks: List[int]) -> None:
+        """One promotion grant: host tiles ``lo:lo + len(blocks)`` copied to
+        the device (pinned, no sync) and scattered into ``blocks`` on the
+        engine's stream, ahead of every later program that reads them."""
+        k = len(blocks)
+        tiles = {name: t[lo:lo + k].to(self.device, non_blocking=True)
+                 .movedim(0, 2) for name, t in host_tiles.items()}
+        scatter_blocks(self.pool, self._device_ids(blocks), tiles)
 
     def _table_row(self, blocks: List[int]) -> np.ndarray:
         row = np.full(self.paged.blocks_per_slot, TRASH_BLOCK, np.int32)
@@ -1013,7 +1182,8 @@ class ContinuousBatchingEngine:
 
     def _alloc_evicting(self, n_blocks: int) -> Optional[List[int]]:
         """Allocate, evicting parked prefixes (LRU) under pressure: live
-        admissions outrank parked caches."""
+        admissions outrank parked caches.  (The JAX engine's first pass
+        over over-quota tenants' entries waits for tenants, ROADMAP A8.)"""
         blocks = self.allocator.alloc(n_blocks)
         while (blocks is None and self.prefix_cache is not None
                and self.prefix_cache.pop_oldest() is not None):
@@ -1024,29 +1194,47 @@ class ContinuousBatchingEngine:
 
     def _slot_go_live(self, req: _Request, slot_ix: int, blocks: List[int],
                       *, prompt_len: int, prompt_ids: tuple, budget: int,
-                      temp: float, max_blocks: int, pos: int, first: int,
-                      ttft_ms: float, pinned_entry: Optional[Any] = None,
+                      temp: float, max_blocks: int, pos: int,
+                      first: Optional[int] = None,
+                      gen: Optional[List[int]] = None,
+                      ttft_ms: float = 0.0,
+                      pinned_entry: Optional[Any] = None,
                       spec_ok: bool = False) -> None:
-        """The go-live tail shared by every admission path: publish the
-        slot, its table row and decode state, emit the prefill's token
-        and apply the termination checks.  Speculation eligibility is
-        fixed here for the slot's life: the admission must have seeded
-        the draft pool (``spec_ok``) and the slot must be greedy."""
+        """The go-live tail shared by every admission path (cold or
+        replay, monolithic or chunked): publish the slot, its table row
+        and decode state, emit the prefill's token (cold: ``first``) or
+        resume from the generated prefix (replay: ``gen``, nothing
+        emitted), and apply the termination checks.  Speculation
+        eligibility is fixed here for the slot's life: the admission must
+        have seeded the draft pool (``spec_ok``) and the slot must be
+        greedy."""
+        if gen is None:
+            tokens, cur = [first], first
+        else:
+            tokens, cur = list(gen), gen[-1]
+            ttft_ms = req.replay_ttft_ms or 0.0
         spec = bool(self.spec and spec_ok and temp <= 0)
         slot = _Slot(request=req, blocks=blocks, prompt_len=prompt_len,
                      budget=budget, temperature=temp, ttft_ms=ttft_ms,
-                     tokens=[first], prompt_ids=prompt_ids,
+                     tokens=tokens, prompt_ids=prompt_ids,
                      max_blocks=max_blocks, pinned_entry=pinned_entry,
                      spec=spec, gamma=self.spec_gamma_max if spec else 0)
-        obs_spans.add_token(req.trace)       # the prefill's token
-        if req.token_queue is not None:
-            req.token_queue.put(first)
+        if gen is None:
+            obs_spans.add_token(req.trace)   # the prefill's token
+            if req.token_queue is not None:
+                req.token_queue.put(first)
+        else:
+            req.replay_tokens = None
         self._slots[slot_ix] = slot
         self._set_table_row(slot_ix, self._table_row(blocks))
         self._pos[slot_ix] = pos
-        self._cur[slot_ix] = first
+        self._cur[slot_ix] = cur
         self._temps[slot_ix] = temp
-        if first == self.tokenizer.eos_id or budget <= 1:
+        if gen is None:
+            if first == self.tokenizer.eos_id or budget <= 1:
+                self._finish(slot_ix)
+        elif (cur in (self.tokenizer.eos_id, self.tokenizer.pad_id)
+              or len(gen) >= budget):
             self._finish(slot_ix)
 
     def _chunk_gate(self, bucket: int) -> bool:
@@ -1072,13 +1260,66 @@ class ContinuousBatchingEngine:
         budget = self.tier.max_new_tokens
         if req.max_new_tokens and req.max_new_tokens > 0:
             budget = min(budget, req.max_new_tokens)
+        if req.admit_seq < 0:
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+        if req.replay_tokens:
+            return self._admit_replay(req, slot_ix, ids, n, budget)
         bs = self.paged.block_size
         max_seq = self.cfg.max_seq_len
 
         reused = select_reuse(self.prefix_cache, ids, self._reuse_buckets,
                               max_seq, share=self.share_prefix)
+        if self.kv_spill is not None:
+            # Probe the host spill tier and prefer it whenever it holds a
+            # LONGER prefix than the device cache found (a session's
+            # demoted history beats a stranger's short common opener).  A
+            # host hit becomes an in-flight chunked prefill whose leading
+            # blocks are PROMOTED; the single prefill lane applies.
+            dev_m = reused[1] if reused is not None else 0
+            if self.kv_spill.peek(ids, max_len=n - 1) > dev_m:
+                if self._prefill is not None:
+                    if reused is not None:
+                        # Hand the device hit back untouched: the deferred
+                        # re-admission re-probes both tiers.
+                        self._unreuse(reused)
+                    # unshare/untake reversed the cache's hit into a miss
+                    # (a no-hit defer counted one): mirror it.
+                    self._note_prefix_hit("miss")
+                    req.needs_chunk = True
+                    return False
+                claimed = self.kv_spill.claim(ids, max_len=n - 1)
+                if claimed is not None and claimed[1] > dev_m:
+                    try:
+                        if reused is not None:
+                            self._unreuse(reused)
+                            reused = None
+                        self._note_prefix_hit("host")
+                        self._start_prefill(req, slot_ix, ids, n, bucket,
+                                            budget, promote=claimed)
+                    except BaseException:
+                        # The claim pinned the entry; until _start_prefill
+                        # publishes the promotion the pin is ours to drop.
+                        self.kv_spill.release(claimed[0], promoted=False)
+                        raise
+                    return True
+                if claimed is not None:
+                    # The peeked entry shrank or died before the claim:
+                    # the device hit (if any) still stands.
+                    self.kv_spill.release(claimed[0], promoted=False)
         if self.prefix_cache is not None and reused is None:
             self._note_prefix_hit("miss")
+        claim = None
+        if reused is not None:
+            claim = self._reuse_blocks(reused, n, budget)
+            if claim is None:
+                if self._busy():
+                    return False             # KV pressure: stay queued
+                # Nothing runs that could ever free a block: the hit's
+                # private blocks need what its own pinned entry holds, so
+                # it admits cold (the cold path may evict the entry).  The
+                # JAX engine requeues it forever (ROADMAP.md C).
+                reused = None
         if reused is None and self._chunk_gate(bucket):
             # Long cold prompt: chunked prefill interleaved with decode
             # ticks; one in flight at a time, so a second one waits at
@@ -1094,48 +1335,7 @@ class ContinuousBatchingEngine:
         pinned_entry = None
         if reused is not None:
             entry, m, suffix, sb = reused
-            cover = max(m + sb, min(n + budget, max_seq))
-            need = -(-cover // bs)
-            boundary_src = None
-            if self.share_prefix:
-                # Shared hit: the entry's FULL blocks map read-only into
-                # this slot's leading rows; the partially filled boundary
-                # block is copied into the first private block, which the
-                # suffix then writes.
-                n_full = m // bs
-                shared = list(entry.cache["blocks"][:n_full])
-                if m % bs:
-                    boundary_src = entry.cache["blocks"][n_full]
-                self.allocator.share(shared)
-                try:
-                    priv = self._alloc_evicting(need - n_full)
-                except BaseException:
-                    self.allocator.free(shared)
-                    self.prefix_cache.unshare(entry, m)
-                    raise
-                if priv is None:
-                    self.allocator.free(shared)
-                    self.prefix_cache.unshare(entry, m)
-                    self._note_prefix_hit("miss")
-                    return False             # KV pressure: stay queued
-                owned = shared + priv
-                pinned_entry = entry
-                self._note_prefix_hit("shared")
-            else:
-                # Exclusive take: the slot owns the entry's blocks and may
-                # write the boundary block directly.
-                owned = list(entry.cache["blocks"])
-                if len(owned) < need:
-                    extra = self._alloc_evicting(need - len(owned))
-                    if extra is None:
-                        self.prefix_cache.untake(entry, m)
-                        self._note_prefix_hit("miss")
-                        return False
-                    owned += extra
-                elif len(owned) > need:
-                    self.allocator.free(owned[need:])
-                    owned = owned[:need]
-                self._note_prefix_hit("exclusive")
+            owned, pinned_entry, boundary_src, priv = claim
             try:
                 if boundary_src is not None:
                     # The copy must land before the suffix writes, in both
@@ -1196,20 +1396,180 @@ class ContinuousBatchingEngine:
                            spec_ok=True)
         return True
 
-    def _start_prefill(self, req: _Request, slot_ix: int, ids: List[int],
-                       n: int, bucket: int, budget: int) -> None:
-        """Reserve ``slot_ix`` and register the in-flight chunked prefill;
-        blocks are allocated per chunk as it advances."""
+    def _busy(self) -> bool:
+        """Whether a slot decodes or a chunked prefill is in flight: work
+        that will free blocks."""
+        return (self._prefill is not None
+                or any(s is not None for s in self._slots))
+
+    def _reuse_blocks(self, reused, n: int, budget: int):
+        """The blocks of a prefix hit (``select_reuse``'s result), fully
+        materialized for the prompt and its budget: (owned, pinned entry,
+        boundary source block, private blocks).  A shared hit maps the
+        entry's FULL blocks read-only (increfs) and allocates the rest,
+        the first private block taking the copy of the partially filled
+        boundary block; an exclusive take owns the entry's blocks and
+        writes the boundary block directly.  None when the pool cannot
+        hold it: the hit is handed back (counted a miss)."""
+        entry, m, _suffix, sb = reused
         bs = self.paged.block_size
+        cover = max(m + sb, min(n + budget, self.cfg.max_seq_len))
+        need = -(-cover // bs)
+        if self.share_prefix:
+            n_full = m // bs
+            shared = list(entry.cache["blocks"][:n_full])
+            boundary_src = (entry.cache["blocks"][n_full] if m % bs
+                            else None)
+            self.allocator.share(shared)
+            try:
+                priv = self._alloc_evicting(need - n_full)
+            except BaseException:
+                self.allocator.free(shared)
+                self.prefix_cache.unshare(entry, m)
+                raise
+            if priv is None:
+                self.allocator.free(shared)
+                self.prefix_cache.unshare(entry, m)
+                self._note_prefix_hit("miss")
+                return None
+            self._note_prefix_hit("shared")
+            return shared + priv, entry, boundary_src, priv
+        owned = list(entry.cache["blocks"])
+        if len(owned) < need:
+            extra = self._alloc_evicting(need - len(owned))
+            if extra is None:
+                self.prefix_cache.untake(entry, m)
+                self._note_prefix_hit("miss")
+                return None
+            owned += extra
+        elif len(owned) > need:
+            self.allocator.free(owned[need:])
+            owned = owned[:need]
+        self._note_prefix_hit("exclusive")
+        return owned, None, None, None
+
+    def _unreuse(self, reused) -> None:
+        """Hand an unused prefix-cache hit back (``select_reuse``'s
+        result): unpin a shared entry, or return a taken one."""
+        entry, m, _suffix, _sb = reused
+        if self.share_prefix:
+            self.prefix_cache.unshare(entry, m)
+        else:
+            self.prefix_cache.untake(entry, m)
+
+    def _admit_replay(self, req: _Request, slot_ix: int, ids: List[int],
+                      n: int, budget: int) -> bool:
+        """Re-admission of a preempted request: replay prompt + generated
+        prefix through one cold prefill (rebuilding the K/V of every
+        position already consumed), then resume decoding from the last
+        generated token.  Nothing is re-sampled or re-emitted (the prefix
+        was already streamed), so a greedy continuation equals the
+        unpreempted run.  Returns False (stay at the scheduler head) while
+        the pool cannot hold the replay."""
+        bs = self.paged.block_size
+        max_seq = self.cfg.max_seq_len
+        gen = list(req.replay_tokens)
+        seq = list(ids) + gen[:-1]           # every position whose K/V we need
+        bucket = next((bb for bb in self._buckets if bb >= len(seq)), None)
+        if bucket is None:
+            # No prefill bucket covers prompt + prefix (a deep preemption
+            # on a short bucket ladder): finish with what was emitted: the
+            # stream saw exactly these tokens.
+            gen_ids = trim_at_eos(gen, self.tokenizer.eos_id,
+                                  self.tokenizer.pad_id)
+            with obs_spans.span(req.trace, "detokenize",
+                                tokens=len(gen_ids)):
+                text = self.tokenizer.decode(gen_ids)
+            req.result = GenerationResult(
+                text=text, token_ids=gen_ids, prompt_tokens=n,
+                gen_tokens=len(gen_ids), ttft_ms=req.replay_ttft_ms or 0.0,
+                total_ms=(time.perf_counter() - req.t_submit) * 1000.0)
+            obs_spans.event(req.trace, "replay_truncated",
+                            generated=len(gen_ids))
+            if req.token_queue is not None:
+                req.token_queue.put(None)
+            req.done.set()
+            return True
+        if self._chunk_gate(bucket):
+            # A deep replay is the same long-prefill stall as a long cold
+            # prompt: chunk it too (replay_tokens stay on the request until
+            # the prefill completes, so a cancel replays the same prefix).
+            if self._prefill is not None:
+                req.needs_chunk = True
+                return False
+            self._start_prefill(req, slot_ix, ids, n, bucket, budget,
+                                gen=gen)
+            return True
+        max_blocks = -(-min(max(bucket, n + budget), max_seq) // bs)
+        need = min(max_blocks,
+                   max(bucket // bs,
+                       -(-min(len(seq) + self.steps_per_tick, max_seq) // bs)))
+        blocks = self._alloc_evicting(need)
+        if blocks is None:
+            return False                     # still starved: stay at head
         temp = (self.tier.temperature if req.temperature is None
                 else req.temperature)
-        self._prefill = _Prefill(
-            request=req, slot_ix=slot_ix, seq=list(ids), prompt_len=n,
-            prompt_ids=tuple(ids), total=len(ids), budget=budget,
-            temperature=temp,
-            max_blocks=-(-min(bucket + budget, self.cfg.max_seq_len) // bs))
-        obs_spans.event(req.trace, "prefill_chunked", tokens=len(ids),
-                        chunk_tokens=self.chunk_tokens, replayed=False)
+        try:
+            with obs_spans.span(req.trace, "prefill", bucket=bucket,
+                                replayed_tokens=len(gen)), \
+                    self.phases.phase("prefill"), \
+                    self._stamp("prefill"):
+                # The replay's sampled token is discarded and never read:
+                # no sync (the next tick queues behind the prefill).  The
+                # draft's twins rebuild its prefix too, so a preempted
+                # speculating slot resumes speculating.
+                self._prefill_programs(seq, bucket, temp, blocks)
+            self.phases.add_work("prefill", **roofline.prefill_work(
+                self.cfg, bucket, 0, wbytes=self._wbytes))
+            obs_spans.event(req.trace, "replay", replayed_tokens=len(seq),
+                            generated=len(gen))
+        except BaseException:
+            self.allocator.free(blocks)
+            raise
+        self._slot_go_live(req, slot_ix, blocks, prompt_len=n,
+                           prompt_ids=tuple(ids), budget=budget, temp=temp,
+                           max_blocks=max_blocks, pos=len(seq), gen=gen,
+                           spec_ok=True)
+        return True
+
+    def _start_prefill(self, req: _Request, slot_ix: int, ids: List[int],
+                       n: int, bucket: int, budget: int,
+                       gen: Optional[List[int]] = None,
+                       promote: Optional[tuple] = None) -> None:
+        """Reserve ``slot_ix`` and register the in-flight chunked prefill
+        (of prompt + ``gen[:-1]`` for a replay); blocks are allocated per
+        chunk as it advances.  ``promote`` = (claimed host entry, matched
+        length): its blocks are promoted instead of recomputed."""
+        bs = self.paged.block_size
+        max_seq = self.cfg.max_seq_len
+        if gen is None:
+            seq = list(ids)
+            max_blocks = -(-min(bucket + budget, max_seq) // bs)
+        else:
+            seq = list(ids) + list(gen[:-1])
+            max_blocks = -(-min(max(bucket, n + budget), max_seq) // bs)
+        temp = (self.tier.temperature if req.temperature is None
+                else req.temperature)
+        pf = _Prefill(
+            request=req, slot_ix=slot_ix, seq=seq, prompt_len=n,
+            prompt_ids=tuple(ids), total=len(seq), budget=budget,
+            temperature=temp, max_blocks=max_blocks,
+            replay=list(gen) if gen is not None else None)
+        if promote is not None:
+            # The claimed (pinned) entry satisfies the ceil(m / bs) leading
+            # blocks; a mid-block boundary is fine: the suffix chunks
+            # overwrite their own positions in these private blocks.
+            entry, m = promote
+            pf.promote_entry = entry
+            pf.promote_tokens = m
+            pf.promote_nb = -(-m // bs)
+            obs_spans.event(req.trace, "kv_promote_start",
+                            matched_tokens=m, blocks=pf.promote_nb)
+        obs_spans.event(req.trace, "prefill_chunked", tokens=len(seq),
+                        chunk_tokens=self.chunk_tokens, replayed=bool(gen))
+        # Publication is the LAST statement: from here the promotion pin
+        # belongs to the prefill machinery.
+        self._prefill = pf
 
     def _advance_prefill(self) -> bool:
         """Spend up to ``chunk_budget`` tokens on the in-flight prefill
@@ -1226,6 +1586,14 @@ class ContinuousBatchingEngine:
         span = self.paged.blocks_per_slot * bs
         budget_left = self.chunk_budget
         try:
+            if pf.promote_entry is not None:
+                moved, budget_left = self._advance_promotion(pf, budget_left)
+                progressed = progressed or moved
+                if pf.promote_entry is not None:
+                    # Still mid-promotion (copier not landed, pool dry or
+                    # the promote share spent): retry next tick; decode
+                    # never waits on it.
+                    return progressed
             while pf.consumed < pf.total and budget_left >= c:
                 start = pf.consumed
                 if start + c > span:
@@ -1267,6 +1635,7 @@ class ContinuousBatchingEngine:
                     return True
         except BaseException as exc:       # surface to the caller
             self._prefill = None
+            self._release_promotion(pf)
             slot = self._slots[pf.slot_ix]
             if slot is not None and slot.request is req:
                 self._fail_slot(pf.slot_ix, exc)
@@ -1276,31 +1645,167 @@ class ContinuousBatchingEngine:
             return True
         return progressed
 
+    def _advance_promotion(self, pf: _Prefill, budget_left: int):
+        """Spend part of this tick's chunk budget on host-to-device
+        promotion grants: up to ``host_kv_promote_share`` of it, one block
+        charged as ``kv_block_size`` tokens, so promotion competes with
+        chunk grants under ONE budget and the active streams' TBT bound
+        holds.  Each grant is an asynchronous copy and scatter on the
+        engine's stream, ordered before the chunk programs that read the
+        blocks: no sync.  Returns (progressed, budget_left).
+
+        A still-copying entry (hit during demotion) is waited out, bounded
+        by ``_promote_wait_cap`` passes.  An invalidated entry, or one
+        whose copier never landed, loses the race: the pin drops and the
+        prefill restarts cold from position 0 this same pass (JAX's race
+        rule, counted in ``dllm_kv_promotion_races_total``).  An entry
+        whose copy FAILED raises its error instead."""
+        spill = self.kv_spill
+        entry = pf.promote_entry
+        bs = self.paged.block_size
+        req = pf.request
+        state = spill.entry_state(entry)
+        if state == COPYING:
+            pf.promote_waits += 1
+            if pf.promote_waits <= self._promote_wait_cap:
+                return False, budget_left
+            state = DEAD                        # wedged: lost the race
+        if entry.error is not None:
+            raise RuntimeError(
+                f"tier {self.tier.name}: the host copy of a demoted prefix "
+                f"failed: {entry.error!r}") from entry.error
+        # The tiles with the state verdict: a concurrent invalidation nulls
+        # entry.tiles, never this local reference.
+        host_tiles = entry.tiles
+        if host_tiles is None:
+            state = DEAD
+        if state == DEAD:
+            spill.release(entry, promoted=False, race=True)
+            pf.promote_entry = None
+            pf.promote_done = 0
+            pf.consumed = 0
+            obs_spans.event(req.trace, "kv_promote_race",
+                            fallback="cold_prefill")
+            return True, budget_left            # cold chunks proceed NOW
+        share = max(0.0, min(1.0, self.tier.host_kv_promote_share))
+        promo_budget = max(bs, int(self.chunk_budget * share))
+        progressed = False
+        spent = 0
+        while pf.promote_done < pf.promote_nb:
+            k = min(pf.promote_nb - pf.promote_done,
+                    min(budget_left, promo_budget - spent) // bs)
+            if k <= 0:
+                break
+            need = pf.promote_done + k
+            if len(pf.blocks) < need:
+                extra = self._alloc_evicting(need - len(pf.blocks))
+                if extra is None:
+                    # Pool dry: stall like a dry chunk grant (growth
+                    # starvation may cancel the prefill first).
+                    return progressed, budget_left
+                pf.blocks.extend(extra)
+            lo = pf.promote_done
+            with self._stamp("promote"):
+                self._note_spill("write", k)
+                self._promote_copy(host_tiles, lo, pf.blocks[lo:need])
+            pf.promote_done = need
+            budget_left -= k * bs
+            spent += k * bs
+            progressed = True
+            self._progress_t = time.monotonic()
+        if pf.promote_done >= pf.promote_nb:
+            pf.consumed = pf.promote_tokens
+            # Every grant is issued; the pin stays (``promote_held``) until
+            # the copies are known complete.
+            pf.promote_held, pf.promote_entry = entry, None
+            if self.device.type == "cuda":
+                pf.promote_event = torch.cuda.Event()
+                pf.promote_event.record()
+            obs_spans.event(req.trace, "kv_promoted",
+                            tokens=pf.promote_tokens, blocks=pf.promote_nb)
+        return progressed, budget_left
+
+    def _release_promotion(self, pf: _Prefill, landed: bool = False) -> None:
+        """Drop the prefill's promotion pin.  A promotion still granting is
+        released unpromoted; a landed one (every grant issued) counts as
+        promoted, after its copies are complete: ``landed`` says a sync
+        after them (the final chunk's token) already happened, else its
+        event is waited on (a cancel or a failure, off the tick's
+        path)."""
+        spill = self.kv_spill
+        if spill is None:
+            return
+        if pf.promote_entry is not None:
+            spill.release(pf.promote_entry, promoted=False)
+            pf.promote_entry = None
+        if pf.promote_held is not None:
+            if pf.promote_event is not None and not landed:
+                pf.promote_event.synchronize()
+            spill.release(pf.promote_held, promoted=True)
+            pf.promote_held = pf.promote_event = None
+
     def _finish_prefill(self, pf: _Prefill, first: int) -> None:
-        """Last chunk landed: the reserved slot goes live."""
+        """Last chunk landed (its token read: every copy and chunk before
+        it is complete): the reserved slot goes live.  A cold prefill
+        emits the final chunk's token; a replay discards it and resumes
+        from the last emitted token."""
+        req = pf.request
         self._prefill = None
-        obs_spans.annotate(pf.request.trace, prefill_wait_ms=round(
+        self._release_promotion(pf, landed=True)
+        obs_spans.annotate(req.trace, prefill_wait_ms=round(
             (time.perf_counter() - pf.t_start) * 1000.0, 3))
-        ttft_ms = (time.perf_counter() - pf.request.t_submit) * 1000.0
-        self._slot_go_live(pf.request, pf.slot_ix, pf.blocks,
+        if pf.replay is not None:
+            obs_spans.event(req.trace, "replay", replayed_tokens=pf.total,
+                            generated=len(pf.replay), chunked=True)
+            self._slot_go_live(req, pf.slot_ix, pf.blocks,
+                               prompt_len=pf.prompt_len,
+                               prompt_ids=pf.prompt_ids, budget=pf.budget,
+                               temp=pf.temperature, max_blocks=pf.max_blocks,
+                               pos=pf.total, gen=pf.replay)
+            return
+        ttft_ms = (time.perf_counter() - req.t_submit) * 1000.0
+        self._slot_go_live(req, pf.slot_ix, pf.blocks,
                            prompt_len=pf.prompt_len, prompt_ids=pf.prompt_ids,
                            budget=pf.budget, temp=pf.temperature,
                            max_blocks=pf.max_blocks, pos=pf.total, first=first,
                            ttft_ms=ttft_ms)
 
     def _cancel_prefill(self, reason: str) -> None:
-        """Cancel the in-flight prefill and requeue it at the head: it has
-        emitted nothing, so restarting from chunk 0 is free."""
+        """Cancel the in-flight prefill and requeue it at the head: under
+        pool starvation the prefill yields FIRST (it has emitted nothing,
+        while preempting a decoding slot forces a replay).  Its promotion
+        pin drops (re-admission re-claims the entry, or goes cold if it
+        is gone); a replay's parked tokens survive untouched."""
         pf = self._prefill
         if pf is None:
             return
         self._prefill = None
+        self._release_promotion(pf)
         self.allocator.free(pf.blocks)
         self.prefill_cancelled_total += 1
         pf.request.needs_chunk = True
         obs_spans.event(pf.request.trace, "prefill_cancelled", reason=reason,
                         consumed_tokens=min(pf.consumed, pf.total))
         self._head.appendleft(pf.request)
+
+    def _preempt(self, slot_ix: int) -> None:
+        """Evict a RUNNING slot under block starvation: free its blocks
+        (its table row goes to the trash block before the next tick),
+        park its generated tokens on the request and requeue it at the
+        scheduler head.  Its caller or stream sees a stall, never an
+        error; ``_admit_replay`` resumes it."""
+        slot = self._slots[slot_ix]
+        req = slot.request
+        req.replay_tokens = list(slot.tokens)
+        req.replay_ttft_ms = slot.ttft_ms
+        req.preempt_count += 1
+        self.preempted_total += 1
+        obs_spans.event(req.trace, "preempt", tier=self.tier.name,
+                        generated=len(slot.tokens),
+                        freed_blocks=len(slot.blocks))
+        get_observability().m.preemptions.labels(self.tier.name).inc()
+        self._release(slot_ix)               # free ALL blocks, no parking
+        self._head.appendleft(req)
 
     def _spec_plan(self, active: List[int]) -> Optional[int]:
         """The γ bucket of this tick's speculative round, or None for a
@@ -1322,7 +1827,8 @@ class ContinuousBatchingEngine:
         copied first, in BOTH pools, and the slot's reference to the
         shared one dropped.  The admission paths never map a shared block
         at the write frontier, so this is a backstop.  A pool too dry to
-        copy finishes the slot early (no preemption in the port yet)."""
+        copy preempts the slot (replay is the uniform answer to
+        starvation) rather than ever writing a sharer-visible block."""
         bs = self.paged.block_size
         for ix in active:
             slot = self._slots[ix]
@@ -1339,10 +1845,7 @@ class ContinuousBatchingEngine:
                     continue
                 fresh = self._alloc_evicting(1)
                 if fresh is None:
-                    logger.warning("tier %s: KV pool dry, slot %d finishes "
-                                   "after %d tokens", self.tier.name, ix,
-                                   len(slot.tokens))
-                    self._finish(ix)
+                    self._preempt(ix)
                     break
                 try:
                     with self._stamp("cow_copy"):
@@ -1392,13 +1895,15 @@ class ContinuousBatchingEngine:
         the positions this tick writes: ``decode_steps_per_tick`` for a
         plain tick, the slot's own γ+1 chunk for a speculative round at
         bucket ``spec_gb``.  A dry pool (after evicting parked prefixes)
-        first cancels the in-flight prefill; failing that, the slot
-        finishes with what it has (no preemption in the port yet)."""
+        first cancels the in-flight prefill, then preempts the YOUNGEST
+        slot: the freed blocks un-starve the elders and the victim replays
+        on re-admission.  A sole occupant that cannot grow finishes with
+        what it has (preempting itself would replay into the same wall)."""
         bs = self.paged.block_size
         for ix in active:
             slot = self._slots[ix]
             if slot is None:
-                continue
+                continue                     # preempted earlier this pass
             steps = (self.steps_per_tick if spec_gb is None
                      else self._spec_steps(slot, spec_gb))
             end = min(int(self._pos[ix]) + steps,
@@ -1414,13 +1919,21 @@ class ContinuousBatchingEngine:
                     self._cancel_prefill("kv pressure: decoding slot "
                                          "growth starved")
                     continue
-                logger.warning("tier %s: KV pool dry, slot %d finishes "
-                               "after %d tokens", self.tier.name, ix,
-                               len(slot.tokens))
-                obs_spans.event(slot.request.trace, "kv_truncated",
-                                generated=len(slot.tokens))
-                self._finish(ix)
-                break
+                victims = [j for j in active if self._slots[j] is not None]
+                if victims == [ix]:
+                    # Sole occupant of a pool that cannot hold its next
+                    # block: cap the generation here.
+                    obs_spans.event(slot.request.trace, "kv_truncated",
+                                    generated=len(slot.tokens))
+                    self._finish(ix)
+                    break
+                # (The JAX engine's tenant-quota victim order waits for
+                # tenants, ROADMAP A8.)
+                victim = max(victims,
+                             key=lambda j: self._slots[j].request.admit_seq)
+                self._preempt(victim)
+                if victim == ix:
+                    break                    # the grower itself yielded
 
     def _next_request(self) -> Optional[_Request]:
         """Head lane first, then the submission queue (FIFO)."""
@@ -1764,9 +2277,17 @@ class ContinuousBatchingEngine:
             shutdown = EngineStoppedError(error_dict(
                 f"Request failed: tier {self.tier.name} engine stopped "
                 f"mid-flight"))
+            # The in-flight prefill holds blocks and maybe a promotion pin:
+            # cancel it before the cache clear and the spill stop.
             self._cancel_prefill("engine stopping")
             if self.prefix_cache is not None:
-                self.prefix_cache.clear()    # parked blocks -> free list
+                # Parked blocks -> free list (_try_demote stands down once
+                # _stop is set: no parting spills).
+                self.prefix_cache.clear()
+            if self.kv_spill is not None:
+                # Wait out in-flight demote copies (bounded), then stop the
+                # copier: the host tier is consistent at rest.
+                self.kv_spill.stop()
             for ix, slot in enumerate(self._slots):
                 if slot is not None:
                     self._fail_slot(ix, shutdown)
@@ -1835,8 +2356,11 @@ class ContinuousBatchingEngine:
                 + sum(1 for s in self._slots if s is not None))
 
     def kv_stats(self) -> Dict[str, Any]:
-        """Block-pool snapshot: free and reclaimable blocks, geometry, the
-        in-flight prefill's remaining demand and the sharing picture."""
+        """Block-pool snapshot for KV-aware admission: free and reclaimable
+        blocks, geometry, the preemption count, the in-flight prefill's
+        remaining demand, the sharing picture and, with a spill tier, the
+        host tier's occupancy, its demote/promote counters and the
+        in-flight promotion's remaining blocks."""
         reclaimable = (self.prefix_cache.reclaimable_blocks()
                        if self.prefix_cache is not None else 0)
         pf = self._prefill
@@ -1849,11 +2373,32 @@ class ContinuousBatchingEngine:
         rs = self.allocator.ref_stats()
         pinned = (self.prefix_cache.stats()["pinned_entries"]
                   if self.prefix_cache is not None else 0)
+        spill_fields: Dict[str, int] = {}
+        if self.kv_spill is not None:
+            ss = self.kv_spill.stats()
+            promote_backlog = 0
+            if pf is not None and pf.promote_entry is not None:
+                promote_backlog = max(0, pf.promote_nb - pf.promote_done)
+            spill_fields = {
+                "host_entries": ss["entries"],
+                "host_blocks": ss["blocks"],
+                "host_bytes": ss["bytes"],
+                "host_budget_bytes": ss["budget_bytes"],
+                "demotions_total": ss["demotions_total"],
+                "promotions_total": ss["promotions_total"],
+                "promotion_races_total": ss["promotion_races_total"],
+                # Entries whose host copy has not landed (queued jobs'
+                # entries are already copying).
+                "demote_inflight": ss["copying_entries"],
+                "promote_backlog_blocks": promote_backlog,
+            }
         return {
+            **spill_fields,
             "free_blocks": self.allocator.available,
             "reclaimable_blocks": reclaimable,
             "block_size": self.paged.block_size,
             "total_blocks": self.paged.num_blocks - 1,   # minus trash
+            "preempted_total": self.preempted_total,
             "prefill_pending_blocks": pending,
             "prefill_backlog_tokens": backlog,
             "shared_blocks": rs["shared_blocks"],
@@ -1861,6 +2406,30 @@ class ContinuousBatchingEngine:
                             if rs["allocated_blocks"] else 1.0),
             "pinned_entries": pinned,
         }
+
+    def max_demand_blocks(self) -> int:
+        """Worst-case demand of one request (largest prefill bucket + the
+        full decode budget), tokenization-free: when free + reclaimable
+        blocks cover it, the tier client's KV gate cannot fire and skips
+        tokenizing."""
+        bucket = max(self._buckets) if self._buckets else self.cfg.max_seq_len
+        return -(-min(bucket + self.tier.max_new_tokens,
+                      self.cfg.max_seq_len) // self.paged.block_size)
+
+    def projected_demand_blocks(self, history: History,
+                                max_new_tokens: Optional[int] = None) -> int:
+        """Pool blocks this request needs at its FULL decode budget (prompt
+        bucket + decode cap): the demand side of the KV gate, tokenized as
+        ``_admit`` tokenizes it, on the serving thread before submit."""
+        _, bucket = prepare_prompt(self.tokenizer, history,
+                                   self.tier.prefill_buckets,
+                                   self.cfg.max_seq_len,
+                                   self.tier.max_new_tokens)
+        budget = self.tier.max_new_tokens
+        if max_new_tokens and max_new_tokens > 0:
+            budget = min(budget, max_new_tokens)
+        return -(-min(bucket + budget, self.cfg.max_seq_len)
+                 // self.paged.block_size)
 
     def progress_stall_s(self) -> float:
         """Seconds since the scheduler last progressed WHILE work is
@@ -1913,6 +2482,7 @@ class ContinuousBatchingEngine:
             "active_slots": active,
             "max_slots": total,
             "slot_occupancy": round(active / max(1, total), 3),
+            "preempted_total": self.preempted_total,
             "prefill_inflight": 0 if pf is None else 1,
             "prefill_backlog_tokens": (0 if pf is None else
                                        max(0, pf.total - min(pf.consumed,

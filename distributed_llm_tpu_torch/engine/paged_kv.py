@@ -44,6 +44,10 @@ class PagedConfig:
     block_size: int = 64
     max_slots: int = 4
     max_seq_len: int = 2048
+    # Pool size override (TierConfig.kv_pool_blocks): a pool smaller than
+    # full residency is the regime where KV-aware admission and
+    # preemption with replay (engine/batching.py) bind.
+    pool_blocks: Optional[int] = None
 
     @property
     def blocks_per_slot(self) -> int:
@@ -51,6 +55,9 @@ class PagedConfig:
 
     @property
     def num_blocks(self) -> int:
+        if self.pool_blocks is not None:
+            # Explicit pool budget, plus the reserved trash block.
+            return self.pool_blocks + 1
         # Full residency for every slot, plus the reserved trash block.
         return self.max_slots * self.blocks_per_slot + 1
 
@@ -74,10 +81,32 @@ def init_pool(cfg: ModelConfig, pcfg: PagedConfig, kv_quantize: str = "none",
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def gather_blocks(pool: KVPool, blocks: torch.Tensor) -> KVPool:
+    """Snapshot ``blocks``' K/V tiles (and int8 scales) out of the pool:
+    ``[L, N_kv, nb, bs, D]`` (scales ``[L, N_kv, nb, bs]``), the DEMOTE
+    copy of the host spill tier (engine/kv_spill.py).  The output is a
+    fresh tensor that owns its data, so the source blocks may return to
+    the free list once the gather is issued: later pool writes on the
+    same stream run after it and never reach the snapshot."""
+    return {name: t.index_select(2, blocks) for name, t in pool.items()}
+
+
+def scatter_blocks(pool: KVPool, blocks: torch.Tensor,
+                   tiles: KVPool) -> KVPool:
+    """Write gathered tiles back into ``blocks`` in place, the PROMOTE
+    copy of the host spill tier: the exact inverse of ``gather_blocks``
+    (a bit-identical round trip, int8 scales included), so a promoted
+    prefix serves decode exactly like one that never left the pool."""
+    for name, t in pool.items():
+        t.index_copy_(2, blocks, tiles[name])
+    return pool
+
+
 def pool_block_bytes(cfg: ModelConfig, block_size: int,
                      kv_quantize: str = "none") -> int:
     """Bytes one pool block holds across layers and kv heads: K and V
-    tiles, plus the float32 scales of an int8 pool."""
+    tiles, plus the float32 scales of an int8 pool (the unit
+    ``TierConfig.host_kv_bytes`` budgets in)."""
     d = cfg.head_dim
     per_row = cfg.num_layers * cfg.num_kv_heads * block_size
     if kv_quantize == "int8":

@@ -9,8 +9,8 @@ state, admission rejects, latencies) get a typed, scrapeable shape,
 served as Prometheus text at ``GET /metrics`` (serving/app.py) and read
 by the bench (bench/headline.py) for its trace-derived columns.  The
 families of features the port does not serve yet (tenants, replicas,
-host KV spill, preemption, the autoscaler) are declared and stay at
-zero.
+the spill store's survival across a restart, the autoscaler) are
+declared and stay at zero.
 
 Shape notes:
 
@@ -426,8 +426,7 @@ METRIC_REGISTRY: Tuple[Tuple[str, str, str, Tuple[str, ...], str], ...] = (
      "per admission attempt (shared = pinned read-only mapping, "
      "exclusive = take-ownership reuse, host = spill-tier "
      "promotion claim, miss = cold prefill)"),
-    # Hierarchical-KV spill family (not served by the port yet):
-    # the host tier's occupancy and the demote/promote lifecycle —
+    # Hierarchical-KV spill family: the host tier's occupancy and the demote/promote lifecycle —
     # warm TTFT as a function of host-RAM size must be observable,
     # and a promotion losing its race must be countable.
     ("kv_host_blocks_g", "gauge", "dllm_kv_host_blocks", ("tier",),

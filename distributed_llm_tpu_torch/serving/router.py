@@ -301,6 +301,12 @@ class Router:
             st["kv_shared_blocks"] = ks.get("shared_blocks", 0)
             st["kv_dedup_ratio"] = ks.get("dedup_ratio", 1.0)
             st["preempted_total"] = ks.get("preempted_total", 0)
+            if "host_blocks" in ks:
+                # The host spill tier's occupancy and promotion backlog.
+                st["kv_host_blocks"] = ks.get("host_blocks")
+                st["kv_host_bytes"] = ks.get("host_bytes")
+                st["kv_promote_backlog"] = ks.get("promote_backlog_blocks",
+                                                  0)
             st["prefill_backlog_tokens"] = ks.get("prefill_backlog_tokens",
                                                   0)
         tick_fn = getattr(engine, "tick_stats", None)

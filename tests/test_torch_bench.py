@@ -105,6 +105,16 @@ def _synthetic_result() -> dict:
                                 "kv_int8": {"speedup_vs_bf16_kv": 1.05}},
         "long_context": {"prefix_reuse_speedup": 9.5},
         "orin_prefix": {"prefix_hits": 3, "followup_ttft_speedup": 4.2},
+        "spill": {"warm_hit_rate": 1.0, "hit_rate_monotone": True,
+                  "tbt_ratio": 0.98, "outputs_identical": True,
+                  "off": {"warm_hit_rate": 0.3125,
+                          "revisit_ttft_p50_ms": 21.0},
+                  "small": {"warm_hit_rate": 0.5},
+                  "large": {"warm_hit_rate": 1.0, "promotions": 11,
+                            "demotions_total": 30,
+                            "revisit_ttft_p50_ms": 9.5},
+                  "race": {"observed": True, "races": 1,
+                           "identical": True}},
         "speculative": {"gamma": 4, "speedup": 1.4},
         "quant": {"nano": {"speedup": 1.6}, "orin": {"speedup": 1.8}},
         "flagship": {"nano_1b": {"decode_tok_per_s": 88.0},
@@ -119,6 +129,7 @@ def test_compact_matches_bench_py():
     assert got == jax_bench.compact(result)
     assert got["mfu_prefill"] == 0.31 and got["hbm_util_decode"] == 0.41
     assert set(got["per_strategy"]) == set(headline.STRATEGIES)
+    assert got["spill"]["warm_hit_rate"] == 1.0 and got["spill"]["ident"]
     partial = {"metric": headline.METRIC, "value": 0.0}
     assert headline.compact(partial) == jax_bench.compact(partial)
 
@@ -144,7 +155,7 @@ HEADLINE_KEYS = {
     "mfu_prefill", "hbm_util_decode", "utilization", "per_strategy",
     "tiers", "backend", "card", "cluster", "budget", "trend",
     "trend_req_per_s", "continuous_batching", "long_context", "orin_prefix",
-    "speculative", "quant", "flagship"}
+    "spill", "speculative", "quant", "flagship"}
 STRATEGY_KEYS = {"req_per_s", "sequential_req_per_s", "p50_ttft_ms",
                  "concurrent_p50_ttft_ms", "routing_accuracy",
                  "orin_queries", "repeats"}
@@ -202,6 +213,10 @@ def test_headline_runs_on_the_cpu(cpu_run):
     assert all(q["int8_decode_tok_per_s"] > 0 for q in result["quant"].values())
     assert result["speculative"]["spec_decode_tok_per_s"] > 0
     assert "skipped" in result["flagship"]
+    spill = result["spill"]
+    assert spill["outputs_identical"] and spill["hit_rate_monotone"]
+    assert spill["race"]["observed"] and spill["race"]["identical"]
+    assert spill["large"]["promotions"] > 0 == spill["off"]["promotions"]
     assert headline.section_errors(result) == []
     assert json.loads(lines[-1]) == headline.compact(result)
 
@@ -347,6 +362,32 @@ def test_flagship_keys_match_jax(monkeypatch):
     assert len(got["nano_test"]["long_context"]["followup_ttft_ms"]) == 2
     assert headline.parse_args(["--flagship"]).flagship
     assert not headline.parse_args([]).flagship
+
+
+def test_host_kv_bytes_flag_gives_the_sweep_tiers_a_spill_tier(monkeypatch):
+    """``--host-kv-bytes`` (the JAX bench's ``DLLM_HOST_KV_BYTES``) sets
+    both sweep tiers' ``host_kv_bytes``; absent, the cluster's own."""
+    assert headline.parse_args([]).host_kv_bytes is None
+    assert headline.parse_args(["--host-kv-bytes", "4096"]).host_kv_bytes \
+        == 4096
+    from distributed_llm_tpu_torch.serving import router as router_mod
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_router(*args, cluster=None, **kw):
+        seen["cluster"] = cluster
+        raise Stop
+
+    monkeypatch.setattr(router_mod, "Router", fake_router)
+    for budget in (None, 4096):
+        with pytest.raises(Stop):
+            headline.run("cpu", host_kv_bytes=budget,
+                         progress=headline.Progress(os.devnull))
+        assert {seen["cluster"].nano.host_kv_bytes,
+                seen["cluster"].orin.host_kv_bytes} == {budget}
 
 
 def test_flagship_cluster_is_the_jax_packages_on_one_card():
