@@ -66,7 +66,22 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    row), at full width and depth: a short prompt, one past the 2048 bucket, a
    multi-turn follow-up, 3 concurrent (serialized) requests, a stream
    and a sampled request (which the speculative tier refuses with the
-   JAX package's 500 / 501);
+   JAX package's 500 / 501), and on the plain engine a conversation
+   that outgrows its cache rung (a 675-token turn, then a follow-up
+   past the 1024 rung: the parked cache grows into the 8192 one).  Every
+   prefill, suffix, chunk, grow, decode segment and speculative round
+   replays a CUDA graph captured at warmup (JAX's warm set) or, for the
+   grow copies JAX never warms, at first use; the admission audit
+   watches these engines too.  ``seq_graph_check`` runs one decode
+   segment (one round, speculating) through the replayed program and
+   its body eagerly from the same live cache (tokens ``torch.equal``)
+   and times both; ``copy_check`` holds and times the prefix cache's
+   park and load copies of the 8192 rung; ``first_use_check`` serves a
+   greedy request again with every program dropped, so its programs are
+   captured mid-request as an engine without warmup captures them, and
+   the tokens must equal the warmed programs'; ``loop_vs_round`` times
+   the speculative engine's fused loop against its round program on one
+   request; each phase reports its programs and capture seconds;
 10. the two-tier ``/chat`` service: ``create_app`` over a production-mode
    Router (``BASE_CONFIG``) of nano_1b (8 slots, bf16 pool) and orin_8b
    (4 slots, int8 pool), both on the dense windowed tick, over HTTP;
@@ -91,16 +106,17 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    tick: one repeat of the five-strategy sweep with 4 closed-loop
    clients, the trend leg on the tiny tiers, the long-context and orin
    prefix probes, the batched nano engine with bf16 and int8 KV, the
-   ``speculative`` and ``quant`` legs on the sequential engines and the
-   ``flagship`` section), then the canonical tester once (heuristic,
+   ``speculative`` and ``quant`` legs on the sequential engines, the
+   ``flagship`` section and the ``spec_multiturn`` leg), then the
+   canonical tester once (heuristic,
    cache off, general_knowledge).
    Every strategy must serve with no concurrent error, no section hold
    an error, every MFU and device-memory utilization lie in (0, 1.05],
    the trend leg run on the card, each batched tier time one decode
    phase per tick, the ragged decode (bf16 and int8), causal prefill and
    paged chunk kernels and W1 launch, no plain attention version run,
-   the quant and speculative legs and both flagship tiers decode, and the
-   tester's CSVs carry the JAX package's headers with one row per query
+   the quant and speculative legs and both flagship tiers decode, the
+   spec_multiturn leg report both follow-up TTFTs, and the tester's CSVs carry the JAX package's headers with one row per query
    and each serving tier's mean power draw (its energy columns
    integrate the card's draw) reads 10-1000 W.  Every strategy carries
    the trace-derived TTFT columns, counting every request it served, and
@@ -132,11 +148,16 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    ratio, the demote and promote counts and the host bytes held.
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
-the three) builds the kernels and runs only those phases, printing each
-one's numbers, with no kernel table and no last line: a debugging run.
+those three, or of the sequential phases ``orin_seq_bf16``,
+``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``) builds the kernels
+and runs only those phases, printing each one's numbers, with no kernel
+table and no last line: a debugging run.
 
-The batched engines (phases 4-6 and 10-13) run every device stage as a
-CUDA graph captured once per program (the ragged tick, each dense window
+The sequential engines (phases 7-9b and the bench's sequential legs)
+run every device stage as a CUDA graph too (``engine/programs.py``), one
+per JAX program key and cache rung.  The batched engines (phases 4-6
+and 10-13) run every device stage as a CUDA graph captured once per
+program (the ragged tick, each dense window
 rung, each γ bucket's speculative round; an admission's cold prefill per
 bucket and its writer, each chunk (width, window), the copy-on-write
 copies, the draft's prefill, writer and chunk) and replayed; the
@@ -195,6 +216,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 # The card's peaks (device-memory bytes/s, dense bf16 FLOP/s), from the
 # port's table (``utils.roofline.chip_peaks``), set in main().
@@ -1765,6 +1787,10 @@ def served(torch, tier, device: str = "cuda"):
 WARM_STAGES = ("chunk_prefill", "writer:cow_copy", "writer:cow_copy_draft",
                "draft:chunk")
 ADMISSION_STAGES = ("prefill", "chunk_prefill", "writer", "draft")
+# The sequential engines' programs JAX leaves out of its warm set, so the
+# only ones that may be built after ``warmup()``: the grow copies (JAX
+# compiles ``_grow_fn`` at a conversation's first outgrown rung).
+SEQ_COLD_STAGES = ("grow",)
 
 
 def _stage_name(stage: str, key) -> str:
@@ -1777,19 +1803,33 @@ def _stage_name(stage: str, key) -> str:
     return stage
 
 
+def _seq_stage(key) -> str:
+    """A sequential engine's program family by its JAX key: ``decode``
+    (a rung), ``prefill`` ((bucket, rung)), or the key's kind (``init``,
+    ``grow``, ``suffix``, ``loop``, ``round``)."""
+    if isinstance(key, int):
+        return "decode"
+    return "prefill" if isinstance(key[0], int) else key[0]
+
+
 class AdmissionAudit:
-    """What the batched engines built inside ``admission_audit`` did: each
+    """What the engines built inside ``admission_audit`` did: each
     program body run eagerly outside a capture (by stage), each program
-    built (tier, stage, key, and whether its engine had warmed up), each
-    spill copy's key first seen (``_note_spill``), and each engine's
-    device memory before and after its warmup."""
+    built (tier, stage, key, whether its engine is sequential and had
+    warmed up), each spill copy's key first seen (``_note_spill``), each
+    engine's device memory before and after its warmup, and the seconds
+    each tier's captures took."""
 
     def __init__(self):
         self.eager: dict = {}
         self.built: list = []
         self.spill: list = []
         self.warmup: list = []
-        self.warmed: set = set()
+        # The engines themselves, weakly: an engine built later may take a
+        # dead warmed engine's id(), and its first-use builds must not
+        # count as built after a warmup it never ran.
+        self.warmed = weakref.WeakSet()
+        self.capture_s: dict = {}
         self._mark = (0, {}, 0)
 
     def mark(self) -> None:
@@ -1799,19 +1839,23 @@ class AdmissionAudit:
     def main_path(self, on_card: bool) -> dict:
         """Since ``mark``: the bodies run eagerly, the programs built after
         their engine's warmup and the spill copies' keys.  On the card, no
-        body may have run outside a capture (every admission stage and
-        tick replayed a graph) and no chunk, prefix-hit or copy-on-write
-        program may have been built mid-serve (warmup builds JAX's warm
-        set).  A prefill bucket, a writer or a dense rung built on first
-        use is allowed (a replay's bucket among them), as the JAX engine
-        compiles them.  The spill copies (demote gathers, promote writes)
-        run eagerly by design: they are no program, so none may reach
-        ``_note_compile``, and they are listed apart."""
+        body may have run outside a capture (every admission stage, tick
+        and sequential stage replayed a graph) and no chunk, prefix-hit or
+        copy-on-write program of a batched engine, nor any sequential
+        program but SEQ_COLD_STAGES', may have been built mid-serve
+        (warmup builds JAX's warm set).  A batched prefill bucket, a
+        writer or a dense rung built on first use is allowed (a replay's
+        bucket among them), as the JAX engine compiles them.  The spill
+        copies (demote gathers, promote writes) run eagerly by design:
+        they are no program, so none may reach ``_note_compile``, and
+        they are listed apart."""
         n, eager0, n_spill = self._mark
         eager = {k: v - eager0.get(k, 0) for k, v in self.eager.items()
                  if v != eager0.get(k, 0)}
         mid = [b for b in self.built[n:] if b["after_warmup"]]
-        late = [b for b in mid if b["stage"] in WARM_STAGES]
+        late = [b for b in mid if (b["stage"] not in SEQ_COLD_STAGES
+                                   if b["sequential"]
+                                   else b["stage"] in WARM_STAGES)]
         require(not [b for b in self.built if b["stage"] == "spill"],
                 "a spill copy was built as a program")
         if on_card:
@@ -1821,6 +1865,7 @@ class AdmissionAudit:
         return {"eager_body_runs": eager,
                 "built_mid_serve": [f"{b['tier']} {b['stage']} {b['key']}"
                                     for b in mid],
+                "jax_cold_stages": list(SEQ_COLD_STAGES),
                 "spill_copies": len(self.spill) - n_spill,
                 "spill_keys": sorted({f"{s['tier']} {s['key']}"
                                       for s in self.spill[n_spill:]})}
@@ -1828,12 +1873,19 @@ class AdmissionAudit:
 
 @contextlib.contextmanager
 def admission_audit(torch, on_card: bool):
-    """Watch the batched engines built inside (``AdmissionAudit``)."""
+    """Watch the batched and sequential engines built inside
+    (``AdmissionAudit``)."""
     from distributed_llm_tpu_torch.engine import batching
+    from distributed_llm_tpu_torch.engine.inference import InferenceEngine
+    from distributed_llm_tpu_torch.engine.speculative import SpeculativeEngine
 
-    cls = batching.ContinuousBatchingEngine
-    real = {name: getattr(cls, name) for name in (
-        "_body", "_capture", "_note_compile", "_note_spill", "warmup")}
+    names = ("_body", "_capture", "_note_compile", "warmup")
+    real = {(cls, name): getattr(cls, name)
+            for cls in (batching.ContinuousBatchingEngine, InferenceEngine,
+                        SpeculativeEngine)
+            for name in names + (("_note_spill",)
+                                 if cls is batching.ContinuousBatchingEngine
+                                 else ())}
     audit = AdmissionAudit()
     local = threading.local()
 
@@ -1843,51 +1895,70 @@ def admission_audit(torch, on_card: bool):
         return {"allocated": torch.cuda.memory_allocated(),
                 "reserved": torch.cuda.memory_reserved()}
 
-    def body(self, stage, key):
-        fn = real["_body"](self, stage, key)
+    def patches(cls, seq: bool) -> dict:
+        def stage_of(args):
+            return (_seq_stage(args[0]) if seq
+                    else _stage_name(args[0], args[1]))
 
-        def run():
-            if not getattr(local, "capturing", False):
-                audit.eager[stage] = audit.eager.get(stage, 0) + 1
-            return fn()
-        return run
+        def body(self, *args):
+            fn = real[cls, "_body"](self, *args)
+            stage = _seq_stage(args[0]) if seq else args[0]
 
-    def capture(self, fn):
-        local.capturing = True
-        try:
-            return real["_capture"](self, fn)
-        finally:
-            local.capturing = False
+            def run():
+                if not getattr(local, "capturing", False):
+                    audit.eager[stage] = audit.eager.get(stage, 0) + 1
+                return fn()
+            return run
 
-    def note_compile(self, stage, key):
-        audit.built.append({"tier": self.tier.name,
-                            "stage": _stage_name(stage, key), "key": key,
-                            "after_warmup": id(self) in audit.warmed})
-        return real["_note_compile"](self, stage, key)
+        def capture(self, fn):
+            local.capturing = True
+            t0 = time.perf_counter()
+            try:
+                return real[cls, "_capture"](self, fn)
+            finally:
+                local.capturing = False
+                name = self.tier.name
+                audit.capture_s[name] = (audit.capture_s.get(name, 0.0)
+                                         + time.perf_counter() - t0)
 
-    def note_spill(self, kind, n):
-        audit.spill.append({"tier": self.tier.name, "key": (kind, n)})
-        return real["_note_spill"](self, kind, n)
+        def note_compile(self, *args):
+            audit.built.append({"tier": self.tier.name,
+                                "stage": stage_of(args), "key": args[0],
+                                "sequential": seq,
+                                "after_warmup": self in audit.warmed})
+            return real[cls, "_note_compile"](self, *args)
 
-    def warmup(self):
-        before = memory()
-        real["warmup"](self)
-        audit.warmed.add(id(self))
-        audit.warmup.append({"tier": self.tier.name,
-                             "model": self.tier.model_preset,
-                             "before": before, "after": memory(),
-                             "programs": len(self._programs)})
+        def warmup(self):
+            before = memory()
+            real[cls, "warmup"](self)
+            audit.warmed.add(self)
+            audit.warmup.append({"tier": self.tier.name,
+                                 "model": self.tier.model_preset,
+                                 "before": before, "after": memory(),
+                                 "programs": len(self._programs)})
 
-    patched = {"_body": body, "_capture": capture,
-               "_note_compile": note_compile, "_note_spill": note_spill,
-               "warmup": warmup}
-    for name, fn in patched.items():
-        setattr(cls, name, fn)
+        out = {"_body": body, "_capture": capture,
+               "_note_compile": note_compile, "warmup": warmup}
+        if not seq:
+            def note_spill(self, kind, n):
+                audit.spill.append({"tier": self.tier.name, "key": (kind, n)})
+                return real[cls, "_note_spill"](self, kind, n)
+            out["_note_spill"] = note_spill
+        return out
+
+    own = {(cls, name) for cls, name in real if name in vars(cls)}
+    for cls in {cls for cls, _ in real}:
+        seq = cls is not batching.ContinuousBatchingEngine
+        for name, fn in patches(cls, seq).items():
+            setattr(cls, name, fn)
     try:
         yield audit
     finally:
-        for name, fn in real.items():
-            setattr(cls, name, fn)
+        for (cls, name), fn in real.items():
+            if (cls, name) in own:
+                setattr(cls, name, fn)
+            else:                       # inherited: uncover the base's
+                delattr(cls, name)
 
 
 def reset_counts() -> None:
@@ -2562,6 +2633,177 @@ def post_status(url: str, body: dict):
         return exc.code, exc.read().decode("utf-8")
 
 
+def seq_graph_check(torch, engine) -> dict:
+    """One decode segment of the plain engine (the rung's decode program,
+    SEGMENT steps continuing the longest parked conversation: the long
+    prompt's, at about position 2255 on the 8192 rung for orin), or one
+    round of the speculative engine (its ``("round", rung)`` program from
+    a live prefill of the long prompt, cut to the 2048 bucket), through
+    the program the engine replays and through its body run eagerly,
+    from the same live cache and the same staged state: the tokens must
+    be ``torch.equal``.  On the card both are then timed between CUDA
+    events from that state (10 replays, 3 eager runs): the replayed and
+    the eager step (a segment's over its SEGMENT steps; a round's
+    whole)."""
+    from distributed_llm_tpu_torch.engine.inference import SEGMENT
+    from distributed_llm_tpu_torch.engine.speculative import SpeculativeEngine
+
+    if isinstance(engine, SpeculativeEngine):
+        first, _, _, rung, n, _, _, _ = engine._prepare_and_prefill(
+            "summarise: " + words(LONG_WORDS, 3), SERVE_MAX_NEW)
+        key, steps, position = ("round", rung), 1, n
+        state = dict(cur=first, pos=n)
+        caches = list(engine._cache(rung))
+    else:
+        entry = max(engine.prefix_cache._entries, key=lambda e: len(e.ids))
+        rung = engine._load(entry.cache)
+        n = len(entry.ids)
+        key, steps, position = rung, SEGMENT, n - 1
+        state = dict(cur=entry.ids[-1], pos=n - 1, done=False, made=1,
+                     budget=SEGMENT + 1, temp=0.0)
+        caches = [engine._cache(rung)]
+    prog = engine._built(key, rung)
+    live = [{k: v.clone() for k, v in c.items()} for c in caches]
+
+    def reset():
+        for cache, saved in zip(caches, live):
+            for k in cache:
+                cache[k].copy_(saved[k])
+        engine._stage(**state)
+
+    reset()
+    replayed = prog.run().clone()
+    reset()
+    eager = prog.body().clone()
+    require(torch.equal(replayed, eager),
+            f"{engine.tier.name}: the replayed program {key} gave "
+            f"{replayed.tolist()}, its body run eagerly {eager.tolist()}")
+    res = {"program": str(key), "rung": rung, "position": position,
+           "graph": prog.graph is not None, "tokens_equal": True,
+           "tokens": replayed.tolist()}
+    if engine.device.type == "cuda":
+        def device_ms(run, iters):
+            reset()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(iters):
+                run()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+
+        replay_ms = device_ms(prog.run, 10)
+        eager_ms = device_ms(prog.body, 3)
+        res.update({"replay_ms": replay_ms, "eager_ms": eager_ms,
+                    "steps": steps, "step_replay_ms": replay_ms / steps,
+                    "step_eager_ms": eager_ms / steps})
+    for cache, saved in zip(caches, live):
+        for k in cache:
+            cache[k].copy_(saved[k])
+    del live
+    return res
+
+
+def copy_check(torch, engine) -> dict:
+    """The prefix cache's copies on the largest parked cache (the long
+    prompt's rung): parking (``_park``, a clone of the rung's working
+    cache) and a hit's load (``_load``, the parked entry copied back into
+    it), each held bit for bit and, on the card, timed between CUDA
+    events (3 runs each) beside the bytes copied."""
+    entry = max(engine.prefix_cache._entries, key=lambda e: len(e.ids))
+    rung = engine._load(entry.cache)
+    parked = engine._park(rung)
+    require(all(torch.equal(parked[k], entry.cache[k]) for k in parked),
+            f"{engine.tier.name}: a parked copy differs from its cache")
+    nbytes = sum(x.numel() * x.element_size() for x in parked.values())
+    del parked
+    res = {"rung": rung, "bytes": nbytes}
+    if engine.device.type == "cuda":
+        for name, run in (("park_ms", lambda: engine._park(rung)),
+                          ("load_ms", lambda: engine._load(entry.cache))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(3):
+                run()
+            end.record()
+            end.synchronize()
+            res[name] = start.elapsed_time(end) / 3
+        res["load_gb_per_s"] = 2 * nbytes / res["load_ms"] / 1e6
+    return res
+
+
+def first_use_check(torch, engine) -> dict:
+    """Programs captured at their first use, in the middle of a request,
+    as an engine without ``warmup()`` captures them (the ``/query`` app's
+    and the bench's): a cold greedy request served by the warmed programs,
+    then again with every program dropped, so its prefill and its decode
+    program (the speculative engine's fused loop; its round program for a
+    stream of the same prompt) are captured as the request meets them.
+    A capture's warm run must not disturb the request it serves: the
+    tokens must be equal.  The prefix cache is off meanwhile (both runs
+    cold), and the warmed programs are put back after."""
+    from distributed_llm_tpu_torch.engine.speculative import SpeculativeEngine
+
+    prompt = "describe: " + words(150, 5)
+    spec = isinstance(engine, SpeculativeEngine)
+    cache, saved = getattr(engine, "prefix_cache", None), engine._programs
+
+    def serve():
+        out = [engine.generate(prompt, SERVE_MAX_NEW, 0.0).token_ids]
+        if spec:
+            stream = engine.generate_stream(prompt, SERVE_MAX_NEW, 0.0)
+            "".join(stream)
+            out.append(stream.result.token_ids)
+        return out
+
+    if not spec:
+        engine.prefix_cache = None
+    try:
+        warmed = serve()
+        engine._programs = {}
+        fresh = serve()
+        built = sorted(str(k) for k in engine._programs)
+    finally:
+        engine._programs = saved
+        if not spec:
+            engine.prefix_cache = cache
+    require(fresh == warmed and len(warmed[0]) > 1,
+            f"{engine.tier.name}: programs captured at first use gave "
+            f"{fresh}, the warmed programs {warmed}")
+    return {"tokens_equal": True, "tokens": len(warmed[0]),
+            "captured_mid_request": built}
+
+
+def loop_vs_round(torch, engine) -> dict:
+    """The speculative engine's fused loop program (``generate``,
+    LOOP_ROUNDS rounds a replay and host read) against its round program
+    (``generate_stream``, one round a replay and host read) on the same
+    greedy request: the decode ms (total less TTFT) of each, 3 runs each
+    alternated, with the tokens equal."""
+    from distributed_llm_tpu_torch.engine.speculative import LOOP_ROUNDS
+
+    prompt = "explain: " + words(150, 6)
+    runs = {"loop": [], "round": []}
+    toks = {}
+    for _ in range(3):
+        res = engine.generate(prompt, SERVE_MAX_NEW)
+        runs["loop"].append(res.total_ms - res.ttft_ms)
+        toks["loop"] = res.token_ids
+        stream = engine.generate_stream(prompt, SERVE_MAX_NEW)
+        "".join(stream)
+        res = stream.result
+        runs["round"].append(res.total_ms - res.ttft_ms)
+        toks["round"] = res.token_ids
+    require(toks["loop"] == toks["round"],
+            f"{engine.tier.name}: the loop and round programs disagree")
+    return {"loop_rounds": LOOP_ROUNDS, "tokens": len(toks["loop"]),
+            "loop_decode_ms": runs["loop"], "round_decode_ms": runs["round"]}
+
+
 def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
     """Serve a ``decode_batch=1`` tier over HTTP (the sequential
     InferenceEngine, or SpeculativeEngine with a draft): ``drive`` with
@@ -2569,18 +2811,28 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
     engine cuts it to the bucket, as the JAX one does) and 3 concurrent
     requests (serialized by the app), then one request at temperature
     0.8 (200 on the plain engine; the speculative engine answers the JAX
-    package's 500 on /query and 501 on /query/stream).  Every kernel in
-    ``expect`` must launch and no plain version may run.  Then the
-    numerics checks on live caches and, for the plain engine on the
-    card, the decode step's breakdown.  Returns (serve numbers, launches
-    by kernel)."""
+    package's 500 on /query and 501 on /query/stream), and on the plain
+    engine a conversation that outgrows its rung (a 675-token turn on the
+    1024 rung, then a follow-up past it: the parked cache grows into the
+    8192 rung).  Every kernel in ``expect`` must launch, counted by the
+    programs' replays, and no plain version may run; the admission audit
+    fails the phase if a program body ran outside a capture or a program
+    was built after ``warmup()``, SEQ_COLD_STAGES' apart.  Then
+    ``seq_graph_check``, the numerics checks on live caches, the prefix
+    copies (``copy_check``) and, for the plain engine on the card, the
+    decode step's eager breakdown.  Returns (serve numbers, launches by
+    kernel)."""
     from distributed_llm_tpu_torch.engine.speculative import SpeculativeEngine
     from distributed_llm_tpu_torch.ops import flash_attention as TF
 
     on_card = device == "cuda"
-    with served(torch, tier, device) as (engine, base, startup_s):
+    with admission_audit(torch, on_card) as audit, \
+            served(torch, tier, device) as (engine, base, startup_s):
         spec = isinstance(engine, SpeculativeEngine)
+        warm = len(engine._programs)
+        warm_capture_s = audit.capture_s.get(tier.name, 0.0)
         reset_counts()
+        audit.mark()
         t_main = time.perf_counter()
         drove = drive(base, long_words=LONG_WORDS, lengths=(4, 60, 150),
                       hits=None if spec else
@@ -2591,6 +2843,7 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
                 f"long prompt served at {n_long} tokens")
         sampled = {"query": "imagine " + words(8, 2), "temperature": 0.8,
                    "num_predict": SERVE_MAX_NEW}
+        grow = None
         if spec:
             got = (post_status(base + "/query", sampled)[0],
                    post_status(base + "/query/stream", sampled)[0])
@@ -2598,9 +2851,23 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
                     f"tier answered {got}, not the JAX package's (500, 501)")
         else:
             query(base, sampled["query"], temperature=0.8)
-            drove["requests"] += 1
+            turn1 = [{"role": "user", "content": "summarise: " + words(300)}]
+            first = query(base, turn1)
+            follow = query(base, turn1 + [
+                {"role": "assistant", "content": first["response"]},
+                {"role": "user", "content": "and " + words(60, 9) + "?"}])
+            grown = sorted(k for k in engine.program_shapes()
+                           if isinstance(k, tuple) and k[0] == "grow")
+            require(not on_card or grown, "the follow-up did not grow its "
+                    "parked cache into a longer rung")
+            grow = {"prompt_tokens": [first["stats"]["prompt_tokens"],
+                                      follow["stats"]["prompt_tokens"]],
+                    "followup_ttft_ms": follow["stats"]["ttft_ms"],
+                    "programs": [str(k) for k in grown]}
+            drove["requests"] += 3
         main_s = time.perf_counter() - t_main
         launches, plain_calls = read_counts(expect, on_card)
+        admission = audit.main_path(on_card)
         serve = serve_numbers(tier, engine, startup_s, main_s, drove, launches,
                               plain_calls)
         serve.update({
@@ -2609,8 +2876,20 @@ def serve_sequential_phase(torch, tier, *, expect, device: str = "cuda"):
             "spec": ({"rounds": len(engine.accept_history),
                       "acceptance_rate": engine.acceptance_rate}
                      if spec else None),
+            "grow": grow,
+            "admission": admission,
+            "programs": {"warm": warm, "warm_set": len(engine.warm_set()),
+                         "after_main_path": len(engine._programs),
+                         "warmup_capture_s": warm_capture_s,
+                         "capture_s": audit.capture_s.get(tier.name, 0.0)},
+            # Serves the long prompt again (parked: the checks below
+            # continue it at about position 2255).
             "decode_logits_check": None if spec else seq_logits_check(torch,
                                                                       engine),
+            "seq_graph_check": seq_graph_check(torch, engine),
+            "copies": None if spec else copy_check(torch, engine),
+            "first_use_check": first_use_check(torch, engine),
+            "loop_vs_round": loop_vs_round(torch, engine) if spec else None,
             "verify_check": seq_verify_check(torch, engine) if spec else None,
             "decode_step": (seq_step_breakdown(torch, engine)
                             if on_card and not spec else None),
@@ -3658,7 +3937,29 @@ def spill_chip_phase(torch, nano, *, expect, device: str = "cuda"):
 
 # The late phases, by name: each (torch, nano tier, orin tier) ->
 # (numbers, launches by kernel).
+def _seq(tier, **kw):
+    return dataclasses.replace(tier, decode_batch=1, **kw)
+
+
+# Phases 7-9b, the sequential engines at full width and depth (also
+# ``--only``-able): (tier of (nano, orin), the kernels that must launch).
+SEQ_PHASES = {
+    "orin_seq_bf16": (lambda nano, orin: _seq(orin),
+                      ("flash_causal", "flash_decode", "flash_chunk")),
+    "orin_seq_spec": (lambda nano, orin: _seq(
+        orin, draft_preset=nano.model_preset),
+        ("flash_causal", "flash_decode", "flash_chunk")),
+    "nano_seq_int8": (lambda nano, orin: _seq(nano, kv_quantize="int8"),
+                      ("flash_causal", "flash_decode_q8", "flash_chunk_q8")),
+    "nano_seq_w8": (lambda nano, orin: _seq(nano, quantize="int8"),
+                    ("flash_causal", "flash_decode", "flash_chunk",
+                     "w8_matmul")),
+}
+
 LATE_PHASES = {
+    **{name: (lambda torch, nano, orin, make=make, expect=expect:
+              serve_sequential_phase(torch, make(nano, orin), expect=expect))
+       for name, (make, expect) in SEQ_PHASES.items()},
     # nano_1b, 8 slots, bf16 pool, ragged tick: 8 prompts of about 900
     # tokens (and 2 short) with a 256-token budget overrun 96 blocks of 2
     # MiB (full residency: 1024).
@@ -3790,6 +4091,11 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         require(all(result["flagship"].get(label, {}).get("decode_tok_per_s")
                     for label in ("nano_1b", "orin_8b_int8")),
                 f"bench flagship section: {result['flagship']}")
+    # The spec_multiturn leg: both engines' follow-up TTFT and the cost.
+    require(all(result["spec_multiturn"].get(k, 0) > 0 for k in (
+        "plain_followup_ttft_ms", "spec_followup_ttft_ms",
+        "spec_followup_ttft_cost")),
+        f"bench spec_multiturn section: {result['spec_multiturn']}")
 
     with open(summary_csv, newline="") as f:
         summary_rows = list(csv.reader(f))
@@ -3837,6 +4143,7 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "continuous_batching": result["continuous_batching"],
         "speculative": result["speculative"], "quant": result["quant"],
         "flagship": result["flagship"], "spill": result["spill"],
+        "spec_multiturn": result["spec_multiturn"],
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
@@ -3951,27 +4258,14 @@ def main() -> None:
     log(f"orin (int8 weights, nano_1b draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
 
-    # 7-9. Serve the sequential engines (decode_batch=1): orin_8b with bf16
-    # KV; orin_8b with the nano_1b draft; nano_1b with int8 KV.
-    seq_orin = dataclasses.replace(orin, decode_batch=1)
-    phases["orin_seq_bf16"], seq_launches = serve_sequential_phase(
-        torch, seq_orin, expect=("flash_causal", "flash_decode", "flash_chunk"))
-    log(f"orin sequential served in {time.perf_counter() - t_all:.1f}s")
-    phases["orin_seq_spec"], seq_spec_launches = serve_sequential_phase(
-        torch, dataclasses.replace(seq_orin, draft_preset=nano.model_preset),
-        expect=("flash_causal", "flash_decode", "flash_chunk"))
-    log(f"orin sequential speculative served in "
-        f"{time.perf_counter() - t_all:.1f}s")
-    phases["nano_seq_int8"], seq_int8_launches = serve_sequential_phase(
-        torch, dataclasses.replace(nano, decode_batch=1, kv_quantize="int8"),
-        expect=("flash_causal", "flash_decode_q8", "flash_chunk_q8"))
-    log(f"nano sequential int8 served in {time.perf_counter() - t_all:.1f}s")
-    # 9b. nano_1b sequentially with int8 weights: W1 at one row.
-    phases["nano_seq_w8"], seq_w8_launches = serve_sequential_phase(
-        torch, dataclasses.replace(nano, decode_batch=1, quantize="int8"),
-        expect=("flash_causal", "flash_decode", "flash_chunk", "w8_matmul"))
-    log(f"nano sequential int8 weights served in "
-        f"{time.perf_counter() - t_all:.1f}s")
+    # 7-9b. Serve the sequential engines (decode_batch=1): orin_8b with
+    # bf16 KV; orin_8b with the nano_1b draft; nano_1b with int8 KV;
+    # nano_1b with int8 weights (W1 at one row).
+    seq_launches = {}
+    for name in SEQ_PHASES:
+        phases[name], seq_launches[name] = LATE_PHASES[name](torch, nano,
+                                                             orin)
+        log(f"{name} served in {time.perf_counter() - t_all:.1f}s")
 
     # 10. The two-tier /chat service on the dense windowed tick: nano_1b
     # (bf16 pool) and orin_8b (int8 pool) behind the Router, every
@@ -3997,10 +4291,7 @@ def main() -> None:
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
                 "orin_spec_int8": int8_launches, "orin_w8": w8_launches,
-                "orin_seq_bf16": seq_launches,
-                "orin_seq_spec": seq_spec_launches,
-                "nano_seq_int8": seq_int8_launches,
-                "nano_seq_w8": seq_w8_launches, "chat": chat_launches,
+                **seq_launches, "chat": chat_launches,
                 "bench": bench_launches, **late_launches}
     for row in rows:
         row["launches_by_phase"] = {p: n[row["name"]]
@@ -4041,7 +4332,8 @@ def main() -> None:
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
             "chunked_ttft_ms", "flash_chunk_routes", "tick_stats", "spec",
             "decode_step", "tick_graph_check", "prefill_graph_check",
-            "admission", "verify_step",
+            "seq_graph_check", "copies", "programs", "grow",
+            "first_use_check", "loop_vs_round", "admission", "verify_step",
             "decode_logits_check", "verify_check", "peak_memory_gb")
             if k in serve}
         summary[name]["concurrent"] = {
@@ -4095,6 +4387,7 @@ def main() -> None:
             "trace_schema_ok")},
         "speculative": bench["speculative"], "quant": bench["quant"],
         "flagship": bench["flagship"],
+        "spec_multiturn": bench["spec_multiturn"],
         "spill": {k: bench["spill"].get(k) for k in (
             "warm_hit_rate", "hit_rate_monotone", "tbt_ratio",
             "outputs_identical", "race")}

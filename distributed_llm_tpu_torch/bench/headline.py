@@ -46,7 +46,9 @@ and ``quant`` (each tier's decode tok/s with bf16 weights, int8 weights,
 and int8 weights with int8 KV), and ``flagship`` (``flagship_cluster``:
 nano_1b and orin_8b with int8 weights on the sequential engine, each
 budgeted, with decode tok/s, p50 TTFT, prefill MFU, decode ``hbm_util``
-and nano's long-context leg; on the card only, unless ``--flagship``).
+and nano's long-context leg; on the card only, unless ``--flagship``),
+then ``spec_multiturn`` (the orin tier's follow-up TTFT on the plain and
+the speculative sequential engine, and the speculative one's cost).
 A later section
 that raises records ``{"error": ...}`` and the headline survives, but
 the process exits 1; the sweep itself catches nothing.
@@ -66,8 +68,8 @@ Not here, each waiting for the feature it measures (ROADMAP.md A1): the
 chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
 ``pressure`` (its load half runs on the fault injector's block starver),
 ``noisy`` (tenants),
-``skew`` (the dense-tick A/B leg), ``spec_phase`` and ``spec_multiturn``
-(the bench's speculative legs), ``mixed`` (chunked-prefill stall
+``skew`` (the dense-tick A/B leg), ``spec_phase`` (the batched
+speculative leg), ``mixed`` (chunked-prefill stall
 accounting), ``shared`` (sharing counters),
 ``replica``, ``elastic`` (replicas, the autoscaler), ``multichip``
 (tensor parallelism), ``openloop`` (the open-loop driver),
@@ -339,6 +341,8 @@ def compact(result: dict) -> dict:
             t: f.get("decode_tok_per_s")
             for t, f in (result.get("flagship") or {}).items()
             if isinstance(f, dict) and f.get("decode_tok_per_s")},
+        "spec_followup_ttft_cost": (result.get("spec_multiturn") or {}).get(
+            "spec_followup_ttft_cost"),
     }
     out["verdicts"] = {k: v for k, v in verdicts.items() if v}
     return out
@@ -1171,6 +1175,62 @@ def flagship_phase(cluster=None, device=None, max_new: int = 48,
     return out
 
 
+def spec_multiturn_phase(cluster, device=None, max_new: int = 16,
+                         beat=lambda: None) -> dict:
+    """What speculative serving costs on multi-turn TTFT: the speculative
+    engine re-prefills the whole history every turn, where the plain
+    engine's parked prefix makes a follow-up prefill only the new turn.
+    The follow-up TTFT of both sequential engines over the same 2-turn
+    conversation (orin, seed 5, nano drafting), each the lower of two
+    follow-ups (the first may build the suffix program it needs); a cost
+    above 1 is what speculation gives up for its decode win.  The JAX
+    package's ``spec_multiturn_phase`` (root ``bench.py``), with its
+    keys."""
+    from ..engine.inference import InferenceEngine
+    from ..engine.speculative import SpeculativeEngine
+
+    print("[bench] spec multi-turn cost probe", file=sys.stderr, flush=True)
+    turn1 = ("Please give a detailed account of how rivers shape valleys "
+             "over geological time, with several concrete mechanisms "
+             "discussed one by one so the explanation runs long.")
+    turn2 = "and what about glaciers?"
+
+    def followup_ttft(engine) -> float:
+        hist = [{"role": "user", "content": turn1}]
+        first = engine.generate(hist, max_new_tokens=max_new)
+        beat()
+        hist += [{"role": "assistant", "content": first.text},
+                 {"role": "user", "content": turn2}]
+        ttfts = []
+        for extra in ("", " and fjords?"):
+            res = engine.generate(hist + ([{"role": "user", "content": extra}]
+                                          if extra else []),
+                                  max_new_tokens=max_new)
+            ttfts.append(res.ttft_ms)
+            beat()
+        return min(ttfts)
+
+    out: dict = {}
+    try:
+        plain = InferenceEngine(cluster.orin, seed=5, device=device)
+        try:
+            out["plain_followup_ttft_ms"] = round(followup_ttft(plain), 2)
+        finally:
+            del plain
+        spec = SpeculativeEngine(cluster.orin, cluster.nano, seed=5,
+                                 device=device)
+        try:
+            out["spec_followup_ttft_ms"] = round(followup_ttft(spec), 2)
+        finally:
+            del spec
+        out["spec_followup_ttft_cost"] = round(
+            out["spec_followup_ttft_ms"]
+            / max(out["plain_followup_ttft_ms"], 1e-6), 2)
+    except Exception as exc:              # never lose the headline line
+        out["error"] = f"{type(exc).__name__}: {exc}"[:200]
+    return out
+
+
 def _calibrate(router, queries, n_clients: int, repeats: int,
                budget: Budget, progress: Progress):
     """One query's cost on the warm engines -> the repeats (and, under a
@@ -1588,6 +1648,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     else:
         flagship_out = {"skipped": "cpu backend (pass --flagship)"}
         progress.section("flagship", flagship_out)
+    spec_multiturn = later("spec_multiturn", lambda: spec_multiturn_phase(
+        router.cluster, dev, beat=progress.beat), 90)
 
     return {
         **headline,
@@ -1605,6 +1667,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "speculative": features["speculative"],
         "quant": features["quant"],
         "flagship": flagship_out,
+        "spec_multiturn": spec_multiturn,
     }
 
 

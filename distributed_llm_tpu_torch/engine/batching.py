@@ -161,7 +161,7 @@ from ..models.transformer import Transformer
 from ..obs import get_observability
 from ..obs import spans as obs_spans
 from ..obs.profiler import DEFAULT_CAPACITY, make_profiler
-from ..ops import launches, quant
+from ..ops import quant
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
 from ..serving.errors import error_dict
@@ -175,15 +175,12 @@ from .paged_kv import (BlockAllocator, PagedConfig, TRASH_BLOCK,
                        scatter_blocks, verify_step_paged,
                        write_prefill_blocks)
 from .prefix_cache import PrefixCache, select_reuse
+from .programs import TickProgram, capture_program
 from .tokenizer import StreamDecoder, get_tokenizer
 
 History = Union[str, Sequence[Dict[str, Any]]]
 
 logger = logging.getLogger(__name__)
-
-# Captures are serialized across the process's engines: a capture takes
-# the default CUDA generator's state for its own while it runs.
-_CAPTURE_LOCK = threading.Lock()
 
 # Per-slot adaptive γ: EWMA weight of a round's observed acceptance, and
 # the floor under which a slot stops speculating (γ=0, sticky for the
@@ -206,59 +203,6 @@ def _fetch_tick(x: torch.Tensor) -> np.ndarray:
     plain tick's [T, B], a speculative round's [B, γ+2] tokens and
     accept counts) become observable in one pull."""
     return x.cpu().numpy()
-
-
-@contextlib.contextmanager
-def _capturing(graph, pool, stream):
-    """Capture into ``graph`` on ``stream`` from the engine's memory
-    ``pool``, thread-local: ``torch.cuda.graph`` without its
-    device-wide synchronize, garbage collection and allocator cache
-    flush, which would stall the other engine on the card, and leave the
-    next eager prefill to allocate its memory afresh."""
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            yield
-        finally:
-            graph.capture_end()
-
-
-class TickProgram:
-    """One device stage (a tick, or a stage of an admission), ``body()``
-    -> its output (a tensor, a tuple of them, or None).  Without a
-    ``graph`` (the CPU) ``run()`` calls the body.  With one, the body is
-    captured once inside ``capture(graph)`` (a context manager) and
-    ``run()`` replays it and returns the static output the capture
-    allocated.  Either way ``out`` holds the last run's output, which a
-    later stage may read in place.  The kernel launches (and the plain
-    paths' calls) the capture counted are taken back (a capture runs
-    nothing) and added again at every replay, so the counts count what
-    ran on the card."""
-
-    def __init__(self, body: Callable[[], Any], graph=None,
-                 capture: Optional[Callable] = None):
-        self.body = body
-        self.graph = graph
-        self.out: Any = None
-        self.launch_deltas: Dict[str, int] = {}
-        self.call_deltas: Dict[str, int] = {}
-        if graph is not None:
-            before, calls = launches.counts(), launches.call_counts()
-            with capture(graph):
-                self.out = body()
-            self.launch_deltas = launches.since(before)
-            self.call_deltas = launches.since(calls, launches.call_counts())
-            launches.add(self.launch_deltas, -1)
-            launches.add_calls(self.call_deltas, -1)
-
-    def run(self) -> Any:
-        if self.graph is None:
-            self.out = self.body()
-            return self.out
-        self.graph.replay()
-        launches.add(self.launch_deltas)
-        launches.add_calls(self.call_deltas)
-        return self.out
 
 
 @dataclasses.dataclass
@@ -973,16 +917,8 @@ class ContinuousBatchingEngine:
         generator is registered, so each replay draws new numbers; and the
         capture is thread-local (``_capturing``), since another engine's
         scheduler (and the router) may use the card meanwhile."""
-        with _CAPTURE_LOCK:
-            stream = self._capture_stream
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(stream):
-                body()
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self._gen)
-            return TickProgram(body, graph, lambda g: _capturing(
-                g, self._graph_pool, stream))
+        return capture_program(body, self.device, self._capture_stream,
+                               self._graph_pool, (self._gen,))
 
     @torch.no_grad()
     def _decode_tick(self, wb: Optional[int] = None) -> np.ndarray:

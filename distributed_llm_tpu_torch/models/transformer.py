@@ -202,6 +202,24 @@ def seed_kv_cache(cfg: ModelConfig, k_all: torch.Tensor, v_all: torch.Tensor,
     return cache
 
 
+def reset_kv_cache(cache: KVCache, start: int = 0) -> None:
+    """Positions ``start`` and later of a cache set in place to what
+    ``init_kv_cache`` holds (zeros; int8 scale planes ones)."""
+    for name, x in cache.items():
+        x[:, :, start:].fill_(1.0 if name in ("ks", "vs") else 0)
+
+
+def seed_kv_cache_into(cache: KVCache, k_all: torch.Tensor,
+                       v_all: torch.Tensor) -> None:
+    """``seed_kv_cache`` in place: a prefill's K/V ([L, B, S, N_kv, D])
+    written at positions [0, S) of an existing cache and every later
+    position reset, so the cache equals ``seed_kv_cache``'s."""
+    s = k_all.shape[2]
+    quant.put_kv_rows(cache, None, (slice(None), slice(None), slice(0, s)),
+                      k_all, v_all)
+    reset_kv_cache(cache, s)
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Transformer, token: torch.Tensor,
                 pos: torch.Tensor, cache: KVCache) -> torch.Tensor:

@@ -3,12 +3,13 @@
 Every kernel's wrapper adds one to its ``.launches`` where it launches
 its kernel, and nowhere else.  A CUDA graph runs the wrapper's Python
 once, at capture, and the kernel at every replay; so a replayed program
-(``engine/batching.TickProgram``) records what its capture added
+(``engine/programs.TickProgram``) records what its capture added
 (``since``), takes it back (a capture launches nothing) and adds it again
 at every replay (``add``).  The counts then keep meaning kernels run on
 the card.  The plain attention paths count their calls (``.calls``) the
 same way (``call_counts``, ``add_calls``): on the card only the int8
-suffix chunk, which has no kernel, runs inside a program.
+suffix chunk, which has no kernel, runs inside a program.  So do the
+bf16 chunk kernel's launches by route (``route_counts``, ``add_routes``).
 """
 
 from __future__ import annotations
@@ -58,10 +59,17 @@ def call_counts() -> Dict[str, int]:
     return {name: fn.calls for name, fn in plain_paths().items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """The bf16 chunk kernel's (K11's) launches by route."""
+    from . import flash_attention as TF
+    return dict(TF.flash_chunk_attention.route_launches)
+
+
 def since(before: Dict[str, int],
           now: Optional[Dict[str, int]] = None) -> Dict[str, int]:
     """What was counted after ``before`` (a ``counts()``, or with ``now``
-    a ``call_counts()``), by name, names that did not move left out."""
+    a ``call_counts()`` or ``route_counts()``), by name, names that did
+    not move left out."""
     now = counts() if now is None else now
     return {name: now[name] - n for name, n in before.items()
             if now[name] != n}
@@ -79,3 +87,10 @@ def add_calls(deltas: Dict[str, int], times: int = 1) -> None:
     fns = plain_paths()
     for name, n in deltas.items():
         fns[name].calls += times * n
+
+
+def add_routes(deltas: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``deltas`` to the bf16 chunk kernel's route counts."""
+    from . import flash_attention as TF
+    for route, n in deltas.items():
+        TF.flash_chunk_attention.route_launches[route] += times * n

@@ -1,7 +1,8 @@
 """Token sampling with a per-request (runtime) temperature.
 
 Counterpart of ``distributed_llm_tpu/ops/sampling.py``'s
-``sample_token_dynamic``, and the batched engine's per-slot sampler.
+``sample_token_dynamic``: every engine's sampler, per slot in a batched
+tick and from a static temperature in a sequential engine's programs.
 temperature <= 0 is greedy (argmax); above 0 a token is drawn from the
 softmax of ``logits / temperature`` by the Gumbel-max rule (what
 ``jax.random.categorical`` does) from a ``torch.Generator``.  The two
@@ -29,15 +30,3 @@ def sample_batched(logits: torch.Tensor, temps: torch.Tensor,
     scaled = logits.float() / temps.clamp(min=1e-6)[:, None]
     sampled = (scaled + gumbel).argmax(dim=-1)
     return torch.where(temps > 0, sampled, greedy)
-
-
-def sample_token_dynamic(logits: torch.Tensor, generator: torch.Generator,
-                         temperature: float) -> torch.Tensor:
-    """logits [B, V] -> tokens [B] at one temperature for every row:
-    greedy when ``temperature <= 0`` (the generator is not advanced),
-    else a draw from ``generator``."""
-    if temperature <= 0:
-        return sample_batched(logits, None, None)
-    temps = torch.full((logits.shape[0],), float(temperature),
-                       dtype=torch.float32, device=logits.device)
-    return sample_batched(logits, temps, generator)

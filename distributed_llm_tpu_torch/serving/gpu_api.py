@@ -17,6 +17,16 @@ same JSON contract and error codes:
                       501 when the engine refuses the request's sampling
                       (the speculative engine is greedy-only)
 
+Both routes are gated by the tier's admission controller
+(``serving/tiers.AdmissionController``, which ``build_tiers`` registers
+on the manager): a refused request is answered 503 with the JAX
+package's text, ``"Request failed: <tier> admission rejected: ..."``,
+and an admitted one releases its slot on every exit.  A stream's release
+sits in its generator, and ``_ReleaseOnce`` runs it when a stream that
+never started is dropped; a ``/query`` that timed out (504) keeps its
+slot until the engine really finishes it.  A manager passed in without
+a controller is not gated, as in the JAX package.
+
 A batched tier's engine takes concurrent requests itself.  The
 sequential engines (``decode_batch=1``) assume serialized callers, so
 the app runs their calls one at a time under one lock (the JAX
@@ -28,8 +38,6 @@ Run one tier's server on the card:
 
     python -m distributed_llm_tpu_torch.serving.gpu_api --tier nano
     python -m distributed_llm_tpu_torch.serving.gpu_api --tier orin
-
-Admission control waits for the port of ``serving/tiers.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from ..engine.batching import StreamHandle, _Request
 from ..engine.manager import EngineManager
 from ..utils.http_compat import (Flask, StreamingResponse, jsonify, request,
                                  sse_done_event, sse_event)
+from .tiers import build_tiers
 from .turns import ClippedStream, clip_turn
 
 logger = logging.getLogger(__name__)
@@ -77,22 +86,60 @@ def _parse_sampling(data: Dict[str, Any]):
     return (num_predict if num_predict > 0 else None), temperature
 
 
+class _ReleaseOnce:
+    """Call ``fn`` exactly once: explicitly, or when collected.  A
+    stream's admission release sits in its generator's ``finally``, but
+    the WSGI layer may drop a response without ever starting the
+    generator (the client gone before the first byte), and closing a
+    generator that never started runs none of its body.  Only the
+    generator holds this object, so its collection is the backstop."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self) -> None:
+        fn, self._fn = self._fn, None
+        if fn is not None:
+            fn()
+
+    def __del__(self):
+        self()
+
+
 def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
                     manager: Optional[EngineManager] = None,
                     device: DeviceLike = None) -> Flask:
     """The tier's app.  Without ``manager`` one is built (lazily started)
-    from ``cluster``'s tier ``tier_name`` (default ``ClusterConfig()``) on
-    ``device`` (default: the card)."""
+    through ``build_tiers`` from ``cluster``'s tier ``tier_name`` (default
+    ``ClusterConfig()``) on ``device`` (default: the card), with its
+    admission controller."""
     app = Flask(f"dllm_gpu_{tier_name}")
     if manager is None:
-        cluster = cluster or ClusterConfig()
-        tiers = {t.name: t for t in cluster.tiers()}
+        tiers = build_tiers(cluster or ClusterConfig(), device=device,
+                            warmup_on_start=False)
         if tier_name not in tiers:
             raise ValueError(f"unknown tier {tier_name!r}")
-        manager = EngineManager(tiers[tier_name], seed=cluster.seed,
-                                warmup_on_start=False, device=device)
+        manager = tiers[tier_name].server_manager
     app.extensions["dllm_manager"] = manager
     timeout_s = manager.tier.request_timeout_s
+    # A remote router POSTs here directly: without the gate a saturated
+    # tier would queue without bound.  A manager passed in without a
+    # controller is not gated.
+    admission = getattr(manager, "admission", None)
+
+    def admit():
+        """None when admitted (or ungated), else the 503 response."""
+        if admission is None:
+            return None
+        err = admission.try_admit()
+        if err is None:
+            return None
+        return jsonify({"error": f"Request failed: {tier_name} admission "
+                                 f"rejected: {err}"}), 503
+
+    def release(service_s: Optional[float] = None) -> None:
+        if admission is not None:
+            admission.release(service_s)
     # Serializes calls into a sequential engine (see the module note).
     engine_lock = threading.Lock()
 
@@ -175,10 +222,21 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
             max_new, temperature = _parse_sampling(data)
         except (TypeError, ValueError):
             return jsonify({"error": "num_predict/temperature must be numeric"}), 400
+        refused = admit()
+        if refused is not None:
+            return refused
+        t0 = time.perf_counter()
+        held = False
         try:
             req = submit(manager.engine(), query, max_new, temperature)
             if not req.done.wait(timeout=timeout_s):
-                # The engine finishes the abandoned request on its own.
+                # The engine finishes the abandoned request on its own,
+                # and its slot is released then.
+                held = True
+                threading.Thread(
+                    target=lambda: (req.done.wait(),
+                                    release(time.perf_counter() - t0)),
+                    daemon=True).start()
                 return jsonify({"error": "Inference timed out"}), 504
             if req.error is not None:
                 raise req.error
@@ -195,6 +253,9 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
         except Exception as exc:
             logger.exception("inference failed")
             return jsonify({"error": f"Inference failed: {exc}"}), 500
+        finally:
+            if not held:
+                release(time.perf_counter() - t0)
 
     @app.route("/query/stream", methods=["POST"])
     def process_query_stream():
@@ -210,15 +271,31 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
         except (TypeError, ValueError):
             return jsonify({"error": "num_predict/temperature must be "
                                      "numeric"}), 400
+        refused = admit()
+        if refused is not None:
+            return refused
+        t0 = time.perf_counter()
         try:
             engine = manager.engine()
             handle = ClippedStream(serialized(engine, engine.generate_stream(
                 query, max_new_tokens=max_new, temperature=temperature)))
         except NotImplementedError as exc:
+            release()
             return jsonify({"error": str(exc)}), 501
         except Exception as exc:
             logger.exception("stream setup failed")
+            release()
             return jsonify({"error": f"Inference failed: {exc}"}), 500
+
+        def release_slot() -> None:
+            # The engine's own time when the stream completed, the wall
+            # time otherwise (a client gone mid-generation).
+            result = getattr(handle, "result", None)
+            engine_ms = getattr(result, "total_ms", 0) if result else 0
+            release(engine_ms / 1000.0 if engine_ms
+                    else time.perf_counter() - t0)
+
+        once = _ReleaseOnce(release_slot)
 
         def events():
             try:
@@ -227,6 +304,10 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
                 yield sse_done_event(handle.result)
             except Exception as exc:
                 yield sse_event({"error": str(exc)})
+            finally:
+                # Exactly once: exhaustion, a client gone (the generator
+                # closed) or, for a generator never started, collection.
+                once()
 
         return StreamingResponse(events())
 

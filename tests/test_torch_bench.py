@@ -119,6 +119,9 @@ def _synthetic_result() -> dict:
         "quant": {"nano": {"speedup": 1.6}, "orin": {"speedup": 1.8}},
         "flagship": {"nano_1b": {"decode_tok_per_s": 88.0},
                      "orin_8b_int8": {"decode_tok_per_s": 30.1}},
+        "spec_multiturn": {"plain_followup_ttft_ms": 11.0,
+                           "spec_followup_ttft_ms": 35.2,
+                           "spec_followup_ttft_cost": 3.2},
         "tiers": {"nano": {"phases": {}}},
     }
 
@@ -405,3 +408,21 @@ def test_flagship_cluster_is_the_jax_packages_on_one_card():
         == "int8"
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         torch_config.flagship_cluster(5)
+
+
+def test_spec_multiturn_keys_match_jax():
+    """The bench's ``spec_multiturn`` leg on the tiny sequential cluster:
+    the port's section carries the JAX leg's keys (root ``bench.py``),
+    each a positive TTFT or cost, and ``compact`` reports the cost."""
+    from distributed_llm_tpu.config import tiny_cluster as jax_tiny
+
+    want = jax_bench.spec_multiturn_phase(jax_tiny(), max_new=4)
+    got = headline.spec_multiturn_phase(torch_config.tiny_cluster(),
+                                        device="cpu", max_new=4)
+    assert "error" not in want and "error" not in got, (want, got)
+    assert set(got) == set(want) == {"plain_followup_ttft_ms",
+                                     "spec_followup_ttft_ms",
+                                     "spec_followup_ttft_cost"}
+    assert all(v > 0 for v in got.values())
+    assert headline.compact({"spec_multiturn": got})["verdicts"][
+        "spec_followup_ttft_cost"] == got["spec_followup_ttft_cost"]
