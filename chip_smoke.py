@@ -107,7 +107,10 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    clients, the trend leg on the tiny tiers, the long-context and orin
    prefix probes, the batched nano engine with bf16 and int8 KV, the
    ``speculative`` and ``quant`` legs on the sequential engines, the
-   ``flagship`` section and the ``spec_multiturn`` leg), then the
+   ``flagship`` section and the ``spec_multiturn`` leg, the engine legs
+   ``skew``, ``spec_phase``, ``mixed`` and ``shared`` and the
+   ``openloop`` leg at the JAX bench's pinned configurations, the
+   open-loop leg on a BENCH_OPENLOOP_S budget), then the
    canonical tester once (heuristic,
    cache off, general_knowledge).
    Every strategy must serve with no concurrent error, no section hold
@@ -122,7 +125,12 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    the trace-derived TTFT columns, counting every request it served, and
    the ``profile`` and ``spill`` sections (the tick profiler and the host
    spill tier on the tiny cluster) hold no error (the spill leg's outputs
-   identical across budgets, its hit rate monotone, its race observed);
+   identical across budgets, its hit rate monotone, its race observed),
+   the legs hold their invariants (one ragged decode program, the
+   speculative programs within the γ-bucket family, shared peak blocks
+   under 0.6 x exclusive, a knee) with outputs identical across each
+   leg's modes or every flip a near-tie, and the dense decode and the
+   verify kernels launch too;
 12. the constrained pool (``pressure_phase``): nano_1b (8 slots, bf16
    pool, ragged tick) with ``kv_pool_blocks=96`` (of 1024 at full
    residency), then orin_8b with int8 weights, an int8 pool, 4 slots and
@@ -145,13 +153,29 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    three, the race sub-check's fallback observed, demotions and
    promotions at the large budget, K1-K3 launched; it prints the
    promoted revisits' TTFT beside the cold ones, the co-tenant's TBT p95
-   ratio, the demote and promote counts and the host bytes held.
+   ratio, the demote and promote counts and the host bytes held;
+14. the trained tiny /chat (``trained_chat_phase``): the repo's trained
+   nano_test and orin_test (``with_default_checkpoints(
+   tiny_batched_cluster())``, head dim 16, 16-token blocks) behind
+   ``create_app`` on the card over HTTP; each turn's greedy reply must
+   equal the port's own on the CPU (float32 presets, the plain versions)
+   or differ at a near-tie (``near_tie``, margin printed); the ragged
+   decode, causal prefill and paged chunk kernels launch;
+15. the bench's legs at full width (``legs_phase``): ``skew``, ``mixed``
+   (its long prompt in the 1792 bucket) and ``shared`` on nano_1b,
+   ``spec_phase`` on orin_8b with the nano_1b draft, ``openloop`` on the
+   bench cluster; each leg's kernels launch (skew: the dense and ragged
+   decode and the prefill; spec: the verify; mixed and shared: the paged
+   chunk; openloop: W1), its invariants hold and its modes' outputs are
+   identical or differ only at near-ties.
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
-those three, or of the sequential phases ``orin_seq_bf16``,
-``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``) builds the kernels
-and runs only those phases, printing each one's numbers, with no kernel
-table and no last line: a debugging run.
+those three, of the sequential phases ``orin_seq_bf16``,
+``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
+``legs``, ``bench``) builds the kernels and runs only those phases,
+printing each one's numbers (each also to ``only_<name>.json`` in the
+report directory), with no kernel table and no last line: a debugging
+run.
 
 The sequential engines (phases 7-9b and the bench's sequential legs)
 run every device stage as a CUDA graph too (``engine/programs.py``), one
@@ -195,8 +219,9 @@ phase self-time table, coverage and attribution, the profiler's
 overhead, the budgets) and its per-kernel capture
 (``per_kernel_capture``) as two more, the bench's per-strategy req/s and
 p50 TTFT, trace columns, profile section, utilization and wall time as
-another, the pressure phases' and the spill phase's numbers as two more
-(each with the card's name and power limit), the card's name and power
+another, the pressure phases' and the spill phase's numbers as two more,
+the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
+as two more (each with the card's name and power limit), the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -696,8 +721,9 @@ SERVING_SHAPES = tuple((d, bs) for d in (64, 128) for bs in (32, 64, 128))
 def tiny_preset_checks(torch, gen):
     """The ragged decode, the causal prefill and the paged chunk at the
     tiny presets' shapes (nano_test: Nq 4, Nkv 2; orin_test: Nq 8, Nkv 4;
-    head dim 16, 16-token blocks, 256 positions), as the trend leg serves
-    them: K1 on 4 slots (one idle) up to the last position, K2 at 16-256
+    head dim 16, 16-token blocks, 256 positions; draft_test, the bench's
+    spec leg's draft: Nq 4, Nkv 2, head dim 8, served by the 16 instance
+    on zero-padded inputs), as the trend and spec legs serve them: K1 on 4 slots (one idle) up to the last position, K2 at 16-256
     rows, K3 at a prefix hit's 64 rows from position 100; each held to
     KERNEL_REL_TOL, with the plain version one 64-position tile short
     outside it, and K2 against K3 bit for bit.  Returns (worst
@@ -716,7 +742,7 @@ def tiny_preset_checks(torch, gen):
     errs = {n: NO_ERR for n in ("ragged_decode", "flash_causal", "paged_chunk")}
     short = {n: float("inf") for n in errs}
     bs = 16
-    for preset in ("nano_test", "orin_test"):
+    for preset in ("nano_test", "orin_test", "draft_test"):
         cfg = MODEL_PRESETS[preset]
         nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         span = cfg.max_seq_len
@@ -3935,6 +3961,311 @@ def spill_chip_phase(torch, nano, *, expect, device: str = "cuda"):
     return out, launches
 
 
+# -- phases 14-15: the trained tiny /chat and the bench's engine legs -------
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches and plain-version calls made inside are taken back:
+    a near-tie check compares paths, it is no main path."""
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
+    from distributed_llm_tpu_torch.ops import launches
+    saved = (launches.counts(), launches.call_counts(),
+             dict(TF.flash_chunk_attention.route_launches))
+    try:
+        yield
+    finally:
+        for name, fn in kernel_wrappers().items():
+            fn.launches = saved[0][name]
+        for name, fn in launches.plain_paths().items():
+            fn.calls = saved[1][name]
+        TF.flash_chunk_attention.route_launches = saved[2]
+
+
+def tie_checker(torch):
+    """``near_tie`` as the bench legs' ``tie_check``, uncounted."""
+    def check(engine, ids, want, got):
+        with uncounted():
+            return near_tie(torch, engine, ids, want, got)
+    return check
+
+
+@contextlib.contextmanager
+def float32_presets(names):
+    """The named model presets at float32 inside (the CPU reference)."""
+    from distributed_llm_tpu_torch import config as C
+    saved = {n: C.MODEL_PRESETS[n] for n in names}
+    for n, cfg in saved.items():
+        C.MODEL_PRESETS[n] = dataclasses.replace(cfg, dtype="float32")
+    try:
+        yield
+    finally:
+        C.MODEL_PRESETS.update(saved)
+
+
+# (session, message): two turns nano answers, one orin answers, then a
+# follow-up in the first session (a prefix hit: the paged suffix chunk).
+TRAINED_CHAT = (
+    ("t0", "hello there"),
+    ("t1", "what is 2+2"),
+    ("t2", "Implement a dynamic-programming solution to the knapsack "
+           "problem and analyze its complexity"),
+    ("t0", "tell me about the tallest mountains"),
+)
+
+
+def chat_turns(router, post_chat) -> list:
+    """TRAINED_CHAT through ``post_chat(body) -> reply dict``, one turn at
+    a time: each turn's device and reply, the serving tier's token ids and
+    the history the router gave that tier."""
+    sent = {}
+    for name, client in router.tiers.items():
+        def process(history, real=client.process, name=name):
+            sent[name] = [dict(m) for m in history]
+            return real(history)
+        client.process = process
+    turns = []
+    for session, message in TRAINED_CHAT:
+        reply = post_chat({"message": message, "session_id": session})
+        tier = reply["device"]
+        turns.append({"session": session, "device": tier,
+                      "reply": reply["reply"],
+                      "tokens": list(router.tiers[tier].last_result.token_ids),
+                      "history": sent[tier]})
+    return turns
+
+
+def trained_chat_phase(torch, *, expect, device: str = "cuda"):
+    """The repo's trained tiny tiers (``with_default_checkpoints(
+    tiny_batched_cluster())``: nano_test v500, orin_test v320, head dim
+    16, 16-token blocks, the ragged tick) behind ``create_app`` on
+    ``device``, over HTTP: the greedy /chat replies of TRAINED_CHAT must
+    equal the port's own replies on the CPU (float32 presets, the plain
+    versions), turn for turn, device and text.  A reply that differs must
+    trace to a near-tie (``near_tie`` on the card's engine, at the first
+    token where the card's tier and the CPU's part); a later turn of that
+    session is then not compared (its history holds the other reply).
+    The kernels in ``expect`` launch and no plain version runs."""
+    from distributed_llm_tpu_torch.config import (tiny_batched_cluster,
+                                                  with_default_checkpoints)
+    from distributed_llm_tpu_torch.engine.inference import prepare_prompt
+    from distributed_llm_tpu_torch.serving.app import create_app
+
+    on_card = device == "cuda"
+    cluster = with_default_checkpoints(tiny_batched_cluster())
+    require(all(t.checkpoint_path for t in cluster.tiers()),
+            f"no trained checkpoint in {cluster}")
+    presets = [t.model_preset for t in cluster.tiers()]
+    with float32_presets(presets):
+        app = create_app(cluster=cluster, device="cpu")
+        ref_router = app.extensions["dllm_state"]["router"]
+        client = app.test_client()
+        try:
+            want = chat_turns(ref_router, lambda body: json.loads(
+                client.post("/chat", json=body).body))
+        finally:
+            ref_router.drain(timeout_s=10.0)
+    fresh_peak(torch, on_card)
+    with admission_audit(torch, on_card) as audit:
+        t0 = time.perf_counter()
+        app = create_app(cluster=cluster, device=device)
+        router = app.extensions["dllm_state"]["router"]
+        for tier in router.tiers.values():
+            tier.server_manager.start_server()       # build + warm
+        startup_s = time.perf_counter() - t0
+        with http_served(app) as base:
+            reset_counts()
+            audit.mark()
+            t0 = time.perf_counter()
+            got = chat_turns(router, lambda body: chat_post(base, "/chat",
+                                                            body))
+            main_s = time.perf_counter() - t0
+            launches, plain_calls = read_counts(expect, on_card)
+            admission = audit.main_path(on_card)
+    try:
+        turns, parted = [], set()
+        for w, g in zip(want, got):
+            entry = {"session": g["session"], "device": g["device"],
+                     "reply": g["reply"], "tokens": len(g["tokens"])}
+            if w["session"] in parted:
+                entry["compared"] = "no: an earlier turn differed"
+            else:
+                require(g["device"] == w["device"],
+                        f"trained /chat routed {g} to {g['device']}, the "
+                        f"CPU to {w['device']}")
+                entry["identical"] = g["reply"] == w["reply"]
+                if not entry["identical"]:
+                    tier = router.tiers[g["device"]].tier
+                    engine = router.tiers[g["device"]].server_manager.engine()
+                    ids, _ = prepare_prompt(engine.tokenizer, g["history"],
+                                            tier.prefill_buckets,
+                                            engine.cfg.max_seq_len,
+                                            tier.max_new_tokens)
+                    with uncounted():
+                        tie = near_tie(torch, engine, ids, w["tokens"],
+                                       g["tokens"])
+                    require(tie["near_tie"],
+                            f"trained /chat reply differs from the CPU's "
+                            f"beyond a near-tie: {g['reply']!r} against "
+                            f"{w['reply']!r}: {tie}")
+                    entry["near_tie"] = tie
+                    parted.add(w["session"])
+            turns.append(entry)
+        require(any(t.get("identical") for t in turns),
+                f"no trained /chat reply equals the CPU's: {turns}")
+    finally:
+        router.drain(timeout_s=30.0)
+    return {"cluster": {t.name: [t.model_preset, t.checkpoint_path]
+                        for t in cluster.tiers()},
+            "turns": turns, "startup_s": startup_s, "main_path_s": main_s,
+            "launches": launches, "plain_calls": plain_calls,
+            "admission": admission,
+            "peak_memory_gb": peak_memory_gb(torch, on_card)}, launches
+
+
+# The legs phase at full width: the speculative leg's γ cap (orin_8b's
+# group of 4 heads keeps γ + 1 = 9 verify rows a head group within the
+# verify kernel's 40), the shared leg's system prompt (about 1600 tokens,
+# 25 of nano_1b's 64-token blocks, so the shared prefix dominates as the
+# tiny leg's does in 16-token blocks) and the open-loop leg's budget (the
+# bench cluster's start and warmup included).
+LEG_GAMMA_MAX = 8
+LEG_SHARED_PREFIX = "system: " + words(700) + ". answer in one sentence."
+LEG_OPENLOOP_S = 75.0
+
+
+def legs_phase(torch, nano, orin, *, device: str = "cuda"):
+    """The bench's engine legs and the open-loop leg at full width:
+    ``skew``, ``mixed`` and ``shared`` on nano_1b (``mixed`` with the
+    buckets (64, 1792): its long prompt goes in the 1792 bucket), ``spec``
+    on orin_8b with the nano_1b draft, ``openloop`` on the bench cluster
+    with a LEG_OPENLOOP_S budget.  Each leg's counts are set to 0 just
+    before it and read just after: its kernels must launch and no plain
+    version may run; its admission programs are audited.  Each leg's hard
+    invariants hold (one ragged decode program, the speculative program
+    family, peak blocks shared under 0.6 x exclusive, a knee), and greedy
+    outputs are identical across each leg's modes or every flip is a
+    near-tie (``tie_checker``).  Returns (numbers by leg, launches summed
+    over the legs)."""
+    from distributed_llm_tpu_torch.bench import legs, openloop
+    from distributed_llm_tpu_torch.config import bench_cluster
+
+    on_card = device == "cuda"
+    tie = tie_checker(torch)
+    plain = dict(max_new_tokens=24, enable_prefix_cache=False)
+    runs = {
+        "skew": (lambda: legs.skew_phase(
+            device, tier=dataclasses.replace(nano, **plain), tie_check=tie),
+            ("paged_decode", "ragged_decode", "flash_causal")),
+        "spec_phase": (lambda: legs.spec_phase(
+            device, gamma_max=LEG_GAMMA_MAX, tie_check=tie,
+            tier=dataclasses.replace(orin, draft_preset=nano.model_preset,
+                                     **plain)),
+            ("ragged_verify", "ragged_decode", "flash_causal")),
+        "mixed": (lambda: legs.mixed_phase(
+            device, tie_check=tie, tier=dataclasses.replace(
+                nano, decode_batch=2, decode_steps_per_tick=1,
+                max_new_tokens=64, prefill_buckets=(64, 1792),
+                enable_prefix_cache=False)),
+            ("flash_causal", "paged_chunk", "ragged_decode")),
+        "shared": (lambda: legs.shared_prefix_phase(
+            4, device=device, prefix=LEG_SHARED_PREFIX, tie_check=tie,
+            tier=dataclasses.replace(nano, max_new_tokens=6)),
+            ("paged_chunk", "flash_causal", "ragged_decode")),
+        "openloop": (lambda: openloop.openloop_phase(
+            budget_s=LEG_OPENLOOP_S, device=device, cluster=bench_cluster()),
+            ("w8_matmul", "ragged_decode", "flash_causal", "paged_chunk")),
+    }
+    out = {}
+    total = {name: 0 for name in kernel_wrappers()}
+    for name, (run, expect) in runs.items():
+        fresh_peak(torch, on_card)
+        with admission_audit(torch, on_card) as audit:
+            reset_counts()
+            audit.mark()
+            t0 = time.perf_counter()
+            res = run()
+            wall_s = time.perf_counter() - t0
+            launches, plain_calls = read_counts(expect if on_card else (),
+                                                on_card)
+            admission = audit.main_path(on_card)
+        require("error" not in res, f"{name} leg: {res.get('error')}")
+        if name != "openloop":
+            require(res["outputs_identical"] or (
+                res.get("flips") and all(f["near_tie"]
+                                         for f in res["flips"])),
+                f"{name} leg: outputs differ beyond a near-tie: "
+                f"{res.get('flips')}")
+        res.update({"wall_s": wall_s, "launches": launches,
+                    "plain_calls": plain_calls, "admission": admission,
+                    "peak_memory_gb": peak_memory_gb(torch, on_card)})
+        out[name] = res
+        for k, n in launches.items():
+            total[k] += n
+        log(f"leg {name} run in {wall_s:.1f}s")
+    require(out["skew"]["ragged"]["compiled_decode_programs"] == 1,
+            f"skew leg: {out['skew']['ragged']}")
+    spec_on = out["spec_phase"]["on"]
+    require(0 < spec_on["verify_programs"] <= len(spec_on["gamma_buckets"])
+            and spec_on["drafted_total"] > 0,
+            f"spec leg: {spec_on}")
+    require(out["shared"]["peak_ratio"] < 0.6,
+            f"shared leg: peak ratio {out['shared'].get('peak_ratio')}")
+    for mode in ("monolithic", "chunked"):
+        require("error" not in out["mixed"][mode] and not
+                out["mixed"][mode]["errors"],
+                f"mixed leg {mode}: {out['mixed'][mode]}")
+    require((out["openloop"].get("knee_req_per_s") or 0) > 0,
+            f"openloop leg: no knee: {out['openloop']}")
+    return out, total
+
+
+def leg_summary(res: dict) -> dict:
+    """One leg's card numbers for the printed line (full detail in the
+    report)."""
+    pick = {
+        "skew": lambda r: {
+            "tick_p50_ratio_ragged_over_dense":
+                r.get("tick_p50_ratio_ragged_over_dense"),
+            **{m: {k: r[m][k] for k in ("decode_tick_p50_ms",
+                                        "decode_tick_p95_ms", "req_per_s",
+                                        "compiled_decode_programs")}
+               for m in ("dense", "ragged")}},
+        "spec_phase": lambda r: {
+            "tok_ratio": r.get("tok_ratio"),
+            "wall_tok_ratio": r.get("wall_tok_ratio"),
+            **{m: {k: r[m][k] for k in ("tok_per_s", "accept_ratio",
+                                        "per_slot_accept", "verify_programs",
+                                        "gamma_buckets")}
+               for m in ("off", "on")}},
+        "mixed": lambda r: {m: {k: r[m][k] for k in (
+            "tbt95_ratio", "stall_max_ms", "stall_calm_ms", "long_ttft_ms",
+            "short_tbt_p95_ms", "calm_tbt_p95_ms")}
+            for m in ("monolithic", "chunked")},
+        "shared": lambda r: {
+            "peak_ratio": r.get("peak_ratio"),
+            "ttft_p50_ratio": r.get("ttft_p50_ratio"),
+            **{m: {k: r[m][k] for k in ("peak_resident_blocks",
+                                        "warm_ttft_p50_ms",
+                                        "tokens_saved_shared",
+                                        "tokens_saved_exclusive")}
+               for m in ("on", "off")}},
+        "openloop": lambda r: {k: r.get(k) for k in (
+            "base_seq_req_per_s", "point_s", "knee_req_per_s",
+            "goodput_at_knee", "slo_attainment")}
+            | {"overload": {k: (r.get("overload") or {}).get(k) for k in (
+                "offered_req_per_s", "availability", "slo_attainment",
+                "hung_clients", "incidents_recorded")}},
+    }
+    return {name: {**fn(res[name]),
+                   "outputs_identical": res[name].get("outputs_identical"),
+                   "flips": [{k: f.get(k) for k in ("request", "position",
+                                                    "top2_gap", "pick_gap",
+                                                    "tol", "near_tie")}
+                             for f in res[name].get("flips", ())],
+                   "wall_s": res[name].get("wall_s")}
+            for name, fn in pick.items() if isinstance(res.get(name), dict)}
+
+
 # The late phases, by name: each (torch, nano tier, orin tier) ->
 # (numbers, launches by kernel).
 def _seq(tier, **kw):
@@ -3978,12 +4309,21 @@ LATE_PHASES = {
     "spill": lambda torch, nano, orin: spill_chip_phase(
         torch, nano, expect=("ragged_decode", "flash_causal",
                              "paged_chunk")),
+    # The trained tiny tiers behind /chat (head dim 16, 16-token blocks).
+    "trained_chat": lambda torch, nano, orin: trained_chat_phase(
+        torch, expect=("ragged_decode", "flash_causal", "paged_chunk")),
+    "legs": lambda torch, nano, orin: legs_phase(torch, nano, orin),
+    "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
 
 BENCH_BUDGET_S = 600.0
-BENCH_KERNELS =("ragged_decode", "flash_causal", "paged_chunk",
-                 "ragged_decode_q8", "w8_matmul")
+# The open-loop leg's share of it (the JAX bench gives it up to 120 s;
+# 40 s is its least, which keeps the whole script inside its limit).
+BENCH_OPENLOOP_S = 40.0
+BENCH_KERNELS = ("ragged_decode", "flash_causal", "paged_chunk",
+                 "ragged_decode_q8", "w8_matmul", "paged_decode",
+                 "ragged_verify")
 TESTER_ROWS = 12                  # the general_knowledge set, one config
 
 
@@ -4030,7 +4370,8 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
             device, repeats=1, clients=4,
             progress=headline.Progress(os.path.join(out_dir,
                                                     "bench_partial.json")),
-            budget=headline.Budget(budget_s))
+            budget=headline.Budget(budget_s),
+            tie_check=tie_checker(torch), openloop_budget_s=BENCH_OPENLOOP_S)
         headline_s = time.perf_counter() - t0
         tester.main(["--query-set", "general_knowledge", "--strategies",
                      "heuristic", "--cache-modes", "off", "--device", device,
@@ -4091,6 +4432,23 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         require(all(result["flagship"].get(label, {}).get("decode_tok_per_s")
                     for label in ("nano_1b", "orin_8b_int8")),
                 f"bench flagship section: {result['flagship']}")
+    # The engine legs and the open-loop leg at the JAX bench's pinned
+    # configurations: their invariants, identity or near-ties only.
+    require(result["skew"]["ragged"]["compiled_decode_programs"] == 1,
+            f"bench skew section: {result['skew']}")
+    spec_on = result["spec_phase"]["on"]
+    require(0 < spec_on["verify_programs"] <= len(spec_on["gamma_buckets"]),
+            f"bench spec_phase section: {spec_on}")
+    require(result["shared"]["peak_ratio"] < 0.6,
+            f"bench shared section: {result['shared']}")
+    for leg in ("skew", "spec_phase", "mixed", "shared"):
+        sec = result[leg]
+        require(sec["outputs_identical"] or (
+            sec.get("flips") and all(f["near_tie"] for f in sec["flips"])),
+            f"bench {leg} section: outputs differ beyond a near-tie: "
+            f"{sec.get('flips')}")
+    require((result["openloop"].get("knee_req_per_s") or 0) > 0,
+            f"bench openloop section: {result['openloop']}")
     # The spec_multiturn leg: both engines' follow-up TTFT and the cost.
     require(all(result["spec_multiturn"].get(k, 0) > 0 for k in (
         "plain_followup_ttft_ms", "spec_followup_ttft_ms",
@@ -4144,6 +4502,8 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "speculative": result["speculative"], "quant": result["quant"],
         "flagship": result["flagship"], "spill": result["spill"],
         "spec_multiturn": result["spec_multiturn"],
+        **{leg: result[leg] for leg in ("skew", "spec_phase", "mixed",
+                                        "shared", "openloop")},
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
@@ -4198,9 +4558,16 @@ def main() -> None:
     if only:
         # A debugging run: only the named late phases, no kernel table and
         # no last line.
+        os.makedirs(REPORT_DIR, exist_ok=True)
         for name in only[0]:
-            log(json.dumps({name: LATE_PHASES[name](torch, nano, orin)[0],
-                            "card": card}))
+            t0 = time.perf_counter()
+            numbers = LATE_PHASES[name](torch, nano, orin)[0]
+            with open(os.path.join(REPORT_DIR, f"only_{name}.json"),
+                      "w") as f:
+                json.dump(numbers, f, indent=1, default=str)
+            log(json.dumps({name: (leg_summary(numbers) if name in (
+                "legs", "bench") else numbers), "card": card,
+                "wall_s": time.perf_counter() - t0}, default=str))
         return
 
     # 3. Kernels.  First the floor of a graph-replayed time: a graph of one
@@ -4286,7 +4653,10 @@ def main() -> None:
     # nano_1b draft) and the host spill tier (nano_1b).
     late = {}
     late_launches = {}
-    for name in ("pressure_nano", "pressure_orin", "spill"):
+    # 14-15. The trained tiny tiers behind /chat; the bench's engine legs
+    # and the open-loop leg at full width.
+    for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
+                 "legs"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
@@ -4425,6 +4795,11 @@ def main() -> None:
         "outputs_identical": sp["outputs_identical"], "race": sp["race"],
         "spill_copies": sp["admission"]["spill_copies"],
         "wall_s": sp["wall_s"]}}))
+    tc = late["trained_chat"]
+    log(json.dumps({"card": card, "trained_chat": {
+        k: tc[k] for k in ("cluster", "turns", "startup_s", "main_path_s")}}))
+    log(json.dumps({"card": card, "legs": leg_summary(late["legs"]),
+                    "bench_legs": leg_summary(bench)}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

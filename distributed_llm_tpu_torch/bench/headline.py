@@ -32,16 +32,27 @@ sweep router's own metric registry (``_trace_quantiles``:
 Then the later sections: ``trend`` (the pinned tiny cluster, heuristic,
 4 clients, median of 5), ``long_context`` and ``orin_prefix`` (prefix
 reuse on the orin tier), ``continuous_batching`` (one batched nano engine,
-concurrent against sequential, and its int8-KV leg), ``profile`` (the
+concurrent against sequential, and its int8-KV leg), the engine legs
+of ``bench/legs.py`` at the JAX bench's pinned configurations: ``skew``
+(the dense windowed tick against the ragged tick at full occupancy),
+``spec_phase`` (batched speculation with ``draft_test`` on and off),
+``mixed`` (a long prompt beside a short stream on ``mini_bench``,
+chunked against one-shot prefill) and ``shared`` (K sessions over one
+system prompt, prefix sharing on and off), then ``profile`` (the
 tick-phase profiler over the tiny batched cluster: its per-phase
 self-time table, coverage, attribution conservation, the cost ledger's
 head and a Chrome-trace artifact, ``BENCH_profile_trace.json``), ``spill``
 (the host KV spill tier on the tiny nano tier with a 20-block pool: 16
 sessions populated then revisited with the spill OFF and at a small and
 a large host budget; ``warm_hit_rate`` per mode, the co-tenant's
-``tbt_ratio``, identity across modes and the promotion-race sub-check), the
-features legs ``speculative`` (the orin tier speculating with the nano
-model as its draft: acceptance and decode tok/s against plain greedy)
+``tbt_ratio``, identity across modes and the promotion-race sub-check),
+``openloop`` (``bench/openloop.py``: Poisson arrivals through the
+in-process ``/chat`` edge on the tiny cluster, the rate swept to the knee
+of SLO attainment, ``knee_req_per_s`` and ``goodput_at_knee``, and an
+overload epilogue at 2.5 x the knee; skipped with less than 70 s of
+budget left), the features legs ``speculative`` (the orin tier
+speculating with the nano model as its draft: acceptance and decode
+tok/s against plain greedy)
 and ``quant`` (each tier's decode tok/s with bf16 weights, int8 weights,
 and int8 weights with int8 KV), and ``flagship`` (``flagship_cluster``:
 nano_1b and orin_8b with int8 weights on the sequential engine, each
@@ -68,14 +79,11 @@ Not here, each waiting for the feature it measures (ROADMAP.md A1): the
 chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
 ``pressure`` (its load half runs on the fault injector's block starver),
 ``noisy`` (tenants),
-``skew`` (the dense-tick A/B leg), ``spec_phase`` (the batched
-speculative leg), ``mixed`` (chunked-prefill stall
-accounting), ``shared`` (sharing counters),
 ``replica``, ``elastic`` (replicas, the autoscaler), ``multichip``
-(tensor parallelism), ``openloop`` (the open-loop driver),
-``tier_quality`` (trained checkpoints), ``perf_steering`` (fault
-injection) and ``dispatch_provenance`` / ``hw_dispatch`` (the port has no
-dispatch table).  Nor the JAX bench's accelerator probe, its fall-back to
+(tensor parallelism), ``tier_quality`` (the training package's
+evaluation), ``perf_steering`` (fault injection) and
+``dispatch_provenance`` / ``hw_dispatch`` (the port has no dispatch
+table).  Nor the JAX bench's accelerator probe, its fall-back to
 the CPU or its kernel dispatch A/B.
 """
 
@@ -90,7 +98,7 @@ import statistics
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # Reference throughput on the same query set: the reference serves
 # general_knowledge in 922.2 s (nano) + 176.0 s (orin) at ctx-threshold
@@ -248,6 +256,20 @@ def compact(result: dict) -> dict:
         out["trend"] = {"median": trend.get("trend_req_per_s"),
                         "iqr": trend.get("trend_iqr"),
                         "n": trend.get("repeats")}
+    ol = result.get("openloop")
+    if isinstance(ol, dict) and ol.get("knee_req_per_s") is not None:
+        # The knee, goodput there, per-strategy SLO attainment at the
+        # knee, and the overload epilogue's verdict.
+        ov = ol.get("overload") or {}
+        out["openloop"] = {k: v for k, v in {
+            "knee": ol.get("knee_req_per_s"),
+            "goodput": ol.get("goodput_at_knee"),
+            "att": ol.get("slo_attainment"),
+            "ov_avail": ov.get("availability"),
+            "ov_att": ov.get("slo_attainment"),
+            "ov_hung": ov.get("hung_clients"),
+            "ov_incidents": ov.get("incidents_recorded"),
+        }.items() if v is not None}
     stats = result.get("req_per_s_stats")
     if isinstance(stats, dict):
         out["req_per_s_stats"] = {k: stats.get(k)
@@ -257,6 +279,69 @@ def compact(result: dict) -> dict:
         out["budget"] = {"budget_s": bud.get("budget_s"),
                          "repeats": bud.get("repeats"),
                          "scaled": bool(bud.get("scaled"))}
+    sk = result.get("skew")
+    if isinstance(sk, dict):
+        # The judged skew ratio (<= 1: the ragged tick wins) and the
+        # modes' decode-tick p50s.
+        if sk.get("tick_p50_ratio_ragged_over_dense") is not None:
+            out["skew_tick_ratio"] = sk["tick_p50_ratio_ragged_over_dense"]
+        out["skew_tick_p50_ms"] = {
+            m: (sk.get(m) or {}).get("decode_tick_p50_ms")
+            for m in ("dense", "ragged") if isinstance(sk.get(m), dict)}
+    sp_dec = result.get("spec_phase")
+    if isinstance(sp_dec, dict):
+        # The judged spec-on/off decode tok/s ratio, both rates, the
+        # aggregate and per-slot acceptance, the verify program count and
+        # the identity verdict.
+        on = sp_dec.get("on") or {}
+        off = sp_dec.get("off") or {}
+        cm = {k: v for k, v in {
+            "tok_ratio": sp_dec.get("tok_ratio"),
+            "wall_ratio": sp_dec.get("wall_tok_ratio"),
+            "tok_on": on.get("tok_per_s"),
+            "tok_off": off.get("tok_per_s"),
+            "accept": on.get("accept_ratio"),
+            "slot_accept": on.get("per_slot_accept"),
+            "verify_programs": on.get("verify_programs"),
+            "ident": sp_dec.get("outputs_identical"),
+        }.items() if v is not None}
+        if cm:
+            out["spec"] = cm
+    mx = result.get("mixed")
+    if isinstance(mx, dict):
+        # The chunked short-class p95 TBT ratio and its one-shot twin,
+        # both modes' stalls and long-class TTFTs, the identity verdict.
+        ch = mx.get("chunked") or {}
+        mo = mx.get("monolithic") or {}
+        cm = {k: v for k, v in {
+            "tbt95_ratio": ch.get("tbt95_ratio"),
+            "tbt95_ratio_mono": mo.get("tbt95_ratio"),
+            "stall_chunked": ch.get("stall_max_ms"),
+            "stall_mono": mo.get("stall_max_ms"),
+            "ttft_long_chunked": ch.get("long_ttft_ms"),
+            "ttft_long_mono": mo.get("long_ttft_ms"),
+            "ident": mx.get("outputs_identical"),
+        }.items() if v is not None}
+        if cm:
+            out["mixed"] = cm
+    shp = result.get("shared")
+    if isinstance(shp, dict):
+        # The resident-block peak ratio (on / off; JAX's bar: < 0.6 at
+        # K >= 4), both peaks, warm TTFT p50s, the tokens-saved split and
+        # the identity verdict.
+        sh_on, sh_off = shp.get("on") or {}, shp.get("off") or {}
+        cm = {key: v for key, v in {
+            "peak_ratio": shp.get("peak_ratio"),
+            "peak_on": sh_on.get("peak_resident_blocks"),
+            "peak_off": sh_off.get("peak_resident_blocks"),
+            "ttft50_on": sh_on.get("warm_ttft_p50_ms"),
+            "ttft50_off": sh_off.get("warm_ttft_p50_ms"),
+            "saved_shared": sh_on.get("tokens_saved_shared"),
+            "saved_excl": sh_off.get("tokens_saved_exclusive"),
+            "ident": shp.get("outputs_identical"),
+        }.items() if v is not None}
+        if cm:
+            out["shared"] = cm
     pf = result.get("profile")
     if isinstance(pf, dict) and not pf.get("skipped"):
         # One number each: the worst tier's phase coverage (>= 0.95), the
@@ -1384,7 +1469,9 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         budget: Optional[Budget] = None, cluster=None,
         n_queries: Optional[int] = None, trend_repeats: int = 5,
         flagship: bool = False,
-        host_kv_bytes: Optional[int] = None) -> dict:
+        host_kv_bytes: Optional[int] = None,
+        tie_check: Optional[Callable] = None,
+        openloop_budget_s: float = 120.0) -> dict:
     """The headline sweep and the later sections on ``device`` (default:
     the card; raises with none).  ``cluster`` defaults to
     ``default_cluster(device)``; ``n_queries`` keeps the first queries
@@ -1392,13 +1479,19 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     ``flagship`` runs the flagship section on the CPU too (it always
     runs on the card); ``host_kv_bytes`` gives the sweep cluster's tiers
     a host spill tier of that budget (the JAX bench's
-    ``DLLM_HOST_KV_BYTES``; the spill leg sets its own budgets)."""
+    ``DLLM_HOST_KV_BYTES``; the spill leg sets its own budgets);
+    ``tie_check`` judges a greedy flip between two modes of an engine leg
+    (``bench/legs.py``; chip_smoke passes its ``near_tie``);
+    ``openloop_budget_s`` caps the open-loop leg's share (JAX's cap is
+    120 s; a smoke run passes less)."""
     import torch
 
     from ..device import resolve_device
     from ..obs import Observability
     from ..serving.router import Router, default_cluster
     from ..utils import roofline
+    from . import legs
+    from .openloop import openloop_phase
     from .query_sets import query_sets
 
     dev = resolve_device(device)
@@ -1631,9 +1724,27 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     progress.beat()
     batching = later("continuous_batching", lambda: concurrent_phase(
         router.cluster, dev, beat=progress.beat), 120)
+    # The engine legs in the JAX bench's order and under its guards, each
+    # at the JAX bench's pinned configuration.
+    skew = later("skew", lambda: legs.skew_phase(
+        dev, beat=progress.beat, tie_check=tie_check), 60)
+    spec_dec = later("spec_phase", lambda: legs.spec_phase(
+        dev, beat=progress.beat, tie_check=tie_check), 60)
+    mixed = later("mixed", lambda: legs.mixed_phase(
+        dev, beat=progress.beat, tie_check=tie_check), 270)
+    shared = later("shared", lambda: legs.shared_prefix_phase(
+        beat=progress.beat, device=dev, tie_check=tie_check), 90)
     profile = later("profile", lambda: profile_phase(
         dev, beat=progress.beat), 60)
     spill = later("spill", lambda: spill_phase(dev, beat=progress.beat), 150)
+    # The open-loop leg needs about 40 s to mean anything and leaves 30 s
+    # for the sections after it: past that it is skipped, not squeezed.
+    openloop = later("openloop", lambda: openloop_phase(
+        beat=progress.beat, device=dev,
+        budget_s=min(openloop_budget_s, budget.left() - 30.0)), 70)
+    for key in ("knee_req_per_s", "goodput_at_knee"):
+        if openloop.get(key) is not None:
+            progress.section(key, openloop[key])
     if budget.allows(150):
         features = features_phase(router.cluster, dev, beat=progress.beat)
     else:
@@ -1662,8 +1773,15 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "continuous_batching": batching,
         "long_context": long_context,
         "orin_prefix": orin_prefix,
+        "skew": skew,
+        "spec_phase": spec_dec,
+        "mixed": mixed,
+        "shared": shared,
         "profile": profile,
         "spill": spill,
+        "openloop": openloop,
+        "knee_req_per_s": openloop.get("knee_req_per_s"),
+        "goodput_at_knee": openloop.get("goodput_at_knee"),
         "speculative": features["speculative"],
         "quant": features["quant"],
         "flagship": flagship_out,

@@ -158,7 +158,6 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 _UNPORTED_DEFAULTS = {
     "tp": 1,
     "replicas": 1,
-    "checkpoint_path": None,
     "endpoint": None,
     "spawn_cmd": None,
     "tenant_quotas": None,
@@ -302,10 +301,13 @@ class TierConfig:
     # scales, the norms in the model dtype (ops/quant.py); any other mode
     # raises in ops.quant.maybe_quantize.
     quantize: str = "none"
+    # Trained weights to serve: a JAX checkpoint directory (its export in
+    # the port's weights/ is loaded, models/checkpoint.py) or an export's
+    # .npz.  None: deterministic random init from the cluster's seed.
+    checkpoint_path: Optional[str] = None
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
     replicas: int = 1
-    checkpoint_path: Optional[str] = None
     endpoint: Optional[str] = None
     spawn_cmd: Optional[Tuple[str, ...]] = None
     tenant_quotas: Optional[Dict[str, Any]] = None
@@ -322,8 +324,8 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, replicas, checkpoints, remote
-        tiers, tenant quotas, the autoscaler, MoE)."""
+        tier turns on (tensor parallelism, replicas, remote tiers, tenant
+        quotas, the autoscaler, MoE)."""
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]
@@ -429,6 +431,34 @@ def tiny_batched_cluster(nano_slots: int = 4,
                         decode_batch=nano_slots, **common),
         orin=TierConfig(name="orin", model_preset="orin_test",
                         decode_batch=orin_slots, **common))
+
+
+def default_checkpoint(preset: str) -> Optional[str]:
+    """The repo's trained weights for a preset, if published: the
+    ``checkpoints/<preset>`` directory the JAX package's training writes
+    (detected by its ``latest`` version link), the same path the JAX
+    package's ``default_checkpoint`` returns.  None: no checkpoint, the
+    tier serves seeded random weights."""
+    import os
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "checkpoints", preset)
+    return root if os.path.islink(os.path.join(root, "latest")) else None
+
+
+def with_default_checkpoints(cluster: ClusterConfig) -> ClusterConfig:
+    """Fill each tier's ``checkpoint_path`` with its preset's published
+    checkpoint, where one exists and the tier pins no path (or endpoint)
+    of its own, as the JAX package's ``with_default_checkpoints`` does:
+    the serving entry points run on learned weights; tests that build a
+    cluster directly keep random init."""
+    def fill(tier: TierConfig) -> TierConfig:
+        if tier.checkpoint_path or tier.endpoint:
+            return tier
+        path = default_checkpoint(tier.model_preset)
+        return (dataclasses.replace(tier, checkpoint_path=path)
+                if path else tier)
+    return dataclasses.replace(cluster, nano=fill(cluster.nano),
+                               orin=fill(cluster.orin))
 
 
 def tiny_cluster() -> ClusterConfig:

@@ -66,6 +66,7 @@ import torch
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
+from ..models.checkpoint import load_params_for_tier
 from ..models.transformer import KVCache, Transformer
 from ..ops import quant
 from ..ops.attention import decode_kv_span
@@ -172,6 +173,10 @@ class InferenceEngine(SequentialPrograms):
             # Every kernel compiles (in parallel) before the first request.
             from ..ops import _build
             _build.build_all()
+        if params is None and tier.checkpoint_path:
+            # The tier's trained weights win over random init.
+            params = load_params_for_tier(tier.checkpoint_path, self.cfg,
+                                          device=self.device)
         if params is None:
             params = transformer.init_params(self.cfg, seed=seed,
                                              device=self.device)

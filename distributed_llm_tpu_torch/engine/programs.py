@@ -14,6 +14,7 @@ built here.
 from __future__ import annotations
 
 import contextlib
+import gc
 import logging
 import threading
 from typing import Any, Callable, Dict, Iterable, Optional
@@ -35,13 +36,22 @@ def _capturing(graph, pool, stream):
     ``pool``, thread-local: ``torch.cuda.graph`` without its
     device-wide synchronize, garbage collection and allocator cache
     flush, which would stall the other engine on the card, and leave the
-    next eager prefill to allocate its memory afresh."""
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            yield
-        finally:
-            graph.capture_end()
+    next eager prefill to allocate its memory afresh.  The collector is
+    off meanwhile: a collection inside the capture may free a dead
+    engine's graphs and their memory pool, and a free the capturing
+    thread makes invalidates its capture."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                yield
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
 
 
 class TickProgram:

@@ -48,6 +48,7 @@ import torch
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..models import transformer
+from ..models.checkpoint import load_params_for_tier
 from ..models.transformer import KVCache, Transformer
 from ..ops import attention, quant
 from ..utils import roofline
@@ -133,15 +134,19 @@ class SpeculativeEngine(SequentialPrograms):
             from ..ops import _build
             _build.build_all()
 
-        def init(cfg, params, salt):
+        def init(cfg, tier, params, salt):
+            if params is None and tier.checkpoint_path:
+                # A tier's trained weights win over random init.
+                params = load_params_for_tier(tier.checkpoint_path, cfg,
+                                              device=self.device)
             if params is None:
                 params = transformer.init_params(cfg, seed=seed + salt,
                                                  device=self.device)
             # The target tier's quantize mode applies to both models (the
             # draft gains the most: it runs gamma small steps per round).
             return quant.maybe_quantize(params.to(self.device), target, cfg)
-        self.model_t = init(self.cfg_t, target_params, 0)
-        self.model_d = init(self.cfg_d, draft_params, 1)
+        self.model_t = init(self.cfg_t, target, target_params, 0)
+        self.model_d = init(self.cfg_d, draft, draft_params, 1)
         self.accept_history: list = []
         self.phases = PhaseTimer()
         self._wbytes_t = roofline.weight_bytes(self.cfg_t, target.quantize)

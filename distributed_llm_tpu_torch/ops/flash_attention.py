@@ -82,13 +82,14 @@ from .attention import (NEG_INF, _chunk_contiguous, _chunk_contiguous_q8,
                         causal_attention)
 from .ragged_attention import _MAX_GROUP
 from .ragged_attention import _check as _check_paged
-from .ragged_attention import (_launch_verify, chunk_split_plan,
-                               decode_split_plan)
+from .ragged_attention import (PADDED_D, _launch_verify, chunk_split_plan,
+                               decode_split_plan, pad_head_dim)
 
 # Head dims of the cold prefill and the paged chunk (16: the tiny test
-# presets), block sizes of the paged chunk, and head dims of the
-# contiguous-cache kernels, which the tiny presets do not reach on the
-# card (their sequential tiers are served on the CPU).
+# presets; 8, the tiny draft's, through the 16 instance: ``PADDED_D``),
+# block sizes of the paged chunk, and head dims of the contiguous-cache
+# kernels, which the tiny presets do not reach on the card (their
+# sequential tiers are served on the CPU).
 _SUPPORTED_D = (16, 64, 128)
 _SUPPORTED_BS = (16, 32, 64, 128)
 _CACHE_D = (64, 128)
@@ -137,17 +138,20 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
     keys 0 .. r, query head h reads kv head h // (Nq / Nkv)."""
     if not q.is_cuda:
         return causal_attention(q, k, v)
+    d_true = q.shape[-1]
+    if d_true in PADDED_D:
+        q, k, v = pad_head_dim(q, k, v)
     _check_causal(q, k, v)
     b, s, nq, d = q.shape
     nkv = k.shape[2]
     out = torch.empty_like(q)
     err = _build.entry("flash_causal")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, nq, nkv, d, d ** -0.5,
+        b, s, nq, nkv, d, d_true ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_causal")
     flash_causal_attention.launches += 1
-    return out
+    return out[..., :d_true]
 
 
 def _check_paged_chunk(q: torch.Tensor, k_pool: torch.Tensor,
@@ -193,6 +197,9 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError("paged_chunk_attention: the plain version needs "
                              "q_pos")
         return _gather_chunk_paged(q, k_pool, v_pool, table, q_pos, window)
+    d_true = q.shape[-1]
+    if d_true in PADDED_D:
+        q, k_pool, v_pool = pad_head_dim(q, k_pool, v_pool)
     _check_paged_chunk(q, k_pool, v_pool, table, start, window)
     _, s_c, nq, d = q.shape
     nkv, nb, bs, _ = k_pool.shape
@@ -200,11 +207,11 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     err = _build.entry("paged_chunk")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         start.data_ptr(), out.data_ptr(), s_c, nq, nkv, nb, bs, d,
-        window // bs, d ** -0.5,
+        window // bs, d_true ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_chunk")
     paged_chunk_attention.launches += 1
-    return out
+    return out[..., :d_true]
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

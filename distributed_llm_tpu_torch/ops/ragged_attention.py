@@ -62,6 +62,12 @@ from .attention import (NEG_INF, _gather_decode_paged, _gather_pool_seq,
 _SUPPORTED_D = (16, 64, 128)
 _SUPPORTED_BS = (16, 32, 64, 128)
 _MAX_GROUP = 8
+# Head dims the bf16 pool and prefill kernels (K1, K2, K3) serve through
+# an instantiated one, the inputs zero-padded to it: 8 is the tiny draft
+# preset's (``draft_test``).  A zero dim adds 0 to every score and leaves
+# 0 in the output's extra dims, so the first D dims are the D = 8 result;
+# the softmax scale stays the true head dim's.
+PADDED_D = {8: 16}
 # Query rows one block serves (kv-head group x verify positions); the
 # verify kernels pad them to at most three 16-row tensor-core tiles.
 _MAX_ROWS = 40
@@ -215,6 +221,14 @@ def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def pad_head_dim(*tensors: torch.Tensor) -> tuple:
+    """Each tensor's last (head) dim zero-padded to its ``PADDED_D``
+    instance, contiguous."""
+    return tuple(torch.nn.functional.pad(
+        t, (0, PADDED_D[t.shape[-1]] - t.shape[-1])).contiguous()
+        for t in tensors)
+
+
 def ragged_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                   v_pool: torch.Tensor, tables: torch.Tensor,
                                   pos: torch.Tensor) -> torch.Tensor:
@@ -223,12 +237,15 @@ def ragged_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     -> [B, Nq, D]; slot b attends positions 0 .. pos[b]."""
     if not q.is_cuda:
         return _gather_decode_paged(q, k_pool, v_pool, tables, pos)
+    d = q.shape[-1]
+    if d in PADDED_D:
+        q, k_pool, v_pool = pad_head_dim(q, k_pool, v_pool)
     _check("ragged_paged_decode_attention", q, k_pool, v_pool, tables, pos,
            None, None, 1)
     out = _launch_verify("ragged_decode", q[:, None], k_pool, v_pool, (),
-                         tables, pos)
+                         tables, pos, scale=d ** -0.5)
     ragged_paged_decode_attention.launches += 1
-    return out[:, 0]
+    return out[:, 0, :, :d]
 
 
 def ragged_paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -258,13 +275,15 @@ _STRIDED_ENTRIES = ("paged_decode", "paged_decode_q8")
 
 def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                    v_pool: torch.Tensor, scales: tuple, tables: torch.Tensor,
-                   pos: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """Launch split kernel ``name`` (its split and merge passes) on
     checked inputs, q [B, G, Nq, D]; ``scales`` is () for a bf16 pool,
-    (k_scale, v_scale) for an int8 one.  The verify kernels are planned by
-    ``split_plan``, the decode kernels (``_DECODE_ENTRIES``, G = 1) by
-    ``ragged_decode_split_plan``.  The float32 partials are scratch of
-    this call."""
+    (k_scale, v_scale) for an int8 one; ``scale`` the softmax scale
+    (default D ** -0.5; a padded head dim passes its true one).  The
+    verify kernels are planned by ``split_plan``, the decode kernels
+    (``_DECODE_ENTRIES``, G = 1) by ``ragged_decode_split_plan``.  The
+    float32 partials are scratch of this call."""
     b, g, nq, d = q.shape
     nkv, nb, bs, _ = k_pool.shape
     mb = tables.shape[1]
@@ -283,7 +302,7 @@ def _launch_verify(name: str, q: torch.Tensor, k_pool: torch.Tensor,
         *(t.data_ptr() for t in scales), tables.data_ptr(), pos.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b,
         *(() if decode else (g,)), nq, nkv, nb, bs, d, mb, tiles, splits,
-        *stride, d ** -0.5, _stream(q))
+        *stride, d ** -0.5 if scale is None else scale, _stream(q))
     _build.check(err, name)
     return out
 

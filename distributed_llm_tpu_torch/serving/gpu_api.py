@@ -54,6 +54,7 @@ from ..engine.batching import StreamHandle, _Request
 from ..engine.manager import EngineManager
 from ..utils.http_compat import (Flask, StreamingResponse, jsonify, request,
                                  sse_done_event, sse_event)
+from .router import default_cluster
 from .tiers import build_tiers
 from .turns import ClippedStream, clip_turn
 
@@ -111,11 +112,11 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
                     device: DeviceLike = None) -> Flask:
     """The tier's app.  Without ``manager`` one is built (lazily started)
     through ``build_tiers`` from ``cluster``'s tier ``tier_name`` (default
-    ``ClusterConfig()``) on ``device`` (default: the card), with its
-    admission controller."""
+    ``default_cluster(device)``, as the JAX package's tier app) on
+    ``device`` (default: the card), with its admission controller."""
     app = Flask(f"dllm_gpu_{tier_name}")
     if manager is None:
-        tiers = build_tiers(cluster or ClusterConfig(), device=device,
+        tiers = build_tiers(cluster or default_cluster(device), device=device,
                             warmup_on_start=False)
         if tier_name not in tiers:
             raise ValueError(f"unknown tier {tier_name!r}")

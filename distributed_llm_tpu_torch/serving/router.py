@@ -80,14 +80,18 @@ _TRANSIENT_MARKERS = (
 
 
 def default_cluster(device: DeviceLike = None) -> ClusterConfig:
-    """The cluster the bench serves on ``device``: ``bench_cluster()``
-    (nano_1b and orin_8b) on the card, the tiny batched test tiers
-    (``tiny_batched_cluster()``) on the CPU, as the JAX package's
-    ``default_cluster`` does on its host CPU."""
-    from ..config import bench_cluster, tiny_batched_cluster
+    """The cluster a ``Router`` built without one serves, and the bench's:
+    ``bench_cluster()`` (nano_1b and orin_8b) on the card, the tiny
+    batched tiers (``tiny_batched_cluster()``) on the CPU, each tier on
+    its preset's trained checkpoint where the repo has one
+    (``with_default_checkpoints``), as the JAX package's
+    ``default_cluster`` serves them.  Only the tiny presets have one, so
+    the card's pair stays on seeded random weights."""
+    from ..config import (bench_cluster, tiny_batched_cluster,
+                          with_default_checkpoints)
     if resolve_device(device).type == "cuda":
-        return bench_cluster()
-    return tiny_batched_cluster()
+        return with_default_checkpoints(bench_cluster())
+    return with_default_checkpoints(tiny_batched_cluster())
 
 
 class Router:
@@ -105,7 +109,8 @@ class Router:
     ):
         """strategy: "token" | "semantic" | "heuristic" | "hybrid" | "perf";
         benchmark_mode: True -> BENCHMARK_CFG (caches off), False ->
-        PRODUCTION_CFG, unless ``config`` overrides.  ``device`` runs both
+        PRODUCTION_CFG, unless ``config`` overrides.  ``cluster``: the
+        tiers (default ``default_cluster(device)``).  ``device`` runs both
         tiers and the router's embedder (default: the card).
         ``observability``: the metric/trace/recorder bundle (default: the
         process-global one).  ``sample_ms``: the state sampler's period (0
@@ -118,7 +123,7 @@ class Router:
         self.benchmark_mode = benchmark_mode
         self.config = resolve_config(config, benchmark_mode)
 
-        self.cluster = cluster or ClusterConfig()
+        self.cluster = cluster or default_cluster(self.device)
         self.tiers: Dict[str, TierClient] = build_tiers(self.cluster,
                                                         device=self.device)
         self.nano = self.tiers["nano"]

@@ -28,6 +28,7 @@ the JAX package's, and the phases on ``/stats``.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import os
 import sys
@@ -39,7 +40,7 @@ import bench as jax_bench  # noqa: E402  (the JAX package's root bench.py)
 from distributed_llm_tpu.bench import query_sets as jax_sets  # noqa: E402
 from distributed_llm_tpu.bench import tester as jax_tester  # noqa: E402
 from distributed_llm_tpu_torch import config as torch_config  # noqa: E402
-from distributed_llm_tpu_torch.bench import headline  # noqa: E402
+from distributed_llm_tpu_torch.bench import headline, legs  # noqa: E402
 from distributed_llm_tpu_torch.bench import query_sets  # noqa: E402
 from distributed_llm_tpu_torch.bench import tester  # noqa: E402
 
@@ -158,7 +159,8 @@ HEADLINE_KEYS = {
     "mfu_prefill", "hbm_util_decode", "utilization", "per_strategy",
     "tiers", "backend", "card", "cluster", "budget", "trend",
     "trend_req_per_s", "continuous_batching", "long_context", "orin_prefix",
-    "spill", "speculative", "quant", "flagship"}
+    "spill", "speculative", "quant", "flagship", "skew", "spec_phase",
+    "mixed", "shared", "openloop", "knee_req_per_s", "goodput_at_knee"}
 STRATEGY_KEYS = {"req_per_s", "sequential_req_per_s", "p50_ttft_ms",
                  "concurrent_p50_ttft_ms", "routing_accuracy",
                  "orin_queries", "repeats"}
@@ -174,12 +176,28 @@ def cpu_run(tmp_path_factory):
 
     def small_run(*args, **kw):
         captured["result"] = real_run(*args, n_queries=4, trend_repeats=1,
-                                      **kw)
+                                      openloop_budget_s=40.0, **kw)
         return captured["result"]
 
     with pytest.MonkeyPatch.context() as mp:
         mp.chdir(out_dir)
         mp.setattr(headline, "run", small_run)
+        # The mixed leg on mini_bench narrowed to the tiny width (its
+        # 1792-token prompts at mini_bench's own width are the run's
+        # slowest part on a loaded CPU; tests/test_torch_bench_legs.py
+        # holds the leg itself).
+        name = "mini_bench_narrow"
+        mp.setitem(torch_config.MODEL_PRESETS, name, dataclasses.replace(
+            torch_config.MODEL_PRESETS["mini_bench"], name=name,
+            hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+            ffn_size=128))
+        real_mixed = legs.mixed_phase
+        mp.setattr(legs, "mixed_phase", lambda *a, **k: real_mixed(
+            *a, tier=dataclasses.replace(
+                torch_config.tiny_batched_cluster().nano, model_preset=name,
+                decode_batch=2, decode_steps_per_tick=1, max_new_tokens=64,
+                prefill_buckets=(16, 64, 1792), enable_prefix_cache=False),
+            **k))
         import io
         from contextlib import redirect_stdout
         buf = io.StringIO()
@@ -220,8 +238,21 @@ def test_headline_runs_on_the_cpu(cpu_run):
     assert spill["outputs_identical"] and spill["hit_rate_monotone"]
     assert spill["race"]["observed"] and spill["race"]["identical"]
     assert spill["large"]["promotions"] > 0 == spill["off"]["promotions"]
+    # The engine legs and the open-loop leg at the JAX bench's pinned
+    # configurations, each with its hard invariants.
+    assert result["skew"]["ragged"]["compiled_decode_programs"] == 1
+    assert result["spec_phase"]["on"]["verify_programs"] <= len(
+        result["spec_phase"]["on"]["gamma_buckets"])
+    assert result["shared"]["peak_ratio"] < 0.6
+    for leg in ("skew", "spec_phase", "mixed", "shared"):
+        assert result[leg]["outputs_identical"] is True, leg
+    assert result["openloop"]["knee_req_per_s"] > 0
+    assert "overload" in result["openloop"]
     assert headline.section_errors(result) == []
     assert json.loads(lines[-1]) == headline.compact(result)
+    compact = headline.compact(result)
+    assert {"openloop", "skew_tick_ratio", "spec", "mixed",
+            "shared"} <= set(compact)
 
 
 def test_headline_exits_1_when_a_section_fails(monkeypatch, tmp_path):
@@ -303,8 +334,22 @@ def test_tester_writes_one_config_on_the_cpu(tmp_path):
 
 
 def test_headline_and_tester_share_the_bench_cluster():
+    """The cluster both serve: on the CPU the JAX package's
+    ``default_cluster()`` field for field (the tiny batched tiers on their
+    trained checkpoints, ``checkpoint_path`` included; orin's tp apart:
+    4 on the JAX package's 8-device CPU mesh, 1 on the port's one card),
+    on the card ``bench_cluster()``."""
+    from distributed_llm_tpu.serving.router import (
+        default_cluster as jax_default_cluster)
     from distributed_llm_tpu_torch.serving.router import default_cluster
-    assert default_cluster("cpu") == torch_config.tiny_batched_cluster()
+    got, want = default_cluster("cpu"), jax_default_cluster()
+    for name in ("nano", "orin"):
+        t, j = getattr(got, name), getattr(want, name)
+        for field in dataclasses.fields(t):
+            if (name, field.name) != ("orin", "tp"):
+                assert getattr(t, field.name) == getattr(j, field.name), (
+                    name, field.name)
+    assert all(t.checkpoint_path for t in got.tiers())
     bc = torch_config.bench_cluster()
     assert (bc.nano.model_preset, bc.nano.decode_batch,
             bc.nano.max_new_tokens) == ("nano_1b", 8, 64)
@@ -314,6 +359,8 @@ def test_headline_and_tester_share_the_bench_cluster():
                for t in bc.tiers())
     for tier in bc.tiers():
         tier.check_ported()
+    # The card's pair has no checkpoint: it stays on seeded random weights.
+    assert torch_config.with_default_checkpoints(bc) == bc
 
 
 def _keys(node):
