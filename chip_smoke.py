@@ -167,12 +167,34 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    bench cluster; each leg's kernels launch (skew: the dense and ragged
    decode and the prefill; spec: the verify; mixed and shared: the paged
    chunk; openloop: W1), its invariants hold and its modes' outputs are
-   identical or differ only at near-ties.
+   identical or differ only at near-ties;
+16. the fleet (``fleet_phase``), three main paths: (a) the bench cluster
+   behind a Router with a ``FaultInjector`` and a fast breaker under the
+   bench's chaos schedule (nano flaps 3 times, an orin latency spike), 4
+   clients per strategy (heuristic, hybrid, perf): no client hangs or
+   raises; availability, MTTR, p50 TTFT under faults, breaker openings and
+   degraded answers reported; then a stream whose nano tier dies after
+   its first delta fails over to orin mid-stream and replays its prefix;
+   (b) nano_1b with ``replicas=2`` behind a Router whose HealthMonitor
+   probes every FLEET_HEALTH_S: a prefix demoted to r0's host tier,
+   greedy streams in flight on r0, ``crash_replica_engine`` on r0; every
+   stream finishes with no error and no re-emitted delta, its tokens
+   those of an uninterrupted run or first differing at a near-tie, the
+   demoted prefix promotes warm on the restarted r0
+   (``dllm_spill_reattach_total`` 1), the dead engine is collected and
+   the device memory after the restart is within FLEET_MEMORY_SLACK of
+   before; it reports ``rescue_mttr_ms`` and the new engine's programs
+   and capture seconds; (c) the bench's replica leg at nano_1b's width:
+   one ragged decode program per replica, outputs identical across
+   replica counts and policies or every flip a near-tie.  K1, K2 and K3
+   launch in each part, W1 too in (a), and no plain attention runs.
+   Phase 11's bench runs the same legs (and ``pressure`` and
+   ``perf_steering``) at the JAX bench's pinned tiny configurations.
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
-``legs``, ``bench``) builds the kernels and runs only those phases,
+``legs``, ``bench``, ``fleet``) builds the kernels and runs only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
 run.
@@ -221,7 +243,8 @@ overhead, the budgets) and its per-kernel capture
 p50 TTFT, trace columns, profile section, utilization and wall time as
 another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
-as two more (each with the card's name and power limit), the card's name and power
+as two more, the fleet's as one more (each with the card's name and
+power limit), the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -1285,8 +1308,70 @@ def contiguous_kernel_phase(torch, nano, orin):
             "timings": timings})
     del flush_buf
     note_variants(rows, contiguous_variant_checks(torch, gen))
+    tiny, short = tiny_cache_checks(torch, gen)
+    note_variants(rows, tiny, prefix="d16_", short=short)
     torch.cuda.empty_cache()
     return rows
+
+
+def tiny_cache_checks(torch, gen):
+    """K9-K12 at the tiny presets' sequential tiers (nano_test: Nq 4, Nkv
+    2; orin_test: Nq 8, Nkv 4; head dim 16 through the 64 instance on
+    zero-padded copies, ``flash_attention._CACHE_PADDED_D``; a 256-position
+    cache), as the bench's perf-steering leg serves them: decode at
+    positions 0, 100 and 255 of two sequences, chunks of 5 rows (K11's
+    split route) and 64 rows (the tensor-core route) from position 100,
+    each held to KERNEL_REL_TOL with every frontier one tile short outside
+    it.  Returns (worst ``compare`` per kernel, the worst one-tile-short
+    error per kernel)."""
+    from distributed_llm_tpu_torch.config import MODEL_PRESETS
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
+    from distributed_llm_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    kernels = {"flash_decode": (TF.flash_decode_attention,
+                                TA._decode_contiguous, False),
+               "flash_decode_q8": (TF.flash_decode_attention_q8,
+                                   TA._decode_contiguous_q8, True),
+               "flash_chunk": (TF.flash_chunk_attention,
+                               TA._chunk_contiguous, False),
+               "flash_chunk_q8": (TF.flash_chunk_attention_q8,
+                                  TA._chunk_contiguous_q8, True)}
+    errs = {n: NO_ERR for n in kernels}
+    short = {n: float("inf") for n in kernels}
+    for preset in ("nano_test", "orin_test"):
+        cfg = MODEL_PRESETS[preset]
+        nq, nkv, d, w = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         cfg.max_seq_len)
+        k, v = randn(2, w, nkv, d), randn(2, w, nkv, d)
+        (kq, ks), (vq, vs) = quant.quantize_kv_rows(k), \
+            quant.quantize_kv_rows(v)
+        for name, (kernel, plain, q8) in kernels.items():
+            window = (kq, vq, ks, vs) if q8 else (k, v)
+            if name.startswith("flash_decode"):
+                cases = [(randn(2, nq, d), torch.tensor(
+                    p, dtype=torch.int32, device=dev))
+                    for p in ((0, 100), (100, 255))]
+            else:
+                cases = [(randn(2, s_c, nq, d), (100 + torch.arange(
+                    s_c, device=dev, dtype=torch.int32))[None].repeat(2, 1))
+                    for s_c in (5, 64)]
+            for q, pos in cases:
+                args = (q, *window, pos)
+                res = compare(kernel(*args), plain, args)
+                errs[name] = worst(errs[name], res)
+                err = row_rel_err(plain(*widen((*args[:-1], pos - KV_TILE))),
+                                  plain(*widen(args)))
+                require(err > KERNEL_REL_TOL,
+                        f"{name}: a missed tile would pass at {preset}: {err}")
+                short[name] = min(short[name], err)
+    return errs, short
 
 
 def contiguous_variant_checks(torch, gen) -> dict:
@@ -4266,6 +4351,347 @@ def leg_summary(res: dict) -> dict:
             for name, fn in pick.items() if isinstance(res.get(name), dict)}
 
 
+# -- phase 16: the fleet (fault injection, health monitor, replicas) --------
+
+# Part (b): the decode watchdog's deadline and the HealthMonitor's period,
+# the streams in flight on r0 at the kill and their budget (random weights
+# rarely stop at EOS: they are still decoding when the loop dies).
+FLEET_WATCHDOG_S = 4.0
+FLEET_HEALTH_S = 0.5
+FLEET_STREAMS = 6
+FLEET_STREAM_TOKENS = 192
+# The rescued replica's device memory after the restart and a collection
+# may exceed the memory before the kill by at most this share (the same
+# pool and weights are rebuilt; a dead engine left alive would double
+# them).
+FLEET_MEMORY_SLACK = 0.05
+
+
+def _fleet_part(torch, name: str, run, expect, on_card: bool) -> tuple:
+    """Run one part of the fleet phase as a main path: counts set to 0
+    just before, read just after (every kernel in ``expect`` launched, no
+    plain attention version ran), every engine built inside audited.
+    Returns (numbers, launches)."""
+    fresh_peak(torch, on_card)
+    with admission_audit(torch, on_card) as audit:
+        reset_counts()
+        audit.mark()
+        t0 = time.perf_counter()
+        res = run(audit)
+        wall_s = time.perf_counter() - t0
+        launches, plain_calls = read_counts(expect if on_card else (),
+                                            on_card)
+        admission = audit.main_path(on_card)
+    res.update({"wall_s": wall_s, "launches": launches,
+                "plain_calls": plain_calls, "admission": admission,
+                "peak_memory_gb": peak_memory_gb(torch, on_card)})
+    log(f"fleet {name} run in {wall_s:.1f}s")
+    return res, launches
+
+
+def fleet_chaos(torch, cluster, device: str = "cuda") -> dict:
+    """Part (a): the bench cluster (nano_1b and orin_8b, int8 weights)
+    behind a Router with a ``FaultInjector`` and the chaos leg's fast
+    breaker (2 failures, 0.4 s), under the chaos leg's schedule (nano
+    flaps 3 times, 1.0 s period, 0.45 s down; a 50 ms orin latency spike)
+    with 4 clients per strategy (heuristic, hybrid, perf).  Then one
+    stream whose nano tier dies after its first delta must fail over to
+    orin mid-stream and replay its prefix: what follows equals orin's own
+    answer past the prefix.  No client may hang or raise."""
+    from distributed_llm_tpu_torch.bench import fleet
+    from distributed_llm_tpu_torch.serving.router import Router
+    from distributed_llm_tpu_torch.utils.faults import FaultInjector
+
+    fi = FaultInjector()
+    router = Router(strategy="heuristic", benchmark_mode=True,
+                    cluster=fleet.chaos_cluster(cluster),
+                    fault_injector=fi, device=device)
+    try:
+        t0 = time.perf_counter()
+        for tier in router.tiers.values():
+            tier.server_manager.start_server()
+        startup_s = time.perf_counter() - t0
+        out = fleet.chaos_on(router, fi)
+        for name in router.tiers:
+            router.breaker.reset(name)
+        hist = [{"role": "user", "content": "hi"}]
+        expected = "".join(router.tiers["orin"].process_stream(hist))
+        fi.fail_stream_after("nano", 1)
+        routed = router.route_query_stream(hist)
+        it = iter(routed)
+        prefix = next(it)
+        rest = "".join(it)
+        out["mid_stream"] = {
+            "device": routed.device, "prefix_chars": len(prefix),
+            "chars": len(prefix) + len(rest),
+            "replayed": rest == expected[len(prefix):]}
+        out["startup_s"] = startup_s
+    finally:
+        for tier in router.tiers.values():
+            tier.server_manager.stop_server()
+    for strategy in ("heuristic", "hybrid", "perf"):
+        st = out[strategy]
+        require(st["requests"] > 0 and not st["errors"]
+                and not st["hung_clients"],
+                f"fleet chaos {strategy}: {st}")
+    ms = out["mid_stream"]
+    require(ms["device"] == "orin" and ms["replayed"],
+            f"fleet chaos: the mid-stream failover did not replay the "
+            f"prefix on orin: {ms}")
+    return out
+
+
+def fleet_rescue(torch, cluster, audit, device: str = "cuda") -> dict:
+    """Part (b): nano_1b with ``replicas=2`` (8 slots each, a host spill
+    tier, the decode watchdog at FLEET_WATCHDOG_S) behind a Router whose
+    HealthMonitor probes every FLEET_HEALTH_S.  A prompt's prefix is
+    demoted to r0's host tier; FLEET_STREAMS greedy streams run on r1
+    uninterrupted (the reference), then the same on r0, where
+    ``crash_replica_engine`` kills the loop once every stream is primed.
+    The monitor reads r0 wedged and restarts it through
+    ``restart_replica``: every stream must finish with no error and no
+    re-emitted delta (its text is its final tokens' clipped text), each
+    one's tokens equal to the reference's or first differing at a
+    near-tie; the demoted prefix must promote warm on the restarted r0
+    (``dllm_spill_reattach_total`` 1); the dead engine must be collected
+    and the device memory after the restart and a collection within
+    FLEET_MEMORY_SLACK of the memory before the kill."""
+    from distributed_llm_tpu_torch.config import BENCHMARK_CFG
+    from distributed_llm_tpu_torch.engine.paged_kv import pool_block_bytes
+    from distributed_llm_tpu_torch.serving.router import Router
+    from distributed_llm_tpu_torch.serving.turns import clip_turn
+    from distributed_llm_tpu_torch.utils.faults import crash_replica_engine
+
+    on_card = device == "cuda"
+    nano = cluster.nano
+    tier = dataclasses.replace(
+        nano, replicas=2, watchdog_stall_s=FLEET_WATCHDOG_S,
+        max_new_tokens=FLEET_STREAM_TOKENS,
+        host_kv_bytes=64 * pool_block_bytes(nano.model(), nano.kv_block_size,
+                                            nano.kv_quantize))
+    cluster = dataclasses.replace(cluster, nano=tier)
+    router = Router(strategy="heuristic", benchmark_mode=True,
+                    cluster=cluster, device=device,
+                    config=dict(BENCHMARK_CFG, enable_health_monitor=True,
+                                health_interval_s=FLEET_HEALTH_S))
+    client = router.tiers["nano"]
+    r0, r1 = client._members
+    warm = [{"role": "user", "content": "session warm: " + words(300)}]
+    prompts = [[{"role": "user", "content": f"stream {i}: "
+                 + words(40 + 30 * i, offset=7 * i)}]
+               for i in range(FLEET_STREAMS)]
+    out: dict = {"replicas": 2, "slots": tier.decode_batch,
+                 "streams": FLEET_STREAMS, "budget": FLEET_STREAM_TOKENS,
+                 "watchdog_s": FLEET_WATCHDOG_S,
+                 "health_interval_s": FLEET_HEALTH_S}
+
+    def run_streams(rep):
+        handles = [rep.client.process_stream(p) for p in prompts]
+        require(all(not isinstance(h, dict) for h in handles),
+                f"fleet rescue: a stream was refused: {handles}")
+        return handles
+
+    def consume(handles):
+        box = [None] * len(handles)
+
+        def take(i, h):
+            try:
+                box[i] = ("".join(h), h.result)
+            except Exception as exc:
+                box[i] = (exc, None)
+        threads = [threading.Thread(target=take, args=(i, h), daemon=True)
+                   for i, h in enumerate(handles)]
+        for t in threads:
+            t.start()
+        return threads, box
+
+    try:
+        client.server_manager.start_server()
+        e0 = r0.mgr._engine
+        # Park, then demote, the warm prompt's prefix on r0.
+        first = r0.client.process(warm)
+        require("response" in first, f"fleet rescue: warm request: {first}")
+        while e0.prefix_cache.pop_oldest() is not None:
+            pass
+        require(e0.kv_spill.flush(10.0), "fleet rescue: demotion hung")
+        spill = e0.kv_spill
+        host = spill.stats()
+        require(host["resident_entries"] >= 1,
+                f"fleet rescue: nothing demoted: {host}")
+        # The reference: the same streams, uninterrupted, on r1.
+        threads, ref = consume(run_streams(r1))
+        for t in threads:
+            t.join(timeout=300)
+        require(all(res is not None and res[1] is not None for res in ref),
+                f"fleet rescue: a reference stream failed: {ref}")
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        mem_before = (torch.cuda.memory_allocated() if on_card else None)
+        capture_before = audit.capture_s.get(f"{tier.name}/r0", 0.0)
+        handles = run_streams(r0)
+        threads, got = consume(handles)
+        del handles
+        active = e0.slot_stats()["active_slots"]
+        t_kill = time.monotonic()
+        require(crash_replica_engine(e0), "fleet rescue: no loop to kill")
+        dead = weakref.ref(e0)
+        del e0
+        deadline = t_kill + 180.0
+        while time.monotonic() < deadline:
+            eng = r0.mgr._engine
+            if eng is not None and eng is not dead():
+                break
+            time.sleep(0.01)
+        mttr_ms = (time.monotonic() - t_kill) * 1000.0
+        new = r0.mgr._engine
+        require(new is not None and new is not dead(),
+                "fleet rescue: r0 was not restarted")
+        for t in threads:
+            t.join(timeout=300)
+        require(not any(t.is_alive() for t in threads),
+                "fleet rescue: a rescued stream hung")
+        flips = []
+        tie = tie_checker(torch)
+        ref_engine = r1.mgr._engine
+        for i, ((ref_text, ref_res), (text, res)) in enumerate(zip(ref, got)):
+            require(res is not None,
+                    f"fleet rescue: stream {i} failed: {text!r}")
+            # A re-emitted (or lost) delta shows in the stream's text against
+            # its own final tokens, and against the reference's stream.
+            require(text.strip() == clip_turn(res.text).strip(),
+                    f"fleet rescue: stream {i} re-emitted or lost a delta")
+            if list(res.token_ids) == list(ref_res.token_ids):
+                require(text == ref_text,
+                        f"fleet rescue: stream {i}'s deltas differ from the "
+                        f"reference's on the same tokens")
+            else:
+                ids = ref_engine.affinity_token_ids(prompts[i])
+                flip = tie(ref_engine, ids, list(ref_res.token_ids),
+                           list(res.token_ids))
+                flips.append({"stream": i, **flip})
+        require(all(f["near_tie"] for f in flips),
+                f"fleet rescue: a rescued stream differs beyond a near-tie: "
+                f"{flips}")
+        # The demoted prefix, warm on the restarted r0.
+        promoted_before = spill.stats()["promotions_total"]
+        second = r0.client.process(warm)
+        require(second.get("response") == first["response"]
+                and new.kv_spill is spill
+                and spill.stats()["promotions_total"] > promoted_before,
+                f"fleet rescue: the demoted prefix did not promote warm on "
+                f"the restarted r0: {spill.stats()}")
+        reattached = router.obs.m.spill_reattach.labels("nano").value
+        require(reattached == 1,
+                f"fleet rescue: dllm_spill_reattach_total = {reattached}")
+        rescues = {o: router.obs.m.replica_rescues.labels("nano", o).value
+                   for o in ("sibling", "requeue", "failed")}
+        monitor = router.health_monitor.snapshot()
+        del ref, got, ref_engine, new
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        mem_after = torch.cuda.memory_allocated() if on_card else None
+        require(dead() is None, "fleet rescue: the dead engine is alive")
+        if on_card:
+            require(mem_after <= mem_before * (1 + FLEET_MEMORY_SLACK),
+                    f"fleet rescue: device memory {mem_after} after the "
+                    f"restart against {mem_before} before the kill")
+        out.update({
+            "active_slots_at_kill": active,
+            "rescue_mttr_ms": mttr_ms,
+            "rescues": rescues,
+            "restarts": monitor.get(f"{tier.name}/r0", {}).get("restarts"),
+            "flips": [{k: f.get(k) for k in ("stream", "position",
+                                             "pick_gap", "tol", "near_tie")}
+                      for f in flips],
+            "tokens_identical": not flips,
+            "spill_reattached": reattached,
+            "host_entries_at_kill": host["resident_entries"],
+            "new_engine_programs": len(r0.mgr._engine._programs),
+            "new_engine_capture_s": (audit.capture_s.get(f"{tier.name}/r0",
+                                                         0.0)
+                                     - capture_before),
+            "memory_before_kill_gb": (mem_before / 1e9 if on_card
+                                      else None),
+            "memory_after_restart_gb": (mem_after / 1e9 if on_card
+                                        else None)})
+        require(active > 0 and rescues["sibling"] >= 1,
+                f"fleet rescue: nothing was in flight on r0 or rescued to "
+                f"r1: {active} active, {rescues}")
+    finally:
+        router.drain(timeout_s=10.0)
+    return out
+
+
+def fleet_phase(torch, nano, orin, *, device: str = "cuda", cluster=None):
+    """Phase 16, the fleet: (a) ``fleet_chaos`` on ``cluster`` (default
+    the bench cluster), (b) ``fleet_rescue`` on ``nano`` (a replicated
+    copy of it, beside the cluster's orin, which it never starts), (c)
+    the bench's replica leg (``bench.fleet.replica_phase``) at nano_1b's
+    width (2 slots a replica, 8 decode steps a tick, 24 new tokens): its
+    invariants hold (one ragged decode program per replica) and its
+    outputs are identical across replica counts and policies, or every
+    flip is a near-tie.  Each part is a main path of its own (``_fleet_part``):
+    K1, K2 and K3 launch in each, W1 too in (a).  Returns (numbers by
+    part, launches summed over the parts)."""
+    from distributed_llm_tpu_torch.bench import fleet
+    from distributed_llm_tpu_torch.config import bench_cluster
+
+    on_card = device == "cuda"
+    cluster = cluster or bench_cluster()
+    base = ("ragged_decode", "flash_causal", "paged_chunk")
+    parts = {
+        "chaos": (lambda audit: fleet_chaos(torch, cluster, device),
+                  base + ("w8_matmul",)),
+        "rescue": (lambda audit: fleet_rescue(
+            torch, dataclasses.replace(cluster, nano=nano), audit, device),
+            base),
+        "replica": (lambda audit: fleet.replica_phase(
+            device, tie_check=tie_checker(torch),
+            tier=dataclasses.replace(nano, decode_batch=2,
+                                     decode_steps_per_tick=8,
+                                     max_new_tokens=24)), base),
+    }
+    out = {}
+    total = {name: 0 for name in kernel_wrappers()}
+    for name, (run, expect) in parts.items():
+        out[name], launches = _fleet_part(torch, name, run, expect, on_card)
+        for k, n in launches.items():
+            total[k] += n
+    rep = out["replica"]
+    require("error" not in rep, f"fleet replica: {rep.get('error')}")
+    require(all(p["compiled"] == 1
+                for p in rep["decode_programs_per_replica"].values()),
+            f"fleet replica: {rep['decode_programs_per_replica']}")
+    return out, total
+
+
+def fleet_summary(res: dict) -> dict:
+    """The fleet phase's card numbers for the printed line."""
+    chaos, rescue, rep = res["chaos"], res["rescue"], res["replica"]
+    return {
+        "chaos": {**{s: {k: chaos[s][k] for k in (
+            "requests", "availability", "mttr_s",
+            "p50_ttft_ms_under_faults", "hung_clients", "breaker_opened",
+            "degraded_served")} for s in ("heuristic", "hybrid", "perf")},
+            "mid_stream": chaos["mid_stream"], "wall_s": chaos["wall_s"]},
+        "rescue": {k: rescue.get(k) for k in (
+            "active_slots_at_kill", "rescue_mttr_ms", "rescues", "restarts",
+            "tokens_identical", "flips", "spill_reattached",
+            "new_engine_programs", "new_engine_capture_s",
+            "memory_before_kill_gb", "memory_after_restart_gb", "wall_s")},
+        "replica": {k: rep.get(k) for k in (
+            "closed_loop_speedup", "speedup_ok", "single_device",
+            "affinity_hit_retention", "random_hit_retention",
+            "dilution_resident_ratio", "decode_programs_per_replica",
+            "outputs_identical", "wall_s")}
+        | {"flips": [{k: f.get(k) for k in ("mode", "request", "position",
+                                             "pick_gap", "tol", "near_tie")}
+                     for f in rep.get("flips", ())]},
+    }
+
+
 # The late phases, by name: each (torch, nano tier, orin tier) ->
 # (numbers, launches by kernel).
 def _seq(tier, **kw):
@@ -4313,6 +4739,7 @@ LATE_PHASES = {
     "trained_chat": lambda torch, nano, orin: trained_chat_phase(
         torch, expect=("ragged_decode", "flash_causal", "paged_chunk")),
     "legs": lambda torch, nano, orin: legs_phase(torch, nano, orin),
+    "fleet": lambda torch, nano, orin: fleet_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -4449,6 +4876,26 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
             f"{sec.get('flips')}")
     require((result["openloop"].get("knee_req_per_s") or 0) > 0,
             f"bench openloop section: {result['openloop']}")
+    # The fleet legs at the JAX bench's pinned configurations: no client
+    # hung, the drain finished its stragglers and then refused, and the
+    # replica leg held its invariants (identity or near-ties).
+    for strategy in ("heuristic", "hybrid", "perf"):
+        st = result["chaos"][strategy]
+        require(st["requests"] > 0 and not st["hung_clients"]
+                and not st["errors"],
+                f"bench chaos section {strategy}: {st}")
+    pressure = result["pressure"]
+    require(not pressure["load"]["hung_clients"]
+            and pressure["drain"]["finished_ok"] == 2
+            and pressure["drain"]["post_drain_rejected"]
+            and pressure["replay_identity"]["preemptions"] >= 1
+            and pressure["replay_identity"]["pool_freed"],
+            f"bench pressure section: {pressure}")
+    require(all(p["compiled"] == 1 for p in
+                result["replica"]["decode_programs_per_replica"].values()),
+            f"bench replica section: {result['replica']}")
+    require("verdict" in result["perf_steering"],
+            f"bench perf_steering section: {result['perf_steering']}")
     # The spec_multiturn leg: both engines' follow-up TTFT and the cost.
     require(all(result["spec_multiturn"].get(k, 0) > 0 for k in (
         "plain_followup_ttft_ms", "spec_followup_ttft_ms",
@@ -4503,7 +4950,9 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "flagship": result["flagship"], "spill": result["spill"],
         "spec_multiturn": result["spec_multiturn"],
         **{leg: result[leg] for leg in ("skew", "spec_phase", "mixed",
-                                        "shared", "openloop")},
+                                        "shared", "openloop", "chaos",
+                                        "pressure", "replica",
+                                        "perf_steering")},
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
@@ -4566,7 +5015,8 @@ def main() -> None:
                       "w") as f:
                 json.dump(numbers, f, indent=1, default=str)
             log(json.dumps({name: (leg_summary(numbers) if name in (
-                "legs", "bench") else numbers), "card": card,
+                "legs", "bench") else fleet_summary(numbers)
+                if name == "fleet" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -4655,8 +5105,10 @@ def main() -> None:
     late_launches = {}
     # 14-15. The trained tiny tiers behind /chat; the bench's engine legs
     # and the open-loop leg at full width.
+    # 16. The fleet: chaos on the bench cluster, a crashed replica rescued,
+    # the replica leg at nano_1b's width.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
-                 "legs"):
+                 "legs", "fleet"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
@@ -4764,6 +5216,18 @@ def main() -> None:
         | {m: {k: bench["spill"][m].get(k) for k in (
             "warm_hit_rate", "promotions", "demotions_total",
             "revisit_ttft_p50_ms")} for m in ("off", "small", "large")},
+        "fleet_legs": {
+            "chaos": {s: {k: bench["chaos"][s][k] for k in (
+                "requests", "availability", "mttr_s",
+                "p50_ttft_ms_under_faults", "breaker_opened")}
+                for s in ("heuristic", "hybrid", "perf")},
+            "pressure": {k: bench["pressure"][k] for k in (
+                "replay_identity", "load", "drain")},
+            "replica": {k: bench["replica"].get(k) for k in (
+                "closed_loop_speedup", "speedup_ok",
+                "affinity_hit_retention", "random_hit_retention",
+                "dilution_resident_ratio", "outputs_identical", "flips")},
+            "perf_steering": bench["perf_steering"]["verdict"]},
         "admission": bench["admission"]}}))
     log(json.dumps({"card": card, "pressure": {
         name: {k: late[name][k] for k in (
@@ -4800,6 +5264,7 @@ def main() -> None:
         k: tc[k] for k in ("cluster", "turns", "startup_s", "main_path_s")}}))
     log(json.dumps({"card": card, "legs": leg_summary(late["legs"]),
                     "bench_legs": leg_summary(bench)}))
+    log(json.dumps({"card": card, "fleet": fleet_summary(late["fleet"])}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

@@ -31,7 +31,11 @@ sweep router's own metric registry (``_trace_quantiles``:
 ``trace_p50/p95_ttft_ms``, ``trace_p50/p95_tbt_ms`` and their counts).
 Then the later sections: ``trend`` (the pinned tiny cluster, heuristic,
 4 clients, median of 5), ``long_context`` and ``orin_prefix`` (prefix
-reuse on the orin tier), ``continuous_batching`` (one batched nano engine,
+reuse on the orin tier), the fault legs of ``bench/fleet.py`` on the
+pinned tiny tiers, ``chaos`` (availability, MTTR and TTFT under a
+scripted nano flap schedule, per strategy) and ``pressure`` (the same
+under block starvation, a replay-identity check and a drain epilogue),
+``continuous_batching`` (one batched nano engine,
 concurrent against sequential, and its int8-KV leg), the engine legs
 of ``bench/legs.py`` at the JAX bench's pinned configurations: ``skew``
 (the dense windowed tick against the ragged tick at full occupancy),
@@ -41,7 +45,10 @@ chunked against one-shot prefill) and ``shared`` (K sessions over one
 system prompt, prefix sharing on and off), then ``profile`` (the
 tick-phase profiler over the tiny batched cluster: its per-phase
 self-time table, coverage, attribution conservation, the cost ledger's
-head and a Chrome-trace artifact, ``BENCH_profile_trace.json``), ``spill``
+head and a Chrome-trace artifact, ``BENCH_profile_trace.json``),
+``replica`` (``bench/fleet.py``: one engine against two replicas of the
+tiny nano tier, scaling, affinity against random dispatch, one decode
+program per replica, identical outputs), ``spill``
 (the host KV spill tier on the tiny nano tier with a 20-block pool: 16
 sessions populated then revisited with the spill OFF and at a small and
 a large host budget; ``warm_hit_rate`` per mode, the co-tenant's
@@ -54,7 +61,9 @@ budget left), the features legs ``speculative`` (the orin tier
 speculating with the nano model as its draft: acceptance and decode
 tok/s against plain greedy)
 and ``quant`` (each tier's decode tok/s with bf16 weights, int8 weights,
-and int8 weights with int8 KV), and ``flagship`` (``flagship_cluster``:
+and int8 weights with int8 KV), ``perf_steering`` (``bench/fleet.py``:
+a nano tier slowed by injected latency, perf routing with and without
+exploration), and ``flagship`` (``flagship_cluster``:
 nano_1b and orin_8b with int8 weights on the sequential engine, each
 budgeted, with decode tok/s, p50 TTFT, prefill MFU, decode ``hbm_util``
 and nano's long-context leg; on the card only, unless ``--flagship``),
@@ -75,14 +84,10 @@ The JAX package's environment knobs are flags here: ``--budget-s``
 CPU too, at its full 1B and 8B sizes), ``--host-kv-bytes``
 (``DLLM_HOST_KV_BYTES``, for the sweep cluster's tiers).
 
-Not here, each waiting for the feature it measures (ROADMAP.md A1): the
-chaos legs (``chaos``, ``chaos2``: fault injection, replicas, rescue),
-``pressure`` (its load half runs on the fault injector's block starver),
-``noisy`` (tenants),
-``replica``, ``elastic`` (replicas, the autoscaler), ``multichip``
-(tensor parallelism), ``tier_quality`` (the training package's
-evaluation), ``perf_steering`` (fault injection) and
-``dispatch_provenance`` / ``hw_dispatch`` (the port has no dispatch
+Not here, each waiting for the feature it measures (ROADMAP.md A1):
+``chaos2`` and ``elastic`` (the autoscaler), ``noisy`` (tenants),
+``multichip`` (tensor parallelism), ``tier_quality`` (the training
+package's evaluation) and ``dispatch_provenance`` / ``hw_dispatch`` (the port has no dispatch
 table).  Nor the JAX bench's accelerator probe, its fall-back to
 the CPU or its kernel dispatch A/B.
 """
@@ -385,6 +390,33 @@ def compact(result: dict) -> dict:
         }.items() if v is not None}
         if cm:
             out["spill"] = cm
+    rp = result.get("replica")
+    if isinstance(rp, dict) and not rp.get("skipped"):
+        # The closed-loop ratio replicas=2 over replicas=1 (on one card an
+        # overlap measure, bench/fleet.py), both rates, the affinity and
+        # random hit retention, the warm TTFT p50s per policy and the
+        # identity verdict.
+        cm = {k: v for k, v in {
+            "speedup": rp.get("closed_loop_speedup"),
+            "speedup_ok": rp.get("speedup_ok"),
+            "r1_req_s": (rp.get("r1") or {}).get("req_per_s"),
+            "r2_req_s": (rp.get("r2") or {}).get("req_per_s"),
+            "aff_ret": rp.get("affinity_hit_retention"),
+            "rnd_ret": rp.get("random_hit_retention"),
+            "dilution": rp.get("dilution_resident_ratio"),
+            "ttft50_aff": (rp.get("sessions_affinity")
+                           or {}).get("warm_ttft_p50_ms"),
+            "ttft50_rnd": (rp.get("sessions_random")
+                           or {}).get("warm_ttft_p50_ms"),
+            "ttftmax_rnd": (rp.get("sessions_random")
+                            or {}).get("ttft_max_ms"),
+            "ttft50_r1": (rp.get("sessions_r1")
+                          or {}).get("warm_ttft_p50_ms"),
+            "ident": rp.get("outputs_identical"),
+            "err": (rp.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["replica"] = cm
     strategies = result.get("per_strategy")
     if isinstance(strategies, dict):
         # t50/t95: trace-derived p50/p95 TTFT, tbt50: trace-derived p50
@@ -1490,7 +1522,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     from ..obs import Observability
     from ..serving.router import Router, default_cluster
     from ..utils import roofline
-    from . import legs
+    from . import fleet, legs
     from .openloop import openloop_phase
     from .query_sets import query_sets
 
@@ -1722,6 +1754,13 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         # Free the sweep engines' memory before the load test's pool.
         _stop_tiers(router)
     progress.beat()
+    # The fault legs after the trend leg, as in the JAX bench, on its
+    # pinned tiny tiers: availability and MTTR under a flap schedule, then
+    # under block starvation with the replay-identity check and the drain.
+    chaos = later("chaos", lambda: fleet.chaos_phase(
+        dev, beat=progress.beat), 45)
+    pressure = later("pressure", lambda: fleet.pressure_phase(
+        dev, beat=progress.beat), 45)
     batching = later("continuous_batching", lambda: concurrent_phase(
         router.cluster, dev, beat=progress.beat), 120)
     # The engine legs in the JAX bench's order and under its guards, each
@@ -1736,6 +1775,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         beat=progress.beat, device=dev, tie_check=tie_check), 90)
     profile = later("profile", lambda: profile_phase(
         dev, beat=progress.beat), 60)
+    replica = later("replica", lambda: fleet.replica_phase(
+        dev, beat=progress.beat, tie_check=tie_check), 120)
     spill = later("spill", lambda: spill_phase(dev, beat=progress.beat), 150)
     # The open-loop leg needs about 40 s to mean anything and leaves 30 s
     # for the sections after it: past that it is skipped, not squeezed.
@@ -1753,6 +1794,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     progress.section("speculative", features["speculative"])
     progress.section("quant", features["quant"])
     progress.flush_compact()
+    perf_steering = later("perf_steering", lambda: fleet.perf_steering_phase(
+        dev, beat=progress.beat), 90)
     if flagship or dev.type != "cpu":
         flagship_out = later("flagship", lambda: flagship_phase(
             device=dev, beat=progress.beat), 240)
@@ -1770,6 +1813,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "budget": progress.snapshot().get("budget"),
         "trend": trend,
         "trend_req_per_s": trend.get("trend_req_per_s"),
+        "chaos": chaos,
+        "pressure": pressure,
         "continuous_batching": batching,
         "long_context": long_context,
         "orin_prefix": orin_prefix,
@@ -1778,12 +1823,14 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "mixed": mixed,
         "shared": shared,
         "profile": profile,
+        "replica": replica,
         "spill": spill,
         "openloop": openloop,
         "knee_req_per_s": openloop.get("knee_req_per_s"),
         "goodput_at_knee": openloop.get("goodput_at_knee"),
         "speculative": features["speculative"],
         "quant": features["quant"],
+        "perf_steering": perf_steering,
         "flagship": flagship_out,
         "spec_multiturn": spec_multiturn,
     }

@@ -157,7 +157,6 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 # (the JAX package's default).  A tier asking for anything else raises.
 _UNPORTED_DEFAULTS = {
     "tp": 1,
-    "replicas": 1,
     "endpoint": None,
     "spawn_cmd": None,
     "tenant_quotas": None,
@@ -305,9 +304,36 @@ class TierConfig:
     # the port's weights/ is loaded, models/checkpoint.py) or an export's
     # .npz.  None: deterministic random init from the cluster's seed.
     checkpoint_path: Optional[str] = None
+    # Replicated tiers (serving/replicas.py): > 1 makes the tier own that
+    # many engine replicas (data-parallel copies of the model, each a full
+    # EngineManager with its own admission queue, breaker sub-gate,
+    # watchdog and drain) behind one ReplicatedTierClient.  On one card
+    # every replica shares the device.  The HealthMonitor probes and
+    # restarts replicas one by one, so a wedged replica costs capacity,
+    # not the tier.  1 = the single-engine tier.
+    replicas: int = 1
+    # Prefix-affinity replica dispatch: a request goes to the replica whose
+    # parked prefix (device cache or host spill tier) matches it by at
+    # least replica_affinity_min_tokens, unless that replica's predicted
+    # queue wait exceeds the least-loaded one's by more than
+    # replica_affinity_override_s.  False = least-loaded dispatch.
+    replica_affinity: bool = True
+    replica_affinity_min_tokens: int = 16
+    replica_affinity_override_s: float = 1.0
+    # Crash rescue (ReplicatedTierClient.restart_replica): a restarted
+    # replica's queued and in-flight requests are captured (prompt and
+    # emitted tokens) and resumed on a live sibling, or re-queued on the
+    # restarted engine when the tier has one replica, so greedy streams
+    # stall through the restart and continue on the same tokens.  False =
+    # the restart fails them with the engine-stopped error shape.
+    replica_rescue: bool = True
+    # Spill-state survival: the host KV spill store outlives a replica
+    # restart (detached before the stop, re-attached to the rebuilt
+    # engine, or handed to a sibling when the restart fails).  False = it
+    # stops and empties with the engine.
+    spill_survive_restart: bool = True
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
-    replicas: int = 1
     endpoint: Optional[str] = None
     spawn_cmd: Optional[Tuple[str, ...]] = None
     tenant_quotas: Optional[Dict[str, Any]] = None
@@ -324,8 +350,11 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, replicas, remote tiers, tenant
-        quotas, the autoscaler, MoE)."""
+        tier turns on (tensor parallelism, remote tiers, tenant quotas,
+        the autoscaler, MoE), and ``ValueError`` for ``replicas < 1``."""
+        if self.replicas < 1:
+            raise ValueError(f"tier {self.name}: replicas must be >= 1, "
+                             f"got {self.replicas}")
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]

@@ -135,9 +135,15 @@ chunk budget (``_advance_promotion``).  The spill copies run eagerly
 device, under JAX's ``"spill"`` keys in ``_compiled``); they are no
 program and never a capture.
 
+A replica restart (serving/replicas.py) rescues the engine's work:
+``capture_requests`` joins the loop and takes every queued and in-flight
+request (each slot's emitted tokens parked on it, as ``_preempt`` parks
+them), ``adopt_requests`` queues them on a sibling or the rebuilt engine,
+where ``_admit_replay`` resumes them; ``detach_spill`` and
+``adopt_spill`` carry the host spill store across the restart.
+
 Not ported yet (ROADMAP.md A8): tenant quotas (their γ caps and victim
-policy), crash capture/adopt and the spill store's survival across a
-restart; tensor parallelism (A10).
+policy); tensor parallelism (A10).
 """
 
 from __future__ import annotations
@@ -2238,6 +2244,97 @@ class ContinuousBatchingEngine:
                     break
                 self._fail_request(req, shutdown)
 
+    # -- crash rescue (serving/replicas.py restart_replica) -------------------
+
+    def capture_requests(self) -> List[_Request]:
+        """Harvest every queued and in-flight request for a crash rescue:
+        join the scheduler loop, park each decoding slot's generated tokens
+        on its request (the ``_preempt`` capture, which ``_admit_replay``
+        later resumes on the same greedy tokens), unwind the in-flight
+        chunked prefill and drain the head lane and the submission queue.
+        The same ``_Request`` objects come back, their ``done`` events,
+        token queues and traces intact, so blocked callers and streams
+        stall through the rescue instead of failing, and the engine is
+        left empty: a following ``stop()`` finds nothing to fail.  Each
+        freed slot's table row points at the trash block (``_release``)
+        before any later tick could replay against it."""
+        captured: List[_Request] = []
+        with self._lifecycle:
+            if self._thread is not None:
+                self._stop.set()
+                self._wake.set()
+                self._thread.join(timeout=5)
+                self._thread = None
+            # The in-flight prefill frees its blocks, drops its promotion
+            # pin and requeues at the head, where the drain below finds it.
+            self._cancel_prefill("rescue_capture")
+            for ix, slot in enumerate(self._slots):
+                if slot is None:
+                    continue
+                req = slot.request
+                req.replay_tokens = list(slot.tokens)
+                req.replay_ttft_ms = slot.ttft_ms
+                req.preempt_count += 1
+                obs_spans.event(req.trace, "rescue_capture",
+                                tier=self.tier.name,
+                                generated=len(slot.tokens))
+                self._release(ix)            # free ALL blocks, no parking
+                captured.append(req)
+            while True:
+                req = self._next_request()
+                if req is None:
+                    break
+                captured.append(req)
+        return captured
+
+    def adopt_requests(self, reqs: Sequence[_Request]) -> int:
+        """Enqueue requests captured off a crashed or wedged engine.  Each
+        re-enters through the submission queue; one that carries
+        ``replay_tokens`` is admitted by ``_admit_replay`` (a prefill of
+        prompt + emitted tokens, then decode from the last one), so a
+        greedy continuation equals the uninterrupted run.  Returns the
+        number adopted."""
+        self.start()
+        n = 0
+        for req in reqs:
+            # The chunk bookmark belongs to the dead engine's prefill lane.
+            req.needs_chunk = False
+            self._queue.put(req)
+            n += 1
+        if n:
+            self._wake.set()
+        return n
+
+    def detach_spill(self) -> Optional[HostKVSpill]:
+        """Hand the host spill store out of the engine's lifetime: flush
+        the in-flight demote copies (the host tier is consistent at rest),
+        then unhook it, so a following ``stop()`` leaves it running.
+        Returns the store, or None when the engine has none."""
+        spill = self.kv_spill
+        if spill is None:
+            return None
+        spill.flush(timeout_s=5.0)
+        self.kv_spill = None
+        return spill
+
+    def adopt_spill(self, spill: Optional[HostKVSpill]) -> bool:
+        """Install a surviving host spill store into this freshly built
+        engine.  Its geometry must match (per-block host bytes, the
+        prefix cache's min-prefix floor) or it is refused and the caller
+        hands it to a sibling.  The engine's own store, if it built one,
+        is stopped and replaced."""
+        if (spill is None or self.prefix_cache is None
+                or not self.chunk_tokens):
+            return False
+        if (spill.block_bytes != self._spill_block_bytes
+                or spill.min_prefix != self.prefix_cache.min_prefix):
+            return False
+        old = self.kv_spill
+        if old is not None and old is not spill:
+            old.stop()
+        self.kv_spill = spill
+        return True
+
     def submit(self, history: History, max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
                token_queue: Optional["queue.Queue"] = None) -> _Request:
@@ -2458,19 +2555,31 @@ class ContinuousBatchingEngine:
         non-destructive prefix-affinity probe."""
         if self.prefix_cache is None or not self._reuse_buckets:
             return 0
+        return self.prefix_affinity_tokens(self.affinity_token_ids(history))
+
+    def affinity_token_ids(self, history) -> List[int]:
+        """``history`` tokenized as admission would: the shared half of
+        the affinity probe, so replica dispatch tokenizes once and peeks
+        every replica with the same ids."""
         ids, _ = prepare_prompt(self.tokenizer, history,
                                 self.tier.prefill_buckets,
                                 self.cfg.max_seq_len,
                                 self.tier.max_new_tokens)
-        return self.prefix_affinity_tokens(ids)
+        return ids
 
     def prefix_affinity_tokens(self, ids: Sequence[int]) -> int:
-        """Longest parked-prefix match for tokenized ``ids``, capped as
-        select_reuse's take() is (a peek: nothing moves)."""
+        """Longest parked-prefix match for tokenized ``ids`` in the device
+        prefix cache or the host spill tier, capped as select_reuse's
+        take() is (a peek: nothing moves).  A demoted prefix counts: a
+        session follows its spilled prefix home, since its promotion beats
+        a cold prefill elsewhere."""
         if self.prefix_cache is None or not self._reuse_buckets:
             return 0
-        return self.prefix_cache.peek(
-            ids, max_len=self.cfg.max_seq_len - self._reuse_buckets[0])
+        cap = self.cfg.max_seq_len - self._reuse_buckets[0]
+        best = self.prefix_cache.peek(ids, max_len=cap)
+        if self.kv_spill is not None:
+            best = max(best, self.kv_spill.peek(ids, max_len=cap))
+        return best
 
     def warmup(self) -> None:
         """Build the programs before traffic that the JAX engine compiles

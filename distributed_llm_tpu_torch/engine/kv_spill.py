@@ -193,6 +193,44 @@ class HostKVSpill:
         self._ensure_copier()
         return True
 
+    # -- handoff to a sibling's store (a restart that failed) ---------------
+
+    def export_resident(self) -> List[Tuple[Tuple[int, ...], Tiles, int,
+                                            int]]:
+        """RESIDENT, unpinned entries as ``(ids, tiles, nbytes, nb)``: the
+        read side of the handoff, when a replica's rebuilt engine cannot
+        take its store back and a sibling's store adopts the entries.  The
+        tiles are host tensors in pool layout, the same for every replica
+        of one configuration, so adoption moves a reference.  Pinned or
+        still COPYING entries stay behind (the caller flushes first)."""
+        with self._lock:
+            return [(e.ids, e.tiles, e.nbytes, e.nb)
+                    for e in self._entries
+                    if e.state == RESIDENT and e.pins == 0
+                    and e.tiles is not None]
+
+    def admit_resident(self, ids: Sequence[int], tiles: Tiles, nbytes: int,
+                       nb: int) -> bool:
+        """Register an entry that is already host resident (the write side
+        of the handoff): the same extend-replacement and LRU-evict-to-fit
+        rules as ``offer``, but no copier job, so the entry is promotable
+        at once.  False = no room (budget smaller than the entry, or
+        everything pinned)."""
+        nbytes = int(nbytes)
+        if (self._stopping.is_set() or tiles is None
+                or nbytes > self.budget_bytes):
+            return False
+        entry = HostEntry(tuple(ids), int(nb), nbytes)
+        # RESIDENT before it is published: _reserve appends under the lock.
+        entry.tiles = dict(tiles)
+        entry.state = RESIDENT
+        if not self._reserve(entry, nbytes):
+            return False
+        with self._lock:
+            self.demotions_total += 1
+        self._mirror_counter("kv_demotions")
+        return True
+
     # -- copier worker (the one place a device-to-host copy is waited on) --
 
     def _ensure_copier(self) -> None:

@@ -8,9 +8,8 @@ either package alike.  The serving stack's signals (queue depth, breaker
 state, admission rejects, latencies) get a typed, scrapeable shape,
 served as Prometheus text at ``GET /metrics`` (serving/app.py) and read
 by the bench (bench/headline.py) for its trace-derived columns.  The
-families of features the port does not serve yet (tenants, replicas,
-the spill store's survival across a restart, the autoscaler) are
-declared and stay at zero.
+families of features the port does not serve yet (tenants, the
+autoscaler) are declared and stay at zero.
 
 Shape notes:
 
@@ -489,7 +488,7 @@ METRIC_REGISTRY: Tuple[Tuple[str, str, str, Tuple[str, ...], str], ...] = (
     ("profile_coverage_g", "gauge", "dllm_profile_coverage", ("tier",),
      "Fraction of tick wall time covered by stamped phase self-"
      "times (sampled; the bench profile leg pins >= 0.95)"),
-    # Replicated-tier family (not served by the port yet): how
+    # Replicated-tier family (serving/replicas.py): how
     # dispatch chose among a tier's engine replicas, and how much of
     # the tier's replica capacity is currently healthy.
     ("replica_routed", "counter", "dllm_replica_routed_total",
@@ -501,7 +500,7 @@ METRIC_REGISTRY: Tuple[Tuple[str, str, str, Tuple[str, ...], str], ...] = (
      "Replicas of the tier currently serving (running, not "
      "wedged, breaker not open) out of TierConfig.replicas "
      "(sampled)"),
-    # Crash-rescue family (not served by the port yet): what
+    # Crash-rescue family (ReplicatedTierClient.restart_replica): what
     # happened to a restarted replica's
     # in-flight work and its host spill store.
     ("replica_rescues", "counter", "dllm_replica_rescues_total",
@@ -515,8 +514,9 @@ METRIC_REGISTRY: Tuple[Tuple[str, str, str, Tuple[str, ...], str], ...] = (
      "Host KV spill stores that survived an engine restart and "
      "re-attached to the rebuilt engine (spill-state survival — "
      "restart cost is warm-TTFT promotion, not cold prefill)"),
-    # Elastic-capacity family (not served by the port yet):
-    # live membership and the autoscaler's actuation decisions.
+    # Elastic-capacity family: live membership (sampled from the
+    # replicated tiers) and the autoscaler's actuation decisions (not
+    # served by the port yet).
     ("replica_count_g", "gauge", "dllm_replica_count", ("tier",),
      "Live replica membership of the tier — static it equals "
      "TierConfig.replicas; under the autoscaler it moves between "

@@ -88,11 +88,14 @@ from .ragged_attention import (PADDED_D, _launch_verify, chunk_split_plan,
 # Head dims of the cold prefill and the paged chunk (16: the tiny test
 # presets; 8, the tiny draft's, through the 16 instance: ``PADDED_D``),
 # block sizes of the paged chunk, and head dims of the contiguous-cache
-# kernels, which the tiny presets do not reach on the card (their
-# sequential tiers are served on the CPU).
+# kernels.  The tiny presets' sequential tiers (head dim 16, the bench's
+# perf-steering leg) reach the contiguous-cache kernels through the 64
+# instance, on zero-padded copies of q and the window with the true
+# softmax scale (``_CACHE_PADDED_D``): exact, as ``PADDED_D`` is.
 _SUPPORTED_D = (16, 64, 128)
 _SUPPORTED_BS = (16, 32, 64, 128)
 _CACHE_D = (64, 128)
+_CACHE_PADDED_D = {16: 64}
 TC_ROWS = 64        # query rows per block of the tensor-core flash kernel
 TC_WARPS = 2        # warps a 16-row slab, each with its own flash state
 TC_TILE = 128       # keys per staged tile, every other 16-key chunk a warp
@@ -321,13 +324,33 @@ def _check_window(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return w, nkv, kv_bstride, sc_bstride
 
 
+def pad_cache_head_dim(*tensors: torch.Tensor) -> tuple:
+    """Each tensor's last (head) dim zero-padded to its ``_CACHE_PADDED_D``
+    instance, contiguous (a window's copy keeps no batch stride)."""
+    return tuple(torch.nn.functional.pad(
+        t, (0, _CACHE_PADDED_D[t.shape[-1]] - t.shape[-1])).contiguous()
+        for t in tensors)
+
+
+def _padded_window(launch, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """``launch(q, k, v, scale)`` on the kernel's own head dim: a head dim
+    in ``_CACHE_PADDED_D`` runs on zero-padded copies with its true scale,
+    and the padded columns are cut off the output."""
+    d = q.shape[-1]
+    if d in _CACHE_PADDED_D:
+        q, k, v = pad_cache_head_dim(q, k, v)
+    return launch(q, k, v, d ** -0.5)[..., :d]
+
+
 def _launch_window(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, k_scale: Optional[torch.Tensor],
                    v_scale: Optional[torch.Tensor], positions: torch.Tensor,
-                   window: tuple, plan: Optional[tuple]) -> torch.Tensor:
+                   window: tuple, plan: Optional[tuple],
+                   scale: float) -> torch.Tensor:
     """Launch contiguous-cache kernel ``name`` on inputs ``_check_window``
-    passed (``window`` is what it returned) and count the launch on
-    ``wrapper``.  ``plan`` (tiles per split, splits) takes the split route,
+    passed (``window`` is what it returned) at softmax ``scale`` and count
+    the launch on ``wrapper``.  ``plan`` (tiles per split, splits) takes the split route,
     with float32 partials that are scratch of this call; None the
     tensor-core route (the entry reads no scratch at 0 tiles a split)."""
     w, nkv, kv_bstride, sc_bstride = window
@@ -348,7 +371,7 @@ def _launch_window(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if q8 else None, v_scale.data_ptr() if q8 else None,
         positions.data_ptr(), out.data_ptr(), *scratch, b, s_q, nq, nkv, d, w,
-        tiles, splits, kv_bstride, sc_bstride, d ** -0.5,
+        tiles, splits, kv_bstride, sc_bstride, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)
     wrapper.launches += 1
@@ -361,11 +384,14 @@ def _decode_window(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
     """A contiguous decode kernel (K9, K10): the split route at G = 1,
     planned by ``decode_split_plan`` from shapes alone."""
-    window = _check_window(wrapper.__name__, q, k, v, k_scale, v_scale, pos,
-                           q_dims=3, max_group=_MAX_GROUP)
-    w, nkv = window[:2]
-    return _launch_window(wrapper, name, q, k, v, k_scale, v_scale, pos,
-                          window, decode_split_plan(w, q.shape[0], nkv))
+    def launch(q, k, v, scale):
+        window = _check_window(wrapper.__name__, q, k, v, k_scale, v_scale,
+                               pos, q_dims=3, max_group=_MAX_GROUP)
+        w, nkv = window[:2]
+        return _launch_window(wrapper, name, q, k, v, k_scale, v_scale, pos,
+                              window, decode_split_plan(w, q.shape[0], nkv),
+                              scale)
+    return _padded_window(launch, q, k, v)
 
 
 # The bf16 contiguous chunk kernel (K11) takes one of two routes, chosen
@@ -393,16 +419,20 @@ def _split_chunk(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
     """The bf16 chunk kernel's split route: at most SPLIT_MAX_ROWS block
     rows, planned by ``chunk_split_plan`` from shapes alone."""
     fn = wrapper.__name__
-    window = _check_window(fn, q, k, v, None, None, q_positions, q_dims=4,
-                           max_group=SPLIT_MAX_ROWS)
-    w, nkv = window[:2]
-    b, s_c, nq, d = q.shape
-    rows = nq // nkv * s_c
-    _require(rows <= SPLIT_MAX_ROWS, fn,
-             f"{rows} block rows (group x S_c) on the split route, at most "
-             f"{SPLIT_MAX_ROWS}")
-    return _launch_window(wrapper, name, q, k, v, None, None, q_positions,
-                          window, chunk_split_plan(w, b, nkv, rows, d))
+
+    def launch(q, k, v, scale):
+        window = _check_window(fn, q, k, v, None, None, q_positions,
+                               q_dims=4, max_group=SPLIT_MAX_ROWS)
+        w, nkv = window[:2]
+        b, s_c, nq, d = q.shape
+        rows = nq // nkv * s_c
+        _require(rows <= SPLIT_MAX_ROWS, fn,
+                 f"{rows} block rows (group x S_c) on the split route, at "
+                 f"most {SPLIT_MAX_ROWS}")
+        return _launch_window(wrapper, name, q, k, v, None, None,
+                              q_positions, window,
+                              chunk_split_plan(w, b, nkv, rows, d), scale)
+    return _padded_window(launch, q, k, v)
 
 
 def _tc_chunk(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
@@ -411,10 +441,13 @@ def _tc_chunk(wrapper, name: str, q: torch.Tensor, k: torch.Tensor,
               q_positions: torch.Tensor) -> torch.Tensor:
     """A chunk on the tensor-core flash kernel (K12, K11's wide chunks):
     a group of at most TC_MAX_GROUP, no plan."""
-    window = _check_window(wrapper.__name__, q, k, v, k_scale, v_scale,
-                           q_positions, q_dims=4, max_group=TC_MAX_GROUP)
-    return _launch_window(wrapper, name, q, k, v, k_scale, v_scale,
-                          q_positions, window, None)
+    def launch(q, k, v, scale):
+        window = _check_window(wrapper.__name__, q, k, v, k_scale, v_scale,
+                               q_positions, q_dims=4,
+                               max_group=TC_MAX_GROUP)
+        return _launch_window(wrapper, name, q, k, v, k_scale, v_scale,
+                              q_positions, window, None, scale)
+    return _padded_window(launch, q, k, v)
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

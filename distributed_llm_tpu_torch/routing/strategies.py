@@ -435,6 +435,13 @@ class PerfStrategy(BaseStrategy):
             with self._explore_lock:
                 self._last_seen[device] = self._route_count
 
+    def merge_remote(self, device: str,
+                     remote: List[Tuple[float, int, bool]]) -> None:
+        """Fold in samples gathered from other hosts (the HealthMonitor's
+        perf-row merge)."""
+        for lat, tok, ok in remote:
+            self.update(device, lat, tok, ok)
+
     def update_load(self, device: str, queue_depth: float = 0.0,
                     active_slots: float = 0.0, max_slots: float = 1.0
                     ) -> None:

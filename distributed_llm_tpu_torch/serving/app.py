@@ -330,6 +330,17 @@ def create_app(router: Optional[Router] = None,
         for name, tier in router_.tiers.items():
             mgr = tier.server_manager
             entry = dict(mgr.health())
+            subs = getattr(mgr, "live_engines", None)
+            if callable(subs):
+                # A replicated tier: each live replica's engine stats under
+                # its key, the summed pool picture at tier level.
+                entry["replica_engines"] = {
+                    key: engine_stats(engine) for key, engine in subs()}
+                agg = mgr.kv_stats()
+                if agg:
+                    entry["kv"] = agg
+                tiers[name] = entry
+                continue
             engine = getattr(mgr, "_engine", None)    # never lazy-starts
             entry.update(engine_stats(engine))
             for key in ("tick_stats", "spec_stats"):

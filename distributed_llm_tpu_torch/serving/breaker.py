@@ -1,8 +1,9 @@
 """Per-tier circuit breaker: failure isolation ahead of the admission queue.
 
-The port's own copy of ``distributed_llm_tpu/serving/breaker.py`` (the
-three-state machine; the JAX package's HealthMonitor hooks and replica
-membership are not ported):
+The port's own copy of ``distributed_llm_tpu/serving/breaker.py``: the
+three-state machine, the HealthMonitor's hooks (``note_probe``,
+``reset``) and the replica sub-gate's membership verbs (``ensure``,
+``forget``):
 
 - **closed**: traffic flows; consecutive error-shaped results are counted
   (any success resets the count);
@@ -153,6 +154,23 @@ class CircuitBreaker:
                 self._set_state(tier, OPEN)
                 self._opened_at[tier] = self._clock()
 
+    def note_probe(self, tier: str, healthy: bool) -> None:
+        """A HealthMonitor liveness probe's verdict: a healthy probe of an
+        OPEN tier past its cooldown advances it to half-open (the next
+        real request is the canary), so recovery needs no client request
+        to find the cooldown over.  An unhealthy probe leaves the state
+        alone (the probe cadence must not re-arm the cooldown)."""
+        if not self.enabled or tier not in self._state:
+            return
+        with self._lock:
+            if (healthy and self._state[tier] == OPEN
+                    and self._clock() - self._opened_at.get(tier, 0.0)
+                    >= self.cooldown_s):
+                self._set_state(tier, HALF_OPEN)
+                self._probe_inflight[tier] = False
+                logger.info("breaker %s: healthy liveness probe past "
+                            "cooldown -> half-open", tier)
+
     def release_probe(self, tier: str) -> None:
         """Repay a half-open canary permit WITHOUT a verdict (the
         dispatch never produced failure evidence — e.g. an admission
@@ -163,11 +181,64 @@ class CircuitBreaker:
         with self._lock:
             self._probe_inflight[tier] = False
 
+    def reset(self, tier: str) -> None:
+        """Force-close (a successful engine restart by the HealthMonitor
+        makes the old failure streak meaningless)."""
+        if tier not in self._state:
+            return
+        with self._lock:
+            self._set_state(tier, CLOSED)
+            self._consecutive[tier] = 0
+            self._probe_inflight[tier] = False
+
+    # -- dynamic membership ---------------------------------------------------
+
+    def ensure(self, tier: str) -> None:
+        """Mint state for a key added after construction (a replica that
+        goes live mid-run needs its own sub-gate).  New keys start CLOSED;
+        idempotent, never resets an existing key."""
+        with self._lock:
+            if tier in self._state:
+                return
+            self._state[tier] = CLOSED
+            self._consecutive[tier] = 0
+            self._probe_inflight[tier] = False
+            self.opened_total.setdefault(tier, 0)
+
+    def forget(self, tier: str) -> None:
+        """Drop a retired key's live state; ``opened_total`` keeps its
+        count (history, not live state)."""
+        with self._lock:
+            self._state.pop(tier, None)
+            self._consecutive.pop(tier, None)
+            self._probe_inflight.pop(tier, None)
+            self._opened_at.pop(tier, None)
+            self._probe_started.pop(tier, None)
+
     # -- observability ------------------------------------------------------
 
     def state(self, tier: str) -> str:
         with self._lock:
             return self._state.get(tier, CLOSED)
+
+    def all_open(self) -> bool:
+        """True iff every tier is open AND none is ready for a canary: a
+        read-only mirror of the Router's degraded gate (the gate itself is
+        the ``allow`` pair in ``route_query``, which consumes the canary
+        permit)."""
+        if not self.enabled:
+            return False
+        with self._lock:
+            now = self._clock()
+            for t, st in self._state.items():
+                if st == CLOSED:
+                    return False
+                if st == OPEN and (now - self._opened_at.get(t, now)
+                                   >= self.cooldown_s):
+                    return False
+                if st == HALF_OPEN and not self._probe_inflight[t]:
+                    return False
+            return True
 
     def snapshot(self) -> Dict[str, Dict[str, Any]]:
         with self._lock:

@@ -35,8 +35,16 @@ arguments: ``sample_ms`` (0 turns the sampler off) and
 ``timeline_samples``; the SLO targets are the tiers' ``slo_ttft_ms`` and
 ``slo_tbt_ms``.
 
-Not ported (ROADMAP.md): tenants, fault injection, the HealthMonitor,
-the autoscaler, replicated and remote tiers.
+The fleet: a ``FaultInjector`` (utils/faults.py) reaches every tier
+client; ``enable_health_monitor`` in the config starts a
+``HealthMonitor`` (serving/health.py) that probes every
+``health_interval_s`` and restarts wedged engines, replica by replica on
+a replicated tier (``replicas > 1``: serving/replicas.py), whose replicas
+get their own sampler entries (``tier/rN``), trace threads and
+``dllm_replica_*`` series.
+
+Not ported (ROADMAP.md): tenants, the autoscaler, remote tiers and the
+cross-host health exchange (``health_mesh``).
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from ..obs.slo import SLOMonitor
 from ..obs.spans import current_trace, use_trace
 from ..routing.engine import QueryRouter
 from ..routing.token_counter import TokenCounter
+from ..utils.faults import FaultInjector
 from .errors import is_error_shape
 from .tiers import TierClient, build_tiers
 
@@ -106,6 +115,7 @@ class Router:
         observability: Optional[Observability] = None,
         sample_ms: float = 250.0,
         timeline_samples: int = 240,
+        fault_injector: Optional[FaultInjector] = None,
     ):
         """strategy: "token" | "semantic" | "heuristic" | "hybrid" | "perf";
         benchmark_mode: True -> BENCHMARK_CFG (caches off), False ->
@@ -114,7 +124,8 @@ class Router:
         tiers and the router's embedder (default: the card).
         ``observability``: the metric/trace/recorder bundle (default: the
         process-global one).  ``sample_ms``: the state sampler's period (0
-        = no sampler); ``timeline_samples``: its ring."""
+        = no sampler); ``timeline_samples``: its ring.
+        ``fault_injector``: scripted faults for every tier client."""
         self.token_counter = TokenCounter()
         self.device = resolve_device(device)
         self.obs = (observability if observability is not None
@@ -124,8 +135,14 @@ class Router:
         self.config = resolve_config(config, benchmark_mode)
 
         self.cluster = cluster or default_cluster(self.device)
-        self.tiers: Dict[str, TierClient] = build_tiers(self.cluster,
-                                                        device=self.device)
+        self.faults = fault_injector
+        self.tiers: Dict[str, TierClient] = build_tiers(
+            self.cluster, device=self.device, fault_injector=fault_injector)
+        for tier in self.tiers.values():
+            if hasattr(tier, "restart_replica"):
+                # The replica dispatch and rescue series land in the
+                # router's registry, beside the sampler's replica gauges.
+                tier.obs = self.obs
         self.nano = self.tiers["nano"]
         self.orin = self.tiers["orin"]
 
@@ -193,6 +210,21 @@ class Router:
         self.prefix_affinity_overrides = 0
         self._response_store: Dict[str, Dict[str, Any]] = {}
 
+        # Continuous liveness probing with automatic restart (off by
+        # default, which keeps bench runs deterministic).
+        self.health_monitor = None
+        if self.config.get("enable_health_monitor", False):
+            if self.config.get("health_mesh") is not None:
+                raise NotImplementedError(
+                    "health_mesh: the cross-host health exchange is not "
+                    "ported to the PyTorch/CUDA package yet (see "
+                    "ROADMAP.md A10)")
+            from .health import HealthMonitor
+            self.health_monitor = HealthMonitor(
+                self, interval_s=float(self.config.get("health_interval_s",
+                                                       5.0)))
+            self.health_monitor.start()
+
     # -- graceful drain ----------------------------------------------------
 
     def drain_retry_after_s(self) -> float:
@@ -206,8 +238,11 @@ class Router:
         """Graceful shutdown: flip the serving edge to 503, then drain
         every tier concurrently (each stops admitting, lets its in-flight
         requests finish under ``drain_timeout_s`` and stops).  Idempotent;
-        returns the per-tier drain summaries."""
+        returns the per-tier drain summaries.  The health monitor stops
+        first: a drain must not race an automatic restart."""
         self.draining = True
+        if self.health_monitor is not None:
+            self.health_monitor.stop()
         # The state sampler dies with the router.
         if self.sampler is not None:
             self.sampler.stop()
@@ -274,15 +309,39 @@ class Router:
         """One timeline sample's per-tier state: lock-free or own-locked
         in-memory reads only (load_snapshot, kv_stats, the tick ring, the
         draining flag), never the lifecycle lock a starting engine holds:
-        the sampler must keep sampling through the states it explains."""
+        the sampler must keep sampling through the states it explains.  A
+        replicated tier's entry reads the aggregate pool picture (one
+        ``kv_stats`` pass, whose per-replica breakdown the replica entries
+        reuse), its healthy and live replica counts, and each replica gets
+        an entry of its own keyed ``tier/rN``."""
         out: Dict[str, Dict[str, Any]] = {}
         breaker_snap = (self.breaker.snapshot()
                         if self.breaker is not None else {})
         for name, tier in self.tiers.items():
             st: Dict[str, Any] = dict(tier.load_snapshot())
             mgr = tier.server_manager
-            st.update(self._collect_engine_state(getattr(mgr, "_engine",
-                                                         None)))
+            items_fn = getattr(mgr, "replica_items", None)
+            if callable(items_fn):
+                agg_kv = mgr.kv_stats()
+                st.update(self._collect_engine_state(mgr, kv=agg_kv))
+                st["replica_healthy"] = int(tier.healthy_replicas())
+                mgr_by_key = {f"r{rid}": sub for rid, sub in items_fn()}
+                st["replica_count"] = len(mgr_by_key)
+                rep_kv = (agg_kv or {}).get("replicas") or {}
+                for key, engine in mgr.live_engines():
+                    rst = self._collect_engine_state(engine,
+                                                     kv=rep_kv.get(key))
+                    ss = engine.slot_stats()
+                    for k in ("queue_depth", "active_slots", "max_slots"):
+                        rst[k] = ss.get(k)
+                    sub = mgr_by_key.get(key)
+                    if sub is not None:
+                        rst["draining"] = bool(sub.draining)
+                    rst["breaker"] = tier.breaker.state(key)
+                    out[f"{name}/{key}"] = rst
+            else:
+                st.update(self._collect_engine_state(
+                    getattr(mgr, "_engine", None)))
             st["draining"] = bool(mgr.draining)
             b = breaker_snap.get(name)
             if b is not None:
@@ -290,16 +349,23 @@ class Router:
             out[name] = st
         return out
 
+    _KV_FETCH = object()      # sentinel: "read kv_stats off the engine"
+
     @staticmethod
-    def _collect_engine_state(engine) -> Dict[str, Any]:
-        """One engine's sampler fields: pool pressure and sharing, the
-        prefill backlog, the tick p50, the speculation accept ratio (once
-        a draft ran) and the profiler's per-phase p50 self-times and
-        coverage over its last 128 records.  Engines without a surface
-        (the sequential ones) contribute what they have."""
+    def _collect_engine_state(engine, kv=_KV_FETCH) -> Dict[str, Any]:
+        """One engine's (or a replica set's aggregate's) sampler fields:
+        pool pressure and sharing, the prefill backlog, the tick p50, the
+        speculation accept ratio (once a draft ran) and the profiler's
+        per-phase p50 self-times and coverage over its last 128 records.
+        Engines without a surface (the sequential ones) contribute what
+        they have.  ``kv``: a kv_stats dict read already (None: no
+        pool)."""
         st: Dict[str, Any] = {}
-        kv_fn = getattr(engine, "kv_stats", None)
-        ks = kv_fn() if callable(kv_fn) else None
+        if kv is Router._KV_FETCH:
+            kv_fn = getattr(engine, "kv_stats", None)
+            ks = kv_fn() if callable(kv_fn) else None
+        else:
+            ks = kv
         if ks:
             st["kv_free_blocks"] = ks.get("free_blocks")
             st["kv_reclaimable_blocks"] = ks.get("reclaimable_blocks")
@@ -365,13 +431,19 @@ class Router:
         """The GET /debug/trace body: every live engine's tick-phase ring
         and compile/host-sync events as one Chrome-trace JSON document.
         Tiers without a live profiler (sequential engines, profile=False)
-        contribute nothing."""
+        contribute nothing; a replicated tier has one thread per live
+        replica (``tier/rN``)."""
         by_tier: Dict[str, Dict[str, Any]] = {}
         for name, tier in self.tiers.items():
-            engine = getattr(tier.server_manager, "_engine", None)
-            prof = getattr(engine, "profiler", None)
-            if prof is not None and prof.enabled:
-                by_tier[name] = prof.snapshot()
+            mgr = tier.server_manager
+            subs = getattr(mgr, "live_engines", None)
+            engines = ([(f"{name}/{key}", eng) for key, eng in subs()]
+                       if callable(subs)
+                       else [(name, getattr(mgr, "_engine", None))])
+            for label, engine in engines:
+                prof = getattr(engine, "profiler", None)
+                if prof is not None and prof.enabled:
+                    by_tier[label] = prof.snapshot()
         return obs_profiler.chrome_trace(by_tier)
 
     def _obs_state_snapshot(self) -> Dict[str, Any]:
@@ -496,8 +568,15 @@ class Router:
 
     @staticmethod
     def _tier_affinity_probe(tier):
-        """The running engine's prefix-affinity probe (never starts one)."""
-        engine = getattr(tier.server_manager, "_engine", None)
+        """The tier's prefix-affinity probe: the replica set's best match
+        over its replicas for a replicated tier (the tier holds a prefix
+        if any replica does), else the running engine's (never starts
+        one)."""
+        mgr = tier.server_manager
+        probe = getattr(mgr, "prefix_affinity", None)
+        if callable(probe):
+            return probe
+        engine = getattr(mgr, "_engine", None)
         return getattr(engine, "prefix_affinity", None)
 
     @staticmethod

@@ -15,7 +15,12 @@ returning ``{"response": text}`` or an error dict, ``.process_stream``,
   sequential engine is serialized by the client's engine lock;
 - ``process_stream`` primes the first delta (prefill has run) before it
   returns, so setup-time failover catches real engine failures;
-- ``load_snapshot`` feeds queue-aware perf routing.
+- ``load_snapshot`` feeds queue-aware perf routing;
+- a ``FaultInjector`` (utils/faults.py) intercepts a request after
+  admission and before the engine, on both paths, and a stream it
+  scripts a kill for dies mid-stream (``maybe_break_stream``);
+- ``build_tiers`` gives a tier with ``replicas > 1`` a
+  ``ReplicatedTierClient`` (serving/replicas.py) with the same surface.
 
 The request's span tree (obs/spans.py) gets the JAX client's spans:
 ``admission``, ``engine_start`` on a lazy start, ``engine_lock_wait``
@@ -23,8 +28,7 @@ for a sequential stream, and the ``timeout_abandoned`` event; a worker
 thread re-binds the trace (``use_trace``) so the engine attaches its
 own spans to the same tree.
 
-Not ported (ROADMAP.md): device meshes, tenant quotas, fault injection
-and replicated and remote tiers.
+Not ported (ROADMAP.md): device meshes, tenant quotas and remote tiers.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..engine.inference import GenerationResult
 from ..engine.manager import EngineManager
 from ..obs import spans as obs_spans
 from ..obs.spans import current_trace, use_trace
+from ..utils.faults import FaultInjector, maybe_break_stream
 from .errors import error_dict
 from .turns import ClippedStream, clip_turn
 
@@ -221,10 +226,12 @@ class AdmissionController:
 
 
 class TierClient:
-    def __init__(self, tier: TierConfig, manager: EngineManager):
+    def __init__(self, tier: TierConfig, manager: EngineManager,
+                 fault_injector: Optional[FaultInjector] = None):
         self.tier = tier
         self.name = tier.name
         self.server_manager = manager          # the reference client's name
+        self.faults = fault_injector
         self.last_result: Optional[GenerationResult] = None
         # Bounded admission is the concurrency story; registered on the
         # manager so health() reports the queue and drain gates on it.
@@ -249,13 +256,19 @@ class TierClient:
         client's HTTP read timeout): past it the reference error shape is
         returned so Router failover and the perf failure penalty fire, and
         the abandoned worker finishes in the background (its completion
-        never overwrites ``last_result``)."""
+        never overwrites ``last_result``).  The fault intercept runs after
+        admission, so a rejected request consumes no one-shot fault."""
         trace = current_trace()
         admit_err = self._admit(trace, history)
         if admit_err is not None:
             logger.warning("tier %s admission rejected a request: %s",
                            self.name, admit_err)
             return self._admission_error(admit_err)
+        if self.faults is not None:
+            fault = self.faults.intercept(self.name)
+            if fault is not None:
+                self.admission.release()     # never reached the engine
+                return fault
 
         timeout = self.tier.request_timeout_s
         if timeout is None:
@@ -434,6 +447,11 @@ class TierClient:
                                    else time.perf_counter() - t0)
 
         try:
+            if self.faults is not None:
+                fault = self.faults.intercept(self.name)
+                if fault is not None:
+                    self.admission.release()   # never reached the engine
+                    return fault
             if not self.server_manager.is_server_running():
                 self._start_engine(trace)
             engine = self.server_manager.engine()
@@ -445,7 +463,9 @@ class TierClient:
                 clipped = ClippedStream(engine.generate_stream(history),
                                         prime_drain_chars=PRIME_DRAIN_CHARS)
                 handle_box["handle"] = clipped
-                return _PrimedStream(clipped, release=finish_admission)
+                return _PrimedStream(
+                    maybe_break_stream(self.faults, self.name, clipped),
+                    release=finish_admission)
             timeout = self.tier.request_timeout_s
             # A sequential engine's lock is its queue: this wait is the
             # streaming twin of the batched engine's queue wait.
@@ -467,7 +487,9 @@ class TierClient:
                 clipped = ClippedStream(engine.generate_stream(history),
                                         prime_drain_chars=PRIME_DRAIN_CHARS)
                 handle_box["handle"] = clipped
-                return _PrimedStream(clipped, release=release_all)
+                return _PrimedStream(
+                    maybe_break_stream(self.faults, self.name, clipped),
+                    release=release_all)
             except BaseException:
                 self._engine_lock.release()
                 raise
@@ -549,13 +571,23 @@ class _PrimedStream:
 
 
 def build_tiers(cluster: ClusterConfig, device: DeviceLike = None,
-                warmup_on_start: bool = True) -> Dict[str, TierClient]:
-    """One client per tier, each over its own EngineManager on
-    ``device`` (a registry, not classes)."""
+                warmup_on_start: bool = True,
+                fault_injector: Optional[FaultInjector] = None
+                ) -> Dict[str, TierClient]:
+    """One client per tier on ``device`` (a registry, not classes): a
+    ``TierClient`` over its own EngineManager, or for ``replicas > 1`` a
+    ``ReplicatedTierClient`` over that many.  ``fault_injector`` reaches
+    every client."""
     tiers: Dict[str, TierClient] = {}
     for tier in cluster.tiers():
+        if tier.replicas > 1:
+            from .replicas import ReplicatedTierClient
+            tiers[tier.name] = ReplicatedTierClient(
+                tier, cluster, device=device, fault_injector=fault_injector,
+                warmup_on_start=warmup_on_start, seed=cluster.seed)
+            continue
         manager = EngineManager(tier, seed=cluster.seed,
                                 warmup_on_start=warmup_on_start,
                                 device=device)
-        tiers[tier.name] = TierClient(tier, manager)
+        tiers[tier.name] = TierClient(tier, manager, fault_injector)
     return tiers

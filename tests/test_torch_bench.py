@@ -9,8 +9,9 @@ the JAX package's, and the phases on ``/stats``.
 - A headline run on the CPU over ``tiny_batched_cluster()`` (one repeat,
   2 clients, the first 4 queries, one trend repeat) through ``main``:
   all five strategies with the headline's keys, the later sections (the
-  features legs included, the flagship skipped on the CPU), exit 0 and a
-  compact last line; a section that holds an error exits 1.
+  features legs and the fleet legs included, the flagship skipped on the
+  CPU), exit 0 and a compact last line; a section that holds an error
+  exits 1.
 - The ``speculative`` and ``quant`` legs (``features_phase``) give the
   JAX package's keys on the tiny tiers, and ``flagship_phase`` with the
   tiny tiers passed in (orin with int8 weights) gives the keys the JAX
@@ -40,7 +41,7 @@ import bench as jax_bench  # noqa: E402  (the JAX package's root bench.py)
 from distributed_llm_tpu.bench import query_sets as jax_sets  # noqa: E402
 from distributed_llm_tpu.bench import tester as jax_tester  # noqa: E402
 from distributed_llm_tpu_torch import config as torch_config  # noqa: E402
-from distributed_llm_tpu_torch.bench import headline, legs  # noqa: E402
+from distributed_llm_tpu_torch.bench import fleet, headline, legs  # noqa: E402
 from distributed_llm_tpu_torch.bench import query_sets  # noqa: E402
 from distributed_llm_tpu_torch.bench import tester  # noqa: E402
 
@@ -123,6 +124,16 @@ def _synthetic_result() -> dict:
         "spec_multiturn": {"plain_followup_ttft_ms": 11.0,
                            "spec_followup_ttft_ms": 35.2,
                            "spec_followup_ttft_cost": 3.2},
+        "replica": {"closed_loop_speedup": 1.43, "speedup_ok": False,
+                    "r1": {"req_per_s": 14.2}, "r2": {"req_per_s": 20.4},
+                    "affinity_hit_retention": 1.0,
+                    "random_hit_retention": 0.875,
+                    "dilution_resident_ratio": 1.172,
+                    "sessions_affinity": {"warm_ttft_p50_ms": 7.5},
+                    "sessions_random": {"warm_ttft_p50_ms": 7.5,
+                                        "ttft_max_ms": 9.6},
+                    "sessions_r1": {"warm_ttft_p50_ms": 7.9},
+                    "outputs_identical": True},
         "tiers": {"nano": {"phases": {}}},
     }
 
@@ -134,6 +145,7 @@ def test_compact_matches_bench_py():
     assert got["mfu_prefill"] == 0.31 and got["hbm_util_decode"] == 0.41
     assert set(got["per_strategy"]) == set(headline.STRATEGIES)
     assert got["spill"]["warm_hit_rate"] == 1.0 and got["spill"]["ident"]
+    assert got["replica"]["speedup"] == 1.43 and got["replica"]["ident"]
     partial = {"metric": headline.METRIC, "value": 0.0}
     assert headline.compact(partial) == jax_bench.compact(partial)
 
@@ -198,6 +210,15 @@ def cpu_run(tmp_path_factory):
                 decode_batch=2, decode_steps_per_tick=1, max_new_tokens=64,
                 prefill_buckets=(16, 64, 1792), enable_prefix_cache=False),
             **k))
+        # The fleet legs cut to one chaos strategy and a few replica
+        # requests (tests/test_torch_fleet_legs.py holds the legs
+        # themselves).
+        real_chaos = fleet.chaos_phase
+        mp.setattr(fleet, "chaos_phase", lambda *a, **k: real_chaos(
+            *a, strategies=("heuristic",), **k))
+        real_replica = fleet.replica_phase
+        mp.setattr(fleet, "replica_phase", lambda *a, **k: real_replica(
+            *a, n_clients=2, n_requests=4, k_sessions=2, **k))
         import io
         from contextlib import redirect_stdout
         buf = io.StringIO()
@@ -248,11 +269,17 @@ def test_headline_runs_on_the_cpu(cpu_run):
         assert result[leg]["outputs_identical"] is True, leg
     assert result["openloop"]["knee_req_per_s"] > 0
     assert "overload" in result["openloop"]
+    # The fleet legs, in JAX's order after the trend, profile and
+    # features sections.
+    assert result["chaos"]["heuristic"]["hung_clients"] == 0
+    assert result["pressure"]["drain"]["finished_ok"] == 2
+    assert result["replica"]["outputs_identical"] is True
+    assert result["perf_steering"]["verdict"]["exploration_pays"] is True
     assert headline.section_errors(result) == []
     assert json.loads(lines[-1]) == headline.compact(result)
     compact = headline.compact(result)
     assert {"openloop", "skew_tick_ratio", "spec", "mixed",
-            "shared"} <= set(compact)
+            "shared", "replica"} <= set(compact)
 
 
 def test_headline_exits_1_when_a_section_fails(monkeypatch, tmp_path):

@@ -194,6 +194,6 @@ def test_decode_error_fails_slot_but_scheduler_survives():
 
 def test_engine_refuses_unported_features():
     with pytest.raises(NotImplementedError):
-        _port_engine(replicas=2)
+        _port_engine(autoscale=True)
     with pytest.raises(NotImplementedError):
         _port_engine(decode_batch=1)

@@ -654,3 +654,40 @@ def test_spill_counters_reach_the_metric_families():
     after = [fam.labels(tier).value for fam in (
         m.kv_demotions, m.kv_promotions, m.kv_promotion_races)]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def test_prefix_affinity_peeks_the_spill_tier_like_jax(f32_weights):
+    """The affinity probe counts a DEMOTED prefix, as JAX's does
+    (engine/batching.py ``prefix_affinity_tokens``): the tiny batched nano
+    with a host tier, a session's prefix evicted from the device cache
+    into the host LRU, then the session's follow-up probed on both
+    packages' engines.  The match is the same, and not 0 (the port's
+    probe read the device cache alone before)."""
+    def tier(pkg):
+        return dataclasses.replace(
+            pkg.tiny_batched_cluster().nano, model_preset=PRESET,
+            prefill_chunk_tokens=16, host_kv_bytes=64 * 1024 * 1024)
+
+    jax_engine = JB.ContinuousBatchingEngine(tier(jax_config),
+                                             params=f32_weights[0])
+    port = TB.ContinuousBatchingEngine(
+        tier(torch_config), device="cpu", params=params_from_jax(
+            torch_config.MODEL_PRESETS[PRESET], f32_weights[1]))
+    try:
+        follow_up = TURN2 + " and deltas too"
+        matches = []
+        for eng in (jax_engine, port):
+            eng.generate(TURN2)
+            while eng.prefix_cache.pop_oldest() is not None:
+                pass
+            assert eng.kv_spill.flush(10)
+            assert eng.prefix_cache.peek(
+                eng.affinity_token_ids(follow_up)) == 0
+            matches.append((eng.prefix_affinity_tokens(
+                eng.affinity_token_ids(follow_up)),
+                eng.prefix_affinity(follow_up)))
+        assert matches[1] == matches[0]
+        assert matches[1][0] > 0
+    finally:
+        jax_engine.stop()
+        port.stop()

@@ -230,3 +230,43 @@ def test_decode_launch_refuses_what_the_kernels_do_not_take(bad):
     with pytest.raises(ValueError):
         TF._decode_window(TF.flash_decode_attention, "flash_decode", q,
                           window, window, None, None, pos)
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+def test_head_dim_16_runs_padded_with_its_true_scale(kind):
+    """The tiny presets' head dim 16 reaches the contiguous-cache kernels
+    through their 64 instance (``_padded_window``): zero-padded copies of
+    q and the window, the true softmax scale, the padded columns cut off.
+    A stand-in launch computes the plain attention at the scale it is
+    given; the result equals the unpadded plain version (float32)."""
+    g = torch.Generator().manual_seed(5)
+    b, nq, nkv, d, w = 2, 4, 2, 16, 40
+    k = torch.randn(b, w, nkv, d, generator=g)
+    v = torch.randn(b, w, nkv, d, generator=g)
+    seen = {}
+    if kind == "decode":
+        q = torch.randn(b, nq, d, generator=g)
+        pos = torch.tensor([7, 39], dtype=torch.int32)
+        plain = lambda q, k, v: TA.decode_attention(q, k, v, pos)  # noqa: E731
+    else:
+        q = torch.randn(b, 5, nq, d, generator=g)
+        rows = torch.tensor([[3, 4, 5, 6, 7], [30, 31, 32, 33, 34]])
+        plain = lambda q, k, v: TA.chunk_attention(q, k, v, rows)  # noqa: E731
+
+    def launch(qp, kp, vp, scale):
+        seen.update(d=qp.shape[-1], scale=scale,
+                    zeros=bool((kp[..., d:] == 0).all()
+                               and (qp[..., d:] == 0).all()))
+        # The plain version scales by its own head dim: fold the kernel's.
+        return plain(qp * (scale / qp.shape[-1] ** -0.5), kp, vp)
+
+    got = TF._padded_window(launch, q, k, v)
+    assert seen == {"d": 64, "scale": d ** -0.5, "zeros": True}
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, plain(q, k, v), rtol=1e-5, atol=1e-6)
+    # The kernels' own head dims pass through untouched.
+    wide = torch.randn(*q.shape[:-1], 64, generator=g)
+    seen.clear()
+    TF._padded_window(launch, wide, torch.randn(b, w, nkv, 64, generator=g),
+                      torch.randn(b, w, nkv, 64, generator=g))
+    assert seen["d"] == 64 and seen["scale"] == 64 ** -0.5
