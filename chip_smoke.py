@@ -108,9 +108,10 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    prefix probes, the batched nano engine with bf16 and int8 KV, the
    ``speculative`` and ``quant`` legs on the sequential engines, the
    ``flagship`` section and the ``spec_multiturn`` leg, the engine legs
-   ``skew``, ``spec_phase``, ``mixed`` and ``shared`` and the
-   ``openloop`` leg at the JAX bench's pinned configurations, the
-   open-loop leg on a BENCH_OPENLOOP_S budget), then the
+   ``skew``, ``spec_phase``, ``mixed`` and ``shared``, the
+   ``openloop`` leg and the fleet legs at the JAX bench's pinned
+   configurations, the open-loop leg on a BENCH_OPENLOOP_S budget), then
+   the
    canonical tester once (heuristic,
    cache off, general_knowledge).
    Every strategy must serve with no concurrent error, no section hold
@@ -181,20 +182,53 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    stream finishes with no error and no re-emitted delta, its tokens
    those of an uninterrupted run or first differing at a near-tie, the
    demoted prefix promotes warm on the restarted r0
-   (``dllm_spill_reattach_total`` 1), the dead engine is collected and
-   the device memory after the restart is within FLEET_MEMORY_SLACK of
-   before; it reports ``rescue_mttr_ms`` and the new engine's programs
-   and capture seconds; (c) the bench's replica leg at nano_1b's width:
-   one ragged decode program per replica, outputs identical across
+   (``dllm_spill_reattach_total`` grows by 1), the dead engine is
+   collected and the device memory after the restart is within
+   FLEET_MEMORY_SLACK of before; it reports ``rescue_mttr_ms`` and the
+   new engine's programs and capture seconds; (c) the bench's replica
+   leg at nano_1b's width: one ragged decode program per replica,
+   outputs identical across
    replica counts and policies or every flip a near-tie.  K1, K2 and K3
    launch in each part, W1 too in (a), and no plain attention runs.
    Phase 11's bench runs the same legs (and ``pressure`` and
-   ``perf_steering``) at the JAX bench's pinned tiny configurations.
+   ``perf_steering``) at the JAX bench's pinned tiny configurations;
+17. the fleet's second half (``fleet2_phase``), four main paths, each
+   with its kernels launched and no plain attention: (a) the bench's
+   noisy leg on the bench cluster: a flooding tenant (quota
+   ``max_inflight=1, max_queued=0, weight=0.25`` on both tiers, long
+   prompts, closed loop) beside a quiet one, quotas off and on; the
+   quiet tenant's p95 solo and under flood, ``quiet_p95_ratio``,
+   ``flood_shed_precision`` and the ``dllm_tenant_*`` samples printed;
+   the sequential greedy probes through a quotas-off and a non-binding
+   quotas-on engine ``torch.equal``; K1, K2, K3 and W1 launch; (b) the
+   elastic leg on nano_1b (2 slots a replica, a host spill tier): the
+   seeded diurnal ramp under static-min, static-max and autoscaled
+   membership in [1, 2]; the scale events, goodput per replica-second
+   (one card: a cost account, not added throughput) and the flap bound
+   (no up-down-up inside a cooldown, at most 4 events); the handoff
+   sub-check's answers identical across 2 -> 1 or flips at near-ties,
+   and one ragged decode program in each replica, the one minted
+   mid-flight included; (c) the chaos2 leg on nano_1b (2 replicas, the
+   autoscaler armed, the HealthMonitor in the loop, a replica's loop
+   killed twice mid-ramp): availability >= 0.99, no cross-tier
+   failover, ``rescue_mttr_ms``, the rescue sub-check; (d) nano as a
+   remote tier (``serving/remote.py``) whose ``spawn_cmd`` starts the
+   port's ``gpu_api`` for nano_1b in a child process on the card, orin_8b
+   local: readiness polled, ``/chat`` turns and one ``/chat/stream``
+   routed to the child, each reply the in-process nano_1b's or a
+   near-tie, the hop's overhead (client TTFT less the child's), the
+   child killed, turns failing over to orin, the HealthMonitor's respawn
+   serving again (spawn-to-ready and kill-to-serving seconds); the
+   child is put down on every exit.  The bystander orin of (b) and (c)
+   is a 2-slot nano_1b: those parts route nano's short queries only.
+   Phase 11's bench runs the noisy, elastic and chaos2 legs at the JAX
+   bench's pinned tiny configurations.
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
-``legs``, ``bench``, ``fleet``) builds the kernels and runs only those phases,
+``legs``, ``bench``, ``fleet``, ``fleet2``) builds the kernels and runs
+only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
 run.
@@ -243,8 +277,8 @@ overhead, the budgets) and its per-kernel capture
 p50 TTFT, trace columns, profile section, utilization and wall time as
 another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
-as two more, the fleet's as one more (each with the card's name and
-power limit), the card's name and power
+as two more, the fleet's and the fleet's second half's as two more (each
+with the card's name and power limit), the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -3060,7 +3094,7 @@ def chat_post(base: str, path: str, body: dict) -> dict:
 
 def chat_stream(base: str, body: dict) -> dict:
     """One /chat/stream request read as it arrives: the meta event, the
-    client-side time to the first delta, and the done event."""
+    client-side time to the first delta, the done event and the text."""
     req = urllib.request.Request(base + "/chat/stream",
                                  data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -3084,7 +3118,7 @@ def chat_stream(base: str, body: dict) -> dict:
                 done = event
     require(meta is not None and done is not None and done["tokens"] > 0
             and text.strip(), f"/chat/stream incomplete: {meta} {done}")
-    return {"meta": meta, "ttft_ms": ttft_ms, "done": done}
+    return {"meta": meta, "ttft_ms": ttft_ms, "done": done, "text": text}
 
 
 def drive_chat(base: str, strategy: str, burst: int, streams: int) -> dict:
@@ -4453,9 +4487,9 @@ def fleet_rescue(torch, cluster, audit, device: str = "cuda") -> dict:
     re-emitted delta (its text is its final tokens' clipped text), each
     one's tokens equal to the reference's or first differing at a
     near-tie; the demoted prefix must promote warm on the restarted r0
-    (``dllm_spill_reattach_total`` 1); the dead engine must be collected
-    and the device memory after the restart and a collection within
-    FLEET_MEMORY_SLACK of the memory before the kill."""
+    (``dllm_spill_reattach_total`` grows by 1); the dead engine must be
+    collected and the device memory after the restart and a collection
+    within FLEET_MEMORY_SLACK of the memory before the kill."""
     from distributed_llm_tpu_torch.config import BENCHMARK_CFG
     from distributed_llm_tpu_torch.engine.paged_kv import pool_block_bytes
     from distributed_llm_tpu_torch.serving.router import Router
@@ -4505,6 +4539,14 @@ def fleet_rescue(torch, cluster, audit, device: str = "cuda") -> dict:
             t.start()
         return threads, box
 
+    # The counters live in the router's registry (here the process-global
+    # one, which other phases' routers feed too): this part reads their
+    # deltas.
+    m = router.obs.m
+    outcomes = ("sibling", "requeue", "failed")
+    reattach0 = m.spill_reattach.labels("nano").value
+    rescues0 = {o: m.replica_rescues.labels("nano", o).value
+                for o in outcomes}
     try:
         client.server_manager.start_server()
         e0 = r0.mgr._engine
@@ -4581,11 +4623,12 @@ def fleet_rescue(torch, cluster, audit, device: str = "cuda") -> dict:
                 and spill.stats()["promotions_total"] > promoted_before,
                 f"fleet rescue: the demoted prefix did not promote warm on "
                 f"the restarted r0: {spill.stats()}")
-        reattached = router.obs.m.spill_reattach.labels("nano").value
+        reattached = m.spill_reattach.labels("nano").value - reattach0
         require(reattached == 1,
-                f"fleet rescue: dllm_spill_reattach_total = {reattached}")
-        rescues = {o: router.obs.m.replica_rescues.labels("nano", o).value
-                   for o in ("sibling", "requeue", "failed")}
+                f"fleet rescue: dllm_spill_reattach_total grew by "
+                f"{reattached}")
+        rescues = {o: m.replica_rescues.labels("nano", o).value - rescues0[o]
+                   for o in outcomes}
         monitor = router.health_monitor.snapshot()
         del ref, got, ref_engine, new
         gc.collect()
@@ -4692,6 +4735,416 @@ def fleet_summary(res: dict) -> dict:
     }
 
 
+# Phase 17, the fleet's second half.  (a) The noisy leg's load window;
+# (b) the elastic leg's ramp; (c) chaos2's ramp; (d) the remote tier's
+# turns and the bound on kill-to-serving (the child imports torch, builds
+# and warms nano_1b).
+FLEET2_NOISY_LOAD_S = 2.5
+FLEET2_ELASTIC_PERIOD_S = 12.0
+FLEET2_CHAOS2_PERIOD_S = 16.0
+FLEET2_REMOTE_TURNS = 4
+FLEET2_REVIVE_S = 180.0
+TENANT_COUNTERS = ("dllm_tenant_device_time_ms_total",
+                   "dllm_tenant_kv_block_ticks_total",
+                   "dllm_tenant_rejected_total")
+TENANT_GAUGES = ("dllm_tenant_inflight", "dllm_tenant_goodput")
+
+
+def _tenant_samples() -> dict:
+    """Every ``dllm_tenant_*`` sample of the process-global registry (the
+    tier clients' quota layer and the legs' routers write there)."""
+    from distributed_llm_tpu_torch.obs import get_observability
+    reg = get_observability().metrics
+    return {name: {"/".join(k): c.value
+                   for k, c in reg.get(name).children().items()}
+            for name in TENANT_COUNTERS + TENANT_GAUGES}
+
+
+def bystander_orin(nano):
+    """The second tier of the elastic and chaos2 parts, which route only
+    nano's short queries (failover off in elastic; chaos2 must see none):
+    a 2-slot nano_1b with int8 weights in orin's place, so the four
+    routers those parts build do not each load orin_8b."""
+    return dataclasses.replace(nano, name="orin", decode_batch=2,
+                               quantize="int8", max_new_tokens=32)
+
+
+def fleet2_noisy(torch, cluster, device: str = "cuda") -> dict:
+    """Part (a): the bench's noisy leg on ``cluster`` (the bench cluster:
+    nano_1b with 8 slots and orin_8b with 4, int8 weights): the flooder's
+    quota ``max_inflight=1, max_queued=0, weight=0.25`` on both tiers, the
+    quiet tenant on the default quota, JAX's closed-loop flood beside the
+    quiet tenant's short mix with quotas off and on.  JAX's prompts are
+    short and prefill in one shot, so one long turn of the quiet tenant
+    then goes through a Router with the quotas on: orin's chunked prefill
+    (K3) on the tenant path.  Hard: the sequential greedy probes through
+    a quotas-off and a non-binding quotas-on engine give the same token
+    ids (``torch.equal``: the same batch composition on the same kernels,
+    so no near-tie allowance); no request failed but by a tenant refusal;
+    with quotas on every tenant refusal lands on the flooder and the
+    flooder is served fewer turns than with quotas off; the
+    ``dllm_tenant_*`` families gained samples for both tenants."""
+    from distributed_llm_tpu_torch.bench import elastic
+    from distributed_llm_tpu_torch.config import TenantQuota
+    from distributed_llm_tpu_torch.serving.router import Router
+
+    before = _tenant_samples()
+    out = elastic.noisy_phase(load_s=FLEET2_NOISY_LOAD_S, device=device,
+                              cluster=cluster)
+    quotas = {"flood": TenantQuota(weight=0.25, max_inflight=1,
+                                   max_queued=0)}
+    router = Router(strategy="heuristic", benchmark_mode=True,
+                    cluster=dataclasses.replace(
+                        cluster,
+                        nano=dataclasses.replace(cluster.nano,
+                                                 tenant_quotas=quotas),
+                        orin=dataclasses.replace(cluster.orin,
+                                                 tenant_quotas=quotas)),
+                    device=device)
+    try:
+        for tc in router.tiers.values():
+            tc.server_manager.start_server()
+        resp, tokens, which = router.route_query(
+            [{"role": "user", "content": "explain in detail: " + words(400)}],
+            tenant_id="quiet")
+    finally:
+        for tc in router.tiers.values():
+            tc.server_manager.stop_server()
+    out["long_turn"] = {"device": which, "tokens": tokens,
+                        "ok": bool(resp.get("ok"))}
+    require(which == "orin" and resp.get("ok"),
+            f"fleet2 noisy: the quiet tenant's long turn: {out['long_turn']}")
+    after = _tenant_samples()
+    samples = {name: {k: round(v - before[name].get(k, 0.0), 3)
+                      for k, v in after[name].items()
+                      if v != before[name].get(k, 0.0)}
+               for name in TENANT_COUNTERS}
+    samples.update({name: {k: v for k, v in after[name].items()
+                           if k.split("/")[-1] in ("quiet", "flood")}
+                    for name in TENANT_GAUGES})
+    out["tenant_samples"] = samples
+    require("error" not in out, f"fleet2 noisy: {out.get('error')}")
+    require(all(out[m]["other_errors"] == {"quiet": 0, "flood": 0}
+                for m in ("solo", "off", "on")),
+            f"fleet2 noisy: failures other than tenant refusals: "
+            f"{ {m: out[m]['other_errors'] for m in ('solo', 'off', 'on')} }")
+    require(out["outputs_identical"] is True,
+            "fleet2 noisy: quotas off and on gave different tokens")
+    rej = out["on"]["tenant_rejected"]
+    require(rej["flood"] > 0 and rej["quiet"] == 0,
+            f"fleet2 noisy: quota refusals {rej}")
+    require(out["on"]["quiet_served"] > 0 and out["on"]["flood_served"] > 0,
+            f"fleet2 noisy: {out['on']}")
+    # The in-flight cap binds: one seat a tier serves fewer flood turns
+    # than the unbounded closed loop.
+    require(out["on"]["flood_served"] < out["off"]["flood_served"],
+            f"fleet2 noisy: the flood's cap did not bind: on "
+            f"{out['on']['flood_served']}, off {out['off']['flood_served']}")
+    billed = {k.split("/")[-1]
+              for k in samples["dllm_tenant_device_time_ms_total"]}
+    shed = {k.split("/")[-1] for k in samples["dllm_tenant_rejected_total"]}
+    require({"quiet", "flood"} <= billed and shed == {"flood"},
+            f"fleet2 noisy: tenant samples {samples}")
+    return out
+
+
+def fleet2_elastic(torch, nano, cluster, device: str = "cuda") -> dict:
+    """Part (b): the bench's elastic leg on nano_1b (2 slots a replica, 8
+    decode steps a tick, 48-token generations, a 64-block host spill
+    tier): JAX's diurnal ramp (``bench/scenarios.py``) under static-min,
+    static-max and autoscaled membership in [1, 2] through the Router and
+    ``/chat``.  Hard: the flap bound (no up-down-up inside one cooldown,
+    at most 4 effective events: 2 an inflection), the handoff sub-check
+    (scale to 2, then down to 1 with the victim's parked prefixes demoted
+    and handed to the survivor: the same prompts give the same tokens, or
+    flip at a near-tie), and one ragged decode program in each replica,
+    the one minted mid-flight included.  One card: the replicas share it,
+    so replica-seconds are a cost account, not added throughput."""
+    from distributed_llm_tpu_torch.bench import elastic
+    from distributed_llm_tpu_torch.engine.paged_kv import pool_block_bytes
+
+    blk = pool_block_bytes(nano.model(), nano.kv_block_size,
+                           nano.kv_quantize)
+    tier = dataclasses.replace(nano, decode_batch=2, host_kv_bytes=64 * blk)
+    out = elastic.elastic_phase(
+        period_s=FLEET2_ELASTIC_PERIOD_S, device=device,
+        cluster=dataclasses.replace(cluster, nano=tier,
+                                    orin=bystander_orin(nano)),
+        tie_check=tie_checker(torch))
+    require("error" not in out, f"fleet2 elastic: {out.get('error')}: "
+            f"{out.get('handoff')}")
+    programs = out["handoff"]["decode_programs_per_replica"]
+    require(len(programs) == 2 and all(
+        p["compiled"] == 1 and p["gauge"] == 1.0 for p in programs.values()),
+        f"fleet2 elastic: decode programs {programs}")
+    require(out["single_device"] is True and out["flap_count"] == 0
+            and out["scale_events"] <= 4, f"fleet2 elastic: {out}")
+    return out
+
+
+def fleet2_chaos2(torch, nano, cluster, device: str = "cuda") -> dict:
+    """Part (c): the bench's chaos2 leg on nano_1b: 2 replicas of 8
+    slots, the autoscaler armed in [1, 2], the HealthMonitor in the loop,
+    the scheduler loop of a live replica killed (``crash_replica_engine``)
+    at 35% and 65% of the ramp.  Hard (JAX's bars): availability >= 0.99,
+    no cross-tier failover, no captured request failed; and the kills
+    captured work that a sibling or the rebuilt replica resumed; the rescue
+    sub-check's rescued stream equals the uninterrupted run (or flips at a
+    near-tie) and the demoted prefix promotes warm on the rebuilt
+    engine."""
+    from distributed_llm_tpu_torch.bench import elastic
+
+    out = elastic.chaos2_phase(
+        period_s=FLEET2_CHAOS2_PERIOD_S, device=device,
+        cluster=dataclasses.replace(cluster, nano=nano,
+                                    orin=bystander_orin(nano)),
+        tier=nano, tie_check=tie_checker(torch))
+    require("error" not in out, f"fleet2 chaos2: {out.get('error')}: "
+            f"{out.get('subcheck')}")
+    require(out["availability"] >= 0.99 and out["failovers"] == 0
+            and len(out["kills"]) == 2, f"fleet2 chaos2: {out}")
+    rescued = out["rescues"]
+    require(rescued["failed"] == 0
+            and rescued["sibling"] + rescued["requeue"] > 0,
+            f"fleet2 chaos2: the kills rescued no captured request: "
+            f"{rescued}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _reply_check(torch, engine, tier, msg: str, got: str) -> dict:
+    """A remote reply against the in-process engine's greedy reply to the
+    same single-turn history: identical text, or the first difference a
+    near-tie (the remote text re-encoded: its token ids do not cross the
+    wire).  Uncounted."""
+    from distributed_llm_tpu_torch.engine.inference import prepare_prompt
+    from distributed_llm_tpu_torch.serving.turns import clip_turn
+    hist = [{"role": "user", "content": msg}]
+    got = clip_turn(got)             # a stream's deltas keep the lead space
+    with uncounted():
+        res = engine.generate(hist)
+        out = {"identical": clip_turn(res.text) == got}
+        if not out["identical"]:
+            ids, _ = prepare_prompt(engine.tokenizer, hist,
+                                    tier.prefill_buckets,
+                                    engine.cfg.max_seq_len,
+                                    tier.max_new_tokens)
+            out.update(near_tie(torch, engine, ids, list(res.token_ids),
+                                list(engine.tokenizer.encode(
+                                    got, add_bos=False))))
+    return out
+
+
+def fleet2_remote(torch, cluster, device: str = "cuda") -> dict:
+    """Part (d): nano as a remote tier behind the Router, orin local
+    (``cluster``: the Router's default cluster, the one the child serves:
+    on the card the bench cluster, orin_8b with int8 weights).  The
+    Router's nano tier starts the child with ``spawn_cmd =
+    (sys.executable, "-m", "distributed_llm_tpu_torch.serving.gpu_api",
+    "--tier", "nano", "--port", P)``: nano_1b on the card in its own
+    process, polled for readiness (spawn-to-ready timed).
+    FLEET2_REMOTE_TURNS ``/chat`` turns route to nano and one
+    ``/chat/stream`` streams through the remote SSE; each reply equals an
+    in-process nano_1b's at the same configuration (uncounted), or first
+    differs at a near-tie.  The ``stats`` extension carries the child's
+    TTFT: the hop's overhead is the client's TTFT of the stream less the
+    child's.  A long turn routes to orin (a chunked prefill).  Then the
+    child is killed: turns fail over to orin, the HealthMonitor (every
+    FLEET_HEALTH_S) finds the remote dead and respawns it through
+    ``start_server``, and a turn routed to nano is served again
+    (kill-to-serving timed).  The child is put down on every exit.  The
+    kernels counted are the parent's, orin's (K1, K2, K3, W1): the child's
+    launches cannot be counted from here; its ``/query`` path is the one
+    phases 4-6 check."""
+    from distributed_llm_tpu_torch.config import BENCHMARK_CFG
+    from distributed_llm_tpu_torch.engine.manager import EngineManager
+    from distributed_llm_tpu_torch.serving.app import create_app
+    from distributed_llm_tpu_torch.serving.router import Router
+
+    port = _free_port()
+    spawn_cmd = (sys.executable, "-m",
+                 "distributed_llm_tpu_torch.serving.gpu_api", "--tier",
+                 "nano", "--port", str(port))
+    if device != "cuda":
+        spawn_cmd += ("--device", device)
+    local = cluster.nano
+    remote_nano = dataclasses.replace(
+        local, endpoint=f"http://127.0.0.1:{port}", spawn_cmd=spawn_cmd)
+    router = Router(strategy="heuristic", benchmark_mode=True,
+                    cluster=dataclasses.replace(cluster, nano=remote_nano),
+                    device=device,
+                    config=dict(BENCHMARK_CFG, enable_health_monitor=True,
+                                health_interval_s=FLEET_HEALTH_S))
+    remote = router.tiers["nano"]
+    mgr = remote.server_manager
+    ref_mgr = EngineManager(local, seed=cluster.seed, device=device)
+    out: dict = {"spawn_cmd": ["python"] + list(spawn_cmd[1:])}
+    topics = ("a river", "a lake", "a cloud", "snow", "a tide", "a valley")
+    try:
+        t0 = time.perf_counter()
+        mgr.start_server()
+        out["spawn_to_ready_s"] = round(time.perf_counter() - t0, 3)
+        router.tiers["orin"].server_manager.start_server()
+        with uncounted():
+            ref_mgr.start_server()
+        engine = ref_mgr.engine()
+        with http_served(create_app(router=router)) as base:
+            checks = []
+            for i, topic in enumerate(topics[:FLEET2_REMOTE_TURNS]):
+                msg = f"remote turn {i}: what is {topic}?"
+                got = chat_post(base, "/chat", {"message": msg,
+                                                "strategy": "heuristic",
+                                                "session_id": f"remote-{i}"})
+                require(got["device"] == "nano",
+                        f"fleet2 remote: turn {i} went to {got['device']}")
+                checks.append({"message": msg, **_reply_check(
+                    torch, engine, local, msg, got["reply"])})
+            out["child_ttft_ms"] = remote.last_result.ttft_ms
+            msg = "remote stream: what is a delta?"
+            stream = chat_stream(base, {"message": msg,
+                                        "strategy": "heuristic",
+                                        "session_id": "remote-stream"})
+            require(stream["meta"]["device"] == "nano",
+                    f"fleet2 remote: the stream went to {stream['meta']}")
+            checks.append({"message": msg, "stream": True, **_reply_check(
+                torch, engine, local, msg, stream["text"])})
+            child_ttft = stream["done"].get("ttft_ms") or 0.0
+            out["stream"] = {"client_ttft_ms": stream["ttft_ms"],
+                             "child_ttft_ms": child_ttft,
+                             "tokens": stream["done"]["tokens"],
+                             "hop_overhead_ms": stream["ttft_ms"] - child_ttft}
+            out["replies"] = len(checks)
+            out["replies_identical"] = sum(c["identical"] for c in checks)
+            out["flips"] = [c for c in checks if not c["identical"]]
+            require(all(c.get("near_tie") for c in out["flips"]),
+                    f"fleet2 remote: replies differ beyond a near-tie: "
+                    f"{out['flips']}")
+            # A long turn: heuristic routes it to orin, which prefills it
+            # in chunks.
+            got = chat_post(base, "/chat", {
+                "message": "explain in detail: " + words(400),
+                "strategy": "heuristic", "session_id": "remote-long"})
+            require(got["device"] == "orin",
+                    f"fleet2 remote: the long turn went to {got['device']}")
+            # Kill the child: failover to orin, the monitor's respawn,
+            # nano serving again.
+            proc = mgr._proc
+            require(proc is not None and proc.poll() is None,
+                    "fleet2 remote: no live child to kill")
+            proc.kill()
+            proc.wait(timeout=30)
+            t_kill = time.perf_counter()
+            failed_over = 0
+            served_again = False
+            while time.perf_counter() - t_kill < FLEET2_REVIVE_S:
+                got = chat_post(base, "/chat", {
+                    "message": f"after the kill {failed_over}: what is "
+                               "rain?", "strategy": "heuristic",
+                    "session_id": f"revive-{failed_over}"})
+                if got["device"] == "nano":
+                    served_again = True
+                    break
+                require(got["device"] == "orin" and got["reply"],
+                        f"fleet2 remote: no answer after the kill: {got}")
+                failed_over += 1
+                time.sleep(0.5)
+            out["kill_to_serving_s"] = round(time.perf_counter() - t_kill, 3)
+            out["failed_over_turns"] = failed_over
+            require(served_again and mgr._proc is not None
+                    and mgr._proc is not proc,
+                    f"fleet2 remote: the child was not respawned and "
+                    f"serving within {FLEET2_REVIVE_S:.0f} s: {out}")
+            out["monitor_restarts"] = dict(router.health_monitor._restarts)
+            stats = json.loads(http_get(base, "/stats"))
+            out["stats_nano_ok"] = stats["tiers"]["nano"].get("ok")
+    finally:
+        try:
+            router.drain(timeout_s=10.0)
+        finally:
+            mgr.stop_server()
+            ref_mgr.stop_server()
+    require(mgr._proc is None, "fleet2 remote: the child outlived the phase")
+    return out
+
+
+def fleet2_phase(torch, nano, orin, *, device: str = "cuda", cluster=None):
+    """Phase 17, the fleet's second half, four main paths (``_fleet_part``
+    each: counts reset and read, its kernels launched, no plain
+    attention): (a) ``fleet2_noisy`` on ``cluster`` (default the Router's
+    default cluster, on the card the bench cluster; K1, K2, K3, W1), (b)
+    ``fleet2_elastic`` and (c) ``fleet2_chaos2`` on ``nano`` (K1, K2,
+    K3), (d) ``fleet2_remote`` on ``cluster`` (orin's K1, K2, K3, W1).
+    Returns (numbers by part, launches summed over the parts)."""
+    from distributed_llm_tpu_torch.serving.router import default_cluster
+
+    on_card = device == "cuda"
+    cluster = cluster or default_cluster(device)
+    base = ("ragged_decode", "flash_causal", "paged_chunk")
+    w8 = ("w8_matmul",) if cluster.orin.quantize == "int8" else ()
+    parts = {
+        "noisy": (lambda audit: fleet2_noisy(torch, cluster, device),
+                  base + w8),
+        "elastic": (lambda audit: fleet2_elastic(torch, nano, cluster,
+                                                 device), base),
+        "chaos2": (lambda audit: fleet2_chaos2(torch, nano, cluster,
+                                               device), base),
+        "remote": (lambda audit: fleet2_remote(torch, cluster, device),
+                   base + w8),
+    }
+    out = {}
+    total = {name: 0 for name in kernel_wrappers()}
+    for name, (run, expect) in parts.items():
+        out[name], launches = _fleet_part(torch, name, run, expect, on_card)
+        for k, n in launches.items():
+            total[k] += n
+    return out, total
+
+
+def fleet2_summary(res: dict) -> dict:
+    """Phase 17's card numbers for the printed line."""
+    nz, el, c2, rm = (res["noisy"], res["elastic"], res["chaos2"],
+                      res["remote"])
+    return {
+        "noisy": {k: nz.get(k) for k in (
+            "quiet_p95_ratio", "flood_shed_precision", "outputs_identical",
+            "tenant_samples", "long_turn", "wall_s")}
+        | {m: {k: nz[m].get(k) for k in (
+            "quiet_served", "flood_served", "quiet_p95_ms", "flood_p95_ms",
+            "quiet_p95_ratio", "tenant_rejected")}
+           for m in ("solo", "off", "on")},
+        "elastic": {k: el.get(k) for k in (
+            "single_device", "capacity_req_per_s", "schedule",
+            "goodput_per_replica_s", "goodput_vs_max", "gprs_vs_max",
+            "goodput_ok", "gprs_ok", "scale_events", "flap_count",
+            "outputs_identical", "wall_s")}
+        | {"events": el["auto"].get("events"),
+           "replica_s": {m: el[m].get("replica_s")
+                         for m in ("static_min", "static_max", "auto")},
+           "gprs": {m: el[m].get("goodput_per_replica_s")
+                    for m in ("static_min", "static_max", "auto")},
+           "handoff": {k: el["handoff"].get(k) for k in (
+               "victim", "demoted_entries", "handed_off", "identical",
+               "decode_programs_per_replica", "flips")}},
+        "chaos2": {k: c2.get(k) for k in (
+            "availability", "rescue_mttr_ms", "failovers", "requests",
+            "kills", "rescues", "monitor_restarts",
+            "p50_ttft_ms_under_kills", "outputs_identical", "warm_hit",
+            "single_device", "wall_s")}
+        | {"subcheck": {k: c2["subcheck"].get(k) for k in (
+            "rescue_ms", "outcome", "identical", "warm_hit", "flip")}},
+        "remote": {k: rm.get(k) for k in (
+            "spawn_cmd", "spawn_to_ready_s", "child_ttft_ms", "stream",
+            "replies", "replies_identical", "flips", "kill_to_serving_s",
+            "failed_over_turns", "monitor_restarts", "wall_s")},
+    }
+
+
 # The late phases, by name: each (torch, nano tier, orin tier) ->
 # (numbers, launches by kernel).
 def _seq(tier, **kw):
@@ -4740,6 +5193,7 @@ LATE_PHASES = {
         torch, expect=("ragged_decode", "flash_causal", "paged_chunk")),
     "legs": lambda torch, nano, orin: legs_phase(torch, nano, orin),
     "fleet": lambda torch, nano, orin: fleet_phase(torch, nano, orin),
+    "fleet2": lambda torch, nano, orin: fleet2_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -4896,6 +5350,19 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
             f"bench replica section: {result['replica']}")
     require("verdict" in result["perf_steering"],
             f"bench perf_steering section: {result['perf_steering']}")
+    # The tenant and autoscaler legs (their hard invariants are section
+    # errors, checked above): each ran and served.
+    noisy, elastic_sec, chaos2 = (result["noisy"], result["elastic"],
+                                  result["chaos2"])
+    require(noisy.get("outputs_identical") is True
+            and (noisy.get("on") or {}).get("quiet_served", 0) > 0,
+            f"bench noisy section: {noisy}")
+    require(elastic_sec.get("flap_count") == 0
+            and (elastic_sec.get("auto") or {}).get("arrivals", 0) > 0,
+            f"bench elastic section: {elastic_sec}")
+    require(chaos2.get("availability", 0) >= 0.99
+            and chaos2.get("failovers") == 0,
+            f"bench chaos2 section: {chaos2}")
     # The spec_multiturn leg: both engines' follow-up TTFT and the cost.
     require(all(result["spec_multiturn"].get(k, 0) > 0 for k in (
         "plain_followup_ttft_ms", "spec_followup_ttft_ms",
@@ -4952,7 +5419,8 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         **{leg: result[leg] for leg in ("skew", "spec_phase", "mixed",
                                         "shared", "openloop", "chaos",
                                         "pressure", "replica",
-                                        "perf_steering")},
+                                        "perf_steering", "noisy",
+                                        "elastic", "chaos2")},
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
@@ -5016,7 +5484,8 @@ def main() -> None:
                 json.dump(numbers, f, indent=1, default=str)
             log(json.dumps({name: (leg_summary(numbers) if name in (
                 "legs", "bench") else fleet_summary(numbers)
-                if name == "fleet" else numbers), "card": card,
+                if name == "fleet" else fleet2_summary(numbers)
+                if name == "fleet2" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -5107,8 +5576,10 @@ def main() -> None:
     # and the open-loop leg at full width.
     # 16. The fleet: chaos on the bench cluster, a crashed replica rescued,
     # the replica leg at nano_1b's width.
+    # 17. The fleet's second half: tenants on the bench cluster, elastic
+    # membership and chaos2 on nano_1b, a remote nano tier.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
-                 "legs", "fleet"):
+                 "legs", "fleet", "fleet2"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
@@ -5227,7 +5698,16 @@ def main() -> None:
                 "closed_loop_speedup", "speedup_ok",
                 "affinity_hit_retention", "random_hit_retention",
                 "dilution_resident_ratio", "outputs_identical", "flips")},
-            "perf_steering": bench["perf_steering"]["verdict"]},
+            "perf_steering": bench["perf_steering"]["verdict"],
+            "noisy": {k: bench["noisy"].get(k) for k in (
+                "quiet_p95_ratio", "flood_shed_precision",
+                "outputs_identical")},
+            "elastic": {k: bench["elastic"].get(k) for k in (
+                "goodput_per_replica_s", "gprs_vs_max", "goodput_vs_max",
+                "scale_events", "flap_count", "outputs_identical")},
+            "chaos2": {k: bench["chaos2"].get(k) for k in (
+                "availability", "rescue_mttr_ms", "failovers",
+                "outputs_identical", "warm_hit")}},
         "admission": bench["admission"]}}))
     log(json.dumps({"card": card, "pressure": {
         name: {k: late[name][k] for k in (
@@ -5265,6 +5745,8 @@ def main() -> None:
     log(json.dumps({"card": card, "legs": leg_summary(late["legs"]),
                     "bench_legs": leg_summary(bench)}))
     log(json.dumps({"card": card, "fleet": fleet_summary(late["fleet"])}))
+    log(json.dumps({"card": card, "fleet2": fleet2_summary(late["fleet2"])},
+                   default=str))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

@@ -4,8 +4,8 @@
 Counterparts of the root ``bench.py``'s ``chaos_phase`` (:753, with
 ``_mttr_s`` :734), ``pressure_phase`` (:874), ``replica_phase`` (:2274)
 and ``perf_steering_phase`` (:3619), with their keys and verdicts, and of
-``_chaos2_rescue_subcheck`` (:2951) as a function of its own (its leg,
-``chaos2_phase``, waits for the autoscaler):
+``_chaos2_rescue_subcheck`` (:2951), which ``bench/elastic.py``'s
+``chaos2_phase`` runs:
 
 - ``chaos_phase``: closed-loop clients under a scripted nano flap schedule
   (utils/faults.py), once per routing strategy: availability, MTTR, p50
@@ -671,6 +671,7 @@ def _chaos2_rescue_subcheck(base_cl, tier, beat=lambda: None, device=None,
     serve a warm promotion (``warm_hit``), not a cold prefill.  With
     ``tie_check`` a divergence is judged (``flip``) instead of failing
     outright."""
+    from ..engine.inference import trim_at_eos
     from ..engine.paged_kv import pool_block_bytes
     from ..serving.replicas import ReplicatedTierClient
     from ..utils.faults import crash_replica_engine
@@ -679,7 +680,9 @@ def _chaos2_rescue_subcheck(base_cl, tier, beat=lambda: None, device=None,
                            tier.kv_quantize)
     s_tier = dataclasses.replace(
         tier, replicas=2, enable_prefix_cache=True,
-        prefix_cache_entries=8, prefill_chunk_tokens=16,
+        prefix_cache_entries=8,
+        # JAX's 16 on its 16-token blocks: one block a chunk.
+        prefill_chunk_tokens=tier.kv_block_size,
         host_kv_bytes=blk * 64, max_new_tokens=32)
     warm_prompt = "session warm tell me about rivers in one sentence"
     live_prompt = "session live tell me about mountains in one sentence"
@@ -727,12 +730,22 @@ def _chaos2_rescue_subcheck(base_cl, tier, beat=lambda: None, device=None,
             if tok is None:
                 break
             full.append(tok)
+        # The stream carries the EOS the engine emitted, as its last
+        # token; the results' token ids stop before it.
+        tk = sibling.mgr._engine.tokenizer
+        raw, full = full, trim_at_eos(full, tk.eos_id, tk.pad_id)
         want = list(ref.token_ids)
-        out["identical"] = (full == want
+        out["identical"] = (full == want and len(raw) - len(full) <= 1
                             and list(req.result.token_ids) == want)
         if not out["identical"]:
+            res_ids = list(req.result.token_ids)
+            out["diverged"] = {
+                "at": next((i for i, (a, b) in enumerate(zip(full, want))
+                            if a != b), min(len(full), len(want))),
+                "stream_len": len(full), "result_len": len(res_ids),
+                "want_len": len(want), "stream_is_result": full == res_ids}
             flip = None
-            if tie_check is not None and full == list(req.result.token_ids):
+            if tie_check is not None and full == res_ids:
                 flip = tie_check(sibling.mgr._engine,
                                  sibling.mgr._engine.affinity_token_ids(
                                      live_prompt), want, full)

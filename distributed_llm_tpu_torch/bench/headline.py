@@ -35,6 +35,9 @@ reuse on the orin tier), the fault legs of ``bench/fleet.py`` on the
 pinned tiny tiers, ``chaos`` (availability, MTTR and TTFT under a
 scripted nano flap schedule, per strategy) and ``pressure`` (the same
 under block starvation, a replay-identity check and a drain epilogue),
+``noisy`` (``bench/elastic.py``: a flooding tenant beside a quiet one,
+tenant quotas off and on: the quiet tenant's p95 ratio, the shed
+precision, quotas-off identity),
 ``continuous_batching`` (one batched nano engine,
 concurrent against sequential, and its int8-KV leg), the engine legs
 of ``bench/legs.py`` at the JAX bench's pinned configurations: ``skew``
@@ -48,7 +51,12 @@ self-time table, coverage, attribution conservation, the cost ledger's
 head and a Chrome-trace artifact, ``BENCH_profile_trace.json``),
 ``replica`` (``bench/fleet.py``: one engine against two replicas of the
 tiny nano tier, scaling, affinity against random dispatch, one decode
-program per replica, identical outputs), ``spill``
+program per replica, identical outputs), ``elastic`` and ``chaos2``
+(``bench/elastic.py``: a seeded diurnal ramp under static and autoscaled
+membership, goodput per replica-second, the flap bound and the
+scale-down handoff; then replica kills mid-ramp with the HealthMonitor
+and the autoscaler armed, availability, rescue MTTR and no cross-tier
+failover), ``spill``
 (the host KV spill tier on the tiny nano tier with a 20-block pool: 16
 sessions populated then revisited with the spill OFF and at a small and
 a large host budget; ``warm_hit_rate`` per mode, the co-tenant's
@@ -85,7 +93,6 @@ CPU too, at its full 1B and 8B sizes), ``--host-kv-bytes``
 (``DLLM_HOST_KV_BYTES``, for the sweep cluster's tiers).
 
 Not here, each waiting for the feature it measures (ROADMAP.md A1):
-``chaos2`` and ``elastic`` (the autoscaler), ``noisy`` (tenants),
 ``multichip`` (tensor parallelism), ``tier_quality`` (the training
 package's evaluation) and ``dispatch_provenance`` / ``hw_dispatch`` (the port has no dispatch
 table).  Nor the JAX bench's accelerator probe, its fall-back to
@@ -284,6 +291,23 @@ def compact(result: dict) -> dict:
         out["budget"] = {"budget_s": bud.get("budget_s"),
                          "repeats": bud.get("repeats"),
                          "scaled": bool(bud.get("scaled"))}
+    nz = result.get("noisy")
+    if isinstance(nz, dict) and not nz.get("skipped"):
+        # The quiet tenant's under-flood over solo p95 with quotas ON and
+        # OFF, the tenant-shaped shed precision, both quiet p95s and the
+        # quotas-off identity verdict.
+        cm = {k: v for k, v in {
+            "p95_ratio_on": nz.get("quiet_p95_ratio"),
+            "p95_ratio_off": (nz.get("off") or {}).get("quiet_p95_ratio"),
+            "shed_precision": nz.get("flood_shed_precision"),
+            "quiet_p95_on": (nz.get("on") or {}).get("quiet_p95_ms"),
+            "quiet_p95_off": (nz.get("off") or {}).get("quiet_p95_ms"),
+            "flood_served_on": (nz.get("on") or {}).get("flood_served"),
+            "ident": nz.get("outputs_identical"),
+            "err": (nz.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["noisy"] = cm
     sk = result.get("skew")
     if isinstance(sk, dict):
         # The judged skew ratio (<= 1: the ragged tick wins) and the
@@ -417,6 +441,47 @@ def compact(result: dict) -> dict:
         }.items() if v is not None}
         if cm:
             out["replica"] = cm
+    el = result.get("elastic")
+    if isinstance(el, dict) and not el.get("skipped"):
+        # The autoscaled goodput per replica-second and its ratios to
+        # static-max, the acceptance pair, the effective scale events and
+        # flaps, the per-mode gprs and the handoff sub-check.
+        cm = {k: v for k, v in {
+            "gprs": el.get("goodput_per_replica_s"),
+            "gprs_vs_max": el.get("gprs_vs_max"),
+            "goodput_vs_max": el.get("goodput_vs_max"),
+            "goodput_ok": el.get("goodput_ok"),
+            "gprs_ok": el.get("gprs_ok"),
+            "events": el.get("scale_events"),
+            "flaps": el.get("flap_count"),
+            "gprs_min": (el.get("static_min")
+                         or {}).get("goodput_per_replica_s"),
+            "gprs_max": (el.get("static_max")
+                         or {}).get("goodput_per_replica_s"),
+            "handoff": (el.get("handoff") or {}).get("handed_off"),
+            "ident": el.get("outputs_identical"),
+            "err": (el.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["elastic"] = cm
+    c2 = result.get("chaos2")
+    if isinstance(c2, dict) and not c2.get("skipped"):
+        # Availability under replica kills, the rescue MTTR, cross-tier
+        # failovers (bound 0), the rescued count and the sub-check's
+        # identity and warm-hit verdicts.
+        cm = {k: v for k, v in {
+            "avail": c2.get("availability"),
+            "mttr": c2.get("rescue_mttr_ms"),
+            "failovers": c2.get("failovers"),
+            "rescued": ((c2.get("rescues") or {}).get("sibling", 0)
+                        + (c2.get("rescues") or {}).get("requeue", 0)
+                        if c2.get("rescues") is not None else None),
+            "ident": c2.get("outputs_identical"),
+            "warm": c2.get("warm_hit"),
+            "err": (c2.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["chaos2"] = cm
     strategies = result.get("per_strategy")
     if isinstance(strategies, dict):
         # t50/t95: trace-derived p50/p95 TTFT, tbt50: trace-derived p50
@@ -1522,7 +1587,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
     from ..obs import Observability
     from ..serving.router import Router, default_cluster
     from ..utils import roofline
-    from . import fleet, legs
+    from . import elastic, fleet, legs
     from .openloop import openloop_phase
     from .query_sets import query_sets
 
@@ -1761,6 +1826,9 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         dev, beat=progress.beat), 45)
     pressure = later("pressure", lambda: fleet.pressure_phase(
         dev, beat=progress.beat), 45)
+    # The tenant leg after the pressure leg, as in the JAX bench.
+    noisy = later("noisy", lambda: elastic.noisy_phase(
+        beat=progress.beat, device=dev), 60)
     batching = later("continuous_batching", lambda: concurrent_phase(
         router.cluster, dev, beat=progress.beat), 120)
     # The engine legs in the JAX bench's order and under its guards, each
@@ -1777,6 +1845,11 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         dev, beat=progress.beat), 60)
     replica = later("replica", lambda: fleet.replica_phase(
         dev, beat=progress.beat, tie_check=tie_check), 120)
+    # The autoscaler's legs after the replica leg, as in the JAX bench.
+    elastic_out = later("elastic", lambda: elastic.elastic_phase(
+        beat=progress.beat, device=dev, tie_check=tie_check), 180)
+    chaos2 = later("chaos2", lambda: elastic.chaos2_phase(
+        beat=progress.beat, device=dev, tie_check=tie_check), 120)
     spill = later("spill", lambda: spill_phase(dev, beat=progress.beat), 150)
     # The open-loop leg needs about 40 s to mean anything and leaves 30 s
     # for the sections after it: past that it is skipped, not squeezed.
@@ -1815,6 +1888,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "trend_req_per_s": trend.get("trend_req_per_s"),
         "chaos": chaos,
         "pressure": pressure,
+        "noisy": noisy,
         "continuous_batching": batching,
         "long_context": long_context,
         "orin_prefix": orin_prefix,
@@ -1824,6 +1898,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "shared": shared,
         "profile": profile,
         "replica": replica,
+        "elastic": elastic_out,
+        "chaos2": chaos2,
         "spill": spill,
         "openloop": openloop,
         "knee_req_per_s": openloop.get("knee_req_per_s"),

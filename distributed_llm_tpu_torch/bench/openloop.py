@@ -232,6 +232,19 @@ def _find_knee(sweep: List[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+def _sequential_rate(client, queries, strategy: str, beat,
+                     n_cal: int = 3) -> float:
+    """The base service rate the sweep starts from: ``n_cal`` sequential
+    edge round trips on warm engines, in requests a second."""
+    t0 = time.perf_counter()
+    for i in range(n_cal):
+        client.post("/chat", json={"message": queries[i]["query"],
+                                   "strategy": strategy,
+                                   "session_id": "ol-warm"})
+        beat()
+    return 1.0 / max((time.perf_counter() - t0) / n_cal, 1e-3)
+
+
 def openloop_phase(strategies=("heuristic", "perf"),
                    budget_s: Optional[float] = None,
                    point_s: Optional[float] = None,
@@ -284,15 +297,7 @@ def openloop_phase(strategies=("heuristic", "perf"),
                                    "strategy": strategies[0],
                                    "session_id": "ol-warm"})
         beat()
-        t0 = time.perf_counter()
-        n_cal = 3
-        for i in range(n_cal):
-            client.post("/chat", json={"message": queries[i]["query"],
-                                       "strategy": strategies[0],
-                                       "session_id": "ol-warm"})
-            beat()
-        per_req_s = max((time.perf_counter() - t0) / n_cal, 1e-3)
-        base_rate = 1.0 / per_req_s
+        base_rate = _sequential_rate(client, queries, strategies[0], beat)
         out["base_seq_req_per_s"] = round(base_rate, 3)
 
         # Point duration: fit strategies × (sweep + epilogue) into the

@@ -7,7 +7,8 @@ canonical configs (``BENCHMARK_CFG``, ``PRODUCTION_CFG``,
 cluster, the tier fields the engines, the tier clients and the router
 read (batched and sequential speculation, int8 weights, the int8 KV
 cache and pool, the dense windowed tick, admission, the context-overflow
-policy, drain), the cluster's breaker
+policy, drain, replicas, tenant quotas, the autoscaler, remote tiers),
+the cluster's breaker
 and retry fields, the nano and orin tiers of the default cluster and the
 tiny test clusters.  Fields whose feature is not ported yet are still
 declared with their JAX defaults, and a tier that asks for a non-default
@@ -157,11 +158,38 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 # (the JAX package's default).  A tier asking for anything else raises.
 _UNPORTED_DEFAULTS = {
     "tp": 1,
-    "endpoint": None,
-    "spawn_cmd": None,
-    "tenant_quotas": None,
-    "autoscale": False,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantQuota:
+    """Per-tenant isolation budgets (serving/tenants.py), per tier.
+
+    ``None`` on any field turns that criterion off for the tenant; a
+    tenant absent from ``TierConfig.tenant_quotas`` gets the registry's
+    default quota (``tenants.default_quota()``: unlimited unless the
+    caller passes limits)."""
+
+    # DWRR scheduling weight (engine/batching.py): weight 2 drains its
+    # admission lane twice as fast as weight 1 under contention.  > 0.
+    weight: float = 1.0
+    # Requests in flight at once; the next one queues against max_queued.
+    max_inflight: Optional[int] = None
+    # Requests waiting beyond max_inflight before admission rejects with
+    # the reference error shape and retry_after_s.
+    max_queued: Optional[int] = None
+    # Device-time rate budget in measured milliseconds per wall second: a
+    # token bucket debited post-paid by each finished request's
+    # device_time_ms bill.
+    device_ms_per_s: Optional[float] = None
+    # The bucket's burst ceiling in device-ms; None = 2 s of the rate.
+    device_ms_burst: Optional[float] = None
+    # Resident KV budget in refcounted blocks, billed at 1/refcount: over
+    # it, the tenant's parked prefixes evict first and its cold
+    # admissions are refused until the bill drops.
+    kv_blocks: Optional[int] = None
+    # Per-tenant speculative gamma cap (None = the tier's spec_gamma_max).
+    spec_gamma_max: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,12 +360,49 @@ class TierConfig:
     # engine, or handed to a sibling when the restart fails).  False = it
     # stops and empties with the engine.
     spill_survive_restart: bool = True
+    # Remote tier (serving/remote.py): the base URL of a ``/query`` +
+    # ``/health`` server that serves this tier.  When set, no local engine
+    # is built; the router POSTs each request there.
+    endpoint: Optional[str] = None
+    # argv that (re)starts the process serving ``endpoint`` when its
+    # /health stops answering (RemoteServerManager.start_server, and the
+    # HealthMonitor's respawn).  None = the remote is managed elsewhere.
+    spawn_cmd: Optional[Tuple[str, ...]] = None
+    # Per-tenant isolation (serving/tenants.py): tenant name ->
+    # TenantQuota.  Admission budgets (in-flight, queued, a device-time
+    # token bucket), DWRR weights, resident-KV budgets billed at
+    # 1/refcount and per-tenant gamma caps.  None = quotas off: every
+    # path is the tenant-less one, and tenant_id only reaches
+    # observability.
+    tenant_quotas: Optional[Dict[str, TenantQuota]] = None
+    # SLO-driven elastic capacity (serving/autoscaler.py): True arms a
+    # ReplicaAutoscaler on this tier, which reads the SLO goodput window,
+    # queue depth and admission sheds and moves replica membership
+    # through ReplicatedTierClient.scale_to (the Router's
+    # ``autoscale=False`` disarms every tier at once).
+    autoscale: bool = False
+    # Membership bounds (min is also the starting size).
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 4
+    # Controller cadence: one signal read and decision per interval.
+    autoscale_interval_s: float = 1.0
+    # Scale-up trigger 1: windowed SLO goodput below this fraction.
+    autoscale_goodput_floor: float = 0.5
+    # Scale-up trigger 2: queue depth per live replica above this.
+    autoscale_queue_high: float = 2.0
+    # How long a breach must persist before scale-up fires.
+    autoscale_breach_window_s: float = 3.0
+    # How long the tier must be fully idle before scale-down fires.
+    autoscale_idle_window_s: float = 10.0
+    # Per-direction cooldowns from the last membership event.
+    autoscale_up_cooldown_s: float = 5.0
+    autoscale_down_cooldown_s: float = 15.0
+    # Warm standby pool: pre-build and warm the replicas between min and
+    # max at tier start, so a scale-up publishes a warm engine and a
+    # scale-down parks the drained one.  False = build at actuation.
+    autoscale_warm_pool: bool = True
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
-    endpoint: Optional[str] = None
-    spawn_cmd: Optional[Tuple[str, ...]] = None
-    tenant_quotas: Optional[Dict[str, Any]] = None
-    autoscale: bool = False
 
     def model(self) -> ModelConfig:
         return MODEL_PRESETS[self.model_preset]
@@ -350,8 +415,8 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, remote tiers, tenant quotas,
-        the autoscaler, MoE), and ``ValueError`` for ``replicas < 1``."""
+        tier turns on (tensor parallelism, MoE), and ``ValueError`` for
+        ``replicas < 1``."""
         if self.replicas < 1:
             raise ValueError(f"tier {self.name}: replicas must be >= 1, "
                              f"got {self.replicas}")

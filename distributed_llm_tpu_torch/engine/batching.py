@@ -142,8 +142,17 @@ them), ``adopt_requests`` queues them on a sibling or the rebuilt engine,
 where ``_admit_replay`` resumes them; ``detach_spill`` and
 ``adopt_spill`` carry the host spill store across the restart.
 
-Not ported yet (ROADMAP.md A8): tenant quotas (their γ caps and victim
-policy); tensor parallelism (A10).
+Tenant quotas (``TierConfig.tenant_quotas``, serving/tenants.py): each
+request carries its tenant; arrivals drain into per-tenant lanes served by
+deficit-weighted round-robin on the quotas' weights, a tenant's γ is
+capped by its ``spec_gamma_max``, parked prefixes are tagged with their
+tenant and billed at 1/refcount (``tenant_kv_blocks``), eviction takes an
+over-budget tenant's entries first and growth preempts the most
+over-budget tenant's slot first.  With ``tenant_quotas=None`` every path
+is the tenant-less one.  ``demote_parked`` is the scale-down sweep of
+serving/replicas.py.
+
+Not ported yet (ROADMAP.md A10): tensor parallelism.
 """
 
 from __future__ import annotations
@@ -240,6 +249,9 @@ class _Request:
     # First-admission order: the victim policy picks the YOUNGEST slot,
     # and a replayed request keeps its age.
     admit_seq: int = -1
+    # Billing identity: the tenant whose quota this request draws down
+    # (None bills to the default tenant where tenant state exists).
+    tenant: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -559,6 +571,18 @@ class ContinuousBatchingEngine:
         # Scheduler-head lane: KV-pressure deferrals and cancelled
         # prefills re-admit before newer arrivals.  Scheduler thread only.
         self._head: "deque[_Request]" = deque()
+        # Per-tenant scheduling state.  None = quotas off: the queue is
+        # FIFO and every path is the tenant-less one.  On, arrivals drain
+        # into per-tenant lanes served by deficit-weighted round-robin;
+        # the head lane stays first.  Scheduler thread only.
+        self._tenant_quotas = (dict(tier.tenant_quotas)
+                               if tier.tenant_quotas is not None else None)
+        self._tenant_default_q = None
+        if self._tenant_quotas is not None:
+            from ..serving.tenants import default_quota
+            self._tenant_default_q = default_quota()
+        self._tenant_lanes: Dict[str, "deque[_Request]"] = {}
+        self._tenant_deficits: Dict[str, float] = {}
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -1021,14 +1045,24 @@ class ContinuousBatchingEngine:
         """Smallest γ bucket covering ``g``."""
         return next(b for b in self._gamma_buckets if b >= g)
 
-    def _adapt_gamma(self, ewma: float) -> int:
+    def _adapt_gamma(self, ewma: float, cap: Optional[int] = None) -> int:
         """Acceptance EWMA -> the slot's next γ: proportional, with a
         floor at 0 (plain decode) once acceptance stops paying for the
-        drafts."""
-        gmax = self.spec_gamma_max
+        drafts.  ``cap`` is the tenant's γ clamp (None = unclamped)."""
+        gmax = (self.spec_gamma_max if cap is None
+                else min(cap, self.spec_gamma_max))
         if gmax <= 0 or ewma < SPEC_EWMA_FLOOR:
             return 0
         return max(1, min(gmax, int(ewma * gmax + 0.5)))
+
+    def _tenant_gamma_cap(self, req: Optional[_Request]) -> Optional[int]:
+        """The tenant's γ clamp, or None (quotas off, or no cap)."""
+        if self._tenant_quotas is None or req is None:
+            return None
+        cap = self._tenant_quota(req.tenant).spec_gamma_max
+        if cap is None:
+            return None
+        return max(0, min(int(cap), self.spec_gamma_max))
 
     def _note_prefix_hit(self, kind: str) -> None:
         """One admission attempt's prefix-cache outcome (shared |
@@ -1129,13 +1163,56 @@ class ContinuousBatchingEngine:
 
     def _alloc_evicting(self, n_blocks: int) -> Optional[List[int]]:
         """Allocate, evicting parked prefixes (LRU) under pressure: live
-        admissions outrank parked caches.  (The JAX engine's first pass
-        over over-quota tenants' entries waits for tenants, ROADMAP A8.)"""
+        admissions outrank parked caches.  With quotas on, a first pass
+        evicts the entries of tenants over their KV block budget."""
         blocks = self.allocator.alloc(n_blocks)
+        if (self._tenant_quotas is not None and blocks is None
+                and self.prefix_cache is not None):
+            # The over-budget set is computed once before the sweep (the
+            # pop_oldest predicate runs under the cache lock).
+            over = self._overquota_parked_tenants()
+            while (blocks is None and over
+                   and self.prefix_cache.pop_oldest(
+                       match=lambda e: isinstance(e.cache, dict)
+                       and e.cache.get("tenant") in over) is not None):
+                blocks = self.allocator.alloc(n_blocks)
         while (blocks is None and self.prefix_cache is not None
                and self.prefix_cache.pop_oldest() is not None):
             blocks = self.allocator.alloc(n_blocks)
         return blocks
+
+    def _overquota_parked_tenants(self) -> set:
+        """Tenants that own tagged parked entries and are over their KV
+        block budget (quotas on)."""
+        tenants = {e.cache.get("tenant")
+                   for e in self.prefix_cache.entries_snapshot()
+                   if isinstance(e.cache, dict) and e.cache.get("tenant")}
+        over = set()
+        for t in tenants:
+            q = self._tenant_quota(t)
+            if q.kv_blocks and self.tenant_kv_blocks(t) > float(q.kv_blocks):
+                over.add(t)
+        return over
+
+    def tenant_kv_blocks(self, tenant: Optional[str]) -> float:
+        """The tenant's resident-KV bill in pool blocks, each at
+        1/refcount (a block shared k ways costs each sharer 1/k): its live
+        slots and its tagged parked entries.  An advisory cross-thread
+        read (the serving gate and the victim policy call it)."""
+        t = tenant or "default"
+        owned: List[int] = []
+        for slot in self._slots:
+            if slot is not None and (slot.request.tenant or "default") == t:
+                owned.extend(slot.blocks)
+        if self.prefix_cache is not None:
+            for e in self.prefix_cache.entries_snapshot():
+                cache = e.cache
+                if isinstance(cache, dict) and cache.get("tenant") == t:
+                    owned.extend(cache.get("blocks") or [])
+        if not owned:
+            return 0.0
+        return sum(1.0 / r if r > 0 else 1.0
+                   for r in self.allocator.refcounts(owned))
 
     # -- admission ---------------------------------------------------------
 
@@ -1161,11 +1238,14 @@ class ContinuousBatchingEngine:
             tokens, cur = list(gen), gen[-1]
             ttft_ms = req.replay_ttft_ms or 0.0
         spec = bool(self.spec and spec_ok and temp <= 0)
+        # A capped tenant starts at its cap (cap 0: no drafting).
+        cap = self._tenant_gamma_cap(req)
+        gamma0 = self.spec_gamma_max if cap is None else cap
         slot = _Slot(request=req, blocks=blocks, prompt_len=prompt_len,
                      budget=budget, temperature=temp, ttft_ms=ttft_ms,
                      tokens=tokens, prompt_ids=prompt_ids,
                      max_blocks=max_blocks, pinned_entry=pinned_entry,
-                     spec=spec, gamma=self.spec_gamma_max if spec else 0)
+                     spec=spec, gamma=gamma0 if spec else 0)
         if gen is None:
             obs_spans.add_token(req.trace)   # the prefill's token
             if req.token_queue is not None:
@@ -1843,9 +1923,11 @@ class ContinuousBatchingEngine:
         plain tick, the slot's own γ+1 chunk for a speculative round at
         bucket ``spec_gb``.  A dry pool (after evicting parked prefixes)
         first cancels the in-flight prefill, then preempts the YOUNGEST
-        slot: the freed blocks un-starve the elders and the victim replays
-        on re-admission.  A sole occupant that cannot grow finishes with
-        what it has (preempting itself would replay into the same wall)."""
+        slot (with quotas on, the most over-budget tenant's, then the
+        youngest): the freed blocks un-starve the elders and the victim
+        replays on re-admission.  A sole occupant that cannot grow finishes
+        with what it has (preempting itself would replay into the same
+        wall)."""
         bs = self.paged.block_size
         for ix in active:
             slot = self._slots[ix]
@@ -1874,22 +1956,90 @@ class ContinuousBatchingEngine:
                                     generated=len(slot.tokens))
                     self._finish(ix)
                     break
-                # (The JAX engine's tenant-quota victim order waits for
-                # tenants, ROADMAP A8.)
-                victim = max(victims,
-                             key=lambda j: self._slots[j].request.admit_seq)
+                if self._tenant_quotas is None:
+                    victim = max(victims, key=lambda j:
+                                 self._slots[j].request.admit_seq)
+                else:
+                    # The noisy tenant pays for the pressure it made:
+                    # resident bill over budget (budget-less tenants 0.0),
+                    # then youngest.
+                    bills: Dict[Optional[str], float] = {}
+
+                    def _over(j: int) -> float:
+                        t = self._slots[j].request.tenant
+                        if t not in bills:
+                            q = self._tenant_quota(t)
+                            bills[t] = (self.tenant_kv_blocks(t)
+                                        / float(q.kv_blocks)
+                                        if q.kv_blocks else 0.0)
+                        return bills[t]
+                    victim = max(victims, key=lambda j: (
+                        _over(j), self._slots[j].request.admit_seq))
                 self._preempt(victim)
                 if victim == ix:
                     break                    # the grower itself yielded
 
     def _next_request(self) -> Optional[_Request]:
-        """Head lane first, then the submission queue (FIFO)."""
+        """Head lane first, then the submission queue: FIFO with quotas
+        off, deficit-weighted round-robin over tenant lanes with them
+        on."""
         if self._head:
             return self._head.popleft()
-        try:
-            return self._queue.get_nowait()
-        except queue.Empty:
+        if self._tenant_quotas is None:
+            try:
+                return self._queue.get_nowait()
+            except queue.Empty:
+                return None
+        return self._next_request_dwrr()
+
+    def _next_request_dwrr(self) -> Optional[_Request]:
+        """Deficit-weighted round-robin: arrivals drain into per-tenant
+        FIFO lanes; each pass tops every occupied lane's deficit up by its
+        tenant's weight and serves the first lane (in sorted tenant order,
+        so the order is deterministic for one arrival interleaving) whose
+        deficit covers one request.  A lane that empties forfeits its
+        deficit."""
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            t = req.tenant or "default"
+            self._tenant_lanes.setdefault(t, deque()).append(req)
+            self._tenant_deficits.setdefault(t, 0.0)
+        occupied = sorted(t for t, lane in self._tenant_lanes.items()
+                          if lane)
+        if not occupied:
             return None
+        # Every top-up adds at least the weight floor, so a deficit
+        # reaches 1.0 within bounded passes; the fallback pop keeps the
+        # loop total for degenerate weights.
+        for _ in range(64):
+            for t in occupied:
+                if self._tenant_deficits[t] >= 1.0:
+                    self._tenant_deficits[t] -= 1.0
+                    lane = self._tenant_lanes[t]
+                    req = lane.popleft()
+                    if not lane:
+                        self._tenant_deficits[t] = 0.0
+                    return req
+            for t in occupied:
+                self._tenant_deficits[t] += self._tenant_weight(t)
+        t = occupied[0]
+        lane = self._tenant_lanes[t]
+        req = lane.popleft()
+        if not lane:
+            self._tenant_deficits[t] = 0.0
+        return req
+
+    def _tenant_quota(self, tenant: Optional[str]):
+        """The quota row of ``tenant``: the tier's map, else the default
+        quota (quotas on only)."""
+        return self._tenant_quotas.get(tenant or "default",
+                                       self._tenant_default_q)
+
+    def _tenant_weight(self, tenant: Optional[str]) -> float:
+        return max(1e-6, float(self._tenant_quota(tenant).weight))
 
     # -- completion ----------------------------------------------------------
 
@@ -1920,8 +2070,12 @@ class ContinuousBatchingEngine:
         if park and self.prefix_cache is not None and slot.prompt_ids:
             keep = -(-slot.prompt_len // self.paged.block_size)
             if 0 < keep <= len(slot.blocks):
-                parked = self.prefix_cache.put(slot.prompt_ids,
-                                               {"blocks": slot.blocks[:keep]})
+                cache: Dict[str, Any] = {"blocks": slot.blocks[:keep]}
+                if self._tenant_quotas is not None:
+                    # Tagged with its tenant, so tenant_kv_blocks bills it
+                    # and an over-budget tenant's entry evicts first.
+                    cache["tenant"] = slot.request.tenant or "default"
+                parked = self.prefix_cache.put(slot.prompt_ids, cache)
                 if parked:
                     self.allocator.free(slot.blocks[keep:])
         if not parked:
@@ -2027,7 +2181,9 @@ class ContinuousBatchingEngine:
             if slot.spec and g_i > 0:
                 slot.accept_ewma = ((1.0 - SPEC_EWMA_ALPHA) * slot.accept_ewma
                                     + SPEC_EWMA_ALPHA * k / g_i)
-                slot.gamma = self._adapt_gamma(slot.accept_ewma)
+                slot.gamma = self._adapt_gamma(
+                    slot.accept_ewma,
+                    cap=self._tenant_gamma_cap(slot.request))
                 slot.spec_drafted += g_i
                 slot.spec_accepted += k
                 drafted += g_i
@@ -2337,18 +2493,26 @@ class ContinuousBatchingEngine:
 
     def submit(self, history: History, max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
-               token_queue: Optional["queue.Queue"] = None) -> _Request:
+               token_queue: Optional["queue.Queue"] = None,
+               tenant: Optional[str] = None) -> _Request:
         self.start()
+        trace = obs_spans.current_trace()
+        if tenant is None and trace is not None:
+            # Serving path: the router stamps the tenant on the trace, so
+            # the tier client's calls bill it without a new argument.
+            tenant = trace.attrs.get("tenant")
         req = _Request(history=history, max_new_tokens=max_new_tokens,
                        temperature=temperature, token_queue=token_queue,
-                       trace=obs_spans.current_trace())
+                       trace=trace, tenant=tenant)
         self._queue.put(req)
         self._wake.set()
         return req
 
     def generate(self, history: History, max_new_tokens: Optional[int] = None,
-                 temperature: Optional[float] = None) -> GenerationResult:
-        req = self.submit(history, max_new_tokens, temperature)
+                 temperature: Optional[float] = None,
+                 tenant: Optional[str] = None) -> GenerationResult:
+        req = self.submit(history, max_new_tokens, temperature,
+                          tenant=tenant)
         req.done.wait()
         if req.error is not None:
             raise req.error
@@ -2356,11 +2520,12 @@ class ContinuousBatchingEngine:
 
     def generate_stream(self, history: History,
                         max_new_tokens: Optional[int] = None,
-                        temperature: Optional[float] = None) -> "StreamHandle":
+                        temperature: Optional[float] = None,
+                        tenant: Optional[str] = None) -> "StreamHandle":
         """Text deltas as tokens come off the shared decode loop; the final
         GenerationResult is ``.result`` once the stream is exhausted."""
         req = self.submit(history, max_new_tokens, temperature,
-                          token_queue=queue.Queue())
+                          token_queue=queue.Queue(), tenant=tenant)
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
 
         def deltas():
@@ -2383,9 +2548,10 @@ class ContinuousBatchingEngine:
         return StreamHandle(deltas(), req)
 
     def queue_depth(self) -> int:
-        """Submitted but not yet decoding (the in-flight chunked prefill
-        included)."""
-        return (self._queue.qsize() + len(self._head)
+        """Submitted but not yet decoding (the tenant lanes and the
+        in-flight chunked prefill included)."""
+        laned = sum(len(lane) for lane in list(self._tenant_lanes.values()))
+        return (self._queue.qsize() + len(self._head) + laned
                 + (1 if self._prefill is not None else 0))
 
     def pending_work(self) -> int:
@@ -2580,6 +2746,18 @@ class ContinuousBatchingEngine:
         if self.kv_spill is not None:
             best = max(best, self.kv_spill.peek(ids, max_len=cap))
         return best
+
+    def demote_parked(self) -> int:
+        """Evict every unpinned parked prefix now, each through the
+        eviction sink (a demote to the spill tier where there is one):
+        the scale-down sweep of serving/replicas.py, run before a drain
+        stops the engine's demotions.  Returns the entries evicted."""
+        if self.prefix_cache is None:
+            return 0
+        n = 0
+        while self.prefix_cache.pop_oldest() is not None:
+            n += 1
+        return n
 
     def warmup(self) -> None:
         """Build the programs before traffic that the JAX engine compiles

@@ -225,16 +225,26 @@ class PrefixCache:
         self._drop(evicted)
         return True
 
-    def pop_oldest(self) -> Optional[PrefixEntry]:
-        """Evict (after on_evict) the LRU unpinned entry, or None."""
+    def pop_oldest(self, match=None) -> Optional[PrefixEntry]:
+        """Evict (after on_evict) the LRU unpinned entry, or None.
+        ``match`` (entry -> bool) restricts the candidates: the engine's
+        per-tenant KV budgets evict over-quota tenants' entries first.
+        It runs under the lock and must not call back into this cache."""
         with self._lock:
             ix = next((i for i, e in enumerate(self._entries)
-                       if e.pins == 0), None)
+                       if e.pins == 0 and (match is None or match(e))),
+                      None)
             if ix is None:
                 return None
             entry = self._entries.pop(ix)
         self._drop([entry])
         return entry
+
+    def entries_snapshot(self) -> List[PrefixEntry]:
+        """A point-in-time copy of the entries (advisory reads: resident
+        KV billing, the scale-down victim's parked tokens)."""
+        with self._lock:
+            return list(self._entries)
 
     def reclaimable_blocks(self) -> int:
         """Blocks an eviction sweep could actually free: unpinned entries'

@@ -44,8 +44,8 @@ class Observability:
                  flight_capacity: Optional[int] = None):
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.m = ServingMetrics(self.metrics)
-        # One label bound per registry for tenant ids (the tenant
-        # families stay at zero until tenants are served).
+        # One label bound per registry for tenant ids: every
+        # dllm_tenant_* family takes its tenant label through it.
         self.tenant_labels = BoundedLabels()
         self.recorder = (flight if flight is not None
                          else FlightRecorder(

@@ -8,8 +8,9 @@ either package alike.  The serving stack's signals (queue depth, breaker
 state, admission rejects, latencies) get a typed, scrapeable shape,
 served as Prometheus text at ``GET /metrics`` (serving/app.py) and read
 by the bench (bench/headline.py) for its trace-derived columns.  The
-families of features the port does not serve yet (tenants, the
-autoscaler) are declared and stay at zero.
+tenant families get samples from the tier quota layer (serving/
+tenants.py) and the router's ``_finish_request``, the autoscaler's from
+serving/autoscaler.py.
 
 Shape notes:
 
@@ -515,8 +516,7 @@ METRIC_REGISTRY: Tuple[Tuple[str, str, str, Tuple[str, ...], str], ...] = (
      "re-attached to the rebuilt engine (spill-state survival — "
      "restart cost is warm-TTFT promotion, not cold prefill)"),
     # Elastic-capacity family: live membership (sampled from the
-    # replicated tiers) and the autoscaler's actuation decisions (not
-    # served by the port yet).
+    # replicated tiers) and the autoscaler's actuation decisions.
     ("replica_count_g", "gauge", "dllm_replica_count", ("tier",),
      "Live replica membership of the tier — static it equals "
      "TierConfig.replicas; under the autoscaler it moves between "
@@ -527,8 +527,8 @@ METRIC_REGISTRY: Tuple[Tuple[str, str, str, Tuple[str, ...], str], ...] = (
      "Autoscaler membership transitions, by direction (up|down) "
      "and the signal that fired them (goodput_floor|queue_growth"
      "|shed|idle|manual)"),
-    # Per-tenant isolation family (not served by the port yet):
-    # the measured bill and enforcement decisions per tenant.  Every
+    # Per-tenant isolation family (serving/tenants.py): the measured
+    # bill and enforcement decisions per tenant.  Every
     # ``tenant`` label value MUST pass through a BoundedLabels set
     # (64-char truncation, 256 distinct then '~overflow') — metric
     # children are permanent, so an unbounded tenant flood would

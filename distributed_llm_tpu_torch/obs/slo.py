@@ -88,8 +88,8 @@ class SLOMonitor:
         self._lock = threading.Lock()
         self._windows: Dict[Tuple[str, str], deque] = {}
         self._tier_windows: Dict[str, deque] = {}
-        # Per-tenant goodput windows (tenants are not served by the
-        # port yet: its router passes no tenant).  A feed passes
+        # Per-tenant goodput windows, fed by the router's
+        # _finish_request.  A feed passes
         # ALREADY-BOUNDED tenant labels (Observability.tenant_labels:
         # 64-char truncation, 256 distinct then '~overflow'), so this
         # dict — and the dllm_tenant_goodput gauge children it mirrors

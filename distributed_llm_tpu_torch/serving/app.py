@@ -1,6 +1,6 @@
 """The two-tier chat API, the reference contract:
 
-  POST /chat       {message, strategy, session_id} ->
+  POST /chat       {message, strategy, session_id, tenant_id} ->
                    {reply, device, reasoning, method, confidence,
                     cache_hit, tokens}
   POST /chat/stream  the same request -> SSE meta / delta / done events
@@ -19,7 +19,10 @@ goes through QueryRouter.change_strategy, so cache and perf state
 survive; each session keeps its last 10 messages, behind a lock; the
 user turn is rolled back if routing raises.  While the router drains,
 /chat and /health answer 503 with a retry hint.  A session's id keys
-its requests' cost attribution.
+its requests' cost attribution; ``tenant_id`` (at most 64 printable
+characters; absent = the ``default`` tenant) keys the tenant quotas and
+billing.  /stats carries each quota-on tier's ``tenants`` block and the
+``autoscaler`` block.
 
     python -m distributed_llm_tpu_torch.serving.app      # port 8000
 """
@@ -75,14 +78,14 @@ def create_app(router: Optional[Router] = None,
 
     @app.route("/chat", methods=["POST"])
     def chat():
-        err, turn, requested, session_id, history, snapshot = \
+        err, turn, requested, session_id, tenant_id, history, snapshot = \
             _begin_chat_turn()
         if err is not None:
             return err
 
         try:
             response_data, tokens, device = state["router"].route_query(
-                snapshot, session_id=session_id)
+                snapshot, session_id=session_id, tenant_id=tenant_id)
 
             if isinstance(response_data, dict):
                 reply = response_data.get("response", "")
@@ -125,15 +128,17 @@ def create_app(router: Optional[Router] = None,
         """One 400 shape for every input-hardening rejection (reference
         error dict, like the original missing-message branch)."""
         return ((jsonify({"error": msg}), 400),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
     def _begin_chat_turn():
         """Shared /chat + /chat/stream front half: parse AND VALIDATE the
         request, hot-swap the strategy, append the user turn.  Returns
         (error_response | None, user turn, requested, session_id,
-        history, snapshot).  Bad JSON, a non-object body, a non-string or
-        oversized message and a non-string strategy or session_id are all
-        400 with the reference error shape."""
+        tenant_id, history, snapshot).  Bad JSON, a non-object body, a
+        non-string or oversized message, a non-string strategy or
+        session_id, and a tenant_id that is empty, not a string, over 64
+        characters or holds control characters (it becomes a metric label
+        and a quota key) are all 400 with the reference error shape."""
         if getattr(state["router"], "draining", False):
             # Graceful drain: the edge stops admitting FIRST.  503 + the
             # sanctioned retry hint; in-flight requests keep finishing.
@@ -141,7 +146,7 @@ def create_app(router: Optional[Router] = None,
                 "error": "Request failed: server is draining "
                          "(graceful shutdown in progress)",
                 "retry_after_s": state["router"].drain_retry_after_s(),
-            }), 503), None, None, None, None, None)
+            }), 503), None, None, None, None, None, None)
         data = request.get_json(silent=True)
         if data is None:
             return _bad_request("Request failed: body must be valid JSON")
@@ -151,6 +156,7 @@ def create_app(router: Optional[Router] = None,
         user_input = data.get("message", "")
         requested = data.get("strategy", "hybrid")
         session_id = data.get("session_id", "default")
+        tenant_id = data.get("tenant_id", "default")
         if not isinstance(user_input, str):
             return _bad_request("Request failed: 'message' must be a "
                                 "string")
@@ -161,6 +167,15 @@ def create_app(router: Optional[Router] = None,
                                                             str):
             return _bad_request("Request failed: 'strategy' and "
                                 "'session_id' must be strings")
+        if not isinstance(tenant_id, str) or not tenant_id:
+            return _bad_request("Request failed: 'tenant_id' must be a "
+                                "non-empty string")
+        if len(tenant_id) > 64:
+            return _bad_request("Request failed: 'tenant_id' exceeds "
+                                "64 characters")
+        if any(ord(c) < 32 or ord(c) == 127 for c in tenant_id):
+            return _bad_request("Request failed: 'tenant_id' must not "
+                                "contain control characters")
         if requested == "token-counting":   # UI dropdown name
             requested = "token"
         if not user_input.strip():
@@ -175,12 +190,13 @@ def create_app(router: Optional[Router] = None,
                 except Exception as exc:
                     return ((jsonify({"error":
                                       f"Failed to switch strategy: {exc}"}),
-                             500), None, None, None, None, None)
+                             500), None, None, None, None, None, None)
             history = state["histories"].setdefault(session_id, [])
             turn = {"role": "user", "content": user_input}
             history.append(turn)
             snapshot = list(history)
-        return None, turn, requested, session_id, history, snapshot
+        return (None, turn, requested, session_id, tenant_id, history,
+                snapshot)
 
     def _rollback_user_turn(history, turn):
         """Remove THIS request's user turn by identity — popping the tail
@@ -208,14 +224,14 @@ def create_app(router: Optional[Router] = None,
         ``delta`` events as tokens decode, then ``done``; built on
         Router.route_query_stream (the sync path's decision stage,
         failover and perf feedback; no response cache)."""
-        err, turn, requested, session_id, history, snapshot = \
+        err, turn, requested, session_id, tenant_id, history, snapshot = \
             _begin_chat_turn()
         if err is not None:
             return err
 
         try:
             routed = state["router"].route_query_stream(
-                snapshot, session_id=session_id)
+                snapshot, session_id=session_id, tenant_id=tenant_id)
         except Exception as exc:
             logger.exception("stream routing failed")
             _rollback_user_turn(history, turn)
@@ -339,14 +355,19 @@ def create_app(router: Optional[Router] = None,
                 agg = mgr.kv_stats()
                 if agg:
                     entry["kv"] = agg
-                tiers[name] = entry
-                continue
-            engine = getattr(mgr, "_engine", None)    # never lazy-starts
-            entry.update(engine_stats(engine))
-            for key in ("tick_stats", "spec_stats"):
-                fn = getattr(engine, key, None)
-                if callable(fn):
-                    entry[key[:-len("_stats")]] = fn()
+            else:
+                # Never lazy-starts; a remote tier has no local engine.
+                engine = getattr(mgr, "_engine", None)
+                entry.update(engine_stats(engine))
+                for key in ("tick_stats", "spec_stats"):
+                    fn = getattr(engine, key, None)
+                    if callable(fn):
+                        entry[key[:-len("_stats")]] = fn()
+            # A quota-on tier's tenant state: active counts, bucket
+            # levels, admit and reject totals.
+            tq = getattr(tier, "tenants", None)
+            if tq is not None:
+                entry["tenants"] = tq.snapshot()
             tiers[name] = entry
         payload = {
             "strategy": strategy,
@@ -359,11 +380,14 @@ def create_app(router: Optional[Router] = None,
                         if router_.breaker is not None else None),
             "degraded_served": router_.degraded_served,
             "draining": {
-                name: bool(t.server_manager.draining)
+                name: bool(getattr(t.server_manager, "draining", False))
                 for name, t in router_.tiers.items()},
             # Windowed goodput and incident state, and who pays for the
             # ticks (the attributed cost ledger).
             "slo": router_.slo.snapshot(),
+            # Elastic capacity: per armed tier, membership, streaks and the
+            # bounded decision ledger (None when no tier is armed).
+            "autoscaler": router_.autoscaler_snapshot(),
             "cost": router_.cost_snapshot(),
         }
         if request.args.get("timeline") == "1":

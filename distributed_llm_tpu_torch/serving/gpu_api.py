@@ -38,6 +38,11 @@ Run one tier's server on the card:
 
     python -m distributed_llm_tpu_torch.serving.gpu_api --tier nano
     python -m distributed_llm_tpu_torch.serving.gpu_api --tier orin
+
+``--port`` overrides the tier's port (nano 5001, orin 5000) and
+``--device cpu`` serves on the CPU.  A router reaches such a server as a
+remote tier (``TierConfig.endpoint``, serving/remote.py), and with the
+tier's ``spawn_cmd`` starts and revives it itself.
 """
 
 from __future__ import annotations
@@ -321,9 +326,12 @@ def main() -> None:
     parser.add_argument("--tier", choices=sorted(TIER_PORTS), default="nano")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=None)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card; 'cpu' serves "
+                             "the tiny trained tiers)")
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
-    app = create_tier_app(args.tier)
+    app = create_tier_app(args.tier, device=args.device)
     t0 = time.perf_counter()
     app.extensions["dllm_manager"].start_server()
     logger.info("tier %s ready in %.1fs", args.tier, time.perf_counter() - t0)

@@ -9,7 +9,10 @@ the tier clients and the Router.  This module adds:
   an automatic engine restart after ``max_consecutive_failures`` failed
   probes of a tier that was seen running (a merely stopped tier, lazy or
   shut down between bench configurations, reads ``stopped`` and is never
-  restarted; a draining one reads ``draining``).  A decode-watchdog wedge
+  restarted; a draining one reads ``draining``).  A remote tier
+  (serving/remote.py, ``remote_lifecycle``) that was seen running and then
+  stops answering, or answers not ok, reads ``failed`` and is respawned
+  through its manager's ``start_server``.  A decode-watchdog wedge
   (``health()["wedged"]``) restarts at once.  A replicated tier is probed
   replica by replica and only the wedged replica restarts, through
   ``ReplicatedTierClient.restart_replica`` (its crash rescue).  A restart
@@ -87,6 +90,14 @@ class HealthMonitor:
             # Intentional shedding: never a failure, never restarted.
             return "draining", health
         if not running:
+            # A dead remote raised above.  A remote that answers /health
+            # but reports not ok has no deliberate local stop: once seen
+            # running, that is a failure too (the restart respawns it
+            # through its spawn_cmd).  A local tier stopped on purpose
+            # stays "stopped".
+            if (getattr(mgr, "remote_lifecycle", False)
+                    and self._seen_running.get(name)):
+                return "failed", {**health, "ok": False}
             return "stopped", health
         # Running but unhealthy (a batched engine whose scheduler thread
         # died reads as failed even before the watchdog's deadline).

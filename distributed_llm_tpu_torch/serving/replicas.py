@@ -42,8 +42,18 @@ host spill store across the restart.
 Membership is a list of member records, each with a replica id (``rid``)
 that is never reused: engine-side tier names (``nano/r1``), metric labels
 and breaker keys stay stable.  Every reader iterates a snapshot
-(``list(members)``).  The JAX package's elastic membership (``scale_to``,
-the warm standby pool) comes with the autoscaler (ROADMAP A8.4).
+(``list(members)``), so membership may change mid-flight.  ``scale_to(n)``
+is the autoscaler's (serving/autoscaler.py) and the operator's verb:
+scale-up publishes a warm standby, or builds and warms a new replica off
+membership and only then publishes it (dispatch never sees a cold
+replica); scale-down picks the least-affine replica, removes it from
+membership first, waits out its in-flight work, demotes its sole-owner
+parked prefixes through the host spill tier and hands the resident
+entries to a survivor's store, then parks it in the warm standby pool or
+drains and stops it.  An autoscale-armed tier starts at
+``autoscale_min_replicas`` and, with ``autoscale_warm_pool``, builds the
+replicas up to ``autoscale_max_replicas`` as standbys that
+``start_server`` warms.
 """
 
 from __future__ import annotations
@@ -114,7 +124,8 @@ class ReplicaSetManager:
 
     def __init__(self, tier: TierConfig,
                  managers: Optional[Sequence[EngineManager]] = None,
-                 members: Optional[List[_Replica]] = None):
+                 members: Optional[List[_Replica]] = None,
+                 standby: Optional[List[_Replica]] = None):
         self.tier = tier
         if members is not None:
             # The SAME list the ReplicatedTierClient mutates: membership
@@ -123,6 +134,10 @@ class ReplicaSetManager:
         else:
             self._members = [_Replica(i, None, m)
                              for i, m in enumerate(managers or [])]
+        # The warm standby pool, shared by reference with the client's
+        # scale_to: start_server warms it, stop_server stops it; the
+        # serving aggregates and drain cover members only.
+        self._standby = standby if standby is not None else []
 
     # -- replica access -----------------------------------------------------
 
@@ -154,14 +169,15 @@ class ReplicaSetManager:
 
     def start_server(self, beat=None) -> None:
         """Start every replica (idempotent per replica): replica 0 first
-        and alone, then the others concurrently, as JAX's does (there,
-        replica 0 fills the compile cache the others then hit).  ``beat``
-        fires from the joining loop while the others start."""
+        and alone, then the others and the warm standbys concurrently, as
+        JAX's does (there, replica 0 fills the compile cache the others
+        then hit).  ``beat`` fires from the joining loop while the others
+        start."""
         members = list(self._members)
         if not members:
             return
         members[0].mgr.start_server()
-        rest = members[1:]
+        rest = members[1:] + list(self._standby)
         if not rest:
             return
         errors: Dict[int, Optional[BaseException]] = {r.rid: None
@@ -189,6 +205,8 @@ class ReplicaSetManager:
     def stop_server(self) -> None:
         for mgr in self.managers:
             mgr.stop_server()
+        for rec in list(self._standby):
+            rec.mgr.stop_server()
 
     def drain(self, timeout_s: Optional[float] = None) -> Dict[str, Any]:
         """Drain every replica concurrently and wait them all out; the
@@ -415,10 +433,10 @@ class ReplicatedTierClient:
     (``process``, ``process_stream``, ``load_snapshot``,
     ``server_manager``, ``tier``, ``name``), with dispatch choosing a
     replica per request (affinity, then least-loaded, behind the
-    per-replica breaker) and ``restart_replica`` for the HealthMonitor.
-    ``policy``: ``affinity``, ``load`` or ``random`` forces a dispatch
-    policy; None takes ``affinity`` when ``tier.replica_affinity`` is set,
-    else ``load``."""
+    per-replica breaker), ``scale_to`` for the autoscaler and
+    ``restart_replica`` for the HealthMonitor.  ``policy``: ``affinity``,
+    ``load`` or ``random`` forces a dispatch policy; None takes
+    ``affinity`` when ``tier.replica_affinity`` is set, else ``load``."""
 
     def __init__(self, tier: TierConfig, cluster: ClusterConfig,
                  device: DeviceLike = None,
@@ -436,23 +454,39 @@ class ReplicatedTierClient:
         self.name = tier.name
         self.faults = fault_injector
         self.policy = policy
+        n = tier.replicas
+        if tier.autoscale:
+            # An elastic tier starts at the autoscaler's capacity floor.
+            n = max(n, tier.autoscale_min_replicas)
         self._devices = [resolve_device(device)]
         self._seed = seed
         self._warmup_on_start = warmup_on_start
-        groups = _split_devices(self._devices, tier.replicas)
+        groups = _split_devices(self._devices, n)
         # Membership: ONE list of member records, shared by reference with
         # the ReplicaSetManager; readers take list() snapshots.
         self._members: List[_Replica] = []
         self._next_rid = 0
-        # Restarts are serialized by a busy flag claimed under the lock;
-        # the restart itself (capture, rebuild, rescue) runs with no lock
-        # held.
+        # Scale operations and restarts are serialized by a busy flag
+        # claimed under the lock; the work itself (warmup, quiesce,
+        # capture, rebuild) runs with no lock held, so dispatch and an
+        # overlapping caller never block on it.
         self._scale_lock = threading.Lock()
         self._scaling = False
-        for i in range(tier.replicas):
+        for i in range(n):
             self._members.append(self._build_replica(self._mint_rid(),
                                                      groups[i]))
-        self.server_manager = ReplicaSetManager(tier, members=self._members)
+        # The warm standby pool (autoscale tiers): the replicas between
+        # min and max are built here, warmed by start_server and parked
+        # off membership, so a scale-up publishes a warm engine in
+        # milliseconds and a scale-down parks the drained one.
+        self._standby: List[_Replica] = []
+        if tier.autoscale and tier.autoscale_warm_pool:
+            n_max = max(n, tier.autoscale_max_replicas)
+            for k in range(n, n_max):
+                self._standby.append(self._build_replica(
+                    self._mint_rid(), self._device_group(k, n_max)))
+        self.server_manager = ReplicaSetManager(tier, members=self._members,
+                                                standby=self._standby)
         # The per-replica breaker sub-gate, with the cluster's thresholds;
         # the Router's tier-level breaker still owns whole-tier shedding.
         self.breaker = CircuitBreaker(
@@ -498,6 +532,215 @@ class ReplicatedTierClient:
 
     def _metrics(self):
         return (self.obs or get_observability()).m
+
+    # -- elastic membership ---------------------------------------------------
+
+    def scale_to(self, n: int, reason: str = "manual",
+                 timeout_s: Optional[float] = None) -> Dict[str, Any]:
+        """Actuate membership to ``n`` replicas (at least 1).  One scale
+        operation at a time: an overlapping call returns a ``busy`` error
+        at once (the autoscaler retries a refused actuation).  Scale-up
+        publishes warm standbys first, then builds and warms the rest
+        concurrently and publishes them (deferred go-live).  Scale-down
+        retires the least-affine replica: membership removal first, a
+        bounded quiesce, the demote sweep and the spill handoff to a
+        survivor, then park or drain-and-stop."""
+        n = max(1, int(n))
+        summary: Dict[str, Any] = {"target": n, "reason": reason,
+                                   "added": [], "removed": [],
+                                   "errors": []}
+        with self._scale_lock:
+            if self._scaling:
+                summary["errors"].append("busy: scale in progress")
+                summary["replicas"] = len(self._members)
+                return summary
+            self._scaling = True
+        try:
+            cur = len(self._members)
+            if cur < n:
+                self._scale_up(n, summary)
+            elif cur > n:
+                while len(self._members) > n:
+                    info = self._scale_down_one(timeout_s)
+                    if info is None:
+                        break
+                    summary["removed"].append(info)
+        finally:
+            with self._scale_lock:
+                self._scaling = False
+        summary["replicas"] = len(self._members)
+        return summary
+
+    def _scale_up(self, n: int, summary: Dict[str, Any]) -> None:
+        """Add members up to ``n`` (busy flag claimed, no lock held)."""
+        while len(self._members) < n and self._standby:
+            r = self._standby.pop(0)
+            try:
+                if self.faults is not None:
+                    # An injected publish failure: the parked engine is
+                    # lost, and the loop falls through to fresh capacity.
+                    fail = self.faults.standby_publish_fail(self.name)
+                    if fail is not None:
+                        raise RuntimeError(fail)
+                r.mgr.start_server()     # idempotent: a no-op when warm
+                self.breaker.ensure(r.name)
+            except BaseException as exc:
+                # Neither standby nor member now: stop it or it leaks.
+                try:
+                    r.mgr.stop_server()
+                except Exception:
+                    pass
+                summary["errors"].append(f"{r.name}: {exc}")
+                continue
+            self._members.append(r)
+            summary["added"].append(r.name)
+            logger.info("tier %s: replica %s live (scale-up from warm "
+                        "standby, %s)", self.name, r.name,
+                        summary.get("reason"))
+        count = len(self._members)
+        fresh = [self._build_replica(self._mint_rid(),
+                                     self._device_group(count + k, n))
+                 for k in range(n - count)]
+        errors: Dict[int, Optional[BaseException]] = {r.rid: None
+                                                      for r in fresh}
+        threads = []
+        for r in fresh:
+            def _warm(r=r):
+                try:
+                    r.mgr.start_server()
+                except BaseException as exc:
+                    errors[r.rid] = exc
+            t = threading.Thread(target=_warm, daemon=True,
+                                 name=f"warm-{self.name}-{r.name}")
+            threads.append(t)
+            t.start()
+        for t in threads:
+            t.join()
+        for r in fresh:
+            if errors[r.rid] is not None:
+                summary["errors"].append(f"{r.name}: {errors[r.rid]}")
+                try:
+                    r.mgr.stop_server()
+                except Exception:
+                    pass
+                continue
+            # Breaker key first (a keyless replica would pass ungated),
+            # then the atomic membership append.
+            self.breaker.ensure(r.name)
+            self._members.append(r)
+            summary["added"].append(r.name)
+            logger.info("tier %s: replica %s live (scale-up, %s)",
+                        self.name, r.name, summary.get("reason"))
+
+    def _device_group(self, slot: int, count: int) -> List:
+        """The device slice of a new replica at position ``slot`` of
+        ``count`` (on one card, the card)."""
+        groups = _split_devices(self._devices, count)
+        return groups[slot] if slot < len(groups) else self._devices
+
+    def _pick_victim(self) -> Optional[_Replica]:
+        """The least-affine live replica: fewest parked prefix tokens,
+        then least in-flight work, then the youngest rid."""
+        members = list(self._members)
+        if len(members) <= 1:
+            return None
+
+        def score(rec: _Replica):
+            parked = 0
+            engine = getattr(rec.mgr, "_engine", None)
+            cache = getattr(engine, "prefix_cache", None)
+            if cache is not None:
+                parked = sum(len(e.ids) for e in cache.entries_snapshot())
+            snap = rec.client.load_snapshot()
+            busy = (int(snap.get("queue_depth", 0))
+                    + int(snap.get("active_slots", 0)))
+            return (parked, busy, -rec.rid)
+
+        return min(members, key=score)
+
+    def _scale_down_one(
+            self, timeout_s: Optional[float]) -> Optional[Dict[str, Any]]:
+        """Retire one replica (busy flag claimed).  The order is the
+        correctness argument: (1) membership removal, no new dispatch;
+        (2) a bounded quiesce, finishing requests park their prefixes;
+        (3) the demote sweep and spill handoff, before a drain stops the
+        engine's demotions; (4) park or drain-and-stop; (5) the breaker
+        key retired."""
+        victim = self._pick_victim()
+        if victim is None:
+            return None
+        self._members.remove(victim)      # atomic: dispatch stops here
+        try:
+            return self._retire(victim, timeout_s)
+        except BaseException:
+            # Out of membership and never re-homed: this is the last
+            # reference to a live server.
+            if victim not in self._standby:
+                try:
+                    victim.mgr.stop_server()
+                except Exception:
+                    pass
+                self.breaker.forget(victim.name)
+            raise
+
+    def _retire(self, victim: _Replica,
+                timeout_s: Optional[float]) -> Dict[str, Any]:
+        """Quiesce, demote and hand off, then park or drain one removed
+        member (the caller owns the unwind)."""
+        timeout = (timeout_s if timeout_s is not None
+                   else self.tier.drain_timeout_s)
+        deadline = time.monotonic() + max(0.5, float(timeout))
+
+        def quiet() -> bool:
+            snap = victim.client.load_snapshot()
+            return not snap.get("queue_depth") and not snap.get(
+                "active_slots")
+
+        while time.monotonic() < deadline and not quiet():
+            time.sleep(0.05)
+        demoted = handed = 0
+        engine = getattr(victim.mgr, "_engine", None)
+        if engine is not None:
+            sweep = getattr(engine, "demote_parked", None)
+            if callable(sweep):
+                demoted = int(sweep() or 0)
+            spill = getattr(engine, "kv_spill", None)
+            if spill is not None:
+                spill.flush(timeout_s=5.0)
+                target = self._spill_target(exclude=victim)
+                if target is not None:
+                    for ids, tiles, nbytes, nb in spill.export_resident():
+                        if target.admit_resident(ids, tiles, nbytes, nb):
+                            handed += 1
+        # A quiesced victim of a warm-pool tier parks (engine kept warm,
+        # off membership) for the next scale-up; one still busy at the
+        # deadline drains and stops, since a parked engine with live
+        # work would hide those requests from every aggregate.
+        parked = (self.tier.autoscale and self.tier.autoscale_warm_pool
+                  and quiet())
+        drain = None
+        if parked:
+            self._standby.append(victim)
+        else:
+            try:
+                drain = victim.mgr.drain(
+                    timeout_s=max(0.5, deadline - time.monotonic()))
+            except Exception as exc:
+                # A failed drain still retires the replica.
+                try:
+                    victim.mgr.stop_server()
+                except Exception:
+                    pass
+                drain = {"error": f"Request failed: {exc}"}
+        self.breaker.forget(victim.name)
+        logger.info("tier %s: replica %s %s (scale-down; %d entries "
+                    "demoted, %d handed off)", self.name, victim.name,
+                    "parked to warm standby" if parked else "retired",
+                    demoted, handed)
+        return {"replica": victim.name, "demoted_entries": demoted,
+                "handed_off": handed, "parked": parked,
+                "drained": (drain or {}).get("drained", 0)
+                if isinstance(drain, dict) else 0}
 
     def _spill_target(self, exclude: _Replica):
         """A survivor's spill store for a restarted replica's resident

@@ -41,10 +41,25 @@ client; ``enable_health_monitor`` in the config starts a
 ``health_interval_s`` and restarts wedged engines, replica by replica on
 a replicated tier (``replicas > 1``: serving/replicas.py), whose replicas
 get their own sampler entries (``tier/rN``), trace threads and
-``dllm_replica_*`` series.
+``dllm_replica_*`` series.  A tier with ``autoscale`` gets a
+``ReplicaAutoscaler`` (serving/autoscaler.py; ``autoscale=False`` here,
+JAX's ``DLLM_AUTOSCALE=0``, disarms every tier), stopped by ``drain``
+before the tiers; a tier with an ``endpoint`` is a remote ``/query``
+server (serving/remote.py).
 
-Not ported (ROADMAP.md): tenants, the autoscaler, remote tiers and the
-cross-host health exchange (``health_mesh``).
+Tenants: ``route_query(..., tenant_id=...)`` stamps the tenant on the
+trace, where the tier clients' quota layer (serving/tenants.py) and the
+engines read it; a request without one bills to the ``default`` tenant.
+``_finish_request`` feeds the tenant's SLO window, its
+``dllm_tenant_device_time_ms_total`` and ``_kv_block_ticks_total``, the
+cost ledger's tenant key, and debits the measured device time from the
+serving tier's token bucket; a tenant-quota refusal counts on
+``dllm_tenant_rejected_total`` and opens a ``tenant_overquota``
+flight-recorder incident that the tenant's next completed request
+closes.
+
+Not ported (ROADMAP.md): the cross-host health exchange
+(``health_mesh``).
 """
 
 from __future__ import annotations
@@ -69,6 +84,7 @@ from ..routing.engine import QueryRouter
 from ..routing.token_counter import TokenCounter
 from ..utils.faults import FaultInjector
 from .errors import is_error_shape
+from .tenants import DEFAULT_TENANT
 from .tiers import TierClient, build_tiers
 
 logger = logging.getLogger(__name__)
@@ -116,6 +132,7 @@ class Router:
         sample_ms: float = 250.0,
         timeline_samples: int = 240,
         fault_injector: Optional[FaultInjector] = None,
+        autoscale: bool = True,
     ):
         """strategy: "token" | "semantic" | "heuristic" | "hybrid" | "perf";
         benchmark_mode: True -> BENCHMARK_CFG (caches off), False ->
@@ -125,7 +142,10 @@ class Router:
         ``observability``: the metric/trace/recorder bundle (default: the
         process-global one).  ``sample_ms``: the state sampler's period (0
         = no sampler); ``timeline_samples``: its ring.
-        ``fault_injector``: scripted faults for every tier client."""
+        ``fault_injector``: scripted faults for every tier client.
+        ``autoscale``: False disarms every tier's autoscaler (JAX's
+        ``DLLM_AUTOSCALE=0``); True arms each tier that sets
+        ``TierConfig.autoscale``."""
         self.token_counter = TokenCounter()
         self.device = resolve_device(device)
         self.obs = (observability if observability is not None
@@ -188,9 +208,16 @@ class Router:
         # client-controlled, so their metric labels are bounded too (past
         # the cap they aggregate under "~overflow").
         self._cost_lock = threading.Lock()
-        self._cost_ledger: Dict[Tuple[str, str, str], Dict[str, float]] = {}
+        self._cost_ledger: Dict[Tuple[str, str, str, str],
+                                Dict[str, float]] = {}
         self._cost_ledger_cap = 256
         self._session_labels = BoundedLabels(cap=256)
+        # Tenant over-quota incidents: a tenant's first quota refusal
+        # opens a flight-recorder incident naming it, its next completed
+        # request closes it with the refusals counted meanwhile.  At most
+        # ``_tenant_incident_cap`` tenants are tracked at once.
+        self._tenant_incidents: Dict[str, Dict[str, Any]] = {}
+        self._tenant_incident_cap = 256
 
         self.enable_response_cache = (
             not benchmark_mode
@@ -225,13 +252,27 @@ class Router:
                                                        5.0)))
             self.health_monitor.start()
 
+        # Elastic capacity: one control loop per armed tier, actuating
+        # replica membership from the SLO, queue and shed signals.
+        self.autoscalers: Dict[str, Any] = {}
+        if autoscale:
+            from .autoscaler import ReplicaAutoscaler
+            for t in self.cluster.tiers():
+                client = self.tiers.get(t.name)
+                if t.autoscale and callable(getattr(client, "scale_to",
+                                                    None)):
+                    scaler = ReplicaAutoscaler(t.name, t, client, self.slo,
+                                               metrics=self.obs.m)
+                    scaler.start()
+                    self.autoscalers[t.name] = scaler
+
     # -- graceful drain ----------------------------------------------------
 
     def drain_retry_after_s(self) -> float:
         """Client retry hint while draining: the longest tier drain
         deadline."""
         vals = [float(t.tier.drain_timeout_s) for t in self.tiers.values()
-                if t.tier.drain_timeout_s]
+                if t.tier is not None and t.tier.drain_timeout_s]
         return round(max(vals), 2) if vals else 30.0
 
     def drain(self, timeout_s: Optional[float] = None) -> Dict[str, Any]:
@@ -243,6 +284,10 @@ class Router:
         self.draining = True
         if self.health_monitor is not None:
             self.health_monitor.stop()
+        # The autoscalers stop before the tiers drain: a controller
+        # mid-tick must not move membership on a draining tier.
+        for scaler in self.autoscalers.values():
+            scaler.stop()
         # The state sampler dies with the router.
         if self.sampler is not None:
             self.sampler.stop()
@@ -251,10 +296,18 @@ class Router:
                else self.drain_retry_after_s()) + 30.0
         threads = []
         for name, tier in self.tiers.items():
+            mgr = tier.server_manager
 
-            def _drain(name=name, mgr=tier.server_manager):
+            def _drain(name=name, mgr=mgr):
                 try:
-                    results[name] = mgr.drain(timeout_s)
+                    if callable(getattr(mgr, "drain", None)):
+                        results[name] = mgr.drain(timeout_s)
+                    else:
+                        # A remote tier has no drain: stop it, so a
+                        # process it spawned does not outlive the router.
+                        mgr.stop_server()
+                        results[name] = {"draining_started": False,
+                                         "stopped": True}
                 except Exception as exc:
                     results[name] = {"error": f"Request failed: {exc}"}
 
@@ -318,7 +371,7 @@ class Router:
         breaker_snap = (self.breaker.snapshot()
                         if self.breaker is not None else {})
         for name, tier in self.tiers.items():
-            st: Dict[str, Any] = dict(tier.load_snapshot())
+            st: Dict[str, Any] = self._load_of(tier)
             mgr = tier.server_manager
             items_fn = getattr(mgr, "replica_items", None)
             if callable(items_fn):
@@ -342,12 +395,19 @@ class Router:
             else:
                 st.update(self._collect_engine_state(
                     getattr(mgr, "_engine", None)))
-            st["draining"] = bool(mgr.draining)
+            st["draining"] = bool(getattr(mgr, "draining", False))
             b = breaker_snap.get(name)
             if b is not None:
                 st["breaker"] = b.get("state")
             out[name] = st
         return out
+
+    @staticmethod
+    def _load_of(tier) -> Dict[str, Any]:
+        """A tier client's load snapshot; a remote tier has none (its
+        load lives in the other process), as in the JAX router."""
+        fn = getattr(tier, "load_snapshot", None)
+        return dict(fn()) if callable(fn) else {}
 
     _KV_FETCH = object()      # sentinel: "read kv_stats off the engine"
 
@@ -397,11 +457,11 @@ class Router:
         return st
 
     def _note_cost(self, tier: str, strategy: str, session: str,
-                   device_ms: float, kv_ticks: float) -> None:
+                   tenant: str, device_ms: float, kv_ticks: float) -> None:
         """Fold one finished request's attributed cost into the bounded
         ledger (dict insertion order is the age order; a re-charged key
         keeps its slot)."""
-        key = (tier, strategy, session)
+        key = (tier, strategy, session, tenant)
         with self._cost_lock:
             entry = self._cost_ledger.get(key)
             if entry is None:
@@ -416,16 +476,26 @@ class Router:
 
     def cost_snapshot(self) -> List[Dict[str, Any]]:
         """The GET /stats ``cost`` block: attributed device time and KV
-        block-ticks per (tier, strategy, session), most expensive
+        block-ticks per (tier, strategy, session, tenant), most expensive
         first."""
         with self._cost_lock:
             rows = [{"tier": k[0], "strategy": k[1], "session": k[2],
+                     "tenant": k[3],
                      "device_time_ms": round(v["device_time_ms"], 3),
                      "kv_block_ticks": round(v["kv_block_ticks"], 3),
                      "requests": int(v["requests"])}
                     for k, v in self._cost_ledger.items()]
         rows.sort(key=lambda r: r["device_time_ms"], reverse=True)
         return rows
+
+    def autoscaler_snapshot(self) -> Optional[Dict[str, Any]]:
+        """The GET /stats ``autoscaler`` block: per armed tier, its
+        bounds and windows, membership, streaks, event counts and bounded
+        ledger.  None when no tier is armed."""
+        if not self.autoscalers:
+            return None
+        return {name: scaler.snapshot()
+                for name, scaler in self.autoscalers.items()}
 
     def profiler_trace(self) -> Dict[str, Any]:
         """The GET /debug/trace body: every live engine's tick-phase ring
@@ -451,7 +521,7 @@ class Router:
         load, breaker states and the timeline's last samples (never
         manager.health(): it may wait on a starting engine)."""
         snap: Dict[str, Any] = {
-            "tiers": {name: tier.load_snapshot()
+            "tiers": {name: self._load_of(tier)
                       for name, tier in self.tiers.items()},
             "degraded_served": self.degraded_served,
         }
@@ -499,9 +569,16 @@ class Router:
             m.queue_wait_ms.labels(which).observe(float(qw))
         # Degraded service is not goodput even when a stale cache hit
         # carried ok=True.
+        tenant_raw = trace.attrs.get("tenant") or DEFAULT_TENANT
+        tenant = self.obs.tenant_labels.label(tenant_raw)
         self.slo.record_request(strategy, which, ok=ok and not degraded,
                                 ttft_ms=ttft, tbt_p95_ms=tbt_p95,
-                                cache_hit=cache_hit)
+                                cache_hit=cache_hit, tenant=tenant)
+        # A completed request closes the tenant's over-quota incident; a
+        # tenant-quota refusal is no completion.
+        if not (isinstance(raw, dict)
+                and "tenant '" in str(raw.get("error", ""))):
+            self._tenant_incident_edge(tenant_raw, rejected=False)
         dev_ms = trace.device_time_ms
         kv_ticks = trace.kv_block_ticks
         if dev_ms or kv_ticks:
@@ -510,8 +587,18 @@ class Router:
                                  session).inc(dev_ms)
             m.kv_block_ticks.labels(which or "none", strategy,
                                     session).inc(kv_ticks)
-            self._note_cost(which or "none", strategy, session, dev_ms,
-                            kv_ticks)
+            m.tenant_device_time.labels(which or "none", tenant).inc(dev_ms)
+            m.tenant_kv_block_ticks.labels(which or "none",
+                                           tenant).inc(kv_ticks)
+            self._note_cost(which or "none", strategy, session, tenant,
+                            dev_ms, kv_ticks)
+            # Post-paid quota billing: the serving tier's token bucket is
+            # debited with the measured device time (quotas off: no
+            # registry, nothing to debit).
+            tq = getattr(self.tiers.get(which) if which else None,
+                         "tenants", None)
+            if tq is not None:
+                tq.debit(tenant_raw, dev_ms)
         reason = self.obs.recorder.classify(ok, degraded, dur)
         if reason is not None:
             m.flight_records.labels(reason).inc()
@@ -668,12 +755,55 @@ class Router:
 
     def _note_admission_rejection(self, raw: Any, which: str) -> None:
         """Every admission rejection counts; the KV-pressure subset also
-        on its own counter."""
+        on its own counter, and a tenant-quota refusal (its reason names
+        the tenant) on the tenant's counter and its incident edge."""
         if not self._is_admission_rejection(raw):
             return
         self.obs.m.admission_rejected.labels(which).inc()
-        if "KV demand" in str(raw.get("error", "")):
+        err = str(raw.get("error", ""))
+        if "KV demand" in err:
             self.obs.m.kv_admission_rejected.labels(which).inc()
+        if "tenant '" in err:
+            trace = current_trace()
+            tenant = (trace.attrs.get("tenant")
+                      if trace is not None else None) or DEFAULT_TENANT
+            self.obs.m.tenant_rejected.labels(
+                which, self.obs.tenant_labels.label(tenant)).inc()
+            self._tenant_incident_edge(tenant, rejected=True, which=which,
+                                       reason=err)
+
+    def _tenant_incident_edge(self, tenant: str, rejected: bool,
+                              which: Optional[str] = None,
+                              reason: str = "") -> None:
+        """The over-quota incident's edges: a tenant's first refusal opens
+        a ``tenant_overquota`` flight-recorder incident (later refusals
+        count into it), its next completed request closes it.  Past
+        ``_tenant_incident_cap`` open tenants, refusals still count in
+        metrics but open no incident."""
+        if rejected:
+            with self._cost_lock:
+                st = self._tenant_incidents.get(tenant)
+                if st is not None:
+                    st["rejections"] += 1
+                    return
+                if len(self._tenant_incidents) >= self._tenant_incident_cap:
+                    return
+                st = {"entry": None, "rejections": 1}
+                self._tenant_incidents[tenant] = st
+            info = {"tenant": tenant, "tier": which or "none",
+                    "first_reason": (reason or "")[:200],
+                    "start_unix": round(time.time(), 3), "open": True}
+            st["entry"] = self.obs.recorder.record_incident(
+                "tenant_overquota", info)
+            self.obs.m.flight_records.labels("tenant_overquota").inc()
+            return
+        with self._cost_lock:
+            st = self._tenant_incidents.pop(tenant, None)
+        if st is None or st.get("entry") is None:
+            return
+        self.obs.recorder.update_incident(
+            st["entry"], open=False, end_unix=round(time.time(), 3),
+            rejections_while_open=int(st["rejections"]))
 
     # -- context-overflow policy -------------------------------------------
 
@@ -860,7 +990,8 @@ class Router:
         if not self.query_router.wants_load:
             return
         for name, tier in self.tiers.items():
-            self.query_router.update_load(name, **tier.load_snapshot())
+            if callable(getattr(tier, "load_snapshot", None)):
+                self.query_router.update_load(name, **tier.load_snapshot())
 
     def _decide(self, query: str, context: str, ctx_hash: str,
                 history: List[Dict[str, Any]]):
@@ -900,16 +1031,21 @@ class Router:
         return device, method, confidence, reasoning, cache_hit, overhead_ms
 
     def route_query(self, history: List[Dict[str, Any]],
-                    session_id: Optional[str] = None
+                    session_id: Optional[str] = None,
+                    tenant_id: Optional[str] = None
                     ) -> Tuple[Dict[str, Any], int, str]:
         """The request's span tree, bound to this thread for the tiers and
         engines, around the pipeline (``_route_query_inner``), then its
         single exit ``_finish_request``.  ``session_id`` keys the
-        per-session cost attribution (None: '-')."""
+        per-session cost attribution (None: '-'); ``tenant_id`` (already
+        validated at the edge) reaches the tier quota layer and keys the
+        tenant's billing (None: the ``default`` tenant)."""
         self._ensure_sampler()
         trace = self.obs.trace(strategy=self.query_router.strategy)
         if session_id:
             trace.annotate(session=str(session_id))
+        if tenant_id:
+            trace.annotate(tenant=str(tenant_id))
         with use_trace(trace):
             try:
                 response, tokens, which = self._route_query_inner(
@@ -1054,7 +1190,8 @@ class Router:
         return out, tokens, which
 
     def route_query_stream(self, history: List[Dict[str, Any]],
-                           session_id: Optional[str] = None
+                           session_id: Optional[str] = None,
+                           tenant_id: Optional[str] = None
                            ) -> "RoutedStream":
         """Streaming twin of ``route_query`` (see the module note).  The
         response cache does not take part.  Raises RuntimeError if no
@@ -1066,6 +1203,8 @@ class Router:
                                stream=True)
         if session_id:
             trace.annotate(session=str(session_id))
+        if tenant_id:
+            trace.annotate(tenant=str(tenant_id))
         with use_trace(trace):
             try:
                 return self._route_stream_inner(trace, history)

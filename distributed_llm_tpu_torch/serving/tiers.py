@@ -19,8 +19,14 @@ returning ``{"response": text}`` or an error dict, ``.process_stream``,
 - a ``FaultInjector`` (utils/faults.py) intercepts a request after
   admission and before the engine, on both paths, and a stream it
   scripts a kill for dies mid-stream (``maybe_break_stream``);
-- ``build_tiers`` gives a tier with ``replicas > 1`` a
-  ``ReplicatedTierClient`` (serving/replicas.py) with the same surface.
+- a quotas-on tier (``tenant_quotas``) admits each request against its
+  tenant's budgets (serving/tenants.py) before the tier's controller, so a
+  shed tenant never takes tier admission state; the refusal carries the
+  tenant's own ``retry_after_s``;
+- ``build_tiers`` gives a tier with ``replicas > 1`` or ``autoscale`` a
+  ``ReplicatedTierClient`` (serving/replicas.py), and a tier with an
+  ``endpoint`` a ``RemoteTierClient`` (serving/remote.py), each with the
+  same surface.
 
 The request's span tree (obs/spans.py) gets the JAX client's spans:
 ``admission``, ``engine_start`` on a lazy start, ``engine_lock_wait``
@@ -28,7 +34,7 @@ for a sequential stream, and the ``timeout_abandoned`` event; a worker
 thread re-binds the trace (``use_trace``) so the engine attaches its
 own spans to the same tree.
 
-Not ported (ROADMAP.md): device meshes, tenant quotas and remote tiers.
+Not ported (ROADMAP.md): device meshes.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..obs import spans as obs_spans
 from ..obs.spans import current_trace, use_trace
 from ..utils.faults import FaultInjector, maybe_break_stream
 from .errors import error_dict
+from .tenants import DEFAULT_TENANT, TenantQuotas
 from .turns import ClippedStream, clip_turn
 
 logger = logging.getLogger(__name__)
@@ -238,6 +245,9 @@ class TierClient:
         self.admission = AdmissionController(tier,
                                              slots=max(1, tier.decode_batch))
         manager.admission = self.admission
+        # The per-tenant quota layer, built only when the tier opts in.
+        self.tenants: Optional[TenantQuotas] = (
+            TenantQuotas(tier) if tier.tenant_quotas is not None else None)
         # Serializes the sequential engines (they assume one caller) once
         # a request timeout can abandon a still-running worker; the
         # batched engine opts out through ``concurrent_safe``.
@@ -257,10 +267,23 @@ class TierClient:
         returned so Router failover and the perf failure penalty fire, and
         the abandoned worker finishes in the background (its completion
         never overwrites ``last_result``).  The fault intercept runs after
-        admission, so a rejected request consumes no one-shot fault."""
+        admission, so a rejected request consumes no one-shot fault.  The
+        tenant's quota gate runs before the tier's."""
         trace = current_trace()
+        tenant = self._tenant_of(trace)
+        tenant_err = self._tenant_try_admit(trace, tenant)
+        if tenant_err is not None:
+            logger.warning("tier %s tenant quota rejected a request: %s",
+                           self.name, tenant_err)
+            return self._admission_error(tenant_err, tenant=tenant)
+
+        def release_tenant():
+            if self.tenants is not None:
+                self.tenants.release(tenant)
+
         admit_err = self._admit(trace, history)
         if admit_err is not None:
+            release_tenant()
             logger.warning("tier %s admission rejected a request: %s",
                            self.name, admit_err)
             return self._admission_error(admit_err)
@@ -268,6 +291,7 @@ class TierClient:
             fault = self.faults.intercept(self.name)
             if fault is not None:
                 self.admission.release()     # never reached the engine
+                release_tenant()
                 return fault
 
         timeout = self.tier.request_timeout_s
@@ -277,6 +301,7 @@ class TierClient:
                 resp, result = self._process_body(history)
             finally:
                 self.admission.release(time.perf_counter() - t0)
+                release_tenant()
             if result is not None:
                 with self._abandoned_lock:
                     self.last_result = result
@@ -285,6 +310,7 @@ class TierClient:
             abandoned_outstanding = self._abandoned
         if abandoned_outstanding and not self._engine_concurrent_safe():
             self.admission.release()
+            release_tenant()
             logger.warning("tier %s has an abandoned timed-out call "
                            "outstanding: failing fast", self.name)
             return {"error": f"Request failed: {self.name} is busy with "
@@ -312,9 +338,11 @@ class TierClient:
                         self._abandoned -= 1
                     elif result is not None:
                         self.last_result = result
-                # The admission slot is held for the worker's whole life:
-                # an abandoned worker still occupies the engine.
+                # The admission and tenant slots are held for the
+                # worker's whole life: an abandoned worker still occupies
+                # the engine.
                 self.admission.release(time.perf_counter() - t0)
+                release_tenant()
 
         threading.Thread(target=work, daemon=True,
                          name=f"{self.name}-request").start()
@@ -373,15 +401,47 @@ class TierClient:
         except Exception:
             return None, None               # estimation must never reject
 
-    def _admission_error(self, admit_err: str) -> Dict[str, Any]:
+    def _admission_error(self, admit_err: str,
+                         tenant: Optional[str] = None) -> Dict[str, Any]:
         """Reference error shape for an admission rejection; drain and
-        KV-pressure rejections carry the ``retry_after_s`` hint."""
+        KV-pressure rejections carry the ``retry_after_s`` hint, and a
+        tenant-quota rejection the tenant's own (its bucket's time to
+        positive: the tier may be idle while this tenant is shed)."""
         msg = (f"Request failed: {self.name} admission rejected: "
                f"{admit_err}")
+        if (tenant is not None and self.tenants is not None
+                and "tenant '" in admit_err):
+            return error_dict(
+                msg, retry_after_s=self.tenants.retry_after_s(tenant))
         if "draining" in admit_err or "KV demand" in admit_err:
             return error_dict(msg,
                               retry_after_s=self.admission.retry_after_s())
         return {"error": msg}
+
+    def _tenant_of(self, trace) -> str:
+        """The request's tenant, annotated on the trace by the Router;
+        callers without one bill to the shared default tenant."""
+        t = trace.attrs.get("tenant") if trace is not None else None
+        return t if isinstance(t, str) and t else DEFAULT_TENANT
+
+    def _tenant_try_admit(self, trace, tenant: str) -> Optional[str]:
+        """The quota layer's verdict (None: quotas off or in budget).  The
+        KV bill is the tenant's live resident bill at 1/refcount from the
+        engine, so shared prefixes lower it."""
+        if self.tenants is None:
+            return None
+        kv_bill = None
+        if self.tenants.kv_budget(tenant) is not None:
+            engine = getattr(self.server_manager, "_engine", None)
+            bill_fn = getattr(engine, "tenant_kv_blocks", None)
+            if callable(bill_fn):
+                kv_bill = bill_fn(tenant)
+        with obs_spans.span(trace, "tenant_admission", tier=self.name,
+                            tenant=tenant) as t_sp:
+            tenant_err = self.tenants.try_admit(tenant, kv_bill)
+            if tenant_err is not None:
+                t_sp.annotate(rejected=tenant_err)
+        return tenant_err
 
     def _engine_concurrent_safe(self) -> bool:
         """Abandoned workers only serialize engines that assume
@@ -432,8 +492,20 @@ class TierClient:
         fed to the EWMA.  A sequential engine's lock is held for the
         stream's life, its acquire bounded by ``request_timeout_s``."""
         trace = current_trace()
+        tenant = self._tenant_of(trace)
+        tenant_err = self._tenant_try_admit(trace, tenant)
+        if tenant_err is not None:
+            logger.warning("tier %s tenant quota rejected a stream: %s",
+                           self.name, tenant_err)
+            return self._admission_error(tenant_err, tenant=tenant)
+
+        def release_tenant():
+            if self.tenants is not None:
+                self.tenants.release(tenant)
+
         admit_err = self._admit(trace, history)
         if admit_err is not None:
+            release_tenant()
             logger.warning("tier %s admission rejected a stream: %s",
                            self.name, admit_err)
             return self._admission_error(admit_err)
@@ -445,18 +517,21 @@ class TierClient:
             engine_ms = getattr(result, "total_ms", 0) if result else 0
             self.admission.release(engine_ms / 1000.0 if engine_ms
                                    else time.perf_counter() - t0)
+            release_tenant()
 
         try:
             if self.faults is not None:
                 fault = self.faults.intercept(self.name)
                 if fault is not None:
                     self.admission.release()   # never reached the engine
+                    release_tenant()
                     return fault
             if not self.server_manager.is_server_running():
                 self._start_engine(trace)
             engine = self.server_manager.engine()
             if not hasattr(engine, "generate_stream"):
                 self.admission.release()
+                release_tenant()
                 return {"error": "Request failed: engine does not support "
                                  "token streaming"}
             if getattr(engine, "concurrent_safe", False):
@@ -474,6 +549,7 @@ class TierClient:
                     timeout=timeout if timeout is not None else -1)
             if not acquired:
                 self.admission.release()
+                release_tenant()
                 logger.warning("tier %s stream setup could not take the "
                                "engine lock within %.0fs", self.name, timeout)
                 return {"error": f"Request failed: {self.name} engine busy "
@@ -495,6 +571,7 @@ class TierClient:
                 raise
         except Exception as exc:
             self.admission.release()
+            release_tenant()
             shape = getattr(exc, "shape", None)
             if isinstance(shape, dict) and "error" in shape:
                 return dict(shape)
@@ -575,12 +652,20 @@ def build_tiers(cluster: ClusterConfig, device: DeviceLike = None,
                 fault_injector: Optional[FaultInjector] = None
                 ) -> Dict[str, TierClient]:
     """One client per tier on ``device`` (a registry, not classes): a
-    ``TierClient`` over its own EngineManager, or for ``replicas > 1`` a
-    ``ReplicatedTierClient`` over that many.  ``fault_injector`` reaches
-    every client."""
+    ``RemoteTierClient`` for a tier with an ``endpoint`` (no local
+    engine), a ``ReplicatedTierClient`` for ``replicas > 1`` or an
+    autoscale-armed tier (elastic membership needs the replica layer even
+    at one replica), else a ``TierClient`` over its own EngineManager.
+    ``fault_injector`` reaches every client."""
     tiers: Dict[str, TierClient] = {}
     for tier in cluster.tiers():
-        if tier.replicas > 1:
+        if tier.endpoint:
+            from .remote import RemoteTierClient
+            tiers[tier.name] = RemoteTierClient(
+                tier.name, tier.endpoint, fault_injector=fault_injector,
+                spawn_cmd=tier.spawn_cmd)
+            continue
+        if tier.replicas > 1 or tier.autoscale:
             from .replicas import ReplicatedTierClient
             tiers[tier.name] = ReplicatedTierClient(
                 tier, cluster, device=device, fault_injector=fault_injector,

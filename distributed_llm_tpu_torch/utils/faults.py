@@ -91,8 +91,8 @@ class FaultInjector:
                              error: str = "injected standby publish "
                                           "failure") -> None:
         """Queue a one-shot warm-standby PUBLISH failure for ``tier``:
-        the next scale-up that promotes a parked standby loses it.  Its
-        consumer, the warm standby pool, is not ported yet."""
+        the next scale-up that promotes a parked standby loses it
+        (``ReplicatedTierClient._scale_up`` consumes it)."""
         with self._lock:
             self._publish_fails[tier].append(error)
 

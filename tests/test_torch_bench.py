@@ -41,7 +41,7 @@ import bench as jax_bench  # noqa: E402  (the JAX package's root bench.py)
 from distributed_llm_tpu.bench import query_sets as jax_sets  # noqa: E402
 from distributed_llm_tpu.bench import tester as jax_tester  # noqa: E402
 from distributed_llm_tpu_torch import config as torch_config  # noqa: E402
-from distributed_llm_tpu_torch.bench import fleet, headline, legs  # noqa: E402
+from distributed_llm_tpu_torch.bench import elastic, fleet, headline, legs  # noqa: E402
 from distributed_llm_tpu_torch.bench import query_sets  # noqa: E402
 from distributed_llm_tpu_torch.bench import tester  # noqa: E402
 
@@ -219,6 +219,13 @@ def cpu_run(tmp_path_factory):
         real_replica = fleet.replica_phase
         mp.setattr(fleet, "replica_phase", lambda *a, **k: real_replica(
             *a, n_clients=2, n_requests=4, k_sessions=2, **k))
+        # The tenant and autoscaler legs stand in by their names only:
+        # each runs whole in tests/test_torch_fleet2_legs.py and
+        # tests/test_torch_autoscaler.py; here the run's order of
+        # sections is what is held.
+        for leg in ("noisy_phase", "elastic_phase", "chaos2_phase"):
+            mp.setattr(elastic, leg, lambda *a, _leg=leg, **k: {
+                "stand_in": _leg})
         import io
         from contextlib import redirect_stdout
         buf = io.StringIO()
@@ -226,6 +233,18 @@ def cpu_run(tmp_path_factory):
             rc = headline.main(["--device", "cpu", "--repeats", "1",
                                 "--clients", "2"])
     return captured["result"], rc, buf.getvalue().strip().splitlines()
+
+
+def test_headline_sections_in_jax_order(cpu_run):
+    """``noisy`` right after ``pressure``, ``elastic`` then ``chaos2``
+    after ``replica`` (root bench.py :4455-4612), in the run's result."""
+    result, _rc, _lines = cpu_run
+    keys = list(result)
+    for before, after in (("pressure", "noisy"), ("replica", "elastic"),
+                          ("elastic", "chaos2")):
+        assert keys.index(after) == keys.index(before) + 1, keys
+    assert result["noisy"] == {"stand_in": "noisy_phase"}
+    assert result["chaos2"] == {"stand_in": "chaos2_phase"}
 
 
 def test_headline_runs_on_the_cpu(cpu_run):

@@ -3,10 +3,11 @@ and reads no file of it.
 
 A subprocess with ``jax`` and ``distributed_llm_tpu`` blocked in
 ``sys.modules`` imports the port's entry points (the ``/query`` and
-``/chat`` servers, the router, the tier clients, the routing layer, the
-bench and the tester, the roofline, telemetry and memory budget
-utilities, the obs layer, int8 weights with the W1 kernel's wrapper and
-the flagship cluster) and
+``/chat`` servers, the router, the tier clients (tenants, replicas and
+the autoscaler, remote tiers, the health monitor), the routing layer,
+the bench (its scenarios and fleet legs too) and the tester, the
+roofline, telemetry and memory budget utilities, the obs layer, int8
+weights with the W1 kernel's wrapper and the flagship cluster) and
 ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
@@ -104,6 +105,11 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.serving.router\n"
         "import distributed_llm_tpu_torch.serving.tiers\n"
         "import distributed_llm_tpu_torch.serving.breaker\n"
+        "import distributed_llm_tpu_torch.serving.tenants\n"
+        "import distributed_llm_tpu_torch.serving.autoscaler\n"
+        "import distributed_llm_tpu_torch.serving.remote\n"
+        "import distributed_llm_tpu_torch.serving.replicas\n"
+        "import distributed_llm_tpu_torch.serving.health\n"
         "import distributed_llm_tpu_torch.routing\n"
         "from distributed_llm_tpu_torch.routing import embedder, encoder\n"
         "encoder.TrainedEncoder(device='cpu')\n"
@@ -128,6 +134,8 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.bench.headline\n"
         "import distributed_llm_tpu_torch.bench.query_sets\n"
         "import distributed_llm_tpu_torch.bench.tester\n"
+        "import distributed_llm_tpu_torch.bench.scenarios\n"
+        "import distributed_llm_tpu_torch.bench.elastic\n"
         "import distributed_llm_tpu_torch.utils.roofline\n"
         "import distributed_llm_tpu_torch.utils.telemetry\n"
         "import distributed_llm_tpu_torch.utils.hbm_budget\n"

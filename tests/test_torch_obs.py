@@ -20,8 +20,9 @@ pattern of ``test_torch_router.py``): the span-name sequences in the
 recorders' trees, the metric families and their label sets, the request,
 cache-hit, failover and retry counters and the histograms' counts must
 agree.  The state samplers are off on both sides there (their gauges are
-timing-bound); a single sample of each is compared by label set.  The
-tenant families stay at zero in the port (tenants are not served yet).
+timing-bound); a single sample of each is compared by label set.  Both
+routers bill the default tenant (the tenant families' label sets
+agree).
 Last, the port's ``/metrics``, ``/debug/trace`` and ``/stats?debug=1``
 through its test client, and the bounded cost ledger and session label.
 """
@@ -378,8 +379,7 @@ CHAT = ["hello there", "what is 2+2",
         "compare rivers and lakes, what are the trade-offs?"]
 
 # Families the sampler writes (off on both sides here) and the tenant
-# families (the JAX router bills the default tenant; the port serves no
-# tenants yet).
+# families (both routers bill the default tenant).
 SAMPLED = {row[2] for row in PM.METRIC_REGISTRY if row[0].endswith("_g")}
 TENANT = {row[2] for row in PM.METRIC_REGISTRY
           if row[2].startswith("dllm_tenant_")}
@@ -519,8 +519,7 @@ def test_served_observability_matches_jax(make_routers, batched,
         r.route_query([{"role": "user", "content": "a short one"}],
                       session_id="s9")
     assert _span_names(pobs) == _span_names(jobs)
-    assert _families(pobs, SAMPLED | TENANT) == _families(
-        jobs, SAMPLED | TENANT)
+    assert _families(pobs, SAMPLED) == _families(jobs, SAMPLED)
     for name in ("dllm_requests_total", "dllm_cache_hits_total",
                  "dllm_failovers_total", "dllm_retries_total",
                  "dllm_flight_records_total", "dllm_ttft_ms", "dllm_tbt_ms",
@@ -538,7 +537,11 @@ def test_served_observability_matches_jax(make_routers, batched,
     violations = _value(pobs, "dllm_slo_violations_total")
     assert violations and violations == _value(jobs,
                                                "dllm_slo_violations_total")
-    assert not _families(pobs).keys() & TENANT
+    # Both routers bill the default tenant (no tenant_id was given).
+    billed = _families(pobs).get("dllm_tenant_device_time_ms_total", set())
+    assert bool(billed) == batched
+    assert all(key[-1] == "default" for key in billed)
+    assert _families(pobs).keys() & TENANT
 
 
 def test_one_sample_matches_jax_by_label_set(make_routers):
@@ -660,15 +663,16 @@ def test_cost_ledger_is_bounded():
     r._cost_ledger = {}
     r._cost_ledger_cap = 8
     for i in range(50):
-        r._note_cost("nano", "perf", f"s{i}", 1.0, 2.0)
+        r._note_cost("nano", "perf", f"s{i}", "default", 1.0, 2.0)
     assert len(r._cost_ledger) == 8
     rows = r.cost_snapshot()
     assert {row["session"] for row in rows} == {f"s{i}"
                                                 for i in range(42, 50)}
-    r._note_cost("nano", "perf", "s45", 5.0, 0.0)
+    r._note_cost("nano", "perf", "s45", "default", 5.0, 0.0)
     assert r.cost_snapshot()[0] == {
         "tier": "nano", "strategy": "perf", "session": "s45",
-        "device_time_ms": 6.0, "kv_block_ticks": 2.0, "requests": 2}
+        "tenant": "default", "device_time_ms": 6.0, "kv_block_ticks": 2.0,
+        "requests": 2}
 
 
 def test_session_metric_label_is_bounded():

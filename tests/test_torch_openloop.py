@@ -103,9 +103,17 @@ def test_rate_point_through_the_app(served):
 
 def test_openloop_phase_keys_and_compact(monkeypatch):
     """The whole leg, cut to two sweep points a strategy at half-second
-    points (the constants are the sweep's depth, not its rule)."""
+    points (the constants are the sweep's depth, not its rule).  The
+    calibration still runs, but the sweep starts from a pinned base rate:
+    calibrated on a busy host, the first rates offer no arrival in a
+    half-second window, and a sweep with no arrival has no knee and no
+    overload epilogue.  Pinned, every point's arrivals are a function of
+    its label and rate alone (the schedule's seed)."""
     monkeypatch.setattr(ol, "MAX_SWEEP_POINTS", 2)
     monkeypatch.setattr(ol, "MIN_POINT_S", 0.5)
+    calibrate = ol._sequential_rate
+    monkeypatch.setattr(ol, "_sequential_rate",
+                        lambda *a, **k: (calibrate(*a, **k), 8.0)[1])
     out = ol.openloop_phase(strategies=("heuristic",), point_s=0.5,
                             device="cpu")
     assert set(out) == PHASE_KEYS
