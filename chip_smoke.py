@@ -223,11 +223,35 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    is a 2-slot nano_1b: those parts route nano's short queries only.
    Phase 11's bench runs the noisy, elastic and chaos2 legs at the JAX
    bench's pinned tiny configurations.
+18. The edges (``edges``): (a) a reference-style program (the reduction
+   of ``tests/test_compat.py`` and a reference-shaped Flask app over the
+   port's ``utils/webapp.py`` registered as ``flask``) in a child process
+   on the card, with ``reference_compat/`` first on ``PYTHONPATH`` and no
+   prelude: three ``/chat`` turns of one session on the bench cluster,
+   the second a prefix hit; a runner in the child prints its launch
+   counts (W1, K1 and K2 must launch, K3 on the follow-up); (b) ``python
+   -m distributed_llm_tpu_torch.serving.cli`` with three turns on stdin
+   and ``exit``: it drains and exits 0; (c) ``python -m
+   distributed_llm_tpu_torch`` on a free port: ``/health``, one
+   ``/chat``, SIGTERM drains, exit 0; (d) the v1 tester
+   (``bench/legacy_tester.py``) on the first 4 ``general_knowledge``
+   queries at thresholds 100 and 1000 (its CSV header is ``HEADERS``,
+   each tier that served a nonzero average power from the card's draw),
+   the canonical tester on the same queries and ``bench/analysis.py``'s
+   report over its CSVs; (e) the C++ featurizer and BPE loop against
+   their Python twins on every query of the query sets (bit-identical
+   features, identical ids, host microseconds per query); (f) the
+   encoder's training on the card (600 steps, written under ``build/``)
+   and its evaluation beside the committed weights'; (g) ``bench.tune``'s
+   table derived from phase 11's headline (printed, not written); (h)
+   ``bench.ab_kernels`` micro on nano_1b over a short ladder (uncounted:
+   it compares kernels with their plain versions).  The phase's launches
+   are the parent's (d) and the child's (a).
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
-``legs``, ``bench``, ``fleet``, ``fleet2``) builds the kernels and runs
+``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``) builds the kernels and runs
 only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
@@ -277,8 +301,8 @@ overhead, the budgets) and its per-kernel capture
 p50 TTFT, trace columns, profile section, utilization and wall time as
 another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
-as two more, the fleet's and the fleet's second half's as two more (each
-with the card's name and power limit), the card's name and power
+as two more, the fleet's, the fleet's second half's and the edges' as three more
+(each with the card's name and power limit), the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -5145,6 +5169,455 @@ def fleet2_summary(res: dict) -> dict:
     }
 
 
+# -- phase 18: the edges -------------------------------------------------------
+
+# The reduction of tests/test_compat.py (its JAX prelude line aside): a
+# program written against the reference's bare modules.
+REFERENCE_REDUCTION = '''
+from router import Router
+from query_router_engine import QueryRouter, BENCHMARK_CFG, PRODUCTION_CFG
+from query_sets import query_sets
+from cache import QueryCache
+from token_counter import TokenCounter
+
+router = Router(strategy="heuristic", config=dict(BENCHMARK_CFG),
+                threshold_fallback=1000, benchmark_mode=True)
+history = [{"role": "user", "content": query_sets["general_knowledge"][0]["query"]}]
+response, tokens, device = router.route_query(history)
+assert device in ("nano", "orin"), device
+assert isinstance(response, dict) and "response" in response
+router.nano.server_manager.stop_server()
+router.orin.server_manager.stop_server()
+print("COMPAT_OK", device, tokens)
+'''
+
+# A reference-shaped app (src/app.py's shape): one Router, a history per
+# session, POST /chat -> the reply JSON.  Three turns of one session: the
+# second and third extend the first's history, so nano finds its parked
+# prefix.
+REFERENCE_APP = '''
+import json
+from flask import Flask, jsonify, request
+
+app = Flask(__name__)
+chat_router = Router(strategy="token", config=dict(BENCHMARK_CFG),
+                     threshold_fallback=1000, benchmark_mode=True)
+histories = {}
+
+
+@app.route("/chat", methods=["POST"])
+def chat():
+    data = request.get_json()
+    history = histories.setdefault(data.get("session_id", "default"), [])
+    history.append({"role": "user", "content": data["message"]})
+    response, tokens, device = chat_router.route_query(history)
+    reply = response.get("response", "")
+    history.append({"role": "assistant", "content": reply})
+    return jsonify({"reply": reply, "device": device,
+                    "reasoning": response.get("reasoning"),
+                    "method": response.get("method"),
+                    "confidence": response.get("confidence"),
+                    "cache_hit": response.get("cache_hit", False),
+                    "tokens": tokens})
+
+
+client = app.test_client()
+for message in MESSAGES:
+    r = client.post("/chat", json={"message": message, "session_id": "s1"})
+    assert r.status_code == 200, r.status_code
+    print("CHAT", json.dumps(r.get_json()))
+chat_router.drain()
+'''
+
+# The port's counterpart of the JAX tests' jax_platforms prelude: the one
+# line a CPU run puts before the program.
+CPU_PRELUDE = ('from distributed_llm_tpu_torch.device import '
+               'set_default_device; set_default_device("cpu")\n')
+
+# Runs the program in the child (argv[1]; argv[2] the messages as JSON):
+# the port's utils/webapp.py registered as flask, every route_query's
+# kernel launches and plain-version calls recorded, printed after the
+# program returns.
+REFERENCE_RUNNER = '''
+import json, sys, types
+from distributed_llm_tpu_torch.utils import webapp
+flask = types.ModuleType("flask")
+flask.Flask, flask.request, flask.jsonify = (webapp.Flask, webapp.request,
+                                             webapp.jsonify)
+sys.modules["flask"] = flask
+from distributed_llm_tpu_torch.ops import launches
+from distributed_llm_tpu_torch.serving.router import Router
+per_call = []
+real = Router.route_query
+def counted(self, *a, **kw):
+    k0, c0 = launches.counts(), launches.call_counts()
+    try:
+        return real(self, *a, **kw)
+    finally:
+        per_call.append({"launches": launches.since(k0),
+                         "calls": launches.since(c0, launches.call_counts())})
+Router.route_query = counted
+program = open(sys.argv[1]).read()
+exec(compile(program, "reference_app.py", "exec"),
+     {"__name__": "__main__", "MESSAGES": json.loads(sys.argv[2])})
+print("LAUNCHES " + json.dumps({"total": launches.counts(),
+                                "calls": launches.call_counts(),
+                                "per_call": per_call}))
+'''
+
+def edges_messages(device: str = "cuda") -> tuple:
+    """(a)'s three turns.  The first is a few blocks long on the card;
+    the tiny CPU tiers keep only a prompt's last 64 tokens (their largest
+    bucket), so there the whole session must fit in 64."""
+    first = words(60 if device == "cuda" else 6)
+    return (f"tell me about {first}, and keep it short please",
+            "and what about the deltas, then?",
+            "one more thing: how do glaciers move?")
+EDGES_REPL_TURNS = ("hello there", "what is the capital of france?",
+                    "explain how rivers form deltas near the sea")
+EDGES_QUERIES = 4                 # the first general_knowledge queries (d)
+EDGES_THRESHOLDS = (100, 1000)
+EDGES_ENCODER_STEPS = 600         # the JAX package's default
+EDGES_AB_LENGTHS = (256, 2048)
+EDGES_AB_BATCHES = (1, 8)
+EDGES_CHILD_S = 600.0
+
+
+def reference_program(device: str = "cuda") -> dict:
+    """(a): the reference-style program in a child process with
+    ``reference_compat/`` first on ``PYTHONPATH`` (and, off the card, the
+    CPU prelude): its ``COMPAT_OK`` line, its three ``/chat`` replies, and
+    the child's launch counts in total and per ``route_query`` (the
+    reduction's, then the app's three turns)."""
+    import tempfile
+    compat = os.path.join(REPO, "distributed_llm_tpu_torch",
+                          "reference_compat")
+    program = ("" if device == "cuda" else CPU_PRELUDE) + \
+        REFERENCE_REDUCTION + REFERENCE_APP
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [compat, REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in (("runner.py", REFERENCE_RUNNER),
+                           ("reference_app.py", program)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write(text)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(tmp, "runner.py"),
+             os.path.join(tmp, "reference_app.py"),
+             json.dumps(edges_messages(device))],
+            cwd=tmp, env=env, capture_output=True, text=True,
+            timeout=EDGES_CHILD_S)
+        wall_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"edges (a): the reference program failed: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    compat_ok = [ln.split() for ln in lines if ln.startswith("COMPAT_OK")]
+    chats = [json.loads(ln[5:]) for ln in lines if ln.startswith("CHAT ")]
+    counts = json.loads(next(ln for ln in lines
+                             if ln.startswith("LAUNCHES "))[9:])
+    require(len(compat_ok) == 1 and compat_ok[0][1] in ("nano", "orin"),
+            f"edges (a): no COMPAT_OK line: {proc.stdout[-2000:]}")
+    require(len(chats) == len(edges_messages(device))
+            and all(c["device"] == "nano" and c["reply"]
+                    and CHAT_KEYS <= set(c) for c in chats),
+            f"edges (a): /chat turns {chats}")
+    per_call = counts["per_call"]
+    require(len(per_call) == 1 + len(edges_messages(device)),
+            f"edges (a): {len(per_call)} route_query calls")
+    follow_up = per_call[2]
+    if device == "cuda":
+        total = counts["total"]
+        require(all(total[k] > 0 for k in ("w8_matmul", "ragged_decode",
+                                            "flash_causal")),
+                f"edges (a): W1, K1 and K2 must launch: {total}")
+        require(follow_up["launches"].get("paged_chunk", 0) > 0,
+                f"edges (a): K3 did not launch on the follow-up: {per_call}")
+        require(not any(counts["calls"].values()),
+                f"edges (a): plain attention ran: {counts['calls']}")
+    else:
+        require(follow_up["calls"].get("_gather_chunk_paged", 0) > 0,
+                f"edges (a): the follow-up was no prefix hit: {per_call}")
+    return {"compat_ok": compat_ok[0][1:], "chats": chats,
+            "launches": counts["total"], "per_call": per_call,
+            "wall_s": wall_s}
+
+
+def repl_child(device: str = "cuda") -> dict:
+    """(b): ``python -m distributed_llm_tpu_torch.serving.cli`` with
+    EDGES_REPL_TURNS on stdin, then ``exit``."""
+    cmd = [sys.executable, "-m", "distributed_llm_tpu_torch.serving.cli"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          input="\n".join(EDGES_REPL_TURNS + ("exit",)) + "\n",
+                          timeout=EDGES_CHILD_S)
+    wall_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    replies = [ln.split("> ")[-1] for ln in lines
+               if "[nano] " in ln or "[orin] " in ln]
+    require(proc.returncode == 0 and len(replies) == len(EDGES_REPL_TURNS)
+            and lines[-1].endswith("Tier engines stopped. Bye."),
+            f"edges (b): the REPL (exit {proc.returncode}): "
+            f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return {"replies": replies, "wall_s": wall_s}
+
+
+def main_child(device: str = "cuda") -> dict:
+    """(c): ``python -m distributed_llm_tpu_torch`` on a free port:
+    ``/health`` polled until it answers, one ``/chat``, then SIGTERM,
+    which must drain and exit 0."""
+    import signal
+    port = _free_port()
+    cmd = [sys.executable, "-m", "distributed_llm_tpu_torch", "--host",
+           "127.0.0.1", "--port", str(port)]
+    if device != "cuda":
+        cmd += ["--device", device]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    out: dict = {}
+    try:
+        health = None
+        while (time.perf_counter() - t0 < EDGES_CHILD_S
+               and proc.poll() is None):
+            try:
+                health = json.loads(http_get(base, "/health"))
+                break
+            except OSError:
+                time.sleep(0.5)
+        require(health is not None, f"edges (c): /health never answered "
+                f"(exit {proc.poll()})")
+        out["startup_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = chat_post(base, "/chat", {"message": "hello there",
+                                        "session_id": "main"})
+        out["chat_ms"] = (time.perf_counter() - t1) * 1e3
+        require(got["device"] in ("nano", "orin") and got["reply"],
+                f"edges (c): /chat {got}")
+        out["chat"] = {k: got[k] for k in ("device", "tokens", "method")}
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    require(proc.returncode == 0 and "draining" in stderr,
+            f"edges (c): SIGTERM gave exit {proc.returncode}: "
+            f"{stderr[-2000:]}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def testers(device: str = "cuda", out_dir: str = REPORT_DIR) -> dict:
+    """(d): the v1 tester, then the canonical tester on the same queries
+    and the analysis report over its CSVs (the v1 CSV has the notebook's
+    headers, which the report does not read, in either package)."""
+    import csv
+
+    from distributed_llm_tpu_torch.bench import analysis, legacy_tester
+    from distributed_llm_tpu_torch.bench import tester as canonical
+    from distributed_llm_tpu_torch.bench.query_sets import query_sets
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, f"edges_{k}")
+             for k in ("final_results.csv", "summary.csv", "per_query.csv",
+                       "report.md")}
+    for path in paths.values():
+        if os.path.exists(path):
+            os.unlink(path)
+    items = query_sets["general_knowledge"][:EDGES_QUERIES]
+    t0 = time.perf_counter()
+    legacy_tester.ChatbotTester(items, EDGES_THRESHOLDS, device=device).run(
+        "general_knowledge", paths["final_results.csv"])
+    legacy_s = time.perf_counter() - t0
+    with open(paths["final_results.csv"], newline="") as f:
+        rows = list(csv.reader(f))
+    require(rows and rows[0] == legacy_tester.HEADERS
+            and len(rows) == 1 + len(EDGES_THRESHOLDS),
+            f"edges (d): the v1 CSV {rows}")
+    power = {}
+    for row in rows[1:]:
+        rec = dict(zip(rows[0], row))
+        for tier in ("Nano", "Orin"):
+            if int(rec[f"{tier} Tokens Generated"]) > 0:
+                watts = float(rec[f"{tier} Avg Power (W)"])
+                power[f"{tier.lower()}@{rec['Context Threshold']}"] = watts
+                require(device != "cuda" or watts > 0,
+                        f"edges (d): {tier} served at zero power: {rec}")
+    require(power, f"edges (d): no tier served: {rows}")
+    t0 = time.perf_counter()
+    canonical.run_experiment(
+        canonical.normalize_query_set(items), canonical.RunConfig(
+            query_set_name="general_knowledge", thresholds=[1000],
+            strategies=["heuristic"], cache_modes=["off"],
+            fixed_threshold_for_non_token=1000,
+            output_csv=paths["summary.csv"],
+            output_per_query_csv=paths["per_query.csv"],
+            router_kwargs={"device": device}))
+    report = analysis.markdown_report(
+        analysis.Table.read_csv(paths["summary.csv"]),
+        analysis.Table.read_csv(paths["per_query.csv"]))
+    with open(paths["report.md"], "w") as f:
+        f.write(report)
+    require("## general_knowledge" in report
+            and "## Device split per strategy" in report,
+            f"edges (d): the analysis report {report[:500]}")
+    return {"v1_rows": rows, "avg_power_w": power, "legacy_s": legacy_s,
+            "canonical_s": time.perf_counter() - t0,
+            "report_lines": len(report.splitlines())}
+
+
+def native_vs_python() -> dict:
+    """(e): the C++ featurizer and merge loop against their Python twins
+    on every query of the query sets: bit-identical, and the host time of
+    each per query (one text at a time; the Python merge loop on a fresh
+    tokenizer, its per-chunk cache cold)."""
+    import numpy as np
+
+    from distributed_llm_tpu_torch import native
+    from distributed_llm_tpu_torch.bench.query_sets import query_sets
+    from distributed_llm_tpu_torch.engine import bpe
+    from distributed_llm_tpu_torch.routing import embedder
+
+    texts = [(i["query"] if isinstance(i, dict) else i).lower()
+             for items in query_sets.values() for i in items]
+    dim = embedder.FEATURE_DIM
+    feats = native.featurize_batch(texts, dim)
+    require(np.array_equal(feats, np.stack([embedder._features(t)
+                                            for t in texts])),
+            "edges (e): native features differ from the Python twin's")
+    tok = bpe.load_default()
+    handle = tok._native_handle()
+    ascii_texts = [t for t in texts if t.isascii()]
+    fresh = bpe.BPETokenizer(merges=tok.merges, vocab_size=tok.vocab_size)
+
+    def python_ids(t):
+        return [i for m in bpe._CHUNK_RE.finditer(t)
+                for i in fresh._encode_chunk(m.group())]
+
+    def us_per(fn, items):
+        t0 = time.perf_counter()
+        out = [fn(t) for t in items]
+        return (time.perf_counter() - t0) * 1e6 / len(items), out
+
+    res = {"queries": len(texts), "ascii_queries": len(ascii_texts)}
+    res["featurize_native_us"], _ = us_per(
+        lambda t: native.featurize_batch([t], dim), texts)
+    res["featurize_python_us"], _ = us_per(embedder._features, texts)
+    res["bpe_native_us"], got = us_per(
+        lambda t: native.bpe_encode(handle, t), ascii_texts)
+    res["bpe_python_cold_us"], want = us_per(python_ids, ascii_texts)
+    require(got == want, "edges (e): native BPE ids differ from the Python "
+            "loop's")
+    return res
+
+
+def encoder_training(device: str = "cuda") -> dict:
+    """(f): ``encoder_train.train`` (EDGES_ENCODER_STEPS steps) into
+    ``build/edges/``, its evaluation beside the committed weights'."""
+    from distributed_llm_tpu_torch.routing import encoder, encoder_train
+    out = os.path.join(REPO, "build", "edges", "encoder_weights.npz")
+    require(os.path.abspath(out) != os.path.abspath(encoder._DEFAULT_WEIGHTS),
+            "edges (f): would overwrite the committed weights")
+    lines = []
+    t0 = time.perf_counter()
+    trained = encoder_train.train(out, steps=EDGES_ENCODER_STEPS,
+                                  device=device, log=lines.append)
+    train_s = time.perf_counter() - t0
+    committed = encoder_train.evaluate(encoder._DEFAULT_WEIGHTS,
+                                       device=device, log=lines.append)
+    loss = trained["final_train_loss"]
+    require(loss == loss and abs(loss) < 1e6 and os.path.isfile(out),
+            f"edges (f): training gave loss {loss}")
+    keys = ("encoder_pos_mean", "encoder_neg_mean", "encoder_sep_acc",
+            "encoder_best_threshold", "hashed_sep_acc")
+    return {"steps": EDGES_ENCODER_STEPS, "train_s": train_s,
+            "final_train_loss": loss, "first_log": lines[1] if len(lines) > 1
+            else None, "trained": {k: trained[k] for k in keys},
+            "committed": {k: committed[k] for k in keys}}
+
+
+def tune_table(out_dir: str = REPORT_DIR) -> dict:
+    """(g): ``tune.derive`` over phase 11's headline (its sections in
+    ``bench_partial.json``), printed and not written."""
+    from distributed_llm_tpu_torch.bench import tune
+    path = os.path.join(out_dir, "bench_partial.json")
+    if not os.path.exists(path):
+        return {"table": None, "note": "no headline: phase 11 did not run"}
+    headline = tune.read_result(path)
+    table = tune.derive(headline)
+    require(table["backend"] == headline.get("backend"),
+            f"edges (g): {table}")
+    return {"table": table, "quant": headline.get("quant")}
+
+
+def ab_micro(device: str = "cuda") -> dict:
+    """(h): ``ab_kernels.micro_ab`` on nano_1b over EDGES_AB_LENGTHS at
+    EDGES_AB_BATCHES, uncounted; no case may raise or mismatch."""
+    from distributed_llm_tpu_torch.bench import ab_kernels
+    with uncounted():
+        res = ab_kernels.micro_ab("nano", repeat=10, lengths=EDGES_AB_LENGTHS,
+                                  batches=EDGES_AB_BATCHES, device=device,
+                                  log=lambda line: None)
+    bad = [c for c in res["cases"] if c.get("numerics_mismatch")
+           or "kernel_error" in c or "plain_error" in c]
+    require(not bad, f"edges (h): {bad}")
+    require({c["kind"] for c in res["cases"]} == ab_kernels.ALL_KINDS,
+            f"edges (h): kinds {sorted({c['kind'] for c in res['cases']})}")
+    return res
+
+
+def edges_phase(torch, nano, orin, *, device: str = "cuda",
+                out_dir: str = REPORT_DIR):
+    """Phase 18, (a)-(h) (see the module docstring).  Launches: the
+    parent's over (d) plus the child's over (a); the children of (b) and
+    (c) serve the same paths and are checked by their exits."""
+    on_card = device == "cuda"
+    t_all = time.perf_counter()
+    fresh_peak(torch, on_card)
+    out: dict = {}
+    out["reference"] = reference_program(device)
+    out["repl"] = repl_child(device)
+    out["main"] = main_child(device)
+    fresh_peak(torch, on_card)
+    reset_counts()
+    out["testers"] = testers(device, out_dir)
+    launches, _ = read_counts(("w8_matmul", "ragged_decode", "flash_causal")
+                              if on_card else (), on_card)
+    out["native"] = native_vs_python()
+    out["encoder"] = encoder_training(device)
+    out["tune"] = tune_table(out_dir)
+    out["ab_kernels"] = ab_micro(device)
+    out["wall_s"] = time.perf_counter() - t_all
+    child = out["reference"]["launches"]
+    return out, {k: n + child.get(k, 0) for k, n in launches.items()}
+
+
+def edges_summary(res: dict) -> dict:
+    ab = {}
+    for c in res["ab_kernels"]["cases"]:
+        key = f"{c['kind']}@{c['length']}x{c.get('batch', 1)}"
+        ab[key] = [round(c["kernel_ms"], 4), round(c["plain_ms"], 4)]
+    ref = res["reference"]
+    return {
+        "reference": {"compat_ok": ref["compat_ok"],
+                      "devices": [c["device"] for c in ref["chats"]],
+                      "launches": {k: ref["launches"][k] for k in (
+                          "w8_matmul", "ragged_decode", "flash_causal",
+                          "paged_chunk")},
+                      "follow_up_launches": ref["per_call"][2]["launches"],
+                      "wall_s": ref["wall_s"]},
+        "repl": res["repl"], "main": res["main"],
+        "testers": {k: res["testers"][k] for k in (
+            "avg_power_w", "legacy_s", "canonical_s", "report_lines")},
+        "native": res["native"], "encoder": res["encoder"],
+        "tune": res["tune"]["table"],
+        "ab_kernels_ms_kernel_plain": ab, "wall_s": res["wall_s"]}
+
+
 # The late phases, by name: each (torch, nano tier, orin tier) ->
 # (numbers, launches by kernel).
 def _seq(tier, **kw):
@@ -5194,6 +5667,7 @@ LATE_PHASES = {
     "legs": lambda torch, nano, orin: legs_phase(torch, nano, orin),
     "fleet": lambda torch, nano, orin: fleet_phase(torch, nano, orin),
     "fleet2": lambda torch, nano, orin: fleet2_phase(torch, nano, orin),
+    "edges": lambda torch, nano, orin: edges_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -5485,7 +5959,8 @@ def main() -> None:
             log(json.dumps({name: (leg_summary(numbers) if name in (
                 "legs", "bench") else fleet_summary(numbers)
                 if name == "fleet" else fleet2_summary(numbers)
-                if name == "fleet2" else numbers), "card": card,
+                if name == "fleet2" else edges_summary(numbers)
+                if name == "edges" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -5578,8 +6053,11 @@ def main() -> None:
     # the replica leg at nano_1b's width.
     # 17. The fleet's second half: tenants on the bench cluster, elastic
     # membership and chaos2 on nano_1b, a remote nano tier.
+    # 18. The edges: the reference-style program, the REPL and python -m
+    # in child processes, the testers and the analysis, the host loops,
+    # the encoder's training, tune and the kernel A/B.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
-                 "legs", "fleet", "fleet2"):
+                 "legs", "fleet", "fleet2", "edges"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
@@ -5746,6 +6224,8 @@ def main() -> None:
                     "bench_legs": leg_summary(bench)}))
     log(json.dumps({"card": card, "fleet": fleet_summary(late["fleet"])}))
     log(json.dumps({"card": card, "fleet2": fleet2_summary(late["fleet2"])},
+                   default=str))
+    log(json.dumps({"card": card, "edges": edges_summary(late["edges"])},
                    default=str))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},

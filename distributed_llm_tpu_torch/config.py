@@ -476,15 +476,41 @@ def bench_cluster() -> ClusterConfig:
     sized for a 16 GB TPU v5e; the port keeps its decode caps, slot counts
     and weight format and serves the models its own main path serves (the
     ``/chat`` service's pair) on the 80 GB card.  Its speculative A/B env
-    flag has no counterpart (the port has no env knobs), and the JAX
-    package's measured tuning table overlays a cluster only when its
-    backend matches the running one; its table is the CPU's, so it never
-    applies on a card, and the port has none."""
-    return ClusterConfig(
+    flag has no counterpart (the port has no env knobs).  A measured
+    tuning table (``bench/tune.py``: ``bench/tuning.json``) overlays each
+    tier's ``quantize``, ``kv_quantize`` and speculative draft when, and
+    only when, it was measured on the card (backend ``"cuda"``), as the
+    JAX package's overlays a table of its own backend.  The repo commits
+    no table, so this is the hand-set cluster: writing one belongs with
+    the bench cells that measure it."""
+    cluster = ClusterConfig(
         nano=TierConfig(name="nano", model_preset="nano_1b",
                         max_new_tokens=64, quantize="int8", decode_batch=8),
         orin=TierConfig(name="orin", model_preset="orin_8b",
                         max_new_tokens=128, quantize="int8", decode_batch=4))
+    return _apply_tuning(cluster)
+
+
+def _apply_tuning(cluster: ClusterConfig) -> ClusterConfig:
+    """Overlay the card's tuning table (``bench.tune.load_tuning``) on
+    ``cluster``: per tier ``quantize`` and ``kv_quantize``, and for orin
+    the nano tier's preset as its draft where the table's ``speculative``
+    verdict is true (none where false)."""
+    from .bench.tune import load_tuning
+    tiers = load_tuning()
+    if not tiers:
+        return cluster
+
+    def apply(tier: TierConfig) -> TierConfig:
+        t = tiers.get(tier.name) or {}
+        kw = {k: t[k] for k in ("quantize", "kv_quantize") if k in t}
+        if tier.name == "orin" and "speculative" in t:
+            kw["draft_preset"] = (cluster.nano.model_preset
+                                  if t["speculative"] else None)
+        return dataclasses.replace(tier, **kw) if kw else tier
+
+    return dataclasses.replace(cluster, nano=apply(cluster.nano),
+                               orin=apply(cluster.orin))
 
 
 def flagship_cluster(n_devices: int = 1, kv_int8: bool = False

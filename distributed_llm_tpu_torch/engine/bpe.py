@@ -1,10 +1,11 @@
 """Byte-level BPE subword tokenizer over the committed vocabulary.
 
 The port's own copy of ``distributed_llm_tpu/engine/bpe.py`` (encode and
-decode only; training the vocabulary stays with the JAX package).  It
-always runs the pure-Python merge loop: the JAX package's native encoder
-is pinned bit-identical to this loop there, so both packages produce the
-same ids.
+decode only; training the vocabulary stays with the JAX package).  As
+there, an ASCII text of at least 256 characters takes the C++ merge loop
+(``native/bpe_encoder.cc``, built at first use); shorter texts, where the
+per-chunk cache usually hits, and non-ASCII text take the Python loop,
+which the C++ loop equals id for id on ASCII.
 
 Id layout: 0-255 raw UTF-8 bytes, 256/257/258 PAD/BOS/EOS, 259+ learned
 merges in rank order, padded up to ``vocab_size`` (padding ids decode to
@@ -82,8 +83,25 @@ class BPETokenizer:
             self._cache[chunk] = ids
         return ids
 
+    def _native_handle(self) -> int:
+        """This vocabulary's merge table in the C++ loop, registered at
+        first use."""
+        handle = self.__dict__.get("_handle")
+        if handle is None:
+            from .. import native
+            handle = native.bpe_load(self.merges)
+            object.__setattr__(self, "_handle", handle)
+        return handle
+
     def encode(self, text: str, add_bos: bool = True) -> List[int]:
         ids: List[int] = [self.bos_id] if add_bos else []
+        # Long ASCII prompts take the C++ merge loop (on ASCII, C's
+        # byte-wise whitespace test and Python's \s agree); the rest stays
+        # on the Python loop, as in the JAX package.
+        if len(text) >= 256 and text.isascii():
+            from .. import native
+            ids.extend(native.bpe_encode(self._native_handle(), text))
+            return ids
         for m in _CHUNK_RE.finditer(text):
             ids.extend(self._encode_chunk(m.group()))
         return ids

@@ -3,15 +3,16 @@ semantic routing cache.
 
 Counterpart of ``distributed_llm_tpu/routing/embedder.py``.
 ``HashedNgramEmbedder`` builds a signed hashed bag of word 1/2-grams and
-character trigrams on the host (``_features``, bit-identical to the JAX
-package's), projects it to 384 dims by a fixed seeded Gaussian matrix and
-L2-normalizes it; the projection runs as one ``torch.matmul`` on the
-router's device.  ``HybridEmbedder`` concatenates the trained encoder's
-unit vector (routing/encoder.py) and the hashed one, weighted so that a
-cosine of two hybrid vectors is alpha * cos_encoder + (1 - alpha) *
-cos_hashed.  ``get_embedder`` selects one by the config's
-``embedding_model``.  The JAX package's C++ featurizer is not ported: the
-pure-Python ``_features`` serves every text.
+character trigrams on the host, projects it to 384 dims by a fixed seeded
+Gaussian matrix and L2-normalizes it; the projection runs as one
+``torch.matmul`` on the router's device.  The features come from the C++
+featurizer (``native/featurizer.cc``, built at first use), as in the JAX
+package; ``_features`` is its pure-Python twin, bit-identical, the plain
+version the tests hold it against.  ``HybridEmbedder`` concatenates the
+trained encoder's unit vector (routing/encoder.py) and the hashed one,
+weighted so that a cosine of two hybrid vectors is alpha * cos_encoder +
+(1 - alpha) * cos_hashed.  ``get_embedder`` selects one by the config's
+``embedding_model``.
 """
 
 from __future__ import annotations
@@ -52,16 +53,20 @@ def _hash(token: str) -> int:
 
 
 def _features(text: str) -> np.ndarray:
-    """Signed hashed bag of word 1/2-grams + char trigrams, content-weighted."""
+    """Signed hashed bag of word 1/2-grams + char trigrams, content-weighted:
+    the C++ featurizer's Python twin, bit-identical to it."""
     vec = np.zeros(FEATURE_DIM, dtype=np.float32)
     # Strip possessive/contraction suffixes so "what's" matches "what".
     words = [w[:-2] if w.endswith("'s") else w.replace("'", "")
              for w in _WORD_RE.findall(text.lower())]
 
     def bump(token: str, weight: float) -> None:
+        # The sum in float64, rounded on store, as the C++ loop does it
+        # (numpy 2 would add a Python float to a float32 in float32).
         h = _hash(token)
         sign = 1.0 if (h >> 16) & 1 else -1.0
-        vec[h % FEATURE_DIM] += sign * weight
+        i = h % FEATURE_DIM
+        vec[i] = float(vec[i]) + sign * weight
 
     for w in words:
         bump("u:" + w, _STOP_WEIGHT if w in _STOPWORDS else 1.0)
@@ -104,8 +109,12 @@ class HashedNgramEmbedder:
             texts = [texts]
         if not texts:
             return np.zeros((0, self.dim), np.float32)
+        # Lowering here keeps Unicode case folding (which can map a
+        # non-ASCII character into [a-z], e.g. the Kelvin sign) and NUL
+        # handling the same for the C++ loop and its Python twin.
+        from .. import native
         normalized = [t.lower().replace("\0", " ") for t in texts]
-        return self._project(np.stack([_features(t) for t in normalized]))
+        return self._project(native.featurize_batch(normalized, FEATURE_DIM))
 
 
 _defaults: Dict[str, HashedNgramEmbedder] = {}

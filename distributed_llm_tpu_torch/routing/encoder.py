@@ -7,10 +7,11 @@ learned positions (64), two pre-LN bidirectional blocks (4-head
 attention with padding masked, a tanh-approximated GELU MLP x4), a final
 LayerNorm, mean-pooling over the real tokens and one of two dense
 projection heads, L2-normalized: "meaning" (the serving space, inside
-the hybrid embedder) and "class" (a probe on the pooled trunk).  The
-forward is plain PyTorch in float32; LayerNorm uses the population
-variance, as ``jnp.var`` does.  Training and evaluation stay in the JAX
-package.
+the hybrid embedder) and "class" (a probe on the pooled trunk, which
+the class loss trains without reaching the trunk).  The forward is plain
+PyTorch in float32; LayerNorm uses the population variance, as
+``jnp.var`` does.  ``init_encoder_params`` is the JAX package's seeded
+numpy initialization; training is ``routing/encoder_train.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,39 @@ _DEFAULT_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 N_LAYERS = 2
 N_HEADS = 4
+MLP_MULT = 4
+
+
+def init_encoder_params(vocab_size: int = 4096, dim: int = ENCODER_DIM,
+                        seed: int = 0) -> Dict[str, np.ndarray]:
+    """Seeded float32 numpy parameters, drawn as the JAX package's
+    ``init_encoder_params`` draws them (the same dict for a seed)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=0.02):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    params: Dict[str, np.ndarray] = {
+        "embed": normal(vocab_size, dim),
+        "pos": normal(MAX_TOKENS, dim),
+        "out_w": normal(dim, dim),       # meaning head (cache space)
+        "out_b": np.zeros(dim, np.float32),
+        "cls_w": normal(dim, dim),       # class head (strategy space)
+        "cls_b": np.zeros(dim, np.float32),
+        "final_ln": np.ones(dim, np.float32),
+    }
+    for i in range(N_LAYERS):
+        params.update({
+            f"l{i}_ln1": np.ones(dim, np.float32),
+            f"l{i}_wq": normal(dim, dim), f"l{i}_wk": normal(dim, dim),
+            f"l{i}_wv": normal(dim, dim), f"l{i}_wo": normal(dim, dim),
+            f"l{i}_ln2": np.ones(dim, np.float32),
+            f"l{i}_w1": normal(dim, MLP_MULT * dim),
+            f"l{i}_b1": np.zeros(MLP_MULT * dim, np.float32),
+            f"l{i}_w2": normal(MLP_MULT * dim, dim),
+            f"l{i}_b2": np.zeros(dim, np.float32),
+        })
+    return params
 
 
 def encode_fn(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -67,7 +101,9 @@ def encode_fn(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
     pooled = (x * mask[..., None]).sum(dim=1) / denom
     if head == "class":
-        out = pooled @ params["cls_w"] + params["cls_b"]
+        # A linear probe: the class loss does not reach the trunk
+        # (identity at inference).
+        out = pooled.detach() @ params["cls_w"] + params["cls_b"]
     else:
         out = pooled @ params["out_w"] + params["out_b"]
     return out / torch.clamp(torch.linalg.vector_norm(out, dim=-1,

@@ -25,6 +25,7 @@ billing.  /stats carries each quota-on tier's ``tenants`` block and the
 ``autoscaler`` block.
 
     python -m distributed_llm_tpu_torch.serving.app      # port 8000
+    python -m distributed_llm_tpu_torch [--port N] [--device cpu]
 """
 
 from __future__ import annotations
@@ -447,13 +448,23 @@ def install_drain_handler(router: Router, exit_after: bool = True) -> bool:
         return False
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
+    """Serve ``/chat`` on ``--port`` (default 8000, the reference's) on
+    the card, or on the CPU with ``--device cpu``; SIGTERM drains."""
+    import argparse
+    p = argparse.ArgumentParser(description="the two-tier /chat service")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--device", default=None,
+                   help="cpu runs the plain PyTorch path (default: the card)")
+    args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    router = Router(strategy="hybrid", config=dict(BASE_CONFIG))
+    router = Router(strategy="hybrid", config=dict(BASE_CONFIG),
+                    device=args.device)
     app = create_app(router=router)
     install_drain_handler(router)
-    print("API running on http://0.0.0.0:8000", flush=True)
-    app.run(host="0.0.0.0", port=8000, threaded=True)
+    print(f"API running on http://{args.host}:{args.port}", flush=True)
+    app.run(host=args.host, port=args.port, threaded=True)
 
 
 if __name__ == "__main__":

@@ -266,6 +266,11 @@ class Router:
                     scaler.start()
                     self.autoscalers[t.name] = scaler
 
+    def set_threshold(self, threshold: int) -> None:
+        """The context-size fallback's threshold (the v1 harness sets it
+        per sweep point)."""
+        self.threshold_fallback = threshold
+
     # -- graceful drain ----------------------------------------------------
 
     def drain_retry_after_s(self) -> float:

@@ -7,12 +7,14 @@ A subprocess with ``jax`` and ``distributed_llm_tpu`` blocked in
 the autoscaler, remote tiers, the health monitor), the routing layer,
 the bench (its scenarios and fleet legs too) and the tester, the
 roofline, telemetry and memory budget utilities, the obs layer, int8
-weights with the W1 kernel's wrapper and the flagship cluster) and
-``chip_smoke``; an AST scan of every port module and of chip_smoke.py
+weights with the W1 kernel's wrapper and the flagship cluster, the
+edges: ``python -m``'s module, the REPL, the C++ host loops, the v1
+tester, the analysis, tune, the kernel A/B harness, the encoder's data,
+training and evaluation, and the reference shims) and ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
-citations of the TPU kernels): the routing weights and labels are the
-port's own copies."""
+citations of the TPU kernels): the routing weights, labels and
+off-generator pairs and the C++ sources are the port's own copies."""
 
 from __future__ import annotations
 
@@ -89,7 +91,8 @@ def test_no_string_literal_points_into_the_jax_package():
 
 
 def test_the_routing_data_files_are_the_ports_own():
-    for name in ("encoder_weights.npz", "semantic_labels.json"):
+    for name in ("encoder_weights.npz", "semantic_labels.json",
+                 "offgen_pairs.json"):
         path = os.path.join(PORT, "routing", name)
         assert os.path.isfile(path) and not os.path.islink(path), path
 
@@ -142,6 +145,19 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.obs\n"
         "from distributed_llm_tpu_torch.obs import (metrics, profiler,\n"
         "    recorder, sampler, slo, spans)\n"
+        "import distributed_llm_tpu_torch.__main__\n"
+        "import distributed_llm_tpu_torch.serving.cli\n"
+        "from distributed_llm_tpu_torch import native\n"
+        "assert native.featurize_batch(['hi there'], 16).shape == (1, 16)\n"
+        "import distributed_llm_tpu_torch.bench.legacy_tester\n"
+        "import distributed_llm_tpu_torch.bench.analysis\n"
+        "import distributed_llm_tpu_torch.bench.tune\n"
+        "import distributed_llm_tpu_torch.bench.ab_kernels\n"
+        "from distributed_llm_tpu_torch.routing import (encoder_data,\n"
+        "    encoder_eval, encoder_train)\n"
+        "sys.path.insert(0, 'distributed_llm_tpu_torch/reference_compat')\n"
+        "import router, query_router_engine, query_sets, cache, token_counter\n"
+        "assert router.Router.__module__.startswith('distributed_llm_tpu_torch.')\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'distributed_llm_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"

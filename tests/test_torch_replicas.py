@@ -137,6 +137,10 @@ def _dispatch(client, script):
 
 def test_dispatch_choices_match_jax():
     jc, tc = _clients()
+    # One frozen clock for both breakers: the snapshots' cooldown_remaining_s
+    # is read from it, so it compares exactly however far apart the two
+    # scripts run.
+    jc.breaker._clock = tc.breaker._clock = lambda: 1000.0
     want, got = _dispatch(jc, DISPATCH), _dispatch(tc, DISPATCH)
     assert got == want
     hows = [how for _, how in got[0]]
