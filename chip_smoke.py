@@ -241,18 +241,50 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    report over its CSVs; (e) the C++ featurizer and BPE loop against
    their Python twins on every query of the query sets (bit-identical
    features, identical ids, host microseconds per query); (f) the
-   encoder's training on the card (600 steps, written under ``build/``)
+   encoder's training on the card (200 steps, written under ``build/``)
    and its evaluation beside the committed weights'; (g) ``bench.tune``'s
    table derived from phase 11's headline (printed, not written); (h)
    ``bench.ab_kernels`` micro on nano_1b over a short ladder (uncounted:
    it compares kernels with their plain versions).  The phase's launches
    are the parent's (d) and the child's (a).
+19. MoE (``moe``): moe_8x1b (8 experts of nano_1b's width, 16 layers,
+   about 6.6 B parameters) at ``ep = 1`` on the default nano tier's
+   fields; its memory budget first (every part must fit the card), then
+   the tier behind its /query server four ways, each a serve phase with
+   its requests, kernels, admission audit and checks: the batched engine
+   on the ragged tick with a bf16 pool, with an int8 pool, the
+   sequential engine (bf16 cache) and int8 weights (W1 per expert up to
+   64 rows).  The logits checks keep the kernels' run's experts in all
+   three runs (``pinned_routes``): a router choice the other runs would
+   make differently must be a near-tie (its log-probability gap within
+   twice the router's drift between the runs);
+20. training (``train``): (a) K2 under autograd (``FlashCausal``) at
+   nano_1b's width (B 4, S 256): output and q/k/v gradients against
+   float32 autograd of the plain version, every row within
+   KERNEL_REL_TOL, timed beside the plain version (uncounted); (b)
+   ``training.pretrain`` of nano_1b at full width, 10 steps at batch 8
+   and seq 256 from seed 0: finite losses, ms a step and tokens/s; the
+   saved root served through ``checkpoint_path`` behind /query (the
+   engine holds the saved weights; K1 and K2 launch) and scored by
+   ``evaluate.eval_checkpoint``; (c) nano_test for 300 steps and (d)
+   moe_test for 100 (batch 16, seq 128): the last 25-step window's mean
+   loss below the first's, and moe_test's load-balance loss above 0.  K2
+   launches in every training run; the plain causal attention runs only
+   as K2's backward.
+
+Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20 (every
+path kept): the bench's sweep serves the first BENCH_QUERIES queries a
+strategy with BENCH_TREND_REPEATS trend repeats and runs its tiny
+tenant and autoscaler legs at BENCH_LEG_DEPTH, the legs' open-loop
+budget is LEG_OPENLOOP_S, phase 17's load and ramps are FLEET2_NOISY_LOAD_S,
+FLEET2_ELASTIC_PERIOD_S and FLEET2_CHAOS2_PERIOD_S, and the encoder
+trains EDGES_ENCODER_STEPS steps.
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
-``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``) builds the kernels and runs
-only those phases,
+``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``, ``moe``,
+``train``) builds the kernels and runs only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
 run.
@@ -301,8 +333,9 @@ overhead, the budgets) and its per-kernel capture
 p50 TTFT, trace columns, profile section, utilization and wall time as
 another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
-as two more, the fleet's, the fleet's second half's and the edges' as three more
-(each with the card's name and power limit), the card's name and power
+as two more, the fleet's, the fleet's second half's and the edges' as three more,
+MoE's and training's as two more (each with the card's name and power
+limit), every phase's wall seconds as one more, the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -314,6 +347,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2661,17 +2695,69 @@ def plain_attention(float32: bool = False):
             setattr(TA, name, fn)
 
 
+@contextlib.contextmanager
+def pinned_routes(routes: list, record: bool):
+    """A MoE model's expert choice (``models.moe._top2_gates``), call by
+    call: recorded into ``routes`` (each call's chosen experts and router
+    log-probabilities) when ``record``, else replayed from it in the same
+    order, each row's gates renormalised over the recorded experts from
+    this run's own probabilities.  A replayed call whose own top-2 differs
+    in some row (a router near-tie crossed by the two runs' rounding) is
+    noted: the gap between its own weakest pick and the recorded weakest
+    pick in log-probability, and the router's drift between the runs at
+    that call (the largest log-probability change of any row).  Yields
+    the notes.  Dense models never call it."""
+    from distributed_llm_tpu_torch.models import moe
+
+    real = moe._top2_gates
+    calls = iter(list(routes))
+    flips = []
+
+    def gates(router_logits):
+        g, probs = real(router_logits)
+        lp = probs.clamp_min(1e-30).log()
+        mask = g > 0
+        if record:
+            routes.append((mask, lp))
+            return g, probs
+        want, lp_rec = next(calls)
+        differ = (mask != want).any(dim=-1)
+        if bool(differ.any()):
+            inf = float("inf")
+            gap = (lp.masked_fill(~mask, inf).amin(-1)
+                   - lp.masked_fill(~want, inf).amin(-1))[differ]
+            flips.append({"rows": int(differ.sum()),
+                          "gap": gap.max().item(),
+                          "drift": (lp - lp_rec).abs().max().item()})
+        pinned = probs * want
+        return pinned / pinned.sum(-1, keepdim=True).clamp_min(1e-9), probs
+
+    moe._top2_gates = gates
+    try:
+        yield flips
+    finally:
+        moe._top2_gates = real
+
+
 def three_ways(fn, state: dict):
     """``fn(copy)`` on its own copy of ``state`` (a KV cache or pool) with
     the kernels, with the plain attention and with the plain attention in
-    float32."""
-    out = []
-    for ctx in (contextlib.nullcontext(), plain_attention(),
-                plain_attention(float32=True)):
+    float32.  A MoE model's expert choice is the kernels' run's in all
+    three (``pinned_routes``), so the logits compare the attention paths
+    and not a router near-tie; each such tie the other runs crossed must
+    be one: its gap within twice the router's drift at that layer
+    (``three_ways.routes`` holds the notes)."""
+    out, routes, notes = [], [], []
+    for i, ctx in enumerate((contextlib.nullcontext(), plain_attention(),
+                             plain_attention(float32=True))):
         copy = {k: v.clone() for k, v in state.items()}
-        with ctx:
+        with ctx, pinned_routes(routes, record=i == 0) as flips:
             out.append(fn(copy))
+        notes += flips
         del copy
+    three_ways.routes = {"calls": len(routes), "flips": notes}
+    require(all(f["gap"] <= 2 * f["drift"] for f in notes),
+            f"a router choice differs beyond a near-tie: {notes}")
     return out
 
 
@@ -2687,6 +2773,8 @@ def check_three(res: dict, kernel, plain, ref, also=()) -> dict:
                 "kernel_vs_float32_max_abs_err": (kernel - ref).abs().max().item(),
                 "plain_vs_float32_max_abs_err": floor,
                 "logits_max_abs": scale, "tol": LOGITS_RTOL * scale + floor})
+    if three_ways.routes["calls"]:
+        res["routes"] = three_ways.routes
     for key in ("kernel_vs_plain_max_abs_err",
                 "kernel_vs_float32_max_abs_err", *also):
         require(res[key] <= res["tol"], f"logits disagree ({key}): {res}")
@@ -4270,10 +4358,11 @@ def trained_chat_phase(torch, *, expect, device: str = "cuda"):
 # verify kernel's 40), the shared leg's system prompt (about 1600 tokens,
 # 25 of nano_1b's 64-token blocks, so the shared prefix dominates as the
 # tiny leg's does in 16-token blocks) and the open-loop leg's budget (the
-# bench cluster's start and warmup included).
+# bench cluster's start and warmup included; cut from 75 s to pay for
+# phases 19 and 20: each rate point lasts 1.26 s, not 2.37).
 LEG_GAMMA_MAX = 8
 LEG_SHARED_PREFIX = "system: " + words(700) + ". answer in one sentence."
-LEG_OPENLOOP_S = 75.0
+LEG_OPENLOOP_S = 40.0
 
 
 def legs_phase(torch, nano, orin, *, device: str = "cuda"):
@@ -4763,9 +4852,11 @@ def fleet_summary(res: dict) -> dict:
 # (b) the elastic leg's ramp; (c) chaos2's ramp; (d) the remote tier's
 # turns and the bound on kill-to-serving (the child imports torch, builds
 # and warms nano_1b).
-FLEET2_NOISY_LOAD_S = 2.5
-FLEET2_ELASTIC_PERIOD_S = 12.0
-FLEET2_CHAOS2_PERIOD_S = 16.0
+# Cut from 2.5, 12 and 16 s to pay for phases 19 and 20 (the CPU tests run
+# the legs at 1, 6 and 8 s under the same bars).
+FLEET2_NOISY_LOAD_S = 2.0
+FLEET2_ELASTIC_PERIOD_S = 8.0
+FLEET2_CHAOS2_PERIOD_S = 10.0
 FLEET2_REMOTE_TURNS = 4
 FLEET2_REVIVE_S = 180.0
 TENANT_COUNTERS = ("dllm_tenant_device_time_ms_total",
@@ -5277,7 +5368,7 @@ EDGES_REPL_TURNS = ("hello there", "what is the capital of france?",
                     "explain how rivers form deltas near the sea")
 EDGES_QUERIES = 4                 # the first general_knowledge queries (d)
 EDGES_THRESHOLDS = (100, 1000)
-EDGES_ENCODER_STEPS = 600         # the JAX package's default
+EDGES_ENCODER_STEPS = 200         # the JAX package's default is 600
 EDGES_AB_LENGTHS = (256, 2048)
 EDGES_AB_BATCHES = (1, 8)
 EDGES_CHILD_S = 600.0
@@ -5620,6 +5711,291 @@ def edges_summary(res: dict) -> dict:
 
 # The late phases, by name: each (torch, nano tier, orin tier) ->
 # (numbers, launches by kernel).
+# -- phase 19: MoE at ep = 1 -------------------------------------------------------
+
+MOE_LENGTHS = (4, 60, 150, 240)
+# The MoE tier's four ways of serving: (the tier from the base tier, the
+# kernels that must launch).  The int8 pool's suffix chunk has no kernel
+# (plain by design, as JAX's is XLA); the sequential engine keeps a bf16
+# cache for MoE.
+MOE_PARTS = {
+    "bf16_pool": (lambda t: t, ("ragged_decode", "flash_causal",
+                                "paged_chunk")),
+    "int8_pool": (lambda t: dataclasses.replace(t, kv_quantize="int8"),
+                  ("flash_causal", "ragged_decode_q8")),
+    "sequential": (lambda t: dataclasses.replace(t, decode_batch=1),
+                   ("flash_causal", "flash_decode", "flash_chunk")),
+    "int8_weights": (lambda t: dataclasses.replace(t, quantize="int8"),
+                     ("ragged_decode", "flash_causal", "paged_chunk",
+                      "w8_matmul")),
+}
+
+
+def moe_tier(nano):
+    """moe_8x1b (8 experts of nano_1b's width, 16 layers, about 6.6 B
+    parameters) on the default nano tier's fields: 8 slots, a bf16 pool,
+    the ragged tick, ep = 1."""
+    return dataclasses.replace(nano, name="moe", model_preset="moe_8x1b")
+
+
+def moe_phase(torch, nano, orin, *, device: str = "cuda"):
+    """Phase 19: moe_8x1b at full width and depth on the one card.  Its
+    memory budget comes first (each part against the card's memory, and
+    the budget's weight bytes against the engine's own); then the tier
+    behind its /query server: the batched engine on the ragged tick with
+    a bf16 pool (``serve_phase``: cold, chunked, prefix-hit, concurrent
+    and streaming requests), with an int8 pool, the sequential engine
+    (``serve_sequential_phase``) and int8 weights through the batched
+    engine.  Each part's kernels launch, no plain attention runs, and its
+    decode-step logits hold ``three_ways`` against the plain path.
+    Returns (numbers by part, launches summed over the parts)."""
+    from distributed_llm_tpu_torch.utils.hbm_budget import tier_hbm_budget
+
+    on_card = device == "cuda"
+    card_gb = (torch.cuda.get_device_properties(0).total_memory / 1e9
+               if on_card else 80.0)
+    base = moe_tier(nano)
+    budget = {name: tier_hbm_budget(make(base), hbm_per_chip_gb=card_gb)
+              for name, (make, _) in MOE_PARTS.items()}
+    require(all(b["fits"] for b in budget.values()),
+            f"moe_8x1b does not fit the card: {budget}")
+    parts, total = {}, {}
+    for name, (make, expect) in MOE_PARTS.items():
+        tier = make(base)
+        t0 = time.perf_counter()
+        if tier.decode_batch == 1:
+            res, launches = serve_sequential_phase(torch, tier, expect=expect,
+                                                   device=device)
+        else:
+            res, launches = serve_phase(torch, tier, lengths=MOE_LENGTHS,
+                                        expect=expect, device=device)
+        res["wall_s"] = time.perf_counter() - t0
+        res["budget"] = {k: budget[name][k] for k in (
+            "params_gb_per_chip", "kv_gb_per_chip", "total_gb_per_chip",
+            "fits")}
+        parts[name] = res
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"moe {name} served in {res['wall_s']:.1f}s")
+    return parts, total
+
+
+def moe_summary(parts: dict) -> dict:
+    """What phase 19 prints of each part: launches, the ms a tick and a
+    step, TTFT, the logits checks and the budget."""
+    out = {}
+    for name, r in parts.items():
+        step = r.get("decode_step") or {}
+        ticks = r.get("tick_stats") or {}
+        out[name] = {
+            "engine": r["engine"], "launches": {k: v for k, v in
+                                                r["launches"].items() if v},
+            "tick_ms_p50": ticks.get("p50_ms"),
+            "step_graph_ms": step.get("graph_ms"),
+            "step_wall_ms": step.get("wall_ms"),
+            "cold_ttft_ms": r["cold_ttft_ms"],
+            "chunked_ttft_ms": r["chunked_ttft_ms"],
+            "p50_ttft_ms": r["concurrent"]["p50_ttft_ms"],
+            "tokens_per_s": r["concurrent"]["tokens_per_s"],
+            "logits_check": {k: (r.get("decode_logits_check") or {}).get(k)
+                             for k in ("kernel_vs_plain_max_abs_err",
+                                       "kernel_vs_float32_max_abs_err",
+                                       "tol", "routes")},
+            "budget": r["budget"], "peak_memory_gb": r["peak_memory_gb"],
+            "wall_s": r["wall_s"]}
+    return out
+
+
+# -- phase 20: training -------------------------------------------------------------
+
+TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+TRAIN_1B_STEPS = 10
+TRAIN_1B_BATCH, TRAIN_1B_SEQ = 8, 256
+TRAIN_TINY_STEPS = {"nano_test": 300, "moe_test": 100}
+TRAIN_TINY_BATCH, TRAIN_TINY_SEQ, TRAIN_WINDOW = 16, 128, 25
+
+
+def k2_grad_check(torch, cfg, b: int = 4, s: int = 256) -> dict:
+    """(a) K2 under autograd (``FlashCausal``) at ``cfg``'s width, B x S
+    bf16 q/k/v: the output and the q, k and v gradients against autograd
+    of the plain causal attention in float32, every row within
+    KERNEL_REL_TOL (plain bf16 autograd's own errors beside them), and
+    forward + backward timed eagerly against the plain version's.
+    Uncounted: a comparison, no main path."""
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import flash_attention as TF
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    d = cfg.head_dim
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, s, cfg.num_heads, d),
+                                      (b, s, cfg.num_kv_heads, d),
+                                      (b, s, cfg.num_kv_heads, d),
+                                      (b, s, cfg.num_heads, d)))
+
+    def run(fn, dtype=None):
+        leaves = [(t.to(dtype) if dtype else t).clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g.to(out.dtype))
+        return [out.detach()] + [t.grad for t in leaves]
+
+    names = ("out", "dq", "dk", "dv")
+    with uncounted():
+        kernel = run(TF.flash_causal_attention)
+        plain = run(TA.causal_attention)
+        ref = run(TA.causal_attention, torch.float32)
+        res = {n: row_rel_err(a, r) for n, a, r in zip(names, kernel, ref)}
+        res_plain = {n: row_rel_err(a, r) for n, a, r in zip(names, plain,
+                                                             ref)}
+        ms = time_ms(torch, lambda: run(TF.flash_causal_attention), iters=5)
+        plain_ms = time_ms(torch, lambda: run(TA.causal_attention), iters=5)
+    require(all(e <= KERNEL_REL_TOL for e in res.values()),
+            f"K2's autograd Function disagrees with plain float32 "
+            f"autograd: {res} (plain bf16: {res_plain})")
+    return {"shape": [b, s, cfg.num_heads, cfg.num_kv_heads, d],
+            "rel_err": res, "plain_rel_err": res_plain, "tol": TOL,
+            "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms}
+
+
+def read_train_counts(on_card: bool) -> tuple:
+    """(launches, plain calls) since ``reset_counts`` for a training run:
+    K2 must launch; the only plain version allowed is the causal
+    attention, which is K2's backward by design (JAX's ``_flash_bwd``)."""
+    from distributed_llm_tpu_torch.ops import launches as L
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    plain_calls = L.call_counts()
+    require(launches["flash_causal"] > 0, f"K2 did not launch: {launches}")
+    other = {k: v for k, v in plain_calls.items()
+             if v and k != "causal_attention"}
+    require(not on_card or not other,
+            f"plain attention other than K2's backward ran: {other}")
+    return launches, plain_calls
+
+
+def train_phase(torch, nano, orin, *, device: str = "cuda"):
+    """Phase 20: (a) ``k2_grad_check`` at nano_1b's width; (b)
+    ``training.pretrain`` on nano_1b at full width (TRAIN_1B_STEPS steps
+    at batch 8, seq 256, from seed 0): finite losses, ms a step and
+    tokens/s; the saved root served through ``checkpoint_path`` behind
+    /query (the engine's weights are the saved ones; K1 and K2 launch)
+    and scored by ``evaluate.eval_checkpoint``; (c) nano_test for 300
+    steps and (d) moe_test for 100: the last window's mean loss below the
+    first's, and moe_test's load-balance loss above 0.  Training runs are
+    counted (K2 forward and its remat recompute; the plain causal
+    attention is its backward).  Returns (numbers, launches)."""
+    import shutil
+
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.config import MODEL_PRESETS
+    from distributed_llm_tpu_torch.engine.bpe import load_default
+    from distributed_llm_tpu_torch.models.checkpoint import (
+        load_params_for_tier)
+    from distributed_llm_tpu_torch.training import evaluate, pretrain
+    from distributed_llm_tpu_torch.training.data import batches
+
+    on_card = device == "cuda"
+    out = {"k2_grad": k2_grad_check(torch, nano.model())}
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    root = os.path.join(TRAIN_DIR, nano.model_preset)
+    fresh_peak(torch, on_card)
+    reset_counts()
+    res = pretrain.pretrain(nano.model_preset, root,
+                            batch_size=TRAIN_1B_BATCH, seq_len=TRAIN_1B_SEQ,
+                            max_steps=TRAIN_1B_STEPS, eval_every=5,
+                            patience=TRAIN_1B_STEPS, seed=0, device=device,
+                            log=log)
+    launches, plain_calls = read_train_counts(on_card)
+    add(launches)
+    require(res["steps"] == TRAIN_1B_STEPS and all(
+        math.isfinite(x) for x in res["losses"]),
+        f"nano_1b pretraining: {res['losses']}")
+    steady = res["step_ms"][1:]
+    out["nano_1b"] = {
+        "steps": res["steps"], "losses": res["losses"],
+        "step_ms": res["step_ms"],
+        "steady_ms_per_step": statistics.median(steady),
+        "tokens_per_s": TRAIN_1B_BATCH * TRAIN_1B_SEQ * 1e3
+        / statistics.median(steady),
+        "seconds": res["seconds"], "launches": launches,
+        "plain_calls": plain_calls,
+        "peak_memory_gb": peak_memory_gb(torch, on_card)}
+    tier = dataclasses.replace(nano, checkpoint_path=root)
+    with served(torch, tier, device) as (engine, base, startup_s):
+        saved = torch.load(os.path.join(root, "latest", "params.pt"),
+                           map_location="cpu", weights_only=True)
+        last = f"layers.{len(engine.model.layers) - 1}.wq"
+        require(torch.equal(engine.model.layers[-1].wq.cpu(), saved[last]),
+                "the served engine does not hold the trained weights")
+        del saved
+        reset_counts()
+        t0 = time.perf_counter()
+        first = query(base, "user: tell me about " + words(12))
+        stream_status, _ = post(base + "/query/stream", {
+            "query": "stream about " + words(10, 7), "num_predict": 16})
+        require(stream_status == 200, "/query/stream on the trained root "
+                f"answered {stream_status}")
+        main_s = time.perf_counter() - t0
+        launches, _ = read_counts(("ragged_decode", "flash_causal"), on_card)
+        add(launches)
+    out["served"] = {"startup_s": startup_s, "main_path_s": main_s,
+                     "ttft_ms": first["stats"]["ttft_ms"],
+                     "gen_tokens": first["stats"]["gen_tokens"],
+                     "launches": launches}
+    reset_counts()
+    out["eval"] = evaluate.eval_checkpoint(nano.model_preset, root,
+                                           device=device, n_batches=2,
+                                           batch_size=TRAIN_1B_BATCH,
+                                           seq_len=TRAIN_1B_SEQ)
+    launches, _ = read_counts(("flash_causal",), on_card)
+    add(launches)
+    require(math.isfinite(out["eval"]["eval_loss"]),
+            f"eval_checkpoint: {out['eval']}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    for preset, steps in TRAIN_TINY_STEPS.items():
+        tiny_root = os.path.join(TRAIN_DIR, preset)
+        reset_counts()
+        res = pretrain.pretrain(preset, tiny_root,
+                                batch_size=TRAIN_TINY_BATCH,
+                                seq_len=TRAIN_TINY_SEQ, max_steps=steps,
+                                eval_every=TRAIN_WINDOW, patience=steps,
+                                seed=0, device=device, log=log)
+        launches, _ = read_train_counts(on_card)
+        add(launches)
+        losses = res["losses"]
+        first_w = statistics.fmean(losses[:TRAIN_WINDOW])
+        last_w = statistics.fmean(losses[-TRAIN_WINDOW:])
+        entry = {"steps": res["steps"], "first_window_loss": first_w,
+                 "last_window_loss": last_w,
+                 "steady_ms_per_step": statistics.median(res["step_ms"][1:]),
+                 "seconds": res["seconds"], "launches": launches}
+        require(res["steps"] == steps and all(math.isfinite(x) for x in losses)
+                and last_w < first_w,
+                f"{preset} pretraining did not learn: {entry}")
+        if MODEL_PRESETS[preset].num_experts > 1:
+            cfg = MODEL_PRESETS[preset]
+            model = load_params_for_tier(tiny_root, cfg, device=device)
+            toks, _ = next(batches(TRAIN_TINY_BATCH, TRAIN_TINY_SEQ,
+                                   seed=1, tokenizer=load_default()))
+            tokens = torch.as_tensor(toks, dtype=torch.long, device=device)
+            positions = torch.arange(TRAIN_TINY_SEQ, device=device)[None]
+            with uncounted():
+                entry["aux"] = float(models.moe.prefill(
+                    cfg, model, tokens, positions.expand_as(tokens))[2])
+            require(entry["aux"] > 0, f"{preset}: aux loss {entry['aux']}")
+        out[preset] = entry
+        shutil.rmtree(tiny_root, ignore_errors=True)
+    return out, total
+
+
 def _seq(tier, **kw):
     return dataclasses.replace(tier, decode_batch=1, **kw)
 
@@ -5668,6 +6044,8 @@ LATE_PHASES = {
     "fleet": lambda torch, nano, orin: fleet_phase(torch, nano, orin),
     "fleet2": lambda torch, nano, orin: fleet2_phase(torch, nano, orin),
     "edges": lambda torch, nano, orin: edges_phase(torch, nano, orin),
+    "moe": lambda torch, nano, orin: moe_phase(torch, nano, orin),
+    "train": lambda torch, nano, orin: train_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -5676,6 +6054,31 @@ BENCH_BUDGET_S = 600.0
 # The open-loop leg's share of it (the JAX bench gives it up to 120 s;
 # 40 s is its least, which keeps the whole script inside its limit).
 BENCH_OPENLOOP_S = 40.0
+# The sweep's depth: the first 4 of the 12 general_knowledge queries a
+# strategy (both legs, every strategy), and 3 trend repeats, not 5; the
+# tiny tiers' tenant and autoscaler legs at the CPU tests' depth (the
+# noisy load 1.5 s, not 2.5; the elastic and chaos2 ramps 8 s, not 20 and
+# 16): cut to pay for phases 19 and 20.
+BENCH_QUERIES = 4
+BENCH_TREND_REPEATS = 3
+BENCH_LEG_DEPTH = {"noisy_phase": {"load_s": 1.5},
+                   "elastic_phase": {"period_s": 8.0},
+                   "chaos2_phase": {"period_s": 8.0}}
+
+
+@contextlib.contextmanager
+def leg_depth(module, depth: dict):
+    """``module``'s leg functions called with ``depth``'s keyword
+    arguments inside (the headline calls them by module attribute)."""
+    saved = {name: getattr(module, name) for name in depth}
+    for name, kw in depth.items():
+        setattr(module, name, lambda *a, _fn=saved[name], _kw=kw, **k:
+                _fn(*a, **{**_kw, **k}))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 BENCH_KERNELS = ("ragged_decode", "flash_causal", "paged_chunk",
                  "ragged_decode_q8", "w8_matmul", "paged_decode",
                  "ragged_verify")
@@ -5709,22 +6112,35 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
     kernel)."""
     import csv
 
-    from distributed_llm_tpu_torch.bench import headline, tester
+    from distributed_llm_tpu_torch.bench import elastic, headline, tester
 
     on_card = device == "cuda"
     fresh_peak(torch, on_card)
     os.makedirs(out_dir, exist_ok=True)
     summary_csv = os.path.join(out_dir, "bench_tester_summary.csv")
     per_query_csv = os.path.join(out_dir, "bench_tester_per_query.csv")
+    progress = headline.Progress(os.path.join(out_dir, "bench_partial.json"))
+    # Each section's wall seconds: the time since the previous one closed.
+    section_s = {}
+    marks = [time.perf_counter()]
+    real_section = progress.section
+
+    def section(name, value):
+        now = time.perf_counter()
+        section_s[name] = round(now - marks[0], 2)
+        marks[0] = now
+        real_section(name, value)
+
+    progress.section = section
     reset_counts()
-    t0 = time.perf_counter()
+    t0 = marks[0] = time.perf_counter()
     with admission_audit(torch, on_card) as audit, \
             open(os.path.join(out_dir, "bench_stdout.txt"), "w") as out, \
-            contextlib.redirect_stdout(out):
+            contextlib.redirect_stdout(out), \
+            leg_depth(elastic, BENCH_LEG_DEPTH):
         result = headline.run(
-            device, repeats=1, clients=4,
-            progress=headline.Progress(os.path.join(out_dir,
-                                                    "bench_partial.json")),
+            device, repeats=1, clients=4, n_queries=BENCH_QUERIES,
+            trend_repeats=BENCH_TREND_REPEATS, progress=progress,
             budget=headline.Budget(budget_s),
             tie_check=tie_checker(torch), openloop_budget_s=BENCH_OPENLOOP_S)
         headline_s = time.perf_counter() - t0
@@ -5866,7 +6282,7 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
                         f"the tester's {tier}_avg_power_mW = {mw} is no "
                         f"card's draw: {summary}")
     return {
-        "wall_s": wall_s, "headline_s": headline_s,
+        "wall_s": wall_s, "headline_s": headline_s, "section_s": section_s,
         "value": result["value"],
         "per_strategy": {name: {k: entry.get(k) for k in (
             "req_per_s", "p50_ttft_ms", "concurrent_p50_ttft_ms",
@@ -5898,6 +6314,15 @@ def bench_phase(torch, device: str = "cuda", out_dir: str = REPORT_DIR,
         "tester_summary": summary,
         "admission": dict(admission, warmup_memory=audit.warmup),
     }, launches
+
+
+def note_phase_times(phase_s: dict, t_all: float) -> None:
+    """Each phase's wall seconds so far, written to the report directory
+    as they come (a run cut short still tells where its time went)."""
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "phase_times.json"), "w") as f:
+        json.dump({**phase_s, "elapsed_s": time.perf_counter() - t_all}, f,
+                  indent=1)
 
 
 def main() -> None:
@@ -5941,6 +6366,14 @@ def main() -> None:
             ptxas[name] = [ln.strip() for ln in f if "registers" in ln
                            or "spill" in ln]
     log(f"built {sorted(paths)} in {build_s:.1f}s")
+    phase_s = {"build": build_s}
+    lap = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - lap[0]
+        lap[0] = now
+        note_phase_times(phase_s, t_all)
 
     cluster = ClusterConfig()
     nano, orin = cluster.nano, cluster.orin
@@ -5960,7 +6393,8 @@ def main() -> None:
                 "legs", "bench") else fleet_summary(numbers)
                 if name == "fleet" else fleet2_summary(numbers)
                 if name == "fleet2" else edges_summary(numbers)
-                if name == "edges" else numbers), "card": card,
+                if name == "edges" else moe_summary(numbers)
+                if name == "moe" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -5983,6 +6417,7 @@ def main() -> None:
     rows += contiguous_kernel_phase(torch, nano.model(), orin.model())
     rows.append(w8_kernel_phase(torch, nano.model(), orin.model()))
     log(f"kernels checked in {time.perf_counter() - t_all:.1f}s")
+    mark("kernels")
 
     # 4-6. Serve: nano; orin with bf16 KV and the nano_1b draft; orin with
     # int8 KV drafting with itself.
@@ -5991,6 +6426,7 @@ def main() -> None:
         torch, nano, lengths=(4, 20, 45, 80, 120, 160, 200, 240),
         expect=("ragged_decode", "flash_causal", "paged_chunk"), repeat=True)
     log(f"nano served in {time.perf_counter() - t_all:.1f}s")
+    mark("nano")
     orin_lengths = (4, 60, 150, 240)
     phases["orin_spec_bf16"], spec_launches = serve_phase(
         torch, dataclasses.replace(orin, draft_preset=nano.model_preset),
@@ -5999,6 +6435,7 @@ def main() -> None:
                 "ragged_verify"))
     log(f"orin (bf16 KV, nano_1b draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
+    mark("orin_spec_bf16")
     phases["orin_spec_int8"], int8_launches = serve_phase(
         torch, dataclasses.replace(orin, draft_preset=orin.model_preset,
                                    kv_quantize="int8"),
@@ -6008,6 +6445,7 @@ def main() -> None:
             "the int8 suffix chunk did not run")
     log(f"orin (int8 KV, self-draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
+    mark("orin_spec_int8")
     # 6b. orin_8b with int8 weights and the nano_1b draft (int8 weights
     # too): the decode, verify and draft rows through W1.
     phases["orin_w8"], w8_launches = serve_phase(
@@ -6018,6 +6456,7 @@ def main() -> None:
                 "ragged_verify", "w8_matmul"))
     log(f"orin (int8 weights, nano_1b draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
+    mark("orin_w8")
 
     # 7-9b. Serve the sequential engines (decode_batch=1): orin_8b with
     # bf16 KV; orin_8b with the nano_1b draft; nano_1b with int8 KV;
@@ -6027,6 +6466,7 @@ def main() -> None:
         phases[name], seq_launches[name] = LATE_PHASES[name](torch, nano,
                                                              orin)
         log(f"{name} served in {time.perf_counter() - t_all:.1f}s")
+        mark(name)
 
     # 10. The two-tier /chat service on the dense windowed tick: nano_1b
     # (bf16 pool) and orin_8b (int8 pool) behind the Router, every
@@ -6036,12 +6476,14 @@ def main() -> None:
         expect=("flash_causal", "paged_chunk", "paged_decode",
                 "paged_decode_q8"))
     log(f"/chat served in {time.perf_counter() - t_all:.1f}s")
+    mark("chat")
 
     # 11. The bench: the headline over the bench cluster (nano_1b and
     # orin_8b with int8 weights on the ragged tick) with its features and
     # flagship sections, then the canonical tester.
     bench, bench_launches = bench_phase(torch)
     log(f"bench run in {time.perf_counter() - t_all:.1f}s")
+    mark("bench")
 
     # 12-13. The constrained pool (nano_1b, then orin_8b int8 with the
     # nano_1b draft) and the host spill tier (nano_1b).
@@ -6056,10 +6498,14 @@ def main() -> None:
     # 18. The edges: the reference-style program, the REPL and python -m
     # in child processes, the testers and the analysis, the host loops,
     # the encoder's training, tune and the kernel A/B.
+    # 19. MoE: moe_8x1b served four ways.  20. Training: K2's Function,
+    # nano_1b pretrained, saved, served and scored; nano_test and moe_test
+    # learning.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
-                 "legs", "fleet", "fleet2", "edges"):
+                 "legs", "fleet", "fleet2", "edges", "moe", "train"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
+        mark(name)
     by_phase = {"nano": nano_launches, "orin_spec_bf16": spec_launches,
                 "orin_spec_int8": int8_launches, "orin_w8": w8_launches,
                 **seq_launches, "chat": chat_launches,
@@ -6086,7 +6532,7 @@ def main() -> None:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "graph_floor_ms": graph_floor_ms,
               "kernels": rows, "serve": phases, "chat": chat,
-              "bench": bench, **late,
+              "bench": bench, **late, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_all}
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -6144,7 +6590,8 @@ def main() -> None:
         "hbm_budget": chat["hbm_budget"]}}))
     log(json.dumps({"per_kernel_capture": chat["per_kernel_capture"]}))
     log(json.dumps({"bench": {
-        "wall_s": bench["wall_s"], "value": bench["value"],
+        "wall_s": bench["wall_s"], "section_s": bench["section_s"],
+        "value": bench["value"],
         "by_strategy": {st: {k: v[k] for k in ("req_per_s", "p50_ttft_ms",
                                                "concurrent_p50_ttft_ms")}
                         for st, v in bench["per_strategy"].items()},
@@ -6227,6 +6674,18 @@ def main() -> None:
                    default=str))
     log(json.dumps({"card": card, "edges": edges_summary(late["edges"])},
                    default=str))
+    log(json.dumps({"card": card, "moe": moe_summary(late["moe"])},
+                   default=str))
+    tr = late["train"]
+    log(json.dumps({"card": card, "train": {
+        "k2_grad": tr["k2_grad"],
+        "nano_1b": {k: tr["nano_1b"][k] for k in (
+            "steps", "losses", "steady_ms_per_step", "tokens_per_s",
+            "peak_memory_gb")},
+        "served": tr["served"], "eval": tr["eval"],
+        **{p: tr[p] for p in TRAIN_TINY_STEPS}}}, default=str))
+    log(json.dumps({"card": card, "phase_s": phase_s,
+                    "total_s": report["total_s"]}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (

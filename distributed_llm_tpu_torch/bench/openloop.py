@@ -2,10 +2,12 @@
 edge, sweeping arrival rate to the knee of the latency-throughput curve.
 
 Counterpart of ``distributed_llm_tpu/bench/openloop.py``, with its
-constants, its keys and its knee rule.  The closed-loop N-client harness
-(the headline) cannot see queueing collapse: a closed-loop client submits
-its next request only after the previous answer lands, so offered load
-self-throttles to whatever the system serves and the queue never grows.
+constants, its keys and its knee rule, save that a window with no
+arrivals takes no part in it (``_find_knee``).  The closed-loop
+N-client harness (the headline) cannot see queueing collapse: a
+closed-loop client submits its next request only after the previous
+answer lands, so offered load self-throttles to whatever the system
+serves and the queue never grows.
 Production arrivals are asynchronous, and the number that matters is
 goodput under SLO: the rate of requests that completed ok with TTFT and
 token cadence inside target.  This module:
@@ -210,7 +212,15 @@ def _find_knee(sweep: List[Dict[str, Any]]) -> Dict[str, Any]:
     still ≥ KNEE_ATTAINMENT; ``goodput_at_knee`` is the goodput measured
     THERE.  When no point attains (the system is past its knee even at
     the lowest rate — or the SLO is simply too tight for the hardware),
-    the max-goodput point is reported with a flag instead of silence."""
+    the max-goodput point is reported with a flag instead of silence.
+
+    A window with no arrivals measured nothing (its offered rate reads
+    0.0) and takes no part.  JAX's rule counts it: on a loaded host,
+    where the first rates are low enough that a 1 s window can hold no
+    arrival and the next point already misses the SLO, every goodput is
+    0 and ``max`` returns that empty first point, a knee of 0 and no
+    overload epilogue (a fault of the reference, ROADMAP.md §C)."""
+    sweep = [p for p in sweep if p.get("arrivals") != 0]
     holding = [p for p in sweep
                if (p.get("slo_attainment") or 0.0) >= KNEE_ATTAINMENT]
     if holding:

@@ -93,8 +93,11 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    # >1 = Mixture-of-Experts (not ported yet: check_ported refuses it).
+    # Mixture-of-Experts (models/moe.py): >1 replaces the dense FFN with
+    # top-2 routed experts (capacity-dispatched for prefill and chunks).
     num_experts: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -158,6 +161,7 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 # (the JAX package's default).  A tier asking for anything else raises.
 _UNPORTED_DEFAULTS = {
     "tp": 1,
+    "ep": 1,
 }
 
 
@@ -403,6 +407,8 @@ class TierConfig:
     autoscale_warm_pool: bool = True
     # -- not ported yet: non-default values raise in check_ported -------
     tp: int = 1
+    # Expert-parallel degree of a MoE tier (multi-GPU, ROADMAP A10).
+    ep: int = 1
 
     def model(self) -> ModelConfig:
         return MODEL_PRESETS[self.model_preset]
@@ -415,8 +421,8 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor parallelism, MoE), and ``ValueError`` for
-        ``replicas < 1``."""
+        tier turns on (tensor or expert parallelism: the multi-GPU slice,
+        ROADMAP A10), and ``ValueError`` for ``replicas < 1``."""
         if self.replicas < 1:
             raise ValueError(f"tier {self.name}: replicas must be >= 1, "
                              f"got {self.replicas}")
@@ -426,12 +432,7 @@ class TierConfig:
         if on:
             raise NotImplementedError(
                 f"tier {self.name}: {', '.join(on)} is not ported to the "
-                "PyTorch/CUDA package yet (see ROADMAP.md)")
-        for preset in filter(None, (self.model_preset, self.draft_preset)):
-            if MODEL_PRESETS[preset].num_experts > 1:
-                raise NotImplementedError(
-                    f"tier {self.name}: MoE preset {preset!r} is not ported "
-                    "to the PyTorch/CUDA package yet (see ROADMAP.md)")
+                "PyTorch/CUDA package yet (multi-GPU, ROADMAP.md A10)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -171,6 +171,7 @@ import torch
 
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
+from .. import models
 from ..models import transformer
 from ..models.checkpoint import load_params_for_tier
 from ..models.transformer import Transformer
@@ -384,8 +385,8 @@ class ContinuousBatchingEngine:
             params = load_params_for_tier(tier.checkpoint_path, self.cfg,
                                           device=self.device)
         if params is None:
-            params = transformer.init_params(self.cfg, seed=seed,
-                                             device=self.device)
+            params = models.init_params(self.cfg, seed=seed,
+                                        device=self.device)
         # int8 weights (tier.quantize), quantized in place one weight at a
         # time on the device.
         self.model = quant.maybe_quantize(params.to(self.device), tier,
@@ -422,7 +423,7 @@ class ContinuousBatchingEngine:
                 self.model_d = self.model
             else:
                 # A separate draft takes the tier's quantize mode too.
-                self.model_d = quant.maybe_quantize(transformer.init_params(
+                self.model_d = quant.maybe_quantize(models.init_params(
                     self.cfg_d, seed=seed + 1, device=self.device), tier,
                     self.cfg_d)
             self.pool_d = init_pool(self.cfg_d, self.paged, tier.kv_quantize,
@@ -665,8 +666,8 @@ class ContinuousBatchingEngine:
         positions = torch.arange(bucket, device=self.device)[None]
 
         def body() -> tuple:
-            hidden, (k_all, v_all) = transformer.prefill(cfg, model, tokens,
-                                                         positions)
+            hidden, (k_all, v_all) = models.serving_prefill(cfg, model,
+                                                            tokens, positions)
             if draft:
                 return k_all[:, 0], v_all[:, 0]
             last = hidden.index_select(1, true_len.long() - 1)[:, 0]

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import time
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple, Union)
@@ -65,6 +66,7 @@ import torch
 
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
+from .. import models
 from ..models import transformer
 from ..models.checkpoint import load_params_for_tier
 from ..models.transformer import KVCache, Transformer
@@ -75,6 +77,8 @@ from ..utils import roofline
 from ..utils.telemetry import PhaseTimer
 from .programs import SequentialPrograms
 from .tokenizer import StreamDecoder, get_tokenizer
+
+logger = logging.getLogger(__name__)
 
 History = Union[str, Sequence[Dict[str, Any]]]
 
@@ -178,8 +182,8 @@ class InferenceEngine(SequentialPrograms):
             params = load_params_for_tier(tier.checkpoint_path, self.cfg,
                                           device=self.device)
         if params is None:
-            params = transformer.init_params(self.cfg, seed=seed,
-                                             device=self.device)
+            params = models.init_params(self.cfg, seed=seed,
+                                        device=self.device)
         self.model = quant.maybe_quantize(params.to(self.device), tier,
                                           self.cfg)
         self._gen = torch.Generator(device=self.device)
@@ -196,7 +200,15 @@ class InferenceEngine(SequentialPrograms):
         # step, and the cache is sized to the conversation, not max_seq.
         self._cache_lens = sorted(
             {c for c in (256, 1024) if c < self._max_seq} | {self._max_seq})
+        self._family = models.model_module(self.cfg)
+        # The MoE family keeps a bf16 cache: the JAX engine's rule, with
+        # its warning.
         self._kv_quantize = tier.kv_quantize
+        if self._kv_quantize != "none" and self.cfg.num_experts > 1:
+            logger.warning("tier %s: kv_quantize=%s ignored for the MoE "
+                           "family (bf16 cache)", tier.name,
+                           self._kv_quantize)
+            self._kv_quantize = "none"
         self.phases = PhaseTimer()
         self._wbytes = roofline.weight_bytes(self.cfg, tier.quantize)
         from .prefix_cache import PrefixCache
@@ -275,7 +287,7 @@ class InferenceEngine(SequentialPrograms):
         cache = self._cache(cache_len)
 
         def body() -> torch.Tensor:
-            hidden, (k_all, v_all) = transformer.prefill(
+            hidden, (k_all, v_all) = models.serving_prefill(
                 self.cfg, self.model, tokens, positions)
             transformer.seed_kv_cache_into(cache, k_all, v_all)
             return self._sample_first(hidden, true_len - 1)
@@ -309,8 +321,8 @@ class InferenceEngine(SequentialPrograms):
         cache = self._cache(cache_len)
 
         def body() -> torch.Tensor:
-            hidden = transformer.chunk_prefill(self.cfg, self.model, tokens,
-                                               start, true_len, cache, window)
+            hidden = self._family.chunk_prefill(
+                self.cfg, self.model, tokens, start, true_len, cache, window)
             return self._sample_first(
                 hidden, torch.clamp(true_len - start - 1, 0, bucket - 1))
 
@@ -331,8 +343,8 @@ class InferenceEngine(SequentialPrograms):
             cur, pos, done, made = d["cur"], d["pos"], d["done"], d["made"]
             toks = []
             for _ in range(SEGMENT):
-                logits = transformer.decode_step(self.cfg, self.model, cur,
-                                                 pos, cache)
+                logits = self._family.decode_step(self.cfg, self.model,
+                                                  cur, pos, cache)
                 nxt = sample_batched(logits, d["temp"], self._gen)
                 nxt = torch.where(done | (made >= d["budget"]), pad, nxt)
                 toks.append(nxt)

@@ -121,12 +121,14 @@ class BlockAllocator:
     ``share()`` increfs it for another holder (a slot mapping a parked
     prefix read-only, a parked prefix entry); ``free()`` decrefs, and a
     block reaching 0 returns to the free list.  ``free()`` validates the
-    whole batch before any decref, so a bad batch changes nothing."""
+    whole batch before any decref, so a bad batch changes nothing.
+    ``peak()`` is the most blocks held at once since ``reset_peak()``."""
 
     def __init__(self, num_blocks: int):
         self._free: List[int] = list(range(1, num_blocks))
         self._refs: Dict[int, int] = {}
         self._lock = threading.Lock()
+        self._peak = 0
 
     def alloc(self, n: int) -> Optional[List[int]]:
         with self._lock:
@@ -135,7 +137,16 @@ class BlockAllocator:
             got, self._free = self._free[:n], self._free[n:]
             for b in got:
                 self._refs[b] = 1
+            self._peak = max(self._peak, len(self._refs))
             return got
+
+    def reset_peak(self) -> None:
+        with self._lock:
+            self._peak = len(self._refs)
+
+    def peak(self) -> int:
+        with self._lock:
+            return self._peak
 
     def share(self, blocks: List[int]) -> None:
         """Incref live blocks; sharing an unallocated block raises."""
@@ -257,9 +268,7 @@ def chunk_prefill_paged(cfg: ModelConfig, model: Transformer,
                                      start, q_pos, window,
                                      *transformer.layer_scales(pool, i))
         x = x + quant.matmul(attn.reshape(b, s_c, cfg.num_heads * d), lp.wo)
-        x = x + transformer._swiglu(
-            transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
-            lp.w_gate, lp.w_up, lp.w_down)
+        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
     return transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
 
 
@@ -303,9 +312,7 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
         out = attn_op(q, pool["k"][i], pool["v"][i], tables, pos,
                       *transformer.layer_scales(pool, i))
         x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
-        x = x + transformer._swiglu(
-            transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
-            lp.w_gate, lp.w_up, lp.w_down)
+        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
     hidden = transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
     return transformer.logits_from_hidden(model, hidden)
 
@@ -353,8 +360,6 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
         out = attention.ragged_verify(q, pool["k"][i], pool["v"][i], tables,
                                       pos, *transformer.layer_scales(pool, i))
         x = x + quant.matmul(out.reshape(b, g, cfg.num_heads * d), lp.wo)
-        x = x + transformer._swiglu(
-            transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
-            lp.w_gate, lp.w_up, lp.w_down)
+        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
     hidden = transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
     return transformer.logits_from_hidden(model, hidden)

@@ -87,9 +87,7 @@ def decode_chunk(cfg, model: Transformer, tokens: torch.Tensor,
         attn = attention.chunk(q, cache["k"][i], cache["v"][i], pos,
                                *transformer.layer_scales(cache, i))
         x = x + quant.matmul(attn.reshape(b, g, cfg.num_heads * d), lp.wo)
-        x = x + transformer._swiglu(
-            transformer.rms_norm(x, lp.ln2, cfg.norm_eps),
-            lp.w_gate, lp.w_up, lp.w_down)
+        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
     hidden = transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
     return transformer.logits_from_hidden(model, hidden)
 
@@ -115,6 +113,15 @@ class SpeculativeEngine(SequentialPrograms):
                 f"{target.temperature} would be silently ignored")
         target.check_ported()
         draft.check_ported()
+        for tier in (target, draft):
+            if tier.model().num_experts > 1:
+                # The JAX engine builds dense weights for a MoE preset
+                # here (transformer.init_params): it serves no MoE model.
+                raise ValueError(
+                    f"tier {tier.name}: the sequential speculative engine "
+                    f"serves dense models only ({tier.model_preset!r} is "
+                    "MoE); serve it batched (decode_batch > 1) or without "
+                    "spec_decode")
         self.target = target
         self.draft = draft
         self.tier = target

@@ -8,7 +8,9 @@ no Orbax: ``port_tools/export_checkpoints.py`` exports each checkpoint's
 which hold the trained bf16 exactly, with the preset and the version
 beside them), and this module resolves a JAX checkpoint path to that
 export.  A path with no export, or an export of another version than the
-one ``latest`` names, raises: nothing falls back to random weights.
+one ``latest`` names, raises: nothing falls back to random weights.  A
+root the port's own trainer wrote (``utils/checkpoint.py``:
+``v<step>/params.pt`` beside ``meta.json``) is read directly.
 """
 
 from __future__ import annotations
@@ -74,9 +76,12 @@ def load_export(npz: str) -> Dict[str, object]:
 def load_params_for_tier(path: str, cfg: ModelConfig,
                          device: DeviceLike = None) -> Transformer:
     """The trained weights at ``path`` as a ``Transformer`` in
-    ``cfg.dtype`` on ``device`` (default CPU).  ``path`` is a JAX
-    checkpoint directory (resolved through ``export_for``) or an export's
-    ``.npz``."""
+    ``cfg.dtype`` on ``device`` (default CPU).  ``path`` is a root the
+    port's trainer wrote, a JAX checkpoint directory (resolved through
+    ``export_for``) or an export's ``.npz``."""
+    from ..utils import checkpoint as port_ckpt
+    if port_ckpt.is_port_checkpoint(path):
+        return port_ckpt.load_params_for_tier(path, cfg, device=device)
     npz = path if path.endswith(".npz") else export_for(path)
     if not os.path.isfile(npz):
         raise _missing(f"{npz}: no such export")

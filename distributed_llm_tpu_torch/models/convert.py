@@ -8,7 +8,10 @@ tree is passed as numpy arrays (the caller converts; the port never
 imports JAX), which is how tests hand both packages the same weights.
 A quantized tree (the JAX ``quant.quantize_params``'s) passes too: each
 ``{"q", "s"}`` leaf (int8 values, scales in the model dtype or in float32
-holding them) becomes an ``ops.quant.QTensor`` of the same values.
+holding them) becomes an ``ops.quant.QTensor`` of the same values.  A
+MoE tree (``num_experts > 1``) carries ``layers/w_router [L, H, E]`` and
+the stacked experts ``[L, E, in, out]`` (int8 ones with scales
+``[L, E, 1, out]``) into each ``models/moe.MoELayer``.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any],
     _put(model, "embed", tree["embed"], "embed")
     _copy(model.final_ln, tree["final_ln"], "final_ln")
     layers = tree["layers"]
-    for key in _LAYER_KEYS:
+    keys = _LAYER_KEYS + (("w_router",) if cfg.num_experts > 1 else ())
+    for key in keys:
         if _layers_of(layers[key]) != cfg.num_layers:
             raise ValueError(f"layers/{key}: {_layers_of(layers[key])} "
                              f"layers, config has {cfg.num_layers}")

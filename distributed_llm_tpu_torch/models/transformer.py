@@ -11,7 +11,10 @@ is an ``ops.quant.QTensor`` in place of its parameter; every product
 goes through ``quant.matmul``, ``embed_rows`` or ``tied_head``, which
 take either.  The forward functions stay plain functions of (cfg, model,
 tensors), like the JAX package's, and round to the parameter dtype at
-the same points.
+the same points.  Each layer's FFN is its own ``ffn`` (SwiGLU here; a
+``models/moe.MoELayer`` routes to its experts), so they serve either
+family; ``forward`` is ``prefill``'s body under autograd, which the
+trainer runs (with per-layer remat) and which returns the MoE aux loss.
 
 The sequential engines keep a contiguous KV cache, ``{"k", "v":
 [L, B, S, N_kv, D]}`` plus float32 row scales ``{"ks", "vs":
@@ -23,10 +26,11 @@ other holder sees the write.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops import attention, quant
@@ -62,17 +66,28 @@ class DecoderLayer(nn.Module):
         self.w_up = _param((h, f), dtype, device)
         self.w_down = _param((f, h), dtype, device)
 
+    def ffn(self, cfg: ModelConfig, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The layer's FFN on the normed residual: (out, aux), aux None
+        (a MoE layer, ``models/moe.MoELayer``, returns its load-balance
+        loss there)."""
+        return _swiglu(x, self.w_gate, self.w_up, self.w_down), None
+
 
 class Transformer(nn.Module):
-    """Embedding table [V, H] (also the tied LM head), layers, final norm."""
+    """Embedding table [V, H] (also the tied LM head), layers, final norm.
+    A MoE config (``num_experts > 1``) gets ``models/moe.MoELayer``s."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
         dtype = torch_dtype(cfg)
         device = torch.device(device or "cpu")
+        layer = DecoderLayer
+        if cfg.num_experts > 1:
+            from .moe import MoELayer as layer
         self.embed = _param((cfg.vocab_size, cfg.hidden_size), dtype, device)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+        self.layers = nn.ModuleList(layer(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
         self.final_ln = _param((cfg.hidden_size,), dtype, device)
 
@@ -129,6 +144,51 @@ def _swiglu(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
                         * quant.matmul(x, up), down)
 
 
+def _prefill_layer(cfg: ModelConfig, lp: nn.Module, x: torch.Tensor,
+                   sin: torch.Tensor, cos: torch.Tensor):
+    """One layer of the full-prompt forward: -> (x, k, v, aux)."""
+    b, s = x.shape[:2]
+    d = cfg.head_dim
+    h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
+    q = quant.matmul(h_in, lp.wq).reshape(b, s, cfg.num_heads, d)
+    k = quant.matmul(h_in, lp.wk).reshape(b, s, cfg.num_kv_heads, d)
+    v = quant.matmul(h_in, lp.wv).reshape(b, s, cfg.num_kv_heads, d)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    out = attention.causal(q, k, v).reshape(b, s, cfg.num_heads * d)
+    x = x + quant.matmul(out, lp.wo)
+    ffn_out, aux = lp.ffn(cfg, rms_norm(x, lp.ln2, cfg.norm_eps))
+    return x + ffn_out, k, v, aux
+
+
+def forward(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
+            positions: torch.Tensor, remat: bool = False
+            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+                       torch.Tensor]:
+    """The full-prompt forward, under autograd when it is on: -> (hidden,
+    (k_all, v_all), aux), aux the layers' summed MoE load-balance loss
+    (float32 0 for a dense model).  ``remat`` recomputes each layer in
+    the backward pass (``torch.utils.checkpoint``, the JAX trainer's
+    ``jax.checkpoint``), and then returns no K/V (``(None, None)``)."""
+    x = quant.embed_rows(model.embed, tokens)
+    sin, cos = rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for lp in model.layers:
+        if remat:
+            x, _, _, layer_aux = checkpoint(
+                _prefill_layer, cfg, lp, x, sin, cos, use_reentrant=False)
+        else:
+            x, k, v, layer_aux = _prefill_layer(cfg, lp, x, sin, cos)
+            ks.append(k)
+            vs.append(v)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
+    kv = (torch.stack(ks), torch.stack(vs)) if ks else (None, None)
+    return hidden, kv, aux
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
             positions: torch.Tensor
@@ -138,26 +198,8 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
     tokens/positions [B, S] -> (final-normed hidden [B, S, H],
     (k_all, v_all) each [L, B, S, N_kv, D]), the per-layer K/V to page
     into the pool."""
-    b, s = tokens.shape
-    d = cfg.head_dim
-    x = quant.embed_rows(model.embed, tokens)
-    sin, cos = rope_sincos(positions, d, cfg.rope_theta)
-    ks, vs = [], []
-    for lp in model.layers:
-        h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, s, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, s, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, s, cfg.num_kv_heads, d)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
-        out = attention.causal(q, k, v).reshape(b, s, cfg.num_heads * d)
-        x = x + quant.matmul(out, lp.wo)
-        x = x + _swiglu(rms_norm(x, lp.ln2, cfg.norm_eps),
-                        lp.w_gate, lp.w_up, lp.w_down)
-        ks.append(k)
-        vs.append(v)
-    hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
-    return hidden, (torch.stack(ks), torch.stack(vs))
+    hidden, kv, _ = forward(cfg, model, tokens, positions)
+    return hidden, kv
 
 
 def logits_from_hidden(model: Transformer, hidden: torch.Tensor) -> torch.Tensor:
@@ -244,8 +286,7 @@ def decode_step(cfg: ModelConfig, model: Transformer, token: torch.Tensor,
         out = attention.decode(q, cache["k"][i], cache["v"][i], pos,
                                *layer_scales(cache, i))
         x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
-        x = x + _swiglu(rms_norm(x, lp.ln2, cfg.norm_eps),
-                        lp.w_gate, lp.w_up, lp.w_down)
+        x = x + lp.ffn(cfg, rms_norm(x, lp.ln2, cfg.norm_eps))[0]
     hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
     return logits_from_hidden(model, hidden)
 
@@ -294,6 +335,5 @@ def chunk_prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
         attn = attention.chunk(q, cache["k"][i][:, :w], cache["v"][i][:, :w],
                                q_pos, *scales)
         x = x + quant.matmul(attn.reshape(b, s_c, cfg.num_heads * d), lp.wo)
-        x = x + _swiglu(rms_norm(x, lp.ln2, cfg.norm_eps),
-                        lp.w_gate, lp.w_up, lp.w_down)
+        x = x + lp.ffn(cfg, rms_norm(x, lp.ln2, cfg.norm_eps))[0]
     return rms_norm(x, model.final_ln, cfg.norm_eps)

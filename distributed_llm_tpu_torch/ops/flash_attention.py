@@ -6,8 +6,9 @@ Counterpart of ``distributed_llm_tpu/ops/pallas_attention.py``.
 Wrappers of hand-written CUDA kernels:
 
 - ``flash_causal_attention`` (``csrc/flash_causal.cu`` over
-  ``csrc/flash_tc.cuh``) replaces the Pallas ``_flash_kernel`` (forward
-  only; training comes later);
+  ``csrc/flash_tc.cuh``) replaces the Pallas ``_flash_kernel``, with
+  its ``custom_vjp``: ``FlashCausal``, whose backward is autograd of the
+  plain version recomputed in float32 from the saved inputs;
 - ``paged_chunk_attention`` (``csrc/paged_chunk.cu`` over
   ``csrc/flash_tc.cuh``) replaces the Pallas ``_paged_chunk_kernel``;
 - ``paged_decode_attention`` / ``paged_decode_attention_q8``
@@ -135,12 +136,9 @@ def _check_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         _require(t.data_ptr() % 16 == 0, fn, f"{name} must be 16-byte aligned")
 
 
-def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor) -> torch.Tensor:
-    """q [B, S, Nq, D], k/v [B, S, Nkv, D] -> [B, S, Nq, D]; row r attends
-    keys 0 .. r, query head h reads kv head h // (Nq / Nkv)."""
-    if not q.is_cuda:
-        return causal_attention(q, k, v)
+def _flash_causal_launch(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """K2's forward on CUDA tensors: launch ``csrc/flash_causal.cu``."""
     d_true = q.shape[-1]
     if d_true in PADDED_D:
         q, k, v = pad_head_dim(q, k, v)
@@ -155,6 +153,43 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check(err, "flash_causal")
     flash_causal_attention.launches += 1
     return out[..., :d_true]
+
+
+class FlashCausal(torch.autograd.Function):
+    """K2 under autograd, the JAX package's ``custom_vjp`` of the Pallas
+    kernel: the forward launches the kernel and saves q/k/v; the backward
+    is autograd of the plain ``causal_attention``, recomputed from them
+    (JAX's ``_flash_bwd`` is the XLA VJP of the plain function).  K2 has
+    no backward kernel, in JAX or here.  The recompute runs in float32
+    and each gradient is rounded to its input's dtype once: in bf16 the
+    VJP's softmax backward cancels (a causal row's first query has a
+    zero gradient), so its dq rows can sit far beyond a bf16 rounding of
+    float32's; these are within one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_causal_launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        q, k, v = (t.detach().float().requires_grad_(True) for t in saved)
+        with torch.enable_grad():
+            out = causal_attention(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), grad_out.float())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """q [B, S, Nq, D], k/v [B, S, Nkv, D] -> [B, S, Nq, D]; row r attends
+    keys 0 .. r, query head h reads kv head h // (Nq / Nkv).  On CUDA
+    tensors, ``FlashCausal`` (the kernel, differentiable); a serving call
+    under ``no_grad`` gets the kernel's bits unchanged."""
+    if not q.is_cuda:
+        return causal_attention(q, k, v)
+    return FlashCausal.apply(q, k, v)
 
 
 def _check_paged_chunk(q: torch.Tensor, k_pool: torch.Tensor,

@@ -1,13 +1,15 @@
 """Weight-only int8 quantization for serving, and the int8 KV rows.
 
-Counterpart of ``distributed_llm_tpu/ops/quant.py`` (without
-``expert_einsum``: MoE is not ported; and without sharded placement:
-tensor parallelism is not ported).  A quantized weight is a ``QTensor``:
+Counterpart of ``distributed_llm_tpu/ops/quant.py`` (without sharded
+placement: tensor parallelism is not ported).  A quantized weight is a
+``QTensor``:
 an ``nn.Module`` holding an int8 buffer ``q`` and a scale ``s`` in the
 model dtype, ``w ~= q * s`` broadcast over the contraction axis.  A
 projection [in, out] carries ``s [1, out]`` (the JAX package stacks
 ``[L, 1, out]``; the port keeps one per layer), the embedding table
-[V, H] per-row ``s [V, 1]``.  Quantizing (``quantize_params``, through
+[V, H] per-row ``s [V, 1]``, a MoE layer's stacked experts [E, in, out]
+per-(expert, channel) ``s [E, 1, out]`` (the router stays unquantized).
+Quantizing (``quantize_params``, through
 ``maybe_quantize``) swaps a model's parameters for QTensors in place, one
 at a time, so on the card the bf16 and the int8 copy of a weight are
 resident together for one weight only; ``.to(device)`` carries ``q`` and
@@ -28,8 +30,12 @@ bit-identical ``q`` and ``s``.
   the weight and calls ``torch.matmul``, as the JAX package leaves such
   products to XLA outside any kernel.
 
-The embedding lookup and the tied head stay plain.  The module also keeps
-the KV-row quantizer (``quantize_kv_rows``, ``dequantize_kv_rows``) and the
+``expert_einsum`` (the MoE expert products) takes the same rule per
+expert on a CUDA tensor: each expert's product is a ``matmul`` of its
+rows against its [in, out] slice, W1 up to 64 rows, cast + matmul
+above; a CPU tensor takes the JAX package's einsum against the cast
+stack.  The embedding lookup and the tied head stay plain.  The module
+also keeps the KV-row quantizer (``quantize_kv_rows``, ``dequantize_kv_rows``) and the
 in-place KV row write both caches share (``put_kv_rows``).
 """
 
@@ -138,6 +144,32 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     if w8_route(x) == "w1":
         return w8_matmul(x, w.q, w.s)
     return _matmul_plain(x, w.q, w.s)
+
+
+def expert_einsum(subscripts: str, x: torch.Tensor, w: Any) -> torch.Tensor:
+    """Einsum against stacked MoE expert weights [E, in, out], plain or
+    int8 (``models/moe.py``): ``"ech,ehf->ecf"``/``"ecf,efh->ech"``
+    (capacity dispatch, expert-major) and ``"bh,ehf->bef"``/
+    ``"bef,efh->beh"`` (decode's all-expert pass).  An int8 stack's
+    per-(expert, channel) scale ``s [E, 1, out]`` folds into the output,
+    as the JAX package's does; on a CUDA tensor each expert's product
+    routes as ``matmul``'s (``w8_route``)."""
+    if not is_quantized(w):
+        return torch.einsum(subscripts, x, w)
+    lhs, out_axes = subscripts.split("->")
+    x_axes = lhs.split(",")[0]
+    if x.is_cuda:
+        def rows(e: int) -> torch.Tensor:
+            return x.select(x_axes.index("e"), e) if "e" in x_axes else x
+        ys = [w8_matmul(rows(e), w.q[e], w.s[e])
+              if w8_route(rows(e)) == "w1"
+              else _matmul_plain(rows(e), w.q[e], w.s[e])
+              for e in range(w.q.shape[0])]
+        return torch.stack(ys, dim=out_axes.index("e"))
+    y = torch.einsum(subscripts, x, w.q.to(x.dtype))
+    if out_axes[0] == "e":
+        return y * w.s                       # [E, C, out] x [E, 1, out]
+    return y * w.s.squeeze(-2)               # [B, E, out] x [E, out]
 
 
 def w8_route(x: torch.Tensor) -> str:
@@ -278,9 +310,11 @@ def swap_in(module: nn.Module, name: str, qt: QTensor) -> None:
 @torch.no_grad()
 def quantize_params(model: nn.Module) -> nn.Module:
     """Quantize a ``Transformer`` for serving, in place: every projection
-    of every layer and the (tied) embedding table, whose scales are per
-    row; the norms pass through.  One weight at a time, each bf16 weight
-    freed once its QTensor replaces it.  Idempotent.  Returns ``model``."""
+    of every layer (a MoE layer's stacked experts with per-(expert,
+    channel) scales) and the (tied) embedding table, whose scales are
+    per row; the norms and a MoE router pass through.  One weight at a
+    time, each bf16 weight freed once its QTensor replaces it.
+    Idempotent.  Returns ``model``."""
     if not is_quantized(model.embed):
         swap_in(model, "embed", quantize_tensor(model.embed, contract_axis=-1))
     for layer in model.layers:

@@ -3,7 +3,8 @@
 Counterpart of ``distributed_llm_tpu/utils/hbm_budget.py``.  The JAX
 package budgets a tier with ``jax.eval_shape`` over its real code paths;
 the port builds the same objects its engines build on the ``meta``
-device (``models.transformer.Transformer``, quantized by
+device (``models.transformer.Transformer``, a MoE model's E experts a
+layer included, quantized by
 ``ops.quant.maybe_quantize`` when the tier serves int8 weights, the
 paged pool's ``init_pool``, the contiguous cache's ``init_kv_cache``),
 so their
@@ -69,8 +70,10 @@ def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
                                           device=meta).values())
         parked = 0         # parked prefixes hold blocks inside the pool
     else:
-        cache = transformer.init_kv_cache(cfg, 1, cfg.max_seq_len,
-                                          tier.kv_quantize, device=meta)
+        # The sequential engine keeps a MoE model's cache bf16.
+        kvq = tier.kv_quantize if cfg.num_experts == 1 else "none"
+        cache = transformer.init_kv_cache(cfg, 1, cfg.max_seq_len, kvq,
+                                          device=meta)
         kv_bytes = tensor_bytes(cache.values())
         parked = (kv_bytes * tier.prefix_cache_entries
                   if tier.enable_prefix_cache else 0)

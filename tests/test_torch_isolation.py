@@ -10,7 +10,9 @@ roofline, telemetry and memory budget utilities, the obs layer, int8
 weights with the W1 kernel's wrapper and the flagship cluster, the
 edges: ``python -m``'s module, the REPL, the C++ host loops, the v1
 tester, the analysis, tune, the kernel A/B harness, the encoder's data,
-training and evaluation, and the reference shims) and ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
+training and evaluation, and the reference shims; MoE, the trainer, its
+data, evaluation, pretraining and the versioned checkpoints) and
+``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
 citations of the TPU kernels): the routing weights, labels and
@@ -125,6 +127,12 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.engine.speculative\n"
         "import distributed_llm_tpu_torch.models.convert\n"
         "import distributed_llm_tpu_torch.models.transformer\n"
+        "import distributed_llm_tpu_torch.models.moe\n"
+        "import distributed_llm_tpu_torch.training.trainer\n"
+        "import distributed_llm_tpu_torch.training.data\n"
+        "import distributed_llm_tpu_torch.training.evaluate\n"
+        "import distributed_llm_tpu_torch.training.pretrain\n"
+        "import distributed_llm_tpu_torch.utils.checkpoint\n"
         "import distributed_llm_tpu_torch.ops.attention\n"
         "import distributed_llm_tpu_torch.ops.flash_attention\n"
         "import distributed_llm_tpu_torch.ops.quant\n"

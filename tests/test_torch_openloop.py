@@ -3,7 +3,10 @@ package's (``distributed_llm_tpu/bench/openloop.py``).
 
 - The constants are JAX's, and ``_find_knee`` equals JAX's on synthetic
   sweeps (a hypothesis test: attainments above, at and below the 0.9
-  rule, missing ones, ties).
+  rule, missing ones, ties).  A window with no arrivals takes no part in
+  the port's rule: after one, JAX's reports a knee of 0.0 and skips the
+  overload epilogue (a fault of the reference), the port's reports the
+  measured point and runs the epilogue.
 - One short rate point through the port's ``/chat`` edge (the tiny
   batched cluster on the CPU, Poisson arrivals on threads through the
   app's test client): JAX's ``_run_rate_point`` and the port's, each run
@@ -128,3 +131,48 @@ def test_openloop_phase_keys_and_compact(monkeypatch):
     assert ov["availability"] == 1.0 and ov["hung_clients"] == 0
     want = jax_bench.compact({"openloop": out})
     assert headline.compact({"openloop": out})["openloop"] == want["openloop"]
+
+
+# A loaded host's sweep: the first rate's window held no arrival (its
+# offered rate reads 0.0) and the next point already missed the SLO.
+EMPTY_THEN_MISSED = [
+    {"offered_req_per_s": 0.0, "arrivals": 0, "completed": 0,
+     "goodput_req_per_s": 0.0, "slo_attainment": None},
+    {"offered_req_per_s": 1.583, "arrivals": 2, "completed": 2,
+     "goodput_req_per_s": 0.0, "slo_attainment": 0.0},
+]
+
+
+def test_knee_skips_a_window_with_no_arrivals():
+    """JAX's rule takes the empty window as the max-goodput point (every
+    goodput is 0): a knee of 0.0, the reference's fault.  The port's rule
+    reports the measured point, flagged below target."""
+    assert jax_ol._find_knee(EMPTY_THEN_MISSED)["knee_req_per_s"] == 0.0
+    knee = ol._find_knee(EMPTY_THEN_MISSED)
+    assert knee["knee_req_per_s"] == 1.583
+    assert knee["slo_attainment_below_target_at_all_rates"] is True
+    assert ol._find_knee(EMPTY_THEN_MISSED[:1])["knee_req_per_s"] is None
+
+
+def test_openloop_phase_keeps_its_knee_after_an_empty_window(monkeypatch):
+    """The whole leg with the loaded host's points: it reports a knee above
+    0 and runs the overload epilogue at 2.5 x it (the headline's
+    assertions), where JAX's rule skipped the epilogue."""
+    points = iter(EMPTY_THEN_MISSED + [{
+        "offered_req_per_s": 3.958, "arrivals": 5, "completed": 5,
+        "http_errors": 0, "hung_clients": 0, "availability": 1.0,
+        "goodput_req_per_s": 0.0, "slo_attainment": 0.0}])
+    rates = []
+
+    def fake_point(client, router, queries, strategy, rate, duration_s,
+                   **kw):
+        rates.append(rate)
+        return dict(next(points))
+
+    monkeypatch.setattr(ol, "_run_rate_point", fake_point)
+    monkeypatch.setattr(ol, "_sequential_rate", lambda *a, **k: 0.5)
+    out = ol.openloop_phase(strategies=("heuristic",), point_s=0.5,
+                            device="cpu")
+    assert out["knee_req_per_s"] == 1.583
+    assert out["overload"]["offered_over_knee"] == ol.OVERLOAD_FACTOR
+    assert rates == [0.375, 0.75, 1.583 * ol.OVERLOAD_FACTOR]

@@ -60,6 +60,23 @@ def test_refcount_alloc_share_free_invariants():
     assert a.available == 7
 
 
+def test_allocator_peak_is_the_high_water_mark():
+    """The most blocks held at once since ``reset_peak``, whatever a
+    poll of ``available`` between the calls would have seen."""
+    a = BlockAllocator(16)
+    held = a.alloc(2)
+    a.reset_peak()
+    assert a.peak() == 2
+    burst = a.alloc(5)
+    a.share(burst)                           # shared blocks count once
+    a.free(burst)
+    a.free(burst)
+    assert a.available == 13 and a.peak() == 7
+    a.free(held)
+    a.reset_peak()
+    assert a.peak() == 0
+
+
 def test_refcount_free_is_all_or_nothing_on_double_free():
     a = BlockAllocator(8)
     got = a.alloc(2)
