@@ -270,13 +270,36 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    moe_test for 100 (batch 16, seq 128): the last 25-step window's mean
    loss below the first's, and moe_test's load-balance loss above 0.  K2
    launches in every training run; the plain causal attention runs only
-   as K2's backward.
+   as K2's backward;
+21. tensor parallelism (``tp``), over a group of the card repeated (the
+   port's single controller runs every head shard there, one after
+   another: the numbers are the cost of sharding on one card, not a
+   multi-card speedup): (a) ``flagship_cluster(5)``'s orin, orin_8b bf16
+   at tp=4 on the batched engine (ragged tick, chunked prefill, prefix
+   hits) behind /query, and (b) orin_8b with int8 weights and an int8
+   pool at tp=2 with the nano_1b draft (int8 weights too), each built,
+   warmed (capture seconds and the graph pool's memory), driven over
+   HTTP (``drive``), one tick replayed against its body
+   (``tick_graph_check``: the tick's ms), then three probes (cold,
+   chunked, a prefix hit) held against the same tier at tp=1: tokens
+   equal or a near-tie (``near_tie`` on the tp=1 engine), and the cold
+   one's prefill logits within LOGITS_RTOL of their scale of a float32
+   run of the same weights, above tp=1's own distance to it; (c)
+   orin_8b on the sequential engine at tp=4, its probes likewise against
+   tp=1 (a flip judged by the prefill logits' gap,
+   ``seq_near_tie``); (d) the bench's ``multichip`` section on two slots
+   of the card (mini_bench's capacity verdicts, spec at tp=2); (e) a
+   perf Router's ``health_mesh``: the monitor's ``allgather_health``
+   rows equal the strategy's windows.  Each part's kernels must launch
+   on every shard (``ops/launches.on_shard``); the kernel table lists
+   the launches by part and shard (``launches_by_shard``).
 
-Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20 (every
-path kept): the bench's sweep serves the first BENCH_QUERIES queries a
-strategy with BENCH_TREND_REPEATS trend repeats and runs its tiny
-tenant and autoscaler legs at BENCH_LEG_DEPTH, the legs' open-loop
-budget is LEG_OPENLOOP_S, phase 17's load and ramps are FLEET2_NOISY_LOAD_S,
+Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20, and
+phases 11 and 17 again for 21 (every path kept): the bench's sweep
+serves the first BENCH_QUERIES queries a strategy with
+BENCH_TREND_REPEATS trend repeats and runs its tiny tenant and
+autoscaler legs at BENCH_LEG_DEPTH, the legs' open-loop budget is
+LEG_OPENLOOP_S, phase 17's load and ramps are FLEET2_NOISY_LOAD_S,
 FLEET2_ELASTIC_PERIOD_S and FLEET2_CHAOS2_PERIOD_S, and the encoder
 trains EDGES_ENCODER_STEPS steps.
 
@@ -284,7 +307,7 @@ trains EDGES_ENCODER_STEPS steps.
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
 ``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``, ``moe``,
-``train``) builds the kernels and runs only those phases,
+``train``, ``tp``) builds the kernels and runs only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
 run.
@@ -334,8 +357,8 @@ p50 TTFT, trace columns, profile section, utilization and wall time as
 another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
 as two more, the fleet's, the fleet's second half's and the edges' as three more,
-MoE's and training's as two more (each with the card's name and power
-limit), every phase's wall seconds as one more, the card's name and power
+MoE's, training's and tensor parallelism's as three more (each with the
+card's name and power limit), every phase's wall seconds as one more, the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -2360,10 +2383,14 @@ def live_tick_state(torch, engine):
     position), where ``restore_pools`` puts the live pools (the target's
     and the draft's) back; the host state, the pools and the spare blocks are
     restored after."""
+    from distributed_llm_tpu_torch.models.transformer import kv_shards
+
     spare = engine.allocator.alloc(2)
     require(spare is not None, "no spare blocks for the tick check")
-    pools = [engine.pool] + ([engine.pool_d] if engine.spec else [])
-    live = [{k: v.clone() for k, v in p.items()} for p in pools]
+    # Every pool, a sharded one's shards each.
+    pools = kv_shards(engine.pool) + (kv_shards(engine.pool_d)
+                                      if engine.spec else [])
+    live = [kv_clone(p) for p in pools]
     host = [a.copy() for a in (engine._tables, engine._pos, engine._cur,
                                engine._temps, engine._caps)]
 
@@ -2739,6 +2766,14 @@ def pinned_routes(routes: list, record: bool):
         moe._top2_gates = real
 
 
+def kv_clone(state):
+    """A copy of a KV cache or pool, or of a sharded one (a list of them,
+    one per head shard)."""
+    if isinstance(state, list):
+        return [kv_clone(part) for part in state]
+    return {k: v.clone() for k, v in state.items()}
+
+
 def three_ways(fn, state: dict):
     """``fn(copy)`` on its own copy of ``state`` (a KV cache or pool) with
     the kernels, with the plain attention and with the plain attention in
@@ -2750,7 +2785,7 @@ def three_ways(fn, state: dict):
     out, routes, notes = [], [], []
     for i, ctx in enumerate((contextlib.nullcontext(), plain_attention(),
                              plain_attention(float32=True))):
-        copy = {k: v.clone() for k, v in state.items()}
+        copy = kv_clone(state)
         with ctx, pinned_routes(routes, record=i == 0) as flips:
             out.append(fn(copy))
         notes += flips
@@ -4852,11 +4887,11 @@ def fleet_summary(res: dict) -> dict:
 # (b) the elastic leg's ramp; (c) chaos2's ramp; (d) the remote tier's
 # turns and the bound on kill-to-serving (the child imports torch, builds
 # and warms nano_1b).
-# Cut from 2.5, 12 and 16 s to pay for phases 19 and 20 (the CPU tests run
-# the legs at 1, 6 and 8 s under the same bars).
-FLEET2_NOISY_LOAD_S = 2.0
-FLEET2_ELASTIC_PERIOD_S = 8.0
-FLEET2_CHAOS2_PERIOD_S = 10.0
+# Cut from 2.5, 12 and 16 s to 2, 8 and 10 s to pay for phases 19 and 20,
+# then to the CPU tests' 1, 6 and 8 s (the same bars) to pay for phase 21.
+FLEET2_NOISY_LOAD_S = 1.0
+FLEET2_ELASTIC_PERIOD_S = 6.0
+FLEET2_CHAOS2_PERIOD_S = 8.0
 FLEET2_REMOTE_TURNS = 4
 FLEET2_REVIVE_S = 180.0
 TENANT_COUNTERS = ("dllm_tenant_device_time_ms_total",
@@ -6000,6 +6035,427 @@ def _seq(tier, **kw):
     return dataclasses.replace(tier, decode_batch=1, **kw)
 
 
+# -- phase 21: tensor parallelism --------------------------------------------------
+
+# The card repeated stands in for a group of cards: every shard of a tp
+# group runs on it, one after another (the port's single controller).
+TP_LENGTHS = (4, 60, 150, 240)   # (a)'s and (b)'s concurrent requests
+TP_NEW = 24                      # the probes' greedy decode budget
+# (name, tp, what every shard must launch, what must launch at all).
+TP_BATCHED = {
+    "flagship_tp4": (4, ("ragged_decode", "flash_causal", "paged_chunk"),
+                     ("ragged_decode", "flash_causal", "paged_chunk")),
+    "orin_w8_tp2": (2, ("flash_causal", "ragged_verify_q8", "w8_matmul"),
+                    ("flash_causal", "ragged_verify_q8", "ragged_decode_q8",
+                     "w8_matmul")),
+}
+TP_SEQ_EXPECT = ("flash_causal", "flash_decode", "flash_chunk")
+# (d) the multichip section's tp=2 engines: plain ticks, prefills and the
+# spec rounds' verify (draft_test's decode runs unsharded).
+TP_MC_EXPECT = ("ragged_decode", "flash_causal", "ragged_verify")
+
+
+def tp_tiers(orin, nano):
+    """(a) ``flagship_cluster(5)``'s orin: orin_8b bf16 over tp=4, the
+    ragged tick, chunked prefill, prefix hits; (b) orin_8b with int8
+    weights and an int8 pool over tp=2 with the nano_1b draft (int8
+    weights too); (c) orin_8b bf16 on the sequential engine over tp=4."""
+    from distributed_llm_tpu_torch.config import flagship_cluster
+    flag = flagship_cluster(5).orin
+    return {
+        "flagship_tp4": flag,
+        "orin_w8_tp2": dataclasses.replace(
+            orin, tp=2, quantize="int8", kv_quantize="int8",
+            draft_preset=nano.model_preset),
+        "seq_tp4": _seq(flag),
+    }
+
+
+def tp_probes(engine, tier) -> list:
+    """(name, prompt ids) of the probes held against tp=1: a cold prompt,
+    one past a 256-token chunk (chunked on the batched engine, a long
+    prefill on the sequential one) and the cold one's follow-up (a
+    prefix hit)."""
+    from distributed_llm_tpu_torch.engine.inference import prepare_prompt
+    cold = "tell me about " + words(12, 4)
+    out = []
+    for name, text in (("cold", cold), ("long", "summarise: " + words(300, 9)),
+                       ("hit", cold + " and " + words(6, 5) + "?")):
+        ids, _ = prepare_prompt(engine.tokenizer, text, tier.prefill_buckets,
+                                engine.cfg.max_seq_len, TP_NEW)
+        out.append((name, text, ids))
+    return out
+
+
+def tp_run_probes(torch, engine, tier) -> dict:
+    """Each probe's greedy tokens, and the cold probe's prefill logits
+    (last row, float32, on the host)."""
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.models import transformer
+    tokens = {}
+    for name, text, ids in tp_probes(engine, tier):
+        tokens[name] = (list(ids), list(engine.generate(
+            text, max_new_tokens=TP_NEW, temperature=0.0).token_ids))
+    ids = tokens["cold"][0]
+    dev = engine.device
+    with torch.no_grad():
+        hidden, _ = models.serving_prefill(
+            engine.cfg, engine.model, torch.tensor([ids], device=dev),
+            torch.arange(len(ids), device=dev)[None])
+        logits = transformer.logits_from_hidden(engine.model, hidden[0, -1])
+    return {"tokens": tokens, "logits": logits.float().cpu()}
+
+
+def f32_logits(torch, engine, ids):
+    """The prefill logits (last row) of ``ids`` by a float32 copy of
+    ``engine``'s unsharded weights (int8 ones dequantized) with the plain
+    causal attention in float32: the reference both bf16 runs are held
+    to, as ``check_three`` holds a kernel to float32."""
+    import operator
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.models import transformer
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.ops import quant
+    dev = engine.device
+    m32 = transformer.Transformer(dataclasses.replace(engine.cfg,
+                                                      dtype="float32"),
+                                  device=dev)
+    with torch.no_grad():
+        for name, p in m32.named_parameters():
+            p.copy_(quant.dequantize(operator.attrgetter(name)(
+                engine.model)).float())
+    causal = TA.causal
+    TA.causal = TA.causal_attention
+    try:
+        with uncounted(), torch.no_grad():
+            hidden, _ = models.serving_prefill(
+                m32.cfg, m32, torch.tensor([ids], device=dev),
+                torch.arange(len(ids), device=dev)[None])
+            return transformer.logits_from_hidden(m32, hidden[0, -1]).cpu()
+    finally:
+        TA.causal = causal
+        del m32
+
+
+def logits_against(got, want, ref) -> dict:
+    """The tp run's logits against float32 (``ref``) within LOGITS_RTOL of
+    their scale above tp=1's own distance to float32 (the bf16 floor),
+    ``check_three``'s bound; their distance to tp=1's beside it."""
+    scale = ref.abs().max().item()
+    floor = (want - ref).abs().max().item()
+    res = {"tp_vs_float32_max_abs_err": (got - ref).abs().max().item(),
+           "tp1_vs_float32_max_abs_err": floor,
+           "tp_vs_tp1_max_abs_err": (got - want).abs().max().item(),
+           "logits_max_abs": scale, "tol": LOGITS_RTOL * scale + floor}
+    require(res["tp_vs_float32_max_abs_err"] <= res["tol"],
+            f"tp prefill logits disagree with float32: {res}")
+    return res
+
+
+def tp_against_tp1(torch, got: dict, want: dict, engine) -> dict:
+    """The tp>1 run's probes against tp=1's (``engine`` the tp=1 engine):
+    tokens equal, or their first difference a near-tie (``near_tie`` on
+    the tp=1 engine); the cold probe's prefill logits by
+    ``logits_against``."""
+    flips = []
+    for name, (ids, w) in want["tokens"].items():
+        g = got["tokens"][name][1]
+        if g != w:
+            with uncounted():
+                flips.append({"probe": name, **near_tie(torch, engine, ids,
+                                                        w, g)})
+    require(all(f["near_tie"] for f in flips),
+            f"tp tokens differ from tp=1 beyond a near-tie: {flips}")
+    ref = f32_logits(torch, engine, want["tokens"]["cold"][0])
+    return {"tokens_identical": not flips, "flips": flips,
+            **logits_against(got["logits"], want["logits"], ref)}
+
+
+def tp_shard_launches(before: dict, tp: int, every) -> dict:
+    """Each shard's launches since ``before`` (a ``shard_counts()``); every
+    kernel in ``every`` must have launched on every one of ``tp`` shards."""
+    from distributed_llm_tpu_torch.ops import launches as L
+    per = L.shard_since(before)
+    missing = [(s, k) for s in range(tp) for k in every
+               if not per.get(s, {}).get(k)]
+    require(not missing, f"kernels did not launch on every shard: "
+            f"{missing} ({per})")
+    return {str(s): dict(sorted(per.get(s, {}).items())) for s in range(tp)}
+
+
+def tp_batched_part(torch, tier, tp: int, every, expect, *, device: str):
+    """A batched tier over a tp group of the card repeated: built, then
+    warmed (the capture seconds: every program of the warm set, each
+    holding every shard's launches), served over HTTP (``drive``, and a
+    sampled request when it speculates), each shard's launches, one tick
+    replayed against its body (``tick_graph_check``: the tick's ms), the
+    probes; then the same tier at tp=1 on the same probes."""
+    from distributed_llm_tpu_torch.engine.manager import EngineManager
+    from distributed_llm_tpu_torch.ops import launches as L
+    from distributed_llm_tpu_torch.parallel.mesh import tp_mesh
+    from distributed_llm_tpu_torch.serving.gpu_api import create_tier_app
+
+    on_card = device == "cuda"
+    group = tp_mesh([device] * tp, tp)
+    fresh_peak(torch, on_card)
+    t0 = time.perf_counter()
+    manager = EngineManager(tier, seed=0, group=group, warmup_on_start=False)
+    manager.start_server()
+    engine = manager.engine()
+    build_s = time.perf_counter() - t0
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    engine.warmup()
+    capture_s = time.perf_counter() - t0
+    graph_gb = ((torch.cuda.memory_allocated() - mem0) / 1e9
+                if on_card else None)
+    try:
+        require(engine.tp == tp and engine.ragged,
+                f"{tier.name}: tp={engine.tp} ragged={engine.ragged}")
+        with http_served(create_tier_app(tier.name, manager=manager)) as base:
+            reset_counts()
+            shards0 = L.shard_counts()
+            t_main = time.perf_counter()
+            drove = drive(base, long_words=420, lengths=TP_LENGTHS,
+                          hits=lambda: engine.prefix_cache.stats()[
+                              "hits_shared"])
+            if engine.spec:
+                query(base, "imagine " + words(8, 2), temperature=0.8)
+            main_s = time.perf_counter() - t_main
+            launches, plain_calls = read_counts(expect, on_card)
+            per_shard = tp_shard_launches(shards0, tp, every)
+        tick = tick_graph_check(torch, engine)
+        got = tp_run_probes(torch, engine, tier)
+        res = {"model": tier.model_preset, "tp": tp,
+               "quantize": tier.quantize, "kv_quantize": tier.kv_quantize,
+               "draft": tier.draft_preset if engine.spec else None,
+               "build_s": build_s, "capture_s": capture_s,
+               "graph_pool_gb": graph_gb, "main_path_s": main_s,
+               "requests": drove["requests"],
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_by_shard": per_shard,
+               "tick_replay_ms": tick.get("tick_replay_ms"),
+               "tick_stage": [tick["stage"], tick["key"]],
+               "programs": tick["programs"],
+               "spec": engine.spec_stats() if engine.spec else None,
+               "peak_memory_gb": peak_memory_gb(torch, on_card)}
+    finally:
+        manager.stop_server()
+        del engine, manager
+    fresh_peak(torch, on_card)
+    ref = EngineManager(tier, seed=0, device=device, warmup_on_start=False)
+    ref.start_server()
+    try:
+        with uncounted():
+            want = tp_run_probes(torch, ref.engine(), tier)
+            res["against_tp1"] = tp_against_tp1(torch, got, want,
+                                                ref.engine())
+            # The same tick at tp=1 in this call (its longest parked
+            # conversation, a probe's, sits at another position).
+            tick1 = tick_graph_check(torch, ref.engine())
+            res["tp1_tick_replay_ms"] = tick1.get("tick_replay_ms")
+            res["tick_position"] = [tick["position"], tick1["position"]]
+    finally:
+        ref.stop_server()
+    return res, launches
+
+
+def tp_sequential_part(torch, tier, tp: int, *, device: str):
+    """The sequential engine over a tp group of the card repeated: built,
+    warmed (its warm set captured, every shard in each program), the
+    probes as its main path (a cold prefill, a long one, a prefix hit's
+    suffix, decode segments), each shard's launches, then tp=1 on the
+    same probes."""
+    from distributed_llm_tpu_torch.engine.manager import EngineManager
+    from distributed_llm_tpu_torch.ops import launches as L
+    from distributed_llm_tpu_torch.parallel.mesh import tp_mesh
+
+    on_card = device == "cuda"
+    fresh_peak(torch, on_card)
+    t0 = time.perf_counter()
+    manager = EngineManager(tier, seed=0, group=tp_mesh([device] * tp, tp),
+                            warmup_on_start=False)
+    manager.start_server()
+    engine = manager.engine()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()
+    capture_s = time.perf_counter() - t0
+    try:
+        require(engine.group is not None and engine.group.tp == tp,
+                f"{tier.name}: the sequential engine is not at tp={tp}")
+        reset_counts()
+        shards0 = L.shard_counts()
+        t_main = time.perf_counter()
+        got = tp_run_probes(torch, engine, tier)
+        main_s = time.perf_counter() - t_main
+        launches, _ = read_counts(TP_SEQ_EXPECT, on_card)
+        res = {"model": tier.model_preset, "tp": tp, "engine":
+               type(engine).__name__, "build_s": build_s,
+               "capture_s": capture_s, "main_path_s": main_s,
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_by_shard": tp_shard_launches(shards0, tp,
+                                                      TP_SEQ_EXPECT),
+               "programs": {str(k): sorted(v) for k, v in
+                            engine.program_shapes().items()},
+               "peak_memory_gb": peak_memory_gb(torch, on_card)}
+    finally:
+        manager.stop_server()
+        del engine, manager
+    fresh_peak(torch, on_card)
+    ref = EngineManager(tier, seed=0, device=device, warmup_on_start=False)
+    ref.start_server()
+    try:
+        with uncounted():
+            want = tp_run_probes(torch, ref.engine(), tier)
+            ref32 = f32_logits(torch, ref.engine(), want["tokens"]["cold"][0])
+            logits = logits_against(got["logits"], want["logits"], ref32)
+            flips = [{"probe": n, **seq_near_tie(torch, ref.engine(), ids, w,
+                                                 got["tokens"][n][1],
+                                                 logits["tol"])}
+                     for n, (ids, w) in want["tokens"].items()
+                     if got["tokens"][n][1] != w]
+    finally:
+        ref.stop_server()
+    require(all(f["near_tie"] for f in flips),
+            f"sequential tp tokens differ from tp=1 beyond a near-tie: "
+            f"{flips}")
+    res["against_tp1"] = {"tokens_identical": not flips, "flips": flips,
+                          **logits}
+    return res, launches
+
+
+def seq_near_tie(torch, engine, ids, want, got, tol: float) -> dict:
+    """``near_tie`` for the sequential engine, which has no pool to replay
+    in: the prefill logits (K2) of the prompt and ``want`` up to the
+    first difference, last row; a near-tie when the gap between the two
+    picks there is within 2 ``tol``, the drift the tp and tp=1 logits
+    may each show from float32 (``logits_against``'s bound)."""
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.models import transformer
+    p = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    out = {"position": p, "of": len(want), "tol": tol, "near_tie": False}
+    if p >= min(len(want), len(got)):
+        return out
+    seq = list(ids) + list(want[:p])
+    dev = engine.device
+    with torch.no_grad():
+        hidden, _ = models.serving_prefill(
+            engine.cfg, engine.model, torch.tensor([seq], device=dev),
+            torch.arange(len(seq), device=dev)[None])
+        logits = transformer.logits_from_hidden(engine.model,
+                                                hidden[0, -1]).float()
+    out["pick_gap"] = float(logits[want[p]] - logits[got[p]])
+    out["near_tie"] = abs(out["pick_gap"]) <= 2 * tol
+    return out
+
+
+def tp_health_part(torch, *, device: str) -> dict:
+    """(e) A Router with the perf strategy and a ``health_mesh`` of the
+    card repeated twice over the tiny tiers: after a few routed turns the
+    monitor's exchange all-gathers each tier's perf row over the group,
+    equal to the strategy's own window (every row this process's)."""
+    from distributed_llm_tpu_torch.config import (BENCHMARK_CFG,
+                                                  tiny_batched_cluster)
+    from distributed_llm_tpu_torch.parallel.collectives import (
+        summarize_perf_window)
+    from distributed_llm_tpu_torch.parallel.mesh import tp_mesh
+    from distributed_llm_tpu_torch.serving.router import Router
+
+    group = tp_mesh([device] * 2, 2)
+    router = Router(strategy="perf", benchmark_mode=True,
+                    cluster=tiny_batched_cluster(), device=device,
+                    sample_ms=0, config=dict(
+                        BENCHMARK_CFG, enable_health_monitor=True,
+                        health_interval_s=3600.0, health_mesh=group))
+    try:
+        for q in ("hello there", "compare rivers and lakes in detail",
+                  "what is two plus two?"):
+            router.route_query([{"role": "user", "content": q}])
+        monitor = router.health_monitor
+        require(monitor.mesh is group, "the monitor did not get the group")
+        perf = monitor._perf_strategy()
+        out = monitor.exchange_health()
+        rows = {}
+        for name, got in out.items():
+            want = summarize_perf_window(list(perf.samples[name]))
+            require(got.shape == (2, 4) and (got == want).all(),
+                    f"allgather_health rows for {name}: {got} != {want}")
+            rows[name] = got[0].tolist()
+        return {"rows": rows, "group": [str(d) for d in group.devices]}
+    finally:
+        router.drain(timeout_s=30)
+
+
+def tp_phase(torch, nano, orin, *, device: str = "cuda"):
+    """Phase 21: tensor parallelism over a group of the card repeated (the
+    port's single controller runs every shard on it; the numbers are the
+    cost of sharding on one card, not a multi-card speedup).  (a) the
+    flagship's orin at tp=4 and (b) orin_8b int8 at tp=2 with the nano_1b
+    draft on the batched engine, (c) orin_8b on the sequential engine at
+    tp=4, each held against tp=1 on the same probes; (d) the bench's
+    ``multichip`` section on two slots of the card; (e) the health
+    exchange through a Router's ``health_mesh``.  Every kernel of a part
+    launches on every shard.  Returns (numbers, launches summed)."""
+    from distributed_llm_tpu_torch.bench import headline
+    from distributed_llm_tpu_torch.ops import launches as L
+
+    tiers = tp_tiers(orin, nano)
+    parts, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for name, (tp, every, expect) in TP_BATCHED.items():
+        t0 = time.perf_counter()
+        parts[name], launches = tp_batched_part(
+            torch, tiers[name], tp, every, expect, device=device)
+        parts[name]["wall_s"] = time.perf_counter() - t0
+        add(launches)
+        log(f"tp {name} in {parts[name]['wall_s']:.1f}s")
+    t0 = time.perf_counter()
+    parts["seq_tp4"], launches = tp_sequential_part(
+        torch, tiers["seq_tp4"], 4, device=device)
+    parts["seq_tp4"]["wall_s"] = time.perf_counter() - t0
+    add(launches)
+    log(f"tp seq_tp4 in {parts['seq_tp4']['wall_s']:.1f}s")
+    # (d) the multichip section, its kernels counted on its shards.
+    t0 = time.perf_counter()
+    reset_counts()
+    shards0 = L.shard_counts()
+    mc = headline.multichip_phase(devices=[device] * 2,
+                                  tie_check=tie_checker(torch))
+    require("error" not in mc and not mc.get("skipped"),
+            f"the multichip section failed: {mc}")
+    launches, _ = read_counts(TP_MC_EXPECT, device == "cuda")
+    mc["launches"] = {k: v for k, v in launches.items() if v}
+    mc["launches_by_shard"] = tp_shard_launches(shards0, 2, TP_MC_EXPECT)
+    mc["wall_s"] = time.perf_counter() - t0
+    parts["multichip"] = mc
+    add(launches)
+    log(f"tp multichip in {mc['wall_s']:.1f}s")
+    t0 = time.perf_counter()
+    parts["health"] = tp_health_part(torch, device=device)
+    parts["health"]["wall_s"] = time.perf_counter() - t0
+    return parts, total
+
+
+def tp_summary(parts: dict) -> dict:
+    """What phase 21 prints of each part."""
+    out = {}
+    for name, r in parts.items():
+        out[name] = {k: r.get(k) for k in (
+            "tp", "build_s", "capture_s", "graph_pool_gb", "main_path_s",
+            "tick_replay_ms", "tp1_tick_replay_ms", "tick_position",
+            "tick_stage", "launches_by_shard",
+            "against_tp1", "peak_memory_gb", "wall_s", "tp_ratio",
+            "spec_tok_ratio", "single_device", "outputs_identical",
+            "capacity", "rows") if r.get(k) is not None}
+    return out
+
+
 # Phases 7-9b, the sequential engines at full width and depth (also
 # ``--only``-able): (tier of (nano, orin), the kernels that must launch).
 SEQ_PHASES = {
@@ -6046,6 +6502,7 @@ LATE_PHASES = {
     "edges": lambda torch, nano, orin: edges_phase(torch, nano, orin),
     "moe": lambda torch, nano, orin: moe_phase(torch, nano, orin),
     "train": lambda torch, nano, orin: train_phase(torch, nano, orin),
+    "tp": lambda torch, nano, orin: tp_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -6057,12 +6514,12 @@ BENCH_OPENLOOP_S = 40.0
 # The sweep's depth: the first 4 of the 12 general_knowledge queries a
 # strategy (both legs, every strategy), and 3 trend repeats, not 5; the
 # tiny tiers' tenant and autoscaler legs at the CPU tests' depth (the
-# noisy load 1.5 s, not 2.5; the elastic and chaos2 ramps 8 s, not 20 and
-# 16): cut to pay for phases 19 and 20.
+# noisy load 1.0 s, not 2.5; the elastic ramp 6 s and the chaos2 ramp
+# 8 s, not 20 and 16): cut to pay for phases 19, 20 and 21.
 BENCH_QUERIES = 4
 BENCH_TREND_REPEATS = 3
-BENCH_LEG_DEPTH = {"noisy_phase": {"load_s": 1.5},
-                   "elastic_phase": {"period_s": 8.0},
+BENCH_LEG_DEPTH = {"noisy_phase": {"load_s": 1.0},
+                   "elastic_phase": {"period_s": 6.0},
                    "chaos2_phase": {"period_s": 8.0}}
 
 
@@ -6394,7 +6851,8 @@ def main() -> None:
                 if name == "fleet" else fleet2_summary(numbers)
                 if name == "fleet2" else edges_summary(numbers)
                 if name == "edges" else moe_summary(numbers)
-                if name == "moe" else numbers), "card": card,
+                if name == "moe" else tp_summary(numbers)
+                if name == "tp" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -6501,8 +6959,12 @@ def main() -> None:
     # 19. MoE: moe_8x1b served four ways.  20. Training: K2's Function,
     # nano_1b pretrained, saved, served and scored; nano_test and moe_test
     # learning.
+    # 21. Tensor parallelism over a group of the card repeated: the
+    # flagship's orin at tp=4 and orin_8b int8 at tp=2 (batched), orin_8b
+    # at tp=4 (sequential), each against tp=1; the bench's multichip
+    # section; the health exchange over a Router's health_mesh.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
-                 "legs", "fleet", "fleet2", "edges", "moe", "train"):
+                 "legs", "fleet", "fleet2", "edges", "moe", "train", "tp"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
         mark(name)
@@ -6515,6 +6977,14 @@ def main() -> None:
                                     for p, n in by_phase.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
         row["kernel_ms"] = row["ms"]
+        # Phase 21's launches by part and head shard.
+        row["launches_by_shard"] = {
+            part: {s: n.get(row["name"])
+                   for s, n in r["launches_by_shard"].items()
+                   if n.get(row["name"])}
+            for part, r in late["tp"].items() if "launches_by_shard" in r}
+        row["launches_by_shard"] = {p: v for p, v in
+                                    row["launches_by_shard"].items() if v}
     require(all(row["launches"] > 0 for row in rows),
             "a kernel never launched on a main path")
     # K11's two routes are one kernel; each must have run on a main path
@@ -6684,13 +7154,16 @@ def main() -> None:
             "peak_memory_gb")},
         "served": tr["served"], "eval": tr["eval"],
         **{p: tr[p] for p in TRAIN_TINY_STEPS}}}, default=str))
+    log(json.dumps({"card": card, "tp": tp_summary(late["tp"])},
+                   default=str))
     log(json.dumps({"card": card, "phase_s": phase_s,
                     "total_s": report["total_s"]}))
     log(f"{card}")
     log(json.dumps({"kernels": [{**{k: row[k] for k in keys},
                                  **{k: row[k] for k in (
                                      "one_tile_short_rel_err", "short",
-                                     "launches_by_route", "cublas_bf16_ms",
+                                     "launches_by_route", "launches_by_shard",
+                                     "cublas_bf16_ms",
                                      "library_rel_err",
                                      "decode_step_products")
                                     if k in row}} for row in rows]}))

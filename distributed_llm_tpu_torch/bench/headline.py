@@ -92,8 +92,10 @@ The JAX package's environment knobs are flags here: ``--budget-s``
 CPU too, at its full 1B and 8B sizes), ``--host-kv-bytes``
 (``DLLM_HOST_KV_BYTES``, for the sweep cluster's tiers).
 
+``multichip`` (``multichip_phase``) runs tp=2 against tp=1 on a device
+group; with one card it is skipped (``single_device``), as JAX's is.
 Not here, each waiting for the feature it measures (ROADMAP.md A1):
-``multichip`` (tensor parallelism), ``tier_quality`` (the training
+``tier_quality`` (the training
 package's evaluation) and ``dispatch_provenance`` / ``hw_dispatch`` (the port has no dispatch
 table).  Nor the JAX bench's accelerator probe, its fall-back to
 the CPU or its kernel dispatch A/B.
@@ -482,6 +484,27 @@ def compact(result: dict) -> dict:
         }.items() if v is not None}
         if cm:
             out["chaos2"] = cm
+    mc = result.get("multichip")
+    if isinstance(mc, dict) and not mc.get("skipped"):
+        # The tp=2/tp=1 decode tok/s ratio, both rates, the capacity
+        # verdicts, speculation's ratio at tp=2, the one-decode-program
+        # pin and the identity verdict.
+        cap = mc.get("capacity") or {}
+        cm = {k: v for k, v in {
+            "tp_ratio": mc.get("tp_ratio"),
+            "tok_tp1": (mc.get("tp1") or {}).get("tok_per_s"),
+            "tok_tp2": (mc.get("tp2") or {}).get("tok_per_s"),
+            "ragged_tp2": (mc.get("tp2") or {}).get("ragged"),
+            "programs_tp2": (mc.get("tp2") or {}).get("decode_programs"),
+            "cap_refused_tp1": cap.get("tp1_refused"),
+            "cap_served_tp2": cap.get("tp2_served"),
+            "cap_budget_gb": cap.get("hbm_gb_per_chip"),
+            "spec_ratio": mc.get("spec_tok_ratio"),
+            "ident": mc.get("outputs_identical"),
+            "err": (mc.get("error") or "")[:80] or None,
+        }.items() if v is not None}
+        if cm:
+            out["multichip"] = cm
     strategies = result.get("per_strategy")
     if isinstance(strategies, dict):
         # t50/t95: trace-derived p50/p95 TTFT, tbt50: trace-derived p50
@@ -1357,6 +1380,196 @@ def flagship_phase(cluster=None, device=None, max_new: int = 48,
     return out
 
 
+def multichip_phase(devices=None, device=None, n_requests: int = 8,
+                    beat=lambda: None, tie_check=None,
+                    cap_preset: str = "mini_bench") -> dict:
+    """The tensor-parallel leg (root ``bench.py`` ``multichip_phase``):
+    tp=2 against tp=1 on a device group, in three parts.
+
+    Part A, parity and throughput: the tiny batched nano tier at tp=1 (the
+    group's first device, no group) and at tp=2 (the group the carve
+    gives the tier at ``tp=2``, JAX's ``DLLM_TP=2`` being the tier field
+    here), greedy tokens identical, ``tp_ratio`` = tp=2 decode tok/s over
+    tp=1's; the tp=2 engine must tick ragged with ONE decode program.
+    Part B, capacity: a per-device budget between the ``cap_preset``
+    tier's tp=1 and tp=2 footprints (``utils/hbm_budget``) refuses the
+    tier at tp=1 (``TierOverCapacityError``, nothing built) and serves it
+    at tp=2.  Part C: speculation (the ``draft_test`` draft, replicated)
+    on the tp=2 group, tokens identical to Part A's tp=2 run, and
+    ``spec_tok_ratio`` over it.
+
+    ``devices``: the slots to carve (default every card, or the one
+    ``device`` names); fewer than two give ``{"skipped":
+    "single_device"}``, as JAX's leg on one chip.  A group whose slots
+    share one device (the card repeated) runs every shard there: its
+    ratios are the cost of sharding on one device, stamped
+    ``single_device``.  ``tie_check`` judges a greedy flip between the
+    modes (``legs._judge``); without it every divergence fails.  JAX's
+    checkpoint into ``MULTICHIP_r*.json`` is not written."""
+    from ..config import tiny_batched_cluster
+    from ..engine.batching import ContinuousBatchingEngine
+    from ..engine.manager import EngineManager, TierOverCapacityError
+    from ..obs import get_observability
+    from ..parallel.mesh import as_devices, carve_tier_meshes, tp_mesh
+    from ..utils.hbm_budget import tier_hbm_budget
+    from . import legs
+
+    print("[bench] multichip (tensor-parallel) leg", file=sys.stderr,
+          flush=True)
+    devs = list(as_devices(devices, device))
+    if len(devs) < 2:
+        return {"skipped": "single_device"}
+    cluster = tiny_batched_cluster()
+    base = dataclasses.replace(cluster.nano, max_new_tokens=24,
+                               enable_prefix_cache=False)
+    short_q, long_q = legs.SHORT_Q, legs.LONG_Q
+    prompts = [(short_q if i % 2 else long_q) + f" variant {i}"
+               for i in range(n_requests)]
+    out: dict = {"n_devices": len(devs), "requests": n_requests,
+                 "decode_batch": base.decode_batch}
+    group2 = carve_tier_meshes(dataclasses.replace(
+        cluster, nano=dataclasses.replace(base, tp=2)), devices=devs)["nano"]
+    if group2.tp != 2:
+        return {"error": f"tp=2 carve produced {group2.shape}"}
+    if group2.shared:
+        out["single_device"] = True
+
+    def measure(tier, group, seed=7):
+        eng = ContinuousBatchingEngine(tier, seed=seed, device=devs[0],
+                                       group=group)
+        try:
+            eng.warmup()
+            eng.generate(long_q, max_new_tokens=24)
+            eng.generate(short_q, max_new_tokens=24)
+            beat()
+            eng.tick_ms.clear()
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p) for p in prompts]
+            for r in reqs:
+                r.done.wait(timeout=300)
+            wall = time.perf_counter() - t0
+            gen_tokens = sum(r.result.gen_tokens for r in reqs
+                             if r.result is not None)
+            decode_s = sum(eng.tick_ms) / 1000.0
+            gauge = get_observability().m.compiled_programs.labels(
+                eng.tier.name, "decode").value
+            return {
+                "tokens": [tuple(r.result.token_ids) for r in reqs
+                           if r.result is not None],
+                "errors": sum(1 for r in reqs if r.error is not None),
+                "tok_per_s": round(gen_tokens / max(decode_s, 1e-9), 3),
+                "wall_tok_per_s": round(gen_tokens / max(wall, 1e-9), 3),
+                "ragged": bool(eng.ragged),
+                "spec": bool(eng.spec),
+                "decode_programs": len(eng._compiled.get("decode", ())),
+                "verify_programs": len(eng._compiled.get("spec", ())),
+                "gamma_family": len(eng._gamma_buckets),
+                "decode_gauge": gauge,
+                "spec_stats": (eng.spec_stats() if eng.spec else None),
+            }
+        finally:
+            eng.stop()
+
+    # -- Part A: tp=1 against tp=2 ----------------------------------------
+    r1 = measure(base, None)
+    r2 = measure(base, group2)
+    for key, r in (("tp1", r1), ("tp2", r2)):
+        out[key] = {k: r[k] for k in ("tok_per_s", "wall_tok_per_s",
+                                      "errors", "ragged",
+                                      "decode_programs", "decode_gauge")}
+    if r1["tok_per_s"] and r2["tok_per_s"]:
+        out["tp_ratio"] = round(r2["tok_per_s"] / r1["tok_per_s"], 3)
+    tp_out: dict = {}
+    ok_tp = legs._judge(tp_out, n_requests, ("tp1", "tp2"),
+                        {"tp1": r1["tokens"], "tp2": r2["tokens"]}, prompts,
+                        base, tie_check, 7, devs[0])
+    if not r2["ragged"]:
+        out["error"] = ("tp=2 engine fell back to the dense windowed "
+                        "tick: the sharded ragged path did not arm")
+    elif r2["decode_programs"] != 1 or r2["decode_gauge"] != 1.0:
+        out["error"] = (f"tp=2 ragged engine minted "
+                        f"{r2['decode_programs']} decode program(s), "
+                        f"gauge={r2['decode_gauge']}: expected 1")
+    beat()
+
+    # -- Part B: capacity, refused at tp=1 and served at tp=2 -------------
+    cap_tier = dataclasses.replace(
+        base, model_preset=cap_preset, decode_batch=2, max_new_tokens=8,
+        prefill_buckets=(16, 32, 64))
+    b1 = tier_hbm_budget(cap_tier, mesh=tp_mesh(devs[:1], 1))
+    b2 = tier_hbm_budget(dataclasses.replace(cap_tier, tp=2), mesh=group2)
+    hbm = round((b1["total_gb_per_chip"] + b2["total_gb_per_chip"]) / 2
+                + 0.75, 4)
+    cap = {"model": cap_preset, "hbm_gb_per_chip": hbm,
+           "tp1_gb_per_chip": b1["total_gb_per_chip"],
+           "tp2_gb_per_chip": b2["total_gb_per_chip"]}
+    mgr1 = EngineManager(dataclasses.replace(cap_tier, hbm_gb_per_chip=hbm),
+                         device=devs[0], warmup_on_start=False,
+                         seed=cluster.seed)
+    try:
+        mgr1.start_server()
+        cap["tp1_refused"] = False
+        mgr1.stop_server()
+    except TierOverCapacityError as exc:
+        cap["tp1_refused"] = True
+        cap["refusal"] = str(exc)[:160]
+    mgr2 = EngineManager(
+        dataclasses.replace(cap_tier, tp=2, hbm_gb_per_chip=hbm),
+        group=group2, warmup_on_start=False, seed=cluster.seed)
+    try:
+        mgr2.start_server()
+        res = mgr2.engine().generate(short_q, max_new_tokens=8)
+        cap["tp2_served"] = bool(res.token_ids)
+    except TierOverCapacityError as exc:
+        cap["tp2_served"] = False
+        cap["tp2_refusal"] = str(exc)[:160]
+    finally:
+        mgr2.stop_server()
+    out["capacity"] = cap
+    if not (cap.get("tp1_refused") and cap.get("tp2_served")):
+        out.setdefault("error", f"capacity demo failed: {cap}")
+    beat()
+
+    # -- Part C: speculation on the tp=2 group ----------------------------
+    spec_tier = dataclasses.replace(base, spec_decode=True,
+                                    draft_preset="draft_test")
+    rs = measure(spec_tier, group2)
+    st = rs["spec_stats"] or {}
+    out["spec_tp2"] = {
+        "tok_per_s": rs["tok_per_s"],
+        "errors": rs["errors"],
+        "armed": rs["spec"],
+        "accept_ratio": st.get("accept_ratio"),
+        "drafted_total": st.get("drafted_total"),
+        "verify_programs": rs["verify_programs"],
+        "gamma_family": rs["gamma_family"],
+    }
+    if rs["tok_per_s"] and r2["tok_per_s"]:
+        out["spec_tok_ratio"] = round(rs["tok_per_s"] / r2["tok_per_s"], 3)
+    spec_out: dict = {}
+    ok_spec = legs._judge(spec_out, n_requests, ("tp2", "spec"),
+                          {"tp2": r2["tokens"], "spec": rs["tokens"]},
+                          prompts, base, tie_check, 7, devs[0])
+    if not rs["spec"]:
+        out.setdefault("error", "spec_decode did not arm on the tp=2 group")
+    elif rs["verify_programs"] > rs["gamma_family"]:
+        out.setdefault("error",
+                       f"verify capture churn at tp=2: "
+                       f"{rs['verify_programs']} programs for a "
+                       f"(γ_bucket) family of {rs['gamma_family']}")
+    out["outputs_identical"] = bool(tp_out["outputs_identical"]
+                                    and spec_out["outputs_identical"])
+    flips = tp_out.get("flips", []) + spec_out.get("flips", [])
+    if flips:
+        out["flips"] = flips
+    if not (ok_tp and ok_spec):
+        out.setdefault("error",
+                       "sharded outputs diverged (tp identical: "
+                       f"{tp_out['outputs_identical']}, spec identical: "
+                       f"{spec_out['outputs_identical']})")
+    return out
+
+
 def spec_multiturn_phase(cluster, device=None, max_new: int = 16,
                          beat=lambda: None) -> dict:
     """What speculative serving costs on multi-turn TTFT: the speculative
@@ -1850,6 +2063,8 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         beat=progress.beat, device=dev, tie_check=tie_check), 180)
     chaos2 = later("chaos2", lambda: elastic.chaos2_phase(
         beat=progress.beat, device=dev, tie_check=tie_check), 120)
+    multichip = later("multichip", lambda: multichip_phase(
+        device=dev, beat=progress.beat, tie_check=tie_check), 120)
     spill = later("spill", lambda: spill_phase(dev, beat=progress.beat), 150)
     # The open-loop leg needs about 40 s to mean anything and leaves 30 s
     # for the sections after it: past that it is skipped, not squeezed.
@@ -1900,6 +2115,7 @@ def run(device=None, *, repeats: int = 3, clients: int = 4,
         "replica": replica,
         "elastic": elastic_out,
         "chaos2": chaos2,
+        "multichip": multichip,
         "spill": spill,
         "openloop": openloop,
         "knee_req_per_s": openloop.get("knee_req_per_s"),

@@ -160,7 +160,6 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
 # Features whose code is not ported yet, with the value that means "off"
 # (the JAX package's default).  A tier asking for anything else raises.
 _UNPORTED_DEFAULTS = {
-    "tp": 1,
     "ep": 1,
 }
 
@@ -405,9 +404,12 @@ class TierConfig:
     # max at tier start, so a scale-up publishes a warm engine and a
     # scale-down parks the drained one.  False = build at actuation.
     autoscale_warm_pool: bool = True
-    # -- not ported yet: non-default values raise in check_ported -------
+    # Tensor-parallel degree: the tier's requested device-group width
+    # (parallel/mesh.carve_tier_meshes shrinks it to the devices at hand
+    # and to a divisor of the head counts).  Dense models only.
     tp: int = 1
-    # Expert-parallel degree of a MoE tier (multi-GPU, ROADMAP A10).
+    # -- not ported yet: non-default values raise in check_ported -------
+    # Expert-parallel degree of a MoE tier (multi-GPU, ROADMAP A10b).
     ep: int = 1
 
     def model(self) -> ModelConfig:
@@ -421,18 +423,25 @@ class TierConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (tensor or expert parallelism: the multi-GPU slice,
-        ROADMAP A10), and ``ValueError`` for ``replicas < 1``."""
+        tier turns on (expert parallelism, and tensor parallelism of a
+        MoE model: ROADMAP A10b), and ``ValueError`` for ``replicas < 1``
+        or ``tp < 1``.  ``tp > 1`` on a dense model is ported."""
         if self.replicas < 1:
             raise ValueError(f"tier {self.name}: replicas must be >= 1, "
                              f"got {self.replicas}")
+        if self.tp < 1:
+            raise ValueError(f"tier {self.name}: tp must be >= 1, got "
+                             f"{self.tp}")
         on = [f"{k}={getattr(self, k)!r}"
               for k, off in _UNPORTED_DEFAULTS.items()
               if getattr(self, k) != off]
+        if self.tp > 1 and self.model().num_experts > 1:
+            on.append(f"tp={self.tp!r} on the MoE preset "
+                      f"{self.model_preset}")
         if on:
             raise NotImplementedError(
                 f"tier {self.name}: {', '.join(on)} is not ported to the "
-                "PyTorch/CUDA package yet (multi-GPU, ROADMAP.md A10)")
+                "PyTorch/CUDA package yet (multi-GPU, ROADMAP.md A10b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -440,9 +449,11 @@ class ClusterConfig:
     """The deployment's two tiers, behind the router's ``/chat`` service
     or each behind its own ``/query`` server.
 
-    The JAX default gives orin ``tp=4`` and shrinks a tier to the devices
-    at hand; the port has one card, so orin is ``tp=1`` until the
-    multi-GPU slice."""
+    The JAX default gives orin ``tp=4``; the port's default keeps orin at
+    ``tp=1``: the card it is checked on is one, and a group of one shard
+    would run the same.  A tier asks for ``tp`` and the carve
+    (``parallel/mesh.carve_tier_meshes``) gives what the devices at hand
+    allow."""
 
     nano: TierConfig = dataclasses.field(
         default_factory=lambda: TierConfig(name="nano", model_preset="nano_1b",
@@ -516,41 +527,41 @@ def _apply_tuning(cluster: ClusterConfig) -> ClusterConfig:
 
 def flagship_cluster(n_devices: int = 1, kv_int8: bool = False
                      ) -> ClusterConfig:
-    """The north star's presets shaped to one card, as the JAX package's
-    ``flagship_cluster`` shapes them to one chip: nano_1b (bf16, 8 slots)
-    and orin_8b with int8 weights (``tp=1``), both with the (256, 1024,
-    2048) bucket ladder.  ``kv_int8`` gives orin an int8 KV cache (the JAX
-    package's ``DLLM_FLAGSHIP_KV_INT8`` A/B flag); bf16 KV by default, as
-    there.  Five or more devices give the JAX package orin over a ``tp=4``
-    submesh; tensor parallelism is not ported, so they raise."""
-    if n_devices >= 5:
-        raise NotImplementedError(
-            f"flagship_cluster({n_devices}): orin_8b over tp=4 needs tensor "
-            "parallelism, not ported to the PyTorch/CUDA package yet (see "
-            "ROADMAP.md)")
+    """The north star's presets shaped to the devices at hand, as the JAX
+    package's ``flagship_cluster`` shapes them: nano_1b (bf16, 8 slots)
+    and, on five or more devices, orin_8b in bf16 over a ``tp=4`` group;
+    on fewer, orin_8b with int8 weights (``tp=1``), both with the (256,
+    1024, 2048) bucket ladder.  ``kv_int8`` gives the one-device orin an
+    int8 KV cache (the JAX package's ``DLLM_FLAGSHIP_KV_INT8`` A/B flag);
+    bf16 KV by default, as there."""
     buckets = (256, 1024, 2048)
-    return ClusterConfig(
-        nano=TierConfig(name="nano", model_preset="nano_1b",
-                        max_new_tokens=64, decode_batch=8,
-                        prefill_buckets=buckets),
-        orin=TierConfig(name="orin", model_preset="orin_8b",
-                        max_new_tokens=128, quantize="int8",
-                        kv_quantize="int8" if kv_int8 else "none",
-                        decode_batch=4, prefill_buckets=buckets))
+    nano = TierConfig(name="nano", model_preset="nano_1b",
+                      max_new_tokens=64, decode_batch=8,
+                      prefill_buckets=buckets)
+    if n_devices >= 5:
+        orin = TierConfig(name="orin", model_preset="orin_8b", tp=4,
+                          max_new_tokens=128, decode_batch=4,
+                          prefill_buckets=buckets)
+    else:
+        orin = TierConfig(name="orin", model_preset="orin_8b",
+                          max_new_tokens=128, quantize="int8",
+                          kv_quantize="int8" if kv_int8 else "none",
+                          decode_batch=4, prefill_buckets=buckets)
+    return ClusterConfig(nano=nano, orin=orin)
 
 
 def tiny_batched_cluster(nano_slots: int = 4,
                          orin_slots: int = 2) -> ClusterConfig:
     """The JAX package's tiny test tiers with the continuous-batching
     engine: ``nano_test`` and ``orin_test``, buckets (16, 32, 64),
-    16-token blocks and a 24-token decode cap.  The JAX tiny orin asks
-    for ``tp=4`` on its 8-device CPU mesh; here it is ``tp=1``."""
+    16-token blocks and a 24-token decode cap; orin asks for ``tp=4``,
+    which the carve shrinks to the devices at hand (1 on one device)."""
     common = dict(max_new_tokens=24, prefill_buckets=(16, 32, 64),
                   kv_block_size=16)
     return ClusterConfig(
         nano=TierConfig(name="nano", model_preset="nano_test",
                         decode_batch=nano_slots, **common),
-        orin=TierConfig(name="orin", model_preset="orin_test",
+        orin=TierConfig(name="orin", model_preset="orin_test", tp=4,
                         decode_batch=orin_slots, **common))
 
 
@@ -585,10 +596,11 @@ def with_default_checkpoints(cluster: ClusterConfig) -> ClusterConfig:
 def tiny_cluster() -> ClusterConfig:
     """The JAX package's tiny sequential test tiers (``decode_batch=1``):
     ``nano_test`` and ``orin_test``, buckets (16, 32, 64), 16-token blocks
-    and an 8-token decode cap.  The JAX tiny orin asks for ``tp=4`` on
-    its 8-device CPU mesh; here it is ``tp=1``."""
+    and an 8-token decode cap; orin asks for ``tp=4``, which the carve
+    shrinks to the devices at hand (1 on one device)."""
     common = dict(max_new_tokens=8, prefill_buckets=(16, 32, 64),
                   kv_block_size=16)
     return ClusterConfig(
         nano=TierConfig(name="nano", model_preset="nano_test", **common),
-        orin=TierConfig(name="orin", model_preset="orin_test", **common))
+        orin=TierConfig(name="orin", model_preset="orin_test", tp=4,
+                        **common))

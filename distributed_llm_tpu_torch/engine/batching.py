@@ -152,7 +152,19 @@ over-budget tenant's slot first.  With ``tenant_quotas=None`` every path
 is the tenant-less one.  ``demote_parked`` is the scale-down sweep of
 serving/replicas.py.
 
-Not ported yet (ROADMAP.md A10): tensor parallelism.
+With a ``group`` (``parallel/mesh.DeviceGroup``) of ``tp`` > 1 slots the
+engine runs tensor-parallel, as the JAX engine does over a tier mesh:
+the weights split by Megatron's rules (``parallel/sharding.shard_params``)
+and the pool by kv heads, one pool per shard under the one allocator,
+block tables and prefix cache.  Every step runs each shard's heads on
+its own pool (``parallel/tp_attention.tp_layers``), so the same programs,
+keys and ticks serve it: ONE decode program per engine, each stage one
+captured program holding every shard's launches (on a group that shares
+one card, one CUDA graph).  The tables, sampling and a separate draft
+(replicated in JAX: it drafts the whole batch on every chip) live on the
+group's first device; a self-draft shares the sharded weights and keeps
+a sharded pool of its own.  A gate the group fails (``_tp_ragged_ok``)
+keeps the dense windowed tick, as in JAX.
 """
 
 from __future__ import annotations
@@ -181,6 +193,9 @@ from ..obs.profiler import DEFAULT_CAPACITY, make_profiler
 from ..ops import quant
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
+from ..parallel.mesh import DeviceGroup
+from ..parallel.sharding import kv_pool_shards, shard_params
+from ..parallel.tp_attention import _tp_ragged_ok
 from ..serving.errors import error_dict
 from ..utils import roofline
 from ..utils.telemetry import PhaseTimer
@@ -322,7 +337,10 @@ class ContinuousBatchingEngine:
     for concurrent callers, one shared decode loop.  Runs on the card
     unless ``device="cpu"`` is asked for (the plain PyTorch path).
     ``params``/``draft_params`` replace the seeded random target/draft
-    weights."""
+    weights (whole: a ``group`` shards them).  ``group``: the tier's
+    device group (``parallel/mesh.DeviceGroup``); with ``tp`` > 1 slots
+    the engine runs tensor-parallel over them, with one slot on that
+    slot's device; it replaces ``device``."""
 
     # Concurrent callers share the scheduler: the tier client does not
     # serialize them.
@@ -333,7 +351,8 @@ class ContinuousBatchingEngine:
                  device: DeviceLike = None,
                  draft_params: Optional[Transformer] = None,
                  profile: bool = True,
-                 profile_ticks: int = DEFAULT_CAPACITY):
+                 profile_ticks: int = DEFAULT_CAPACITY,
+                 group: Optional[DeviceGroup] = None):
         tier.check_ported()
         if tier.decode_batch <= 1:
             raise NotImplementedError(
@@ -341,7 +360,9 @@ class ContinuousBatchingEngine:
                 "the sequential InferenceEngine (EngineManager builds it); "
                 "the batched engine needs decode_batch > 1")
         self.tier = tier
-        self.device = resolve_device(device)
+        self.device = (group.lead if group is not None
+                       else resolve_device(device))
+        self.group = group if group is not None and group.tp > 1 else None
         self.cfg = tier.model()
         bad = [b for b in tier.prefill_buckets if b % tier.kv_block_size]
         if bad:
@@ -391,8 +412,15 @@ class ContinuousBatchingEngine:
         # time on the device.
         self.model = quant.maybe_quantize(params.to(self.device), tier,
                                           self.cfg)
-        self.pool = init_pool(self.cfg, self.paged, tier.kv_quantize,
-                              device=self.device)
+        del params
+        if self.group is not None:
+            # Quantized whole, then split (JAX's quantized_param_specs).
+            self.model = shard_params(self.model, self.group)
+            self.pool = kv_pool_shards(self.cfg, self.paged,
+                                       tier.kv_quantize, self.group)
+        else:
+            self.pool = init_pool(self.cfg, self.paged, tier.kv_quantize,
+                                  device=self.device)
         self.allocator = BlockAllocator(self.paged.num_blocks)
         self.ragged = self._resolve_ragged()
 
@@ -426,8 +454,14 @@ class ContinuousBatchingEngine:
                 self.model_d = quant.maybe_quantize(models.init_params(
                     self.cfg_d, seed=seed + 1, device=self.device), tier,
                     self.cfg_d)
-            self.pool_d = init_pool(self.cfg_d, self.paged, tier.kv_quantize,
-                                    device=self.device)
+            if self.model_d is self.model and self.group is not None:
+                # A self-draft shares the sharded weights: its pool shards
+                # too.
+                self.pool_d = kv_pool_shards(self.cfg_d, self.paged,
+                                             tier.kv_quantize, self.group)
+            else:
+                self.pool_d = init_pool(self.cfg_d, self.paged,
+                                        tier.kv_quantize, device=self.device)
             self._wbytes_d = roofline.weight_bytes(self.cfg_d, tier.quantize)
         # γ buckets: powers of two up to spec_gamma_max, plus the max.  A
         # round runs at the bucket covering its slots' largest γ; each
@@ -665,15 +699,20 @@ class ContinuousBatchingEngine:
         true_len, temp = self._adm_dev["true_len"], self._adm_dev["temp"]
         positions = torch.arange(bucket, device=self.device)[None]
 
+        def row0(kv):
+            if isinstance(kv, list):            # a sharded model's K/V
+                return [x[:, 0] for x in kv]
+            return kv[:, 0]
+
         def body() -> tuple:
             hidden, (k_all, v_all) = models.serving_prefill(cfg, model,
                                                             tokens, positions)
             if draft:
-                return k_all[:, 0], v_all[:, 0]
+                return row0(k_all), row0(v_all)
             last = hidden.index_select(1, true_len.long() - 1)[:, 0]
             logits = transformer.logits_from_hidden(model, last)
-            return (sample_batched(logits, temp, self._gen), k_all[:, 0],
-                    v_all[:, 0])
+            return (sample_batched(logits, temp, self._gen), row0(k_all),
+                    row0(v_all))
 
         return body
 
@@ -993,9 +1032,18 @@ class ContinuousBatchingEngine:
 
     def _resolve_ragged(self) -> bool:
         """Whether the decode tick runs the ragged path: the tier's
-        ``attention_ragged`` (the JAX engine's mesh rule and its env
-        override have no counterpart here: one card, no env knobs)."""
+        ``attention_ragged``, under a group only where the group passes
+        the sharded tick's gate (``_tp_ragged_ok``, JAX's mesh rule; its
+        env override has no counterpart: no env knobs)."""
+        if self.group is not None and not _tp_ragged_ok(self.group,
+                                                        self.cfg):
+            return False
         return bool(self.tier.attention_ragged)
+
+    @property
+    def tp(self) -> int:
+        """The engine's tensor-parallel degree (1 unsharded)."""
+        return 1 if self.group is None else self.group.tp
 
     def _suffix_window(self, needed: int) -> int:
         """Smallest prefill bucket covering ``needed`` positions, else the

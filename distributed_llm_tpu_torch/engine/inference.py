@@ -48,7 +48,8 @@ so on the card each covers the device work it launched.  A segment's
 work counts its steps up to the budget, an EOS's masked ones included
 (up to 7): the steps the eager loop ran.
 
-The JAX engine's mesh, sequence- and tensor-parallel hooks are not
+A ``group`` runs the engine tensor-parallel (see ``InferenceEngine``);
+sequence parallelism (JAX's ring prefill over an ``sp`` axis) is not
 ported.  Calls are not thread-safe: callers serialize them (the
 ``/query`` server holds one lock per engine).
 """
@@ -69,10 +70,12 @@ from ..device import DeviceLike, resolve_device
 from .. import models
 from ..models import transformer
 from ..models.checkpoint import load_params_for_tier
-from ..models.transformer import KVCache, Transformer
+from ..models.transformer import KVCache, Transformer, kv_shards
 from ..ops import quant
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
+from ..parallel.mesh import DeviceGroup
+from ..parallel.sharding import kv_cache_shards, shard_params
 from ..utils import roofline
 from ..utils.telemetry import PhaseTimer
 from .programs import SequentialPrograms
@@ -163,14 +166,23 @@ class InferenceEngine(SequentialPrograms):
     """Single-sequence engine: synchronous ``generate()`` and
     ``generate_stream()``.  Runs on the card unless ``device="cpu"`` is
     asked for (the plain PyTorch path); ``params`` replaces the seeded
-    random weights."""
+    random weights (whole: a ``group`` shards them).  ``group``: the
+    tier's device group (``parallel/mesh.DeviceGroup``); with ``tp`` > 1
+    slots the engine runs tensor-parallel over them, JAX's mesh engine:
+    the weights split by ``parallel/sharding.shard_params``, one
+    contiguous cache per head shard, every program running each shard's
+    heads on its own cache (``parallel/tp_attention.tp_layers``).  With
+    one slot it runs on that slot's device; it replaces ``device``."""
 
     def __init__(self, tier: TierConfig, seed: int = 0,
                  params: Optional[Transformer] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 group: Optional[DeviceGroup] = None):
         tier.check_ported()
         self.tier = tier
-        self.device = resolve_device(device)
+        self.device = (group.lead if group is not None
+                       else resolve_device(device))
+        self.group = group if group is not None and group.tp > 1 else None
         self.cfg = tier.model()
         self.tokenizer = get_tokenizer(self.cfg)
         if self.device.type == "cuda":
@@ -186,6 +198,10 @@ class InferenceEngine(SequentialPrograms):
                                         device=self.device)
         self.model = quant.maybe_quantize(params.to(self.device), tier,
                                           self.cfg)
+        del params
+        if self.group is not None:
+            # Quantized whole, then split (JAX's quantized_param_specs).
+            self.model = shard_params(self.model, self.group)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed ^ 0x5EED)
         self._generators = (self._gen,)
@@ -240,8 +256,11 @@ class InferenceEngine(SequentialPrograms):
         """The working cache of rung ``cache_len``."""
         cache = self._caches.get(cache_len)
         if cache is None:
-            cache = self._caches[cache_len] = transformer.init_kv_cache(
-                self.cfg, 1, cache_len, self._kv_quantize, self.device)
+            cache = self._caches[cache_len] = (
+                kv_cache_shards(self.cfg, 1, cache_len, self._kv_quantize,
+                                self.group) if self.group is not None
+                else transformer.init_kv_cache(
+                    self.cfg, 1, cache_len, self._kv_quantize, self.device))
         return cache
 
     def _suffix_window(self, needed: int) -> int:
@@ -305,8 +324,9 @@ class InferenceEngine(SequentialPrograms):
         src, dst = self._cache(src_len), self._cache(dst_len)
 
         def body() -> None:
-            for name, x in src.items():
-                dst[name][:, :, :src_len].copy_(x)
+            for s, d in zip(kv_shards(src), kv_shards(dst)):
+                for name, x in s.items():
+                    d[name][:, :, :src_len].copy_(x)
             transformer.reset_kv_cache(dst, src_len)
 
         return body
@@ -363,16 +383,19 @@ class InferenceEngine(SequentialPrograms):
         """A parked cache copied into the working cache of its own rung (a
         prefix hit: no program reads a parked entry's storage); returns
         the rung."""
-        parked_len = parked["k"].shape[2]
+        parked_len = kv_shards(parked)[0]["k"].shape[2]
         cache = self._cache(parked_len)
-        for name, x in parked.items():
-            cache[name].copy_(x)
+        for c, p in zip(kv_shards(cache), kv_shards(parked)):
+            for name, x in p.items():
+                c[name].copy_(x)
         return parked_len
 
     def _park(self, cache_len: int) -> KVCache:
         """A copy of rung ``cache_len``'s working cache for the prefix
         cache (its owner, from now on)."""
-        return {name: x.clone() for name, x in self._cache(cache_len).items()}
+        parked = [{name: x.clone() for name, x in c.items()}
+                  for c in kv_shards(self._cache(cache_len))]
+        return parked if self.group is not None else parked[0]
 
     # -- device work -------------------------------------------------------
 

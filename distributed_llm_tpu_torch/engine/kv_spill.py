@@ -21,7 +21,11 @@ A demoted entry's tiles are the pool's own bytes, int8 scales included,
 kept block-major on the host (``[nb, L, N_kv, bs, D]``, scales
 ``[nb, L, N_kv, bs]``) so that a grant of blocks ``lo:hi`` is one
 contiguous pinned slice: the promote copy is asynchronous and the scatter
-back (``paged_kv.scatter_blocks``) is bit-identical.
+back (``paged_kv.scatter_blocks``) is bit-identical.  A tensor-parallel
+engine's tiles hold every head shard's: its shards' gathers are joined
+on the head axis into the unsharded layout, and a promotion splits them
+back onto each shard, so a demotion and its promotion move every shard's
+tile and a tile is the same whatever the tp of the replica holding it.
 
 Concurrency (the engine's single-writer discipline):
 

@@ -21,8 +21,12 @@ admitted ones, and ``health()`` reports the queue depth.  A tier with
 (utils/hbm_budget.py) and refused with ``TierOverCapacityError`` when it
 does not fit.  The process-global metrics count the requests a drain
 completed and each rising edge of the decode watchdog; ``health()``
-carries the batched engine's profiler summary.  The JAX package's
-device-mesh plumbing is not ported.
+carries the batched engine's profiler summary.  A ``group`` (the tier's
+device group from ``parallel/mesh.carve_tier_meshes``) reaches the
+batched and the sequential engine, which run tensor-parallel over it
+when it holds more than one slot; the sequential ``SpeculativeEngine``
+takes no group (JAX's takes no mesh) and runs on the group's first
+device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any, Dict, Optional, Union
 from ..config import TierConfig
 from ..device import DeviceLike, resolve_device
 from ..obs import get_observability
+from ..parallel.mesh import DeviceGroup, tp_mesh
 from .batching import ContinuousBatchingEngine
 from .inference import InferenceEngine
 from .speculative import SpeculativeEngine
@@ -53,12 +58,15 @@ class TierOverCapacityError(RuntimeError):
 
 class EngineManager:
     def __init__(self, tier: TierConfig, seed: int = 0,
-                 warmup_on_start: bool = True, device: DeviceLike = None):
+                 warmup_on_start: bool = True, device: DeviceLike = None,
+                 group: Optional[DeviceGroup] = None):
         tier.check_ported()
         self.tier = tier
         self.seed = seed
         self.warmup_on_start = warmup_on_start
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = (group.lead if group is not None
+                       else resolve_device(device))
         self._engine: Optional[Engine] = None
         self._lock = threading.RLock()
         self._started_at: Optional[float] = None
@@ -100,7 +108,8 @@ class EngineManager:
         fit ``hbm_gb_per_chip`` (less the activation headroom)."""
         from ..utils.hbm_budget import tier_hbm_budget
         budget = tier_hbm_budget(self.tier,
-                                 hbm_per_chip_gb=self.tier.hbm_gb_per_chip)
+                                 hbm_per_chip_gb=self.tier.hbm_gb_per_chip,
+                                 mesh=self.group or tp_mesh([self.device], 1))
         if not budget["fits"]:
             raise TierOverCapacityError(
                 f"tier {self.tier.name}: {budget['total_gb_per_chip']} "
@@ -130,7 +139,8 @@ class EngineManager:
                 # and passes through.
                 tier = dataclasses.replace(tier, spec_decode=True)
             return ContinuousBatchingEngine(tier, seed=self.seed,
-                                            device=self.device)
+                                            device=self.device,
+                                            **self._group_kw())
         if draft:
             logger.info("tier %s: decode_batch=1, sequential "
                         "SpeculativeEngine (gamma=%d)", tier.name,
@@ -142,7 +152,15 @@ class EngineManager:
             return SpeculativeEngine(tier, draft_tier,
                                      gamma=tier.speculative_gamma,
                                      seed=self.seed, device=self.device)
-        return InferenceEngine(tier, seed=self.seed, device=self.device)
+        return InferenceEngine(tier, seed=self.seed, device=self.device,
+                               **self._group_kw())
+
+    def _group_kw(self) -> Dict[str, Any]:
+        """The engine's ``group`` argument where it shards (tp > 1); a
+        one-slot group is its device."""
+        if self.group is not None and self.group.tp > 1:
+            return {"group": self.group}
+        return {}
 
     def stop_server(self) -> None:
         """Stop and drop the engine; its weights and caches are freed."""
@@ -223,6 +241,8 @@ class EngineManager:
             "tier": self.tier.name,
             "model": self.tier.model_preset,
             "device": str(self.device),
+            "devices": ([str(d) for d in self.group.devices]
+                        if self.group is not None else None),
             "uptime_s": ((time.time() - started_at)
                          if running and started_at is not None else 0.0),
         }

@@ -18,6 +18,12 @@ port writes it IN PLACE (``index_put_`` / slice assignment): the write
 functions mutate ``pool`` and return it.  Duplicate indices in one write
 (idle slots all writing the trash cell) are the only place the order of
 writes is unspecified, and nothing reads the trash block.
+
+A tensor-parallel engine keeps one pool per head shard (a list,
+``parallel/sharding.kv_pool_shards``) under the one allocator and the
+one set of block tables: every write, copy, gather and scatter here
+walks the shards (``transformer.kv_shards``), and the step functions run
+each shard's heads on its own pool (``transformer.run_layers``).
 """
 
 from __future__ import annotations
@@ -63,10 +69,11 @@ class PagedConfig:
 
 
 def init_pool(cfg: ModelConfig, pcfg: PagedConfig, kv_quantize: str = "none",
-              device=None) -> KVPool:
+              device=None, kv_heads: Optional[int] = None) -> KVPool:
     """Zeroed pool; ``kv_quantize="int8"`` stores K/V as int8 with
-    float32 per-row scales initialised to ones."""
-    shape = (cfg.num_layers, cfg.num_kv_heads, pcfg.num_blocks,
+    float32 per-row scales initialised to ones.  ``kv_heads`` (default
+    N_kv): a head shard's count."""
+    shape = (cfg.num_layers, kv_heads or cfg.num_kv_heads, pcfg.num_blocks,
              pcfg.block_size, cfg.head_dim)
     if kv_quantize == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -87,7 +94,14 @@ def gather_blocks(pool: KVPool, blocks: torch.Tensor) -> KVPool:
     copy of the host spill tier (engine/kv_spill.py).  The output is a
     fresh tensor that owns its data, so the source blocks may return to
     the free list once the gather is issued: later pool writes on the
-    same stream run after it and never reach the snapshot."""
+    same stream run after it and never reach the snapshot.  A sharded
+    pool's tiles are its shards' joined on the head axis, on the first
+    shard's device: the layout of the unsharded pool."""
+    if isinstance(pool, list):
+        parts = [gather_blocks(p, blocks.to(p["k"].device)) for p in pool]
+        lead = parts[0]["k"].device
+        return {name: torch.cat([pt[name].to(lead) for pt in parts], dim=1)
+                for name in parts[0]}
     return {name: t.index_select(2, blocks) for name, t in pool.items()}
 
 
@@ -96,7 +110,16 @@ def scatter_blocks(pool: KVPool, blocks: torch.Tensor,
     """Write gathered tiles back into ``blocks`` in place, the PROMOTE
     copy of the host spill tier: the exact inverse of ``gather_blocks``
     (a bit-identical round trip, int8 scales included), so a promoted
-    prefix serves decode exactly like one that never left the pool."""
+    prefix serves decode exactly like one that never left the pool.  A
+    sharded pool takes each shard's heads of the joined tiles."""
+    if isinstance(pool, list):
+        for j, p in enumerate(pool):
+            n = p["k"].shape[1]
+            lo = j * n
+            dev = p["k"].device
+            scatter_blocks(p, blocks.to(dev), {
+                name: t.narrow(1, lo, n).to(dev) for name, t in tiles.items()})
+        return pool
     for name, t in pool.items():
         t.index_copy_(2, blocks, tiles[name])
     return pool
@@ -207,15 +230,19 @@ class BlockAllocator:
 def write_prefill_blocks(pool: KVPool, blocks: torch.Tensor,
                          k_all: torch.Tensor, v_all: torch.Tensor) -> KVPool:
     """Scatter a prefilled prompt's K/V ([L, S, N_kv, D], S == nb * bs)
-    into its blocks ([nb] ids), in place (quantized for an int8 pool)."""
-    l, s, nkv, d = k_all.shape
-    nb = blocks.shape[0]
-    bs = s // nb
-    ix = (slice(None), slice(None), blocks.long())
-    # [L, S, N_kv, D] -> [L, N_kv, nb, bs, D] (head-major pool tiles).
-    quant.put_kv_rows(pool, None, ix,
-                      k_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4),
-                      v_all.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4))
+    into its blocks ([nb] ids), in place (quantized for an int8 pool).
+    A sharded pool takes its prefill's per-shard K/V lists."""
+    for p, k, v in zip(transformer.kv_shards(pool),
+                       transformer.kv_shards(k_all),
+                       transformer.kv_shards(v_all)):
+        l, s, nkv, d = k.shape
+        nb = blocks.shape[0]
+        bs = s // nb
+        ix = (slice(None), slice(None), blocks.long().to(k.device))
+        # [L, S, N_kv, D] -> [L, N_kv, nb, bs, D] (head-major pool tiles).
+        quant.put_kv_rows(p, None, ix,
+                          k.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4),
+                          v.reshape(l, nb, bs, nkv, d).permute(0, 3, 1, 2, 4))
     return pool
 
 
@@ -225,9 +252,13 @@ def copy_block(pool: KVPool, src, dst) -> KVPool:
     ends mid-block, and of a speculative round's shared frontier block.
     ``src`` and ``dst`` are block ids, or [1] index tensors on the pool's
     device (what a captured program reads: the ids it was captured with
-    would be constants of the graph)."""
-    for name in pool:
-        pool[name][:, :, dst] = pool[name][:, :, src]
+    would be constants of the graph).  Every shard of a sharded pool."""
+    for p in transformer.kv_shards(pool):
+        dev = p["k"].device
+        s, t = ((x.to(dev) if isinstance(x, torch.Tensor) else x)
+                for x in (src, dst))
+        for name in p:
+            p[name][:, :, t] = p[name][:, :, s]
     return pool
 
 
@@ -246,7 +277,7 @@ def chunk_prefill_paged(cfg: ModelConfig, model: Transformer,
     table blocks, so the cost is O(window), not O(max_seq)."""
     b, s_c = tokens.shape
     d = cfg.head_dim
-    bs = pool["k"].shape[3]
+    bs = transformer.kv_shards(pool)[0]["k"].shape[3]
     x = quant.embed_rows(model.embed, tokens)                     # [1, S_c, H]
     positions = start[:, None] + torch.arange(s_c, device=tokens.device)[None]
     q_pos = torch.minimum(positions, torch.clamp(true_len, min=1)[:, None] - 1)
@@ -254,21 +285,25 @@ def chunk_prefill_paged(cfg: ModelConfig, model: Transformer,
     flat_pos = positions[0].long()
     blk = table.long()[flat_pos // bs]
     off = flat_pos % bs
-    for i, lp in enumerate(model.layers):
-        h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, s_c, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, s_c, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, s_c, cfg.num_kv_heads, d)
-        q = transformer.apply_rope(q, sin, cos)
-        k = transformer.apply_rope(k, sin, cos)
-        quant.put_kv_rows(pool, i, (slice(None), blk, off),
+
+    def attn(lp, h_in, i, sh):
+        p, ins = sh.kv, sh.ins
+        q = quant.matmul(h_in, lp.wq).reshape(b, s_c, sh.nq, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, s_c, sh.nkv, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, s_c, sh.nkv, d)
+        q = transformer.apply_rope(q, ins["sin"], ins["cos"])
+        k = transformer.apply_rope(k, ins["sin"], ins["cos"])
+        quant.put_kv_rows(p, i, (slice(None), ins["blk"], ins["off"]),
                           k[0].transpose(0, 1),
                           v[0].transpose(0, 1))                # [nkv, S_c, d]
-        attn = attention.paged_chunk(q, pool["k"][i], pool["v"][i], table,
-                                     start, q_pos, window,
-                                     *transformer.layer_scales(pool, i))
-        x = x + quant.matmul(attn.reshape(b, s_c, cfg.num_heads * d), lp.wo)
-        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
+        out = attention.paged_chunk(q, p["k"][i], p["v"][i], ins["table"],
+                                    ins["start"], ins["q_pos"], window,
+                                    *transformer.layer_scales(p, i))
+        return out.reshape(b, s_c, sh.nq * d)
+
+    x = transformer.run_layers(cfg, model, x, attn, pool, {
+        "sin": sin, "cos": cos, "blk": blk, "off": off, "table": table,
+        "start": start, "q_pos": q_pos})
     return transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
 
 
@@ -293,26 +328,30 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
     window."""
     b = token.shape[0]
     d = cfg.head_dim
-    bs = pool["k"].shape[3]
+    bs = transformer.kv_shards(pool)[0]["k"].shape[3]
     x = quant.embed_rows(model.embed, token)                      # [B, H]
     sin, cos = transformer.rope_sincos(pos, d, cfg.rope_theta)
     pos_l = pos.long()
     blk = tables.long().gather(1, (pos_l // bs)[:, None])[:, 0]
     off = pos_l % bs
     attn_op = attention.ragged_decode if ragged else attention.paged_decode
-    for i, lp in enumerate(model.layers):
-        h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, cfg.num_kv_heads, d)
-        q = transformer.apply_rope(q, sin, cos)
-        k = transformer.apply_rope(k, sin, cos)
-        quant.put_kv_rows(pool, i, (slice(None), blk, off),
+
+    def attn(lp, h_in, i, sh):
+        p, ins = sh.kv, sh.ins
+        q = quant.matmul(h_in, lp.wq).reshape(b, sh.nq, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, sh.nkv, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, sh.nkv, d)
+        q = transformer.apply_rope(q, ins["sin"], ins["cos"])
+        k = transformer.apply_rope(k, ins["sin"], ins["cos"])
+        quant.put_kv_rows(p, i, (slice(None), ins["blk"], ins["off"]),
                           k.transpose(0, 1), v.transpose(0, 1))  # [nkv, B, d]
-        out = attn_op(q, pool["k"][i], pool["v"][i], tables, pos,
-                      *transformer.layer_scales(pool, i))
-        x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
-        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
+        out = attn_op(q, p["k"][i], p["v"][i], ins["tables"], ins["pos"],
+                      *transformer.layer_scales(p, i))
+        return out.reshape(b, sh.nq * d)
+
+    x = transformer.run_layers(cfg, model, x, attn, pool, {
+        "sin": sin, "cos": cos, "blk": blk, "off": off, "tables": tables,
+        "pos": pos})
     hidden = transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
     return transformer.logits_from_hidden(model, hidden)
 
@@ -337,7 +376,7 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
     frontier, masked until a later write overwrites them."""
     b, g = tokens.shape
     d = cfg.head_dim
-    bs = pool["k"].shape[3]
+    bs = transformer.kv_shards(pool)[0]["k"].shape[3]
     max_pos = cfg.max_seq_len - 1
     x = quant.embed_rows(model.embed, tokens)                     # [B, G, H]
     positions = pos.long()[:, None] + torch.arange(g, device=tokens.device)[None]
@@ -347,19 +386,24 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
                       tables.long().gather(1, wpos // bs),
                       torch.full_like(positions, TRASH_BLOCK))     # [B, G]
     off = wpos % bs
-    for i, lp in enumerate(model.layers):
-        h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, g, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, g, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, g, cfg.num_kv_heads, d)
-        q = transformer.apply_rope(q, sin, cos)
-        k = transformer.apply_rope(k, sin, cos)
-        quant.put_kv_rows(pool, i, (slice(None), blk, off),
+
+    def attn(lp, h_in, i, sh):
+        p, ins = sh.kv, sh.ins
+        q = quant.matmul(h_in, lp.wq).reshape(b, g, sh.nq, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, g, sh.nkv, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, g, sh.nkv, d)
+        q = transformer.apply_rope(q, ins["sin"], ins["cos"])
+        k = transformer.apply_rope(k, ins["sin"], ins["cos"])
+        quant.put_kv_rows(p, i, (slice(None), ins["blk"], ins["off"]),
                           k.permute(2, 0, 1, 3),
                           v.permute(2, 0, 1, 3))               # [nkv, B, G, d]
-        out = attention.ragged_verify(q, pool["k"][i], pool["v"][i], tables,
-                                      pos, *transformer.layer_scales(pool, i))
-        x = x + quant.matmul(out.reshape(b, g, cfg.num_heads * d), lp.wo)
-        x = x + lp.ffn(cfg, transformer.rms_norm(x, lp.ln2, cfg.norm_eps))[0]
+        out = attention.ragged_verify(q, p["k"][i], p["v"][i], ins["tables"],
+                                      ins["pos"],
+                                      *transformer.layer_scales(p, i))
+        return out.reshape(b, g, sh.nq * d)
+
+    x = transformer.run_layers(cfg, model, x, attn, pool, {
+        "sin": sin, "cos": cos, "blk": blk, "off": off, "tables": tables,
+        "pos": pos})
     hidden = transformer.rms_norm(x, model.final_ln, cfg.norm_eps)
     return transformer.logits_from_hidden(model, hidden)

@@ -64,7 +64,7 @@ class TickProgram:
     later stage may read in place.  The kernel launches (and the plain
     paths' calls, and K11's launches by route) the capture counted are
     taken back (a capture runs nothing) and added again at every replay,
-    so the counts count what ran on the card."""
+    so the counts count what ran on the card (per head shard too)."""
 
     def __init__(self, body: Callable[[], Any], graph=None,
                  capture: Optional[Callable] = None):
@@ -74,17 +74,20 @@ class TickProgram:
         self.launch_deltas: Dict[str, int] = {}
         self.call_deltas: Dict[str, int] = {}
         self.route_deltas: Dict[str, int] = {}
+        self.shard_deltas: Dict[int, Dict[str, int]] = {}
         if graph is not None:
             before, calls = launches.counts(), launches.call_counts()
-            routes = launches.route_counts()
+            routes, shards = launches.route_counts(), launches.shard_counts()
             with capture(graph):
                 self.out = body()
             self.launch_deltas = launches.since(before)
             self.call_deltas = launches.since(calls, launches.call_counts())
             self.route_deltas = launches.since(routes, launches.route_counts())
+            self.shard_deltas = launches.shard_since(shards)
             launches.add(self.launch_deltas, -1)
             launches.add_calls(self.call_deltas, -1)
             launches.add_routes(self.route_deltas, -1)
+            launches.add_shards(self.shard_deltas, -1)
 
     def run(self) -> Any:
         if self.graph is None:
@@ -94,6 +97,7 @@ class TickProgram:
         launches.add(self.launch_deltas)
         launches.add_calls(self.call_deltas)
         launches.add_routes(self.route_deltas)
+        launches.add_shards(self.shard_deltas)
         return self.out
 
 

@@ -10,7 +10,9 @@ beside them), and this module resolves a JAX checkpoint path to that
 export.  A path with no export, or an export of another version than the
 one ``latest`` names, raises: nothing falls back to random weights.  A
 root the port's own trainer wrote (``utils/checkpoint.py``:
-``v<step>/params.pt`` beside ``meta.json``) is read directly.
+``v<step>/params.pt`` beside ``meta.json``) is read directly.  A root
+always loads whole, as one ``Transformer``: a tensor-parallel engine
+then splits it over its device group (``parallel/sharding.shard_params``).
 """
 
 from __future__ import annotations

@@ -22,11 +22,21 @@ The sequential engines keep a contiguous KV cache, ``{"k", "v":
 and ``chunk_prefill`` write it IN PLACE and return only their output:
 the JAX package donates the cache buffer to the same effect, so no
 other holder sees the write.
+
+Every serving step runs its layers through ``run_layers``: the step
+gives its attention as a hook ``attn(lp, h_in, i, shard)`` (project,
+rotate, write the layer's K/V, attend) and ``run_layers`` adds the
+norms, ``wo``, the FFN and the residual.  A ``parallel/sharding.
+ShardedModel`` runs the same hook once per head shard, on the shard's
+own weights, cache or pool (``Shard``) and device
+(``parallel/tp_attention.tp_layers``); its K/V is then one tensor, or
+cache, per shard (``kv_shards``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops import attention, quant
+from ..parallel.sharding import is_sharded
+from ..parallel.tp_attention import tp_layers
 
 KVCache = Dict[str, torch.Tensor]   # {"k","v": [L, B, S, N_kv, D]}
                                     # (+ "ks","vs": [L, B, S, N_kv])
@@ -144,6 +156,42 @@ def _swiglu(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
                         * quant.matmul(x, up), down)
 
 
+@dataclasses.dataclass
+class Shard:
+    """What a step's attention hook sees of its shard: its index, its q
+    and kv head counts, its cache or pool (None for a prefill) and the
+    step's inputs on its device."""
+    index: int
+    nq: int
+    nkv: int
+    kv: Any
+    ins: Dict[str, Any]
+
+
+def kv_shards(kv: Any) -> List[Any]:
+    """A sharded model's per-shard list of caches, pools or K/V tensors
+    as it is; anything else as the one shard it is."""
+    return kv if isinstance(kv, list) else [kv]
+
+
+def run_layers(cfg: ModelConfig, model, x: torch.Tensor, attn: Callable,
+               kv: Any = None, ins: Optional[Dict[str, Any]] = None
+               ) -> torch.Tensor:
+    """The residual stream ``x`` through every layer: the pre-norm,
+    ``attn(lp, h_in, i, shard)`` (the attention's output [..., N_q * D])
+    times ``wo``, then the pre-norm FFN, each added to the residual.
+    ``kv`` and ``ins`` reach the hook through its ``Shard``.  A sharded
+    model runs per shard (``parallel/tp_attention.tp_layers``)."""
+    if is_sharded(model):
+        return tp_layers(cfg, model, x, attn, kv, ins)
+    shard = Shard(0, cfg.num_heads, cfg.num_kv_heads, kv, ins or {})
+    for i, lp in enumerate(model.layers):
+        h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
+        x = x + quant.matmul(attn(lp, h_in, i, shard), lp.wo)
+        x = x + lp.ffn(cfg, rms_norm(x, lp.ln2, cfg.norm_eps))[0]
+    return x
+
+
 def _prefill_layer(cfg: ModelConfig, lp: nn.Module, x: torch.Tensor,
                    sin: torch.Tensor, cos: torch.Tensor):
     """One layer of the full-prompt forward: -> (x, k, v, aux)."""
@@ -197,9 +245,30 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
 
     tokens/positions [B, S] -> (final-normed hidden [B, S, H],
     (k_all, v_all) each [L, B, S, N_kv, D]), the per-layer K/V to page
-    into the pool."""
-    hidden, kv, _ = forward(cfg, model, tokens, positions)
-    return hidden, kv
+    into the pool.  A sharded model's K/V are per-shard lists."""
+    if not is_sharded(model):
+        hidden, kv, _ = forward(cfg, model, tokens, positions)
+        return hidden, kv
+    b, s = tokens.shape
+    d = cfg.head_dim
+    x = quant.embed_rows(model.embed, tokens)
+    sin, cos = rope_sincos(positions, d, cfg.rope_theta)
+    ks: List[List[torch.Tensor]] = [[] for _ in range(model.tp)]
+    vs: List[List[torch.Tensor]] = [[] for _ in range(model.tp)]
+
+    def attn(lp, h_in, i, sh):
+        q = quant.matmul(h_in, lp.wq).reshape(b, s, sh.nq, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, s, sh.nkv, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, s, sh.nkv, d)
+        q = apply_rope(q, sh.ins["sin"], sh.ins["cos"])
+        k = apply_rope(k, sh.ins["sin"], sh.ins["cos"])
+        ks[sh.index].append(k)
+        vs[sh.index].append(v)
+        return attention.causal(q, k, v).reshape(b, s, sh.nq * d)
+
+    x = run_layers(cfg, model, x, attn, ins={"sin": sin, "cos": cos})
+    hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
+    return hidden, ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
 
 
 def logits_from_hidden(model: Transformer, hidden: torch.Tensor) -> torch.Tensor:
@@ -216,10 +285,13 @@ def layer_scales(cache: KVCache, i: int):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                  kv_quantize: str = "none", device=None) -> KVCache:
+                  kv_quantize: str = "none", device=None,
+                  kv_heads: Optional[int] = None) -> KVCache:
     """Zeroed contiguous cache [L, B, S, N_kv, D]; ``kv_quantize="int8"``
-    stores K/V as int8 with float32 row scales initialised to ones."""
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    stores K/V as int8 with float32 row scales initialised to ones.
+    ``kv_heads`` (default N_kv): a head shard's count."""
+    shape = (cfg.num_layers, batch, max_seq, kv_heads or cfg.num_kv_heads,
+             cfg.head_dim)
     if kv_quantize == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -245,21 +317,25 @@ def seed_kv_cache(cfg: ModelConfig, k_all: torch.Tensor, v_all: torch.Tensor,
 
 
 def reset_kv_cache(cache: KVCache, start: int = 0) -> None:
-    """Positions ``start`` and later of a cache set in place to what
-    ``init_kv_cache`` holds (zeros; int8 scale planes ones)."""
-    for name, x in cache.items():
-        x[:, :, start:].fill_(1.0 if name in ("ks", "vs") else 0)
+    """Positions ``start`` and later of a cache (every shard's) set in
+    place to what ``init_kv_cache`` holds (zeros; int8 scale planes
+    ones)."""
+    for c in kv_shards(cache):
+        for name, x in c.items():
+            x[:, :, start:].fill_(1.0 if name in ("ks", "vs") else 0)
 
 
 def seed_kv_cache_into(cache: KVCache, k_all: torch.Tensor,
                        v_all: torch.Tensor) -> None:
     """``seed_kv_cache`` in place: a prefill's K/V ([L, B, S, N_kv, D])
     written at positions [0, S) of an existing cache and every later
-    position reset, so the cache equals ``seed_kv_cache``'s."""
-    s = k_all.shape[2]
-    quant.put_kv_rows(cache, None, (slice(None), slice(None), slice(0, s)),
-                      k_all, v_all)
-    reset_kv_cache(cache, s)
+    position reset, so the cache equals ``seed_kv_cache``'s.  A sharded
+    cache takes its prefill's per-shard K/V lists."""
+    for c, k, v in zip(kv_shards(cache), kv_shards(k_all), kv_shards(v_all)):
+        s = k.shape[2]
+        quant.put_kv_rows(c, None, (slice(None), slice(None), slice(0, s)),
+                          k, v)
+        reset_kv_cache(c, s)
 
 
 @torch.no_grad()
@@ -274,19 +350,22 @@ def decode_step(cfg: ModelConfig, model: Transformer, token: torch.Tensor,
     x = quant.embed_rows(model.embed, token)                       # [B, H]
     sin, cos = rope_sincos(pos, d, cfg.rope_theta)
     rows = (torch.arange(b, device=token.device),
-            pos.long().clamp(0, cache["k"].shape[2] - 1))
-    for i, lp in enumerate(model.layers):
-        h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, cfg.num_kv_heads, d)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
-        quant.put_kv_rows(cache, i, rows, k, v)
-        out = attention.decode(q, cache["k"][i], cache["v"][i], pos,
-                               *layer_scales(cache, i))
-        x = x + quant.matmul(out.reshape(b, cfg.num_heads * d), lp.wo)
-        x = x + lp.ffn(cfg, rms_norm(x, lp.ln2, cfg.norm_eps))[0]
+            pos.long().clamp(0, kv_shards(cache)[0]["k"].shape[2] - 1))
+
+    def attn(lp, h_in, i, sh):
+        c, ins = sh.kv, sh.ins
+        q = quant.matmul(h_in, lp.wq).reshape(b, sh.nq, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, sh.nkv, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, sh.nkv, d)
+        q = apply_rope(q, ins["sin"], ins["cos"])
+        k = apply_rope(k, ins["sin"], ins["cos"])
+        quant.put_kv_rows(c, i, (ins["b"], ins["row"]), k, v)
+        out = attention.decode(q, c["k"][i], c["v"][i], ins["pos"],
+                               *layer_scales(c, i))
+        return out.reshape(b, sh.nq * d)
+
+    x = run_layers(cfg, model, x, attn, cache, {
+        "sin": sin, "cos": cos, "b": rows[0], "row": rows[1], "pos": pos})
     hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
     return logits_from_hidden(model, hidden)
 
@@ -321,19 +400,24 @@ def chunk_prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
     q_pos = torch.minimum(positions, torch.clamp(true_len, min=1)[:, None] - 1
                           ).to(torch.int32)
     sin, cos = rope_sincos(positions, d, cfg.rope_theta)
-    rows = chunk_rows(start, s_c, cache)
-    w = window or cache["k"].shape[2]
-    for i, lp in enumerate(model.layers):
-        h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, s_c, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, s_c, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, s_c, cfg.num_kv_heads, d)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
-        quant.put_kv_rows(cache, i, rows, k, v)
-        scales = [sc[:, :w] for sc in layer_scales(cache, i)]
-        attn = attention.chunk(q, cache["k"][i][:, :w], cache["v"][i][:, :w],
-                               q_pos, *scales)
-        x = x + quant.matmul(attn.reshape(b, s_c, cfg.num_heads * d), lp.wo)
-        x = x + lp.ffn(cfg, rms_norm(x, lp.ln2, cfg.norm_eps))[0]
+    first = kv_shards(cache)[0]
+    rows = chunk_rows(start, s_c, first)
+    w = window or first["k"].shape[2]
+
+    def attn(lp, h_in, i, sh):
+        c, ins = sh.kv, sh.ins
+        q = quant.matmul(h_in, lp.wq).reshape(b, s_c, sh.nq, d)
+        k = quant.matmul(h_in, lp.wk).reshape(b, s_c, sh.nkv, d)
+        v = quant.matmul(h_in, lp.wv).reshape(b, s_c, sh.nkv, d)
+        q = apply_rope(q, ins["sin"], ins["cos"])
+        k = apply_rope(k, ins["sin"], ins["cos"])
+        quant.put_kv_rows(c, i, (ins["b"], ins["row"]), k, v)
+        scales = [sc[:, :w] for sc in layer_scales(c, i)]
+        out = attention.chunk(q, c["k"][i][:, :w], c["v"][i][:, :w],
+                              ins["q_pos"], *scales)
+        return out.reshape(b, s_c, sh.nq * d)
+
+    x = run_layers(cfg, model, x, attn, cache, {
+        "sin": sin, "cos": cos, "b": rows[0], "row": rows[1],
+        "q_pos": q_pos})
     return rms_norm(x, model.final_ln, cfg.norm_eps)

@@ -10,11 +10,19 @@ the card.  The plain attention paths count their calls (``.calls``) the
 same way (``call_counts``, ``add_calls``): on the card only the int8
 suffix chunk, which has no kernel, runs inside a program.  So do the
 bf16 chunk kernel's launches by route (``route_counts``, ``add_routes``).
+A tensor-parallel step runs each head shard's work inside
+``on_shard(s)``, which also tallies the launches made there under shard
+``s`` (``shard_counts``; a program's replays add them again,
+``add_shards``), so a group's launches read per shard.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
+
+# Launches made inside ``on_shard``, by shard index and kernel name.
+_SHARD_LAUNCHES: Dict[int, Dict[str, int]] = {}
 
 
 def wrappers() -> Dict[str, Callable]:
@@ -94,3 +102,46 @@ def add_routes(deltas: Dict[str, int], times: int = 1) -> None:
     from . import flash_attention as TF
     for route, n in deltas.items():
         TF.flash_chunk_attention.route_launches[route] += times * n
+
+
+@contextlib.contextmanager
+def on_shard(index: int):
+    """Tally the launches made inside under shard ``index``."""
+    before = counts()
+    try:
+        yield
+    finally:
+        tally = _SHARD_LAUNCHES.setdefault(index, {})
+        for name, n in since(before).items():
+            tally[name] = tally.get(name, 0) + n
+
+
+def shard_counts() -> Dict[int, Dict[str, int]]:
+    """Launches by shard index, then kernel name (shards that launched)."""
+    return {s: dict(t) for s, t in _SHARD_LAUNCHES.items()}
+
+
+def shard_since(before: Dict[int, Dict[str, int]]
+                ) -> Dict[int, Dict[str, int]]:
+    """What each shard counted after ``before`` (a ``shard_counts()``)."""
+    out = {}
+    for s, tally in _SHARD_LAUNCHES.items():
+        d = {name: n - before.get(s, {}).get(name, 0)
+             for name, n in tally.items()
+             if n != before.get(s, {}).get(name, 0)}
+        if d:
+            out[s] = d
+    return out
+
+
+def add_shards(deltas: Dict[int, Dict[str, int]], times: int = 1) -> None:
+    """Add ``times`` x ``deltas`` to the per-shard tallies."""
+    for s, d in deltas.items():
+        tally = _SHARD_LAUNCHES.setdefault(s, {})
+        for name, n in d.items():
+            tally[name] = tally.get(name, 0) + times * n
+
+
+def reset_shards() -> None:
+    """Every shard's tally back to nothing."""
+    _SHARD_LAUNCHES.clear()

@@ -1,0 +1,92 @@
+"""The collectives of a device group.
+
+Counterpart of ``distributed_llm_tpu/parallel/collectives.py``.  One
+process drives every slot of a group (``parallel/mesh.DeviceGroup``),
+so a collective here is the controller moving data between its own
+slots:
+
+- ``allgather_health``: every slot contributes its perf-window summary
+  row and every slot receives all of them (the router's health monitor
+  folds the rows of other hosts into its perf strategy);
+- ``psum_scalar``: one value per slot summed (liveness, quorum);
+- ``summarize_perf_window``: a perf strategy's sample window as one row;
+- ``allreduce_sum``: the model's one reduction, the sum of the
+  row-parallel partials of ``wo`` and ``w_down`` in fixed shard order,
+  in float32 and rounded once to the partials' dtype (as one product's
+  float32 accumulator is rounded at tp=1), delivered onto each shard's
+  device.  On a group whose slots share one device it is a chain of
+  adds on that device and every shard reads the same tensor; across distinct CUDA devices each partial is a peer copy
+  to the first shard's device, the sum is made there and copied back to
+  each device.  The distinct-device path has not run on cards: the
+  machine the port is checked on has one.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .mesh import DeviceGroup
+
+# Health record layout, one row per participant.
+HEALTH_FIELDS = ("total_latency_ms", "total_tokens", "ok_count", "n_samples")
+
+
+def _rows_axis(group: DeviceGroup):
+    axis = group.axis_names[0]
+    return axis, group.shape[axis]
+
+
+def allgather_health(group: DeviceGroup,
+                     per_device_stats: np.ndarray) -> np.ndarray:
+    """All-gather per-participant health rows over the group's first
+    axis: ``per_device_stats`` [n, k], row i slot i's summary -> [n, k]
+    float32, the same on every participant.  Each row goes to its slot's
+    device and back, as JAX's shard_map gathers each chip's row."""
+    axis, n = _rows_axis(group)
+    stats = np.asarray(per_device_stats, np.float32)
+    if stats.shape[0] != n:
+        raise ValueError(f"expected {n} rows for mesh axis '{axis}', "
+                         f"got {stats.shape[0]}")
+    per = group.size // n
+    rows = [torch.from_numpy(stats[i].copy()).to(group.devices[i * per])
+            for i in range(n)]
+    return np.stack([r.cpu().numpy() for r in rows])
+
+
+def psum_scalar(group: DeviceGroup, values: np.ndarray) -> float:
+    """Sum one scalar per slot across the group's first axis."""
+    _, n = _rows_axis(group)
+    vals = np.asarray(values, np.float32).reshape(-1)
+    per = group.size // n
+    lead = group.devices[0]
+    total = torch.zeros((), dtype=torch.float32, device=lead)
+    for i in range(n):
+        total = total + torch.tensor(vals[i]).to(group.devices[i * per]).to(
+            lead)
+    return float(total)
+
+
+def summarize_perf_window(samples) -> np.ndarray:
+    """PerfStrategy sample window -> one health row (HEALTH_FIELDS)."""
+    lat = sum(s[0] for s in samples)
+    tok = sum(s[1] for s in samples)
+    ok = sum(1 for s in samples if s[2])
+    return np.array([lat, tok, ok, len(samples)], np.float32)
+
+
+def allreduce_sum(parts: Sequence[torch.Tensor],
+                  devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The sum of ``parts`` (one per shard, each on its shard's device)
+    in shard order, in float32, rounded once to their dtype, onto every
+    shard's device: a list, one tensor per shard.  Shards on one device
+    share the one sum."""
+    total = parts[0].float()
+    for p in parts[1:]:
+        total = total + (p if p.device == total.device
+                         else p.to(total.device, non_blocking=True)).float()
+    total = total.to(parts[0].dtype)
+    return [total if d == total.device else total.to(d, non_blocking=True)
+            for d in devices]

@@ -1,0 +1,198 @@
+"""A tier's device group and the carve that hands one to every tier.
+
+Counterpart of ``distributed_llm_tpu/parallel/mesh.py``.  JAX runs a
+tier on a ``Mesh`` of chips from one controlling process; the port's
+counterpart is a ``DeviceGroup``: an ordered list of ``torch.device``
+slots, its axis names and its shape.  One process drives every slot:
+the engines run each shard's work on its slot's device in turn, and the
+group's collectives (``parallel/collectives.py``) move what crosses
+slots.  A list that repeats one device is a group whose shards share
+that device, the port's counterpart of JAX's host-platform device count
+(the CPU tests pass ``["cpu"] * 8``; on a one-card machine the card
+repeated stands in for a group of cards).
+
+``carve_tier_meshes`` follows JAX's rules: tiers claim disjoint slices
+in declaration order, a tier's ``tp`` shrinks to the largest divisor of
+its head counts that fits what is left, and with nothing left a tier
+shares the front of the list.  A remote (``endpoint``) tier claims
+nothing.  Sequence and expert parallelism (``sp``, ``ep``) are not
+ported yet: their fits return 1, and the training meshes wait with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..config import ClusterConfig, TierConfig
+from ..device import DeviceLike, resolve_device
+
+DevicesLike = Sequence[Union[str, torch.device]]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGroup:
+    """An ordered device list shaped by named axes (row-major): the
+    slots of a tier's mesh.  ``devices[i]`` is slot ``i``; two slots may
+    name the same device only when the caller's list repeated it."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("tp",)
+    dims: Tuple[int, ...] = ()
+    # Positions of the slots in the list a carve cut them from (what
+    # JAX's device ids tell apart when the devices repeat); () elsewhere.
+    slots: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        devs = tuple(resolve_device(d) for d in self.devices)
+        dims = self.dims or (len(devs),)
+        if not devs:
+            raise ValueError("a device group needs at least one device")
+        n = 1
+        for d in dims:
+            n *= d
+        if len(dims) != len(self.axis_names) or n != len(devs):
+            raise ValueError(f"axes {self.axis_names} with dims {dims} do "
+                             f"not shape {len(devs)} devices")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "dims", tuple(dims))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def tp(self) -> int:
+        return self.shape.get("tp", 1)
+
+    @property
+    def lead(self) -> torch.device:
+        """The first slot's device: where a sharded engine keeps what is
+        replicated once (tables, sampling, a replicated draft)."""
+        return self.devices[0]
+
+    @property
+    def shared(self) -> bool:
+        """Whether every slot is the same device."""
+        return len(set(self.devices)) == 1
+
+
+def as_devices(devices: Optional[DevicesLike] = None,
+               device: DeviceLike = None) -> Tuple[torch.device, ...]:
+    """A device list: ``devices`` resolved, else every card on the
+    machine, else (``device`` given, e.g. ``"cpu"``) that one device."""
+    if devices is not None:
+        return tuple(resolve_device(d) for d in devices)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and device is None:
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (dev,)
+
+
+def tp_mesh(devices: DevicesLike, tp: int, axis_name: str = "tp"
+            ) -> DeviceGroup:
+    """A 1-D tensor-parallel group over the first ``tp`` devices."""
+    devices = list(devices)
+    if len(devices) < tp:
+        raise ValueError(f"tp_mesh: need {tp} devices, have {len(devices)}")
+    return DeviceGroup(tuple(devices[:tp]), (axis_name,), (tp,))
+
+
+def replica_mesh(devices: DevicesLike, replicas: int, tp: int = 1
+                 ) -> DeviceGroup:
+    """A 2-D ('batch', 'tp') group over the first replicas x tp devices:
+    each row is one engine replica's own slice."""
+    devices = list(devices)[:replicas * tp]
+    return DeviceGroup(tuple(devices), ("batch", "tp"), (replicas, tp))
+
+
+def carve_tier_meshes(cluster: ClusterConfig,
+                      devices: Optional[DevicesLike] = None,
+                      device: DeviceLike = None) -> Dict[str, DeviceGroup]:
+    """Assign disjoint device slices to tiers, in declaration order
+    (JAX's carve): each tier claims ``tp`` slots (``replicas x tp`` for a
+    replicated tier), its ``tp`` shrunk to fit what is left; with nothing
+    left it shares from the front of the list.  ``devices`` defaults to
+    every card (``as_devices``); ``device="cpu"`` carves one CPU."""
+    devices = list(as_devices(devices, device))
+    meshes: Dict[str, DeviceGroup] = {}
+    cursor = 0
+    for tier in cluster.tiers():
+        if tier.endpoint:
+            continue        # a cross-host tier: its devices are elsewhere
+        remaining = len(devices) - cursor
+        tp = _fit_tp(tier, max(remaining, 0))
+        if tp == 0:
+            # Nothing left: share devices from the front.
+            tp = max(_fit_tp(tier, len(devices)), 1)
+            meshes[tier.name] = dataclasses.replace(
+                tp_mesh(devices, tp), slots=tuple(range(tp)))
+            continue
+        ep = _fit_ep(tier, remaining, tp)
+        sp = _fit_sp(tier, remaining, tp) if ep == 1 else 1
+        rep = (_fit_replicas(tier, remaining, tp)
+               if ep == 1 and sp == 1 else 1)
+        group = (replica_mesh(devices[cursor:], rep, tp) if rep > 1
+                 else tp_mesh(devices[cursor:], tp))
+        meshes[tier.name] = dataclasses.replace(
+            group, slots=tuple(range(cursor, cursor + group.size)))
+        cursor += tp * max(sp, ep, rep)
+    return meshes
+
+
+def _fit_replicas(tier: TierConfig, available: int, tp: int) -> int:
+    """Device rows a replicated tier can claim: up to ``tier.replicas``
+    (an autoscaled tier: its maximum) disjoint ``tp``-sized slices,
+    shrinking to what is left; replicas beyond them share devices."""
+    want = tier.replicas
+    if tier.autoscale:
+        want = max(want, int(tier.autoscale_max_replicas))
+    if want <= 1:
+        return 1
+    return max(1, min(want, available // max(1, tp)))
+
+
+def _fit_ep(tier: TierConfig, available: int, tp: int) -> int:
+    """Expert parallelism is not ported (``check_ported`` refuses
+    ``ep != 1``): always 1."""
+    return 1
+
+
+def _fit_sp(tier: TierConfig, available: int, tp: int) -> int:
+    """Sequence parallelism is not ported: always 1, reserving no extra
+    devices."""
+    return 1
+
+
+def requested_tp(tier: TierConfig) -> int:
+    """The tier's requested tensor-parallel degree: ``tier.tp`` (JAX's
+    ``DLLM_TP`` override is the field itself here: the port has no env
+    knobs).  ``_fit_tp`` clamps it afterwards."""
+    return max(1, int(tier.tp))
+
+
+def _fit_tp(tier: TierConfig, available: int) -> int:
+    """Largest feasible tensor-parallel degree <= requested, dividing the
+    model's q and kv head counts (whole GQA groups per shard)."""
+    if available <= 0:
+        return 0
+    cfg = tier.model()
+    tp = min(requested_tp(tier), available)
+    while tp > 1 and (cfg.num_kv_heads % tp or cfg.num_heads % tp):
+        tp -= 1
+    return max(tp, 1)
+
+
+def describe_meshes(meshes: Dict[str, DeviceGroup]) -> str:
+    parts = []
+    for name, group in meshes.items():
+        ids = [str(d) for d in group.devices]
+        parts.append(f"{name}: {len(ids)} device(s) {ids}")
+    return "; ".join(parts)

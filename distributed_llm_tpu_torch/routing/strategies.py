@@ -406,6 +406,7 @@ class PerfStrategy(BaseStrategy):
         # the Router before every decision; plain dict swaps are atomic
         # under the GIL, concurrent readers see either snapshot.
         self._load: Dict[str, Tuple[float, float]] = {}
+        self._remote_load: Dict[str, Tuple[float, float]] = {}
         # Production-only exploration (PRODUCTION_CFG sets perf_explore;
         # benchmark mode keeps the reference's never-explore scoring).
         self.explore = bool(config.get("perf_explore", False))
@@ -443,21 +444,26 @@ class PerfStrategy(BaseStrategy):
             self.update(device, lat, tok, ok)
 
     def update_load(self, device: str, queue_depth: float = 0.0,
-                    active_slots: float = 0.0, max_slots: float = 1.0
-                    ) -> None:
+                    active_slots: float = 0.0, max_slots: float = 1.0,
+                    remote: bool = False) -> None:
         """Record a tier's live load (queue depth + slot occupancy) for
-        the queue-aware score term (the Router feeds it before each
-        decision)."""
+        the queue-aware score term.  The Router feeds the local part
+        before each decision; the health monitor's exchange feeds the
+        other hosts' sum with ``remote=True`` on its own cadence.  The
+        two parts add in the penalty, so a local refresh never clobbers
+        the remote view."""
         if device in self.samples:
             occupancy = float(active_slots) / max(1.0, float(max_slots))
-            self._load[device] = (max(0.0, float(queue_depth)),
-                                  min(1.0, max(0.0, occupancy)))
+            entry = (max(0.0, float(queue_depth)),
+                     min(1.0, max(0.0, occupancy)))
+            (self._remote_load if remote else self._load)[device] = entry
 
     def _queue_penalty(self, device: str) -> float:
         if not self.queue_aware:
             return 0.0
         depth, occupancy = self._load.get(device, (0.0, 0.0))
-        return self.queue_penalty_ms * (depth + occupancy)
+        r_depth, r_occ = self._remote_load.get(device, (0.0, 0.0))
+        return self.queue_penalty_ms * (depth + occupancy + r_depth + r_occ)
 
     def _score(self, device: str) -> float:
         data = list(self.samples[device])

@@ -18,11 +18,15 @@ the tier clients and the Router.  This module adds:
   ``ReplicatedTierClient.restart_replica`` (its crash rescue).  A restart
   runs on a worker joined for at most ``restart_timeout_s``; one that
   outlives it is abandoned and counted, and probing goes on;
-- **the perf-row merge** of the cross-host health exchange
-  (``_merge_gathered``: rows of other hosts folded into the perf
-  strategy).  The exchange itself needs a device mesh and its allgather,
-  which come with tensor parallelism (ROADMAP A10): ``exchange_health``
-  returns None without a mesh, as JAX's does, and a mesh is refused;
+- **the cross-host health exchange** over a device group (``mesh``, a
+  ``parallel/mesh.DeviceGroup``): each pass every tier's perf-window
+  summary, and with a queue-aware perf strategy its load row, are
+  all-gathered over the group (``parallel/collectives.allgather_health``,
+  once per tier on every call, as JAX runs the collective), and the rows
+  of other processes are folded into the perf strategy
+  (``_merge_gathered``; their load sums on top of the local snapshot).
+  One process drives every slot of a port group, so every row is this
+  process's own and nothing is folded: JAX's single-host case;
 - a **snapshot** for GET /stats.
 """
 
@@ -50,11 +54,6 @@ class HealthMonitor:
         auto_restart: bool = True,
         restart_timeout_s: float = 900.0,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the cross-host health exchange (a device mesh and its "
-                "allgather) is not ported to the PyTorch/CUDA package yet "
-                "(see ROADMAP.md A10)")
         self.router = router
         self.interval_s = interval_s
         self.max_failures = max_consecutive_failures
@@ -305,14 +304,67 @@ class HealthMonitor:
             return strategy           # PerfStrategy only
         return None
 
+    def _participants(self) -> Tuple[int, np.ndarray]:
+        """(row count, remote mask) along the group's first axis: a row is
+        remote iff another process drives its slot, never in the port
+        (one process drives a whole group)."""
+        n = self.mesh.shape[self.mesh.axis_names[0]]
+        return n, np.zeros(n, bool)
+
     def exchange_health(self) -> Optional[Dict[str, np.ndarray]]:
-        """The cross-host exchange of perf rows over a device mesh: None
-        without a mesh or a perf strategy (the only case the port has; a
-        mesh is refused at construction)."""
-        if self.mesh is None or self._perf_strategy() is None:
+        """All-gather each tier's perf summary over the group and fold the
+        rows of other processes into the perf strategy; with a
+        queue-aware strategy the tiers' load rows ride the same exchange.
+        Returns the gathered rows per tier (None without a group or a perf
+        strategy)."""
+        perf = self._perf_strategy()
+        if self.mesh is None or perf is None:
             return None
-        raise NotImplementedError("the cross-host health exchange is not "
-                                  "ported (see ROADMAP.md A10)")
+        from ..parallel.collectives import (allgather_health,
+                                            summarize_perf_window)
+        n, remote_mask = self._participants()
+        gathered: Dict[str, np.ndarray] = {}
+        for tier_name, samples in perf.samples.items():
+            row = summarize_perf_window(list(samples))
+            out = allgather_health(self.mesh, np.tile(row, (n, 1)))
+            gathered[tier_name] = out
+            self._merge_gathered(perf, tier_name, out, remote_mask)
+        self._exchange_load(perf, n, remote_mask)
+        return gathered
+
+    def _exchange_load(self, perf, n: int,
+                       remote_mask: Sequence[bool]) -> None:
+        """All-gather each tier's [queue_depth, active_slots, max_slots]
+        row and feed the remote rows' sum to a queue-aware strategy
+        (``update_load(remote=True)``: it adds to the Router's local
+        snapshot).  The collective runs for every tier of the strategy,
+        a zero row where the tier has no load to report, so every
+        participant makes the same calls."""
+        if not (getattr(perf, "queue_aware", False)
+                and hasattr(perf, "update_load")):
+            return
+        from ..parallel.collectives import allgather_health
+        for name in perf.samples:
+            tier = self.router.tiers.get(name)
+            snap = None
+            snap_fn = getattr(tier, "load_snapshot", None)
+            if snap_fn is not None:
+                try:
+                    snap = snap_fn()
+                except Exception:
+                    snap = None
+            row = (np.array([snap["queue_depth"], snap["active_slots"],
+                             snap["max_slots"]], np.float32)
+                   if snap is not None else np.zeros(3, np.float32))
+            out = allgather_health(self.mesh, np.tile(row, (n, 1)))
+            remote = np.zeros(3, np.float32)
+            for i, r in enumerate(out):
+                if remote_mask[i]:
+                    remote += r
+            perf.update_load(name, queue_depth=float(remote[0]),
+                             active_slots=float(remote[1]),
+                             max_slots=max(1.0, float(remote[2])),
+                             remote=True)
 
     @staticmethod
     def _merge_gathered(perf, tier_name: str, rows: np.ndarray,

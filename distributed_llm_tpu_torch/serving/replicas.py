@@ -6,10 +6,13 @@ replicas, each behind its own ``TierClient`` (bounded admission and its
 wait predictor, watchdog, drain, chunked prefill, shared-prefix KV, tick
 profiler: the whole single-engine machinery), and one
 ``ReplicatedTierClient`` with the tier client's surface in front of them.
-On one card every replica shares the device (``_split_devices``): the
-replicas' ticks interleave on it, so a second replica buys the overlap of
-one replica's host work with the other's device work, not a second card's
-throughput.
+The tier's device group (``parallel/mesh.carve_tier_meshes``: a
+('batch', 'tp') group of ``replicas x tp`` slots where the devices
+suffice) gives each replica one ``tp``-wide row (``_split_devices``); a
+row of more than one slot runs its replica tensor-parallel.  On one card
+every replica shares the device: the replicas' ticks interleave on it,
+so a second replica buys the overlap of one replica's host work with the
+other's device work, not a second card's throughput.
 
 Dispatch picks a replica by a two-level policy:
 
@@ -71,6 +74,7 @@ from ..engine.manager import EngineManager
 from ..obs import get_observability
 from ..obs import spans as obs_spans
 from ..obs.spans import current_trace
+from ..parallel.mesh import DeviceGroup, requested_tp, tp_mesh
 from ..utils.faults import FaultInjector
 from .breaker import OPEN, CircuitBreaker
 from .errors import error_dict, is_error_shape
@@ -442,7 +446,8 @@ class ReplicatedTierClient:
                  device: DeviceLike = None,
                  fault_injector: Optional[FaultInjector] = None,
                  warmup_on_start: bool = True, seed: int = 0,
-                 policy: Optional[str] = None):
+                 policy: Optional[str] = None,
+                 mesh: Optional[DeviceGroup] = None):
         if tier.replicas < 1:
             raise ValueError(f"tier {tier.name}: replicas must be >= 1, "
                              f"got {tier.replicas}")
@@ -458,10 +463,12 @@ class ReplicatedTierClient:
         if tier.autoscale:
             # An elastic tier starts at the autoscaler's capacity floor.
             n = max(n, tier.autoscale_min_replicas)
-        self._devices = [resolve_device(device)]
+        self._devices = (list(mesh.devices) if mesh is not None
+                         else [resolve_device(device)])
+        self._tp_req = requested_tp(tier)
         self._seed = seed
         self._warmup_on_start = warmup_on_start
-        groups = _split_devices(self._devices, n)
+        groups = _split_devices(self._devices, n, self._tp_req)
         # Membership: ONE list of member records, shared by reference with
         # the ReplicaSetManager; readers take list() snapshots.
         self._members: List[_Replica] = []
@@ -523,9 +530,14 @@ class ReplicatedTierClient:
         shapes, fault targeting and spans read as the tier's."""
         rtier = dataclasses.replace(
             self.tier, name=f"{self.tier.name}/{replica_name(rid)}")
+        # A row of several slots is the replica's own tp group, at the
+        # tier's degree at most.
         mgr = EngineManager(rtier, seed=self._seed,
                             warmup_on_start=self._warmup_on_start,
-                            device=group[0])
+                            device=group[0],
+                            group=(tp_mesh(group, min(self._tp_req,
+                                                      len(group)))
+                                   if len(group) > 1 else None))
         client = TierClient(rtier, mgr, self.faults)
         client.name = self.tier.name
         return _Replica(rid, client, mgr)
@@ -635,7 +647,7 @@ class ReplicatedTierClient:
     def _device_group(self, slot: int, count: int) -> List:
         """The device slice of a new replica at position ``slot`` of
         ``count`` (on one card, the card)."""
-        groups = _split_devices(self._devices, count)
+        groups = _split_devices(self._devices, count, self._tp_req)
         return groups[slot] if slot < len(groups) else self._devices
 
     def _pick_victim(self) -> Optional[_Replica]:

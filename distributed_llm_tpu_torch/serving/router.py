@@ -58,8 +58,10 @@ serving tier's token bucket; a tenant-quota refusal counts on
 flight-recorder incident that the tenant's next completed request
 closes.
 
-Not ported (ROADMAP.md): the cross-host health exchange
-(``health_mesh``).
+``config["health_mesh"]`` (a ``parallel/mesh.DeviceGroup``) gives the
+health monitor the group its perf and load rows are exchanged over
+(``parallel/collectives.allgather_health``, once per tier on every
+monitor pass).
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ import logging
 import random
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..config import ClusterConfig, resolve_config
 from ..device import DeviceLike, resolve_device
@@ -133,6 +135,7 @@ class Router:
         timeline_samples: int = 240,
         fault_injector: Optional[FaultInjector] = None,
         autoscale: bool = True,
+        devices: Optional[Sequence] = None,
     ):
         """strategy: "token" | "semantic" | "heuristic" | "hybrid" | "perf";
         benchmark_mode: True -> BENCHMARK_CFG (caches off), False ->
@@ -145,7 +148,9 @@ class Router:
         ``fault_injector``: scripted faults for every tier client.
         ``autoscale``: False disarms every tier's autoscaler (JAX's
         ``DLLM_AUTOSCALE=0``); True arms each tier that sets
-        ``TierConfig.autoscale``."""
+        ``TierConfig.autoscale``.  ``devices``: the device list the tiers'
+        groups are carved from (``parallel/mesh.carve_tier_meshes``;
+        default every card, or the one ``device`` names)."""
         self.token_counter = TokenCounter()
         self.device = resolve_device(device)
         self.obs = (observability if observability is not None
@@ -156,8 +161,11 @@ class Router:
 
         self.cluster = cluster or default_cluster(self.device)
         self.faults = fault_injector
+        # Each tier on its device group, carved from every card (the
+        # devices ``devices`` lists, or the one ``device`` names).
         self.tiers: Dict[str, TierClient] = build_tiers(
-            self.cluster, device=self.device, fault_injector=fault_injector)
+            self.cluster, device=device, devices=devices,
+            fault_injector=fault_injector)
         for tier in self.tiers.values():
             if hasattr(tier, "restart_replica"):
                 # The replica dispatch and rescue series land in the
@@ -241,15 +249,11 @@ class Router:
         # default, which keeps bench runs deterministic).
         self.health_monitor = None
         if self.config.get("enable_health_monitor", False):
-            if self.config.get("health_mesh") is not None:
-                raise NotImplementedError(
-                    "health_mesh: the cross-host health exchange is not "
-                    "ported to the PyTorch/CUDA package yet (see "
-                    "ROADMAP.md A10)")
             from .health import HealthMonitor
             self.health_monitor = HealthMonitor(
                 self, interval_s=float(self.config.get("health_interval_s",
-                                                       5.0)))
+                                                       5.0)),
+                mesh=self.config.get("health_mesh"))
             self.health_monitor.start()
 
         # Elastic capacity: one control loop per armed tier, actuating

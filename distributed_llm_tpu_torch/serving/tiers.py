@@ -42,7 +42,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from ..config import ClusterConfig, TierConfig
 from ..device import DeviceLike
@@ -50,6 +50,7 @@ from ..engine.inference import GenerationResult
 from ..engine.manager import EngineManager
 from ..obs import spans as obs_spans
 from ..obs.spans import current_trace, use_trace
+from ..parallel.mesh import carve_tier_meshes
 from ..utils.faults import FaultInjector, maybe_break_stream
 from .errors import error_dict
 from .tenants import DEFAULT_TENANT, TenantQuotas
@@ -649,14 +650,19 @@ class _PrimedStream:
 
 def build_tiers(cluster: ClusterConfig, device: DeviceLike = None,
                 warmup_on_start: bool = True,
-                fault_injector: Optional[FaultInjector] = None
+                fault_injector: Optional[FaultInjector] = None,
+                devices: Optional[Sequence] = None
                 ) -> Dict[str, TierClient]:
-    """One client per tier on ``device`` (a registry, not classes): a
+    """One client per tier (a registry, not classes), each local tier on
+    its device group from ``parallel/mesh.carve_tier_meshes`` over
+    ``devices`` (default: every card; ``device="cpu"``: one CPU): a
     ``RemoteTierClient`` for a tier with an ``endpoint`` (no local
-    engine), a ``ReplicatedTierClient`` for ``replicas > 1`` or an
-    autoscale-armed tier (elastic membership needs the replica layer even
-    at one replica), else a ``TierClient`` over its own EngineManager.
-    ``fault_injector`` reaches every client."""
+    engine, no devices claimed), a ``ReplicatedTierClient`` for
+    ``replicas > 1`` or an autoscale-armed tier (elastic membership needs
+    the replica layer even at one replica), else a ``TierClient`` over
+    its own EngineManager, tensor-parallel where its group holds more
+    than one slot.  ``fault_injector`` reaches every client."""
+    meshes = carve_tier_meshes(cluster, devices=devices, device=device)
     tiers: Dict[str, TierClient] = {}
     for tier in cluster.tiers():
         if tier.endpoint:
@@ -665,14 +671,16 @@ def build_tiers(cluster: ClusterConfig, device: DeviceLike = None,
                 tier.name, tier.endpoint, fault_injector=fault_injector,
                 spawn_cmd=tier.spawn_cmd)
             continue
+        mesh = meshes[tier.name]
         if tier.replicas > 1 or tier.autoscale:
             from .replicas import ReplicatedTierClient
             tiers[tier.name] = ReplicatedTierClient(
-                tier, cluster, device=device, fault_injector=fault_injector,
-                warmup_on_start=warmup_on_start, seed=cluster.seed)
+                tier, cluster, fault_injector=fault_injector,
+                warmup_on_start=warmup_on_start, seed=cluster.seed,
+                mesh=mesh)
             continue
         manager = EngineManager(tier, seed=cluster.seed,
                                 warmup_on_start=warmup_on_start,
-                                device=device)
+                                group=mesh)
         tiers[tier.name] = TierClient(tier, manager, fault_injector)
     return tiers

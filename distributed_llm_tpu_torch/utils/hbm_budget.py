@@ -9,10 +9,12 @@ layer included, quantized by
 paged pool's ``init_pool``, the contiguous cache's ``init_kv_cache``),
 so their
 shapes and dtypes are the engine's own and nothing is allocated: an 8B
-budget runs on the CPU.  One device per tier (``tp=1``); the sharded
-budgets wait for tensor parallelism (``TierConfig.check_ported`` refuses
-``tp > 1``).  Same keys, units (GB = 1e9 bytes), rounding and 0.75 GB
-headroom as the JAX budget.
+budget runs on the CPU.  A tensor-parallel tier is budgeted per shard,
+as JAX budgets per chip: the split weights (``parallel/sharding.
+LAYER_SPLIT``; an int8 weight's scale splits with its columns and stays
+whole beside a row split) and the KV divided by ``tp``, the replicated
+leaves (embedding, norms) counted whole on every shard.  Same keys, units
+(GB = 1e9 bytes), rounding and 0.75 GB headroom as the JAX budget.
 """
 
 from __future__ import annotations
@@ -41,9 +43,36 @@ def model_bytes(model: torch.nn.Module) -> int:
     return tensor_bytes(itertools.chain(model.parameters(), model.buffers()))
 
 
-def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
-                    ) -> Dict[str, Any]:
-    """Budget ``tier`` against one device of ``hbm_per_chip_gb``.
+def shard_bytes(model: torch.nn.Module, tp: int) -> int:
+    """Bytes one of ``tp`` shards of a dense model holds
+    (``parallel/sharding.shard_params``'s pieces, counted from shapes)."""
+    from ..ops import quant
+    from ..parallel.sharding import LAYER_SPLIT
+    if tp == 1:
+        return model_bytes(model)
+
+    def leaf(w, axis) -> int:
+        if quant.is_quantized(w):
+            q = tensor_bytes([w.q])
+            s = tensor_bytes([w.s])
+            if axis is None:
+                return q + s
+            return (q + s) // tp if axis == 1 else q // tp + s
+        b = tensor_bytes([w])
+        return b if axis is None else b // tp
+
+    total = leaf(model.embed, None) + leaf(model.final_ln, None)
+    for layer in model.layers:
+        total += sum(leaf(getattr(layer, k), a)
+                     for k, a in LAYER_SPLIT.items())
+    return total
+
+
+def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB,
+                    mesh=None) -> Dict[str, Any]:
+    """Budget ``tier`` against each device of its group: ``mesh`` (the
+    tier's ``parallel/mesh.DeviceGroup``) gives its tp, else the tier's
+    own ``tp``, as JAX's budget reads them.
 
     Returns {tier, model, chips, quantize, params_gb_per_chip,
     kv_gb_per_chip, total_gb_per_chip, hbm_per_chip_gb, fits,
@@ -56,25 +85,28 @@ def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
     from ..engine.paged_kv import PagedConfig, init_pool
     from ..models import transformer
     from ..ops import quant
+    from ..parallel.sharding import check_tp
 
     tier.check_ported()
     cfg = tier.model()
+    tp = mesh.tp if mesh is not None else max(1, tier.tp)
+    check_tp(cfg, tp)
     meta = torch.device("meta")
-    params_bytes = model_bytes(quant.maybe_quantize(
-        transformer.Transformer(cfg, device=meta), tier, cfg))
+    params_bytes = shard_bytes(quant.maybe_quantize(
+        transformer.Transformer(cfg, device=meta), tier, cfg), tp)
     if tier.decode_batch > 1:
         pcfg = PagedConfig(block_size=tier.kv_block_size,
                            max_slots=tier.decode_batch,
                            max_seq_len=cfg.max_seq_len)
         kv_bytes = tensor_bytes(init_pool(cfg, pcfg, tier.kv_quantize,
-                                          device=meta).values())
+                                          device=meta).values()) // tp
         parked = 0         # parked prefixes hold blocks inside the pool
     else:
         # The sequential engine keeps a MoE model's cache bf16.
         kvq = tier.kv_quantize if cfg.num_experts == 1 else "none"
         cache = transformer.init_kv_cache(cfg, 1, cfg.max_seq_len, kvq,
                                           device=meta)
-        kv_bytes = tensor_bytes(cache.values())
+        kv_bytes = tensor_bytes(cache.values()) // tp
         parked = (kv_bytes * tier.prefix_cache_entries
                   if tier.enable_prefix_cache else 0)
     params_gb, kv_gb = params_bytes / 1e9, (kv_bytes + parked) / 1e9
@@ -82,7 +114,7 @@ def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
     return {
         "tier": tier.name,
         "model": cfg.name,
-        "chips": 1,
+        "chips": tp,
         "quantize": tier.quantize,
         "params_gb_per_chip": round(params_gb, 3),
         "kv_gb_per_chip": round(kv_gb, 3),
@@ -95,10 +127,19 @@ def tier_hbm_budget(tier, hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
     }
 
 
-def cluster_hbm_budget(cluster,
-                       hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB
-                       ) -> Dict[str, Dict[str, Any]]:
-    """Budget every tier of ``cluster``, each against its own device (the
-    port serves each tier on one card; remote tiers are not ported)."""
-    return {tier.name: tier_hbm_budget(tier, hbm_per_chip_gb=hbm_per_chip_gb)
-            for tier in cluster.tiers()}
+def cluster_hbm_budget(cluster, devices=None,
+                       hbm_per_chip_gb: float = DEFAULT_HBM_PER_CHIP_GB,
+                       device=None) -> Dict[str, Dict[str, Any]]:
+    """Budget every local tier of ``cluster`` against the group
+    ``parallel/mesh.carve_tier_meshes`` hands it from ``devices`` (a later
+    tier may get a smaller tp than it asks for); remote tiers
+    (``endpoint``) are skipped, their devices being elsewhere.  With no
+    ``devices`` and no ``device``, the process's devices: every card, or
+    the CPU on a machine without one (a budget allocates nothing)."""
+    from ..parallel.mesh import carve_tier_meshes
+    if devices is None and device is None and not torch.cuda.is_available():
+        device = "cpu"
+    meshes = carve_tier_meshes(cluster, devices=devices, device=device)
+    return {tier.name: tier_hbm_budget(tier, hbm_per_chip_gb=hbm_per_chip_gb,
+                                       mesh=meshes[tier.name])
+            for tier in cluster.tiers() if not tier.endpoint}

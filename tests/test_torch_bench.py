@@ -499,8 +499,15 @@ def test_flagship_cluster_is_the_jax_packages_on_one_card():
                 name, field.name)
     assert torch_config.flagship_cluster(1, kv_int8=True).orin.kv_quantize \
         == "int8"
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        torch_config.flagship_cluster(5)
+    # Five or more devices: orin_8b in bf16 over a tp=4 group, JAX's.
+    got, want = torch_config.flagship_cluster(5), jax_config.flagship_cluster(5)
+    for name in ("nano", "orin"):
+        t, j = getattr(got, name), getattr(want, name)
+        for field in dataclasses.fields(t):
+            assert getattr(t, field.name) == getattr(j, field.name), (
+                name, field.name)
+    assert (got.orin.tp, got.orin.quantize) == (4, "none")
+    got.orin.check_ported()
 
 
 def test_spec_multiturn_keys_match_jax():

@@ -29,7 +29,9 @@ from distributed_llm_tpu_torch.engine.inference import InferenceEngine
 from distributed_llm_tpu_torch.engine.manager import (EngineManager,
                                                       TierOverCapacityError)
 from distributed_llm_tpu_torch.models import transformer
+from distributed_llm_tpu_torch.parallel.mesh import tp_mesh
 from distributed_llm_tpu_torch.utils.hbm_budget import (cluster_hbm_budget,
+                                                        model_bytes,
                                                         tensor_bytes,
                                                         tier_hbm_budget)
 
@@ -88,16 +90,29 @@ def test_cluster_budget_matches_jax():
         assert {k: got[name][k] for k in JAX_KEYS} == want[name]
 
 
+def _group(tier):
+    """The group a tier asks for, on repeated CPU slots (None at tp=1)."""
+    return tp_mesh(["cpu"] * tier.tp, tier.tp) if tier.tp > 1 else None
+
+
 @pytest.mark.parametrize("kv_quantize", ["none", "int8"])
 def test_batched_budget_is_the_engines_tensors(kv_quantize):
+    """The budget is one shard's tensors: the whole engine's at tp=1, the
+    first shard's weights and pool on the tiny orin's tp=4 group."""
     for tier in torch_config.tiny_batched_cluster().tiers():
         tier = dataclasses.replace(tier, kv_quantize=kv_quantize)
-        eng = ContinuousBatchingEngine(tier, device="cpu")
+        eng = ContinuousBatchingEngine(tier, device="cpu", group=_group(tier))
         try:
             budget = tier_hbm_budget(tier)
-            assert budget["params_bytes"] == tensor_bytes(
-                eng.model.parameters())
-            assert budget["kv_bytes"] == tensor_bytes(eng.pool.values())
+            if tier.tp > 1:
+                assert budget["params_bytes"] == model_bytes(
+                    eng.model.shards[0])
+                assert budget["kv_bytes"] == tensor_bytes(
+                    eng.pool[0].values())
+            else:
+                assert budget["params_bytes"] == tensor_bytes(
+                    eng.model.parameters())
+                assert budget["kv_bytes"] == tensor_bytes(eng.pool.values())
         finally:
             eng.stop()
 
@@ -106,12 +121,15 @@ def test_batched_budget_is_the_engines_tensors(kv_quantize):
 def test_sequential_budget_is_the_engines_tensors(kv_quantize):
     for tier in torch_config.tiny_cluster().tiers():
         tier = dataclasses.replace(tier, kv_quantize=kv_quantize)
-        eng = InferenceEngine(tier, device="cpu")
+        eng = InferenceEngine(tier, device="cpu", group=_group(tier))
         cfg = tier.model()
-        cache = transformer.init_kv_cache(cfg, 1, cfg.max_seq_len,
-                                          kv_quantize, device="cpu")
+        cache = transformer.init_kv_cache(
+            cfg, 1, cfg.max_seq_len, kv_quantize, device="cpu",
+            kv_heads=cfg.num_kv_heads // tier.tp)
         budget = tier_hbm_budget(tier)
-        assert budget["params_bytes"] == tensor_bytes(eng.model.parameters())
+        assert budget["params_bytes"] == (
+            model_bytes(eng.model.shards[0]) if tier.tp > 1
+            else tensor_bytes(eng.model.parameters()))
         assert budget["kv_bytes"] == tensor_bytes(cache.values()) * (
             1 + tier.prefix_cache_entries)
 
@@ -132,6 +150,16 @@ def test_manager_refuses_a_tier_over_its_budget(monkeypatch):
 
 
 def test_budget_refuses_unported_sharding():
+    """Expert parallelism is refused; orin_8b at tp=4 is budgeted per
+    shard, key for key as the JAX budget on its 4-device mesh."""
     with pytest.raises(NotImplementedError):
         tier_hbm_budget(torch_config.TierConfig(name="t",
-                                                model_preset="orin_8b", tp=4))
+                                                model_preset="orin_8b", ep=2))
+    for quantize in ("none", "int8"):
+        got = tier_hbm_budget(torch_config.TierConfig(
+            name="t", model_preset="orin_8b", tp=4, quantize=quantize,
+            decode_batch=4))
+        want = jax_budget(jax_config.TierConfig(
+            name="t", model_preset="orin_8b", tp=4, quantize=quantize,
+            decode_batch=4), hbm_per_chip_gb=16.0)
+        assert {k: got[k] for k in JAX_KEYS} == want

@@ -9,7 +9,7 @@ call the same restarts; ``_merge_gathered`` folds the same numpy rows
 into each package's PerfStrategy with the same result.  Then the port's
 Router: ``enable_health_monitor`` starts a monitor that restarts a
 wedged engine (bounded waits on events and deadlines), ``drain`` stops
-it first, and a ``health_mesh`` is refused.
+it first, and a ``health_mesh`` reaches the monitor's exchange.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import pytest
 from distributed_llm_tpu.routing.strategies import PerfStrategy as JaxPerf
 from distributed_llm_tpu.serving.health import HealthMonitor as JaxMonitor
 from distributed_llm_tpu_torch.config import BENCHMARK_CFG, tiny_batched_cluster
+from distributed_llm_tpu_torch.parallel.mesh import tp_mesh
 from distributed_llm_tpu_torch.routing.strategies import PerfStrategy
 from distributed_llm_tpu_torch.serving.health import HealthMonitor
 from distributed_llm_tpu_torch.serving.router import Router
@@ -205,12 +206,20 @@ def test_merge_gathered_matches_jax():
 
 
 def test_exchange_is_none_without_a_mesh_and_a_mesh_is_refused():
+    """No group: no exchange, as in JAX.  A group: every tier's perf row
+    all-gathered over it (one row per slot, all this process's own, so
+    nothing is folded into the strategy)."""
     router = SimpleNamespace(tiers={}, query_router=SimpleNamespace(
         router=PerfStrategy(dict(BENCHMARK_CFG))))
     assert HealthMonitor(router).exchange_health() is None
     assert JaxMonitor(router).exchange_health() is None
-    with pytest.raises(NotImplementedError):
-        HealthMonitor(router, mesh=object())
+    router.query_router.router.samples["nano"].append((100.0, 10, True))
+    out = HealthMonitor(router, mesh=tp_mesh(["cpu"] * 2, 2)
+                        ).exchange_health()
+    assert set(out) == {"nano", "orin"}
+    np.testing.assert_allclose(out["nano"], [[100.0, 10.0, 1.0, 1.0]] * 2)
+    assert list(router.query_router.router.samples["nano"]) == [
+        (100.0, 10, True)]
 
 
 def _router(**config):
@@ -261,5 +270,9 @@ def test_router_without_the_monitor_and_with_a_mesh():
     router = _router()
     assert router.health_monitor is None
     router.drain(timeout_s=5)
-    with pytest.raises(NotImplementedError, match="health_mesh"):
-        _router(enable_health_monitor=True, health_mesh=object())
+    group = tp_mesh(["cpu"] * 2, 2)
+    router = _router(enable_health_monitor=True, health_mesh=group)
+    try:
+        assert router.health_monitor.mesh is group
+    finally:
+        router.drain(timeout_s=5)

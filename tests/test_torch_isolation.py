@@ -11,7 +11,8 @@ weights with the W1 kernel's wrapper and the flagship cluster, the
 edges: ``python -m``'s module, the REPL, the C++ host loops, the v1
 tester, the analysis, tune, the kernel A/B harness, the encoder's data,
 training and evaluation, and the reference shims; MoE, the trainer, its
-data, evaluation, pretraining and the versioned checkpoints) and
+data, evaluation, pretraining and the versioned checkpoints; tensor
+parallelism's ``parallel/`` modules) and
 ``chip_smoke``; an AST scan of every port module and of chip_smoke.py
 finds no import of either, and no string literal that points into
 ``distributed_llm_tpu/`` (docstrings aside, and chip_smoke's ``replaces``
@@ -128,6 +129,9 @@ def test_entry_points_import_with_jax_blocked():
         "import distributed_llm_tpu_torch.models.convert\n"
         "import distributed_llm_tpu_torch.models.transformer\n"
         "import distributed_llm_tpu_torch.models.moe\n"
+        "from distributed_llm_tpu_torch.parallel import (collectives, mesh,\n"
+        "    sharding, tp_attention)\n"
+        "assert mesh.tp_mesh(['cpu'] * 2, 2).tp == 2\n"
         "import distributed_llm_tpu_torch.training.trainer\n"
         "import distributed_llm_tpu_torch.training.data\n"
         "import distributed_llm_tpu_torch.training.evaluate\n"

@@ -97,7 +97,7 @@ def test_replicas_must_be_positive():
                                 replicas=0),
             jax_config.tiny_batched_cluster())
     with pytest.raises(NotImplementedError):
-        dataclasses.replace(tier, replicas=2, tp=2).check_ported()
+        dataclasses.replace(tier, replicas=2, ep=2).check_ported()
 
 
 @pytest.mark.parametrize("n_dev,n,tp", [(1, 2, 1), (1, 3, 1), (2, 2, 1),

@@ -268,14 +268,13 @@ def test_manager_selects_the_jax_engine(overrides, kind, caplog):
 
 def test_tiny_cluster_matches_jax():
     """The port's tiny_cluster() tiers equal the JAX ones on every field
-    the port declares, orin's tp apart (4 on the JAX package's 8-device
-    CPU mesh, 1 on the port's one card)."""
+    the port declares, orin's tp=4 included (the carve shrinks it to the
+    devices at hand)."""
     jc, tc = jax_config.tiny_cluster(), torch_config.tiny_cluster()
     for name in ("nano", "orin"):
         jt, tt = getattr(jc, name), getattr(tc, name)
         for field in dataclasses.fields(tt):
-            if (name, field.name) != ("orin", "tp"):
-                assert getattr(tt, field.name) == getattr(jt, field.name), \
-                    (name, field.name)
-    assert (jc.orin.tp, tc.orin.tp) == (4, 1)
+            assert getattr(tt, field.name) == getattr(jt, field.name), \
+                (name, field.name)
+    assert (jc.orin.tp, tc.orin.tp) == (4, 4)
     assert tc.nano.decode_batch == tc.orin.decode_batch == 1
