@@ -292,10 +292,31 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    perf Router's ``health_mesh``: the monitor's ``allgather_health``
    rows equal the strategy's windows.  Each part's kernels must launch
    on every shard (``ops/launches.on_shard``); the kernel table lists
-   the launches by part and shard (``launches_by_shard``).
+   the launches by part and shard (``launches_by_shard``);
+22. sequence and expert parallelism (``sp_ep``), over groups of the card
+   repeated, each part built on the weights of the same tier unsharded
+   and held against it on the same probes (cold, long, a prefix hit)
+   in the same call: tokens equal or a near-tie, the cold probe's
+   prefill logits by 21's rule against float32 (a MoE model's experts
+   pinned to the unsharded run's routes, once per tensor shard): (a)
+   orin_8b bf16 on the sequential engine at sp=4, a prompt of about
+   6000 tokens past the tier's largest bucket prefilled as ONE ring call
+   on the extended ladder (8192) and decoded over the sequence-split
+   cache (the ring and the sp partials are plain by design; counters
+   show they ran), with the ring's prefill ms against the unsharded
+   tier's K2 at 2048 and its chunked long prefill, and the decode step
+   against K9's; (b) the same at sp=2 x tp=2 on the cold and hit probes
+   (its ring timed at 2048); (c) moe_8x1b at ep=4 on
+   the batched engine (bf16 pool: K1, K2, K3 on the tensor shard) and
+   on the sequential engine with int8 weights (every ep slot's experts
+   launch W1); (d) moe_8x1b at tp=2 with the int8 pool (K2 and K5 on
+   both shards).  Each part prints its capture seconds and graph pools,
+   peak memory and launches by slot; (a) and (c) first run the
+   multichip section's capacity check for sp and ep (``sp_ep_budget``:
+   the one-device tier refused by the manager, the group's fitting).
 
-Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20, and
-phases 11 and 17 again for 21 (every path kept): the bench's sweep
+Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20,
+phases 11 and 17 again for 21, and 15 again for 22 (every path kept): the bench's sweep
 serves the first BENCH_QUERIES queries a strategy with
 BENCH_TREND_REPEATS trend repeats and runs its tiny tenant and
 autoscaler legs at BENCH_LEG_DEPTH, the legs' open-loop budget is
@@ -307,7 +328,7 @@ trains EDGES_ENCODER_STEPS steps.
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
 ``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``, ``moe``,
-``train``, ``tp``) builds the kernels and runs only those phases,
+``train``, ``tp``, ``sp_ep``) builds the kernels and runs only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
 run.
@@ -4231,12 +4252,14 @@ def spill_chip_phase(torch, nano, *, expect, device: str = "cuda"):
 
 @contextlib.contextmanager
 def uncounted():
-    """Kernel launches and plain-version calls made inside are taken back:
-    a near-tie check compares paths, it is no main path."""
+    """Kernel launches (by shard too) and plain-version calls made inside
+    are taken back: a near-tie check compares paths, it is no main
+    path."""
     from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import launches
     saved = (launches.counts(), launches.call_counts(),
-             dict(TF.flash_chunk_attention.route_launches))
+             dict(TF.flash_chunk_attention.route_launches),
+             launches.shard_counts())
     try:
         yield
     finally:
@@ -4245,6 +4268,8 @@ def uncounted():
         for name, fn in launches.plain_paths().items():
             fn.calls = saved[1][name]
         TF.flash_chunk_attention.route_launches = saved[2]
+        launches.reset_shards()
+        launches.add_shards(saved[3])
 
 
 def tie_checker(torch):
@@ -4393,11 +4418,12 @@ def trained_chat_phase(torch, *, expect, device: str = "cuda"):
 # verify kernel's 40), the shared leg's system prompt (about 1600 tokens,
 # 25 of nano_1b's 64-token blocks, so the shared prefix dominates as the
 # tiny leg's does in 16-token blocks) and the open-loop leg's budget (the
-# bench cluster's start and warmup included; cut from 75 s to pay for
-# phases 19 and 20: each rate point lasts 1.26 s, not 2.37).
+# bench cluster's start and warmup included; cut from 75 s to 40 to pay
+# for phases 19 and 20, each rate point 1.26 s, not 2.37; and to 32 for
+# phase 22).
 LEG_GAMMA_MAX = 8
 LEG_SHARED_PREFIX = "system: " + words(700) + ". answer in one sentence."
-LEG_OPENLOOP_S = 40.0
+LEG_OPENLOOP_S = 32.0
 
 
 def legs_phase(torch, nano, orin, *, device: str = "cuda"):
@@ -6347,6 +6373,7 @@ def seq_near_tie(torch, engine, ids, want, got, tol: float) -> dict:
         logits = transformer.logits_from_hidden(engine.model,
                                                 hidden[0, -1]).float()
     out["pick_gap"] = float(logits[want[p]] - logits[got[p]])
+    out["got_rank"] = int((logits > logits[got[p]]).sum())
     out["near_tie"] = abs(out["pick_gap"]) <= 2 * tol
     return out
 
@@ -6456,6 +6483,452 @@ def tp_summary(parts: dict) -> dict:
     return out
 
 
+# -- phase 22: sequence and expert parallelism -----------------------------------
+
+# The card repeated stands in for the group, as in phase 21.
+SP_EP_NEW = 16                   # the probes' greedy decode budget
+SP_EP_PROBES = ("cold", "long", "hit")
+SP_LONG_WORDS = 2650             # about 5950 orin_8b tokens: past 2048
+MOE_LONG_WORDS = 300             # about 680 tokens: two 256-token chunks
+# What every slot of a part launches, and what the part launches at all
+# (parts (a) and (b) run the ring and the sp partials: plain by design,
+# as they are XLA in the JAX package, so nothing of theirs launches).
+SP_EP_EXPECT = {
+    "orin_sp4": ((), ()),
+    "orin_sp2_tp2": ((), ()),
+    "moe_ep4_batched": ((), ("ragged_decode", "flash_causal", "paged_chunk")),
+    "moe_ep4_seq_w8": (("w8_matmul",), ("flash_causal", "flash_decode",
+                                        "flash_chunk", "w8_matmul")),
+    "moe_tp2_int8_pool": (("flash_causal", "ragged_decode_q8"),
+                          ("flash_causal", "ragged_decode_q8")),
+}
+
+
+def sp_ep_probes(engine, tier, long_words: int, seq: bool) -> list:
+    """(name, text, ids) of a part's probes: a cold prompt, a long one and
+    the cold one's follow-up (a prefix hit where the prefix cache is on).
+    The ids are the engine's own (a sequential engine keeps a long prompt
+    whole; the batched engine chunks it)."""
+    from distributed_llm_tpu_torch.engine.inference import prepare_prompt
+    cold = "tell me about " + words(12, 4)
+    buckets = engine._buckets if seq else tier.prefill_buckets
+    out = []
+    for name, text in (("cold", cold),
+                       ("long", "summarise: " + words(long_words, 9)),
+                       ("hit", cold + " and " + words(6, 5) + "?")):
+        ids, _ = prepare_prompt(engine.tokenizer, text, buckets,
+                                engine.cfg.max_seq_len, tier.max_new_tokens,
+                                allow_long=seq)
+        out.append((name, text, ids))
+    return out
+
+
+def sp_ep_run(torch, engine, probes, routes=None, repeat: int = 1) -> dict:
+    """Each probe's greedy tokens and TTFT, and the cold probe's prefill
+    logits (last row, float32, uncounted), its experts pinned to
+    ``routes`` (recorded when empty; each entry served ``repeat`` times:
+    a MoE model split over tp shards routes once per shard)."""
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.models import transformer
+    out = {"tokens": {}, "ttft_ms": {}}
+    for name, text, ids in probes:
+        r = engine.generate(text, max_new_tokens=SP_EP_NEW, temperature=0.0)
+        out["tokens"][name] = (list(ids), list(r.token_ids))
+        out["ttft_ms"][name] = r.ttft_ms
+    ids = out["tokens"]["cold"][0]
+    dev = engine.device
+    pins = routes if routes is not None else []
+    record = not pins
+    replay = [r for r in pins for _ in range(repeat)]
+    # An sp engine's prompt padded to its bucket, through its own prefill
+    # attention (the ring); the row of the last id.
+    sp_attn = engine._sp_attn if getattr(engine, "_sp", 1) > 1 else None
+    width = (next(b for b in engine._buckets if b >= len(ids))
+             if sp_attn else len(ids))
+    toks = list(ids) + [engine.tokenizer.pad_id] * (width - len(ids))
+    with uncounted(), torch.no_grad(), pinned_routes(
+            pins if record else replay, record=record) as flips:
+        hidden, _ = models.serving_prefill(
+            engine.cfg, engine.model, torch.tensor([toks], device=dev),
+            torch.arange(width, device=dev)[None],
+            attn=sp_attn(width) if sp_attn else None)
+        out["logits"] = transformer.logits_from_hidden(
+            engine.model, hidden[0, len(ids) - 1]).float().cpu()
+    out["route_flips"] = list(flips)
+    out["routes"] = pins
+    return out
+
+
+def seq_program_ms(torch, engine, key, rung: int, stage: dict,
+                   iters: int) -> float:
+    """Device ms of one replay of a sequential engine's program ``key`` on
+    ``rung`` (built here if it is not), from ``stage``'s inputs, between
+    CUDA events; uncounted."""
+    with uncounted():
+        engine._stage(**stage)
+        prog = engine._built(key, rung)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            engine._stage(**stage)
+            prog.run()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def seq_times(torch, engine, long_ids, long_bucket: bool = True) -> dict:
+    """A sequential engine's prefill of the 2048 bucket and of the long
+    probe's bucket (the sp ladder's 8192, unless not ``long_bucket``;
+    none on an unsharded tier, whose long prompt chunks), one replay each
+    after their capture, and a decode step (a segment over its SEGMENT
+    steps, three replays) on the long probe's rung."""
+    from distributed_llm_tpu_torch.engine.inference import SEGMENT
+    rung = engine._pick_cache_len(len(long_ids) + engine.tier.max_new_tokens)
+    out = {}
+    for bucket in sorted({2048, engine._buckets[-1] if long_bucket
+                          else 2048}):
+        if bucket not in engine._buckets:
+            continue
+        r = engine._pick_cache_len(bucket + engine.tier.max_new_tokens)
+        out[f"prefill_{bucket}_ms"] = seq_program_ms(
+            torch, engine, (bucket, r), r,
+            dict(tokens=long_ids[:bucket], width=bucket, true_len=min(
+                bucket, len(long_ids)), temp=0.0), iters=1)
+    out["step_ms"] = seq_program_ms(
+        torch, engine, rung, rung,
+        dict(cur=long_ids[-1], pos=len(long_ids) - 1, done=False, made=1,
+             budget=SEGMENT + 1, temp=0.0), iters=3) / SEGMENT
+    out["rung"] = rung
+    return out
+
+
+@contextlib.contextmanager
+def timed_captures(torch, on_card: bool):
+    """Seconds spent capturing programs inside, and the device memory the
+    captures kept (their graph pools), in the yielded dict."""
+    from distributed_llm_tpu_torch.engine import batching, programs
+    real = programs.capture_program
+    out = {"capture_s": 0.0, "graph_pool_gb": 0.0, "captures": 0}
+
+    def timed(*a, **kw):
+        m0 = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            out["capture_s"] += time.perf_counter() - t0
+            out["captures"] += 1
+            if on_card:
+                out["graph_pool_gb"] += (torch.cuda.memory_allocated()
+                                         - m0) / 1e9
+
+    programs.capture_program = batching.capture_program = timed
+    try:
+        yield out
+    finally:
+        programs.capture_program = batching.capture_program = real
+
+
+@contextlib.contextmanager
+def sp_ep_counters():
+    """Calls of the ring (``ring_attention.ring``) and of the sp decode
+    (``sp_attention.sp_decode``) made inside, by name: a captured program
+    makes its calls once, at capture."""
+    from distributed_llm_tpu_torch.engine import inference
+    from distributed_llm_tpu_torch.parallel import sp_attention
+    calls = {"ring": 0, "sp_decode": 0}
+    saved = (inference.ring, sp_attention.sp_decode)
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    inference.ring = count("ring", saved[0])
+    sp_attention.sp_decode = count("sp_decode", saved[1])
+    try:
+        yield calls
+    finally:
+        inference.ring, sp_attention.sp_decode = saved
+
+
+def sp_ep_budget(torch, tier, wide, group) -> dict:
+    """The multichip section's capacity check for sp and ep: a per-device
+    budget between the tier's footprint on one device and on ``group``
+    (``wide``: the tier at the group's degree) refuses the one-device
+    tier in ``EngineManager.start_server`` (nothing built) and fits the
+    group's, which the part then serves."""
+    from distributed_llm_tpu_torch.engine.manager import (
+        EngineManager, TierOverCapacityError)
+    from distributed_llm_tpu_torch.parallel.mesh import tp_mesh
+    from distributed_llm_tpu_torch.utils.hbm_budget import tier_hbm_budget
+    one = tier_hbm_budget(tier, mesh=tp_mesh(["cuda"], 1))
+    many = tier_hbm_budget(wide, mesh=group)
+    hbm = round((one["total_gb_per_chip"] + many["total_gb_per_chip"]) / 2
+                + 0.75, 4)
+    out = {"hbm_gb_per_chip": hbm, "one_gb": one["total_gb_per_chip"],
+           "group_gb": many["total_gb_per_chip"], "chips": many["chips"]}
+    mgr = EngineManager(dataclasses.replace(tier, hbm_gb_per_chip=hbm),
+                        device="cuda", warmup_on_start=False)
+    try:
+        mgr.start_server()
+        out["one_refused"] = False
+        mgr.stop_server()
+    except TierOverCapacityError:
+        out["one_refused"] = True
+    out["group_fits"] = tier_hbm_budget(
+        dataclasses.replace(wide, hbm_gb_per_chip=hbm),
+        hbm_per_chip_gb=hbm, mesh=group)["fits"]
+    require(out["one_refused"] and out["group_fits"],
+            f"{tier.name}: the sp/ep capacity check failed: {out}")
+    return out
+
+
+def sp_ep_part(torch, name, tier, group, ref, want, *, seq: bool,
+               long_words: int, device: str, probes=("cold", "long", "hit")):
+    """One part: ``tier`` over ``group`` (the card repeated), built on the
+    reference engine's weights (``ref``: the same tier on one device,
+    whose probe results are ``want``), its ``probes`` as the main path
+    (counts reset before, read after; each slot's launches), its timings,
+    then held against ``want``: tokens equal or each flip explained
+    (``sp_ep_flip``), the cold probe's logits by ``logits_against``
+    (float32 from the reference's weights), the experts pinned to the
+    reference's routes."""
+    from distributed_llm_tpu_torch.engine.batching import (
+        ContinuousBatchingEngine)
+    from distributed_llm_tpu_torch.engine.inference import InferenceEngine
+    from distributed_llm_tpu_torch.ops import launches as L
+
+    on_card = device == "cuda"
+    every, expect = SP_EP_EXPECT[name]
+    fresh_peak(torch, on_card)
+    res = {"model": tier.model_preset, "shape": group.shape,
+           "quantize": tier.quantize, "kv_quantize": tier.kv_quantize}
+    t0 = time.perf_counter()
+    engine = (InferenceEngine if seq else ContinuousBatchingEngine)(
+        tier, seed=0, params=ref.model, group=group)
+    res["build_s"] = time.perf_counter() - t0
+    try:
+        run = [p for p in sp_ep_probes(engine, tier, long_words, seq)
+               if p[0] in probes]
+        reset_counts()
+        shards0 = L.shard_counts()
+        with timed_captures(torch, on_card) as cap, sp_ep_counters() as calls:
+            t0 = time.perf_counter()
+            got = sp_ep_run(torch, engine, run, want["routes"],
+                            repeat=engine.model.tp)
+            res["main_path_s"] = time.perf_counter() - t0
+        launches, _ = read_counts(expect, on_card)
+        res["launches_by_slot"] = tp_shard_launches(shards0, group.size,
+                                                    every)
+        res.update(cap)
+        res["launches"] = {k: v for k, v in launches.items() if v}
+        res["calls"] = calls
+        if group.sp > 1:
+            require(calls["ring"] > 0 and calls["sp_decode"] > 0
+                    and engine._sp_shard,
+                    f"{name}: the ring or the sp decode did not run: {calls}")
+        res["ttft_ms"] = got["ttft_ms"]
+        if on_card:
+            if seq:
+                res["times"] = seq_times(torch, engine,
+                                         want["tokens"]["long"][0],
+                                         long_bucket="long" in probes)
+            else:
+                res["times"] = {"tick_ms": tick_graph_check(
+                    torch, engine).get("tick_replay_ms")}
+        res["peak_memory_gb"] = peak_memory_gb(torch, on_card)
+        flips = [sp_ep_flip(torch, ref, engine, probe, ids, w,
+                            got["tokens"][probe][1], want, seq=seq)
+                 for probe, (ids, w) in want["tokens"].items()
+                 if probe in probes and got["tokens"][probe][1] != w]
+    finally:
+        stop = getattr(engine, "stop", None)
+        if stop:
+            stop()
+        del engine
+    fresh_peak(torch, on_card)
+    require(all(f["near_tie"] for f in flips),
+            f"{name}: tokens differ from the unsharded tier beyond a "
+            f"near-tie: {flips}")
+    path = [f for f in flips if f.get("path_dependent")]
+    res["against_unsharded"] = {
+        "tokens_identical": not flips, "flips": flips,
+        "path_dependent": len(path),
+        "path_dependent_max_gap": max((-f["pick_gap"] for f in path),
+                                      default=None),
+        "route_flips": got["route_flips"],
+        **logits_against(got["logits"], want["logits"], want["ref32"])}
+    return res, launches
+
+
+def sp_ep_flip(torch, ref, engine, probe, ids, want_toks, got_toks, want,
+               *, seq: bool) -> dict:
+    """Where the sharded engine's tokens first differ from the unsharded
+    tier's, and why.  A near-tie of the two picks (``near_tie`` on the
+    unsharded batched engine, ``seq_near_tie`` on the sequential one).
+    A MoE model also passes (``path_dependent``, counted and printed
+    per part) when the unsharded model's own replay of the same tokens
+    (a prefill, whose expert capacity drops other tokens than the served
+    path's) ranks the sharded engine's token first, or when
+    the replay routes some row to other experts in the two models at a
+    router near-tie (``pinned_routes``: the sharded model run on the
+    unsharded one's routes; each differing row's gap within twice the
+    router's drift) while, routes pinned, their logits agree within
+    ``tol``.  Uncounted."""
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.models import transformer
+    with uncounted():
+        tie = (seq_near_tie(torch, ref, ids, want_toks, got_toks, want["tol"])
+               if seq else near_tie(torch, ref, ids, want_toks, got_toks))
+        out = {"probe": probe, **tie}
+        if tie["near_tie"] or ref.cfg.num_experts == 1:
+            return out
+        if tie.get("pick_gap", 0) < 0 and tie.get("got_rank") == 0:
+            out["near_tie"] = out["path_dependent"] = True
+            return out
+        p = tie["position"]
+        toks = list(ids) + list(want_toks[:p])
+        dev = ref.device
+        t = torch.tensor([toks], device=dev)
+        pos = torch.arange(len(toks), device=dev)[None]
+        routes, logits = [], []
+        for model, record in ((ref.model, True), (engine.model, False)):
+            pins = routes if record else [
+                r for r in routes for _ in range(engine.model.tp)]
+            with torch.no_grad(), pinned_routes(pins, record) as notes:
+                hidden, _ = models.serving_prefill(ref.cfg, model, t, pos)
+                logits.append(transformer.logits_from_hidden(
+                    model, hidden[0, -1]).float())
+        err = (logits[0] - logits[1]).abs().max().item()
+        router_tie = bool(notes) and all(n["gap"] <= 2 * n["drift"]
+                                         for n in notes)
+        out.update({"route_flips": list(notes), "pinned_max_abs_err": err,
+                    "router_tie": router_tie})
+        out["near_tie"] = router_tie and err <= want["tol"]
+    return out
+
+
+def sp_ep_reference(torch, tier, *, seq: bool, long_words: int,
+                    device: str):
+    """The unsharded tier (one device): its engine, its probe results
+    (routes recorded for a MoE model), their times and the float32
+    logits of the cold probe."""
+    from distributed_llm_tpu_torch.engine.batching import (
+        ContinuousBatchingEngine)
+    from distributed_llm_tpu_torch.engine.inference import InferenceEngine
+    engine = (InferenceEngine if seq else ContinuousBatchingEngine)(
+        tier, seed=0, device=device)
+    with uncounted():
+        want = sp_ep_run(torch, engine,
+                         sp_ep_probes(engine, tier, long_words, seq))
+        if device == "cuda":
+            want["times"] = (seq_times(torch, engine,
+                                       want["tokens"]["long"][0]) if seq
+                             else {"tick_ms": tick_graph_check(
+                                 torch, engine).get("tick_replay_ms")})
+        with pinned_routes(list(want["routes"]), record=False):
+            want["ref32"] = f32_logits(torch, engine,
+                                       want["tokens"]["cold"][0])
+    scale = want["ref32"].abs().max().item()
+    want["tol"] = LOGITS_RTOL * scale + (want["logits"]
+                                         - want["ref32"]).abs().max().item()
+    return engine, want
+
+
+def sp_ep_phase(torch, nano, orin, *, device: str = "cuda"):
+    """Phase 22: sequence and expert parallelism over groups of the card
+    repeated, each part held against the unsharded tier on the same
+    probes in the same call.  (a) orin_8b bf16 on the sequential engine
+    at sp=4: a prompt of about 6000 tokens, past the tier's largest
+    bucket, prefills as one ring call on the extended ladder and decodes
+    over the sequence-split cache; (b) the same at sp=2 x tp=2 (the
+    cold and hit probes); (c)
+    moe_8x1b at ep=4 on the batched engine (bf16 pool) and on the
+    sequential engine (int8 weights: each ep slot's experts run W1);
+    (d) moe_8x1b at tp=2 with the int8 pool.  (a) and (c) also run the
+    multichip section's capacity check for sp and ep (``sp_ep_budget``).
+    Returns (numbers by part, launches summed over the parts)."""
+    from distributed_llm_tpu_torch.parallel.mesh import (ep_tp_mesh,
+                                                         sp_tp_mesh, tp_mesh)
+    on_card = device == "cuda"
+    parts, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def group_of(sp=1, ep=1, tp=1):
+        if sp > 1:
+            return sp_tp_mesh([device] * sp * tp, sp, tp)
+        if ep > 1:
+            return ep_tp_mesh([device] * ep * tp, ep, tp)
+        return tp_mesh([device] * tp, tp)
+
+    moe = moe_tier(nano)
+    plan = [
+        # (reference tier, sequential, long words, [(part, degrees)])
+        (_seq(orin), True, SP_LONG_WORDS,
+         [("orin_sp4", dict(sp=4), SP_EP_PROBES),
+          # (b) skips the long probe (a)'s ring already prefilled at 8192.
+          ("orin_sp2_tp2", dict(sp=2, tp=2), ("cold", "hit"))]),
+        (moe, False, MOE_LONG_WORDS,
+         [("moe_ep4_batched", dict(ep=4), SP_EP_PROBES)]),
+        (_seq(moe, quantize="int8"), True, MOE_LONG_WORDS,
+         [("moe_ep4_seq_w8", dict(ep=4), SP_EP_PROBES)]),
+        (dataclasses.replace(moe, kv_quantize="int8"), False, MOE_LONG_WORDS,
+         [("moe_tp2_int8_pool", dict(tp=2), SP_EP_PROBES)]),
+    ]
+    for base, seq, long_words, runs in plan:
+        fresh_peak(torch, on_card)
+        t0 = time.perf_counter()
+        ref, want = sp_ep_reference(torch, base, seq=seq,
+                                    long_words=long_words, device=device)
+        ref_s = time.perf_counter() - t0
+        try:
+            for name, degrees, probes in runs:
+                t0 = time.perf_counter()
+                tier = dataclasses.replace(base, **degrees)
+                group = group_of(**degrees)
+                budget = (sp_ep_budget(torch, base, tier, group)
+                          if on_card and name in ("orin_sp4",
+                                                  "moe_ep4_batched")
+                          else None)
+                parts[name], launches = sp_ep_part(
+                    torch, name, tier, group, ref, want, seq=seq,
+                    long_words=long_words, device=device, probes=probes)
+                parts[name]["unsharded"] = {
+                    "ttft_ms": want["ttft_ms"], "times": want.get("times"),
+                    "build_and_probes_s": ref_s}
+                if budget:
+                    parts[name]["budget"] = budget
+                parts[name]["wall_s"] = time.perf_counter() - t0
+                add(launches)
+                log(f"sp_ep {name} in {parts[name]['wall_s']:.1f}s")
+        finally:
+            stop = getattr(ref, "stop", None)
+            if stop:
+                stop()
+            del ref
+    return parts, total
+
+
+def sp_ep_summary(parts: dict) -> dict:
+    """What phase 22 prints of each part."""
+    out = {}
+    for name, r in parts.items():
+        out[name] = {k: r.get(k) for k in (
+            "shape", "build_s", "capture_s", "captures", "graph_pool_gb",
+            "main_path_s", "ttft_ms", "times", "unsharded", "calls",
+            "launches_by_slot", "against_unsharded", "budget",
+            "peak_memory_gb", "wall_s") if r.get(k) is not None}
+    return out
+
+
 # Phases 7-9b, the sequential engines at full width and depth (also
 # ``--only``-able): (tier of (nano, orin), the kernels that must launch).
 SEQ_PHASES = {
@@ -6503,6 +6976,7 @@ LATE_PHASES = {
     "moe": lambda torch, nano, orin: moe_phase(torch, nano, orin),
     "train": lambda torch, nano, orin: train_phase(torch, nano, orin),
     "tp": lambda torch, nano, orin: tp_phase(torch, nano, orin),
+    "sp_ep": lambda torch, nano, orin: sp_ep_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -6852,7 +7326,8 @@ def main() -> None:
                 if name == "fleet2" else edges_summary(numbers)
                 if name == "edges" else moe_summary(numbers)
                 if name == "moe" else tp_summary(numbers)
-                if name == "tp" else numbers), "card": card,
+                if name == "tp" else sp_ep_summary(numbers)
+                if name == "sp_ep" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -6963,8 +7438,13 @@ def main() -> None:
     # flagship's orin at tp=4 and orin_8b int8 at tp=2 (batched), orin_8b
     # at tp=4 (sequential), each against tp=1; the bench's multichip
     # section; the health exchange over a Router's health_mesh.
+    # 22. Sequence and expert parallelism over groups of the card
+    # repeated: orin_8b at sp=4 and sp=2 x tp=2 (sequential), moe_8x1b at
+    # ep=4 (batched and sequential) and tp=2 (int8 pool), each against
+    # the unsharded tier; the capacity check for sp and ep.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
-                 "legs", "fleet", "fleet2", "edges", "moe", "train", "tp"):
+                 "legs", "fleet", "fleet2", "edges", "moe", "train", "tp",
+                 "sp_ep"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
         mark(name)
@@ -6977,12 +7457,14 @@ def main() -> None:
                                     for p, n in by_phase.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
         row["kernel_ms"] = row["ms"]
-        # Phase 21's launches by part and head shard.
+        # Phases 21 and 22's launches by part and group slot.
         row["launches_by_shard"] = {
             part: {s: n.get(row["name"])
-                   for s, n in r["launches_by_shard"].items()
+                   for s, n in (r.get("launches_by_shard")
+                                or r["launches_by_slot"]).items()
                    if n.get(row["name"])}
-            for part, r in late["tp"].items() if "launches_by_shard" in r}
+            for part, r in [*late["tp"].items(), *late["sp_ep"].items()]
+            if "launches_by_shard" in r or "launches_by_slot" in r}
         row["launches_by_shard"] = {p: v for p, v in
                                     row["launches_by_shard"].items() if v}
     require(all(row["launches"] > 0 for row in rows),
@@ -7155,6 +7637,8 @@ def main() -> None:
         "served": tr["served"], "eval": tr["eval"],
         **{p: tr[p] for p in TRAIN_TINY_STEPS}}}, default=str))
     log(json.dumps({"card": card, "tp": tp_summary(late["tp"])},
+                   default=str))
+    log(json.dumps({"card": card, "sp_ep": sp_ep_summary(late["sp_ep"])},
                    default=str))
     log(json.dumps({"card": card, "phase_s": phase_s,
                     "total_s": report["total_s"]}))

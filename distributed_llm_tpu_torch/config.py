@@ -7,13 +7,10 @@ canonical configs (``BENCHMARK_CFG``, ``PRODUCTION_CFG``,
 cluster, the tier fields the engines, the tier clients and the router
 read (batched and sequential speculation, int8 weights, the int8 KV
 cache and pool, the dense windowed tick, admission, the context-overflow
-policy, drain, replicas, tenant quotas, the autoscaler, remote tiers),
-the cluster's breaker
+policy, drain, replicas, tenant quotas, the autoscaler, remote tiers,
+the tensor, sequence and expert parallel degrees), the cluster's breaker
 and retry fields, the nano and orin tiers of the default cluster and the
-tiny test clusters.  Fields whose feature is not ported yet are still
-declared with their JAX defaults, and a tier that asks for a non-default
-value of one raises ``NotImplementedError`` (``TierConfig.check_ported``)
-instead of being silently served without it.
+tiny test clusters.
 """
 
 from __future__ import annotations
@@ -154,13 +151,6 @@ MODEL_PRESETS: Dict[str, ModelConfig] = {
         name="orin_test", hidden_size=128, num_layers=2, num_heads=8,
         num_kv_heads=4, ffn_size=256, max_seq_len=256,
     ),
-}
-
-
-# Features whose code is not ported yet, with the value that means "off"
-# (the JAX package's default).  A tier asking for anything else raises.
-_UNPORTED_DEFAULTS = {
-    "ep": 1,
 }
 
 
@@ -406,10 +396,20 @@ class TierConfig:
     autoscale_warm_pool: bool = True
     # Tensor-parallel degree: the tier's requested device-group width
     # (parallel/mesh.carve_tier_meshes shrinks it to the devices at hand
-    # and to a divisor of the head counts).  Dense models only.
+    # and to a divisor of the head counts).
     tp: int = 1
-    # -- not ported yet: non-default values raise in check_ported -------
-    # Expert-parallel degree of a MoE tier (multi-GPU, ROADMAP A10b).
+    # Sequence-parallel degree for PREFILL: sp>1 makes the tier's group
+    # 2-D ('sp','tp') and the prefill runs ring attention over the sp
+    # axis (parallel/ring_attention.py), so a long prompt's O(S^2)
+    # attention spreads over sp slots; the sequential engine's bf16
+    # cache then shards its sequence over sp too (parallel/
+    # sp_attention.py).  Dense sequential tiers only: carve_tier_meshes
+    # ignores it, with a warning, on a MoE, batched or speculating tier.
+    sp: int = 1
+    # Expert-parallel degree for MoE tiers: ep>1 makes the group
+    # ('ep','tp') and shards WHOLE experts over it (parallel/sharding.py
+    # splits the stacked expert weights [E, ...] over 'ep').  Attention
+    # and caches stay on 'tp'.  Dense models ignore it.
     ep: int = 1
 
     def model(self) -> ModelConfig:
@@ -422,26 +422,15 @@ class TierConfig:
         return MODEL_PRESETS[self.draft_preset]
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for any unported feature this
-        tier turns on (expert parallelism, and tensor parallelism of a
-        MoE model: ROADMAP A10b), and ``ValueError`` for ``replicas < 1``
-        or ``tp < 1``.  ``tp > 1`` on a dense model is ported."""
+        """``ValueError`` for ``replicas < 1`` or ``tp < 1``.  Every
+        parallel degree (``tp``, ``sp``, ``ep``) is ported; the carve
+        fits each to the devices and the model."""
         if self.replicas < 1:
             raise ValueError(f"tier {self.name}: replicas must be >= 1, "
                              f"got {self.replicas}")
         if self.tp < 1:
             raise ValueError(f"tier {self.name}: tp must be >= 1, got "
                              f"{self.tp}")
-        on = [f"{k}={getattr(self, k)!r}"
-              for k, off in _UNPORTED_DEFAULTS.items()
-              if getattr(self, k) != off]
-        if self.tp > 1 and self.model().num_experts > 1:
-            on.append(f"tp={self.tp!r} on the MoE preset "
-                      f"{self.model_preset}")
-        if on:
-            raise NotImplementedError(
-                f"tier {self.name}: {', '.join(on)} is not ported to the "
-                "PyTorch/CUDA package yet (multi-GPU, ROADMAP.md A10b)")
 
 
 @dataclasses.dataclass(frozen=True)

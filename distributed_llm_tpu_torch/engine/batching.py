@@ -153,7 +153,8 @@ is the tenant-less one.  ``demote_parked`` is the scale-down sweep of
 serving/replicas.py.
 
 With a ``group`` (``parallel/mesh.DeviceGroup``) of ``tp`` > 1 slots the
-engine runs tensor-parallel, as the JAX engine does over a tier mesh:
+engine runs tensor-parallel, as the JAX engine does over a tier mesh
+(a MoE tier's ``ep`` > 1 slots run its experts, ``models/moe``):
 the weights split by Megatron's rules (``parallel/sharding.shard_params``)
 and the pool by kv heads, one pool per shard under the one allocator,
 block tables and prefix cache.  Every step runs each shard's heads on
@@ -362,7 +363,7 @@ class ContinuousBatchingEngine:
         self.tier = tier
         self.device = (group.lead if group is not None
                        else resolve_device(device))
-        self.group = group if group is not None and group.tp > 1 else None
+        self.group = group if group is not None and group.parallel else None
         self.cfg = tier.model()
         bad = [b for b in tier.prefill_buckets if b % tier.kv_block_size]
         if bad:

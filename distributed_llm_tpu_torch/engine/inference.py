@@ -48,10 +48,9 @@ so on the card each covers the device work it launched.  A segment's
 work counts its steps up to the budget, an EOS's masked ones included
 (up to 7): the steps the eager loop ran.
 
-A ``group`` runs the engine tensor-parallel (see ``InferenceEngine``);
-sequence parallelism (JAX's ring prefill over an ``sp`` axis) is not
-ported.  Calls are not thread-safe: callers serialize them (the
-``/query`` server holds one lock per engine).
+A ``group`` runs the engine tensor-, sequence- or expert-parallel (see
+``InferenceEngine``).  Calls are not thread-safe: callers serialize them
+(the ``/query`` server holds one lock per engine).
 """
 
 from __future__ import annotations
@@ -75,7 +74,9 @@ from ..ops import quant
 from ..ops.attention import decode_kv_span
 from ..ops.sampling import sample_batched
 from ..parallel.mesh import DeviceGroup
+from ..parallel.ring_attention import ring
 from ..parallel.sharding import kv_cache_shards, shard_params
+from ..parallel.sp_attention import sp_decode_attn
 from ..utils import roofline
 from ..utils.telemetry import PhaseTimer
 from .programs import SequentialPrograms
@@ -167,12 +168,23 @@ class InferenceEngine(SequentialPrograms):
     ``generate_stream()``.  Runs on the card unless ``device="cpu"`` is
     asked for (the plain PyTorch path); ``params`` replaces the seeded
     random weights (whole: a ``group`` shards them).  ``group``: the
-    tier's device group (``parallel/mesh.DeviceGroup``); with ``tp`` > 1
-    slots the engine runs tensor-parallel over them, JAX's mesh engine:
-    the weights split by ``parallel/sharding.shard_params``, one
-    contiguous cache per head shard, every program running each shard's
-    heads on its own cache (``parallel/tp_attention.tp_layers``).  With
-    one slot it runs on that slot's device; it replaces ``device``."""
+    tier's device group (``parallel/mesh.DeviceGroup``), JAX's mesh
+    engine; it replaces ``device``, and a one-slot group is its device.
+
+    - ``tp`` > 1: the weights split by ``parallel/sharding.shard_params``,
+      one contiguous cache per head shard, every program running each
+      shard's heads on its own cache (``parallel/tp_attention.
+      tp_layers``);
+    - ``sp`` > 1 (a dense model): the prefill ladder extends to max_seq,
+      so a prompt past the tier's largest bucket prefills at once; a
+      bucket ``sp`` divides prefills through ring attention
+      (``parallel/ring_attention``) in place of K2, others through K2;
+      with a bf16 cache the cache's sequence splits over the sp slots
+      and decode merges per-piece partials (``parallel/sp_attention``)
+      where ``sp`` divides the cache length, else runs K9 per head
+      shard; the prefix cache is off (JAX's rule);
+    - ``ep`` > 1 (a MoE model): each ep slot runs its E / ep experts
+      (``models/moe``), the attention runs on the tensor shards."""
 
     def __init__(self, tier: TierConfig, seed: int = 0,
                  params: Optional[Transformer] = None,
@@ -182,7 +194,7 @@ class InferenceEngine(SequentialPrograms):
         self.tier = tier
         self.device = (group.lead if group is not None
                        else resolve_device(device))
-        self.group = group if group is not None and group.tp > 1 else None
+        self.group = group if group is not None and group.parallel else None
         self.cfg = tier.model()
         self.tokenizer = get_tokenizer(self.cfg)
         if self.device.type == "cuda":
@@ -208,10 +220,24 @@ class InferenceEngine(SequentialPrograms):
         self._max_seq = self.cfg.max_seq_len
         self._buckets = sorted(set(
             b for b in tier.prefill_buckets if b <= self._max_seq))
+        # The tier's own ladder: chunk strides and prefix-hit suffixes
+        # keep it when an sp tier extends the prompt ladder.
+        self._suffix_buckets = list(self._buckets)
         # Suffix buckets a prefix hit prefills through (the <=256-token
         # rungs, typical chat turns); a longer new turn chunk-strides.
         self._reuse_buckets = ([b for b in self._buckets if b <= 256][:3]
                                or self._buckets[:1])
+        # Sequence parallelism (dense only): the ladder doubles up to
+        # max_seq, so a long prompt prefills as ONE ring call.
+        self._sp = (self.group.sp if self.group is not None
+                    and self.cfg.num_experts == 1 else 1)
+        if self._sp > 1 and self._buckets and self._buckets[-1] < self._max_seq:
+            ladder = self._buckets[-1]
+            while ladder * 2 <= self._max_seq:
+                ladder *= 2
+                self._buckets.append(ladder)
+            if self._buckets[-1] < self._max_seq:
+                self._buckets.append(self._max_seq)
         # Cache lengths: decode reads the cache up to its position every
         # step, and the cache is sized to the conversation, not max_seq.
         self._cache_lens = sorted(
@@ -232,6 +258,14 @@ class InferenceEngine(SequentialPrograms):
             PrefixCache(capacity=tier.prefix_cache_entries)
             if tier.enable_prefix_cache and tier.prefix_cache_entries > 0
             else None)
+        # Sequence-parallel decode over a bf16 cache split on 'sp'; the
+        # prefix cache's suffix paths would read the pieces whole, so it
+        # is off there (JAX's rule).
+        self._sp_shard = self._sp > 1 and self._kv_quantize == "none"
+        if self._sp_shard and self.prefix_cache is not None:
+            logger.info("tier %s: prefix cache disabled under "
+                        "sequence-parallel decode", tier.name)
+            self.prefix_cache = None
         # The programs' static inputs: a prompt or chunk (``tokens``, its
         # ``start`` and the prompt's ``true_len``), the request's
         # temperature, and the decode loop's state (the current token, its
@@ -258,10 +292,29 @@ class InferenceEngine(SequentialPrograms):
         if cache is None:
             cache = self._caches[cache_len] = (
                 kv_cache_shards(self.cfg, 1, cache_len, self._kv_quantize,
-                                self.group) if self.group is not None
+                                self.group,
+                                sequence=self._sp_decode(cache_len)
+                                is not None)
+                if self.group is not None
                 else transformer.init_kv_cache(
                     self.cfg, 1, cache_len, self._kv_quantize, self.device))
         return cache
+
+    def _sp_decode(self, cache_len: int) -> Optional[Callable]:
+        """The sequence-parallel decode hook of rung ``cache_len`` (its
+        cache split on 'sp'), or None (a whole cache per head shard)."""
+        if not self._sp_shard:
+            return None
+        return sp_decode_attn(self.group, self.cfg, cache_len)
+
+    def _sp_attn(self, bucket: int) -> Optional[Callable]:
+        """The prefill's attention override: ring attention over head
+        shard ``t``'s sp column when ``sp`` divides the bucket, else None
+        (K2 per head shard)."""
+        if self._sp <= 1 or bucket % self._sp:
+            return None
+        group = self.group
+        return lambda q, k, v, t: ring(q, k, v, group.column(t))
 
     def _suffix_window(self, needed: int) -> int:
         """Smallest bucketed attention window covering ``needed`` cache
@@ -304,10 +357,11 @@ class InferenceEngine(SequentialPrograms):
         true_len = self._dev["true_len"]
         positions = torch.arange(bucket, device=self.device)[None]
         cache = self._cache(cache_len)
+        attn = self._sp_attn(bucket)
 
         def body() -> torch.Tensor:
             hidden, (k_all, v_all) = models.serving_prefill(
-                self.cfg, self.model, tokens, positions)
+                self.cfg, self.model, tokens, positions, attn=attn)
             transformer.seed_kv_cache_into(cache, k_all, v_all)
             return self._sample_first(hidden, true_len - 1)
 
@@ -358,13 +412,14 @@ class InferenceEngine(SequentialPrograms):
         cache = self._cache(cache_len)
         d = self._dev
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+        attn = self._sp_decode(cache_len)
 
         def body() -> torch.Tensor:
             cur, pos, done, made = d["cur"], d["pos"], d["done"], d["made"]
             toks = []
             for _ in range(SEGMENT):
                 logits = self._family.decode_step(self.cfg, self.model,
-                                                  cur, pos, cache)
+                                                  cur, pos, cache, attn)
                 nxt = sample_batched(logits, d["temp"], self._gen)
                 nxt = torch.where(done | (made >= d["budget"]), pad, nxt)
                 toks.append(nxt)
@@ -413,7 +468,7 @@ class InferenceEngine(SequentialPrograms):
         bucketed window of everything before it.  Returns the last
         chunk's sample, the first token [1], unread."""
         n = len(ids)
-        cb = self._buckets[-1]
+        cb = self._suffix_buckets[-1]
         first = None
         for start in range(start0, n, cb):
             window = min(self._suffix_window(start + cb), cache_len)
@@ -492,10 +547,11 @@ class InferenceEngine(SequentialPrograms):
         needed = max(n + self.tier.max_new_tokens, bucket)
         if is_long:
             needed = max(needed, span)
+        scb = self._suffix_buckets[-1] if self._suffix_buckets else cb
         if sel is not None:
             _, m, _, sb = sel
             if sb is None:     # a new turn past every bucket: chunked from m
-                needed = max(needed, m + -(-(n - m) // cb) * cb)
+                needed = max(needed, m + -(-(n - m) // scb) * scb)
             else:
                 needed = max(needed, m + sb)
         cache_len = self._pick_cache_len(needed)
@@ -513,9 +569,9 @@ class InferenceEngine(SequentialPrograms):
                     cache_len = parked_len    # a longer parked cache: keep it
                 if sb is None:
                     first = self._long_prefill(ids, cache_len, temp, start0=m)
-                    chunks = -(-(n - m) // cb)
+                    chunks = -(-(n - m) // scb)
                     pwork = roofline.prefill_work(
-                        self.cfg, m + chunks * cb, m,
+                        self.cfg, m + chunks * scb, m,
                         wbytes=chunks * self._wbytes)
                 else:
                     # The suffix attends the whole allocated span.
@@ -528,8 +584,8 @@ class InferenceEngine(SequentialPrograms):
             elif is_long:
                 self._built(("init", cache_len), cache_len).run()
                 first = self._long_prefill(ids, cache_len, temp)
-                chunks = -(-n // cb)
-                pwork = roofline.prefill_work(self.cfg, chunks * cb, 0,
+                chunks = -(-n // scb)
+                pwork = roofline.prefill_work(self.cfg, chunks * scb, 0,
                                               wbytes=chunks * self._wbytes)
             else:
                 first = self._prefill(ids, bucket, cache_len, temp)

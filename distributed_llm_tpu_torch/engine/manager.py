@@ -23,8 +23,8 @@ does not fit.  The process-global metrics count the requests a drain
 completed and each rising edge of the decode watchdog; ``health()``
 carries the batched engine's profiler summary.  A ``group`` (the tier's
 device group from ``parallel/mesh.carve_tier_meshes``) reaches the
-batched and the sequential engine, which run tensor-parallel over it
-when it holds more than one slot; the sequential ``SpeculativeEngine``
+batched and the sequential engine, which run tensor-, sequence- or
+expert-parallel over it when it holds more than one slot; the sequential ``SpeculativeEngine``
 takes no group (JAX's takes no mesh) and runs on the group's first
 device.
 """
@@ -156,9 +156,9 @@ class EngineManager:
                                **self._group_kw())
 
     def _group_kw(self) -> Dict[str, Any]:
-        """The engine's ``group`` argument where it shards (tp > 1); a
-        one-slot group is its device."""
-        if self.group is not None and self.group.tp > 1:
+        """The engine's ``group`` argument where it shards (tp, sp or
+        ep > 1); a one-slot group is its device."""
+        if self.group is not None and self.group.parallel:
             return {"group": self.group}
         return {}
 

@@ -18,10 +18,13 @@ def model_module(cfg: ModelConfig):
     return moe if cfg.num_experts > 1 else transformer
 
 
-def serving_prefill(cfg: ModelConfig, model, tokens, positions):
-    """(hidden, (k_all, v_all)) for either family (the MoE aux dropped)."""
-    out = model_module(cfg).prefill(cfg, model, tokens, positions)
-    return out[0], out[1]
+def serving_prefill(cfg: ModelConfig, model, tokens, positions, attn=None):
+    """(hidden, (k_all, v_all)) for either family (the MoE aux dropped).
+    ``attn`` (dense only, as in JAX): the attention override of
+    ``transformer.prefill``, which serves a MoE model too (its layers
+    pick their FFN)."""
+    return transformer.prefill(cfg, model, tokens, positions,
+                               attn=attn if cfg.num_experts == 1 else None)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):

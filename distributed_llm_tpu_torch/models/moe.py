@@ -1,4 +1,4 @@
-"""Mixture-of-Experts transformer at one device (``ep = 1``).
+"""Mixture-of-Experts transformer, on one device or split over a group.
 
 Counterpart of ``distributed_llm_tpu/models/moe.py``.  The layer
 structure is the dense transformer's (``models/transformer.py``); only
@@ -22,13 +22,31 @@ Because the choice lives in the layer, the dense forward functions
 and the paged pool's steps) serve either family; ``prefill`` here also
 returns the summed aux loss, as the JAX function does.  The expert
 products are plain PyTorch (``ops.quant.expert_einsum``), as they are
-XLA einsums in the JAX package; expert parallelism (``ep > 1``) waits
-for the multi-GPU slice.
+XLA einsums in the JAX package.
+
+Split over a device group (``parallel/sharding.shard_params``) a tensor
+shard's layer holds ``slices``: one ``ExpertSlice`` per ``ep`` slot,
+E / ep whole experts with the shard's F / tp columns, on the slot's
+device.  The top-2 gates, the capacity positions (a cumsum over all E
+experts) and the aux loss are computed once, on the replicated router's
+output, before the split, so the same tokens drop as in the JAX
+package's GSPMD einsums; each slice then computes its experts'
+contribution on its device (under ``launches.on_shard`` of its slot),
+its gate-weighted combine as a float32 partial, and the contributions
+are summed in float32 in slot order and rounded once (``collectives.
+allreduce_sum``).  Unsplit, the combine is the JAX package's einsum in
+the model's dtype, which accumulates in float32 and rounds once too.  A
+row has at most two nonzero terms (top-2 gates in the model's dtype,
+each product exact in float32), so at tp = 1 the split's sum is the
+unsplit one.  The tensor shards' sums are summed again by
+``parallel/tp_attention.tp_layers``, as a row-parallel ``w_down``'s
+partials are.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,9 +58,24 @@ from . import transformer
 from .transformer import Transformer, _param
 
 
+@dataclasses.dataclass
+class ExpertSlice:
+    """One group slot's experts: experts ``first`` to ``first + E / ep``
+    with a tensor shard's F / tp columns, on ``device`` (slot ``slot``)."""
+    first: int
+    slot: int
+    device: torch.device
+    w_gate: Any                 # [E / ep, H, F / tp]
+    w_up: Any                   # [E / ep, H, F / tp]
+    w_down: Any                 # [E / ep, F / tp, H]
+
+
 class MoELayer(nn.Module):
     """One MoE layer's weights: the dense layer's attention and norms,
-    the router [H, E] and E stacked SwiGLU experts."""
+    the router [H, E] and E stacked SwiGLU experts (split over a group:
+    ``slices`` in their place)."""
+
+    slices: Optional[List[ExpertSlice]] = None
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
@@ -69,6 +102,29 @@ class MoELayer(nn.Module):
         if x.dim() == 2:
             return moe_ffn_decode(cfg, self, x), None
         return moe_ffn_train(cfg, self, x)
+
+
+def _over_slices(lp: MoELayer, part, x: torch.Tensor,
+                 *routes: torch.Tensor) -> torch.Tensor:
+    """``part(w, x, acc, *routes)``, the gate-weighted combine in dtype
+    ``acc``, on the whole layer (in ``x``'s dtype), or on each expert
+    slice of ``lp`` as a float32 partial, ``x`` moved onto the slice's
+    device and each route ([T, E, ...]) narrowed to the slice's experts
+    there; the partials summed in float32, in slot order, onto ``x``'s
+    device, and rounded once to its dtype."""
+    if lp.slices is None:
+        return part(lp, x, x.dtype, *routes)
+    from ..ops import launches
+    from ..parallel.collectives import allreduce_sum, rotate
+    parts = []
+    for sl in lp.slices:
+        n = (sl.w_gate.q if quant.is_quantized(sl.w_gate)
+             else sl.w_gate).shape[0]
+        with launches.on_shard(sl.slot):
+            parts.append(part(sl, rotate(x, sl.device), torch.float32, *(
+                rotate(r.narrow(1, sl.first, n), sl.device)
+                for r in routes)))
+    return allreduce_sum(parts, [x.device])[0].to(x.dtype)
 
 
 def _top2_gates(router_logits: torch.Tensor
@@ -112,12 +168,17 @@ def moe_ffn_train(cfg: ModelConfig, lp: MoELayer, x: torch.Tensor
     dispatch = (keep[..., None]
                 & F.one_hot(pos.long(), cap).bool()).to(x.dtype)
     combine = dispatch * gates.to(x.dtype)[..., None]
-    expert_in = torch.einsum("tec,th->ech", dispatch, xt)          # [E, C, H]
-    gate_h = quant.expert_einsum("ech,ehf->ecf", expert_in, lp.w_gate)
-    up_h = quant.expert_einsum("ech,ehf->ecf", expert_in, lp.w_up)
-    act = F.silu(gate_h) * up_h
-    expert_out = quant.expert_einsum("ecf,efh->ech", act, lp.w_down)
-    out = torch.einsum("tec,ech->th", combine, expert_out)
+
+    def part(w, xt, acc, dispatch, combine):
+        expert_in = torch.einsum("tec,th->ech", dispatch, xt)      # [E, C, H]
+        gate_h = quant.expert_einsum("ech,ehf->ecf", expert_in, w.w_gate)
+        up_h = quant.expert_einsum("ech,ehf->ecf", expert_in, w.w_up)
+        act = F.silu(gate_h) * up_h
+        expert_out = quant.expert_einsum("ecf,efh->ech", act, w.w_down)
+        return torch.einsum("tec,ech->th", combine.to(acc),
+                            expert_out.to(acc))
+
+    out = _over_slices(lp, part, xt, dispatch, combine)
     # Switch load balance: E * sum_e fraction_of_tokens_e * mean_prob_e.
     frac = (gates > 0).float().mean(dim=0)
     aux = e * torch.sum(frac * probs.mean(dim=0))
@@ -129,11 +190,16 @@ def moe_ffn_decode(cfg: ModelConfig, lp: MoELayer,
     """Decode-step MoE FFN, x [B, H]: every expert runs on the few rows
     and the top-2 gates combine them, no dispatch."""
     gates, _ = _top2_gates(quant.matmul(x, lp.w_router))           # [B, E]
-    gate_h = quant.expert_einsum("bh,ehf->bef", x, lp.w_gate)
-    up_h = quant.expert_einsum("bh,ehf->bef", x, lp.w_up)
-    act = F.silu(gate_h) * up_h
-    outs = quant.expert_einsum("bef,efh->beh", act, lp.w_down)     # [B, E, H]
-    return torch.einsum("be,beh->bh", gates.to(x.dtype), outs)
+    gates = gates.to(x.dtype)
+
+    def part(w, x, acc, gates):
+        gate_h = quant.expert_einsum("bh,ehf->bef", x, w.w_gate)
+        up_h = quant.expert_einsum("bh,ehf->bef", x, w.w_up)
+        act = F.silu(gate_h) * up_h
+        outs = quant.expert_einsum("bef,efh->beh", act, w.w_down)  # [B, E, H]
+        return torch.einsum("be,beh->bh", gates.to(acc), outs.to(acc))
+
+    return _over_slices(lp, part, x, gates)
 
 
 @torch.no_grad()

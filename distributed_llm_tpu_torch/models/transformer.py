@@ -239,13 +239,17 @@ def forward(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
-            positions: torch.Tensor
+            positions: torch.Tensor, attn: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Process a full (right-padded) prompt.
 
     tokens/positions [B, S] -> (final-normed hidden [B, S, H],
     (k_all, v_all) each [L, B, S, N_kv, D]), the per-layer K/V to page
-    into the pool.  A sharded model's K/V are per-shard lists."""
+    into the pool.  A sharded model's K/V are per-shard lists, and
+    ``attn(q, k, v, shard)`` replaces its causal attention (K2) on head
+    shard ``shard`` (q [B, S, N_q', D], k/v [B, S, N_kv', D] ->
+    [B, S, N_q', D]): the hook sequence-parallel prefill puts ring
+    attention in through (JAX's ``attn``)."""
     if not is_sharded(model):
         hidden, kv, _ = forward(cfg, model, tokens, positions)
         return hidden, kv
@@ -255,8 +259,9 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
     sin, cos = rope_sincos(positions, d, cfg.rope_theta)
     ks: List[List[torch.Tensor]] = [[] for _ in range(model.tp)]
     vs: List[List[torch.Tensor]] = [[] for _ in range(model.tp)]
+    attend = attn or (lambda q, k, v, shard: attention.causal(q, k, v))
 
-    def attn(lp, h_in, i, sh):
+    def hook(lp, h_in, i, sh):
         q = quant.matmul(h_in, lp.wq).reshape(b, s, sh.nq, d)
         k = quant.matmul(h_in, lp.wk).reshape(b, s, sh.nkv, d)
         v = quant.matmul(h_in, lp.wv).reshape(b, s, sh.nkv, d)
@@ -264,9 +269,9 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
         k = apply_rope(k, sh.ins["sin"], sh.ins["cos"])
         ks[sh.index].append(k)
         vs[sh.index].append(v)
-        return attention.causal(q, k, v).reshape(b, s, sh.nq * d)
+        return attend(q, k, v, sh.index).reshape(b, s, sh.nq * d)
 
-    x = run_layers(cfg, model, x, attn, ins={"sin": sin, "cos": cos})
+    x = run_layers(cfg, model, x, hook, ins={"sin": sin, "cos": cos})
     hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
     return hidden, ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
 
@@ -330,42 +335,60 @@ def seed_kv_cache_into(cache: KVCache, k_all: torch.Tensor,
     """``seed_kv_cache`` in place: a prefill's K/V ([L, B, S, N_kv, D])
     written at positions [0, S) of an existing cache and every later
     position reset, so the cache equals ``seed_kv_cache``'s.  A sharded
-    cache takes its prefill's per-shard K/V lists."""
+    cache takes its prefill's per-shard K/V lists; a shard's cache split
+    in sequence pieces (an sp group's) takes each piece's positions."""
     for c, k, v in zip(kv_shards(cache), kv_shards(k_all), kv_shards(v_all)):
-        s = k.shape[2]
-        quant.put_kv_rows(c, None, (slice(None), slice(None), slice(0, s)),
-                          k, v)
-        reset_kv_cache(c, s)
+        pieces = c if isinstance(c, list) else [c]
+        s, start = k.shape[2], 0
+        for piece in pieces:
+            n = min(max(s - start, 0), piece["k"].shape[2])
+            if n:
+                quant.put_kv_rows(
+                    piece, None, (slice(None), slice(None), slice(0, n)),
+                    *(x[:, :, start:start + n].to(piece["k"].device,
+                                                   non_blocking=True)
+                      for x in (k, v)))
+            reset_kv_cache(piece, n)
+            start += piece["k"].shape[2]
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Transformer, token: torch.Tensor,
-                pos: torch.Tensor, cache: KVCache) -> torch.Tensor:
+                pos: torch.Tensor, cache: KVCache,
+                attn: Optional[Callable] = None) -> torch.Tensor:
     """One decode step for every sequence: token [B], pos [B] int32 (its
     position), the cache written in place at ``pos`` (clamped into the
     cache, as the JAX package's dynamic update) BEFORE attending.
-    Returns logits [B, V] float32."""
+    Returns logits [B, V] float32.  ``attn(q, k, v, kv, i, pos)``
+    replaces the write and the attention (K9/K10) of layer ``i`` on a
+    head shard's cache ``kv``: the sequence-parallel hook
+    (``parallel/sp_attention.sp_decode_attn``), over a cache split in
+    pieces."""
     b = token.shape[0]
     d = cfg.head_dim
     x = quant.embed_rows(model.embed, token)                       # [B, H]
     sin, cos = rope_sincos(pos, d, cfg.rope_theta)
-    rows = (torch.arange(b, device=token.device),
-            pos.long().clamp(0, kv_shards(cache)[0]["k"].shape[2] - 1))
+    ins = {"sin": sin, "cos": cos, "pos": pos}
+    if attn is None:
+        ins["b"] = torch.arange(b, device=token.device)
+        ins["row"] = pos.long().clamp(0, kv_shards(cache)[0]["k"].shape[2]
+                                      - 1)
 
-    def attn(lp, h_in, i, sh):
+    def hook(lp, h_in, i, sh):
         c, ins = sh.kv, sh.ins
         q = quant.matmul(h_in, lp.wq).reshape(b, sh.nq, d)
         k = quant.matmul(h_in, lp.wk).reshape(b, sh.nkv, d)
         v = quant.matmul(h_in, lp.wv).reshape(b, sh.nkv, d)
         q = apply_rope(q, ins["sin"], ins["cos"])
         k = apply_rope(k, ins["sin"], ins["cos"])
+        if attn is not None:
+            return attn(q, k, v, c, i, ins["pos"]).reshape(b, sh.nq * d)
         quant.put_kv_rows(c, i, (ins["b"], ins["row"]), k, v)
         out = attention.decode(q, c["k"][i], c["v"][i], ins["pos"],
                                *layer_scales(c, i))
         return out.reshape(b, sh.nq * d)
 
-    x = run_layers(cfg, model, x, attn, cache, {
-        "sin": sin, "cos": cos, "b": rows[0], "row": rows[1], "pos": pos})
+    x = run_layers(cfg, model, x, hook, cache, ins)
     hidden = rms_norm(x, model.final_ln, cfg.norm_eps)
     return logits_from_hidden(model, hidden)
 

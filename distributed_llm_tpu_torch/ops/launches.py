@@ -13,16 +13,21 @@ bf16 chunk kernel's launches by route (``route_counts``, ``add_routes``).
 A tensor-parallel step runs each head shard's work inside
 ``on_shard(s)``, which also tallies the launches made there under shard
 ``s`` (``shard_counts``; a program's replays add them again,
-``add_shards``), so a group's launches read per shard.
+``add_shards``), so a group's launches read per shard.  ``s`` is the
+slot's index in its group; an ``on_shard`` inside another (a MoE
+expert slice's slot inside its tensor shard's FFN) tallies what it
+launched under its own index only.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 # Launches made inside ``on_shard``, by shard index and kernel name.
 _SHARD_LAUNCHES: Dict[int, Dict[str, int]] = {}
+# Per open ``on_shard``, innermost last: what the ones inside it tallied.
+_OPEN: List[Dict[str, int]] = []
 
 
 def wrappers() -> Dict[str, Callable]:
@@ -106,14 +111,21 @@ def add_routes(deltas: Dict[str, int], times: int = 1) -> None:
 
 @contextlib.contextmanager
 def on_shard(index: int):
-    """Tally the launches made inside under shard ``index``."""
+    """Tally the launches made inside under shard ``index``, less what
+    an ``on_shard`` nested in it tallied."""
     before = counts()
+    _OPEN.append({})
     try:
         yield
     finally:
+        inner = _OPEN.pop()
+        made = since(before)
         tally = _SHARD_LAUNCHES.setdefault(index, {})
-        for name, n in since(before).items():
-            tally[name] = tally.get(name, 0) + n
+        for name, n in made.items():
+            if n - inner.get(name, 0):
+                tally[name] = tally.get(name, 0) + n - inner.get(name, 0)
+            if _OPEN:
+                _OPEN[-1][name] = _OPEN[-1].get(name, 0) + n
 
 
 def shard_counts() -> Dict[int, Dict[str, int]]:

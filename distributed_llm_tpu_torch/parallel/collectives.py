@@ -17,8 +17,18 @@ slots:
   device.  On a group whose slots share one device it is a chain of
   adds on that device and every shard reads the same tensor; across distinct CUDA devices each partial is a peer copy
   to the first shard's device, the sum is made there and copied back to
-  each device.  The distinct-device path has not run on cards: the
-  machine the port is checked on has one.
+  each device;
+- ``merge_partials``: the exact log-sum-exp merge of sequence-parallel
+  attention partials (JAX's one ``pmax`` and two ``psum`` over 'sp',
+  ``sp_attention.py``), in float32;
+- ``rotate``: the ring's step, a block handed to the next slot's
+  device (JAX's ``ppermute``): on a shared device the same tensor,
+  across devices a peer copy issued on the current stream, so it is
+  recorded in a CUDA graph like any other copy.
+
+The distinct-device paths (peer copies in ``allreduce_sum``, ``rotate``
+and ``merge_partials``) have not run on cards: the machine the port is
+checked on has one.
 """
 
 from __future__ import annotations
@@ -90,3 +100,31 @@ def allreduce_sum(parts: Sequence[torch.Tensor],
     total = total.to(parts[0].dtype)
     return [total if d == total.device else total.to(d, non_blocking=True)
             for d in devices]
+
+
+def merge_partials(ms: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
+                   os: Sequence[torch.Tensor], device: torch.device
+                   ) -> torch.Tensor:
+    """The exact merge of per-shard attention partials, each on its
+    shard's device: running max ``m`` [..., N], normalizer ``l`` [..., N]
+    and unnormalized values ``o`` [..., N, D], all float32.  One max and
+    two sums in shard order onto ``device``; returns ``o / l`` (``l``
+    clamped at 1e-30) in float32."""
+    ms = [rotate(m, device) for m in ms]
+    m = ms[0]
+    for m_i in ms[1:]:
+        m = torch.maximum(m, m_i)
+    l = o = None
+    for m_i, l_i, o_i in zip(ms, ls, os):
+        c = torch.exp(m_i - m)
+        lc = rotate(l_i, device) * c
+        oc = rotate(o_i, device) * c[..., None]
+        l = lc if l is None else l + lc
+        o = oc if o is None else o + oc
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def rotate(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself where it lies there, else a peer copy
+    on the current stream (capture-safe: no host sync)."""
+    return t if t.device == device else t.to(device, non_blocking=True)

@@ -11,17 +11,26 @@ that device, the port's counterpart of JAX's host-platform device count
 (the CPU tests pass ``["cpu"] * 8``; on a one-card machine the card
 repeated stands in for a group of cards).
 
+A group is 1-D ``("tp",)``, or 2-D: ``("batch", "tp")`` for a
+replicated tier's rows, ``("sp", "tp")`` for sequence parallelism (ring
+prefill, the sequence-sharded cache) and ``("ep", "tp")`` for expert
+parallelism; slot ``r * tp + t`` is row ``r``'s tensor shard ``t``.
+
 ``carve_tier_meshes`` follows JAX's rules: tiers claim disjoint slices
 in declaration order, a tier's ``tp`` shrinks to the largest divisor of
-its head counts that fits what is left, and with nothing left a tier
-shares the front of the list.  A remote (``endpoint``) tier claims
-nothing.  Sequence and expert parallelism (``sp``, ``ep``) are not
-ported yet: their fits return 1, and the training meshes wait with them.
+its head counts that fits what is left, its ``ep`` to the largest
+divisor of the expert count that fits beside it, its ``sp`` to the
+largest power of two that fits (ignored, with JAX's warning, on a MoE,
+batched or speculating tier), and with nothing left a tier shares the
+front of the list.  A remote (``endpoint``) tier claims nothing.  The
+training meshes (``training_mesh``, ``moe_training_mesh``) are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -30,6 +39,8 @@ from ..config import ClusterConfig, TierConfig
 from ..device import DeviceLike, resolve_device
 
 DevicesLike = Sequence[Union[str, torch.device]]
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,24 @@ class DeviceGroup:
     @property
     def tp(self) -> int:
         return self.shape.get("tp", 1)
+
+    @property
+    def sp(self) -> int:
+        return self.shape.get("sp", 1)
+
+    @property
+    def ep(self) -> int:
+        return self.shape.get("ep", 1)
+
+    @property
+    def parallel(self) -> bool:
+        """Whether an engine shards over this group (tp, sp or ep > 1)."""
+        return max(self.tp, self.sp, self.ep) > 1
+
+    def column(self, t: int) -> Tuple[torch.device, ...]:
+        """The devices of tensor shard ``t`` along the group's first
+        axis (the sp ring or the ep slots of shard ``t``)."""
+        return self.devices[t::self.tp]
 
     @property
     def lead(self) -> torch.device:
@@ -113,6 +142,39 @@ def replica_mesh(devices: DevicesLike, replicas: int, tp: int = 1
     return DeviceGroup(tuple(devices), ("batch", "tp"), (replicas, tp))
 
 
+def sp_tp_mesh(devices: DevicesLike, sp: int, tp: int) -> DeviceGroup:
+    """A 2-D ('sp', 'tp') group over the first sp x tp devices: ring
+    prefill over 'sp' x tensor-parallel weights over 'tp'."""
+    devices = list(devices)
+    if len(devices) < sp * tp:
+        raise ValueError(f"sp_tp_mesh: need {sp * tp} devices for "
+                         f"sp={sp} x tp={tp}, have {len(devices)}")
+    return DeviceGroup(tuple(devices[:sp * tp]), ("sp", "tp"), (sp, tp))
+
+
+def ep_tp_mesh(devices: DevicesLike, ep: int, tp: int = 1) -> DeviceGroup:
+    """A 2-D ('ep', 'tp') group over the first ep x tp devices: whole
+    experts over 'ep', attention heads, KV and expert columns over
+    'tp'."""
+    devices = list(devices)
+    if len(devices) < ep * tp:
+        raise ValueError(f"ep_tp_mesh: need {ep * tp} devices for "
+                         f"ep={ep} x tp={tp}, have {len(devices)}")
+    return DeviceGroup(tuple(devices[:ep * tp]), ("ep", "tp"), (ep, tp))
+
+
+def _tier_group(devices: list, tp: int, ep: int, sp: int,
+                rep: int = 1) -> DeviceGroup:
+    """The group JAX's carve builds from the front of ``devices``."""
+    if ep > 1:
+        return ep_tp_mesh(devices, ep, tp)
+    if sp > 1:
+        return sp_tp_mesh(devices, sp, tp)
+    if rep > 1:
+        return replica_mesh(devices, rep, tp)
+    return tp_mesh(devices, tp)
+
+
 def carve_tier_meshes(cluster: ClusterConfig,
                       devices: Optional[DevicesLike] = None,
                       device: DeviceLike = None) -> Dict[str, DeviceGroup]:
@@ -132,15 +194,17 @@ def carve_tier_meshes(cluster: ClusterConfig,
         if tp == 0:
             # Nothing left: share devices from the front.
             tp = max(_fit_tp(tier, len(devices)), 1)
+            ep = _fit_ep(tier, len(devices), tp)
+            sp = _fit_sp(tier, len(devices), tp)
+            group = _tier_group(devices, tp, ep, sp)
             meshes[tier.name] = dataclasses.replace(
-                tp_mesh(devices, tp), slots=tuple(range(tp)))
+                group, slots=tuple(range(group.size)))
             continue
         ep = _fit_ep(tier, remaining, tp)
         sp = _fit_sp(tier, remaining, tp) if ep == 1 else 1
         rep = (_fit_replicas(tier, remaining, tp)
                if ep == 1 and sp == 1 else 1)
-        group = (replica_mesh(devices[cursor:], rep, tp) if rep > 1
-                 else tp_mesh(devices[cursor:], tp))
+        group = _tier_group(devices[cursor:], tp, ep, sp, rep)
         meshes[tier.name] = dataclasses.replace(
             group, slots=tuple(range(cursor, cursor + group.size)))
         cursor += tp * max(sp, ep, rep)
@@ -160,15 +224,37 @@ def _fit_replicas(tier: TierConfig, available: int, tp: int) -> int:
 
 
 def _fit_ep(tier: TierConfig, available: int, tp: int) -> int:
-    """Expert parallelism is not ported (``check_ported`` refuses
-    ``ep != 1``): always 1."""
-    return 1
+    """Largest expert-parallel degree <= requested that divides the
+    model's expert count and fits the devices beside tp; 1 for a dense
+    tier (nothing to shard on 'ep')."""
+    experts = tier.model().num_experts
+    if tier.ep <= 1 or experts <= 1:
+        return 1
+    ep = min(tier.ep, max(available // tp, 1), experts)
+    while ep > 1 and experts % ep:
+        ep -= 1
+    return max(ep, 1)
 
 
 def _fit_sp(tier: TierConfig, available: int, tp: int) -> int:
-    """Sequence parallelism is not ported: always 1, reserving no extra
-    devices."""
-    return 1
+    """Largest power-of-two sequence-parallel degree <= requested that
+    fits the devices beside tp (a power of two divides the power-of-two
+    prefill buckets).  1, reserving no extra devices, for a tier whose
+    engine cannot use it: only the dense sequential engine runs ring
+    prefill (JAX's warning)."""
+    if tier.sp > 1 and (tier.model().num_experts > 1
+                        or tier.decode_batch > 1 or tier.draft_preset):
+        logger.warning(
+            "tier %s: sp=%d ignored — sequence-parallel prefill needs the "
+            "dense sequential engine (MoE=%s decode_batch=%d draft=%s); "
+            "not reserving extra chips",
+            tier.name, tier.sp, tier.model().num_experts > 1,
+            tier.decode_batch, tier.draft_preset)
+        return 1
+    sp = 1
+    while sp * 2 <= tier.sp and sp * 2 * tp <= available:
+        sp *= 2
+    return sp
 
 
 def requested_tp(tier: TierConfig) -> int:

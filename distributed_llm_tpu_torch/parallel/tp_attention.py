@@ -18,11 +18,16 @@ rows is a partial, the partials are summed (``allreduce_sum``), then
 the same for the FFN, so the concat of heads happens inside the
 row-parallel product exactly as in JAX's Megatron layout.
 
-The gate is JAX's ``_tp_ragged_ok``: a tp-only group (no sp, no ep) of
-tp > 1 over a dense model whose q and kv head counts both divide by tp.
-JAX's ``_tp_policy`` adds a dispatch-table verdict per hook, which has
-no counterpart here (each CUDA tensor takes its kernel, no env knobs),
-so the gate is the whole policy: every step of a sharded model runs per
+The gate of the batched engine's ragged tick is ``_tp_ragged_ok``: a
+group without sp whose q and kv head counts both divide by tp.  JAX's
+gate also requires tp > 1, no ep and a dense model, because there a
+pallas_call inside a GSPMD program has no sharding rule, so a MoE or ep
+mesh keeps the dense windowed tick; the port runs every shard's kernel
+itself, so its MoE tiers at ep or tp > 1 keep the ragged tick they run
+unsharded (the tokens are the same: both ticks attend exactly).  JAX's
+``_tp_policy`` adds a dispatch-table verdict per hook, which has no
+counterpart here (each CUDA tensor takes its kernel, no env knobs), so
+the gate is the whole policy: every step of a sharded model runs per
 shard.
 """
 
@@ -38,14 +43,11 @@ from .mesh import DeviceGroup
 
 
 def _tp_ragged_ok(group: Optional[DeviceGroup], cfg: ModelConfig) -> bool:
-    """The gate of the sharded ticks: a tp-only group, tp > 1, a dense
-    model, both head counts divisible by tp."""
-    if group is None or cfg.num_experts > 1:
+    """The gate of the sharded ragged tick: a group without sp whose q
+    and kv head counts both divide by its tp."""
+    if group is None or group.sp > 1:
         return False
-    shape = group.shape
-    tp = shape.get("tp", 1)
-    if tp <= 1 or shape.get("sp", 1) > 1 or shape.get("ep", 1) > 1:
-        return False
+    tp = group.tp
     return not (cfg.num_kv_heads % tp or cfg.num_heads % tp)
 
 

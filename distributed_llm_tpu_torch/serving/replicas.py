@@ -9,7 +9,8 @@ profiler: the whole single-engine machinery), and one
 The tier's device group (``parallel/mesh.carve_tier_meshes``: a
 ('batch', 'tp') group of ``replicas x tp`` slots where the devices
 suffice) gives each replica one ``tp``-wide row (``_split_devices``); a
-row of more than one slot runs its replica tensor-parallel.  On one card
+row of more than one slot runs its replica tensor-parallel; a tier's
+``ep`` and ``sp`` are ignored here, with JAX's warning.  On one card
 every replica shares the device: the replicas' ticks interleave on it,
 so a second replica buys the overlap of one replica's host work with the
 other's device work, not a second card's throughput.
@@ -452,6 +453,14 @@ class ReplicatedTierClient:
             raise ValueError(f"tier {tier.name}: replicas must be >= 1, "
                              f"got {tier.replicas}")
         tier.check_ported()
+        if tier.ep > 1 or tier.sp > 1:
+            # Replica groups are tp-only: say so rather than look as if
+            # expert or sequence parallelism were in effect (JAX's rule).
+            logger.warning(
+                "tier %s: ep=%d sp=%d IGNORED — replicated tiers build "
+                "tp-only submeshes per replica (replicas=%d wins); set "
+                "replicas=1 to keep expert/sequence parallelism",
+                tier.name, tier.ep, tier.sp, tier.replicas)
         if policy is not None and policy not in _POLICIES:
             raise ValueError(f"replica policy {policy!r} is not one of "
                              f"{_POLICIES}")

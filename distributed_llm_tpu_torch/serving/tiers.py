@@ -660,8 +660,9 @@ def build_tiers(cluster: ClusterConfig, device: DeviceLike = None,
     engine, no devices claimed), a ``ReplicatedTierClient`` for
     ``replicas > 1`` or an autoscale-armed tier (elastic membership needs
     the replica layer even at one replica), else a ``TierClient`` over
-    its own EngineManager, tensor-parallel where its group holds more
-    than one slot.  ``fault_injector`` reaches every client."""
+    its own EngineManager, tensor-, sequence- or expert-parallel on its
+    2-D group where that holds more than one slot.  ``fault_injector``
+    reaches every client."""
     meshes = carve_tier_meshes(cluster, devices=devices, device=device)
     tiers: Dict[str, TierClient] = {}
     for tier in cluster.tiers():

@@ -193,7 +193,15 @@ def test_decode_error_fails_slot_but_scheduler_survives():
 
 
 def test_engine_refuses_unported_features():
-    with pytest.raises(NotImplementedError):
-        _port_engine(ep=2)
+    """ep=2 on a dense tier is served and ignored, as JAX's carve ignores
+    it (nothing to shard on 'ep'); decode_batch=1 is still the
+    sequential engine's, not this one's."""
+    engine = _port_engine(ep=2)
+    try:
+        assert engine.group is None
+        assert engine.generate("ep on a dense tier", max_new_tokens=3
+                               ).gen_tokens <= 3
+    finally:
+        engine.stop()
     with pytest.raises(NotImplementedError):
         _port_engine(decode_batch=1)

@@ -150,11 +150,18 @@ def test_manager_refuses_a_tier_over_its_budget(monkeypatch):
 
 
 def test_budget_refuses_unported_sharding():
-    """Expert parallelism is refused; orin_8b at tp=4 is budgeted per
-    shard, key for key as the JAX budget on its 4-device mesh."""
-    with pytest.raises(NotImplementedError):
-        tier_hbm_budget(torch_config.TierConfig(name="t",
-                                                model_preset="orin_8b", ep=2))
+    """Expert parallelism is budgeted (no longer refused): ep=2 on the
+    dense orin_8b is ignored and moe_8x1b at ep=2 splits its experts,
+    key for key as the JAX budget on 8 devices; orin_8b at tp=4 is
+    budgeted per shard, key for key as the JAX budget on its 4-device
+    mesh."""
+    for preset in ("orin_8b", "moe_8x1b"):
+        got = tier_hbm_budget(torch_config.TierConfig(
+            name="t", model_preset=preset, ep=2), devices=["cpu"] * 8)
+        want = jax_budget(jax_config.TierConfig(
+            name="t", model_preset=preset, ep=2), hbm_per_chip_gb=16.0)
+        assert {k: got[k] for k in JAX_KEYS} == want
+        assert got["chips"] == (2 if preset == "moe_8x1b" else 1)
     for quantize in ("none", "int8"):
         got = tier_hbm_budget(torch_config.TierConfig(
             name="t", model_preset="orin_8b", tp=4, quantize=quantize,

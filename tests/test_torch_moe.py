@@ -317,10 +317,28 @@ def test_check_ported_accepts_moe_at_ep_1(preset):
 @pytest.mark.parametrize("field,value", [("ep", 2), ("ep", 4), ("tp", 2),
                                          ("tp", 4)])
 def test_check_ported_refuses_multi_gpu(field, value):
-    tier = torch_config.TierConfig(name="m", model_preset="moe_8x1b",
-                                   **{field: value})
-    with pytest.raises(NotImplementedError, match="A10"):
-        tier.check_ported()
+    """moe_8x1b at ep or tp > 1 is accepted (it was refused until expert
+    parallelism was ported): the carve over 8 slots gives it JAX's group,
+    and its budget on that group is JAX's, key for key."""
+    from distributed_llm_tpu.parallel.mesh import carve_tier_meshes as jcarve
+    from distributed_llm_tpu_torch.parallel.mesh import carve_tier_meshes
+
+    def cluster(pkg):
+        return pkg.ClusterConfig(
+            nano=pkg.TierConfig(name="nano", model_preset="nano_test"),
+            orin=pkg.TierConfig(name="orin", model_preset="moe_8x1b",
+                                **{field: value}))
+
+    tier = cluster(torch_config).orin
+    tier.check_ported()
+    group = carve_tier_meshes(cluster(torch_config), devices=["cpu"] * 8)["orin"]
+    mesh = jcarve(cluster(jax_config), devices=jax.devices())["orin"]
+    assert group.shape == dict(mesh.shape)
+    assert list(group.slots) == [d.id for d in mesh.devices.flat]
+    assert getattr(group, field) == value
+    got = tier_hbm_budget(tier, mesh=group)
+    want = jax_budget(cluster(jax_config).orin, mesh=mesh)
+    assert {k: got[k] for k in want} == want
 
 
 @pytest.mark.parametrize("kw", [dict(decode_batch=8),

@@ -11,8 +11,9 @@
 - the collectives: ``allgather_health`` (round trip, row-count error),
   ``psum_scalar``, ``summarize_perf_window`` as JAX's, and
   ``allreduce_sum`` in shard order;
-- ``check_ported``: dense ``tp > 1`` accepted, ``ep != 1`` and MoE at
-  ``tp > 1`` refused.
+- ``check_ported``: dense ``tp > 1``, ``ep != 1`` and MoE at ``tp > 1``
+  accepted (the port's ragged gate holds where JAX's keeps the dense
+  windowed tick).
 """
 
 from __future__ import annotations
@@ -151,10 +152,15 @@ def test_shard_params_follows_param_specs(quantize, tp):
 
 
 def test_indivisible_heads_and_moe_refused():
+    """Indivisible heads are refused; MoE at tp=2 is split (no longer
+    refused) and only an ep that does not divide the experts is."""
     with pytest.raises(ValueError):
         check_tp(torch_config.MODEL_PRESETS["nano_test"], 4)  # 2 kv heads
-    with pytest.raises(NotImplementedError, match="A10b"):
-        check_tp(torch_config.MODEL_PRESETS["moe_test"], 2)
+    moe = torch_config.MODEL_PRESETS["moe_test"]                # 4 experts
+    check_tp(moe, 2)
+    check_tp(moe, 2, ep=2)
+    with pytest.raises(ValueError, match="ep=3"):
+        check_tp(moe, 1, ep=3)
 
 
 # -- collectives -------------------------------------------------------------
@@ -203,10 +209,25 @@ def test_allreduce_sum_in_shard_order():
     ("ep", 2, "moe_8x1b", False), ("ep", 2, "orin_8b", False),
     ("tp", 2, "moe_test", False), ("tp", 4, "moe_8x1b", False)])
 def test_check_ported_tp_dense_only(field, value, preset, ok):
+    """Every degree is accepted.  ``ok`` is JAX's ragged-tick gate on the
+    group the carve deploys (a tp-only mesh over a dense model); the
+    port's gate holds on all of them: its MoE and ep tiers keep the
+    ragged tick (no GSPMD rule stands in its way)."""
+    from distributed_llm_tpu.parallel.tp_attention import (
+        _tp_ragged_ok as jax_gate)
+    from distributed_llm_tpu_torch.parallel.tp_attention import _tp_ragged_ok
+
     tier = torch_config.TierConfig(name="t", model_preset=preset,
                                    **{field: value})
-    if ok:
-        tier.check_ported()
-    else:
-        with pytest.raises(NotImplementedError, match="A10b"):
-            tier.check_ported()
+    tier.check_ported()
+    jtier = jax_config.TierConfig(name="t", model_preset=preset,
+                                  **{field: value})
+    group = carve_tier_meshes(torch_config.ClusterConfig(
+        nano=tier, orin=dataclasses.replace(tier, name="o")),
+        devices=CPU8)["t"]
+    mesh = jax_carve(jax_config.ClusterConfig(
+        nano=jtier, orin=dataclasses.replace(jtier, name="o")),
+        devices=jax.devices())["t"]
+    assert group.shape == dict(mesh.shape)
+    assert jax_gate(mesh, jtier.model()) is ok
+    assert _tp_ragged_ok(group, tier.model())

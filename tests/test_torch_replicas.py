@@ -83,7 +83,7 @@ def test_build_tiers_replicas_match_jax():
             assert isinstance(tt["nano"], TT.TierClient)
 
 
-def test_replicas_must_be_positive():
+def test_replicas_must_be_positive(caplog):
     tier = dataclasses.replace(torch_config.tiny_batched_cluster().nano,
                                replicas=0)
     with pytest.raises(ValueError):
@@ -96,8 +96,16 @@ def test_replicas_must_be_positive():
             dataclasses.replace(jax_config.tiny_batched_cluster().nano,
                                 replicas=0),
             jax_config.tiny_batched_cluster())
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tier, replicas=2, ep=2).check_ported()
+    # ep/sp on a replicated tier: accepted, warned about and ignored
+    # (JAX's rule: replica groups are tp-only).
+    wide = dataclasses.replace(tier, replicas=2, ep=2, sp=2)
+    wide.check_ported()
+    with caplog.at_level("WARNING"):
+        client = TR.ReplicatedTierClient(
+            wide, torch_config.tiny_batched_cluster(), device="cpu",
+            warmup_on_start=False)
+    assert "IGNORED" in caplog.text
+    assert all(r.server_manager.group is None for r in client.clients)
 
 
 @pytest.mark.parametrize("n_dev,n,tp", [(1, 2, 1), (1, 3, 1), (2, 2, 1),
