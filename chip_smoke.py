@@ -266,8 +266,8 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    and seq 256 from seed 0: finite losses, ms a step and tokens/s; the
    saved root served through ``checkpoint_path`` behind /query (the
    engine holds the saved weights; K1 and K2 launch) and scored by
-   ``evaluate.eval_checkpoint``; (c) nano_test for 300 steps and (d)
-   moe_test for 100 (batch 16, seq 128): the last 25-step window's mean
+   ``evaluate.eval_checkpoint``; (c) nano_test for 100 steps and (d)
+   moe_test for 50 (batch 16, seq 128): the last 25-step window's mean
    loss below the first's, and moe_test's load-balance loss above 0.  K2
    launches in every training run; the plain causal attention runs only
    as K2's backward;
@@ -313,11 +313,29 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    both shards).  Each part prints its capture seconds and graph pools,
    peak memory and launches by slot; (a) and (c) first run the
    multichip section's capacity check for sp and ep (``sp_ep_budget``:
-   the one-device tier refused by the manager, the group's fitting).
+   the one-device tier refused by the manager, the group's fitting);
+23. training over groups of the card repeated (``train_mesh``; the
+   costs of sharding on one card, not a speedup), each part from the
+   same weights and batches as the unsharded trainer in the same call:
+   (a) nano_1b at full width over ``training_mesh`` of 4 slots (tp=4),
+   (b) over ('dp', 'sp', 'tp') = (2, 2, 2) (FSDP, the ring and TP in
+   one step), (c) ``PipelineTrainer`` at pp=2 with 4 microbatches, (d)
+   moe_8x1b's widths cut to 4 of its 16 layers (a depth cut: full depth
+   with its AdamW state is about 53 GB before activations) over
+   ``moe_training_mesh`` of 8 slots (ep=8), each for three steps: the
+   first step's loss, pre-clip grad norm and weights within twice the
+   unsharded bf16 run's distance to a float32 run of the same weights
+   (above a floor of one bf16 rounding of the float32 value), every loss
+   finite, K2 on every dp/tp slot and pp stage (``launches.on_shard``),
+   the ring's calls in (b), every ep slot's experts in (d); ms a step
+   beside the unsharded trainer's, tokens/s, peak GB and launches by
+   slot; (e) (b)'s checkpoint restored onto one device and onto (a)'s
+   group, the leaves equal bit for bit, one more step finite on each.
 
 Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20,
-phases 11 and 17 again for 21, and 15 again for 22 (every path kept): the bench's sweep
-serves the first BENCH_QUERIES queries a strategy with
+phases 11 and 17 again for 21, 15 again for 22, and 20 for 23 (every
+path kept): phase 20 trains its tiny presets TRAIN_TINY_STEPS steps,
+the bench's sweep serves the first BENCH_QUERIES queries a strategy with
 BENCH_TREND_REPEATS trend repeats and runs its tiny tenant and
 autoscaler legs at BENCH_LEG_DEPTH, the legs' open-loop budget is
 LEG_OPENLOOP_S, phase 17's load and ramps are FLEET2_NOISY_LOAD_S,
@@ -328,7 +346,8 @@ trains EDGES_ENCODER_STEPS steps.
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
 ``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``, ``moe``,
-``train``, ``tp``, ``sp_ep``) builds the kernels and runs only those phases,
+``train``, ``tp``, ``sp_ep``, ``train_mesh``) builds the kernels and runs
+only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
 run.
@@ -378,7 +397,8 @@ p50 TTFT, trace columns, profile section, utilization and wall time as
 another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
 as two more, the fleet's, the fleet's second half's and the edges' as three more,
-MoE's, training's and tensor parallelism's as three more (each with the
+MoE's, training's, tensor parallelism's, sequence and expert
+parallelism's and the training groups' as five more (each with the
 card's name and power limit), every phase's wall seconds as one more, the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -5872,7 +5892,9 @@ def moe_summary(parts: dict) -> dict:
 TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
 TRAIN_1B_STEPS = 10
 TRAIN_1B_BATCH, TRAIN_1B_SEQ = 8, 256
-TRAIN_TINY_STEPS = {"nano_test": 300, "moe_test": 100}
+# 300 and 100 steps until cut for phase 23: both still learn (the last
+# 25-step window below the first).
+TRAIN_TINY_STEPS = {"nano_test": 100, "moe_test": 50}
 TRAIN_TINY_BATCH, TRAIN_TINY_SEQ, TRAIN_WINDOW = 16, 128, 25
 
 
@@ -5941,8 +5963,9 @@ def train_phase(torch, nano, orin, *, device: str = "cuda"):
     at batch 8, seq 256, from seed 0): finite losses, ms a step and
     tokens/s; the saved root served through ``checkpoint_path`` behind
     /query (the engine's weights are the saved ones; K1 and K2 launch)
-    and scored by ``evaluate.eval_checkpoint``; (c) nano_test for 300
-    steps and (d) moe_test for 100: the last window's mean loss below the
+    and scored by ``evaluate.eval_checkpoint``; (c) nano_test for
+    TRAIN_TINY_STEPS steps and (d) moe_test: the last window's mean loss
+    below the
     first's, and moe_test's load-balance loss above 0.  Training runs are
     counted (K2 forward and its remat recompute; the plain causal
     attention is its backward).  Returns (numbers, launches)."""
@@ -6929,6 +6952,342 @@ def sp_ep_summary(parts: dict) -> dict:
     return out
 
 
+# -- phase 23: training over groups of the card repeated ---------------------------
+
+TRAIN_MESH_DIR = os.path.join(REPO, "build", "chip_smoke_train_mesh")
+TRAIN_MESH_DENSE = "nano_1b"
+TRAIN_MESH_MOE = "moe_8x1b"
+# moe_8x1b cut to 4 of its 16 layers: full depth with its AdamW state is
+# about 53 GB before activations, and the phase holds three trainers.
+TRAIN_MESH_MOE_LAYERS = 4
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 8, 256
+TRAIN_MESH_MOE_BATCH, TRAIN_MESH_MOE_SEQ = 4, 128
+TRAIN_MESH_MICRO = 4
+TRAIN_MESH_STEPS = 3             # the first held to float32, all finite
+# The floor of the float32 rule, relative to the float32 value's scale
+# (one bf16 rounding).
+TRAIN_MESH_FLOOR = 2.0 ** -8
+
+
+def train_mesh_tc(batch: int, seq: int):
+    """A warmup of 0, so the first update moves the weights."""
+    from distributed_llm_tpu_torch.training.trainer import TrainConfig
+    return TrainConfig(batch_size=batch, seq_len=seq, warmup_steps=0,
+                       decay_steps=10, seed=0)
+
+
+def state_of(trainer) -> dict:
+    """A copy of a trainer's weights, whole, on its lead device (on one
+    device ``model`` is the live module, which later steps update)."""
+    if hasattr(trainer, "export_params"):
+        return trainer.export_params().state_dict()
+    if trainer.placement.model is not None:
+        return {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    return trainer.model.state_dict()
+
+
+def state_dist(torch, a: dict, b: dict) -> float:
+    """The float32 L2 distance between two states."""
+    return math.sqrt(sum(float(torch.sum((a[k].float() - b[k].float()) ** 2))
+                         for k in b))
+
+
+def against_f32(got: float, bf16: float, scale: float, what: str) -> dict:
+    """Phase 21's rule: a sharded run's distance to the unsharded float32
+    run at most twice the unsharded bf16 run's own, above
+    TRAIN_MESH_FLOOR of the float32 value's scale."""
+    res = {"vs_float32": got, "unsharded_vs_float32": bf16,
+           "tol": 2 * bf16 + TRAIN_MESH_FLOOR * scale}
+    require(got <= res["tol"], f"{what} disagrees with float32: {res}")
+    return res
+
+
+def train_mesh_refs(torch, cfg, weights, stream, tc, device: str) -> dict:
+    """The unsharded runs on ``weights``, uncounted: the trainer in bf16
+    (K2) over every batch of ``stream`` (its ms a step past the first
+    beside the sharded parts'), and a float32 copy with the plain causal
+    attention in float32 for the first (the reference); their first
+    metrics and weights after the first step."""
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.ops import attention as TA
+    from distributed_llm_tpu_torch.training.trainer import Trainer
+    out = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for name, c, steps in (("float32", cfg32, stream[:1]),
+                           ("bf16", cfg, stream)):
+        params = models.transformer.Transformer(c, device="meta")
+        params.load_state_dict({k: v.to(models.transformer.torch_dtype(c),
+                                        copy=True)
+                                for k, v in weights.items()}, assign=True)
+        causal = TA.causal
+        if name == "float32":
+            TA.causal = TA.causal_attention
+        try:
+            with uncounted():
+                tr = Trainer(c, tc, params=params, device=device)
+                step_ms = []
+                for tokens, mask in steps:
+                    t0 = time.perf_counter()
+                    metrics = tr.train_step(tokens, mask)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    if len(step_ms) == 1:
+                        out[name] = {"metrics": metrics, "state": state_of(tr)}
+                out[name]["step_ms"] = step_ms
+        finally:
+            TA.causal = causal
+        del tr, params
+        gc.collect()
+    out["step_norm"] = state_dist(torch, out["float32"]["state"], weights)
+    return out
+
+
+@contextlib.contextmanager
+def train_mesh_counters():
+    """The ring's calls (``trainer.ring``) and, by slot, the expert slices
+    a MoE layer ran (``on_shard`` inside ``moe._over_slices``)."""
+    from distributed_llm_tpu_torch.models import moe
+    from distributed_llm_tpu_torch.ops import launches as L
+    from distributed_llm_tpu_torch.training import trainer as T
+    calls = {"ring": 0, "expert_slots": {}}
+    saved = (T.ring, moe._over_slices, L.on_shard)
+    inside = []
+
+    def ring(*a, **kw):
+        calls["ring"] += 1
+        return saved[0](*a, **kw)
+
+    def over_slices(*a, **kw):
+        inside.append(1)
+        try:
+            return saved[1](*a, **kw)
+        finally:
+            inside.pop()
+
+    def on_shard(index):
+        if inside:
+            slots = calls["expert_slots"]
+            slots[index] = slots.get(index, 0) + 1
+        return saved[2](index)
+
+    T.ring, moe._over_slices, L.on_shard = ring, over_slices, on_shard
+    try:
+        yield calls
+    finally:
+        T.ring, moe._over_slices, L.on_shard = saved
+
+
+def train_mesh_part(torch, name: str, make, stream, refs: dict,
+                    *, every=(), device: str) -> tuple:
+    """One sharded trainer (``make()``) for TRAIN_MESH_STEPS steps of
+    ``stream``: its first loss, pre-clip grad norm and weights after the
+    step by phase 21's rule against ``refs``, every loss finite, ms a
+    step (the median past the first), tokens/s, peak memory and the
+    launches by slot; K2 must launch on every slot in ``every``.
+    Returns (numbers, trainer)."""
+    from distributed_llm_tpu_torch.ops import launches as L
+    on_card = device == "cuda"
+    fresh_peak(torch, on_card)
+    reset_counts()
+    before = L.shard_counts()
+    with train_mesh_counters() as calls:
+        t0 = time.perf_counter()
+        tr = make()
+        build_s = time.perf_counter() - t0
+        metrics, step_ms = [], []
+        for tokens, mask in stream:
+            t0 = time.perf_counter()
+            metrics.append(tr.train_step(tokens, mask))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(metrics) == 1:
+                with uncounted():
+                    state = state_of(tr)
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    per = L.shard_since(before)
+    require(all(math.isfinite(m["loss"]) for m in metrics),
+            f"{name}: a loss is not finite: {metrics}")
+    f32, bf16 = refs["float32"], refs["bf16"]
+    res = {"loss": against_f32(
+        abs(metrics[0]["loss"] - f32["metrics"]["loss"]),
+        abs(bf16["metrics"]["loss"] - f32["metrics"]["loss"]),
+        abs(f32["metrics"]["loss"]), f"{name} loss"),
+        "grad_norm": against_f32(
+        abs(metrics[0]["grad_norm"] - f32["metrics"]["grad_norm"]),
+        abs(bf16["metrics"]["grad_norm"] - f32["metrics"]["grad_norm"]),
+        abs(f32["metrics"]["grad_norm"]), f"{name} grad norm"),
+        "weights": against_f32(
+        state_dist(torch, state, f32["state"]),
+        state_dist(torch, bf16["state"], f32["state"]),
+        refs["step_norm"], f"{name} weights after the first step")}
+    del state
+    missing = [s for s in every if not per.get(s, {}).get("flash_causal")]
+    require(not on_card or not missing,
+            f"{name}: K2 did not launch on slots {missing} ({per})")
+    steady = statistics.median(step_ms[1:])
+    unsharded = statistics.median(refs["bf16"]["step_ms"][1:])
+    tokens = stream[0][0].size
+    out = {"group": dict(tr.mesh.shape), "build_s": build_s,
+           "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "first_step": res, "step_ms": step_ms,
+           "steady_ms_per_step": steady,
+           "tokens_per_s": tokens * 1e3 / steady,
+           "unsharded_ms_per_step": unsharded,
+           "vs_unsharded": steady / unsharded,
+           "unsharded_step_ms": {k: refs[k]["step_ms"]
+                                 for k in ("bf16", "float32")},
+           "peak_memory_gb": peak_memory_gb(torch, on_card),
+           "launches": launches, "ring_calls": calls["ring"],
+           "expert_slots": calls["expert_slots"],
+           "launches_by_slot": {str(s): dict(sorted(d.items()))
+                                for s, d in sorted(per.items())}}
+    return out, tr
+
+
+def train_mesh_stream(cfg, batch: int, seq: int) -> list:
+    from distributed_llm_tpu_torch.engine.tokenizer import get_tokenizer
+    from distributed_llm_tpu_torch.training.data import batches
+    stream = batches(batch, seq, seed=0, tokenizer=get_tokenizer(cfg))
+    return [next(stream) for _ in range(TRAIN_MESH_STEPS)]
+
+
+def train_mesh_phase(torch, nano, orin, *, device: str = "cuda"):
+    """Phase 23: training over groups of the card repeated (the costs of
+    sharding on one card, not a speedup), each part from the same
+    weights and batches as the unsharded trainer in this call: (a)
+    TRAIN_MESH_DENSE at full width over ``training_mesh`` of 4 slots
+    (JAX's rule: tp=4); (b) over ('dp', 'sp', 'tp') = (2, 2, 2): FSDP,
+    the ring and TP in one step; (c) ``PipelineTrainer`` at pp=2 with
+    TRAIN_MESH_MICRO microbatches; (d) TRAIN_MESH_MOE at its widths cut
+    to TRAIN_MESH_MOE_LAYERS layers over ``moe_training_mesh`` of 8
+    slots (ep=8); (e) (b)'s checkpoint restored onto one device and onto
+    (a)'s group, the leaves equal bit for bit and one more step finite on
+    each.  Returns (numbers, launches)."""
+    import shutil
+
+    from distributed_llm_tpu_torch import models
+    from distributed_llm_tpu_torch.config import MODEL_PRESETS
+    from distributed_llm_tpu_torch.parallel.mesh import (
+        DeviceGroup, moe_training_mesh, training_mesh)
+    from distributed_llm_tpu_torch.training import PipelineTrainer
+    from distributed_llm_tpu_torch.training.trainer import Trainer
+
+    on_card = device == "cuda"
+    slots = [device] * 8
+    out, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def whole(weights, cfg):
+        def make_params():
+            m = models.transformer.Transformer(cfg, device="meta")
+            m.load_state_dict({k: v.clone() for k, v in weights.items()},
+                              assign=True)
+            return m
+        return make_params
+
+    cfg = MODEL_PRESETS[TRAIN_MESH_DENSE]
+    tc = train_mesh_tc(TRAIN_MESH_BATCH, TRAIN_MESH_SEQ)
+    stream = train_mesh_stream(cfg, TRAIN_MESH_BATCH, TRAIN_MESH_SEQ)
+    weights = models.init_params(cfg, seed=0, device=device).state_dict()
+    params = whole(weights, cfg)
+    refs = train_mesh_refs(torch, cfg, weights, stream, tc, device)
+    mesh_a = training_mesh(slots[:4], num_kv_heads=cfg.num_kv_heads,
+                           seq_len=TRAIN_MESH_SEQ)
+    out["a_training_mesh"], tr = train_mesh_part(
+        torch, "a", lambda: Trainer(cfg, tc, mesh_a, params=params()),
+        stream, refs, every=range(mesh_a.size), device=device)
+    add(out["a_training_mesh"]["launches"])
+    del tr
+    mesh_b = DeviceGroup(tuple(slots), ("dp", "sp", "tp"), (2, 2, 2))
+    out["b_dp_sp_tp"], tr_b = train_mesh_part(
+        torch, "b", lambda: Trainer(cfg, tc, mesh_b, params=params()),
+        stream, refs, device=device)
+    add(out["b_dp_sp_tp"]["launches"])
+    require(out["b_dp_sp_tp"]["ring_calls"] > 0, "(b): the ring did not run")
+
+    # (e) (b)'s state through a checkpoint onto one device and (a)'s group.
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    root = tr_b.save(TRAIN_MESH_DIR)
+    save_s = time.perf_counter() - t0
+    with uncounted():
+        saved = state_of(tr_b)
+    del tr_b
+    ckpt_out = {"save_s": save_s}
+    for name, group in (("one_device", None), ("a_group", mesh_a)):
+        fresh_peak(torch, on_card)
+        other = models.init_params(cfg, seed=1, device=device)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tc, group, params=other, device=device)
+        tr.load(root)
+        load_s = time.perf_counter() - t0
+        restored_step = tr.step_count
+        with uncounted():
+            got = state_of(tr)
+            equal = all(torch.equal(got[k], v) for k, v in saved.items())
+            del got
+            after = tr.train_step(*stream[0])
+        require(equal and restored_step == TRAIN_MESH_STEPS,
+                f"(e) {name}: the restored leaves or step ({restored_step}) "
+                "differ from (b)'s")
+        require(math.isfinite(after["loss"]),
+                f"(e) {name}: the next step's loss {after}")
+        ckpt_out[name] = {"load_s": load_s, "equal": equal,
+                          "next_loss": after["loss"]}
+        del tr, other
+    out["e_checkpoint"] = ckpt_out
+    del saved
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+
+    pp = DeviceGroup(tuple(slots[:2]), ("pp",))
+    out["c_pipeline"], tr = train_mesh_part(
+        torch, "c", lambda: PipelineTrainer(cfg, tc, pp, TRAIN_MESH_MICRO,
+                                            params=params()),
+        stream, refs, every=range(2), device=device)
+    add(out["c_pipeline"]["launches"])
+    del tr, refs, weights, params
+    gc.collect()
+
+    moe_cfg = dataclasses.replace(MODEL_PRESETS[TRAIN_MESH_MOE],
+                                  num_layers=TRAIN_MESH_MOE_LAYERS)
+    moe_tc = train_mesh_tc(TRAIN_MESH_MOE_BATCH, TRAIN_MESH_MOE_SEQ)
+    moe_stream = train_mesh_stream(moe_cfg, TRAIN_MESH_MOE_BATCH,
+                                   TRAIN_MESH_MOE_SEQ)
+    fresh_peak(torch, on_card)
+    moe_weights = models.init_params(moe_cfg, seed=0,
+                                     device=device).state_dict()
+    moe_refs = train_mesh_refs(torch, moe_cfg, moe_weights, moe_stream,
+                               moe_tc, device)
+    mesh_d = moe_training_mesh(slots, num_experts=moe_cfg.num_experts)
+    out["d_moe"], tr = train_mesh_part(
+        torch, "d", lambda: Trainer(moe_cfg, moe_tc, mesh_d,
+                                    params=whole(moe_weights, moe_cfg)()),
+        moe_stream, moe_refs,
+        every=[mesh_d.index(dp=d) for d in range(mesh_d.dp)], device=device)
+    add(out["d_moe"]["launches"])
+    out["d_moe"]["layers"] = f"{TRAIN_MESH_MOE_LAYERS} of " \
+        f"{MODEL_PRESETS[TRAIN_MESH_MOE].num_layers} (depth cut)"
+    ran = out["d_moe"]["expert_slots"]
+    require(all(ran.get(mesh_d.index(ep=e)) for e in range(mesh_d.ep)),
+            f"(d): an ep slot ran no experts: {ran}")
+    del tr, moe_refs, moe_weights
+    gc.collect()
+    return out, total
+
+
+def train_mesh_summary(parts: dict) -> dict:
+    keys = ("group", "losses", "grad_norms", "first_step",
+            "steady_ms_per_step", "tokens_per_s", "unsharded_ms_per_step",
+            "vs_unsharded", "unsharded_step_ms",
+            "peak_memory_gb", "ring_calls", "expert_slots",
+            "launches_by_slot")
+    return {name: ({k: p[k] for k in keys if k in p}
+                   if "launches_by_slot" in p else p)
+            for name, p in parts.items()}
+
+
 # Phases 7-9b, the sequential engines at full width and depth (also
 # ``--only``-able): (tier of (nano, orin), the kernels that must launch).
 SEQ_PHASES = {
@@ -6977,6 +7336,8 @@ LATE_PHASES = {
     "train": lambda torch, nano, orin: train_phase(torch, nano, orin),
     "tp": lambda torch, nano, orin: tp_phase(torch, nano, orin),
     "sp_ep": lambda torch, nano, orin: sp_ep_phase(torch, nano, orin),
+    "train_mesh": lambda torch, nano, orin: train_mesh_phase(torch, nano,
+                                                             orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -7327,7 +7688,8 @@ def main() -> None:
                 if name == "edges" else moe_summary(numbers)
                 if name == "moe" else tp_summary(numbers)
                 if name == "tp" else sp_ep_summary(numbers)
-                if name == "sp_ep" else numbers), "card": card,
+                if name == "sp_ep" else train_mesh_summary(numbers)
+                if name == "train_mesh" else numbers), "card": card,
                 "wall_s": time.perf_counter() - t0}, default=str))
         return
 
@@ -7442,9 +7804,13 @@ def main() -> None:
     # repeated: orin_8b at sp=4 and sp=2 x tp=2 (sequential), moe_8x1b at
     # ep=4 (batched and sequential) and tp=2 (int8 pool), each against
     # the unsharded tier; the capacity check for sp and ep.
+    # 23. Training over groups of the card repeated: nano_1b over
+    # training_mesh (tp=4) and (dp, sp, tp) = (2, 2, 2), the pipeline at
+    # pp=2, moe_8x1b (4 layers) at ep=8, each against the unsharded
+    # trainer and float32; a checkpoint moved between groups.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
                  "legs", "fleet", "fleet2", "edges", "moe", "train", "tp",
-                 "sp_ep"):
+                 "sp_ep", "train_mesh"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
         mark(name)
@@ -7457,13 +7823,14 @@ def main() -> None:
                                     for p, n in by_phase.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
         row["kernel_ms"] = row["ms"]
-        # Phases 21 and 22's launches by part and group slot.
+        # Phases 21-23's launches by part and group slot.
         row["launches_by_shard"] = {
             part: {s: n.get(row["name"])
                    for s, n in (r.get("launches_by_shard")
                                 or r["launches_by_slot"]).items()
                    if n.get(row["name"])}
-            for part, r in [*late["tp"].items(), *late["sp_ep"].items()]
+            for part, r in [*late["tp"].items(), *late["sp_ep"].items(),
+                            *late["train_mesh"].items()]
             if "launches_by_shard" in r or "launches_by_slot" in r}
         row["launches_by_shard"] = {p: v for p, v in
                                     row["launches_by_shard"].items() if v}
@@ -7640,6 +8007,8 @@ def main() -> None:
                    default=str))
     log(json.dumps({"card": card, "sp_ep": sp_ep_summary(late["sp_ep"])},
                    default=str))
+    log(json.dumps({"card": card, "train_mesh": train_mesh_summary(
+        late["train_mesh"])}, default=str))
     log(json.dumps({"card": card, "phase_s": phase_s,
                     "total_s": report["total_s"]}))
     log(f"{card}")

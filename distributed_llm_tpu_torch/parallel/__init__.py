@@ -1,7 +1,8 @@
-"""Multi-device serving for the port: a tier's device group (``mesh``),
-the Megatron and expert split of the weights and the split of the KV
-(``sharding``), the group's collectives (``collectives``), the
-per-shard layers (``tp_attention``), ring prefill over a sequence split
-(``ring_attention``) and decode over a sequence-split cache
-(``sp_attention``).  One process drives every slot of a group, as one
-JAX process drives a tier's mesh."""
+"""Multi-device serving and training for the port: a group of slots
+(``mesh``), the Megatron and expert split of the weights, the split of
+the KV and the training placement (``sharding``), the group's
+collectives (``collectives``), the per-shard layers (``tp_attention``),
+ring prefill over a sequence split (``ring_attention``), decode over a
+sequence-split cache (``sp_attention``) and the GPipe schedule
+(``pipeline``).  One process drives every slot of a group, as one JAX
+process drives a mesh."""

@@ -24,7 +24,16 @@ slots:
 - ``rotate``: the ring's step, a block handed to the next slot's
   device (JAX's ``ppermute``): on a shared device the same tensor,
   across devices a peer copy issued on the current stream, so it is
-  recorded in a CUDA graph like any other copy.
+  recorded in a CUDA graph like any other copy;
+- ``all_gather``: a training leaf's ``dp`` pieces (FSDP, ZeRO-3)
+  concatenated onto each slot that computes with them, under autograd.
+  Its backward is JAX's reduce-scatter: each piece's gradient is the
+  sum over every slot that used it, in float32 in slot order, rounded
+  once to the piece's dtype, on the piece's device.  Each using slot
+  gets a tensor of its own (a view of one copy where slots share a
+  device), so their gradients meet only in that sum.  ``allreduce_sum``
+  is autograd-safe as it stands: the row-parallel partials' gradient is
+  the sum's, cast to each partial's dtype.
 
 The distinct-device paths (peer copies in ``allreduce_sum``, ``rotate``
 and ``merge_partials``) have not run on cards: the machine the port is
@@ -100,6 +109,48 @@ def allreduce_sum(parts: Sequence[torch.Tensor],
     total = total.to(parts[0].dtype)
     return [total if d == total.device else total.to(d, non_blocking=True)
             for d in devices]
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather``'s Function: forward the concatenation of the pieces
+    along ``dim`` onto each of ``devices``; backward the float32 sum of
+    the outputs' gradients, split into the pieces' blocks."""
+
+    @staticmethod
+    def forward(ctx, dim, devices, *pieces):
+        ctx.dim = dim
+        ctx.homes = [(p.device, p.dtype, p.shape[dim]) for p in pieces]
+        whole = {}
+        for d in devices:
+            if d not in whole:
+                whole[d] = torch.cat([rotate(p, d) for p in pieces], dim)
+        # One view each, so autograd hands every use's gradient to
+        # backward apart instead of summing them in the leaf's dtype.
+        return tuple(whole[d].view_as(whole[d]) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                g = g.float()
+                total = g if total is None else total + rotate(g,
+                                                               total.device)
+        if total is None:
+            return (None, None) + (None,) * len(ctx.homes)
+        blocks = total.split([n for _, _, n in ctx.homes], ctx.dim)
+        return (None, None) + tuple(
+            rotate(b.to(dtype), dev) for b, (dev, dtype, _) in
+            zip(blocks, ctx.homes))
+
+
+def all_gather(pieces: Sequence[torch.Tensor], dim: int,
+               devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The concatenation of ``pieces`` (each on its slot's device) along
+    ``dim``, one tensor on each of ``devices``, differentiable: the
+    pieces' gradients are the float32 sum over ``devices`` of the
+    outputs', rounded once."""
+    return list(_AllGather.apply(dim, tuple(devices), *pieces))
 
 
 def merge_partials(ms: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],

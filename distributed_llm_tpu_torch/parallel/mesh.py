@@ -11,10 +11,14 @@ that device, the port's counterpart of JAX's host-platform device count
 (the CPU tests pass ``["cpu"] * 8``; on a one-card machine the card
 repeated stands in for a group of cards).
 
-A group is 1-D ``("tp",)``, or 2-D: ``("batch", "tp")`` for a
+A serving group is 1-D ``("tp",)``, or 2-D: ``("batch", "tp")`` for a
 replicated tier's rows, ``("sp", "tp")`` for sequence parallelism (ring
 prefill, the sequence-sharded cache) and ``("ep", "tp")`` for expert
-parallelism; slot ``r * tp + t`` is row ``r``'s tensor shard ``t``.
+parallelism; slot ``r * tp + t`` is row ``r``'s tensor shard ``t``.  A
+training group is ``("dp", "sp", "tp")`` (``training_mesh``), ``("dp",
+"ep")`` (``moe_training_mesh``), ``("dp",)`` (``pretrain``) or ``("pp",)``
+(``training/pipeline_trainer.py``); ``index`` finds the slot at given
+coordinates on the named axes, row-major.
 
 ``carve_tier_meshes`` follows JAX's rules: tiers claim disjoint slices
 in declaration order, a tier's ``tp`` shrinks to the largest divisor of
@@ -23,8 +27,8 @@ divisor of the expert count that fits beside it, its ``sp`` to the
 largest power of two that fits (ignored, with JAX's warning, on a MoE,
 batched or speculating tier), and with nothing left a tier shares the
 front of the list.  A remote (``endpoint``) tier claims nothing.  The
-training meshes (``training_mesh``, ``moe_training_mesh``) are not
-ported yet.
+training meshes factor a device list as JAX's ``training_mesh`` and
+``moe_training_mesh`` do.
 """
 
 from __future__ import annotations
@@ -89,6 +93,22 @@ class DeviceGroup:
     @property
     def ep(self) -> int:
         return self.shape.get("ep", 1)
+
+    @property
+    def dp(self) -> int:
+        return self.shape.get("dp", 1)
+
+    @property
+    def pp(self) -> int:
+        return self.shape.get("pp", 1)
+
+    def index(self, **coords: int) -> int:
+        """The slot at ``coords`` on the named axes (row-major; an axis
+        left out, or one the group lacks, at 0)."""
+        slot = 0
+        for name, n in zip(self.axis_names, self.dims):
+            slot = slot * n + coords.get(name, 0)
+        return slot
 
     @property
     def parallel(self) -> bool:
@@ -274,6 +294,38 @@ def _fit_tp(tier: TierConfig, available: int) -> int:
     while tp > 1 and (cfg.num_kv_heads % tp or cfg.num_heads % tp):
         tp -= 1
     return max(tp, 1)
+
+
+def _largest_divisor(m: int, dividing: int) -> int:
+    """The largest factor of ``m`` that also divides ``dividing``."""
+    return max(f for f in range(1, m + 1) if m % f == 0 and dividing % f == 0)
+
+
+def training_mesh(devices: Optional[DevicesLike] = None, *,
+                  num_kv_heads: int, seq_len: int) -> DeviceGroup:
+    """Every device as a ('dp', 'sp', 'tp') training group (JAX's rule):
+    ``tp`` the largest divisor of n that divides the kv heads, ``sp`` the
+    largest divisor of the rest that divides ``seq_len`` (but a rest
+    above 2 taken whole by sp gives half of it back to dp), ``dp`` what
+    is left.  ``devices`` defaults to every card (``as_devices``)."""
+    devices = as_devices(devices)
+    n = len(devices)
+    tp = _largest_divisor(n, num_kv_heads)
+    rest = n // tp
+    sp = _largest_divisor(rest, seq_len)
+    if sp == rest and rest > 2 and rest % 2 == 0:
+        sp = _largest_divisor(rest // 2, seq_len)
+    return DeviceGroup(devices, ("dp", "sp", "tp"), (rest // sp, sp, tp))
+
+
+def moe_training_mesh(devices: Optional[DevicesLike] = None, *,
+                      num_experts: int) -> DeviceGroup:
+    """Every device as a ('dp', 'ep') group for MoE training (JAX's rule):
+    ``ep`` the largest divisor of n that divides the expert count, ``dp``
+    the rest."""
+    devices = as_devices(devices)
+    ep = _largest_divisor(len(devices), num_experts)
+    return DeviceGroup(devices, ("dp", "ep"), (len(devices) // ep, ep))
 
 
 def describe_meshes(meshes: Dict[str, DeviceGroup]) -> str:

@@ -39,17 +39,37 @@ block of experts) and every slot that takes a piece of the leaf lies on
 that device too (the group repeats one card: the views together are the
 one copy).  Elsewhere it is a copy, so that the lead's piece does not
 keep the whole leaf alive beside the other cards' pieces.
+
+Training places the weights by JAX's ``train_param_specs``, FSDP x TP
+(x EP): a weight's Megatron dimension over ``tp``, its other matmul
+dimension over ``dp`` (ZeRO-3), an expert stack's E over ``ep``,
+``embed``'s rows over ``dp``, the norms whole.  ``train_specs`` applies
+JAX's fallback (an axis the group lacks, one already used in the spec,
+or one that does not divide the dimension leaves it whole), and
+``place_for_training`` cuts each leaf into its pieces: one trainable
+``nn.Parameter`` per block of the spec's axes, on the first slot with
+those coordinates (the others on that axis use it; JAX keeps a copy on
+each).  Every element of every leaf belongs to exactly one piece, so
+each slot's AdamW state is that of its own pieces.  ``TrainPlacement.
+use`` gathers the pieces a slot computes with (its own block on every
+axis but ``dp``, whole over ``dp``) through ``collectives.all_gather``,
+and ``whole_state``/``load_whole`` move whole leaves in and out, so a
+checkpoint does not depend on the group.  On one slot the pieces are
+the model's own parameters.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+import dataclasses
+import itertools
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig
 from ..ops import quant
+from .collectives import all_gather
 from .mesh import DeviceGroup
 
 # Axis each leaf splits on in the port's per-layer [in, out] layout, the
@@ -274,3 +294,186 @@ def kv_cache_shards(cfg: ModelConfig, batch: int, max_seq: int,
     return [[init_kv_cache(cfg, batch, max_seq // sp, kv_quantize, dev,
                            kv_heads=heads) for dev in group.column(t)]
             for t in range(tp)]
+
+
+# -- training placement -----------------------------------------------------------
+
+Spec = Tuple[Optional[str], ...]
+
+# JAX's ``train_param_specs`` on the port's per-layer leaves (the stacked
+# layer axis dropped): the axis each dimension splits over.
+TRAIN_LAYER_SPECS: Dict[str, Spec] = {
+    "ln1": (None,), "wq": ("dp", "tp"), "wk": ("dp", "tp"),
+    "wv": ("dp", "tp"), "wo": ("tp", "dp"), "ln2": (None,),
+    "w_gate": ("dp", "tp"), "w_up": ("dp", "tp"), "w_down": ("tp", "dp"),
+}
+TRAIN_MOE_SPECS: Dict[str, Spec] = {
+    "w_router": ("dp", None), "w_gate": ("ep", "dp", "tp"),
+    "w_up": ("ep", "dp", "tp"), "w_down": ("ep", "tp", "dp"),
+}
+
+
+def train_param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    """Every leaf's spec by its ``state_dict`` name, before the fallback."""
+    layer = dict(TRAIN_LAYER_SPECS)
+    if cfg.num_experts > 1:
+        layer.update(TRAIN_MOE_SPECS)
+    specs: Dict[str, Spec] = {"embed": ("dp", None)}
+    for i in range(cfg.num_layers):
+        specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    specs["final_ln"] = (None,)
+    return specs
+
+
+def _fallback(spec: Spec, shape, group: DeviceGroup) -> Spec:
+    """JAX's ``_shardings_with_fallback`` for one leaf."""
+    fixed, used = [], set()
+    for ax, n in zip(spec, shape):
+        if ax is None or ax in used or ax not in group.shape or (
+                n % group.shape[ax]):
+            fixed.append(None)
+        else:
+            fixed.append(ax)
+            used.add(ax)
+    return tuple(fixed)
+
+
+def train_specs(model: nn.Module, group: DeviceGroup) -> Dict[str, Spec]:
+    """Every leaf's spec on ``group`` after the fallback, in the model's
+    ``state_dict`` order."""
+    specs = train_param_specs(model.cfg)
+    return {name: _fallback(specs[name], t.shape, group)
+            for name, t in model.state_dict().items()}
+
+
+Key = Tuple[int, ...]
+
+
+@dataclasses.dataclass
+class TrainLeaf:
+    """A leaf of a placed model: its spec on the group and its pieces,
+    keyed by their coordinates on the spec's axes (in spec order)."""
+    spec: Spec
+    pieces: Dict[Key, nn.Parameter]
+
+    @property
+    def axes(self) -> List[Tuple[int, str]]:
+        return [(dim, ax) for dim, ax in enumerate(self.spec) if ax]
+
+
+class TrainPlacement:
+    """A model's leaves cut into pieces over a training group
+    (``place_for_training``).  ``model`` is the placed ``Transformer``
+    itself on one slot (its parameters are the pieces), else None."""
+
+    def __init__(self, cfg: ModelConfig, group: DeviceGroup,
+                 leaves: Dict[str, TrainLeaf],
+                 model: Optional[nn.Module] = None):
+        self.cfg = cfg
+        self.group = group
+        self.leaves = leaves
+        self.model = model
+
+    def parameters(self) -> List[nn.Parameter]:
+        """Every piece once, leaf after leaf."""
+        return [p for leaf in self.leaves.values()
+                for p in leaf.pieces.values()]
+
+    def home(self, name: str, key: Key) -> int:
+        """The slot piece ``key`` of leaf ``name`` lives on."""
+        leaf = self.leaves[name]
+        return self.group.index(**{ax: c for (_, ax), c in
+                                   zip(leaf.axes, key)})
+
+    def use(self, name: str, coords: Dict[str, int],
+            devices: Sequence[torch.device]) -> List[torch.Tensor]:
+        """What a slot at ``coords`` computes with of leaf ``name``: its
+        own block on every spec axis but ``dp``, whole over ``dp``, one
+        differentiable tensor on each of ``devices``
+        (``collectives.all_gather``)."""
+        leaf = self.leaves[name]
+        dp_dim = next((d for d, ax in leaf.axes if ax == "dp"), 0)
+        pieces = [p for key, p in sorted(leaf.pieces.items())
+                  if all(ax == "dp" or c == coords.get(ax, 0)
+                         for (_, ax), c in zip(leaf.axes, key))]
+        return all_gather(pieces, dp_dim, devices)
+
+    def whole(self, name: str, blocks: Dict[Key, torch.Tensor],
+              device="cpu") -> torch.Tensor:
+        """Leaf ``name`` whole on ``device`` from one block per piece
+        (the pieces themselves, or their AdamW moments)."""
+        axes = self.leaves[name].axes
+        grid = {k: v.detach().to(device) for k, v in blocks.items()}
+        # Concatenate the last spec axis first: its blocks share the key's
+        # prefix and sort by their own coordinate.
+        for i, (dim, _) in reversed(list(enumerate(axes))):
+            merged: Dict[Key, List[torch.Tensor]] = {}
+            for key in sorted(grid):
+                merged.setdefault(key[:i], []).append(grid[key])
+            grid = {k: torch.cat(v, dim) for k, v in merged.items()}
+        # ``cat`` copies; a leaf split on no axis is its one block itself.
+        return grid[()] if axes else grid[()].clone()
+
+    def split(self, name: str, whole: torch.Tensor) -> Dict[Key, torch.Tensor]:
+        """Leaf ``name``'s whole tensor cut into its pieces' blocks (views),
+        by their keys."""
+        axes, sizes = self.leaves[name].axes, self.group.shape
+        out = {}
+        for key in itertools.product(*(range(sizes[ax]) for _, ax in axes)):
+            block = whole
+            for (dim, ax), c in zip(axes, key):
+                n = whole.shape[dim] // sizes[ax]
+                block = block.narrow(dim, c * n, n)
+            out[key] = block
+        return out
+
+    def whole_state(self, device="cpu") -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict``, every leaf whole, on ``device``."""
+        return {name: self.whole(name, leaf.pieces, device)
+                for name, leaf in self.leaves.items()}
+
+    @torch.no_grad()
+    def load_whole(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy whole leaves (a ``state_dict``) into the pieces."""
+        for name, leaf in self.leaves.items():
+            for key, block in self.split(name, state[name]).items():
+                leaf.pieces[key].copy_(block)
+
+
+@torch.no_grad()
+def place_for_training(model: nn.Module, group: DeviceGroup
+                       ) -> TrainPlacement:
+    """``model`` (a plain ``Transformer``) cut into trainable pieces over
+    ``group`` by ``train_specs``: each piece a copy of its block on its
+    home slot's device.  A group of one slot takes the model itself, its
+    parameters made trainable, as the pieces."""
+    specs = train_specs(model, group)
+    if group.size == 1:
+        model = model.to(group.lead)
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        leaves = {name: TrainLeaf(spec, {}) for name, spec in specs.items()}
+        for name, leaf in leaves.items():
+            leaf.pieces[(0,) * len(leaf.axes)] = params[name]
+        return TrainPlacement(model.cfg, group, leaves, model)
+    state = model.state_dict()
+    placement = TrainPlacement(model.cfg, group, {
+        name: TrainLeaf(spec, {}) for name, spec in specs.items()})
+    for name, leaf in placement.leaves.items():
+        for key, block in placement.split(name, state[name]).items():
+            dev = group.devices[placement.home(name, key)]
+            leaf.pieces[key] = nn.Parameter(_copy_to(block, dev))
+    return placement
+
+
+@torch.no_grad()
+def gather_model(placement: TrainPlacement, device=None) -> nn.Module:
+    """The placed model whole again, a ``Transformer`` on ``device``
+    (default: the group's lead) holding copies of the leaves, for saving,
+    evaluation and serving."""
+    from ..models.transformer import Transformer
+    model = Transformer(placement.cfg, device="meta")
+    model.load_state_dict(placement.whole_state(
+        device or placement.group.lead), assign=True)
+    model.requires_grad_(False)
+    return model

@@ -1,8 +1,10 @@
 """Pretrain a model preset on the synthetic corpus to a loss plateau and
 publish a serving checkpoint.
 
-Counterpart of ``distributed_llm_tpu/training/pretrain.py`` on one
-device (default: the card).  The model learns the generated corpus
+Counterpart of ``distributed_llm_tpu/training/pretrain.py``.  Data
+parallelism takes JAX's rule: the largest count of the devices (default:
+every card) that divides the batch, the trainer over that ('dp',) group;
+on one card that is the one device.  The model learns the generated corpus
 (``training/data.py``) until the eval-window mean loss stops improving,
 the train state is written in the versioned layout
 (``utils/checkpoint.py``), and a tier serves it through
@@ -24,6 +26,7 @@ import numpy as np
 
 from ..config import MODEL_PRESETS
 from ..device import DeviceLike
+from ..parallel.mesh import DeviceGroup, DevicesLike, as_devices
 from .data import batches
 from .trainer import TrainConfig, Trainer
 
@@ -40,6 +43,7 @@ def pretrain(preset: str, out: str, *,
              save_every: Optional[int] = None,
              resume: bool = False,
              device: DeviceLike = None,
+             devices: Optional[DevicesLike] = None,
              log: Callable[[str], None] = print) -> Dict[str, float]:
     """Train ``preset`` until the eval-window mean loss stops improving by
     ``min_delta`` for ``patience`` consecutive windows (or ``max_steps``),
@@ -52,14 +56,18 @@ def pretrain(preset: str, out: str, *,
     shape.  Returns {"steps", "final_loss", "seconds", "losses",
     "step_ms"}: the step count, the last eval window's mean loss, the wall
     time, and each step's loss and wall milliseconds (a step ends with
-    its loss's host read)."""
+    its loss's host read).  ``devices`` (default: every card, or
+    ``device``) are the slots data parallelism may take."""
     cfg = MODEL_PRESETS[preset]
     seq = seq_len or min(256, cfg.max_seq_len)
+    devs = as_devices(devices, device)
+    dp = next(d for d in range(len(devs), 0, -1) if batch_size % d == 0)
+    mesh = DeviceGroup(devs[:dp], ("dp",), (dp,))
     trainer = Trainer(cfg, TrainConfig(batch_size=batch_size, seq_len=seq,
                                        learning_rate=learning_rate,
                                        warmup_steps=min(50, max_steps // 4),
                                        decay_steps=max(1000, max_steps),
-                                       seed=seed), device=device)
+                                       seed=seed), mesh)
     resumed_from = 0
     if resume:
         if os.path.isdir(out):
@@ -75,7 +83,7 @@ def pretrain(preset: str, out: str, *,
                 f"{out} — training from scratch")
     log(f"[pretrain] {preset}: {cfg.num_layers}L/{cfg.hidden_size}h "
         f"({cfg.param_count()/1e6:.2f}M params) batch={batch_size} "
-        f"seq={seq} device={trainer.device} max_steps={max_steps}")
+        f"seq={seq} dp={dp} device={trainer.device} max_steps={max_steps}")
 
     window: collections.deque = collections.deque(maxlen=eval_every)
     losses, step_ms = [], []

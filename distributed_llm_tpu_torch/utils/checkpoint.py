@@ -4,9 +4,9 @@ Counterpart of ``distributed_llm_tpu/utils/checkpoint.py`` under the
 same preemption-safe layout.  The JAX package writes Orbax; the port
 has no Orbax, so each version holds:
 
-- ``params.pt``: the model's ``state_dict`` (the only file serving
-  reads: one copy of the weights on disk);
-- ``opt_state.pt``: the AdamW state and the step count;
+- ``params.pt``: the model's ``state_dict``, every leaf whole (the only
+  file serving reads: one copy of the weights on disk);
+- ``opt_state.pt``: the step count and each leaf's AdamW moments, whole;
 - ``meta.json``: the format, the preset, the step and the vocabulary
   size (``peek_vocab_size`` reads only this).
 
@@ -18,6 +18,12 @@ already is ``latest`` is skipped and returns None, as JAX's is.
 ``models/checkpoint.load_params_for_tier`` serves a root written here
 directly (``is_port_checkpoint``), and a JAX Orbax root through its
 committed export.
+
+Nothing in a version depends on the group that trained it: a trainer
+over a group writes its pieces gathered into whole leaves
+(``parallel/sharding.TrainPlacement``), and ``load_train_state`` cuts
+them into the loading trainer's pieces, on any group or one device, as
+JAX's ``_mesh_like`` restore reshards onto the trainer's mesh.
 """
 
 from __future__ import annotations
@@ -80,8 +86,20 @@ def is_port_checkpoint(path: str) -> bool:
         return json.load(f).get("format") == FORMAT
 
 
-def _cpu_state(model: torch.nn.Module):
-    return {k: v.detach().to("cpu") for k, v in model.state_dict().items()}
+def _moments(trainer) -> dict:
+    """Each leaf's AdamW state whole on the CPU: {name: {"step",
+    "exp_avg", "exp_avg_sq"}} (empty before the first update)."""
+    pl, state = trainer.placement, trainer.optimizer.state
+    out = {}
+    for name, leaf in pl.leaves.items():
+        pieces = leaf.pieces
+        first = state.get(next(iter(pieces.values())))
+        if not first:
+            continue
+        out[name] = {"step": first["step"].detach().to("cpu").clone(), **{
+            key: pl.whole(name, {k: state[p][key] for k, p in pieces.items()})
+            for key in ("exp_avg", "exp_avg_sq")}}
+    return out
 
 
 def save_train_state(path: str, trainer) -> Optional[str]:
@@ -106,9 +124,9 @@ def save_train_state(path: str, trainer) -> Optional[str]:
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     cfg = trainer.cfg
-    torch.save(_cpu_state(trainer.model), os.path.join(tmp, "params.pt"))
-    torch.save({"optimizer": trainer.optimizer.state_dict(),
-                "step": trainer.step_count},
+    torch.save(trainer.placement.whole_state(),
+               os.path.join(tmp, "params.pt"))
+    torch.save({"adamw": _moments(trainer), "step": trainer.step_count},
                os.path.join(tmp, "opt_state.pt"))
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"format": FORMAT, "preset": cfg.name,
@@ -125,18 +143,26 @@ def save_train_state(path: str, trainer) -> Optional[str]:
 
 
 def load_train_state(path: str, trainer) -> None:
-    """Resume from ``<path>/latest`` in place: the weights into the
-    trainer's model, the optimizer state (moved to its device) and the
-    step count."""
+    """Resume from ``<path>/latest`` in place, whatever group saved it:
+    the whole leaves and their AdamW moments cut into the trainer's
+    pieces on their devices, and the step count."""
     latest = _latest_dir(path)
     if latest is None:
         raise FileNotFoundError(f"no 'latest' checkpoint under {path!r}")
-    state = torch.load(os.path.join(latest, "params.pt"),
-                       map_location=trainer.device, weights_only=True)
-    trainer.model.load_state_dict(state)
+    pl = trainer.placement
+    pl.load_whole(torch.load(os.path.join(latest, "params.pt"),
+                             map_location="cpu", weights_only=True))
     opt = torch.load(os.path.join(latest, "opt_state.pt"),
-                     map_location=trainer.device, weights_only=True)
-    trainer.optimizer.load_state_dict(opt["optimizer"])
+                     map_location="cpu", weights_only=True)
+    state = trainer.optimizer.state
+    state.clear()
+    for name, saved in opt["adamw"].items():
+        cut = {key: pl.split(name, saved[key])
+               for key in ("exp_avg", "exp_avg_sq")}
+        for k, p in pl.leaves[name].pieces.items():
+            state[p] = {"step": saved["step"].clone(), **{
+                key: blocks[k].to(p.device, copy=True).contiguous()
+                for key, blocks in cut.items()}}
     trainer.step_count = int(opt["step"])
 
 

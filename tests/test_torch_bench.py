@@ -35,6 +35,7 @@ import os
 import sys
 
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench as jax_bench  # noqa: E402  (the JAX package's root bench.py)
@@ -187,8 +188,19 @@ def cpu_run(tmp_path_factory):
     real_run = headline.run
 
     def small_run(*args, **kw):
-        captured["result"] = real_run(*args, n_queries=4, trend_repeats=1,
-                                      openloop_budget_s=40.0, **kw)
+        # One intra-op thread: the run drives both tiers' engines, the
+        # router and its clients on threads of their own, and at the tiny
+        # tiers' widths each op's intra-op threads only contend with
+        # theirs (the run alone: 111.5 s with eight, 66.0 s with one, on
+        # an 8-core CPU).
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            captured["result"] = real_run(*args, n_queries=4,
+                                          trend_repeats=1,
+                                          openloop_budget_s=40.0, **kw)
+        finally:
+            torch.set_num_threads(threads)
         return captured["result"]
 
     with pytest.MonkeyPatch.context() as mp:

@@ -288,13 +288,22 @@ def test_three_adamw_steps_match_jax(presets, base):
         assert g["loss"] == pytest.approx(w["loss"], rel=1e-5)
         assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=1e-4)
     assert max(w["grad_norm"] for w in want) > 0.5      # the clip fired
-    rates = sum(trainer.lr_at(tr.tc, i) for i in range(STEPS))
+    assert_params_match(tr.model, jparams, jnu,
+                        sum(trainer.lr_at(tr.tc, i) for i in range(STEPS)))
+
+
+def assert_params_match(model, jparams, jnu, rates, steps=STEPS):
+    """The port's parameters after ``steps`` AdamW steps against JAX's
+    (``jparams``, second moments ``jnu``): elements whose Adam second
+    moment clears float32 gradient noise within 1e-4, untouched ones
+    within 1e-6, every one within the updates' bound ``rates`` (the
+    summed rates), the noisy ones rare."""
     noisy = total = 0
-    params = dict(tr.model.named_parameters())
-    for pname, (key, layer) in _leaves(tr.model).items():
-        got_p = params[pname].detach().numpy()
+    params = dict(model.named_parameters())
+    for pname, (key, layer) in _leaves(model).items():
+        got_p = params[pname].detach().cpu().numpy()
         want_p = _jax_leaf(jparams, key, layer)
-        nu_hat = _jax_leaf(jnu, key, layer) / (1.0 - 0.999 ** STEPS)
+        nu_hat = _jax_leaf(jnu, key, layer) / (1.0 - 0.999 ** steps)
         clean = np.sqrt(nu_hat) >= 10 * EPS
         untouched = nu_hat == 0.0
         diff = np.abs(got_p - want_p)
