@@ -331,6 +331,15 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    beside the unsharded trainer's, tokens/s, peak GB and launches by
    slot; (e) (b)'s checkpoint restored onto one device and onto (a)'s
    group, the leaves equal bit for bit, one more step finite on each.
+24. the port's lint (``lint``): ``python -m distributed_llm_tpu_torch.lint``
+   over the port as a subprocess, which must exit 0 with zero findings
+   (its files, findings, suppressions and seconds on a line of their
+   own), and beside it the transfer rule's twin on the card: nano_1b on
+   the batched engine with every slot decoding and none queued, watched
+   for LINT_WINDOW_TICKS steady ticks under PyTorch's sync check, where
+   every synchronizing call must pass through ``_fetch_tick`` and K1
+   must launch (an event wait escapes the check: the static rule stays
+   the authority).
 
 Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20,
 phases 11 and 17 again for 21, 15 again for 22, and 20 for 23 (every
@@ -346,7 +355,7 @@ trains EDGES_ENCODER_STEPS steps.
 those three, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
 ``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``, ``moe``,
-``train``, ``tp``, ``sp_ep``, ``train_mesh``) builds the kernels and runs
+``train``, ``tp``, ``sp_ep``, ``train_mesh``, ``lint``) builds the kernels and runs
 only those phases,
 printing each one's numbers (each also to ``only_<name>.json`` in the
 report directory), with no kernel table and no last line: a debugging
@@ -398,8 +407,8 @@ another, the pressure phases' and the spill phase's numbers as two more,
 the trained /chat turns and the legs' numbers (phase 15's and phase 11's)
 as two more, the fleet's, the fleet's second half's and the edges' as three more,
 MoE's, training's, tensor parallelism's, sequence and expert
-parallelism's and the training groups' as five more (each with the
-card's name and power limit), every phase's wall seconds as one more, the card's name and power
+parallelism's, the training groups' and the lint's as six more (each
+with the card's name and power limit), every phase's wall seconds as one more, the card's name and power
 limit, the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``.
@@ -7288,6 +7297,148 @@ def train_mesh_summary(parts: dict) -> dict:
             for name, p in parts.items()}
 
 
+# -- phase 24: the port's lint, and its transfer rule's twin on the card -----
+
+# The steady ticks watched for host syncs, after every slot is decoding.
+LINT_WINDOW_TICKS = 24
+LINT_SETTLE_TICKS = 2
+# A request's budget: 64 ticks of 4 steps, so no slot ends in the window.
+LINT_MAX_NEW = 256
+
+
+def sync_watch(torch, thread):
+    """A context that records every synchronizing CUDA call PyTorch
+    reports (``torch.cuda.set_sync_debug_mode("warn")``) on the engine's
+    scheduler ``thread``, with whether it ran inside ``_fetch_tick``:
+    yields the dict it fills, ``fetch`` (a count), ``outside`` (the
+    innermost repo frames of each other sync) and ``other_threads`` (a
+    count of syncs elsewhere: the window's own opening, outside any
+    tick)."""
+    import traceback
+    import warnings
+
+    seen = {"fetch": 0, "outside": [], "other_threads": 0}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        if threading.current_thread() is not thread:
+            seen["other_threads"] += 1
+            return
+        stack = traceback.extract_stack()
+        if any(f.name == "_fetch_tick" for f in stack):
+            seen["fetch"] += 1
+            return
+        seen["outside"].append([f"{os.path.relpath(f.filename, REPO)}:"
+                                f"{f.lineno} {f.name}" for f in stack
+                                if f.filename.startswith(REPO)][-4:])
+
+    @contextlib.contextmanager
+    def watching():
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield seen
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    return watching()
+
+
+def lint_phase(torch, nano, orin, *, device: str = "cuda"):
+    """(a) ``python -m distributed_llm_tpu_torch.lint`` over the port, as
+    a subprocess on the card's machine: exit 0 and zero findings; its
+    files, findings, suppressions and seconds.  (b) The transfer rule's
+    twin on the card: nano_1b at full width on the batched engine (8
+    slots, the ragged tick), every slot decoding and none queued, watched
+    for LINT_WINDOW_TICKS steady ticks under PyTorch's sync check.  Every
+    synchronizing call must pass through ``_fetch_tick`` (the tick's one
+    sanctioned sync), and K1 (``ragged_decode``) must have launched.  An
+    event or stream wait (``Event.synchronize()``) escapes PyTorch's
+    check, so this twin sees less than the static rule, which stays the
+    authority; the two run side by side, the lint in its own process."""
+    from distributed_llm_tpu_torch.engine.manager import EngineManager
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_llm_tpu_torch.lint", "--json"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        tier = dataclasses.replace(nano, max_new_tokens=LINT_MAX_NEW,
+                                   enable_prefix_cache=False)
+        fresh_peak(torch, on_card)
+        manager = EngineManager(tier, seed=0, device=device,
+                                warmup_on_start=False)
+        manager.start_server()
+        engine = manager.engine()
+        try:
+            reqs = [engine.submit(words(40, offset=13 * i),
+                                  max_new_tokens=LINT_MAX_NEW)
+                    for i in range(tier.decode_batch)]
+            deadline = time.monotonic() + 120
+            while (engine.queue_depth() or any(s is None
+                                               for s in engine._slots)):
+                require(time.monotonic() < deadline,
+                        "lint phase: the slots never all decoded")
+                require(not any(r.done.is_set() for r in reqs),
+                        "lint phase: a request ended before the window")
+                time.sleep(0.005)
+            settle = engine.ticks_total + LINT_SETTLE_TICKS
+            while engine.ticks_total < settle:
+                time.sleep(0.002)
+            with sync_watch(torch, engine._thread) as syncs:
+                reset_counts()
+                start = engine.ticks_total
+                while engine.ticks_total < start + LINT_WINDOW_TICKS:
+                    require(time.monotonic() < deadline,
+                            "lint phase: the ticks stalled")
+                    time.sleep(0.002)
+                ticks = engine.ticks_total - start
+                launches, plain_calls = read_counts(("ragged_decode",),
+                                                    on_card)
+            active = sum(1 for s in engine._slots if s is not None)
+            queued = engine.queue_depth()
+        finally:
+            manager.stop_server()
+        require(not syncs["outside"],
+                f"lint phase: {len(syncs['outside'])} synchronizing calls "
+                f"outside _fetch_tick over {ticks} steady ticks: "
+                f"{syncs['outside'][:4]}")
+        require(syncs["fetch"] >= ticks - 1,
+                f"lint phase: the sync check saw {syncs['fetch']} "
+                f"_fetch_tick syncs over {ticks} ticks")
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lint_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"lint phase: the lint exited {proc.returncode}: "
+            f"{out[-2000:]} {err[-2000:]}")
+    payload = json.loads(out)
+    require(payload["ok"] and payload["counts"]["findings"] == 0,
+            f"lint phase: findings: {[f for f in payload['findings'] if not f['suppressed']]}")
+    files = sum(1 for d, _, fs in os.walk(os.path.join(
+        REPO, "distributed_llm_tpu_torch")) if "__pycache__" not in d
+        for f in fs if f.endswith(".py"))
+    lint = {"files": files, "findings": payload["counts"]["findings"],
+            "suppressed": payload["counts"]["suppressed"],
+            "wall_s": lint_s}
+    log(f"lint: {files} files, {lint['findings']} findings, "
+        f"{lint['suppressed']} suppressed, {lint_s:.2f}s (beside the "
+        f"sync watch)")
+    return {"lint": lint,
+            "sync_watch": {"ticks": ticks, "fetch_syncs": syncs["fetch"],
+                           "outside_syncs": len(syncs["outside"]),
+                           "other_thread_syncs": syncs["other_threads"],
+                           "active_slots": active, "queued": queued},
+            "launches": launches, "plain_calls": plain_calls}, launches
+
+
 # Phases 7-9b, the sequential engines at full width and depth (also
 # ``--only``-able): (tier of (nano, orin), the kernels that must launch).
 SEQ_PHASES = {
@@ -7338,6 +7489,7 @@ LATE_PHASES = {
     "sp_ep": lambda torch, nano, orin: sp_ep_phase(torch, nano, orin),
     "train_mesh": lambda torch, nano, orin: train_mesh_phase(torch, nano,
                                                              orin),
+    "lint": lambda torch, nano, orin: lint_phase(torch, nano, orin),
     "bench": lambda torch, nano, orin: bench_phase(torch),
 }
 
@@ -7808,9 +7960,11 @@ def main() -> None:
     # training_mesh (tp=4) and (dp, sp, tp) = (2, 2, 2), the pipeline at
     # pp=2, moe_8x1b (4 layers) at ep=8, each against the unsharded
     # trainer and float32; a checkpoint moved between groups.
+    # 24. The port's lint over its tree, beside the steady ticks of the
+    # batched nano_1b watched for syncs outside _fetch_tick.
     for name in ("pressure_nano", "pressure_orin", "spill", "trained_chat",
                  "legs", "fleet", "fleet2", "edges", "moe", "train", "tp",
-                 "sp_ep", "train_mesh"):
+                 "sp_ep", "train_mesh", "lint"):
         late[name], late_launches[name] = LATE_PHASES[name](torch, nano, orin)
         log(f"{name} run in {time.perf_counter() - t_all:.1f}s")
         mark(name)
@@ -8009,6 +8163,8 @@ def main() -> None:
                    default=str))
     log(json.dumps({"card": card, "train_mesh": train_mesh_summary(
         late["train_mesh"])}, default=str))
+    log(json.dumps({"card": card, "lint": {
+        k: late["lint"][k] for k in ("lint", "sync_watch")}}))
     log(json.dumps({"card": card, "phase_s": phase_s,
                     "total_s": report["total_s"]}))
     log(f"{card}")

@@ -235,6 +235,7 @@ def _fetch_tick(x: torch.Tensor) -> np.ndarray:
     """THE tick's one device -> host sync: all of a tick's tokens (the
     plain tick's [T, B], a speculative round's [B, γ+2] tokens and
     accept counts) become observable in one pull."""
+    # dllm-lint: disable=transfer-host-sync -- THE one sanctioned sync per tick: the tick boundary, where all of a tick's tokens become observable in one pull (plain [T,B] or speculative (out, n_acc)) — every other hot-path sync must justify itself against this one
     return x.cpu().numpy()
 
 
@@ -661,6 +662,7 @@ class ContinuousBatchingEngine:
         arrays are rewritten only once the previous stage's copies have
         read them."""
         if self._adm_copied is not None:
+            # dllm-lint: disable=transfer-host-sync -- waits for the previous admission stage's input copies to read the pinned host arrays before they are rewritten; every stage but the copy-on-write one ends in its own token sync, so this returns at once or after a few bytes of copies, never a kernel
             self._adm_copied.synchronize()
         host = {name: h.numpy() for name, (h, _) in self._adm.items()}
         staged = []
@@ -794,6 +796,7 @@ class ContinuousBatchingEngine:
                        blocks: List[int]) -> int:
         """A cold prompt's admission (``_prefill_programs``); returns the
         first token: the admission's one sync."""
+        # dllm-lint: disable=transfer-host-round-trip -- sanctioned: the FIRST token must reach the host NOW (TTFT is the SLO and the value seeds the slot) — one sync per admission, never per tick
         return int(self._prefill_programs(ids, bucket, temp, blocks))
 
     def _chunk_first(self, tokens: Sequence[int], width: int, start: int,
@@ -810,6 +813,7 @@ class ContinuousBatchingEngine:
         first = self._built("chunk_prefill", (width, window)).run()
         if draft:
             self._built("draft", ("chunk", width, window)).run()
+        # dllm-lint: disable=transfer-host-round-trip -- sanctioned: the chunk IS the budgeted stall unit — its device time is exactly the TBT bound this design promises (and the histogram evidences), and the final chunk's sampled token must reach the host regardless; an async chunk would just move the same wait into the next decode tick's sync
         return int(first)
 
     def _cow_copy(self, src: int, dst: int) -> None:
@@ -1118,8 +1122,15 @@ class ContinuousBatchingEngine:
         """One admission attempt's prefix-cache outcome (shared |
         exclusive | miss) on ``dllm_prefix_hits_total{tier,kind}``: a
         KV-pressure requeue looks up again on re-admission, as the cache's
-        own hit and miss counts do."""
-        get_observability().m.prefix_hits.labels(self.tier.name, kind).inc()
+        own hit and miss counts do.  A failing metric never fails the
+        admission, as in the JAX engine: it is noted once the hit's
+        blocks and pin are handed off, and a raise there would leak
+        them."""
+        try:
+            get_observability().m.prefix_hits.labels(
+                self.tier.name, kind).inc()
+        except Exception:
+            logger.debug("prefix hit metric failed", exc_info=True)
 
     # -- block bookkeeping -------------------------------------------------
 
@@ -1509,8 +1520,9 @@ class ContinuousBatchingEngine:
                 self.prefix_cache.unshare(entry, m)
                 self._note_prefix_hit("miss")
                 return None
+            hit = shared + priv, entry, boundary_src, priv
             self._note_prefix_hit("shared")
-            return shared + priv, entry, boundary_src, priv
+            return hit
         owned = list(entry.cache["blocks"])
         if len(owned) < need:
             extra = self._alloc_evicting(need - len(owned))
@@ -1817,6 +1829,7 @@ class ContinuousBatchingEngine:
             pf.promote_entry = None
         if pf.promote_held is not None:
             if pf.promote_event is not None and not landed:
+                # dllm-lint: disable=transfer-host-sync -- runs only for a cancelled or failed promotion (landed=False): the served path releases after the final chunk's token sync with landed=True; the copies must land before their pinned host tiles go back to the spill tier
                 pf.promote_event.synchronize()
             spill.release(pf.promote_held, promoted=True)
             pf.promote_held = pf.promote_event = None
@@ -2150,7 +2163,7 @@ class ContinuousBatchingEngine:
 
     # -- scheduler -----------------------------------------------------------
 
-    def _loop(self) -> None:
+    def _loop(self) -> None:          # dllm-lint: hot-path
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
@@ -2432,6 +2445,7 @@ class ContinuousBatchingEngine:
                 f"mid-flight"))
             # The in-flight prefill holds blocks and maybe a promotion pin:
             # cancel it before the cache clear and the spill stop.
+            # dllm-lint: disable=lock-blocking-call -- bounded: the cancel waits only for the in-flight prefill's already-issued promotion copies, which must land before their host tiles are released; the lifecycle lock serializes start, stop and rescue only, and no liveness reader takes it
             self._cancel_prefill("engine stopping")
             if self.prefix_cache is not None:
                 # Parked blocks -> free list (_try_demote stands down once
@@ -2473,6 +2487,7 @@ class ContinuousBatchingEngine:
                 self._thread = None
             # The in-flight prefill frees its blocks, drops its promotion
             # pin and requeues at the head, where the drain below finds it.
+            # dllm-lint: disable=lock-blocking-call -- bounded: the cancel waits only for the in-flight prefill's already-issued promotion copies, which must land before their host tiles are released; the lifecycle lock serializes start, stop and rescue only, and no liveness reader takes it
             self._cancel_prefill("rescue_capture")
             for ix, slot in enumerate(self._slots):
                 if slot is None:

@@ -96,6 +96,7 @@ class EngineManager:
                 self._check_budget()
             engine = self._build(self.tier)
             if self.warmup_on_start:
+                # dllm-lint: disable=lock-blocking-call -- lifecycle lock intentionally held through warmup (the captures); all liveness readers (is_server_running, health) are lock-free
                 engine.warmup()
             self._started_at = time.time()
             self._engine = engine
@@ -225,6 +226,7 @@ class EngineManager:
             return engine
         with self._lock:
             if self._engine is None:
+                # dllm-lint: disable=lock-blocking-call -- cold-start serialization is exactly what the lifecycle lock is for; probes read lock-free, and a dispatcher must wait for the engine it asked for
                 self.start_server()
             return self._engine
 

@@ -134,7 +134,7 @@ class SystemStateSampler:
 
     # -- sampling ----------------------------------------------------------
 
-    def sample_once(self) -> Dict[str, Any]:
+    def sample_once(self) -> Dict[str, Any]:    # dllm-lint: hot-path
         """Take one sample NOW (also the on-demand path for
         ``GET /stats?timeline=1`` on an idle router).  A sample must
         stay tens-of-microseconds cheap

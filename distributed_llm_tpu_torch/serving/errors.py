@@ -11,6 +11,11 @@ from typing import Any, Dict, Optional
 
 ERROR_KEY = "error"
 
+# Every key an error dict may carry, and the keys with a numeric
+# contract: the ``error-shape`` lint rule holds every literal to them.
+ALLOWED_KEYS = frozenset({ERROR_KEY, "retry_after_s"})
+NUMERIC_KEYS = frozenset({"retry_after_s"})
+
 
 def error_dict(message: str,
                retry_after_s: Optional[float] = None) -> Dict[str, Any]:

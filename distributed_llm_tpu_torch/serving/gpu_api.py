@@ -163,6 +163,7 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
         def work():
             try:
                 with engine_lock:
+                    # dllm-lint: disable=lock-blocking-call -- the engine lock IS the queue: sequential engines require serialized callers, and admission + request_timeout_s bound the wait (the handler waits on the request with the timeout, never on the lock)
                     req.result = engine.generate(
                         query, max_new_tokens=max_new, temperature=temperature)
             except Exception as exc:        # reported by the waiting handler
@@ -206,6 +207,7 @@ def create_tier_app(tier_name: str, cluster: Optional[ClusterConfig] = None,
         if callable(stall) and deadline is not None:
             stall_s = stall()
             if stall_s > deadline:
+                # dllm-lint: disable=error-shape -- health-probe snapshot (GET /health surface: ok+wedged+error), not the tier error path
                 return jsonify({
                     "ok": False, "wedged": True,
                     "error": (f"decode watchdog: no step progress for "

@@ -84,6 +84,7 @@ class HealthMonitor:
             running = mgr.is_server_running()
             health = mgr.health()
         except Exception as exc:
+            # dllm-lint: disable=error-shape -- health-probe snapshot (GET /health surface: ok+error), not the tier error path
             return "failed", {"ok": False, "error": str(exc)}
         if health.get("draining"):
             # Intentional shedding: never a failure, never restarted.

@@ -278,6 +278,7 @@ class ReplicaSetManager:
             try:
                 reps[r.name] = r.mgr.health()
             except Exception as exc:
+                # dllm-lint: disable=error-shape -- health-probe snapshot (GET /health surface), not the tier error path
                 reps[r.name] = {"ok": False, "error": str(exc)[:200]}
         healthy = sum(1 for h in reps.values() if h.get("ok"))
         running = sum(1 for h in reps.values() if h.get("uptime_s"))

@@ -367,7 +367,7 @@ class Router:
             s.sample_once()
         return s.snapshot()
 
-    def _sampler_collect(self) -> Dict[str, Dict[str, Any]]:
+    def _sampler_collect(self) -> Dict[str, Dict[str, Any]]:  # dllm-lint: hot-path
         """One timeline sample's per-tier state: lock-free or own-locked
         in-memory reads only (load_snapshot, kv_stats, the tick ring, the
         draining flag), never the lifecycle lock a starting engine holds:

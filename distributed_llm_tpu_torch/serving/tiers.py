@@ -467,6 +467,7 @@ class TierClient:
                 result = engine.generate(history)
             else:
                 with self._engine_lock:
+                    # dllm-lint: disable=lock-blocking-call -- the engine lock IS the queue: sequential engines require serialized callers, and admission + request_timeout_s bound the wait
                     result = engine.generate(history)
         except Exception as exc:   # engine failure -> reference error shape
             shape = getattr(exc, "shape", None)
@@ -546,6 +547,7 @@ class TierClient:
             # A sequential engine's lock is its queue: this wait is the
             # streaming twin of the batched engine's queue wait.
             with obs_spans.span(trace, "engine_lock_wait", tier=self.name):
+                # dllm-lint: disable=thread-acquire-leak -- the STREAM owns this lock past the frame: release_all/_PrimedStream release it on exhaustion/close/GC, and the except-BaseException below releases on setup failure — a try/finally here would release while the stream is still decoding
                 acquired = self._engine_lock.acquire(
                     timeout=timeout if timeout is not None else -1)
             if not acquired:
@@ -561,6 +563,7 @@ class TierClient:
                 finish_admission()
 
             try:
+                # dllm-lint: disable=lock-blocking-call -- a sequential engine's stream must hold the engine lock for its whole life (released by _PrimedStream on exhaustion/close/GC); the acquire above is bounded by request_timeout_s
                 clipped = ClippedStream(engine.generate_stream(history),
                                         prime_drain_chars=PRIME_DRAIN_CHARS)
                 handle_box["handle"] = clipped

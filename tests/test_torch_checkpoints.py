@@ -42,6 +42,8 @@ from distributed_llm_tpu.utils import checkpoint as jax_ckpt  # noqa: E402
 from distributed_llm_tpu_torch import config as torch_config  # noqa: E402
 from distributed_llm_tpu_torch.models import checkpoint as torch_ckpt  # noqa: E402
 from distributed_llm_tpu_torch.models import transformer as T  # noqa: E402
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 PRESETS = ("nano_test", "orin_test")
 VERSIONS = {"nano_test": "v500", "orin_test": "v320"}

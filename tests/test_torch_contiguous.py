@@ -42,6 +42,8 @@ from distributed_llm_tpu_torch.models import transformer as TT
 from distributed_llm_tpu_torch.models.convert import params_from_jax
 from distributed_llm_tpu_torch.ops import attention as TA
 from distributed_llm_tpu_torch.ops import flash_attention as TF
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

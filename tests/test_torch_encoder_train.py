@@ -33,6 +33,8 @@ from distributed_llm_tpu.routing import encoder_eval as jax_eval
 from distributed_llm_tpu.routing import encoder_train as jax_train
 from distributed_llm_tpu_torch.routing import encoder, encoder_data
 from distributed_llm_tpu_torch.routing import encoder_eval, encoder_train
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 STEPS, BATCH, LR, EPS = 5, 8, 3e-3, 1e-8
 

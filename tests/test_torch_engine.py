@@ -205,3 +205,33 @@ def test_engine_refuses_unported_features():
         engine.stop()
     with pytest.raises(NotImplementedError):
         _port_engine(decode_batch=1)
+
+
+def test_failing_prefix_hit_metric_leaks_no_shared_blocks(monkeypatch):
+    """A shared prefix hit hands its blocks off before the hit's metric
+    is noted, and a failing metric never fails the admission, as in the
+    JAX engine (``_note_prefix_hit`` swallows it there).  Before, a raise
+    from ``dllm_prefix_hits_total`` escaped ``_reuse_blocks`` after the
+    share incref and the private allocation: the follow-up turn failed
+    and the pool kept every one of those blocks after ``stop()``."""
+    from distributed_llm_tpu_torch.obs import get_observability
+
+    class Broken:
+        def labels(self, *values):
+            raise RuntimeError("metric registry unavailable")
+
+    engine = _port_engine(share_prefix_kv=True)
+    try:
+        turn1 = [{"role": "user", "content": "tell me about the tallest "
+                                             "mountains"}]
+        first = engine.generate(turn1, max_new_tokens=6)
+        monkeypatch.setattr(get_observability().m, "prefix_hits", Broken())
+        hits = engine.prefix_cache.stats()["hits_shared"]
+        turn2 = turn1 + [{"role": "assistant", "content": first.text},
+                         {"role": "user", "content": "and the lakes?"}]
+        second = engine.generate(turn2, max_new_tokens=6)
+        assert second.gen_tokens > 0
+        assert engine.prefix_cache.stats()["hits_shared"] == hits + 1
+    finally:
+        engine.stop()
+    assert engine.allocator.ref_stats()["allocated_blocks"] == 0

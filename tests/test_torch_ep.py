@@ -61,6 +61,8 @@ from distributed_llm_tpu_torch.parallel.sharding import (EXPERT_SPLIT,
 from distributed_llm_tpu_torch.utils.hbm_budget import (cluster_hbm_budget,
                                                         tier_hbm_budget)
 from test_torch_moe import _moe_tree
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 PRESET = "moe_test_ep_f32"
 LAYOUTS = [(4, 1), (2, 2), (1, 2)]             # (ep, tp)

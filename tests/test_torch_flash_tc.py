@@ -18,12 +18,13 @@ scale into P, and rounds P to bf16 with m in log2 units.
   ``flash_chunk_attention_q8`` / ``paged_chunk_attention`` in interpret
   mode (atol 2e-5, float32, as tests/test_torch_contiguous.py and
   tests/test_torch_split_decode.py): head dim 64 and 128, GQA groups 1, 4
-  and 8; the prefill at 5, 16, 20, 37 and 256 rows; the int8 chunk at 5,
-  16, 20, 37 and 256 rows (the Pallas native regime) and 384 (its
-  transposed regime) over windows of a longer cache, the short ones over a
-  100-key window whose last tile is partial, with frontiers on a tile
-  boundary, one key past it, at 0 and at W - 1; the paged chunk over
-  table-scattered blocks of 32, 64 and 128 positions;
+  and 8; the prefill at 5, 16, 20, 37 and 256 rows; the paged chunk over
+  table-scattered blocks of 32, 64 and 128 positions; the int8 chunk's
+  cases (``CHUNKS``: 5, 16, 20, 37 and 256 rows, the Pallas native
+  regime, and 384, its transposed regime, over windows of a longer
+  cache, the short ones over a 100-key window whose last tile is
+  partial, with frontiers on a tile boundary, one key past it, at 0 and
+  at W - 1) are built here and run in tests/test_torch_flash_tc_q8.py;
 - the mirror as the card rounds (P in bf16) within the 1e-2 row bound
   that chip_smoke holds the kernels to, and not equal to float32; and a
   prompt's rows bit-identical between the cold prefill (K2) and a prefix
@@ -48,6 +49,8 @@ from distributed_llm_tpu.ops import pallas_attention as JP
 from distributed_llm_tpu.ops import quant as JQ
 from distributed_llm_tpu_torch.ops import attention as TA
 from distributed_llm_tpu_torch.ops import flash_attention as TF
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 NKV = 2
 ROW_TOL = 1e-2                 # chip_smoke's per-row bound (KERNEL_REL_TOL)
@@ -145,34 +148,6 @@ def _jax_chunk(d: int, group: int, name: str) -> np.ndarray:
             jnp.asarray(ks[:, :w]), jnp.asarray(vs[:, :w]), jnp.asarray(pos)),
             np.float32)
     return _JAX[key]
-
-
-@pytest.mark.parametrize("name", sorted(CHUNKS))
-@pytest.mark.parametrize("group", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
-def test_chunk_q8_mirror_matches_plain_and_jax(d, group, name):
-    q, k, v, ks, vs, pos = _window(_chunk_case(d, group, name))
-    assert not k.is_contiguous()
-    out = TF.flash_tc_mirror(q, k, v, pos, ks, vs,
-                             p_dtype=torch.float32)
-    assert out.dtype == torch.float32 and out.shape == q.shape
-    np.testing.assert_allclose(
-        out.numpy(), TA._chunk_contiguous_q8(q, k, v, ks, vs, pos).numpy(),
-        atol=1e-5, rtol=0)
-    np.testing.assert_allclose(out.numpy(), _jax_chunk(d, group, name),
-                               atol=2e-5, rtol=0)
-
-
-def test_chunk_q8_mirror_matches_plain_on_padded_rows():
-    """Rows past a chunk's true length carry positions clamped to it (the
-    kernel reads each row's position): they match the plain version too."""
-    q, k, v, ks, vs, pos = _window(_chunk_case(64, 4, "rows37"))
-    pos = torch.minimum(pos, pos[:, :1] + 30)
-    out = TF.flash_tc_mirror(q, k, v, pos, ks, vs,
-                             p_dtype=torch.float32)
-    np.testing.assert_allclose(
-        out.numpy(), TA._chunk_contiguous_q8(q, k, v, ks, vs, pos).numpy(),
-        atol=1e-5, rtol=0)
 
 
 # -- K3: the suffix chunk over a slot's paged pool blocks ---------------------

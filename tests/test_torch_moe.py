@@ -41,6 +41,8 @@ from distributed_llm_tpu_torch.models.convert import params_from_jax
 from distributed_llm_tpu_torch.ops import quant as TQ
 from distributed_llm_tpu_torch.utils.hbm_budget import tier_hbm_budget
 from test_torch_engine import _tree
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 PRESET = "moe_test_f32"
 DRAFT = "draft_test_moe_f32"

@@ -31,6 +31,8 @@ from distributed_llm_tpu_torch.models import moe as TM
 from distributed_llm_tpu_torch.models.convert import params_from_jax
 from test_torch_engine import _tree
 from test_torch_moe import DRAFT, PRESET, presets  # noqa: F401
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 PROMPTS = ["rivers carry water down from the mountains to the sea",
            "bright stars shine over quiet hills tonight",

@@ -62,6 +62,8 @@ from distributed_llm_tpu_torch.ops import quant as TQ
 from distributed_llm_tpu_torch.utils.hbm_budget import (model_bytes,
                                                         tier_hbm_budget)
 from test_torch_engine import _tree
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

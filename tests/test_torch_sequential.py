@@ -36,6 +36,8 @@ from distributed_llm_tpu_torch.engine.manager import EngineManager
 from distributed_llm_tpu_torch.engine.speculative import SpeculativeEngine
 from distributed_llm_tpu_torch.models.convert import params_from_jax
 from test_torch_engine import _tree
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 F32 = {name: f"{name}_f32" for name in ("nano_test", "orin_test",
                                         "draft_test")}

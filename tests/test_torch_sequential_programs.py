@@ -63,6 +63,8 @@ from distributed_llm_tpu_torch.ops import flash_attention as TF
 from distributed_llm_tpu_torch.ops import launches
 from test_torch_compiled_tick import _FakeGraph
 from test_torch_engine import _tree
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 MAX_SEQ = 1024
 F32 = {name: f"{name}_f32_1k" for name in ("nano_test", "orin_test",

@@ -52,6 +52,8 @@ from distributed_llm_tpu_torch.parallel.mesh import (DeviceGroup,
 from distributed_llm_tpu_torch.utils.hbm_budget import (cluster_hbm_budget,
                                                         tier_hbm_budget)
 from test_torch_engine import _tree
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 LONG = ("user: " + "tell me about sequence parallel rings, "

@@ -54,6 +54,8 @@ from distributed_llm_tpu.ops import ragged_attention as JR
 from distributed_llm_tpu_torch.ops import attention as TA
 from distributed_llm_tpu_torch.ops import flash_attention as TF
 from distributed_llm_tpu_torch.ops import ragged_attention as TR
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 NKV, BS, MB, B = 2, 16, 12, 6
 

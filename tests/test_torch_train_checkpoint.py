@@ -33,6 +33,8 @@ from distributed_llm_tpu_torch.training import evaluate, pretrain
 from distributed_llm_tpu_torch.training.data import batches
 from distributed_llm_tpu_torch.training.trainer import TrainConfig, Trainer
 from distributed_llm_tpu_torch.utils import checkpoint as ckpt
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 PRESETS = torch_config.MODEL_PRESETS
 

@@ -69,6 +69,8 @@ from distributed_llm_tpu_torch.utils import checkpoint as ckpt
 from test_torch_moe import _moe_tree
 from test_torch_training import (F32, LR, STEPS, _tree,  # noqa: F401
                                  assert_params_match, presets)
+from test_torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 B, S = 8, 32
 KW = dict(batch_size=B, seq_len=S, learning_rate=LR, warmup_steps=1,
