@@ -45,11 +45,17 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    contiguous-cache decode and chunk kernels of the sequential engines
    (bf16 and int8) likewise, at their serving shapes; W1
    (``ops.quant.w8_matmul``) at every projection shape of nano_1b and
-   orin_8b for 1, 4, 8, 20, 40 and 64 rows, each row within
-   KERNEL_REL_TOL of the plain version in float32, each timed beside the
-   plain version (cast, ``torch.matmul``, scale), cuBLAS bf16 on the
+   orin_8b for 1, 4, 8, 20, 40 and 64 rows (its decode regime) and 128,
+   256, 512, 1024 and 2048 (its wide regime), single and grouped
+   (q/k/v, gate/up: each output bit for bit its lone launch's), each row
+   within KERNEL_REL_TOL of the plain version in float32, each launch's
+   graph-replayed output bit for bit its eager one, each timed beside the
+   cast route (cast, ``torch.matmul``, scale), cuBLAS bf16 on the
    unquantized weight and the bound, with one decode step's products
-   summed per model;
+   summed per model and its W1 launches (``launches_per_step``), the
+   step also replayed as one graph over distinct per-layer weights, both
+   repeated within the run, and split launches that overlap on two
+   streams (one replayed, one eager) each bit for bit the lone one's;
 4. serve nano: the default nano tier (nano_1b at full width, seeded
    random weights) under EngineManager behind the /query server on
    127.0.0.1; cold, chunked, prefix-hit, concurrent and streaming
@@ -342,17 +348,22 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    the authority).
 
 Phases 11, 15, 17 and 18 were cut in depth to pay for 19 and 20,
-phases 11 and 17 again for 21, 15 again for 22, and 20 for 23 (every
-path kept): phase 20 trains its tiny presets TRAIN_TINY_STEPS steps,
+phases 11 and 17 again for 21, 15 again for 22, 20 for 23, and 10, 15,
+16, 17 and 18 for W1's wide shapes (every path kept): phase 20 trains its
+tiny presets TRAIN_TINY_STEPS steps,
 the bench's sweep serves the first BENCH_QUERIES queries a strategy with
 BENCH_TREND_REPEATS trend repeats and runs its tiny tenant and
 autoscaler legs at BENCH_LEG_DEPTH, the legs' open-loop budget is
 LEG_OPENLOOP_S, phase 17's load and ramps are FLEET2_NOISY_LOAD_S,
-FLEET2_ELASTIC_PERIOD_S and FLEET2_CHAOS2_PERIOD_S, and the encoder
-trains EDGES_ENCODER_STEPS steps.
+FLEET2_ELASTIC_PERIOD_S and FLEET2_CHAOS2_PERIOD_S and its remote tier
+serves FLEET2_REMOTE_TURNS turns, phase 16's replica leg serves
+FLEET_REPLICA_REQUESTS requests, the encoder trains EDGES_ENCODER_STEPS
+steps, phase 10 runs the profiler's on/off bursts twice each way, and
+W1's timings average W8_ITERS replays.
 
 ``python3 chip_smoke.py --only=pressure_nano,pressure_orin,spill`` (any of
-those three, of the sequential phases ``orin_seq_bf16``,
+those three, ``w8`` (W1's check and times), ``orin_spec_bf16``,
+``orin_w8``, of the sequential phases ``orin_seq_bf16``,
 ``orin_seq_spec``, ``nano_seq_int8``, ``nano_seq_w8``, or ``trained_chat``,
 ``legs``, ``bench``, ``fleet``, ``fleet2``, ``edges``, ``moe``,
 ``train``, ``tp``, ``sp_ep``, ``train_mesh``, ``lint``) builds the kernels and runs
@@ -516,7 +527,8 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     return total / iters
 
 
-def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
+def graph_ms(torch, fn, iters: int = 20, flush=None, out=None,
+             times=None) -> float:
     """Device time of ``fn`` in ms: ``fn`` captured once as a CUDA graph
     (after a warm-up on a side stream), then ``iters`` replays, each after
     ``flush`` and between two CUDA events, all enqueued before one
@@ -524,7 +536,9 @@ def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
     less than the device's flush, so the host stays ahead of the device
     and no host time falls between a replay's events: neither the
     wrapper's Python (which outlasts a kernel of tens of microseconds)
-    nor the host's own jitter, which a synchronize per replay lets in."""
+    nor the host's own jitter, which a synchronize per replay lets in.
+    ``out``, a list, receives ``fn``'s captured output; ``times``, a list,
+    each replay's ms."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -533,7 +547,7 @@ def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        res = fn()
     graph.replay()                           # the first replay uploads it
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
@@ -546,7 +560,12 @@ def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
         end.record()
     torch.cuda.synchronize()
     del graph
-    return sum(start.elapsed_time(end) for start, end in events) / iters
+    if out is not None:
+        out.append(res)                      # what the replays wrote
+    each = [start.elapsed_time(end) for start, end in events]
+    if times is not None:
+        times.extend(each)
+    return sum(each) / iters
 
 
 def timed(torch, calls: dict, flush) -> dict:
@@ -1834,13 +1853,24 @@ def paged_decode_variant_checks(torch, gen, shapes=SERVING_SHAPES) -> dict:
 
 # -- W1: the int8-weight product ------------------------------------------------
 
-# The decode-shaped products' row counts: one row (the sequential
-# engines), orin's 4 and nano's 8 slots, orin's verify round (4 x 5), two
-# rounds' worth and W1's 64-row cap.
-W8_ROWS = (1, 4, 8, 20, 40, 64)
-W8_TIMED = ("orin_8b", "w_gate/w_up", 4)   # the row's headline shape
-# Products of each shape in one layer of a decode step's body.
+# The products' row counts: one row (the sequential engines), orin's 4 and
+# nano's 8 slots, orin's verify round (4 x 5), two rounds' worth and the
+# decode regime's 64; then the wide regime's: the prefill buckets and the
+# 256-row chunks.
+W8_ROWS = (1, 4, 8, 20, 40, 64, 128, 256, 512, 1024, 2048)
+W8_TIMED = ("orin_8b", "w_gate/w_up", 4)       # decode's headline shape
+W8_WIDE_TIMED = ("orin_8b", "w_gate/w_up", 256)  # wide's: one 256-row chunk
+# Products of each shape in one layer of a decode step's body, and the
+# layer's W1 launches (q/k/v grouped, wo, gate/up grouped, down).
 W8_PER_LAYER = {"wq/wo": 2, "wk/wv": 2, "w_gate/w_up": 2, "w_down": 1}
+W8_LAUNCHES_PER_LAYER = 4
+# Replays a W1 timing averages (graph_ms's default is 20; 132 launches of
+# 88 shapes and 44 groups are timed three ways).
+W8_ITERS = 10
+# Repeats of a decode step's timings within one run (``w8_step_times``).
+W8_STEP_REPEATS = 5
+# Rounds of the overlapping-launch check (``w8_overlap_check``).
+W8_OVERLAP_ROUNDS = 20
 
 
 def w8_shapes(cfg) -> dict:
@@ -1855,19 +1885,24 @@ def w8_shapes(cfg) -> dict:
 def w8_kernel_phase(torch, nano, orin):
     """W1 (``ops.quant.w8_matmul``, ``csrc/w8_matmul.cu``) at every
     full-width projection shape of nano_1b and orin_8b for every row count
-    of W8_ROWS: x bf16 N(0, 1), a bf16 N(0, 0.02) weight quantized by
+    of W8_ROWS (the decode regime up to 64 rows, the wide one above): x
+    bf16 N(0, 1), a bf16 N(0, 0.02) weight quantized by
     ``quant.quantize_tensor``; every output row within KERNEL_REL_TOL of
-    the plain version in float32 ((x @ q) * s in float32).  Each shape
-    and row count is timed as a replayed CUDA graph beside the plain
-    version (cast + ``torch.matmul`` + scale), cuBLAS bf16 on the
-    unquantized weight (the time to beat, ``cublas_bf16_ms``) and the
-    bound: bytes (K N + 2 N + 2 M K + 2 M N) at 3.35 TB/s or operations
-    (2 M K N) at 989 TFLOP/s.  The row's headline is orin_8b's w_gate at 4
-    rows (orin's decode), with eager times and, where this torch has it
-    on the card, one ``torch._weight_int8pack_mm`` call on the transposed
-    int8 weight as the library yardstick (timed here only).  Also the
-    products of one decode step's body summed per model at its tier's
-    slots."""
+    the plain version in float32 ((x @ q) * s in float32), and the output
+    of the launch replayed in a CUDA graph equal bit for bit to the eager
+    one.  The grouped launches (``quant.w8_matmul_many``: q/k/v, gate/up)
+    at every row count: each output equal bit for bit to its lone launch,
+    eagerly and replayed.  Each shape and row count is timed as a replayed
+    CUDA graph beside the cast route (cast + ``torch.matmul`` + scale,
+    ``plain_ms``), cuBLAS bf16 on the unquantized weight
+    (``cublas_bf16_ms``) and the bound: bytes (K N + 2 N + 2 M K + 2 M N)
+    at 3.35 TB/s or operations (2 M K N) at 989 TFLOP/s.  The headlines
+    are orin_8b's w_gate at 4 rows (decode) and at 256 (wide), with eager
+    times and, where this torch has it on the card, one
+    ``torch._weight_int8pack_mm`` call on the transposed int8 weight as
+    the library yardstick (timed here only).  Also one decode step's
+    products per model at its tier's slots, launched as the port launches
+    them (grouped) and one by one, with the launches a step takes."""
     from distributed_llm_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
@@ -1879,66 +1914,234 @@ def w8_kernel_phase(torch, nano, orin):
     def flush():
         flush_buf.zero_()
 
-    shapes, errs, timed_row = [], NO_ERR, None
+    def replayed(fn):
+        """(graph ms, the replays' output) of ``fn``."""
+        out = []
+        ms = graph_ms(torch, fn, iters=W8_ITERS, flush=flush, out=out)
+        return ms, out[0]
+
+    shapes, groups, errs, timed = [], [], NO_ERR, {}
     for cfg in (nano, orin):
+        weights = {}
         for name, (k, n) in w8_shapes(cfg).items():
-            w = quant.quantize_tensor(
+            weights[name] = quant.quantize_tensor(
                 (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(bf))
+        for name, (k, n) in w8_shapes(cfg).items():
+            w = weights[name]
             wb = quant.dequantize(w)
             for m in W8_ROWS:
                 x = torch.randn(m, k, generator=gen, device=dev).to(bf)
                 out = quant.w8_matmul(x, w.q, w.s)
                 torch.cuda.synchronize()
                 res = compare(out, quant._matmul_plain, (x, w.q, w.s))
-                agrees("w8_matmul", res, f" at {cfg.name} {name} M={m}")
+                where = f" at {cfg.name} {name} M={m}"
+                agrees("w8_matmul", res, where)
                 errs = worst(errs, res)
                 b, by = bound(k * n + 2 * n + 2 * m * k + 2 * m * n,
                               2 * m * k * n)
-                calls = {"ms": lambda: quant.w8_matmul(x, w.q, w.s),
-                         "plain_ms": lambda: quant._matmul_plain(x, w.q, w.s),
+                ms, rep = replayed(lambda: quant.w8_matmul(x, w.q, w.s))
+                require(torch.equal(rep, out),
+                        f"w8_matmul: replayed output differs{where}")
+                calls = {"plain_ms": lambda: quant._matmul_plain(x, w.q, w.s),
                          "cublas_bf16_ms": lambda: x @ wb}
+                plan = quant.w8_plan(m, [(k, n)], quant._sm_count(dev))
                 entry = {"model": cfg.name, "weight": name, "K": k, "N": n,
-                         "M": m, "plan": list(quant.w8_split_plan(k, n)),
-                         **{key: graph_ms(torch, fn, flush=flush)
+                         "M": m, "regime": quant.w8_route(x),
+                         "plan": {"tile": [plan.bm, plan.bn],
+                                  "chunks": list(plan.chunks[0]),
+                                  "items": plan.total_items,
+                                  "grid": plan.grid},
+                         "ms": ms,
+                         **{key: graph_ms(torch, fn, iters=W8_ITERS,
+                                          flush=flush)
                             for key, fn in calls.items()},
                          "bound_ms": b, "bound_by": by, **res}
                 shapes.append(entry)
-                if (cfg.name, name, m) == W8_TIMED:
-                    timed_row = dict(entry, res=res, eager={
-                        key: time_ms(torch, fn, flush=flush)
-                        for key, fn in calls.items()},
-                        library=w8_library(torch, x, w, flush))
-            del w, wb
+                for head in (W8_TIMED, W8_WIDE_TIMED):
+                    if (cfg.name, name, m) == head:
+                        timed[head] = dict(entry, res=res, eager={
+                            key: time_ms(torch, fn, flush=flush)
+                            for key, fn in (("ms", lambda: quant.w8_matmul(
+                                x, w.q, w.s)), *calls.items())},
+                            library=w8_library(torch, x, w, flush))
+            del wb
+        # The grouped launches: q/k/v (wk's weight twice for wk and wv)
+        # and gate/up (the gate weight twice).
+        for gname, names in (("qkv", ("wq/wo", "wk/wv", "wk/wv")),
+                             ("gate_up", ("w_gate/w_up", "w_gate/w_up"))):
+            pairs = [(weights[nm].q, weights[nm].s) for nm in names]
+            k = pairs[0][0].shape[0]
+            for m in W8_ROWS:
+                x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+                outs = quant.w8_matmul_many(x, pairs)
+                lone = [quant.w8_matmul(x, q, s) for q, s in pairs]
+                torch.cuda.synchronize()
+                where = f" at {cfg.name} {gname} M={m}"
+                require(all(torch.equal(a, b) for a, b in zip(outs, lone)),
+                        f"w8_matmul: a grouped output differs from its lone "
+                        f"launch{where}")
+                ms, rep = replayed(lambda: quant.w8_matmul_many(x, pairs))
+                require(all(torch.equal(a, b) for a, b in zip(rep, outs)),
+                        f"w8_matmul: replayed grouped output differs{where}")
+                if (cfg is nano and gname == "qkv" and m == 8):
+                    w8_overlap_check(torch, quant, x, pairs, outs)
+                at = {e["weight"]: e["ms"] for e in shapes
+                      if e["model"] == cfg.name and e["M"] == m}
+                groups.append({"model": cfg.name, "group": gname, "M": m,
+                               "ms": ms,
+                               "lone_ms": sum(at[nm] for nm in names)})
+        del weights
     steps = {}
     for cfg, m in ((nano, 8), (orin, 4)):
         at = {e["weight"]: e for e in shapes
               if e["model"] == cfg.name and e["M"] == m}
+        grp = {g["group"]: g["ms"] for g in groups
+               if g["model"] == cfg.name and g["M"] == m}
         steps[cfg.name] = {
-            "M": m, **{key: cfg.num_layers * sum(
+            "M": m,
+            "ms": cfg.num_layers * (grp["qkv"] + at["wq/wo"]["ms"]
+                                    + grp["gate_up"] + at["w_down"]["ms"]),
+            "lone_ms": cfg.num_layers * sum(
+                W8_PER_LAYER[w] * at[w]["ms"] for w in W8_PER_LAYER),
+            "launches_per_step": cfg.num_layers * W8_LAUNCHES_PER_LAYER,
+            **{key: cfg.num_layers * sum(
                 W8_PER_LAYER[w] * at[w][key] for w in W8_PER_LAYER)
-                for key in ("ms", "plain_ms", "cublas_bf16_ms", "bound_ms")}}
+                for key in ("plain_ms", "cublas_bf16_ms", "bound_ms")}}
+        steps[cfg.name].update(w8_step_times(torch, quant, cfg, m, gen,
+                                             flush))
     del flush_buf
     torch.cuda.empty_cache()
-    t = timed_row
-    lib_ms, lib_eager, lib_err = t["library"]
+
+    def headline(t):
+        lib_ms, lib_eager, lib_err = t["library"]
+        return {"shape": f"{t['model']} {t['weight']} K={t['K']} N={t['N']} "
+                         f"M={t['M']}",
+                **t["res"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "cublas_bf16_ms": t["cublas_bf16_ms"], "library_ms": lib_ms,
+                "library_rel_err": lib_err,
+                "eager": dict(t["eager"], library_ms=lib_eager),
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "plan": t["plan"]}
+
+    dec = headline(timed[W8_TIMED])
+    wide = headline(timed[W8_WIDE_TIMED])
     return {
         "name": "w8_matmul", "route": "cuda",
         "source": "distributed_llm_tpu_torch/csrc/w8_matmul.cu",
         "replaces": "distributed_llm_tpu/ops/quant.py:77",
         "replaces_note": "W1: the port's counterpart of XLA's fused "
                          "convert-and-dot in quant.matmul; no Pallas kernel",
-        "shape": f"{t['model']} {t['weight']} K={t['K']} N={t['N']} M={t['M']}"
-                 f" (checked at every projection of nano_1b and orin_8b, "
-                 f"M in {list(W8_ROWS)})",
-        **t["res"], "tol": TOL,
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "cublas_bf16_ms": t["cublas_bf16_ms"], "library_ms": lib_ms,
-        "library_rel_err": lib_err,
-        "eager": dict(t["eager"], library_ms=lib_eager),
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        **dec, "tol": TOL,
+        "shape": f"{dec['shape']} (checked at every projection of nano_1b "
+                 f"and orin_8b, M in {list(W8_ROWS)}, single and grouped, "
+                 f"eager and replayed)",
+        "wide": wide,
         "variants_max_abs_err": errs["max_abs_err"],
         "variants_rel_err": errs["rel_err"],
-        "decode_step_products": steps, "shapes": shapes}
+        "replay_bit_equal": True, "grouped_bit_equal": True,
+        "decode_step_products": steps, "shapes": shapes, "groups": groups}
+
+
+def w8_overlap_check(torch, quant, x, pairs, want):
+    """Split launches that overlap on the card: a grouped launch captured
+    as a CUDA graph and replayed on one stream while the same launch runs
+    eagerly on another, W8_OVERLAP_ROUNDS rounds, every output equal bit
+    for bit to ``want``.  Each launch's fix-up counters are its own (from
+    the allocator, or the graph's pool), so no interleaving of the two
+    streams' blocks can mix their counts."""
+    plan = quant.w8_plan(x.shape[0], [tuple(q.shape) for q, _ in pairs],
+                         quant._sm_count(x.device))
+    require(plan.part_floats > 0, "w8_matmul: the overlap check's launch "
+            "does not split")
+    cur = torch.cuda.current_stream()
+    side_a, side_b = torch.cuda.Stream(), torch.cuda.Stream()
+    side_a.wait_stream(cur)
+    with torch.cuda.stream(side_a):
+        quant.w8_matmul_many(x, pairs)
+    cur.wait_stream(side_a)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rep = quant.w8_matmul_many(x, pairs)
+    torch.cuda.synchronize()
+    replays, eager = [], []
+    side_a.wait_stream(cur)
+    side_b.wait_stream(cur)
+    for _ in range(W8_OVERLAP_ROUNDS):
+        with torch.cuda.stream(side_a):
+            graph.replay()
+            replays.append([y.clone() for y in rep])
+        with torch.cuda.stream(side_b):
+            eager.append(quant.w8_matmul_many(x, pairs))
+    torch.cuda.synchronize()
+    del graph
+    for i, outs in enumerate(replays + eager):
+        require(all(torch.equal(a, b) for a, b in zip(outs, want)),
+                f"w8_matmul: an overlapping launch's output differs "
+                f"(round {i % W8_OVERLAP_ROUNDS}, "
+                f"{'replayed' if i < W8_OVERLAP_ROUNDS else 'eager'})")
+
+
+def w8_step_times(torch, quant, cfg, m, gen, flush):
+    """A decode step's W1 products at ``m`` rows, timed two ways, each
+    repeated W8_STEP_REPEATS times in this run.  ``step_graph_ms``: the
+    step's 4 L launches (q/k/v grouped, wo, gate/up grouped, down) over L
+    = ``cfg.num_layers`` layers of distinct random int8 weights, so each
+    layer reads its own bytes as a served step does, captured as one CUDA
+    graph and replayed W8_ITERS times after one L2 flush each; the min,
+    median and max over every replay, and each repeat's mean.
+    ``summed_ms_repeats``: the summed method of ``decode_step_products``
+    (L times the four launches of one layer, each its own graph, replayed
+    after a flush each), repeated.  The graph's outputs equal the eager
+    launches' bit for bit."""
+    h, f = cfg.hidden_size, cfg.ffn_size
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    widths = {"wq": h, "wk": cfg.num_kv_heads * cfg.head_dim,
+              "wo": h, "w_gate": f, "w_down": h}
+    widths["wv"], widths["w_up"] = widths["wk"], widths["w_gate"]
+
+    def weight(k, n):
+        q = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                          generator=gen, device=dev)
+        s = (torch.rand(1, n, generator=gen, device=dev) * 1e-3
+             + 1e-4).to(bf)
+        return q, s
+
+    layers = [{name: weight(f if name == "w_down" else h, n)
+               for name, n in widths.items()}
+              for _ in range(cfg.num_layers)]
+    x = torch.randn(m, h, generator=gen, device=dev).to(bf)
+    xf = torch.randn(m, f, generator=gen, device=dev).to(bf)
+
+    def layer_launches(lw):
+        return [lambda: quant.w8_matmul_many(
+                    x, [lw["wq"], lw["wk"], lw["wv"]]),
+                lambda: [quant.w8_matmul(x, *lw["wo"])],
+                lambda: quant.w8_matmul_many(x, [lw["w_gate"], lw["w_up"]]),
+                lambda: [quant.w8_matmul(xf, *lw["w_down"])]]
+
+    def step():
+        return [y for lw in layers for fn in layer_launches(lw)
+                for y in fn()]
+
+    want = step()
+    replays, means, summed = [], [], []
+    for _ in range(W8_STEP_REPEATS):
+        out = []
+        means.append(graph_ms(torch, step, iters=W8_ITERS, flush=flush,
+                              out=out, times=replays))
+        require(all(torch.equal(a, b) for a, b in zip(out[0], want)),
+                f"w8_matmul: {cfg.name}'s replayed step differs from its "
+                f"eager launches")
+        summed.append(cfg.num_layers * sum(
+            graph_ms(torch, fn, iters=W8_ITERS, flush=flush)
+            for fn in layer_launches(layers[0])))
+    del layers, want
+    ordered = sorted(replays)
+    return {"step_graph_ms": {"min": ordered[0],
+                              "median": statistics.median(ordered),
+                              "max": ordered[-1], "repeats": means},
+            "summed_ms_repeats": summed}
 
 
 def w8_library(torch, x, w, flush):
@@ -1961,6 +2164,29 @@ def w8_library(torch, x, w, flush):
     return (graph_ms(torch, lambda: fn(x, qt, s), flush=flush),
             time_ms(torch, lambda: fn(x, qt, s), flush=flush),
             row_rel_err(out, ref))
+
+
+def serve_summary(serve: dict) -> dict:
+    """A served phase's numbers a debugging run prints."""
+    return {k: serve[k] for k in (
+        "cold_ttft_ms", "chunked_ttft_ms", "long_prompt_tokens", "w8_routes",
+        "launches_per_request", "plain_calls", "main_path_s")}
+
+
+def w8_summary(row: dict) -> dict:
+    """The W1 row's numbers a debugging run prints: the headlines, the
+    decode steps, and each shape's ms, cast-route ms, cuBLAS bf16 ms and
+    bound."""
+    keys = ("ms", "plain_ms", "cublas_bf16_ms", "library_ms", "bound_ms",
+            "rel_err", "plan")
+    return {"decode": {k: row[k] for k in keys}, "wide": {
+        k: row["wide"][k] for k in keys},
+        "steps": row["decode_step_products"],
+        "shapes": [[e["model"], e["weight"], e["M"], round(e["ms"], 4),
+                    round(e["plain_ms"], 4), round(e["cublas_bf16_ms"], 4),
+                    round(e["bound_ms"], 4)] for e in row["shapes"]],
+        "groups": [[g["model"], g["group"], g["M"], round(g["ms"], 4),
+                    round(g["lone_ms"], 4)] for g in row["groups"]]}
 
 
 # -- phases 4-6: serve ------------------------------------------------------------
@@ -2237,15 +2463,24 @@ def admission_audit(torch, on_card: bool):
                 delattr(cls, name)
 
 
+# W1's launches by regime, summed over every main path ``read_counts``
+# reads (the kernel row's ``launches_by_route``), and the last one read.
+W8_ROUTES = {"decode": 0, "wide": 0}
+W8_LAST = {"decode": 0, "wide": 0}
+
+
 def reset_counts() -> None:
-    """Every kernel's launch count (the bf16 chunk kernel's by route too)
-    and every plain version's call count (the int8 suffix chunk's too) set
-    to 0, just before a main path."""
+    """Every kernel's launch count (the bf16 chunk kernel's by route and
+    W1's by regime too) and every plain version's call count (the int8
+    suffix chunk's and W1's cast route's too) set to 0, just before a main
+    path."""
     from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import launches
+    from distributed_llm_tpu_torch.ops import quant as TQ
     for fn in kernel_wrappers().values():
         fn.launches = 0
     TF.flash_chunk_attention.route_launches = {"split": 0, "tc": 0}
+    TQ.w8_matmul.route_launches = {"decode": 0, "wide": 0}
     for fn in launches.plain_paths().values():
         fn.calls = 0
 
@@ -2253,13 +2488,18 @@ def reset_counts() -> None:
 def read_counts(expect, on_card: bool):
     """(launches by kernel, calls by plain version) since ``reset_counts``:
     every kernel in ``expect`` must have launched and, on the card, no
-    plain version may have run."""
+    plain version may have run (W1's cast route, ``_matmul_plain`` on a
+    CUDA tensor, among them)."""
+    from distributed_llm_tpu_torch.ops import quant as TQ
     launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
     plain_calls = {fn.__name__: fn.calls for fn in plain_versions()}
     require(all(launches[name] > 0 for name in expect),
             f"a kernel did not run on the main path: {launches}")
     require(not on_card or not any(plain_calls.values()),
-            f"plain attention ran on the main path: {plain_calls}")
+            f"a plain version ran on the main path: {plain_calls}")
+    for route, n in TQ.w8_matmul.route_launches.items():
+        W8_ROUTES[route] += n
+        W8_LAST[route] = n
     return launches, plain_calls
 
 
@@ -2331,6 +2571,7 @@ def serve_numbers(tier, engine, startup_s: float, main_s: float, drove: dict,
         "startup_s": startup_s, "main_path_s": main_s,
         "requests": n, "launches": launches, "plain_calls": plain_calls,
         "launches_per_request": {k: v / n for k, v in launches.items() if v},
+        "w8_routes": dict(W8_LAST),
         "concurrent": {"requests": len(results), "wall_s": drove["burst_s"],
                        "gen_tokens": gen_tokens,
                        "tokens_per_s": gen_tokens / drove["burst_s"],
@@ -2630,7 +2871,14 @@ def step_breakdown(torch, step, attn, layers: int) -> dict:
     mode); and the attention kernel's part, ``attn()`` (one layer's
     launch, graph-replayed, L2 flushed before each as the step finds each
     layer's cache cold) times ``layers``, and its share of the
-    graph-replayed step."""
+    graph-replayed step; and W1's launches in one eager step
+    (``w8_launches``: 0 on bf16 weights)."""
+    from distributed_llm_tpu_torch.ops import quant as TQ
+
+    before = TQ.w8_matmul.launches
+    step()
+    torch.cuda.synchronize()
+    w8_launches = TQ.w8_matmul.launches - before
     iters = 10
     step_graph_ms = graph_ms(torch, step, iters=iters)
     t0 = time.perf_counter()
@@ -2644,7 +2892,8 @@ def step_breakdown(torch, step, attn, layers: int) -> dict:
     return {"wall_ms": wall_ms, "graph_ms": step_graph_ms,
             "attention_ms": attn_ms,
             "attention_share": attn_ms / step_graph_ms,
-            "device_idle_share": max(0.0, 1.0 - step_graph_ms / wall_ms)}
+            "device_idle_share": max(0.0, 1.0 - step_graph_ms / wall_ms),
+            "w8_launches": w8_launches}
 
 
 def paged_step_breakdown(torch, engine) -> dict:
@@ -3780,7 +4029,7 @@ def eager_tick_split(torch, engine, log_dir: str) -> dict:
     return tick_split([e for e in device if e["cat"] == "kernel"], 3)
 
 
-def profiler_overhead(router, n: int = 3) -> dict:
+def profiler_overhead(router, n: int = 2) -> dict:
     """Tick p50 (the decode phase) and the wall per tick of the same burst
     with each engine's profiler on and with ``NULL_PROFILER``, back to
     back on one engine, ``n`` times each way (reported, not gated)."""
@@ -4284,11 +4533,9 @@ def uncounted():
     """Kernel launches (by shard too) and plain-version calls made inside
     are taken back: a near-tie check compares paths, it is no main
     path."""
-    from distributed_llm_tpu_torch.ops import flash_attention as TF
     from distributed_llm_tpu_torch.ops import launches
     saved = (launches.counts(), launches.call_counts(),
-             dict(TF.flash_chunk_attention.route_launches),
-             launches.shard_counts())
+             launches.route_counts(), launches.shard_counts())
     try:
         yield
     finally:
@@ -4296,7 +4543,8 @@ def uncounted():
             fn.launches = saved[0][name]
         for name, fn in launches.plain_paths().items():
             fn.calls = saved[1][name]
-        TF.flash_chunk_attention.route_launches = saved[2]
+        launches.add_routes(launches.since(saved[2], launches.route_counts()),
+                            -1)
         launches.reset_shards()
         launches.add_shards(saved[3])
 
@@ -4448,11 +4696,11 @@ def trained_chat_phase(torch, *, expect, device: str = "cuda"):
 # 25 of nano_1b's 64-token blocks, so the shared prefix dominates as the
 # tiny leg's does in 16-token blocks) and the open-loop leg's budget (the
 # bench cluster's start and warmup included; cut from 75 s to 40 to pay
-# for phases 19 and 20, each rate point 1.26 s, not 2.37; and to 32 for
-# phase 22).
+# for phases 19 and 20, each rate point 1.26 s, not 2.37; to 32 for
+# phase 22; and to 24 for W1's wide shapes, each point 1.0 s).
 LEG_GAMMA_MAX = 8
 LEG_SHARED_PREFIX = "system: " + words(700) + ". answer in one sentence."
-LEG_OPENLOOP_S = 32.0
+LEG_OPENLOOP_S = 24.0
 
 
 def legs_phase(torch, nano, orin, *, device: str = "cuda"):
@@ -4597,6 +4845,9 @@ FLEET_WATCHDOG_S = 4.0
 FLEET_HEALTH_S = 0.5
 FLEET_STREAMS = 6
 FLEET_STREAM_TOKENS = 192
+# Part (c): the replica leg's requests (the bench's default is 48; its
+# speedup is reported, not enforced).
+FLEET_REPLICA_REQUESTS = 32
 # The rescued replica's device memory after the restart and a collection
 # may exceed the memory before the kill by at most this share (the same
 # pool and weights are rebuilt; a dead engine left alive would double
@@ -4894,7 +5145,8 @@ def fleet_phase(torch, nano, orin, *, device: str = "cuda", cluster=None):
             torch, dataclasses.replace(cluster, nano=nano), audit, device),
             base),
         "replica": (lambda audit: fleet.replica_phase(
-            device, tie_check=tie_checker(torch),
+            device, n_requests=FLEET_REPLICA_REQUESTS,
+            tie_check=tie_checker(torch),
             tier=dataclasses.replace(nano, decode_batch=2,
                                      decode_steps_per_tick=8,
                                      max_new_tokens=24)), base),
@@ -4947,7 +5199,7 @@ def fleet_summary(res: dict) -> dict:
 FLEET2_NOISY_LOAD_S = 1.0
 FLEET2_ELASTIC_PERIOD_S = 6.0
 FLEET2_CHAOS2_PERIOD_S = 8.0
-FLEET2_REMOTE_TURNS = 4
+FLEET2_REMOTE_TURNS = 2
 FLEET2_REVIVE_S = 180.0
 TENANT_COUNTERS = ("dllm_tenant_device_time_ms_total",
                    "dllm_tenant_kv_block_ticks_total",
@@ -5458,7 +5710,7 @@ EDGES_REPL_TURNS = ("hello there", "what is the capital of france?",
                     "explain how rivers form deltas near the sea")
 EDGES_QUERIES = 4                 # the first general_knowledge queries (d)
 EDGES_THRESHOLDS = (100, 1000)
-EDGES_ENCODER_STEPS = 200         # the JAX package's default is 600
+EDGES_ENCODER_STEPS = 100         # the JAX package's default is 600
 EDGES_AB_LENGTHS = (256, 2048)
 EDGES_AB_BATCHES = (1, 8)
 EDGES_CHILD_S = 600.0
@@ -7454,7 +7706,34 @@ SEQ_PHASES = {
                      "w8_matmul")),
 }
 
+ORIN_LENGTHS = (4, 60, 150, 240)
+
+
+def orin_w8_phase(torch, nano, orin):
+    """6b: orin_8b with int8 weights and the nano_1b draft (int8 weights
+    too), batched: the decode, verify and draft rows through W1's decode
+    regime, the prefills and the long prompt's four 256-row chunks through
+    its wide regime, and no cast route."""
+    serve, launches = serve_phase(
+        torch, dataclasses.replace(orin, quantize="int8",
+                                   draft_preset=nano.model_preset),
+        lengths=ORIN_LENGTHS, sampled=True,
+        expect=("ragged_decode", "flash_causal", "paged_chunk",
+                "ragged_verify", "w8_matmul"))
+    require(all(serve["w8_routes"].values()),
+            f"orin_w8: a regime of W1 never ran: {serve['w8_routes']}")
+    return serve, launches
+
+
 LATE_PHASES = {
+    "w8": lambda torch, nano, orin: (w8_kernel_phase(
+        torch, nano.model(), orin.model()), {}),
+    "orin_spec_bf16": lambda torch, nano, orin: serve_phase(
+        torch, dataclasses.replace(orin, draft_preset=nano.model_preset),
+        lengths=ORIN_LENGTHS, sampled=True,
+        expect=("ragged_decode", "flash_causal", "paged_chunk",
+                "ragged_verify")),
+    "orin_w8": orin_w8_phase,
     **{name: (lambda torch, nano, orin, make=make, expect=expect:
               serve_sequential_phase(torch, make(nano, orin), expect=expect))
        for name, (make, expect) in SEQ_PHASES.items()},
@@ -7834,7 +8113,10 @@ def main() -> None:
                       "w") as f:
                 json.dump(numbers, f, indent=1, default=str)
             log(json.dumps({name: (leg_summary(numbers) if name in (
-                "legs", "bench") else fleet_summary(numbers)
+                "legs", "bench") else w8_summary(numbers) if name == "w8"
+                else serve_summary(numbers) if name in ("orin_w8",
+                                                        "orin_spec_bf16")
+                else fleet_summary(numbers)
                 if name == "fleet" else fleet2_summary(numbers)
                 if name == "fleet2" else edges_summary(numbers)
                 if name == "edges" else moe_summary(numbers)
@@ -7874,12 +8156,9 @@ def main() -> None:
         expect=("ragged_decode", "flash_causal", "paged_chunk"), repeat=True)
     log(f"nano served in {time.perf_counter() - t_all:.1f}s")
     mark("nano")
-    orin_lengths = (4, 60, 150, 240)
-    phases["orin_spec_bf16"], spec_launches = serve_phase(
-        torch, dataclasses.replace(orin, draft_preset=nano.model_preset),
-        lengths=orin_lengths, sampled=True,
-        expect=("ragged_decode", "flash_causal", "paged_chunk",
-                "ragged_verify"))
+    orin_lengths = ORIN_LENGTHS
+    phases["orin_spec_bf16"], spec_launches = LATE_PHASES["orin_spec_bf16"](
+        torch, nano, orin)
     log(f"orin (bf16 KV, nano_1b draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
     mark("orin_spec_bf16")
@@ -7895,14 +8174,13 @@ def main() -> None:
     mark("orin_spec_int8")
     # 6b. orin_8b with int8 weights and the nano_1b draft (int8 weights
     # too): the decode, verify and draft rows through W1.
-    phases["orin_w8"], w8_launches = serve_phase(
-        torch, dataclasses.replace(orin, quantize="int8",
-                                   draft_preset=nano.model_preset),
-        lengths=orin_lengths, sampled=True,
-        expect=("ragged_decode", "flash_causal", "paged_chunk",
-                "ragged_verify", "w8_matmul"))
+    phases["orin_w8"], w8_launches = LATE_PHASES["orin_w8"](torch, nano,
+                                                             orin)
     log(f"orin (int8 weights, nano_1b draft) served in "
         f"{time.perf_counter() - t_all:.1f}s")
+    log(json.dumps({"chunked_ttft_ms": {
+        p: phases[p]["chunked_ttft_ms"] for p in ("orin_spec_bf16",
+                                                  "orin_w8")}}))
     mark("orin_w8")
 
     # 7-9b. Serve the sequential engines (decode_batch=1): orin_8b with
@@ -8000,6 +8278,25 @@ def main() -> None:
             f"a route of flash_chunk never ran on a main path: {chunk_routes}")
     next(row for row in rows
          if row["name"] == "flash_chunk")["launches_by_route"] = chunk_routes
+    # W1's two regimes are one kernel: each must have run on the main
+    # paths, and the sequential int8-weight tier's long prompt takes the
+    # wide one as orin_w8's does (no cast route ran: read_counts).
+    require(all(phases["nano_seq_w8"]["w8_routes"].values()),
+            f"nano_seq_w8: a regime of W1 never ran: "
+            f"{phases['nano_seq_w8']['w8_routes']}")
+    require(all(W8_ROUTES.values()),
+            f"a regime of w8_matmul never ran on a main path: {W8_ROUTES}")
+    w8_row = next(row for row in rows if row["name"] == "w8_matmul")
+    w8_row["launches_by_route"] = dict(W8_ROUTES)
+    # A served decode step's W1 launches: one a layer's q/k/v, wo,
+    # gate/up and down each (orin_w8 batched, nano_seq_w8 sequential).
+    for model, phase in (("orin_8b", "orin_w8"), ("nano_1b", "nano_seq_w8")):
+        step = w8_row["decode_step_products"][model]
+        step["launches_per_served_step"] = (
+            phases[phase]["decode_step"] or {}).get("w8_launches")
+        require(step["launches_per_served_step"] == step["launches_per_step"],
+                f"{phase}: W1 launched {step['launches_per_served_step']} "
+                f"times a decode step, not {step['launches_per_step']}")
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -8020,7 +8317,8 @@ def main() -> None:
         summary[name] = {k: serve[k] for k in (
             "model", "engine", "draft", "quantize", "kv_quantize", "requests",
             "launches_per_request", "int8_chunk_calls", "cold_ttft_ms",
-            "chunked_ttft_ms", "flash_chunk_routes", "tick_stats", "spec",
+            "chunked_ttft_ms", "w8_routes", "flash_chunk_routes",
+            "tick_stats", "spec",
             "decode_step", "tick_graph_check", "prefill_graph_check",
             "seq_graph_check", "copies", "programs", "grow",
             "first_use_check", "loop_vs_round", "admission", "verify_step",
@@ -8173,7 +8471,7 @@ def main() -> None:
                                      "one_tile_short_rel_err", "short",
                                      "launches_by_route", "launches_by_shard",
                                      "cublas_bf16_ms",
-                                     "library_rel_err",
+                                     "library_rel_err", "wide",
                                      "decode_step_products")
                                     if k in row}} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -288,9 +288,10 @@ def chunk_prefill_paged(cfg: ModelConfig, model: Transformer,
 
     def attn(lp, h_in, i, sh):
         p, ins = sh.kv, sh.ins
-        q = quant.matmul(h_in, lp.wq).reshape(b, s_c, sh.nq, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, s_c, sh.nkv, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, s_c, sh.nkv, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, s_c, sh.nq, d)
+        k = k.reshape(b, s_c, sh.nkv, d)
+        v = v.reshape(b, s_c, sh.nkv, d)
         q = transformer.apply_rope(q, ins["sin"], ins["cos"])
         k = transformer.apply_rope(k, ins["sin"], ins["cos"])
         quant.put_kv_rows(p, i, (slice(None), ins["blk"], ins["off"]),
@@ -338,9 +339,10 @@ def decode_step_paged(cfg: ModelConfig, model: Transformer,
 
     def attn(lp, h_in, i, sh):
         p, ins = sh.kv, sh.ins
-        q = quant.matmul(h_in, lp.wq).reshape(b, sh.nq, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, sh.nkv, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, sh.nkv, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, sh.nq, d)
+        k = k.reshape(b, sh.nkv, d)
+        v = v.reshape(b, sh.nkv, d)
         q = transformer.apply_rope(q, ins["sin"], ins["cos"])
         k = transformer.apply_rope(k, ins["sin"], ins["cos"])
         quant.put_kv_rows(p, i, (slice(None), ins["blk"], ins["off"]),
@@ -389,9 +391,10 @@ def verify_step_paged(cfg: ModelConfig, model: Transformer,
 
     def attn(lp, h_in, i, sh):
         p, ins = sh.kv, sh.ins
-        q = quant.matmul(h_in, lp.wq).reshape(b, g, sh.nq, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, g, sh.nkv, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, g, sh.nkv, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, g, sh.nq, d)
+        k = k.reshape(b, g, sh.nkv, d)
+        v = v.reshape(b, g, sh.nkv, d)
         q = transformer.apply_rope(q, ins["sin"], ins["cos"])
         k = transformer.apply_rope(k, ins["sin"], ins["cos"])
         quant.put_kv_rows(p, i, (slice(None), ins["blk"], ins["off"]),

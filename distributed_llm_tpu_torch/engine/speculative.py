@@ -78,9 +78,10 @@ def decode_chunk(cfg, model: Transformer, tokens: torch.Tensor,
     rows = transformer.chunk_rows(start_pos, g, cache)
     for i, lp in enumerate(model.layers):
         h_in = transformer.rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = quant.matmul(h_in, lp.wq).reshape(b, g, cfg.num_heads, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, g, cfg.num_kv_heads, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, g, cfg.num_kv_heads, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, g, cfg.num_heads, d)
+        k = k.reshape(b, g, cfg.num_kv_heads, d)
+        v = v.reshape(b, g, cfg.num_kv_heads, d)
         q = transformer.apply_rope(q, sin, cos)
         k = transformer.apply_rope(k, sin, cos)
         quant.put_kv_rows(cache, i, rows, k, v)

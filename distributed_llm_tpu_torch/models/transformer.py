@@ -8,8 +8,9 @@ Weights live in ``nn.Module``s (``Transformer`` holding one
 pytree's stacked ``[L, ...]`` leaves over unchanged.  With int8 weights
 (``ops.quant.maybe_quantize``) each projection and the embedding table
 is an ``ops.quant.QTensor`` in place of its parameter; every product
-goes through ``quant.matmul``, ``embed_rows`` or ``tied_head``, which
-take either.  The forward functions stay plain functions of (cfg, model,
+goes through ``quant.matmul``, ``matmul_many`` (a layer's q/k/v and
+gate/up: one W1 launch each on the card), ``embed_rows`` or
+``tied_head``, which take either.  The forward functions stay plain functions of (cfg, model,
 tensors), like the JAX package's, and round to the parameter dtype at
 the same points.  Each layer's FFN is its own ``ffn`` (SwiGLU here; a
 ``models/moe.MoELayer`` routes to its experts), so they serve either
@@ -152,8 +153,8 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 def _swiglu(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
             down: torch.Tensor) -> torch.Tensor:
-    return quant.matmul(torch.nn.functional.silu(quant.matmul(x, gate))
-                        * quant.matmul(x, up), down)
+    g, u = quant.matmul_many(x, (gate, up))
+    return quant.matmul(torch.nn.functional.silu(g) * u, down)
 
 
 @dataclasses.dataclass
@@ -198,9 +199,10 @@ def _prefill_layer(cfg: ModelConfig, lp: nn.Module, x: torch.Tensor,
     b, s = x.shape[:2]
     d = cfg.head_dim
     h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
-    q = quant.matmul(h_in, lp.wq).reshape(b, s, cfg.num_heads, d)
-    k = quant.matmul(h_in, lp.wk).reshape(b, s, cfg.num_kv_heads, d)
-    v = quant.matmul(h_in, lp.wv).reshape(b, s, cfg.num_kv_heads, d)
+    q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+    q = q.reshape(b, s, cfg.num_heads, d)
+    k = k.reshape(b, s, cfg.num_kv_heads, d)
+    v = v.reshape(b, s, cfg.num_kv_heads, d)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     out = attention.causal(q, k, v).reshape(b, s, cfg.num_heads * d)
@@ -262,9 +264,10 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
     attend = attn or (lambda q, k, v, shard: attention.causal(q, k, v))
 
     def hook(lp, h_in, i, sh):
-        q = quant.matmul(h_in, lp.wq).reshape(b, s, sh.nq, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, s, sh.nkv, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, s, sh.nkv, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, s, sh.nq, d)
+        k = k.reshape(b, s, sh.nkv, d)
+        v = v.reshape(b, s, sh.nkv, d)
         q = apply_rope(q, sh.ins["sin"], sh.ins["cos"])
         k = apply_rope(k, sh.ins["sin"], sh.ins["cos"])
         ks[sh.index].append(k)
@@ -376,9 +379,10 @@ def decode_step(cfg: ModelConfig, model: Transformer, token: torch.Tensor,
 
     def hook(lp, h_in, i, sh):
         c, ins = sh.kv, sh.ins
-        q = quant.matmul(h_in, lp.wq).reshape(b, sh.nq, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, sh.nkv, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, sh.nkv, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, sh.nq, d)
+        k = k.reshape(b, sh.nkv, d)
+        v = v.reshape(b, sh.nkv, d)
         q = apply_rope(q, ins["sin"], ins["cos"])
         k = apply_rope(k, ins["sin"], ins["cos"])
         if attn is not None:
@@ -429,9 +433,10 @@ def chunk_prefill(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
 
     def attn(lp, h_in, i, sh):
         c, ins = sh.kv, sh.ins
-        q = quant.matmul(h_in, lp.wq).reshape(b, s_c, sh.nq, d)
-        k = quant.matmul(h_in, lp.wk).reshape(b, s_c, sh.nkv, d)
-        v = quant.matmul(h_in, lp.wv).reshape(b, s_c, sh.nkv, d)
+        q, k, v = quant.matmul_many(h_in, (lp.wq, lp.wk, lp.wv))
+        q = q.reshape(b, s_c, sh.nq, d)
+        k = k.reshape(b, s_c, sh.nkv, d)
+        v = v.reshape(b, s_c, sh.nkv, d)
         q = apply_rope(q, ins["sin"], ins["cos"])
         k = apply_rope(k, ins["sin"], ins["cos"])
         quant.put_kv_rows(c, i, (ins["b"], ins["row"]), k, v)

@@ -84,9 +84,11 @@ SIGNATURES: Dict[str, tuple] = {
                            ("flash_decode_q8", "flash_decode_attention_q8"),
                            ("flash_chunk", "flash_chunk_attention"),
                            ("flash_chunk_q8", "flash_chunk_attention_q8"))},
-    # W1: x, x row stride, q, s, y, partials; M, K, N, k-tiles per split,
-    # splits; stream
-    "w8_matmul": ("w8_matmul", [_P, _L] + [_P] * 4 + [_I] * 5 + [_P]),
+    # W1: x, x row stride; M, K, tile rows, weights; three times q, s, y,
+    # N, k-tiles a chunk (unused slots null and 0); partials and their
+    # floats, counters and their count; grid; stream
+    "w8_matmul": ("w8_matmul", [_P, _L] + [_I] * 4
+                  + ([_P] * 3 + [_I] * 2) * 3 + [_P, _L, _P, _L, _I, _P]),
 }
 _COMMON = ("ragged_verify.cuh", "flash_tc.cuh")
 

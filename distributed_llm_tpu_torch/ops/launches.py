@@ -6,10 +6,11 @@ once, at capture, and the kernel at every replay; so a replayed program
 (``engine/programs.TickProgram``) records what its capture added
 (``since``), takes it back (a capture launches nothing) and adds it again
 at every replay (``add``).  The counts then keep meaning kernels run on
-the card.  The plain attention paths count their calls (``.calls``) the
-same way (``call_counts``, ``add_calls``): on the card only the int8
-suffix chunk, which has no kernel, runs inside a program.  So do the
-bf16 chunk kernel's launches by route (``route_counts``, ``add_routes``).
+the card.  The plain paths (attention, and W1's cast route) count their
+calls (``.calls``) the same way (``call_counts``, ``add_calls``): on the
+card only the int8 suffix chunk, which has no kernel, runs inside a
+program.  So do the bf16 chunk kernel's launches by route and W1's by
+regime (``route_counts``, ``add_routes``).
 A tensor-parallel step runs each head shard's work inside
 ``on_shard(s)``, which also tallies the launches made there under shard
 ``s`` (``shard_counts``; a program's replays add them again,
@@ -51,11 +52,13 @@ def wrappers() -> Dict[str, Callable]:
 
 
 def plain_paths() -> Dict[str, Callable]:
-    """Every plain attention path that counts its calls, by its name: the
-    kernels' plain versions and the int8 suffix chunk."""
+    """Every plain path that counts its calls, by its name: the attention
+    kernels' plain versions, the int8 suffix chunk and W1's cast route
+    (``quant._matmul_plain`` on a CUDA tensor)."""
     from . import attention as TA
+    from . import quant as TQ
     return {fn.__name__: fn for fn in (
-        TA.causal_attention, TA._gather_decode_paged,
+        TQ._matmul_plain, TA.causal_attention, TA._gather_decode_paged,
         TA._gather_decode_windowed, TA._gather_verify_paged,
         TA._gather_chunk_paged, TA._dequant_chunk_paged,
         TA._decode_contiguous, TA._decode_contiguous_q8,
@@ -73,9 +76,12 @@ def call_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, int]:
-    """The bf16 chunk kernel's (K11's) launches by route."""
+    """The bf16 chunk kernel's (K11's) launches by route ("split", "tc")
+    and W1's by regime ("w8_decode", "w8_wide")."""
     from . import flash_attention as TF
-    return dict(TF.flash_chunk_attention.route_launches)
+    from . import quant as TQ
+    return {**TF.flash_chunk_attention.route_launches,
+            **{f"w8_{r}": n for r, n in TQ.w8_matmul.route_launches.items()}}
 
 
 def since(before: Dict[str, int],
@@ -103,10 +109,14 @@ def add_calls(deltas: Dict[str, int], times: int = 1) -> None:
 
 
 def add_routes(deltas: Dict[str, int], times: int = 1) -> None:
-    """Add ``times`` x ``deltas`` to the bf16 chunk kernel's route counts."""
+    """Add ``times`` x ``deltas`` to the route counts (``route_counts``)."""
     from . import flash_attention as TF
+    from . import quant as TQ
     for route, n in deltas.items():
-        TF.flash_chunk_attention.route_launches[route] += times * n
+        if route.startswith("w8_"):
+            TQ.w8_matmul.route_launches[route[3:]] += times * n
+        else:
+            TF.flash_chunk_attention.route_launches[route] += times * n
 
 
 @contextlib.contextmanager

@@ -22,7 +22,12 @@ user turn is rolled back if routing raises.  While the router drains,
 its requests' cost attribution; ``tenant_id`` (at most 64 printable
 characters; absent = the ``default`` tenant) keys the tenant quotas and
 billing.  /stats carries each quota-on tier's ``tenants`` block and the
-``autoscaler`` block.
+``autoscaler`` block, and JAX's ``measured_tables``: which measured tables
+steer serving on this backend.  ``backend`` is the router's device type;
+``dispatch`` is always "none", since the port has no attention dispatch
+table (each attention path has one kernel, routed by shape); ``tuning``
+is the backend where ``bench.tune.load_tuning`` finds a tuning table
+measured on it (``bench_cluster()`` overlays it), else "none".
 
     python -m distributed_llm_tpu_torch.serving.app      # port 8000
     python -m distributed_llm_tpu_torch [--port N] [--device cpu]
@@ -337,6 +342,7 @@ def create_app(router: Optional[Router] = None,
         speculation), the breaker, the SLO monitor and the cost ledger;
         ``?timeline=1`` adds the state sampler's ring and ``?debug=1`` the
         flight recorder's."""
+        from ..bench.tune import load_tuning
         from ..utils.telemetry import device_memory_snapshot
         from ..utils.telemetry import engine_stats
         with state_lock:
@@ -370,12 +376,16 @@ def create_app(router: Optional[Router] = None,
             if tq is not None:
                 entry["tenants"] = tq.snapshot()
             tiers[name] = entry
+        backend = router_.device.type
         payload = {
             "strategy": strategy,
             "sessions": sessions,
             "cache": router_.query_router.get_cache_stats(),
             "tiers": tiers,
             "devices": device_memory_snapshot(router_.device),
+            "measured_tables": {
+                "backend": backend, "dispatch": "none",
+                "tuning": backend if load_tuning(backend) else "none"},
             "prefix_affinity_overrides": router_.prefix_affinity_overrides,
             "breaker": (router_.breaker.snapshot()
                         if router_.breaker is not None else None),

@@ -25,12 +25,15 @@ JAX package's ``ops/quant.py``.
   the tiny presets (float32 copies): the batched engine, the batched
   engine with a draft (itself and ``draft_test``), ``InferenceEngine``
   and ``SpeculativeEngine``.
-- W1's algorithm (``w8_split_mirror``: column tiles, 64-row k-tiles,
-  float32 partials per split summed in split order, then the bf16
-  rounding and the scale) against the plain version and JAX, over the
-  plan's splits at tiny and full-width shapes; the plan's grid; the route
-  rule (W1 for at most 64 rows on the card, the wide route above, the
-  plain version on the CPU) and the wrapper's refusals.
+- W1's arithmetic (``w8_split_mirror``: the plan's tiles, chunks of
+  64-row k-tiles, each chunk's float32 partial from zero, a split tile's
+  partials summed in chunk order, then the bf16 rounding and the scale)
+  against the plain version and JAX at decode and wide shapes; the plan
+  at every served shape (chunks covering K, the grid, the blocks' equal
+  contiguous shares), a grouped plan cutting each weight as its lone one
+  does; ``matmul_many`` bit for bit the lone products; the route rule
+  (W1's decode regime for at most 64 rows on the card, its wide regime
+  above, the plain version on the CPU) and the wrapper's refusals.
 """
 
 from __future__ import annotations
@@ -397,15 +400,23 @@ def test_speculative_engine_int8_weights_emit_jax_tokens(weights):
 
 # -- W1: the kernel's algorithm, plan, route and refusals ------------------------
 
+# Decode shapes (1-64 rows), then wide ones (past 64 rows: 64 x 256
+# tiles, 128 x 256 in a launch of a wave of those, the last one here);
+# the plans cut these into 1 to 16 chunks a tile.
+MIRROR_SHAPES = [(1, 64, 128), (4, 320, 48), (8, 1024, 256), (20, 2048, 512),
+                 (64, 96, 16), (100, 256, 272), (130, 1024, 512),
+                 (65, 4096, 64), (300, 64, 6912)]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (4, 320, 48), (8, 1024, 256),
-                                   (20, 2048, 512), (64, 96, 16)])
+@pytest.mark.parametrize("m,k,n", MIRROR_SHAPES)
 def test_w8_split_mirror_matches_plain_and_jax(dtype, m, k, n):
-    """W1's split plan at these shapes runs 1 to 32 splits of one or more
-    64-row k-tiles (K past a tile boundary included); its float32 partials
-    summed in split order agree with the plain version (float32 within
-    1e-5 relative: another summation order; bf16 within one bf16 step of
-    the output, both rounding the same float32 sum) and with JAX."""
+    """W1's arithmetic at these shapes (the plan's tiles, chunks of one or
+    more 64-row k-tiles with K past a tile boundary, each chunk's float32
+    partial from zero, a split tile's partials summed in chunk order)
+    agrees with the plain version (float32 within 1e-5 relative: another
+    summation order; bf16 within one bf16 step of the output, both
+    rounding the same float32 sum) and with JAX."""
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(m + k + n)
     x = rng.standard_normal((m, k)).astype(np.float32)
@@ -424,20 +435,139 @@ def test_w8_split_mirror_matches_plain_and_jax(dtype, m, k, n):
     assert TQ.w8_matmul(tx, w.q, w.s).dtype == tdt      # CPU: the plain one
 
 
+def test_w8_mirror_shapes_cover_both_regimes_and_the_fix_up():
+    plans = [TQ.w8_plan(m, [(k, n)]) for m, k, n in MIRROR_SHAPES]
+    assert {p.bm for p in plans} == {8, 32, 64, 128}
+    for wide in (False, True):
+        assert {p.chunks[0][1] > 1 for p in plans
+                if (p.bn == 256) == wide} == {False, True}
+
+
 FULL_WIDTH = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# Every row count the card's check runs: decode rows, then the prefill
+# buckets and 256-row chunks.
+PLAN_ROWS = (1, 4, 8, 20, 40, 64, 128, 256, 512, 1024, 2048)
+
+
+def w8_shares(plan):
+    """Each block's items, [first, end), as ``csrc/w8_matmul.cu``'s
+    ``item_from`` deals them: the launch's k-tiles (weight by weight, tile
+    by tile) cut into ``grid`` equal contiguous shares, each item to the
+    block whose share holds its first k-tile.  The kernel's own dealing is
+    held on the card by chip_smoke's single and grouped checks."""
+    kt_base, item_base = [0], [0]
+    for tiles, items in zip(plan.tiles, plan.items):
+        kt_base.append(kt_base[-1] + tiles * plan.kt)
+        item_base.append(item_base[-1] + items)
+
+    def item_from(o):
+        if o >= kt_base[-1]:
+            return item_base[-1]
+        w = max(i for i in range(len(plan.tiles)) if kt_base[i] <= o)
+        t, r = divmod(o - kt_base[w], plan.kt)
+        chunk, nch = plan.chunks[w]
+        return item_base[w] + t * nch + -(-r // chunk)
+
+    total = kt_base[-1]
+    return [(item_from(b * total // plan.grid),
+             item_from((b + 1) * total // plan.grid))
+            for b in range(plan.grid)]
 
 
 @pytest.mark.parametrize("k,n", FULL_WIDTH)
 def test_w8_split_plan_fills_the_card(k, n):
-    tiles, splits = TQ.w8_split_plan(k, n)
-    k_tiles = -(-k // TQ.W8_BK)
-    assert splits == -(-k_tiles // tiles) and (splits - 1) * tiles < k_tiles
-    grid = -(-n // TQ.W8_BN) * splits
-    # Two blocks an SM where the contraction has enough k-tiles; a narrow
-    # weight (nano's wk/wv: 4 column tiles) takes one k-tile a split.
-    assert grid >= 0.9 * TQ.W8_TARGET_BLOCKS or tiles == 1
-    assert grid <= 2 * TQ.W8_TARGET_BLOCKS
+    """At every served row count: the chunks cover the weight's k-tiles
+    exactly (only the last may be short), at most W8_MAX_CHUNKS; the grid
+    is at most one block an SM and at most the items; the shares deal the
+    items to the blocks in contiguous runs of equal k-tiles to within one
+    chunk; a weight is split only where that shortens the longest share."""
+    for m in PLAN_ROWS:
+        plan = TQ.w8_plan(m, [(k, n)])
+        chunk, nch = plan.chunks[0]
+        kt = -(-k // TQ.W8_BK)
+        assert (nch - 1) * chunk < kt <= nch * chunk
+        assert nch <= TQ.W8_MAX_CHUNKS
+        ref = TQ.w8_tile(m)
+        assert plan.bm == ref[0] or (m > TQ.W8_DECODE_ROWS and plan.bm == 128)
+        assert (plan.bm == 128) == (m > TQ.W8_DECODE_ROWS and -(-m // ref[0])
+                                    * -(-n // ref[1]) >= TQ.W8_SMS)
+        assert plan.items == (plan.tiles[0] * nch,)
+        assert 1 <= plan.grid <= min(TQ.W8_SMS, plan.total_items)
+        shares = w8_shares(plan)
+        assert shares[0][0] == 0 and shares[-1][1] == plan.total_items
+        assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+        # Each block's k-tiles: its share of them, to within one chunk.
+        load = [sum(min(chunk, kt - (i % nch) * chunk)
+                    for i in range(first, end)) for first, end in shares]
+        total = plan.tiles[0] * kt
+        assert sum(load) == total
+        assert max(load) <= -(-total // plan.grid) + chunk
+        if nch > 1:
+            # A split pays only where the longest share gets shorter.
+            tiles = plan.tiles[0]
+            assert (max(load)
+                    < -(-tiles // min(tiles, TQ.W8_SMS)) * kt), (m, plan)
+        # The fix-up reads a partial a chunk: [BM, BN] float32 a slot.
+        assert plan.part_floats == (
+            plan.total_items * plan.bm * plan.bn if nch > 1 else 0)
+
+
+@pytest.mark.parametrize("m", PLAN_ROWS)
+def test_w8_grouped_plan_keeps_each_weights_chunks(m):
+    """A grouped launch (q/k/v, gate/up) cuts each weight as its lone
+    launch does, so each output sums in the same order: the bits of a
+    grouped product are the lone product's (its tile's rows may differ: a
+    group of a wave of reference tiles runs 128-row tiles).  Its items are
+    its weights' tiles x chunks laid end to end."""
+    for cfg_shapes in (((2048, 2048), (2048, 512), (2048, 512)),
+                       ((2048, 8192), (2048, 8192)),
+                       ((4096, 4096), (4096, 1024), (4096, 1024)),
+                       ((4096, 14336), (4096, 14336))):
+        group = TQ.w8_plan(m, list(cfg_shapes))
+        lone = [TQ.w8_plan(m, [shape]) for shape in cfg_shapes]
+        assert group.chunks == tuple(p.chunks[0] for p in lone)
+        assert group.tiles == tuple(-(-m // group.bm) * -(-n // group.bn)
+                                    for _, n in cfg_shapes)
+        assert group.items == tuple(t * nch for t, (_, nch)
+                                    in zip(group.tiles, group.chunks))
+        assert group.grid == min(TQ.W8_SMS, group.total_items)
+        # The shares cover every item once, each block's k-tiles equal to
+        # within the longest chunk, whatever the weights' chunk lengths.
+        shares = w8_shares(group)
+        assert shares[0][0] == 0 and shares[-1][1] == group.total_items
+        assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+        lengths = [min(c, group.kt - j * c) for (c, nch), t
+                   in zip(group.chunks, group.tiles)
+                   for _ in range(t) for j in range(nch)]
+        load = [sum(lengths[first:end]) for first, end in shares]
+        assert sum(load) == sum(t * group.kt for t in group.tiles)
+        assert max(load) <= (-(-sum(load) // group.grid)
+                             + max(c for c, _ in group.chunks))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matmul_many_equals_lone_products(dtype):
+    """``matmul_many`` gives each weight's ``matmul`` bit for bit (int8
+    q/k/v-shaped weights, plain weights, 2-D and 3-D x), and its mirror
+    holds: each grouped weight's plan and arithmetic are its lone one's."""
+    _, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(7)
+    ws = [torch.from_numpy(rng.standard_normal((64, n)).astype(np.float32)
+                           ).to(tdt) for n in (64, 32, 32)]
+    qs = [TQ.quantize_tensor(w) for w in ws]
+    for shape in ((5, 64), (2, 3, 64)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(tdt)
+        for weights in (qs, ws, qs[:2]):
+            got = TQ.matmul_many(x, weights)
+            assert len(got) == len(weights)
+            for y, w in zip(got, weights):
+                assert torch.equal(y, TQ.matmul(x, w))
+    x2 = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32)
+                          ).to(tdt)
+    for y, w in zip(TQ.w8_matmul_many(x2, [(w.q, w.s) for w in qs]), qs):
+        assert torch.equal(y, TQ._matmul_plain(x2, w.q, w.s))
 
 
 def _cuda_like(shape):
@@ -445,32 +575,44 @@ def _cuda_like(shape):
                                  numel=lambda: int(np.prod(shape)))
 
 
-@pytest.mark.parametrize("shape,route", [((1, 64), "w1"), ((64, 64), "w1"),
-                                         ((8, 8, 64), "w1"),
+@pytest.mark.parametrize("shape,route", [((1, 64), "decode"),
+                                         ((64, 64), "decode"),
+                                         ((8, 8, 64), "decode"),
                                          ((65, 64), "wide"),
                                          ((2, 40, 64), "wide"),
                                          ((1, 2048, 64), "wide")])
 def test_w8_route_rule(shape, route):
+    """On the card every product launches W1, by a shape rule between its
+    two regimes (no cast route); on the CPU the plain version."""
     assert TQ.w8_route(_cuda_like(shape)) == route
     assert TQ.w8_route(torch.zeros(shape)) == "plain"
+    assert (TQ.w8_tile(int(np.prod(shape[:-1])))[1] == 256) == (
+        route == "wide")
 
 
 def test_w8_cpu_products_launch_nothing():
     w = TQ.quantize_tensor(torch.randn(32, 16, dtype=torch.bfloat16))
     before = TQ.w8_matmul.launches
+    routes = dict(TQ.w8_matmul.route_launches)
+    casts = TQ._matmul_plain.calls
     TQ.matmul(torch.randn(4, 32, dtype=torch.bfloat16), w)
     TQ.w8_matmul(torch.randn(70, 32, dtype=torch.bfloat16), w.q, w.s)
+    TQ.matmul_many(torch.randn(3, 32, dtype=torch.bfloat16), (w, w))
     assert TQ.w8_matmul.launches == before
+    assert TQ.w8_matmul.route_launches == routes
+    assert TQ._matmul_plain.calls == casts      # the CPU is no cast route
 
 
 @pytest.mark.parametrize("case", ["rows", "k", "n", "dtype", "qdtype",
-                                  "stride", "scales", "shape"])
+                                  "stride", "scales", "shape", "count",
+                                  "second"])
 def test_w8_wrapper_refuses_what_the_kernel_does_not_take(case):
     x = torch.zeros(4, 64, dtype=torch.bfloat16)
     q = torch.zeros(64, 32, dtype=torch.int8)
     s = torch.ones(1, 32, dtype=torch.bfloat16)
+    extra = []
     if case == "rows":
-        x = torch.zeros(65, 64, dtype=torch.bfloat16)
+        x = torch.zeros(0, 64, dtype=torch.bfloat16)
     elif case == "k":
         x, q = x[:, :40], q[:40]
     elif case == "n":
@@ -483,10 +625,15 @@ def test_w8_wrapper_refuses_what_the_kernel_does_not_take(case):
         x = torch.zeros(4, 68, dtype=torch.bfloat16)[:, :64]
     elif case == "scales":
         s = torch.ones(1, 16, dtype=torch.bfloat16)
-    else:
+    elif case == "shape":
         q = torch.zeros(48, 32, dtype=torch.int8)
+    elif case == "count":
+        extra = [(q, s)] * 3                  # four weights in one launch
+    else:
+        # A group's second weight contracts another K.
+        extra = [(torch.zeros(48, 32, dtype=torch.int8), s)]
     with pytest.raises(ValueError, match="w8_matmul"):
-        TQ._check_w8(x, q, s)
+        TQ._check_w8(x, [(q, s)] + extra)
     TQ._check_w8(torch.zeros(4, 64, dtype=torch.bfloat16),
-                  torch.zeros(64, 32, dtype=torch.int8),
-                  torch.ones(1, 32, dtype=torch.bfloat16))
+                 [(torch.zeros(64, 32, dtype=torch.int8),
+                   torch.ones(1, 32, dtype=torch.bfloat16))] * 3)
